@@ -1,0 +1,279 @@
+"""Multimodal Swin Transformer, 2D (counterpart of
+`lavt_rs_tpu/models/swin2d.py`, the lavt_one path).
+
+NHWC / (B, L, C) tokens throughout.  Parameter names are the reference's
+(`layers.N.blocks.M.attn.qkv`, `layers.N.fusion...`, `norm{i}`).
+
+Routing with `use_kernels` (on a CUDA tensor the wrappers launch the
+hand-written kernels; on a CPU tensor they take their plain versions):
+  * the window MSA goes through K1 (`fused_window_msa_ln`, pre-attention LN
+    inside the kernel) where windowing needs no padding, and through K2
+    (`fused_window_msa`) after an explicit LN where it does: the model pads
+    after LN, and LN of a zero pad row would give ln_bias.  At 480² that
+    is K1 at stages 1-2 and K2 at stages 3 (30 -> 36) and 4 (15 -> 24);
+  * the LN -> MLP -> residual tail goes through K3 (`fused_ln_mlp`) at all
+    four stages (the kernel takes C up to 1024);
+  * the stage-output norms go through K4 (`layer_norm_rows`).
+With `use_kernels=False` the same routing calls the plain versions.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..config import FusionConfig, FusionKind, GateKind, StageOutput, SwinConfig
+from ..ops import fused_mlp, fused_msa, ln
+from ..ops.window import (relative_bias_from_table, relative_position_index_2d,
+                          shift_mask_2d, window_partition, window_reverse)
+from .pwam import PWAM, LanguageGate, apply_gate
+
+
+class WindowAttention(nn.Module):
+    """W-MSA with a learned relative-position bias; the whole module is one
+    fused-MSA call (K1 when the block's pre-attention LN is passed in)."""
+
+    def __init__(self, dim: int, window_size: int, num_heads: int,
+                 qkv_bias: bool = True, qk_scale: Optional[float] = None,
+                 use_kernels: bool = True):
+        super().__init__()
+        self.dim, self.window_size, self.num_heads = dim, window_size, num_heads
+        self.scale = qk_scale if qk_scale is not None else (dim // num_heads) ** -0.5
+        self.use_kernels = use_kernels
+        self.relative_position_bias_table = nn.Parameter(
+            torch.zeros((2 * window_size - 1) ** 2, num_heads))
+        # a copy on the default device: the index array is cached and shared
+        self.register_buffer("relative_position_index", torch.tensor(
+            relative_position_index_2d(window_size, window_size)))
+        self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
+        self.proj = nn.Linear(dim, dim)
+        self._bias_key = None
+        self._bias = None
+
+    def relative_bias(self) -> torch.Tensor:
+        """(h, N, N) f32 bias, gathered once and kept until the table
+        changes (a new version, device or storage)."""
+        t = self.relative_position_bias_table
+        key = (t._version, t.device, t.data_ptr())
+        if self._bias_key != key:
+            with torch.no_grad():
+                self._bias = relative_bias_from_table(
+                    t, self.relative_position_index)
+            self._bias_key = key
+        return self._bias
+
+    def forward(self, x, mask=None, ln_params=None):
+        """x: (B, nW, N, C) windowed tokens (pre-LN when ln_params, the
+        block's norm1 (weight, bias), is given); mask (nW, N, N) or None."""
+        bqkv = self.qkv.bias
+        if bqkv is None:
+            bqkv = torch.zeros(3 * self.dim, dtype=x.dtype, device=x.device)
+        args = (self.qkv.weight, bqkv, self.proj.weight, self.proj.bias,
+                self.relative_bias(), mask, self.num_heads, self.scale)
+        if ln_params is not None:
+            fn = (fused_msa.fused_window_msa_ln if self.use_kernels
+                  else fused_msa.fused_window_msa_ln_plain)
+            return fn(x, *ln_params, *args)
+        fn = (fused_msa.fused_window_msa if self.use_kernels
+              else fused_msa.fused_window_msa_plain)
+        return fn(x, *args)
+
+
+class Mlp(nn.Module):
+    """Parameter container with the reference's `mlp.fc1`/`mlp.fc2` names;
+    the block runs it through the fused LN-MLP."""
+
+    def __init__(self, dim: int, hidden: int):
+        super().__init__()
+        self.fc1 = nn.Linear(dim, hidden)
+        self.fc2 = nn.Linear(hidden, dim)
+
+
+class SwinBlock(nn.Module):
+    def __init__(self, dim: int, num_heads: int, window_size: int = 7,
+                 shift_size: int = 0, mlp_ratio: float = 4.0,
+                 qkv_bias: bool = True, qk_scale: Optional[float] = None,
+                 use_kernels: bool = True):
+        super().__init__()
+        self.window_size, self.shift_size = window_size, shift_size
+        self.use_kernels = use_kernels
+        self.norm1 = nn.LayerNorm(dim, eps=1e-5)
+        self.attn = WindowAttention(dim, window_size, num_heads, qkv_bias,
+                                    qk_scale, use_kernels)
+        self.norm2 = nn.LayerNorm(dim, eps=1e-5)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+
+    def forward(self, x, hw: Tuple[int, int]):
+        """x: (B, H*W, C)."""
+        h, w = hw
+        b, l, c = x.shape
+        ws, ss = self.window_size, self.shift_size
+        shortcut = x
+        pad_b = (ws - h % ws) % ws
+        pad_r = (ws - w % ws) % ws
+        padded = bool(pad_b or pad_r)
+        if padded:
+            ln_params = None
+            x = fused_msa.layer_norm_f32(x, self.norm1.weight, self.norm1.bias)
+        else:
+            ln_params = (self.norm1.weight, self.norm1.bias)
+        x = x.view(b, h, w, c)
+        if padded:
+            x = F.pad(x, (0, 0, 0, pad_r, 0, pad_b))
+        hp, wp = h + pad_b, w + pad_r
+        if ss > 0:
+            x = torch.roll(x, shifts=(-ss, -ss), dims=(1, 2))
+        nw = (hp // ws) * (wp // ws)
+        xw = window_partition(x, ws).view(b, nw, ws * ws, c)
+        mask = shift_mask_2d(hp, wp, ws, ss, x.device)
+        xw = self.attn(xw, mask, ln_params)
+        x = window_reverse(xw.view(b * nw, ws * ws, c), ws, hp, wp)
+        if ss > 0:
+            x = torch.roll(x, shifts=(ss, ss), dims=(1, 2))
+        if padded:
+            x = x[:, :h, :w, :]
+        x = shortcut + x.reshape(b, l, c)
+
+        fn = (fused_mlp.fused_ln_mlp if self.use_kernels
+              else fused_mlp.fused_ln_mlp_plain)
+        y = fn(x.reshape(b * l, c), self.norm2.weight, self.norm2.bias,
+               self.mlp.fc1.weight, self.mlp.fc1.bias, self.mlp.fc2.weight,
+               self.mlp.fc2.bias)
+        return y.view(b, l, c)
+
+
+class PatchEmbed(nn.Module):
+    """4x4 stride-4 conv patchifier: NHWC image -> (B, Wh, Ww, C)."""
+
+    def __init__(self, embed_dim: int = 96, patch_size: int = 4,
+                 patch_norm: bool = True):
+        super().__init__()
+        self.patch_size = patch_size
+        self.proj = nn.Conv2d(3, embed_dim, patch_size, patch_size)
+        self.norm = nn.LayerNorm(embed_dim, eps=1e-5) if patch_norm else None
+
+    def forward(self, x):
+        ps = self.patch_size
+        x = x.permute(0, 3, 1, 2)
+        h, w = x.shape[-2:]
+        if h % ps or w % ps:
+            x = F.pad(x, (0, (ps - w % ps) % ps, 0, (ps - h % ps) % ps))
+        x = self.proj(x).permute(0, 2, 3, 1)
+        return self.norm(x) if self.norm is not None else x
+
+
+class PatchMerging(nn.Module):
+    """2x2 space-to-depth + LN + Linear(4C -> 2C, no bias)."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.norm = nn.LayerNorm(4 * dim, eps=1e-5)
+        self.reduction = nn.Linear(4 * dim, 2 * dim, bias=False)
+
+    def forward(self, x, hw):
+        h, w = hw
+        b, l, c = x.shape
+        x = x.view(b, h, w, c)
+        if h % 2 or w % 2:
+            x = F.pad(x, (0, 0, 0, w % 2, 0, h % 2))
+        x = torch.cat([x[:, 0::2, 0::2], x[:, 1::2, 0::2], x[:, 0::2, 1::2],
+                       x[:, 1::2, 1::2]], dim=-1).view(b, -1, 4 * c)
+        return self.reduction(self.norm(x))
+
+
+class StageNorm(nn.LayerNorm):
+    """Stage-output LayerNorm (`norm{i}`), one-pass fast-variance row LN:
+    K4 (`layer_norm_rows`) with use_kernels, its plain version otherwise."""
+
+    def __init__(self, dim: int, use_kernels: bool = True):
+        super().__init__(dim, eps=1e-5)
+        self.use_kernels = use_kernels
+
+    def forward(self, x):
+        c = x.shape[-1]
+        fn = ln.layer_norm_rows if self.use_kernels else ln.layer_norm_rows_plain
+        return fn(x.reshape(-1, c), self.weight, self.bias,
+                  self.eps).view(x.shape)
+
+
+class MMBasicLayer(nn.Module):
+    """One multimodal stage: Swin blocks -> PWAM -> LG residual -> merge."""
+
+    def __init__(self, dim: int, depth: int, num_heads: int, window_size: int,
+                 mlp_ratio: float, qkv_bias: bool, qk_scale: Optional[float],
+                 has_downsample: bool, fusion: FusionConfig, fusion_heads: int,
+                 use_kernels: bool = True):
+        super().__init__()
+        if fusion.kind != FusionKind.PWAM:
+            raise NotImplementedError(
+                f"fusion {fusion.kind.value!r}: only PWAM is ported; the "
+                "baselines are in the long-tail slice (ROADMAP.md slice 5)")
+        self.fusion_cfg = fusion
+        self.blocks = nn.ModuleList(
+            SwinBlock(dim, num_heads, window_size,
+                      0 if i % 2 == 0 else window_size // 2, mlp_ratio,
+                      qkv_bias, qk_scale, use_kernels)
+            for i in range(depth))
+        self.fusion = PWAM(dim, fusion.lang_dim, fusion_heads,
+                           att_norm=fusion.att_norm)
+        self.res_gate = (LanguageGate(dim, fusion.lg_act)
+                         if fusion.gate == GateKind.DEFAULT else None)
+        self.downsample = PatchMerging(dim) if has_downsample else None
+
+    def forward(self, x, hw, l, l_mask):
+        h, w = hw
+        for blk in self.blocks:
+            x = blk(x, hw)
+        x_pre_fusion = x
+        mm = self.fusion(x, l, l_mask)
+        gate_out = self.res_gate(mm) if self.res_gate is not None else None
+        x = apply_gate(x, mm, gate_out, self.fusion_cfg.gate)
+        out = self.fusion_cfg.stage_output
+        x_out = (mm if out == StageOutput.RESIDUAL
+                 else x if out == StageOutput.HIDDEN else x_pre_fusion)
+        if self.downsample is not None:
+            return x_out, self.downsample(x, hw), ((h + 1) // 2, (w + 1) // 2)
+        return x_out, x, hw
+
+
+class MultiModalSwinTransformer(nn.Module):
+    """forward(image NHWC, l (B, N_l, D_l), l_mask (B, N_l)) -> tuple of
+    per-stage NHWC features, one per out_indices."""
+
+    def __init__(self, cfg: SwinConfig, fusion: FusionConfig,
+                 out_indices: Tuple[int, ...] = (0, 1, 2, 3),
+                 use_kernels: bool = True):
+        super().__init__()
+        if cfg.ape:
+            raise NotImplementedError(
+                "absolute position embedding is in the long-tail slice "
+                "(ROADMAP.md slice 5)")
+        self.cfg, self.out_indices = cfg, tuple(out_indices)
+        self.patch_embed = PatchEmbed(cfg.embed_dim, cfg.patch_size,
+                                      cfg.patch_norm)
+        self.layers = nn.ModuleList(
+            MMBasicLayer(cfg.num_features[i], cfg.depths[i], cfg.num_heads[i],
+                         cfg.window_size, cfg.mlp_ratio, cfg.qkv_bias,
+                         cfg.qk_scale, i < cfg.num_layers - 1, fusion,
+                         fusion.num_heads[i], use_kernels)
+            for i in range(cfg.num_layers))
+        for i in self.out_indices:
+            self.add_module(f"norm{i}", StageNorm(cfg.num_features[i],
+                                                  use_kernels))
+
+    def forward(self, x, l, l_mask):
+        x = self.patch_embed(x)
+        b, wh, ww, c = x.shape
+        x = x.reshape(b, wh * ww, c)
+        outs = []
+        hw = (wh, ww)
+        for i, layer in enumerate(self.layers):
+            x_out, x, next_hw = layer(x, hw, l, l_mask)
+            if i in self.out_indices:
+                x_out = getattr(self, f"norm{i}")(x_out)
+                outs.append(x_out.view(b, hw[0], hw[1], -1))
+            hw = next_hw
+        return tuple(outs)

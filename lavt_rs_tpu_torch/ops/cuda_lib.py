@@ -1,0 +1,127 @@
+"""Build and load the hand-written CUDA kernels (`lavt_rs_tpu_torch/csrc`).
+
+The sources have a plain C interface.  On first use they are compiled with
+`nvcc -gencode arch=compute_90a,code=sm_90a` into one shared library under
+`<repo>/build/kernels/<hash of the sources>/`, then loaded with ctypes.
+Nothing is built or imported when this module is imported: `lib()` does it
+on the first kernel launch, so the CPU tests can import every module.
+
+Every entry point returns `cudaGetLastError()`; `check()` raises when it is
+not 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
+SOURCES = ("ln.cu", "fused_mlp.cu", "fused_msa.cu")
+HEADERS = ("common.cuh",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+
+P = ctypes.c_void_p
+I = ctypes.c_int
+F = ctypes.c_float
+
+# argtypes of each C entry point (pointers and the stream as c_void_p)
+SIGNATURES = {
+    "lavt_layer_norm_rows": (P, P, P, P, I, I, F, P),
+    "lavt_fused_ln_mlp": (P, P, P, P, P, P, P, P, I, I, I, F, P),
+    "lavt_window_msa_attn": (P, P, P, P, P, P, P, P, I, I, I, I, F, F, P),
+    "lavt_linear_bias": (P, P, P, P, I, I, I, P),
+}
+
+_LIB = None
+build_seconds = None  # wall time of the build in this process (None: cached)
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME", ""), "/usr/local/cuda"):
+        path = Path(cand) / "bin" / "nvcc"
+        if cand and path.exists():
+            return str(path)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit (set CUDA_HOME or put nvcc on PATH)")
+    return found
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES + HEADERS:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile the kernels unless this source hash is already built;
+    returns the path of the shared library."""
+    global build_seconds
+    out_dir = BUILD_ROOT / _digest()
+    so = out_dir / "liblavt_kernels.so"
+    if so.exists():
+        return so
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f"liblavt_kernels.{os.getpid()}.so"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *[str(CSRC / s) for s in SOURCES]]
+    if verbose:
+        cmd.insert(1, "-Xptxas=-v")
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+    if verbose:
+        print(proc.stderr, flush=True)
+    os.replace(tmp, so)
+    build_seconds = time.perf_counter() - t0
+    return so
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _LIB
+    if _LIB is None:
+        handle = ctypes.CDLL(str(build()))
+        for name, args in SIGNATURES.items():
+            fn = getattr(handle, name)
+            fn.argtypes = list(args)
+            fn.restype = ctypes.c_int
+        _LIB = handle
+    return _LIB
+
+
+def check(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def stream_ptr(device) -> int:
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def require(t, name: str, dtype, device, shape=None) -> None:
+    """Raise unless t is a contiguous CUDA tensor of the given dtype on
+    `device` (and shape, when given)."""
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
