@@ -5,22 +5,48 @@
 
 1. Prints the card's name and power limit, then builds the hand-written
    CUDA kernels from `lavt_rs_tpu_torch/csrc` with nvcc (sm_90a).
-2. Kernel phases: each kernel (K1 fused LN+window MSA, K2 window MSA,
-   K3 fused LN-MLP, K4 row LN) on seeded bf16 inputs at the shapes the
-   main path gives it (lavt_one Swin-B 480², batch 8), against its plain
-   PyTorch version (f32 math from the same bf16 inputs, TF32 off), within
-   a stated tolerance.  Then the kernel, the plain version and a bf16
-   PyTorch chain of the same math (bf16 F.linear / matmul / F.layer_norm,
-   the speed a library gives) are timed with CUDA events.
-3. Main path: lavt_one Swin-B / window 12 / 480² / 12-layer BERT in bf16
-   from seeded random weights (see `main_path_model`) answers three
-   batches of 8 RefCOCO-style requests (uint8 images, 20 token ids with
-   padded masks, packed targets) through `eval.refcoco_eval.fwd_iou`.
+2. Kernel phases: each kernel on seeded bf16 inputs at the shapes the
+   main paths give it (lavt_one Swin-B 480², batch 8; K6 also at stage 1
+   with batch 16), against its plain PyTorch version (f32 math from the
+   same bf16 inputs, TF32 off), within a stated tolerance:
+     * inference: K1 fused LN+window MSA, K2 window MSA, K3 fused LN-MLP,
+       K4 row LN;
+     * training: K1/K2 in save mode, K5 (MSA backward from the saved
+       residuals), K6 (MSA backward, recomputing), K7 (LN-MLP backward,
+       with and without the DropPath keep), K8 (LN-MLP with DropPath).
+   Then the kernel, the plain version and the library chain (a bf16
+   PyTorch chain of the same math: bf16 F.linear / matmul / F.layer_norm
+   for a forward, autograd backward through that chain for a backward)
+   are timed with CUDA events, and each call's bound (the larger of its
+   bytes over 3.35 TB/s and its operations over 989 TFLOP/s) is printed
+   beside its time.
+3. Inference main path: lavt_one Swin-B / window 12 / 480² / 12-layer
+   BERT in bf16 from seeded random weights (`main_path_model`) answers
+   three batches of 8 RefCOCO-style requests (uint8 images, 20 token ids
+   with padded masks, packed targets) through `eval.refcoco_eval.fwd_iou`.
    The kernels' launch counters must show every routed call.  One batch's
    logits are checked against the same weights run through the plain path
-   in f32.
-4. Times the bf16 forward at batch 8, with the kernels and with the plain
-   versions (bf16 weights, f32 math, TF32 off).
+   in f32.  Then the bf16 forward at batch 8 is timed, with the kernels
+   and with the plain versions.
+4. Training main path: the same weights in an f32 `build_model(...,
+   train=True)` take AdamW steps (`train.step.make_train_step`: DropPath
+   0.3, BERT dropout 0.1, weighted CE, poly LR) on synthetic uint8
+   batches:
+     * 1 warm-up step, then 10 timed steps at batch 8 on one repeated
+       batch with the dropout generator reseeded every step (one fixed
+       objective): launch counts per step, ms/step, img/s, peak memory,
+       and the loss must fall;
+     * one step at batch 16, where stage 1's saved probabilities pass the
+       192 MiB cap and its blocks take K6;
+     * first, the gate: one forward + backward of the kernel route (bf16)
+       and of the plain route (`use_kernels=False`, f32 math, TF32 off)
+       from the same weights, batch and generator seed with every dropout
+       on and BatchNorm on its running statistics: the losses agree within
+       1e-2 relative, each Swin block's concatenated parameter gradients
+       have cosine >= 0.98, all gradients are finite.  With BN on its batch
+       statistics its backward amplifies bf16 rounding in any bf16 route;
+       those cosines, for the kernel route and for the plain modules under
+       bf16 autocast, are printed and not checked.
 
 Exits non-zero on any failure, without CUDA, or without the package.
 The last two lines are the per-kernel JSON and
@@ -28,13 +54,16 @@ The last two lines are the per-kernel JSON and
 """
 
 import json
+import math
 import os
 import subprocess
 import sys
 import time
 
 BATCH = 8
+BATCH_BIG = 16
 N_REQUESTS = 3
+TRAIN_STEPS = 10
 TOKENS = 20
 SEED = 0
 GATE_STD = 0.05
@@ -42,25 +71,51 @@ GATE_STD = 0.05
 # up to 2^-8 ≈ 3.9e-3).  LN and MLP outputs are rounded once more at the
 # bf16 LN output / GELU output before their GEMMs: a few such steps.  The
 # MSA also rounds q/k/v, P and the attention output before the
-# out-projection, so its bound is wider.
-TOL = {"K1": 3e-2, "K2": 3e-2, "K3": 2e-2, "K4": 2e-2}
+# out-projection, so its bound is wider.  Elementwise outputs are held to
+# TOL abs + rel.
+TOL = {"K1": 3e-2, "K2": 3e-2, "K3": 2e-2, "K4": 2e-2, "K8": 2e-2}
+# save mode: the probabilities P (values ~1/144) within TOL_P abs + 3e-2 rel
+TOL_P = 2e-3
+# backward kernels: dx within TOL_DX (rms(want) + |want|), the rms standing
+# for the tensor's scale; the weight, bias and bias-table grads (sums over
+# all rows of bf16-rounded factors) within a relative Frobenius error of
+# TOL_GRAD
+TOL_DX = 3e-2
+TOL_GRAD = 1e-2
+# training gate: kernel route (bf16) vs plain route (f32 math)
+LOSS_RTOL, MIN_COS = 1e-2, 0.98
 # main path vs the f32 plain path: argmax agreement on confident pixels
 MARGIN, MIN_AGREE = 0.05, 0.995
+# H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor cores, HBM3
+PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
+NAMES = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8")
 REPLACES = {
     "K1": "lavt_rs_tpu/ops/pallas/fused_msa.py:1415",
     "K2": "lavt_rs_tpu/ops/pallas/fused_msa.py:1261",
     "K3": "lavt_rs_tpu/ops/pallas/fused_mlp.py:111",
     "K4": "lavt_rs_tpu/ops/pallas/ln.py:63",
+    "K5": "lavt_rs_tpu/ops/pallas/fused_msa.py:672",
+    "K6": "lavt_rs_tpu/ops/pallas/fused_msa.py:576",
+    "K7": "lavt_rs_tpu/ops/pallas/fused_mlp.py:477",
+    "K8": "lavt_rs_tpu/ops/pallas/fused_mlp.py:533",
 }
 SOURCES = {
     "K1": "lavt_rs_tpu_torch/csrc/fused_msa.cu",
     "K2": "lavt_rs_tpu_torch/csrc/fused_msa.cu",
     "K3": "lavt_rs_tpu_torch/csrc/fused_mlp.cu",
     "K4": "lavt_rs_tpu_torch/csrc/ln.cu",
+    "K5": "lavt_rs_tpu_torch/csrc/fused_msa_bwd.cu",
+    "K6": "lavt_rs_tpu_torch/csrc/fused_msa_bwd.cu",
+    "K7": "lavt_rs_tpu_torch/csrc/fused_mlp_bwd.cu",
+    "K8": "lavt_rs_tpu_torch/csrc/fused_mlp.cu",
 }
 # Swin-B at 480²: (tokens per side, C, heads, blocks) per stage
 STAGES = ((120, 128, 4, 2), (60, 256, 8, 2), (30, 512, 16, 18),
           (15, 1024, 32, 2))
+# launches per training step (batch 8; at batch 16 stage 1 takes K6)
+TRAIN_PER_STEP = {"K1": 4, "K2": 20, "K3": 1, "K4": 4, "K5": 24, "K6": 0,
+                  "K7": 24, "K8": 23}
+BIG_PER_STEP = dict(TRAIN_PER_STEP, K5=22, K6=2)
 
 
 def log(*a):
@@ -82,22 +137,113 @@ def cuda_time_ms(fn, iters=10, warmup=2):
     return start.elapsed_time(end) / iters
 
 
-def compare(name, got, want):
+# -- work of one call: (operations, bytes) ----------------------------------
+
+def ln_work(rows, c):
+    return 8 * rows * c, 2 * rows * c * 2 + 2 * c * 2
+
+
+def mlp_work(m, c, backward=False, keep=0):
+    """K3/K8 forward: two GEMMs of 2 M C 4C; K7: five (hpre recomputed,
+    dh, dW2, dW1, dyln).  Bytes: x (and gy) read, out (dx) written, the
+    bf16 weights read, the f32 weight grads written."""
+    w = 8 * c * c * 2 + 5 * c * 2
+    if backward:
+        return 40 * m * c * c, 3 * m * c * 2 + w + (8 * c * c + 7 * c) * 4
+    return 16 * m * c * c, 2 * m * c * 2 + w + keep * 4
+
+
+def msa_work(b, nw, c, heads, mode, ln=False, mask=True):
+    """mode 'fwd' (K1/K2), 'save' (save mode), 'bwd' (K5) or 'recompute'
+    (K6).  Operations: the qkv (6 rows C²) and out-projection (2 rows C²)
+    GEMMs and two N x N x hd products per window and head forward; the
+    backward's dattn (2), dx (6), dWqkv (6), dWproj (2 rows C²) GEMMs and
+    five N x N x hd products, plus, recomputing, the qkv GEMM and q kᵀ."""
+    n, hd = 144, 32
+    rows, m = b * nw * n, b * nw
+    att = 2 * m * heads * n * n * hd
+    act = rows * c * 2
+    weights = 4 * c * c * 2 + 4 * c * 2
+    tables = heads * n * n * 4 + (nw * n * n * 4 if mask else 0)
+    p_bytes = m * heads * n * n * 2
+    grads = (4 * c * c + 4 * c + heads * n * n) * 4
+    if mode == "fwd":
+        return 8 * rows * c * c + 2 * att, 2 * act + weights + tables
+    if mode == "save":
+        return (8 * rows * c * c + 2 * att,
+                (5 + int(ln)) * act + weights + tables + p_bytes)
+    if mode == "bwd":
+        return 16 * rows * c * c + 5 * att, 6 * act + p_bytes + weights + grads
+    return 22 * rows * c * c + 6 * att, 3 * act + weights + tables + grads
+
+
+def bound_ms(work):
+    flops, nbytes = work
+    t_ops, t_mem = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
+
+
+# -- checks ------------------------------------------------------------------
+
+def compare(name, got, want, tol=None, tol_abs=None):
     import torch
 
     torch.cuda.synchronize()
-    tol = TOL[name]
+    tol = TOL[name] if tol is None else tol
+    tol_abs = tol if tol_abs is None else tol_abs
     g, w = got.float(), want.float()
     if not bool(torch.isfinite(g).all()):
         raise RuntimeError(f"{name}: non-finite kernel output")
     err = (g - w).abs()
-    ok = bool((err <= tol + tol * w.abs()).all())
     max_err = err.max().item()
-    if not ok:
+    if not bool((err <= tol_abs + tol * w.abs()).all()):
         raise RuntimeError(f"{name}: kernel disagrees with its plain version "
-                           f"(max abs err {max_err:.4g}, tol {tol} abs + rel)")
+                           f"(max abs err {max_err:.4g}, tol {tol_abs} abs + "
+                           f"{tol} rel)")
     return max_err
 
+
+def compare_saved(name, got, want):
+    """Save mode: (y, (q, k, v, p, xn)) against the plain version's."""
+    err = compare(name, got[0], want[0])
+    for part, g, w in zip(("q", "k", "v", "p", "xn"), got[1], want[1]):
+        if (g is None) != (w is None):
+            raise RuntimeError(f"{name} save mode: {part} missing")
+        if g is not None:
+            tol_abs = TOL_P if part == "p" else None
+            err = max(err, compare(name, g, w, TOL[name], tol_abs))
+    return err
+
+
+def compare_grads(name, got, want):
+    """Backward: dx elementwise (scaled), every accumulated grad by its
+    relative Frobenius error; returns dx's max abs error."""
+    import torch
+
+    torch.cuda.synchronize()
+    g, w = got[0].float(), want[0].float()
+    if not bool(torch.isfinite(g).all()):
+        raise RuntimeError(f"{name}: non-finite dx")
+    err = (g - w).abs()
+    scale = w.square().mean().sqrt()
+    if not bool((err <= TOL_DX * (scale + w.abs())).all()):
+        raise RuntimeError(f"{name}: dx disagrees with the plain version "
+                           f"(max abs err {err.max().item():.4g} at scale "
+                           f"{scale.item():.4g})")
+    worst = 0.0
+    for i, (gg, ww) in enumerate(zip(got[1:], want[1:]), 1):
+        if not bool(torch.isfinite(gg).all()):
+            raise RuntimeError(f"{name}: non-finite grad #{i}")
+        rel = ((gg.float() - ww.float()).norm()
+               / ww.float().norm().clamp(min=1e-30)).item()
+        worst = max(worst, rel)
+        if rel > TOL_GRAD:
+            raise RuntimeError(f"{name}: grad #{i} relative Frobenius error "
+                               f"{rel:.4g} > {TOL_GRAD}")
+    return err.max().item(), worst
+
+
+# -- the library chains (timing baselines only) -------------------------------
 
 def torch_bf16_ln(x, s, b):
     """K4's math as one PyTorch bf16 call (timing baseline only)."""
@@ -106,12 +252,14 @@ def torch_bf16_ln(x, s, b):
     return F.layer_norm(x, x.shape[-1:], s, b, 1e-5)
 
 
-def torch_bf16_mlp(x, g, be, w1, b1, w2, b2):
-    """K3's math as a bf16 PyTorch chain (timing baseline only)."""
+def torch_bf16_mlp(x, g, be, w1, b1, w2, b2, keep_rows=None):
+    """K3's math (K8's with keep_rows) as a bf16 PyTorch chain (timing
+    baseline only)."""
     import torch.nn.functional as F
 
     h = F.gelu(F.linear(F.layer_norm(x, x.shape[-1:], g, be, 1e-5), w1, b1))
-    return x + F.linear(h, w2, b2)
+    y = F.linear(h, w2, b2)
+    return x + (y if keep_rows is None else y * keep_rows)
 
 
 def torch_bf16_msa(x, wqkv, bqkv, wproj, bproj, bias, mask, heads, scale,
@@ -132,10 +280,64 @@ def torch_bf16_msa(x, wqkv, bqkv, wproj, bproj, bias, mask, heads, scale,
     return F.linear(o.permute(0, 1, 3, 2, 4).reshape(b, nw, n, c), wproj, bproj)
 
 
+def chain_grad(fn, inputs, gy, forward=False):
+    """A closure timing autograd backward through a bf16 chain (the library
+    yardstick of a backward kernel); with forward, the forward too."""
+    import torch
+
+    leaves = [t.detach().requires_grad_() for t in inputs]
+    if forward:
+        return lambda: torch.autograd.grad(fn(*leaves), leaves, gy)
+    y = fn(*leaves)
+    return lambda: torch.autograd.grad(y, leaves, gy, retain_graph=True)
+
+
+# -- kernel phases ------------------------------------------------------------
+
+class Results:
+    """Per kernel: max error and, per step (calls x per-call), the kernel,
+    plain and library ms and the bound."""
+
+    def __init__(self):
+        self.r = {k: dict(err=0.0, ms=0.0, plain=0.0, lib=0.0, bound=0.0,
+                          ops=0.0, mem=0.0) for k in NAMES + ("save",)}
+
+    def add(self, name, calls, err, tk, tp, tb, work):
+        r = self.r[name]
+        r["err"] = max(r["err"], err)
+        b, _ = bound_ms(work)
+        for key, v in (("ms", tk), ("plain", tp), ("lib", tb), ("bound", b),
+                       ("ops", work[0] / PEAK_FLOPS * 1e3),
+                       ("mem", work[1] / PEAK_BYTES * 1e3)):
+            r[key] += calls * v
+
+    def bound_by(self, name):
+        r = self.r[name]
+        return "operations" if r["ops"] >= r["mem"] else "bytes"
+
+
+def measure(res, name, what, calls, fk, fp, fb, work, check):
+    want = fp()
+    got = fk()
+    out = check(name, got, want)
+    err, extra = (out if isinstance(out, tuple) else (out, None))
+    del got, want
+    tk = cuda_time_ms(fk)
+    tp = cuda_time_ms(fp, iters=3, warmup=1)
+    tb = cuda_time_ms(fb)
+    res.add(name, calls, err, tk, tp, tb, work)
+    b, by = bound_ms(work)
+    frob = "" if extra is None else f", worst grad rel Frobenius {extra:.3g}"
+    log(f"{name} {what}: max abs err {err:.3g}{frob}; kernel {tk:.4f} ms, "
+        f"bound {b:.4f} ms ({by}), plain (f32 math) {tp:.4f} ms, library "
+        f"chain {tb:.4f} ms")
+    return tk, tp, tb
+
+
 def kernel_phases(dev):
     """Each kernel against its plain version at the main-path shapes;
-    returns {name: [max_abs_err, ms, plain ms, torch bf16 ms]}, the times
-    per forward (calls per forward x ms per call)."""
+    returns the Results (K1-K4 per forward at batch 8, K5/K7/K8 per
+    training step at batch 8, K6 per training step at batch 16)."""
     import torch
 
     from lavt_rs_tpu_torch.ops import fused_mlp, fused_msa, ln
@@ -149,42 +351,52 @@ def kernel_phases(dev):
         t = torch.randn(shape, generator=g, device=dev) * std + mean
         return t.to(dtype)
 
-    res = {k: [0.0, 0.0, 0.0, 0.0] for k in TOL}
-
-    def check_and_time(name, what, calls, fn_k, fn_p, fn_b):
-        want = fn_p()
-        err = compare(name, fn_k(), want)
-        err_b = (fn_b().float() - want.float()).abs().max().item()
-        tk = cuda_time_ms(fn_k)
-        tp = cuda_time_ms(fn_p, iters=3, warmup=1)
-        tb = cuda_time_ms(fn_b)
-        r = res[name]
-        r[0] = max(r[0], err)
-        r[1] += calls * tk
-        r[2] += calls * tp
-        r[3] += calls * tb
-        log(f"{name} {what}: max abs err {err:.3g} (tol {TOL[name]} abs+rel; "
-            f"torch bf16 chain {err_b:.3g}), kernel {tk:.4f} ms, plain "
-            f"(f32 math) {tp:.4f} ms, torch bf16 {tb:.4f} ms")
-
+    res = Results()
     index = torch.from_numpy(relative_position_index_2d(12, 12)).to(dev)
     for si, (side, c, heads, depth) in enumerate(STAGES):
         rows = BATCH * side * side
+        st = f"stage {si + 1}"
         # K4: the stage-output norm
         x = rnd((rows, c), 2.0, 0.5)
         s, b = rnd((c,), 0.2, 1.0), rnd((c,), 0.2)
-        check_and_time("K4", f"stage {si + 1} ({rows}, {c})", 1,
-                       lambda: ln.layer_norm_rows(x, s, b),
-                       lambda: ln.layer_norm_rows_plain(x, s, b),
-                       lambda: torch_bf16_ln(x, s, b))
-        # K3: the LN-MLP tail of every block
+        measure(res, "K4", f"{st} ({rows}, {c})", 1,
+                lambda: ln.layer_norm_rows(x, s, b),
+                lambda: ln.layer_norm_rows_plain(x, s, b),
+                lambda: torch_bf16_ln(x, s, b), ln_work(rows, c), compare)
+        # K3 / K8 / K7: the LN-MLP tail of every block (in training K3 in
+        # block 0 only, where the drop-path rate is 0)
         args = (rnd((rows, c)), rnd((c,), 0.2, 1.0), rnd((c,), 0.2),
                 rnd((4 * c, c), c ** -0.5), rnd((4 * c,), 0.2),
                 rnd((c, 4 * c), (4 * c) ** -0.5), rnd((c,), 0.2))
-        check_and_time("K3", f"stage {si + 1} ({rows}, {c})", depth,
-                       lambda: fused_mlp.fused_ln_mlp(*args),
-                       lambda: fused_mlp.fused_ln_mlp_plain(*args),
-                       lambda: torch_bf16_mlp(*args))
+        measure(res, "K3", f"{st} ({rows}, {c})", depth,
+                lambda: fused_mlp.fused_ln_mlp(*args),
+                lambda: fused_mlp.fused_ln_mlp_plain(*args),
+                lambda: torch_bf16_mlp(*args), mlp_work(rows, c), compare)
+        keep = torch.where(torch.arange(BATCH, device=dev) % 3 != 1,
+                           1.0 / 0.7, 0.0).float()
+        keep_rows = keep.repeat_interleave(side * side)[:, None].bfloat16()
+        tail = side * side
+        dp_blocks = depth - (1 if si == 0 else 0)
+        measure(res, "K8", f"{st} ({rows}, {c}) keep", dp_blocks,
+                lambda: fused_mlp.fused_ln_mlp_droppath(*args, keep, tail),
+                lambda: fused_mlp.fused_ln_mlp_droppath_plain(*args, keep,
+                                                              tail),
+                lambda: torch_bf16_mlp(*args, keep_rows),
+                mlp_work(rows, c, keep=BATCH), compare)
+        gy = rnd((rows, c))
+        x, gam, bet, w1, b1, w2, b2 = args
+        variants = [(keep, dp_blocks)] + ([(None, 1)] if si == 0 else [])
+        for kp, calls in variants:
+            kr = None if kp is None else keep_rows
+            measure(res, "K7", f"{st} ({rows}, {c}) keep {kp is not None}",
+                    calls,
+                    lambda: fused_mlp.fused_ln_mlp_bwd(x, gy, gam, bet, w1, b1,
+                                                       w2, kp, tail),
+                    lambda: fused_mlp.fused_ln_mlp_bwd_plain(
+                        x, gy, gam, bet, w1, b1, w2, kp, tail),
+                    chain_grad(lambda *t: torch_bf16_mlp(*t, kr), args, gy),
+                    mlp_work(rows, c, backward=True), compare_grads)
+        del args, gy, x, w1, w2
         # K1 at the unpadded stages, K2 at the padded ones (pad to 12k)
         hp = -(-side // 12) * 12
         nw = (hp // 12) ** 2
@@ -194,22 +406,69 @@ def kernel_phases(dev):
              rnd((c, c), c ** -0.5), rnd((c,), 0.2))
         bias = relative_bias_from_table(
             torch.randn((23 * 23, heads), generator=g, device=dev), index)
-        lnp = (rnd((c,), 0.2, 1.0), rnd((c,), 0.2))
+        lnp = (rnd((c,), 0.2, 1.0), rnd((c,), 0.2)) if name == "K1" else None
+        sc = (c // heads) ** -0.5
         for shift in (False, True):
             mask = shift_mask_2d(hp, hp, 12, 6, dev) if shift else None
-            tail = (*w, bias, mask, heads, (c // heads) ** -0.5)
+            tail = (*w, bias, mask, heads, sc)
             if name == "K1":
                 fk = lambda: fused_msa.fused_window_msa_ln(xw, *lnp, *tail)
                 fp = lambda: fused_msa.fused_window_msa_ln_plain(xw, *lnp, *tail)
-                fb = lambda: torch_bf16_msa(xw, *tail, ln=lnp)
             else:
                 fk = lambda: fused_msa.fused_window_msa(xw, *tail)
                 fp = lambda: fused_msa.fused_window_msa_plain(xw, *tail)
-                fb = lambda: torch_bf16_msa(xw, *tail)
-            check_and_time(name, f"stage {si + 1} x{tuple(xw.shape)} heads "
-                           f"{heads} mask {shift}", depth // 2, fk, fp, fb)
+            measure(res, name, f"{st} x{tuple(xw.shape)} heads {heads} mask "
+                    f"{shift}", depth // 2, fk, fp,
+                    lambda: torch_bf16_msa(xw, *tail, ln=lnp),
+                    msa_work(BATCH, nw, c, heads, "fwd", mask=shift), compare)
+        # training: save mode, K5 on the kernel's residuals, K6 (shift mask)
+        mask = shift_mask_2d(hp, hp, 12, 6, dev)
+        tail = (*w, bias, mask, heads, sc)
+        measure(
+            res, "save", f"{name} save mode {st} x{tuple(xw.shape)}", depth,
+            lambda: fused_msa.fused_window_msa_save(xw, lnp, *tail),
+            lambda: fused_msa.fused_window_msa_save_plain(xw, lnp, *tail),
+            lambda: torch_bf16_msa(xw, *tail, ln=lnp),
+            msa_work(BATCH, nw, c, heads, "save", ln=lnp is not None),
+            lambda _n, got, want: compare_saved(name, got, want))
+        y, saved = fused_msa.fused_window_msa_save(xw, lnp, *tail)
+        xin = xw if lnp is None else saved[4].view(xw.shape)
+        res_k5 = saved[:4]
+        gy = rnd(xw.shape)
+        chain_in = (xw, *w, bias) + tuple(lnp or ())
+
+        def chain_fn(x_, wq, bq, wp, bp, bi, *lnt):
+            return torch_bf16_msa(x_, wq, bq, wp, bp, bi, mask, heads, sc,
+                                  ln=lnt or None)
+
+        measure(res, "K5", f"{st} x{tuple(xw.shape)} heads {heads}", depth,
+                lambda: fused_msa.fused_window_msa_bwd(xin, gy, w[0], w[2],
+                                                       res_k5, heads, sc),
+                lambda: fused_msa.fused_window_msa_bwd_plain(
+                    xin, gy, w[0], w[2], res_k5, heads, sc),
+                chain_grad(chain_fn, chain_in, gy),
+                msa_work(BATCH, nw, c, heads, "bwd"), compare_grads)
+        del y, saved, res_k5, xin
+        batches = (BATCH, BATCH_BIG) if si == 0 else (BATCH,)
+        for bsz in batches:
+            xk = xw if bsz == BATCH else rnd((bsz, nw, 144, c))
+            gk = gy if bsz == BATCH else rnd(xk.shape)
+            calls = 2 if bsz == BATCH_BIG else 0
+            measure(res, "K6", f"{st} x{tuple(xk.shape)} heads {heads}", calls,
+                    lambda: fused_msa.fused_window_msa_bwd_recompute(
+                        xk, lnp, *tail[:6], gk, heads, sc),
+                    lambda: fused_msa.fused_window_msa_bwd_recompute_plain(
+                        xk, lnp, *tail[:6], gk, heads, sc),
+                    chain_grad(chain_fn, (xk,) + chain_in[1:], gk,
+                               forward=True),
+                    msa_work(bsz, nw, c, heads, "recompute",
+                             ln=lnp is not None), compare_grads)
+        del xw, gy
+        torch.cuda.empty_cache()
     return res
 
+
+# -- the main paths -------------------------------------------------------------
 
 def main_path_model(dev, g):
     """lavt_one_base in bf16 on `dev`, weights drawn from `g` by the JAX
@@ -264,68 +523,65 @@ def requests(dev, g, n, batch=BATCH):
     return out
 
 
-def main():
+def train_batch(dev, g, batch):
+    """A synthetic training batch: uint8 images, token ids with padded
+    masks, a random binary target."""
     import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: CUDA is not available", file=sys.stderr)
-        return 1
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    try:
-        from lavt_rs_tpu_torch.config import lavt_one_base
-    except ImportError as e:  # run outside the repository
-        print(f"chip_smoke: the lavt_rs_tpu_torch package is missing ({e})",
-              file=sys.stderr)
-        return 1
+    image, ids, mask, _ = requests(dev, g, 1, batch)[0]
+    target = torch.randint(0, 2, (batch, 480, 480), generator=g, device=dev)
+    return {"image": image, "ids": ids[:, 0], "mask": mask[:, 0],
+            "target": target}
+
+
+def counters():
+    from lavt_rs_tpu_torch.ops import fused_mlp, fused_msa, ln
+
+    return {"K1": fused_msa.fused_window_msa_ln,
+            "K2": fused_msa.fused_window_msa,
+            "K3": fused_mlp.fused_ln_mlp, "K4": ln.layer_norm_rows,
+            "K5": fused_msa.fused_window_msa_bwd,
+            "K6": fused_msa.fused_window_msa_bwd_recompute,
+            "K7": fused_mlp.fused_ln_mlp_bwd,
+            "K8": fused_mlp.fused_ln_mlp_droppath}
+
+
+def zero_counts():
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {k: fn.launches for k, fn in counters().items()}
+
+
+def check_counts(what, counts, per, times):
+    for k, n in per.items():
+        if counts[k] != n * times:
+            raise RuntimeError(f"{what}: {k} launched {counts[k]} times, "
+                               f"expected {n * times}")
+
+
+def inference(dev, card, model):
+    """The fwd_iou main path, the f32 check and the forward timing;
+    returns its launch counts."""
+    import torch
+
     from lavt_rs_tpu_torch.eval.refcoco_eval import fwd_iou
     from lavt_rs_tpu_torch.models.factory import build_model
-    from lavt_rs_tpu_torch.ops import cuda_lib, fused_mlp, fused_msa, ln
     from lavt_rs_tpu_torch.ops.norm import maybe_normalize_image
 
-    # the plain versions and the f32 reference model run full f32 GEMMs
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda:0")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader", "-i", "0"],
-                         capture_output=True, text=True, check=True)
-    card = smi.stdout.strip().splitlines()[0]
-    log(card)
-    log(f"torch {torch.__version__} cuda {torch.version.cuda}")
-
-    t0 = time.perf_counter()
-    cuda_lib.lib()
-    log(f"kernel build+load: {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {cuda_lib.build_seconds} s)")
-
-    # -- kernel phases ----------------------------------------------------
-    res = kernel_phases(dev)
-    for k, (_, ms, plain_ms, bf16_ms) in res.items():
-        log(f"{k} per forward: kernel {ms:.3f} ms, plain (f32 math) "
-            f"{plain_ms:.3f} ms, torch bf16 {bf16_ms:.3f} ms")
-
-    # -- main path ---------------------------------------------------------
-    cfg = lavt_one_base()
-    g = torch.Generator(device=dev).manual_seed(SEED)
-    t0 = time.perf_counter()
-    model = main_path_model(dev, g)
-    log(f"model build ({cfg.dtype}, use_kernels={cfg.use_kernels}): "
-        f"{time.perf_counter() - t0:.2f} s")
+    cfg = model.cfg
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
     batches = requests(dev, g, N_REQUESTS)
-    counters = {"K1": fused_msa.fused_window_msa_ln,
-                "K2": fused_msa.fused_window_msa,
-                "K3": fused_mlp.fused_ln_mlp, "K4": ln.layer_norm_rows}
-    per_forward = {"K1": 4, "K2": 20, "K3": 24, "K4": 4}
-    for fn in counters.values():
-        fn.launches = 0
+    zero_counts()
     results = [fwd_iou(model, *b) for b in batches]
     torch.cuda.synchronize()
-    launches = {k: fn.launches for k, fn in counters.items()}
-    log(f"launches over {N_REQUESTS} batches of {BATCH}: {launches}")
-    for k, n in per_forward.items():
-        if launches[k] != n * N_REQUESTS:
-            raise RuntimeError(f"{k}: {launches[k]} launches, expected "
-                               f"{n * N_REQUESTS}")
+    launches = read_counts()
+    log(f"inference launches over {N_REQUESTS} batches of {BATCH}: {launches}")
+    check_counts("inference", launches,
+                 {"K1": 4, "K2": 20, "K3": 24, "K4": 4, "K5": 0, "K6": 0,
+                  "K7": 0, "K8": 0}, N_REQUESTS)
     for inter, union in results:
         if inter.shape != (BATCH, 1) or not bool(torch.isfinite(union).all()):
             raise RuntimeError("fwd_iou: bad inter/union")
@@ -334,7 +590,7 @@ def main():
     iou = torch.cat([i / u.clamp(min=1) for i, u in results]).mean().item()
     log(f"fwd_iou: mean IoU vs random targets {iou:.4f}")
 
-    # -- one batch against the f32 plain path --------------------------------
+    # one batch against the f32 plain path
     image, ids, mask, _ = batches[0]
     img = maybe_normalize_image(image)
     with torch.no_grad():
@@ -358,8 +614,7 @@ def main():
     if not agree >= MIN_AGREE:
         raise RuntimeError(f"argmax agreement {agree:.5f} < {MIN_AGREE}")
 
-    # -- forward time --------------------------------------------------------
-    iters, plain_iters = 40, 10
+    iters, plain_iters = 20, 5
     with torch.no_grad():
         ms = cuda_time_ms(lambda: model(img, ids[:, 0], mask[:, 0]),
                           iters=iters, warmup=3)
@@ -371,12 +626,253 @@ def main():
         f"{BATCH * 1000 / ms:.2f} img/s (mean of {iters}); plain versions "
         f"(bf16 weights, f32 math, TF32 off): {plain_ms:.3f} ms/step, "
         f"{BATCH * 1000 / plain_ms:.2f} img/s (mean of {plain_iters})  [{card}]")
-    log(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return launches
 
-    kernels = [{"name": k, "route": "cuda", "source": SOURCES[k],
-                "replaces": REPLACES[k], "launches": launches[k],
-                "max_abs_err": res[k][0], "ms": res[k][1],
-                "plain_ms": res[k][2]} for k in ("K1", "K2", "K3", "K4")]
+
+def train_setup(dev, weights):
+    """lavt_one_base built for training with `weights`, its AdamW and the
+    train step."""
+    from lavt_rs_tpu_torch.config import lavt_one_base
+    from lavt_rs_tpu_torch.models.factory import build_model
+    from lavt_rs_tpu_torch.train.optim import TrainConfig
+    from lavt_rs_tpu_torch.train.step import (create_train_state,
+                                              make_train_step)
+
+    model = build_model(lavt_one_base(), dev, train=True)
+    model.load_state_dict(weights)
+    tcfg = TrainConfig()
+    opt, sched = create_train_state(model, tcfg)
+    return make_train_step(model, opt, sched, tcfg)
+
+
+def training(dev, card, weights):
+    """Steps at batch 8 (timed, counted, loss falls) and one at batch 16;
+    returns the launches at batch 8 and at batch 16."""
+    import torch
+
+    step = train_setup(dev, weights)
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    batch = train_batch(dev, g, BATCH)
+
+    def gen():
+        return torch.Generator(device=dev).manual_seed(SEED + 3)
+
+    t0 = time.perf_counter()
+    step(batch, gen())
+    torch.cuda.synchronize()
+    log(f"train step bs {BATCH}, first (warm-up): "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    outs = [step(batch, gen()) for _ in range(TRAIN_STEPS)]
+    end.record()
+    torch.cuda.synchronize()
+    launches = read_counts()
+    ms = start.elapsed_time(end) / TRAIN_STEPS
+    log(f"train launches over {TRAIN_STEPS} steps of {BATCH}: {launches}")
+    check_counts("train bs 8", launches, TRAIN_PER_STEP, TRAIN_STEPS)
+    losses = [o["loss"].item() for o in outs]
+    if not all(math.isfinite(v) for v in losses):
+        raise RuntimeError(f"non-finite training loss: {losses}")
+    log(f"train bs {BATCH} bf16 (kernels, AdamW, DropPath 0.3, dropout 0.1): "
+        f"{ms:.3f} ms/step, {BATCH * 1000 / ms:.2f} img/s (mean of "
+        f"{TRAIN_STEPS} steps); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  [{card}]")
+    log(f"loss over {TRAIN_STEPS} steps on one batch (dropout reseeded each "
+        f"step): first {losses[0]:.6f}, last {losses[-1]:.6f}; all "
+        f"{[round(v, 6) for v in losses]}; iou {outs[-1]['iou'].item():.4f}, "
+        f"lr {outs[-1]['lr']:.6g}")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError("the training loss did not fall")
+
+    big = train_batch(dev, g, BATCH_BIG)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    out = step(big, gen())
+    loss = out["loss"].item()
+    big_launches = read_counts()
+    log(f"train step bs {BATCH_BIG}: loss {loss:.6f}, "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms (one step, host clock), "
+        f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"launches {big_launches}")
+    if not math.isfinite(loss):
+        raise RuntimeError("non-finite loss at batch 16")
+    check_counts("train bs 16", big_launches, BIG_PER_STEP, 1)
+    return launches, big_launches
+
+
+def gate_run(dev, weights, kernels, dtype, bn_batch_stats, batch, seed):
+    """One forward + backward of the train-mode model (dropout and DropPath
+    on, drawn from `seed`); BatchNorm on its batch statistics or on its
+    running ones.  Returns (loss, {parameter: f32 grad})."""
+    import torch
+
+    from lavt_rs_tpu_torch.config import lavt_one_base
+    from lavt_rs_tpu_torch.losses import get_loss
+    from lavt_rs_tpu_torch.models.factory import build_model
+    from lavt_rs_tpu_torch.ops.norm import maybe_normalize_image
+
+    cfg = lavt_one_base().replace(use_kernels=kernels, dtype=dtype)
+    m = build_model(cfg, dev, train=True)
+    m.load_state_dict(weights)
+    if not bn_batch_stats:
+        for mod in m.modules():
+            if isinstance(mod, torch.nn.BatchNorm2d):
+                mod.eval()
+    dt = cfg.compute_dtype
+    with torch.autocast(dev.type, dtype=dt, enabled=dt != torch.float32):
+        out = m(maybe_normalize_image(batch["image"]), batch["ids"],
+                batch["mask"],
+                generator=torch.Generator(device=dev).manual_seed(seed))
+    loss = get_loss("cross_entropy")(out.float(), batch["target"])
+    loss.backward()
+    grads = {}
+    for name, p in m.named_parameters():
+        if p.grad is not None:
+            if not bool(torch.isfinite(p.grad).all()):
+                raise RuntimeError(f"gate: non-finite gradient of {name}")
+            grads[name] = p.grad.float()
+    return loss.item(), grads
+
+
+def block_cosines(a, b):
+    """Cosine of each Swin block's concatenated parameter grads."""
+    import torch
+
+    blocks = {}
+    for name, g in a.items():
+        parts = name.split(".")
+        if parts[0] == "backbone" and parts[3:4] == ["blocks"]:
+            pair = blocks.setdefault(".".join(parts[1:5]), ([], []))
+            pair[0].append(g.flatten())
+            pair[1].append(b[name].flatten())
+    cos = {}
+    for key, (x, y) in blocks.items():
+        x, y = torch.cat(x), torch.cat(y)
+        cos[key] = (x @ y / (x.norm() * y.norm()).clamp(min=1e-30)).item()
+    return cos
+
+
+def training_gate(dev, weights):
+    """Kernel route (bf16) vs plain route (f32 math, TF32 off) from the same
+    weights, batch and generator seed, dropout and DropPath on.  Checked
+    with BatchNorm on its running statistics: in train mode BN's backward
+    subtracts the batch means of its gradient, which amplifies bf16
+    rounding in any bf16 route; that comparison (and a bf16 route without
+    the kernels) is printed beside it.  Returns the worst checked cosine."""
+    import torch
+
+    batch = train_batch(dev, torch.Generator(device=dev).manual_seed(SEED + 4),
+                        BATCH)
+    seed = SEED + 5
+    ref_loss, ref = gate_run(dev, weights, False, "float32", False, batch, seed)
+    loss, got = gate_run(dev, weights, True, "bfloat16", False, batch, seed)
+    rel = abs(loss - ref_loss) / abs(ref_loss)
+    cos = block_cosines(got, ref)
+    worst = min(cos, key=cos.get)
+    del ref, got
+    log(f"training gate (BN running statistics, dropout + DropPath on): loss "
+        f"kernel route (bf16) {loss:.6f}, plain route (f32 math) "
+        f"{ref_loss:.6f}, rel diff {rel:.3g} (limit {LOSS_RTOL}); "
+        f"{len(cos)} Swin blocks, worst gradient cosine {cos[worst]:.5f} "
+        f"({worst}, limit {MIN_COS}); all gradients finite")
+    log("per-block cosines: " + ", ".join(f"{k} {v:.4f}"
+                                          for k, v in cos.items()))
+    if rel > LOSS_RTOL:
+        raise RuntimeError(f"gate: loss rel diff {rel:.4g} > {LOSS_RTOL}")
+    if cos[worst] < MIN_COS:
+        raise RuntimeError(f"gate: cosine {cos[worst]:.5f} < {MIN_COS}")
+    # BN on batch statistics (the training recipe): printed, not checked
+    ref_loss_b, ref_b = gate_run(dev, weights, False, "float32", True, batch,
+                                 seed)
+    for kernels, what in ((True, "kernel route"),
+                          (False, "plain modules under bf16 autocast")):
+        loss_b, got_b = gate_run(dev, weights, kernels, "bfloat16", True,
+                                 batch, seed)
+        cb = block_cosines(got_b, ref_b)
+        del got_b
+        log(f"BN batch statistics, {what} (bf16) vs plain route (f32): loss "
+            f"{loss_b:.6f} vs {ref_loss_b:.6f}, worst Swin-block cosine "
+            f"{min(cb.values()):.5f}, mean {sum(cb.values()) / len(cb):.5f}")
+    return cos[worst]
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    try:
+        from lavt_rs_tpu_torch.config import lavt_one_base
+    except ImportError as e:  # run outside the repository
+        print(f"chip_smoke: the lavt_rs_tpu_torch package is missing ({e})",
+              file=sys.stderr)
+        return 1
+    from lavt_rs_tpu_torch.ops import cuda_lib
+
+    # the plain versions and the f32 reference models run full f32 GEMMs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda:0")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader", "-i", "0"],
+                         capture_output=True, text=True, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    log(card)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    t_start = time.perf_counter()
+
+    t0 = time.perf_counter()
+    cuda_lib.lib()
+    log(f"kernel build+load: {time.perf_counter() - t0:.2f} s "
+        f"(nvcc {cuda_lib.build_seconds} s)")
+
+    # -- kernel phases ----------------------------------------------------
+    res = kernel_phases(dev)
+    for k in NAMES + ("save",):
+        r = res.r[k]
+        log(f"{k} per {'forward' if k < 'K5' else 'train step'}: kernel "
+            f"{r['ms']:.3f} ms, bound {r['bound']:.3f} ms ({res.bound_by(k)}), "
+            f"plain (f32 math) {r['plain']:.3f} ms, library chain "
+            f"{r['lib']:.3f} ms")
+    log(f"kernel phases done at {time.perf_counter() - t_start:.1f} s")
+
+    # -- inference main path -------------------------------------------------
+    cfg = lavt_one_base()
+    t0 = time.perf_counter()
+    model = main_path_model(dev, torch.Generator(device=dev).manual_seed(SEED))
+    log(f"model build ({cfg.dtype}, use_kernels={cfg.use_kernels}): "
+        f"{time.perf_counter() - t0:.2f} s")
+    infer_launches = inference(dev, card, model)
+    weights = model.state_dict()
+    del model
+    torch.cuda.empty_cache()
+    log(f"inference done at {time.perf_counter() - t_start:.1f} s")
+
+    # -- training main path ----------------------------------------------------
+    training_gate(dev, weights)
+    torch.cuda.empty_cache()
+    log(f"gate done at {time.perf_counter() - t_start:.1f} s")
+    train_launches, big_launches = training(dev, card, weights)
+    log(f"training done at {time.perf_counter() - t_start:.1f} s")
+
+    launches = {k: infer_launches[k] for k in ("K1", "K2", "K3", "K4")}
+    launches.update({k: train_launches[k] for k in ("K5", "K7", "K8")})
+    launches["K6"] = big_launches["K6"]
+    kernels = []
+    for k in NAMES:
+        r = res.r[k]
+        kernels.append({"name": k, "route": "cuda", "source": SOURCES[k],
+                        "replaces": REPLACES[k], "launches": launches[k],
+                        "max_abs_err": r["err"], "ms": r["ms"],
+                        "plain_ms": r["plain"], "bound_ms": r["bound"],
+                        "bound_by": res.bound_by(k), "library_ms": r["lib"]})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

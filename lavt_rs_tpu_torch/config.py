@@ -115,6 +115,8 @@ class BertConfig:
     max_position_embeddings: int = 512
     type_vocab_size: int = 2
     layer_norm_eps: float = 1e-12
+    hidden_dropout: float = 0.1
+    attn_dropout: float = 0.1
 
 
 @dataclasses.dataclass(frozen=True)

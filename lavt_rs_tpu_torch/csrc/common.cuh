@@ -12,6 +12,7 @@ namespace wmma = nvcuda::wmma;
 
 // WMMA tiles: bf16 16x16x16 with f32 accumulation.
 using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
+using FragACol = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major>;
 using FragBRow = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
 using FragBCol = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
 using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
@@ -36,6 +37,22 @@ union Pack8 {
 
 __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ bf16 to_bf(float v) { return __float2bfloat16(v); }
+
+// exact (erf) GELU and its derivative
+__device__ __forceinline__ float gelu_cdf(float v) {
+  return 0.5f * (1.f + erff(v * 0.70710678118654752f));
+}
+__device__ __forceinline__ float gelu_grad(float v) {
+  return gelu_cdf(v) + v * expf(-0.5f * v * v) * 0.3989422804014327f;
+}
+
+// 8 floats -> one 16-byte word of bf16
+__device__ __forceinline__ uint4 pack8(const float* s) {
+  Pack8 p;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) p.h[e] = __floats2bfloat162_rn(s[2 * e], s[2 * e + 1]);
+  return p.u;
+}
 
 // Round a byte count up to 128 so carved shared-memory regions stay
 // aligned for WMMA loads (which need 32-byte aligned tile pointers).

@@ -17,6 +17,10 @@
 // no (BM, C) f32 staging: 46-85 KB of shared memory and at most 128
 // registers a thread let two blocks share an SM.  Weights are read
 // straight from device memory through L1/L2 (no TMA, no wgmma yet).
+//
+// K8 (DropPath) is the same kernel with a per-sample keep scale: it replaces
+// fused_mlp.py:fused_ln_mlp_droppath (_fwd with keep_rows) and computes
+// out = x + keep[row / rows_per_sample] * fc2(gelu(fc1(LN(x)))), keep (B,) f32.
 
 #include "common.cuh"
 
@@ -48,8 +52,9 @@ __global__ void __launch_bounds__(kMlpThreads, 2)
 fused_ln_mlp_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gamma,
                     const bf16* __restrict__ beta, const bf16* __restrict__ w1,
                     const bf16* __restrict__ b1, const bf16* __restrict__ w2,
-                    const bf16* __restrict__ b2, bf16* __restrict__ out, int M,
-                    int hidden, float eps) {
+                    const bf16* __restrict__ b2, const float* __restrict__ keep,
+                    bf16* __restrict__ out, int M, int hidden, int rows_per_sample,
+                    float eps) {
   using S = MlpShape<C>;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* xn = reinterpret_cast<bf16*>(smem);
@@ -146,6 +151,7 @@ fused_ln_mlp_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gamma,
     __syncwarp();
     const int row = row0 + r * 16 + rr, col = c * 16 + cc;
     if (row < M) {
+      const float kp = keep != nullptr ? keep[row / rows_per_sample] : 1.f;
       const size_t off = static_cast<size_t>(row) * C + col;
       Pack8 xv, bv, ov;
       xv.u = *reinterpret_cast<const uint4*>(x + off);
@@ -155,8 +161,8 @@ fused_ln_mlp_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gamma,
       for (int e = 0; e < 4; ++e) {
         const float2 xf = __bfloat1622float2(xv.h[e]);
         const float2 bf = __bfloat1622float2(bv.h[e]);
-        ov.h[e] = __floats2bfloat162_rn(xf.x + a[2 * e] + bf.x,
-                                        xf.y + a[2 * e + 1] + bf.y);
+        ov.h[e] = __floats2bfloat162_rn(xf.x + kp * (a[2 * e] + bf.x),
+                                        xf.y + kp * (a[2 * e + 1] + bf.y));
       }
       *reinterpret_cast<uint4*>(out + off) = ov.u;
     }
@@ -166,8 +172,9 @@ fused_ln_mlp_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gamma,
 
 template <int C>
 cudaError_t launch_mlp(const void* x, const void* g, const void* be, const void* w1,
-                       const void* b1, const void* w2, const void* b2, void* out,
-                       int M, int hidden, float eps, cudaStream_t stream) {
+                       const void* b1, const void* w2, const void* b2, const void* keep,
+                       void* out, int M, int hidden, int rows_per_sample, float eps,
+                       cudaStream_t stream) {
   using S = MlpShape<C>;
   cudaError_t err = allow_smem(fused_ln_mlp_kernel<C>, S::SMEM);
   if (err != cudaSuccess) return err;
@@ -180,7 +187,8 @@ cudaError_t launch_mlp(const void* x, const void* g, const void* be, const void*
       static_cast<const bf16*>(x), static_cast<const bf16*>(g),
       static_cast<const bf16*>(be), static_cast<const bf16*>(w1),
       static_cast<const bf16*>(b1), static_cast<const bf16*>(w2),
-      static_cast<const bf16*>(b2), static_cast<bf16*>(out), M, hidden, eps);
+      static_cast<const bf16*>(b2), static_cast<const float*>(keep), static_cast<bf16*>(out),
+      M, hidden, rows_per_sample, eps);
   return cudaGetLastError();
 }
 
@@ -188,16 +196,16 @@ cudaError_t launch_mlp(const void* x, const void* g, const void* be, const void*
 
 extern "C" int lavt_fused_ln_mlp(const void* x, const void* g, const void* be,
                                  const void* w1, const void* b1, const void* w2,
-                                 const void* b2, void* out, int M, int C, int hidden,
-                                 float eps, void* stream) {
+                                 const void* b2, const void* keep, void* out, int M, int C,
+                                 int hidden, int rows_per_sample, float eps, void* stream) {
   using namespace lavt;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (C) {
-    case 128: err = launch_mlp<128>(x, g, be, w1, b1, w2, b2, out, M, hidden, eps, s); break;
-    case 256: err = launch_mlp<256>(x, g, be, w1, b1, w2, b2, out, M, hidden, eps, s); break;
-    case 512: err = launch_mlp<512>(x, g, be, w1, b1, w2, b2, out, M, hidden, eps, s); break;
-    case 1024: err = launch_mlp<1024>(x, g, be, w1, b1, w2, b2, out, M, hidden, eps, s); break;
+    case 128: err = launch_mlp<128>(x, g, be, w1, b1, w2, b2, keep, out, M, hidden, rows_per_sample, eps, s); break;
+    case 256: err = launch_mlp<256>(x, g, be, w1, b1, w2, b2, keep, out, M, hidden, rows_per_sample, eps, s); break;
+    case 512: err = launch_mlp<512>(x, g, be, w1, b1, w2, b2, keep, out, M, hidden, rows_per_sample, eps, s); break;
+    case 1024: err = launch_mlp<1024>(x, g, be, w1, b1, w2, b2, keep, out, M, hidden, rows_per_sample, eps, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(err);

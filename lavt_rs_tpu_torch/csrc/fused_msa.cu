@@ -21,12 +21,20 @@
 // the 48 KB default through cudaFuncSetAttribute), takes an exact
 // max-subtracted softmax in f32, and writes the head's 32 columns of O.
 // Scores and probabilities never reach device memory; O does, once, in
-// bf16.  Kernel 2 is a tiled WMMA GEMM for the out-projection + bias.
+// bf16.  The out-projection + bias then runs on the WMMA GEMM of
+// fused_msa_bwd.cu (gemm_bf16, bias epilogue).
 // Shared memory is carved so that dead buffers are reused (the x and
 // weight chunks and the q/k/v staging live in the score region before the
 // scores do; the output staging reuses q and k): 109 KB, which lets two
 // blocks (16 warps) share an SM and hide each other's load latency.
 // Global loads and stores move 16 bytes per thread.  No TMA, no wgmma yet.
+//
+// Save mode (training): with q_out non-null the kernel also writes the
+// training residuals that the backward (fused_msa_bwd.cu, K5) consumes, as
+// the TPU kernel's save=True does: q (post-scale), k and v in bf16 as
+// (B nW, N, C) with lanes in head order, the bf16 probabilities P the
+// output was made from as (B nW, heads, N, N), and, with LN on, the bf16
+// normalized tokens xn (written by the head-0 block of each window).
 
 #include "common.cuh"
 
@@ -64,8 +72,10 @@ __global__ void __launch_bounds__(kThreads, 2)
 window_msa_attn_kernel(const bf16* __restrict__ x, const bf16* __restrict__ ln_g,
                        const bf16* __restrict__ ln_b, const bf16* __restrict__ wqkv,
                        const bf16* __restrict__ bqkv, const float* __restrict__ relbias,
-                       const float* __restrict__ mask, bf16* __restrict__ o, int nW,
-                       int C, float scale, float eps) {
+                       const float* __restrict__ mask, bf16* __restrict__ o,
+                       bf16* __restrict__ q_out, bf16* __restrict__ k_out,
+                       bf16* __restrict__ v_out, bf16* __restrict__ p_out,
+                       bf16* __restrict__ xn_out, int nW, int C, float scale, float eps) {
   extern __shared__ __align__(128) unsigned char smem[];
   float* ss = reinterpret_cast<float*>(smem);
   bf16* xc = reinterpret_cast<bf16*>(smem);
@@ -125,6 +135,9 @@ window_msa_attn_kernel(const bf16* __restrict__ x, const bf16* __restrict__ ln_g
         }
       }
       *reinterpret_cast<uint4*>(xc + r * LDXC + c) = v.u;
+      if (xn_out != nullptr && h == 0)
+        *reinterpret_cast<uint4*>(xn_out + (static_cast<size_t>(win) * kN + r) * C + k0 + c) =
+            v.u;
     }
     for (int i = threadIdx.x; i < 3 * kHD * kKC / 8; i += kThreads) {
       const int j = i / (kKC / 8), c = (i % (kKC / 8)) * 8;
@@ -169,6 +182,15 @@ window_msa_attn_kernel(const bf16* __restrict__ x, const bf16* __restrict__ ln_g
     else vs[r * LDQ + d] = to_bf(v);
   }
   __syncthreads();
+  if (q_out != nullptr) {  // save mode: the head's q/k/v columns
+    for (int i = threadIdx.x; i < 3 * kN * (kHD / 8); i += kThreads) {
+      const int t = i / (kN * (kHD / 8)), r = (i / (kHD / 8)) % kN, d = (i % (kHD / 8)) * 8;
+      const bf16* src = (t == 0 ? qs : t == 1 ? ks : vs) + r * LDQ + d;
+      bf16* dst = t == 0 ? q_out : t == 1 ? k_out : v_out;
+      *reinterpret_cast<uint4*>(dst + (static_cast<size_t>(win) * kN + r) * C + h * kHD + d) =
+          *reinterpret_cast<const uint4*>(src);
+    }
+  }
 
   // 3. scores S = q k^T (f32, shared memory)
   for (int t = warp; t < 81; t += kWarps) {
@@ -193,6 +215,7 @@ window_msa_attn_kernel(const bf16* __restrict__ x, const bf16* __restrict__ ln_g
   const float* bias_h = relbias + static_cast<size_t>(h) * kN * kN;
   const float* mask_w = mask ? mask + static_cast<size_t>(win % nW) * kN * kN : nullptr;
   bf16* ps = reinterpret_cast<bf16*>(ss);
+  bf16* p_win = p_out ? p_out + (static_cast<size_t>(win) * gridDim.y + h) * kN * kN : nullptr;
   for (int r = warp; r < kN; r += kWarps) {
     float v[5];
     float m = -3.0e38f;
@@ -219,7 +242,11 @@ window_msa_attn_kernel(const bf16* __restrict__ x, const bf16* __restrict__ ln_g
 #pragma unroll
     for (int t = 0; t < 5; ++t) {
       const int j = lane + 32 * t;
-      if (j < kN) ps[r * LDP + j] = to_bf(v[t] / sum);
+      if (j < kN) {
+        const bf16 pb = to_bf(v[t] / sum);
+        ps[r * LDP + j] = pb;
+        if (p_win) p_win[r * kN + j] = pb;
+      }
     }
   }
   __syncthreads();
@@ -251,69 +278,14 @@ window_msa_attn_kernel(const bf16* __restrict__ x, const bf16* __restrict__ ln_g
   }
 }
 
-// Y (M x N) = A (M x K) . W^T + bias, W (N x K) row-major (a torch Linear
-// weight).  64 x 64 block tile, four warps of 32 x 32, K in steps of 32.
-constexpr int kGT = 64, kGK = 32, kGLD = kGK + 8, kGLDC = kGT + 4;
-
-__global__ void __launch_bounds__(128)
-linear_bias_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w,
-                   const bf16* __restrict__ bias, bf16* __restrict__ y, int M, int N,
-                   int K) {
-  __shared__ __align__(128) bf16 as[kGT * kGLD];
-  __shared__ __align__(128) bf16 ws[kGT * kGLD];
-  __shared__ __align__(128) float cs[kGT * kGLDC];
-  const int bm = blockIdx.y * kGT, bn = blockIdx.x * kGT;
-  const int warp = threadIdx.x >> 5, wr = warp / 2, wcol = warp % 2;
-  FragC acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-  for (int k0 = 0; k0 < K; k0 += kGK) {
-    for (int i = threadIdx.x; i < kGT * kGK; i += 128) {
-      const int r = i / kGK, c = i % kGK;
-      as[r * kGLD + c] = bm + r < M ? a[static_cast<size_t>(bm + r) * K + k0 + c] : to_bf(0.f);
-      ws[r * kGLD + c] = w[static_cast<size_t>(bn + r) * K + k0 + c];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kGK; kk += 16) {
-      FragA fa[2];
-      FragBCol fb[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], as + (wr * 32 + i * 16) * kGLD + kk, kGLD);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], ws + (wcol * 32 + j * 16) * kGLD + kk, kGLD);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(cs + (wr * 32 + i * 16) * kGLDC + wcol * 32 + j * 16,
-                              acc[i][j], kGLDC, wmma::mem_row_major);
-  __syncthreads();
-  for (int i = threadIdx.x; i < kGT * kGT; i += 128) {
-    const int r = i / kGT, c = i % kGT;
-    if (bm + r < M)
-      y[static_cast<size_t>(bm + r) * N + bn + c] = to_bf(cs[r * kGLDC + c] + to_f(bias[bn + c]));
-  }
-}
-
 }  // namespace lavt
 
 extern "C" int lavt_window_msa_attn(const void* x, const void* ln_g, const void* ln_b,
                                     const void* wqkv, const void* bqkv,
                                     const void* relbias, const void* mask, void* o,
-                                    int Bw, int nW, int C, int heads, float scale,
-                                    float eps, void* stream) {
+                                    void* q_out, void* k_out, void* v_out, void* p_out,
+                                    void* xn_out, int Bw, int nW, int C, int heads,
+                                    float scale, float eps, void* stream) {
   using namespace lavt;
   cudaError_t err = allow_smem(window_msa_attn_kernel, MSA_SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -326,16 +298,8 @@ extern "C" int lavt_window_msa_attn(const void* x, const void* ln_g, const void*
       static_cast<const bf16*>(x), static_cast<const bf16*>(ln_g),
       static_cast<const bf16*>(ln_b), static_cast<const bf16*>(wqkv),
       static_cast<const bf16*>(bqkv), static_cast<const float*>(relbias),
-      static_cast<const float*>(mask), static_cast<bf16*>(o), nW, C, scale, eps);
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int lavt_linear_bias(const void* a, const void* w, const void* bias, void* y,
-                                int M, int N, int K, void* stream) {
-  using namespace lavt;
-  dim3 grid(N / kGT, (M + kGT - 1) / kGT);
-  linear_bias_kernel<<<grid, 128, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(a), static_cast<const bf16*>(w),
-      static_cast<const bf16*>(bias), static_cast<bf16*>(y), M, N, K);
+      static_cast<const float*>(mask), static_cast<bf16*>(o), static_cast<bf16*>(q_out),
+      static_cast<bf16*>(k_out), static_cast<bf16*>(v_out), static_cast<bf16*>(p_out),
+      static_cast<bf16*>(xn_out), nW, C, scale, eps);
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,6 +6,9 @@ Attention is a plain matmul + f32 softmax.  Module and parameter names
 follow Hugging Face's BertModel (`embeddings.word_embeddings`,
 `encoder.layer.N.attention.self.query`, ...) so reference checkpoints load
 as they are.  No pooler: LAVT consumes the last hidden state only.
+In training, `attn_dropout` drops attention probabilities and
+`hidden_dropout` the embeddings and both residual branches, drawn from
+the generator passed to `forward` (as `lavt_rs_tpu/models/bert.py`).
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..config import BertConfig
+from ..ops.dropout import dropout
 
 
 class BertEmbeddings(nn.Module):
@@ -43,11 +47,12 @@ class BertSelfAttention(nn.Module):
     def __init__(self, cfg: BertConfig):
         super().__init__()
         self.num_heads = cfg.num_heads
+        self.attn_dropout = cfg.attn_dropout
         self.query = nn.Linear(cfg.hidden_size, cfg.hidden_size)
         self.key = nn.Linear(cfg.hidden_size, cfg.hidden_size)
         self.value = nn.Linear(cfg.hidden_size, cfg.hidden_size)
 
-    def forward(self, x, attn_bias):
+    def forward(self, x, attn_bias, generator=None):
         b, n, d = x.shape
         h = self.num_heads
         hd = d // h
@@ -58,20 +63,25 @@ class BertSelfAttention(nn.Module):
         q, k, v = split(self.query(x)), split(self.key(x)), split(self.value(x))
         scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
         probs = torch.softmax(scores / hd ** 0.5 + attn_bias, dim=-1)
-        out = torch.matmul(probs.to(x.dtype).float(), v.float()).to(x.dtype)
+        probs = dropout(probs.to(x.dtype), self.attn_dropout, self.training,
+                        generator)
+        out = torch.matmul(probs.float(), v.float()).to(x.dtype)
         return out.transpose(1, 2).reshape(b, n, d)
 
 
 class _DenseLN(nn.Module):
-    """`dense` + `LayerNorm` of a residual (HF's BertSelfOutput/BertOutput)."""
+    """`dense` + dropout + `LayerNorm` of a residual (HF's
+    BertSelfOutput/BertOutput)."""
 
-    def __init__(self, d_in: int, d_out: int, eps: float):
+    def __init__(self, d_in: int, d_out: int, eps: float, drop: float):
         super().__init__()
         self.dense = nn.Linear(d_in, d_out)
         self.LayerNorm = nn.LayerNorm(d_out, eps=eps)
+        self.drop = drop
 
-    def forward(self, y, residual):
-        return self.LayerNorm(residual + self.dense(y))
+    def forward(self, y, residual, generator=None):
+        y = dropout(self.dense(y), self.drop, self.training, generator)
+        return self.LayerNorm(residual + y)
 
 
 class BertAttention(nn.Module):
@@ -79,10 +89,10 @@ class BertAttention(nn.Module):
         super().__init__()
         self.self = BertSelfAttention(cfg)
         self.output = _DenseLN(cfg.hidden_size, cfg.hidden_size,
-                               cfg.layer_norm_eps)
+                               cfg.layer_norm_eps, cfg.hidden_dropout)
 
-    def forward(self, x, attn_bias):
-        return self.output(self.self(x, attn_bias), x)
+    def forward(self, x, attn_bias, generator=None):
+        return self.output(self.self(x, attn_bias, generator), x, generator)
 
 
 class BertIntermediate(nn.Module):
@@ -100,11 +110,11 @@ class BertLayer(nn.Module):
         self.attention = BertAttention(cfg)
         self.intermediate = BertIntermediate(cfg)
         self.output = _DenseLN(cfg.intermediate_size, cfg.hidden_size,
-                               cfg.layer_norm_eps)
+                               cfg.layer_norm_eps, cfg.hidden_dropout)
 
-    def forward(self, x, attn_bias):
-        x = self.attention(x, attn_bias)
-        return self.output(self.intermediate(x), x)
+    def forward(self, x, attn_bias, generator=None):
+        x = self.attention(x, attn_bias, generator)
+        return self.output(self.intermediate(x), x, generator)
 
 
 class _Layers(nn.Module):
@@ -120,14 +130,17 @@ class BertEncoder(nn.Module):
         super().__init__()
         self.embeddings = BertEmbeddings(cfg)
         self.encoder = _Layers(cfg)
+        self.hidden_dropout = cfg.hidden_dropout
 
     def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
-                token_type_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+                token_type_ids: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
-        x = self.embeddings(input_ids, token_type_ids)
+        x = dropout(self.embeddings(input_ids, token_type_ids),
+                    self.hidden_dropout, self.training, generator)
         # HF extended attention mask: (1 - m) * -10000 on the key axis
         bias = (1.0 - attention_mask.float())[:, None, None, :] * -10000.0
         for layer in self.encoder.layer:
-            x = layer(x, bias)
+            x = layer(x, bias, generator)
         return x

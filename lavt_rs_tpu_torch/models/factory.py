@@ -60,12 +60,19 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             t.clamp_(-0.04, 0.04)
 
 
-def build_model(cfg: ModelConfig, device="cpu",
-                generator: Optional[torch.Generator] = None) -> nn.Module:
-    """The eval-mode model on `device`, parameters in cfg.dtype (batch
-    norms kept in f32).  With a generator, weights are drawn by
-    `init_weights`; without, they keep PyTorch's default init (to be
-    overwritten by a state dict)."""
+def build_model(cfg: ModelConfig, device="cuda",
+                generator: Optional[torch.Generator] = None,
+                train: bool = False) -> nn.Module:
+    """The model on `device` (the card unless the caller asks for the
+    CPU).  With a generator, weights are drawn by `init_weights`; without,
+    they keep PyTorch's default init (to be overwritten by a state dict).
+
+    train=False: eval mode, parameters in cfg.dtype (batch norms kept in
+    f32).  train=True: train mode (batch statistics, dropout, DropPath),
+    parameters in f32 as the optimizer's masters; the compute runs in
+    cfg.dtype, under `torch.autocast` for the plain modules
+    (`train.step`), while the kernel Functions cast the weights
+    themselves."""
     if cfg.name != "lavt_one":
         where = _LATER.get(cfg.name)
         raise NotImplementedError(
@@ -75,6 +82,8 @@ def build_model(cfg: ModelConfig, device="cpu",
         model = LAVTOne(cfg)
     if generator is not None:
         init_weights(model, generator)
+    if train:
+        return model.train()
     model.to(cfg.compute_dtype)
     for m in model.modules():
         if isinstance(m, nn.BatchNorm2d):

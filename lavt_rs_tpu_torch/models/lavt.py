@@ -4,10 +4,13 @@
 I/O as in the JAX package: image NHWC float (already normalized), text
 (B, N_l) token ids, l_mask (B, N_l) in {0, 1}; logits NHWC
 (B, H, W, num_classes) in f32, upsampled to the input size with
-corner-aligned bilinear.
+corner-aligned bilinear.  In training the generator draws every dropout
+and DropPath mask, in forward order (BERT first).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn as nn
@@ -34,10 +37,12 @@ class LAVTOne(nn.Module):
                                          cfg.num_classes)
 
     def forward(self, image: torch.Tensor, text_ids: torch.Tensor,
-                l_mask: torch.Tensor) -> torch.Tensor:
+                l_mask: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         dt = self.cfg.compute_dtype
         in_hw = image.shape[1:3]
-        l_feats = self.text_encoder(text_ids, l_mask)
-        x_c1, x_c2, x_c3, x_c4 = self.backbone(image.to(dt), l_feats, l_mask)
+        l_feats = self.text_encoder(text_ids, l_mask, generator=generator)
+        x_c1, x_c2, x_c3, x_c4 = self.backbone(image.to(dt), l_feats, l_mask,
+                                               generator)
         logits = self.classifier(x_c4, x_c3, x_c2, x_c1)
         return resize_nchw(logits, in_hw, exact=True).permute(0, 2, 3, 1)

@@ -16,6 +16,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..config import AttnNorm, GateKind, LGAct
+from ..ops.dropout import dropout
 from ..ops.norm import InstanceNormTokens
 
 
@@ -76,11 +77,15 @@ class SpatialImageLanguageAttention(nn.Module):
 
 
 class PWAM(nn.Module):
-    """mm = project_mm(vis_project(x) * image_lang_att(x, l, l_mask))."""
+    """mm = project_mm(vis_project(x) * image_lang_att(x, l, l_mask)), with
+    `dropout` (--fusion_drop, 0 by default) after both projections in
+    training."""
 
     def __init__(self, dim: int, lang_dim: int = 768, num_heads: int = 1,
-                 attention: bool = True, att_norm: AttnNorm = AttnNorm.IN):
+                 attention: bool = True, att_norm: AttnNorm = AttnNorm.IN,
+                 dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         if not attention:
             raise NotImplementedError(
                 "LangProject (--fuse simple) is in the long-tail slice "
@@ -90,10 +95,12 @@ class PWAM(nn.Module):
             dim, lang_dim, dim, dim, num_heads, att_norm)
         self.project_mm = nn.Sequential(TokenConv1d(dim, dim), nn.GELU())
 
-    def forward(self, x, l, l_mask):
-        vis = self.vis_project(x)
+    def forward(self, x, l, l_mask, generator=None):
+        vis = dropout(self.vis_project(x), self.dropout, self.training,
+                      generator)
         lang = self.image_lang_att(x, l, l_mask)
-        return self.project_mm(vis * lang)
+        return dropout(self.project_mm(vis * lang), self.dropout,
+                       self.training, generator)
 
 
 class LanguageGate(nn.Sequential):

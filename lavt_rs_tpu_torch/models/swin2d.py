@@ -15,18 +15,30 @@ hand-written kernels; on a CPU tensor they take their plain versions):
     four stages (the kernel takes C up to 1024);
   * the stage-output norms go through K4 (`layer_norm_rows`).
 With `use_kernels=False` the same routing calls the plain versions.
+
+Training (the module in train mode, parameters in f32): the MSA and the
+LN-MLP tail run through their autograd Functions (`FusedWindowMSA`: K1/K2
+in save mode with the K5 backward, or K6 past the residual cap;
+`FusedLnMlp`: K3 where the block's drop-path rate is 0, else K8 with a
+per-sample keep, both with the K7 backward), the stage norms through
+`LayerNormRows` (K4 with the plain backward).  DropPath on the attention
+branch and the tail's keep are drawn from the generator passed to
+`forward`; the per-block rates are linspace(0, drop_path_rate, blocks),
+as in the JAX package.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from ..config import FusionConfig, FusionKind, GateKind, StageOutput, SwinConfig
 from ..ops import fused_mlp, fused_msa, ln
+from ..ops.dropout import drop_path, drop_path_keep
 from ..ops.window import (relative_bias_from_table, relative_position_index_2d,
                           shift_mask_2d, window_partition, window_reverse)
 from .pwam import PWAM, LanguageGate, apply_gate
@@ -54,9 +66,13 @@ class WindowAttention(nn.Module):
         self._bias = None
 
     def relative_bias(self) -> torch.Tensor:
-        """(h, N, N) f32 bias, gathered once and kept until the table
-        changes (a new version, device or storage)."""
+        """(h, N, N) f32 bias.  Gathered with grad while autograd records
+        the table (training: dbias reaches the table through the gather);
+        otherwise gathered once and kept until the table changes (a new
+        version, device or storage)."""
         t = self.relative_position_bias_table
+        if torch.is_grad_enabled() and t.requires_grad:
+            return relative_bias_from_table(t, self.relative_position_index)
         key = (t._version, t.device, t.data_ptr())
         if self._bias_key != key:
             with torch.no_grad():
@@ -73,13 +89,11 @@ class WindowAttention(nn.Module):
             bqkv = torch.zeros(3 * self.dim, dtype=x.dtype, device=x.device)
         args = (self.qkv.weight, bqkv, self.proj.weight, self.proj.bias,
                 self.relative_bias(), mask, self.num_heads, self.scale)
+        if self.use_kernels:
+            return fused_msa.window_msa(x, ln_params, *args)
         if ln_params is not None:
-            fn = (fused_msa.fused_window_msa_ln if self.use_kernels
-                  else fused_msa.fused_window_msa_ln_plain)
-            return fn(x, *ln_params, *args)
-        fn = (fused_msa.fused_window_msa if self.use_kernels
-              else fused_msa.fused_window_msa_plain)
-        return fn(x, *args)
+            return fused_msa.fused_window_msa_ln_plain(x, *ln_params, *args)
+        return fused_msa.fused_window_msa_plain(x, *args)
 
 
 class Mlp(nn.Module):
@@ -96,18 +110,20 @@ class SwinBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, window_size: int = 7,
                  shift_size: int = 0, mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, qk_scale: Optional[float] = None,
-                 use_kernels: bool = True):
+                 use_kernels: bool = True, drop_path_rate: float = 0.0):
         super().__init__()
         self.window_size, self.shift_size = window_size, shift_size
         self.use_kernels = use_kernels
+        self.drop_path_rate = drop_path_rate
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         self.attn = WindowAttention(dim, window_size, num_heads, qkv_bias,
                                     qk_scale, use_kernels)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
 
-    def forward(self, x, hw: Tuple[int, int]):
-        """x: (B, H*W, C)."""
+    def forward(self, x, hw: Tuple[int, int],
+                generator: Optional[torch.Generator] = None):
+        """x: (B, H*W, C); the generator draws DropPath in training."""
         h, w = hw
         b, l, c = x.shape
         ws, ss = self.window_size, self.shift_size
@@ -135,13 +151,21 @@ class SwinBlock(nn.Module):
             x = torch.roll(x, shifts=(ss, ss), dims=(1, 2))
         if padded:
             x = x[:, :h, :w, :]
-        x = shortcut + x.reshape(b, l, c)
+        rate = self.drop_path_rate
+        x = shortcut + drop_path(x.reshape(b, l, c), rate, self.training,
+                                 generator)
 
-        fn = (fused_mlp.fused_ln_mlp if self.use_kernels
-              else fused_mlp.fused_ln_mlp_plain)
-        y = fn(x.reshape(b * l, c), self.norm2.weight, self.norm2.bias,
-               self.mlp.fc1.weight, self.mlp.fc1.bias, self.mlp.fc2.weight,
-               self.mlp.fc2.bias)
+        params = (self.norm2.weight, self.norm2.bias, self.mlp.fc1.weight,
+                  self.mlp.fc1.bias, self.mlp.fc2.weight, self.mlp.fc2.bias)
+        keep = (drop_path_keep(b, rate, generator, x.device)
+                if self.training and rate > 0 else None)
+        x2 = x.reshape(b * l, c)
+        if self.use_kernels:
+            y = fused_mlp.ln_mlp(x2, *params, keep, l)
+        elif keep is None:
+            y = fused_mlp.fused_ln_mlp_plain(x2, *params)
+        else:
+            y = fused_mlp.fused_ln_mlp_droppath_plain(x2, *params, keep, l)
         return y.view(b, l, c)
 
 
@@ -194,9 +218,13 @@ class StageNorm(nn.LayerNorm):
 
     def forward(self, x):
         c = x.shape[-1]
-        fn = ln.layer_norm_rows if self.use_kernels else ln.layer_norm_rows_plain
-        return fn(x.reshape(-1, c), self.weight, self.bias,
-                  self.eps).view(x.shape)
+        if self.use_kernels:
+            y = ln.LayerNormRows.apply(x.reshape(-1, c), self.weight,
+                                       self.bias, self.eps)
+        else:
+            y = ln.layer_norm_rows_plain(x.reshape(-1, c), self.weight,
+                                         self.bias, self.eps)
+        return y.view(x.shape)
 
 
 class MMBasicLayer(nn.Module):
@@ -205,30 +233,33 @@ class MMBasicLayer(nn.Module):
     def __init__(self, dim: int, depth: int, num_heads: int, window_size: int,
                  mlp_ratio: float, qkv_bias: bool, qk_scale: Optional[float],
                  has_downsample: bool, fusion: FusionConfig, fusion_heads: int,
-                 use_kernels: bool = True):
+                 use_kernels: bool = True,
+                 drop_path_rates: Optional[Tuple[float, ...]] = None):
         super().__init__()
         if fusion.kind != FusionKind.PWAM:
             raise NotImplementedError(
                 f"fusion {fusion.kind.value!r}: only PWAM is ported; the "
                 "baselines are in the long-tail slice (ROADMAP.md slice 5)")
         self.fusion_cfg = fusion
+        rates = drop_path_rates or (0.0,) * depth
         self.blocks = nn.ModuleList(
             SwinBlock(dim, num_heads, window_size,
                       0 if i % 2 == 0 else window_size // 2, mlp_ratio,
-                      qkv_bias, qk_scale, use_kernels)
+                      qkv_bias, qk_scale, use_kernels, rates[i])
             for i in range(depth))
         self.fusion = PWAM(dim, fusion.lang_dim, fusion_heads,
-                           att_norm=fusion.att_norm)
+                           att_norm=fusion.att_norm, dropout=fusion.dropout)
         self.res_gate = (LanguageGate(dim, fusion.lg_act)
                          if fusion.gate == GateKind.DEFAULT else None)
         self.downsample = PatchMerging(dim) if has_downsample else None
 
-    def forward(self, x, hw, l, l_mask):
+    def forward(self, x, hw, l, l_mask,
+                generator: Optional[torch.Generator] = None):
         h, w = hw
         for blk in self.blocks:
-            x = blk(x, hw)
+            x = blk(x, hw, generator)
         x_pre_fusion = x
-        mm = self.fusion(x, l, l_mask)
+        mm = self.fusion(x, l, l_mask, generator)
         gate_out = self.res_gate(mm) if self.res_gate is not None else None
         x = apply_gate(x, mm, gate_out, self.fusion_cfg.gate)
         out = self.fusion_cfg.stage_output
@@ -251,29 +282,41 @@ class MultiModalSwinTransformer(nn.Module):
             raise NotImplementedError(
                 "absolute position embedding is in the long-tail slice "
                 "(ROADMAP.md slice 5)")
+        if cfg.drop_rate or cfg.attn_drop_rate:
+            raise NotImplementedError(
+                "Swin drop_rate / attn_drop_rate (0 in every published "
+                "config) are not ported")
         self.cfg, self.out_indices = cfg, tuple(out_indices)
         self.patch_embed = PatchEmbed(cfg.embed_dim, cfg.patch_size,
                                       cfg.patch_norm)
+        dpr = np.linspace(0, cfg.drop_path_rate, sum(cfg.depths)).tolist()
+        starts = np.cumsum((0,) + tuple(cfg.depths)).tolist()
         self.layers = nn.ModuleList(
             MMBasicLayer(cfg.num_features[i], cfg.depths[i], cfg.num_heads[i],
                          cfg.window_size, cfg.mlp_ratio, cfg.qkv_bias,
                          cfg.qk_scale, i < cfg.num_layers - 1, fusion,
-                         fusion.num_heads[i], use_kernels)
+                         fusion.num_heads[i], use_kernels,
+                         tuple(dpr[starts[i]:starts[i + 1]]))
             for i in range(cfg.num_layers))
         for i in self.out_indices:
             self.add_module(f"norm{i}", StageNorm(cfg.num_features[i],
                                                   use_kernels))
 
-    def forward(self, x, l, l_mask):
+    def forward(self, x, l, l_mask,
+                generator: Optional[torch.Generator] = None):
+        """The residual stream runs in x's dtype (the compute dtype): under
+        autocast the plain modules' outputs are cast back to it before
+        every stage and stage norm."""
+        dt = x.dtype
         x = self.patch_embed(x)
         b, wh, ww, c = x.shape
         x = x.reshape(b, wh * ww, c)
         outs = []
         hw = (wh, ww)
         for i, layer in enumerate(self.layers):
-            x_out, x, next_hw = layer(x, hw, l, l_mask)
+            x_out, x, next_hw = layer(x.to(dt), hw, l, l_mask, generator)
             if i in self.out_indices:
-                x_out = getattr(self, f"norm{i}")(x_out)
+                x_out = getattr(self, f"norm{i}")(x_out.to(dt))
                 outs.append(x_out.view(b, hw[0], hw[1], -1))
             hw = next_hw
         return tuple(outs)

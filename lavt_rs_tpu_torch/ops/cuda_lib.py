@@ -1,8 +1,10 @@
 """Build and load the hand-written CUDA kernels (`lavt_rs_tpu_torch/csrc`).
 
-The sources have a plain C interface.  On first use they are compiled with
-`nvcc -gencode arch=compute_90a,code=sm_90a` into one shared library under
-`<repo>/build/kernels/<hash of the sources>/`, then loaded with ctypes.
+The sources have a plain C interface.  On first use each is compiled with
+`nvcc -gencode arch=compute_90a,code=sm_90a` (one nvcc per source, all
+started together), and the objects are linked into one shared library
+under `<repo>/build/kernels/<hash of the sources>/`, then loaded with
+ctypes.
 Nothing is built or imported when this module is imported: `lib()` does it
 on the first kernel launch, so the CPU tests can import every module.
 
@@ -22,21 +24,28 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("ln.cu", "fused_mlp.cu", "fused_msa.cu")
+SOURCES = ("ln.cu", "fused_mlp.cu", "fused_msa.cu", "fused_msa_bwd.cu",
+           "fused_mlp_bwd.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+              "-Xcompiler", "-fPIC", "-lineinfo")
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+L = ctypes.c_longlong
 F = ctypes.c_float
 
 # argtypes of each C entry point (pointers and the stream as c_void_p)
 SIGNATURES = {
     "lavt_layer_norm_rows": (P, P, P, P, I, I, F, P),
-    "lavt_fused_ln_mlp": (P, P, P, P, P, P, P, P, I, I, I, F, P),
-    "lavt_window_msa_attn": (P, P, P, P, P, P, P, P, I, I, I, I, F, F, P),
-    "lavt_linear_bias": (P, P, P, P, I, I, I, P),
+    "lavt_fused_ln_mlp": (P, P, P, P, P, P, P, P, P, I, I, I, I, F, P),
+    "lavt_window_msa_attn": (P,) * 13 + (I, I, I, I, F, F, P),
+    "lavt_msa_bwd_attn": (P,) * 9 + (I, I, I, I, F, P),
+    "lavt_gemm_bf16": (P,) * 5 + (I,) * 9 + (P,),
+    "lavt_sum_partials": (P, P, I, L, P),
+    "lavt_colsum_bf16": (P, P, P, I, I, I, I, P),
+    "lavt_mlp_bwd_rows": (I, I),
+    "lavt_mlp_bwd": (P,) * 8 + (I,) + (P,) * 8 + (I, I, I, I, F, P),
 }
 
 _LIB = None
@@ -72,18 +81,35 @@ def build(verbose: bool = False) -> Path:
     if so.exists():
         return so
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"liblavt_kernels.{os.getpid()}.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(CSRC / s) for s in SOURCES]]
-    if verbose:
-        cmd.insert(1, "-Xptxas=-v")
+    tag = os.getpid()
+    nvcc = _nvcc()
+    extra = ["-Xptxas=-v"] if verbose else []
     t0 = time.perf_counter()
+    objs, procs = [], []
+    for src in SOURCES:
+        obj = out_dir / f"{Path(src).stem}.{tag}.o"
+        cmd = [nvcc, *extra, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / src)]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for cmd, proc in procs:  # wait for every compile before reporting
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}"
+                          f"\n{out}\n{err}")
+        elif verbose:
+            print(err, flush=True)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    tmp = out_dir / f"liblavt_kernels.{tag}.so"
+    cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
                            f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
-    if verbose:
-        print(proc.stderr, flush=True)
+    for obj in objs:
+        obj.unlink()
     os.replace(tmp, so)
     build_seconds = time.perf_counter() - t0
     return so

@@ -1,0 +1,52 @@
+"""Dropout and DropPath drawn from an explicit `torch.Generator`
+(counterparts of flax `nn.Dropout` and `lavt_rs_tpu/models/swin2d.py:
+drop_path`).
+
+The masks are uniform f32 draws on the tensor's device, so two models
+that make the same calls with generators in the same state draw the same
+masks whatever their compute dtype.  Nothing is drawn in eval mode or at
+rate 0.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+
+def _need(generator: Optional[torch.Generator]) -> torch.Generator:
+    if generator is None:
+        raise ValueError("training with a dropout or drop-path rate > 0 "
+                         "needs a torch.Generator for the draws")
+    return generator
+
+
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Elementwise dropout: x / (1 - rate) where kept, else 0."""
+    if not training or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    u = torch.rand(x.shape, generator=_need(generator), device=x.device)
+    return torch.where(u < keep, x / keep, torch.zeros_like(x))
+
+
+def drop_path_keep(b: int, rate: float, generator: Optional[torch.Generator],
+                   device) -> torch.Tensor:
+    """(b,) f32 per-sample branch scale: 1 / (1 - rate) or 0."""
+    keep = 1.0 - rate
+    u = torch.rand((b,), generator=_need(generator), device=device)
+    return torch.where(u < keep, 1.0 / keep, 0.0).float()
+
+
+def drop_path(x: torch.Tensor, rate: float, training: bool,
+              generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Per-sample stochastic depth over x's leading dim (timm DropPath):
+    each sample's branch is x / (1 - rate) or 0."""
+    if not training or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    u = torch.rand((x.shape[0],), generator=_need(generator), device=x.device)
+    kept = (u < keep).view((-1,) + (1,) * (x.ndim - 1))
+    return torch.where(kept, x / keep, torch.zeros_like(x))

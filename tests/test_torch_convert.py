@@ -56,7 +56,7 @@ def test_round_trip_through_convert_lavt_one():
 
     cfg = C.ModelConfig(swin=C.SwinConfig(**SWIN), bert=C.BertConfig(**BERT),
                         img_size=96, max_tokens=5, dtype="float32")
-    port = build_model(cfg)
+    port = build_model(cfg, device="cpu")
     port.load_state_dict(state_dict_from_jax(variables, cfg), strict=True)
     sd = {k: v.numpy() for k, v in port.state_dict().items()}
     back = _flat(convert_lavt_one(sd, jcfg))
@@ -84,7 +84,7 @@ def test_reference_state_dict_loads_as_is():
         bert=C.BertConfig(vocab_size=120, num_layers=1, intermediate_size=256,
                           max_position_embeddings=64),
         img_size=96, max_tokens=6, dtype="float32")
-    port = build_model(cfg)
+    port = build_model(cfg, device="cpu")
     missing, unexpected = port.load_state_dict(oracle.state_dict(), strict=False)
     # recent HF versions keep position_ids out of the state dict; v3.0.2,
     # which the reference checkpoints were saved with, stored it
@@ -114,20 +114,32 @@ from lavt_rs_tpu_torch import config as C
 from lavt_rs_tpu_torch.convert import from_jax
 from lavt_rs_tpu_torch.eval.refcoco_eval import fwd_iou
 from lavt_rs_tpu_torch.models.factory import build_model
-from lavt_rs_tpu_torch.ops import cuda_lib, fused_mlp, fused_msa, ln
+from lavt_rs_tpu_torch.ops import cuda_lib, dropout, fused_mlp, fused_msa, ln
+from lavt_rs_tpu_torch import losses, metrics
+from lavt_rs_tpu_torch.train.optim import TrainConfig
+from lavt_rs_tpu_torch.train.step import create_train_state, make_train_step
+import chip_smoke
 cfg = C.ModelConfig(swin=C.SwinConfig(embed_dim=32, depths=(1, 1, 1, 1),
                                       num_heads=(1, 2, 4, 8)),
                     bert=C.BertConfig(vocab_size=50, num_layers=1,
                                       intermediate_size=64,
                                       max_position_embeddings=16),
                     dtype="float32")
-model = build_model(cfg, generator=torch.Generator().manual_seed(0))
+model = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
 image = torch.randint(0, 256, (1, 96, 96, 3), dtype=torch.uint8)
 ids = torch.randint(1, 50, (1, 1, 4))
 mask = torch.ones(1, 1, 4, dtype=torch.long)
 target = torch.zeros(1, 96 * 96 // 8, dtype=torch.uint8)
 inter, union = fwd_iou(model, image, ids, mask, target)
 assert inter.shape == (1, 1) and bool(torch.isfinite(union).all())
+model = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0),
+                    train=True)
+tcfg = TrainConfig()
+step = make_train_step(model, *create_train_state(model, tcfg), tcfg)
+out = step({"image": image, "ids": ids[:, 0], "mask": mask[:, 0],
+            "target": torch.zeros(1, 96, 96, dtype=torch.long)},
+           torch.Generator().manual_seed(1))
+assert bool(torch.isfinite(out["loss"]))
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax")
        and sys.modules[m] is not None]
 assert not bad, bad

@@ -12,16 +12,27 @@ output is ≤ 4e-3 and a rounding that lands on the other side of a
 neighbouring intermediate (the bf16 LN output, GELU output, q/k/v, P)
 moves the result by a few such steps: 2e-2 (≈ 5 steps) for LN and MLP,
 3e-2 for the MSA, whose P and attention output are rounded twice more.
+
+The backward kernels (K5, K6, K7) are held to their plain versions on the
+same bf16 inputs: elementwise outputs (dx) within TOL_DX · (rms + |want|),
+the rms of the wanted tensor standing for its scale, and the weight, bias
+and bias-table grads, sums over all rows of products of bf16-rounded
+factors, within a relative Frobenius error of TOL_GRAD.  The saved
+probabilities P are within TOL_P absolute plus TOL_MSA relative.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from lavt_rs_tpu_torch.ops.fused_mlp import fused_ln_mlp, fused_ln_mlp_plain
+from lavt_rs_tpu_torch.ops.fused_mlp import (
+    fused_ln_mlp, fused_ln_mlp_bwd, fused_ln_mlp_bwd_plain,
+    fused_ln_mlp_droppath, fused_ln_mlp_droppath_plain, fused_ln_mlp_plain)
 from lavt_rs_tpu_torch.ops.fused_msa import (
-    fused_window_msa, fused_window_msa_ln, fused_window_msa_ln_plain,
-    fused_window_msa_plain)
+    fused_window_msa, fused_window_msa_bwd, fused_window_msa_bwd_plain,
+    fused_window_msa_bwd_recompute, fused_window_msa_bwd_recompute_plain,
+    fused_window_msa_ln, fused_window_msa_ln_plain, fused_window_msa_plain,
+    fused_window_msa_save, fused_window_msa_save_plain)
 from lavt_rs_tpu_torch.ops.ln import layer_norm_rows, layer_norm_rows_plain
 from lavt_rs_tpu_torch.ops.window import (relative_bias_from_table,
                                           relative_position_index_2d,
@@ -31,6 +42,9 @@ pytestmark = pytest.mark.cuda
 
 TOL_LN_MLP = 2e-2
 TOL_MSA = 3e-2
+TOL_P = 2e-3
+TOL_DX = 3e-2
+TOL_GRAD = 1e-2
 
 
 @pytest.fixture
@@ -123,3 +137,141 @@ def test_kernels_refuse_what_they_do_not_take(dev):
     xw, w, bias, mask, scale = _msa_args(rng, dev, 1, 24, 128, 4, False)
     with pytest.raises(ValueError):
         fused_window_msa(xw[:, :, :100], *w, bias, mask, 4, scale)  # N != 144
+
+
+def _close_scaled(got, want, tol):
+    torch.cuda.synchronize()
+    g, w = got.float(), want.float()
+    assert bool(torch.isfinite(g).all())
+    err = (g - w).abs()
+    scale = w.square().mean().sqrt()
+    assert bool((err <= tol * (scale + w.abs())).all()), \
+        f"max abs err {err.max().item():.4g} at scale {scale.item():.4g}"
+
+
+def _rel_frob(got, want, tol):
+    torch.cuda.synchronize()
+    g, w = got.float(), want.float()
+    assert bool(torch.isfinite(g).all())
+    rel = ((g - w).norm() / w.norm().clamp(min=1e-30)).item()
+    assert rel <= tol, f"relative Frobenius error {rel:.4g}"
+
+
+def _close_grads(got, want):
+    _close_scaled(got[0], want[0], TOL_DX)
+    for g, w in zip(got[1:], want[1:]):
+        assert g.shape == w.shape and g.dtype == torch.float32
+        _rel_frob(g, w, TOL_GRAD)
+
+
+# (C, heads, image side) at two Swin-B stage shapes each
+MSA_SHAPES = [(128, 4, 48, True, True), (256, 8, 24, True, False),
+              (512, 16, 36, False, True), (1024, 32, 24, False, False)]
+
+
+@pytest.mark.parametrize("c,heads,hw,with_ln,shift", MSA_SHAPES)
+def test_fused_window_msa_save_mode_kernel(dev, c, heads, hw, with_ln, shift):
+    rng = np.random.default_rng(c + 11)
+    x, w, bias, mask, scale = _msa_args(rng, dev, 2, hw, c, heads, shift)
+    ln = ((_bf16(rng, (c,), 0.2, dev) + 1.0, _bf16(rng, (c,), 0.2, dev))
+          if with_ln else None)
+    y, saved = fused_window_msa_save(x, ln, *w, bias, mask, heads, scale)
+    y_p, saved_p = fused_window_msa_save_plain(x, ln, *w, bias, mask, heads,
+                                               scale)
+    _close(y, y_p, TOL_MSA)
+    for name, got, want in zip("qkvpx", saved, saved_p):
+        if want is None:
+            assert got is None
+            continue
+        assert got.shape == want.shape and got.dtype == torch.bfloat16, name
+        if name == "p":
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs()
+            assert bool((err <= TOL_P + TOL_MSA * want.float().abs()).all())
+        else:
+            _close(got, want, TOL_MSA)
+
+
+@pytest.mark.parametrize("c,heads,hw,with_ln,shift", MSA_SHAPES)
+def test_fused_window_msa_bwd_kernel(dev, c, heads, hw, with_ln, shift):
+    """K5 on the plain save-mode residuals (both sides see one tape)."""
+    rng = np.random.default_rng(c + 13)
+    x, w, bias, mask, scale = _msa_args(rng, dev, 2, hw, c, heads, shift)
+    _, (q, k, v, p, _) = fused_window_msa_save_plain(x, None, *w, bias, mask,
+                                                     heads, scale)
+    gy = _bf16(rng, x.shape, 1.0, dev)
+    got = fused_window_msa_bwd(x, gy, w[0], w[2], (q, k, v, p), heads, scale)
+    want = fused_window_msa_bwd_plain(x, gy, w[0], w[2], (q, k, v, p), heads,
+                                      scale)
+    _close_grads(got, want)
+
+
+@pytest.mark.parametrize("c,heads,hw,with_ln,shift", MSA_SHAPES[::3])
+def test_fused_window_msa_bwd_recompute_kernel(dev, c, heads, hw, with_ln,
+                                               shift):
+    rng = np.random.default_rng(c + 17)
+    x, w, bias, mask, scale = _msa_args(rng, dev, 2, hw, c, heads, shift)
+    ln = ((_bf16(rng, (c,), 0.2, dev) + 1.0, _bf16(rng, (c,), 0.2, dev))
+          if with_ln else None)
+    gy = _bf16(rng, x.shape, 1.0, dev)
+    got = fused_window_msa_bwd_recompute(x, ln, *w, bias, mask, gy, heads,
+                                         scale)
+    want = fused_window_msa_bwd_recompute_plain(x, ln, *w, bias, mask, gy,
+                                                heads, scale)
+    _close_grads(got, want)
+
+
+def _mlp_args(rng, dev, m, c):
+    return (_bf16(rng, (m, c), 1.0, dev), _bf16(rng, (c,), 0.2, dev) + 1.0,
+            _bf16(rng, (c,), 0.2, dev), _bf16(rng, (4 * c, c), c ** -0.5, dev),
+            _bf16(rng, (4 * c,), 0.2, dev),
+            _bf16(rng, (c, 4 * c), (4 * c) ** -0.5, dev),
+            _bf16(rng, (c,), 0.2, dev))
+
+
+def _keep(dev, b, drop=0.3):
+    bern = torch.arange(b, device=dev) % 3 != 1
+    return torch.where(bern, 1.0 / (1.0 - drop), 0.0).float()
+
+
+@pytest.mark.parametrize("m,c,rows", [(1000, 128, 250), (900, 256, 225),
+                                      (450, 512, 225), (225, 1024, 75)])
+def test_fused_ln_mlp_droppath_kernel(dev, m, c, rows):
+    rng = np.random.default_rng(c + 19)
+    args = _mlp_args(rng, dev, m, c)
+    keep = _keep(dev, m // rows)
+    _close(fused_ln_mlp_droppath(*args, keep, rows),
+           fused_ln_mlp_droppath_plain(*args, keep, rows), TOL_LN_MLP)
+
+
+@pytest.mark.parametrize("m,c,rows,drop", [(1000, 128, 250, False),
+                                           (900, 256, 225, True),
+                                           (450, 512, 225, False),
+                                           (225, 1024, 75, True)])
+def test_fused_ln_mlp_bwd_kernel(dev, m, c, rows, drop):
+    rng = np.random.default_rng(c + 23)
+    x, g, be, w1, b1, w2, _ = _mlp_args(rng, dev, m, c)
+    gy = _bf16(rng, (m, c), 1.0, dev)
+    keep = _keep(dev, m // rows) if drop else None
+    got = fused_ln_mlp_bwd(x, gy, g, be, w1, b1, w2, keep, rows)
+    want = fused_ln_mlp_bwd_plain(x, gy, g, be, w1, b1, w2, keep, rows)
+    _close_grads(got, want)
+
+
+def test_training_kernels_refuse_what_they_do_not_take(dev):
+    rng = np.random.default_rng(29)
+    x, w, bias, mask, scale = _msa_args(rng, dev, 1, 24, 128, 4, False)
+    _, (q, k, v, p, _) = fused_window_msa_save_plain(x, None, *w, bias, mask,
+                                                     4, scale)
+    with pytest.raises(TypeError):  # f32 output gradient
+        fused_window_msa_bwd(x, x.float(), w[0], w[2], (q, k, v, p), 4, scale)
+    with pytest.raises(ValueError):  # head dim 64
+        fused_window_msa_save(x, None, *w, bias, mask, 2, scale)
+    xm, g, be, w1, b1, w2, b2 = _mlp_args(rng, dev, 64, 96)  # C = 96
+    with pytest.raises(ValueError):
+        fused_ln_mlp_bwd(xm, xm, g, be, w1, b1, w2)
+    xm, g, be, w1, b1, w2, b2 = _mlp_args(rng, dev, 64, 128)
+    with pytest.raises(TypeError):  # f32 weights
+        fused_ln_mlp_bwd(xm, xm, g, be, w1.float(), b1, w2)
+    with pytest.raises(ValueError):  # 64 rows are not samples of 48
+        fused_ln_mlp_droppath(xm, g, be, w1, b1, w2, b2, _keep(dev, 2), 48)

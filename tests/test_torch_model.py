@@ -75,7 +75,7 @@ def pair():
 
     cfg = C.ModelConfig(swin=C.SwinConfig(**SWIN), bert=C.BertConfig(**BERT),
                         img_size=IMG, max_tokens=TOKENS, dtype="float32")
-    pm = build_model(cfg)
+    pm = build_model(cfg, device="cpu")
     pm.load_state_dict(state_dict_from_jax(variables, cfg), strict=True)
     return jcfg, jm, variables, pm
 
@@ -106,7 +106,7 @@ def test_plain_route_equals_kernel_route_on_cpu(pair):
     the kernel wrappers take the same plain versions."""
     jcfg, _, variables, pm = pair
     cfg = dataclasses.replace(pm.cfg, use_kernels=False)
-    plain = build_model(cfg)
+    plain = build_model(cfg, device="cpu")
     plain.load_state_dict(pm.state_dict())
     img, ids, mask = (torch.from_numpy(a) for a in
                       _inputs(np.random.default_rng(2), b=1))

@@ -22,8 +22,10 @@ import time
 from collections import defaultdict
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-HAND_WRITTEN = ("window_msa_attn_kernel", "linear_bias_kernel",
-                "fused_ln_mlp_kernel", "layer_norm_rows_kernel")
+HAND_WRITTEN = ("window_msa_attn_kernel", "fused_ln_mlp_kernel", "layer_norm_rows_kernel",
+                "msa_bwd_attn_kernel", "gemm_bf16_kernel", "mlp_bwd_dx_kernel",
+                "mlp_bwd_dw_kernel", "sum_partials_kernel",
+                "colsum_bf16_kernel")
 
 
 def category(name: str) -> str:
