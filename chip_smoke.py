@@ -28,7 +28,19 @@
    logits are checked against the same weights run through the plain path
    in f32.  Then the bf16 forward at batch 8 is timed, with the kernels
    and with the plain versions.
-4. Training main path: the same weights in an f32 `build_model(...,
+4. Video phase: K10 (attention on pre-projected heads) at the stage-2..4
+   shapes of an 8-frame 480² clip (N = 392) and at N = 196, K2p (the
+   padded fused MSA) at the stage-1 shape, maskless and grouped, each
+   against its plain version, timed beside its bound, its plain version
+   and its library call (one `scaled_dot_product_attention` for K10, a
+   bf16 linear / SDPA / linear chain for K2p).  Then lavt_video
+   (Video Swin-T, SepTPWAM, 12-layer BERT, the A2D recipe) in bf16 from
+   seeded random weights answers three 8-frame 480² clips through
+   `eval.video_eval.clip_iou`; the counters must show K2p twice and K10
+   ten times per clip.  One clip's annotated frame is checked against the
+   f32 plain route, the forward is timed (ms per clip, frames/s, with and
+   without the kernels) and one clip is broken down by `torch.profiler`.
+5. Training main path: the same weights in an f32 `build_model(...,
    train=True)` take AdamW steps (`train.step.make_train_step`: DropPath
    0.3, BERT dropout 0.1, weighted CE, poly LR) on synthetic uint8
    batches:
@@ -88,7 +100,7 @@ LOSS_RTOL, MIN_COS = 1e-2, 0.98
 MARGIN, MIN_AGREE = 0.05, 0.995
 # H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor cores, HBM3
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
-NAMES = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8")
+NAMES = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K10", "K2p")
 REPLACES = {
     "K1": "lavt_rs_tpu/ops/pallas/fused_msa.py:1415",
     "K2": "lavt_rs_tpu/ops/pallas/fused_msa.py:1261",
@@ -98,6 +110,8 @@ REPLACES = {
     "K6": "lavt_rs_tpu/ops/pallas/fused_msa.py:576",
     "K7": "lavt_rs_tpu/ops/pallas/fused_mlp.py:477",
     "K8": "lavt_rs_tpu/ops/pallas/fused_mlp.py:533",
+    "K10": "lavt_rs_tpu/ops/pallas/window_attn.py:120",
+    "K2p": "lavt_rs_tpu/ops/pallas/fused_msa.py:891",
 }
 SOURCES = {
     "K1": "lavt_rs_tpu_torch/csrc/fused_msa.cu",
@@ -108,6 +122,8 @@ SOURCES = {
     "K6": "lavt_rs_tpu_torch/csrc/fused_msa_bwd.cu",
     "K7": "lavt_rs_tpu_torch/csrc/fused_mlp_bwd.cu",
     "K8": "lavt_rs_tpu_torch/csrc/fused_mlp.cu",
+    "K10": "lavt_rs_tpu_torch/csrc/window_attn.cu",
+    "K2p": "lavt_rs_tpu_torch/csrc/window_attn.cu",
 }
 # Swin-B at 480²: (tokens per side, C, heads, blocks) per stage
 STAGES = ((120, 128, 4, 2), (60, 256, 8, 2), (30, 512, 16, 18),
@@ -116,6 +132,12 @@ STAGES = ((120, 128, 4, 2), (60, 256, 8, 2), (30, 512, 16, 18),
 TRAIN_PER_STEP = {"K1": 4, "K2": 20, "K3": 1, "K4": 4, "K5": 24, "K6": 0,
                   "K7": 24, "K8": 23}
 BIG_PER_STEP = dict(TRAIN_PER_STEP, K5=22, K6=2)
+# video Swin-T on an 8-frame 480² clip: (tokens per side, C, heads, blocks)
+VIDEO_STAGES = ((120, 96, 3, 2), (60, 192, 6, 2), (30, 384, 12, 6),
+                (15, 768, 24, 2))
+FRAMES, VIDEO_TOKENS, N_CLIPS = 8, 22, 3
+# launches per clip: K2p in both stage-1 blocks, K10 in the ten others
+VIDEO_PER_CLIP = {"K10": 10, "K2p": 2}
 
 
 def log(*a):
@@ -482,14 +504,20 @@ def main_path_model(dev, g):
         its tokens together (they end within ~2% of each other), and
         PWAM's InstanceNorm over pixels then divides bf16 rounding by a
         near-zero spread, which no trained text encoder gives."""
+    from lavt_rs_tpu_torch.config import lavt_one_base
+    from lavt_rs_tpu_torch.models.factory import build_model
+
+    return meaningful(build_model(lavt_one_base(), dev, generator=g), dev, g)
+
+
+def meaningful(model, dev, g):
+    """Non-zero language gates and GPT-2-scaled BERT residual branches (see
+    `main_path_model`), in place; returns the model."""
     import torch
 
-    from lavt_rs_tpu_torch.config import lavt_one_base
     from lavt_rs_tpu_torch.models.bert import BertEncoder
-    from lavt_rs_tpu_torch.models.factory import build_model
     from lavt_rs_tpu_torch.models.pwam import LanguageGate
 
-    model = build_model(lavt_one_base(), dev, generator=g)
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, LanguageGate):
@@ -535,7 +563,7 @@ def train_batch(dev, g, batch):
 
 
 def counters():
-    from lavt_rs_tpu_torch.ops import fused_mlp, fused_msa, ln
+    from lavt_rs_tpu_torch.ops import fused_mlp, fused_msa, ln, window_attn
 
     return {"K1": fused_msa.fused_window_msa_ln,
             "K2": fused_msa.fused_window_msa,
@@ -543,7 +571,9 @@ def counters():
             "K5": fused_msa.fused_window_msa_bwd,
             "K6": fused_msa.fused_window_msa_bwd_recompute,
             "K7": fused_mlp.fused_ln_mlp_bwd,
-            "K8": fused_mlp.fused_ln_mlp_droppath}
+            "K8": fused_mlp.fused_ln_mlp_droppath,
+            "K10": window_attn.window_attention,
+            "K2p": fused_msa.fused_window_msa_grouped}
 
 
 def zero_counts():
@@ -556,7 +586,9 @@ def read_counts():
 
 
 def check_counts(what, counts, per, times):
-    for k, n in per.items():
+    """Every counter equals per[k] * times (0 where per has no entry)."""
+    for k in counts:
+        n = per.get(k, 0)
         if counts[k] != n * times:
             raise RuntimeError(f"{what}: {k} launched {counts[k]} times, "
                                f"expected {n * times}")
@@ -801,6 +833,281 @@ def training_gate(dev, weights):
     return cos[worst]
 
 
+# -- video: K10 and K2p, then the lavt_video main path ------------------------------
+
+def masked_windows(mask):
+    """Windows of an (nW, N, N) shift mask that mask anything."""
+    return 0 if mask is None else int((mask != 0).flatten(1).any(1).sum())
+
+
+def attn_work(b, nw, heads, n, masked=0):
+    """K10: q kᵀ and P v (4 N² hd flops per window and head); bytes: q, k,
+    v and O in bf16, the f32 bias and the f32 mask of the `masked` windows
+    whose mask is not all zero."""
+    hd = 32
+    m = b * nw * heads
+    return (4 * m * n * n * hd,
+            4 * m * n * hd * 2 + heads * n * n * 4 + masked * n * n * 4)
+
+
+def padded_msa_work(b, nw, n, c, heads, masked):
+    """K2p at the real token count n (the function needs none of the
+    padding): the qkv and out-projection GEMMs (8 rows C²) and 4 n² hd per
+    window and head; bytes: x in, y out, the weights, the bias and the mask
+    of the `masked` windows."""
+    rows = b * nw * n
+    flops = 8 * rows * c * c + 4 * b * nw * heads * n * n * 32
+    nbytes = (2 * rows * c * 2 + 4 * c * c * 2 + 4 * c * 2
+              + heads * n * n * 4 + masked * n * n * 4)
+    return flops, nbytes
+
+
+def sdpa_mask(bias, mask, nw):
+    """bias (h, N, N) + mask (nW, N, N) as one bf16 (nW, h, N, N) additive
+    mask for `scaled_dot_product_attention` (timing baseline only)."""
+    import torch
+
+    full = bias[None].expand(nw, *bias.shape)
+    if mask is not None:
+        full = full + mask[:, None]
+    return full.to(torch.bfloat16).contiguous()
+
+
+def video_kernel_phases(dev, res):
+    """K10 at the stage-2..4 shapes (and N = 196), K2p at stage 1, against
+    their plain versions; per clip into `res`."""
+    import torch
+    import torch.nn.functional as F
+
+    from lavt_rs_tpu_torch.ops import fused_msa, window_attn
+    from lavt_rs_tpu_torch.ops.window import (partition_3d_groups,
+                                              relative_bias_from_table_3d,
+                                              relative_position_index_3d,
+                                              shift_mask_3d)
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 10)
+
+    def rnd(shape, std=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * std).bfloat16()
+
+    index = torch.from_numpy(relative_position_index_3d(8, 7, 7)).to(dev)
+
+    def bias_of(heads, n):
+        table = torch.randn((15 * 13 * 13, heads), generator=g, device=dev)
+        return relative_bias_from_table_3d(table, index, n)
+
+    sc = 32 ** -0.5
+    for si, (side, c, heads, depth) in enumerate(VIDEO_STAGES):
+        hp = -(-side // 7) * 7
+        nw = (hp // 7) ** 2
+        shift_mask = None
+        if si == 0:
+            # K2p: 392 tokens padded to 400, windows grouped unmasked-first
+            n, n_p = 392, 400
+            w = (rnd((3 * c, c), c ** -0.5), rnd((3 * c,), 0.2),
+                 rnd((c, c), c ** -0.5), rnd((c,), 0.2))
+            xw = rnd((1, nw, n_p, c))
+            xw[:, :, n:] = 0
+            bias = fused_msa.pad_bias_sublane(bias_of(heads, n), n_p)
+            for shift in (False, True):
+                ss = (0, 3, 3) if shift else (0, 0, 0)
+                nu, mask = partition_3d_groups(FRAMES, side, side, FRAMES, hp,
+                                               hp, (8, 7, 7), ss, n_p, dev)
+                args = (xw, *w, bias, mask, nu, heads, sc)
+                full = None
+                if mask is not None:
+                    full = torch.cat([mask.new_zeros((nu, n_p, n_p)), mask])
+                am = sdpa_mask(bias, full, nw)
+
+                def chain(x=xw, am=am, w=w):
+                    qkv = F.linear(x, w[0], w[1]).view(nw, n_p, 3, heads, 32)
+                    q, k, v = qkv.permute(2, 0, 3, 1, 4)
+                    o = F.scaled_dot_product_attention(q, k, v, attn_mask=am,
+                                                       scale=sc)
+                    return F.linear(o.transpose(1, 2).reshape(1, nw, n_p, c),
+                                    w[2], w[3])
+
+                measure(res, "K2p", f"stage 1 x{tuple(xw.shape)} heads "
+                        f"{heads} nu {nu}", 1,
+                        lambda a=args: fused_msa.fused_window_msa_grouped(*a),
+                        lambda a=args: fused_msa.fused_window_msa_grouped_plain(
+                            *a),
+                        chain, padded_msa_work(1, nw, n, c, heads,
+                                               masked_windows(mask)),
+                        lambda name, got, want: compare(
+                            name, got[:, :, :n], want[:, :, :n], TOL["K2"]))
+                del am
+            del xw
+            continue
+        # K10 on the stage's pre-projected heads
+        n = 392
+        q, k, v = (rnd((1, nw, heads, n, 32)) for _ in range(3))
+        bias = bias_of(heads, n)
+        for shift in (False, True):
+            mask = None
+            if shift:
+                mask = shift_mask_3d(FRAMES, hp, hp, (8, 7, 7), (0, 3, 3), dev)
+            am = sdpa_mask(bias, mask, nw)
+            measure(res, "K10", f"stage {si + 1} q{tuple(q.shape)} mask "
+                    f"{shift}", depth // 2,
+                    lambda m=mask: window_attn.window_attention(q, k, v, bias,
+                                                                m, sc),
+                    lambda m=mask: window_attn.window_attention_plain(
+                        q, k, v, bias, m, sc),
+                    lambda am=am: F.scaled_dot_product_attention(
+                        q[0], k[0], v[0], attn_mask=am, scale=sc),
+                    attn_work(1, nw, heads, n, masked_windows(mask)),
+                    lambda name, got, want: compare(name, got, want,
+                                                    TOL["K2"]))
+            del am
+        if si == 1:  # a 4-frame clip's stage-2 windows (N = 196): checked
+            n4 = 196
+            q4, k4, v4 = (rnd((1, nw, heads, n4, 32)) for _ in range(3))
+            b4 = bias_of(heads, n4)
+            got = window_attn.window_attention(q4, k4, v4, b4, None, sc)
+            err = compare("K10", got, window_attn.window_attention_plain(
+                q4, k4, v4, b4, None, sc), TOL["K2"])
+            log(f"K10 N = 196 q{tuple(q4.shape)}: max abs err {err:.3g}")
+            res.r["K10"]["err"] = max(res.r["K10"]["err"], err)
+        del q, k, v
+        torch.cuda.empty_cache()
+
+
+def video_model(dev, g, **kw):
+    """lavt_video_tiny in bf16 from seeded weights, made meaningful as
+    `main_path_model` makes lavt_one (the 3D self-gates are off in the A2D
+    recipe)."""
+    from lavt_rs_tpu_torch.config import lavt_video_tiny
+    from lavt_rs_tpu_torch.models.factory import build_model
+
+    return meaningful(build_model(lavt_video_tiny(**kw), dev, generator=g),
+                      dev, g)
+
+
+def clips(dev, g, n):
+    """A2D-style requests: an 8-frame 480² uint8 clip, 22 token ids with a
+    padded mask, the annotated frame and its binary target."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(SEED + 11)
+    out = []
+    for _ in range(n):
+        video = torch.randint(0, 256, (FRAMES, 480, 480, 3), generator=g,
+                              device=dev, dtype=torch.uint8)
+        ids = torch.from_numpy(rng.integers(1000, 20000, VIDEO_TOKENS))
+        mask = torch.zeros(VIDEO_TOKENS, dtype=torch.int64)
+        mask[:int(rng.integers(5, VIDEO_TOKENS + 1))] = 1
+        target = torch.from_numpy(rng.random((480, 480)) > 0.5).to(torch.uint8)
+        out.append((video, ids.to(dev), mask.to(dev),
+                    int(rng.integers(0, FRAMES)), target.to(dev)))
+    return out
+
+
+def profile_clip(fn, card):
+    """One clip under torch.profiler: device busy time and the kernels
+    that take it, by name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+        if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+            rows.append((us / 1e3, e.count, e.key))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    log(f"video clip under torch.profiler: wall {wall:.3f} ms (host clock, "
+        f"profiler on), device busy {busy:.3f} ms, idle share "
+        f"{max(0.0, 1 - busy / wall):.3f}  [{card}]")
+    for ms, count, key in rows[:20]:
+        log(f"  {ms:9.3f} ms {100 * ms / busy:5.1f}% x{count:4d} {key[:110]}")
+
+
+def video(dev, card, res):
+    """The lavt_video main path: clip_iou on N_CLIPS clips (launch counts),
+    the f32 check, the timing and a profile; returns the launch counts."""
+    import torch
+
+    from lavt_rs_tpu_torch.eval.video_eval import clip_iou
+    from lavt_rs_tpu_torch.models.factory import build_model
+    from lavt_rs_tpu_torch.ops.norm import maybe_normalize_image
+
+    video_kernel_phases(dev, res)
+    log("video kernel phases done")
+    g = torch.Generator(device=dev).manual_seed(SEED + 12)
+    t0 = time.perf_counter()
+    model = video_model(dev, g)
+    cfg = model.cfg
+    log(f"lavt_video_tiny build ({cfg.dtype}, use_kernels={cfg.use_kernels}, "
+        f"grouped padded route at stage 1): "
+        f"{time.perf_counter() - t0:.2f} s")
+    reqs = clips(dev, g, N_CLIPS)
+    zero_counts()
+    results = [clip_iou(model, *r) for r in reqs]
+    torch.cuda.synchronize()
+    launches = read_counts()
+    log(f"video launches over {N_CLIPS} clips: {launches}")
+    check_counts("video", launches, VIDEO_PER_CLIP, N_CLIPS)
+    for inter, union in results:
+        if not (bool(torch.isfinite(union)) and 0 <= inter.item() <= union.item()):
+            raise RuntimeError(f"clip_iou: bad inter/union {inter}, {union}")
+    iou = sum(i.item() / max(u.item(), 1.0) for i, u in results) / N_CLIPS
+    log(f"clip_iou: mean IoU vs random targets {iou:.4f}")
+
+    video_u8, ids, mask, valid, _ = reqs[0]
+    clip = maybe_normalize_image(video_u8)[None]
+    with torch.no_grad():
+        logits = model(clip, ids[None], mask[None])
+    if tuple(logits.shape) != (FRAMES, 480, 480, 2):
+        raise RuntimeError(f"video logits shape {tuple(logits.shape)}")
+    if not bool(torch.isfinite(logits).all()):
+        raise RuntimeError("non-finite video logits")
+    ref = build_model(cfg.replace(dtype="float32", use_kernels=False), dev)
+    ref.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        want = ref(clip, ids[None], mask[None])
+    del ref
+    got, want = logits[valid], want[valid]
+    margin = (want[..., 1] - want[..., 0]).abs()
+    sure = margin > MARGIN
+    agree = (got.argmax(-1) == want.argmax(-1))[sure].float().mean().item()
+    log(f"video bf16 kernel route vs f32 plain route, annotated frame "
+        f"{valid}: max |dlogit| {(got - want).abs().max().item():.4g}, logit "
+        f"scale {want.abs().max().item():.4g}, argmax agreement {agree:.5f} "
+        f"on {sure.float().mean().item():.3f} of pixels (margin > {MARGIN})")
+    if not agree >= MIN_AGREE:
+        raise RuntimeError(f"video argmax agreement {agree:.5f} < {MIN_AGREE}")
+
+    def fwd(m):
+        return lambda: m(clip, ids[None], mask[None])
+
+    iters, plain_iters = 20, 5
+    with torch.no_grad():
+        ms = cuda_time_ms(fwd(model), iters=iters, warmup=3)
+        plain = build_model(cfg.replace(use_kernels=False), dev)
+        plain.load_state_dict(model.state_dict())
+        plain_ms = cuda_time_ms(fwd(plain), iters=plain_iters, warmup=2)
+        del plain
+        log(f"video forward, one 8-frame 480² clip, bf16 with kernels: "
+            f"{ms:.3f} ms/clip, {FRAMES * 1000 / ms:.2f} frames/s (mean of "
+            f"{iters}); plain versions (bf16 weights, f32 math, TF32 off): "
+            f"{plain_ms:.3f} ms/clip, {FRAMES * 1000 / plain_ms:.2f} "
+            f"frames/s (mean of {plain_iters})  [{card}]")
+        profile_clip(fwd(model), card)
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     import torch
 
@@ -835,7 +1142,7 @@ def main():
 
     # -- kernel phases ----------------------------------------------------
     res = kernel_phases(dev)
-    for k in NAMES + ("save",):
+    for k in NAMES[:8] + ("save",):
         r = res.r[k]
         log(f"{k} per {'forward' if k < 'K5' else 'train step'}: kernel "
             f"{r['ms']:.3f} ms, bound {r['bound']:.3f} ms ({res.bound_by(k)}), "
@@ -855,6 +1162,15 @@ def main():
     torch.cuda.empty_cache()
     log(f"inference done at {time.perf_counter() - t_start:.1f} s")
 
+    # -- video main path (its kernel phases first) ---------------------------------
+    video_launches = video(dev, card, res)
+    for k in ("K10", "K2p"):
+        r = res.r[k]
+        log(f"{k} per clip: kernel {r['ms']:.3f} ms, bound {r['bound']:.3f} ms "
+            f"({res.bound_by(k)}), plain (f32 math) {r['plain']:.3f} ms, "
+            f"library {r['lib']:.3f} ms")
+    log(f"video done at {time.perf_counter() - t_start:.1f} s")
+
     # -- training main path ----------------------------------------------------
     training_gate(dev, weights)
     torch.cuda.empty_cache()
@@ -865,6 +1181,7 @@ def main():
     launches = {k: infer_launches[k] for k in ("K1", "K2", "K3", "K4")}
     launches.update({k: train_launches[k] for k in ("K5", "K7", "K8")})
     launches["K6"] = big_launches["K6"]
+    launches.update({k: video_launches[k] for k in ("K10", "K2p")})
     kernels = []
     for k in NAMES:
         r = res.r[k]

@@ -52,6 +52,28 @@ class StageOutput(str, enum.Enum):
     LAZY = "lazy"
 
 
+class TPWAMKind(str, enum.Enum):
+    """3D PWAM family selector of the video backbone."""
+
+    PWAM2D = "pwam2d"  # plain 2D PWAM applied on flattened THW tokens
+    TS = "ts"
+    T = "t"
+    T_COMP = "t_comp"
+    SEP = "sep"  # SepTPWAM: decoupled t/s branches (published default)
+    SEP_INNER = "sep_inner"
+    SEQ = "seq"
+    SEP_SEQ = "sep_seq"
+    SEP_SEQ_INNER = "sep_seq_inner"
+
+
+class BranchFuse(str, enum.Enum):
+    """How SepTPWAM fuses its temporal and spatial branches."""
+
+    SUM = "sum"
+    SUM_CONV = "sum_conv"
+    CAT = "cat"  # concat + reduce conv
+
+
 SWIN_SIZES = {
     "tiny": dict(embed_dim=96, depths=(2, 2, 6, 2), num_heads=(3, 6, 12, 24)),
     "small": dict(embed_dim=96, depths=(2, 2, 18, 2), num_heads=(3, 6, 12, 24)),
@@ -76,6 +98,9 @@ class SwinConfig:
     ape: bool = False
     patch_norm: bool = True
     out_indices: Tuple[int, ...] = (0, 1, 2, 3)
+    # video (3D) extras; ignored by the 2D backbone
+    window_size_3d: Tuple[int, int, int] = (8, 7, 7)
+    patch_size_3d: Tuple[int, int, int] = (1, 4, 4)
 
     @property
     def num_layers(self) -> int:
@@ -106,6 +131,27 @@ class FusionConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class TPWAMConfig:
+    """3D-PWAM variant of the video models (A2D defaults: kernel_t 3-3-3,
+    kernel_s 1-1-1, W and project_mm decomposed into t + s branches)."""
+
+    kind: TPWAMKind = TPWAMKind.SEP
+    kernel_t: Tuple[int, int, int] = (3, 3, 3)
+    kernel_s: Tuple[int, int, int] = (1, 1, 1)
+    kernel_sq: Tuple[int, int, int] = (1, 3, 3)
+    branch_fuse: BranchFuse = BranchFuse.SUM
+    fuse_kernel: Optional[Tuple[int, int, int]] = None  # None: kernel_t
+    self_gate: bool = False
+    w_t3x3_s1x1: bool = True
+    mm_t3x3_s1x1: bool = True
+    # single-conv W / project_mm ablations: "3" = Conv3d (1, 3, 3), "3x3" =
+    # Conv3d kernel_t; they take precedence over the t/s decompositions
+    w_single_conv: Optional[str] = None
+    mm_single_conv: Optional[str] = None
+    seq_residual: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
 class BertConfig:
     vocab_size: int = 30522
     hidden_size: int = 768
@@ -125,12 +171,19 @@ class ModelConfig:
     swin: SwinConfig = dataclasses.field(default_factory=SwinConfig)
     fusion: FusionConfig = dataclasses.field(default_factory=FusionConfig)
     bert: BertConfig = dataclasses.field(default_factory=BertConfig)
+    tpwam: TPWAMConfig = dataclasses.field(default_factory=TPWAMConfig)
     num_classes: int = 2
     img_size: int = 480
     max_tokens: int = 20
     lazy_pred: bool = False
     interpolate_before_seg: bool = False
     seg_last: bool = False
+    # video
+    num_frames: int = 8
+    hybrid_2d_3d: bool = False
+    # the reference skips the last video stage's language gate under
+    # checkpointing (MMBasicLayer3D); the port reads it for that alone
+    use_checkpoint: bool = False
     dtype: str = "bfloat16"
     use_kernels: bool = True
 
@@ -150,3 +203,9 @@ def lavt_one_base(window12: bool = True, **kw) -> ModelConfig:
     """The published headline config: lavt_one, Swin-B, 480², window 12."""
     swin = SwinConfig.from_size("base", window_size=12 if window12 else 7)
     return ModelConfig(name="lavt_one", swin=swin, **kw)
+
+
+def lavt_video_tiny(**kw) -> ModelConfig:
+    """A2D recipe: Video Swin-T, SepTPWAM t=3-3-3 s=1-1-1 (README.md:185)."""
+    swin = SwinConfig.from_size("tiny", window_size=7, drop_path_rate=0.1)
+    return ModelConfig(name="lavt_video", swin=swin, max_tokens=22, **kw)

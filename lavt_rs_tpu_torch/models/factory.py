@@ -1,7 +1,8 @@
 """Model factory (counterpart of `lavt_rs_tpu/models/factory.py`).
 
-Only `lavt_one` is ported; every other family raises NotImplementedError
-naming the ROADMAP.md slice that ports it.
+`lavt_one` (inference and training) and `lavt_video` (inference) are
+ported; every other family, and video training, raises
+NotImplementedError naming the ROADMAP.md slice that ports it.
 """
 
 from __future__ import annotations
@@ -13,12 +14,14 @@ import torch
 import torch.nn as nn
 
 from ..config import ModelConfig
-from .lavt import LAVTOne
+from .lavt import LAVTOne, LAVTVideo
 from .pwam import LanguageGate
 from .swin2d import WindowAttention
+from .swin3d import WindowAttention3D
+from .tpwam import SelfGate3D
 
+_MODELS = {"lavt_one": LAVTOne, "lavt_video": LAVTVideo}
 _LATER = {
-    "lavt_video": "slice 4 (video)",
     "lavt": "slice 5 (long tail)",
     "lts": "slice 5 (long tail)",
     "vlt": "slice 5 (long tail)",
@@ -31,7 +34,7 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Seeded random init in the JAX package's scheme: LeCun-normal linear
     and conv weights (std fan_in^-1/2) with zero biases, N(0, 0.02)
     embeddings, 0.02 truncated-normal bias tables, unit norms, and zero
-    language gates (the fusion branch starts off)."""
+    language gates and 3D self-gates (the fusion branch starts off)."""
 
     def normal_(t: torch.Tensor, std: float):
         t.copy_(torch.randn(t.shape, generator=generator,
@@ -39,10 +42,12 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
 
     gates = {id(m[i]) for m in model.modules() if isinstance(m, LanguageGate)
              for i in (0, 2)}
+    gates |= {id(c) for m in model.modules() if isinstance(m, SelfGate3D)
+              for c in (m.fc1, m.fc2)}
     for m in model.modules():
         if id(m) in gates:
             m.weight.zero_()
-        elif isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d)):
+        elif isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d, nn.Conv3d)):
             normal_(m.weight, 1.0 / math.sqrt(m.weight[0].numel()))
             if m.bias is not None:
                 m.bias.zero_()
@@ -54,7 +59,7 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             if isinstance(m, nn.BatchNorm2d):
                 m.running_mean.zero_()
                 m.running_var.fill_(1.0)
-        if isinstance(m, WindowAttention):
+        if isinstance(m, (WindowAttention, WindowAttention3D)):
             t = m.relative_position_bias_table
             normal_(t, 0.02)
             t.clamp_(-0.04, 0.04)
@@ -73,13 +78,17 @@ def build_model(cfg: ModelConfig, device="cuda",
     cfg.dtype, under `torch.autocast` for the plain modules
     (`train.step`), while the kernel Functions cast the weights
     themselves."""
-    if cfg.name != "lavt_one":
+    if cfg.name not in _MODELS:
         where = _LATER.get(cfg.name)
         raise NotImplementedError(
             f"model {cfg.name!r} is not ported yet"
             + (f": ROADMAP.md {where}" if where else ""))
+    if train and cfg.name == "lavt_video":
+        raise NotImplementedError(
+            "the lavt_video training step is not ported yet: ROADMAP.md "
+            "slice 4b")
     with torch.device(device):
-        model = LAVTOne(cfg)
+        model = _MODELS[cfg.name](cfg)
     if generator is not None:
         init_weights(model, generator)
     if train:

@@ -1,0 +1,318 @@
+"""Multimodal Video Swin Transformer, 3D (counterpart of
+`lavt_rs_tpu/models/swin3d.py`, the lavt_video backbone).
+
+(B, D, H, W, C) tokens throughout; the stage outputs are per-frame
+(B*D, Hi, Wi, Ci).  Parameter names are the reference's
+(`layers.N.blocks.M.attn.qkv`, `layers.N.fusion.f_query_t.0`, `norm{i}`).
+Windows and shifts are clamped to the input dims (`get_window_size_3d`);
+a clamped window keeps the full window's bias table and index, sliced
+[:N, :N], as the reference does.
+
+Routing with `use_kernels` (on a CUDA tensor the wrappers launch the
+hand-written kernels; on a CPU tensor they take their plain versions), as
+the JAX package routes with `use_pallas`:
+  * the first stage's blocks (C = 96 in lavt_video_tiny, the width the
+    JAX package routes by default) take the grouped padded route where
+    K2p's kernel takes the geometry: pad + shift + partition +
+    token pad (392 -> 400) as one gather with the unmasked windows first
+    (`ops/window.partition_shifted_padded_3d`), then K2p
+    (`fused_window_msa_grouped`: qkv, attention and out-projection, the
+    maskless prefix and the small-mask rest in one launch), then the
+    inverse gather;
+  * elsewhere the `qkv` and `proj` Linears stay plain and K10
+    (`ops/window_attn.window_attention`) runs between them.
+With `use_kernels=False` every block takes the second route with K10's
+plain version.  The LayerNorms, the MLP, PatchMerging and the stage norms
+are plain PyTorch, as in the JAX package (no fused tail in 3D).
+Inference only: the video training step is a later slice.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..config import FusionConfig, FusionKind, GateKind, StageOutput, SwinConfig, TPWAMConfig
+from ..ops import fused_msa, window_attn
+from ..ops.window import (get_window_size_3d, partition_3d_groups,
+                          partition_shifted_padded_3d,
+                          relative_bias_from_table_3d,
+                          relative_position_index_3d,
+                          reverse_shifted_unpadded_3d, shift_mask_3d,
+                          window_partition_3d, window_reverse_3d)
+from .pwam import LanguageGate, apply_gate
+from .tpwam import build_tpwam
+
+
+class WindowAttention3D(nn.Module):
+    """3D W-MSA with a relative-position bias over (wd, wh, ww) windows."""
+
+    def __init__(self, dim: int, window_size: Tuple[int, int, int],
+                 num_heads: int, qkv_bias: bool = True,
+                 qk_scale: Optional[float] = None, use_kernels: bool = True):
+        super().__init__()
+        self.dim, self.window_size, self.num_heads = dim, window_size, num_heads
+        self.scale = qk_scale if qk_scale is not None else (dim // num_heads) ** -0.5
+        self.use_kernels = use_kernels
+        wd, wh, ww = window_size
+        self.relative_position_bias_table = nn.Parameter(
+            torch.zeros((2 * wd - 1) * (2 * wh - 1) * (2 * ww - 1), num_heads))
+        self.register_buffer("relative_position_index", torch.tensor(
+            relative_position_index_3d(wd, wh, ww)))
+        self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
+        self.proj = nn.Linear(dim, dim)
+        self._bias_key = None
+        self._bias = None
+
+    def relative_bias(self, n: int, n_p: Optional[int] = None) -> torch.Tensor:
+        """(h, N, N) f32 bias of an N-token window (padded to n_p by
+        `pad_bias_sublane` when given), kept until the table changes."""
+        t = self.relative_position_bias_table
+        key = (t._version, t.device, t.data_ptr(), n, n_p)
+        if self._bias_key != key:
+            with torch.no_grad():
+                bias = relative_bias_from_table_3d(
+                    t, self.relative_position_index, n)
+                if n_p is not None:
+                    bias = fused_msa.pad_bias_sublane(bias, n_p)
+            self._bias, self._bias_key = bias, key
+        return self._bias
+
+    def forward(self, x, mask=None, groups: Optional[Tuple[int, int]] = None):
+        """x: (B, nW, N, C) windowed post-LN tokens, mask (nW, N, N) or None.
+        With groups = (nu, n_real): x is the grouped stream (B, nW, n_p, C)
+        of `partition_shifted_padded_3d`, windows [0, nu) maskless and the
+        rest under the small mask (nW - nu, n_p, n_p)."""
+        b, nw, n, c = x.shape
+        h = self.num_heads
+        if groups is not None:
+            nu, n_real = groups
+            bqkv = self.qkv.bias
+            if bqkv is None:
+                bqkv = torch.zeros(3 * c, dtype=x.dtype, device=x.device)
+            return fused_msa.fused_window_msa_grouped(
+                x, self.qkv.weight, bqkv, self.proj.weight, self.proj.bias,
+                self.relative_bias(n_real, n), mask, nu, h, self.scale)
+        qkv = self.qkv(x).view(b, nw, n, 3, h, c // h)
+        q, k, v = (t.contiguous() for t in qkv.permute(3, 0, 1, 4, 2, 5))
+        attend = (window_attn.window_attention if self.use_kernels
+                  else window_attn.window_attention_plain)
+        out = attend(q, k, v, self.relative_bias(n), mask, self.scale)
+        return self.proj(out.transpose(2, 3).reshape(b, nw, n, c))
+
+
+class Mlp(nn.Module):
+    """fc1 -> exact GELU -> fc2 (`mlp.fc1`, `mlp.fc2`)."""
+
+    def __init__(self, dim: int, hidden: int):
+        super().__init__()
+        self.fc1 = nn.Linear(dim, hidden)
+        self.fc2 = nn.Linear(hidden, dim)
+
+    def forward(self, x):
+        return self.fc2(F.gelu(self.fc1(x)))
+
+
+class SwinBlock3D(nn.Module):
+    def __init__(self, dim: int, num_heads: int,
+                 window_size: Tuple[int, int, int] = (2, 7, 7),
+                 shift_size: Tuple[int, int, int] = (0, 0, 0),
+                 mlp_ratio: float = 4.0, qkv_bias: bool = True,
+                 qk_scale: Optional[float] = None, use_kernels: bool = True,
+                 grouped: bool = False):
+        super().__init__()
+        self.dim, self.num_heads = dim, num_heads
+        self.window_size, self.shift_size = tuple(window_size), tuple(shift_size)
+        self.use_kernels, self.grouped = use_kernels, grouped
+        self.norm1 = nn.LayerNorm(dim, eps=1e-5)
+        self.attn = WindowAttention3D(dim, self.window_size, num_heads,
+                                      qkv_bias, qk_scale, use_kernels)
+        self.norm2 = nn.LayerNorm(dim, eps=1e-5)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+
+    def takes_grouped_route(self, n: int) -> bool:
+        """The grouped padded route (K2p) for an N-token window: with the
+        kernels, in a grouped stage, where K2p's kernel takes N padded to
+        its 16-row tile."""
+        return (self.use_kernels and self.grouped
+                and fused_msa.padded_msa_supported(fused_msa.pad_tokens(n),
+                                                   self.dim, self.num_heads))
+
+    def forward(self, x):
+        """x: (B, D, H, W, C)."""
+        b, d, h, w, c = x.shape
+        ws, ss = get_window_size_3d((d, h, w), self.window_size,
+                                    self.shift_size)
+        shortcut = x
+        y = self.norm1(x)
+        pad_d, pad_b, pad_r = ((ws[i] - s % ws[i]) % ws[i]
+                               for i, s in enumerate((d, h, w)))
+        dp, hp, wp = d + pad_d, h + pad_b, w + pad_r
+        nw = (dp // ws[0]) * (hp // ws[1]) * (wp // ws[2])
+        n = ws[0] * ws[1] * ws[2]
+        if self.takes_grouped_route(n):
+            n_p = fused_msa.pad_tokens(n)
+            nu, mask = partition_3d_groups(d, h, w, dp, hp, wp, ws, ss, n_p,
+                                           y.device)
+            yw = partition_shifted_padded_3d(y, ws, ss, dp, hp, wp, n_p)
+            yw = self.attn(yw, mask, groups=(nu, n))
+            y = reverse_shifted_unpadded_3d(yw, ws, ss, dp, hp, wp, d, h, w,
+                                            n_p)
+        else:
+            if pad_d or pad_b or pad_r:
+                y = F.pad(y, (0, 0, 0, pad_r, 0, pad_b, 0, pad_d))
+            if any(ss):
+                y = torch.roll(y, shifts=(-ss[0], -ss[1], -ss[2]),
+                               dims=(1, 2, 3))
+            mask = shift_mask_3d(dp, hp, wp, ws, ss, y.device)
+            yw = window_partition_3d(y, ws).view(b, nw, n, c)
+            yw = self.attn(yw, mask)
+            y = window_reverse_3d(yw.reshape(b * nw, n, c), ws, dp, hp, wp)
+            if any(ss):
+                y = torch.roll(y, shifts=ss, dims=(1, 2, 3))
+            if pad_d or pad_b or pad_r:
+                y = y[:, :d, :h, :w]
+        x = shortcut + y
+        return x + self.mlp(self.norm2(x))
+
+
+class PatchEmbed3D(nn.Module):
+    """Conv3d patchifier, kernel = stride = patch (1, 4, 4), then LN."""
+
+    def __init__(self, embed_dim: int = 96,
+                 patch_size: Tuple[int, int, int] = (1, 4, 4),
+                 patch_norm: bool = True):
+        super().__init__()
+        self.patch_size = tuple(patch_size)
+        self.proj = nn.Conv3d(3, embed_dim, self.patch_size, self.patch_size)
+        self.norm = nn.LayerNorm(embed_dim, eps=1e-5) if patch_norm else None
+
+    def forward(self, x):
+        """x (B, D, H, W, 3) -> (B, D', H', W', C)."""
+        pads = []
+        for p, s in zip(reversed(self.patch_size), reversed(x.shape[1:4])):
+            pads += [0, (p - s % p) % p]
+        x = x.permute(0, 4, 1, 2, 3)
+        if any(pads):
+            x = F.pad(x, pads)
+        x = self.proj(x).permute(0, 2, 3, 4, 1)
+        return self.norm(x) if self.norm is not None else x
+
+
+class PatchMerging3D(nn.Module):
+    """Spatial-only 2x2 merge + LN + Linear(4C -> 2C, no bias); the
+    temporal dim is untouched."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.norm = nn.LayerNorm(4 * dim, eps=1e-5)
+        self.reduction = nn.Linear(4 * dim, 2 * dim, bias=False)
+
+    def forward(self, x):
+        b, d, h, w, c = x.shape
+        if h % 2 or w % 2:
+            x = F.pad(x, (0, 0, 0, w % 2, 0, h % 2))
+        x = torch.cat([x[:, :, 0::2, 0::2], x[:, :, 1::2, 0::2],
+                       x[:, :, 0::2, 1::2], x[:, :, 1::2, 1::2]], dim=-1)
+        return self.reduction(self.norm(x))
+
+
+class MMBasicLayer3D(nn.Module):
+    """One multimodal video stage: Swin blocks -> 3D PWAM -> LG residual ->
+    merge.  The reference skips the last stage's language gate when it
+    checkpoints (`skip_gate`)."""
+
+    def __init__(self, dim: int, depth: int, num_heads: int,
+                 window_size: Tuple[int, int, int], mlp_ratio: float,
+                 qkv_bias: bool, qk_scale: Optional[float],
+                 has_downsample: bool, fusion: FusionConfig, fusion_heads: int,
+                 tpwam: TPWAMConfig, skip_gate: bool = False,
+                 use_kernels: bool = True, grouped: bool = False):
+        super().__init__()
+        if fusion.kind != FusionKind.PWAM:
+            raise NotImplementedError(
+                f"fusion {fusion.kind.value!r}: only PWAM is ported; the "
+                "baselines are in the long-tail slice (ROADMAP.md slice 5)")
+        self.fusion_cfg = fusion
+        shift = tuple(s // 2 for s in window_size)
+        self.blocks = nn.ModuleList(
+            SwinBlock3D(dim, num_heads, window_size,
+                        (0, 0, 0) if i % 2 == 0 else shift, mlp_ratio,
+                        qkv_bias, qk_scale, use_kernels, grouped)
+            for i in range(depth))
+        self.fusion = build_tpwam(tpwam, dim, fusion_heads, fusion.lang_dim)
+        self.res_gate = (LanguageGate(dim, fusion.lg_act)
+                         if fusion.gate == GateKind.DEFAULT and not skip_gate
+                         else None)
+        self.skip_gate = skip_gate
+        self.downsample = PatchMerging3D(dim) if has_downsample else None
+
+    def forward(self, x, l, l_mask):
+        """x (B, D, H, W, C) -> (x_out (B, D, H, W, C), x_next)."""
+        b, d, h, w, c = x.shape
+        for blk in self.blocks:
+            x = blk(x)
+        x_pre_fusion = x
+        mm = self.fusion(x, l, l_mask)  # (B, DHW, C)
+        flat = x.reshape(b, d * h * w, c)
+        kind = self.fusion_cfg.gate
+        if self.skip_gate and kind == GateKind.DEFAULT:
+            kind = GateKind.NONE
+        gate_out = self.res_gate(mm) if self.res_gate is not None else None
+        flat = apply_gate(flat, mm, gate_out, kind)
+        out = self.fusion_cfg.stage_output
+        x_out = (mm.reshape(b, d, h, w, c) if out == StageOutput.RESIDUAL
+                 else flat.reshape(b, d, h, w, c) if out == StageOutput.HIDDEN
+                 else x_pre_fusion)
+        x = flat.reshape(b, d, h, w, c)
+        if self.downsample is not None:
+            x = self.downsample(x)
+        return x_out, x
+
+
+class MultiModalSwinTransformer3D(nn.Module):
+    """forward(video (B, T, H, W, 3), l (B, N_l, D_l), l_mask (B, N_l)) ->
+    tuple of per-frame (B*T, Hi, Wi, Ci) features, one per out_indices."""
+
+    def __init__(self, cfg: SwinConfig, fusion: FusionConfig,
+                 tpwam: TPWAMConfig, out_indices: Tuple[int, ...] = (0, 1, 2, 3),
+                 use_checkpoint: bool = False, use_kernels: bool = True):
+        super().__init__()
+        if cfg.ape:
+            raise NotImplementedError(
+                "absolute position embedding is in the long-tail slice "
+                "(ROADMAP.md slice 5)")
+        if cfg.drop_rate or cfg.attn_drop_rate:
+            raise NotImplementedError(
+                "Swin drop_rate / attn_drop_rate (0 in every published "
+                "config) are not ported")
+        self.cfg, self.out_indices = cfg, tuple(out_indices)
+        self.patch_embed = PatchEmbed3D(cfg.embed_dim, cfg.patch_size_3d,
+                                        cfg.patch_norm)
+        last = cfg.num_layers - 1
+        self.layers = nn.ModuleList(
+            MMBasicLayer3D(cfg.num_features[i], cfg.depths[i],
+                           cfg.num_heads[i], cfg.window_size_3d,
+                           cfg.mlp_ratio, cfg.qkv_bias, cfg.qk_scale,
+                           i < last, fusion, fusion.num_heads[i], tpwam,
+                           skip_gate=use_checkpoint and i == last,
+                           use_kernels=use_kernels,
+                           grouped=i == 0)
+            for i in range(cfg.num_layers))
+        for i in self.out_indices:
+            self.add_module(f"norm{i}", nn.LayerNorm(cfg.num_features[i],
+                                                     eps=1e-5))
+
+    def forward(self, video, l, l_mask):
+        x = self.patch_embed(video)
+        outs = []
+        for i, layer in enumerate(self.layers):
+            x_out, x = layer(x, l, l_mask)
+            if i in self.out_indices:
+                x_out = getattr(self, f"norm{i}")(x_out)
+                b, d, hh, ww, cc = x_out.shape
+                outs.append(x_out.reshape(b * d, hh, ww, cc))
+        return tuple(outs)

@@ -25,7 +25,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("ln.cu", "fused_mlp.cu", "fused_msa.cu", "fused_msa_bwd.cu",
-           "fused_mlp_bwd.cu")
+           "fused_mlp_bwd.cu", "window_attn.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-lineinfo")
@@ -46,6 +46,8 @@ SIGNATURES = {
     "lavt_colsum_bf16": (P, P, P, I, I, I, I, P),
     "lavt_mlp_bwd_rows": (I, I),
     "lavt_mlp_bwd": (P,) * 8 + (I,) + (P,) * 8 + (I, I, I, I, F, P),
+    "lavt_window_attn": (P,) * 6 + (I,) * 6 + (F, P),
+    "lavt_window_msa_np": (P,) * 6 + (I,) * 6 + (F, P),
 }
 
 _LIB = None

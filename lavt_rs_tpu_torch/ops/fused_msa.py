@@ -20,7 +20,13 @@ Counterpart of `lavt_rs_tpu/ops/pallas/fused_msa.py`:
     Its forward saves the residuals when `save_residuals_ok` holds (the
     TPU rule: p and qkv under 192 MiB per block) and routes the backward
     to K5, else to K6.  The LN variant's backward is K5/K6 on xn followed
-    by the plain LN backward (`_vjp_ln_bwd`).
+    by the plain LN backward (`_vjp_ln_bwd`);
+  * `fused_window_msa_grouped` (K2p: K2's `_fwd_call` at a token count
+    padded to 16, n_p = 400 for video windows of 392): x is (B, nW, n_p, C)
+    with the first `nu` windows of each image maskless and the rest under
+    a small (nW - nu, n_p, n_p) mask, the bias padded by
+    `pad_bias_sublane`; the grouped 3D route of `models/swin3d.py` and
+    `fused_window_msa_padded` (which pads an unpadded x) reach it.
 
 x is (B, nW, N, C) windowed tokens; weights are torch `nn.Linear` layout:
 wqkv (3C, C), bqkv (3C,), wproj (C, C), bproj (C,); bias (h, N, N) f32
@@ -31,8 +37,9 @@ the exact max-subtracted one (the TPU inference kernel's exp(min(s, 80))
 equals it while every logit is below 80).
 
 Each wrapper takes the plain version for a CPU tensor and launches the
-CUDA kernels (csrc/fused_msa.cu: attention; csrc/fused_msa_bwd.cu: the
-out-projection GEMM and the backward) for a CUDA tensor; the plain
+CUDA kernels (csrc/fused_msa.cu: attention; csrc/window_attn.cu: K2p's
+attention; csrc/fused_msa_bwd.cu: the out-projection GEMM and the
+backward) for a CUDA tensor; the plain
 versions compute in f32 with the kernels' rounding points.
 """
 
@@ -420,6 +427,125 @@ fused_window_msa.launches = 0
 fused_window_msa_ln.launches = 0
 fused_window_msa_bwd.launches = 0
 fused_window_msa_bwd_recompute.launches = 0
+
+
+# -- K2p: windows padded to 16 tokens, grouped by mask --------------------------
+
+PAD_KEY_BIAS = -1e9  # kills a padded key: exp underflows to exactly 0 in f32
+
+
+TOKEN_TILE = 16  # K2p's row tile; its token count is padded to a multiple
+
+
+def pad_tokens(n: int) -> int:
+    """Token count padded to K2p's 16-row tile (392 -> 400; the JAX
+    package's `_sublane_pad` for bf16)."""
+    return -(-n // TOKEN_TILE) * TOKEN_TILE
+
+
+def pad_bias_sublane(bias: torch.Tensor, n_p: int) -> torch.Tensor:
+    """(h, N, N) bias -> (h, n_p, n_p) f32, zero on the padded query rows
+    and -1e9 on the padded key columns."""
+    heads, n, _ = bias.shape
+    if n_p == n:
+        return bias
+    out = bias.new_zeros((heads, n_p, n_p), dtype=torch.float32)
+    out[:, :n, :n] = bias
+    out[:, :, n:] = PAD_KEY_BIAS
+    return out
+
+
+def padded_msa_supported(n_p: int, c: int, heads: int) -> bool:
+    """Geometries K2p's kernel takes: n_p a multiple of 16 up to 400, head
+    dim 32 (C = 32 heads)."""
+    return (heads > 0 and c == 32 * heads and n_p % TOKEN_TILE == 0
+            and TOKEN_TILE <= n_p <= 400)
+
+
+def fused_window_msa_grouped_plain(x, wqkv, bqkv, wproj, bproj, bias, mask,
+                                   nu: int, heads: int, scale: float):
+    """The plain version of K2p: K2's plain version on the maskless prefix
+    and on the masked rest."""
+    nw = x.shape[1]
+    if mask is None or nu >= nw:
+        return fused_window_msa_plain(x, wqkv, bqkv, wproj, bproj, bias, None,
+                                      heads, scale)
+    parts = [fused_window_msa_plain(x[:, nu:], wqkv, bqkv, wproj, bproj, bias,
+                                    mask, heads, scale)]
+    if nu > 0:
+        parts.insert(0, fused_window_msa_plain(x[:, :nu], wqkv, bqkv, wproj,
+                                               bproj, bias, None, heads,
+                                               scale))
+    return torch.cat(parts, dim=1)
+
+
+def _grouped_launch(x, wqkv, bqkv, wproj, bproj, bias, mask, nu, heads,
+                    scale):
+    b, nw, n_p, c = x.shape
+    if not padded_msa_supported(n_p, c, heads):
+        raise ValueError(f"padded window MSA kernel: unsupported (n_p, C, "
+                         f"heads) {(n_p, c, heads)}")
+    if mask is None:
+        nu = nw
+    if not 0 <= nu <= nw:
+        raise ValueError(f"padded window MSA kernel: nu {nu} outside [0, {nw}]")
+    bf16 = torch.bfloat16
+    checks = [("x", x, bf16, None), ("wqkv", wqkv, bf16, (3 * c, c)),
+              ("bqkv", bqkv, bf16, (3 * c,)),
+              ("bias", bias, torch.float32, (heads, n_p, n_p))]
+    if mask is not None:
+        checks.append(("mask", mask, torch.float32, (nw - nu, n_p, n_p)))
+    _require_all(checks, x.device)
+    o = torch.empty((b * nw, n_p, c), dtype=bf16, device=x.device)
+    err = cuda_lib.lib().lavt_window_msa_np(
+        x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), bias.data_ptr(),
+        None if mask is None else mask.data_ptr(), o.data_ptr(), b * nw, nw,
+        nu, c, heads, n_p, float(scale), cuda_lib.stream_ptr(x.device))
+    cuda_lib.check(err, "lavt_window_msa_np")
+    return _proj_launch(o, wproj, bproj, x.shape)
+
+
+def fused_window_msa_grouped(x, wqkv, bqkv, wproj, bproj, bias,
+                             mask: Optional[torch.Tensor], nu: int,
+                             heads: int, scale: float) -> torch.Tensor:
+    """K2p: (B, nW, n_p, C) padded post-LN windowed tokens ->
+    projected attention.  bias: (h, n_p, n_p) from `pad_bias_sublane`;
+    windows [0, nu) of each image take no mask, window w >= nu takes
+    mask[w - nu] of the (nW - nu, n_p, n_p) mask (None: no window is
+    masked).  One kernel launch covers both groups."""
+    if x.device.type == "cpu":
+        return fused_window_msa_grouped_plain(x, wqkv, bqkv, wproj, bproj,
+                                              bias, mask, nu, heads, scale)
+    y = _grouped_launch(x, wqkv, bqkv, wproj, bproj, bias, mask, nu, heads,
+                        scale)
+    fused_window_msa_grouped.launches += 1
+    return y
+
+
+fused_window_msa_grouped.launches = 0
+
+
+def fused_window_msa_padded(x, wqkv, bqkv, wproj, bproj, bias,
+                            mask: Optional[torch.Tensor], heads: int,
+                            scale: float) -> torch.Tensor:
+    """K2 for a window size that is not a multiple of 16 (JAX
+    `fused_window_msa_padded`): x (B, nW, N, C), bias (h, N, N), mask
+    (nW, N, N) or None.  Tokens are zero-padded to `pad_tokens(N)`, the
+    padded keys are killed by the bias, the padded query rows are dropped;
+    the call is K2p with no maskless prefix.  No path of the port calls it
+    (the video route pads in its partition gather); it is kept for parity
+    with the JAX package's API."""
+    b, nw, n, c = x.shape
+    n_p = pad_tokens(n)
+    p = n_p - n
+    x_p = torch.nn.functional.pad(x, (0, 0, 0, p)) if p else x
+    mask_p = None
+    if mask is not None:
+        mask_p = torch.nn.functional.pad(mask, (0, p, 0, p)) if p else mask
+    y = fused_window_msa_grouped(x_p.contiguous(), wqkv, bqkv, wproj, bproj,
+                                 pad_bias_sublane(bias, n_p), mask_p,
+                                 0 if mask is not None else nw, heads, scale)
+    return y[:, :, :n]
 
 
 # -- training ----------------------------------------------------------------

@@ -34,3 +34,14 @@ class InstanceNormTokens(torch.nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return instance_norm_tokens(x)
+
+
+def instance_norm_nd(x: torch.Tensor, dims, eps: float = 1e-5) -> torch.Tensor:
+    """InstanceNorm (affine=False) of a channels-last tensor over `dims`
+    (e.g. (1, 2, 3) of (B, D, H, W, C), like torch's InstanceNorm3d on
+    (B, C, D, H, W)): per sample and channel, f32 statistics, biased
+    variance."""
+    xf = x.float()
+    mean = xf.mean(dim=dims, keepdim=True)
+    var = (xf - mean).square().mean(dim=dims, keepdim=True)
+    return ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)

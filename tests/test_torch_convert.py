@@ -21,7 +21,8 @@ import torch
 from lavt_rs_tpu.config import BertConfig as JBertConfig
 from lavt_rs_tpu.config import ModelConfig as JModelConfig
 from lavt_rs_tpu.config import SwinConfig as JSwinConfig
-from lavt_rs_tpu.convert.torch2jax import convert_lavt_one
+from lavt_rs_tpu.config import lavt_video_tiny as jlavt_video_tiny
+from lavt_rs_tpu.convert.torch2jax import convert_lavt_one, convert_lavt_video
 from lavt_rs_tpu.models.factory import build_model as jbuild_model
 from lavt_rs_tpu_torch import config as C
 from lavt_rs_tpu_torch.convert.from_jax import state_dict_from_jax
@@ -60,6 +61,35 @@ def test_round_trip_through_convert_lavt_one():
     port.load_state_dict(state_dict_from_jax(variables, cfg), strict=True)
     sd = {k: v.numpy() for k, v in port.state_dict().items()}
     back = _flat(convert_lavt_one(sd, jcfg))
+    want = _flat(variables)
+    assert sorted(back) == sorted(want)
+    for k, v in want.items():
+        np.testing.assert_array_equal(back[k], v, err_msg=k)
+
+
+def test_round_trip_through_convert_lavt_video():
+    """lavt_video: JAX variables -> port -> `convert_lavt_video` gives the
+    same variables back (Conv3d kernels, SepTPWAM branches, 3D tables)."""
+    swin = dict(embed_dim=32, depths=(1, 1, 2, 1), num_heads=(1, 2, 4, 8),
+                window_size=7)
+    jcfg = jlavt_video_tiny().replace(swin=JSwinConfig(**swin),
+                                      bert=JBertConfig(**BERT), img_size=64,
+                                      max_tokens=5, num_frames=2)
+    jm = jbuild_model(jcfg)
+    ids = jnp.ones((1, 5), jnp.int32)
+    shapes = jax.eval_shape(lambda: jm.init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 2, 64, 64, 3)), ids, ids))
+    shapes = {k: shapes[k] for k in ("params", "batch_stats")}
+    variables = random_variables(shapes, np.random.default_rng(13))
+
+    cfg = C.lavt_video_tiny().replace(swin=C.SwinConfig(**swin),
+                                      bert=C.BertConfig(**BERT), img_size=64,
+                                      max_tokens=5, num_frames=2,
+                                      dtype="float32")
+    port = build_model(cfg, device="cpu")
+    port.load_state_dict(state_dict_from_jax(variables, cfg), strict=True)
+    sd = {k: v.numpy() for k, v in port.state_dict().items()}
+    back = _flat(convert_lavt_video(sd, jcfg))
     want = _flat(variables)
     assert sorted(back) == sorted(want)
     for k, v in want.items():
@@ -140,6 +170,17 @@ out = step({"image": image, "ids": ids[:, 0], "mask": mask[:, 0],
             "target": torch.zeros(1, 96, 96, dtype=torch.long)},
            torch.Generator().manual_seed(1))
 assert bool(torch.isfinite(out["loss"]))
+from lavt_rs_tpu_torch.eval.video_eval import clip_iou
+vcfg = C.lavt_video_tiny().replace(
+    swin=C.SwinConfig(embed_dim=32, depths=(1, 1, 1, 1), num_heads=(1, 2, 4, 8),
+                      window_size=7),
+    bert=cfg.bert, dtype="float32")
+video_model = build_model(vcfg, device="cpu",
+                          generator=torch.Generator().manual_seed(0))
+video = torch.randint(0, 256, (2, 64, 64, 3), dtype=torch.uint8)
+inter, union = clip_iou(video_model, video, ids[0, 0], mask[0, 0], 1,
+                        torch.zeros(64, 64, dtype=torch.uint8))
+assert inter.item() == 0 and bool(torch.isfinite(union))
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax")
        and sys.modules[m] is not None]
 assert not bad, bad

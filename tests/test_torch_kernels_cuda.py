@@ -1,5 +1,5 @@
-"""The hand-written CUDA kernels against their plain PyTorch versions, on
-the card.  Marked `cuda`; every test skips without a CUDA device.
+"""The hand-written CUDA kernels (K1-K8, K10, K2p) against their plain
+PyTorch versions, on the card.  Marked `cuda`; every test skips without a CUDA device.
 
 Runs without JAX (the repo's conftest imports it), so on the GPU machine:
 
@@ -30,13 +30,19 @@ from lavt_rs_tpu_torch.ops.fused_mlp import (
     fused_ln_mlp_droppath, fused_ln_mlp_droppath_plain, fused_ln_mlp_plain)
 from lavt_rs_tpu_torch.ops.fused_msa import (
     fused_window_msa, fused_window_msa_bwd, fused_window_msa_bwd_plain,
+    fused_window_msa_grouped, fused_window_msa_grouped_plain,
     fused_window_msa_bwd_recompute, fused_window_msa_bwd_recompute_plain,
     fused_window_msa_ln, fused_window_msa_ln_plain, fused_window_msa_plain,
-    fused_window_msa_save, fused_window_msa_save_plain)
+    fused_window_msa_save, fused_window_msa_save_plain, pad_bias_sublane)
 from lavt_rs_tpu_torch.ops.ln import layer_norm_rows, layer_norm_rows_plain
-from lavt_rs_tpu_torch.ops.window import (relative_bias_from_table,
+from lavt_rs_tpu_torch.ops.window import (partition_3d_groups,
+                                          relative_bias_from_table,
+                                          relative_bias_from_table_3d,
                                           relative_position_index_2d,
+                                          relative_position_index_3d,
                                           shift_mask_2d)
+from lavt_rs_tpu_torch.ops.window_attn import (window_attention,
+                                               window_attention_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -275,3 +281,64 @@ def test_training_kernels_refuse_what_they_do_not_take(dev):
         fused_ln_mlp_bwd(xm, xm, g, be, w1.float(), b1, w2)
     with pytest.raises(ValueError):  # 64 rows are not samples of 48
         fused_ln_mlp_droppath(xm, g, be, w1, b1, w2, b2, _keep(dev, 2), 48)
+
+
+# -- the video kernels: K10 (attention on pre-projected heads) and K2p --------
+
+def _video_bias_mask(rng, dev, heads, n, nw, masked):
+    table = torch.from_numpy(rng.standard_normal((15 * 13 * 13, heads))
+                             .astype(np.float32)).to(dev)
+    index = torch.from_numpy(relative_position_index_3d(8, 7, 7)).to(dev)
+    bias = relative_bias_from_table_3d(table, index, n)
+    mask = (torch.from_numpy(np.where(rng.random((nw, n, n)) > 0.7, -100.0,
+                                      0.0).astype(np.float32)).to(dev)
+            if masked else None)
+    return bias, mask
+
+
+@pytest.mark.parametrize("nw,heads,n,masked", [
+    (81, 6, 392, True), (25, 12, 392, False), (9, 24, 392, True),
+    (9, 24, 196, True), (16, 3, 49, True)])
+def test_window_attention_kernel(dev, nw, heads, n, masked):
+    """K10 at the video stage-2..4 shapes (N = 392), a 4-frame clip's N =
+    196 and window-7's N = 49."""
+    rng = np.random.default_rng(nw + heads + n)
+    q, k, v = (_bf16(rng, (1, nw, heads, n, 32), 1.0, dev) for _ in range(3))
+    bias, mask = _video_bias_mask(rng, dev, heads, n, nw, masked)
+    _close(window_attention(q, k, v, bias, mask, 32 ** -0.5),
+           window_attention_plain(q, k, v, bias, mask, 32 ** -0.5), TOL_MSA)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_fused_window_msa_grouped_kernel(dev, masked):
+    """K2p at the video stage-1 shape: 324 windows of 392 tokens padded to
+    400, C = 96, 3 heads; shifted, the first 289 windows are maskless and
+    the other 35 take the small mask."""
+    rng = np.random.default_rng(96 + masked)
+    c, heads, n, n_p, nw = 96, 3, 392, 400, 324
+    ws, ss = (8, 7, 7), (0, 3, 3) if masked else (0, 0, 0)
+    nu, mask = partition_3d_groups(8, 120, 120, 8, 126, 126, ws, ss, n_p, dev)
+    assert nu == (289 if masked else nw)
+    x = _bf16(rng, (1, nw, n_p, c), 1.0, dev)
+    x[:, :, n:] = 0
+    bias, _ = _video_bias_mask(rng, dev, heads, n, nw, False)
+    bias = pad_bias_sublane(bias, n_p)
+    w = (_bf16(rng, (3 * c, c), c ** -0.5, dev), _bf16(rng, (3 * c,), 0.2, dev),
+         _bf16(rng, (c, c), c ** -0.5, dev), _bf16(rng, (c,), 0.2, dev))
+    args = (x, *w, bias, mask, nu, heads, 32 ** -0.5)
+    _close(fused_window_msa_grouped(*args)[:, :, :n],
+           fused_window_msa_grouped_plain(*args)[:, :, :n], TOL_MSA)
+
+
+def test_video_kernels_refuse_what_they_do_not_take(dev):
+    rng = np.random.default_rng(5)
+    q = _bf16(rng, (1, 2, 2, 416, 32), 1.0, dev)
+    bias = torch.zeros((2, 416, 416), device=dev)
+    with pytest.raises(ValueError):
+        window_attention(q, q, q, bias, None)  # N > 400
+    x = _bf16(rng, (1, 2, 392, 96), 1.0, dev)
+    w = (_bf16(rng, (288, 96), 0.1, dev), _bf16(rng, (288,), 0.1, dev),
+         _bf16(rng, (96, 96), 0.1, dev), _bf16(rng, (96,), 0.1, dev))
+    with pytest.raises(ValueError):  # 392 is not a multiple of 16
+        fused_window_msa_grouped(x, *w, torch.zeros((3, 392, 392), device=dev),
+                                 None, 2, 3, 32 ** -0.5)

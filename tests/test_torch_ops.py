@@ -15,7 +15,7 @@ from lavt_rs_tpu.ops import attention as jattn
 from lavt_rs_tpu.ops import norm as jnorm
 from lavt_rs_tpu.ops import resize as jresize
 from lavt_rs_tpu.ops import window as jwin
-from lavt_rs_tpu_torch.ops import attention, norm, resize, window
+from lavt_rs_tpu_torch.ops import norm, resize, window, window_attn
 
 TOL = 1e-5
 
@@ -105,7 +105,7 @@ def test_window_attention(rng, masked):
     bias = rng.standard_normal((h, n, n)).astype(np.float32)
     mask = (np.where(rng.random((nw, n, n)) > 0.7, -100.0, 0.0)
             .astype(np.float32) if masked else None)
-    got = attention.window_attention(
+    got = window_attn.window_attention(
         *(torch.from_numpy(a) for a in (q, k, v, bias)),
         None if mask is None else torch.from_numpy(mask))
     want = jattn.window_attention_xla(
