@@ -100,7 +100,7 @@ LOSS_RTOL, MIN_COS = 1e-2, 0.98
 MARGIN, MIN_AGREE = 0.05, 0.995
 # H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor cores, HBM3
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
-NAMES = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K10", "K2p")
+NAMES = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K10", "K2p", "K9")
 REPLACES = {
     "K1": "lavt_rs_tpu/ops/pallas/fused_msa.py:1415",
     "K2": "lavt_rs_tpu/ops/pallas/fused_msa.py:1261",
@@ -112,6 +112,7 @@ REPLACES = {
     "K8": "lavt_rs_tpu/ops/pallas/fused_mlp.py:533",
     "K10": "lavt_rs_tpu/ops/pallas/window_attn.py:120",
     "K2p": "lavt_rs_tpu/ops/pallas/fused_msa.py:891",
+    "K9": "lavt_rs_tpu/ops/pallas/window_attn.py:292",
 }
 SOURCES = {
     "K1": "lavt_rs_tpu_torch/csrc/fused_msa.cu",
@@ -124,6 +125,7 @@ SOURCES = {
     "K8": "lavt_rs_tpu_torch/csrc/fused_mlp.cu",
     "K10": "lavt_rs_tpu_torch/csrc/window_attn.cu",
     "K2p": "lavt_rs_tpu_torch/csrc/window_attn.cu",
+    "K9": "lavt_rs_tpu_torch/csrc/window_attn.cu",
 }
 # Swin-B at 480²: (tokens per side, C, heads, blocks) per stage
 STAGES = ((120, 128, 4, 2), (60, 256, 8, 2), (30, 512, 16, 18),
@@ -138,6 +140,9 @@ VIDEO_STAGES = ((120, 96, 3, 2), (60, 192, 6, 2), (30, 384, 12, 6),
 FRAMES, VIDEO_TOKENS, N_CLIPS = 8, 22, 3
 # launches per clip: K2p in both stage-1 blocks, K10 in the ten others
 VIDEO_PER_CLIP = {"K10": 10, "K2p": 2}
+# launches per video training step: every 3D block takes K10 (save mode)
+# forward and K9 backward; no K2p in training
+VIDEO_TRAIN_PER_STEP = {"K10": 12, "K9": 12}
 
 
 def log(*a):
@@ -237,23 +242,27 @@ def compare_saved(name, got, want):
     return err
 
 
-def compare_grads(name, got, want):
-    """Backward: dx elementwise (scaled), every accumulated grad by its
-    relative Frobenius error; returns dx's max abs error."""
+def compare_grads(name, got, want, n_dx=1):
+    """Backward: the first n_dx outputs (dx; K9's dq, dk, dv) elementwise
+    (scaled), every accumulated grad after them by its relative Frobenius
+    error; returns (the dx's max abs error, the worst Frobenius error)."""
     import torch
 
     torch.cuda.synchronize()
-    g, w = got[0].float(), want[0].float()
-    if not bool(torch.isfinite(g).all()):
-        raise RuntimeError(f"{name}: non-finite dx")
-    err = (g - w).abs()
-    scale = w.square().mean().sqrt()
-    if not bool((err <= TOL_DX * (scale + w.abs())).all()):
-        raise RuntimeError(f"{name}: dx disagrees with the plain version "
-                           f"(max abs err {err.max().item():.4g} at scale "
-                           f"{scale.item():.4g})")
+    max_err = 0.0
+    for i in range(n_dx):
+        g, w = got[i].float(), want[i].float()
+        if not bool(torch.isfinite(g).all()):
+            raise RuntimeError(f"{name}: non-finite dx #{i}")
+        err = (g - w).abs()
+        scale = w.square().mean().sqrt()
+        if not bool((err <= TOL_DX * (scale + w.abs())).all()):
+            raise RuntimeError(f"{name}: dx #{i} disagrees with the plain "
+                               f"version (max abs err {err.max().item():.4g} "
+                               f"at scale {scale.item():.4g})")
+        max_err = max(max_err, err.max().item())
     worst = 0.0
-    for i, (gg, ww) in enumerate(zip(got[1:], want[1:]), 1):
+    for i, (gg, ww) in enumerate(zip(got[n_dx:], want[n_dx:]), n_dx):
         if not bool(torch.isfinite(gg).all()):
             raise RuntimeError(f"{name}: non-finite grad #{i}")
         rel = ((gg.float() - ww.float()).norm()
@@ -262,7 +271,20 @@ def compare_grads(name, got, want):
         if rel > TOL_GRAD:
             raise RuntimeError(f"{name}: grad #{i} relative Frobenius error "
                                f"{rel:.4g} > {TOL_GRAD}")
-    return err.max().item(), worst
+    return max_err, worst
+
+
+def compare_lse(name, got, want):
+    """K10's save mode: (O, lse); O as K10's, lse (f32 on both sides) within
+    TOL_P abs + 1e-4 rel."""
+    import torch
+
+    err = compare(name, got[0], want[0], TOL["K2"])
+    lse_err = (got[1] - want[1]).abs()
+    if not bool((lse_err <= TOL_P + 1e-4 * want[1].abs()).all()):
+        raise RuntimeError(f"{name}: lse disagrees with the plain version "
+                           f"(max abs err {lse_err.max().item():.4g})")
+    return err
 
 
 # -- the library chains (timing baselines only) -------------------------------
@@ -322,7 +344,7 @@ class Results:
 
     def __init__(self):
         self.r = {k: dict(err=0.0, ms=0.0, plain=0.0, lib=0.0, bound=0.0,
-                          ops=0.0, mem=0.0) for k in NAMES + ("save",)}
+                          ops=0.0, mem=0.0) for k in NAMES + ("save", "K10s")}
 
     def add(self, name, calls, err, tk, tp, tb, work):
         r = self.r[name]
@@ -573,7 +595,8 @@ def counters():
             "K7": fused_mlp.fused_ln_mlp_bwd,
             "K8": fused_mlp.fused_ln_mlp_droppath,
             "K10": window_attn.window_attention,
-            "K2p": fused_msa.fused_window_msa_grouped}
+            "K2p": fused_msa.fused_window_msa_grouped,
+            "K9": window_attn.attention_core_bwd}
 
 
 def zero_counts():
@@ -737,18 +760,17 @@ def training(dev, card, weights):
     return launches, big_launches
 
 
-def gate_run(dev, weights, kernels, dtype, bn_batch_stats, batch, seed):
+def gate_run(dev, cfg, weights, bn_batch_stats, batch, seed):
     """One forward + backward of the train-mode model (dropout and DropPath
     on, drawn from `seed`); BatchNorm on its batch statistics or on its
-    running ones.  Returns (loss, {parameter: f32 grad})."""
+    running ones.  A video batch ('video', 'valid_index') takes the loss on
+    its annotated frames.  Returns (loss, {parameter: f32 grad})."""
     import torch
 
-    from lavt_rs_tpu_torch.config import lavt_one_base
     from lavt_rs_tpu_torch.losses import get_loss
     from lavt_rs_tpu_torch.models.factory import build_model
     from lavt_rs_tpu_torch.ops.norm import maybe_normalize_image
 
-    cfg = lavt_one_base().replace(use_kernels=kernels, dtype=dtype)
     m = build_model(cfg, dev, train=True)
     m.load_state_dict(weights)
     if not bn_batch_stats:
@@ -756,10 +778,14 @@ def gate_run(dev, weights, kernels, dtype, bn_batch_stats, batch, seed):
             if isinstance(mod, torch.nn.BatchNorm2d):
                 mod.eval()
     dt = cfg.compute_dtype
+    pixels = batch["video"] if "video" in batch else batch["image"]
     with torch.autocast(dev.type, dtype=dt, enabled=dt != torch.float32):
-        out = m(maybe_normalize_image(batch["image"]), batch["ids"],
-                batch["mask"],
+        out = m(maybe_normalize_image(pixels), batch["ids"], batch["mask"],
                 generator=torch.Generator(device=dev).manual_seed(seed))
+    if "video" in batch:
+        b, t = pixels.shape[:2]
+        out = out.reshape(b, t, *out.shape[1:])[
+            torch.arange(b, device=dev), batch["valid_index"]]
     loss = get_loss("cross_entropy")(out.float(), batch["target"])
     loss.backward()
     grads = {}
@@ -798,11 +824,19 @@ def training_gate(dev, weights):
     the kernels) is printed beside it.  Returns the worst checked cosine."""
     import torch
 
+    from lavt_rs_tpu_torch.config import lavt_one_base
+
     batch = train_batch(dev, torch.Generator(device=dev).manual_seed(SEED + 4),
                         BATCH)
     seed = SEED + 5
-    ref_loss, ref = gate_run(dev, weights, False, "float32", False, batch, seed)
-    loss, got = gate_run(dev, weights, True, "bfloat16", False, batch, seed)
+
+    def cfg(kernels, dtype):
+        return lavt_one_base().replace(use_kernels=kernels, dtype=dtype)
+
+    ref_loss, ref = gate_run(dev, cfg(False, "float32"), weights, False,
+                             batch, seed)
+    loss, got = gate_run(dev, cfg(True, "bfloat16"), weights, False, batch,
+                         seed)
     rel = abs(loss - ref_loss) / abs(ref_loss)
     cos = block_cosines(got, ref)
     worst = min(cos, key=cos.get)
@@ -819,11 +853,11 @@ def training_gate(dev, weights):
     if cos[worst] < MIN_COS:
         raise RuntimeError(f"gate: cosine {cos[worst]:.5f} < {MIN_COS}")
     # BN on batch statistics (the training recipe): printed, not checked
-    ref_loss_b, ref_b = gate_run(dev, weights, False, "float32", True, batch,
-                                 seed)
+    ref_loss_b, ref_b = gate_run(dev, cfg(False, "float32"), weights, True,
+                                 batch, seed)
     for kernels, what in ((True, "kernel route"),
                           (False, "plain modules under bf16 autocast")):
-        loss_b, got_b = gate_run(dev, weights, kernels, "bfloat16", True,
+        loss_b, got_b = gate_run(dev, cfg(kernels, "bfloat16"), weights, True,
                                  batch, seed)
         cb = block_cosines(got_b, ref_b)
         del got_b
@@ -848,6 +882,24 @@ def attn_work(b, nw, heads, n, masked=0):
     m = b * nw * heads
     return (4 * m * n * n * hd,
             4 * m * n * hd * 2 + heads * n * n * 4 + masked * n * n * 4)
+
+
+def attn_save_work(b, nw, heads, n, masked=0):
+    """K10's save mode: K10's work plus each row's f32 lse written."""
+    flops, nbytes = attn_work(b, nw, heads, n, masked)
+    return flops, nbytes + b * nw * heads * n * 4
+
+
+def attn_bwd_work(b, nw, heads, n, masked=0):
+    """K9: five N x N x hd products (10 N² hd flops) per window and head;
+    bytes: q, k, v, o, do read and dq, dk, dv written in bf16, the f32 lse
+    read, the f32 bias read and dbias written, and the f32 mask of the
+    `masked` windows whose mask is not all zero."""
+    hd = 32
+    m = b * nw * heads
+    return (10 * m * n * n * hd,
+            8 * m * n * hd * 2 + m * n * 4 + 2 * heads * n * n * 4
+            + masked * n * n * 4)
 
 
 def padded_msa_work(b, nw, n, c, heads, masked):
@@ -1004,9 +1056,9 @@ def clips(dev, g, n):
     return out
 
 
-def profile_clip(fn, card):
-    """One clip under torch.profiler: device busy time and the kernels
-    that take it, by name."""
+def profile_clip(fn, card, what="video clip"):
+    """One call of fn (a clip, a step) under torch.profiler: device busy
+    time and the kernels that take it, by name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1021,11 +1073,15 @@ def profile_clip(fn, card):
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total",
                      getattr(e, "self_cuda_time_total", 0))
-        if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+        # user annotations (Optimizer.step#AdamW.step) span kernels: skip
+        annotation = (getattr(e, "is_user_annotation", False)
+                      or e.key.startswith("Optimizer."))
+        if (us > 0 and e.device_type == torch.autograd.DeviceType.CUDA
+                and not annotation):
             rows.append((us / 1e3, e.count, e.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    log(f"video clip under torch.profiler: wall {wall:.3f} ms (host clock, "
+    log(f"{what} under torch.profiler: wall {wall:.3f} ms (host clock, "
         f"profiler on), device busy {busy:.3f} ms, idle share "
         f"{max(0.0, 1 - busy / wall):.3f}  [{card}]")
     for ms, count, key in rows[:20]:
@@ -1034,7 +1090,8 @@ def profile_clip(fn, card):
 
 def video(dev, card, res):
     """The lavt_video main path: clip_iou on N_CLIPS clips (launch counts),
-    the f32 check, the timing and a profile; returns the launch counts."""
+    the f32 check, the timing and a profile; returns the launch counts and
+    the model's weights."""
     import torch
 
     from lavt_rs_tpu_torch.eval.video_eval import clip_iou
@@ -1103,7 +1160,226 @@ def video(dev, card, res):
             f"{plain_ms:.3f} ms/clip, {FRAMES * 1000 / plain_ms:.2f} "
             f"frames/s (mean of {plain_iters})  [{card}]")
         profile_clip(fwd(model), card)
+    weights = model.state_dict()
     del model
+    torch.cuda.empty_cache()
+    return launches, weights
+
+
+# -- video training: K10's save mode and K9, then the train step -----------------
+
+def video_train_kernel_phases(dev, res):
+    """K10's save mode and K9 at every stage's shape of an 8-frame 480² clip
+    (stage 1 too: training keeps it off K2p), shifted and unshifted, plus
+    N = 196 (a 4-frame clip's stage 2) and N = 49 (window-7 2D), each
+    against its plain version; per training step into `res` ("K10s",
+    "K9").  K9's library call: autograd through K10's SDPA chain with the
+    bias requiring grad (bias + mask as one bf16 mask)."""
+    import torch
+    import torch.nn.functional as F
+
+    from lavt_rs_tpu_torch.ops import window_attn as wa
+    from lavt_rs_tpu_torch.ops.window import (relative_bias_from_table,
+                                              relative_bias_from_table_3d,
+                                              relative_position_index_2d,
+                                              relative_position_index_3d,
+                                              shift_mask_2d, shift_mask_3d)
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 20)
+
+    def rnd(shape, std=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * std).bfloat16()
+
+    index = torch.from_numpy(relative_position_index_3d(8, 7, 7)).to(dev)
+    sc = 32 ** -0.5
+    cases = []  # (label, calls per step, heads, N, nW, bias, mask)
+    for si, (side, c, heads, depth) in enumerate(VIDEO_STAGES):
+        hp = -(-side // 7) * 7
+        nw = (hp // 7) ** 2
+        table = torch.randn((15 * 13 * 13, heads), generator=g, device=dev)
+        bias = relative_bias_from_table_3d(table, index, 392)
+        for shift in (False, True):
+            mask = (shift_mask_3d(FRAMES, hp, hp, (8, 7, 7), (0, 3, 3), dev)
+                    if shift else None)
+            cases.append((f"stage {si + 1} mask {shift}", depth // 2, heads,
+                          392, nw, bias, mask))
+    table = torch.randn((15 * 13 * 13, 6), generator=g, device=dev)
+    cases.append(("4-frame stage 2 mask True", 0, 6, 196, 81,
+                  relative_bias_from_table_3d(table, index, 196),
+                  shift_mask_3d(4, 63, 63, (4, 7, 7), (0, 3, 3), dev)))
+    table = torch.randn((13 * 13, 3), generator=g, device=dev)
+    cases.append(("window-7 2D mask True", 0, 3, 49, 64,
+                  relative_bias_from_table(
+                      table, torch.from_numpy(
+                          relative_position_index_2d(7, 7)).to(dev)),
+                  shift_mask_2d(56, 56, 7, 3, dev)))
+    for label, calls, heads, n, nw, bias, mask in cases:
+        q, k, v = (rnd((1, nw, heads, n, 32)) for _ in range(3))
+        masked = masked_windows(mask)
+        am = sdpa_mask(bias, mask, nw)
+        what = f"{label} q{tuple(q.shape)}"
+        measure(res, "K10s", what, calls,
+                lambda: wa.window_attention_save(q, k, v, bias, mask, sc),
+                lambda: wa.window_attention_save_plain(q, k, v, bias, mask,
+                                                       sc),
+                lambda: F.scaled_dot_product_attention(
+                    q[0], k[0], v[0], attn_mask=am, scale=sc),
+                attn_save_work(1, nw, heads, n, masked), compare_lse)
+        del am
+        o, lse = wa.window_attention_save(q, k, v, bias, mask, sc)
+        do = rnd(q.shape)
+
+        def sdpa_chain(q_, k_, v_, b_, mask=mask, nw=nw):
+            return F.scaled_dot_product_attention(
+                q_[0], k_[0], v_[0], attn_mask=sdpa_mask(b_, mask, nw),
+                scale=sc)
+
+        measure(res, "K9", what, calls,
+                lambda: wa.attention_core_bwd(q, k, v, bias, mask, do, sc, o,
+                                              lse),
+                lambda: wa.attention_core_bwd_plain(q, k, v, bias, mask, do,
+                                                    sc, o),
+                chain_grad(sdpa_chain, (q, k, v, bias), do[0]),
+                attn_bwd_work(1, nw, heads, n, masked),
+                lambda name, got, want: compare_grads(name, got, want, 3))
+        del q, k, v, o, lse, do
+        torch.cuda.empty_cache()
+
+
+def video_train_batch(dev, g):
+    """One A2D training clip: an 8-frame 480² uint8 clip, 22 token ids with
+    a padded mask, the annotated frame's index and binary target."""
+    import torch
+
+    video, ids, mask, valid, _ = clips(dev, g, 1)[0]
+    target = torch.randint(0, 2, (1, *video.shape[1:3]), generator=g,
+                           device=dev)
+    return {"video": video[None], "ids": ids[None], "mask": mask[None],
+            "target": target,
+            "valid_index": torch.tensor([valid], device=dev)}
+
+
+def video_training_gate(dev, weights):
+    """The lavt_one gate for lavt_video_tiny: kernel route (bf16; K10 save
+    mode and K9 in every 3D block) vs plain route (f32 math, TF32 off) from
+    the same weights, clip and generator seed, DropPath and dropout on, BN
+    on its running statistics; the loss on the annotated frame within
+    LOSS_RTOL and every 3D block's parameter gradients (relative-position
+    tables included) with cosine >= MIN_COS.  Checked with the language
+    gates at zero, as `init_weights` draws them and a fine-tuning run
+    starts: through non-zero gates, SepTPWAM's InstanceNorms carry bf16
+    rounding into the residual stream in any bf16 route (worst cosine
+    ~0.976 for the plain modules under bf16 autocast, ~0.979 with the
+    kernels); both are printed for the `meaningful` gates, not checked.
+    Returns the worst checked cosine."""
+    import torch
+
+    from lavt_rs_tpu_torch.config import lavt_video_tiny
+
+    batch = video_train_batch(
+        dev, torch.Generator(device=dev).manual_seed(SEED + 21))
+    seed = SEED + 22
+    f32 = lavt_video_tiny(use_kernels=False, dtype="float32")
+    zero_gates = {k: torch.zeros_like(v) if ".res_gate." in k else v
+                  for k, v in weights.items()}
+    ref_loss, ref = gate_run(dev, f32, zero_gates, False, batch, seed)
+    zero_counts()
+    loss, got = gate_run(dev, lavt_video_tiny(), zero_gates, False, batch,
+                         seed)
+    launches = read_counts()
+    check_counts("video gate", launches, VIDEO_TRAIN_PER_STEP, 1)
+    rel = abs(loss - ref_loss) / abs(ref_loss)
+    cos = block_cosines(got, ref)
+    tables = [k for k in got if k.endswith("relative_position_bias_table")]
+    del got, ref
+    if len(cos) != 12 or len(tables) != 12:
+        raise RuntimeError(f"video gate: {len(cos)} blocks, {len(tables)} "
+                           "bias tables with gradients, expected 12")
+    worst = min(cos, key=cos.get)
+    log(f"video training gate (language gates 0, BN running statistics, "
+        f"DropPath + dropout on): loss kernel route (bf16) {loss:.6f}, plain "
+        f"route (f32 math) {ref_loss:.6f}, rel diff {rel:.3g} (limit "
+        f"{LOSS_RTOL}); 12 3D blocks, worst gradient cosine {cos[worst]:.5f} "
+        f"({worst}, limit {MIN_COS}); launches {launches}")
+    log("per-block cosines: " + ", ".join(f"{k} {v:.4f}"
+                                          for k, v in cos.items()))
+    if rel > LOSS_RTOL:
+        raise RuntimeError(f"video gate: loss rel diff {rel:.4g} > {LOSS_RTOL}")
+    if cos[worst] < MIN_COS:
+        raise RuntimeError(f"video gate: cosine {cos[worst]:.5f} < {MIN_COS}")
+    # the language gates N(0, GATE_STD): printed, not checked
+    ref_loss_g, ref_g = gate_run(dev, f32, weights, False, batch, seed)
+    for kernels, what in ((True, "kernel route"),
+                          (False, "plain modules under bf16 autocast")):
+        loss_g, got_g = gate_run(dev, lavt_video_tiny(use_kernels=kernels),
+                                 weights, False, batch, seed)
+        cg = block_cosines(got_g, ref_g)
+        del got_g
+        log(f"language gates N(0, {GATE_STD}), {what} (bf16) vs plain route "
+            f"(f32): loss {loss_g:.6f} vs {ref_loss_g:.6f}, worst 3D-block "
+            f"cosine {min(cg.values()):.5f}, mean "
+            f"{sum(cg.values()) / len(cg):.5f}")
+    return cos[worst]
+
+
+def video_training(dev, card, weights):
+    """lavt_video_tiny's training step (`make_video_train_step`: uint8 clip
+    normalized on the card, forward with DropPath 0.1 and BERT dropout 0.1,
+    the loss on the annotated frame, backward, AdamW, poly LR): a warm-up
+    step, then TRAIN_STEPS timed steps on one clip with the generator
+    reseeded every step (launch counts, ms/step, clips/s, peak memory, the
+    loss must fall), then one step under torch.profiler.  Returns the
+    launch counts."""
+    import torch
+
+    from lavt_rs_tpu_torch.config import lavt_video_tiny
+    from lavt_rs_tpu_torch.models.factory import build_model
+    from lavt_rs_tpu_torch.train.optim import TrainConfig
+    from lavt_rs_tpu_torch.train.step import (create_train_state,
+                                              make_video_train_step)
+
+    model = build_model(lavt_video_tiny(), dev, train=True)
+    model.load_state_dict(weights)
+    tcfg = TrainConfig()
+    step = make_video_train_step(model, *create_train_state(model, tcfg), tcfg)
+    batch = video_train_batch(
+        dev, torch.Generator(device=dev).manual_seed(SEED + 23))
+
+    def gen():
+        return torch.Generator(device=dev).manual_seed(SEED + 24)
+
+    t0 = time.perf_counter()
+    step(batch, gen())
+    torch.cuda.synchronize()
+    log(f"video train step, first (warm-up): "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    outs = [step(batch, gen()) for _ in range(TRAIN_STEPS)]
+    end.record()
+    torch.cuda.synchronize()
+    launches = read_counts()
+    ms = start.elapsed_time(end) / TRAIN_STEPS
+    log(f"video train launches over {TRAIN_STEPS} steps: {launches}")
+    check_counts("video train", launches, VIDEO_TRAIN_PER_STEP, TRAIN_STEPS)
+    losses = [o["loss"].item() for o in outs]
+    if not all(math.isfinite(v) for v in losses):
+        raise RuntimeError(f"non-finite video training loss: {losses}")
+    log(f"video train step, one 8-frame 480² clip, bf16 (kernels, AdamW, "
+        f"DropPath 0.1, BERT dropout 0.1): {ms:.3f} ms/step, "
+        f"{1000 / ms:.3f} clips/s (mean of {TRAIN_STEPS} steps); peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  [{card}]")
+    log(f"video loss over {TRAIN_STEPS} steps on one clip (dropout reseeded "
+        f"each step): first {losses[0]:.6f}, last {losses[-1]:.6f}; all "
+        f"{[round(v, 6) for v in losses]}; iou {outs[-1]['iou'].item():.4f}, "
+        f"lr {outs[-1]['lr']:.6g}")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError("the video training loss did not fall")
+    profile_clip(lambda: step(batch, gen()), card, "video train step")
+    del model, step
     torch.cuda.empty_cache()
     return launches
 
@@ -1163,13 +1439,27 @@ def main():
     log(f"inference done at {time.perf_counter() - t_start:.1f} s")
 
     # -- video main path (its kernel phases first) ---------------------------------
-    video_launches = video(dev, card, res)
+    video_launches, video_weights = video(dev, card, res)
     for k in ("K10", "K2p"):
         r = res.r[k]
         log(f"{k} per clip: kernel {r['ms']:.3f} ms, bound {r['bound']:.3f} ms "
             f"({res.bound_by(k)}), plain (f32 math) {r['plain']:.3f} ms, "
             f"library {r['lib']:.3f} ms")
     log(f"video done at {time.perf_counter() - t_start:.1f} s")
+
+    # -- video training main path (its kernel phases first) ------------------------
+    video_train_kernel_phases(dev, res)
+    for k in ("K10s", "K9"):
+        r = res.r[k]
+        log(f"{'K10 save mode' if k == 'K10s' else k} per video train step: "
+            f"kernel {r['ms']:.3f} ms, bound {r['bound']:.3f} ms "
+            f"({res.bound_by(k)}), plain (f32 math) {r['plain']:.3f} ms, "
+            f"library {r['lib']:.3f} ms")
+    video_training_gate(dev, video_weights)
+    torch.cuda.empty_cache()
+    video_train_launches = video_training(dev, card, video_weights)
+    del video_weights
+    log(f"video training done at {time.perf_counter() - t_start:.1f} s")
 
     # -- training main path ----------------------------------------------------
     training_gate(dev, weights)
@@ -1182,6 +1472,7 @@ def main():
     launches.update({k: train_launches[k] for k in ("K5", "K7", "K8")})
     launches["K6"] = big_launches["K6"]
     launches.update({k: video_launches[k] for k in ("K10", "K2p")})
+    launches["K9"] = video_train_launches["K9"]
     kernels = []
     for k in NAMES:
         r = res.r[k]

@@ -1,8 +1,8 @@
 """Model factory (counterpart of `lavt_rs_tpu/models/factory.py`).
 
-`lavt_one` (inference and training) and `lavt_video` (inference) are
-ported; every other family, and video training, raises
-NotImplementedError naming the ROADMAP.md slice that ports it.
+`lavt_one` and `lavt_video` (inference and training) are ported; every
+other family raises NotImplementedError naming the ROADMAP.md slice that
+ports it.
 """
 
 from __future__ import annotations
@@ -83,10 +83,6 @@ def build_model(cfg: ModelConfig, device="cuda",
         raise NotImplementedError(
             f"model {cfg.name!r} is not ported yet"
             + (f": ROADMAP.md {where}" if where else ""))
-    if train and cfg.name == "lavt_video":
-        raise NotImplementedError(
-            "the lavt_video training step is not ported yet: ROADMAP.md "
-            "slice 4b")
     with torch.device(device):
         model = _MODELS[cfg.name](cfg)
     if generator is not None:

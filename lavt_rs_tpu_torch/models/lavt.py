@@ -6,8 +6,7 @@ I/O as in the JAX package: image NHWC float (already normalized) or video
 logits NHWC (B, H, W, num_classes), or frame-major (B*T, H, W,
 num_classes) for video, in f32, upsampled to the input size with
 corner-aligned bilinear.  In training the generator draws every dropout
-and DropPath mask, in forward order (BERT first); LAVTVideo is inference
-only.
+and DropPath mask, in forward order (BERT first).
 """
 
 from __future__ import annotations
@@ -80,11 +79,14 @@ class LAVTVideo(nn.Module):
                                          cfg.num_classes)
 
     def forward(self, video: torch.Tensor, text_ids: torch.Tensor,
-                l_mask: torch.Tensor) -> torch.Tensor:
-        """video (B, T, H, W, 3) normalized -> (B*T, H, W, K) f32 logits."""
+                l_mask: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """video (B, T, H, W, 3) normalized -> (B*T, H, W, K) f32 logits;
+        the generator draws the dropout and DropPath masks in training."""
         dt = self.cfg.compute_dtype
         in_hw = video.shape[2:4]
-        l_feats = self.text_encoder(text_ids, l_mask)
-        x_c1, x_c2, x_c3, x_c4 = self.backbone(video.to(dt), l_feats, l_mask)
+        l_feats = self.text_encoder(text_ids, l_mask, generator=generator)
+        x_c1, x_c2, x_c3, x_c4 = self.backbone(video.to(dt), l_feats, l_mask,
+                                               generator)
         logits = self.classifier(x_c4, x_c3, x_c2, x_c1)
         return upsample_logits_nchw(logits, in_hw)

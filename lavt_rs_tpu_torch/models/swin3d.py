@@ -24,19 +24,30 @@ the JAX package routes with `use_pallas`:
 With `use_kernels=False` every block takes the second route with K10's
 plain version.  The LayerNorms, the MLP, PatchMerging and the stage norms
 are plain PyTorch, as in the JAX package (no fused tail in 3D).
-Inference only: the video training step is a later slice.
+
+Training (the module in train mode, parameters in f32): every block takes
+the second route, as the JAX package gates its grouped route on
+`deterministic` (measured there: 154.7 -> 184.8 ms per clip with it in
+training), so K2p stays off the training path and every block runs K10 in
+save mode forward and K9 backward (`window_attn.WindowAttention`).  The
+relative-position bias is gathered with grad, so dbias reaches the table.
+DropPath follows the attention and the MLP, each a per-sample draw from
+the generator passed to `forward`, in the JAX order; the per-block rates
+are linspace(0, drop_path_rate, blocks).
 """
 
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from ..config import FusionConfig, FusionKind, GateKind, StageOutput, SwinConfig, TPWAMConfig
 from ..ops import fused_msa, window_attn
+from ..ops.dropout import drop_path
 from ..ops.window import (get_window_size_3d, partition_3d_groups,
                           partition_shifted_padded_3d,
                           relative_bias_from_table_3d,
@@ -69,16 +80,25 @@ class WindowAttention3D(nn.Module):
 
     def relative_bias(self, n: int, n_p: Optional[int] = None) -> torch.Tensor:
         """(h, N, N) f32 bias of an N-token window (padded to n_p by
-        `pad_bias_sublane` when given), kept until the table changes."""
+        `pad_bias_sublane` when given).  Gathered with grad while autograd
+        records the table (training: dbias reaches the table through the
+        gather); otherwise gathered once and kept until the table changes
+        (a new version, device or storage)."""
         t = self.relative_position_bias_table
+
+        def gather():
+            bias = relative_bias_from_table_3d(
+                t, self.relative_position_index, n)
+            return bias if n_p is None else fused_msa.pad_bias_sublane(bias,
+                                                                       n_p)
+
+        if torch.is_grad_enabled() and t.requires_grad:
+            return gather()
         key = (t._version, t.device, t.data_ptr(), n, n_p)
         if self._bias_key != key:
             with torch.no_grad():
-                bias = relative_bias_from_table_3d(
-                    t, self.relative_position_index, n)
-                if n_p is not None:
-                    bias = fused_msa.pad_bias_sublane(bias, n_p)
-            self._bias, self._bias_key = bias, key
+                self._bias = gather()
+            self._bias_key = key
         return self._bias
 
     def forward(self, x, mask=None, groups: Optional[Tuple[int, int]] = None):
@@ -122,11 +142,12 @@ class SwinBlock3D(nn.Module):
                  shift_size: Tuple[int, int, int] = (0, 0, 0),
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
                  qk_scale: Optional[float] = None, use_kernels: bool = True,
-                 grouped: bool = False):
+                 grouped: bool = False, drop_path_rate: float = 0.0):
         super().__init__()
         self.dim, self.num_heads = dim, num_heads
         self.window_size, self.shift_size = tuple(window_size), tuple(shift_size)
         self.use_kernels, self.grouped = use_kernels, grouped
+        self.drop_path_rate = drop_path_rate
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         self.attn = WindowAttention3D(dim, self.window_size, num_heads,
                                       qkv_bias, qk_scale, use_kernels)
@@ -134,15 +155,15 @@ class SwinBlock3D(nn.Module):
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
 
     def takes_grouped_route(self, n: int) -> bool:
-        """The grouped padded route (K2p) for an N-token window: with the
-        kernels, in a grouped stage, where K2p's kernel takes N padded to
-        its 16-row tile."""
-        return (self.use_kernels and self.grouped
+        """The grouped padded route (K2p) for an N-token window: in eval
+        mode, with the kernels, in a grouped stage, where K2p's kernel takes
+        N padded to its 16-row tile."""
+        return (not self.training and self.use_kernels and self.grouped
                 and fused_msa.padded_msa_supported(fused_msa.pad_tokens(n),
                                                    self.dim, self.num_heads))
 
-    def forward(self, x):
-        """x: (B, D, H, W, C)."""
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        """x: (B, D, H, W, C); the generator draws DropPath in training."""
         b, d, h, w, c = x.shape
         ws, ss = get_window_size_3d((d, h, w), self.window_size,
                                     self.shift_size)
@@ -175,8 +196,10 @@ class SwinBlock3D(nn.Module):
                 y = torch.roll(y, shifts=ss, dims=(1, 2, 3))
             if pad_d or pad_b or pad_r:
                 y = y[:, :d, :h, :w]
-        x = shortcut + y
-        return x + self.mlp(self.norm2(x))
+        rate = self.drop_path_rate
+        x = shortcut + drop_path(y, rate, self.training, generator)
+        return x + drop_path(self.mlp(self.norm2(x)), rate, self.training,
+                             generator)
 
 
 class PatchEmbed3D(nn.Module):
@@ -230,7 +253,8 @@ class MMBasicLayer3D(nn.Module):
                  qkv_bias: bool, qk_scale: Optional[float],
                  has_downsample: bool, fusion: FusionConfig, fusion_heads: int,
                  tpwam: TPWAMConfig, skip_gate: bool = False,
-                 use_kernels: bool = True, grouped: bool = False):
+                 use_kernels: bool = True, grouped: bool = False,
+                 drop_path_rates: Optional[Tuple[float, ...]] = None):
         super().__init__()
         if fusion.kind != FusionKind.PWAM:
             raise NotImplementedError(
@@ -238,25 +262,28 @@ class MMBasicLayer3D(nn.Module):
                 "baselines are in the long-tail slice (ROADMAP.md slice 5)")
         self.fusion_cfg = fusion
         shift = tuple(s // 2 for s in window_size)
+        rates = drop_path_rates or (0.0,) * depth
         self.blocks = nn.ModuleList(
             SwinBlock3D(dim, num_heads, window_size,
                         (0, 0, 0) if i % 2 == 0 else shift, mlp_ratio,
-                        qkv_bias, qk_scale, use_kernels, grouped)
+                        qkv_bias, qk_scale, use_kernels, grouped, rates[i])
             for i in range(depth))
-        self.fusion = build_tpwam(tpwam, dim, fusion_heads, fusion.lang_dim)
+        self.fusion = build_tpwam(tpwam, dim, fusion_heads, fusion.lang_dim,
+                                  fusion.dropout)
         self.res_gate = (LanguageGate(dim, fusion.lg_act)
                          if fusion.gate == GateKind.DEFAULT and not skip_gate
                          else None)
         self.skip_gate = skip_gate
         self.downsample = PatchMerging3D(dim) if has_downsample else None
 
-    def forward(self, x, l, l_mask):
+    def forward(self, x, l, l_mask,
+                generator: Optional[torch.Generator] = None):
         """x (B, D, H, W, C) -> (x_out (B, D, H, W, C), x_next)."""
         b, d, h, w, c = x.shape
         for blk in self.blocks:
-            x = blk(x)
+            x = blk(x, generator)
         x_pre_fusion = x
-        mm = self.fusion(x, l, l_mask)  # (B, DHW, C)
+        mm = self.fusion(x, l, l_mask, generator)  # (B, DHW, C)
         flat = x.reshape(b, d * h * w, c)
         kind = self.fusion_cfg.gate
         if self.skip_gate and kind == GateKind.DEFAULT:
@@ -293,6 +320,8 @@ class MultiModalSwinTransformer3D(nn.Module):
         self.patch_embed = PatchEmbed3D(cfg.embed_dim, cfg.patch_size_3d,
                                         cfg.patch_norm)
         last = cfg.num_layers - 1
+        dpr = np.linspace(0, cfg.drop_path_rate, sum(cfg.depths)).tolist()
+        starts = np.cumsum((0,) + tuple(cfg.depths)).tolist()
         self.layers = nn.ModuleList(
             MMBasicLayer3D(cfg.num_features[i], cfg.depths[i],
                            cfg.num_heads[i], cfg.window_size_3d,
@@ -300,19 +329,25 @@ class MultiModalSwinTransformer3D(nn.Module):
                            i < last, fusion, fusion.num_heads[i], tpwam,
                            skip_gate=use_checkpoint and i == last,
                            use_kernels=use_kernels,
-                           grouped=i == 0)
+                           grouped=i == 0,
+                           drop_path_rates=tuple(dpr[starts[i]:starts[i + 1]]))
             for i in range(cfg.num_layers))
         for i in self.out_indices:
             self.add_module(f"norm{i}", nn.LayerNorm(cfg.num_features[i],
                                                      eps=1e-5))
 
-    def forward(self, video, l, l_mask):
+    def forward(self, video, l, l_mask,
+                generator: Optional[torch.Generator] = None):
+        """The residual stream runs in the video's dtype (the compute
+        dtype): under autocast the plain modules' outputs are cast back to
+        it before every stage and stage norm, as in the 2D backbone."""
+        dt = video.dtype
         x = self.patch_embed(video)
         outs = []
         for i, layer in enumerate(self.layers):
-            x_out, x = layer(x, l, l_mask)
+            x_out, x = layer(x.to(dt), l, l_mask, generator)
             if i in self.out_indices:
-                x_out = getattr(self, f"norm{i}")(x_out)
+                x_out = getattr(self, f"norm{i}")(x_out.to(dt))
                 b, d, hh, ww, cc = x_out.shape
                 outs.append(x_out.reshape(b * d, hh, ww, cc))
         return tuple(outs)

@@ -10,7 +10,9 @@ load as they are; InstanceNorm3d (affine=False) is `instance_norm_nd`
 over (D, H, W) with f32 statistics.  The language keys and values are
 kernel-1 Conv1d weights (`f_key.0`, `f_value.0`) applied as linear maps.
 Padding words are masked with the reference's `sim + (1e4 * mask - 1e4)`.
-Inference only: dropout is not ported (it is 0 in the A2D recipe).
+In training, `dropout` (`fusion.dropout`, --fusion_drop; 0 in the A2D
+recipe) follows every Conv3d + GELU and the token-wise project_mm + GELU,
+drawn from the generator passed to `forward` in the JAX module's order.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..config import BranchFuse, TPWAMConfig, TPWAMKind
+from ..ops.dropout import dropout
 from ..ops.norm import InstanceNormTokens, instance_norm_nd
 from .pwam import PWAM, TokenConv1d
 
@@ -40,10 +43,16 @@ class InstanceNorm3dF32(nn.Module):
 
 
 class ConvGELU3D(nn.Sequential):
-    """Conv3d + exact GELU (`name.0` is the conv)."""
+    """Conv3d + exact GELU (`name.0` is the conv), then dropout at `rate`
+    in training."""
 
-    def __init__(self, c_in: int, c_out: int, kernel):
+    def __init__(self, c_in: int, c_out: int, kernel, rate: float = 0.0):
         super().__init__(_conv3d(c_in, c_out, kernel), nn.GELU())
+        self.rate = rate
+
+    def forward(self, x, generator=None):
+        return dropout(self[1](self[0](x)), self.rate, self.training,
+                       generator)
 
 
 class ConvIN3D(nn.Sequential):
@@ -99,23 +108,24 @@ class SepTPWAM(nn.Module):
     video_swin_transformer.py:1300-1584)."""
 
     def __init__(self, dim: int, lang_dim: int = 768, num_heads: int = 1,
-                 cfg: TPWAMConfig = TPWAMConfig()):
+                 cfg: TPWAMConfig = TPWAMConfig(), dropout: float = 0.0):
         super().__init__()
         self.dim, self.num_heads, self.cfg = dim, num_heads, cfg
+        self.dropout = dropout
         kt, ks = cfg.kernel_t, cfg.kernel_s
         fuse_k = cfg.fuse_kernel or kt
-        self.temporal_vis_project = ConvGELU3D(dim, dim, kt)
-        self.spatial_vis_project = ConvGELU3D(dim, dim, ks)
+        self.temporal_vis_project = ConvGELU3D(dim, dim, kt, dropout)
+        self.spatial_vis_project = ConvGELU3D(dim, dim, ks, dropout)
         self.f_query_t = ConvIN3D(dim, dim, kt)
         self.f_query_s = ConvIN3D(dim, dim, ks)
         if cfg.self_gate:
             for name in ("t_gate_v", "s_gate_v", "t_gate_q", "s_gate_q"):
                 self.add_module(name, SelfGate3D(dim))
         if cfg.branch_fuse == BranchFuse.CAT:
-            self.vis_fuse = ConvGELU3D(2 * dim, dim, fuse_k)
+            self.vis_fuse = ConvGELU3D(2 * dim, dim, fuse_k, dropout)
             self.f_fuse = ConvIN3D(2 * dim, dim, fuse_k)
         elif cfg.branch_fuse == BranchFuse.SUM_CONV:
-            self.vis_fuse = ConvGELU3D(dim, dim, fuse_k)
+            self.vis_fuse = ConvGELU3D(dim, dim, fuse_k, dropout)
             self.f_fuse = ConvIN3D(dim, dim, fuse_k)
         self.f_key = nn.Sequential(TokenConv1d(lang_dim, dim))
         self.f_value = nn.Sequential(TokenConv1d(lang_dim, dim))
@@ -128,36 +138,40 @@ class SepTPWAM(nn.Module):
             self.W = nn.Sequential(TokenConv1d(dim, dim), InstanceNormTokens())
         if cfg.mm_single_conv:
             self.project_mm = ConvGELU3D(dim, dim,
-                                         self._single(cfg.mm_single_conv))
+                                         self._single(cfg.mm_single_conv),
+                                         dropout)
         elif cfg.mm_t3x3_s1x1:
-            self.project_mm_t = ConvGELU3D(dim, dim, kt)
-            self.project_mm_s = ConvGELU3D(dim, dim, (1, 1, 1))
+            self.project_mm_t = ConvGELU3D(dim, dim, kt, dropout)
+            self.project_mm_s = ConvGELU3D(dim, dim, (1, 1, 1), dropout)
         else:
             self.project_mm = nn.Sequential(TokenConv1d(dim, dim), nn.GELU())
 
     def _single(self, kind: str):
         return self.cfg.kernel_t if kind == "3x3" else (1, 3, 3)
 
-    def _fuse(self, t, s, conv: str):
+    def _fuse(self, t, s, conv: str, *args):
         kind = self.cfg.branch_fuse
         if kind == BranchFuse.CAT:
-            return getattr(self, conv)(torch.cat([t, s], dim=1))
+            return getattr(self, conv)(torch.cat([t, s], dim=1), *args)
         out = t + s
-        return getattr(self, conv)(out) if kind == BranchFuse.SUM_CONV else out
+        return (getattr(self, conv)(out, *args) if kind == BranchFuse.SUM_CONV
+                else out)
 
-    def forward(self, x, l, l_mask):
-        """x (B, D, H, W, C); l (B, N_l, D_l); l_mask (B, N_l) in {0, 1}."""
+    def forward(self, x, l, l_mask, generator=None):
+        """x (B, D, H, W, C); l (B, N_l, D_l); l_mask (B, N_l) in {0, 1};
+        the generator draws the dropout in training."""
         cfg = self.cfg
         dhw = x.shape[1:4]
         xc = x.permute(0, 4, 1, 2, 3).contiguous()
-        t_vis = self.temporal_vis_project(xc)
-        s_vis = self.spatial_vis_project(xc)
+        t_vis = self.temporal_vis_project(xc, generator)
+        s_vis = self.spatial_vis_project(xc, generator)
+        if cfg.self_gate:
+            t_vis, s_vis = self.t_gate_v(t_vis), self.s_gate_v(s_vis)
+        ts_vis = self._fuse(t_vis, s_vis, "vis_fuse", generator)
         q_t = self.f_query_t(xc)
         q_s = self.f_query_s(xc)
         if cfg.self_gate:
-            t_vis, s_vis = self.t_gate_v(t_vis), self.s_gate_v(s_vis)
             q_t, q_s = self.t_gate_q(q_t), self.s_gate_q(q_s)
-        ts_vis = self._fuse(t_vis, s_vis, "vis_fuse")
         query = _tokens(self._fuse(q_t, q_s, "f_fuse"))
 
         m = l_mask.to(x.dtype)[:, :, None]
@@ -174,11 +188,13 @@ class SepTPWAM(nn.Module):
             lang = self.W(lang)
         mm = _tokens(ts_vis) * lang
         if cfg.mm_single_conv:
-            return _tokens(self.project_mm(_volume(mm, dhw)))
+            return _tokens(self.project_mm(_volume(mm, dhw), generator))
         if cfg.mm_t3x3_s1x1:
             mm3d = _volume(mm, dhw)
-            return _tokens(self.project_mm_t(mm3d) + self.project_mm_s(mm3d))
-        return self.project_mm(mm)
+            return _tokens(self.project_mm_t(mm3d, generator)
+                           + self.project_mm_s(mm3d, generator))
+        return dropout(self.project_mm(mm), self.dropout, self.training,
+                       generator)
 
 
 class ClipPWAM(PWAM):
@@ -192,13 +208,14 @@ class ClipPWAM(PWAM):
 
 
 def build_tpwam(cfg: TPWAMConfig, dim: int, num_heads: int,
-                lang_dim: int = 768) -> nn.Module:
+                lang_dim: int = 768, dropout: float = 0.0) -> nn.Module:
     """The 3D fusion module of one video stage: SepTPWAM or the clip-wide
-    2D PWAM; the other variants are in the long-tail slice."""
+    2D PWAM, with `dropout` (`fusion.dropout`) in training; the other
+    variants are in the long-tail slice."""
     if cfg.kind == TPWAMKind.SEP:
-        return SepTPWAM(dim, lang_dim, num_heads, cfg)
+        return SepTPWAM(dim, lang_dim, num_heads, cfg, dropout)
     if cfg.kind == TPWAMKind.PWAM2D:
-        return ClipPWAM(dim, lang_dim, num_heads)
+        return ClipPWAM(dim, lang_dim, num_heads, dropout=dropout)
     raise NotImplementedError(
         f"3D PWAM kind {cfg.kind.value!r}: only SepTPWAM and the 2D PWAM are "
         "ported; the other variants are in the long-tail slice (ROADMAP.md "

@@ -46,7 +46,8 @@ SIGNATURES = {
     "lavt_colsum_bf16": (P, P, P, I, I, I, I, P),
     "lavt_mlp_bwd_rows": (I, I),
     "lavt_mlp_bwd": (P,) * 8 + (I,) + (P,) * 8 + (I, I, I, I, F, P),
-    "lavt_window_attn": (P,) * 6 + (I,) * 6 + (F, P),
+    "lavt_window_attn": (P,) * 7 + (I,) * 6 + (F, P),
+    "lavt_window_attn_bwd": (P,) * 13 + (I,) * 7 + (F, P),
     "lavt_window_msa_np": (P,) * 6 + (I,) * 6 + (F, P),
 }
 

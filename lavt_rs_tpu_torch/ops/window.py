@@ -57,9 +57,11 @@ def _shift_mask_cached(hp: int, wp: int, ws: int, shift: int,
 
 
 def shift_mask_2d(hp: int, wp: int, ws: int, shift: int,
-                  device="cpu") -> Optional[torch.Tensor]:
+                  device) -> Optional[torch.Tensor]:
     """Additive (nW, N, N) f32 SW-MSA mask (0 / -100) for padded size
-    (hp, wp), built once per shape and device; None when shift == 0."""
+    (hp, wp), built once per shape and device; None when shift == 0.  The
+    device is required: the mask belongs beside the activations (at
+    video stage 1 the 3D mask is 199 MB)."""
     if shift == 0:
         return None
     return _shift_mask_cached(hp, wp, ws, shift, torch.device(device))
@@ -159,9 +161,10 @@ def _shift_mask_3d_cached(dp, hp, wp, ws, ss, device) -> torch.Tensor:
 
 
 def shift_mask_3d(dp: int, hp: int, wp: int, ws, ss,
-                  device="cpu") -> Optional[torch.Tensor]:
+                  device) -> Optional[torch.Tensor]:
     """Additive (nW, N, N) f32 mask (0 / -100) of the shifted 3D windows,
-    built once per shape and device; None when no dim is shifted."""
+    built once per shape and device (required, as for `shift_mask_2d`);
+    None when no dim is shifted."""
     ws, ss = tuple(int(v) for v in ws), tuple(int(v) for v in ss)
     if not any(ss):
         return None
@@ -254,11 +257,11 @@ def _grouped_cached(d, h, w, dp, hp, wp, ws, ss, n_p, device):
 
 
 def partition_3d_groups(d: int, h: int, w: int, dp: int, hp: int, wp: int,
-                        ws, ss, n_p: int, device="cpu"):
+                        ws, ss, n_p: int, device):
     """(nu, mask_small or None) of the grouped partition: nu unmasked
     windows first, then the masked ones under the (nW - nu, n_p, n_p)
-    additive mask, zero on the padded rows and columns (the padded keys
-    are killed by the bias)."""
+    additive mask on `device` (required), zero on the padded rows and
+    columns (the padded keys are killed by the bias)."""
     _, _, nu, mask = _grouped_cached(d, h, w, dp, hp, wp, tuple(ws),
                                      tuple(ss), n_p, torch.device(device))
     return nu, mask

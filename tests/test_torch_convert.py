@@ -181,6 +181,15 @@ video = torch.randint(0, 256, (2, 64, 64, 3), dtype=torch.uint8)
 inter, union = clip_iou(video_model, video, ids[0, 0], mask[0, 0], 1,
                         torch.zeros(64, 64, dtype=torch.uint8))
 assert inter.item() == 0 and bool(torch.isfinite(union))
+from lavt_rs_tpu_torch.train.step import make_video_train_step
+video_model = build_model(vcfg, device="cpu",
+                          generator=torch.Generator().manual_seed(0), train=True)
+step = make_video_train_step(video_model, *create_train_state(video_model, tcfg),
+                             tcfg)
+out = step({"video": video[None], "ids": ids[:, 0], "mask": mask[:, 0],
+            "target": torch.zeros(1, 64, 64, dtype=torch.long),
+            "valid_index": torch.tensor([1])}, torch.Generator().manual_seed(1))
+assert bool(torch.isfinite(out["loss"]))
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax")
        and sys.modules[m] is not None]
 assert not bad, bad

@@ -1,4 +1,4 @@
-"""The hand-written CUDA kernels (K1-K8, K10, K2p) against their plain
+"""The hand-written CUDA kernels (K1-K10, K2p) against their plain
 PyTorch versions, on the card.  Marked `cuda`; every test skips without a CUDA device.
 
 Runs without JAX (the repo's conftest imports it), so on the GPU machine:
@@ -41,8 +41,9 @@ from lavt_rs_tpu_torch.ops.window import (partition_3d_groups,
                                           relative_position_index_2d,
                                           relative_position_index_3d,
                                           shift_mask_2d)
-from lavt_rs_tpu_torch.ops.window_attn import (window_attention,
-                                               window_attention_plain)
+from lavt_rs_tpu_torch.ops.window_attn import (
+    attention_core_bwd, attention_core_bwd_plain, window_attention,
+    window_attention_plain, window_attention_save, window_attention_save_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -342,3 +343,88 @@ def test_video_kernels_refuse_what_they_do_not_take(dev):
     with pytest.raises(ValueError):  # 392 is not a multiple of 16
         fused_window_msa_grouped(x, *w, torch.zeros((3, 392, 392), device=dev),
                                  None, 2, 3, 32 ** -0.5)
+
+
+# K9 and K10's save mode at every video stage's shape of an 8-frame 480²
+# clip (stage 1 shifted: 324 windows, 35 of them masked), a 4-frame clip's
+# N = 196 and window-7's N = 49
+VIDEO_BWD_SHAPES = [(324, 3, 392, True), (81, 6, 392, False),
+                    (25, 12, 392, True), (9, 24, 392, False),
+                    (9, 24, 196, True), (16, 3, 49, True)]
+
+
+def _video_attn_args(rng, dev, nw, heads, n, masked):
+    q, k, v = (_bf16(rng, (1, nw, heads, n, 32), 1.0, dev) for _ in range(3))
+    bias, mask = _video_bias_mask(rng, dev, heads, n, nw, masked)
+    return q, k, v, bias, mask
+
+
+@pytest.mark.parametrize("nw,heads,n,masked", VIDEO_BWD_SHAPES)
+def test_window_attention_save_mode_kernel(dev, nw, heads, n, masked):
+    """K10's save mode: the output as K10's, each row's log-sum-exp within
+    TOL_P abs + 1e-4 rel (f32 on both sides, from the same bf16 q·scale)."""
+    rng = np.random.default_rng(nw + heads + n + 1)
+    q, k, v, bias, mask = _video_attn_args(rng, dev, nw, heads, n, masked)
+    o, lse = window_attention_save(q, k, v, bias, mask, 32 ** -0.5)
+    o_p, lse_p = window_attention_save_plain(q, k, v, bias, mask, 32 ** -0.5)
+    _close(o, o_p, TOL_MSA)
+    assert lse.shape == (1, nw, heads, n) and lse.dtype == torch.float32
+    err = (lse - lse_p).abs()
+    assert bool((err <= TOL_P + 1e-4 * lse_p.abs()).all()), err.max().item()
+
+
+@pytest.mark.parametrize("nw,heads,n,masked", VIDEO_BWD_SHAPES)
+def test_attention_core_bwd_kernel(dev, nw, heads, n, masked):
+    """K9 on K10's saved output and lse against the plain backward on the
+    same output: dq/dk/dv within TOL_DX of their scale, dbias by relative
+    Frobenius."""
+    rng = np.random.default_rng(nw + heads + n + 2)
+    q, k, v, bias, mask = _video_attn_args(rng, dev, nw, heads, n, masked)
+    scale = 32 ** -0.5
+    o, lse = window_attention_save(q, k, v, bias, mask, scale)
+    do = _bf16(rng, q.shape, 1.0, dev)
+    got = attention_core_bwd(q, k, v, bias, mask, do, scale, o, lse)
+    want = attention_core_bwd_plain(q, k, v, bias, mask, do, scale, o)
+    for g, w in zip(got[:3], want[:3]):
+        assert g.shape == q.shape and g.dtype == torch.bfloat16
+        _close_scaled(g, w, TOL_DX)
+    assert got[3].shape == (heads, n, n) and got[3].dtype == torch.float32
+    _rel_frob(got[3], want[3], TOL_GRAD)
+    again = attention_core_bwd(q, k, v, bias, mask, do, scale, o, lse)
+    for g, a in zip(got, again):  # fixed-order sums: the same bits
+        assert torch.equal(g, a)
+
+
+def test_window_attention_function_on_the_card(dev):
+    """Autograd through window_attention launches K10 (save mode) once and
+    K9 once, and its grads agree with autograd through the plain version."""
+    rng = np.random.default_rng(3)
+    args = _video_attn_args(rng, dev, 9, 24, 392, True)
+    do = _bf16(rng, args[0].shape, 1.0, dev)
+    grads = []
+    for fn in (window_attention, window_attention_plain):
+        leaves = [t.detach().requires_grad_() for t in args[:4]]
+        n10, n9 = window_attention.launches, attention_core_bwd.launches
+        out = fn(*leaves, args[4], 32 ** -0.5)
+        grads.append(torch.autograd.grad(out, leaves, do))
+        if fn is window_attention:
+            assert window_attention.launches == n10 + 1
+            assert attention_core_bwd.launches == n9 + 1
+    for i, (g, w) in enumerate(zip(*grads)):
+        if i < 3:
+            _close_scaled(g, w, TOL_DX)
+        else:
+            _rel_frob(g, w, TOL_GRAD)
+
+
+def test_attention_core_bwd_refuses_what_it_does_not_take(dev):
+    rng = np.random.default_rng(6)
+    q = _bf16(rng, (1, 2, 2, 392, 32), 1.0, dev)
+    bias = torch.zeros((2, 392, 392), device=dev)
+    o, lse = window_attention_save(q, q, q, bias, None)
+    with pytest.raises(ValueError):  # no saved output and lse
+        attention_core_bwd(q, q, q, bias, None, q)
+    with pytest.raises(TypeError):  # f32 gradient
+        attention_core_bwd(q, q, q, bias, None, q.float(), None, o, lse)
+    with pytest.raises(ValueError):  # lse of another shape
+        attention_core_bwd(q, q, q, bias, None, q, None, o, lse[:, :1])

@@ -38,12 +38,13 @@ def test_window_partition_reverse_and_roll(rng, h, w, ws, shift):
 @pytest.mark.parametrize("hp,wp,ws,shift", [(24, 24, 12, 6), (36, 36, 12, 6),
                                             (24, 36, 12, 6), (14, 14, 7, 3)])
 def test_shift_mask_2d(hp, wp, ws, shift):
-    got = window.shift_mask_2d(hp, wp, ws, shift)
+    got = window.shift_mask_2d(hp, wp, ws, shift, "cpu")
     want = np.asarray(jwin.shift_mask_2d(hp, wp, ws, shift))
     assert got.dtype == torch.float32
     np.testing.assert_array_equal(got.numpy(), want)
-    assert window.shift_mask_2d(hp, wp, ws, 0) is None
-    assert window.shift_mask_2d(hp, wp, ws, shift) is got  # cached per shape
+    assert window.shift_mask_2d(hp, wp, ws, 0, "cpu") is None
+    # cached per shape and device
+    assert window.shift_mask_2d(hp, wp, ws, shift, "cpu") is got
 
 
 @pytest.mark.parametrize("ws,heads", [(12, 4), (7, 3)])

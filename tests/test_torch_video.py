@@ -85,7 +85,7 @@ def test_get_window_size_3d(size):
     (4, 14, 14, (4, 7, 7), (2, 3, 3)), (8, 21, 21, (8, 7, 7), (0, 3, 3)),
     (4, 14, 14, (4, 7, 7), (0, 0, 0))])
 def test_shift_mask_3d(dp, hp, wp, ws, ss):
-    got = window.shift_mask_3d(dp, hp, wp, ws, ss)
+    got = window.shift_mask_3d(dp, hp, wp, ws, ss, "cpu")
     want = jwin.shift_mask_3d(dp, hp, wp, ws, ss)
     if want is None:
         assert got is None
@@ -117,7 +117,8 @@ def test_grouped_partition_3d(rng, d, h, w, ws, ss):
                                                     ss, n_p)
     for g, wa in zip(got, want):
         np.testing.assert_array_equal(np.asarray(g), np.asarray(wa))
-    nu, mask = window.partition_3d_groups(d, h, w, dp, hp, wp, ws, ss, n_p)
+    nu, mask = window.partition_3d_groups(d, h, w, dp, hp, wp, ws, ss, n_p,
+                                          "cpu")
     jnu, jmask = jwin.partition_3d_groups(d, h, w, dp, hp, wp, ws, ss, n_p)
     assert nu == jnu
     if jmask is None:
@@ -233,7 +234,8 @@ def test_swin_block3d(rng, monkeypatch, route, geom):
     params = random_variables(shapes["params"], np.random.default_rng(geom))
     with pltpu.force_tpu_interpret_mode():
         want = jblk.apply({"params": params}, jnp.asarray(x))
-    blk = swin3d.SwinBlock3D(c, heads, ws, ss, grouped=route == "grouped")
+    blk = swin3d.SwinBlock3D(c, heads, ws, ss,
+                             grouped=route == "grouped").eval()
     blk.load_state_dict(_block_state_dict(params), strict=False)
     ws_, _ = window.get_window_size_3d((d, h, w), ws, ss)
     n = ws_[0] * ws_[1] * ws_[2]
@@ -377,5 +379,12 @@ def test_video_plain_route_equals_kernel_route_on_cpu(video_pair):
 
 
 def test_video_training_not_ported():
-    with pytest.raises(NotImplementedError, match="slice 4b"):
-        build_model(C.lavt_video_tiny(), device="cpu", train=True)
+    """build_model(train=True) for lavt_video (the name dates from when it
+    raised): a model in train mode with f32 parameters on the CPU."""
+    cfg = C.lavt_video_tiny().replace(swin=C.SwinConfig(**SWIN),
+                                      bert=C.BertConfig(**BERT))
+    assert cfg.dtype == "bfloat16"
+    m = build_model(cfg, device="cpu", train=True)
+    assert m.training and all(mod.training for mod in m.modules())
+    assert {p.dtype for p in m.parameters()} == {torch.float32}
+    assert {p.device.type for p in m.parameters()} == {"cpu"}
