@@ -19,15 +19,33 @@
    for a forward, autograd backward through that chain for a backward)
    are timed with CUDA events, and each call's bound (the larger of its
    bytes over 3.35 TB/s and its operations over 989 TFLOP/s) is printed
-   beside its time.
+   beside its time.  K11 (the window MSA over a padded, pre-rolled
+   feature map) is checked at stages 3 and 4, unshifted and shifted, on a
+   non-square map and at the stage-1/2 shapes, and timed beside its
+   bound, its plain version, an SDPA chain (partition, linear,
+   `scaled_dot_product_attention`, linear, reverse) and the route it
+   replaces (window_partition -> K2 -> window_reverse).
 3. Inference main path: lavt_one Swin-B / window 12 / 480² / 12-layer
    BERT in bf16 from seeded random weights (`main_path_model`) answers
    three batches of 8 RefCOCO-style requests (uint8 images, 20 token ids
    with padded masks, packed targets) through `eval.refcoco_eval.fwd_iou`.
-   The kernels' launch counters must show every routed call.  One batch's
+   The kernels' launch counters must show every routed call (K1 in the 4
+   unpadded blocks of stages 1-2, K11 in the 20 padded blocks of stages
+   3-4, K3 in all 24, K4 4; K2 none: it stays on the training path).  One
+   batch's
    logits are checked against the same weights run through the plain path
    in f32.  Then the bf16 forward at batch 8 is timed, with the kernels
    and with the plain versions.
+3b. RefCOCO eval main path: a synthetic RefCOCO split (48 val refs of
+   1-3 sentences, 640x480 JPEGs with polygon masks, a vocab.txt) written
+   to a temporary directory and the same weights saved as a reference
+   .pth; `lavt_rs_tpu_torch.cli.test.main` evaluates it in process
+   (--window12, 480², bf16, the kernels): its Final line, the launch
+   counts per device batch (as the inference forward), sentences/s and
+   ms per device batch; a warm rerun of `evaluate`, one batch under
+   `torch.profiler` (device busy, idle share), and the gate: the first
+   batch's argmax against the f32 plain model (the pixel gate below),
+   and both models' summaries and their differences.
 4. Video phase: K10 (attention on pre-projected heads) at the stage-2..4
    shapes of an 8-frame 480² clip (N = 392) and at N = 196, K2p (the
    padded fused MSA) at the stage-1 shape, maskless and grouped, each
@@ -100,7 +118,8 @@ LOSS_RTOL, MIN_COS = 1e-2, 0.98
 MARGIN, MIN_AGREE = 0.05, 0.995
 # H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor cores, HBM3
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
-NAMES = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K10", "K2p", "K9")
+NAMES = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K10", "K2p", "K9",
+         "K11")
 REPLACES = {
     "K1": "lavt_rs_tpu/ops/pallas/fused_msa.py:1415",
     "K2": "lavt_rs_tpu/ops/pallas/fused_msa.py:1261",
@@ -113,6 +132,7 @@ REPLACES = {
     "K10": "lavt_rs_tpu/ops/pallas/window_attn.py:120",
     "K2p": "lavt_rs_tpu/ops/pallas/fused_msa.py:891",
     "K9": "lavt_rs_tpu/ops/pallas/window_attn.py:292",
+    "K11": "lavt_rs_tpu/ops/pallas/experimental.py:71",
 }
 SOURCES = {
     "K1": "lavt_rs_tpu_torch/csrc/fused_msa.cu",
@@ -126,10 +146,27 @@ SOURCES = {
     "K10": "lavt_rs_tpu_torch/csrc/window_attn.cu",
     "K2p": "lavt_rs_tpu_torch/csrc/window_attn.cu",
     "K9": "lavt_rs_tpu_torch/csrc/window_attn.cu",
+    "K11": "lavt_rs_tpu_torch/csrc/fused_msa.cu",
 }
 # Swin-B at 480²: (tokens per side, C, heads, blocks) per stage
 STAGES = ((120, 128, 4, 2), (60, 256, 8, 2), (30, 512, 16, 18),
           (15, 1024, 32, 2))
+# launches per inference forward: K1 in the 4 unpadded blocks of stages
+# 1-2, K11 in the 20 padded blocks of stages 3-4 (K2 only in training)
+INFER_PER_FORWARD = {"K1": 4, "K11": 20, "K3": 24, "K4": 4}
+# K11 at the map shapes of a bs-8 forward: (B, Hp, Wp, C, heads, shifted,
+# calls per forward); stages 1-2 (unpadded, they keep K1) and a non-square
+# map are checked and timed, not on the path
+K11_CASES = ((8, 36, 36, 512, 16, False, 9), (8, 36, 36, 512, 16, True, 9),
+             (8, 24, 24, 1024, 32, False, 1), (8, 24, 24, 1024, 32, True, 1),
+             (2, 36, 24, 256, 8, True, 0), (8, 120, 120, 128, 4, False, 0),
+             (8, 60, 60, 256, 8, False, 0))
+# the eval phase's synthetic RefCOCO: val refs, images, sentences per ref
+EVAL_REFS, EVAL_IMAGES, EVAL_MAX_SENTENCES = 48, 16, 3
+EVAL_WORDS = ("the", "a", "man", "woman", "dog", "cat", "left", "right",
+              "red", "blue", "shirt", "on", "in", "near", "big", "small",
+              "person", "car", "chair", "table", "white", "black", "middle",
+              "front", "back", "guy", "girl", "with", "hat", "bike")
 # launches per training step (batch 8; at batch 16 stage 1 takes K6)
 TRAIN_PER_STEP = {"K1": 4, "K2": 20, "K3": 1, "K4": 4, "K5": 24, "K6": 0,
                   "K7": 24, "K8": 23}
@@ -344,7 +381,8 @@ class Results:
 
     def __init__(self):
         self.r = {k: dict(err=0.0, ms=0.0, plain=0.0, lib=0.0, bound=0.0,
-                          ops=0.0, mem=0.0) for k in NAMES + ("save", "K10s")}
+                          ops=0.0, mem=0.0, replaced=0.0)
+                  for k in NAMES + ("save", "K10s")}
 
     def add(self, name, calls, err, tk, tp, tb, work):
         r = self.r[name]
@@ -512,6 +550,79 @@ def kernel_phases(dev):
     return res
 
 
+def torch_bf16_msa_2d(x, wqkv, bqkv, wproj, bproj, am, heads, scale, ws=12):
+    """K11's function as a bf16 PyTorch chain: window partition, linear,
+    one `scaled_dot_product_attention` with the bias and the mask as one
+    bf16 additive mask `am` (nW, h, N, N), linear, window reverse (timing
+    baseline only)."""
+    import torch.nn.functional as F
+
+    from lavt_rs_tpu_torch.ops.window import window_partition, window_reverse
+
+    b, hp, wp, c = x.shape
+    nw, n = (hp // ws) * (wp // ws), ws * ws
+    xw = window_partition(x, ws).view(b, nw, n, c)
+    qkv = F.linear(xw, wqkv, bqkv).view(b, nw, n, 3, heads, c // heads)
+    q, k, v = qkv.permute(3, 0, 1, 4, 2, 5)
+    o = F.scaled_dot_product_attention(q, k, v, attn_mask=am, scale=scale)
+    y = F.linear(o.transpose(2, 3).reshape(b * nw, n, c), wproj, bproj)
+    return window_reverse(y, ws, hp, wp)
+
+
+def k11_kernel_phase(dev, res):
+    """K11 against its plain version at the map shapes of a bs-8 forward
+    (K11_CASES), timed beside its bound, its plain version, the SDPA chain
+    and the route it replaces (window_partition -> K2 -> window_reverse);
+    per forward into `res`."""
+    import torch
+
+    from lavt_rs_tpu_torch.ops import fused_msa, fused_msa_2d
+    from lavt_rs_tpu_torch.ops.window import (relative_bias_from_table,
+                                              relative_position_index_2d,
+                                              shift_mask_2d, window_partition,
+                                              window_reverse)
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 20)
+
+    def rnd(shape, std=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * std).bfloat16()
+
+    index = torch.from_numpy(relative_position_index_2d(12, 12)).to(dev)
+    for b, hp, wp, c, heads, shift, calls in K11_CASES:
+        nw = (hp // 12) * (wp // 12)
+        x = rnd((b, hp, wp, c))
+        w = (rnd((3 * c, c), c ** -0.5), rnd((3 * c,), 0.2),
+             rnd((c, c), c ** -0.5), rnd((c,), 0.2))
+        bias = relative_bias_from_table(
+            torch.randn((23 * 23, heads), generator=g, device=dev), index)
+        mask = shift_mask_2d(hp, wp, 12, 6, dev) if shift else None
+        sc = (c // heads) ** -0.5
+        args = (x, *w, bias, mask, heads, sc, 12)
+        am = sdpa_mask(bias, mask, nw)
+
+        def replaced(x=x, w=w, bias=bias, mask=mask, heads=heads, sc=sc):
+            xw = window_partition(x, 12).view(x.shape[0], -1, 144, x.shape[3])
+            y = fused_msa.fused_window_msa(xw, *w, bias, mask, heads, sc)
+            return window_reverse(y.view(-1, 144, x.shape[3]), 12,
+                                  *x.shape[1:3])
+
+        what = (f"x{tuple(x.shape)} heads {heads} mask {shift}"
+                + ("" if calls else " (off the path)"))
+        measure(res, "K11", what, calls,
+                lambda a=args: fused_msa_2d.fused_window_msa_2d(*a),
+                lambda a=args: fused_msa_2d.fused_window_msa_2d_plain(*a),
+                lambda x=x, w=w, am=am, heads=heads, sc=sc: torch_bf16_msa_2d(
+                    x, *w, am, heads, sc),
+                msa_work(b, nw, c, heads, "fwd", mask=shift),
+                lambda name, got, want: compare(name, got, want, TOL["K2"]))
+        tr = cuda_time_ms(replaced)
+        res.r["K11"]["replaced"] += calls * tr
+        log(f"K11 {what}: the route it replaces (partition, K2, reverse) "
+            f"{tr:.4f} ms")
+        del x, am, args
+        torch.cuda.empty_cache()
+
+
 # -- the main paths -------------------------------------------------------------
 
 def main_path_model(dev, g):
@@ -587,6 +698,8 @@ def train_batch(dev, g, batch):
 def counters():
     from lavt_rs_tpu_torch.ops import fused_mlp, fused_msa, ln, window_attn
 
+    from lavt_rs_tpu_torch.ops import fused_msa_2d
+
     return {"K1": fused_msa.fused_window_msa_ln,
             "K2": fused_msa.fused_window_msa,
             "K3": fused_mlp.fused_ln_mlp, "K4": ln.layer_norm_rows,
@@ -596,7 +709,8 @@ def counters():
             "K8": fused_mlp.fused_ln_mlp_droppath,
             "K10": window_attn.window_attention,
             "K2p": fused_msa.fused_window_msa_grouped,
-            "K9": window_attn.attention_core_bwd}
+            "K9": window_attn.attention_core_bwd,
+            "K11": fused_msa_2d.fused_window_msa_2d}
 
 
 def zero_counts():
@@ -634,9 +748,7 @@ def inference(dev, card, model):
     torch.cuda.synchronize()
     launches = read_counts()
     log(f"inference launches over {N_REQUESTS} batches of {BATCH}: {launches}")
-    check_counts("inference", launches,
-                 {"K1": 4, "K2": 20, "K3": 24, "K4": 4, "K5": 0, "K6": 0,
-                  "K7": 0, "K8": 0}, N_REQUESTS)
+    check_counts("inference", launches, INFER_PER_FORWARD, N_REQUESTS)
     for inter, union in results:
         if inter.shape != (BATCH, 1) or not bool(torch.isfinite(union).all()):
             raise RuntimeError("fwd_iou: bad inter/union")
@@ -681,6 +793,205 @@ def inference(dev, card, model):
         f"{BATCH * 1000 / ms:.2f} img/s (mean of {iters}); plain versions "
         f"(bf16 weights, f32 math, TF32 off): {plain_ms:.3f} ms/step, "
         f"{BATCH * 1000 / plain_ms:.2f} img/s (mean of {plain_iters})  [{card}]")
+    return launches
+
+
+def write_refcoco(root, rng):
+    """A synthetic RefCOCO split under `root`, laid out as REFER reads it:
+    `refcoco/refs(unc).p`, `refcoco/instances.json`, COCO-sized 640x480
+    JPEGs under `images/mscoco/images/train2014/`, and a `vocab.txt`
+    covering every word.  EVAL_REFS val refs of 1-EVAL_MAX_SENTENCES
+    sentences, each referring to one polygon annotation."""
+    import pickle
+
+    import numpy as np
+    from PIL import Image
+
+    h, w = 480, 640
+    img_dir = os.path.join(root, "images", "mscoco", "images", "train2014")
+    os.makedirs(img_dir)
+    os.makedirs(os.path.join(root, "refcoco"))
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    images, annotations, refs = [], [], []
+    for i in range(EVAL_IMAGES):
+        f = rng.uniform(0.01, 0.05, 3)
+        smooth = np.stack([np.sin(xx * f[0] + yy * f[1] + i),
+                           np.cos(yy * f[2] - xx * f[0]),
+                           np.sin((xx + yy) * f[1] * 0.5)], -1)
+        img = (127.5 + 100 * smooth + rng.normal(0, 12, (h, w, 3)))
+        name = f"COCO_train2014_{i:012d}.jpg"
+        Image.fromarray(img.clip(0, 255).astype(np.uint8)).save(
+            os.path.join(img_dir, name), quality=90)
+        images.append({"id": i, "file_name": name, "height": h, "width": w})
+    for j in range(EVAL_REFS):
+        cx, cy = rng.uniform(120, w - 120), rng.uniform(100, h - 100)
+        ang = np.sort(rng.uniform(0, 2 * np.pi, 8))
+        rad = rng.uniform(30, 110, 8)
+        poly = np.stack([cx + rad * np.cos(ang), cy + rad * np.sin(ang)], 1)
+        annotations.append({
+            "id": 1000 + j, "image_id": j % EVAL_IMAGES, "category_id": 1,
+            "segmentation": [np.round(poly, 2).ravel().tolist()],
+            "area": 0, "bbox": [0, 0, 0, 0], "iscrowd": 0})
+        sents = [" ".join(rng.choice(EVAL_WORDS, int(rng.integers(2, 9))))
+                 for _ in range(1 + j % EVAL_MAX_SENTENCES)]
+        refs.append({"ref_id": j, "ann_id": 1000 + j,
+                     "image_id": j % EVAL_IMAGES, "category_id": 1,
+                     "split": "val",
+                     "sentences": [{"raw": s, "sent": s, "sent_id": 10 * j + k}
+                                   for k, s in enumerate(sents)],
+                     "sent_ids": [10 * j + k for k in range(len(sents))]})
+    with open(os.path.join(root, "refcoco", "refs(unc).p"), "wb") as fh:
+        pickle.dump(refs, fh)
+    with open(os.path.join(root, "refcoco", "instances.json"), "w") as fh:
+        json.dump({"images": images, "annotations": annotations,
+                   "categories": [{"id": 1, "name": "object"}]}, fh)
+    vocab = os.path.join(root, "vocab.txt")
+    with open(vocab, "w") as fh:
+        fh.write("\n".join(("[PAD]", "[UNK]", "[CLS]", "[SEP]") + EVAL_WORDS)
+                 + "\n")
+    return vocab
+
+
+def batch_logits(model, image, ids, mask):
+    """The model's logits on every (ref, sentence) pair of an eval batch,
+    as `fwd_iou` runs it."""
+    import torch
+
+    from lavt_rs_tpu_torch.ops.norm import maybe_normalize_image
+
+    r, s = ids.shape[:2]
+    h, w = image.shape[1:3]
+    img = maybe_normalize_image(image)[:, None].expand(r, s, h, w, 3)
+    with torch.no_grad():
+        return model(img.reshape(r * s, h, w, 3), ids.reshape(r * s, -1),
+                     mask.reshape(r * s, -1)).view(r, s, h, w, -1)
+
+
+def eval_phase(dev, card, weights):
+    """The RefCOCO `test` entry point on a synthetic split: the CLI in
+    process from a .pth of `weights` (launch counts, the Final line,
+    sentences/s), a warm rerun of `evaluate`, one batch under the
+    profiler, and the gate against the f32 plain model.  Returns the
+    launch counts of the CLI's run."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from lavt_rs_tpu_torch.cli import test as cli_test
+    from lavt_rs_tpu_torch.config import lavt_one_base
+    from lavt_rs_tpu_torch.data.refcoco import ReferDataset
+    from lavt_rs_tpu_torch.data.refer import REFER
+    from lavt_rs_tpu_torch.eval import refcoco_eval
+    from lavt_rs_tpu_torch.models.factory import build_model
+    from lavt_rs_tpu_torch.text.tokenizer import WordPieceTokenizer
+
+    with tempfile.TemporaryDirectory() as root:
+        vocab = write_refcoco(root, np.random.default_rng(SEED + 30))
+        ckpt = os.path.join(root, "lavt_one_base.pth")
+        torch.save({"model": weights}, ckpt)
+        ds = ReferDataset(REFER(root), WordPieceTokenizer.from_vocab_file(vocab),
+                          split="val", img_size=480, max_tokens=TOKENS,
+                          eval_mode=True, host_normalize=False)
+        sentences = sum(len(x) for x in ds.input_ids)
+        s_pad = max(len(x) for x in ds.input_ids)
+        rb = -(-refcoco_eval.SENTENCES_PER_BATCH // s_pad)
+        batches = -(-len(ds) // rb)
+        log(f"eval: {len(ds)} refs, {sentences} sentences, S = {s_pad}, "
+            f"{rb} refs ({rb * s_pad} sentences) per device batch, "
+            f"{batches} batches")
+
+        # the CLI, its evaluate timed on the wall clock (it ends in a sync)
+        evaluate, seconds = refcoco_eval.evaluate, []
+
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = evaluate(*a, **kw)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            return out
+
+        argv = ["--window12", "--img_size", "480", "--refer_data_root", root,
+                "--dataset", "refcoco", "--splitBy", "unc", "--split", "val",
+                "--vocab", vocab, "--checkpoint", ckpt, "--device", str(dev)]
+        err = io.StringIO()
+        zero_counts()
+        refcoco_eval.evaluate = timed
+        try:
+            with contextlib.redirect_stderr(err):
+                summary = cli_test.main(argv)
+        finally:
+            refcoco_eval.evaluate = evaluate
+        launches = read_counts()
+        for line in err.getvalue().splitlines():
+            log(f"cli: {line}")
+        log(f"eval launches over {batches} batches: {launches}")
+        check_counts("eval", launches, INFER_PER_FORWARD, batches)
+        if sorted(summary) != sorted(["mIoU", "oIoU"] + [
+                f"P@{t}" for t in (0.5, 0.6, 0.7, 0.8, 0.9)]):
+            raise RuntimeError(f"eval: bad summary {summary}")
+        if not all(math.isfinite(v) and 0 <= v <= 100 for v in summary.values()):
+            raise RuntimeError(f"eval: summary out of range {summary}")
+        s_cli = seconds[0]
+        log(f"eval via the CLI (first run, cold): {s_cli:.3f} s, "
+            f"{sentences / s_cli:.2f} sentences/s, "
+            f"{1e3 * s_cli / batches:.3f} ms per device batch  [{card}]")
+
+        model = build_model(lavt_one_base(), dev)
+        model.load_state_dict(weights)
+        quiet = io.StringIO()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        warm = refcoco_eval.evaluate(model, ds, out_stream=quiet)
+        torch.cuda.synchronize()
+        s_warm = time.perf_counter() - t0
+        log(f"eval rerun (warm, evaluate): {s_warm:.3f} s, "
+            f"{sentences / s_warm:.2f} sentences/s, "
+            f"{1e3 * s_warm / batches:.3f} ms per device batch  [{card}]")
+        log(f"eval rerun's summary equals the CLI run's: {warm == summary}")
+
+        first = next(refcoco_eval.ref_batches(ds, range(len(ds)), rb, s_pad))
+        scounts = first[1]
+        image, ids, mask, target = (torch.from_numpy(a).to(dev)
+                                    for a in first[2:])
+        profile_clip(lambda: [t.cpu() for t in refcoco_eval.fwd_iou(
+            model, image, ids, mask, target)], card,
+            f"one eval batch ({rb * s_pad} sentences)")
+
+        # the gate: f32 plain model, same weights, same items
+        got = batch_logits(model, image, ids, mask)
+        del model
+        torch.cuda.empty_cache()
+        ref = build_model(lavt_one_base().replace(dtype="float32",
+                                                  use_kernels=False), dev)
+        ref.load_state_dict(weights)
+        want = batch_logits(ref, image, ids, mask)
+        if not bool(torch.isfinite(got).all()):
+            raise RuntimeError("eval: non-finite logits (padded sentence rows "
+                               "included)")
+        real = torch.zeros(ids.shape[:2], dtype=torch.bool, device=dev)
+        for j, s in enumerate(scounts):
+            real[j, :s] = True
+        got, want = got[real], want[real]
+        sure = (want[..., 1] - want[..., 0]).abs() > MARGIN
+        agree = (got.argmax(-1) == want.argmax(-1))[sure].float().mean().item()
+        log(f"eval first batch, bf16 kernels vs f32 plain: max |dlogit| "
+            f"{(got.float() - want).abs().max().item():.4g}, argmax agreement "
+            f"{agree:.5f} on {sure.float().mean().item():.3f} of the real "
+            f"sentences' pixels (margin > {MARGIN})")
+        if not agree >= MIN_AGREE:
+            raise RuntimeError(f"eval argmax agreement {agree:.5f} < "
+                               f"{MIN_AGREE}")
+        plain = refcoco_eval.evaluate(ref, ds, out_stream=quiet)
+        del ref
+        torch.cuda.empty_cache()
+        log(f"eval summary, bf16 kernels: {summary}")
+        log(f"eval summary, f32 plain:    {plain}")
+        log("eval summary differences (kernels - plain): "
+            + ", ".join(f"{k} {summary[k] - plain[k]:+.4f}" for k in summary))
     return launches
 
 
@@ -1424,6 +1735,12 @@ def main():
             f"{r['ms']:.3f} ms, bound {r['bound']:.3f} ms ({res.bound_by(k)}), "
             f"plain (f32 math) {r['plain']:.3f} ms, library chain "
             f"{r['lib']:.3f} ms")
+    k11_kernel_phase(dev, res)
+    r = res.r["K11"]
+    log(f"K11 per forward (stages 3-4): kernel {r['ms']:.3f} ms, bound "
+        f"{r['bound']:.3f} ms ({res.bound_by('K11')}), plain (f32 math) "
+        f"{r['plain']:.3f} ms, library chain {r['lib']:.3f} ms, the route it "
+        f"replaces (partition, K2, reverse) {r['replaced']:.3f} ms")
     log(f"kernel phases done at {time.perf_counter() - t_start:.1f} s")
 
     # -- inference main path -------------------------------------------------
@@ -1437,6 +1754,11 @@ def main():
     del model
     torch.cuda.empty_cache()
     log(f"inference done at {time.perf_counter() - t_start:.1f} s")
+
+    # -- RefCOCO eval main path: the test CLI on a synthetic split -------------
+    eval_launches = eval_phase(dev, card, weights)
+    torch.cuda.empty_cache()
+    log(f"eval done at {time.perf_counter() - t_start:.1f} s")
 
     # -- video main path (its kernel phases first) ---------------------------------
     video_launches, video_weights = video(dev, card, res)
@@ -1468,8 +1790,9 @@ def main():
     train_launches, big_launches = training(dev, card, weights)
     log(f"training done at {time.perf_counter() - t_start:.1f} s")
 
-    launches = {k: infer_launches[k] for k in ("K1", "K2", "K3", "K4")}
-    launches.update({k: train_launches[k] for k in ("K5", "K7", "K8")})
+    launches = {k: infer_launches[k] for k in ("K1", "K3", "K4")}
+    launches["K11"] = eval_launches["K11"]
+    launches.update({k: train_launches[k] for k in ("K2", "K5", "K7", "K8")})
     launches["K6"] = big_launches["K6"]
     launches.update({k: video_launches[k] for k in ("K10", "K2p")})
     launches["K9"] = video_train_launches["K9"]

@@ -1,9 +1,9 @@
-// K1/K2: fused window multi-head self-attention (W-MSA / SW-MSA).
+// K1/K2/K11: fused window multi-head self-attention (W-MSA / SW-MSA).
 //
 // Replaces lavt_rs_tpu/ops/pallas/fused_msa.py:_fwd_call/_kernel, reached
 // from fused_window_msa_ln (K1, pre-attention LayerNorm fused in: the
 // unpadded stages) and fused_window_msa (K2, no LayerNorm: the padded
-// stages).  Per window of N = 144 tokens and per head (hd = 32):
+// stages in training; at inference they take K11, below).  Per window of N = 144 tokens and per head (hd = 32):
 //   [LN: f32 stats, fast variance E[x^2]-E[x]^2, eps inside rsqrt]
 //   q = (x Wq^T + bq) * scale, k = x Wk^T + bk, v = x Wv^T + bv   (bf16)
 //   P = softmax(q k^T + relbias[h] + mask[window mod nW])          (f32 -> bf16)
@@ -29,6 +29,21 @@
 // blocks (16 warps) share an SM and hide each other's load latency.
 // Global loads and stores move 16 bytes per thread.  No TMA, no wgmma yet.
 //
+// K11 (map order): the same kernel reads its window straight out of a
+// padded, pre-rolled (B, Hp, Wp, C) feature map and writes the head's 32
+// columns of O back at the same map positions, so the partition and the
+// reverse copies around the MSA disappear.  Replaces
+// lavt_rs_tpu/ops/pallas/experimental.py:_fwd_2d/_kernel_2d, whose
+// in-kernel window slices Mosaic rejects on the TPU; on Hopper they are
+// address arithmetic.  A window (b, wy, wx) is 12 runs of 12 C contiguous
+// bf16 (token 12 i + j at ((b Hp + 12 wy + i) Wp + 12 wx + j) C), so the
+// 16-byte loads stay aligned for C a multiple of 8.  The layout is a
+// template parameter: the window-order path (K1/K2) compiles to the same
+// code as before.  The out-projection is per token, so the GEMM that
+// follows runs on O viewed as (B Hp Wp, C) and writes the map directly.
+// The shift mask is indexed by the window's place in the image,
+// wy (Wp/12) + wx, which is window mod nW in both layouts.
+//
 // Save mode (training): with q_out non-null the kernel also writes the
 // training residuals that the backward (fused_msa_bwd.cu, K5) consumes, as
 // the TPU kernel's save=True does: q (post-scale), k and v in bf16 as
@@ -40,7 +55,8 @@
 
 namespace lavt {
 
-constexpr int kN = 144;     // window 12 x 12
+constexpr int kWS = 12;     // window side
+constexpr int kN = kWS * kWS;  // tokens per window
 constexpr int kHD = 32;     // head dim
 constexpr int kKC = 64;     // x columns per chunk
 constexpr int kThreads = 256;
@@ -68,6 +84,10 @@ static_assert(MSA_SMEM <= 113 * 1024, "two blocks per SM");
 constexpr int kQkvTiles = (kN / 16) * (3 * kHD / 16);  // 54
 constexpr int kQkvPerWarp = (kQkvTiles + kWarps - 1) / kWarps;
 
+// kMap false: x and o are (B nW, N, C) windowed tokens (K1/K2).  kMap
+// true: x and o are (B, Hp, Wp, C) maps with nWw = Wp / 12 windows per row
+// and nW / nWw per column (K11; no LN, no save mode).
+template <bool kMap>
 __global__ void __launch_bounds__(kThreads, 2)
 window_msa_attn_kernel(const bf16* __restrict__ x, const bf16* __restrict__ ln_g,
                        const bf16* __restrict__ ln_b, const bf16* __restrict__ wqkv,
@@ -75,7 +95,8 @@ window_msa_attn_kernel(const bf16* __restrict__ x, const bf16* __restrict__ ln_g
                        const float* __restrict__ mask, bf16* __restrict__ o,
                        bf16* __restrict__ q_out, bf16* __restrict__ k_out,
                        bf16* __restrict__ v_out, bf16* __restrict__ p_out,
-                       bf16* __restrict__ xn_out, int nW, int C, float scale, float eps) {
+                       bf16* __restrict__ xn_out, int nW, int nWw, int C, float scale,
+                       float eps) {
   extern __shared__ __align__(128) unsigned char smem[];
   float* ss = reinterpret_cast<float*>(smem);
   bf16* xc = reinterpret_cast<bf16*>(smem);
@@ -88,7 +109,22 @@ window_msa_attn_kernel(const bf16* __restrict__ x, const bf16* __restrict__ ln_g
 
   const int win = blockIdx.x, h = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const bf16* xw = x + static_cast<size_t>(win) * kN * C;
+  // the window's first token, and the offset of token r from it
+  size_t base;
+  size_t ld_run = 0;  // map order: elements between the window's 12 runs
+  if constexpr (kMap) {
+    const int b = win / nW, w = win % nW, wy = w / nWw, wx = w % nWw;
+    ld_run = static_cast<size_t>(nWw) * kWS * C;
+    base = (static_cast<size_t>(b) * (nW / nWw) + wy) * kWS * ld_run +
+           static_cast<size_t>(wx) * kWS * C;
+  } else {
+    base = static_cast<size_t>(win) * kN * C;
+  }
+  auto tok = [&](int r) -> size_t {
+    if constexpr (kMap) return (r / kWS) * ld_run + static_cast<size_t>(r % kWS) * C;
+    else return static_cast<size_t>(r) * C;
+  };
+  const bf16* xw = x + base;
   const bool has_ln = ln_g != nullptr;
 
   // 1. per-row LayerNorm statistics (fast variance, as the TPU kernel)
@@ -96,7 +132,7 @@ window_msa_attn_kernel(const bf16* __restrict__ x, const bf16* __restrict__ ln_g
     for (int r = warp; r < kN; r += kWarps) {
       float s = 0.f, s2 = 0.f;
       for (int c = lane; c < C; c += 32) {
-        const float v = to_f(xw[static_cast<size_t>(r) * C + c]);
+        const float v = to_f(xw[tok(r) + c]);
         s += v;
         s2 += v * v;
       }
@@ -119,7 +155,7 @@ window_msa_attn_kernel(const bf16* __restrict__ x, const bf16* __restrict__ ln_g
     for (int i = threadIdx.x; i < kN * kKC / 8; i += kThreads) {
       const int r = i / (kKC / 8), c = (i % (kKC / 8)) * 8;
       Pack8 v;
-      v.u = *reinterpret_cast<const uint4*>(xw + static_cast<size_t>(r) * C + k0 + c);
+      v.u = *reinterpret_cast<const uint4*>(xw + tok(r) + k0 + c);
       if (has_ln) {
         Pack8 g, b;
         g.u = *reinterpret_cast<const uint4*>(ln_g + k0 + c);
@@ -267,15 +303,24 @@ window_msa_attn_kernel(const bf16* __restrict__ x, const bf16* __restrict__ ln_g
     wmma::store_matrix_sync(os + r * 16 * LDOS + c * 16, acc_o, LDOS, wmma::mem_row_major);
   }
   __syncthreads();
-  bf16* ow = o + static_cast<size_t>(win) * kN * C + h * kHD;
+  bf16* ow = o + base + h * kHD;
   for (int i = threadIdx.x; i < kN * kHD / 8; i += kThreads) {
     const int r = i / (kHD / 8), d = (i % (kHD / 8)) * 8;
     const float* src = os + r * LDOS + d;
     Pack8 v;
 #pragma unroll
     for (int e = 0; e < 4; ++e) v.h[e] = __floats2bfloat162_rn(src[2 * e], src[2 * e + 1]);
-    *reinterpret_cast<uint4*>(ow + static_cast<size_t>(r) * C + d) = v.u;
+    *reinterpret_cast<uint4*>(ow + tok(r) + d) = v.u;
   }
+}
+
+template <bool kMap>
+static cudaError_t prepare_msa_attn() {
+  cudaError_t err = allow_smem(window_msa_attn_kernel<kMap>, MSA_SMEM);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(window_msa_attn_kernel<kMap>,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
 }
 
 }  // namespace lavt
@@ -287,19 +332,35 @@ extern "C" int lavt_window_msa_attn(const void* x, const void* ln_g, const void*
                                     void* xn_out, int Bw, int nW, int C, int heads,
                                     float scale, float eps, void* stream) {
   using namespace lavt;
-  cudaError_t err = allow_smem(window_msa_attn_kernel, MSA_SMEM);
+  cudaError_t err = prepare_msa_attn<false>();
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(window_msa_attn_kernel,
-                             cudaFuncAttributePreferredSharedMemoryCarveout,
-                             cudaSharedmemCarveoutMaxShared);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  window_msa_attn_kernel<<<dim3(Bw, heads), kThreads, MSA_SMEM,
-                           static_cast<cudaStream_t>(stream)>>>(
+  window_msa_attn_kernel<false><<<dim3(Bw, heads), kThreads, MSA_SMEM,
+                                  static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(ln_g),
       static_cast<const bf16*>(ln_b), static_cast<const bf16*>(wqkv),
       static_cast<const bf16*>(bqkv), static_cast<const float*>(relbias),
       static_cast<const float*>(mask), static_cast<bf16*>(o), static_cast<bf16*>(q_out),
       static_cast<bf16*>(k_out), static_cast<bf16*>(v_out), static_cast<bf16*>(p_out),
-      static_cast<bf16*>(xn_out), nW, C, scale, eps);
+      static_cast<bf16*>(xn_out), nW, 1, C, scale, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K11: x and o are (B, Hp, Wp, C) bf16 maps, Hp and Wp multiples of 12;
+// mask (nW, N, N) f32 with nW = (Hp / 12)(Wp / 12), or null.
+extern "C" int lavt_window_msa_2d_attn(const void* x, const void* wqkv, const void* bqkv,
+                                       const void* relbias, const void* mask, void* o,
+                                       int B, int Hp, int Wp, int C, int heads,
+                                       float scale, void* stream) {
+  using namespace lavt;
+  if (Hp % kWS || Wp % kWS || Hp <= 0 || Wp <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = prepare_msa_attn<true>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int nWw = Wp / kWS, nW = (Hp / kWS) * nWw;
+  window_msa_attn_kernel<true><<<dim3(B * nW, heads), kThreads, MSA_SMEM,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(x), nullptr, nullptr, static_cast<const bf16*>(wqkv),
+      static_cast<const bf16*>(bqkv), static_cast<const float*>(relbias),
+      static_cast<const float*>(mask), static_cast<bf16*>(o), nullptr, nullptr, nullptr,
+      nullptr, nullptr, nW, nWw, C, scale, 0.f);
   return static_cast<int>(cudaGetLastError());
 }

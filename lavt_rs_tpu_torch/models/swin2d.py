@@ -7,10 +7,15 @@ NHWC / (B, L, C) tokens throughout.  Parameter names are the reference's
 Routing with `use_kernels` (on a CUDA tensor the wrappers launch the
 hand-written kernels; on a CPU tensor they take their plain versions):
   * the window MSA goes through K1 (`fused_window_msa_ln`, pre-attention LN
-    inside the kernel) where windowing needs no padding, and through K2
-    (`fused_window_msa`) after an explicit LN where it does: the model pads
-    after LN, and LN of a zero pad row would give ln_bias.  At 480² that
-    is K1 at stages 1-2 and K2 at stages 3 (30 -> 36) and 4 (15 -> 24);
+    inside the kernel) where windowing needs no padding.  Where it does,
+    the block runs an explicit LN first (the model pads after LN, and LN
+    of a zero pad row would give ln_bias), pads and rolls the map, and the
+    MSA reads its windows from the (B, Hp, Wp, C) map and writes them back
+    in place through K11 (`fused_msa_2d.fused_window_msa_2d`): no window
+    partition or reverse copy.  At 480² that is K1 at stages 1-2 and K11
+    at stages 3 (30 -> 36) and 4 (15 -> 24).  While autograd records the
+    block (training), the padded stages keep the partition and K2
+    (`fused_window_msa`, through `FusedWindowMSA`);
   * the LN -> MLP -> residual tail goes through K3 (`fused_ln_mlp`) at all
     four stages (the kernel takes C up to 1024);
   * the stage-output norms go through K4 (`layer_norm_rows`).
@@ -37,7 +42,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..config import FusionConfig, FusionKind, GateKind, StageOutput, SwinConfig
-from ..ops import fused_mlp, fused_msa, ln
+from ..ops import fused_mlp, fused_msa, fused_msa_2d, ln
 from ..ops.dropout import drop_path, drop_path_keep
 from ..ops.window import (relative_bias_from_table, relative_position_index_2d,
                           shift_mask_2d, window_partition, window_reverse)
@@ -81,14 +86,33 @@ class WindowAttention(nn.Module):
             self._bias_key = key
         return self._bias
 
-    def forward(self, x, mask=None, ln_params=None):
-        """x: (B, nW, N, C) windowed tokens (pre-LN when ln_params, the
-        block's norm1 (weight, bias), is given); mask (nW, N, N) or None."""
+    def _args(self, x, mask):
         bqkv = self.qkv.bias
         if bqkv is None:
             bqkv = torch.zeros(3 * self.dim, dtype=x.dtype, device=x.device)
-        args = (self.qkv.weight, bqkv, self.proj.weight, self.proj.bias,
+        return (self.qkv.weight, bqkv, self.proj.weight, self.proj.bias,
                 self.relative_bias(), mask, self.num_heads, self.scale)
+
+    def takes_map_route(self, x) -> bool:
+        """Whether a padded block's MSA runs on the map through K11: with
+        the kernels, where `fused_msa.window_msa` would take the forward
+        kernel alone (no autograd recording x or a parameter)."""
+        return self.use_kernels and not (torch.is_grad_enabled() and (
+            x.requires_grad or any(p.requires_grad for p in self.parameters())))
+
+    def forward_map(self, x, mask=None):
+        """K11: x (B, Hp, Wp, C) post-LN, padded and pre-rolled map ->
+        the projected attention at the same positions."""
+        dt = x.dtype
+        wqkv, bqkv, wproj, bproj, *rest = self._args(x, mask)
+        return fused_msa_2d.fused_window_msa_2d(
+            x, wqkv.to(dt), bqkv.to(dt), wproj.to(dt), bproj.to(dt), *rest,
+            self.window_size)
+
+    def forward(self, x, mask=None, ln_params=None):
+        """x: (B, nW, N, C) windowed tokens (pre-LN when ln_params, the
+        block's norm1 (weight, bias), is given); mask (nW, N, N) or None."""
+        args = self._args(x, mask)
         if self.use_kernels:
             return fused_msa.window_msa(x, ln_params, *args)
         if ln_params is not None:
@@ -142,11 +166,14 @@ class SwinBlock(nn.Module):
         hp, wp = h + pad_b, w + pad_r
         if ss > 0:
             x = torch.roll(x, shifts=(-ss, -ss), dims=(1, 2))
-        nw = (hp // ws) * (wp // ws)
-        xw = window_partition(x, ws).view(b, nw, ws * ws, c)
         mask = shift_mask_2d(hp, wp, ws, ss, x.device)
-        xw = self.attn(xw, mask, ln_params)
-        x = window_reverse(xw.view(b * nw, ws * ws, c), ws, hp, wp)
+        if padded and self.attn.takes_map_route(x):
+            x = self.attn.forward_map(x, mask)
+        else:
+            nw = (hp // ws) * (wp // ws)
+            xw = window_partition(x, ws).view(b, nw, ws * ws, c)
+            xw = self.attn(xw, mask, ln_params)
+            x = window_reverse(xw.view(b * nw, ws * ws, c), ws, hp, wp)
         if ss > 0:
             x = torch.roll(x, shifts=(ss, ss), dims=(1, 2))
         if padded:

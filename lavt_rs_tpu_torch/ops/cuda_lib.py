@@ -40,6 +40,7 @@ SIGNATURES = {
     "lavt_layer_norm_rows": (P, P, P, P, I, I, F, P),
     "lavt_fused_ln_mlp": (P, P, P, P, P, P, P, P, P, I, I, I, I, F, P),
     "lavt_window_msa_attn": (P,) * 13 + (I, I, I, I, F, F, P),
+    "lavt_window_msa_2d_attn": (P,) * 6 + (I,) * 5 + (F, P),
     "lavt_msa_bwd_attn": (P,) * 9 + (I, I, I, I, F, P),
     "lavt_gemm_bf16": (P,) * 5 + (I,) * 9 + (P,),
     "lavt_sum_partials": (P, P, I, L, P),

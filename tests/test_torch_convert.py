@@ -148,7 +148,15 @@ from lavt_rs_tpu_torch.ops import cuda_lib, dropout, fused_mlp, fused_msa, ln
 from lavt_rs_tpu_torch import losses, metrics
 from lavt_rs_tpu_torch.train.optim import TrainConfig
 from lavt_rs_tpu_torch.train.step import create_train_state, make_train_step
+from lavt_rs_tpu_torch.cli import args, test as cli_test
+from lavt_rs_tpu_torch.data import coco_mask, refcoco, refer, transforms
+from lavt_rs_tpu_torch.eval import pipeline
+from lavt_rs_tpu_torch.ops import fused_msa_2d
+from lavt_rs_tpu_torch.text import tokenizer
 import chip_smoke
+summary = cli_test.main(["--synthetic", "--device", "cpu", "--no_bf16",
+                         "--max_items", "1"])
+assert set(summary) >= {"mIoU", "oIoU"}
 cfg = C.ModelConfig(swin=C.SwinConfig(embed_dim=32, depths=(1, 1, 1, 1),
                                       num_heads=(1, 2, 4, 8)),
                     bert=C.BertConfig(vocab_size=50, num_layers=1,

@@ -1,4 +1,4 @@
-"""The hand-written CUDA kernels (K1-K10, K2p) against their plain
+"""The hand-written CUDA kernels (K1-K11, K2p) against their plain
 PyTorch versions, on the card.  Marked `cuda`; every test skips without a CUDA device.
 
 Runs without JAX (the repo's conftest imports it), so on the GPU machine:
@@ -34,13 +34,16 @@ from lavt_rs_tpu_torch.ops.fused_msa import (
     fused_window_msa_bwd_recompute, fused_window_msa_bwd_recompute_plain,
     fused_window_msa_ln, fused_window_msa_ln_plain, fused_window_msa_plain,
     fused_window_msa_save, fused_window_msa_save_plain, pad_bias_sublane)
+from lavt_rs_tpu_torch.ops.fused_msa_2d import (fused_window_msa_2d,
+                                                fused_window_msa_2d_plain)
 from lavt_rs_tpu_torch.ops.ln import layer_norm_rows, layer_norm_rows_plain
 from lavt_rs_tpu_torch.ops.window import (partition_3d_groups,
                                           relative_bias_from_table,
                                           relative_bias_from_table_3d,
                                           relative_position_index_2d,
                                           relative_position_index_3d,
-                                          shift_mask_2d)
+                                          shift_mask_2d, window_partition,
+                                          window_reverse)
 from lavt_rs_tpu_torch.ops.window_attn import (
     attention_core_bwd, attention_core_bwd_plain, window_attention,
     window_attention_plain, window_attention_save, window_attention_save_plain)
@@ -144,6 +147,67 @@ def test_kernels_refuse_what_they_do_not_take(dev):
     xw, w, bias, mask, scale = _msa_args(rng, dev, 1, 24, 128, 4, False)
     with pytest.raises(ValueError):
         fused_window_msa(xw[:, :, :100], *w, bias, mask, 4, scale)  # N != 144
+
+
+def _map_args(rng, dev, b, hp, wp, c, heads, shift):
+    ws, n = 12, 144
+    x = _bf16(rng, (b, hp, wp, c), 1.0, dev)
+    table = torch.from_numpy(rng.standard_normal((23 * 23, heads))
+                             .astype(np.float32)).to(dev)
+    index = torch.from_numpy(relative_position_index_2d(ws, ws)).to(dev)
+    bias = relative_bias_from_table(table, index)
+    mask = shift_mask_2d(hp, wp, ws, ws // 2, dev) if shift else None
+    w = (_bf16(rng, (3 * c, c), c ** -0.5, dev), _bf16(rng, (3 * c,), 0.2, dev),
+         _bf16(rng, (c, c), c ** -0.5, dev), _bf16(rng, (c,), 0.2, dev))
+    return x, w, bias, mask, (c // heads) ** -0.5
+
+
+# stage 3 and 4 at 480² (padded 36² and 24²) and a non-square map, where a
+# swapped window row/column or mask index shows
+K11_CASES = [(512, 16, 36, 36, False), (512, 16, 36, 36, True),
+             (1024, 32, 24, 24, False), (1024, 32, 24, 24, True),
+             (256, 8, 36, 24, True), (256, 8, 24, 36, False)]
+
+
+@pytest.mark.parametrize("c,heads,hp,wp,shift", K11_CASES)
+def test_fused_window_msa_2d_kernel(dev, c, heads, hp, wp, shift):
+    rng = np.random.default_rng(c + hp + 3 * wp)
+    x, w, bias, mask, scale = _map_args(rng, dev, 2, hp, wp, c, heads, shift)
+    got = fused_window_msa_2d(x, *w, bias, mask, heads, scale, 12)
+    want = fused_window_msa_2d_plain(x, *w, bias, mask, heads, scale, 12)
+    assert got.shape == x.shape
+    _close(got, want, TOL_MSA)
+
+
+@pytest.mark.parametrize("c,heads,hp,wp,shift", K11_CASES)
+def test_fused_window_msa_2d_equals_partition_route(dev, c, heads, hp, wp,
+                                                    shift):
+    """K11 shares K2's attention core and GEMM, token for token: its output
+    is bit-equal to partition -> K2 -> reverse on the same bf16 inputs."""
+    rng = np.random.default_rng(c + hp + 3 * wp + 1)
+    x, w, bias, mask, scale = _map_args(rng, dev, 2, hp, wp, c, heads, shift)
+    got = fused_window_msa_2d(x, *w, bias, mask, heads, scale, 12)
+    nw = (hp // 12) * (wp // 12)
+    xw = window_partition(x, 12).view(2, nw, 144, c).contiguous()
+    yw = fused_window_msa(xw, *w, bias, mask, heads, scale)
+    want = window_reverse(yw.view(2 * nw, 144, c), 12, hp, wp)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_fused_window_msa_2d_refuses_what_it_does_not_take(dev):
+    rng = np.random.default_rng(5)
+    x, w, bias, mask, scale = _map_args(rng, dev, 1, 24, 36, 256, 8, True)
+    with pytest.raises(ValueError):  # Hp not a multiple of the window
+        fused_window_msa_2d(x[:, :20].contiguous(), *w, bias, None, 8, scale,
+                            12)
+    with pytest.raises(ValueError):  # a mask of the wrong window count
+        fused_window_msa_2d(x, *w, bias, mask[:3], 8, scale, 12)
+    with pytest.raises(TypeError):  # f32 map
+        fused_window_msa_2d(x.float(), *w, bias, mask, 8, scale, 12)
+    with pytest.raises(ValueError):  # window 7
+        fused_window_msa_2d(x[:, :21, :21].contiguous(), *w, bias, None, 8,
+                            scale, 7)
 
 
 def _close_scaled(got, want, tol):

@@ -117,9 +117,9 @@ def test_plain_route_equals_kernel_route_on_cpu(pair):
 
 @pytest.mark.parametrize("hw", [(6, 6), (24, 24)])
 def test_swin_block_shifted(pair, hw):
-    """layers_2.blocks_1 is a shifted block: at 6x6 it pads to 12 (the K2
-    route, LN outside the MSA), at 24x24 it does not (the K1 route, LN
-    inside the MSA)."""
+    """layers_2.blocks_1 is a shifted block: at 6x6 it pads to 12 (LN
+    outside the MSA; under no_grad the K11 route), at 24x24 it does not
+    (the K1 route, LN inside the MSA)."""
     _, _, variables, pm = pair
     c, heads = 4 * SWIN["embed_dim"], SWIN["num_heads"][2]
     x = np.random.default_rng(3).standard_normal((2, hw[0] * hw[1], c)
