@@ -78,6 +78,33 @@
        those cosines, for the kernel route and for the plain modules under
        bf16 autocast, are printed and not checked.
 
+6. Window 7 (`lavt_one_base(window12=False)`, the CLIs' default): the
+   launch counts of the models' own kernel plan (`kernel_plan`, from the
+   routes the blocks take by the ported predicates) must equal the
+   hand-written ones (window 12's and the video model's too); K10, K10's save mode and K9 at the
+   four window-7 shapes (8, nW, h, 49, 32) against their plain versions,
+   timed beside their bound and an SDPA chain; the bs-8 forward (counts
+   K10 24 / K3 24 / K4 4 per forward, the pixel gate, ms and img/s, a
+   profiler breakdown); the training gate and 10 steps at bs 8 (counts
+   K10 24 / K9 24 / K8 23 / K3 1 / K7 24 / K4 4 per step, falling loss).
+7. The routing cases: the kernels at the widths the routing added (K4 at
+   1536, K3/K8/K7 at 384, K1/K2/save/K5/K6/K11 at 96) against their plain
+   versions with bound / plain / library times; forwards of Swin-T
+   window 7, Swin-T window 12 (480² and 448², K1 and K11 at C = 96),
+   Swin-L window 12 and lavt_video --window12, each with launch counts
+   equal to its model's kernel plan, each route that launches no kernel printed
+   with its reason (every one a route where the JAX package runs XLA), and
+   the pixel gate against the f32 plain model; f32 with the kernels
+   refused before any launch or allocation; one Swin-T window-12 training
+   step at bs 2 (the save mode and K5 at C = 96).
+8. P1 / P2 (the head-batching probe) against their plain version on an
+   input whose softmax is far from uniform (x at std 0.4, 1e-3 abs +
+   2e-2 rel; a kernel writing each window's mean or a copy of x is shown
+   to fail that check), timed at the tool's shapes beside their bound and
+   `scaled_dot_product_attention(scale=1)`; P1 against P2 on the tool's
+   input at its atol 1e-2; then the tool as a user runs it, whose
+   launches the kernels line reports.
+
 Exits non-zero on any failure, without CUDA, or without the package.
 The last two lines are the per-kernel JSON and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -119,7 +146,7 @@ MARGIN, MIN_AGREE = 0.05, 0.995
 # H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor cores, HBM3
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 NAMES = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K10", "K2p", "K9",
-         "K11")
+         "K11", "P1", "P2")
 REPLACES = {
     "K1": "lavt_rs_tpu/ops/pallas/fused_msa.py:1415",
     "K2": "lavt_rs_tpu/ops/pallas/fused_msa.py:1261",
@@ -133,6 +160,8 @@ REPLACES = {
     "K2p": "lavt_rs_tpu/ops/pallas/fused_msa.py:891",
     "K9": "lavt_rs_tpu/ops/pallas/window_attn.py:292",
     "K11": "lavt_rs_tpu/ops/pallas/experimental.py:71",
+    "P1": "tools/probe_headbatch.py:88",
+    "P2": "tools/probe_headbatch.py:92",
 }
 SOURCES = {
     "K1": "lavt_rs_tpu_torch/csrc/fused_msa.cu",
@@ -147,6 +176,8 @@ SOURCES = {
     "K2p": "lavt_rs_tpu_torch/csrc/window_attn.cu",
     "K9": "lavt_rs_tpu_torch/csrc/window_attn.cu",
     "K11": "lavt_rs_tpu_torch/csrc/fused_msa.cu",
+    "P1": "lavt_rs_tpu_torch/csrc/probe_headbatch.cu",
+    "P2": "lavt_rs_tpu_torch/csrc/probe_headbatch.cu",
 }
 # Swin-B at 480²: (tokens per side, C, heads, blocks) per stage
 STAGES = ((120, 128, 4, 2), (60, 256, 8, 2), (30, 512, 16, 18),
@@ -180,6 +211,15 @@ VIDEO_PER_CLIP = {"K10": 10, "K2p": 2}
 # launches per video training step: every 3D block takes K10 (save mode)
 # forward and K9 backward; no K2p in training
 VIDEO_TRAIN_PER_STEP = {"K10": 12, "K9": 12}
+# window-7 Swin-B at 480² (lavt_one_base(window12=False)): (padded tokens
+# per side, C, heads, blocks); every block runs qkv -> K10 -> proj
+W7_STAGES = ((126, 128, 4, 2), (63, 256, 8, 2), (35, 512, 16, 18),
+             (21, 1024, 32, 2))
+W7_INFER_PER_FORWARD = {"K10": 24, "K3": 24, "K4": 4}
+W7_TRAIN_PER_STEP = {"K10": 24, "K9": 24, "K8": 23, "K3": 1, "K7": 24,
+                     "K4": 4}
+# the probe's defaults (tools/probe_headbatch.py): ch, heads, n, hd, grid
+PROBE = (3, 4, 144, 32, 96)
 
 
 def log(*a):
@@ -380,12 +420,17 @@ class Results:
     plain and library ms and the bound."""
 
     def __init__(self):
-        self.r = {k: dict(err=0.0, ms=0.0, plain=0.0, lib=0.0, bound=0.0,
-                          ops=0.0, mem=0.0, replaced=0.0)
-                  for k in NAMES + ("save", "K10s")}
+        self.r = {}
+        for k in NAMES + ("save", "K10s"):
+            self.entry(k)
+
+    def entry(self, name):
+        return self.r.setdefault(name, dict(
+            err=0.0, ms=0.0, plain=0.0, lib=0.0, bound=0.0, ops=0.0, mem=0.0,
+            replaced=0.0))
 
     def add(self, name, calls, err, tk, tp, tb, work):
-        r = self.r[name]
+        r = self.entry(name)
         r["err"] = max(r["err"], err)
         b, _ = bound_ms(work)
         for key, v in (("ms", tk), ("plain", tp), ("lib", tb), ("bound", b),
@@ -699,6 +744,7 @@ def counters():
     from lavt_rs_tpu_torch.ops import fused_mlp, fused_msa, ln, window_attn
 
     from lavt_rs_tpu_torch.ops import fused_msa_2d
+    from lavt_rs_tpu_torch.tools import probe_headbatch as probe
 
     return {"K1": fused_msa.fused_window_msa_ln,
             "K2": fused_msa.fused_window_msa,
@@ -710,7 +756,8 @@ def counters():
             "K10": window_attn.window_attention,
             "K2p": fused_msa.fused_window_msa_grouped,
             "K9": window_attn.attention_core_bwd,
-            "K11": fused_msa_2d.fused_window_msa_2d}
+            "K11": fused_msa_2d.fused_window_msa_2d,
+            "P1": probe.loop_attention, "P2": probe.batch_attention}
 
 
 def zero_counts():
@@ -731,8 +778,9 @@ def check_counts(what, counts, per, times):
                                f"expected {n * times}")
 
 
-def inference(dev, card, model):
-    """The fwd_iou main path, the f32 check and the forward timing;
+def inference(dev, card, model, per_forward=None, what="inference"):
+    """The fwd_iou main path (launches per forward as `per_forward`, by
+    default the window-12 ones), the f32 check and the forward timing;
     returns its launch counts."""
     import torch
 
@@ -747,8 +795,8 @@ def inference(dev, card, model):
     results = [fwd_iou(model, *b) for b in batches]
     torch.cuda.synchronize()
     launches = read_counts()
-    log(f"inference launches over {N_REQUESTS} batches of {BATCH}: {launches}")
-    check_counts("inference", launches, INFER_PER_FORWARD, N_REQUESTS)
+    log(f"{what} launches over {N_REQUESTS} batches of {BATCH}: {launches}")
+    check_counts(what, launches, per_forward or INFER_PER_FORWARD, N_REQUESTS)
     for inter, union in results:
         if inter.shape != (BATCH, 1) or not bool(torch.isfinite(union).all()):
             raise RuntimeError("fwd_iou: bad inter/union")
@@ -774,7 +822,7 @@ def inference(dev, card, model):
     margin = (want[..., 1] - want[..., 0]).abs()
     sure = margin > MARGIN
     agree = (logits.argmax(-1) == want.argmax(-1))[sure].float().mean().item()
-    log(f"bf16 kernel path vs f32 plain path: max |dlogit| "
+    log(f"{what}: bf16 kernel path vs f32 plain path: max |dlogit| "
         f"{(logits - want).abs().max().item():.4g}, logit scale "
         f"{want.abs().max().item():.4g}, argmax agreement {agree:.5f} on "
         f"{sure.float().mean().item():.3f} of pixels (margin > {MARGIN})")
@@ -789,7 +837,7 @@ def inference(dev, card, model):
         plain.load_state_dict(model.state_dict())
         plain_ms = cuda_time_ms(lambda: plain(img, ids[:, 0], mask[:, 0]),
                                 iters=plain_iters, warmup=2)
-    log(f"forward bs {BATCH} bf16 with kernels: {ms:.3f} ms/step, "
+    log(f"{what}: forward bs {BATCH} bf16 with kernels: {ms:.3f} ms/step, "
         f"{BATCH * 1000 / ms:.2f} img/s (mean of {iters}); plain versions "
         f"(bf16 weights, f32 math, TF32 off): {plain_ms:.3f} ms/step, "
         f"{BATCH * 1000 / plain_ms:.2f} img/s (mean of {plain_iters})  [{card}]")
@@ -995,28 +1043,29 @@ def eval_phase(dev, card, weights):
     return launches
 
 
-def train_setup(dev, weights):
-    """lavt_one_base built for training with `weights`, its AdamW and the
-    train step."""
+def train_setup(dev, weights, cfg=None):
+    """`cfg` (lavt_one_base by default) built for training with `weights`,
+    its AdamW and the train step."""
     from lavt_rs_tpu_torch.config import lavt_one_base
     from lavt_rs_tpu_torch.models.factory import build_model
     from lavt_rs_tpu_torch.train.optim import TrainConfig
     from lavt_rs_tpu_torch.train.step import (create_train_state,
                                               make_train_step)
 
-    model = build_model(lavt_one_base(), dev, train=True)
+    model = build_model(cfg or lavt_one_base(), dev, train=True)
     model.load_state_dict(weights)
     tcfg = TrainConfig()
     opt, sched = create_train_state(model, tcfg)
     return make_train_step(model, opt, sched, tcfg)
 
 
-def training(dev, card, weights):
-    """Steps at batch 8 (timed, counted, loss falls) and one at batch 16;
-    returns the launches at batch 8 and at batch 16."""
+def training(dev, card, weights, cfg=None, per_step=None, what="train"):
+    """Steps at batch 8 (timed, counted as `per_step`, by default the
+    window-12 counts; loss falls) and, for the window-12 model, one at
+    batch 16; returns the launches at batch 8 and at batch 16 (None)."""
     import torch
 
-    step = train_setup(dev, weights)
+    step = train_setup(dev, weights, cfg)
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
     batch = train_batch(dev, g, BATCH)
 
@@ -1038,12 +1087,13 @@ def training(dev, card, weights):
     torch.cuda.synchronize()
     launches = read_counts()
     ms = start.elapsed_time(end) / TRAIN_STEPS
-    log(f"train launches over {TRAIN_STEPS} steps of {BATCH}: {launches}")
-    check_counts("train bs 8", launches, TRAIN_PER_STEP, TRAIN_STEPS)
+    log(f"{what} launches over {TRAIN_STEPS} steps of {BATCH}: {launches}")
+    check_counts(f"{what} bs 8", launches, per_step or TRAIN_PER_STEP,
+                 TRAIN_STEPS)
     losses = [o["loss"].item() for o in outs]
     if not all(math.isfinite(v) for v in losses):
         raise RuntimeError(f"non-finite training loss: {losses}")
-    log(f"train bs {BATCH} bf16 (kernels, AdamW, DropPath 0.3, dropout 0.1): "
+    log(f"{what} bs {BATCH} bf16 (kernels, AdamW, DropPath 0.3, dropout 0.1): "
         f"{ms:.3f} ms/step, {BATCH * 1000 / ms:.2f} img/s (mean of "
         f"{TRAIN_STEPS} steps); peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  [{card}]")
@@ -1052,7 +1102,9 @@ def training(dev, card, weights):
         f"{[round(v, 6) for v in losses]}; iou {outs[-1]['iou'].item():.4f}, "
         f"lr {outs[-1]['lr']:.6g}")
     if not losses[-1] < losses[0]:
-        raise RuntimeError("the training loss did not fall")
+        raise RuntimeError(f"{what}: the training loss did not fall")
+    if cfg is not None:
+        return launches, None
 
     big = train_batch(dev, g, BATCH_BIG)
     torch.cuda.reset_peak_memory_stats()
@@ -1126,7 +1178,7 @@ def block_cosines(a, b):
     return cos
 
 
-def training_gate(dev, weights):
+def training_gate(dev, weights, base=None, what="training gate"):
     """Kernel route (bf16) vs plain route (f32 math, TF32 off) from the same
     weights, batch and generator seed, dropout and DropPath on.  Checked
     with BatchNorm on its running statistics: in train mode BN's backward
@@ -1142,7 +1194,8 @@ def training_gate(dev, weights):
     seed = SEED + 5
 
     def cfg(kernels, dtype):
-        return lavt_one_base().replace(use_kernels=kernels, dtype=dtype)
+        return (base or lavt_one_base()).replace(use_kernels=kernels,
+                                                 dtype=dtype)
 
     ref_loss, ref = gate_run(dev, cfg(False, "float32"), weights, False,
                              batch, seed)
@@ -1152,7 +1205,7 @@ def training_gate(dev, weights):
     cos = block_cosines(got, ref)
     worst = min(cos, key=cos.get)
     del ref, got
-    log(f"training gate (BN running statistics, dropout + DropPath on): loss "
+    log(f"{what} (BN running statistics, dropout + DropPath on): loss "
         f"kernel route (bf16) {loss:.6f}, plain route (f32 math) "
         f"{ref_loss:.6f}, rel diff {rel:.3g} (limit {LOSS_RTOL}); "
         f"{len(cos)} Swin blocks, worst gradient cosine {cos[worst]:.5f} "
@@ -1160,9 +1213,11 @@ def training_gate(dev, weights):
     log("per-block cosines: " + ", ".join(f"{k} {v:.4f}"
                                           for k, v in cos.items()))
     if rel > LOSS_RTOL:
-        raise RuntimeError(f"gate: loss rel diff {rel:.4g} > {LOSS_RTOL}")
+        raise RuntimeError(f"{what}: loss rel diff {rel:.4g} > {LOSS_RTOL}")
     if cos[worst] < MIN_COS:
-        raise RuntimeError(f"gate: cosine {cos[worst]:.5f} < {MIN_COS}")
+        raise RuntimeError(f"{what}: cosine {cos[worst]:.5f} < {MIN_COS}")
+    if base is not None:  # the BN batch-statistics print: window 12 only
+        return cos[worst]
     # BN on batch statistics (the training recipe): printed, not checked
     ref_loss_b, ref_b = gate_run(dev, cfg(False, "float32"), weights, True,
                                  batch, seed)
@@ -1695,6 +1750,488 @@ def video_training(dev, card, weights):
     return launches
 
 
+# -- window 7, the routing cases, the new widths and the probe -------------------
+
+def profile_forward(dev, card, model, what):
+    """One bs-8 forward of a lavt_one `model` under torch.profiler (device
+    busy, idle share, the kernels that take the time)."""
+    import torch
+
+    from lavt_rs_tpu_torch.ops.norm import maybe_normalize_image
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    image, ids, mask, _ = requests(dev, g, 1)[0]
+    img = maybe_normalize_image(image)
+    with torch.no_grad():
+        profile_clip(lambda: model(img, ids[:, 0], mask[:, 0]), card, what)
+
+
+def kernel_plan(cfg, img, n, train=False):
+    """The launches per forward of a bf16 `cfg` at img² (n images; for
+    lavt_video one clip of n frames), per step with `train`, as the model's
+    own plan gives them (its backbone's `kernel_plan`, from the routes its
+    blocks take); and the parts that launch no kernel, with their reason.
+    The model is built on the meta device: nothing is allocated or
+    launched."""
+    from lavt_rs_tpu_torch.models.factory import build_model
+
+    backbone = build_model(cfg, "meta", train=train).backbone
+    itemsize = cfg.compute_dtype.itemsize
+    if cfg.name == "lavt_video":
+        return backbone.kernel_plan(n, (img, img), itemsize, train)
+    return backbone.kernel_plan((img, img), n, itemsize, train)
+
+
+def window7_kernel_phase(dev, res):
+    """K10, K10's save mode and K9 at the four window-7 shapes of a bs-8
+    lavt_one_base(window12=False) forward (stage s: (8, nW, h, 49, 32);
+    the shifted blocks under their (nW, 49, 49) mask), each against its
+    plain version, timed beside its bound and its SDPA chain (autograd
+    through it for K9); per forward ("K10/w7") or training step
+    ("K10s/w7", "K9/w7") into `res`."""
+    import torch
+    import torch.nn.functional as F
+
+    from lavt_rs_tpu_torch.ops import window_attn as wa
+    from lavt_rs_tpu_torch.ops.window import (relative_bias_from_table,
+                                              relative_position_index_2d,
+                                              shift_mask_2d)
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 30)
+
+    def rnd(shape):
+        return torch.randn(shape, generator=g, device=dev).bfloat16()
+
+    index = torch.from_numpy(relative_position_index_2d(7, 7)).to(dev)
+    sc = 32 ** -0.5
+    for si, (side, c, heads, depth) in enumerate(W7_STAGES):
+        nw = (side // 7) ** 2
+        q, k, v = (rnd((BATCH, nw, heads, 49, 32)) for _ in range(3))
+        bias = relative_bias_from_table(
+            torch.randn((13 * 13, heads), generator=g, device=dev), index)
+        for shift in (False, True):
+            mask = shift_mask_2d(side, side, 7, 3, dev) if shift else None
+            masked = masked_windows(mask)
+            am = sdpa_mask(bias, mask, nw)
+            what = f"window 7 stage {si + 1} q{tuple(q.shape)} mask {shift}"
+            measure(res, "K10/w7", what, depth // 2,
+                    lambda m=mask: wa.window_attention(q, k, v, bias, m, sc),
+                    lambda m=mask: wa.window_attention_plain(q, k, v, bias, m,
+                                                             sc),
+                    lambda am=am: F.scaled_dot_product_attention(
+                        q, k, v, attn_mask=am, scale=sc),
+                    attn_work(BATCH, nw, heads, 49, masked),
+                    lambda name, got, want: compare(name, got, want,
+                                                    TOL["K2"]))
+            measure(res, "K10s/w7", what, depth // 2,
+                    lambda m=mask: wa.window_attention_save(q, k, v, bias, m,
+                                                            sc),
+                    lambda m=mask: wa.window_attention_save_plain(
+                        q, k, v, bias, m, sc),
+                    lambda am=am: F.scaled_dot_product_attention(
+                        q, k, v, attn_mask=am, scale=sc),
+                    attn_save_work(BATCH, nw, heads, 49, masked), compare_lse)
+            del am
+            o, lse = wa.window_attention_save(q, k, v, bias, mask, sc)
+            do = rnd(q.shape)
+
+            def sdpa_chain(q_, k_, v_, b_, mask=mask, nw=nw):
+                return F.scaled_dot_product_attention(
+                    q_, k_, v_, attn_mask=sdpa_mask(b_, mask, nw), scale=sc)
+
+            measure(res, "K9/w7", what, depth // 2,
+                    lambda m=mask, o=o, lse=lse, do=do: wa.attention_core_bwd(
+                        q, k, v, bias, m, do, sc, o, lse),
+                    lambda m=mask, o=o, do=do: wa.attention_core_bwd_plain(
+                        q, k, v, bias, m, do, sc, o),
+                    chain_grad(sdpa_chain, (q, k, v, bias), do),
+                    attn_bwd_work(BATCH, nw, heads, 49, masked),
+                    lambda name, got, want: compare_grads(name, got, want, 3))
+            del o, lse, do
+        del q, k, v
+        torch.cuda.empty_cache()
+    for key, per in (("K10/w7", "forward"), ("K10s/w7", "train step"),
+                     ("K9/w7", "train step")):
+        r = res.r[key]
+        log(f"{key} per window-7 bs-{BATCH} {per}: kernel {r['ms']:.3f} ms, "
+            f"bound {r['bound']:.3f} ms ({res.bound_by(key)}), plain (f32 "
+            f"math) {r['plain']:.3f} ms, library (SDPA) {r['lib']:.3f} ms")
+
+
+def widths_kernel_phase(dev, res):
+    """The kernels at the widths this routing added, against their plain
+    versions and timed beside bound, plain and library chain, at the shapes
+    their paths give them (bs 8, 480²; per-forward or per-step calls):
+    K4 at 1536 (Swin-L stage 4, 1 call); K3, K8 and K7 at 384 (Swin-T
+    stage 3, 6 blocks); K1 at 96 (Swin-T window-12 stage 1, 2 blocks), K2,
+    the save mode, K5 and K6 at 96 (stage 1's shape, off the window-12
+    path), K11 at 96 (a 448² input's stage 1, 112 -> 120).  Results go
+    under "<kernel>@<C>"."""
+    import torch
+
+    from lavt_rs_tpu_torch.ops import fused_mlp, fused_msa, fused_msa_2d, ln
+    from lavt_rs_tpu_torch.ops.window import (relative_bias_from_table,
+                                              relative_position_index_2d,
+                                              shift_mask_2d)
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 50)
+
+    def rnd(shape, std=1.0, mean=0.0):
+        return (torch.randn(shape, generator=g, device=dev) * std
+                + mean).bfloat16()
+
+    def check(tol):
+        return lambda name, got, want: compare(name, got, want, tol)
+
+    rows, c = BATCH * 15 * 15, 1536
+    x = rnd((rows, c), 2.0, 0.5)
+    s, b = rnd((c,), 0.2, 1.0), rnd((c,), 0.2)
+    measure(res, "K4@1536", f"Swin-L stage 4 ({rows}, {c})", 1,
+            lambda: ln.layer_norm_rows(x, s, b),
+            lambda: ln.layer_norm_rows_plain(x, s, b),
+            lambda: torch_bf16_ln(x, s, b), ln_work(rows, c), check(TOL["K4"]))
+
+    rows, c, tail = BATCH * 30 * 30, 384, 30 * 30
+    args = (rnd((rows, c)), rnd((c,), 0.2, 1.0), rnd((c,), 0.2),
+            rnd((4 * c, c), c ** -0.5), rnd((4 * c,), 0.2),
+            rnd((c, 4 * c), (4 * c) ** -0.5), rnd((c,), 0.2))
+    keep = torch.where(torch.arange(BATCH, device=dev) % 3 != 1, 1.0 / 0.7,
+                       0.0).float()
+    keep_rows = keep.repeat_interleave(tail)[:, None].bfloat16()
+    measure(res, "K3@384", f"Swin-T stage 3 ({rows}, {c})", 6,
+            lambda: fused_mlp.fused_ln_mlp(*args),
+            lambda: fused_mlp.fused_ln_mlp_plain(*args),
+            lambda: torch_bf16_mlp(*args), mlp_work(rows, c), check(TOL["K3"]))
+    measure(res, "K8@384", f"Swin-T stage 3 ({rows}, {c}) keep", 6,
+            lambda: fused_mlp.fused_ln_mlp_droppath(*args, keep, tail),
+            lambda: fused_mlp.fused_ln_mlp_droppath_plain(*args, keep, tail),
+            lambda: torch_bf16_mlp(*args, keep_rows),
+            mlp_work(rows, c, keep=BATCH), check(TOL["K8"]))
+    gy = rnd((rows, c))
+    x, gam, bet, w1, b1, w2, _ = args
+    measure(res, "K7@384", f"Swin-T stage 3 ({rows}, {c}) keep", 6,
+            lambda: fused_mlp.fused_ln_mlp_bwd(x, gy, gam, bet, w1, b1, w2,
+                                               keep, tail),
+            lambda: fused_mlp.fused_ln_mlp_bwd_plain(x, gy, gam, bet, w1, b1,
+                                                     w2, keep, tail),
+            chain_grad(lambda *t: torch_bf16_mlp(*t, keep_rows), args, gy),
+            mlp_work(rows, c, backward=True), compare_grads)
+    del args, gy, x
+    torch.cuda.empty_cache()
+
+    c, heads, nw = 96, 3, 100
+    index = torch.from_numpy(relative_position_index_2d(12, 12)).to(dev)
+    bias = relative_bias_from_table(
+        torch.randn((23 * 23, heads), generator=g, device=dev), index)
+    w = (rnd((3 * c, c), c ** -0.5), rnd((3 * c,), 0.2),
+         rnd((c, c), c ** -0.5), rnd((c,), 0.2))
+    lnp = (rnd((c,), 0.2, 1.0), rnd((c,), 0.2))
+    sc = 32 ** -0.5
+    xw = rnd((BATCH, nw, 144, c))
+    for shift in (False, True):
+        mask = shift_mask_2d(120, 120, 12, 6, dev) if shift else None
+        tail_args = (*w, bias, mask, heads, sc)
+        measure(res, "K1@96", f"Swin-T w12 stage 1 x{tuple(xw.shape)} mask "
+                f"{shift}", 1,
+                lambda t=tail_args: fused_msa.fused_window_msa_ln(xw, *lnp, *t),
+                lambda t=tail_args: fused_msa.fused_window_msa_ln_plain(
+                    xw, *lnp, *t),
+                lambda t=tail_args: torch_bf16_msa(xw, *t, ln=lnp),
+                msa_work(BATCH, nw, c, heads, "fwd", mask=shift),
+                check(TOL["K1"]))
+    mask = shift_mask_2d(120, 120, 12, 6, dev)
+    tail_args = (*w, bias, mask, heads, sc)
+    measure(res, "K2@96", f"x{tuple(xw.shape)} mask True (off the path)", 0,
+            lambda: fused_msa.fused_window_msa(xw, *tail_args),
+            lambda: fused_msa.fused_window_msa_plain(xw, *tail_args),
+            lambda: torch_bf16_msa(xw, *tail_args),
+            msa_work(BATCH, nw, c, heads, "fwd"), check(TOL["K2"]))
+    measure(res, "save@96", f"K1 save mode x{tuple(xw.shape)}", 2,
+            lambda: fused_msa.fused_window_msa_save(xw, lnp, *tail_args),
+            lambda: fused_msa.fused_window_msa_save_plain(xw, lnp, *tail_args),
+            lambda: torch_bf16_msa(xw, *tail_args, ln=lnp),
+            msa_work(BATCH, nw, c, heads, "save", ln=True),
+            lambda _n, got, want: compare_saved("K1", got, want))
+    _, saved = fused_msa.fused_window_msa_save(xw, lnp, *tail_args)
+    xin, resid = saved[4].view(xw.shape), saved[:4]
+    gy = rnd(xw.shape)
+    chain_in = (xw, *w, bias) + lnp
+
+    def chain_fn(x_, wq, bq, wp, bp, bi, *lnt):
+        return torch_bf16_msa(x_, wq, bq, wp, bp, bi, mask, heads, sc,
+                              ln=lnt or None)
+
+    measure(res, "K5@96", f"x{tuple(xw.shape)} heads {heads}", 2,
+            lambda: fused_msa.fused_window_msa_bwd(xin, gy, w[0], w[2], resid,
+                                                   heads, sc),
+            lambda: fused_msa.fused_window_msa_bwd_plain(xin, gy, w[0], w[2],
+                                                         resid, heads, sc),
+            chain_grad(chain_fn, chain_in, gy),
+            msa_work(BATCH, nw, c, heads, "bwd"), compare_grads)
+    measure(res, "K6@96", f"x{tuple(xw.shape)} heads {heads} (off the path)",
+            0,
+            lambda: fused_msa.fused_window_msa_bwd_recompute(
+                xw, lnp, *tail_args[:6], gy, heads, sc),
+            lambda: fused_msa.fused_window_msa_bwd_recompute_plain(
+                xw, lnp, *tail_args[:6], gy, heads, sc),
+            chain_grad(chain_fn, chain_in, gy, forward=True),
+            msa_work(BATCH, nw, c, heads, "recompute", ln=True),
+            compare_grads)
+    del saved, xin, resid, gy, xw
+    xm = rnd((BATCH, 120, 120, c))
+    for shift in (False, True):
+        mask = shift_mask_2d(120, 120, 12, 6, dev) if shift else None
+        am = sdpa_mask(bias, mask, nw)
+        a = (xm, *w, bias, mask, heads, sc, 12)
+        measure(res, "K11@96", f"448² stage 1 x{tuple(xm.shape)} mask {shift}",
+                1, lambda a=a: fused_msa_2d.fused_window_msa_2d(*a),
+                lambda a=a: fused_msa_2d.fused_window_msa_2d_plain(*a),
+                lambda am=am: torch_bf16_msa_2d(xm, *w, am, heads, sc),
+                msa_work(BATCH, nw, c, heads, "fwd", mask=shift),
+                check(TOL["K2"]))
+    del xm
+    torch.cuda.empty_cache()
+
+
+def routing_forward(dev, card, label, cfg, img, batch):
+    """One bf16 forward of a lavt_one `cfg` with the kernels at img² and
+    `batch` images: its launches must equal its kernel plan (the routes
+    its blocks take by the ported predicates), the routes that launch
+    nothing are printed with their reason, and its argmax must agree with
+    the f32 plain model's."""
+    import numpy as np
+    import torch
+
+    from lavt_rs_tpu_torch.models.factory import build_model
+    from lavt_rs_tpu_torch.ops.norm import maybe_normalize_image
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 40)
+    model = meaningful(build_model(cfg, dev, generator=g), dev, g)
+    rng = np.random.default_rng(SEED + 41)
+    image = torch.randint(0, 256, (batch, img, img, 3), generator=g,
+                          device=dev, dtype=torch.uint8)
+    ids = torch.from_numpy(rng.integers(1000, 20000, (batch, TOKENS))).to(dev)
+    mask = torch.ones((batch, TOKENS), dtype=torch.int64, device=dev)
+    mask[:, 12:] = 0
+    x = maybe_normalize_image(image)
+    want_counts, unrouted = model.backbone.kernel_plan((img, img), batch)
+    zero_counts()
+    with torch.no_grad():
+        logits = model(x, ids, mask)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in read_counts().items() if v}
+    ref = build_model(cfg.replace(dtype="float32", use_kernels=False), dev)
+    ref.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        want = ref(x, ids, mask)
+    del ref, model
+    agree = gate_pixels(label, logits, want, (batch, img, img, 2))
+    log(f"routing {label} ({img}², batch {batch}, bf16): launches "
+        f"{launches}, predicted {want_counts}; argmax agreement with the f32 "
+        f"plain model {agree:.5f}")
+    for why in unrouted:
+        log(f"  no kernel, as in the JAX package: {why}")
+    if launches != want_counts:
+        raise RuntimeError(f"routing {label}: launches {launches} differ from "
+                           f"the kernel plan's {want_counts}")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def gate_pixels(label, got, want, shape):
+    """The pixel gate: finite logits of `shape`, and argmax agreement on the
+    pixels whose f32 margin exceeds MARGIN of at least MIN_AGREE."""
+    import torch
+
+    if tuple(got.shape) != tuple(shape):
+        raise RuntimeError(f"{label}: logits shape {tuple(got.shape)}")
+    if not bool(torch.isfinite(got).all()):
+        raise RuntimeError(f"{label}: non-finite logits")
+    sure = (want[..., 1] - want[..., 0]).abs() > MARGIN
+    agree = (got.argmax(-1) == want.argmax(-1))[sure].float().mean().item()
+    if not agree >= MIN_AGREE:
+        raise RuntimeError(f"{label}: argmax agreement {agree:.5f} < "
+                           f"{MIN_AGREE}")
+    return agree
+
+
+def routing_video(dev, card):
+    """lavt_video --window12 (window (8, 12, 12), N = 1152) on one 8-frame
+    480² clip: its launches equal its kernel plan (none: every 3D block
+    runs the torch chain, as the JAX package runs XLA), each block's reason
+    printed, the annotated frame against the f32 plain model."""
+    import torch
+
+    from lavt_rs_tpu_torch.models.factory import build_model, make_config
+    from lavt_rs_tpu_torch.ops.norm import maybe_normalize_image
+
+    cfg = make_config("lavt_video", "tiny", window12=True)
+    g = torch.Generator(device=dev).manual_seed(SEED + 42)
+    model = meaningful(build_model(cfg, dev, generator=g), dev, g)
+    video_u8, ids, mask, valid, _ = clips(dev, g, 1)[0]
+    clip = maybe_normalize_image(video_u8)[None]
+    want_counts, unrouted = model.backbone.kernel_plan(FRAMES, (480, 480))
+    zero_counts()
+    with torch.no_grad():
+        logits = model(clip, ids[None], mask[None])
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in read_counts().items() if v}
+    ref = build_model(cfg.replace(dtype="float32", use_kernels=False), dev)
+    ref.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        want = ref(clip, ids[None], mask[None])
+    del ref, model
+    agree = gate_pixels("lavt_video --window12", logits[valid:valid + 1],
+                        want[valid:valid + 1], (1, 480, 480, 2))
+    log(f"routing lavt_video --window12 (window {cfg.swin.window_size_3d}, "
+        f"8-frame 480² clip, bf16): launches {launches}, predicted "
+        f"{want_counts}; annotated frame argmax agreement with the f32 plain "
+        f"model {agree:.5f}")
+    for why in unrouted:
+        log(f"  no kernel, as in the JAX package: {why}")
+    if launches != want_counts:
+        raise RuntimeError(f"routing lavt_video --window12: launches "
+                           f"{launches} differ from the kernel plan's "
+                           f"{want_counts}")
+    torch.cuda.empty_cache()
+
+
+def f32_refusal(dev):
+    """f32 activations with the kernels on the card: build_model raises
+    before it allocates a weight or launches a kernel."""
+    import torch
+
+    from lavt_rs_tpu_torch.config import lavt_one_base
+    from lavt_rs_tpu_torch.models.factory import build_model
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    allocated = torch.cuda.memory_allocated(dev)
+    zero_counts()
+    try:
+        build_model(lavt_one_base(dtype="float32"), dev)
+    except NotImplementedError as e:
+        message = str(e)
+    else:
+        raise RuntimeError("f32 with the kernels on the card was not refused")
+    if "f32 kernel variants" not in message:
+        raise RuntimeError(f"f32 refusal names no ROADMAP item: {message}")
+    launched = {k: v for k, v in read_counts().items() if v}
+    peak = torch.cuda.max_memory_allocated(dev)
+    if launched or peak != allocated:
+        raise RuntimeError(f"f32 refusal came after work: launches "
+                           f"{launched}, {peak - allocated} B allocated")
+    log(f"f32 + kernels on the card refused before any launch or "
+        f"allocation: {message}")
+
+
+def routing_training_step(dev, card):
+    """One AdamW step of Swin-T --window12 at bs 2 (480²): the save mode
+    and K5 at C = 96 (K1 at stages 1-2, K2 at 3-4), K8/K7 at 384; launches
+    equal to its kernel plan."""
+    import math
+
+    import torch
+
+    from lavt_rs_tpu_torch.config import lavt_one_tiny
+    from lavt_rs_tpu_torch.models.factory import build_model
+    from lavt_rs_tpu_torch.train.optim import TrainConfig
+    from lavt_rs_tpu_torch.train.step import (create_train_state,
+                                              make_train_step)
+
+    cfg = lavt_one_tiny(window12=True)
+    g = torch.Generator(device=dev).manual_seed(SEED + 43)
+    model = build_model(cfg, dev, generator=g, train=True)
+    tcfg = TrainConfig()
+    step = make_train_step(model, *create_train_state(model, tcfg), tcfg)
+    batch = train_batch(dev, g, 2)
+    want_counts, _ = model.backbone.kernel_plan((480, 480), 2, train=True)
+    zero_counts()
+    out = step(batch, torch.Generator(device=dev).manual_seed(SEED + 44))
+    loss = out["loss"].item()
+    launches = {k: v for k, v in read_counts().items() if v}
+    log(f"routing Swin-T --window12 train step (bs 2, 480²): loss "
+        f"{loss:.6f}; launches {launches}, predicted {want_counts}")
+    if not math.isfinite(loss):
+        raise RuntimeError("Swin-T --window12 step: non-finite loss")
+    if launches != want_counts:
+        raise RuntimeError(f"Swin-T --window12 step: launches {launches} "
+                           f"differ from the kernel plan's {want_counts}")
+    del model, step
+    torch.cuda.empty_cache()
+
+
+def probe_phase(dev, card, res):
+    """P1 and P2 against their plain version on the check input (std
+    `CHECK_STD`: the softmax far from uniform) at `CHECK_ATOL` abs +
+    `CHECK_RTOL` rel, after checking that a kernel writing each window's
+    mean or a copy of x would fail that check there; timed at the tool's
+    defaults beside their bound and `scaled_dot_product_attention(scale=1)`;
+    P1 against P2 on the tool's input at its atol 1e-2; then the tool as a
+    user runs it (`python -m lavt_rs_tpu_torch.tools.probe_headbatch`, in
+    process, on the card): its launches."""
+    import torch
+    import torch.nn.functional as F
+
+    from lavt_rs_tpu_torch.tools import probe_headbatch as probe
+
+    ch, heads, n, hd, grid = PROBE
+    x = probe.probe_input(grid, ch, heads, n, hd, dev, std=probe.CHECK_STD)
+    rows = x.shape[0]
+    want = probe.probe_attention_plain(x, heads, n, hd)
+    mean = x.float().view(rows // n, n, -1).mean(1, keepdim=True)
+    for what, wrong in (("each window's mean", mean.expand(-1, n, -1)),
+                        ("a copy of x", x)):
+        ratio = probe.mismatch(wrong.reshape(rows, -1), want)
+        log(f"P1/P2 check: a kernel writing {what} would be off by {ratio:.1f}"
+            f"x the tolerance ({probe.CHECK_ATOL} abs + {probe.CHECK_RTOL} "
+            f"rel, x at std {probe.CHECK_STD})")
+        if not ratio > 1:
+            raise RuntimeError(f"the P1/P2 check passes {what}")
+    del want, mean
+
+    def sdpa():
+        q = x.view(rows // n, n, heads, hd).transpose(1, 2)
+        o = F.scaled_dot_product_attention(q, q, q, scale=1.0)
+        return o.transpose(1, 2).reshape(rows, heads * hd)
+
+    def check(name, got, want):
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(got).all()):
+            raise RuntimeError(f"{name}: non-finite kernel output")
+        ratio = probe.mismatch(got, want)
+        if not ratio <= 1:
+            raise RuntimeError(f"{name}: kernel disagrees with its plain "
+                               f"version ({ratio:.3g}x the tolerance)")
+        return (got.float() - want.float()).abs().max().item()
+
+    work = (4 * (rows // n) * heads * n * n * hd, 2 * x.numel() * 2)
+    for name, fn in (("P1", probe.loop_attention),
+                     ("P2", probe.batch_attention)):
+        measure(res, name, f"x{tuple(x.shape)} ch {ch} heads {heads} n {n}, "
+                f"std {probe.CHECK_STD}", 1,
+                lambda fn=fn: fn(x, ch, heads, n, hd),
+                lambda: probe.probe_attention_plain(x, heads, n, hd), sdpa,
+                work, check)
+    xt = probe.probe_input(grid, ch, heads, n, hd, dev)
+    diff = (probe.loop_attention(xt, ch, heads, n).float()
+            - probe.batch_attention(xt, ch, heads, n).float()).abs().max()
+    log(f"P1 vs P2 on the tool's input: max abs diff {diff.item():.3g} "
+        f"(atol 1e-2)")
+    if not diff.item() <= 1e-2:
+        raise RuntimeError(f"P1 and P2 differ by {diff.item():.4g}")
+    zero_counts()
+    if probe.main([]) != 0:
+        raise RuntimeError("the probe tool failed")
+    torch.cuda.synchronize()
+    launches = read_counts()
+    log(f"probe tool launches: P1 {launches['P1']}, P2 {launches['P2']}  "
+        f"[{card}]")
+    if not (launches["P1"] and launches["P2"]):
+        raise RuntimeError("the probe tool launched no P1 or P2")
+    return launches
+
+
 def main():
     import torch
 
@@ -1750,6 +2287,7 @@ def main():
     log(f"model build ({cfg.dtype}, use_kernels={cfg.use_kernels}): "
         f"{time.perf_counter() - t0:.2f} s")
     infer_launches = inference(dev, card, model)
+    profile_forward(dev, card, model, "window-12 bs-8 forward")
     weights = model.state_dict()
     del model
     torch.cuda.empty_cache()
@@ -1788,7 +2326,71 @@ def main():
     torch.cuda.empty_cache()
     log(f"gate done at {time.perf_counter() - t_start:.1f} s")
     train_launches, big_launches = training(dev, card, weights)
+    del weights
+    torch.cuda.empty_cache()
     log(f"training done at {time.perf_counter() - t_start:.1f} s")
+
+    # -- window 7: lavt_one_base(window12=False), the CLI's default --------------
+    from lavt_rs_tpu_torch.config import lavt_one_tiny, lavt_video_tiny
+    from lavt_rs_tpu_torch.models.factory import build_model, make_config
+
+    def nonzero(d):
+        return {k: v for k, v in d.items() if v}
+
+    w7cfg = lavt_one_base(window12=False)
+    for what, got, want in (
+            ("window 12 forward", kernel_plan(cfg, 480, BATCH)[0],
+             INFER_PER_FORWARD),
+            ("window 12 step", kernel_plan(cfg, 480, BATCH, True)[0],
+             nonzero(TRAIN_PER_STEP)),
+            ("window 12 bs-16 step",
+             kernel_plan(cfg, 480, BATCH_BIG, True)[0], BIG_PER_STEP),
+            ("window 7 forward", kernel_plan(w7cfg, 480, BATCH)[0],
+             W7_INFER_PER_FORWARD),
+            ("window 7 step", kernel_plan(w7cfg, 480, BATCH, True)[0],
+             W7_TRAIN_PER_STEP),
+            ("video clip", kernel_plan(lavt_video_tiny(), 480, FRAMES)[0],
+             VIDEO_PER_CLIP),
+            ("video step",
+             kernel_plan(lavt_video_tiny(), 480, FRAMES, True)[0],
+             VIDEO_TRAIN_PER_STEP)):
+        if got != want:
+            raise RuntimeError(f"{what}: the models' kernel plan gives {got}, "
+                               f"the checked counts are {want}")
+    window7_kernel_phase(dev, res)
+    g7 = torch.Generator(device=dev).manual_seed(SEED + 7)
+    model = meaningful(build_model(w7cfg, dev, generator=g7), dev, g7)
+    w7_infer = inference(dev, card, model, W7_INFER_PER_FORWARD,
+                         "window-7 inference")
+    profile_forward(dev, card, model, "window-7 bs-8 forward")
+    w7_weights = model.state_dict()
+    del model
+    torch.cuda.empty_cache()
+    training_gate(dev, w7_weights, w7cfg, "window-7 training gate")
+    torch.cuda.empty_cache()
+    w7_train, _ = training(dev, card, w7_weights, w7cfg, W7_TRAIN_PER_STEP,
+                           "window-7 train")
+    del w7_weights
+    torch.cuda.empty_cache()
+    log(f"window 7 done at {time.perf_counter() - t_start:.1f} s")
+
+    # -- the routing cases and the new widths -------------------------------------
+    widths_kernel_phase(dev, res)
+    routing_forward(dev, card, "Swin-T window 7", lavt_one_tiny(), 480, 2)
+    routing_forward(dev, card, "Swin-T --window12",
+                    lavt_one_tiny(window12=True), 480, 2)
+    routing_forward(dev, card, "Swin-T --window12",
+                    lavt_one_tiny(window12=True), 448, 2)
+    routing_forward(dev, card, "Swin-L --window12",
+                    make_config("lavt_one", "large", window12=True), 480, 1)
+    routing_video(dev, card)
+    f32_refusal(dev)
+    routing_training_step(dev, card)
+    log(f"routing done at {time.perf_counter() - t_start:.1f} s")
+
+    # -- P1 / P2: the head-batching probe --------------------------------------
+    probe_launches = probe_phase(dev, card, res)
+    log(f"probe done at {time.perf_counter() - t_start:.1f} s")
 
     launches = {k: infer_launches[k] for k in ("K1", "K3", "K4")}
     launches["K11"] = eval_launches["K11"]
@@ -1796,8 +2398,13 @@ def main():
     launches["K6"] = big_launches["K6"]
     launches.update({k: video_launches[k] for k in ("K10", "K2p")})
     launches["K9"] = video_train_launches["K9"]
+    launches.update({k: probe_launches[k] for k in ("P1", "P2")})
+    # the window-7 main path's K10 (per forward) and K9 (per training step)
+    launches["K10/w7"], launches["K9/w7"] = w7_infer["K10"], w7_train["K9"]
+    SOURCES.update({"K10/w7": SOURCES["K10"], "K9/w7": SOURCES["K9"]})
+    REPLACES.update({"K10/w7": REPLACES["K10"], "K9/w7": REPLACES["K9"]})
     kernels = []
-    for k in NAMES:
+    for k in NAMES + ("K10/w7", "K9/w7"):
         r = res.r[k]
         kernels.append({"name": k, "route": "cuda", "source": SOURCES[k],
                         "replaces": REPLACES[k], "launches": launches[k],

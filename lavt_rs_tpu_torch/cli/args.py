@@ -34,7 +34,10 @@ def add_model_args(p: argparse.ArgumentParser):
                    help="name used in checkpoint filenames")
     p.add_argument("--swin_type", default="base",
                    choices=["tiny", "small", "base", "large"])
-    p.add_argument("--window12", action="store_true")
+    p.add_argument("--window12", action="store_true",
+                   help="Swin window 12 (the published RefCOCO models); "
+                        "without it window 7, whose blocks run K10 on the "
+                        "card")
     p.add_argument("--img_size", type=int, default=480)
     p.add_argument("--max_tokens", type=int, default=0,
                    help="0 = auto (20, or 22 for video/combined pretrain)")
@@ -106,7 +109,9 @@ def add_model_args(p: argparse.ArgumentParser):
     # --- extras with no reference equivalent ---
     p.add_argument("--bf16", dest="bf16", action="store_true", default=True,
                    help="bf16 compute (default)")
-    p.add_argument("--no_bf16", dest="bf16", action="store_false")
+    p.add_argument("--no_bf16", dest="bf16", action="store_false",
+                   help="f32 activations: with --no_pallas or --device cpu "
+                        "(the kernels compute in bf16)")
     p.add_argument("--use_amp", dest="bf16", action="store_true",
                    help="reference alias for bf16 compute")
     p.add_argument("--no_pallas", action="store_true",

@@ -7,10 +7,12 @@ oIoU / P@K.
         --split val --vocab ./vocab.txt --checkpoint ./checkpoints/model.pth
 
 The published RefCOCO command passes --window12; without it the model is
-window 7, which the card's kernels do not take yet (N = 49, ROADMAP.md
-item 24a): add --no_pallas (plain versions) or --device cpu for it.
-`--synthetic` runs a tiny random model on a 4-ref synthetic dataset (no
-data needed); `--device cpu` runs on the host.
+window 7 (N = 49), whose blocks run qkv -> K10 -> proj on the card, as the
+JAX package routes them.  `--no_bf16` (f32 activations) runs on the card
+only with `--no_pallas` (the plain versions) or on the host (`--device
+cpu`): the kernels compute in bf16, and f32 with the kernels is refused
+before the model is built.  `--synthetic` runs a tiny random model on a
+4-ref synthetic dataset (no data needed); `--device cpu` runs on the host.
 """
 
 from __future__ import annotations

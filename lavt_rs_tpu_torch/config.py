@@ -205,6 +205,13 @@ def lavt_one_base(window12: bool = True, **kw) -> ModelConfig:
     return ModelConfig(name="lavt_one", swin=swin, **kw)
 
 
+def lavt_one_tiny(window12: bool = False, **kw) -> ModelConfig:
+    """lavt_one with Swin-T (embed 96, heads 3/6/12/24), window 7 unless
+    window12."""
+    swin = SwinConfig.from_size("tiny", window_size=12 if window12 else 7)
+    return ModelConfig(name="lavt_one", swin=swin, **kw)
+
+
 def lavt_video_tiny(**kw) -> ModelConfig:
     """A2D recipe: Video Swin-T, SepTPWAM t=3-3-3 s=1-1-1 (README.md:185)."""
     swin = SwinConfig.from_size("tiny", window_size=7, drop_path_rate=0.1)

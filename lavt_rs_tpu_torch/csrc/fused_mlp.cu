@@ -7,7 +7,8 @@
 // Bound on the H100: the two GEMMs (4 * M * C * 4C flops) against one read
 // and one write of the (M, C) activation; unfused, the (M, 4C) hidden
 // activation would cost 8x the activation's bytes in device memory.
-// Design: a block owns BM rows (BM = 64/64/32/16 at C = 128/256/512/1024).
+// Design: a block owns BM rows (BM = 64/64/32/32/16 at C =
+// 128/256/384/512/1024; C = 384 is Swin-T/S stage 3 and Swin-L stage 2).
 // It normalizes its rows into shared memory as bf16, then walks the hidden dimension in chunks of 128: fc1 chunk on the
 // tensor cores (WMMA bf16, f32 accumulate), + b1 and GELU in f32, the bf16
 // chunk back to shared memory, and the chunk's fc2 product accumulated in
@@ -31,7 +32,7 @@ constexpr int kMlpBH = 128;  // hidden chunk
 
 template <int C>
 struct MlpShape {
-  static constexpr int BM = C <= 256 ? 64 : 16384 / C;
+  static constexpr int BM = C <= 256 ? 64 : C <= 512 ? 32 : 16;
   static constexpr int NR = BM / 16;
   static constexpr int NC = C / 16;
   static constexpr int TPW = NR * NC / 8;    // output tiles per warp
@@ -204,6 +205,7 @@ extern "C" int lavt_fused_ln_mlp(const void* x, const void* g, const void* be,
   switch (C) {
     case 128: err = launch_mlp<128>(x, g, be, w1, b1, w2, b2, keep, out, M, hidden, rows_per_sample, eps, s); break;
     case 256: err = launch_mlp<256>(x, g, be, w1, b1, w2, b2, keep, out, M, hidden, rows_per_sample, eps, s); break;
+    case 384: err = launch_mlp<384>(x, g, be, w1, b1, w2, b2, keep, out, M, hidden, rows_per_sample, eps, s); break;
     case 512: err = launch_mlp<512>(x, g, be, w1, b1, w2, b2, keep, out, M, hidden, rows_per_sample, eps, s); break;
     case 1024: err = launch_mlp<1024>(x, g, be, w1, b1, w2, b2, keep, out, M, hidden, rows_per_sample, eps, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);

@@ -49,7 +49,7 @@ constexpr int kHB = 64;   // hidden columns of a dW block
 
 template <int C>
 struct DxShape {
-  static constexpr int BM = C <= 256 ? 64 : 16384 / C;  // K3's row tile
+  static constexpr int BM = C <= 256 ? 64 : C <= 512 ? 32 : 16;  // K3's row tile
   static constexpr int NR = BM / 16;
   static constexpr int NC = C / 16;
   static constexpr int TPW = NR * NC / kBwdWarps;  // dyln tiles per warp
@@ -453,12 +453,13 @@ cudaError_t launch_mlp_bwd(const void* x, const void* gy, const void* g, const v
 }  // namespace lavt
 
 // Rows per block of the dx kernel (the count of dgamma/dbeta partials is
-// ceil(M / rows)) and of a dW row tile, for C in 128/256/512/1024; 0 else.
+// ceil(M / rows)) and of a dW row tile, for C in 128/256/384/512/1024; 0 else.
 extern "C" int lavt_mlp_bwd_rows(int C, int dw) {
   using namespace lavt;
   switch (C) {
     case 128: return dw ? DwShape<128>::BM : DxShape<128>::BM;
     case 256: return dw ? DwShape<256>::BM : DxShape<256>::BM;
+    case 384: return dw ? DwShape<384>::BM : DxShape<384>::BM;
     case 512: return dw ? DwShape<512>::BM : DxShape<512>::BM;
     case 1024: return dw ? DwShape<1024>::BM : DxShape<1024>::BM;
     default: return 0;
@@ -483,6 +484,7 @@ extern "C" int lavt_mlp_bwd(const void* x, const void* gy, const void* g, const 
     break;
     LAVT_MLP_BWD_CASE(128)
     LAVT_MLP_BWD_CASE(256)
+    LAVT_MLP_BWD_CASE(384)
     LAVT_MLP_BWD_CASE(512)
     LAVT_MLP_BWD_CASE(1024)
 #undef LAVT_MLP_BWD_CASE

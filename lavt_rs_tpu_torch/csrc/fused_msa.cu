@@ -22,7 +22,9 @@
 // max-subtracted softmax in f32, and writes the head's 32 columns of O.
 // Scores and probabilities never reach device memory; O does, once, in
 // bf16.  The out-projection + bias then runs on the WMMA GEMM of
-// fused_msa_bwd.cu (gemm_bf16, bias epilogue).
+// fused_msa_bwd.cu (gemm_bf16, bias epilogue).  C is any multiple of 32
+// (C = 32 heads: 96 at Swin-T/S stage 1, up to 1536 at Swin-L stage 4);
+// the GEMM zero-fills its 64-column tiles past C.
 // Shared memory is carved so that dead buffers are reused (the x and
 // weight chunks and the q/k/v staging live in the score region before the
 // scores do; the output staging reuses q and k): 109 KB, which lets two
@@ -148,12 +150,15 @@ window_msa_attn_kernel(const bf16* __restrict__ x, const bf16* __restrict__ ln_g
   }
 
   // 2. q/k/v of head h: (144 x C) . (C x 96), x streamed in 64-col chunks
+  //    (C a multiple of 32: the last chunk may be a 32-column tail, e.g.
+  //    C = 96 at Swin-T/S stage 1)
   FragC acc[kQkvPerWarp];
 #pragma unroll
   for (int i = 0; i < kQkvPerWarp; ++i) wmma::fill_fragment(acc[i], 0.f);
   for (int k0 = 0; k0 < C; k0 += kKC) {
-    for (int i = threadIdx.x; i < kN * kKC / 8; i += kThreads) {
-      const int r = i / (kKC / 8), c = (i % (kKC / 8)) * 8;
+    const int kc = min(kKC, C - k0);
+    for (int i = threadIdx.x; i < kN * kc / 8; i += kThreads) {
+      const int r = i / (kc / 8), c = (i % (kc / 8)) * 8;
       Pack8 v;
       v.u = *reinterpret_cast<const uint4*>(xw + tok(r) + k0 + c);
       if (has_ln) {
@@ -175,8 +180,8 @@ window_msa_attn_kernel(const bf16* __restrict__ x, const bf16* __restrict__ ln_g
         *reinterpret_cast<uint4*>(xn_out + (static_cast<size_t>(win) * kN + r) * C + k0 + c) =
             v.u;
     }
-    for (int i = threadIdx.x; i < 3 * kHD * kKC / 8; i += kThreads) {
-      const int j = i / (kKC / 8), c = (i % (kKC / 8)) * 8;
+    for (int i = threadIdx.x; i < 3 * kHD * kc / 8; i += kThreads) {
+      const int j = i / (kc / 8), c = (i % (kc / 8)) * 8;
       const int part = j / kHD, d = j % kHD;
       *reinterpret_cast<uint4*>(wc + j * LDW + c) = *reinterpret_cast<const uint4*>(
           wqkv + static_cast<size_t>(part * C + h * kHD + d) * C + k0 + c);
@@ -184,6 +189,7 @@ window_msa_attn_kernel(const bf16* __restrict__ x, const bf16* __restrict__ ln_g
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < kKC; kk += 16) {
+      if (kk >= kc) break;
 #pragma unroll
       for (int i = 0; i < kQkvPerWarp; ++i) {
         const int t = warp + kWarps * i;

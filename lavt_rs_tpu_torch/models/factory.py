@@ -2,7 +2,8 @@
 
 `lavt_one` and `lavt_video` (inference and training) are ported; every
 other family raises NotImplementedError naming the ROADMAP.md slice that
-ports it.
+ports it.  f32 activations with the kernels on the card are refused before
+a weight is allocated: every hand-written kernel computes in bf16.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-from ..config import ModelConfig
+from ..config import ModelConfig, SwinConfig
 from .lavt import LAVTOne, LAVTVideo
 from .pwam import LanguageGate
 from .swin2d import WindowAttention
@@ -83,6 +84,14 @@ def build_model(cfg: ModelConfig, device="cuda",
         raise NotImplementedError(
             f"model {cfg.name!r} is not ported yet"
             + (f": ROADMAP.md {where}" if where else ""))
+    if (cfg.use_kernels and torch.device(device).type == "cuda"
+            and cfg.compute_dtype != torch.bfloat16):
+        raise NotImplementedError(
+            f"{cfg.dtype} activations with the kernels on the card: the "
+            "hand-written kernels compute in bf16, and their f32 variants "
+            "are not written yet (ROADMAP.md, \"f32 kernel variants\").  "
+            "Use bf16, or the plain versions (use_kernels=False, "
+            "--no_pallas), or the CPU")
     with torch.device(device):
         model = _MODELS[cfg.name](cfg)
     if generator is not None:
@@ -94,3 +103,20 @@ def build_model(cfg: ModelConfig, device="cuda",
         if isinstance(m, nn.BatchNorm2d):
             m.float()
     return model.eval()
+
+
+def make_config(name: str, swin_type: str = "base", window12: bool = True,
+                **kw) -> ModelConfig:
+    """The reference factory's size and window selection
+    (lib/segmentation.py:16-45), as `lavt_rs_tpu/models/factory.py:
+    make_config`: window 12 or 7; for lavt_video the per-size drop-path
+    rate, the 3D window (8, 12, 12) or (8, 7, 7) and 22 tokens."""
+    swin_kw = {}
+    if name == "lavt_video":
+        swin_kw["drop_path_rate"] = {"tiny": 0.1, "small": 0.2,
+                                     "base": 0.3}.get(swin_type, 0.3)
+        swin_kw["window_size_3d"] = (8, 12, 12) if window12 else (8, 7, 7)
+        kw.setdefault("max_tokens", 22)
+    swin = SwinConfig.from_size(swin_type, window_size=12 if window12 else 7,
+                                **swin_kw)
+    return ModelConfig(name=name, swin=swin, **kw)

@@ -4,29 +4,48 @@
 NHWC / (B, L, C) tokens throughout.  Parameter names are the reference's
 (`layers.N.blocks.M.attn.qkv`, `layers.N.fusion...`, `norm{i}`).
 
-Routing with `use_kernels` (on a CUDA tensor the wrappers launch the
-hand-written kernels; on a CPU tensor they take their plain versions):
-  * the window MSA goes through K1 (`fused_window_msa_ln`, pre-attention LN
-    inside the kernel) where windowing needs no padding.  Where it does,
-    the block runs an explicit LN first (the model pads after LN, and LN
-    of a zero pad row would give ln_bias), pads and rolls the map, and the
-    MSA reads its windows from the (B, Hp, Wp, C) map and writes them back
-    in place through K11 (`fused_msa_2d.fused_window_msa_2d`): no window
-    partition or reverse copy.  At 480² that is K1 at stages 1-2 and K11
-    at stages 3 (30 -> 36) and 4 (15 -> 24).  While autograd records the
-    block (training), the padded stages keep the partition and K2
-    (`fused_window_msa`, through `FusedWindowMSA`);
-  * the LN -> MLP -> residual tail goes through K3 (`fused_ln_mlp`) at all
-    four stages (the kernel takes C up to 1024);
-  * the stage-output norms go through K4 (`layer_norm_rows`).
-With `use_kernels=False` the same routing calls the plain versions.
+Routing.  Each block is routed before any launch by the JAX package's
+own predicates, ported (`ops/fused_msa.fused_msa_routed`,
+`ops/window_attn.attn_fwd_supported`, `ops/fused_mlp.fused_tail_routed`,
+`ops/ln.layer_norm_rows_routed`), as `lavt_rs_tpu/models/swin2d.py:
+205-247, 288-292, 352-362, 141` does.  With `use_kernels` a routed call
+launches the hand-written kernel on a CUDA tensor (its plain version on a
+CPU tensor); with `use_kernels=False` the same route calls the plain
+versions.  Where the JAX package runs XLA the port runs the same ops as
+torch modules: that is the counterpart of the XLA route, not a fallback.
+`SwinBlock.kernels` lists the kernels a block launches on these routes
+and `MultiModalSwinTransformer.kernel_plan` adds them up per forward or
+training step.
+  * The window MSA ("fused", window 12): K1 (`fused_window_msa_ln`, the
+    pre-attention LN inside the kernel) where windowing needs no padding.
+    Where it does, the block runs an explicit LN first (the model pads
+    after LN, and LN of a zero pad row would give ln_bias), pads and rolls
+    the map, and the MSA reads its windows from the (B, Hp, Wp, C) map and
+    writes them back in place through K11 (`fused_msa_2d`): no partition or
+    reverse copy.  At 480² that is K1 at stages 1-2 and K11 at stages 3
+    (30 -> 36) and 4 (15 -> 24).  While autograd records the block
+    (training), the padded stages keep the partition and K2 (through
+    `FusedWindowMSA`).
+  * The window MSA ("core", window 7, N = 49): the explicit LN, the `qkv`
+    Linear, K10 (`window_attn.window_attention`; in training K10's save
+    mode and K9 through `window_attn.WindowAttention`), the `proj` Linear.
+    Every window-7 stage pads at 480² (120 -> 126, 60 -> 63, 30 -> 35,
+    15 -> 21).
+  * The window MSA ("chain", where neither predicate holds): the same
+    Linears around `ops/attention.window_attention_xla`.
+  * The LN -> MLP -> residual tail: K3 (`fused_ln_mlp`; K8 and K7 in
+    training) at C = 128, 256, 384, 512 and 1024; at 96, 192, 768 and 1536
+    the torch chain norm2 -> fc1 -> exact GELU -> fc2 -> residual.
+  * The stage-output norms: K4 (`layer_norm_rows`) at C % 128 == 0 up to
+    4096, else the plain f32 row LN.
 
-Training (the module in train mode, parameters in f32): the MSA and the
+Training (the module in train mode, parameters in f32): the routed MSA and
 LN-MLP tail run through their autograd Functions (`FusedWindowMSA`: K1/K2
 in save mode with the K5 backward, or K6 past the residual cap;
+`window_attn.WindowAttention`: K10's save mode with the K9 backward;
 `FusedLnMlp`: K3 where the block's drop-path rate is 0, else K8 with a
-per-sample keep, both with the K7 backward), the stage norms through
-`LayerNormRows` (K4 with the plain backward).  DropPath on the attention
+per-sample keep, both with the K7 backward), the routed stage norms
+through `LayerNormRows` (K4 with the plain backward).  DropPath on the attention
 branch and the tail's keep are drawn from the generator passed to
 `forward`; the per-block rates are linspace(0, drop_path_rate, blocks),
 as in the JAX package.
@@ -34,7 +53,7 @@ as in the JAX package.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,7 +61,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..config import FusionConfig, FusionKind, GateKind, StageOutput, SwinConfig
-from ..ops import fused_mlp, fused_msa, fused_msa_2d, ln
+from ..ops import attention, fused_mlp, fused_msa, fused_msa_2d, ln, window_attn
 from ..ops.dropout import drop_path, drop_path_keep
 from ..ops.window import (relative_bias_from_table, relative_position_index_2d,
                           shift_mask_2d, window_partition, window_reverse)
@@ -50,8 +69,9 @@ from .pwam import PWAM, LanguageGate, apply_gate
 
 
 class WindowAttention(nn.Module):
-    """W-MSA with a learned relative-position bias; the whole module is one
-    fused-MSA call (K1 when the block's pre-attention LN is passed in)."""
+    """W-MSA with a learned relative-position bias, on the route of
+    `route`: one fused-MSA call (K1 when the block's pre-attention LN is
+    passed in), or qkv -> K10 -> proj, or qkv -> the torch chain -> proj."""
 
     def __init__(self, dim: int, window_size: int, num_heads: int,
                  qkv_bias: bool = True, qk_scale: Optional[float] = None,
@@ -93,6 +113,17 @@ class WindowAttention(nn.Module):
         return (self.qkv.weight, bqkv, self.proj.weight, self.proj.bias,
                 self.relative_bias(), mask, self.num_heads, self.scale)
 
+    def route(self, nw: int, n: int, itemsize: int) -> str:
+        """'fused' where the JAX package takes its fused MSA kernel, 'core'
+        where it takes the attention-core kernel between its Dense layers,
+        'chain' where it runs XLA."""
+        h = self.num_heads
+        if fused_msa.fused_msa_routed(nw, n, self.dim, h, itemsize):
+            return "fused"
+        if window_attn.attn_fwd_supported(nw, n, h, self.dim // h):
+            return "core"
+        return "chain"
+
     def takes_map_route(self, x) -> bool:
         """Whether a padded block's MSA runs on the map through K11: with
         the kernels, where `fused_msa.window_msa` would take the forward
@@ -111,23 +142,44 @@ class WindowAttention(nn.Module):
 
     def forward(self, x, mask=None, ln_params=None):
         """x: (B, nW, N, C) windowed tokens (pre-LN when ln_params, the
-        block's norm1 (weight, bias), is given); mask (nW, N, N) or None."""
-        args = self._args(x, mask)
-        if self.use_kernels:
-            return fused_msa.window_msa(x, ln_params, *args)
+        block's norm1 (weight, bias), is given: the fused route only);
+        mask (nW, N, N) or None."""
+        b, nw, n, c = x.shape
+        route = self.route(nw, n, x.element_size())
+        if route == "fused":
+            args = self._args(x, mask)
+            if self.use_kernels:
+                return fused_msa.window_msa(x, ln_params, *args)
+            if ln_params is not None:
+                return fused_msa.fused_window_msa_ln_plain(x, *ln_params,
+                                                           *args)
+            return fused_msa.fused_window_msa_plain(x, *args)
         if ln_params is not None:
-            return fused_msa.fused_window_msa_ln_plain(x, *ln_params, *args)
-        return fused_msa.fused_window_msa_plain(x, *args)
+            raise ValueError(f"the {route} route takes post-LN tokens")
+        h = self.num_heads
+        qkv = self.qkv(x).view(b, nw, n, 3, h, c // h)
+        q, k, v = (t.contiguous() for t in qkv.permute(3, 0, 1, 4, 2, 5))
+        if route == "core":
+            attend = (window_attn.window_attention if self.use_kernels
+                      else window_attn.window_attention_plain)
+        else:
+            attend = attention.window_attention_xla
+        out = attend(q, k, v, self.relative_bias(), mask, self.scale)
+        return self.proj(out.transpose(2, 3).reshape(b, nw, n, c))
 
 
 class Mlp(nn.Module):
-    """Parameter container with the reference's `mlp.fc1`/`mlp.fc2` names;
-    the block runs it through the fused LN-MLP."""
+    """`mlp.fc1` -> exact GELU -> `mlp.fc2` (the reference's names).  Where
+    the tail is routed to K3 the block passes these weights to the fused
+    LN-MLP instead of calling the module."""
 
     def __init__(self, dim: int, hidden: int):
         super().__init__()
         self.fc1 = nn.Linear(dim, hidden)
         self.fc2 = nn.Linear(hidden, dim)
+
+    def forward(self, x):
+        return self.fc2(F.gelu(self.fc1(x)))
 
 
 class SwinBlock(nn.Module):
@@ -145,6 +197,35 @@ class SwinBlock(nn.Module):
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
 
+    def _windows(self, hw: Tuple[int, int]) -> Tuple[int, int, int]:
+        """(bottom pad, right pad, windows) of an h x w map."""
+        ws = self.window_size
+        pad_b, pad_r = ((ws - s % ws) % ws for s in hw)
+        return pad_b, pad_r, ((hw[0] + pad_b) // ws) * ((hw[1] + pad_r) // ws)
+
+    def kernels(self, hw: Tuple[int, int], batch: int, itemsize: int = 2,
+                train: bool = False) -> List[str]:
+        """The kernels one forward of this block launches on the card for
+        `batch` h x w maps (train: one training step, forward and
+        backward), as `forward` routes it; none without use_kernels."""
+        if not self.use_kernels:
+            return []
+        pad_b, pad_r, nw = self._windows(hw)
+        n, c, heads = self.window_size ** 2, self.attn.dim, self.attn.num_heads
+        route = self.attn.route(nw, n, itemsize)
+        out = []
+        if route == "fused":
+            out.append(("K2" if train else "K11") if pad_b or pad_r else "K1")
+            if train:
+                out.append("K5" if fused_msa.save_residuals_ok(
+                    batch, nw, n, c, heads, itemsize) else "K6")
+        elif route == "core":
+            out += ["K10", "K9"] if train else ["K10"]
+        if fused_mlp.fused_tail_routed(c):
+            out.append("K8" if train and self.drop_path_rate > 0 else "K3")
+            out += ["K7"] if train else []
+        return out
+
     def forward(self, x, hw: Tuple[int, int],
                 generator: Optional[torch.Generator] = None):
         """x: (B, H*W, C); the generator draws DropPath in training."""
@@ -152,25 +233,24 @@ class SwinBlock(nn.Module):
         b, l, c = x.shape
         ws, ss = self.window_size, self.shift_size
         shortcut = x
-        pad_b = (ws - h % ws) % ws
-        pad_r = (ws - w % ws) % ws
+        pad_b, pad_r, nw = self._windows(hw)
         padded = bool(pad_b or pad_r)
-        if padded:
+        hp, wp = h + pad_b, w + pad_r
+        fused = self.attn.route(nw, ws * ws, x.element_size()) == "fused"
+        if fused and not padded:
+            ln_params = (self.norm1.weight, self.norm1.bias)
+        else:
             ln_params = None
             x = fused_msa.layer_norm_f32(x, self.norm1.weight, self.norm1.bias)
-        else:
-            ln_params = (self.norm1.weight, self.norm1.bias)
         x = x.view(b, h, w, c)
         if padded:
             x = F.pad(x, (0, 0, 0, pad_r, 0, pad_b))
-        hp, wp = h + pad_b, w + pad_r
         if ss > 0:
             x = torch.roll(x, shifts=(-ss, -ss), dims=(1, 2))
         mask = shift_mask_2d(hp, wp, ws, ss, x.device)
-        if padded and self.attn.takes_map_route(x):
+        if padded and fused and self.attn.takes_map_route(x):
             x = self.attn.forward_map(x, mask)
         else:
-            nw = (hp // ws) * (wp // ws)
             xw = window_partition(x, ws).view(b, nw, ws * ws, c)
             xw = self.attn(xw, mask, ln_params)
             x = window_reverse(xw.view(b * nw, ws * ws, c), ws, hp, wp)
@@ -180,6 +260,9 @@ class SwinBlock(nn.Module):
             x = x[:, :h, :w, :]
         rate = self.drop_path_rate
         x = shortcut + drop_path(x.reshape(b, l, c), rate, self.training,
+                                 generator)
+        if not fused_mlp.fused_tail_routed(c):
+            return x + drop_path(self.mlp(self.norm2(x)), rate, self.training,
                                  generator)
 
         params = (self.norm2.weight, self.norm2.bias, self.mlp.fc1.weight,
@@ -237,15 +320,21 @@ class PatchMerging(nn.Module):
 
 class StageNorm(nn.LayerNorm):
     """Stage-output LayerNorm (`norm{i}`), one-pass fast-variance row LN:
-    K4 (`layer_norm_rows`) with use_kernels, its plain version otherwise."""
+    K4 (`layer_norm_rows`) with use_kernels where `layer_norm_rows_routed`
+    holds, its plain version otherwise."""
 
     def __init__(self, dim: int, use_kernels: bool = True):
         super().__init__(dim, eps=1e-5)
         self.use_kernels = use_kernels
 
+    def routed(self, rows: int) -> bool:
+        """Whether `rows` rows take K4."""
+        return self.use_kernels and ln.layer_norm_rows_routed(
+            rows, self.normalized_shape[0])
+
     def forward(self, x):
         c = x.shape[-1]
-        if self.use_kernels:
+        if self.routed(x.numel() // c):
             y = ln.LayerNormRows.apply(x.reshape(-1, c), self.weight,
                                        self.bias, self.eps)
         else:
@@ -328,6 +417,42 @@ class MultiModalSwinTransformer(nn.Module):
         for i in self.out_indices:
             self.add_module(f"norm{i}", StageNorm(cfg.num_features[i],
                                                   use_kernels))
+
+    def kernel_plan(self, img: Tuple[int, int], batch: int,
+                    itemsize: int = 2, train: bool = False
+                    ) -> Tuple[Dict[str, int], List[str]]:
+        """Launches per forward of `batch` img = (H, W) images on the card
+        (train: per training step), from each block's `kernels` and the
+        stage norms' route; and, with the kernels, the parts that launch
+        none, each with the reason (the JAX package runs XLA there)."""
+        counts: Dict[str, int] = {}
+        unrouted = []
+        ps = self.patch_embed.patch_size
+        hw = tuple(-(-s // ps) for s in img)
+        for i, layer in enumerate(self.layers):
+            for blk in layer.blocks:
+                for k in blk.kernels(hw, batch, itemsize, train):
+                    counts[k] = counts.get(k, 0) + 1
+            n, c = blk.window_size ** 2, blk.attn.dim
+            where = f"stage {i + 1}"
+            if blk.use_kernels and blk.attn.route(
+                    blk._windows(hw)[2], n, itemsize) == "chain":
+                unrouted.append(f"{where} MSA (C {c}, N {n}): fused_msa_routed "
+                                "and attn_fwd_supported are False (JAX: XLA): "
+                                "the torch chain")
+            if blk.use_kernels and not fused_mlp.fused_tail_routed(c):
+                unrouted.append(f"{where} LN-MLP tails (C {c}): the fused_tail "
+                                "test is False (C % 128 or C > 512; JAX: XLA): "
+                                "the torch chain")
+            norm = getattr(self, f"norm{i}", None)
+            if norm is not None and norm.routed(batch * hw[0] * hw[1]):
+                counts["K4"] = counts.get("K4", 0) + 1
+            elif norm is not None and norm.use_kernels:
+                unrouted.append(f"{where} norm (C {c}): layer_norm_rows_routed "
+                                "is False (C % 128; JAX: XLA): the plain f32 "
+                                "row LN")
+            hw = ((hw[0] + 1) // 2, (hw[1] + 1) // 2)
+        return counts, unrouted
 
     def forward(self, x, l, l_mask,
                 generator: Optional[torch.Generator] = None):

@@ -8,22 +8,32 @@ Windows and shifts are clamped to the input dims (`get_window_size_3d`);
 a clamped window keeps the full window's bias table and index, sliced
 [:N, :N], as the reference does.
 
-Routing with `use_kernels` (on a CUDA tensor the wrappers launch the
-hand-written kernels; on a CPU tensor they take their plain versions), as
-the JAX package routes with `use_pallas`:
-  * the first stage's blocks (C = 96 in lavt_video_tiny, the width the
-    JAX package routes by default) take the grouped padded route where
-    K2p's kernel takes the geometry: pad + shift + partition +
-    token pad (392 -> 400) as one gather with the unmasked windows first
-    (`ops/window.partition_shifted_padded_3d`), then K2p
+Routing.  Each block is routed before any launch, as the JAX package
+routes with `use_pallas` (`lavt_rs_tpu/models/swin3d.py:120-145,
+184-200`); with `use_kernels` a routed call launches the hand-written
+kernel on a CUDA tensor (its plain version on a CPU tensor):
+  * the grouped padded route, in eval mode, where the JAX package's
+    `fused3d_grouped_routed` holds (ported in `ops/fused_msa.py`: C = 96,
+    the first stage of Video Swin-T/S, at window (8, 7, 7)): pad + shift +
+    partition + token pad (392 -> 400) as one gather with the unmasked
+    windows first (`ops/window.partition_shifted_padded_3d`), then K2p
     (`fused_window_msa_grouped`: qkv, attention and out-projection, the
     maskless prefix and the small-mask rest in one launch), then the
     inverse gather;
   * elsewhere the `qkv` and `proj` Linears stay plain and K10
-    (`ops/window_attn.window_attention`) runs between them.
-With `use_kernels=False` every block takes the second route with K10's
-plain version.  The LayerNorms, the MLP, PatchMerging and the stage norms
-are plain PyTorch, as in the JAX package (no fused tail in 3D).
+    (`ops/window_attn.window_attention`) runs between them where
+    `window_attn.attn_fwd_routed_3d` holds: the JAX `attn_fwd_supported`
+    plus the port's extension to N <= 400 (the (8, 7, 7) windows,
+    N = 392, which the JAX package leaves to XLA behind its TPU gate of
+    N <= 256; the port has run K10 there since the video slice);
+  * at window (8, 12, 12) (N = 1152, `lavt_video --window12`) the same
+    Linears around the torch chain `ops/attention.window_attention_xla`,
+    as the JAX package runs XLA there (both its predicates are False).
+`SwinBlock3D.route` names a block's route and `kernels` the kernels it
+launches; `MultiModalSwinTransformer3D.kernel_plan` adds them up.
+With `use_kernels=False` every block takes the second or third route with
+K10's plain version.  The LayerNorms, the MLP, PatchMerging and the stage
+norms are plain PyTorch, as in the JAX package (no fused tail in 3D).
 
 Training (the module in train mode, parameters in f32): every block takes
 the second route, as the JAX package gates its grouped route on
@@ -38,7 +48,8 @@ are linspace(0, drop_path_rate, blocks).
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import math
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -46,7 +57,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..config import FusionConfig, FusionKind, GateKind, StageOutput, SwinConfig, TPWAMConfig
-from ..ops import fused_msa, window_attn
+from ..ops import attention, fused_msa, window_attn
 from ..ops.dropout import drop_path
 from ..ops.window import (get_window_size_3d, partition_3d_groups,
                           partition_shifted_padded_3d,
@@ -101,6 +112,14 @@ class WindowAttention3D(nn.Module):
             self._bias_key = key
         return self._bias
 
+    def route(self, nw: int, n: int) -> str:
+        """'core' (qkv -> K10 -> proj) where `attn_fwd_routed_3d` holds,
+        else 'chain' (the torch chain, the JAX package's XLA route)."""
+        h = self.num_heads
+        return ("core" if window_attn.attn_fwd_routed_3d(nw, n, h,
+                                                         self.dim // h)
+                else "chain")
+
     def forward(self, x, mask=None, groups: Optional[Tuple[int, int]] = None):
         """x: (B, nW, N, C) windowed post-LN tokens, mask (nW, N, N) or None.
         With groups = (nu, n_real): x is the grouped stream (B, nW, n_p, C)
@@ -118,8 +137,12 @@ class WindowAttention3D(nn.Module):
                 self.relative_bias(n_real, n), mask, nu, h, self.scale)
         qkv = self.qkv(x).view(b, nw, n, 3, h, c // h)
         q, k, v = (t.contiguous() for t in qkv.permute(3, 0, 1, 4, 2, 5))
-        attend = (window_attn.window_attention if self.use_kernels
-                  else window_attn.window_attention_plain)
+        if self.route(nw, n) == "chain":
+            attend = attention.window_attention_xla
+        elif self.use_kernels:
+            attend = window_attn.window_attention
+        else:
+            attend = window_attn.window_attention_plain
         out = attend(q, k, v, self.relative_bias(n), mask, self.scale)
         return self.proj(out.transpose(2, 3).reshape(b, nw, n, c))
 
@@ -142,11 +165,11 @@ class SwinBlock3D(nn.Module):
                  shift_size: Tuple[int, int, int] = (0, 0, 0),
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
                  qk_scale: Optional[float] = None, use_kernels: bool = True,
-                 grouped: bool = False, drop_path_rate: float = 0.0):
+                 drop_path_rate: float = 0.0):
         super().__init__()
         self.dim, self.num_heads = dim, num_heads
         self.window_size, self.shift_size = tuple(window_size), tuple(shift_size)
-        self.use_kernels, self.grouped = use_kernels, grouped
+        self.use_kernels = use_kernels
         self.drop_path_rate = drop_path_rate
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         self.attn = WindowAttention3D(dim, self.window_size, num_heads,
@@ -154,27 +177,45 @@ class SwinBlock3D(nn.Module):
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
 
-    def takes_grouped_route(self, n: int) -> bool:
-        """The grouped padded route (K2p) for an N-token window: in eval
-        mode, with the kernels, in a grouped stage, where K2p's kernel takes
-        N padded to its 16-row tile."""
-        return (not self.training and self.use_kernels and self.grouped
-                and fused_msa.padded_msa_supported(fused_msa.pad_tokens(n),
-                                                   self.dim, self.num_heads))
+    def _windows(self, dhw: Tuple[int, int, int]):
+        """(window, shift, pads, windows, tokens per window) of a
+        d x h x w clip."""
+        ws, ss = get_window_size_3d(dhw, self.window_size, self.shift_size)
+        pads = tuple((k - s % k) % k for s, k in zip(dhw, ws))
+        nw = math.prod((s + p) // k for s, p, k in zip(dhw, pads, ws))
+        return ws, ss, pads, nw, math.prod(ws)
+
+    def route(self, n: int, nw: int, itemsize: int = 2,
+              train: bool = False) -> str:
+        """'grouped' (K2p) in eval mode with the kernels, where
+        `fused3d_grouped_routed` holds (the JAX block's test); else the
+        attention's route, 'core' (K10) or 'chain'."""
+        if not train and self.use_kernels and \
+                fused_msa.fused3d_grouped_routed(nw, n, self.dim,
+                                                 self.num_heads, itemsize):
+            return "grouped"
+        return self.attn.route(nw, n)
+
+    def kernels(self, dhw: Tuple[int, int, int], itemsize: int = 2,
+                train: bool = False) -> List[str]:
+        """The kernels one forward of this block launches on the card for
+        a d x h x w clip (train: one training step), as `forward` routes
+        it; none without use_kernels."""
+        if not self.use_kernels:
+            return []
+        *_, nw, n = self._windows(dhw)
+        route = self.route(n, nw, itemsize, train)
+        return {"grouped": ["K2p"], "core": ["K10", "K9"] if train else ["K10"],
+                "chain": []}[route]
 
     def forward(self, x, generator: Optional[torch.Generator] = None):
         """x: (B, D, H, W, C); the generator draws DropPath in training."""
         b, d, h, w, c = x.shape
-        ws, ss = get_window_size_3d((d, h, w), self.window_size,
-                                    self.shift_size)
+        ws, ss, (pad_d, pad_b, pad_r), nw, n = self._windows((d, h, w))
         shortcut = x
         y = self.norm1(x)
-        pad_d, pad_b, pad_r = ((ws[i] - s % ws[i]) % ws[i]
-                               for i, s in enumerate((d, h, w)))
         dp, hp, wp = d + pad_d, h + pad_b, w + pad_r
-        nw = (dp // ws[0]) * (hp // ws[1]) * (wp // ws[2])
-        n = ws[0] * ws[1] * ws[2]
-        if self.takes_grouped_route(n):
+        if self.route(n, nw, y.element_size(), self.training) == "grouped":
             n_p = fused_msa.pad_tokens(n)
             nu, mask = partition_3d_groups(d, h, w, dp, hp, wp, ws, ss, n_p,
                                            y.device)
@@ -253,7 +294,7 @@ class MMBasicLayer3D(nn.Module):
                  qkv_bias: bool, qk_scale: Optional[float],
                  has_downsample: bool, fusion: FusionConfig, fusion_heads: int,
                  tpwam: TPWAMConfig, skip_gate: bool = False,
-                 use_kernels: bool = True, grouped: bool = False,
+                 use_kernels: bool = True,
                  drop_path_rates: Optional[Tuple[float, ...]] = None):
         super().__init__()
         if fusion.kind != FusionKind.PWAM:
@@ -266,7 +307,8 @@ class MMBasicLayer3D(nn.Module):
         self.blocks = nn.ModuleList(
             SwinBlock3D(dim, num_heads, window_size,
                         (0, 0, 0) if i % 2 == 0 else shift, mlp_ratio,
-                        qkv_bias, qk_scale, use_kernels, grouped, rates[i])
+                        qkv_bias, qk_scale, use_kernels,
+                        drop_path_rate=rates[i])
             for i in range(depth))
         self.fusion = build_tpwam(tpwam, dim, fusion_heads, fusion.lang_dim,
                                   fusion.dropout)
@@ -329,12 +371,37 @@ class MultiModalSwinTransformer3D(nn.Module):
                            i < last, fusion, fusion.num_heads[i], tpwam,
                            skip_gate=use_checkpoint and i == last,
                            use_kernels=use_kernels,
-                           grouped=i == 0,
                            drop_path_rates=tuple(dpr[starts[i]:starts[i + 1]]))
             for i in range(cfg.num_layers))
         for i in self.out_indices:
             self.add_module(f"norm{i}", nn.LayerNorm(cfg.num_features[i],
                                                      eps=1e-5))
+
+    def kernel_plan(self, frames: int, img: Tuple[int, int],
+                    itemsize: int = 2, train: bool = False
+                    ) -> Tuple[Dict[str, int], List[str]]:
+        """Launches per forward of one clip of `frames` img = (H, W) frames
+        on the card (train: per training step), from each block's
+        `kernels`; and, with the kernels, the blocks that launch none,
+        each with the reason (the JAX package runs XLA there)."""
+        counts: Dict[str, int] = {}
+        unrouted = []
+        pt, ph, pw = self.patch_embed.patch_size
+        d, h, w = -(-frames // pt), -(-img[0] // ph), -(-img[1] // pw)
+        for i, layer in enumerate(self.layers):
+            for j, blk in enumerate(layer.blocks):
+                got = blk.kernels((d, h, w), itemsize, train)
+                for k in got:
+                    counts[k] = counts.get(k, 0) + 1
+                ws, _, _, nw, n = blk._windows((d, h, w))
+                if blk.use_kernels and not got:
+                    unrouted.append(
+                        f"stage {i + 1} block {j} (C {blk.dim}, window {ws}, "
+                        f"N {n}): fused3d_grouped_routed and "
+                        "attn_fwd_supported are False (JAX: XLA) and N > 400, "
+                        "past the port's K10 extension: the torch chain")
+            h, w = (h + 1) // 2, (w + 1) // 2
+        return counts, unrouted
 
     def forward(self, video, l, l_mask,
                 generator: Optional[torch.Generator] = None):

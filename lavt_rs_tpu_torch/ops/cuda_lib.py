@@ -25,7 +25,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("ln.cu", "fused_mlp.cu", "fused_msa.cu", "fused_msa_bwd.cu",
-           "fused_mlp_bwd.cu", "window_attn.cu")
+           "fused_mlp_bwd.cu", "window_attn.cu", "probe_headbatch.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-lineinfo")
@@ -50,6 +50,7 @@ SIGNATURES = {
     "lavt_window_attn": (P,) * 7 + (I,) * 6 + (F, P),
     "lavt_window_attn_bwd": (P,) * 13 + (I,) * 7 + (F, P),
     "lavt_window_msa_np": (P,) * 6 + (I,) * 6 + (F, P),
+    "lavt_probe_headbatch": (P, P) + (I,) * 5 + (P,),
 }
 
 _LIB = None

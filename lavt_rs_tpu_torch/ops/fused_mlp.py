@@ -29,7 +29,7 @@ from . import cuda_lib
 from .fused_msa import colsum, sum_partials
 
 EPS = 1e-5
-KERNEL_WIDTHS = (128, 256, 512, 1024)
+KERNEL_WIDTHS = (128, 256, 384, 512, 1024)
 # f32 bytes of split partials of dW1 + dW2 the K7 launch may allocate
 _DW_PARTIAL_BYTES = 64 * 1024 * 1024
 
@@ -100,6 +100,20 @@ def fused_ln_mlp_bwd_plain(x, gy, g, be, w1, b1, w2, keep=None, rows: int = 1,
 
 def fused_ln_mlp_supported(m: int, c: int, hidden: int) -> bool:
     return m > 0 and c in KERNEL_WIDTHS and hidden % 128 == 0
+
+
+def fused_tail_routed(c: int) -> bool:
+    """Whether a 2D Swin block's LN -> MLP -> residual tail takes K3 (K8
+    and K7 in training).  The JAX package's `fused_tail` test
+    (`lavt_rs_tpu/models/swin2d.py:361-362`): C <= 512 and C % 128 == 0
+    (128, 256, 384, 512); at 96, 192, 768 and 1536 it runs the XLA chain,
+    and the port the torch chain (LN, fc1, exact GELU, fc2, residual).
+    One extension: C = 1024 (Swin-B stage 4) also takes K3, as the port
+    has since its first slice; the JAX package keeps it on XLA only
+    because the weights overflow a TPU core's VMEM.  The JAX test's
+    dropout clause holds in every config (Swin's drop_rate is 0, which
+    the port requires)."""
+    return (c <= 512 and c % 128 == 0) or c == 1024
 
 
 def _check(x, params, keep, rows) -> None:

@@ -45,6 +45,7 @@ versions compute in f32 with the kernels' rounding points.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -69,6 +70,106 @@ def save_residuals_ok(b: int, nw: int, n: int, c: int, heads: int,
     p_bytes = b * nw * heads * n * n * itemsize
     qkv_bytes = 3 * b * nw * n * c * itemsize
     return max(p_bytes, qkv_bytes) <= RESID_CAP_BYTES
+
+
+# -- routing: the JAX package's policy, ported ---------------------------------
+# The arithmetic of `lavt_rs_tpu/ops/pallas/fused_msa.py` (`_sublane_ok`,
+# `_pick_fwd_groups`, `_pick_chunk_bwd`, `_pick_head_groups`,
+# `fused_msa_routed`, `fused3d_grouped_routed`), copied so that the port
+# takes the fused kernels exactly where the JAX package takes its Pallas
+# ones.  The budgets are the TPU's VMEM sizes; they decide the route, not
+# what the CUDA kernels could take.  The JAX package's LAVT_* environment
+# hatches are not ported: each predicate is the JAX default policy.
+
+_MIB = 1024 * 1024
+
+
+def _sublane_ok(n: int, itemsize: int) -> bool:
+    return n % (16 if itemsize == 2 else 8) == 0
+
+
+def _sublane_pad(n: int, itemsize: int) -> int:
+    pack = 16 if itemsize == 2 else 8
+    return -(-n // pack) * pack
+
+
+def _pick_fwd_groups(nw: int, n: int, c: int, heads: int,
+                     itemsize: int) -> Optional[int]:
+    """Head-group count of the JAX fused forward, or None when no split
+    fits 12 MiB of VMEM (nw does not enter; kept for the JAX signature)."""
+    hd = c // heads
+    for g in (1, 2, 4, 8):
+        if heads % g or (g > 1 and ((heads // g) * hd) % 32):
+            continue
+        cq = (heads // g) * hd
+        weights = (3 * c * cq + cq * c) * itemsize
+        bias = (heads // g) * n * n * 4
+        ch1 = (n * c * itemsize + 3 * n * cq * 4 + n * n * 4 + n * c * 4
+               + n * n * 4)
+        if weights + bias + 2 * ch1 <= 12 * _MIB:
+            return g
+    return None
+
+
+def _pick_chunk_bwd(nw: int, n: int, c: int, cq: int, heads: int,
+                    itemsize: int, budget: int) -> int:
+    """The JAX backward's window chunk under `budget` (0: none fits)."""
+    fixed = ((3 * c * cq + cq * c) * itemsize + (3 * c * cq + cq * c) * 4
+             + 2 * heads * n * n * 4)
+    best = 0
+    for ch in range(1, nw + 1):
+        if nw % ch or not (ch == 1 or _sublane_ok(n, itemsize)):
+            continue
+        buf = (ch * n * c * itemsize * 2 + ch * n * c * 4 + ch * n * cq * 4
+               + 3 * ch * n * cq * 4
+               + (4 * ch * n * cq * itemsize if c >= 256 else 0)
+               + ch * n * c * 4 + 4 * ch * n * n * 4 + ch * n * n * 4)
+        if fixed + buf <= budget:
+            best = ch
+    return best
+
+
+def fused_msa_bwd_supported(nw: int, n: int, c: int, heads: int,
+                            itemsize: int = 2) -> bool:
+    """Whether the JAX fused backward fits some head split and chunk
+    (`_pick_head_groups` is not None)."""
+    for budget in (10 * _MIB, int(13.5 * _MIB)):
+        for g in (1, 2, 4, 8):
+            if heads % g or (g > 1 and ((heads // g) * (c // heads)) % 32):
+                continue
+            cq = (heads // g) * (c // heads)
+            if _pick_chunk_bwd(nw, n, c, cq, heads // g, itemsize,
+                               budget) >= 1:
+                return True
+    return False
+
+
+@functools.lru_cache(maxsize=None)
+def fused_msa_routed(nw: int, n: int, c: int, heads: int,
+                     itemsize: int = 2) -> bool:
+    """The JAX routing policy of the fused window MSA (K1/K2/K11, and in
+    training the save mode with K5/K6): sublane-aligned windows (window 12,
+    N = 144) whose head groups fit.  Window 7 (N = 49) is not routed: the
+    JAX package runs qkv -> the attention-core kernel (K10) -> proj."""
+    return (_sublane_ok(n, itemsize)
+            and _pick_fwd_groups(nw, n, c, heads, itemsize) is not None)
+
+
+@functools.lru_cache(maxsize=None)
+def fused3d_grouped_routed(nw: int, n: int, c: int, heads: int,
+                           itemsize: int = 2) -> bool:
+    """The JAX routing policy of the grouped padded 3D route (K2p): the
+    measured default width (LAVT_FUSED3D=96: C = 96, the first stage of
+    Video Swin-T/S), a sublane padding tax of at most 10 %, and head
+    groups that fit forward and backward.  Window (8, 12, 12) (N = 1152)
+    is not routed."""
+    if c != 96:
+        return False
+    n_p = _sublane_pad(n, itemsize)
+    if (n_p / n) ** 2 > 1.10:
+        return False
+    return (_pick_fwd_groups(nw, n_p, c, heads, itemsize) is not None
+            and fused_msa_bwd_supported(nw, n_p, c, heads, itemsize))
 
 
 # -- plain versions (f32 math, the kernels' rounding points) ---------------
@@ -175,9 +276,10 @@ def fused_window_msa_bwd_recompute_plain(x, ln, wqkv, bqkv, wproj, bproj,
 # -- CUDA launches -----------------------------------------------------------
 
 def fused_msa_supported(n: int, c: int, heads: int) -> bool:
-    """Geometries the CUDA kernel takes: window 12 (N = 144), head dim 32,
-    C a multiple of 64 (the out-projection GEMM's tile)."""
-    return n == 144 and heads > 0 and c == 32 * heads and c % 64 == 0
+    """Geometries the CUDA kernel takes: window 12 (N = 144), head dim 32
+    (so C = 32 heads; x streams through the kernel in 64-column chunks with
+    a 32-column tail)."""
+    return n == 144 and heads > 0 and c == 32 * heads
 
 
 def _require_all(checks, dev) -> None:

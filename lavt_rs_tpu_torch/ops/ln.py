@@ -48,7 +48,17 @@ def layer_norm_rows_bwd_plain(x: torch.Tensor, scale: torch.Tensor,
 
 
 def layer_norm_rows_supported(rows: int, c: int) -> bool:
-    return rows > 0 and c % 32 == 0 and 32 <= c <= 1024
+    """Shapes the CUDA kernel takes: C a multiple of 32 up to 4096."""
+    return rows > 0 and c % 32 == 0 and 32 <= c <= 4096
+
+
+def layer_norm_rows_routed(rows: int, c: int) -> bool:
+    """The JAX routing predicate of the stage norms
+    (`lavt_rs_tpu/ops/pallas/ln.py:layer_norm_rows_supported`, read by
+    `models/swin2d.py:_StageNorm`): K4 at lane-aligned widths up to 4096;
+    elsewhere (Swin-T/S/L's 96 and 192) the plain f32 LayerNorm, as the
+    JAX package runs `layer_norm_f32` through XLA there."""
+    return c % 128 == 0 and c <= 4096
 
 
 def layer_norm_rows(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,

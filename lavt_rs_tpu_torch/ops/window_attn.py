@@ -6,8 +6,9 @@ Counterpart of `lavt_rs_tpu/ops/pallas/window_attn.py`:
 (`_vjp_fwd`, `_vjp_bwd`) and `attention_core_bwd` (`_bwd_kernel`), and of
 `lavt_rs_tpu/ops/attention.py`'s dispatcher: q, k, v are (B, nW, heads,
 N, hd), the bias (heads, N, N) and the shift mask (nW, N, N) or None.
-Every video Swin block reaches it between its `qkv` and `proj` Linears
-(in training; at inference the first stage takes the grouped K2p route).
+Every window-7 2D Swin block and every video Swin block with N <= 400
+reaches it between its `qkv` and `proj` Linears (at video inference the
+C = 96 blocks take the grouped K2p route instead).
 
   * `window_attention_plain`: f32 math from the inputs: q·scale rounded
     to the input dtype, the scores, bias, mask and softmax in f32, P
@@ -25,13 +26,25 @@ Every video Swin block reaches it between its `qkv` and `proj` Linears
     of both on the CPU (so the CPU tests run the plain backward, not
     autograd through the plain forward).
 
-The JAX package routes its kernels only where N <= 256 (a TPU VMEM and
-measurement gate, `_attn_tiling`); the port's kernels also take the
-8-frame video windows (N = 392).
+Routing: `attn_fwd_supported` is the JAX package's predicate
+(`_attn_tiling`'s arithmetic, copied): the 2D Swin block takes K10 (and
+K9 in training) exactly where it holds, as the JAX dispatcher does
+(`lavt_rs_tpu/ops/attention.py:65-74`); it holds at window 7 (N = 49) for
+every Swin size, where the JAX backward predicate
+(`attention_core_bwd_supported`) holds too, so the JAX package takes its
+K9 there as well (tests/test_torch_routing.py holds both).  It is False
+above N = 256 (a TPU VMEM and measurement gate), where the JAX package
+runs XLA.  The 3D video blocks route by `attn_fwd_routed_3d`, the same
+predicate plus the port's extension to N <= 400, so the 8-frame video
+windows (N = 392) keep K10/K9 as they have since the video slice; window
+(8, 12, 12) (N = 1152) runs the torch chain of `ops/attention.py`, as the
+JAX package runs XLA there.  The kernels take head dim 32 only
+(`window_attn_supported`); the wrappers raise on anything else.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -108,6 +121,51 @@ def attention_core_bwd_plain(q, k, v, bias, mask, do,
     dq = rounded(ds) @ k.float() * scale
     dk = rounded(ds).transpose(-1, -2) @ rounded(q.float() * scale)
     return dq.to(dt), dk.to(dt), dv.to(dt), ds.sum(dim=(0, 1))
+
+
+def _attn_tiling(h: int, nw: int, n: int, hd: int, itemsize: int,
+                 score_tiles: int, budget: int):
+    """The JAX kernels' (head-group, window-chunk) search
+    (`lavt_rs_tpu/ops/pallas/window_attn.py:_attn_tiling`): the largest
+    per-step batch cw hg whose f32 score tiles and blocks fit the TPU
+    budget; None above N = 256 or when a step would be too small."""
+    if n > 256:
+        return None
+    best = None
+    for hg in range(h, 0, -1):
+        if h % hg:
+            continue
+        for cw in range(1, nw + 1):
+            if nw % cw:
+                continue
+            slots = cw * hg
+            cost = (hg * n * n * 4 + score_tiles * slots * n * n * 4
+                    + 2 * cw * n * n * 2 + 2 * 5 * slots * n * hd * itemsize)
+            if cost <= budget:
+                key = (slots, hg)
+                if best is None or key > best[0]:
+                    best = (key, hg, cw)
+    if best is None:
+        return None
+    _, hg, cw = best
+    if cw * hg < 2 and h * nw > cw * hg:
+        return None
+    return hg, cw
+
+
+@functools.lru_cache(maxsize=None)
+def attn_fwd_supported(nw: int, n: int, heads: int, hd: int) -> bool:
+    """The JAX routing predicate of K10 (`attn_fwd_supported`)."""
+    return _attn_tiling(heads, nw, n, hd, 4, score_tiles=3,
+                        budget=11 * 1024 * 1024) is not None
+
+
+def attn_fwd_routed_3d(nw: int, n: int, heads: int, hd: int) -> bool:
+    """The 3D blocks' route to K10 (K10 save + K9 in training): the JAX
+    predicate, plus the port's extension to N <= 400, which takes the
+    8-frame video windows (N = 392) that the JAX package leaves to XLA
+    behind its TPU gate of N <= 256."""
+    return attn_fwd_supported(nw, n, heads, hd) or n <= MAX_N
 
 
 def window_attn_supported(n: int, hd: int) -> bool:

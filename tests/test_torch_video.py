@@ -222,10 +222,14 @@ def test_swin_block3d(rng, monkeypatch, route, geom):
     padded route (K2p's plain version; JAX: LAVT_FUSED3D=all, the padded
     K2 in interpret mode) and on the K10 route (JAX: LAVT_FUSED3D=off,
     K10 in interpret mode where N <= 256, else XLA), for shifted,
-    unshifted and depth-clamped windows."""
+    unshifted and depth-clamped windows.  The port's route is forced the
+    same way, through `fused_msa.fused3d_grouped_routed`."""
     d, h, w, ws, ss = GEOMS[geom]
     c, heads = 64, 2
     monkeypatch.setenv("LAVT_FUSED3D", "all" if route == "grouped" else "off")
+    monkeypatch.setattr(fused_msa, "fused3d_grouped_routed",
+                        _grouped_at(c) if route == "grouped"
+                        else lambda *a, **k: False)
     x = rng.standard_normal((1, d, h, w, c)).astype(np.float32)
     jblk = jswin3d.SwinBlock3D(dim=c, num_heads=heads, window_size=ws,
                                shift_size=ss, use_pallas=True)
@@ -234,12 +238,11 @@ def test_swin_block3d(rng, monkeypatch, route, geom):
     params = random_variables(shapes["params"], np.random.default_rng(geom))
     with pltpu.force_tpu_interpret_mode():
         want = jblk.apply({"params": params}, jnp.asarray(x))
-    blk = swin3d.SwinBlock3D(c, heads, ws, ss,
-                             grouped=route == "grouped").eval()
+    blk = swin3d.SwinBlock3D(c, heads, ws, ss).eval()
     blk.load_state_dict(_block_state_dict(params), strict=False)
     ws_, _ = window.get_window_size_3d((d, h, w), ws, ss)
     n = ws_[0] * ws_[1] * ws_[2]
-    assert blk.takes_grouped_route(n) == (route == "grouped")
+    assert (blk.route(n, 1) == "grouped") == (route == "grouped")
     with torch.no_grad():
         got = blk(_t(x))
     _close(got.numpy(), want)
@@ -290,6 +293,23 @@ def test_build_tpwam_kinds():
 
 # -- the whole small model -----------------------------------------------------
 
+def _grouped_at(width):
+    """`fused3d_grouped_routed` forced on at C = width wherever K2p's kernel
+    takes the window, as the JAX package's LAVT_FUSED3D=all forces it."""
+    def routed(nw, n, c, heads, itemsize=2):
+        return c == width and fused_msa.padded_msa_supported(
+            fused_msa.pad_tokens(n), c, heads)
+    return routed
+
+
+@pytest.fixture
+def stage1_grouped(monkeypatch):
+    """Stage 1 (C = 32) of the small model on the grouped padded route
+    (K2p's plain version here), stages 2-4 on K10."""
+    monkeypatch.setattr(fused_msa, "fused3d_grouped_routed",
+                        _grouped_at(SWIN["embed_dim"]))
+
+
 @pytest.fixture(scope="module")
 def video_pair():
     jcfg = JC.lavt_video_tiny().replace(
@@ -303,8 +323,8 @@ def video_pair():
                                             ids))
     shapes = {k: shapes[k] for k in ("params", "batch_stats")}
     variables = random_variables(shapes, np.random.default_rng(7))
-    # the port routes stage 1 through the grouped padded route, stages 2-4
-    # through K10, all on the plain versions here
+    # with `stage1_grouped` the port routes stage 1 through the grouped
+    # padded route, stages 2-4 through K10, all on the plain versions here
     cfg = C.lavt_video_tiny().replace(
         swin=C.SwinConfig(**SWIN, drop_path_rate=0.1),
         bert=C.BertConfig(**BERT), img_size=IMG, max_tokens=TOKENS,
@@ -322,10 +342,10 @@ def _clip_inputs(rng):
     return video, ids, mask
 
 
-def test_lavt_video_logit_parity(video_pair):
+def test_lavt_video_logit_parity(video_pair, stage1_grouped):
     japply, variables, pm = video_pair
-    assert [b.takes_grouped_route(196) for layer in pm.backbone.layers
-            for b in layer.blocks] == [True] * 2 + [False] * 6
+    assert pm.backbone.kernel_plan(T, (IMG, IMG), 4)[0] == {"K2p": 2,
+                                                            "K10": 6}
     video, ids, mask = _clip_inputs(np.random.default_rng(1))
     want = np.asarray(japply(variables, video, ids, mask))
     with torch.no_grad():
@@ -337,7 +357,7 @@ def test_lavt_video_logit_parity(video_pair):
     assert agree.mean() > 0.9999
 
 
-def test_clip_iou(video_pair):
+def test_clip_iou(video_pair, stage1_grouped):
     """The per-clip A2D step: uint8 clip, on-device normalize, forward,
     argmax of the annotated frame, inter/union (as evaluate_a2d's sink)."""
     from lavt_rs_tpu.ops.norm import maybe_normalize_image
@@ -363,7 +383,8 @@ def test_clip_iou(video_pair):
         np.testing.assert_allclose(g.item(), w, rtol=0, atol=3)
 
 
-def test_video_plain_route_equals_kernel_route_on_cpu(video_pair):
+def test_video_plain_route_equals_kernel_route_on_cpu(video_pair,
+                                                      stage1_grouped):
     """use_kernels=False takes the K10 route everywhere with the plain
     attention; the kernel route (grouped padded K2p at stage 1) gives
     the same logits up to f32 summation order."""

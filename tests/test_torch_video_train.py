@@ -40,7 +40,7 @@ from lavt_rs_tpu_torch import config as C
 from lavt_rs_tpu_torch.convert.from_jax import state_dict_from_jax
 from lavt_rs_tpu_torch.models import swin3d, tpwam
 from lavt_rs_tpu_torch.models.factory import build_model
-from lavt_rs_tpu_torch.ops import window_attn
+from lavt_rs_tpu_torch.ops import fused_msa, window_attn
 from lavt_rs_tpu_torch.ops.window import (relative_bias_from_table_3d,
                                           shift_mask_3d)
 from lavt_rs_tpu_torch.train import optim
@@ -48,7 +48,8 @@ from lavt_rs_tpu_torch.train.step import (create_train_state,
                                           make_video_train_step)
 from test_torch_model import random_variables
 from test_torch_train import _close, _grads_as_state
-from test_torch_video import BERT, IMG, SWIN, T, TOKENS, _qkv_bias_mask, _t
+from test_torch_video import (BERT, IMG, SWIN, T, TOKENS, _grouped_at,
+                              _qkv_bias_mask, _t)
 
 TOL = 2e-4
 SCALE = 32 ** -0.5
@@ -335,17 +336,26 @@ def test_video_label_param_matches_jax_on_mapped_names(video_steps):
     assert seen == {"decay", "no_decay", "frozen"}
 
 
-def test_stage1_takes_the_grouped_route_in_eval_only(video_steps):
+def test_stage1_takes_the_grouped_route_in_eval_only(video_steps,
+                                                     monkeypatch):
     """Training keeps every 3D block on the K10 / K9 route, as the JAX
     package gates its grouped route on `deterministic`; in eval mode the
-    first stage takes the grouped padded route (K2p)."""
+    first stage takes the grouped padded route (K2p), here forced at this
+    model's C = 32 as LAVT_FUSED3D=all forces it in the JAX package.  At
+    its default the route takes C = 96 (Video Swin-T stage 1, N = 392)."""
     pm = video_steps["pm"]
     blocks = [b for layer in pm.backbone.layers for b in layer.blocks]
-    assert [b.takes_grouped_route(196) for b in blocks] == [False] * 8
+    wide = swin3d.SwinBlock3D(96, 3, (8, 7, 7))
+    assert wide.route(392, 324) == "grouped"
+    assert wide.route(392, 324, train=True) == "core"
+    assert pm.backbone.kernel_plan(T, (IMG, IMG), 4, train=True)[0] == {
+        "K10": 8, "K9": 8}
+    monkeypatch.setattr(fused_msa, "fused3d_grouped_routed", _grouped_at(32))
+    assert [b.route(196, 9, 4, b.training) for b in blocks] == ["core"] * 8
     try:
         pm.eval()
-        assert ([b.takes_grouped_route(196) for b in blocks]
-                == [True] * 2 + [False] * 6)
+        assert ([b.route(196, 9, 4, b.training) for b in blocks]
+                == ["grouped"] * 2 + ["core"] * 6)
     finally:
         pm.train()
 
