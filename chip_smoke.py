@@ -19,7 +19,18 @@
    for a forward, autograd backward through that chain for a backward)
    are timed with CUDA events, and each call's bound (the larger of its
    bytes over 3.35 TB/s and its operations over 989 TFLOP/s) is printed
-   beside its time.  K11 (the window MSA over a padded, pre-rolled
+   beside its time.  K3 and K8 are held to their plain version on out and
+   on the MLP branch out - x (so that the residual does not hide a branch
+   error).  At each stage's shape (and Swin-T stage 3's in phase 7) every
+   launch of K3/K8 (LN rows, fc1 + GELU, fc2 + residual) and of K7 (prep,
+   dual GEMM, the two weight-grad GEMMs, dyln, LN backward) is timed on
+   the device (torch.profiler) beside its bound; each entry point's
+   device time beside its library chain's (the CUDA-event times above
+   include the host's time to enqueue, which dominates the autograd chain
+   of K7's yardstick at stages 2-4) and its host time per call; and one
+   K3, one K8 and one K7 call run under torch.profiler, which must see
+   only the port's own kernels (no cuBLAS, cuDNN or CUTLASS library
+   kernel).  K11 (the window MSA over a padded, pre-rolled
    feature map) is checked at stages 3 and 4, unshifted and shifted, on a
    non-square map and at the stage-1/2 shapes, and timed beside its
    bound, its plain version, an SDPA chain (partition, linear,
@@ -364,6 +375,190 @@ def compare_lse(name, got, want):
     return err
 
 
+def compare_branch(name, got, want, x, tol=None):
+    """K3/K8: the MLP branch out - x against the plain version's, within
+    TOL abs + TOL rel of the branch plus one bf16 step of the output
+    (2^-7 |out|: the kernel's and the plain version's f32 sums round to
+    bf16 on either side of a boundary).  Checking out alone lets the
+    residual x hide a branch error up to TOL |x|."""
+    import torch
+
+    torch.cuda.synchronize()
+    tol = TOL[name] if tol is None else tol
+    w_out = want.float()
+    g, w = got.float() - x.float(), w_out - x.float()
+    err = (g - w).abs()
+    if not bool((err <= tol + tol * w.abs() + 2 ** -7 * w_out.abs()).all()):
+        raise RuntimeError(f"{name}: the branch out - x disagrees with the "
+                           f"plain version's (max abs err "
+                           f"{err.max().item():.4g}, tol {tol} abs + {tol} "
+                           f"rel + 2^-7 |out|)")
+    return err.max().item()
+
+
+def compare_out_and_branch(x, tol=None):
+    """A check of K3/K8 on out and on the branch out - x."""
+    return lambda name, got, want: max(compare(name, got, want, tol),
+                                       compare_branch(name, got, want, x, tol))
+
+
+def only_port_kernels(what, fns):
+    """Runs fns under torch.profiler: every kernel they launch on the card
+    must be one of the port's own (namespace lavt::, built from csrc into
+    build/kernels), none of cuBLAS, cuDNN or a CUTLASS library; returns
+    the kernels' names."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn in fns:  # warm: the build and the first launches happen here
+        fn()
+    torch.cuda.synchronize()
+    names = set()
+    for _ in range(3):  # a session can come back without device records
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for fn in fns:
+                fn()
+            torch.cuda.synchronize()
+        names = {e.key for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0)) > 0}
+        if names:
+            break
+    if not names:
+        raise RuntimeError(f"{what}: torch.profiler recorded no kernel")
+    foreign = sorted(n for n in names if "lavt::" not in n)
+    if foreign:
+        raise RuntimeError(f"{what}: launched kernels that are not the "
+                           f"port's: {foreign}")
+    short = sorted({n.split("(")[0].split("<")[0].replace("void ", "")
+                    for n in names})
+    log(f"{what} under torch.profiler: {len(names)} kernels, all the port's "
+        f"({', '.join(short)})")
+    return names
+
+
+def mlp_launch_work(m, c, splits):
+    """(operations, bytes) of each launch of K3/K8 and K7 at (M, C), hidden
+    4C: each input read once and each output written once (the f32
+    partials of the weight grads: `splits` of each)."""
+    hd = 4 * c
+    act, hid, w = m * c * 2, m * hd * 2, hd * c * 2
+    rt, lb = -(-m // 64), -(-m // 64)
+    return {
+        "LN rows": (8 * m * c, 2 * act + 4 * c),
+        "fc1+GELU": (2 * m * c * hd, act + w + 2 * hd + hid),
+        "fc2+residual": (2 * m * hd * c, hid + w + 2 * act + 2 * c),
+        "prep": (10 * m * c, 4 * act + 8 * m + 4 * c),
+        "dual GEMM": (4 * m * c * hd, 2 * act + 2 * w + 2 * hid + 4 * rt * hd),
+        "wgrad": (4 * m * c * hd, 2 * act + 2 * hid + 2 * splits * 4 * hd * c),
+        "dyln": (2 * m * hd * c, hid + w + 4 * m * c),
+        "LN bwd": (12 * m * c, 4 * m * c + 3 * act + 8 * m + 12 * lb * c),
+    }
+
+
+def device_ms(fn, iters=10, tries=3):
+    """Device time of one call of fn: the time of the kernels it launches,
+    from torch.profiler over `iters` calls after a warm-up, without the
+    host's time between launches (which a CUDA-event loop of short
+    launches measures instead).  A session that recorded fewer kernels
+    than one call launches, times `iters`, is dropped and taken again;
+    after `tries` such sessions the time is None (not measured)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def session(n):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        us = sum(getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+                 for e in events)
+        return us, sum(e.count for e in events)
+
+    fn()
+    torch.cuda.synchronize()
+    per_call = max(session(1)[1] for _ in range(tries))
+    for _ in range(tries):
+        us, kernels = session(iters)
+        if per_call and kernels >= per_call * iters:
+            return us / 1e3 / iters
+    return None
+
+
+def fmt_ms(ms):
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
+def host_us(fn, iters=50):
+    """Host time to enqueue one call of fn (no synchronisation inside the
+    loop), in microseconds."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    us = (time.perf_counter() - t0) * 1e6 / iters
+    torch.cuda.synchronize()
+    return us
+
+
+def mlp_launch_phase(what, args, gy, keep, tail):
+    """K3/K8 and K7 launch by launch at (M, C): each launch's device time
+    beside its bound, each entry point's device time (beside its library
+    chain's) and host time per call, and one K3, one K8 and one K7 call
+    under torch.profiler, which must see only the port's kernels."""
+    from lavt_rs_tpu_torch.ops import fused_mlp as fm
+
+    x, ga, be, w1, b1, w2, b2 = args
+    m, c = x.shape
+    plan = fm.bwd_plan(m, c, w1.shape[0])
+    xn = fm.mlp_ln_rows(x, ga, be)
+    h = fm.gemm_bias_gelu(xn, w1, b1)
+    xn_b, stats, dm = fm.mlp_bwd_prep(x, gy, ga, be, keep, tail)
+    h_b, dh, _ = fm.dual_gemm_gelu_bwd(xn_b, dm, w1, b1, w2)
+    dyln = fm.dgrad(dh, w1)
+    sr = plan.split_rows
+    launches = {
+        "LN rows": lambda: fm.mlp_ln_rows(x, ga, be),
+        "fc1+GELU": lambda: fm.gemm_bias_gelu(xn, w1, b1),
+        "fc2+residual": lambda: fm.gemm_residual(h, w2, b2, x, keep, tail),
+        "prep": lambda: fm.mlp_bwd_prep(x, gy, ga, be, keep, tail),
+        "dual GEMM": lambda: fm.dual_gemm_gelu_bwd(xn_b, dm, w1, b1, w2),
+        "wgrad": lambda: (fm.wgrad(dm, h_b, sr), fm.wgrad(dh, xn_b, sr)),
+        "dyln": lambda: fm.dgrad(dh, w1),
+        "LN bwd": lambda: fm.ln_bwd_rows(dyln, x, gy, ga, stats, keep, tail),
+    }
+    work = mlp_launch_work(m, c, plan.splits)
+    parts = []
+    for name, fn in launches.items():
+        b, by = bound_ms(work[name])
+        parts.append(f"{name} {fmt_ms(device_ms(fn))} (bound {b:.4f} {by})")
+    log(f"LN-MLP launches per call, {what} ({m}, {c}), device ms: "
+        + "; ".join(parts))
+    calls = {"K3": lambda: fm.fused_ln_mlp(*args),
+             "K8": lambda: fm.fused_ln_mlp_droppath(*args, keep, tail),
+             "K7": lambda: fm.fused_ln_mlp_bwd(x, gy, ga, be, w1, b1, w2, keep,
+                                               tail)}
+    kr = keep.repeat_interleave(tail)[:, None].bfloat16()
+    chains = {"K3": lambda: torch_bf16_mlp(*args),
+              "K8": lambda: torch_bf16_mlp(*args, kr),
+              "K7": chain_grad(lambda *t: torch_bf16_mlp(*t, kr), args, gy)}
+    log(f"LN-MLP calls at ({m}, {c}): device ms kernel | library chain "
+        + ", ".join(f"{k} {fmt_ms(device_ms(f))} | "
+                    f"{fmt_ms(device_ms(chains[k]))}" for k, f in calls.items())
+        + "; host us to enqueue one call "
+        + ", ".join(f"{k} {host_us(f):.1f}" for k, f in calls.items()))
+    only_port_kernels(f"K3 / K8 / K7 calls at ({m}, {c})", list(calls.values()))
+
+
 # -- the library chains (timing baselines only) -------------------------------
 
 def torch_bf16_ln(x, s, b):
@@ -498,7 +693,8 @@ def kernel_phases(dev):
         measure(res, "K3", f"{st} ({rows}, {c})", depth,
                 lambda: fused_mlp.fused_ln_mlp(*args),
                 lambda: fused_mlp.fused_ln_mlp_plain(*args),
-                lambda: torch_bf16_mlp(*args), mlp_work(rows, c), compare)
+                lambda: torch_bf16_mlp(*args), mlp_work(rows, c),
+                compare_out_and_branch(args[0]))
         keep = torch.where(torch.arange(BATCH, device=dev) % 3 != 1,
                            1.0 / 0.7, 0.0).float()
         keep_rows = keep.repeat_interleave(side * side)[:, None].bfloat16()
@@ -509,7 +705,7 @@ def kernel_phases(dev):
                 lambda: fused_mlp.fused_ln_mlp_droppath_plain(*args, keep,
                                                               tail),
                 lambda: torch_bf16_mlp(*args, keep_rows),
-                mlp_work(rows, c, keep=BATCH), compare)
+                mlp_work(rows, c, keep=BATCH), compare_out_and_branch(args[0]))
         gy = rnd((rows, c))
         x, gam, bet, w1, b1, w2, b2 = args
         variants = [(keep, dp_blocks)] + ([(None, 1)] if si == 0 else [])
@@ -523,6 +719,7 @@ def kernel_phases(dev):
                         x, gy, gam, bet, w1, b1, w2, kp, tail),
                     chain_grad(lambda *t: torch_bf16_mlp(*t, kr), args, gy),
                     mlp_work(rows, c, backward=True), compare_grads)
+        mlp_launch_phase(st, args, gy, keep, tail)
         del args, gy, x, w1, w2
         # K1 at the unpadded stages, K2 at the padded ones (pad to 12k)
         hp = -(-side // 12) * 12
@@ -1901,12 +2098,14 @@ def widths_kernel_phase(dev, res):
     measure(res, "K3@384", f"Swin-T stage 3 ({rows}, {c})", 6,
             lambda: fused_mlp.fused_ln_mlp(*args),
             lambda: fused_mlp.fused_ln_mlp_plain(*args),
-            lambda: torch_bf16_mlp(*args), mlp_work(rows, c), check(TOL["K3"]))
+            lambda: torch_bf16_mlp(*args), mlp_work(rows, c),
+            compare_out_and_branch(args[0], TOL["K3"]))
     measure(res, "K8@384", f"Swin-T stage 3 ({rows}, {c}) keep", 6,
             lambda: fused_mlp.fused_ln_mlp_droppath(*args, keep, tail),
             lambda: fused_mlp.fused_ln_mlp_droppath_plain(*args, keep, tail),
             lambda: torch_bf16_mlp(*args, keep_rows),
-            mlp_work(rows, c, keep=BATCH), check(TOL["K8"]))
+            mlp_work(rows, c, keep=BATCH),
+            compare_out_and_branch(args[0], TOL["K8"]))
     gy = rnd((rows, c))
     x, gam, bet, w1, b1, w2, _ = args
     measure(res, "K7@384", f"Swin-T stage 3 ({rows}, {c}) keep", 6,
@@ -1916,6 +2115,7 @@ def widths_kernel_phase(dev, res):
                                                      w2, keep, tail),
             chain_grad(lambda *t: torch_bf16_mlp(*t, keep_rows), args, gy),
             mlp_work(rows, c, backward=True), compare_grads)
+    mlp_launch_phase("Swin-T stage 3", args, gy, keep, tail)
     del args, gy, x
     torch.cuda.empty_cache()
 
@@ -2391,6 +2591,7 @@ def main():
     # -- P1 / P2: the head-batching probe --------------------------------------
     probe_launches = probe_phase(dev, card, res)
     log(f"probe done at {time.perf_counter() - t_start:.1f} s")
+
 
     launches = {k: infer_launches[k] for k in ("K1", "K3", "K4")}
     launches["K11"] = eval_launches["K11"]

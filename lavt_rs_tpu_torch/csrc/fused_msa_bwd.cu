@@ -17,7 +17,7 @@
 //   1. gemm_bf16 (dattn), 2. msa_bwd_attn_kernel (per window and head:
 //   o, dq, dk, dv, dbias and dbqkv partials), 3. gemm_bf16 (dx),
 //   4./5. gemm_bf16 split over rows (dWqkv, dWproj), 6. colsum_bf16
-//   (dbproj; K7's db2 too), 7. sum_partials for every split reduction.
+//   (dbproj), 7. sum_partials for every split reduction.
 //
 // Bound on the H100: at hd = 32 the per-head N x N products (five of
 // 2 N^2 hd flops per window and head) and the dW/dx GEMMs (8 rows C^2
@@ -366,19 +366,15 @@ __global__ void sum_partials_kernel(const float* __restrict__ part, float* __res
   }
 }
 
-// part[z cols + c] = sum of x[r, c] keep[r / rows_per_sample] (f32; keep
-// 1 when null) over rows r of split z; grid (ceil(cols / 256), splits).
-__global__ void colsum_bf16_kernel(const bf16* __restrict__ x, const float* __restrict__ keep,
-                                   float* __restrict__ part, int rows, int cols,
-                                   int rows_per_split, int rows_per_sample) {
+// part[z cols + c] = sum of x[r, c] (f32) over rows r of split z; grid
+// (ceil(cols / 256), splits).
+__global__ void colsum_bf16_kernel(const bf16* __restrict__ x, float* __restrict__ part, int rows,
+                                   int cols, int rows_per_split) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= cols) return;
   const int r0 = blockIdx.y * rows_per_split, r1 = min(rows, r0 + rows_per_split);
   float s = 0.f;
-  for (int r = r0; r < r1; ++r) {
-    const float v = to_f(x[static_cast<size_t>(r) * cols + c]);
-    s += keep != nullptr ? v * keep[r / rows_per_sample] : v;
-  }
+  for (int r = r0; r < r1; ++r) s += to_f(x[static_cast<size_t>(r) * cols + c]);
   part[static_cast<size_t>(blockIdx.y) * cols + c] = s;
 }
 
@@ -433,13 +429,12 @@ extern "C" int lavt_sum_partials(const void* part, void* out, int parts, long lo
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int lavt_colsum_bf16(const void* x, const void* keep, void* part, int rows, int cols,
-                                int splits, int rows_per_sample, void* stream) {
+extern "C" int lavt_colsum_bf16(const void* x, void* part, int rows, int cols, int splits,
+                                void* stream) {
   using namespace lavt;
   const int per = (rows + splits - 1) / splits;
   colsum_bf16_kernel<<<dim3((cols + 255) / 256, splits), 256, 0,
                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const float*>(keep), static_cast<float*>(part),
-      rows, cols, per, rows_per_sample);
+      static_cast<const bf16*>(x), static_cast<float*>(part), rows, cols, per);
   return static_cast<int>(cudaGetLastError());
 }

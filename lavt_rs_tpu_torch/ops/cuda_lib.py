@@ -26,7 +26,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("ln.cu", "fused_mlp.cu", "fused_msa.cu", "fused_msa_bwd.cu",
            "fused_mlp_bwd.cu", "window_attn.cu", "probe_headbatch.cu")
-HEADERS = ("common.cuh",)
+HEADERS = ("common.cuh", "gemm_sm90.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -38,15 +38,22 @@ F = ctypes.c_float
 # argtypes of each C entry point (pointers and the stream as c_void_p)
 SIGNATURES = {
     "lavt_layer_norm_rows": (P, P, P, P, I, I, F, P),
-    "lavt_fused_ln_mlp": (P, P, P, P, P, P, P, P, P, I, I, I, I, F, P),
+    "lavt_mlp_ln_rows": (P, P, P, P, I, I, F, P),
+    "lavt_gemm_bias_gelu": (P, P, P, P, I, I, I, P),
+    "lavt_gemm_residual": (P,) * 6 + (I, I, I, I, P),
+    "lavt_fused_ln_mlp": (P,) * 11 + (I, I, I, I, F, P),
     "lavt_window_msa_attn": (P,) * 13 + (I, I, I, I, F, F, P),
     "lavt_window_msa_2d_attn": (P,) * 6 + (I,) * 5 + (F, P),
     "lavt_msa_bwd_attn": (P,) * 9 + (I, I, I, I, F, P),
     "lavt_gemm_bf16": (P,) * 5 + (I,) * 9 + (P,),
     "lavt_sum_partials": (P, P, I, L, P),
-    "lavt_colsum_bf16": (P, P, P, I, I, I, I, P),
-    "lavt_mlp_bwd_rows": (I, I),
-    "lavt_mlp_bwd": (P,) * 8 + (I,) + (P,) * 8 + (I, I, I, I, F, P),
+    "lavt_colsum_bf16": (P, P, I, I, I, P),
+    "lavt_mlp_bwd_prep": (P,) * 8 + (I, I, I, F, P),
+    "lavt_dual_gemm_gelu_bwd": (P,) * 8 + (I, I, I, P),
+    "lavt_wgrad": (P, P, P) + (I,) * 5 + (P,),
+    "lavt_dgrad": (P, P, P, I, I, I, P),
+    "lavt_ln_bwd_rows": (P,) * 5 + (I,) + (P,) * 3 + (I, I, P),
+    "lavt_mlp_bwd": (P,) * 8 + (I,) + (P,) * 10 + (I,) * 5 + (F, P),
     "lavt_window_attn": (P,) * 7 + (I,) * 6 + (F, P),
     "lavt_window_attn_bwd": (P,) * 13 + (I,) * 7 + (F, P),
     "lavt_window_msa_np": (P,) * 6 + (I,) * 6 + (F, P),

@@ -9,29 +9,45 @@ Counterpart of `lavt_rs_tpu/ops/pallas/fused_mlp.py`:
     dW1, db1, dW2, db2, with or without keep;
   * `FusedLnMlp`, the autograd Function the model trains through.
 The LayerNorm is the two-pass one (mean of (x − μ)², eps 1e-5) and the
-GELU the exact erf one.  The normalized rows and the GELU output are
-rounded to x's dtype before their GEMMs, as in the TPU kernel, and the
-backward rounds dmlp = gy keep and dhpre before theirs.  Weights are
-torch `nn.Linear` layout: w1 (4C, C), w2 (C, 4C).
+GELU the exact erf one (the CUDA kernels evaluate erf as the TPU kernel
+does, by Abramowitz & Stegun 7.1.26, within 1.5e-7).  The normalized rows
+and the GELU output are rounded to x's dtype before their GEMMs, as in the
+TPU kernel, and the backward rounds dmlp = gy keep and dhpre before
+theirs.  Weights are torch `nn.Linear` layout: w1 (4C, C), w2 (C, 4C).
 
 Each wrapper takes the plain version for a CPU tensor and launches the
-CUDA kernels (csrc/fused_mlp.cu, csrc/fused_mlp_bwd.cu) for a CUDA tensor.
+CUDA kernels (csrc/fused_mlp.cu, csrc/fused_mlp_bwd.cu, on the GEMM core of
+csrc/gemm_sm90.cuh) for a CUDA tensor.  K3/K8 is three launches, each with
+a wrapper and a plain version of its own here: `mlp_ln_rows` (the two-pass
+LN), `gemm_bias_gelu` (fc1 + b1 + GELU), `gemm_residual` (fc2 + b2, keep,
++ x).  K7 is `mlp_bwd_prep` (xn, (mu, rstd), dmlp), `dual_gemm_gelu_bwd`
+(h, dhpre and the db1 partials from one pass over hpre and dh), two
+`wgrad` (dW2 = dmlp^T h, dW1 = dhpre^T xn, split over the rows), `dgrad`
+(dyln = dhpre W1) and `ln_bwd_rows` (dx; dgamma, dbeta and db2 partials),
+then the partials' fixed-order sums.  `bwd_plan` sizes the partials and
+`bwd_buffers` cuts K7's buffers from two workspaces.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
 from . import cuda_lib
-from .fused_msa import colsum, sum_partials
+from .fused_msa import sum_partials
 
 EPS = 1e-5
 KERNEL_WIDTHS = (128, 256, 384, 512, 1024)
 # f32 bytes of split partials of dW1 + dW2 the K7 launch may allocate
 _DW_PARTIAL_BYTES = 64 * 1024 * 1024
+GEMM_TILE = 128   # rows and columns of a plain product's tile (GEMM core)
+DUAL_ROWS = 64    # rows of a dual-GEMM tile: the db1 partials
+GEMM_DEPTH = 64   # rows of K in one pipeline stage (a k-tile)
+LN_BWD_ROWS = 64  # rows per block of the LN-backward row kernel
+_SMS = 132        # streaming multiprocessors of an H100 SXM
 
 
 def _keep_rows(keep: Optional[torch.Tensor], rows: int):
@@ -128,27 +144,285 @@ def _check(x, params, keep, rows) -> None:
              ("w2", w2, (c, hidden))]
     if len(params) > 5:
         named.append(("b2", params[5], (c,)))
-    for name, t, shape in named:
-        cuda_lib.require(t, name, torch.bfloat16, x.device, shape)
-        # 16-byte vector loads; WMMA reads the weights in 32-byte rows
-        if t.data_ptr() % (32 if name in ("w1", "w2") else 16):
-            raise ValueError(f"{name}: data is not aligned for the kernel")
+    _require_bf16(named, x.device)
+    _require_keep(keep, m, rows, x.device)
+
+
+def _require_keep(keep, m: int, rows: int, device) -> None:
+    """keep, when given: (M / rows,) f32, one scale per sample of rows."""
     if keep is not None:
         if rows <= 0 or m % rows:
             raise ValueError(f"keep: {m} rows are not samples of {rows}")
-        cuda_lib.require(keep, "keep", torch.float32, x.device, (m // rows,))
+        cuda_lib.require(keep, "keep", torch.float32, device, (m // rows,))
 
+
+def _require_bf16(named, device) -> None:
+    """Contiguous bf16 tensors on `device` (of the given shapes), 16-byte
+    aligned: TMA reads the GEMM operands, the row kernels read pairs."""
+    for name, t, shape in named:
+        cuda_lib.require(t, name, torch.bfloat16, device, shape)
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: data is not aligned for the kernel")
+
+
+def _launch(name: str, *args) -> None:
+    """Call the C entry point `name` on the current stream: tensors (and
+    None) as pointers, the rest as they are."""
+    dev = next(a.device for a in args if isinstance(a, torch.Tensor))
+    conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    err = getattr(cuda_lib.lib(), name)(*conv, cuda_lib.stream_ptr(dev))
+    cuda_lib.check(err, name)
+
+
+def _supported(m: int, c: int, hidden: int) -> None:
+    if not fused_ln_mlp_supported(m, c, hidden):
+        raise ValueError(f"LN-MLP kernels: unsupported (M, C, hidden) "
+                         f"{(m, c, hidden)}")
+
+
+# -- K3 / K8: the three launches and their plain versions --------------------
+
+def mlp_ln_rows_plain(x, g, be, eps: float = EPS):
+    """(a): the two-pass LayerNorm of x's rows, in x's dtype."""
+    return _ln_two_pass(x, g, be, eps)[3].to(x.dtype)
+
+
+def gemm_bias_gelu_plain(xn, w1, b1):
+    """(b): h = gelu(xn W1^T + b1) in xn's dtype, f32 math."""
+    hpre = xn.float() @ w1.float().t() + b1.float()
+    return F.gelu(hpre, approximate="none").to(xn.dtype)
+
+
+def gemm_residual_plain(h, w2, b2, x, keep=None, rows: int = 1):
+    """(c): x + keep[row // rows] (h W2^T + b2) in x's dtype, f32 math."""
+    y = h.float() @ w2.float().t() + b2.float()
+    kr = _keep_rows(keep, rows)
+    return (x.float() + (y if kr is None else y * kr)).to(x.dtype)
+
+
+def mlp_ln_rows(x, g, be, eps: float = EPS):
+    """(a) on the card: x (M, C) bf16 -> xn (M, C) bf16."""
+    if x.device.type == "cpu":
+        return mlp_ln_rows_plain(x, g, be, eps)
+    m, c = x.shape
+    _supported(m, c, GEMM_TILE)
+    _require_bf16([("x", x, None), ("g", g, (c,)), ("be", be, (c,))],
+                  x.device)
+    xn = torch.empty_like(x)
+    _launch("lavt_mlp_ln_rows", x, g, be, xn, m, c, float(eps))
+    return xn
+
+
+def gemm_bias_gelu(xn, w1, b1):
+    """(b) on the card: xn (M, C), w1 (hidden, C) -> h (M, hidden) bf16."""
+    if xn.device.type == "cpu":
+        return gemm_bias_gelu_plain(xn, w1, b1)
+    (m, c), hidden = xn.shape, w1.shape[0]
+    _supported(m, c, hidden)
+    _require_bf16([("xn", xn, None), ("w1", w1, (hidden, c)),
+                   ("b1", b1, (hidden,))], xn.device)
+    h = torch.empty((m, hidden), dtype=xn.dtype, device=xn.device)
+    _launch("lavt_gemm_bias_gelu", xn, w1, b1, h, m, c, hidden)
+    return h
+
+
+def gemm_residual(h, w2, b2, x, keep=None, rows: int = 1):
+    """(c) on the card: h (M, hidden), w2 (C, hidden), x (M, C) -> out."""
+    if h.device.type == "cpu":
+        return gemm_residual_plain(h, w2, b2, x, keep, rows)
+    (c, hidden), m = w2.shape, x.shape[0]
+    _supported(m, c, hidden)
+    _require_bf16([("h", h, (m, hidden)), ("w2", w2, None), ("b2", b2, (c,)),
+                   ("x", x, (m, c))], x.device)
+    _require_keep(keep, m, rows, x.device)
+    out = torch.empty_like(x)
+    _launch("lavt_gemm_residual", h, w2, b2, x, keep, out, m, c, hidden,
+            max(rows, 1))
+    return out
+
+
+# -- K7: the launches and their plain versions ---------------------------------
+
+class BwdPlan(NamedTuple):
+    """The partial sums one K7 call writes (M rows, width C, hidden)."""
+    row_tiles: int    # DUAL_ROWS-row tiles over M: the db1 partials
+    splits: int       # splits over M of the weight-grad GEMMs
+    split_tiles: int  # k-tiles (GEMM_DEPTH rows of M) of each split
+    ln_blocks: int    # LN_BWD_ROWS-row blocks: the dgamma/dbeta partials
+
+    @property
+    def split_rows(self) -> int:
+        return self.split_tiles * GEMM_DEPTH
+
+
+def bwd_plan(m: int, c: int, hidden: int) -> BwdPlan:
+    """Splits over M for dW1/dW2: as many as leave each of the two
+    consumers of every SM one output tile of one of them (no split when
+    the tiles alone fill them), no more than their f32 partials fit in
+    `_DW_PARTIAL_BYTES`, no empty split."""
+    k_tiles = -(-m // GEMM_DEPTH)
+    tiles = (hidden // GEMM_TILE) * (c // GEMM_TILE)
+    cap = _DW_PARTIAL_BYTES // (8 * hidden * c)
+    splits = max(1, min(2 * _SMS // tiles, cap, k_tiles))
+    split_tiles = -(-k_tiles // splits)
+    return BwdPlan(-(-m // DUAL_ROWS), -(-k_tiles // split_tiles), split_tiles,
+                   -(-m // LN_BWD_ROWS))
+
+
+def _row_block_sums(t, rows: int):
+    """(M, N) f32 -> (ceil(M / rows), N): the sums over each block of rows."""
+    pad = (-t.shape[0]) % rows
+    return F.pad(t, (0, 0, 0, pad)).view(-1, rows, t.shape[1]).sum(1)
+
+
+def mlp_bwd_prep_plain(x, gy, g, be, keep=None, rows: int = 1,
+                       eps: float = EPS):
+    """(a): xn (x's dtype), stats (M, 2) f32 = (mu, rstd) of each row,
+    dmlp = gy keep[row // rows] in x's dtype."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    rstd = torch.rsqrt((xf - mu).square().mean(dim=-1, keepdim=True) + eps)
+    xn = (xf - mu) * rstd * g.float() + be.float()
+    kr = _keep_rows(keep, rows)
+    dm = gy.float() if kr is None else gy.float() * kr
+    return xn.to(x.dtype), torch.cat([mu, rstd], 1), dm.to(x.dtype)
+
+
+def dual_gemm_gelu_bwd_plain(xn, dmlp, w1, b1, w2):
+    """(b): hpre = xn W1^T + b1 (f32), h = gelu(hpre) and dhpre = (dmlp W2)
+    gelu'(hpre) in xn's dtype, and db1_part (ceil(M / 64), hidden): each
+    64-row tile's column sums of the f32 dhpre."""
+    hpre = xn.float() @ w1.float().t() + b1.float()
+    cdf = 0.5 * (1.0 + torch.erf(hpre * 2.0 ** -0.5))
+    pdf = torch.exp(-0.5 * hpre * hpre) * 0.3989422804014327
+    dhpre = (dmlp.float() @ w2.float()) * (cdf + hpre * pdf)
+    return ((hpre * cdf).to(xn.dtype), dhpre.to(xn.dtype),
+            _row_block_sums(dhpre, DUAL_ROWS))
+
+
+def wgrad_plain(a, b, split_rows: int):
+    """(c): (splits, Na, Nb) f32, split s = a[rows]^T b[rows] over rows
+    [s split_rows, (s + 1) split_rows) of a (M, Na) and b (M, Nb)."""
+    return torch.stack([a[i:i + split_rows].float().t()
+                        @ b[i:i + split_rows].float()
+                        for i in range(0, a.shape[0], split_rows)])
+
+
+def dgrad_plain(dhpre, w1):
+    """(d): dyln = dhpre W1, (M, C) f32."""
+    return dhpre.float() @ w1.float()
+
+
+def ln_bwd_rows_plain(dyln, x, gy, g, stats, keep=None, rows: int = 1):
+    """(e): dx = gy + LN backward of dyln (x's dtype), and part
+    (ceil(M / 64), 3, C): each 64-row block's column sums of dyln xhat,
+    dyln and gy keep[row // rows] (the dgamma, dbeta and db2 partials)."""
+    mu, rstd = stats[:, :1], stats[:, 1:]
+    xhat = (x.float() - mu) * rstd
+    dxhat = dyln * g.float()
+    m1 = dxhat.mean(dim=-1, keepdim=True)
+    m2 = (dxhat * xhat).mean(dim=-1, keepdim=True)
+    dx = (gy.float() + rstd * (dxhat - m1 - xhat * m2)).to(x.dtype)
+    kr = _keep_rows(keep, rows)
+    dmlp = gy.float() if kr is None else gy.float() * kr
+    return dx, torch.stack([_row_block_sums(t, LN_BWD_ROWS)
+                            for t in (dyln * xhat, dyln, dmlp)], 1)
+
+
+def mlp_bwd_prep(x, gy, g, be, keep=None, rows: int = 1, eps: float = EPS):
+    """(a) on the card."""
+    if x.device.type == "cpu":
+        return mlp_bwd_prep_plain(x, gy, g, be, keep, rows, eps)
+    m, c = x.shape
+    _supported(m, c, GEMM_TILE)
+    _require_bf16([("x", x, None), ("gy", gy, (m, c)), ("g", g, (c,)),
+                   ("be", be, (c,))], x.device)
+    _require_keep(keep, m, rows, x.device)
+    xn, dm = torch.empty_like(x), torch.empty_like(x)
+    stats = torch.empty((m, 2), dtype=torch.float32, device=x.device)
+    _launch("lavt_mlp_bwd_prep", x, gy, g, be, keep, xn, stats, dm, m, c,
+            max(rows, 1), float(eps))
+    return xn, stats, dm
+
+
+def dual_gemm_gelu_bwd(xn, dmlp, w1, b1, w2):
+    """(b) on the card."""
+    if xn.device.type == "cpu":
+        return dual_gemm_gelu_bwd_plain(xn, dmlp, w1, b1, w2)
+    (m, c), hidden = xn.shape, w1.shape[0]
+    _supported(m, c, hidden)
+    _require_bf16([("xn", xn, None), ("dmlp", dmlp, (m, c)),
+                   ("w1", w1, (hidden, c)), ("b1", b1, (hidden,)),
+                   ("w2", w2, (c, hidden))], xn.device)
+    h, dhpre = (torch.empty((m, hidden), dtype=xn.dtype, device=xn.device)
+                for _ in range(2))
+    db1_part = torch.empty((-(-m // DUAL_ROWS), hidden), dtype=torch.float32,
+                           device=xn.device)
+    _launch("lavt_dual_gemm_gelu_bwd", xn, dmlp, w1, b1, w2, h, dhpre,
+            db1_part, m, c, hidden)
+    return h, dhpre, db1_part
+
+
+def wgrad(a, b, split_rows: int):
+    """(c) on the card: a (M, Na), b (M, Nb) bf16, Na and Nb multiples of
+    128, split_rows a multiple of 64."""
+    if a.device.type == "cpu":
+        return wgrad_plain(a, b, split_rows)
+    m, na = a.shape
+    nb = b.shape[1]
+    if na % GEMM_TILE or nb % GEMM_TILE or split_rows % GEMM_DEPTH or m < 1:
+        raise ValueError(f"wgrad: unsupported (M, Na, Nb, split rows) "
+                         f"{(m, na, nb, split_rows)}")
+    _require_bf16([("a", a, None), ("b", b, (m, nb))], a.device)
+    splits = -(-m // split_rows)
+    part = torch.empty((splits, na, nb), dtype=torch.float32, device=a.device)
+    _launch("lavt_wgrad", a, b, part, m, na, nb, splits,
+            split_rows // GEMM_DEPTH)
+    return part
+
+
+def dgrad(dhpre, w1):
+    """(d) on the card: dhpre (M, hidden), w1 (hidden, C) -> (M, C) f32."""
+    if dhpre.device.type == "cpu":
+        return dgrad_plain(dhpre, w1)
+    (hidden, c), m = w1.shape, dhpre.shape[0]
+    _supported(m, c, hidden)
+    _require_bf16([("dhpre", dhpre, (m, hidden)), ("w1", w1, None)],
+                  dhpre.device)
+    dyln = torch.empty((m, c), dtype=torch.float32, device=dhpre.device)
+    _launch("lavt_dgrad", dhpre, w1, dyln, m, c, hidden)
+    return dyln
+
+
+def ln_bwd_rows(dyln, x, gy, g, stats, keep=None, rows: int = 1):
+    """(e) on the card."""
+    if x.device.type == "cpu":
+        return ln_bwd_rows_plain(dyln, x, gy, g, stats, keep, rows)
+    m, c = x.shape
+    _supported(m, c, GEMM_TILE)
+    _require_bf16([("x", x, None), ("gy", gy, (m, c)), ("g", g, (c,))],
+                  x.device)
+    cuda_lib.require(dyln, "dyln", torch.float32, x.device, (m, c))
+    cuda_lib.require(stats, "stats", torch.float32, x.device, (m, 2))
+    _require_keep(keep, m, rows, x.device)
+    dx = torch.empty_like(x)
+    part = torch.empty((-(-m // LN_BWD_ROWS), 3, c), dtype=torch.float32,
+                       device=x.device)
+    _launch("lavt_ln_bwd_rows", dyln, x, gy, g, keep, max(rows, 1), stats, dx,
+            part, m, c)
+    return dx, part
+
+
+# -- K3 / K8 / K7: the entry points ------------------------------------------
 
 def _fwd_launch(x, g, be, w1, b1, w2, b2, eps, keep, rows):
     _check(x, (g, be, w1, b1, w2, b2), keep, rows)
     m, c = x.shape
-    out = torch.empty_like(x)
-    err = cuda_lib.lib().lavt_fused_ln_mlp(
-        x.data_ptr(), g.data_ptr(), be.data_ptr(), w1.data_ptr(),
-        b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-        None if keep is None else keep.data_ptr(), out.data_ptr(), m, c,
-        w1.shape[0], max(rows, 1), float(eps), cuda_lib.stream_ptr(x.device))
-    cuda_lib.check(err, "lavt_fused_ln_mlp")
+    hidden = w1.shape[0]
+    xn, out = torch.empty_like(x), torch.empty_like(x)
+    h = torch.empty((m, hidden), dtype=x.dtype, device=x.device)
+    _launch("lavt_fused_ln_mlp", x, g, be, w1, b1, w2, b2, keep, xn, h, out,
+            m, c, hidden, max(rows, 1), float(eps))
     return out
 
 
@@ -173,37 +447,47 @@ def fused_ln_mlp_droppath(x, g, be, w1, b1, w2, b2, keep, rows: int,
     return out
 
 
+def bwd_buffers(m: int, c: int, hidden: int, device,
+                dtype=torch.bfloat16) -> dict:
+    """Every buffer one K7 call writes, in the order `lavt_mlp_bwd` takes
+    them: the (M, C) / (M, hidden) intermediates, cut from one bf16 and
+    one f32 workspace (every piece a multiple of 16 bytes, so each starts
+    aligned for TMA), dx, and the f32 partials that `bwd_plan` sizes:
+    db1 (row tiles, hidden), dW1 and dW2 (splits, 2, hidden C; their own
+    allocation: with one split the grads are views of it), dgamma, dbeta
+    and db2 (LN blocks, 3, C)."""
+    plan = bwd_plan(m, c, hidden)
+    half = {"xn": (m, c), "dmlp": (m, c), "h": (m, hidden),
+            "dhpre": (m, hidden)}
+    full = {"dyln": (m, c), "db1_part": (plan.row_tiles, hidden),
+            "ln_part": (plan.ln_blocks, 3, c), "stats": (m, 2)}
+    buf = {}
+    for shapes, dt in ((half, dtype), (full, torch.float32)):
+        sizes = [math.prod(sh) for sh in shapes.values()]
+        ws = torch.empty(sum(sizes), dtype=dt, device=device)
+        for (name, shape), piece in zip(shapes.items(), ws.split(sizes)):
+            buf[name] = piece.view(shape)
+    buf["dx"] = torch.empty((m, c), dtype=dtype, device=device)
+    buf["dw_part"] = torch.empty((plan.splits, 2, hidden * c),
+                                 dtype=torch.float32, device=device)
+    return {k: buf[k] for k in ("xn", "dmlp", "h", "dhpre", "dx", "dyln",
+                                "db1_part", "dw_part", "ln_part", "stats")}
+
+
 def _bwd_launch(x, gy, g, be, w1, b1, w2, keep, rows, eps):
     _check(x, (g, be, w1, b1, w2), keep, rows)
     cuda_lib.require(gy, "gy", torch.bfloat16, x.device, x.shape)
     m, c = x.shape
     hidden = w1.shape[0]
-    dev = x.device
-    lib = cuda_lib.lib()
-    f32 = torch.float32
-    n_dx = -(-m // lib.lavt_mlp_bwd_rows(c, 0))
-    tiles = -(-m // lib.lavt_mlp_bwd_rows(c, 1))
-    splits = max(1, min(tiles, -(-264 // (hidden // 64)),
-                        _DW_PARTIAL_BYTES // (8 * hidden * c)))
-    dx = torch.empty_like(x)
-    dg_part, dbe_part = (torch.empty((n_dx, c), dtype=f32, device=dev)
-                         for _ in range(2))
-    dw1_part = torch.empty((splits, hidden, c), dtype=f32, device=dev)
-    dw2_part = torch.empty((splits, c, hidden), dtype=f32, device=dev)
-    db1_part = torch.empty((splits, hidden), dtype=f32, device=dev)
-    xn_buf, dm_buf = torch.empty_like(x), torch.empty_like(x)  # bf16 xn, dmlp
-    err = lib.lavt_mlp_bwd(
-        x.data_ptr(), gy.data_ptr(), g.data_ptr(), be.data_ptr(),
-        w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-        None if keep is None else keep.data_ptr(), max(rows, 1), dx.data_ptr(),
-        dg_part.data_ptr(), dbe_part.data_ptr(), dw1_part.data_ptr(),
-        dw2_part.data_ptr(), db1_part.data_ptr(), xn_buf.data_ptr(),
-        dm_buf.data_ptr(), m, c, hidden, splits, float(eps),
-        cuda_lib.stream_ptr(dev))
-    cuda_lib.check(err, "lavt_mlp_bwd")
-    return (dx, sum_partials(dg_part), sum_partials(dbe_part),
-            sum_partials(dw1_part), sum_partials(db1_part),
-            sum_partials(dw2_part), colsum(gy, keep, rows))
+    plan = bwd_plan(m, c, hidden)
+    buf = bwd_buffers(m, c, hidden, x.device, x.dtype)
+    _launch("lavt_mlp_bwd", x, gy, g, be, w1, b1, w2, keep, max(rows, 1),
+            *buf.values(), m, c, hidden, plan.splits, plan.split_tiles,
+            float(eps))
+    dw = sum_partials(buf["dw_part"])
+    ln = sum_partials(buf["ln_part"])
+    return (buf["dx"], ln[0], ln[1], dw[0].view(hidden, c),
+            sum_partials(buf["db1_part"]), dw[1].view(c, hidden), ln[2])
 
 
 def fused_ln_mlp_bwd(x, gy, g, be, w1, b1, w2, keep=None, rows: int = 0,

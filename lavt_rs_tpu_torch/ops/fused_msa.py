@@ -402,17 +402,14 @@ def sum_partials(part: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def colsum(x2: torch.Tensor, keep: Optional[torch.Tensor] = None,
-           rows_per_sample: int = 1) -> torch.Tensor:
-    """f32 column sums of a bf16 (rows, cols) tensor, each row scaled by
-    keep[row // rows_per_sample] when keep is given, on the kernel of
+def colsum(x2: torch.Tensor) -> torch.Tensor:
+    """f32 column sums of a bf16 (rows, cols) tensor, on the kernel of
     csrc/fused_msa_bwd.cu (row splits, then their partials in order)."""
     rows, cols = x2.shape
     splits = max(1, min(_TARGET_BLOCKS, rows // 256))
     part = torch.empty((splits, cols), dtype=torch.float32, device=x2.device)
     err = cuda_lib.lib().lavt_colsum_bf16(
-        x2.data_ptr(), None if keep is None else keep.data_ptr(),
-        part.data_ptr(), rows, cols, splits, max(rows_per_sample, 1),
+        x2.data_ptr(), part.data_ptr(), rows, cols, splits,
         cuda_lib.stream_ptr(x2.device))
     cuda_lib.check(err, "lavt_colsum_bf16")
     return sum_partials(part)

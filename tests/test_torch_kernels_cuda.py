@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from lavt_rs_tpu_torch.ops import fused_mlp as fm
 from lavt_rs_tpu_torch.ops.fused_mlp import (
     fused_ln_mlp, fused_ln_mlp_bwd, fused_ln_mlp_bwd_plain,
     fused_ln_mlp_droppath, fused_ln_mlp_droppath_plain, fused_ln_mlp_plain)
@@ -346,6 +347,136 @@ def test_training_kernels_refuse_what_they_do_not_take(dev):
         fused_ln_mlp_bwd(xm, xm, g, be, w1.float(), b1, w2)
     with pytest.raises(ValueError):  # 64 rows are not samples of 48
         fused_ln_mlp_droppath(xm, g, be, w1, b1, w2, b2, _keep(dev, 2), 48)
+
+
+# -- the LN-MLP launches: K3/K8 (LN rows, fc1 + GELU, fc2 + residual) and K7
+# (prep, dual GEMM, weight grads, dyln, LN backward), each against its plain
+# version on the same inputs --------------------------------------------------
+
+# (C, M): Swin-B stages 1-4 and Swin-T stage 3 at bs 8, 480²; and M = 1 and
+# 1800 + 7 (ragged row tiles) at every width
+MLP_LAUNCH_CASES = ([(128, 115200), (256, 28800), (384, 7200), (512, 7200),
+                     (1024, 1800)]
+                    + [(c, m) for c in (128, 256, 384, 512, 1024)
+                       for m in (1, 1807)])
+
+
+def _samples(m):
+    """Rows per sample of keep: 8 samples at the main path's M, else 1."""
+    return m // 8 if m % 8 == 0 else 1
+
+
+def _close_branch(out, want, x, tol):
+    """The MLP branch out - x within tol abs + rel plus one bf16 step of
+    the output (2^-7 |out|), so that x does not hide a branch error."""
+    torch.cuda.synchronize()
+    w_out = want.float()
+    err = ((out.float() - x.float()) - (w_out - x.float())).abs()
+    bound = tol + tol * (w_out - x.float()).abs() + 2 ** -7 * w_out.abs()
+    assert bool((err <= bound).all()), f"branch max abs err {err.max().item():.4g}"
+
+
+@pytest.mark.parametrize("c,m", MLP_LAUNCH_CASES)
+def test_ln_mlp_forward_launches(dev, c, m):
+    rng = np.random.default_rng(c + m)
+    x, g, be, w1, b1, w2, b2 = _mlp_args(rng, dev, m, c)
+    xn = fm.mlp_ln_rows(x, g, be)
+    _close(xn, fm.mlp_ln_rows_plain(x, g, be), TOL_LN_MLP)
+    h = fm.gemm_bias_gelu(xn, w1, b1)
+    _close(h, fm.gemm_bias_gelu_plain(xn, w1, b1), TOL_LN_MLP)
+    rows = _samples(m)
+    for keep in (None, _keep(dev, m // rows)):
+        out = fm.gemm_residual(h, w2, b2, x, keep, rows)
+        want = fm.gemm_residual_plain(h, w2, b2, x, keep, rows)
+        _close(out, want, TOL_LN_MLP)
+        _close_branch(out, want, x, TOL_LN_MLP)
+
+
+@pytest.mark.parametrize("c,m", MLP_LAUNCH_CASES)
+def test_ln_mlp_backward_launches(dev, c, m):
+    rng = np.random.default_rng(c + m + 1)
+    x, g, be, w1, b1, w2, _ = _mlp_args(rng, dev, m, c)
+    gy = _bf16(rng, (m, c), 1.0, dev)
+    rows = _samples(m)
+    keep = _keep(dev, m // rows)
+    got = fm.mlp_bwd_prep(x, gy, g, be, keep, rows)
+    for a, b in zip(got, fm.mlp_bwd_prep_plain(x, gy, g, be, keep, rows)):
+        _close(a, b, TOL_LN_MLP)
+    xn, stats, dm = got
+    h, dh, db1 = fm.dual_gemm_gelu_bwd(xn, dm, w1, b1, w2)
+    h_p, dh_p, db1_p = fm.dual_gemm_gelu_bwd_plain(xn, dm, w1, b1, w2)
+    _close(h, h_p, TOL_LN_MLP)
+    _close_scaled(dh, dh_p, TOL_DX)
+    _rel_frob(db1, db1_p, TOL_GRAD)
+    split = fm.bwd_plan(m, c, 4 * c).split_rows
+    for a, b in ((dm, h), (dh, xn)):
+        _rel_frob(fm.wgrad(a, b, split), fm.wgrad_plain(a, b, split), TOL_GRAD)
+    dyln = fm.dgrad(dh, w1)
+    _close_scaled(dyln, fm.dgrad_plain(dh, w1), TOL_DX)
+    dx, part = fm.ln_bwd_rows(dyln, x, gy, g, stats, keep, rows)
+    dx_p, part_p = fm.ln_bwd_rows_plain(dyln, x, gy, g, stats, keep, rows)
+    _close_scaled(dx, dx_p, TOL_DX)
+    for i in range(3):  # the dgamma, dbeta and db2 partials
+        _rel_frob(part[:, i], part_p[:, i], TOL_GRAD)
+
+
+def test_ln_mlp_launches_refuse_what_they_do_not_take(dev):
+    rng = np.random.default_rng(41)
+    x, g, be, w1, b1, w2, b2 = _mlp_args(rng, dev, 100, 128)
+    keep = _keep(dev, 3)
+    h = fm.gemm_bias_gelu(fm.mlp_ln_rows(x, g, be), w1, b1)
+    with pytest.raises(ValueError):  # 100 rows are not samples of 33
+        fm.gemm_residual(h, w2, b2, x, keep, 33)
+    with pytest.raises(ValueError):
+        fm.mlp_bwd_prep(x, x, g, be, keep, 33)
+    with pytest.raises(ValueError):  # C = 96 has no kernel
+        fm.mlp_ln_rows(*_mlp_args(rng, dev, 64, 96)[:3])
+    with pytest.raises(ValueError):  # 64 columns: not a 128-wide tile
+        fm.wgrad(x[:, :64].contiguous(), x, 64)
+
+
+@pytest.mark.parametrize("m,c", [(115200, 128), (7200, 512)])
+def test_ln_mlp_bwd_is_deterministic(dev, m, c):
+    """The weight and bias grads are fixed-order sums of partials: two
+    calls on the same inputs agree bit for bit."""
+    rng = np.random.default_rng(c + 31)
+    x, g, be, w1, b1, w2, _ = _mlp_args(rng, dev, m, c)
+    gy = _bf16(rng, (m, c), 1.0, dev)
+    keep = _keep(dev, 8)
+    first = fused_ln_mlp_bwd(x, gy, g, be, w1, b1, w2, keep, m // 8)
+    second = fused_ln_mlp_bwd(x, gy, g, be, w1, b1, w2, keep, m // 8)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_ln_mlp_kernels_launch_only_the_ports_kernels(dev):
+    """A K3, a K8 and a K7 call launch only the port's kernels (namespace
+    lavt::, built from csrc), no cuBLAS / cuDNN / CUTLASS library kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(37)
+    m, c = 7200, 512
+    x, g, be, w1, b1, w2, b2 = _mlp_args(rng, dev, m, c)
+    gy = _bf16(rng, (m, c), 1.0, dev)
+    keep = _keep(dev, 8)
+
+    def calls():
+        fused_ln_mlp(x, g, be, w1, b1, w2, b2)
+        fused_ln_mlp_droppath(x, g, be, w1, b1, w2, b2, keep, m // 8)
+        fused_ln_mlp_bwd(x, gy, g, be, w1, b1, w2, keep, m // 8)
+        torch.cuda.synchronize()
+
+    calls()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        calls()
+    names = {e.key for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0)) > 0}
+    assert names, "the profiler recorded no kernel"
+    assert all("lavt::" in n for n in names), sorted(names)
+    assert any("gemm_kernel" in n for n in names)
 
 
 # -- the video kernels: K10 (attention on pre-projected heads) and K2p --------
