@@ -66,7 +66,10 @@
    (Video Swin-T, SepTPWAM, 12-layer BERT, the A2D recipe) in bf16 from
    seeded random weights answers three 8-frame 480² clips through
    `eval.video_eval.clip_iou`; the counters must show K2p twice and K10
-   ten times per clip.  One clip's annotated frame is checked against the
+   ten times per clip.  K10's launch plan (persistent blocks of two
+   warpgroups, waves, units of 64 query rows per warpgroup, bias loads per
+   block) is printed at every shape it is timed at, here, in the video
+   training phase and at window 7.  One clip's annotated frame is checked against the
    f32 plain route, the forward is timed (ms per clip, frames/s, with and
    without the kernels) and one clip is broken down by `torch.profiler`.
 5. Training main path: the same weights in an f32 `build_model(...,
@@ -114,7 +117,11 @@
    to fail that check), timed at the tool's shapes beside their bound and
    `scaled_dot_product_attention(scale=1)`; P1 against P2 on the tool's
    input at its atol 1e-2; then the tool as a user runs it, whose
-   launches the kernels line reports.
+   launches the kernels line reports; P2's launch plan (its split of a row
+   block over blocks) is printed.  Then K10 (N = 49 and 392), its save
+   mode, its strided route on the qkv Linear's output and P2 run under
+   `torch.profiler`, which must see only the port's own kernels (no
+   cuBLAS, cuDNN, flash or SDPA kernel).
 
 Exits non-zero on any failure, without CUDA, or without the package.
 The last two lines are the per-kernel JSON and
@@ -183,7 +190,7 @@ SOURCES = {
     "K6": "lavt_rs_tpu_torch/csrc/fused_msa_bwd.cu",
     "K7": "lavt_rs_tpu_torch/csrc/fused_mlp_bwd.cu",
     "K8": "lavt_rs_tpu_torch/csrc/fused_mlp.cu",
-    "K10": "lavt_rs_tpu_torch/csrc/window_attn.cu",
+    "K10": "lavt_rs_tpu_torch/csrc/window_attn_sm90.cu",
     "K2p": "lavt_rs_tpu_torch/csrc/window_attn.cu",
     "K9": "lavt_rs_tpu_torch/csrc/window_attn.cu",
     "K11": "lavt_rs_tpu_torch/csrc/fused_msa.cu",
@@ -489,6 +496,25 @@ def device_ms(fn, iters=10, tries=3):
         if per_call and kernels >= per_call * iters:
             return us / 1e3 / iters
     return None
+
+
+def queued_ms(fn, iters=20):
+    """Device time of one call of fn by CUDA events, its launches queued
+    behind a ~10 ms device sleep so that the host's time to enqueue them
+    (which window 7's short calls exceed) is not timed."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def fmt_ms(ms):
@@ -1477,20 +1503,84 @@ def padded_msa_work(b, nw, n, c, heads, masked):
     return flops, nbytes
 
 
-def sdpa_mask(bias, mask, nw):
-    """bias (h, N, N) + mask (nW, N, N) as one bf16 (nW, h, N, N) additive
+def sdpa_mask(bias, mask, nw, b=1):
+    """bias (h, N, N) + mask (nW, N, N) as one bf16 (b nW, h, N, N) additive
     mask for `scaled_dot_product_attention` (timing baseline only)."""
     import torch
 
     full = bias[None].expand(nw, *bias.shape)
     if mask is not None:
         full = full + mask[:, None]
-    return full.to(torch.bfloat16).contiguous()
+    full = full.to(torch.bfloat16)
+    return full.repeat(b, 1, 1, 1) if b > 1 else full.contiguous()
+
+
+def sdpa_windows(q, k, v, am, scale):
+    """One SDPA call over (B, nW, heads, N, hd) windows, B and nW merged
+    into its 4-D batch (a 5-D input takes SDPA's slow math path); `am` from
+    `sdpa_mask(..., b=B)`."""
+    import torch.nn.functional as F
+
+    return F.scaled_dot_product_attention(
+        q.flatten(0, 1), k.flatten(0, 1), v.flatten(0, 1), attn_mask=am,
+        scale=scale)
+
+
+def k10_plan_line(what, b, nw, heads, n):
+    """Log K10's launch plan at (B, nW, heads, N) on this card."""
+    import torch
+
+    from lavt_rs_tpu_torch.ops import window_attn
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = window_attn.k10_plan(b * nw, heads, n, sms)
+    loads = (f", bias loads per block {plan['bias_loads']}"
+             if "bias_loads" in plan else "")
+    log(f"K10 plan {what} ({b}, {nw}, {heads}, {n}) on {sms} SMs: "
+        f"{plan['blocks']} blocks x 2 warpgroups ({plan['per_sm']} per SM, "
+        f"{plan['waves']:.3f} waves), {plan['units']} units of 64 rows "
+        f"({plan['items']} key tiles), <= {plan['units_per_warpgroup']} per "
+        f"warpgroup, {plan['smem']} B of shared memory{loads}")
+
+
+def k10_on_qkv(res, name, what, calls, qkv, qkv_copies, bias, mask, heads,
+               sc, masked):
+    """K10 as the inference path runs it, on the qkv Linear's output (q,
+    k, v read by strides, O written as (B, nW, N, C)), against its plain
+    version at TOL["K2"], timed beside its bound and one SDPA call on
+    `qkv_copies`, contiguous copies of the same q, k, v (on the strided
+    views SDPA takes a slower path, timed and logged too); then K10 on
+    those copies (the route of the save mode and K9 in training) against
+    its plain version, its error into `name`'s and its time logged."""
+    from lavt_rs_tpu_torch.ops import window_attn as wa
+
+    b, nw, n, _ = qkv.shape
+    am = sdpa_mask(bias, mask, nw, b)
+    q, k, v = qkv_copies
+    measure(res, name, f"{what} qkv{tuple(qkv.shape)} mask {mask is not None}",
+            calls,
+            lambda: wa.window_attention_qkv(qkv, bias, mask, heads, sc),
+            lambda: wa.window_attention_qkv_plain(qkv, bias, mask, heads, sc),
+            lambda: sdpa_windows(q, k, v, am, sc),
+            attn_work(b, nw, heads, n, masked),
+            lambda nm, got, want: compare(nm, got, want, TOL["K2"]))
+    t_views = cuda_time_ms(
+        lambda: sdpa_windows(*wa.qkv_heads(qkv, heads), am, sc))
+    del am
+    err = compare(name, wa.window_attention(q, k, v, bias, mask, sc),
+                  wa.window_attention_plain(q, k, v, bias, mask, sc), TOL["K2"])
+    res.r[name]["err"] = max(res.r[name]["err"], err)
+    tk = cuda_time_ms(lambda: wa.window_attention(q, k, v, bias, mask, sc))
+    log(f"{name} {what} contiguous q{tuple(q.shape)} mask {mask is not None}"
+        f": max abs err {err:.3g}; kernel {tk:.4f} ms (not in the kernels "
+        f"line: the path runs the qkv route); SDPA on the strided views "
+        f"{t_views:.4f} ms")
 
 
 def video_kernel_phases(dev, res):
-    """K10 at the stage-2..4 shapes (and N = 196), K2p at stage 1, against
-    their plain versions; per clip into `res`."""
+    """K10 at the stage-2..4 shapes (and N = 196), on the qkv Linear's
+    output as the blocks run it and on contiguous copies, and K2p at stage
+    1, against their plain versions; per clip into `res`."""
     import torch
     import torch.nn.functional as F
 
@@ -1554,37 +1644,41 @@ def video_kernel_phases(dev, res):
                 del am
             del xw
             continue
-        # K10 on the stage's pre-projected heads
+        # K10 on the stage's qkv Linear output, as the blocks call it
         n = 392
-        q, k, v = (rnd((1, nw, heads, n, 32)) for _ in range(3))
+        k10_plan_line(f"video stage {si + 1}", 1, nw, heads, n)
+        qkv = rnd((1, nw, n, 3 * c))
+        qkv_copies = [t.contiguous()
+                      for t in window_attn.qkv_heads(qkv, heads)]
         bias = bias_of(heads, n)
         for shift in (False, True):
             mask = None
             if shift:
                 mask = shift_mask_3d(FRAMES, hp, hp, (8, 7, 7), (0, 3, 3), dev)
-            am = sdpa_mask(bias, mask, nw)
-            measure(res, "K10", f"stage {si + 1} q{tuple(q.shape)} mask "
-                    f"{shift}", depth // 2,
-                    lambda m=mask: window_attn.window_attention(q, k, v, bias,
-                                                                m, sc),
-                    lambda m=mask: window_attn.window_attention_plain(
-                        q, k, v, bias, m, sc),
-                    lambda am=am: F.scaled_dot_product_attention(
-                        q[0], k[0], v[0], attn_mask=am, scale=sc),
-                    attn_work(1, nw, heads, n, masked_windows(mask)),
-                    lambda name, got, want: compare(name, got, want,
-                                                    TOL["K2"]))
-            del am
+            k10_on_qkv(res, "K10", f"stage {si + 1}", depth // 2, qkv,
+                       qkv_copies, bias, mask, heads, sc,
+                       masked_windows(mask))
         if si == 1:  # a 4-frame clip's stage-2 windows (N = 196): checked
             n4 = 196
-            q4, k4, v4 = (rnd((1, nw, heads, n4, 32)) for _ in range(3))
+            qkv4 = rnd((1, nw, n4, 3 * c))
+            q4, k4, v4 = (t.contiguous()
+                          for t in window_attn.qkv_heads(qkv4, heads))
             b4 = bias_of(heads, n4)
-            got = window_attn.window_attention(q4, k4, v4, b4, None, sc)
-            err = compare("K10", got, window_attn.window_attention_plain(
-                q4, k4, v4, b4, None, sc), TOL["K2"])
-            log(f"K10 N = 196 q{tuple(q4.shape)}: max abs err {err:.3g}")
-            res.r["K10"]["err"] = max(res.r["K10"]["err"], err)
-        del q, k, v
+            for route, got, want in (
+                    ("qkv", window_attn.window_attention_qkv(
+                        qkv4, b4, None, heads, sc),
+                     window_attn.window_attention_qkv_plain(
+                         qkv4, b4, None, heads, sc)),
+                    ("contiguous", window_attn.window_attention(
+                        q4, k4, v4, b4, None, sc),
+                     window_attn.window_attention_plain(
+                         q4, k4, v4, b4, None, sc))):
+                err = compare("K10", got, want, TOL["K2"])
+                log(f"K10 N = 196 {route} qkv{tuple(qkv4.shape)}: max abs "
+                    f"err {err:.3g}")
+                res.r["K10"]["err"] = max(res.r["K10"]["err"], err)
+            del qkv4, q4, k4, v4
+        del qkv, qkv_copies
         torch.cuda.empty_cache()
 
 
@@ -1777,6 +1871,7 @@ def video_train_kernel_phases(dev, res):
                           relative_position_index_2d(7, 7)).to(dev)),
                   shift_mask_2d(56, 56, 7, 3, dev)))
     for label, calls, heads, n, nw, bias, mask in cases:
+        k10_plan_line(f"save mode {label}", 1, nw, heads, n)
         q, k, v = (rnd((1, nw, heads, n, 32)) for _ in range(3))
         masked = masked_windows(mask)
         am = sdpa_mask(bias, mask, nw)
@@ -1984,8 +2079,10 @@ def window7_kernel_phase(dev, res):
     lavt_one_base(window12=False) forward (stage s: (8, nW, h, 49, 32);
     the shifted blocks under their (nW, 49, 49) mask), each against its
     plain version, timed beside its bound and its SDPA chain (autograd
-    through it for K9); per forward ("K10/w7") or training step
-    ("K10s/w7", "K9/w7") into `res`."""
+    through it for K9); K10 on the qkv Linear's output as the forward runs
+    it (and checked on contiguous copies), the save mode and K9 on the
+    contiguous q, k, v training gives them; per forward ("K10/w7") or
+    training step ("K10s/w7", "K9/w7") into `res`."""
     import torch
     import torch.nn.functional as F
 
@@ -2003,32 +2100,36 @@ def window7_kernel_phase(dev, res):
     sc = 32 ** -0.5
     for si, (side, c, heads, depth) in enumerate(W7_STAGES):
         nw = (side // 7) ** 2
-        q, k, v = (rnd((BATCH, nw, heads, 49, 32)) for _ in range(3))
+        k10_plan_line(f"window 7 stage {si + 1}", BATCH, nw, heads, 49)
+        # q, k, v: contiguous copies of the heads of one qkv Linear output,
+        # so that both K10 routes see the same inputs
+        qkv = rnd((BATCH, nw, 49, 3 * heads * 32))
+        q, k, v = (t.contiguous() for t in wa.qkv_heads(qkv, heads))
         bias = relative_bias_from_table(
             torch.randn((13 * 13, heads), generator=g, device=dev), index)
         for shift in (False, True):
             mask = shift_mask_2d(side, side, 7, 3, dev) if shift else None
             masked = masked_windows(mask)
-            am = sdpa_mask(bias, mask, nw)
+            am = sdpa_mask(bias, mask, nw, BATCH)
             what = f"window 7 stage {si + 1} q{tuple(q.shape)} mask {shift}"
-            measure(res, "K10/w7", what, depth // 2,
-                    lambda m=mask: wa.window_attention(q, k, v, bias, m, sc),
-                    lambda m=mask: wa.window_attention_plain(q, k, v, bias, m,
-                                                             sc),
-                    lambda am=am: F.scaled_dot_product_attention(
-                        q, k, v, attn_mask=am, scale=sc),
-                    attn_work(BATCH, nw, heads, 49, masked),
-                    lambda name, got, want: compare(name, got, want,
-                                                    TOL["K2"]))
+            k10_on_qkv(res, "K10/w7", f"window 7 stage {si + 1}", depth // 2,
+                       qkv, (q, k, v), bias, mask, heads, sc, masked)
             measure(res, "K10s/w7", what, depth // 2,
                     lambda m=mask: wa.window_attention_save(q, k, v, bias, m,
                                                             sc),
                     lambda m=mask: wa.window_attention_save_plain(
                         q, k, v, bias, m, sc),
-                    lambda am=am: F.scaled_dot_product_attention(
-                        q, k, v, attn_mask=am, scale=sc),
+                    lambda am=am: sdpa_windows(q, k, v, am, sc),
                     attn_save_work(BATCH, nw, heads, 49, masked), compare_lse)
             del am
+            # both K10 routes' device time without the host's, and host time
+            routes = (("contiguous q, k, v", lambda m=mask: wa.window_attention(
+                          q, k, v, bias, m, sc)),
+                      ("strided, on qkv", lambda m=mask: wa.window_attention_qkv(
+                          qkv, bias, m, heads, sc)))
+            log(f"K10 routes {what}: " + "; ".join(
+                f"{name} device {queued_ms(fn):.4f} ms (events, launches "
+                f"queued), host {host_us(fn):.1f} us" for name, fn in routes))
             o, lse = wa.window_attention_save(q, k, v, bias, mask, sc)
             do = rnd(q.shape)
 
@@ -2045,7 +2146,7 @@ def window7_kernel_phase(dev, res):
                     attn_bwd_work(BATCH, nw, heads, 49, masked),
                     lambda name, got, want: compare_grads(name, got, want, 3))
             del o, lse, do
-        del q, k, v
+        del qkv, q, k, v
         torch.cuda.empty_cache()
     for key, per in (("K10/w7", "forward"), ("K10s/w7", "train step"),
                      ("K9/w7", "train step")):
@@ -2376,6 +2477,12 @@ def probe_phase(dev, card, res):
     from lavt_rs_tpu_torch.tools import probe_headbatch as probe
 
     ch, heads, n, hd, grid = PROBE
+    plan = probe.batch_plan(grid, ch, heads, n, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    log(f"P2 plan: {grid} row blocks of {ch} windows x {heads} heads, split "
+        f"{plan['split']}: {plan['blocks']} blocks of {plan['slots_per_block']}"
+        f" slots, {plan['smem']} B of shared memory, {plan['waves']:.3f} "
+        f"waves at two blocks per SM")
     x = probe.probe_input(grid, ch, heads, n, hd, dev, std=probe.CHECK_STD)
     rows = x.shape[0]
     want = probe.probe_attention_plain(x, heads, n, hd)
@@ -2430,6 +2537,47 @@ def probe_phase(dev, card, res):
     if not (launches["P1"] and launches["P2"]):
         raise RuntimeError("the probe tool launched no P1 or P2")
     return launches
+
+
+def k10_p2_only_port_kernels(dev):
+    """K10 at N = 49 and 392, its save mode, its strided route on the qkv
+    Linear's output and P2 under torch.profiler: only the port's kernels."""
+    import torch
+
+    from lavt_rs_tpu_torch.ops import window_attn as wa
+    from lavt_rs_tpu_torch.ops.window import shift_mask_2d, shift_mask_3d
+    from lavt_rs_tpu_torch.tools import probe_headbatch as probe
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 40)
+
+    def rnd(shape):
+        return torch.randn(shape, generator=g, device=dev).bfloat16()
+
+    cases = []
+    for b, nw, heads, n, mask in (
+            (BATCH, 9, 32, 49, shift_mask_2d(21, 21, 7, 3, dev)),
+            (1, 9, 24, 392, shift_mask_3d(FRAMES, 21, 21, (8, 7, 7),
+                                          (0, 3, 3), dev))):
+        qkv = rnd((b, nw, n, 3 * heads * 32))
+        q, k, v = (t.contiguous() for t in wa.qkv_heads(qkv, heads))
+        bias = torch.randn((heads, n, n), generator=g, device=dev)
+        cases.append((qkv, q, k, v, bias, mask, heads))
+    ch, heads, n, hd, grid = PROBE
+    x = probe.probe_input(grid, ch, heads, n, hd, dev)
+    fns = []
+    for qkv, q, k, v, bias, mask, h in cases:
+        fns += [lambda q=q, k=k, v=v, b=bias, m=mask: wa.window_attention(
+                    q, k, v, b, m, 32 ** -0.5),
+                lambda q=q, k=k, v=v, b=bias, m=mask: wa.window_attention_save(
+                    q, k, v, b, m, 32 ** -0.5),
+                lambda t=qkv, b=bias, m=mask, h=h: wa.window_attention_qkv(
+                    t, b, m, h, 32 ** -0.5)]
+    fns.append(lambda: probe.batch_attention(x, ch, heads, n, hd))
+    names = only_port_kernels("K10 (N = 49, 392), K10 save, the strided "
+                              "route and P2", fns)
+    for want in ("window_attn_sm90_kernel", "probe_batch_kernel"):
+        if not any(want in nm for nm in names):
+            raise RuntimeError(f"the profiler saw no {want}")
 
 
 def main():
@@ -2590,6 +2738,7 @@ def main():
 
     # -- P1 / P2: the head-batching probe --------------------------------------
     probe_launches = probe_phase(dev, card, res)
+    k10_p2_only_port_kernels(dev)
     log(f"probe done at {time.perf_counter() - t_start:.1f} s")
 
 

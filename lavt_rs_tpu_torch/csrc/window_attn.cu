@@ -1,13 +1,6 @@
-// K10: attention-only window attention on pre-projected heads, and K2p:
-// the fused window MSA (qkv in the kernel) on sublane-padded windows.
-//
-// K10 replaces lavt_rs_tpu/ops/pallas/window_attn.py:_fwd/_fwd_kernel
-// (reached from window_attention_pallas): per window and head,
-//   O = softmax(q k^T + relbias[h] + mask[window]) v
-// with q scaled and rounded to bf16, the scores, bias, mask and softmax in
-// f32 with max subtraction, and O rounded to bf16.  q, k, v, O are
-// (B, nW, heads, N, 32); any N <= 400 (video windows 392 and 196,
-// window-7 49).
+// K2p: the fused window MSA (qkv in the kernel) on sublane-padded windows,
+// and K9: the backward of K10 (K10 itself, the attention-only forward on
+// pre-projected heads, is csrc/window_attn_sm90.cu).
 //
 // K2p replaces lavt_rs_tpu/ops/pallas/fused_msa.py:_fwd_call/_kernel at
 // the sublane-padded token count (fused_window_msa_padded and the grouped
@@ -15,7 +8,10 @@
 // of 16 (392 -> 400), the bias carries -1e9 on the padded key columns, and
 // the block computes the head's q/k/v from x and Wqkv itself (WMMA, f32
 // accumulation, + bias, q scaled after its bias, rounded to bf16) before
-// the same attention; O goes to the head's 32 columns of (B nW, n_p, C).
+// the attention of K10's function: per window and head,
+//   O = softmax(q k^T + relbias[h] + mask[window]) v
+// with the scores, bias, mask and softmax in f32 with max subtraction and O
+// rounded to bf16; O goes to the head's 32 columns of (B nW, n_p, C).
 // The out-projection then runs on the WMMA GEMM of fused_msa_bwd.cu.
 //
 // Masks: windows are numbered per image (win mod nW); the first nu of
@@ -24,27 +20,19 @@
 // grouped 3D partition (unmasked windows first, boundary windows last with
 // a small mask), so a shifted block is one launch.
 //
-// Bound on the H100: 4 N^2 hd flops per window and head (plus 6 N C hd for
-// K2p's q/k/v) against q/k/v/O, the f32 bias and the f32 mask in device
-// memory; at N = 392 the mask (nW N^2 f32) is as large as q/k/v/O together.
+// Bound on the H100: 4 N^2 hd flops per window and head plus 6 N C hd for
+// the q/k/v projection, against x, y, the weights, the f32 bias and mask.
 // Design: one block per (head, window) -- the head varies fastest, so the
 // blocks of one window run together and share its mask rows in L2 --
-// holds the head's k and v (and for K2p q) in shared memory, rows zero-
-// filled up to N rounded to 16.  Each warp owns 16 query rows at a time
-// and walks the keys 64 at a time with mma.sync m16n8k16 (bf16 in, f32
-// accumulation): the scores stay in registers, the bias and mask are read
+// holds the head's q, k and v in shared memory, rows zero-filled up to N
+// rounded to 16.  Each warp owns 16 query rows at a time and walks the keys
+// 64 at a time with mma.sync m16n8k16 (bf16 in, f32 accumulation)
+// (`attend16`): the scores stay in registers, the bias and mask are read
 // straight from L2 into them (8-byte loads, whole 32-byte sectors), and an
 // online softmax (running max and sum per row, O rescaled) turns them into
 // bf16 probabilities that feed P v from registers; O is divided by the row
-// sum at the end.  No score tile in shared memory: K10 takes 64 KB and K2p
-// 109 KB, two blocks per SM.  K10 may split a window's query rows over
-// grid.z to fill the card when windows x heads are few.
-// No TMA, no wgmma yet.
-//
-// K10's save mode (training: autograd records the call) also writes each
-// row's log-sum-exp, lse = m + log(l) in f32 ((B nW, heads, N): 1.5 MB at
-// video stage 1), so the backward rebuilds P = exp(s - lse) in one pass.
-// Inference launches take the kernel without it (a template argument).
+// sum at the end.  No score tile in shared memory: 109 KB, two blocks per
+// SM.  No TMA, no wgmma yet.
 //
 // K9 replaces lavt_rs_tpu/ops/pallas/window_attn.py:attention_core_bwd /
 // _bwd_kernel, the VJP of every K10 call.  Given q, k, v, K10's output o
@@ -109,7 +97,6 @@ constexpr size_t HEAD_BYTES = align128(size_t(kNMax) * LDH * 2);
 constexpr size_t XC_BYTES = align128(size_t(kTQ) * LDX * 2);
 constexpr size_t WC_BYTES = align128(size_t(3 * kHD) * LDX * 2);
 constexpr size_t E_BYTES = align128(size_t(kWarps) * 16 * LDE * 4);
-constexpr size_t SMEM_K10 = 2 * HEAD_BYTES;
 constexpr size_t SMEM_K2P = 3 * HEAD_BYTES + XC_BYTES + WC_BYTES;
 constexpr size_t SMEM_K9Q = 2 * HEAD_BYTES;
 constexpr size_t SMEM_K9KV = 2 * HEAD_BYTES + 2 * align128(size_t(kNMax) * 4);
@@ -168,13 +155,10 @@ __device__ __forceinline__ void stage_head(bf16* dst, const bf16* __restrict__ s
 
 // One warp: O rows [r0, r0 + 16) of one (window, head).  qa holds the rows'
 // scaled q as A fragments (two k16 halves of hd = 32); ks / vs the keys
-// and values in shared memory, zero rows up to n rounded to 16.  kSave:
-// each row's log-sum-exp to lse[row] too.
-template <bool kSave = false>
+// and values in shared memory, zero rows up to n rounded to 16.
 __device__ void attend16(const uint32_t (&qa)[2][4], const bf16* ks, const bf16* vs, int n,
                          int r0, const float* __restrict__ bias_h,
-                         const float* __restrict__ mask_w, bf16* __restrict__ out, int ldo,
-                         float* __restrict__ lse = nullptr) {
+                         const float* __restrict__ mask_w, bf16* __restrict__ out, int ldo) {
   const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
   const int n16 = (n + 15) & ~15;
   const int ra = r0 + g, rb = ra + 8;  // this thread's two rows
@@ -267,10 +251,6 @@ __device__ void attend16(const uint32_t (&qa)[2][4], const bf16* ks, const bf16*
   for (int i = 0; i < 2; ++i) {
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    if (kSave && tq == 0) {
-      const int r = i == 0 ? ra : rb;
-      if (r < n) lse[r] = m[i] + logf(l[i]);
-    }
     l[i] = 1.f / l[i];
   }
 #pragma unroll
@@ -304,40 +284,6 @@ __device__ __forceinline__ uint32_t scale_bf2(uint32_t v, float scale) {
   __nv_bfloat162 h = *reinterpret_cast<__nv_bfloat162*>(&v);
   const float2 f = __bfloat1622float2(h);
   return pack_bf2(f.x * scale, f.y * scale);
-}
-
-// K10: grid (heads, B nW, query splits); kSave also writes lse
-template <bool kSave>
-__global__ void __launch_bounds__(kThreads, 2)
-window_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, const float* __restrict__ bias,
-                   const float* __restrict__ mask, bf16* __restrict__ o,
-                   float* __restrict__ lse, int nW, int nu, int n, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* ks = reinterpret_cast<bf16*>(smem);
-  bf16* vs = reinterpret_cast<bf16*>(smem + HEAD_BYTES);
-
-  const int h = blockIdx.x, heads = gridDim.x, win = blockIdx.y;
-  const int warp = threadIdx.x >> 5;
-  const size_t base = (static_cast<size_t>(win) * heads + h) * n * kHD;
-  stage_head(ks, k + base, n);
-  stage_head(vs, v + base, n);
-  __syncthreads();
-  const int wi = win % nW;
-  const float* mask_w =
-      (mask != nullptr && wi >= nu) ? mask + static_cast<size_t>(wi - nu) * n * n : nullptr;
-  const float* bias_h = bias + static_cast<size_t>(h) * n * n;
-  const int groups = (n + 15) / 16;
-  for (int gi = blockIdx.z * kWarps + warp; gi < groups; gi += gridDim.z * kWarps) {
-    uint32_t qa[2][4];
-    load_qa(qa, q + base, kHD, gi * 16, n);
-#pragma unroll
-    for (int kc = 0; kc < 2; ++kc)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) qa[kc][e] = scale_bf2(qa[kc][e], scale);
-    attend16<kSave>(qa, ks, vs, n, gi * 16, bias_h, mask_w, o + base, kHD,
-                    kSave ? lse + base / kHD : nullptr);
-  }
 }
 
 // K2p: grid (heads, B nW); x (B nW, n, C), n a multiple of 16
@@ -742,23 +688,6 @@ attn_bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 }  // namespace wattn
 }  // namespace lavt
-
-// K10; lse null: inference, else the save mode
-extern "C" int lavt_window_attn(const void* q, const void* k, const void* v, const void* bias,
-                                const void* mask, void* o, void* lse, int Bw, int nW, int nu,
-                                int heads, int n, int qsplit, float scale, void* stream) {
-  using namespace lavt;
-  using namespace lavt::wattn;
-  if (n < 1 || n > kNMax) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = lse != nullptr ? &window_attn_kernel<true> : &window_attn_kernel<false>;
-  cudaError_t err = allow_smem(kernel, SMEM_K10);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<dim3(heads, Bw, qsplit), kThreads, SMEM_K10, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const float*>(bias), static_cast<const float*>(mask), static_cast<bf16*>(o),
-      static_cast<float*>(lse), nW, nu, n, scale);
-  return static_cast<int>(cudaGetLastError());
-}
 
 // K9's two kernels; dbias_part (groups, heads, n, n) f32 for sum_partials
 extern "C" int lavt_window_attn_bwd(const void* q, const void* k, const void* v, const void* o,

@@ -157,14 +157,19 @@ class WindowAttention(nn.Module):
         if ln_params is not None:
             raise ValueError(f"the {route} route takes post-LN tokens")
         h = self.num_heads
-        qkv = self.qkv(x).view(b, nw, n, 3, h, c // h)
-        q, k, v = (t.contiguous() for t in qkv.permute(3, 0, 1, 4, 2, 5))
+        qkv = self.qkv(x)
+        bias = self.relative_bias()
+        if route == "core" and self.use_kernels and not window_attn.records(
+                qkv, bias):  # K10 on the Linear's output: no layout copies
+            return self.proj(window_attn.window_attention_qkv(
+                qkv, bias, mask, h, self.scale))
+        q, k, v = (t.contiguous() for t in window_attn.qkv_heads(qkv, h))
         if route == "core":
             attend = (window_attn.window_attention if self.use_kernels
                       else window_attn.window_attention_plain)
         else:
             attend = attention.window_attention_xla
-        out = attend(q, k, v, self.relative_bias(), mask, self.scale)
+        out = attend(q, k, v, bias, mask, self.scale)
         return self.proj(out.transpose(2, 3).reshape(b, nw, n, c))
 
 

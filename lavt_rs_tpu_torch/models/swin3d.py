@@ -135,15 +135,21 @@ class WindowAttention3D(nn.Module):
             return fused_msa.fused_window_msa_grouped(
                 x, self.qkv.weight, bqkv, self.proj.weight, self.proj.bias,
                 self.relative_bias(n_real, n), mask, nu, h, self.scale)
-        qkv = self.qkv(x).view(b, nw, n, 3, h, c // h)
-        q, k, v = (t.contiguous() for t in qkv.permute(3, 0, 1, 4, 2, 5))
-        if self.route(nw, n) == "chain":
+        qkv = self.qkv(x)
+        bias = self.relative_bias(n)
+        route = self.route(nw, n)
+        if route == "core" and self.use_kernels and not window_attn.records(
+                qkv, bias):  # K10 on the Linear's output: no layout copies
+            return self.proj(window_attn.window_attention_qkv(
+                qkv, bias, mask, h, self.scale))
+        q, k, v = (t.contiguous() for t in window_attn.qkv_heads(qkv, h))
+        if route == "chain":
             attend = attention.window_attention_xla
         elif self.use_kernels:
             attend = window_attn.window_attention
         else:
             attend = window_attn.window_attention_plain
-        out = attend(q, k, v, self.relative_bias(n), mask, self.scale)
+        out = attend(q, k, v, bias, mask, self.scale)
         return self.proj(out.transpose(2, 3).reshape(b, nw, n, c))
 
 

@@ -25,7 +25,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("ln.cu", "fused_mlp.cu", "fused_msa.cu", "fused_msa_bwd.cu",
-           "fused_mlp_bwd.cu", "window_attn.cu", "probe_headbatch.cu")
+           "fused_mlp_bwd.cu", "window_attn.cu", "window_attn_sm90.cu",
+           "probe_headbatch.cu")
 HEADERS = ("common.cuh", "gemm_sm90.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-lineinfo")
@@ -54,10 +55,11 @@ SIGNATURES = {
     "lavt_dgrad": (P, P, P, I, I, I, P),
     "lavt_ln_bwd_rows": (P,) * 5 + (I,) + (P,) * 3 + (I, I, P),
     "lavt_mlp_bwd": (P,) * 8 + (I,) + (P,) * 10 + (I,) * 5 + (F, P),
-    "lavt_window_attn": (P,) * 7 + (I,) * 6 + (F, P),
+    "lavt_window_attn": (P,) * 7 + (L,) * 6 + (I,) * 7 + (F, P),
+    "lavt_k10_smem": (I,),
     "lavt_window_attn_bwd": (P,) * 13 + (I,) * 7 + (F, P),
     "lavt_window_msa_np": (P,) * 6 + (I,) * 6 + (F, P),
-    "lavt_probe_headbatch": (P, P) + (I,) * 5 + (P,),
+    "lavt_probe_headbatch": (P, P) + (I,) * 6 + (P,),
 }
 
 _LIB = None
@@ -146,8 +148,15 @@ def check(err: int, name: str) -> None:
 
 
 def stream_ptr(device) -> int:
+    """The raw pointer of the current CUDA stream on `device` (a
+    torch.device): torch's own accessor where the build has it (no Stream
+    object per call), else through torch.cuda.current_stream."""
     import torch
 
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(device.index if device.index is not None
+                   else torch.cuda.current_device())
     return torch.cuda.current_stream(device).cuda_stream
 
 

@@ -19,8 +19,12 @@ C = 96 blocks take the grouped K2p route instead).
     f32 math (P recomputed, dS = P (dP - rowsum(do o))) with the kernel's
     rounding points;
   * `window_attention`: the plain version for a CPU tensor; for a CUDA
-    tensor the kernel of csrc/window_attn.cu (bf16, head dim 32, any
-    N <= 400), or it raises.  Where autograd records the call it goes
+    tensor the kernel of csrc/window_attn_sm90.cu (bf16, head dim 32,
+    any N <= 400; its launch `k10_plan`), or it raises.
+    `window_attention_qkv` runs it at inference on the qkv Linear's
+    output, by strides, with O in the layout the out-projection reads
+    (plain version `window_attention_qkv_plain`).  K9's kernels are in
+    csrc/window_attn.cu.  Where autograd records the call it goes
     through `WindowAttention`: K10 in save mode (the output and each row's
     log-sum-exp) forward and K9 backward on the card, the plain versions
     of both on the CPU (so the CPU tests run the plain backward, not
@@ -45,6 +49,7 @@ JAX package runs XLA there.  The kernels take head dim 32 only
 from __future__ import annotations
 
 import functools
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -54,9 +59,13 @@ from .fused_msa import sum_partials
 
 HEAD_DIM = 32
 MAX_N = 400
-# blocks the launch aims for (132 SMs at two blocks each, one wave)
+# K9's launches: blocks aimed for (132 SMs at two blocks each, one wave)
 _TARGET_BLOCKS = 264
-_ROWS = 128  # query rows a block's 8 warps take at once
+# K10's launch (csrc/window_attn_sm90.cu): 64-row units, two warpgroups a
+# block, a ring of two stages a warpgroup; an H100 SM's shared memory and
+# what each block reserves of it
+K10_TILE, K10_WARPGROUPS, K10_STAGES = 64, 2, 2
+SMEM_PER_SM, SMEM_PER_BLOCK_RESERVED = 233472, 1024
 # K9's dbias partial slices, one (heads, N, N) f32 slice per window group:
 # as many groups as fit this budget (one slice per window would be 597 MB
 # at video stage 1)
@@ -173,45 +182,173 @@ def window_attn_supported(n: int, hd: int) -> bool:
     return hd == HEAD_DIM and 1 <= n <= MAX_N
 
 
-def _check(q, tensors, bias, mask):
-    """Raise unless the kernels take q's geometry and every tensor is
-    contiguous on q's device with the kernels' dtype and shape."""
-    b, nw, heads, n, hd = q.shape
+def _require_supported(n: int, hd: int) -> None:
     if not window_attn_supported(n, hd):
         raise ValueError(f"window attention kernel: unsupported (N, hd) "
                          f"{(n, hd)}")
-    checks = [(name, t, torch.bfloat16, q.shape) for name, t in tensors]
-    checks.append(("bias", bias, torch.float32, (heads, n, n)))
-    if mask is not None:
-        checks.append(("mask", mask, torch.float32, (nw, n, n)))
-    for name, t, dt, shape in checks:
-        cuda_lib.require(t, name, dt, q.device, shape)
-        if t.data_ptr() % 16:  # the kernels move 16-byte words
+
+
+def _check_bias_mask(bias, mask, heads, nw, n, dev):
+    """Raise unless bias (heads, N, N) and mask (nW, N, N) or None are
+    contiguous f32 on `dev`, 16-byte aligned."""
+    for name, t, want in (("bias", bias, (heads, n, n)),
+                          ("mask", mask, (nw, n, n))):
+        if t is None:
+            continue
+        if t.dtype != torch.float32 or t.device != dev or t.shape != want \
+                or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}, expected contiguous float32 "
+                             f"{want} on {dev}, 16-byte aligned")
+
+
+def _check(q, tensors, bias, mask):
+    """K9's arguments: raise unless the kernels take q's geometry, every
+    tensor of `tensors` is contiguous bf16 of q's shape on q's device and
+    16-byte aligned (the kernels move 16-byte words), and bias and mask
+    pass `_check_bias_mask`."""
+    b, nw, heads, n, hd = q.shape
+    _require_supported(n, hd)
+    for name, t in tensors:
+        cuda_lib.require(t, name, torch.bfloat16, q.device, q.shape)
+        if t.data_ptr() % 16:
             raise ValueError(f"{name}: data must be 16-byte aligned")
+    _check_bias_mask(bias, mask, heads, nw, n, q.device)
 
 
 def _splits(tiles: int, blocks: int) -> int:
-    """grid.z: split a window's 16-row tiles (8 per block pass) until the
-    launch has ~_TARGET_BLOCKS blocks."""
+    """K9's grid.z: split a window's 16-row tiles (8 per block pass) until
+    the launch has ~_TARGET_BLOCKS blocks."""
     return max(1, min(-(-tiles // 8), -(-_TARGET_BLOCKS // blocks)))
 
 
+def k10_smem(n: int) -> int:
+    """Dynamic shared memory of a K10 block at N (csrc/window_attn_sm90.cu's
+    smem_bytes, exported as `lavt_k10_smem`; tests/test_torch_kernels_cuda.py
+    holds the two equal at every N): per warpgroup a ring of stages (q, k, v tiles of 4 KB; at
+    N <= 64 the window's flat f32 mask, its 16-byte-aligned span in whole
+    KB, and once the head's flat bias; above, a 64 x 72 f32 mask tile and
+    the block's 64 bias rows, 2 x 200 keys), the barriers, 1 KB of
+    alignment."""
+    qkv = 3 * K10_TILE * HEAD_DIM * 2
+    if n <= K10_TILE:
+        flat = -(-(n * n * 4 + 32) // 1024) * 1024
+        per_wg, shared = flat + K10_STAGES * (qkv + flat), 0
+    else:
+        per_wg, shared = K10_STAGES * (qkv + K10_TILE * 72 * 4), 2 * 64 * 200 * 4
+    barriers = (K10_WARPGROUPS * K10_STAGES + K10_WARPGROUPS + 1) * 8
+    return 1024 + shared + K10_WARPGROUPS * per_wg + barriers
+
+
+@functools.lru_cache(maxsize=256)
+def k10_plan(bw: int, heads: int, n: int, sms: int) -> dict:
+    """K10's launch on `sms` SMs: units of 64 query rows of one (window,
+    head), two warpgroups a block, no block beyond one wave.
+      * N <= 64: `blocks` persistent blocks; warpgroup c of T takes units
+        c, c + T, ... (u = window heads + head).  It holds one head's bias
+        in registers, so where it takes several units T is a multiple of
+        the heads.
+      * N > 64: units ordered (q tile, head) outermost, u = (q tile heads +
+        head) B nW + window; block b takes the run [b P, (b + 1) P) of P =
+        ceil(units / blocks) units, its warpgroups every other one, and
+        loads each (q tile, head)'s 64 bias rows once (`bias_loads` per
+        block at most).
+    Returns the plan's numbers (chip_smoke.py prints them)."""
+    tiles = -(-n // K10_TILE)
+    units = bw * tiles * heads
+    smem = k10_smem(n)
+    flat = n <= K10_TILE
+    per_sm = min(2 if flat else 1,
+                 SMEM_PER_SM // (smem + SMEM_PER_BLOCK_RESERVED))
+    if per_sm < 1:
+        raise ValueError(f"K10: {smem} bytes of shared memory at N = {n}")
+    cap = sms * per_sm
+    blocks = min(cap, -(-units // K10_WARPGROUPS))
+    if flat and blocks * K10_WARPGROUPS < units:
+        step = heads // math.gcd(heads, K10_WARPGROUPS)
+        blocks = max(step, blocks // step * step)
+    per_block = -(-units // blocks)
+    plan = dict(units=units, items=units * tiles, blocks=blocks,
+                warpgroups=blocks * K10_WARPGROUPS, per_sm=per_sm,
+                waves=blocks / cap, smem=smem, per_block=per_block)
+    if flat:
+        plan["units_per_warpgroup"] = -(-units // (blocks * K10_WARPGROUPS))
+    else:
+        plan["units_per_warpgroup"] = -(-per_block // K10_WARPGROUPS)
+        plan["bias_loads"] = max(
+            (min(units, u0 + per_block) - 1) // bw - u0 // bw + 1
+            for u0 in range(0, units, per_block))
+    return plan
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _check_k10(q, k, v, bias, mask):
+    """Raise unless K10 takes these: q, k, v bf16 views with one set of
+    strides, hd contiguous, every stride and base 16-byte aligned (the
+    tensor maps'); bias and mask f32 and contiguous.  Lean: window 7 calls
+    K10 24 times a forward, where the host sets the pace."""
+    shape, dev = q.shape, q.device
+    b, nw, heads, n, hd = shape
+    _require_supported(n, hd)
+    st = q.stride()
+    if k.stride() != st or v.stride() != st:
+        raise ValueError("q, k, v: the kernel takes one set of strides")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype != torch.bfloat16 or t.device != dev or t.shape != shape:
+            raise TypeError(f"{name}: {t.dtype} {tuple(t.shape)} on "
+                            f"{t.device}, expected bfloat16 {tuple(shape)} "
+                            f"on {dev}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: data must be 16-byte aligned")
+    if st[4] != 1 or (st[1] | st[2] | st[3]) % 8 or (
+            b > 1 and st[0] != nw * st[1]):
+        raise ValueError(f"q, k, v: strides {st} (hd contiguous, the others "
+                         "16-byte aligned, batch and window merged)")
+    _check_bias_mask(bias, mask, heads, nw, n, dev)
+
+
+def _row_aligned(t):
+    """Above N = 64 the kernel reads the bias and mask by 3-D tensor maps,
+    whose rows must lie 16 bytes apart: for N % 4 != 0 the rows padded to
+    N rounded up to 4, returned with that row stride (a copy, on no
+    path's shape); else t and N."""
+    n = t.shape[-1]
+    if n <= K10_TILE or n % 4 == 0:
+        return t, n
+    return torch.nn.functional.pad(t, (0, -n % 4)), n + (-n % 4)
+
+
+def _k10_call(ptrs, qst, ost, b, nw, heads, n, bias, mask, lse, scale,
+              device):
+    """The launch, on checked arguments: ptrs (q, k, v, o), the element
+    strides (window, head, row) of q, k, v and of O."""
+    plan = k10_plan(b * nw, heads, n, _sm_count(device.index or 0))
+    bias, ld = _row_aligned(bias)
+    if mask is not None:
+        mask, _ = _row_aligned(mask)
+    q, k, v, o = ptrs
+    err = cuda_lib.lib().lavt_window_attn(
+        q, k, v, bias.data_ptr(), None if mask is None else mask.data_ptr(),
+        o, None if lse is None else lse.data_ptr(), *qst, *ost, b * nw, nw,
+        0 if mask is not None else nw, heads, n, ld, plan["blocks"],
+        float(scale), cuda_lib.stream_ptr(device))
+    cuda_lib.check(err, "lavt_window_attn")
+
+
 def _launch(q, k, v, bias, mask, scale, save: bool):
+    """K10 on q, k, v views (_check_k10): (O contiguous, lse or None)."""
     b, nw, heads, n, _ = q.shape
-    _check(q, (("q", q), ("k", k), ("v", v)), bias, mask)
-    o = torch.empty_like(q)
+    _check_k10(q, k, v, bias, mask)
+    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, nw, heads, n), dtype=torch.float32,
                        device=q.device) if save else None)
-    blocks = b * nw * heads
-    tiles = -(-n // _ROWS)
-    qsplit = max(1, min(tiles, -(-_TARGET_BLOCKS // blocks)))
-    err = cuda_lib.lib().lavt_window_attn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-        None if mask is None else mask.data_ptr(), o.data_ptr(),
-        None if lse is None else lse.data_ptr(), b * nw, nw,
-        0 if mask is not None else nw, heads, n, qsplit, float(scale),
-        cuda_lib.stream_ptr(q.device))
-    cuda_lib.check(err, "lavt_window_attn")
+    _k10_call((q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr()),
+              q.stride()[1:4], o.stride()[1:4], b, nw, heads, n, bias, mask,
+              lse, scale, q.device)
     return o, lse
 
 
@@ -301,14 +438,65 @@ def window_attention(q, k, v, bias, mask: Optional[torch.Tensor] = None,
     recording an input, through `WindowAttention` (K9 backward); else the
     forward alone (nothing is saved)."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (q, k, v, bias)):
+    if records(q, k, v, bias):
         return WindowAttention.apply(q, k, v, bias, mask, scale)
     if q.device.type == "cpu":
         return window_attention_plain(q, k, v, bias, mask, scale)
     out, _ = _launch(q, k, v, bias, mask, scale, save=False)
     window_attention.launches += 1
     return out
+
+
+def qkv_heads(qkv: torch.Tensor, heads: int):
+    """q, k, v as (B, nW, heads, N, hd) views of the qkv Linear's output
+    (B, nW, N, 3C): no copy."""
+    b, nw, n, c3 = qkv.shape
+    return qkv.view(b, nw, n, 3, heads, c3 // (3 * heads)).permute(
+        3, 0, 1, 4, 2, 5)
+
+
+def window_attention_qkv_plain(qkv, bias, mask, heads: int,
+                               scale: float) -> torch.Tensor:
+    """The plain version of `window_attention_qkv`: K10's plain version on
+    the views, O merged to (B, nW, N, C)."""
+    b, nw, n, c3 = qkv.shape
+    out = window_attention_plain(*qkv_heads(qkv, heads), bias, mask, scale)
+    return out.transpose(2, 3).reshape(b, nw, n, c3 // 3)
+
+
+def window_attention_qkv(qkv, bias, mask, heads: int,
+                         scale: float) -> torch.Tensor:
+    """K10 at inference on the qkv Linear's output (B, nW, N, 3C): the
+    kernel reads q, k, v by strides where the Linear wrote them and writes
+    O in the (B, nW, N, C) layout the out-projection reads, so the block
+    makes no layout copy.  The plain version on a CPU tensor.  For the
+    forward alone: where autograd records, the caller takes
+    `window_attention` on q, k, v (K10's save mode and K9)."""
+    if qkv.device.type == "cpu":
+        return window_attention_qkv_plain(qkv, bias, mask, heads, scale)
+    b, nw, n, c3 = qkv.shape
+    c = c3 // 3
+    if c3 != 3 * heads * HEAD_DIM or not window_attn_supported(n, HEAD_DIM):
+        raise ValueError(f"window attention kernel: qkv {tuple(qkv.shape)} "
+                         f"with {heads} heads (hd {HEAD_DIM}, N <= {MAX_N})")
+    if qkv.dtype != torch.bfloat16 or not qkv.is_contiguous() \
+            or qkv.data_ptr() % 16:
+        raise ValueError(f"qkv: {qkv.dtype}, contiguous "
+                         f"{qkv.is_contiguous()}: expected contiguous "
+                         "bfloat16, 16-byte aligned")
+    _check_bias_mask(bias, mask, heads, nw, n, qkv.device)
+    out = torch.empty((b, nw, n, c), dtype=qkv.dtype, device=qkv.device)
+    base = qkv.data_ptr()  # q, k, v at columns 0, C, 2C of each row
+    _k10_call((base, base + 2 * c, base + 4 * c, out.data_ptr()),
+              (n * c3, HEAD_DIM, c3), (n * c, HEAD_DIM, c), b, nw, heads, n,
+              bias, mask, None, scale, qkv.device)
+    window_attention.launches += 1
+    return out
+
+
+def records(*tensors) -> bool:
+    """Whether autograd records a call on these tensors."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 window_attention.launches = 0

@@ -33,6 +33,7 @@ held to its plain version on `probe_input(..., std=CHECK_STD)` instead
 from __future__ import annotations
 
 import argparse
+import functools
 import statistics
 import sys
 import time
@@ -62,6 +63,41 @@ def probe_attention_plain(x: torch.Tensor, heads: int, n: int,
     return (p @ q).to(x.dtype).transpose(1, 2).reshape(rows, cq)
 
 
+# P2's blocks (csrc/probe_headbatch.cu): 256 threads, at most two a SM; an
+# H100 SM's shared memory and a block's limit
+P2_PER_SM = 2
+SMEM_PER_BLOCK = 232448
+
+
+def batch_smem(slots: int, n: int) -> int:
+    """P2's dynamic shared memory for `slots` staged (window, head) tiles of
+    n rows x 64 bytes: the tiles, a barrier each, 1 KB of alignment."""
+    return 1024 + slots * (n * 64 + 8)
+
+
+def batch_plan(grid: int, ch: int, heads: int, n: int, sms: int) -> dict:
+    """P2's launch: each of the `grid` row blocks is spread over `split`
+    blocks (split divides the ch heads slots; each block stages and runs
+    its run of them), the largest split whose blocks still fit the card in
+    one wave; split 1 where the row blocks alone fill it."""
+    slots = ch * heads
+    split = 1 if grid >= sms else max(
+        d for d in range(1, slots + 1)
+        if slots % d == 0 and (d == 1 or grid * d <= sms * P2_PER_SM))
+    while batch_smem(slots // split, n) > SMEM_PER_BLOCK and split < slots:
+        split = next(d for d in range(split + 1, slots + 1) if slots % d == 0)
+    smem = batch_smem(slots // split, n)
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(f"P2: one slot of n = {n} does not fit")
+    return dict(split=split, blocks=grid * split, slots_per_block=slots // split,
+                smem=smem, waves=grid * split / (sms * P2_PER_SM))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _launch(x, ch, heads, n, hd, batch: bool) -> torch.Tensor:
     rows, cq = x.shape
     if hd != HEAD_DIM or n % 16 or not 16 <= n <= MAX_N:
@@ -73,8 +109,11 @@ def _launch(x, ch, heads, n, hd, batch: bool) -> torch.Tensor:
     if x.data_ptr() % 16:
         raise ValueError("x: data must be 16-byte aligned")
     o = torch.empty_like(x)
+    grid = rows // (ch * n)
+    split = (batch_plan(grid, ch, heads, n, _sm_count(x.device.index or 0))
+             ["split"] if batch else 1)
     err = cuda_lib.lib().lavt_probe_headbatch(
-        x.data_ptr(), o.data_ptr(), rows // (ch * n), ch, n, heads, int(batch),
+        x.data_ptr(), o.data_ptr(), grid, ch, n, heads, int(batch), split,
         cuda_lib.stream_ptr(x.device))
     cuda_lib.check(err, "lavt_probe_headbatch")
     return o
@@ -93,9 +132,10 @@ def loop_attention(x: torch.Tensor, ch: int, heads: int, n: int,
 
 def batch_attention(x: torch.Tensor, ch: int, heads: int, n: int,
                     hd: int = HEAD_DIM) -> torch.Tensor:
-    """P2 (`batch_kernel`): one CUDA block per row block, all heads, the
-    block staged once in shared memory.  The plain version on a CPU
-    tensor."""
+    """P2 (`batch_kernel`): a row block's (window, head) slots staged once
+    in shared memory by TMA and run in parallel by the block's warps (the
+    row block over `batch_plan`'s split blocks).  The plain version on a
+    CPU tensor."""
     if x.device.type == "cpu":
         return probe_attention_plain(x, heads, n, hd)
     out = _launch(x, ch, heads, n, hd, batch=True)

@@ -623,3 +623,137 @@ def test_attention_core_bwd_refuses_what_it_does_not_take(dev):
         attention_core_bwd(q, q, q, bias, None, q.float(), None, o, lse)
     with pytest.raises(ValueError):  # lse of another shape
         attention_core_bwd(q, q, q, bias, None, q, None, o, lse[:, :1])
+
+
+# -- K10 and P2 redesigned for Hopper (csrc/window_attn_sm90.cu, P2 in
+# csrc/probe_headbatch.cu) ---------------------------------------------------
+
+# (B, nW, heads, N): every K10 shape of the main paths (the video clip's
+# stages 1-4, stage 1 in training; a 4-frame stage 2; window-7 Swin-B at
+# bs 8, stages 1-4) and ragged N (130: rows not 16-byte aligned above 64)
+K10_SHAPES = [(1, 324, 3, 392), (1, 81, 6, 392), (1, 25, 12, 392),
+              (1, 9, 24, 392), (1, 81, 6, 196), (8, 324, 4, 49),
+              (8, 81, 8, 49), (8, 25, 16, 49), (8, 9, 32, 49)]
+K10_RAGGED = [(2, 3, 5, n) for n in (1, 17, 63, 130, 400)]
+
+
+def _k10_args(rng, dev, b, nw, heads, n, masked):
+    q, k, v = (_bf16(rng, (b, nw, heads, n, 32), 1.0, dev) for _ in range(3))
+    bias = torch.from_numpy(rng.standard_normal((heads, n, n))
+                            .astype(np.float32)).to(dev)
+    mask = (torch.from_numpy(np.where(rng.random((nw, n, n)) > 0.7, -100.0,
+                                      0.0).astype(np.float32)).to(dev)
+            if masked else None)
+    return q, k, v, bias, mask
+
+
+@pytest.mark.parametrize("b,nw,heads,n", K10_SHAPES + K10_RAGGED)
+@pytest.mark.parametrize("masked", [False, True])
+def test_k10_both_modes_at_every_shape(dev, b, nw, heads, n, masked):
+    """K10 and its save mode against their plain versions (TOL_MSA; lse
+    within TOL_P abs + 1e-4 rel)."""
+    rng = np.random.default_rng(b + nw + heads + n + masked)
+    q, k, v, bias, mask = _k10_args(rng, dev, b, nw, heads, n, masked)
+    sc = 32 ** -0.5
+    _close(window_attention(q, k, v, bias, mask, sc),
+           window_attention_plain(q, k, v, bias, mask, sc), TOL_MSA)
+    o, lse = window_attention_save(q, k, v, bias, mask, sc)
+    o_p, lse_p = window_attention_save_plain(q, k, v, bias, mask, sc)
+    _close(o, o_p, TOL_MSA)
+    err = (lse - lse_p).abs()
+    assert bool((err <= TOL_P + 1e-4 * lse_p.abs()).all()), err.max().item()
+
+
+def test_k10_smem_matches_the_kernels_layout(dev):
+    """The shared memory ops/window_attn.k10_plan plans with is what the
+    kernel carves, at every N it takes."""
+    from lavt_rs_tpu_torch.ops import cuda_lib
+    from lavt_rs_tpu_torch.ops.window_attn import MAX_N, k10_smem
+
+    lib = cuda_lib.lib()
+    assert [lib.lavt_k10_smem(n) for n in range(1, MAX_N + 1)] == [
+        k10_smem(n) for n in range(1, MAX_N + 1)]
+
+
+@pytest.mark.parametrize("b,nw,heads,n", [(8, 9, 32, 49), (1, 25, 12, 392),
+                                          (2, 3, 5, 130)])
+@pytest.mark.parametrize("masked", [False, True])
+def test_k10_strided_qkv_route(dev, b, nw, heads, n, masked):
+    """K10 on the qkv Linear's output (q, k, v by strides, O written as
+    (B, nW, N, C)): the same bits as K10 on contiguous copies, and its
+    plain version's values."""
+    from lavt_rs_tpu_torch.ops.window_attn import (qkv_heads,
+                                                   window_attention_qkv,
+                                                   window_attention_qkv_plain)
+
+    rng = np.random.default_rng(n + masked)
+    c = heads * 32
+    qkv = _bf16(rng, (b, nw, n, 3 * c), 1.0, dev)
+    _, _, _, bias, mask = _k10_args(rng, dev, 1, nw, heads, n, masked)
+    sc = 32 ** -0.5
+    n10 = window_attention.launches
+    got = window_attention_qkv(qkv, bias, mask, heads, sc)
+    assert window_attention.launches == n10 + 1
+    assert got.shape == (b, nw, n, c) and got.is_contiguous()
+    q, k, v = (t.contiguous() for t in qkv_heads(qkv, heads))
+    same = window_attention(q, k, v, bias, mask, sc)
+    torch.cuda.synchronize()
+    assert torch.equal(got, same.transpose(2, 3).reshape(b, nw, n, c))
+    _close(got, window_attention_qkv_plain(qkv, bias, mask, heads, sc),
+           TOL_MSA)
+
+
+def test_p2_against_its_plain_version_and_p1(dev):
+    """P2 at the tool's defaults and at n = 16 and 192 (its plan's splits)
+    within CHECK_ATOL + CHECK_RTOL of the plain version on the check input,
+    and within 1e-2 of P1 on the tool's input."""
+    from lavt_rs_tpu_torch.tools import probe_headbatch as probe
+
+    for grid, ch, heads, n in ((96, 3, 4, 144), (4, 3, 4, 144),
+                               (8, 2, 3, 192), (16, 1, 2, 16)):
+        xc = probe.probe_input(grid, ch, heads, n, device=dev,
+                               std=probe.CHECK_STD)
+        got = probe.batch_attention(xc, ch, heads, n)
+        assert probe.mismatch(got, probe.probe_attention_plain(
+            xc, heads, n)) <= 1
+    x = probe.probe_input(96, 3, 4, 144, device=dev)
+    diff = (probe.loop_attention(x, 3, 4, 144).float()
+            - probe.batch_attention(x, 3, 4, 144).float()).abs().max()
+    assert diff.item() <= 1e-2
+
+
+def test_k10_and_p2_launch_only_the_ports_kernels(dev):
+    """K10 (N = 49 and 392), its save mode, the strided route and P2 under
+    torch.profiler: every kernel is the port's own (no cuBLAS, cuDNN,
+    flash or SDPA kernel)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from lavt_rs_tpu_torch.ops.window_attn import window_attention_qkv
+    from lavt_rs_tpu_torch.tools import probe_headbatch as probe
+
+    rng = np.random.default_rng(11)
+    small = _k10_args(rng, dev, 8, 9, 32, 49, True)
+    big = _k10_args(rng, dev, 1, 9, 24, 392, True)
+    qkv = _bf16(rng, (8, 9, 49, 3 * 1024), 1.0, dev)
+    x = probe.probe_input(96, 3, 4, 144, device=dev)
+
+    def calls():
+        for args in (small, big):
+            window_attention(*args, 32 ** -0.5)
+            window_attention_save(*args, 32 ** -0.5)
+        window_attention_qkv(qkv, small[3], small[4], 32, 32 ** -0.5)
+        probe.batch_attention(x, 3, 4, 144)
+        torch.cuda.synchronize()
+
+    calls()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        calls()
+    names = {e.key for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0)) > 0}
+    assert names, "the profiler recorded no kernel"
+    assert all("lavt::" in n for n in names), sorted(names)
+    assert any("window_attn_sm90_kernel" in n for n in names)
+    assert any("probe_batch_kernel" in n for n in names)

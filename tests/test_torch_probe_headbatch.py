@@ -145,3 +145,22 @@ sys.exit(probe_headbatch.main(["--device", "cpu", "--grid", "1",
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "loop :" in proc.stdout
+
+
+@pytest.mark.parametrize("grid,ch,heads,n,split", [
+    (96, 3, 4, 144, 2),    # the tool's defaults on 132 SMs
+    (4, 3, 4, 144, 12),    # few row blocks: one slot a block
+    (400, 3, 4, 144, 1),   # the row blocks alone fill the card
+    (8, 2, 3, 192, 6),
+    (200, 8, 4, 192, 2)])  # 32 slots of 192 rows do not fit one block
+def test_p2_launch_plan(grid, ch, heads, n, split):
+    """P2's plan, with no card: the split divides the row block's slots,
+    the staged slots fit a block's shared memory, and the blocks fit the
+    card in one wave unless the row blocks alone exceed it."""
+    plan = probe.batch_plan(grid, ch, heads, n, 132)
+    assert plan["split"] == split and (ch * heads) % split == 0
+    assert plan["slots_per_block"] == ch * heads // split
+    assert plan["blocks"] == grid * split
+    assert plan["smem"] == 1024 + plan["slots_per_block"] * (n * 64 + 8)
+    assert plan["smem"] <= probe.SMEM_PER_BLOCK
+    assert plan["waves"] <= 1 or split == 1 or grid * split > 264

@@ -22,10 +22,26 @@ import time
 from collections import defaultdict
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-HAND_WRITTEN = ("window_msa_attn_kernel", "fused_ln_mlp_kernel", "layer_norm_rows_kernel",
-                "msa_bwd_attn_kernel", "gemm_bf16_kernel", "mlp_bwd_dx_kernel",
-                "mlp_bwd_dw_kernel", "sum_partials_kernel",
-                "colsum_bf16_kernel")
+# the port's hand-written kernels (csrc/), by the names the profiler shows
+HAND_WRITTEN = (
+    "window_msa_attn_kernel",      # K1, K2, the save mode, K11
+    "window_msa_np_kernel",        # K2p
+    "window_attn_sm90_kernel",     # K10 and its save mode
+    "attn_bwd_q_kernel",           # K9
+    "attn_bwd_kv_kernel",          # K9
+    "msa_bwd_attn_kernel",         # K5 / K6
+    "mlp_ln_rows_kernel",          # K3 / K8: LN rows
+    "mlp_bwd_prep_kernel",         # K7
+    "ln_bwd_rows_kernel",          # K7
+    "gemm_bf16_kernel",            # the WMMA GEMM of the MSA routes
+    "gemm_kernel",                 # the wgmma + TMA GEMM core (K3, K8, K7)
+    "layer_norm_wide_rows_kernel",  # K4 at C > 1024
+    "layer_norm_rows_kernel",      # K4
+    "sum_partials_kernel",
+    "colsum_bf16_kernel",
+    "probe_loop_kernel",           # P1
+    "probe_batch_kernel",          # P2
+)
 
 
 def category(name: str) -> str:
