@@ -4,7 +4,8 @@
     python3 chip_smoke.py            # from the repository root, one card
 
 1. Prints the card's name and power limit, then builds the hand-written
-   CUDA kernels from `lavt_rs_tpu_torch/csrc` with nvcc (sm_90a).
+   CUDA kernels from `lavt_rs_tpu_torch/csrc` with nvcc (sm_90a) and
+   prints ptxas's registers and spills of K2p's and P1/P2's kernels.
 2. Kernel phases: each kernel on seeded bf16 inputs at the shapes the
    main paths give it (lavt_one Swin-B 480², batch 8; K6 also at stage 1
    with batch 16), against its plain PyTorch version (f32 math from the
@@ -62,7 +63,10 @@
    padded fused MSA) at the stage-1 shape, maskless and grouped, each
    against its plain version, timed beside its bound, its plain version
    and its library call (one `scaled_dot_product_attention` for K10, a
-   bf16 linear / SDPA / linear chain for K2p).  Then lavt_video
+   bf16 linear / SDPA / linear chain for K2p); K2p's three launches (qkv
+   GEMM, K10's kernel, out-projection GEMM) each timed on the device
+   beside its bound, and one K2p call with nu = 0 under the full mask
+   (`fused_window_msa_padded`) against K2's plain version.  Then lavt_video
    (Video Swin-T, SepTPWAM, 12-layer BERT, the A2D recipe) in bf16 from
    seeded random weights answers three 8-frame 480² clips through
    `eval.video_eval.clip_iou`; the counters must show K2p twice and K10
@@ -115,19 +119,24 @@
    input whose softmax is far from uniform (x at std 0.4, 1e-3 abs +
    2e-2 rel; a kernel writing each window's mean or a copy of x is shown
    to fail that check), timed at the tool's shapes beside their bound and
-   `scaled_dot_product_attention(scale=1)`; P1 against P2 on the tool's
-   input at its atol 1e-2; then the tool as a user runs it, whose
-   launches the kernels line reports; P2's launch plan (its split of a row
-   block over blocks) is printed.  Then K10 (N = 49 and 392), its save
-   mode, its strided route on the qkv Linear's output and P2 run under
-   `torch.profiler`, which must see only the port's own kernels (no
-   cuBLAS, cuDNN, flash or SDPA kernel).
+   `scaled_dot_product_attention(scale=1)`, each on the device with its
+   launches queued behind a sleep (`queued_ms`; a loop of CUDA events
+   times the host's enqueue at this size, printed beside); P1 against P2
+   on the tool's input at its atol 1e-2; then the tool as a user runs it,
+   whose launches the kernels line reports; P1's and P2's launch plans (their
+   splits of a row block over blocks) are printed.  Then K10 (N = 49 and
+   392), its save mode, its strided route on the qkv Linear's output, K2p
+   (stage 1, shifted), P1 and P2 run under `torch.profiler`, which must
+   see only the port's own kernels (no cuBLAS, cuDNN, flash or SDPA
+   kernel).
 
 Exits non-zero on any failure, without CUDA, or without the package.
 The last two lines are the per-kernel JSON and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
+import contextlib
+import io
 import json
 import math
 import os
@@ -191,7 +200,7 @@ SOURCES = {
     "K7": "lavt_rs_tpu_torch/csrc/fused_mlp_bwd.cu",
     "K8": "lavt_rs_tpu_torch/csrc/fused_mlp.cu",
     "K10": "lavt_rs_tpu_torch/csrc/window_attn_sm90.cu",
-    "K2p": "lavt_rs_tpu_torch/csrc/window_attn.cu",
+    "K2p": "lavt_rs_tpu_torch/csrc/window_msa_sm90.cu",
     "K9": "lavt_rs_tpu_torch/csrc/window_attn.cu",
     "K11": "lavt_rs_tpu_torch/csrc/fused_msa.cu",
     "P1": "lavt_rs_tpu_torch/csrc/probe_headbatch.cu",
@@ -465,37 +474,51 @@ def mlp_launch_work(m, c, splits):
     }
 
 
-def device_ms(fn, iters=10, tries=3):
-    """Device time of one call of fn: the time of the kernels it launches,
-    from torch.profiler over `iters` calls after a warm-up, without the
-    host's time between launches (which a CUDA-event loop of short
-    launches measures instead).  A session that recorded fewer kernels
-    than one call launches, times `iters`, is dropped and taken again;
-    after `tries` such sessions the time is None (not measured)."""
+def _device_session(fn, n):
+    """One torch.profiler session over n calls of fn: {kernel name: (device
+    us, launches)}."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    def session(n):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-        us = sum(getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0))
-                 for e in events)
-        return us, sum(e.count for e in events)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: (getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0)), e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def device_ms_by_kernel(fn, iters=10, tries=3):
+    """Device ms per call of fn by kernel name: the time of the kernels it
+    launches, from torch.profiler over `iters` calls after a warm-up,
+    without the host's time between launches (which a CUDA-event loop of
+    short launches measures instead).  A session that recorded fewer
+    kernels than one call launches, times `iters`, is dropped and taken
+    again; after `tries` such sessions the result is None (not
+    measured)."""
+    import torch
+
+    def launches(session):
+        return sum(count for _, count in session.values())
 
     fn()
     torch.cuda.synchronize()
-    per_call = max(session(1)[1] for _ in range(tries))
+    per_call = max(launches(_device_session(fn, 1)) for _ in range(tries))
     for _ in range(tries):
-        us, kernels = session(iters)
-        if per_call and kernels >= per_call * iters:
-            return us / 1e3 / iters
+        session = _device_session(fn, iters)
+        if per_call and launches(session) >= per_call * iters:
+            return {k: us / 1e3 / iters for k, (us, _) in session.items()}
     return None
+
+
+def device_ms(fn, iters=10, tries=3):
+    """Device ms of one call of fn (`device_ms_by_kernel`, summed), or None
+    (not measured)."""
+    by_kernel = device_ms_by_kernel(fn, iters, tries)
+    return None if by_kernel is None else sum(by_kernel.values())
 
 
 def queued_ms(fn, iters=20):
@@ -664,21 +687,31 @@ class Results:
         return "operations" if r["ops"] >= r["mem"] else "bytes"
 
 
-def measure(res, name, what, calls, fk, fp, fb, work, check):
+def measure(res, name, what, calls, fk, fp, fb, work, check, queued=False):
+    """Check fk against fp, then time fk, fp and fb (CUDA events around a
+    loop of calls; with `queued`, the calls queued behind a device sleep,
+    so that a call shorter than the host's time to enqueue it is timed on
+    the device: `queued_ms`) and add them to `res`."""
     want = fp()
     got = fk()
     out = check(name, got, want)
     err, extra = (out if isinstance(out, tuple) else (out, None))
     del got, want
-    tk = cuda_time_ms(fk)
-    tp = cuda_time_ms(fp, iters=3, warmup=1)
-    tb = cuda_time_ms(fb)
+    if queued:
+        tk, tp, tb = queued_ms(fk), queued_ms(fp, iters=3), queued_ms(fb)
+        how = (f" (device: launches queued; events around a loop "
+               f"{cuda_time_ms(fk):.4f}, host {host_us(fk):.1f} us a call)")
+    else:
+        tk = cuda_time_ms(fk)
+        tp = cuda_time_ms(fp, iters=3, warmup=1)
+        tb = cuda_time_ms(fb)
+        how = ""
     res.add(name, calls, err, tk, tp, tb, work)
     b, by = bound_ms(work)
     frob = "" if extra is None else f", worst grad rel Frobenius {extra:.3g}"
-    log(f"{name} {what}: max abs err {err:.3g}{frob}; kernel {tk:.4f} ms, "
-        f"bound {b:.4f} ms ({by}), plain (f32 math) {tp:.4f} ms, library "
-        f"chain {tb:.4f} ms")
+    log(f"{name} {what}: max abs err {err:.3g}{frob}; kernel {tk:.4f} "
+        f"ms{how}, bound {b:.4f} ms ({by}), plain (f32 math) {tp:.4f} ms, "
+        f"library chain {tb:.4f} ms")
     return tk, tp, tb
 
 
@@ -1577,6 +1610,49 @@ def k10_on_qkv(res, name, what, calls, qkv, qkv_copies, bias, mask, heads,
         f"{t_views:.4f} ms")
 
 
+def k2p_launch_phase(what, args):
+    """K2p's three launches (`fused_msa.grouped_launches`): each launch's
+    device time per call from torch.profiler over whole K2p calls (the
+    two GEMMs are two kernel instances), and each launch alone by CUDA
+    events with its launches queued (`queued_ms`), beside its bound; then
+    the call's host time to enqueue."""
+    from lavt_rs_tpu_torch.ops import fused_msa
+    from lavt_rs_tpu_torch.ops import window_attn as wa
+
+    x, wqkv, bqkv, wproj, bproj, bias, mask, nu, heads, sc = args
+    b, nw, n_p, c = x.shape
+    rows = b * nw * n_p
+    x2 = x.view(rows, c)
+    qkv = fused_msa.gemm_bias(x2, wqkv, bqkv, c, sc)
+    o = wa.attention_qkv_grouped(qkv.view(b, nw, n_p, 3 * c), bias, mask, nu,
+                                 heads, 1.0)
+    # name, the kernel's profiler key, the launch alone, its work
+    launches = (
+        ("qkv GEMM", "EpiBias<true>",
+         lambda: fused_msa.gemm_bias(x2, wqkv, bqkv, c, sc),
+         (6 * rows * c * c, 2 * rows * c * 4 + 3 * c * c * 2)),
+        ("attention (K10's kernel)", "window_attn_sm90_kernel",
+         lambda: wa.attention_qkv_grouped(qkv.view(b, nw, n_p, 3 * c), bias,
+                                          mask, nu, heads, 1.0),
+         attn_work(b, nw, heads, n_p, masked_windows(mask))),
+        ("out-projection GEMM", "EpiBias<false>",
+         lambda: fused_msa.gemm_bias(o.view(rows, c), wproj, bproj),
+         (2 * rows * c * c, 2 * rows * c * 2 + c * c * 2)))
+    call = lambda: fused_msa.fused_window_msa_grouped(*args)  # noqa: E731
+    by_kernel = device_ms_by_kernel(call) or {}
+    parts = []
+    for name, key, fn, work in launches:
+        prof_ms = sum(ms for k, ms in by_kernel.items() if key in k) or None
+        bms, by = bound_ms(work)
+        parts.append(f"{name} {fmt_ms(prof_ms)} (alone, events "
+                     f"{queued_ms(fn):.4f}; bound {bms:.4f} {by})")
+    total = sum(by_kernel.values()) or None
+    log(f"K2p launches {what}, device ms per call (torch.profiler): "
+        + "; ".join(parts) + f"; the call {fmt_ms(total)} over "
+        f"{len(by_kernel)} kernels, host {host_us(call):.1f} us to enqueue it")
+    del qkv, o
+
+
 def video_kernel_phases(dev, res):
     """K10 at the stage-2..4 shapes (and N = 196), on the qkv Linear's
     output as the blocks run it and on contiguous copies, and K2p at stage
@@ -1632,8 +1708,8 @@ def video_kernel_phases(dev, res):
                     return F.linear(o.transpose(1, 2).reshape(1, nw, n_p, c),
                                     w[2], w[3])
 
-                measure(res, "K2p", f"stage 1 x{tuple(xw.shape)} heads "
-                        f"{heads} nu {nu}", 1,
+                what = f"stage 1 x{tuple(xw.shape)} heads {heads} nu {nu}"
+                measure(res, "K2p", what, 1,
                         lambda a=args: fused_msa.fused_window_msa_grouped(*a),
                         lambda a=args: fused_msa.fused_window_msa_grouped_plain(
                             *a),
@@ -1642,7 +1718,22 @@ def video_kernel_phases(dev, res):
                         lambda name, got, want: compare(
                             name, got[:, :, :n], want[:, :, :n], TOL["K2"]))
                 del am
-            del xw
+                k2p_launch_phase(what, args)
+            # nu = 0 under the full (nW, N, N) shift mask, through the padded
+            # wrapper (x, bias and mask padded there), against K2's plain
+            # version on the unpadded windows
+            x_u = xw[:, :, :n].contiguous()
+            b_u = bias[:, :n, :n].contiguous()
+            full = shift_mask_3d(FRAMES, hp, hp, (8, 7, 7), (0, 3, 3), dev)
+            err = compare("K2p", fused_msa.fused_window_msa_padded(
+                              x_u, *w, b_u, full, heads, sc),
+                          fused_msa.fused_window_msa_plain(
+                              x_u, *w, b_u, full, heads, sc), TOL["K2"])
+            res.r["K2p"]["err"] = max(res.r["K2p"]["err"], err)
+            log(f"K2p nu = 0 under the full mask (fused_window_msa_padded, "
+                f"x{tuple(x_u.shape)}, mask{tuple(full.shape)}): max abs err "
+                f"{err:.3g}")
+            del xw, x_u, full
             continue
         # K10 on the stage's qkv Linear output, as the blocks call it
         n = 392
@@ -2078,13 +2169,13 @@ def window7_kernel_phase(dev, res):
     """K10, K10's save mode and K9 at the four window-7 shapes of a bs-8
     lavt_one_base(window12=False) forward (stage s: (8, nW, h, 49, 32);
     the shifted blocks under their (nW, 49, 49) mask), each against its
-    plain version, timed beside its bound and its SDPA chain (autograd
-    through it for K9); K10 on the qkv Linear's output as the forward runs
-    it (and checked on contiguous copies), the save mode and K9 on the
-    contiguous q, k, v training gives them; per forward ("K10/w7") or
-    training step ("K10s/w7", "K9/w7") into `res`."""
+    plain version, timed beside its bound and its SDPA chain (B nW as
+    SDPA's 4-D batch; autograd through it for K9); K10 on the qkv Linear's
+    output as the forward runs it (and checked on contiguous copies), the
+    save mode and K9 on the contiguous q, k, v training gives them; per
+    forward ("K10/w7") or training step ("K10s/w7", "K9/w7") into
+    `res`."""
     import torch
-    import torch.nn.functional as F
 
     from lavt_rs_tpu_torch.ops import window_attn as wa
     from lavt_rs_tpu_torch.ops.window import (relative_bias_from_table,
@@ -2134,8 +2225,9 @@ def window7_kernel_phase(dev, res):
             do = rnd(q.shape)
 
             def sdpa_chain(q_, k_, v_, b_, mask=mask, nw=nw):
-                return F.scaled_dot_product_attention(
-                    q_, k_, v_, attn_mask=sdpa_mask(b_, mask, nw), scale=sc)
+                # 4-D, B nW as SDPA's batch (5-D input takes its math path)
+                return sdpa_windows(q_, k_, v_, sdpa_mask(b_, mask, nw, BATCH),
+                                    sc).view(q_.shape)
 
             measure(res, "K9/w7", what, depth // 2,
                     lambda m=mask, o=o, lse=lse, do=do: wa.attention_core_bwd(
@@ -2467,7 +2559,9 @@ def probe_phase(dev, card, res):
     `CHECK_STD`: the softmax far from uniform) at `CHECK_ATOL` abs +
     `CHECK_RTOL` rel, after checking that a kernel writing each window's
     mean or a copy of x would fail that check there; timed at the tool's
-    defaults beside their bound and `scaled_dot_product_attention(scale=1)`;
+    defaults beside their bound and `scaled_dot_product_attention(scale=1)`
+    (each on the device, its launches queued: a call is shorter than the
+    host's time to enqueue it);
     P1 against P2 on the tool's input at its atol 1e-2; then the tool as a
     user runs it (`python -m lavt_rs_tpu_torch.tools.probe_headbatch`, in
     process, on the card): its launches."""
@@ -2477,12 +2571,14 @@ def probe_phase(dev, card, res):
     from lavt_rs_tpu_torch.tools import probe_headbatch as probe
 
     ch, heads, n, hd, grid = PROBE
-    plan = probe.batch_plan(grid, ch, heads, n, torch.cuda.get_device_properties(
-        0).multi_processor_count)
-    log(f"P2 plan: {grid} row blocks of {ch} windows x {heads} heads, split "
-        f"{plan['split']}: {plan['blocks']} blocks of {plan['slots_per_block']}"
-        f" slots, {plan['smem']} B of shared memory, {plan['waves']:.3f} "
-        f"waves at two blocks per SM")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for name, plan_of, cut in (("P1", probe.loop_plan, "heads"),
+                               ("P2", probe.batch_plan, "slots")):
+        plan = plan_of(grid, ch, heads, n, sms)
+        log(f"{name} plan: {grid} row blocks of {ch} windows x {heads} heads, "
+            f"{cut} split {plan['split']}: {plan['blocks']} blocks of "
+            f"{plan['slots_per_block']} slots, {plan['smem']} B of shared "
+            f"memory, {plan['waves']:.3f} waves at two blocks per SM")
     x = probe.probe_input(grid, ch, heads, n, hd, dev, std=probe.CHECK_STD)
     rows = x.shape[0]
     want = probe.probe_attention_plain(x, heads, n, hd)
@@ -2519,7 +2615,7 @@ def probe_phase(dev, card, res):
                 f"std {probe.CHECK_STD}", 1,
                 lambda fn=fn: fn(x, ch, heads, n, hd),
                 lambda: probe.probe_attention_plain(x, heads, n, hd), sdpa,
-                work, check)
+                work, check, queued=True)
     xt = probe.probe_input(grid, ch, heads, n, hd, dev)
     diff = (probe.loop_attention(xt, ch, heads, n).float()
             - probe.batch_attention(xt, ch, heads, n).float()).abs().max()
@@ -2541,11 +2637,14 @@ def probe_phase(dev, card, res):
 
 def k10_p2_only_port_kernels(dev):
     """K10 at N = 49 and 392, its save mode, its strided route on the qkv
-    Linear's output and P2 under torch.profiler: only the port's kernels."""
+    Linear's output, K2p at stage 1 (shifted), P1 and P2 under
+    torch.profiler: only the port's kernels."""
     import torch
 
+    from lavt_rs_tpu_torch.ops import fused_msa
     from lavt_rs_tpu_torch.ops import window_attn as wa
-    from lavt_rs_tpu_torch.ops.window import shift_mask_2d, shift_mask_3d
+    from lavt_rs_tpu_torch.ops.window import (partition_3d_groups,
+                                              shift_mask_2d, shift_mask_3d)
     from lavt_rs_tpu_torch.tools import probe_headbatch as probe
 
     g = torch.Generator(device=dev).manual_seed(SEED + 40)
@@ -2572,12 +2671,54 @@ def k10_p2_only_port_kernels(dev):
                     q, k, v, b, m, 32 ** -0.5),
                 lambda t=qkv, b=bias, m=mask, h=h: wa.window_attention_qkv(
                     t, b, m, h, 32 ** -0.5)]
-    fns.append(lambda: probe.batch_attention(x, ch, heads, n, hd))
+    nu, mask = partition_3d_groups(FRAMES, 120, 120, FRAMES, 126, 126,
+                                   (8, 7, 7), (0, 3, 3), 400, dev)
+    k2p = (rnd((1, 324, 400, 96)), rnd((288, 96)) * 0.1, rnd((288,)) * 0.2,
+           rnd((96, 96)) * 0.1, rnd((96,)) * 0.2,
+           torch.randn((3, 400, 400), generator=g, device=dev), mask, nu, 3,
+           32 ** -0.5)
+    fns += [lambda: fused_msa.fused_window_msa_grouped(*k2p),
+            lambda: probe.loop_attention(x, ch, heads, n, hd),
+            lambda: probe.batch_attention(x, ch, heads, n, hd)]
     names = only_port_kernels("K10 (N = 49, 392), K10 save, the strided "
-                              "route and P2", fns)
-    for want in ("window_attn_sm90_kernel", "probe_batch_kernel"):
+                              "route, K2p, P1 and P2", fns)
+    for want in ("window_attn_sm90_kernel", "gemm_kernel",
+                 f"probe_kernel<{n // 16}, true>",
+                 f"probe_kernel<{n // 16}, false>"):
         if not any(want in nm for nm in names):
             raise RuntimeError(f"the profiler saw no {want}")
+
+
+# kernels whose ptxas -v line chip_smoke prints: K2p's (the GEMM core's
+# two EpiBias instances and K10's kernel) and P1/P2's
+PTXAS_KERNELS = {"EpiBiasILb1E": "K2p qkv GEMM (GEMM core)",
+                 "EpiBiasILb0E": "K2p out-projection GEMM (GEMM core)",
+                 "window_attn_sm90_kernelILb0ELb0E": "K10 / K2p attention",
+                 "probe_kernelILi9ELb1E": "P1 (n = 144)",
+                 "probe_kernelILi9ELb0E": "P2 (n = 144)"}
+
+
+def ptxas_lines(text):
+    """Print the registers and spills of PTXAS_KERNELS from a build's
+    ptxas -v output ("not measured" where the library was cached)."""
+    import re
+
+    found, entry = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1)
+            continue
+        if entry is None:
+            continue
+        key = next((k for k in PTXAS_KERNELS if k in entry), None)
+        if key and ("registers" in line or "spill" in line):
+            found.setdefault(key, []).append(
+                line.split(":", 1)[-1].strip().rstrip("."))
+    for key, what in PTXAS_KERNELS.items():
+        log(f"ptxas -v {what}: "
+            + ("; ".join(found[key]) if key in found else "not measured "
+               "(a cached build)"))
 
 
 def main():
@@ -2608,9 +2749,13 @@ def main():
     t_start = time.perf_counter()
 
     t0 = time.perf_counter()
+    ptxas = io.StringIO()
+    with contextlib.redirect_stdout(ptxas):  # the build's ptxas -v lines
+        cuda_lib.build(verbose=True)
     cuda_lib.lib()
     log(f"kernel build+load: {time.perf_counter() - t0:.2f} s "
         f"(nvcc {cuda_lib.build_seconds} s)")
+    ptxas_lines(ptxas.getvalue())
 
     # -- kernel phases ----------------------------------------------------
     res = kernel_phases(dev)

@@ -44,9 +44,12 @@
 // flight while it waits for the next.
 //
 // Ragged edges: TMA fills out-of-bounds rows of a box with zeros (rows of
-// M past the end, and the depth past K), so they add nothing; a TMA store
-// clips rows >= M, and the f32 epilogues mask them.  N is a multiple of
-// 128 for every use here.  A split over K (grid z) takes k-tiles
+// M past the end, B's rows past N, and the depth past K), so they add
+// nothing; a TMA store clips rows >= M, and the f32 epilogues mask them.
+// N is a multiple of 128 for the LN-MLP tail; K2p's projections (N = 3C =
+// 288 and C = 96, csrc/window_msa_sm90.cu) take a ragged last column
+// tile: the core skips its staged boxes past N and their epilogue reads
+// no per-column data there.  A split over K (grid z) takes k-tiles
 // [z kps, (z + 1) kps).
 //
 // Tensor maps are built on the host per call (`make_map`) through the
@@ -155,7 +158,7 @@ struct GemmParams {
   CUtensorMap c0, c1;
   int k_tiles;
   int k_tiles_per_split;
-  int m_tiles, n_tiles;  // set by launch_gemm
+  int m_tiles, n_tiles, n_cols;  // set by launch_gemm (n_cols: N)
   EpiArgs epi;
 };
 
@@ -477,9 +480,10 @@ __global__ void __launch_bounds__(kThreads, 1)
           for (int mb = 0; mb < kMB; ++mb)
             for (int o = 0; o < kStaged; ++o)
               for (int bx = 0; bx < 2; ++bx)
-                tma_store(o == 0 ? &p.c0 : &p.c1,
-                          smem_u32(out) + ((mb * kStaged + o) * 2 + bx) * kBoxBytes,
-                          n0 + 64 * bx, m0 + 64 * mb);
+                if (n0 + 64 * bx < p.n_cols)  // a ragged last tile's boxes past N
+                  tma_store(o == 0 ? &p.c0 : &p.c1,
+                            smem_u32(out) + ((mb * kStaged + o) * 2 + bx) * kBoxBytes,
+                            n0 + 64 * bx, m0 + 64 * mb);
           asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
         }
       }
@@ -498,7 +502,7 @@ inline int sm_count() {
   return n;
 }
 
-// Launch on `stream` over the ceil(m / (64 kMB)) x (n / 128) output
+// Launch on `stream` over the ceil(m / (64 kMB)) x ceil(n / 128) output
 // tiles, times `splits` over K: at most one block per SM in all.
 template <class Epi, int kMB, bool kTA0, bool kTB0, bool kDual = false, bool kTA1 = false,
           bool kTB1 = false>
@@ -510,7 +514,8 @@ cudaError_t launch_gemm(GemmParams<typename Epi::Args> p, int m, int n, int spli
                                          static_cast<int>(T::kSmem));
   if (err != cudaSuccess) return err;
   p.m_tiles = (m + T::kRows - 1) / T::kRows;
-  p.n_tiles = n / kBN;
+  p.n_tiles = (n + kBN - 1) / kBN;
+  p.n_cols = n;
   const int blocks = std::max(1, std::min(p.m_tiles * p.n_tiles, sm_count() / splits));
   kernel<<<dim3(blocks, 1, splits), kThreads, T::kSmem, stream>>>(p);
   return cudaGetLastError();

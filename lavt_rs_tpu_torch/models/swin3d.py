@@ -17,9 +17,9 @@ kernel on a CUDA tensor (its plain version on a CPU tensor):
     the first stage of Video Swin-T/S, at window (8, 7, 7)): pad + shift +
     partition + token pad (392 -> 400) as one gather with the unmasked
     windows first (`ops/window.partition_shifted_padded_3d`), then K2p
-    (`fused_window_msa_grouped`: qkv, attention and out-projection, the
-    maskless prefix and the small-mask rest in one launch), then the
-    inverse gather;
+    (`fused_window_msa_grouped`: qkv, attention and out-projection as
+    three launches, each over the maskless prefix and the small-mask rest
+    at once), then the inverse gather;
   * elsewhere the `qkv` and `proj` Linears stay plain and K10
     (`ops/window_attn.window_attention`) runs between them where
     `window_attn.attn_fwd_routed_3d` holds: the JAX `attn_fwd_supported`

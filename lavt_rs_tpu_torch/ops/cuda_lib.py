@@ -26,7 +26,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("ln.cu", "fused_mlp.cu", "fused_msa.cu", "fused_msa_bwd.cu",
            "fused_mlp_bwd.cu", "window_attn.cu", "window_attn_sm90.cu",
-           "probe_headbatch.cu")
+           "window_msa_sm90.cu", "probe_headbatch.cu")
 HEADERS = ("common.cuh", "gemm_sm90.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-lineinfo")
@@ -58,7 +58,7 @@ SIGNATURES = {
     "lavt_window_attn": (P,) * 7 + (L,) * 6 + (I,) * 7 + (F, P),
     "lavt_k10_smem": (I,),
     "lavt_window_attn_bwd": (P,) * 13 + (I,) * 7 + (F, P),
-    "lavt_window_msa_np": (P,) * 6 + (I,) * 6 + (F, P),
+    "lavt_gemm_bias_bf16": (P,) * 4 + (I,) * 4 + (F, P),
     "lavt_probe_headbatch": (P, P) + (I,) * 6 + (P,),
 }
 

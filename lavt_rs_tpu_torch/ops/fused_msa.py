@@ -37,10 +37,11 @@ the exact max-subtracted one (the TPU inference kernel's exp(min(s, 80))
 equals it while every logit is below 80).
 
 Each wrapper takes the plain version for a CPU tensor and launches the
-CUDA kernels (csrc/fused_msa.cu: attention; csrc/window_attn.cu: K2p's
-attention; csrc/fused_msa_bwd.cu: the out-projection GEMM and the
-backward) for a CUDA tensor; the plain
-versions compute in f32 with the kernels' rounding points.
+CUDA kernels (csrc/fused_msa.cu: attention; csrc/fused_msa_bwd.cu: the
+out-projection GEMM and the backward; K2p: csrc/window_msa_sm90.cu's
+projections on the wgmma + TMA GEMM core around K10's attention kernel)
+for a CUDA tensor; the plain versions compute in f32 with the kernels'
+rounding points.
 """
 
 from __future__ import annotations
@@ -555,8 +556,8 @@ def pad_bias_sublane(bias: torch.Tensor, n_p: int) -> torch.Tensor:
 
 
 def padded_msa_supported(n_p: int, c: int, heads: int) -> bool:
-    """Geometries K2p's kernel takes: n_p a multiple of 16 up to 400, head
-    dim 32 (C = 32 heads)."""
+    """Geometries K2p's launches take: n_p a multiple of 16 up to 400 (K10's
+    kernel), head dim 32 (C = 32 heads)."""
     return (heads > 0 and c == 32 * heads and n_p % TOKEN_TILE == 0
             and TOKEN_TILE <= n_p <= 400)
 
@@ -578,6 +579,58 @@ def fused_window_msa_grouped_plain(x, wqkv, bqkv, wproj, bproj, bias, mask,
     return torch.cat(parts, dim=1)
 
 
+def gemm_bias_plain(x2, w, b, scaled: int = 0,
+                    scale: float = 1.0) -> torch.Tensor:
+    """The plain version of `gemm_bias`: f32 math, rounded once."""
+    y = x2.float() @ w.float().t() + b.float()
+    if scaled:
+        y[:, :scaled] *= scale
+    return y.to(x2.dtype)
+
+
+def gemm_bias(x2, w, b, scaled: int = 0, scale: float = 1.0) -> torch.Tensor:
+    """(M, N) = (x2 wᵀ + b) s rounded to bf16, s = scale on the first
+    `scaled` columns (else 1), on the wgmma + TMA GEMM core
+    (csrc/window_msa_sm90.cu): K2p's qkv projection (scaled = C: q scaled
+    after its bias, as the TPU kernel rounds it) and its out-projection
+    (scaled = 0).  x2 (M, K), w (N, K) (a torch Linear weight), b (N,),
+    bf16; the plain version on a CPU tensor."""
+    if x2.device.type == "cpu":
+        return gemm_bias_plain(x2, w, b, scaled, scale)
+    (m, k), n = x2.shape, w.shape[0]
+    bf16 = torch.bfloat16
+    _require_all([("x", x2, bf16, None), ("w", w, bf16, (n, k)),
+                  ("b", b, bf16, (n,))], x2.device)
+    y = torch.empty((m, n), dtype=bf16, device=x2.device)
+    err = cuda_lib.lib().lavt_gemm_bias_bf16(
+        x2.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), m, n, k,
+        scaled, float(scale), cuda_lib.stream_ptr(x2.device))
+    cuda_lib.check(err, "lavt_gemm_bias_bf16")
+    return y
+
+
+def grouped_launches(x, wqkv, bqkv, wproj, bproj, bias, mask, nu: int,
+                     heads: int, scale: float) -> torch.Tensor:
+    """K2p's three launches, in order (csrc/window_msa_sm90.cu):
+      (a) qkv = x Wqkvᵀ + bqkv, q scaled after its bias, bf16 (B nW n_p,
+          3C), on the GEMM core (`gemm_bias`);
+      (b) the attention on K10's kernel, q, k, v read from qkv by strides,
+          scale 1 (q is scaled already), the mask grouping by nu, O as
+          (B nW n_p, C) (`window_attn.attention_qkv_grouped`);
+      (c) y = O Wprojᵀ + bproj on the GEMM core.
+    On CPU tensors each launch takes its plain version, which compose to
+    `fused_window_msa_grouped_plain`'s values
+    (tests/test_torch_k2p_launches.py)."""
+    from . import window_attn  # imports this module
+
+    b, nw, n_p, c = x.shape
+    rows = b * nw * n_p
+    qkv = gemm_bias(x.reshape(rows, c), wqkv, bqkv, c, scale)
+    o = window_attn.attention_qkv_grouped(qkv.view(b, nw, n_p, 3 * c), bias,
+                                          mask, nu, heads, 1.0)
+    return gemm_bias(o.view(rows, c), wproj, bproj).view(b, nw, n_p, c)
+
+
 def _grouped_launch(x, wqkv, bqkv, wproj, bproj, bias, mask, nu, heads,
                     scale):
     b, nw, n_p, c = x.shape
@@ -591,17 +644,13 @@ def _grouped_launch(x, wqkv, bqkv, wproj, bproj, bias, mask, nu, heads,
     bf16 = torch.bfloat16
     checks = [("x", x, bf16, None), ("wqkv", wqkv, bf16, (3 * c, c)),
               ("bqkv", bqkv, bf16, (3 * c,)),
+              ("wproj", wproj, bf16, (c, c)), ("bproj", bproj, bf16, (c,)),
               ("bias", bias, torch.float32, (heads, n_p, n_p))]
     if mask is not None:
         checks.append(("mask", mask, torch.float32, (nw - nu, n_p, n_p)))
     _require_all(checks, x.device)
-    o = torch.empty((b * nw, n_p, c), dtype=bf16, device=x.device)
-    err = cuda_lib.lib().lavt_window_msa_np(
-        x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), bias.data_ptr(),
-        None if mask is None else mask.data_ptr(), o.data_ptr(), b * nw, nw,
-        nu, c, heads, n_p, float(scale), cuda_lib.stream_ptr(x.device))
-    cuda_lib.check(err, "lavt_window_msa_np")
-    return _proj_launch(o, wproj, bproj, x.shape)
+    return grouped_launches(x, wqkv, bqkv, wproj, bproj, bias, mask, nu,
+                            heads, scale)
 
 
 def fused_window_msa_grouped(x, wqkv, bqkv, wproj, bproj, bias,
@@ -611,7 +660,8 @@ def fused_window_msa_grouped(x, wqkv, bqkv, wproj, bproj, bias,
     projected attention.  bias: (h, n_p, n_p) from `pad_bias_sublane`;
     windows [0, nu) of each image take no mask, window w >= nu takes
     mask[w - nu] of the (nW - nu, n_p, n_p) mask (None: no window is
-    masked).  One kernel launch covers both groups."""
+    masked).  On the card the three launches of `grouped_launches`, each
+    covering both groups; one count per call."""
     if x.device.type == "cpu":
         return fused_window_msa_grouped_plain(x, wqkv, bqkv, wproj, bproj,
                                               bias, mask, nu, heads, scale)

@@ -23,12 +23,14 @@ C = 96 blocks take the grouped K2p route instead).
     any N <= 400; its launch `k10_plan`), or it raises.
     `window_attention_qkv` runs it at inference on the qkv Linear's
     output, by strides, with O in the layout the out-projection reads
-    (plain version `window_attention_qkv_plain`).  K9's kernels are in
-    csrc/window_attn.cu.  Where autograd records the call it goes
-    through `WindowAttention`: K10 in save mode (the output and each row's
-    log-sum-exp) forward and K9 backward on the card, the plain versions
-    of both on the CPU (so the CPU tests run the plain backward, not
-    autograd through the plain forward).
+    (plain version `window_attention_qkv_plain`);
+    `attention_qkv_grouped` does the same with the windows grouped by
+    mask, K2p's attention launch (`ops/fused_msa.grouped_launches`).
+    K9's kernels are in csrc/window_attn.cu.  Where autograd records the
+    call it goes through `WindowAttention`: K10 in save mode (the output
+    and each row's log-sum-exp) forward and K9 backward on the card, the
+    plain versions of both on the CPU (so the CPU tests run the plain
+    backward, not autograd through the plain forward).
 
 Routing: `attn_fwd_supported` is the JAX package's predicate
 (`_attn_tiling`'s arithmetic, copied): the 2D Swin block takes K10 (and
@@ -323,9 +325,10 @@ def _row_aligned(t):
 
 
 def _k10_call(ptrs, qst, ost, b, nw, heads, n, bias, mask, lse, scale,
-              device):
+              device, nu=0):
     """The launch, on checked arguments: ptrs (q, k, v, o), the element
-    strides (window, head, row) of q, k, v and of O."""
+    strides (window, head, row) of q, k, v and of O; windows nu.. of each
+    image take mask[w - nu] (no window a mask when mask is None)."""
     plan = k10_plan(b * nw, heads, n, _sm_count(device.index or 0))
     bias, ld = _row_aligned(bias)
     if mask is not None:
@@ -334,7 +337,7 @@ def _k10_call(ptrs, qst, ost, b, nw, heads, n, bias, mask, lse, scale,
     err = cuda_lib.lib().lavt_window_attn(
         q, k, v, bias.data_ptr(), None if mask is None else mask.data_ptr(),
         o, None if lse is None else lse.data_ptr(), *qst, *ost, b * nw, nw,
-        0 if mask is not None else nw, heads, n, ld, plan["blocks"],
+        nu if mask is not None else nw, heads, n, ld, plan["blocks"],
         float(scale), cuda_lib.stream_ptr(device))
     cuda_lib.check(err, "lavt_window_attn")
 
@@ -464,17 +467,25 @@ def window_attention_qkv_plain(qkv, bias, mask, heads: int,
     return out.transpose(2, 3).reshape(b, nw, n, c3 // 3)
 
 
-def window_attention_qkv(qkv, bias, mask, heads: int,
-                         scale: float) -> torch.Tensor:
-    """K10 at inference on the qkv Linear's output (B, nW, N, 3C): the
-    kernel reads q, k, v by strides where the Linear wrote them and writes
-    O in the (B, nW, N, C) layout the out-projection reads, so the block
-    makes no layout copy.  The plain version on a CPU tensor.  For the
-    forward alone: where autograd records, the caller takes
-    `window_attention` on q, k, v (K10's save mode and K9)."""
-    if qkv.device.type == "cpu":
-        return window_attention_qkv_plain(qkv, bias, mask, heads, scale)
+def attention_qkv_grouped(qkv, bias, mask, nu: int, heads: int,
+                          scale: float) -> torch.Tensor:
+    """K10's kernel on the qkv Linear's output (B, nW, N, 3C) with the
+    windows grouped by mask: window w of an image takes no mask for
+    w < nu, else mask[w - nu] of the (nW - nu, N, N) mask (None: none is
+    masked).  The kernel reads q, k, v by strides where the Linear wrote
+    them and writes O as (B, nW, N, C), the layout the out-projection
+    reads.  Uncounted: `window_attention_qkv` counts its K10 launches, K2p
+    (`ops/fused_msa.py`, whose attention launch this is) its own calls.
+    The plain version on a CPU tensor."""
     b, nw, n, c3 = qkv.shape
+    if not 0 <= nu <= nw:
+        raise ValueError(f"window attention: nu {nu} outside [0, {nw}]")
+    if mask is None or nu == nw:
+        mask, nu = None, nw
+    if qkv.device.type == "cpu":
+        if mask is not None and nu:
+            mask = torch.cat([mask.new_zeros((nu,) + mask.shape[1:]), mask])
+        return window_attention_qkv_plain(qkv, bias, mask, heads, scale)
     c = c3 // 3
     if c3 != 3 * heads * HEAD_DIM or not window_attn_supported(n, HEAD_DIM):
         raise ValueError(f"window attention kernel: qkv {tuple(qkv.shape)} "
@@ -484,13 +495,26 @@ def window_attention_qkv(qkv, bias, mask, heads: int,
         raise ValueError(f"qkv: {qkv.dtype}, contiguous "
                          f"{qkv.is_contiguous()}: expected contiguous "
                          "bfloat16, 16-byte aligned")
-    _check_bias_mask(bias, mask, heads, nw, n, qkv.device)
+    _check_bias_mask(bias, mask, heads, nw - nu, n, qkv.device)
     out = torch.empty((b, nw, n, c), dtype=qkv.dtype, device=qkv.device)
     base = qkv.data_ptr()  # q, k, v at columns 0, C, 2C of each row
     _k10_call((base, base + 2 * c, base + 4 * c, out.data_ptr()),
               (n * c3, HEAD_DIM, c3), (n * c, HEAD_DIM, c), b, nw, heads, n,
-              bias, mask, None, scale, qkv.device)
-    window_attention.launches += 1
+              bias, mask, None, scale, qkv.device, nu)
+    return out
+
+
+def window_attention_qkv(qkv, bias, mask, heads: int,
+                         scale: float) -> torch.Tensor:
+    """K10 at inference on the qkv Linear's output (B, nW, N, 3C): the
+    kernel reads q, k, v by strides where the Linear wrote them and writes
+    O in the (B, nW, N, C) layout the out-projection reads, so the block
+    makes no layout copy; mask (nW, N, N) or None.  The plain version on a
+    CPU tensor.  For the forward alone: where autograd records, the caller
+    takes `window_attention` on q, k, v (K10's save mode and K9)."""
+    out = attention_qkv_grouped(qkv, bias, mask, 0, heads, scale)
+    if qkv.device.type != "cpu":
+        window_attention.launches += 1
     return out
 
 

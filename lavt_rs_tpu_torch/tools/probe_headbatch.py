@@ -3,10 +3,12 @@
 Counterpart of `tools/probe_headbatch.py`, whose two Pallas kernels ask
 whether the per-op cost of the fused MSA's many small per-head products,
 not the matrix unit, bounds it.  On the card the same question reads: does
-a kernel lose time by reading each head's columns of a window separately
-(P1, one CUDA block per (row block, head), as K1/K2/K11 read x once per
-head) rather than staging the whole row block once (P2, one block per row
-block over all heads)?  Both kernels are in `csrc/probe_headbatch.cu`.
+a kernel lose time by working one head at a time (P1: a block takes its
+row block's heads one after another, as the Pallas loop does) rather than
+all of a row block's heads at once (P2)?  Both kernels are in
+`csrc/probe_headbatch.cu`, on one core (the row block's (window, head)
+slots staged by TMA, scores in registers); they differ only in that
+schedule.
 
     python -m lavt_rs_tpu_torch.tools.probe_headbatch [--ch 3] [--heads 4] \\
         [--n 144] [--hd 32] [--grid 96] [--rounds 6] [--device cuda]
@@ -63,34 +65,52 @@ def probe_attention_plain(x: torch.Tensor, heads: int, n: int,
     return (p @ q).to(x.dtype).transpose(1, 2).reshape(rows, cq)
 
 
-# P2's blocks (csrc/probe_headbatch.cu): 256 threads, at most two a SM; an
-# H100 SM's shared memory and a block's limit
-P2_PER_SM = 2
+# P1's and P2's blocks (csrc/probe_headbatch.cu): 256 threads, at most
+# two a SM; an H100 SM's shared memory and a block's limit
+BLOCKS_PER_SM = 2
 SMEM_PER_BLOCK = 232448
 
 
 def batch_smem(slots: int, n: int) -> int:
-    """P2's dynamic shared memory for `slots` staged (window, head) tiles of
-    n rows x 64 bytes: the tiles, a barrier each, 1 KB of alignment."""
+    """A block's dynamic shared memory for `slots` staged (window, head)
+    tiles of n rows x 64 bytes: the tiles, a barrier each, 1 KB of
+    alignment."""
     return 1024 + slots * (n * 64 + 8)
 
 
-def batch_plan(grid: int, ch: int, heads: int, n: int, sms: int) -> dict:
-    """P2's launch: each of the `grid` row blocks is spread over `split`
-    blocks (split divides the ch heads slots; each block stages and runs
-    its run of them), the largest split whose blocks still fit the card in
-    one wave; split 1 where the row blocks alone fill it."""
+def _plan(grid: int, ch: int, heads: int, n: int, sms: int,
+          unit: int) -> dict:
+    """Each of the `grid` row blocks spread over `split` blocks, each
+    staging and running ch heads / split slots: split divides
+    ch heads / unit (a block takes whole runs of `unit` slots), the
+    largest whose blocks still fit the card in one wave (split 1 where the
+    row blocks alone fill it), raised until a block's slots fit."""
     slots = ch * heads
+    runs = slots // unit
     split = 1 if grid >= sms else max(
-        d for d in range(1, slots + 1)
-        if slots % d == 0 and (d == 1 or grid * d <= sms * P2_PER_SM))
-    while batch_smem(slots // split, n) > SMEM_PER_BLOCK and split < slots:
-        split = next(d for d in range(split + 1, slots + 1) if slots % d == 0)
+        d for d in range(1, runs + 1)
+        if runs % d == 0 and (d == 1 or grid * d <= sms * BLOCKS_PER_SM))
+    while batch_smem(slots // split, n) > SMEM_PER_BLOCK and split < runs:
+        split = next(d for d in range(split + 1, runs + 1) if runs % d == 0)
     smem = batch_smem(slots // split, n)
     if smem > SMEM_PER_BLOCK:
-        raise ValueError(f"P2: one slot of n = {n} does not fit")
+        raise ValueError(f"probe kernels: {slots // split} slots of n = {n} "
+                         "do not fit a block")
     return dict(split=split, blocks=grid * split, slots_per_block=slots // split,
-                smem=smem, waves=grid * split / (sms * P2_PER_SM))
+                smem=smem, waves=grid * split / (sms * BLOCKS_PER_SM))
+
+
+def batch_plan(grid: int, ch: int, heads: int, n: int, sms: int) -> dict:
+    """P2's launch: a row block's ch heads slots (window-major) cut into
+    `split` equal runs, one block each."""
+    return _plan(grid, ch, heads, n, sms, unit=1)
+
+
+def loop_plan(grid: int, ch: int, heads: int, n: int, sms: int) -> dict:
+    """P1's launch: a row block's heads cut into `split` equal runs, one
+    block each, which works its heads one after another (split divides
+    heads: a head's ch windows stay in one block)."""
+    return _plan(grid, ch, heads, n, sms, unit=ch)
 
 
 @functools.lru_cache(maxsize=None)
@@ -110,8 +130,8 @@ def _launch(x, ch, heads, n, hd, batch: bool) -> torch.Tensor:
         raise ValueError("x: data must be 16-byte aligned")
     o = torch.empty_like(x)
     grid = rows // (ch * n)
-    split = (batch_plan(grid, ch, heads, n, _sm_count(x.device.index or 0))
-             ["split"] if batch else 1)
+    plan = batch_plan if batch else loop_plan
+    split = plan(grid, ch, heads, n, _sm_count(x.device.index or 0))["split"]
     err = cuda_lib.lib().lavt_probe_headbatch(
         x.data_ptr(), o.data_ptr(), grid, ch, n, heads, int(batch), split,
         cuda_lib.stream_ptr(x.device))
@@ -121,8 +141,11 @@ def _launch(x, ch, heads, n, hd, batch: bool) -> torch.Tensor:
 
 def loop_attention(x: torch.Tensor, ch: int, heads: int, n: int,
                    hd: int = HEAD_DIM) -> torch.Tensor:
-    """P1 (`loop_kernel`): one CUDA block per (row block of ch windows,
-    head).  The plain version on a CPU tensor."""
+    """P1 (`loop_kernel`): the per-head schedule.  A row block's slots are
+    staged in shared memory by TMA; a block (`loop_plan`'s split of the
+    row block's heads) works its heads one after another, each head's
+    windows by the block's warps in parallel, a barrier between heads.
+    The plain version on a CPU tensor."""
     if x.device.type == "cpu":
         return probe_attention_plain(x, heads, n, hd)
     out = _launch(x, ch, heads, n, hd, batch=False)

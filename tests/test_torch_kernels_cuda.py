@@ -43,8 +43,8 @@ from lavt_rs_tpu_torch.ops.window import (partition_3d_groups,
                                           relative_bias_from_table_3d,
                                           relative_position_index_2d,
                                           relative_position_index_3d,
-                                          shift_mask_2d, window_partition,
-                                          window_reverse)
+                                          shift_mask_2d, shift_mask_3d,
+                                          window_partition, window_reverse)
 from lavt_rs_tpu_torch.ops.window_attn import (
     attention_core_bwd, attention_core_bwd_plain, window_attention,
     window_attention_plain, window_attention_save, window_attention_save_plain)
@@ -505,25 +505,77 @@ def test_window_attention_kernel(dev, nw, heads, n, masked):
            window_attention_plain(q, k, v, bias, mask, 32 ** -0.5), TOL_MSA)
 
 
-@pytest.mark.parametrize("masked", [False, True])
-def test_fused_window_msa_grouped_kernel(dev, masked):
+# K2p's calls: (frames, window, shift, grouping) of a 480² clip's stage 1
+# (324 windows); grouping "small" is the route's (nu maskless windows,
+# then the masked ones under the small mask), "full" the same windows as
+# nu = 0 under the full mask, "empty" nu = nW with a mask of no windows
+K2P_CASES = {
+    "unshifted": (8, (8, 7, 7), (0, 0, 0), "small"),
+    "shifted": (8, (8, 7, 7), (0, 3, 3), "small"),
+    "nu-0-full-mask": (8, (8, 7, 7), (0, 3, 3), "full"),
+    "nu-nW-empty-mask": (8, (8, 7, 7), (0, 0, 0), "empty"),
+    "4-frame-shifted": (4, (4, 7, 7), (0, 3, 3), "small"),
+}
+
+
+def _k2p_weights(rng, dev, c):
+    return (_bf16(rng, (3 * c, c), c ** -0.5, dev),
+            _bf16(rng, (3 * c,), 0.2, dev),
+            _bf16(rng, (c, c), c ** -0.5, dev), _bf16(rng, (c,), 0.2, dev))
+
+
+@pytest.mark.parametrize("case", list(K2P_CASES))
+def test_fused_window_msa_grouped_kernel(dev, case):
     """K2p at the video stage-1 shape: 324 windows of 392 tokens padded to
-    400, C = 96, 3 heads; shifted, the first 289 windows are maskless and
-    the other 35 take the small mask."""
-    rng = np.random.default_rng(96 + masked)
-    c, heads, n, n_p, nw = 96, 3, 392, 400, 324
-    ws, ss = (8, 7, 7), (0, 3, 3) if masked else (0, 0, 0)
-    nu, mask = partition_3d_groups(8, 120, 120, 8, 126, 126, ws, ss, n_p, dev)
-    assert nu == (289 if masked else nw)
+    400 (8 frames) or 196 padded to 208 (4 frames), C = 96, 3 heads;
+    shifted, the first 289 windows are maskless and the other 35 take the
+    small mask; also nu = 0 under the full mask and nu = nW with an empty
+    mask.  One count per call, none of K10's."""
+    frames, ws, ss, grouping = K2P_CASES[case]
+    rng = np.random.default_rng(96 + len(case))
+    c, heads, nw = 96, 3, 324
+    n = ws[0] * ws[1] * ws[2]
+    n_p = -(-n // 16) * 16
+    nu, mask = partition_3d_groups(frames, 120, 120, frames, 126, 126, ws, ss,
+                                   n_p, dev)
+    assert nu == (289 if ss[1] else nw)
+    if grouping == "full":
+        mask, nu = torch.cat([mask.new_zeros((nu, n_p, n_p)), mask]), 0
+    elif grouping == "empty":
+        mask = torch.zeros((0, n_p, n_p), device=dev)
     x = _bf16(rng, (1, nw, n_p, c), 1.0, dev)
     x[:, :, n:] = 0
+    table = torch.from_numpy(rng.standard_normal(
+        ((2 * ws[0] - 1) * 13 * 13, heads)).astype(np.float32)).to(dev)
+    index = torch.from_numpy(relative_position_index_3d(*ws)).to(dev)
+    bias = pad_bias_sublane(relative_bias_from_table_3d(table, index, n), n_p)
+    args = (x, *_k2p_weights(rng, dev, c), bias, mask, nu, heads, 32 ** -0.5)
+    n2p, n10 = fused_window_msa_grouped.launches, window_attention.launches
+    got = fused_window_msa_grouped(*args)
+    assert fused_window_msa_grouped.launches == n2p + 1
+    assert window_attention.launches == n10
+    _close(got[:, :, :n], fused_window_msa_grouped_plain(*args)[:, :, :n],
+           TOL_MSA)
+
+
+def test_fused_window_msa_padded_kernel(dev):
+    """`fused_window_msa_padded` (K2p with nu = 0 and the full mask, x, bias
+    and mask padded by the wrapper) at 392 tokens against K2's plain
+    version on the unpadded windows: the padded keys drop out exactly."""
+    from lavt_rs_tpu_torch.ops.fused_msa import fused_window_msa_padded
+
+    rng = np.random.default_rng(97)
+    c, heads, n, nw = 96, 3, 392, 36
+    x = _bf16(rng, (1, nw, n, c), 1.0, dev)
     bias, _ = _video_bias_mask(rng, dev, heads, n, nw, False)
-    bias = pad_bias_sublane(bias, n_p)
-    w = (_bf16(rng, (3 * c, c), c ** -0.5, dev), _bf16(rng, (3 * c,), 0.2, dev),
-         _bf16(rng, (c, c), c ** -0.5, dev), _bf16(rng, (c,), 0.2, dev))
-    args = (x, *w, bias, mask, nu, heads, 32 ** -0.5)
-    _close(fused_window_msa_grouped(*args)[:, :, :n],
-           fused_window_msa_grouped_plain(*args)[:, :, :n], TOL_MSA)
+    mask = shift_mask_3d(8, 42, 42, (8, 7, 7), (0, 3, 3), dev)
+    w = _k2p_weights(rng, dev, c)
+    n2p = fused_window_msa_grouped.launches
+    got = fused_window_msa_padded(x, *w, bias, mask, heads, 32 ** -0.5)
+    assert fused_window_msa_grouped.launches == n2p + 1
+    assert got.shape == x.shape
+    _close(got, fused_window_msa_plain(x, *w, bias, mask, heads, 32 ** -0.5),
+           TOL_MSA)
 
 
 def test_video_kernels_refuse_what_they_do_not_take(dev):
@@ -625,8 +677,8 @@ def test_attention_core_bwd_refuses_what_it_does_not_take(dev):
         attention_core_bwd(q, q, q, bias, None, q, None, o, lse[:, :1])
 
 
-# -- K10 and P2 redesigned for Hopper (csrc/window_attn_sm90.cu, P2 in
-# csrc/probe_headbatch.cu) ---------------------------------------------------
+# -- K10 and P2 redesigned for Hopper (csrc/window_attn_sm90.cu, P1 and P2
+# in csrc/probe_headbatch.cu) --------------------------------------------------
 
 # (B, nW, heads, N): every K10 shape of the main paths (the video clip's
 # stages 1-4, stage 1 in training; a 4-frame stage 2; window-7 Swin-B at
@@ -722,12 +774,49 @@ def test_p2_against_its_plain_version_and_p1(dev):
     assert diff.item() <= 1e-2
 
 
-def test_k10_and_p2_launch_only_the_ports_kernels(dev):
-    """K10 (N = 49 and 392), its save mode, the strided route and P2 under
-    torch.profiler: every kernel is the port's own (no cuBLAS, cuDNN,
-    flash or SDPA kernel)."""
+def test_p1_against_its_plain_version(dev):
+    """P1 (the per-head schedule) at the tool's defaults and at n = 16 and
+    192 (its plan's splits of the heads) within CHECK_ATOL + CHECK_RTOL of
+    the plain version on the check input."""
+    from lavt_rs_tpu_torch.tools import probe_headbatch as probe
+
+    for grid, ch, heads, n in ((96, 3, 4, 144), (4, 3, 4, 144),
+                               (8, 2, 3, 192), (16, 1, 2, 16)):
+        xc = probe.probe_input(grid, ch, heads, n, device=dev,
+                               std=probe.CHECK_STD)
+        got = probe.loop_attention(xc, ch, heads, n)
+        assert probe.mismatch(got, probe.probe_attention_plain(
+            xc, heads, n)) <= 1
+
+
+def _profiled(fns):
+    """The device kernels fns launch under torch.profiler: {name: count}
+    (a session can come back without device records: up to three)."""
     from torch.profiler import ProfilerActivity, profile
 
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for fn in fns:
+                fn()
+            torch.cuda.synchronize()
+        names = {e.key: e.count for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0)) > 0}
+        if names:
+            return names
+    return {}
+
+
+def test_k10_and_p2_launch_only_the_ports_kernels(dev):
+    """K10 (N = 49 and 392), its save mode, the strided route, K2p, P1 and
+    P2 under torch.profiler: every kernel is the port's own (no cuBLAS,
+    cuDNN, flash or SDPA kernel), and a K2p call is its three launches
+    (the qkv GEMM, K10's kernel, the out-projection GEMM)."""
     from lavt_rs_tpu_torch.ops.window_attn import window_attention_qkv
     from lavt_rs_tpu_torch.tools import probe_headbatch as probe
 
@@ -736,24 +825,29 @@ def test_k10_and_p2_launch_only_the_ports_kernels(dev):
     big = _k10_args(rng, dev, 1, 9, 24, 392, True)
     qkv = _bf16(rng, (8, 9, 49, 3 * 1024), 1.0, dev)
     x = probe.probe_input(96, 3, 4, 144, device=dev)
+    nu, mask = partition_3d_groups(8, 120, 120, 8, 126, 126, (8, 7, 7),
+                                   (0, 3, 3), 400, dev)
+    xw = _bf16(rng, (1, 324, 400, 96), 1.0, dev)
+    bias = pad_bias_sublane(_video_bias_mask(rng, dev, 3, 392, 1, False)[0],
+                            400)
+    k2p = (xw, *_k2p_weights(rng, dev, 96), bias, mask, nu, 3, 32 ** -0.5)
 
-    def calls():
-        for args in (small, big):
-            window_attention(*args, 32 ** -0.5)
-            window_attention_save(*args, 32 ** -0.5)
-        window_attention_qkv(qkv, small[3], small[4], 32, 32 ** -0.5)
-        probe.batch_attention(x, 3, 4, 144)
-        torch.cuda.synchronize()
-
-    calls()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        calls()
-    names = {e.key for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0)) > 0}
+    names = _profiled(
+        [lambda a=a: window_attention(*a, 32 ** -0.5) for a in (small, big)]
+        + [lambda a=a: window_attention_save(*a, 32 ** -0.5)
+           for a in (small, big)]
+        + [lambda: window_attention_qkv(qkv, small[3], small[4], 32,
+                                        32 ** -0.5),
+           lambda: fused_window_msa_grouped(*k2p),
+           lambda: probe.loop_attention(x, 3, 4, 144),
+           lambda: probe.batch_attention(x, 3, 4, 144)])
     assert names, "the profiler recorded no kernel"
     assert all("lavt::" in n for n in names), sorted(names)
-    assert any("window_attn_sm90_kernel" in n for n in names)
-    assert any("probe_batch_kernel" in n for n in names)
+    for want in ("window_attn_sm90_kernel", "gemm_kernel",
+                 "probe_kernel<9, true>", "probe_kernel<9, false>"):
+        assert any(want in n for n in names), (want, sorted(names))
+    k2p_kernels = _profiled([lambda: fused_window_msa_grouped(*k2p)])
+    assert sum(k2p_kernels.values()) == 3, k2p_kernels
+    assert sum(n for k, n in k2p_kernels.items() if "gemm_kernel" in k) == 2
+    assert sum(n for k, n in k2p_kernels.items()
+               if "window_attn_sm90_kernel" in k) == 1

@@ -164,3 +164,23 @@ def test_p2_launch_plan(grid, ch, heads, n, split):
     assert plan["smem"] == 1024 + plan["slots_per_block"] * (n * 64 + 8)
     assert plan["smem"] <= probe.SMEM_PER_BLOCK
     assert plan["waves"] <= 1 or split == 1 or grid * split > 264
+
+
+@pytest.mark.parametrize("grid,ch,heads,n,split", [
+    (96, 3, 4, 144, 2),    # the tool's defaults on 132 SMs
+    (4, 3, 4, 144, 4),     # few row blocks: one head a block
+    (400, 3, 4, 144, 1),   # the row blocks alone fill the card
+    (8, 2, 3, 192, 3),
+    (200, 8, 4, 192, 2)])  # 32 slots of 192 rows do not fit one block
+def test_p1_launch_plan(grid, ch, heads, n, split):
+    """P1's plan, with no card: the split divides the heads (a head's
+    windows stay in one block, which works its heads in order), the staged
+    slots fit a block's shared memory, and the blocks fit the card in one
+    wave unless the row blocks alone exceed it."""
+    plan = probe.loop_plan(grid, ch, heads, n, 132)
+    assert plan["split"] == split and heads % split == 0
+    assert plan["slots_per_block"] == ch * heads // split
+    assert plan["blocks"] == grid * split
+    assert plan["smem"] == 1024 + plan["slots_per_block"] * (n * 64 + 8)
+    assert plan["smem"] <= probe.SMEM_PER_BLOCK
+    assert plan["waves"] <= 1 or split == 1 or grid * split > 264

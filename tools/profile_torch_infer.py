@@ -25,8 +25,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the port's hand-written kernels (csrc/), by the names the profiler shows
 HAND_WRITTEN = (
     "window_msa_attn_kernel",      # K1, K2, the save mode, K11
-    "window_msa_np_kernel",        # K2p
-    "window_attn_sm90_kernel",     # K10 and its save mode
+    "window_attn_sm90_kernel",     # K10 and its save mode, K2p's attention
     "attn_bwd_q_kernel",           # K9
     "attn_bwd_kv_kernel",          # K9
     "msa_bwd_attn_kernel",         # K5 / K6
@@ -34,13 +33,12 @@ HAND_WRITTEN = (
     "mlp_bwd_prep_kernel",         # K7
     "ln_bwd_rows_kernel",          # K7
     "gemm_bf16_kernel",            # the WMMA GEMM of the MSA routes
-    "gemm_kernel",                 # the wgmma + TMA GEMM core (K3, K8, K7)
+    "gemm_kernel",                 # the wgmma + TMA GEMM core (K3, K8, K7, K2p)
     "layer_norm_wide_rows_kernel",  # K4 at C > 1024
     "layer_norm_rows_kernel",      # K4
     "sum_partials_kernel",
     "colsum_bf16_kernel",
-    "probe_loop_kernel",           # P1
-    "probe_batch_kernel",          # P2
+    "probe_kernel",                # P1 (<n / 16, true>), P2 (<n / 16, false>)
 )
 
 
