@@ -28,10 +28,18 @@
    the device (torch.profiler) beside its bound; each entry point's
    device time beside its library chain's (the CUDA-event times above
    include the host's time to enqueue, which dominates the autograd chain
-   of K7's yardstick at stages 2-4) and its host time per call; and one
-   K3, one K8 and one K7 call run under torch.profiler, which must see
+   of K7's yardstick at stages 2-4) and its host time per call; and (in
+   9.) one K3, one K8 and one K7 call run under torch.profiler, which
+   must see
    only the port's own kernels (no cuBLAS, cuDNN or CUTLASS library
-   kernel).  K11 (the window MSA over a padded, pre-rolled
+   kernel).  K5's (and K6's) library call is the faster, in this run, of
+   autograd through the matmul chain and through a linear / 4-D SDPA /
+   linear chain (which one won is printed); two K5 calls must give the
+   same bits, and (at the end of the run, 9.) each K5 call's launches
+   (dattn and dx GEMMs, attention, weight-grad GEMMs, column and partial
+   sums) are timed on the device and a stage-1 call runs under
+   torch.profiler (only the port's kernels).
+   K11 (the window MSA over a padded, pre-rolled
    feature map) is checked at stages 3 and 4, unshifted and shifted, on a
    non-square map and at the stage-1/2 shapes, and timed beside its
    bound, its plain version, an SDPA chain (partition, linear,
@@ -76,6 +84,15 @@
    training phase and at window 7.  One clip's annotated frame is checked against the
    f32 plain route, the forward is timed (ms per clip, frames/s, with and
    without the kernels) and one clip is broken down by `torch.profiler`.
+   Video training: K10's save mode and K9 at every stage (and N = 196,
+   49) against their plain versions (K9 with the masks' window flags),
+   two K9 calls giving the same bits, and at the end of the run (9.) K9's
+   two launches and its dbias sum timed on the device with their plan and
+   a masked stage-1 call under torch.profiler (only the port's kernels);
+   the training gate, 10 timed steps, a profiler breakdown, then one step
+   with --use_checkpoint (every 3D block recomputed: K10's save mode 24 /
+   K9 12 per step), whose peak device memory must be below the unflagged
+   step's.
 5. Training main path: the same weights in an f32 `build_model(...,
    train=True)` take AdamW steps (`train.step.make_train_step`: DropPath
    0.3, BERT dropout 0.1, weighted CE, poly LR) on synthetic uint8
@@ -124,11 +141,19 @@
    times the host's enqueue at this size, printed beside); P1 against P2
    on the tool's input at its atol 1e-2; then the tool as a user runs it,
    whose launches the kernels line reports; P1's and P2's launch plans (their
-   splits of a row block over blocks) are printed.  Then K10 (N = 49 and
-   392), its save mode, its strided route on the qkv Linear's output, K2p
-   (stage 1, shifted), P1 and P2 run under `torch.profiler`, which must
+   splits of a row block over blocks) are printed.  Then (in 9.) K10 (N =
+   49 and 392), its save mode, its strided route on the qkv Linear's
+   output, K2p (stage 1, shifted), P1 and P2 run under `torch.profiler`,
+   which must
    see only the port's own kernels (no cuBLAS, cuDNN, flash or SDPA
    kernel).
+9. The torch.profiler checks held back from the timed phases (`defer`),
+   in a fresh Python process on the inputs of their phases: K5's and
+   K9's (also window 7's) launch-by-launch device times, and every
+   only-port-kernels check (K3 / K8 / K7 at each width, K5, K9, and
+   those of 8.).  No timed window follows their profiler sessions, and
+   none runs late in the long main process, where torch.profiler drops
+   kernel records.
 
 Exits non-zero on any failure, without CUDA, or without the package.
 The last two lines are the per-kernel JSON and
@@ -136,6 +161,7 @@ The last two lines are the per-kernel JSON and
 """
 
 import contextlib
+import functools
 import io
 import json
 import math
@@ -195,13 +221,13 @@ SOURCES = {
     "K2": "lavt_rs_tpu_torch/csrc/fused_msa.cu",
     "K3": "lavt_rs_tpu_torch/csrc/fused_mlp.cu",
     "K4": "lavt_rs_tpu_torch/csrc/ln.cu",
-    "K5": "lavt_rs_tpu_torch/csrc/fused_msa_bwd.cu",
-    "K6": "lavt_rs_tpu_torch/csrc/fused_msa_bwd.cu",
+    "K5": "lavt_rs_tpu_torch/csrc/fused_msa_bwd_sm90.cu",
+    "K6": "lavt_rs_tpu_torch/csrc/fused_msa_bwd_sm90.cu",
     "K7": "lavt_rs_tpu_torch/csrc/fused_mlp_bwd.cu",
     "K8": "lavt_rs_tpu_torch/csrc/fused_mlp.cu",
     "K10": "lavt_rs_tpu_torch/csrc/window_attn_sm90.cu",
     "K2p": "lavt_rs_tpu_torch/csrc/window_msa_sm90.cu",
-    "K9": "lavt_rs_tpu_torch/csrc/window_attn.cu",
+    "K9": "lavt_rs_tpu_torch/csrc/window_attn_bwd_sm90.cu",
     "K11": "lavt_rs_tpu_torch/csrc/fused_msa.cu",
     "P1": "lavt_rs_tpu_torch/csrc/probe_headbatch.cu",
     "P2": "lavt_rs_tpu_torch/csrc/probe_headbatch.cu",
@@ -238,6 +264,9 @@ VIDEO_PER_CLIP = {"K10": 10, "K2p": 2}
 # launches per video training step: every 3D block takes K10 (save mode)
 # forward and K9 backward; no K2p in training
 VIDEO_TRAIN_PER_STEP = {"K10": 12, "K9": 12}
+# ... with --use_checkpoint: every block's recompute runs K10's save mode
+# again
+VIDEO_CKPT_PER_STEP = {"K10": 24, "K9": 12}
 # window-7 Swin-B at 480² (lavt_one_base(window12=False)): (padded tokens
 # per side, C, heads, blocks); every block runs qkv -> K10 -> proj
 W7_STAGES = ((126, 128, 4, 2), (63, 256, 8, 2), (35, 512, 16, 18),
@@ -605,7 +634,160 @@ def mlp_launch_phase(what, args, gy, keep, tail):
                     f"{fmt_ms(device_ms(chains[k]))}" for k, f in calls.items())
         + "; host us to enqueue one call "
         + ", ".join(f"{k} {host_us(f):.1f}" for k, f in calls.items()))
-    only_port_kernels(f"K3 / K8 / K7 calls at ({m}, {c})", list(calls.values()))
+    defer(functools.partial(mlp_port_check,
+                            f"K3 / K8 / K7 calls at ({m}, {c})", tail),
+          *args, gy, keep)
+
+
+def k5_launch_line(what, fn, b, nw, c, heads):
+    """K5 launch by launch at (b, nW, 144, C): each kernel's device ms per
+    call (torch.profiler), the attention launch's bound beside it."""
+    from lavt_rs_tpu_torch.ops import fused_msa
+
+    by = device_ms_by_kernel(fn)
+    m = b * nw
+    att = (10 * m * heads * 144 * 144 * 32,
+           (4 * m * 144 * c + m * 144 * 4 * c) * 2 + m * heads * 144 * 144 * 2)
+    bnd, kind = bound_ms(att)
+    parts = "not measured" if by is None else "; ".join(
+        f"{short_kernel(k)} {v:.4f}" for k, v in
+        sorted(by.items(), key=lambda kv: -kv[1]))
+    log(f"K5 launches {what}, device ms per call: {parts} (attention bound "
+        f"{bnd:.4f} {kind}; groups "
+        f"{fused_msa.msa_bwd_groups(m, heads)}); host {host_us(fn):.1f} us "
+        f"to enqueue a call")
+
+
+def k9_launch_line(what, fn, b, nw, heads, n, masked):
+    """K9 launch by launch: each kernel's device ms per call
+    (torch.profiler) and the launch plan."""
+    import torch
+
+    from lavt_rs_tpu_torch.ops import window_attn as wa
+
+    by = device_ms_by_kernel(fn)
+    plan = wa.k9_plan(b * nw, heads, n, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    parts = "not measured" if by is None else "; ".join(
+        f"{short_kernel(k)} {v:.4f}" for k, v in
+        sorted(by.items(), key=lambda kv: -kv[1]))
+    log(f"K9 launches {what} ({masked} windows masked), device ms per call: "
+        f"{parts}; plan bp {plan['bp']} (partials {plan['parts']}), launch 1 "
+        f"{plan['q_blocks']} blocks, launch 2 {plan['kv_blocks']}; host "
+        f"{host_us(fn):.1f} us to enqueue a call")
+
+
+# torch.profiler checks held back until every timed window has run: (the
+# check, its tensors on the host)
+DEFERRED = []
+
+
+def defer(fn, *tensors):
+    """Runs fn(*tensors) at the end of the run, in a fresh process
+    (`run_deferred`): no profiler session of the per-launch lines and the
+    port-kernels checks comes before a timed window, and none runs late in
+    a long process, where torch.profiler drops kernel records.  fn must
+    pickle (a module-level function or a partial of one); the tensors wait
+    on the host."""
+    DEFERRED.append((fn, [None if t is None else t.cpu() for t in tensors]))
+
+
+def run_deferred():
+    """The deferred checks in `python chip_smoke.py --deferred FILE`, their
+    functions and inputs passed through FILE under the checkout's build/;
+    raises unless that process exits 0."""
+    import torch
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_deferred.pt")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    try:
+        torch.save(DEFERRED, path)
+        DEFERRED.clear()
+        rc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                             "--deferred", path], timeout=600).returncode
+    finally:
+        if os.path.exists(path):
+            os.remove(path)
+    if rc:
+        raise RuntimeError(f"the deferred profiler checks failed (exit {rc})")
+
+
+def deferred_child(path):
+    """The deferred checks' process: each function on its inputs, moved to
+    the card."""
+    import torch
+
+    dev = torch.device("cuda:0")
+    for fn, tensors in torch.load(path, weights_only=False):
+        fn(*[None if t is None else t.to(dev) for t in tensors])
+        torch.cuda.empty_cache()
+    return 0
+
+
+def mlp_port_check(what, tail, x, ga, be, w1, b1, w2, b2, gy, keep):
+    """One K3, one K8 and one K7 call under torch.profiler: only the port's
+    kernels."""
+    from lavt_rs_tpu_torch.ops import fused_mlp as fm
+
+    args = (x, ga, be, w1, b1, w2, b2)
+    only_port_kernels(what, [
+        lambda: fm.fused_ln_mlp(*args),
+        lambda: fm.fused_ln_mlp_droppath(*args, keep, tail),
+        lambda: fm.fused_ln_mlp_bwd(x, gy, ga, be, w1, b1, w2, keep, tail)])
+
+
+def k5_profiler_checks(what, nw, c, heads, sc, port_only, x, gy, wqkv, wproj,
+                       *saved):
+    """K5's launch line and (port_only) its only-port-kernels check."""
+    from lavt_rs_tpu_torch.ops import fused_msa
+
+    def k5():
+        return fused_msa.fused_window_msa_bwd(x, gy, wqkv, wproj, saved, heads,
+                                              sc)
+
+    k5_launch_line(what, k5, BATCH, nw, c, heads)
+    if port_only:
+        only_port_kernels(f"K5 {what}", [k5])
+
+
+def k9_profiler_checks(what, b, nw, heads, n, masked, sc, port_only, q, k, v,
+                       bias, mask, do, o, lse):
+    """K9's launch line and (port_only) its only-port-kernels check, with
+    the mask's window flags as the Swin blocks pass them."""
+    from lavt_rs_tpu_torch.ops import window_attn as wa
+
+    flags = wa.mask_flags(mask)
+
+    def k9():
+        return wa.attention_core_bwd(q, k, v, bias, mask, do, sc, o, lse,
+                                     flags)
+
+    k9_launch_line(what, k9, b, nw, heads, n, masked)
+    if port_only:
+        only_port_kernels(f"K9 {what}", [k9])
+
+
+def short_kernel(name):
+    """A kernel's name without its namespace, parameters and template
+    arguments' noise (the GEMM core's epilogue kept)."""
+    base = name.split("(")[0].replace("void ", "")
+    if "gemm_kernel<" in base:
+        epi = base.split("gemm_kernel<")[1].split(",")[0].split("::")[-1]
+        return f"gemm<{epi}>"
+    return base.split("<")[0].split("::")[-1]
+
+
+def check_deterministic(what, fn):
+    """Two calls of fn give the same bits (fixed-order sums, no float
+    atomics)."""
+    import torch
+
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise RuntimeError(f"{what}: two calls gave different bits")
+    log(f"{what}: two calls give the same bits")
 
 
 # -- the library chains (timing baselines only) -------------------------------
@@ -643,6 +825,46 @@ def torch_bf16_msa(x, wqkv, bqkv, wproj, bproj, bias, mask, heads, scale,
         s = s + mask[:, None]
     o = s.softmax(-1).to(x.dtype) @ v
     return F.linear(o.permute(0, 1, 3, 2, 4).reshape(b, nw, n, c), wproj, bproj)
+
+
+def torch_bf16_msa_sdpa(x, wqkv, bqkv, wproj, bproj, bias, mask, heads,
+                        scale, ln=None):
+    """K1 / K2's math as linear, one `scaled_dot_product_attention` over the
+    B nW windows as its 4-D batch with the bias and the mask as one bf16
+    additive mask (`sdpa_mask`), linear (timing baseline only)."""
+    import torch.nn.functional as F
+
+    b, nw, n, c = x.shape
+    if ln is not None:
+        x = F.layer_norm(x, (c,), *ln, 1e-5)
+    qkv = F.linear(x, wqkv, bqkv).view(b * nw, n, 3, heads, c // heads)
+    q, k, v = qkv.permute(2, 0, 3, 1, 4)
+    o = F.scaled_dot_product_attention(q, k, v,
+                                       attn_mask=sdpa_mask(bias, mask, nw, b),
+                                       scale=scale)
+    return F.linear(o.transpose(1, 2).reshape(b, nw, n, c), wproj, bproj)
+
+
+def msa_bwd_yardstick(what, chain_in, gy, mask, heads, scale, forward=False):
+    """K5's (K6's with forward) library call: the faster, in this run, of
+    autograd through the matmul chain (`torch_bf16_msa`) and through the
+    linear / 4-D SDPA / linear chain (`torch_bf16_msa_sdpa`), both taking
+    the bias-table grad; logs both times and returns (the faster closure,
+    its name)."""
+    def wrap(chain):
+        def fn(x_, wq, bq, wp, bp, bi, *lnt):
+            return chain(x_, wq, bq, wp, bp, bi, mask, heads, scale,
+                         ln=lnt or None)
+        return chain_grad(fn, chain_in, gy, forward)
+
+    fns = {"matmul chain": wrap(torch_bf16_msa),
+           "SDPA chain": wrap(torch_bf16_msa_sdpa)}
+    times = {name: cuda_time_ms(fn) for name, fn in fns.items()}
+    best = min(times, key=times.get)
+    log(f"{what} library yardsticks: "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items())
+        + f"; the faster: {best}")
+    return fns[best], best
 
 
 def chain_grad(fn, inputs, gy, forward=False):
@@ -819,31 +1041,38 @@ def kernel_phases(dev):
         res_k5 = saved[:4]
         gy = rnd(xw.shape)
         chain_in = (xw, *w, bias) + tuple(lnp or ())
+        what = f"{st} x{tuple(xw.shape)} heads {heads}"
 
-        def chain_fn(x_, wq, bq, wp, bp, bi, *lnt):
-            return torch_bf16_msa(x_, wq, bq, wp, bp, bi, mask, heads, sc,
-                                  ln=lnt or None)
+        def k5():
+            return fused_msa.fused_window_msa_bwd(xin, gy, w[0], w[2], res_k5,
+                                                  heads, sc)
 
-        measure(res, "K5", f"{st} x{tuple(xw.shape)} heads {heads}", depth,
-                lambda: fused_msa.fused_window_msa_bwd(xin, gy, w[0], w[2],
-                                                       res_k5, heads, sc),
+        lib, lib_name = msa_bwd_yardstick(f"K5 {what}", chain_in, gy, mask,
+                                          heads, sc)
+        res.entry("K5").setdefault("lib_by", []).append(lib_name)
+        measure(res, "K5", what, depth, k5,
                 lambda: fused_msa.fused_window_msa_bwd_plain(
                     xin, gy, w[0], w[2], res_k5, heads, sc),
-                chain_grad(chain_fn, chain_in, gy),
-                msa_work(BATCH, nw, c, heads, "bwd"), compare_grads)
+                lib, msa_work(BATCH, nw, c, heads, "bwd"), compare_grads)
+        check_deterministic(f"K5 {what}", k5)
+        defer(functools.partial(k5_profiler_checks, what, nw, c, heads, sc,
+                                si == 0), xin, gy, w[0], w[2], *res_k5)
         del y, saved, res_k5, xin
         batches = (BATCH, BATCH_BIG) if si == 0 else (BATCH,)
         for bsz in batches:
             xk = xw if bsz == BATCH else rnd((bsz, nw, 144, c))
             gk = gy if bsz == BATCH else rnd(xk.shape)
             calls = 2 if bsz == BATCH_BIG else 0
-            measure(res, "K6", f"{st} x{tuple(xk.shape)} heads {heads}", calls,
+            what = f"{st} x{tuple(xk.shape)} heads {heads}"
+            lib, lib_name = msa_bwd_yardstick(
+                f"K6 {what}", (xk,) + chain_in[1:], gk, mask, heads, sc,
+                forward=True)
+            measure(res, "K6", what, calls,
                     lambda: fused_msa.fused_window_msa_bwd_recompute(
                         xk, lnp, *tail[:6], gk, heads, sc),
                     lambda: fused_msa.fused_window_msa_bwd_recompute_plain(
                         xk, lnp, *tail[:6], gk, heads, sc),
-                    chain_grad(chain_fn, (xk,) + chain_in[1:], gk,
-                               forward=True),
+                    lib,
                     msa_work(bsz, nw, c, heads, "recompute",
                              ln=lnp is not None), compare_grads)
         del xw, gy
@@ -1983,14 +2212,21 @@ def video_train_kernel_phases(dev, res):
                 q_[0], k_[0], v_[0], attn_mask=sdpa_mask(b_, mask, nw),
                 scale=sc)
 
-        measure(res, "K9", what, calls,
-                lambda: wa.attention_core_bwd(q, k, v, bias, mask, do, sc, o,
-                                              lse),
+        def k9(q=q, k=k, v=v, bias=bias, mask=mask, do=do, o=o, lse=lse,
+               flags=wa.mask_flags(mask)):
+            return wa.attention_core_bwd(q, k, v, bias, mask, do, sc, o, lse,
+                                         flags)
+
+        measure(res, "K9", what, calls, k9,
                 lambda: wa.attention_core_bwd_plain(q, k, v, bias, mask, do,
                                                     sc, o),
                 chain_grad(sdpa_chain, (q, k, v, bias), do[0]),
                 attn_bwd_work(1, nw, heads, n, masked),
                 lambda name, got, want: compare_grads(name, got, want, 3))
+        check_deterministic(f"K9 {what}", k9)
+        defer(functools.partial(k9_profiler_checks, what, 1, nw, heads, n,
+                                masked, sc, label == "stage 1 mask True"),
+              q, k, v, bias, mask, do, o, lse)
         del q, k, v, o, lse, do
         torch.cuda.empty_cache()
 
@@ -2128,6 +2364,41 @@ def video_training(dev, card, weights):
     if not losses[-1] < losses[0]:
         raise RuntimeError("the video training loss did not fall")
     profile_clip(lambda: step(batch, gen()), card, "video train step")
+    peak = {}
+
+    def one_step(stp):
+        """One step after a warm-up one: its peak device memory and its
+        launches."""
+        stp(batch, gen())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        out = stp(batch, gen())
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated(), read_counts(), out
+
+    peak["off"], _, _ = one_step(step)
+    del model, step
+    torch.cuda.empty_cache()
+    # --use_checkpoint: every 3D block recomputed in the backward (K10's save
+    # mode twice a step); the last stage skips its language gate
+    model = build_model(lavt_video_tiny().replace(use_checkpoint=True), dev,
+                        train=True)
+    missing, unexpected = model.load_state_dict(weights, strict=False)
+    if missing or any(".res_gate." not in k for k in unexpected):
+        raise RuntimeError(f"video checkpoint model: missing {missing}, "
+                           f"unexpected {unexpected}")
+    step = make_video_train_step(model, *create_train_state(model, tcfg), tcfg)
+    peak["on"], ck_launches, out = one_step(step)
+    log(f"video train step with --use_checkpoint: launches {ck_launches}, "
+        f"loss {out['loss'].item():.6f}; peak device memory "
+        f"{peak['on'] / 2**30:.3f} GiB against {peak['off'] / 2**30:.3f} GiB "
+        f"without it  [{card}]")
+    check_counts("video train --use_checkpoint", ck_launches,
+                 VIDEO_CKPT_PER_STEP, 1)
+    if not peak["on"] < peak["off"]:
+        raise RuntimeError("--use_checkpoint did not lower the video training "
+                           "step's peak memory")
     del model, step
     torch.cuda.empty_cache()
     return launches
@@ -2229,14 +2500,20 @@ def window7_kernel_phase(dev, res):
                 return sdpa_windows(q_, k_, v_, sdpa_mask(b_, mask, nw, BATCH),
                                     sc).view(q_.shape)
 
-            measure(res, "K9/w7", what, depth // 2,
-                    lambda m=mask, o=o, lse=lse, do=do: wa.attention_core_bwd(
-                        q, k, v, bias, m, do, sc, o, lse),
+            def k9(m=mask, o=o, lse=lse, do=do, flags=wa.mask_flags(mask)):
+                return wa.attention_core_bwd(q, k, v, bias, m, do, sc, o, lse,
+                                             flags)
+
+            measure(res, "K9/w7", what, depth // 2, k9,
                     lambda m=mask, o=o, do=do: wa.attention_core_bwd_plain(
                         q, k, v, bias, m, do, sc, o),
                     chain_grad(sdpa_chain, (q, k, v, bias), do),
                     attn_bwd_work(BATCH, nw, heads, 49, masked),
                     lambda name, got, want: compare_grads(name, got, want, 3))
+            check_deterministic(f"K9 {what}", k9)
+            defer(functools.partial(k9_profiler_checks, what, BATCH, nw,
+                                    heads, 49, masked, sc, False),
+                  q, k, v, bias, mask, do, o, lse)
             del o, lse, do
         del qkv, q, k, v
         torch.cuda.empty_cache()
@@ -2349,25 +2626,22 @@ def widths_kernel_phase(dev, res):
     xin, resid = saved[4].view(xw.shape), saved[:4]
     gy = rnd(xw.shape)
     chain_in = (xw, *w, bias) + lnp
-
-    def chain_fn(x_, wq, bq, wp, bp, bi, *lnt):
-        return torch_bf16_msa(x_, wq, bq, wp, bp, bi, mask, heads, sc,
-                              ln=lnt or None)
-
-    measure(res, "K5@96", f"x{tuple(xw.shape)} heads {heads}", 2,
+    what = f"x{tuple(xw.shape)} heads {heads}"
+    measure(res, "K5@96", what, 2,
             lambda: fused_msa.fused_window_msa_bwd(xin, gy, w[0], w[2], resid,
                                                    heads, sc),
             lambda: fused_msa.fused_window_msa_bwd_plain(xin, gy, w[0], w[2],
                                                          resid, heads, sc),
-            chain_grad(chain_fn, chain_in, gy),
+            msa_bwd_yardstick(f"K5@96 {what}", chain_in, gy, mask, heads,
+                              sc)[0],
             msa_work(BATCH, nw, c, heads, "bwd"), compare_grads)
-    measure(res, "K6@96", f"x{tuple(xw.shape)} heads {heads} (off the path)",
-            0,
+    measure(res, "K6@96", f"{what} (off the path)", 0,
             lambda: fused_msa.fused_window_msa_bwd_recompute(
                 xw, lnp, *tail_args[:6], gy, heads, sc),
             lambda: fused_msa.fused_window_msa_bwd_recompute_plain(
                 xw, lnp, *tail_args[:6], gy, heads, sc),
-            chain_grad(chain_fn, chain_in, gy, forward=True),
+            msa_bwd_yardstick(f"K6@96 {what}", chain_in, gy, mask, heads, sc,
+                              forward=True)[0],
             msa_work(BATCH, nw, c, heads, "recompute", ln=True),
             compare_grads)
     del saved, xin, resid, gy, xw
@@ -2695,7 +2969,14 @@ PTXAS_KERNELS = {"EpiBiasILb1E": "K2p qkv GEMM (GEMM core)",
                  "EpiBiasILb0E": "K2p out-projection GEMM (GEMM core)",
                  "window_attn_sm90_kernelILb0ELb0E": "K10 / K2p attention",
                  "probe_kernelILi9ELb1E": "P1 (n = 144)",
-                 "probe_kernelILi9ELb0E": "P2 (n = 144)"}
+                 "probe_kernelILi9ELb0E": "P2 (n = 144)",
+                 "msa_bwd_sm90_kernel": "K5 attention",
+                 "EpiBf16": "K5 dattn / dx GEMM (GEMM core)",
+                 "EpiStoreF32": "K5 / K7 weight-grad and K7 dgrad GEMMs (GEMM core)",
+                 "attn_bwd_q_kernelILb1E": "K9 launch 1 (N > 64)",
+                 "attn_bwd_q_kernelILb0E": "K9 launch 1 (N <= 64)",
+                 "attn_bwd_kv_kernelILb0E": "K9 launch 2 (N > 64)",
+                 "attn_bwd_kv_kernelILb1E": "K9 launch 2 (N <= 64)"}
 
 
 def ptxas_lines(text):
@@ -2736,6 +3017,8 @@ def main():
         return 1
     from lavt_rs_tpu_torch.ops import cuda_lib
 
+    if sys.argv[1:2] == ["--deferred"]:
+        return deferred_child(sys.argv[2])
     # the plain versions and the f32 reference models run full f32 GEMMs
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2761,10 +3044,12 @@ def main():
     res = kernel_phases(dev)
     for k in NAMES[:8] + ("save",):
         r = res.r[k]
+        won = (f" (the faster per stage: {', '.join(r['lib_by'])})"
+               if "lib_by" in r else "")
         log(f"{k} per {'forward' if k < 'K5' else 'train step'}: kernel "
             f"{r['ms']:.3f} ms, bound {r['bound']:.3f} ms ({res.bound_by(k)}), "
             f"plain (f32 math) {r['plain']:.3f} ms, library chain "
-            f"{r['lib']:.3f} ms")
+            f"{r['lib']:.3f} ms{won}")
     k11_kernel_phase(dev, res)
     r = res.r["K11"]
     log(f"K11 per forward (stages 3-4): kernel {r['ms']:.3f} ms, bound "
@@ -2846,7 +3131,10 @@ def main():
              VIDEO_PER_CLIP),
             ("video step",
              kernel_plan(lavt_video_tiny(), 480, FRAMES, True)[0],
-             VIDEO_TRAIN_PER_STEP)):
+             VIDEO_TRAIN_PER_STEP),
+            ("video step, --use_checkpoint",
+             kernel_plan(lavt_video_tiny().replace(use_checkpoint=True), 480,
+                         FRAMES, True)[0], VIDEO_CKPT_PER_STEP)):
         if got != want:
             raise RuntimeError(f"{what}: the models' kernel plan gives {got}, "
                                f"the checked counts are {want}")
@@ -2883,8 +3171,12 @@ def main():
 
     # -- P1 / P2: the head-batching probe --------------------------------------
     probe_launches = probe_phase(dev, card, res)
-    k10_p2_only_port_kernels(dev)
+    defer(functools.partial(k10_p2_only_port_kernels, dev))
     log(f"probe done at {time.perf_counter() - t_start:.1f} s")
+
+    # -- the profiler checks held back from the timed phases -------------------
+    run_deferred()
+    log(f"deferred profiler checks done at {time.perf_counter() - t_start:.1f} s")
 
 
     launches = {k: infer_launches[k] for k in ("K1", "K3", "K4")}

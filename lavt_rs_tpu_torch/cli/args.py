@@ -61,9 +61,10 @@ def add_model_args(p: argparse.ArgumentParser):
     p.add_argument("--seg_last", action="store_true")
     p.add_argument("--interpolate_before_seg", action="store_true")
     p.add_argument("--use_checkpoint", action="store_true",
-                   help="activation checkpointing of the Swin blocks (read by the "
-                        "video model's last language gate, as in the "
-                        "reference)")
+                   help="activation checkpointing of lavt_video's Swin blocks "
+                        "in training (each 3D block recomputed in the "
+                        "backward; the last stage skips its language gate, "
+                        "as in the reference); lavt_one's 2D blocks ignore it")
     # --- 3D-PWAM family (video) ---
     p.add_argument("--sep_t_pwam", action="store_true")
     p.add_argument("--sep_t_pwam_inner", action="store_true")

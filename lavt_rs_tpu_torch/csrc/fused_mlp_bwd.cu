@@ -145,7 +145,8 @@ struct EpiDualGeluBwd {
   }
 };
 
-// (c), (d) f32 (M, N) per split z at out + z split_stride
+// (c), (d) f32 (M, N) per split z at out + z split_stride, rows < M and
+// columns < N only (K5's weight grads have N = 96 and 288: ragged tiles)
 struct EpiStoreF32 {
   struct Args {
     float* out;
@@ -161,10 +162,12 @@ struct EpiStoreF32 {
       const int row = sm90::frag_row(row0, h);
       if (row >= a.M) continue;
 #pragma unroll
-      for (int j = 0; j < sm90::kBN / 8; ++j)
-        *reinterpret_cast<float2*>(out + static_cast<size_t>(row) * a.N +
-                                   sm90::frag_col(col0, j)) =
-            make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      for (int j = 0; j < sm90::kBN / 8; ++j) {
+        const int col = sm90::frag_col(col0, j);  // even; N is even
+        if (col < a.N)
+          *reinterpret_cast<float2*>(out + static_cast<size_t>(row) * a.N + col) =
+              make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      }
     }
   }
 };

@@ -97,7 +97,14 @@ using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t
                                    const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                    CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
+// The encoder, and a context current on the calling thread, which the
+// driver call needs: a host thread whose CUDA work so far went through
+// another runtime (torch's, e.g. an autograd worker whose allocations
+// came from torch's cache) has none, and the encode then fails with an
+// invalid value.  cudaFree(0) makes the device's primary context current,
+// once per thread.  nullptr if either fails.
 inline EncodeTiledFn encode_tiled() {
+  static thread_local const bool context = cudaFree(0) == cudaSuccess;
   static const EncodeTiledFn fn = [] {
     void* p = nullptr;
     cudaDriverEntryPointQueryResult q;
@@ -111,7 +118,7 @@ inline EncodeTiledFn encode_tiled() {
                ? reinterpret_cast<EncodeTiledFn>(p)
                : nullptr;
   }();
-  return fn;
+  return context ? fn : nullptr;
 }
 
 // A row-major bf16 (outer, inner) matrix in boxes of 64 inner elements

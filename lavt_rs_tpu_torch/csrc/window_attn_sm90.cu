@@ -87,28 +87,18 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "attn_sm90.cuh"
 #include "common.cuh"
-#include "gemm_sm90.cuh"
 
 namespace lavt {
 namespace k10 {
 
-using sm90::mbar_expect_tx;
-using sm90::mbar_init;
-using sm90::mbar_wait;
-using sm90::named_sync;
-using sm90::smem_u32;
-using sm90::wgmma_commit;
-using sm90::wgmma_fence;
-using sm90::wgmma_wait;
+using namespace attn;  // kHD, kT (query rows of a unit, keys of a tile), the helpers
 
-constexpr int kHD = 32;
 constexpr int kNMax = 400;
-constexpr int kT = 64;                       // query rows of a unit, keys of a tile
 constexpr int kWG = 2;                       // warpgroups per block
 constexpr int kThreads = 128 * kWG;
 constexpr int kR = 2;                        // ring stages per warpgroup
-constexpr int kTileBytes = kT * kHD * 2;     // a q, k or v tile: 4 KB
 constexpr int kLdT = 72;                     // f32 row stride of a staged mask tile
 constexpr int kMaskBytes = kT * kLdT * 4;    // 18 KB
 constexpr int kLdB = 200;                    // f32 row stride of a half of the bias rows
@@ -139,104 +129,6 @@ struct Params {
 };
 
 // -- device helpers -------------------------------------------------------
-
-// floats [f, f + count) of a 16-byte-aligned f32 array as the 16-byte-aligned
-// span that holds them (the bulk copy's unit): they start at float f % 4 of
-// it.  The span stays inside any allocation of 16-byte granularity.
-__host__ __device__ inline int span_bytes(long long f, int count) {
-  return static_cast<int>(((f + count + 3) / 4 - f / 4) * 16);
-}
-__device__ __forceinline__ void bulk(uint32_t dst, const float* base, long long f, int count,
-                                     uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
-          "r"(dst),
-      "l"(base + f / 4 * 4), "r"(span_bytes(f, count)), "r"(smem_u32(bar))
-      : "memory");
-}
-__device__ __forceinline__ void tma3(const CUtensorMap* m, uint32_t dst, uint64_t* bar, int c0,
-                                     int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(m)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-__device__ __forceinline__ void tma4(const CUtensorMap* m, uint32_t dst, uint64_t* bar, int c0,
-                                     int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(m)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(c3)
-      : "memory");
-}
-
-// shared-memory matrix descriptor, 64-byte swizzle
-__device__ __forceinline__ uint64_t desc64(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t((lbo >> 4) & 0x3FFF) << 16) |
-         (uint64_t((sbo >> 4) & 0x3FFF) << 32) | (2ull << 62);
-}
-
-// S (64 x 64, f32) (+)= A (64 x 16 bf16, registers) B (64 keys x 16, K-major)
-__device__ __forceinline__ void wgmma_s(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// O (64 x 32, f32) += A (64 x 16 bf16, registers) B (16 keys x 32, MN-major)
-__device__ __forceinline__ void wgmma_o(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// pin register values at this point of the instruction stream (around the
-// wgmma fences and waits)
-template <int N>
-__device__ __forceinline__ void pin(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void pin(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-__device__ __forceinline__ float neg_inf() { return __int_as_float(static_cast<int>(0xff800000u)); }
-
-__device__ __forceinline__ uint32_t pack_bf2(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// the bf16 pair at (row r, column c) of a 64 x 32 tile in the 64-byte
-// swizzle (16-byte chunk j of row r at chunk j ^ ((r / 2) % 4)), times
-// scale, rounded to bf16
-__device__ __forceinline__ uint32_t q_pair(const unsigned char* tile, int r, int c, float scale) {
-  const int b = c * 2;
-  const uint32_t v = *reinterpret_cast<const uint32_t*>(
-      tile + r * 64 + ((((b >> 4) ^ (r >> 1)) & 3) << 4) + (b & 15));
-  const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
-  return pack_bf2(f.x * scale, f.y * scale);
-}
 
 // A warpgroup's walk over its items (unit k, key tile kt): a counter from
 // one key tile to the next; a new unit takes one modulo (win mod nW) and,
@@ -313,12 +205,6 @@ __device__ __forceinline__ void issue(const Params& p, unsigned char* stages, ui
   else tma3(&p.mask, base + 3 * kTileBytes, bar, kt * kT, c.qt * kT, static_cast<int>(c.wm));
 }
 
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-constexpr float kLog2e = 1.4426950408889634f;
 
 // kFlat: N <= 64 (one query and one key tile, the bias in registers)
 template <bool kFlat, bool kSave>
@@ -563,43 +449,6 @@ __global__ void __launch_bounds__(kThreads, kFlat ? 2 : 1)
 }
 
 // -- host -------------------------------------------------------------------
-
-inline cudaError_t encode(CUtensorMap* map, CUtensorMapDataType dt, int rank, const void* ptr,
-                          const cuuint64_t* dims, const cuuint64_t* strides,
-                          const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
-  const sm90::EncodeTiledFn fn = sm90::encode_tiled();
-  if (fn == nullptr) return cudaErrorNotSupported;
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, dt, rank, const_cast<void*>(ptr), dims, strides, box, elem,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
-// q, k or v: (hd, heads, N, windows) at the given element strides, the two
-// middle dims in the order of their strides; boxes of one head's 64 rows
-inline cudaError_t map_qkv(CUtensorMap* map, const void* ptr, int Bw, int heads, int n,
-                           long long sw, long long sh, long long sn) {
-  const bool hfirst = sh < sn;
-  const cuuint64_t dims[4] = {kHD, cuuint64_t(hfirst ? heads : n), cuuint64_t(hfirst ? n : heads),
-                              cuuint64_t(Bw)};
-  const cuuint64_t strides[3] = {cuuint64_t(hfirst ? sh : sn) * 2,
-                                 cuuint64_t(hfirst ? sn : sh) * 2, cuuint64_t(sw) * 2};
-  const cuuint32_t box[4] = {kHD, hfirst ? 1u : cuuint32_t(kT), hfirst ? cuuint32_t(kT) : 1u, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, ptr, dims, strides, box,
-                CU_TENSOR_MAP_SWIZZLE_64B);
-}
-
-// an f32 (count, N, N) bias or mask with rows `ld` floats apart, in boxes of
-// 64 rows x `cols` keys
-inline cudaError_t map_bm(CUtensorMap* map, const void* ptr, int count, int n, int ld,
-                          int cols) {
-  const cuuint64_t dims[3] = {cuuint64_t(n), cuuint64_t(n), cuuint64_t(count)};
-  const cuuint64_t strides[2] = {cuuint64_t(ld) * 4, cuuint64_t(ld) * n * 4};
-  const cuuint32_t box[3] = {cuuint32_t(cols), kT, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, ptr, dims, strides, box,
-                CU_TENSOR_MAP_SWIZZLE_NONE);
-}
 
 }  // namespace k10
 }  // namespace lavt

@@ -64,7 +64,8 @@ from ..config import FusionConfig, FusionKind, GateKind, StageOutput, SwinConfig
 from ..ops import attention, fused_mlp, fused_msa, fused_msa_2d, ln, window_attn
 from ..ops.dropout import drop_path, drop_path_keep
 from ..ops.window import (relative_bias_from_table, relative_position_index_2d,
-                          shift_mask_2d, window_partition, window_reverse)
+                          shift_mask_2d, shift_mask_flags_2d,
+                          window_partition, window_reverse)
 from .pwam import PWAM, LanguageGate, apply_gate
 
 
@@ -140,10 +141,11 @@ class WindowAttention(nn.Module):
             x, wqkv.to(dt), bqkv.to(dt), wproj.to(dt), bproj.to(dt), *rest,
             self.window_size)
 
-    def forward(self, x, mask=None, ln_params=None):
+    def forward(self, x, mask=None, ln_params=None, flags=None):
         """x: (B, nW, N, C) windowed tokens (pre-LN when ln_params, the
         block's norm1 (weight, bias), is given: the fused route only);
-        mask (nW, N, N) or None."""
+        mask (nW, N, N) or None, with its window flags (the windows whose
+        mask K9 reads; `window.shift_mask_flags_2d`) or None."""
         b, nw, n, c = x.shape
         route = self.route(nw, n, x.element_size())
         if route == "fused":
@@ -164,12 +166,13 @@ class WindowAttention(nn.Module):
             return self.proj(window_attn.window_attention_qkv(
                 qkv, bias, mask, h, self.scale))
         q, k, v = (t.contiguous() for t in window_attn.qkv_heads(qkv, h))
-        if route == "core":
-            attend = (window_attn.window_attention if self.use_kernels
-                      else window_attn.window_attention_plain)
+        if route == "core" and self.use_kernels:
+            out = window_attn.window_attention(q, k, v, bias, mask,
+                                               self.scale, flags)
         else:
-            attend = attention.window_attention_xla
-        out = attend(q, k, v, bias, mask, self.scale)
+            attend = (window_attn.window_attention_plain if route == "core"
+                      else attention.window_attention_xla)
+            out = attend(q, k, v, bias, mask, self.scale)
         return self.proj(out.transpose(2, 3).reshape(b, nw, n, c))
 
 
@@ -253,11 +256,12 @@ class SwinBlock(nn.Module):
         if ss > 0:
             x = torch.roll(x, shifts=(-ss, -ss), dims=(1, 2))
         mask = shift_mask_2d(hp, wp, ws, ss, x.device)
+        flags = shift_mask_flags_2d(hp, wp, ws, ss, x.device)
         if padded and fused and self.attn.takes_map_route(x):
             x = self.attn.forward_map(x, mask)
         else:
             xw = window_partition(x, ws).view(b, nw, ws * ws, c)
-            xw = self.attn(xw, mask, ln_params)
+            xw = self.attn(xw, mask, ln_params, flags)
             x = window_reverse(xw.view(b * nw, ws * ws, c), ws, hp, wp)
         if ss > 0:
             x = torch.roll(x, shifts=(ss, ss), dims=(1, 2))

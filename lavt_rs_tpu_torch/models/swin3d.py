@@ -44,6 +44,17 @@ relative-position bias is gathered with grad, so dbias reaches the table.
 DropPath follows the attention and the MLP, each a per-sample draw from
 the generator passed to `forward`, in the JAX order; the per-block rates
 are linspace(0, drop_path_rate, blocks).
+
+Activation checkpointing (`use_checkpoint`, the JAX package's `nn.remat`
+of every `SwinBlock3D`, `lavt_rs_tpu/models/swin3d.py:332-333`): in
+training each block runs under `torch.utils.checkpoint` (non-reentrant),
+so its activations are recomputed in the backward.  Its two DropPath
+draws are made before the checkpointed call and passed in, so that the
+recompute applies the same ones (checkpoint's `preserve_rng_state`
+restores the default generators, not the explicit `torch.Generator` the
+port draws from); the recompute runs K10's save mode again, so a
+checkpointed block launches it twice a step.  The last stage also skips
+its language gate under the flag, as the reference does.
 """
 
 from __future__ import annotations
@@ -55,15 +66,17 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..config import FusionConfig, FusionKind, GateKind, StageOutput, SwinConfig, TPWAMConfig
 from ..ops import attention, fused_msa, window_attn
-from ..ops.dropout import drop_path
+from ..ops.dropout import drop_path_apply, drop_path_kept
 from ..ops.window import (get_window_size_3d, partition_3d_groups,
                           partition_shifted_padded_3d,
                           relative_bias_from_table_3d,
                           relative_position_index_3d,
                           reverse_shifted_unpadded_3d, shift_mask_3d,
+                          shift_mask_flags_3d,
                           window_partition_3d, window_reverse_3d)
 from .pwam import LanguageGate, apply_gate
 from .tpwam import build_tpwam
@@ -120,10 +133,13 @@ class WindowAttention3D(nn.Module):
                                                          self.dim // h)
                 else "chain")
 
-    def forward(self, x, mask=None, groups: Optional[Tuple[int, int]] = None):
-        """x: (B, nW, N, C) windowed post-LN tokens, mask (nW, N, N) or None.
-        With groups = (nu, n_real): x is the grouped stream (B, nW, n_p, C)
-        of `partition_shifted_padded_3d`, windows [0, nu) maskless and the
+    def forward(self, x, mask=None, groups: Optional[Tuple[int, int]] = None,
+                flags=None):
+        """x: (B, nW, N, C) windowed post-LN tokens, mask (nW, N, N) or None,
+        with its window flags (the windows whose mask K9 reads;
+        `window.shift_mask_flags_3d`) or None.  With groups = (nu,
+        n_real): x is the grouped stream (B, nW, n_p, C) of
+        `partition_shifted_padded_3d`, windows [0, nu) maskless and the
         rest under the small mask (nW - nu, n_p, n_p)."""
         b, nw, n, c = x.shape
         h = self.num_heads
@@ -143,13 +159,13 @@ class WindowAttention3D(nn.Module):
             return self.proj(window_attn.window_attention_qkv(
                 qkv, bias, mask, h, self.scale))
         q, k, v = (t.contiguous() for t in window_attn.qkv_heads(qkv, h))
-        if route == "chain":
-            attend = attention.window_attention_xla
-        elif self.use_kernels:
-            attend = window_attn.window_attention
+        if route == "core" and self.use_kernels:
+            out = window_attn.window_attention(q, k, v, bias, mask,
+                                               self.scale, flags)
         else:
-            attend = window_attn.window_attention_plain
-        out = attend(q, k, v, bias, mask, self.scale)
+            attend = (window_attn.window_attention_plain if route == "core"
+                      else attention.window_attention_xla)
+            out = attend(q, k, v, bias, mask, self.scale)
         return self.proj(out.transpose(2, 3).reshape(b, nw, n, c))
 
 
@@ -171,12 +187,13 @@ class SwinBlock3D(nn.Module):
                  shift_size: Tuple[int, int, int] = (0, 0, 0),
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
                  qk_scale: Optional[float] = None, use_kernels: bool = True,
-                 drop_path_rate: float = 0.0):
+                 drop_path_rate: float = 0.0, use_checkpoint: bool = False):
         super().__init__()
         self.dim, self.num_heads = dim, num_heads
         self.window_size, self.shift_size = tuple(window_size), tuple(shift_size)
         self.use_kernels = use_kernels
         self.drop_path_rate = drop_path_rate
+        self.use_checkpoint = use_checkpoint  # its layer checkpoints it
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         self.attn = WindowAttention3D(dim, self.window_size, num_heads,
                                       qkv_bias, qk_scale, use_kernels)
@@ -205,18 +222,31 @@ class SwinBlock3D(nn.Module):
     def kernels(self, dhw: Tuple[int, int, int], itemsize: int = 2,
                 train: bool = False) -> List[str]:
         """The kernels one forward of this block launches on the card for
-        a d x h x w clip (train: one training step), as `forward` routes
-        it; none without use_kernels."""
+        a d x h x w clip (train: one training step, where a checkpointed
+        block runs K10's save mode again in its recompute), as `forward`
+        routes it; none without use_kernels."""
         if not self.use_kernels:
             return []
         *_, nw, n = self._windows(dhw)
         route = self.route(n, nw, itemsize, train)
-        return {"grouped": ["K2p"], "core": ["K10", "K9"] if train else ["K10"],
+        fwd = ["K10", "K10"] if train and self.use_checkpoint else ["K10"]
+        return {"grouped": ["K2p"], "core": fwd + ["K9"] if train else fwd,
                 "chain": []}[route]
 
-    def forward(self, x, generator: Optional[torch.Generator] = None):
-        """x: (B, D, H, W, C); the generator draws DropPath in training."""
+    def draw_kept(self, b: int, generator: Optional[torch.Generator],
+                  device) -> Tuple[Optional[torch.Tensor], ...]:
+        """The block's two DropPath draws, attention branch first (None for
+        each where nothing is drawn)."""
+        return tuple(drop_path_kept(b, self.drop_path_rate, self.training,
+                                    generator, device) for _ in range(2))
+
+    def forward(self, x, generator: Optional[torch.Generator] = None,
+                kept: Optional[Tuple[Optional[torch.Tensor], ...]] = None):
+        """x: (B, D, H, W, C); the generator draws DropPath in training,
+        unless the draws are given (`kept`, from `draw_kept`)."""
         b, d, h, w, c = x.shape
+        if kept is None:
+            kept = self.draw_kept(b, generator, x.device)
         ws, ss, (pad_d, pad_b, pad_r), nw, n = self._windows((d, h, w))
         shortcut = x
         y = self.norm1(x)
@@ -236,17 +266,17 @@ class SwinBlock3D(nn.Module):
                 y = torch.roll(y, shifts=(-ss[0], -ss[1], -ss[2]),
                                dims=(1, 2, 3))
             mask = shift_mask_3d(dp, hp, wp, ws, ss, y.device)
+            flags = shift_mask_flags_3d(dp, hp, wp, ws, ss, y.device)
             yw = window_partition_3d(y, ws).view(b, nw, n, c)
-            yw = self.attn(yw, mask)
+            yw = self.attn(yw, mask, flags=flags)
             y = window_reverse_3d(yw.reshape(b * nw, n, c), ws, dp, hp, wp)
             if any(ss):
                 y = torch.roll(y, shifts=ss, dims=(1, 2, 3))
             if pad_d or pad_b or pad_r:
                 y = y[:, :d, :h, :w]
         rate = self.drop_path_rate
-        x = shortcut + drop_path(y, rate, self.training, generator)
-        return x + drop_path(self.mlp(self.norm2(x)), rate, self.training,
-                             generator)
+        x = shortcut + drop_path_apply(y, kept[0], rate)
+        return x + drop_path_apply(self.mlp(self.norm2(x)), kept[1], rate)
 
 
 class PatchEmbed3D(nn.Module):
@@ -292,8 +322,9 @@ class PatchMerging3D(nn.Module):
 
 class MMBasicLayer3D(nn.Module):
     """One multimodal video stage: Swin blocks -> 3D PWAM -> LG residual ->
-    merge.  The reference skips the last stage's language gate when it
-    checkpoints (`skip_gate`)."""
+    merge.  With `use_checkpoint` each block is checkpointed in training;
+    the reference skips the last stage's language gate when it checkpoints
+    (`skip_gate`)."""
 
     def __init__(self, dim: int, depth: int, num_heads: int,
                  window_size: Tuple[int, int, int], mlp_ratio: float,
@@ -301,7 +332,8 @@ class MMBasicLayer3D(nn.Module):
                  has_downsample: bool, fusion: FusionConfig, fusion_heads: int,
                  tpwam: TPWAMConfig, skip_gate: bool = False,
                  use_kernels: bool = True,
-                 drop_path_rates: Optional[Tuple[float, ...]] = None):
+                 drop_path_rates: Optional[Tuple[float, ...]] = None,
+                 use_checkpoint: bool = False):
         super().__init__()
         if fusion.kind != FusionKind.PWAM:
             raise NotImplementedError(
@@ -314,8 +346,9 @@ class MMBasicLayer3D(nn.Module):
             SwinBlock3D(dim, num_heads, window_size,
                         (0, 0, 0) if i % 2 == 0 else shift, mlp_ratio,
                         qkv_bias, qk_scale, use_kernels,
-                        drop_path_rate=rates[i])
+                        drop_path_rate=rates[i], use_checkpoint=use_checkpoint)
             for i in range(depth))
+        self.use_checkpoint = use_checkpoint
         self.fusion = build_tpwam(tpwam, dim, fusion_heads, fusion.lang_dim,
                                   fusion.dropout)
         self.res_gate = (LanguageGate(dim, fusion.lg_act)
@@ -328,8 +361,15 @@ class MMBasicLayer3D(nn.Module):
                 generator: Optional[torch.Generator] = None):
         """x (B, D, H, W, C) -> (x_out (B, D, H, W, C), x_next)."""
         b, d, h, w, c = x.shape
+        remat = (self.use_checkpoint and self.training
+                 and torch.is_grad_enabled())
         for blk in self.blocks:
-            x = blk(x, generator)
+            if remat:  # the draws first: the recompute applies the same
+                x = checkpoint(blk, x, None,
+                               blk.draw_kept(b, generator, x.device),
+                               use_reentrant=False)
+            else:
+                x = blk(x, generator)
         x_pre_fusion = x
         mm = self.fusion(x, l, l_mask, generator)  # (B, DHW, C)
         flat = x.reshape(b, d * h * w, c)
@@ -377,7 +417,8 @@ class MultiModalSwinTransformer3D(nn.Module):
                            i < last, fusion, fusion.num_heads[i], tpwam,
                            skip_gate=use_checkpoint and i == last,
                            use_kernels=use_kernels,
-                           drop_path_rates=tuple(dpr[starts[i]:starts[i + 1]]))
+                           drop_path_rates=tuple(dpr[starts[i]:starts[i + 1]]),
+                           use_checkpoint=use_checkpoint)
             for i in range(cfg.num_layers))
         for i in self.out_indices:
             self.add_module(f"norm{i}", nn.LayerNorm(cfg.num_features[i],

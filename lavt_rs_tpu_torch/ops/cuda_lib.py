@@ -15,6 +15,7 @@ not 0.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -25,9 +26,10 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("ln.cu", "fused_mlp.cu", "fused_msa.cu", "fused_msa_bwd.cu",
-           "fused_mlp_bwd.cu", "window_attn.cu", "window_attn_sm90.cu",
-           "window_msa_sm90.cu", "probe_headbatch.cu")
-HEADERS = ("common.cuh", "gemm_sm90.cuh")
+           "fused_msa_bwd_sm90.cu", "fused_mlp_bwd.cu", "window_attn_sm90.cu",
+           "window_attn_bwd_sm90.cu", "window_msa_sm90.cu",
+           "probe_headbatch.cu")
+HEADERS = ("common.cuh", "gemm_sm90.cuh", "attn_sm90.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -45,8 +47,9 @@ SIGNATURES = {
     "lavt_fused_ln_mlp": (P,) * 11 + (I, I, I, I, F, P),
     "lavt_window_msa_attn": (P,) * 13 + (I, I, I, I, F, F, P),
     "lavt_window_msa_2d_attn": (P,) * 6 + (I,) * 5 + (F, P),
-    "lavt_msa_bwd_attn": (P,) * 9 + (I, I, I, I, F, P),
-    "lavt_gemm_bf16": (P,) * 5 + (I,) * 9 + (P,),
+    "lavt_msa_bwd_attn_sm90": (P,) * 9 + (I, I, I, I, F, P),
+    "lavt_msa_dgrad": (P, P, P, I, I, I, P),
+    "lavt_gemm_bf16": (P,) * 4 + (I,) * 7 + (P,),
     "lavt_sum_partials": (P, P, I, L, P),
     "lavt_colsum_bf16": (P, P, I, I, I, P),
     "lavt_mlp_bwd_prep": (P,) * 8 + (I, I, I, F, P),
@@ -57,7 +60,9 @@ SIGNATURES = {
     "lavt_mlp_bwd": (P,) * 8 + (I,) + (P,) * 10 + (I,) * 5 + (F, P),
     "lavt_window_attn": (P,) * 7 + (L,) * 6 + (I,) * 7 + (F, P),
     "lavt_k10_smem": (I,),
-    "lavt_window_attn_bwd": (P,) * 13 + (I,) * 7 + (F, P),
+    "lavt_window_attn_bwd_q": (P,) * 13 + (I,) * 6 + (F, P),
+    "lavt_window_attn_bwd_kv": (P,) * 11 + (I,) * 6 + (P,),
+    "lavt_k9_q_smem": (I,),
     "lavt_gemm_bias_bf16": (P,) * 4 + (I,) * 4 + (F, P),
     "lavt_probe_headbatch": (P, P) + (I,) * 6 + (P,),
 }
@@ -158,6 +163,15 @@ def stream_ptr(device) -> int:
         return raw(device.index if device.index is not None
                    else torch.cuda.current_device())
     return torch.cuda.current_stream(device).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The streaming multiprocessors of CUDA device `index` (the launch
+    plans' target)."""
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def require(t, name: str, dtype, device, shape=None) -> None:

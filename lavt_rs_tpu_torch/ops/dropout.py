@@ -32,21 +32,39 @@ def dropout(x: torch.Tensor, rate: float, training: bool,
     return torch.where(u < keep, x / keep, torch.zeros_like(x))
 
 
+def drop_path_kept(b: int, rate: float, training: bool,
+                   generator: Optional[torch.Generator],
+                   device) -> Optional[torch.Tensor]:
+    """The per-sample DropPath draw: (b,) bool, True where a sample keeps
+    its branch; None where nothing is drawn (eval mode or rate 0)."""
+    if not training or rate == 0.0:
+        return None
+    u = torch.rand((b,), generator=_need(generator), device=device)
+    return u < 1.0 - rate
+
+
 def drop_path_keep(b: int, rate: float, generator: Optional[torch.Generator],
                    device) -> torch.Tensor:
-    """(b,) f32 per-sample branch scale: 1 / (1 - rate) or 0."""
-    keep = 1.0 - rate
-    u = torch.rand((b,), generator=_need(generator), device=device)
-    return torch.where(u < keep, 1.0 / keep, 0.0).float()
+    """(b,) f32 per-sample branch scale of a `drop_path_kept` draw (rate >
+    0): 1 / (1 - rate) or 0, as K8 takes it."""
+    kept = drop_path_kept(b, rate, True, generator, device)
+    return torch.where(kept, 1.0 / (1.0 - rate), 0.0).float()
+
+
+def drop_path_apply(x: torch.Tensor, kept: Optional[torch.Tensor],
+                    rate: float) -> torch.Tensor:
+    """Per-sample stochastic depth with a drawn `kept` (`drop_path_kept`):
+    each sample's branch is x / (1 - rate) or 0; x itself for None."""
+    if kept is None:
+        return x
+    kept = kept.view((-1,) + (1,) * (x.ndim - 1))
+    return torch.where(kept, x / (1.0 - rate), torch.zeros_like(x))
 
 
 def drop_path(x: torch.Tensor, rate: float, training: bool,
               generator: Optional[torch.Generator]) -> torch.Tensor:
     """Per-sample stochastic depth over x's leading dim (timm DropPath):
     each sample's branch is x / (1 - rate) or 0."""
-    if not training or rate == 0.0:
-        return x
-    keep = 1.0 - rate
-    u = torch.rand((x.shape[0],), generator=_need(generator), device=x.device)
-    kept = (u < keep).view((-1,) + (1,) * (x.ndim - 1))
-    return torch.where(kept, x / keep, torch.zeros_like(x))
+    return drop_path_apply(
+        x, drop_path_kept(x.shape[0], rate, training, generator, x.device),
+        rate)

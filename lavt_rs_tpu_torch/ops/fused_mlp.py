@@ -255,16 +255,24 @@ class BwdPlan(NamedTuple):
         return self.split_tiles * GEMM_DEPTH
 
 
-def bwd_plan(m: int, c: int, hidden: int) -> BwdPlan:
-    """Splits over M for dW1/dW2: as many as leave each of the two
-    consumers of every SM one output tile of one of them (no split when
-    the tiles alone fill them), no more than their f32 partials fit in
-    `_DW_PARTIAL_BYTES`, no empty split."""
+def wgrad_split_tiles(m: int, na: int, nb: int, gemms: int = 1) -> int:
+    """The k-tiles (GEMM_DEPTH rows of M) of each split over M of `gemms`
+    weight-grad GEMMs (`wgrad`) of (Na, Nb) outputs: as many splits as
+    leave each of the two consumers of every SM one output tile of one of
+    them (no split when the tiles alone fill them), no more than their f32
+    partials fit in `_DW_PARTIAL_BYTES`, no empty split.  K7's dW1/dW2 and
+    K5's dWqkv/dWproj (ops/fused_msa.py) split by this rule."""
     k_tiles = -(-m // GEMM_DEPTH)
-    tiles = (hidden // GEMM_TILE) * (c // GEMM_TILE)
-    cap = _DW_PARTIAL_BYTES // (8 * hidden * c)
+    tiles = -(-na // GEMM_TILE) * -(-nb // GEMM_TILE)
+    cap = _DW_PARTIAL_BYTES // (4 * na * nb * gemms)
     splits = max(1, min(2 * _SMS // tiles, cap, k_tiles))
-    split_tiles = -(-k_tiles // splits)
+    return -(-k_tiles // splits)
+
+
+def bwd_plan(m: int, c: int, hidden: int) -> BwdPlan:
+    """dW1 and dW2 split over M by `wgrad_split_tiles`."""
+    k_tiles = -(-m // GEMM_DEPTH)
+    split_tiles = wgrad_split_tiles(m, hidden, c, gemms=2)
     return BwdPlan(-(-m // DUAL_ROWS), -(-k_tiles // split_tiles), split_tiles,
                    -(-m // LN_BWD_ROWS))
 
@@ -365,12 +373,15 @@ def dual_gemm_gelu_bwd(xn, dmlp, w1, b1, w2):
 
 def wgrad(a, b, split_rows: int):
     """(c) on the card: a (M, Na), b (M, Nb) bf16, Na and Nb multiples of
-    128, split_rows a multiple of 64."""
+    8 (a last tile of fewer than 128 columns is not stored past Nb),
+    split_rows a multiple of 64.  Also K5's dWqkv = dqkvᵀ x and dWproj =
+    gyᵀ o."""
     if a.device.type == "cpu":
         return wgrad_plain(a, b, split_rows)
     m, na = a.shape
     nb = b.shape[1]
-    if na % GEMM_TILE or nb % GEMM_TILE or split_rows % GEMM_DEPTH or m < 1:
+    if (na % 8 or nb % 8 or split_rows % GEMM_DEPTH or split_rows < 1
+            or m < 1):
         raise ValueError(f"wgrad: unsupported (M, Na, Nb, split rows) "
                          f"{(m, na, nb, split_rows)}")
     _require_bf16([("a", a, None), ("b", b, (m, nb))], a.device)

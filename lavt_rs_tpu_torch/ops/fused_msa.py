@@ -38,10 +38,11 @@ equals it while every logit is below 80).
 
 Each wrapper takes the plain version for a CPU tensor and launches the
 CUDA kernels (csrc/fused_msa.cu: attention; csrc/fused_msa_bwd.cu: the
-out-projection GEMM and the backward; K2p: csrc/window_msa_sm90.cu's
-projections on the wgmma + TMA GEMM core around K10's attention kernel)
-for a CUDA tensor; the plain versions compute in f32 with the kernels'
-rounding points.
+out-projection GEMM and the fixed-order sums; K5: csrc/fused_msa_bwd_sm90.cu,
+its launches `bwd_launches`; K2p: csrc/window_msa_sm90.cu's projections on
+the wgmma + TMA GEMM core around K10's attention kernel) for a CUDA
+tensor; the plain versions compute in f32 with the kernels' rounding
+points.
 """
 
 from __future__ import annotations
@@ -59,9 +60,6 @@ LN_EPS = 1e-5
 # the TPU rule (`_save_residuals_ok`): save p and qkv for the backward
 # while neither exceeds this many bytes per block
 RESID_CAP_BYTES = 192 * 1024 * 1024
-# blocks in flight that the backward's launches aim for (132 SMs, two
-# waves)
-_TARGET_BLOCKS = 264
 
 
 def save_residuals_ok(b: int, nw: int, n: int, c: int, heads: int,
@@ -341,7 +339,7 @@ def _proj_launch(o, wproj, bproj, shape) -> torch.Tensor:
     c = wproj.shape[0]
     _require_all([("wproj", wproj, torch.bfloat16, (c, c)),
                   ("bproj", bproj, torch.bfloat16, (c,))], o.device)
-    return gemm(o, wproj, o.numel() // c, c, c, False, True, torch.bfloat16,
+    return gemm(o, wproj, o.numel() // c, c, c, False, True,
                 bias=bproj).view(shape)
 
 
@@ -354,45 +352,26 @@ def _launch(x, ln, wqkv, bqkv, wproj, bproj, bias, mask, heads, scale, eps,
 
 
 def gemm(a, b, m: int, n: int, k: int, a_kmajor: bool, b_nmajor: bool,
-         out_dtype=torch.float32, bias=None) -> torch.Tensor:
-    """(m, n) = A (m, k) B (k, n) on the hand-written WMMA GEMM of
-    csrc/fused_msa_bwd.cu.  A is given as (k, m) when a_kmajor, B as
-    (n, k) when b_nmajor (a torch Linear weight); bf16 in, f32 sums.  A
-    bf16 result is one pass, plus the (n,) bf16 bias when given; an f32
-    result is split over k across blocks when the tile grid is small, then
-    the f32 partials are added in order (deterministic)."""
+         bias=None) -> torch.Tensor:
+    """(m, n) bf16 = A (m, k) B (k, n) (+ the (n,) bf16 bias) on the
+    hand-written WMMA GEMM of csrc/fused_msa_bwd.cu: K1/K2's and K11's
+    out-projection.  A is given as (k, m) when a_kmajor, B as (n, k) when
+    b_nmajor (a torch Linear weight); bf16 in, f32 sums, one pass."""
     dev = a.device
-    lib = cuda_lib.lib()
-    stream = cuda_lib.stream_ptr(dev)
-    lda = m if a_kmajor else k
-    ldb = k if b_nmajor else n
-    splits, k_chunk = 1, k
-    if out_dtype == torch.float32:
-        tiles = -(-m // 64) * -(-n // 64)
-        splits = max(1, min(-(-_TARGET_BLOCKS // tiles), k // 512))
-        per_split = -(-k // splits)
-        k_chunk = -(-per_split // 32) * 32
-        splits = -(-k // k_chunk)
-    if out_dtype == torch.bfloat16:
-        out = torch.empty((m, n), dtype=out_dtype, device=dev)
-        err = lib.lavt_gemm_bf16(a.data_ptr(), b.data_ptr(),
-                                 None if bias is None else bias.data_ptr(),
-                                 None, out.data_ptr(), m, n, k, lda, ldb,
-                                 int(a_kmajor), int(b_nmajor), 1, k, stream)
-        cuda_lib.check(err, "lavt_gemm_bf16")
-        return out
-    part = torch.empty((splits, m, n), dtype=torch.float32, device=dev)
-    err = lib.lavt_gemm_bf16(a.data_ptr(), b.data_ptr(), None,
-                             part.data_ptr(), None, m, n, k, lda, ldb,
-                             int(a_kmajor), int(b_nmajor), splits, k_chunk,
-                             stream)
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
+    err = cuda_lib.lib().lavt_gemm_bf16(
+        a.data_ptr(), b.data_ptr(), None if bias is None else bias.data_ptr(),
+        out.data_ptr(), m, n, k, m if a_kmajor else k, k if b_nmajor else n,
+        int(a_kmajor), int(b_nmajor), cuda_lib.stream_ptr(dev))
     cuda_lib.check(err, "lavt_gemm_bf16")
-    return sum_partials(part)
+    return out
 
 
 def sum_partials(part: torch.Tensor) -> torch.Tensor:
     """(S, ...) f32 partials -> (...) summed over S in order, on the
-    kernel of csrc/fused_msa_bwd.cu."""
+    kernel of csrc/fused_msa_bwd.cu (their f32 sum on a CPU tensor)."""
+    if part.device.type == "cpu":
+        return part.sum(0)
     if part.shape[0] == 1:
         return part[0]
     out = torch.empty(part.shape[1:], dtype=torch.float32, device=part.device)
@@ -405,9 +384,13 @@ def sum_partials(part: torch.Tensor) -> torch.Tensor:
 
 def colsum(x2: torch.Tensor) -> torch.Tensor:
     """f32 column sums of a bf16 (rows, cols) tensor, on the kernel of
-    csrc/fused_msa_bwd.cu (row splits, then their partials in order)."""
+    csrc/fused_msa_bwd.cu (a block per row split, one per SM, 32 rows or
+    more each; then their partials in order); their f32 sum on a CPU
+    tensor."""
+    if x2.device.type == "cpu":
+        return x2.float().sum(0)
     rows, cols = x2.shape
-    splits = max(1, min(_TARGET_BLOCKS, rows // 256))
+    splits = max(1, min(_SMS, rows // 32))
     part = torch.empty((splits, cols), dtype=torch.float32, device=x2.device)
     err = cuda_lib.lib().lavt_colsum_bf16(
         x2.data_ptr(), part.data_ptr(), rows, cols, splits,
@@ -416,40 +399,149 @@ def colsum(x2: torch.Tensor) -> torch.Tensor:
     return sum_partials(part)
 
 
+# -- K5's launches (csrc/fused_msa_bwd_sm90.cu) and their plain versions -----
+
+_SMS = 132  # an H100's SMs (the launch plans' target off the card)
+
+
+def msa_dgrad_plain(a, w) -> torch.Tensor:
+    """The plain version of `msa_dgrad`: (a w) in f32, rounded once."""
+    return (a.float() @ w.float()).to(a.dtype)
+
+
+def msa_dgrad(a, w) -> torch.Tensor:
+    """(M, N) bf16 = a (M, K) w, w (K, N) a torch Linear weight read as W
+    (not Wᵀ): K5's dattn = gy Wproj and dx = dqkv Wqkv, on the wgmma + TMA
+    GEMM core (`lavt_msa_dgrad`; w read MN-major).  The plain version on a
+    CPU tensor."""
+    if a.device.type == "cpu":
+        return msa_dgrad_plain(a, w)
+    (m, k), n = a.shape, w.shape[1]
+    bf16 = torch.bfloat16
+    _require_all([("a", a, bf16, None), ("w", w, bf16, (k, n))], a.device)
+    out = torch.empty((m, n), dtype=bf16, device=a.device)
+    err = cuda_lib.lib().lavt_msa_dgrad(a.data_ptr(), w.data_ptr(),
+                                        out.data_ptr(), m, n, k,
+                                        cuda_lib.stream_ptr(a.device))
+    cuda_lib.check(err, "lavt_msa_dgrad")
+    return out
+
+
+def msa_bwd_groups(windows: int, heads: int, sms: int = _SMS) -> int:
+    """The attention launch's blocks per head: (groups, heads) blocks of
+    one per SM, no more groups than windows."""
+    return max(1, min(windows, sms // heads))
+
+
+def msa_bwd_attn_plain(dattn, q, k, v, p, heads: int, scale: float,
+                       groups: int):
+    """The plain version of `msa_bwd_attn`: f32 math with the kernel's
+    rounding points and its partial sums (block g's windows g, g + groups,
+    ...)."""
+    m, n, c = q.shape
+    hd = c // heads
+    dt = q.dtype
+
+    def heads_of(t):  # (m n, C) or (m, n, C) -> (m, heads, n, hd) f32
+        return t.float().reshape(m, n, heads, hd).transpose(1, 2)
+
+    def merge(t):  # (m, heads, n, hd) -> (m n, C)
+        return t.transpose(1, 2).reshape(m * n, c)
+
+    do, qh, kh, vh = heads_of(dattn), heads_of(q), heads_of(k), heads_of(v)
+    pf = p.float()
+    of = pf @ vh
+    dv = pf.transpose(-1, -2) @ do
+    dp = do @ vh.transpose(-1, -2)
+    ds = pf * (dp - (do * of).sum(-1, keepdim=True))
+    dsc = ds.to(dt).float()
+    dqkv = torch.cat([merge((dsc @ kh) * scale),
+                      merge(dsc.transpose(-1, -2) @ qh), merge(dv)], dim=-1)
+    group = torch.arange(m) % groups
+    dbias_part = torch.stack([ds[group == g].sum(0) for g in range(groups)])
+    rows = dqkv.view(m, n, 3 * c).sum(1)
+    dbqkv_part = torch.stack([rows[group == g].sum(0) for g in range(groups)])
+    return merge(of.to(dt)), dqkv.to(dt), dbias_part, dbqkv_part
+
+
+def msa_bwd_attn(dattn, q, k, v, p, heads: int, scale: float, groups: int):
+    """K5's attention launch (`lavt_msa_bwd_attn_sm90`): dattn (B nW N, C)
+    and the save mode's q, k, v (B nW, N, C), p (B nW, heads, N, N) ->
+    o (B nW N, C) and dqkv (B nW N, 3C) bf16, the f32 partials of dbias
+    (groups, heads, N, N) and of dbqkv (groups, 3C).  The plain version on
+    a CPU tensor."""
+    if q.device.type == "cpu":
+        return msa_bwd_attn_plain(dattn, q, k, v, p, heads, scale, groups)
+    m, n, c = q.shape
+    dev = q.device
+    bf16 = torch.bfloat16
+    _require_all([("dattn", dattn, bf16, (m * n, c)), ("q", q, bf16, None),
+                  ("k", k, bf16, (m, n, c)), ("v", v, bf16, (m, n, c)),
+                  ("p", p, bf16, (m, heads, n, n))], dev)
+    o = torch.empty((m * n, c), dtype=bf16, device=dev)
+    dqkv = torch.empty((m * n, 3 * c), dtype=bf16, device=dev)
+    dbias_part = torch.empty((groups, heads, n, n), dtype=torch.float32,
+                             device=dev)
+    dbqkv_part = torch.empty((groups, 3 * c), dtype=torch.float32, device=dev)
+    err = cuda_lib.lib().lavt_msa_bwd_attn_sm90(
+        dattn.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        p.data_ptr(), o.data_ptr(), dqkv.data_ptr(), dbias_part.data_ptr(),
+        dbqkv_part.data_ptr(), m, c, heads, groups, float(scale),
+        cuda_lib.stream_ptr(dev))
+    cuda_lib.check(err, "lavt_msa_bwd_attn_sm90")
+    return o, dqkv, dbias_part, dbqkv_part
+
+
+def bwd_launches(x, gy, wqkv, wproj, saved, heads: int, scale: float,
+                 groups: Optional[int] = None):
+    """K5's launches, in order (csrc/fused_msa_bwd_sm90.cu):
+      (a) dattn = gy Wproj (`msa_dgrad`);
+      (b) the attention (`msa_bwd_attn`): o, dqkv and the dbias / dbqkv
+          partials;
+      (c) dx = dqkv Wqkv (`msa_dgrad`);
+      (d), (e) dWqkv = dqkvᵀ x, dWproj = gyᵀ o as split partials (K7's
+          `fused_mlp.wgrad`, split by `fused_mlp.wgrad_split_tiles`);
+      (f) dbproj = the column sums of gy (`colsum`);
+      and `sum_partials` over every split, in order.  On CPU tensors each
+    launch takes its plain version, which compose to
+    `fused_window_msa_bwd_plain`'s values (tests/test_torch_k5_launches.py).
+    Returns (dx, dwqkv, dbqkv, dwproj, dbproj, dbias) as K5 does."""
+    from .fused_mlp import (  # imports this module
+        GEMM_DEPTH, wgrad, wgrad_split_tiles)
+
+    b, nw, n, c = x.shape
+    q, k, v, p = saved
+    m = b * nw
+    rows = m * n
+    if groups is None:
+        sms = (cuda_lib.sm_count(x.device.index or 0)
+               if x.device.type == "cuda" else _SMS)
+        groups = msa_bwd_groups(m, heads, sms)
+    x2, g2 = x.reshape(rows, c), gy.reshape(rows, c)
+    dattn = msa_dgrad(g2, wproj)
+    o, dqkv, dbias_part, dbqkv_part = msa_bwd_attn(dattn, q, k, v, p, heads,
+                                                   scale, groups)
+    dx = msa_dgrad(dqkv, wqkv)
+    dwqkv = wgrad(dqkv, x2, wgrad_split_tiles(rows, 3 * c, c) * GEMM_DEPTH)
+    dwproj = wgrad(g2, o, wgrad_split_tiles(rows, c, c) * GEMM_DEPTH)
+    return (dx.view(b, nw, n, c), sum_partials(dwqkv), sum_partials(dbqkv_part),
+            sum_partials(dwproj), colsum(g2), sum_partials(dbias_part))
+
+
 def _bwd_launch(x, gy, wqkv, wproj, saved, heads, scale):
-    """K5's launches (see csrc/fused_msa_bwd.cu)."""
+    """K5 on the card: the checks, then `bwd_launches`."""
     b, nw, n, c = x.shape
     _check_geometry(x, heads)
     q, k, v, p = saved
     m = b * nw
-    rows = m * n
-    dev = x.device
     bf16 = torch.bfloat16
     _require_all([("x", x, bf16, None), ("gy", gy, bf16, (b, nw, n, c)),
                   ("wqkv", wqkv, bf16, (3 * c, c)),
                   ("wproj", wproj, bf16, (c, c)),
                   ("q", q, bf16, (m, n, c)), ("k", k, bf16, (m, n, c)),
                   ("v", v, bf16, (m, n, c)),
-                  ("p", p, bf16, (m, heads, n, n))], dev)
-    x2, g2 = x.reshape(rows, c), gy.reshape(rows, c)
-    dattn = gemm(g2, wproj, rows, c, c, False, False, bf16)
-    groups = min(m, -(-_TARGET_BLOCKS // heads))
-    o = torch.empty((rows, c), dtype=bf16, device=dev)
-    dqkv = torch.empty((rows, 3 * c), dtype=bf16, device=dev)
-    dbias_part = torch.empty((groups, heads, n, n), dtype=torch.float32,
-                             device=dev)
-    dbqkv_part = torch.empty((groups, 3 * c), dtype=torch.float32, device=dev)
-    err = cuda_lib.lib().lavt_msa_bwd_attn(
-        dattn.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        p.data_ptr(), o.data_ptr(), dqkv.data_ptr(), dbias_part.data_ptr(),
-        dbqkv_part.data_ptr(), m, c, heads, groups, float(scale),
-        cuda_lib.stream_ptr(dev))
-    cuda_lib.check(err, "lavt_msa_bwd_attn")
-    dx = gemm(dqkv, wqkv, rows, c, 3 * c, False, False, bf16)
-    dwqkv = gemm(dqkv, x2, 3 * c, c, rows, True, False)
-    dwproj = gemm(g2, o, c, c, rows, True, False)
-    return (dx.view(b, nw, n, c), dwqkv, sum_partials(dbqkv_part), dwproj,
-            colsum(g2), sum_partials(dbias_part))
+                  ("p", p, bf16, (m, heads, n, n))], x.device)
+    return bwd_launches(x, gy, wqkv, wproj, saved, heads, scale)
 
 
 # -- wrappers: plain version on a CPU tensor, the kernel on a CUDA tensor ----

@@ -67,6 +67,30 @@ def shift_mask_2d(hp: int, wp: int, ws: int, shift: int,
     return _shift_mask_cached(hp, wp, ws, shift, torch.device(device))
 
 
+def _ids_to_flags(ids: np.ndarray, device) -> torch.Tensor:
+    """(nW,) int32: 1 where a window's tokens lie in more than one region
+    (its shift mask has a nonzero), else 0."""
+    flags = (ids != ids[:, :1]).any(axis=1).astype(np.int32)
+    return torch.from_numpy(flags).to(device)
+
+
+@functools.lru_cache(maxsize=64)
+def _shift_flags_cached(hp: int, wp: int, ws: int, shift: int,
+                        device: torch.device) -> torch.Tensor:
+    return _ids_to_flags(shift_region_ids_2d(hp, wp, ws, shift), device)
+
+
+def shift_mask_flags_2d(hp: int, wp: int, ws: int, shift: int,
+                        device) -> Optional[torch.Tensor]:
+    """The (nW,) int32 window flags of `shift_mask_2d`'s mask (1 where a
+    window's mask has a nonzero), built once per shape and device from the
+    region ids; None when shift == 0.  K9 reads the masks of flagged
+    windows only (`window_attn.attention_core_bwd`)."""
+    if shift == 0:
+        return None
+    return _shift_flags_cached(hp, wp, ws, shift, torch.device(device))
+
+
 @functools.lru_cache(maxsize=64)
 def relative_position_index_2d(wh: int, ww: int) -> np.ndarray:
     """(Wh*Ww, Wh*Ww) index into the (2Wh-1)(2Ww-1) bias table."""
@@ -169,6 +193,21 @@ def shift_mask_3d(dp: int, hp: int, wp: int, ws, ss,
     if not any(ss):
         return None
     return _shift_mask_3d_cached(dp, hp, wp, ws, ss, torch.device(device))
+
+
+@functools.lru_cache(maxsize=32)
+def _shift_flags_3d_cached(dp, hp, wp, ws, ss, device) -> torch.Tensor:
+    return _ids_to_flags(shift_region_ids_3d(dp, hp, wp, ws, ss), device)
+
+
+def shift_mask_flags_3d(dp: int, hp: int, wp: int, ws, ss,
+                        device) -> Optional[torch.Tensor]:
+    """The (nW,) int32 window flags of `shift_mask_3d`'s mask, as
+    `shift_mask_flags_2d` gives them; None when no dim is shifted."""
+    ws, ss = tuple(int(v) for v in ws), tuple(int(v) for v in ss)
+    if not any(ss):
+        return None
+    return _shift_flags_3d_cached(dp, hp, wp, ws, ss, torch.device(device))
 
 
 @functools.lru_cache(maxsize=16)

@@ -26,7 +26,8 @@ C = 96 blocks take the grouped K2p route instead).
     (plain version `window_attention_qkv_plain`);
     `attention_qkv_grouped` does the same with the windows grouped by
     mask, K2p's attention launch (`ops/fused_msa.grouped_launches`).
-    K9's kernels are in csrc/window_attn.cu.  Where autograd records the
+    K9 is csrc/window_attn_bwd_sm90.cu, two launches and a sum
+    (`bwd_launches`, its grids `k9_plan`).  Where autograd records the
     call it goes through `WindowAttention`: K10 in save mode (the output
     and each row's log-sum-exp) forward and K9 backward on the card, the
     plain versions of both on the CPU (so the CPU tests run the plain
@@ -61,17 +62,11 @@ from .fused_msa import sum_partials
 
 HEAD_DIM = 32
 MAX_N = 400
-# K9's launches: blocks aimed for (132 SMs at two blocks each, one wave)
-_TARGET_BLOCKS = 264
 # K10's launch (csrc/window_attn_sm90.cu): 64-row units, two warpgroups a
 # block, a ring of two stages a warpgroup; an H100 SM's shared memory and
 # what each block reserves of it
 K10_TILE, K10_WARPGROUPS, K10_STAGES = 64, 2, 2
 SMEM_PER_SM, SMEM_PER_BLOCK_RESERVED = 233472, 1024
-# K9's dbias partial slices, one (heads, N, N) f32 slice per window group:
-# as many groups as fit this budget (one slice per window would be 597 MB
-# at video stage 1)
-_DBIAS_PART_BYTES = 32 * 2**20
 
 
 def _scores(q, k, bias, mask, scale) -> torch.Tensor:
@@ -218,12 +213,6 @@ def _check(q, tensors, bias, mask):
     _check_bias_mask(bias, mask, heads, nw, n, q.device)
 
 
-def _splits(tiles: int, blocks: int) -> int:
-    """K9's grid.z: split a window's 16-row tiles (8 per block pass) until
-    the launch has ~_TARGET_BLOCKS blocks."""
-    return max(1, min(-(-tiles // 8), -(-_TARGET_BLOCKS // blocks)))
-
-
 def k10_smem(n: int) -> int:
     """Dynamic shared memory of a K10 block at N (csrc/window_attn_sm90.cu's
     smem_bytes, exported as `lavt_k10_smem`; tests/test_torch_kernels_cuda.py
@@ -283,11 +272,6 @@ def k10_plan(bw: int, heads: int, n: int, sms: int) -> dict:
     return plan
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _check_k10(q, k, v, bias, mask):
     """Raise unless K10 takes these: q, k, v bf16 views with one set of
     strides, hd contiguous, every stride and base 16-byte aligned (the
@@ -329,7 +313,7 @@ def _k10_call(ptrs, qst, ost, b, nw, heads, n, bias, mask, lse, scale,
     """The launch, on checked arguments: ptrs (q, k, v, o), the element
     strides (window, head, row) of q, k, v and of O; windows nu.. of each
     image take mask[w - nu] (no window a mask when mask is None)."""
-    plan = k10_plan(b * nw, heads, n, _sm_count(device.index or 0))
+    plan = k10_plan(b * nw, heads, n, cuda_lib.sm_count(device.index or 0))
     bias, ld = _row_aligned(bias)
     if mask is not None:
         mask, _ = _row_aligned(mask)
@@ -355,29 +339,153 @@ def _launch(q, k, v, bias, mask, scale, save: bool):
     return o, lse
 
 
-def _bwd_launch(q, k, v, bias, mask, do, scale, o, lse):
-    """K9's launches (see csrc/window_attn.cu)."""
+# -- K9's launches (csrc/window_attn_bwd_sm90.cu) and their plain versions ---
+
+def k9_plan(bw: int, heads: int, n: int, sms: int) -> dict:
+    """K9's grids on `sms` SMs (one block of two warpgroups per SM).
+    Launch 1 takes (bp, query tiles x heads) blocks, block (b, (i, h)) the
+    windows b, b + bp, ...; bp as many as fill the SMs once (at least 1,
+    at most the windows); its dbias partials are bp (above N = 64: both
+    warpgroups on each window) or 2 bp (one per warpgroup).  Launch 2:
+    persistent blocks over the B nW x key tiles x heads units."""
+    tiles = -(-n // K10_TILE)
+    pairs = tiles * heads
+    bp = max(1, min(bw, round(sms / pairs)))
+    units = bw * tiles * heads
+    return dict(bp=bp, parts=bp if n > K10_TILE else 2 * bp,
+                q_blocks=bp * pairs,
+                kv_blocks=min(sms, -(-units // K10_WARPGROUPS)), units=units)
+
+
+def mask_flags(mask) -> Optional[torch.Tensor]:
+    """(nW,) int32 window flags of a (nW, N, N) mask: 1 where the window's
+    mask has a nonzero (None for None).  K9 reads the masks of flagged
+    windows only; the Swin blocks take their shift masks' flags from
+    `ops/window.shift_mask_flags_2d` / `_3d`, built with the masks, and a
+    caller holding another mask computes them once here."""
+    return None if mask is None else (mask != 0).flatten(1).any(1).int()
+
+
+def _bwd_probs(q, k, bias, mask, scale, lse):
+    """P = exp(s - lse) of the launches' plain versions (f32)."""
+    return torch.exp(_scores(q, k, bias, mask, scale) - lse[..., None])
+
+
+def attention_bwd_q_plain(q, k, v, bias, mask, do, scale, o, lse, plan):
+    """The plain version of launch 1: dq (q's dtype), bf16(q scale) (qs,
+    K10's rounding, for launch 2), D = rowsum(do o) and the dbias partials
+    (parts, heads, N, N) f32 as `k9_plan` cuts them (part b: windows b,
+    b + bp, ...; below N = 65 part 2 b + w: every other of them, from the
+    w-th)."""
+    b, nw, heads, n, _ = q.shape
+    dt = q.dtype
+    p = _bwd_probs(q, k, bias, mask, scale, lse)
+    dsum = (do.float() * o.float()).sum(-1)
+    ds = p * (do.float() @ v.float().transpose(-1, -2) - dsum[..., None])
+    dq = (ds.to(dt).float() @ k.float() * scale).to(dt)
+    bp, ds_w = plan["bp"], ds.flatten(0, 1)  # (B nW, heads, N, N)
+    win = torch.arange(b * nw)
+    part = (win % bp if n > K10_TILE
+            else 2 * (win % bp) + (win // bp) % 2)
+    dbias_part = torch.stack([ds_w[part == i].sum(0)
+                              for i in range(plan["parts"])])
+    return dq, (q.float() * scale).to(dt), dsum, dbias_part
+
+
+def attention_bwd_kv_plain(qs, k, v, bias, mask, do, lse, dsum):
+    """The plain version of launch 2: dk and dv in qs's dtype, from launch
+    1's qs = bf16(q scale) and dsum; P and dS rounded to qs's dtype for the
+    products."""
+    dt = qs.dtype
+    p = _bwd_probs(qs, k, bias, mask, 1.0, lse)
+    ds = p * (do.float() @ v.float().transpose(-1, -2) - dsum[..., None])
+    dv = p.to(dt).float().transpose(-1, -2) @ do.float()
+    dk = ds.to(dt).float().transpose(-1, -2) @ qs.float()
+    return dk.to(dt), dv.to(dt)
+
+
+def _ptr(t) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def attention_bwd_q(q, k, v, bias, mask, do, scale, o, lse, plan,
+                    flags=None):
+    """Launch 1 (`lavt_window_attn_bwd_q`): (dq, qs, dsum, dbias
+    partials); the plain version on a CPU tensor.  `flags` (`mask_flags`)
+    names the windows whose mask the launch reads; None: every window's.
+    Above N = 64 the launches read the bias by TMA, whose rows must lie 16
+    bytes apart: for N % 4 != 0 (no path's shape) a padded copy
+    (`_row_aligned`); at N <= 64 they copy it by plain loads."""
+    if q.device.type == "cpu":
+        return attention_bwd_q_plain(q, k, v, bias, mask, do, scale, o, lse,
+                                     plan)
+    b, nw, heads, n, _ = q.shape
+    biasp, ld = _row_aligned(bias)
+    dq, qs = torch.empty_like(q), torch.empty_like(q)
+    dsum = torch.empty_like(lse)
+    part = torch.empty((plan["parts"], heads, n, n), dtype=torch.float32,
+                       device=q.device)
+    err = cuda_lib.lib().lavt_window_attn_bwd_q(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), biasp.data_ptr(),
+        _ptr(mask), _ptr(flags), dq.data_ptr(),
+        qs.data_ptr(), dsum.data_ptr(), part.data_ptr(), b * nw, nw, heads,
+        n, ld, plan["bp"], float(scale), cuda_lib.stream_ptr(q.device))
+    cuda_lib.check(err, "lavt_window_attn_bwd_q")
+    return dq, qs, dsum, part
+
+
+def attention_bwd_kv(qs, k, v, bias, mask, do, lse, dsum, plan,
+                     flags=None):
+    """Launch 2 (`lavt_window_attn_bwd_kv`): (dk, dv) from launch 1's qs
+    and dsum, the bias and flags as launch 1 takes them; the plain version
+    on a CPU tensor."""
+    if qs.device.type == "cpu":
+        return attention_bwd_kv_plain(qs, k, v, bias, mask, do, lse, dsum)
+    b, nw, heads, n, _ = qs.shape
+    biasp, ld = _row_aligned(bias)
+    dk, dv = torch.empty_like(qs), torch.empty_like(qs)
+    err = cuda_lib.lib().lavt_window_attn_bwd_kv(
+        qs.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), dsum.data_ptr(), biasp.data_ptr(),
+        _ptr(mask), _ptr(flags), dk.data_ptr(),
+        dv.data_ptr(), b * nw, nw, heads, n, ld, plan["kv_blocks"],
+        cuda_lib.stream_ptr(qs.device))
+    cuda_lib.check(err, "lavt_window_attn_bwd_kv")
+    return dk, dv
+
+
+def bwd_launches(q, k, v, bias, mask, do, scale, o, lse,
+                 plan: Optional[dict] = None, flags=None):
+    """K9's launches, in order (csrc/window_attn_bwd_sm90.cu): launch 1
+    (`attention_bwd_q`: dq, bf16(q scale), D, the dbias partials), launch 2
+    (`attention_bwd_kv`: dk, dv), `sum_partials` of dbias.  On CPU tensors
+    each takes its plain version, which compose to
+    `attention_core_bwd_plain`'s values (tests/test_torch_k9_launches.py).
+    Returns (dq, dk, dv, dbias)."""
+    b, nw, heads, n, _ = q.shape
+    if plan is None:
+        sms = (cuda_lib.sm_count(q.device.index or 0)
+               if q.device.type == "cuda" else 132)
+        plan = k9_plan(b * nw, heads, n, sms)
+    dq, qs, dsum, part = attention_bwd_q(q, k, v, bias, mask, do, scale, o,
+                                         lse, plan, flags)
+    dk, dv = attention_bwd_kv(qs, k, v, bias, mask, do, lse, dsum, plan,
+                              flags)
+    return dq, dk, dv, sum_partials(part)
+
+
+def _bwd_launch(q, k, v, bias, mask, do, scale, o, lse, flags):
+    """K9 on the card: the checks, then `bwd_launches`."""
     b, nw, heads, n, _ = q.shape
     _check(q, (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)), bias,
            mask)
     cuda_lib.require(lse, "lse", torch.float32, q.device, (b, nw, heads, n))
-    bw = b * nw
-    groups = max(1, min(bw, _DBIAS_PART_BYTES // (heads * n * n * 4)))
-    tiles = -(-n // 16)
-    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    dsum = torch.empty_like(lse)
-    part = torch.empty((groups, heads, n, n), dtype=torch.float32,
-                       device=q.device)
-    err = cuda_lib.lib().lavt_window_attn_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        do.data_ptr(), lse.data_ptr(), bias.data_ptr(),
-        None if mask is None else mask.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), dsum.data_ptr(), part.data_ptr(), bw,
-        nw, heads, n, groups, _splits(tiles, heads * groups),
-        _splits(tiles, bw * heads), float(scale),
-        cuda_lib.stream_ptr(q.device))
-    cuda_lib.check(err, "lavt_window_attn_bwd")
-    return dq, dk, dv, sum_partials(part)
+    if mask is None:
+        flags = None
+    elif flags is not None:
+        cuda_lib.require(flags, "flags", torch.int32, q.device, (nw,))
+    return bwd_launches(q, k, v, bias, mask, do, scale, o, lse, flags=flags)
 
 
 def window_attention_save(q, k, v, bias, mask=None,
@@ -393,17 +501,20 @@ def window_attention_save(q, k, v, bias, mask=None,
 
 def attention_core_bwd(q, k, v, bias, mask, do, scale: Optional[float] = None,
                        o: Optional[torch.Tensor] = None,
-                       lse: Optional[torch.Tensor] = None):
+                       lse: Optional[torch.Tensor] = None,
+                       flags: Optional[torch.Tensor] = None):
     """K9: (dq, dk, dv, dbias) as `attention_core_bwd_plain`; the plain
     version on a CPU tensor, on a CUDA tensor the kernels, which take K10's
-    saved output o and lse (where the JAX kernel recomputes o)."""
+    saved output o and lse (where the JAX kernel recomputes o) and read
+    the masks of the windows `flags` (`mask_flags`) names, or of every
+    window without them."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     if q.device.type == "cpu":
         return attention_core_bwd_plain(q, k, v, bias, mask, do, scale, o)
     if o is None or lse is None:
         raise ValueError("attention_core_bwd on the card needs K10's saved "
                          "output and lse (window_attention_save)")
-    out = _bwd_launch(q, k, v, bias, mask, do, scale, o, lse)
+    out = _bwd_launch(q, k, v, bias, mask, do, scale, o, lse, flags)
     attention_core_bwd.launches += 1
     return out
 
@@ -413,11 +524,11 @@ class WindowAttention(torch.autograd.Function):
     CPU).  Saves K10's output and lse for K9, where the JAX VJP has its
     kernel recompute the output.  The bias and the mask are cast to f32
     and q, k, v made contiguous here; the grads come back in the inputs'
-    dtypes, and the mask gets none."""
+    dtypes, and the mask and its window flags get none."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, mask, scale: float):
-        ctx.scale, ctx.bias_dtype = scale, bias.dtype
+    def forward(ctx, q, k, v, bias, mask, scale: float, flags=None):
+        ctx.scale, ctx.bias_dtype, ctx.flags = scale, bias.dtype, flags
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         bias = bias.float().contiguous()
         mask = None if mask is None else mask.float().contiguous()
@@ -430,19 +541,21 @@ class WindowAttention(torch.autograd.Function):
         q, k, v, bias, mask, o, lse = ctx.saved_tensors
         dq, dk, dv, dbias = attention_core_bwd(
             q, k, v, bias, mask, do.to(q.dtype).contiguous(), ctx.scale, o,
-            lse)
-        return dq, dk, dv, dbias.to(ctx.bias_dtype), None, None
+            lse, ctx.flags)
+        return dq, dk, dv, dbias.to(ctx.bias_dtype), None, None, None
 
 
 def window_attention(q, k, v, bias, mask: Optional[torch.Tensor] = None,
-                     scale: Optional[float] = None) -> torch.Tensor:
+                     scale: Optional[float] = None,
+                     flags: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K10: softmax(q kᵀ·scale + bias + mask) v over windows; the plain
     version on a CPU tensor, the kernel on a CUDA tensor.  With autograd
-    recording an input, through `WindowAttention` (K9 backward); else the
-    forward alone (nothing is saved)."""
+    recording an input, through `WindowAttention` (K9 backward, which
+    reads the masks of the windows `flags` names); else the forward alone
+    (nothing is saved)."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     if records(q, k, v, bias):
-        return WindowAttention.apply(q, k, v, bias, mask, scale)
+        return WindowAttention.apply(q, k, v, bias, mask, scale, flags)
     if q.device.type == "cpu":
         return window_attention_plain(q, k, v, bias, mask, scale)
     out, _ = _launch(q, k, v, bias, mask, scale, save=False)

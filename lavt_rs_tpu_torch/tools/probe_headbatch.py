@@ -35,7 +35,6 @@ held to its plain version on `probe_input(..., std=CHECK_STD)` instead
 from __future__ import annotations
 
 import argparse
-import functools
 import statistics
 import sys
 import time
@@ -113,11 +112,6 @@ def loop_plan(grid: int, ch: int, heads: int, n: int, sms: int) -> dict:
     return _plan(grid, ch, heads, n, sms, unit=ch)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _launch(x, ch, heads, n, hd, batch: bool) -> torch.Tensor:
     rows, cq = x.shape
     if hd != HEAD_DIM or n % 16 or not 16 <= n <= MAX_N:
@@ -131,7 +125,7 @@ def _launch(x, ch, heads, n, hd, batch: bool) -> torch.Tensor:
     o = torch.empty_like(x)
     grid = rows // (ch * n)
     plan = batch_plan if batch else loop_plan
-    split = plan(grid, ch, heads, n, _sm_count(x.device.index or 0))["split"]
+    split = plan(grid, ch, heads, n, cuda_lib.sm_count(x.device.index or 0))["split"]
     err = cuda_lib.lib().lavt_probe_headbatch(
         x.data_ptr(), o.data_ptr(), grid, ch, n, heads, int(batch), split,
         cuda_lib.stream_ptr(x.device))

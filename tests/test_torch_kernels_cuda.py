@@ -46,7 +46,7 @@ from lavt_rs_tpu_torch.ops.window import (partition_3d_groups,
                                           shift_mask_2d, shift_mask_3d,
                                           window_partition, window_reverse)
 from lavt_rs_tpu_torch.ops.window_attn import (
-    attention_core_bwd, attention_core_bwd_plain, window_attention,
+    attention_core_bwd, attention_core_bwd_plain, mask_flags, window_attention,
     window_attention_plain, window_attention_save, window_attention_save_plain)
 
 pytestmark = pytest.mark.cuda
@@ -420,6 +420,17 @@ def test_ln_mlp_backward_launches(dev, c, m):
         _rel_frob(part[:, i], part_p[:, i], TOL_GRAD)
 
 
+@pytest.mark.parametrize("m,na,nb", [(2000, 288, 96), (1807, 96, 96)])
+def test_wgrad_at_ragged_widths(dev, m, na, nb):
+    """The weight-grad GEMM at widths that end in a part tile (K5 at C =
+    96: dWqkv 288 x 96, dWproj 96 x 96): every split's partials against
+    the plain version's, nothing stored past Nb."""
+    rng = np.random.default_rng(na + nb)
+    a, b = _bf16(rng, (m, na), 1.0, dev), _bf16(rng, (m, nb), 1.0, dev)
+    split = fm.wgrad_split_tiles(m, na, nb) * fm.GEMM_DEPTH
+    _rel_frob(fm.wgrad(a, b, split), fm.wgrad_plain(a, b, split), TOL_GRAD)
+
+
 def test_ln_mlp_launches_refuse_what_they_do_not_take(dev):
     rng = np.random.default_rng(41)
     x, g, be, w1, b1, w2, b2 = _mlp_args(rng, dev, 100, 128)
@@ -431,8 +442,8 @@ def test_ln_mlp_launches_refuse_what_they_do_not_take(dev):
         fm.mlp_bwd_prep(x, x, g, be, keep, 33)
     with pytest.raises(ValueError):  # C = 96 has no kernel
         fm.mlp_ln_rows(*_mlp_args(rng, dev, 64, 96)[:3])
-    with pytest.raises(ValueError):  # 64 columns: not a 128-wide tile
-        fm.wgrad(x[:, :64].contiguous(), x, 64)
+    with pytest.raises(ValueError):  # 60 columns: not a multiple of 8
+        fm.wgrad(x[:, :60].contiguous(), x, 64)
 
 
 @pytest.mark.parametrize("m,c", [(115200, 128), (7200, 512)])
@@ -790,36 +801,103 @@ def test_p1_against_its_plain_version(dev):
 
 
 def _profiled(fns):
-    """The device kernels fns launch under torch.profiler: {name: count}
-    (a session can come back without device records: up to three)."""
+    """The device kernels fns launch under torch.profiler: {name: count}.
+    A session can come back without device records, or without some of
+    them (late in a long process): one counts only when it recorded a
+    kernel for every launch call it saw; up to five sessions."""
     from torch.profiler import ProfilerActivity, profile
 
     for fn in fns:
         fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for fn in fns:
                 fn()
             torch.cuda.synchronize()
-        names = {e.key: e.count for e in prof.key_averages()
+        events = prof.key_averages()
+        names = {e.key: e.count for e in events
                  if e.device_type == torch.autograd.DeviceType.CUDA
                  and getattr(e, "self_device_time_total",
                              getattr(e, "self_cuda_time_total", 0)) > 0}
-        if names:
+        calls = sum(e.count for e in events
+                    if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC"))
+        if names and sum(names.values()) >= calls:
             return names
     return {}
 
 
-def test_k10_and_p2_launch_only_the_ports_kernels(dev):
-    """K10 (N = 49 and 392), its save mode, the strided route, K2p, P1 and
-    P2 under torch.profiler: every kernel is the port's own (no cuBLAS,
-    cuDNN, flash or SDPA kernel), and a K2p call is its three launches
-    (the qkv GEMM, K10's kernel, the out-projection GEMM)."""
+def _in_fresh_process(name):
+    """The JSON a profiling function of this module returns, run in a new
+    Python process: late in a long process torch.profiler drops kernel
+    records (sessions come back with some of the launches, or none)."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = ("import json, sys; sys.path[:0] = [{!r}, {!r}]; "
+            "import test_torch_kernels_cuda as T; "
+            "print(json.dumps(T.{}()))").format(here, os.path.dirname(here),
+                                                name)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def _first_calls_on_a_new_thread():
+    """K10, a GEMM-core weight grad and K9 called once on the main thread,
+    then as the first calls of a new host thread, whose outputs come from
+    torch's cache (so the thread makes no runtime call before the
+    library's): {"errors": the messages of the calls that raised}."""
+    import threading
+
+    dev = torch.device("cuda:0")
+    rng = np.random.default_rng(13)
+    q, k, v, bias, mask = _video_attn_args(rng, dev, 9, 24, 392, True)
+    o, lse = window_attention_save(q, k, v, bias, mask, 32 ** -0.5)
+    a = _bf16(rng, (256, 128), 1.0, dev)
+    calls = [lambda: window_attention(q, k, v, bias, mask, 32 ** -0.5),
+             lambda: fm.wgrad(a, a, 64),
+             lambda: attention_core_bwd(q, k, v, bias, mask, q, 32 ** -0.5, o,
+                                        lse)]
+    for fn in calls:
+        fn()
+    torch.cuda.synchronize()
+    errors = []
+
+    def run():
+        for fn in calls:
+            try:
+                fn()
+            except RuntimeError as e:
+                errors.append(str(e))
+        torch.cuda.synchronize()
+
+    thread = threading.Thread(target=run)
+    thread.start()
+    thread.join()
+    return {"errors": errors}
+
+
+def test_kernels_launch_as_a_new_threads_first_calls(dev):
+    """A host thread's first CUDA work can be the library's (an autograd
+    worker whose allocations all come from torch's cache): the launches
+    bind a context before they encode their tensor maps (in a fresh
+    process, where the thread is the library's first but one)."""
+    assert _in_fresh_process("_first_calls_on_a_new_thread") == {"errors": []}
+
+
+def _k10_p2_profiles():
+    """K10, its save mode, the strided route, K2p, P1 and P2 under
+    torch.profiler: {"all": names of every call, "k2p": one K2p call's}."""
     from lavt_rs_tpu_torch.ops.window_attn import window_attention_qkv
     from lavt_rs_tpu_torch.tools import probe_headbatch as probe
 
+    dev = torch.device("cuda:0")
     rng = np.random.default_rng(11)
     small = _k10_args(rng, dev, 8, 9, 32, 49, True)
     big = _k10_args(rng, dev, 1, 9, 24, 392, True)
@@ -841,13 +919,234 @@ def test_k10_and_p2_launch_only_the_ports_kernels(dev):
            lambda: fused_window_msa_grouped(*k2p),
            lambda: probe.loop_attention(x, 3, 4, 144),
            lambda: probe.batch_attention(x, 3, 4, 144)])
+    return {"all": names,
+            "k2p": _profiled([lambda: fused_window_msa_grouped(*k2p)])}
+
+
+def test_k10_and_p2_launch_only_the_ports_kernels(dev):
+    """K10 (N = 49 and 392), its save mode, the strided route, K2p, P1 and
+    P2 under torch.profiler (in a fresh process): every kernel is the
+    port's own (no cuBLAS, cuDNN, flash or SDPA kernel), and a K2p call is
+    its three launches (the qkv GEMM, K10's kernel, the out-projection
+    GEMM)."""
+    profiles = _in_fresh_process("_k10_p2_profiles")
+    names, k2p_kernels = profiles["all"], profiles["k2p"]
     assert names, "the profiler recorded no kernel"
     assert all("lavt::" in n for n in names), sorted(names)
     for want in ("window_attn_sm90_kernel", "gemm_kernel",
                  "probe_kernel<9, true>", "probe_kernel<9, false>"):
         assert any(want in n for n in names), (want, sorted(names))
-    k2p_kernels = _profiled([lambda: fused_window_msa_grouped(*k2p)])
     assert sum(k2p_kernels.values()) == 3, k2p_kernels
     assert sum(n for k, n in k2p_kernels.items() if "gemm_kernel" in k) == 2
     assert sum(n for k, n in k2p_kernels.items()
                if "window_attn_sm90_kernel" in k) == 1
+
+
+# -- K5 and K9 redesigned for Hopper (csrc/fused_msa_bwd_sm90.cu,
+# csrc/window_attn_bwd_sm90.cu) ------------------------------------------------
+
+# K5 at every shape chip_smoke.py checks: lavt_one Swin-B 480² at bs 8 (B,
+# image side padded to 12, C, heads) per stage, and C = 96 (Swin-T stage 1)
+K5_SHAPES = [(8, 120, 128, 4), (8, 60, 256, 8), (8, 36, 512, 16),
+             (8, 24, 1024, 32), (8, 120, 96, 3)]
+# K9 at every shape chip_smoke.py checks: (B, nW, heads, N, masked), the
+# video stages (stage 1 in training too), a 4-frame clip's stage 2, window 7
+K9_SHAPES = [(1, 324, 3, 392, False), (1, 324, 3, 392, True),
+             (1, 81, 6, 392, True), (1, 25, 12, 392, True),
+             (1, 9, 24, 392, True), (1, 81, 6, 196, True),
+             (1, 64, 3, 49, True), (8, 324, 4, 49, False),
+             (8, 81, 8, 49, True), (8, 25, 16, 49, True), (8, 9, 32, 49, True)]
+
+
+def _k5_case(dev, b, hw, c, heads, seed):
+    rng = np.random.default_rng(seed)
+    x, w, bias, mask, scale = _msa_args(rng, dev, b, hw, c, heads, True)
+    _, (q, k, v, p, _) = fused_window_msa_save(x, None, *w, bias, mask, heads,
+                                               scale)
+    gy = _bf16(rng, x.shape, 1.0, dev)
+    return x, gy, w, (q, k, v, p), heads, scale
+
+
+@pytest.mark.parametrize("b,hw,c,heads", K5_SHAPES)
+def test_k5_kernel_at_the_path_shapes(dev, b, hw, c, heads):
+    """K5 on the kernel's own save-mode residuals at every bs-8 stage shape,
+    against its plain version on the same residuals; two calls give the
+    same bits."""
+    x, gy, w, saved, heads, scale = _k5_case(dev, b, hw, c, heads, c + 41)
+    got = fused_window_msa_bwd(x, gy, w[0], w[2], saved, heads, scale)
+    want = fused_window_msa_bwd_plain(x, gy, w[0], w[2], saved, heads, scale)
+    _close_grads(got, want)
+    again = fused_window_msa_bwd(x, gy, w[0], w[2], saved, heads, scale)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+
+
+def test_k5_launches_against_their_plain_versions(dev):
+    """Each of K5's launches alone against its plain counterpart, on the
+    same inputs (stage 3's shape, C = 512)."""
+    from lavt_rs_tpu_torch.ops import fused_msa as fmsa
+
+    x, gy, w, (q, k, v, p), heads, scale = _k5_case(dev, 8, 36, 512, 16, 43)
+    rows, c = gy.numel() // 512, 512
+    g2, x2 = gy.reshape(rows, c), x.reshape(rows, c)
+    dattn = fmsa.msa_dgrad(g2, w[2])
+    _close(dattn, fmsa.msa_dgrad_plain(g2, w[2]), TOL_MSA)
+    groups = fmsa.msa_bwd_groups(q.shape[0], heads)
+    got = fmsa.msa_bwd_attn(dattn, q, k, v, p, heads, scale, groups)
+    want = fmsa.msa_bwd_attn_plain(dattn.cpu(), q.cpu(), k.cpu(), v.cpu(),
+                                   p.cpu(), heads, scale, groups)
+    _close(got[0], want[0].to(dev), TOL_MSA)
+    _close_scaled(got[1], want[1].to(dev), TOL_DX)
+    for g, wt in zip(got[2:], want[2:]):
+        _rel_frob(g, wt.to(dev), TOL_GRAD)
+    dqkv = got[1]
+    _close_scaled(fmsa.msa_dgrad(dqkv, w[0]), fmsa.msa_dgrad_plain(dqkv, w[0]),
+                  TOL_DX)
+    for a, b_ in ((dqkv, x2), (g2, got[0])):
+        sr = fm.wgrad_split_tiles(rows, a.shape[1], b_.shape[1]) * 64
+        part = fm.wgrad(a, b_, sr)
+        assert part.shape[0] == -(-rows // sr)
+        _rel_frob(fmsa.sum_partials(part), a.float().t() @ b_.float(), TOL_GRAD)
+
+
+def test_k6_kernel_at_bs16(dev):
+    """K6 (the save-mode forward, then K5's launches) at stage 1 with batch
+    16, where the saved probabilities pass the residual cap."""
+    rng = np.random.default_rng(47)
+    x, w, bias, mask, scale = _msa_args(rng, dev, 16, 120, 128, 4, True)
+    ln = (_bf16(rng, (128,), 0.2, dev) + 1.0, _bf16(rng, (128,), 0.2, dev))
+    gy = _bf16(rng, x.shape, 1.0, dev)
+    got = fused_window_msa_bwd_recompute(x, ln, *w, bias, mask, gy, 4, scale)
+    want = fused_window_msa_bwd_recompute_plain(x, ln, *w, bias, mask, gy, 4,
+                                                scale)
+    _close_grads(got, want)
+
+
+def _k9_case(dev, b, nw, heads, n, masked, seed):
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (_bf16(rng, (b, nw, heads, n, 32), 1.0, dev)
+                   for _ in range(4))
+    if n == 49:
+        table = torch.from_numpy(rng.standard_normal((13 * 13, heads))
+                                 .astype(np.float32)).to(dev)
+        bias = relative_bias_from_table(
+            table, torch.from_numpy(relative_position_index_2d(7, 7)).to(dev))
+        side = int(nw ** 0.5) * 7
+        mask = shift_mask_2d(side, side, 7, 3, dev) if masked else None
+    else:
+        bias, _ = _video_bias_mask(rng, dev, heads, n, nw, False)
+        side = int(nw ** 0.5) * 7
+        mask = (shift_mask_3d(8 if n == 392 else 4, side, side,
+                              (n // 49, 7, 7), (0, 3, 3), dev)
+                if masked else None)
+    o, lse = window_attention_save(q, k, v, bias, mask, 32 ** -0.5)
+    return q, k, v, bias, mask, do, o, lse
+
+
+@pytest.mark.parametrize("b,nw,heads,n,masked", K9_SHAPES)
+def test_k9_kernel_at_the_path_shapes(dev, b, nw, heads, n, masked):
+    """K9 at every video and window-7 shape of the main paths, on K10's
+    saved output and lse, the shift masks of those blocks with their window
+    flags; two calls give the same bits, and so does a call without the
+    flags (every window's mask read: the others' are zeros)."""
+    q, k, v, bias, mask, do, o, lse = _k9_case(dev, b, nw, heads, n, masked,
+                                               n + nw + heads)
+    scale, flags = 32 ** -0.5, mask_flags(mask)
+    got = attention_core_bwd(q, k, v, bias, mask, do, scale, o, lse, flags)
+    want = attention_core_bwd_plain(q, k, v, bias, mask, do, scale, o)
+    for g, w in zip(got[:3], want[:3]):
+        _close_scaled(g, w, TOL_DX)
+    _rel_frob(got[3], want[3], TOL_GRAD)
+    again = attention_core_bwd(q, k, v, bias, mask, do, scale, o, lse, flags)
+    unflagged = attention_core_bwd(q, k, v, bias, mask, do, scale, o, lse)
+    for g, a, u in zip(got, again, unflagged):
+        assert torch.equal(g, a) and torch.equal(g, u)
+
+
+@pytest.mark.parametrize("n", [392, 49])
+def test_k9_launches_against_their_plain_versions(dev, n):
+    """K9's two launches alone against their plain counterparts, with the
+    window flags the blocks build beside their shift masks."""
+    from lavt_rs_tpu_torch.ops import window_attn as wa
+    from lavt_rs_tpu_torch.ops.window import (shift_mask_flags_2d,
+                                              shift_mask_flags_3d)
+
+    b, nw, heads = (1, 81, 6) if n == 392 else (8, 81, 8)
+    q, k, v, bias, mask, do, o, lse = _k9_case(dev, b, nw, heads, n, True, 5)
+    scale = 32 ** -0.5
+    flags = (shift_mask_flags_3d(8, 63, 63, (8, 7, 7), (0, 3, 3), dev)
+             if n == 392 else shift_mask_flags_2d(63, 63, 7, 3, dev))
+    assert torch.equal(flags, wa.mask_flags(mask))
+    plan = wa.k9_plan(b * nw, heads, n, 132)
+    dq, qs, dsum, part = wa.attention_bwd_q(q, k, v, bias, mask, do, scale,
+                                            o, lse, plan, flags)
+    cpu = [t.cpu() for t in (q, k, v, bias, mask, do)]
+    dq_p, qs_p, dsum_p, part_p = wa.attention_bwd_q_plain(
+        *cpu, scale, o.cpu(), lse.cpu(), plan)
+    _close_scaled(dq, dq_p.to(dev), TOL_DX)
+    assert torch.equal(qs.cpu(), qs_p)  # one rounding of q scale
+    _close_scaled(dsum, dsum_p.to(dev), 1e-3)
+    _rel_frob(part, part_p.to(dev), TOL_GRAD)
+    dk, dv = wa.attention_bwd_kv(qs, k, v, bias, mask, do, lse, dsum, plan,
+                                 flags)
+    dk_p, dv_p = wa.attention_bwd_kv_plain(qs.cpu(), *cpu[1:], lse.cpu(),
+                                           dsum.cpu())
+    _close_scaled(dk, dk_p.to(dev), TOL_DX)
+    _close_scaled(dv, dv_p.to(dev), TOL_DX)
+
+
+def _k5_k9_profiles():
+    """One K5, one K9 and one K6 call under torch.profiler: {"k5": names,
+    "k9": ..., "k6": ...}."""
+    dev = torch.device("cuda:0")
+    x, gy, w, saved, heads, scale = _k5_case(dev, 8, 36, 512, 16, 53)
+    q, k, v, bias, mask, do, o, lse = _k9_case(dev, 1, 81, 6, 392, True, 7)
+    flags = mask_flags(mask)
+    zeros = torch.zeros((heads, 144, 144), device=dev)
+    return {
+        "k5": _profiled([lambda: fused_window_msa_bwd(x, gy, w[0], w[2], saved,
+                                                      heads, scale)]),
+        "k9": _profiled([lambda: attention_core_bwd(
+            q, k, v, bias, mask, do, 32 ** -0.5, o, lse, flags)]),
+        "k6": _profiled([lambda: fused_window_msa_bwd_recompute(
+            x, None, *w, zeros, None, gy, heads, scale)])}
+
+
+def test_k5_and_k9_launch_only_the_ports_kernels(dev):
+    """K5 (and K6) and K9 launch only the port's kernels (namespace lavt::),
+    no cuBLAS / cuDNN / SDPA kernel (profiled in a fresh process): K5 as
+    two GEMM-core dgrads, its attention, two weight-grad GEMMs, the column
+    sums and the partial sums; K9 as its two launches and the dbias sum."""
+    profiles = _in_fresh_process("_k5_k9_profiles")
+    k5, k9, k6 = profiles["k5"], profiles["k9"], profiles["k6"]
+    assert all("lavt::" in n for n in k5), sorted(k5)
+    assert sum(c for n, c in k5.items() if "gemm_kernel" in n) == 4, k5
+    assert sum(c for n, c in k5.items() if "msa_bwd_sm90_kernel" in n) == 1
+    assert all("lavt::" in n for n in k9), sorted(k9)
+    assert sum(c for n, c in k9.items() if "attn_bwd_q_kernel" in n) == 1
+    assert sum(c for n, c in k9.items() if "attn_bwd_kv_kernel" in n) == 1
+    assert k6 and all("lavt::" in n for n in k6), sorted(k6)
+
+
+@pytest.mark.parametrize("n", [17, 63, 130, 400])
+def test_k9_kernel_at_ragged_n(dev, n):
+    """K9 off the path shapes: N not a multiple of 16 or 64 (one key tile
+    and several; 130: bias rows padded for TMA) and N = 400, under a
+    random mask, on K10's saved output and lse.  (At N = 1 the softmax is
+    1 and dq, dk are rounding noise: nothing to compare.)"""
+    rng = np.random.default_rng(n + 61)
+    b, nw, heads = 2, 3, 5
+    q, k, v, do = (_bf16(rng, (b, nw, heads, n, 32), 1.0, dev)
+                   for _ in range(4))
+    bias = torch.from_numpy(rng.standard_normal((heads, n, n))
+                            .astype(np.float32)).to(dev)
+    mask = torch.from_numpy(np.where(rng.random((nw, n, n)) > 0.7, -100.0,
+                                     0.0).astype(np.float32)).to(dev)
+    mask[1] = 0.0  # a window whose flag is 0
+    scale = 32 ** -0.5
+    o, lse = window_attention_save(q, k, v, bias, mask, scale)
+    got = attention_core_bwd(q, k, v, bias, mask, do, scale, o, lse)
+    want = attention_core_bwd_plain(q, k, v, bias, mask, do, scale, o)
+    for g, w in zip(got[:3], want[:3]):
+        _close_scaled(g, w, TOL_DX)
+    _rel_frob(got[3], want[3], TOL_GRAD)

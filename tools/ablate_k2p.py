@@ -142,7 +142,7 @@ def main() -> int:
 
     def proj():
         return fused_msa.gemm(o, wproj, nw * n_p, c, c, False, True,
-                              torch.bfloat16, bias=bproj)
+                              bias=bproj)
 
     def events_ms(fn):
         for _ in range(3):

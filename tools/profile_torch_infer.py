@@ -28,12 +28,12 @@ HAND_WRITTEN = (
     "window_attn_sm90_kernel",     # K10 and its save mode, K2p's attention
     "attn_bwd_q_kernel",           # K9
     "attn_bwd_kv_kernel",          # K9
-    "msa_bwd_attn_kernel",         # K5 / K6
+    "msa_bwd_sm90_kernel",         # K5 / K6: the attention launch
     "mlp_ln_rows_kernel",          # K3 / K8: LN rows
     "mlp_bwd_prep_kernel",         # K7
     "ln_bwd_rows_kernel",          # K7
     "gemm_bf16_kernel",            # the WMMA GEMM of the MSA routes
-    "gemm_kernel",                 # the wgmma + TMA GEMM core (K3, K8, K7, K2p)
+    "gemm_kernel",                 # the wgmma + TMA GEMM core (K3, K8, K7, K2p, K5)
     "layer_norm_wide_rows_kernel",  # K4 at C > 1024
     "layer_norm_rows_kernel",      # K4
     "sum_partials_kernel",

@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
-"""Where the PyTorch port's lavt_one training step spends its time, on one
-NVIDIA GPU.
+"""Where the PyTorch port's lavt_one (or lavt_video) training step spends
+its time, on one NVIDIA GPU.
 
     python3 tools/profile_torch_train.py [--batch 8] [--steps 3] [--trace T]
+    python3 tools/profile_torch_train.py --video [--steps 3]
 
 Builds lavt_one Swin-B / window 12 / 480² for training (f32 parameters,
 bf16 compute, AdamW, DropPath 0.3, dropout 0.1) from chip_smoke.py's
-seeded `main_path_model` weights and a synthetic batch (`train_batch`),
-takes two warm-up steps, then prints:
+seeded `main_path_model` weights and a synthetic batch (`train_batch`);
+with --video, lavt_video_tiny (DropPath 0.1, BERT dropout 0.1) with
+seeded random weights on one synthetic 8-frame 480² clip
+(`video_train_batch`).  Takes two warm-up steps, then prints:
   * the step time with CUDA events over `--steps` steps;
   * a torch.profiler window over `--steps` steps: device time per step,
     the device's idle share of the wall time, the device time by category
@@ -32,6 +35,8 @@ def main():
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--trace", help="write the chrome trace here")
+    ap.add_argument("--video", action="store_true",
+                    help="the lavt_video step on one clip (no --batch)")
     args = ap.parse_args()
 
     import torch
@@ -45,16 +50,30 @@ def main():
 
     dev = torch.device("cuda:0")
     g = torch.Generator(device=dev).manual_seed(chip_smoke.SEED)
-    weights = chip_smoke.main_path_model(dev, g).state_dict()
-    step = chip_smoke.train_setup(dev, weights)
-    batch = chip_smoke.train_batch(dev, g, args.batch)
+    if args.video:
+        from lavt_rs_tpu_torch.config import lavt_video_tiny
+        from lavt_rs_tpu_torch.models.factory import build_model
+        from lavt_rs_tpu_torch.train.optim import TrainConfig
+        from lavt_rs_tpu_torch.train.step import (create_train_state,
+                                                  make_video_train_step)
+
+        model = build_model(lavt_video_tiny(), dev, generator=g, train=True)
+        tcfg = TrainConfig()
+        step = make_video_train_step(model, *create_train_state(model, tcfg),
+                                     tcfg)
+        batch = chip_smoke.video_train_batch(dev, g)
+    else:
+        weights = chip_smoke.main_path_model(dev, g).state_dict()
+        step = chip_smoke.train_setup(dev, weights)
+        batch = chip_smoke.train_batch(dev, g, args.batch)
     gen = torch.Generator(device=dev)
     run = lambda: step(batch, gen)
     for _ in range(2):
         run()
     torch.cuda.synchronize()
-    print(f"train step: {cuda_ms(run, args.steps):.3f} ms (bs {args.batch}, "
-          f"mean of {args.steps})", flush=True)
+    what = "one clip" if args.video else f"bs {args.batch}"
+    print(f"train step: {cuda_ms(run, args.steps):.3f} ms ({what}, mean of "
+          f"{args.steps})", flush=True)
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
