@@ -15,6 +15,15 @@
      * training: K1/K2 in save mode, K5 (MSA backward from the saved
        residuals), K6 (MSA backward, recomputing), K7 (LN-MLP backward,
        with and without the DropPath keep), K8 (LN-MLP with DropPath).
+   K2, the save mode and K6's forward run the launches of
+   `fused_msa.save_launches` (K4's LN rows for K1, the qkv projection and
+   the out-projection on the GEMM core, csrc/fused_msa_sm90.cu's
+   attention between them); at the end of the run (9.) each of those
+   launches is timed on the device at every stage, and a stage-1 save
+   mode, K2 and K6 call run under torch.profiler (only the port's
+   kernels).  K1 and K2 are timed beside both library chains (the matmul
+   chain and linear / SDPA / linear; the faster is their yardstick); the
+   save mode's yardstick is the matmul chain (SDPA returns no P).
    Then the kernel, the plain version and the library chain (a bf16
    PyTorch chain of the same math: bf16 F.linear / matmul / F.layer_norm
    for a forward, autograd backward through that chain for a backward)
@@ -103,6 +112,10 @@
        and the loss must fall;
      * one step at batch 16, where stage 1's saved probabilities pass the
        192 MiB cap and its blocks take K6;
+     * one bs-8 step with --use_checkpoint (every 2D block recomputed:
+       the save mode and K8/K3 twice per block), its launch counts equal
+       to the model's `kernel_plan`, its peak device memory below the
+       unflagged step's;
      * first, the gate: one forward + backward of the kernel route (bf16)
        and of the plain route (`use_kernels=False`, f32 math, TF32 off)
        from the same weights, batch and generator seed with every dropout
@@ -218,7 +231,7 @@ REPLACES = {
 }
 SOURCES = {
     "K1": "lavt_rs_tpu_torch/csrc/fused_msa.cu",
-    "K2": "lavt_rs_tpu_torch/csrc/fused_msa.cu",
+    "K2": "lavt_rs_tpu_torch/csrc/fused_msa_sm90.cu",
     "K3": "lavt_rs_tpu_torch/csrc/fused_mlp.cu",
     "K4": "lavt_rs_tpu_torch/csrc/ln.cu",
     "K5": "lavt_rs_tpu_torch/csrc/fused_msa_bwd_sm90.cu",
@@ -255,6 +268,9 @@ EVAL_WORDS = ("the", "a", "man", "woman", "dog", "cat", "left", "right",
 TRAIN_PER_STEP = {"K1": 4, "K2": 20, "K3": 1, "K4": 4, "K5": 24, "K6": 0,
                   "K7": 24, "K8": 23}
 BIG_PER_STEP = dict(TRAIN_PER_STEP, K5=22, K6=2)
+# ... with --use_checkpoint: every block's recompute runs its forward
+# kernels again (the save mode, counted as K1 / K2, and K8 or K3)
+TRAIN_CKPT_PER_STEP = dict(TRAIN_PER_STEP, K1=8, K2=40, K3=2, K8=46)
 # video Swin-T on an 8-frame 480² clip: (tokens per side, C, heads, blocks)
 VIDEO_STAGES = ((120, 96, 3, 2), (60, 192, 6, 2), (30, 384, 12, 6),
                 (15, 768, 24, 2))
@@ -751,6 +767,59 @@ def k5_profiler_checks(what, nw, c, heads, sc, port_only, x, gy, wqkv, wproj,
         only_port_kernels(f"K5 {what}", [k5])
 
 
+def save_launch_work(b, nw, c, heads, ln, masked):
+    """(operations, bytes) of each launch of the save mode at (B, nW, 144,
+    C): each input read once and each output written once."""
+    n, rows, m = 144, b * nw * 144, b * nw
+    act = rows * c * 2
+    att = 4 * m * heads * n * n * 32
+    att_bytes = (4 * act + heads * n * n * 4 + masked * n * n * 4
+                 + m * heads * n * n * 2)
+    work = {"qkv": (6 * rows * c * c, 4 * act + (3 * c * c + 3 * c) * 2),
+            "attention": (att, att_bytes),
+            "out-projection": (2 * rows * c * c, 2 * act + (c * c + c) * 2)}
+    if ln:
+        work["LN rows"] = ln_work(rows, c)
+    return work
+
+
+def save_profiler_checks(what, heads, sc, port_only, x, ln_s, ln_b, wqkv,
+                         bqkv, wproj, bproj, bias, mask, flags):
+    """The save mode's launches (and, at the padded stages, K2's), each
+    kernel's device ms per call (torch.profiler) beside each launch's
+    bound; with port_only, a save-mode, a K2 and a K6 call under
+    torch.profiler: only the port's kernels."""
+    from lavt_rs_tpu_torch.ops import fused_msa
+
+    lnp = None if ln_s is None else (ln_s, ln_b)
+    w = (wqkv, bqkv, wproj, bproj, bias, mask, heads, sc)
+
+    def save():
+        return fused_msa.fused_window_msa_save(x, lnp, *w, flags=flags)
+
+    def k2():
+        return fused_msa.fused_window_msa(x, *w, flags=flags)
+
+    b, nw, _, c = x.shape
+    work = save_launch_work(b, nw, c, heads, lnp is not None,
+                            int(flags.sum()))
+    bounds = "; ".join(f"{k} {bound_ms(v)[0]:.4f} {bound_ms(v)[1]}"
+                       for k, v in work.items())
+    for label, fn in (("save mode", save),) + (
+            (("K2 (no saves)", k2),) if lnp is None else ()):
+        by = device_ms_by_kernel(fn)
+        parts = "not measured" if by is None else "; ".join(
+            f"{short_kernel(k)} {v:.4f}" for k, v in
+            sorted(by.items(), key=lambda kv: -kv[1]))
+        log(f"{label} launches {what} x{tuple(x.shape)}, device ms per call: "
+            f"{parts} (bounds: {bounds}); host {host_us(fn):.1f} us to "
+            "enqueue a call")
+    if port_only:
+        only_port_kernels(f"save mode / K2 / K6 {what}", [
+            save, k2, lambda: fused_msa.fused_window_msa_bwd_recompute(
+                x, lnp, *w[:6], x, heads, sc, flags=flags)])
+
+
 def k9_profiler_checks(what, b, nw, heads, n, masked, sc, port_only, q, k, v,
                        bias, mask, do, o, lse):
     """K9's launch line and (port_only) its only-port-kernels check, with
@@ -867,6 +936,21 @@ def msa_bwd_yardstick(what, chain_in, gy, mask, heads, scale, forward=False):
     return fns[best], best
 
 
+def msa_fwd_yardstick(what, x, tail, lnp):
+    """K1's / K2's library call: the faster, in this run, of the matmul
+    chain (`torch_bf16_msa`) and the linear / 4-D SDPA / linear chain
+    (`torch_bf16_msa_sdpa`); logs both times and returns (the faster
+    closure, its name)."""
+    fns = {"matmul chain": lambda: torch_bf16_msa(x, *tail, ln=lnp),
+           "SDPA chain": lambda: torch_bf16_msa_sdpa(x, *tail, ln=lnp)}
+    times = {name: cuda_time_ms(fn) for name, fn in fns.items()}
+    best = min(times, key=times.get)
+    log(f"{what} library yardsticks: "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items())
+        + f"; the faster: {best}")
+    return fns[best], best
+
+
 def chain_grad(fn, inputs, gy, forward=False):
     """A closure timing autograd backward through a bf16 chain (the library
     yardstick of a backward kernel); with forward, the forward too."""
@@ -887,7 +971,7 @@ class Results:
 
     def __init__(self):
         self.r = {}
-        for k in NAMES + ("save", "K10s"):
+        for k in NAMES + ("save", "K2s", "K10s"):
             self.entry(k)
 
     def entry(self, name):
@@ -909,11 +993,13 @@ class Results:
         return "operations" if r["ops"] >= r["mem"] else "bytes"
 
 
-def measure(res, name, what, calls, fk, fp, fb, work, check, queued=False):
+def measure(res, name, what, calls, fk, fp, fb, work, check, queued=False,
+            also=()):
     """Check fk against fp, then time fk, fp and fb (CUDA events around a
     loop of calls; with `queued`, the calls queued behind a device sleep,
     so that a call shorter than the host's time to enqueue it is timed on
-    the device: `queued_ms`) and add them to `res`."""
+    the device: `queued_ms`) and add them to `res` under name and the
+    names in `also`."""
     want = fp()
     got = fk()
     out = check(name, got, want)
@@ -928,7 +1014,8 @@ def measure(res, name, what, calls, fk, fp, fb, work, check, queued=False):
         tp = cuda_time_ms(fp, iters=3, warmup=1)
         tb = cuda_time_ms(fb)
         how = ""
-    res.add(name, calls, err, tk, tp, tb, work)
+    for key in (name,) + tuple(also):
+        res.add(key, calls, err, tk, tp, tb, work)
     b, by = bound_ms(work)
     frob = "" if extra is None else f", worst grad rel Frobenius {extra:.3g}"
     log(f"{name} {what}: max abs err {err:.3g}{frob}; kernel {tk:.4f} "
@@ -946,7 +1033,8 @@ def kernel_phases(dev):
     from lavt_rs_tpu_torch.ops import fused_mlp, fused_msa, ln
     from lavt_rs_tpu_torch.ops.window import (relative_bias_from_table,
                                               relative_position_index_2d,
-                                              shift_mask_2d)
+                                              shift_mask_2d,
+                                              shift_mask_flags_2d)
 
     g = torch.Generator(device=dev).manual_seed(SEED)
 
@@ -1015,28 +1103,38 @@ def kernel_phases(dev):
         sc = (c // heads) ** -0.5
         for shift in (False, True):
             mask = shift_mask_2d(hp, hp, 12, 6, dev) if shift else None
+            flags = shift_mask_flags_2d(hp, hp, 12, 6, dev) if shift else None
             tail = (*w, bias, mask, heads, sc)
             if name == "K1":
                 fk = lambda: fused_msa.fused_window_msa_ln(xw, *lnp, *tail)
                 fp = lambda: fused_msa.fused_window_msa_ln_plain(xw, *lnp, *tail)
             else:
-                fk = lambda: fused_msa.fused_window_msa(xw, *tail)
+                fk = lambda: fused_msa.fused_window_msa(xw, *tail, flags=flags)
                 fp = lambda: fused_msa.fused_window_msa_plain(xw, *tail)
-            measure(res, name, f"{st} x{tuple(xw.shape)} heads {heads} mask "
-                    f"{shift}", depth // 2, fk, fp,
-                    lambda: torch_bf16_msa(xw, *tail, ln=lnp),
+            what = f"{st} x{tuple(xw.shape)} heads {heads} mask {shift}"
+            lib, lib_name = msa_fwd_yardstick(f"{name} {what}", xw, tail, lnp)
+            res.entry(name).setdefault("lib_by", []).append(lib_name)
+            measure(res, name, what, depth // 2, fk, fp, lib,
                     msa_work(BATCH, nw, c, heads, "fwd", mask=shift), compare)
-        # training: save mode, K5 on the kernel's residuals, K6 (shift mask)
+        # training: save mode, K5 on the kernel's residuals, K6 (shift mask);
+        # the save mode's yardstick is the matmul chain (SDPA returns no P),
+        # the SDPA chain's time is logged beside it
         mask = shift_mask_2d(hp, hp, 12, 6, dev)
+        flags = shift_mask_flags_2d(hp, hp, 12, 6, dev)
         tail = (*w, bias, mask, heads, sc)
+        msa_fwd_yardstick(f"{name} save mode {st}", xw, tail, lnp)
         measure(
             res, "save", f"{name} save mode {st} x{tuple(xw.shape)}", depth,
-            lambda: fused_msa.fused_window_msa_save(xw, lnp, *tail),
+            lambda: fused_msa.fused_window_msa_save(xw, lnp, *tail,
+                                                    flags=flags),
             lambda: fused_msa.fused_window_msa_save_plain(xw, lnp, *tail),
             lambda: torch_bf16_msa(xw, *tail, ln=lnp),
             msa_work(BATCH, nw, c, heads, "save", ln=lnp is not None),
-            lambda _n, got, want: compare_saved(name, got, want))
-        y, saved = fused_msa.fused_window_msa_save(xw, lnp, *tail)
+            lambda _n, got, want: compare_saved(name, got, want),
+            also=("K2s",) if name == "K2" else ())
+        defer(functools.partial(save_profiler_checks, st, heads, sc, si == 0),
+              xw, *(lnp or (None, None)), *w, bias, mask, flags)
+        y, saved = fused_msa.fused_window_msa_save(xw, lnp, *tail, flags=flags)
         xin = xw if lnp is None else saved[4].view(xw.shape)
         res_k5 = saved[:4]
         gy = rnd(xw.shape)
@@ -1069,7 +1167,7 @@ def kernel_phases(dev):
                 forward=True)
             measure(res, "K6", what, calls,
                     lambda: fused_msa.fused_window_msa_bwd_recompute(
-                        xk, lnp, *tail[:6], gk, heads, sc),
+                        xk, lnp, *tail[:6], gk, heads, sc, flags=flags),
                     lambda: fused_msa.fused_window_msa_bwd_recompute_plain(
                         xk, lnp, *tail[:6], gk, heads, sc),
                     lib,
@@ -1606,6 +1704,50 @@ def training(dev, card, weights, cfg=None, per_step=None, what="train"):
         raise RuntimeError("non-finite loss at batch 16")
     check_counts("train bs 16", big_launches, BIG_PER_STEP, 1)
     return launches, big_launches
+
+
+def checkpoint_training(dev, card, weights):
+    """--use_checkpoint on the window-12 bs-8 step: one step after a
+    warm-up one with the flag and without, each model alone on the card;
+    the flagged step's launches must equal TRAIN_CKPT_PER_STEP (the
+    model's `kernel_plan`, checked in main) and its peak device memory
+    lie below the unflagged step's."""
+    import gc
+
+    import torch
+
+    from lavt_rs_tpu_torch.config import lavt_one_base
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    batch = train_batch(dev, g, BATCH)
+
+    def one_step(cfg):
+        step = train_setup(dev, weights, cfg)
+        step(batch, torch.Generator(device=dev).manual_seed(SEED + 3))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        out = step(batch, torch.Generator(device=dev).manual_seed(SEED + 3))
+        torch.cuda.synchronize()
+        peak, launches = torch.cuda.max_memory_allocated(), read_counts()
+        del step
+        gc.collect()
+        torch.cuda.empty_cache()
+        return peak, launches, out["loss"].item()
+
+    off, _, loss_off = one_step(lavt_one_base())
+    on, launches, loss_on = one_step(lavt_one_base().replace(
+        use_checkpoint=True))
+    log(f"train step bs {BATCH} with --use_checkpoint: launches {launches}, "
+        f"loss {loss_on:.6f} (unflagged {loss_off:.6f}); peak device memory "
+        f"{on / 2**30:.3f} GiB against {off / 2**30:.3f} GiB without it  "
+        f"[{card}]")
+    check_counts("train --use_checkpoint", launches, TRAIN_CKPT_PER_STEP, 1)
+    if not math.isfinite(loss_on):
+        raise RuntimeError("non-finite loss with --use_checkpoint")
+    if not on < off:
+        raise RuntimeError("--use_checkpoint did not lower the training "
+                           "step's peak memory")
 
 
 def gate_run(dev, cfg, weights, bn_batch_stats, batch, seed):
@@ -2965,8 +3107,10 @@ def k10_p2_only_port_kernels(dev):
 
 # kernels whose ptxas -v line chip_smoke prints: K2p's (the GEMM core's
 # two EpiBias instances and K10's kernel) and P1/P2's
-PTXAS_KERNELS = {"EpiBiasILb1E": "K2p qkv GEMM (GEMM core)",
-                 "EpiBiasILb0E": "K2p out-projection GEMM (GEMM core)",
+PTXAS_KERNELS = {"EpiBiasILb1E": "K2p / K2 / save-mode qkv GEMM (GEMM core)",
+                 "EpiBiasILb0E": "K2p / K2 / save-mode out-projection GEMM (GEMM core)",
+                 "msa_fwd_sm90_kernelILb0E": "K2 attention",
+                 "msa_fwd_sm90_kernelILb1E": "save-mode attention",
                  "window_attn_sm90_kernelILb0ELb0E": "K10 / K2p attention",
                  "probe_kernelILi9ELb1E": "P1 (n = 144)",
                  "probe_kernelILi9ELb0E": "P2 (n = 144)",
@@ -3050,6 +3194,11 @@ def main():
             f"{r['ms']:.3f} ms, bound {r['bound']:.3f} ms ({res.bound_by(k)}), "
             f"plain (f32 math) {r['plain']:.3f} ms, library chain "
             f"{r['lib']:.3f} ms{won}")
+    r = res.r["K2s"]
+    log(f"K2 as the main path launches it (the save mode at stages 3-4) per "
+        f"train step: kernel {r['ms']:.3f} ms, bound {r['bound']:.3f} ms "
+        f"({res.bound_by('K2s')}), plain (f32 math) {r['plain']:.3f} ms, "
+        f"library (matmul) chain {r['lib']:.3f} ms")
     k11_kernel_phase(dev, res)
     r = res.r["K11"]
     log(f"K11 per forward (stages 3-4): kernel {r['ms']:.3f} ms, bound "
@@ -3104,6 +3253,7 @@ def main():
     torch.cuda.empty_cache()
     log(f"gate done at {time.perf_counter() - t_start:.1f} s")
     train_launches, big_launches = training(dev, card, weights)
+    checkpoint_training(dev, card, weights)
     del weights
     torch.cuda.empty_cache()
     log(f"training done at {time.perf_counter() - t_start:.1f} s")
@@ -3123,6 +3273,9 @@ def main():
              nonzero(TRAIN_PER_STEP)),
             ("window 12 bs-16 step",
              kernel_plan(cfg, 480, BATCH_BIG, True)[0], BIG_PER_STEP),
+            ("window 12 step, --use_checkpoint",
+             kernel_plan(cfg.replace(use_checkpoint=True), 480, BATCH,
+                         True)[0], nonzero(TRAIN_CKPT_PER_STEP)),
             ("window 7 forward", kernel_plan(w7cfg, 480, BATCH)[0],
              W7_INFER_PER_FORWARD),
             ("window 7 step", kernel_plan(w7cfg, 480, BATCH, True)[0],
@@ -3192,12 +3345,14 @@ def main():
     REPLACES.update({"K10/w7": REPLACES["K10"], "K9/w7": REPLACES["K9"]})
     kernels = []
     for k in NAMES + ("K10/w7", "K9/w7"):
-        r = res.r[k]
+        # K2's launches on the main path are the save mode's at stages 3-4
+        r = res.r["K2s" if k == "K2" else k]
         kernels.append({"name": k, "route": "cuda", "source": SOURCES[k],
                         "replaces": REPLACES[k], "launches": launches[k],
                         "max_abs_err": r["err"], "ms": r["ms"],
                         "plain_ms": r["plain"], "bound_ms": r["bound"],
-                        "bound_by": res.bound_by(k), "library_ms": r["lib"]})
+                        "bound_by": res.bound_by("K2s" if k == "K2" else k),
+                        "library_ms": r["lib"]})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,11 @@
-// K1/K2/K11: fused window multi-head self-attention (W-MSA / SW-MSA).
+// K1/K11: fused window multi-head self-attention (W-MSA / SW-MSA), the
+// forward without saves.
 //
 // Replaces lavt_rs_tpu/ops/pallas/fused_msa.py:_fwd_call/_kernel, reached
 // from fused_window_msa_ln (K1, pre-attention LayerNorm fused in: the
-// unpadded stages) and fused_window_msa (K2, no LayerNorm: the padded
-// stages in training; at inference they take K11, below).  Per window of N = 144 tokens and per head (hd = 32):
+// unpadded stages at inference; K2 and both variants' save mode run on
+// csrc/fused_msa_sm90.cu) and, at the padded stages' inference, K11
+// (below).  Per window of N = 144 tokens and per head (hd = 32):
 //   [LN: f32 stats, fast variance E[x^2]-E[x]^2, eps inside rsqrt]
 //   q = (x Wq^T + bq) * scale, k = x Wk^T + bk, v = x Wv^T + bv   (bf16)
 //   P = softmax(q k^T + relbias[h] + mask[window mod nW])          (f32 -> bf16)
@@ -40,18 +42,11 @@
 // address arithmetic.  A window (b, wy, wx) is 12 runs of 12 C contiguous
 // bf16 (token 12 i + j at ((b Hp + 12 wy + i) Wp + 12 wx + j) C), so the
 // 16-byte loads stay aligned for C a multiple of 8.  The layout is a
-// template parameter: the window-order path (K1/K2) compiles to the same
+// template parameter: the window-order path (K1) compiles to the same
 // code as before.  The out-projection is per token, so the GEMM that
 // follows runs on O viewed as (B Hp Wp, C) and writes the map directly.
 // The shift mask is indexed by the window's place in the image,
 // wy (Wp/12) + wx, which is window mod nW in both layouts.
-//
-// Save mode (training): with q_out non-null the kernel also writes the
-// training residuals that the backward (fused_msa_bwd.cu, K5) consumes, as
-// the TPU kernel's save=True does: q (post-scale), k and v in bf16 as
-// (B nW, N, C) with lanes in head order, the bf16 probabilities P the
-// output was made from as (B nW, heads, N, N), and, with LN on, the bf16
-// normalized tokens xn (written by the head-0 block of each window).
 
 #include "common.cuh"
 
@@ -86,19 +81,16 @@ static_assert(MSA_SMEM <= 113 * 1024, "two blocks per SM");
 constexpr int kQkvTiles = (kN / 16) * (3 * kHD / 16);  // 54
 constexpr int kQkvPerWarp = (kQkvTiles + kWarps - 1) / kWarps;
 
-// kMap false: x and o are (B nW, N, C) windowed tokens (K1/K2).  kMap
+// kMap false: x and o are (B nW, N, C) windowed tokens (K1).  kMap
 // true: x and o are (B, Hp, Wp, C) maps with nWw = Wp / 12 windows per row
-// and nW / nWw per column (K11; no LN, no save mode).
+// and nW / nWw per column (K11; no LN).
 template <bool kMap>
 __global__ void __launch_bounds__(kThreads, 2)
 window_msa_attn_kernel(const bf16* __restrict__ x, const bf16* __restrict__ ln_g,
                        const bf16* __restrict__ ln_b, const bf16* __restrict__ wqkv,
                        const bf16* __restrict__ bqkv, const float* __restrict__ relbias,
-                       const float* __restrict__ mask, bf16* __restrict__ o,
-                       bf16* __restrict__ q_out, bf16* __restrict__ k_out,
-                       bf16* __restrict__ v_out, bf16* __restrict__ p_out,
-                       bf16* __restrict__ xn_out, int nW, int nWw, int C, float scale,
-                       float eps) {
+                       const float* __restrict__ mask, bf16* __restrict__ o, int nW,
+                       int nWw, int C, float scale, float eps) {
   extern __shared__ __align__(128) unsigned char smem[];
   float* ss = reinterpret_cast<float*>(smem);
   bf16* xc = reinterpret_cast<bf16*>(smem);
@@ -176,9 +168,6 @@ window_msa_attn_kernel(const bf16* __restrict__ x, const bf16* __restrict__ ln_g
         }
       }
       *reinterpret_cast<uint4*>(xc + r * LDXC + c) = v.u;
-      if (xn_out != nullptr && h == 0)
-        *reinterpret_cast<uint4*>(xn_out + (static_cast<size_t>(win) * kN + r) * C + k0 + c) =
-            v.u;
     }
     for (int i = threadIdx.x; i < 3 * kHD * kc / 8; i += kThreads) {
       const int j = i / (kc / 8), c = (i % (kc / 8)) * 8;
@@ -224,15 +213,6 @@ window_msa_attn_kernel(const bf16* __restrict__ x, const bf16* __restrict__ ln_g
     else vs[r * LDQ + d] = to_bf(v);
   }
   __syncthreads();
-  if (q_out != nullptr) {  // save mode: the head's q/k/v columns
-    for (int i = threadIdx.x; i < 3 * kN * (kHD / 8); i += kThreads) {
-      const int t = i / (kN * (kHD / 8)), r = (i / (kHD / 8)) % kN, d = (i % (kHD / 8)) * 8;
-      const bf16* src = (t == 0 ? qs : t == 1 ? ks : vs) + r * LDQ + d;
-      bf16* dst = t == 0 ? q_out : t == 1 ? k_out : v_out;
-      *reinterpret_cast<uint4*>(dst + (static_cast<size_t>(win) * kN + r) * C + h * kHD + d) =
-          *reinterpret_cast<const uint4*>(src);
-    }
-  }
 
   // 3. scores S = q k^T (f32, shared memory)
   for (int t = warp; t < 81; t += kWarps) {
@@ -257,7 +237,6 @@ window_msa_attn_kernel(const bf16* __restrict__ x, const bf16* __restrict__ ln_g
   const float* bias_h = relbias + static_cast<size_t>(h) * kN * kN;
   const float* mask_w = mask ? mask + static_cast<size_t>(win % nW) * kN * kN : nullptr;
   bf16* ps = reinterpret_cast<bf16*>(ss);
-  bf16* p_win = p_out ? p_out + (static_cast<size_t>(win) * gridDim.y + h) * kN * kN : nullptr;
   for (int r = warp; r < kN; r += kWarps) {
     float v[5];
     float m = -3.0e38f;
@@ -285,9 +264,7 @@ window_msa_attn_kernel(const bf16* __restrict__ x, const bf16* __restrict__ ln_g
     for (int t = 0; t < 5; ++t) {
       const int j = lane + 32 * t;
       if (j < kN) {
-        const bf16 pb = to_bf(v[t] / sum);
-        ps[r * LDP + j] = pb;
-        if (p_win) p_win[r * kN + j] = pb;
+        ps[r * LDP + j] = to_bf(v[t] / sum);
       }
     }
   }
@@ -333,10 +310,9 @@ static cudaError_t prepare_msa_attn() {
 
 extern "C" int lavt_window_msa_attn(const void* x, const void* ln_g, const void* ln_b,
                                     const void* wqkv, const void* bqkv,
-                                    const void* relbias, const void* mask, void* o,
-                                    void* q_out, void* k_out, void* v_out, void* p_out,
-                                    void* xn_out, int Bw, int nW, int C, int heads,
-                                    float scale, float eps, void* stream) {
+                                    const void* relbias, const void* mask, void* o, int Bw,
+                                    int nW, int C, int heads, float scale, float eps,
+                                    void* stream) {
   using namespace lavt;
   cudaError_t err = prepare_msa_attn<false>();
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -345,9 +321,7 @@ extern "C" int lavt_window_msa_attn(const void* x, const void* ln_g, const void*
       static_cast<const bf16*>(x), static_cast<const bf16*>(ln_g),
       static_cast<const bf16*>(ln_b), static_cast<const bf16*>(wqkv),
       static_cast<const bf16*>(bqkv), static_cast<const float*>(relbias),
-      static_cast<const float*>(mask), static_cast<bf16*>(o), static_cast<bf16*>(q_out),
-      static_cast<bf16*>(k_out), static_cast<bf16*>(v_out), static_cast<bf16*>(p_out),
-      static_cast<bf16*>(xn_out), nW, 1, C, scale, eps);
+      static_cast<const float*>(mask), static_cast<bf16*>(o), nW, 1, C, scale, eps);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -366,7 +340,6 @@ extern "C" int lavt_window_msa_2d_attn(const void* x, const void* wqkv, const vo
                                  static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(x), nullptr, nullptr, static_cast<const bf16*>(wqkv),
       static_cast<const bf16*>(bqkv), static_cast<const float*>(relbias),
-      static_cast<const float*>(mask), static_cast<bf16*>(o), nullptr, nullptr, nullptr,
-      nullptr, nullptr, nW, nWw, C, scale, 0.f);
+      static_cast<const float*>(mask), static_cast<bf16*>(o), nW, nWw, C, scale, 0.f);
   return static_cast<int>(cudaGetLastError());
 }

@@ -354,24 +354,27 @@ inline cudaError_t map_p(CUtensorMap* map, const void* ptr, int count) {
 }  // namespace k5
 }  // namespace lavt
 
-// (b): q, k, v (B nW, 144, C) bf16 (q post-scale), P (B nW, heads, 144,
-// 144), dattn (B nW 144, C); writes o (B nW 144, C), dqkv (B nW 144, 3C),
-// dbias_part (groups, heads, 144, 144) and dbqkv_part (groups, 3C) f32.
-// Grid (groups, heads): block (g, h) takes windows g, g + groups, ...
+// (b): q, k, v (B nW, 144, C) bf16 (q post-scale) with rows ld elements
+// apart (C, or 3C for the column views of the save mode's qkv tensor),
+// P (B nW, heads, 144, 144), dattn (B nW 144, C); writes o (B nW 144, C),
+// dqkv (B nW 144, 3C), dbias_part (groups, heads, 144, 144) and dbqkv_part
+// (groups, 3C) f32.  Grid (groups, heads): block (g, h) takes windows g,
+// g + groups, ...
 extern "C" int lavt_msa_bwd_attn_sm90(const void* dattn, const void* q, const void* k,
                                       const void* v, const void* p, void* o, void* dqkv,
                                       void* dbias_part, void* dbqkv_part, int Bw, int C,
-                                      int heads, int groups, float scale, void* stream) {
+                                      int ld, int heads, int groups, float scale,
+                                      void* stream) {
   using namespace lavt;
   using namespace lavt::k5;
-  if (Bw < 1 || heads < 1 || C != heads * kHD || groups < 1 || groups > Bw)
+  if (Bw < 1 || heads < 1 || C != heads * kHD || ld < C || ld % 8 || groups < 1 || groups > Bw)
     return static_cast<int>(cudaErrorInvalidValue);
   Params pr;
-  const long long sw = static_cast<long long>(kN) * C;
-  cudaError_t err = map_qkv(&pr.q, q, Bw, heads, kN, sw, kHD, C);
-  if (err == cudaSuccess) err = map_qkv(&pr.k, k, Bw, heads, kN, sw, kHD, C);
-  if (err == cudaSuccess) err = map_qkv(&pr.v, v, Bw, heads, kN, sw, kHD, C);
-  if (err == cudaSuccess) err = map_qkv(&pr.dout, dattn, Bw, heads, kN, sw, kHD, C);
+  const long long sw = static_cast<long long>(kN) * ld, dw = static_cast<long long>(kN) * C;
+  cudaError_t err = map_qkv(&pr.q, q, Bw, heads, kN, sw, kHD, ld);
+  if (err == cudaSuccess) err = map_qkv(&pr.k, k, Bw, heads, kN, sw, kHD, ld);
+  if (err == cudaSuccess) err = map_qkv(&pr.v, v, Bw, heads, kN, sw, kHD, ld);
+  if (err == cudaSuccess) err = map_qkv(&pr.dout, dattn, Bw, heads, kN, dw, kHD, C);
   if (err == cudaSuccess) err = map_p(&pr.p, p, Bw * heads);
   if (err != cudaSuccess) return static_cast<int>(err);
   pr.o = static_cast<bf16*>(o);

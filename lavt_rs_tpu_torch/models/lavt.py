@@ -44,7 +44,8 @@ class LAVTOne(nn.Module):
         self.cfg = cfg
         self.text_encoder = BertEncoder(cfg.bert)
         self.backbone = MultiModalSwinTransformer(
-            cfg.swin, cfg.fusion, cfg.out_indices, cfg.use_kernels)
+            cfg.swin, cfg.fusion, cfg.out_indices, cfg.use_kernels,
+            cfg.use_checkpoint)
         self.classifier = SimpleDecoding(8 * cfg.swin.embed_dim,
                                          cfg.num_classes)
 

@@ -38,6 +38,10 @@ training step.
     the torch chain norm2 -> fc1 -> exact GELU -> fc2 -> residual.
   * The stage-output norms: K4 (`layer_norm_rows`) at C % 128 == 0 up to
     4096, else the plain f32 row LN.
+  * With `use_checkpoint` (training) each block runs under
+    `torch.utils.checkpoint` (the reference's per-block checkpoint, JAX
+    `nn.remat`): its forward kernels run again in the backward's
+    recompute.
 
 Training (the module in train mode, parameters in f32): the routed MSA and
 LN-MLP tail run through their autograd Functions (`FusedWindowMSA`: K1/K2
@@ -59,10 +63,11 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..config import FusionConfig, FusionKind, GateKind, StageOutput, SwinConfig
 from ..ops import attention, fused_mlp, fused_msa, fused_msa_2d, ln, window_attn
-from ..ops.dropout import drop_path, drop_path_keep
+from ..ops.dropout import drop_path_apply, drop_path_kept, drop_path_scale
 from ..ops.window import (relative_bias_from_table, relative_position_index_2d,
                           shift_mask_2d, shift_mask_flags_2d,
                           window_partition, window_reverse)
@@ -145,13 +150,15 @@ class WindowAttention(nn.Module):
         """x: (B, nW, N, C) windowed tokens (pre-LN when ln_params, the
         block's norm1 (weight, bias), is given: the fused route only);
         mask (nW, N, N) or None, with its window flags (the windows whose
-        mask K9 reads; `window.shift_mask_flags_2d`) or None."""
+        mask K2, the save mode and K9 read; `window.shift_mask_flags_2d`)
+        or None."""
         b, nw, n, c = x.shape
         route = self.route(nw, n, x.element_size())
         if route == "fused":
             args = self._args(x, mask)
             if self.use_kernels:
-                return fused_msa.window_msa(x, ln_params, *args)
+                return fused_msa.window_msa(x, ln_params, *args,
+                                            flags=flags)
             if ln_params is not None:
                 return fused_msa.fused_window_msa_ln_plain(x, *ln_params,
                                                            *args)
@@ -194,11 +201,13 @@ class SwinBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, window_size: int = 7,
                  shift_size: int = 0, mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, qk_scale: Optional[float] = None,
-                 use_kernels: bool = True, drop_path_rate: float = 0.0):
+                 use_kernels: bool = True, drop_path_rate: float = 0.0,
+                 use_checkpoint: bool = False):
         super().__init__()
         self.window_size, self.shift_size = window_size, shift_size
         self.use_kernels = use_kernels
         self.drop_path_rate = drop_path_rate
+        self.use_checkpoint = use_checkpoint  # its layer checkpoints it
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         self.attn = WindowAttention(dim, window_size, num_heads, qkv_bias,
                                     qk_scale, use_kernels)
@@ -215,30 +224,45 @@ class SwinBlock(nn.Module):
                 train: bool = False) -> List[str]:
         """The kernels one forward of this block launches on the card for
         `batch` h x w maps (train: one training step, forward and
-        backward), as `forward` routes it; none without use_kernels."""
+        backward, where a checkpointed block runs its forward kernels
+        again in the recompute), as `forward` routes it; none without
+        use_kernels."""
         if not self.use_kernels:
             return []
         pad_b, pad_r, nw = self._windows(hw)
         n, c, heads = self.window_size ** 2, self.attn.dim, self.attn.num_heads
         route = self.attn.route(nw, n, itemsize)
-        out = []
+        fwd, bwd = [], []
         if route == "fused":
-            out.append(("K2" if train else "K11") if pad_b or pad_r else "K1")
+            fwd.append(("K2" if train else "K11") if pad_b or pad_r else "K1")
             if train:
-                out.append("K5" if fused_msa.save_residuals_ok(
+                bwd.append("K5" if fused_msa.save_residuals_ok(
                     batch, nw, n, c, heads, itemsize) else "K6")
         elif route == "core":
-            out += ["K10", "K9"] if train else ["K10"]
+            fwd.append("K10")
+            bwd += ["K9"] if train else []
         if fused_mlp.fused_tail_routed(c):
-            out.append("K8" if train and self.drop_path_rate > 0 else "K3")
-            out += ["K7"] if train else []
-        return out
+            fwd.append("K8" if train and self.drop_path_rate > 0 else "K3")
+            bwd += ["K7"] if train else []
+        return fwd * (2 if train and self.use_checkpoint else 1) + bwd
+
+    def draw_kept(self, b: int, generator: Optional[torch.Generator],
+                  device) -> Tuple[Optional[torch.Tensor], ...]:
+        """The block's two DropPath draws, attention branch first, then the
+        tail's (K8's keep where the tail is fused); None for each where
+        nothing is drawn."""
+        return tuple(drop_path_kept(b, self.drop_path_rate, self.training,
+                                    generator, device) for _ in range(2))
 
     def forward(self, x, hw: Tuple[int, int],
-                generator: Optional[torch.Generator] = None):
-        """x: (B, H*W, C); the generator draws DropPath in training."""
+                generator: Optional[torch.Generator] = None,
+                kept: Optional[Tuple[Optional[torch.Tensor], ...]] = None):
+        """x: (B, H*W, C); the generator draws DropPath in training, unless
+        the draws are given (`kept`, from `draw_kept`)."""
         h, w = hw
         b, l, c = x.shape
+        if kept is None:
+            kept = self.draw_kept(b, generator, x.device)
         ws, ss = self.window_size, self.shift_size
         shortcut = x
         pad_b, pad_r, nw = self._windows(hw)
@@ -268,16 +292,13 @@ class SwinBlock(nn.Module):
         if padded:
             x = x[:, :h, :w, :]
         rate = self.drop_path_rate
-        x = shortcut + drop_path(x.reshape(b, l, c), rate, self.training,
-                                 generator)
+        x = shortcut + drop_path_apply(x.reshape(b, l, c), kept[0], rate)
         if not fused_mlp.fused_tail_routed(c):
-            return x + drop_path(self.mlp(self.norm2(x)), rate, self.training,
-                                 generator)
+            return x + drop_path_apply(self.mlp(self.norm2(x)), kept[1], rate)
 
         params = (self.norm2.weight, self.norm2.bias, self.mlp.fc1.weight,
                   self.mlp.fc1.bias, self.mlp.fc2.weight, self.mlp.fc2.bias)
-        keep = (drop_path_keep(b, rate, generator, x.device)
-                if self.training and rate > 0 else None)
+        keep = drop_path_scale(kept[1], rate)
         x2 = x.reshape(b * l, c)
         if self.use_kernels:
             y = fused_mlp.ln_mlp(x2, *params, keep, l)
@@ -353,13 +374,16 @@ class StageNorm(nn.LayerNorm):
 
 
 class MMBasicLayer(nn.Module):
-    """One multimodal stage: Swin blocks -> PWAM -> LG residual -> merge."""
+    """One multimodal stage: Swin blocks -> PWAM -> LG residual -> merge.
+    With `use_checkpoint` each block is checkpointed in training; the
+    language gate is applied either way (as in the JAX layer)."""
 
     def __init__(self, dim: int, depth: int, num_heads: int, window_size: int,
                  mlp_ratio: float, qkv_bias: bool, qk_scale: Optional[float],
                  has_downsample: bool, fusion: FusionConfig, fusion_heads: int,
                  use_kernels: bool = True,
-                 drop_path_rates: Optional[Tuple[float, ...]] = None):
+                 drop_path_rates: Optional[Tuple[float, ...]] = None,
+                 use_checkpoint: bool = False):
         super().__init__()
         if fusion.kind != FusionKind.PWAM:
             raise NotImplementedError(
@@ -370,8 +394,10 @@ class MMBasicLayer(nn.Module):
         self.blocks = nn.ModuleList(
             SwinBlock(dim, num_heads, window_size,
                       0 if i % 2 == 0 else window_size // 2, mlp_ratio,
-                      qkv_bias, qk_scale, use_kernels, rates[i])
+                      qkv_bias, qk_scale, use_kernels, rates[i],
+                      use_checkpoint)
             for i in range(depth))
+        self.use_checkpoint = use_checkpoint
         self.fusion = PWAM(dim, fusion.lang_dim, fusion_heads,
                            att_norm=fusion.att_norm, dropout=fusion.dropout)
         self.res_gate = (LanguageGate(dim, fusion.lg_act)
@@ -381,8 +407,15 @@ class MMBasicLayer(nn.Module):
     def forward(self, x, hw, l, l_mask,
                 generator: Optional[torch.Generator] = None):
         h, w = hw
+        remat = (self.use_checkpoint and self.training
+                 and torch.is_grad_enabled())
         for blk in self.blocks:
-            x = blk(x, hw, generator)
+            if remat:  # the draws first: the recompute applies the same
+                x = checkpoint(blk, x, hw, None,
+                               blk.draw_kept(x.shape[0], generator, x.device),
+                               use_reentrant=False)
+            else:
+                x = blk(x, hw, generator)
         x_pre_fusion = x
         mm = self.fusion(x, l, l_mask, generator)
         gate_out = self.res_gate(mm) if self.res_gate is not None else None
@@ -401,7 +434,7 @@ class MultiModalSwinTransformer(nn.Module):
 
     def __init__(self, cfg: SwinConfig, fusion: FusionConfig,
                  out_indices: Tuple[int, ...] = (0, 1, 2, 3),
-                 use_kernels: bool = True):
+                 use_kernels: bool = True, use_checkpoint: bool = False):
         super().__init__()
         if cfg.ape:
             raise NotImplementedError(
@@ -421,7 +454,7 @@ class MultiModalSwinTransformer(nn.Module):
                          cfg.window_size, cfg.mlp_ratio, cfg.qkv_bias,
                          cfg.qk_scale, i < cfg.num_layers - 1, fusion,
                          fusion.num_heads[i], use_kernels,
-                         tuple(dpr[starts[i]:starts[i + 1]]))
+                         tuple(dpr[starts[i]:starts[i + 1]]), use_checkpoint)
             for i in range(cfg.num_layers))
         for i in self.out_indices:
             self.add_module(f"norm{i}", StageNorm(cfg.num_features[i],

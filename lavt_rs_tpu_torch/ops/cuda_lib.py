@@ -28,7 +28,7 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("ln.cu", "fused_mlp.cu", "fused_msa.cu", "fused_msa_bwd.cu",
            "fused_msa_bwd_sm90.cu", "fused_mlp_bwd.cu", "window_attn_sm90.cu",
            "window_attn_bwd_sm90.cu", "window_msa_sm90.cu",
-           "probe_headbatch.cu")
+           "fused_msa_sm90.cu", "probe_headbatch.cu")
 HEADERS = ("common.cuh", "gemm_sm90.cuh", "attn_sm90.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-lineinfo")
@@ -45,9 +45,10 @@ SIGNATURES = {
     "lavt_gemm_bias_gelu": (P, P, P, P, I, I, I, P),
     "lavt_gemm_residual": (P,) * 6 + (I, I, I, I, P),
     "lavt_fused_ln_mlp": (P,) * 11 + (I, I, I, I, F, P),
-    "lavt_window_msa_attn": (P,) * 13 + (I, I, I, I, F, F, P),
+    "lavt_window_msa_attn": (P,) * 8 + (I, I, I, I, F, F, P),
     "lavt_window_msa_2d_attn": (P,) * 6 + (I,) * 5 + (F, P),
-    "lavt_msa_bwd_attn_sm90": (P,) * 9 + (I, I, I, I, F, P),
+    "lavt_msa_bwd_attn_sm90": (P,) * 9 + (I,) * 5 + (F, P),
+    "lavt_msa_fwd_sm90": (P,) * 6 + (I,) * 5 + (P,),
     "lavt_msa_dgrad": (P, P, P, I, I, I, P),
     "lavt_gemm_bf16": (P,) * 4 + (I,) * 7 + (P,),
     "lavt_sum_partials": (P, P, I, L, P),

@@ -43,11 +43,12 @@ def drop_path_kept(b: int, rate: float, training: bool,
     return u < 1.0 - rate
 
 
-def drop_path_keep(b: int, rate: float, generator: Optional[torch.Generator],
-                   device) -> torch.Tensor:
-    """(b,) f32 per-sample branch scale of a `drop_path_kept` draw (rate >
-    0): 1 / (1 - rate) or 0, as K8 takes it."""
-    kept = drop_path_kept(b, rate, True, generator, device)
+def drop_path_scale(kept: Optional[torch.Tensor],
+                    rate: float) -> Optional[torch.Tensor]:
+    """The (b,) f32 branch scale of a drawn `kept` (`drop_path_kept`), as
+    K8 takes it: 1 / (1 - rate) or 0; None for None."""
+    if kept is None:
+        return None
     return torch.where(kept, 1.0 / (1.0 - rate), 0.0).float()
 
 

@@ -5,12 +5,14 @@ Counterpart of `lavt_rs_tpu/ops/pallas/fused_msa.py`:
   * `fused_window_msa` (K2): x is post-LN windowed tokens;
   * `fused_window_msa_ln` (K1): x is pre-LN tokens and the block's
     pre-attention LayerNorm (f32 stats, fast variance) runs inside the
-    kernel.  Valid only where windowing needed no padding: the model pads
-    after LN, and LN of a zero pad row would give ln_bias;
+    kernel (in the save mode, first, as its own launch).  Valid only where
+    windowing needed no padding: the model pads after LN, and LN of a zero
+    pad row would give ln_bias;
   * `fused_window_msa_save` (K1/K2 in save mode, `_fwd(..., save=True)`):
     the forward that also returns the training residuals q (post-scale),
-    k, v (bf16, (B nW, N, C), lanes in head order), the bf16
-    probabilities p (B nW, heads, N, N) and, with LN, the bf16 xn;
+    k, v (bf16, (B nW, N, C), lanes in head order; on the card the column
+    views of the one (B nW, N, 3C) qkv tensor), the bf16 probabilities p
+    (B nW, heads, N, N) and, with LN, the bf16 xn;
   * `fused_window_msa_bwd` (K5, `_fused_bwd_group_resid`): every gradient
     from those residuals;
   * `fused_window_msa_bwd_recompute` (K6, `_fused_bwd_group`): the same
@@ -37,12 +39,15 @@ the exact max-subtracted one (the TPU inference kernel's exp(min(s, 80))
 equals it while every logit is below 80).
 
 Each wrapper takes the plain version for a CPU tensor and launches the
-CUDA kernels (csrc/fused_msa.cu: attention; csrc/fused_msa_bwd.cu: the
-out-projection GEMM and the fixed-order sums; K5: csrc/fused_msa_bwd_sm90.cu,
-its launches `bwd_launches`; K2p: csrc/window_msa_sm90.cu's projections on
-the wgmma + TMA GEMM core around K10's attention kernel) for a CUDA
-tensor; the plain versions compute in f32 with the kernels' rounding
-points.
+CUDA kernels for a CUDA tensor: K2, the save mode and K6's forward as the
+launches of `save_launches` (K4's LN rows for K1, the qkv projection on
+the wgmma + TMA GEMM core of csrc/window_msa_sm90.cu, the attention of
+csrc/fused_msa_sm90.cu, the out-projection on the core); K1 without saves
+on csrc/fused_msa.cu's attention kernel and the WMMA GEMM of
+csrc/fused_msa_bwd.cu (which also holds the fixed-order sums); K5 on
+csrc/fused_msa_bwd_sm90.cu, its launches `bwd_launches`; K2p as
+csrc/window_msa_sm90.cu's projections around K10's attention kernel.  The
+plain versions compute in f32 with the kernels' rounding points.
 """
 
 from __future__ import annotations
@@ -53,7 +58,7 @@ from typing import Optional
 import torch
 
 from . import cuda_lib
-from .ln import layer_norm_rows_bwd_plain
+from .ln import layer_norm_rows_bwd_plain, layer_norm_rows_launch
 from .ln import layer_norm_rows_plain as layer_norm_f32
 
 LN_EPS = 1e-5
@@ -235,7 +240,7 @@ def fused_window_msa_bwd_plain(x, gy, wqkv, wproj, saved, heads: int,
     gyf = gy.reshape(rows, c).float()
 
     def heads_of(t):  # (rows, C) -> (B nW, heads, N, hd) f32
-        return t.float().view(b * nw, n, heads, hd).transpose(1, 2)
+        return t.float().reshape(b * nw, n, heads, hd).transpose(1, 2)
 
     def merge(t):  # (B nW, heads, N, hd) -> (rows, C)
         return t.transpose(1, 2).reshape(rows, c)
@@ -295,10 +300,10 @@ def _check_geometry(x, heads) -> None:
                          f"{(n, c, heads)}")
 
 
-def _attn_launch(x, ln, wqkv, bqkv, bias, mask, heads, scale, eps,
-                 save: bool):
-    """The attention kernel: the bf16 attention output (B nW N, C) and, in
-    save mode, the residuals (q, k, v, p, xn)."""
+def _attn_launch(x, ln, wqkv, bqkv, bias, mask, heads, scale, eps):
+    """csrc/fused_msa.cu's attention kernel in window order: K1's (LN
+    inside), or with ln None the core K11 runs on the map.  The bf16
+    attention output (B nW N, C)."""
     b, nw, n, c = x.shape
     _check_geometry(x, heads)
     dev = x.device
@@ -312,27 +317,16 @@ def _attn_launch(x, ln, wqkv, bqkv, bias, mask, heads, scale, eps,
         checks += [("ln_scale", ln[0], bf16, (c,)),
                    ("ln_bias", ln[1], bf16, (c,))]
     _require_all(checks, dev)
-    m = b * nw
-    o = torch.empty((m, n, c), dtype=bf16, device=dev)
-    saved = None
-    if save:
-        q, k, v = (torch.empty((m, n, c), dtype=bf16, device=dev)
-                   for _ in range(3))
-        p = torch.empty((m, heads, n, n), dtype=bf16, device=dev)
-        xn = (torch.empty((m, n, c), dtype=bf16, device=dev)
-              if ln is not None else None)
-        saved = (q, k, v, p, xn)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
+    o = torch.empty((b * nw, n, c), dtype=bf16, device=dev)
+    ln_ptrs = (None, None) if ln is None else (ln[0].data_ptr(),
+                                              ln[1].data_ptr())
     err = cuda_lib.lib().lavt_window_msa_attn(
-        x.data_ptr(), ptr(ln[0] if ln else None), ptr(ln[1] if ln else None),
-        wqkv.data_ptr(), bqkv.data_ptr(), bias.data_ptr(), ptr(mask),
-        o.data_ptr(), *(ptr(t) for t in (saved or (None,) * 5)), m, nw, c,
-        heads, float(scale), float(eps), cuda_lib.stream_ptr(dev))
+        x.data_ptr(), *ln_ptrs, wqkv.data_ptr(), bqkv.data_ptr(),
+        bias.data_ptr(), None if mask is None else mask.data_ptr(),
+        o.data_ptr(), b * nw, nw, c, heads, float(scale), float(eps),
+        cuda_lib.stream_ptr(dev))
     cuda_lib.check(err, "lavt_window_msa_attn")
-    return o, saved
+    return o
 
 
 def _proj_launch(o, wproj, bproj, shape) -> torch.Tensor:
@@ -343,20 +337,18 @@ def _proj_launch(o, wproj, bproj, shape) -> torch.Tensor:
                 bias=bproj).view(shape)
 
 
-def _launch(x, ln, wqkv, bqkv, wproj, bproj, bias, mask, heads, scale, eps,
-            save: bool = False):
-    o, saved = _attn_launch(x, ln, wqkv, bqkv, bias, mask, heads, scale, eps,
-                            save)
-    y = _proj_launch(o, wproj, bproj, x.shape)
-    return (y, saved) if save else y
+def _launch(x, ln, wqkv, bqkv, wproj, bproj, bias, mask, heads, scale, eps):
+    o = _attn_launch(x, ln, wqkv, bqkv, bias, mask, heads, scale, eps)
+    return _proj_launch(o, wproj, bproj, x.shape)
 
 
 def gemm(a, b, m: int, n: int, k: int, a_kmajor: bool, b_nmajor: bool,
          bias=None) -> torch.Tensor:
     """(m, n) bf16 = A (m, k) B (k, n) (+ the (n,) bf16 bias) on the
-    hand-written WMMA GEMM of csrc/fused_msa_bwd.cu: K1/K2's and K11's
-    out-projection.  A is given as (k, m) when a_kmajor, B as (n, k) when
-    b_nmajor (a torch Linear weight); bf16 in, f32 sums, one pass."""
+    hand-written WMMA GEMM of csrc/fused_msa_bwd.cu: K1's (without saves)
+    and K11's out-projection.  A is given as (k, m) when a_kmajor, B as
+    (n, k) when b_nmajor (a torch Linear weight); bf16 in, f32 sums, one
+    pass."""
     dev = a.device
     out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
     err = cuda_lib.lib().lavt_gemm_bf16(
@@ -464,20 +456,39 @@ def msa_bwd_attn_plain(dattn, q, k, v, p, heads: int, scale: float,
     return merge(of.to(dt)), dqkv.to(dt), dbias_part, dbqkv_part
 
 
+def _require_rows(named, dev, shape) -> int:
+    """q, k, v: (m, N, C) bf16 tensors on dev whose rows lie one stride
+    apart, contiguous or the column views of one (m N, 3C) qkv tensor (the
+    save mode's residuals); returns that row stride."""
+    m, n, c = shape
+    ld = named[0][1].stride(1)
+    for name, t in named:
+        if t.device != dev or t.dtype != torch.bfloat16:
+            raise ValueError(f"{name}: {t.dtype} on {t.device}, expected "
+                             f"bfloat16 on {dev}")
+        if tuple(t.shape) != (m, n, c) or t.stride() != (n * ld, ld, 1):
+            raise ValueError(f"{name}: shape {tuple(t.shape)} strides "
+                             f"{t.stride()}, expected {(m, n, c)} with rows "
+                             f"{ld} elements apart")
+        if t.data_ptr() % 16 or ld % 8:  # TMA: 16-byte rows and base
+            raise ValueError(f"{name}: rows must start on 16 bytes")
+    return ld
+
+
 def msa_bwd_attn(dattn, q, k, v, p, heads: int, scale: float, groups: int):
     """K5's attention launch (`lavt_msa_bwd_attn_sm90`): dattn (B nW N, C)
-    and the save mode's q, k, v (B nW, N, C), p (B nW, heads, N, N) ->
-    o (B nW N, C) and dqkv (B nW N, 3C) bf16, the f32 partials of dbias
-    (groups, heads, N, N) and of dbqkv (groups, 3C).  The plain version on
-    a CPU tensor."""
+    and the save mode's q, k, v (B nW, N, C; contiguous, or column views
+    of its (B nW N, 3C) qkv tensor), p (B nW, heads, N, N) -> o (B nW N, C)
+    and dqkv (B nW N, 3C) bf16, the f32 partials of dbias (groups, heads,
+    N, N) and of dbqkv (groups, 3C).  The plain version on a CPU tensor."""
     if q.device.type == "cpu":
         return msa_bwd_attn_plain(dattn, q, k, v, p, heads, scale, groups)
     m, n, c = q.shape
     dev = q.device
     bf16 = torch.bfloat16
-    _require_all([("dattn", dattn, bf16, (m * n, c)), ("q", q, bf16, None),
-                  ("k", k, bf16, (m, n, c)), ("v", v, bf16, (m, n, c)),
+    _require_all([("dattn", dattn, bf16, (m * n, c)),
                   ("p", p, bf16, (m, heads, n, n))], dev)
+    ld = _require_rows([("q", q), ("k", k), ("v", v)], dev, (m, n, c))
     o = torch.empty((m * n, c), dtype=bf16, device=dev)
     dqkv = torch.empty((m * n, 3 * c), dtype=bf16, device=dev)
     dbias_part = torch.empty((groups, heads, n, n), dtype=torch.float32,
@@ -486,7 +497,7 @@ def msa_bwd_attn(dattn, q, k, v, p, heads: int, scale: float, groups: int):
     err = cuda_lib.lib().lavt_msa_bwd_attn_sm90(
         dattn.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
         p.data_ptr(), o.data_ptr(), dqkv.data_ptr(), dbias_part.data_ptr(),
-        dbqkv_part.data_ptr(), m, c, heads, groups, float(scale),
+        dbqkv_part.data_ptr(), m, c, ld, heads, groups, float(scale),
         cuda_lib.stream_ptr(dev))
     cuda_lib.check(err, "lavt_msa_bwd_attn_sm90")
     return o, dqkv, dbias_part, dbqkv_part
@@ -538,23 +549,147 @@ def _bwd_launch(x, gy, wqkv, wproj, saved, heads, scale):
     _require_all([("x", x, bf16, None), ("gy", gy, bf16, (b, nw, n, c)),
                   ("wqkv", wqkv, bf16, (3 * c, c)),
                   ("wproj", wproj, bf16, (c, c)),
-                  ("q", q, bf16, (m, n, c)), ("k", k, bf16, (m, n, c)),
-                  ("v", v, bf16, (m, n, c)),
                   ("p", p, bf16, (m, heads, n, n))], x.device)
+    _require_rows([("q", q), ("k", k), ("v", v)], x.device, (m, n, c))
     return bwd_launches(x, gy, wqkv, wproj, saved, heads, scale)
+
+
+# -- K2 and the save mode (csrc/fused_msa_sm90.cu) and their plain versions --
+
+def msa_attn_plain(qkv, bias, mask, heads: int):
+    """The plain version of `msa_attn`: f32 math with the kernel's rounding
+    points (P rounded to bf16 after its f32 normalisation, O made from that
+    P).  Returns (o (B nW N, C), p (B nW, heads, N, N))."""
+    m, n, c3 = qkv.shape
+    c = c3 // 3
+    dt = qkv.dtype
+
+    def heads_of(t):  # (m, N, C) -> (m, heads, N, hd) f32
+        return t.float().reshape(m, n, heads, c // heads).transpose(1, 2)
+
+    q, k, v = (heads_of(qkv[..., i * c:(i + 1) * c]) for i in range(3))
+    s = q @ k.transpose(-1, -2) + bias.float()
+    if mask is not None:
+        nw = mask.shape[0]
+        s = (s.view(m // nw, nw, heads, n, n)
+             + mask.float()[None, :, None]).view(m, heads, n, n)
+    p = torch.softmax(s, dim=-1).to(dt)
+    o = (p.float() @ v).to(dt).transpose(1, 2).reshape(m * n, c)
+    return o, p
+
+
+def msa_attn(qkv, bias, mask, heads: int, save: bool,
+             flags: Optional[torch.Tensor] = None):
+    """The attention launch of K2, the save mode and K6's forward
+    (`lavt_msa_fwd_sm90`): qkv (B nW, 144, 3C) bf16 as `gemm_bias` writes
+    it (q scaled), bias (heads, 144, 144) f32, mask (nW, 144, 144) f32 or
+    None with its window flags (`window.shift_mask_flags_2d`; None: every
+    window reads its mask) -> (o (B nW 144, C) bf16, p (B nW, heads, 144,
+    144) bf16 with save, else None).  The plain version on a CPU tensor
+    (which returns p either way)."""
+    if qkv.device.type == "cpu":
+        return msa_attn_plain(qkv, bias, mask, heads)
+    m, n, c3 = qkv.shape
+    c = c3 // 3
+    dev = qkv.device
+    if not fused_msa_supported(n, c, heads):
+        raise ValueError(f"fused window MSA kernel: unsupported (N, C, heads) "
+                         f"{(n, c, heads)}")
+    nw = 1 if mask is None else mask.shape[0]
+    checks = [("qkv", qkv, torch.bfloat16, None),
+              ("bias", bias, torch.float32, (heads, n, n))]
+    if mask is not None:
+        checks.append(("mask", mask, torch.float32, (nw, n, n)))
+        if m % nw:
+            raise ValueError(f"mask: {nw} windows do not divide {m}")
+        if flags is not None:
+            cuda_lib.require(flags, "flags", torch.int32, dev, (nw,))
+    _require_all(checks, dev)
+    o = torch.empty((m * n, c), dtype=torch.bfloat16, device=dev)
+    p = (torch.empty((m, heads, n, n), dtype=torch.bfloat16, device=dev)
+         if save else None)
+    groups = msa_bwd_groups(m, heads, cuda_lib.sm_count(dev.index or 0))
+    err = cuda_lib.lib().lavt_msa_fwd_sm90(
+        qkv.data_ptr(), bias.data_ptr(),
+        None if mask is None else mask.data_ptr(),
+        None if mask is None or flags is None else flags.data_ptr(),
+        o.data_ptr(), None if p is None else p.data_ptr(), m, nw, c, heads,
+        groups, cuda_lib.stream_ptr(dev))
+    cuda_lib.check(err, "lavt_msa_fwd_sm90")
+    return o, p
+
+
+def attn_launches(x, ln, wqkv, bqkv, bias, mask, heads: int, scale: float,
+                  ln_eps: float = LN_EPS, save: bool = True, flags=None):
+    """The launches of `save_launches` before the out-projection: (o
+    (B nW N, C), (q, k, v, p, xn) with save, else None).  q, k, v are the
+    column views of the one qkv tensor (B nW, N, 3C) (no copy); xn is
+    None without ln."""
+    b, nw, n, c = x.shape
+    rows = b * nw * n
+    x2 = x.reshape(rows, c)
+    xn = None
+    if ln is not None:
+        x2 = xn = layer_norm_rows_launch(x2, ln[0], ln[1], ln_eps)
+    qkv = gemm_bias(x2, wqkv, bqkv, c, scale).view(b * nw, n, 3 * c)
+    o, p = msa_attn(qkv, bias, mask, heads, save, flags)
+    if not save:
+        return o, None
+    q, k, v = (qkv[..., i * c:(i + 1) * c] for i in range(3))
+    return o, (q, k, v, p, None if xn is None else xn.view(b * nw, n, c))
+
+
+def save_launches(x, ln, wqkv, bqkv, wproj, bproj, bias, mask, heads: int,
+                  scale: float, ln_eps: float = LN_EPS, save: bool = True,
+                  flags=None):
+    """K2 (save False) and the K1/K2 save mode, in order:
+      (0) K1 only: xn = the pre-attention LN rows on K4's launch
+          (`ln.layer_norm_rows_launch`, f32 stats, fast variance);
+      (a) qkv = x Wqkvᵀ + bqkv, q scaled after its bias, bf16 (B nW N, 3C),
+          on the GEMM core (`gemm_bias`);
+      (b) the attention (`msa_attn`) on qkv: O (B nW N, C) and, with save,
+          the bf16 P it was made from;
+      (c) y = O Wprojᵀ + bproj on the GEMM core.
+    Returns y (B, nW, N, C), with save (y, (q, k, v, p, xn)), q, k, v the
+    column views of qkv.  On CPU tensors each launch takes its plain
+    version, which compose to `fused_window_msa_save_plain`'s values
+    (tests/test_torch_msa_save_launches.py)."""
+    o, saved = attn_launches(x, ln, wqkv, bqkv, bias, mask, heads, scale,
+                             ln_eps, save, flags)
+    y = gemm_bias(o, wproj, bproj).view(x.shape)
+    return (y, saved) if save else y
+
+
+def _check_save_launches(x, ln, wqkv, bqkv, wproj, bproj, heads) -> None:
+    """The launches' checks of their inputs beside what `msa_attn` holds,
+    before any launch."""
+    _check_geometry(x, heads)
+    b, nw, n, c = x.shape
+    bf16 = torch.bfloat16
+    checks = [("x", x, bf16, None), ("wqkv", wqkv, bf16, (3 * c, c)),
+              ("bqkv", bqkv, bf16, (3 * c,))]
+    if wproj is not None:
+        checks += [("wproj", wproj, bf16, (c, c)),
+                   ("bproj", bproj, bf16, (c,))]
+    if ln is not None:
+        checks += [("ln_scale", ln[0], bf16, (c,)),
+                   ("ln_bias", ln[1], bf16, (c,))]
+    _require_all(checks, x.device)
 
 
 # -- wrappers: plain version on a CPU tensor, the kernel on a CUDA tensor ----
 
 def fused_window_msa(x, wqkv, bqkv, wproj, bproj, bias,
-                     mask: Optional[torch.Tensor], heads: int,
-                     scale: float) -> torch.Tensor:
-    """K2: (B, nW, N, C) post-LN windowed tokens -> projected attention."""
+                     mask: Optional[torch.Tensor], heads: int, scale: float,
+                     flags: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K2: (B, nW, N, C) post-LN windowed tokens -> projected attention;
+    on the card the launches of `save_launches` without the saves."""
     if x.device.type == "cpu":
         return fused_window_msa_plain(x, wqkv, bqkv, wproj, bproj, bias, mask,
                                       heads, scale)
-    y = _launch(x, None, wqkv, bqkv, wproj, bproj, bias, mask, heads, scale,
-                LN_EPS)
+    _check_save_launches(x, None, wqkv, bqkv, wproj, bproj, heads)
+    y = save_launches(x, None, wqkv, bqkv, wproj, bproj, bias, mask, heads,
+                      scale, save=False, flags=flags)
     fused_window_msa.launches += 1
     return y
 
@@ -574,13 +709,17 @@ def fused_window_msa_ln(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, bias,
 
 
 def fused_window_msa_save(x, ln, wqkv, bqkv, wproj, bproj, bias, mask,
-                          heads: int, scale: float, ln_eps: float = LN_EPS):
-    """K1 (ln given) / K2 in save mode: (y, (q, k, v, p, xn))."""
+                          heads: int, scale: float, ln_eps: float = LN_EPS,
+                          flags: Optional[torch.Tensor] = None):
+    """K1 (ln given) / K2 in save mode: (y, (q, k, v, p, xn)); on the card
+    the launches of `save_launches`, q, k, v the column views of their
+    qkv tensor."""
     if x.device.type == "cpu":
         return fused_window_msa_save_plain(x, ln, wqkv, bqkv, wproj, bproj,
                                            bias, mask, heads, scale, ln_eps)
-    out = _launch(x, ln, wqkv, bqkv, wproj, bproj, bias, mask, heads, scale,
-                  ln_eps, save=True)
+    _check_save_launches(x, ln, wqkv, bqkv, wproj, bproj, heads)
+    out = save_launches(x, ln, wqkv, bqkv, wproj, bproj, bias, mask, heads,
+                        scale, ln_eps, flags=flags)
     counter = fused_window_msa if ln is None else fused_window_msa_ln
     counter.launches += 1
     return out
@@ -600,15 +739,18 @@ def fused_window_msa_bwd(x, gy, wqkv, wproj, saved, heads: int,
 
 def fused_window_msa_bwd_recompute(x, ln, wqkv, bqkv, wproj, bproj, bias,
                                    mask, gy, heads: int, scale: float,
-                                   ln_eps: float = LN_EPS):
+                                   ln_eps: float = LN_EPS,
+                                   flags: Optional[torch.Tensor] = None):
     """K6: the same gradients as K5 with nothing saved; they are with
-    respect to the MSA's input (xn with ln)."""
+    respect to the MSA's input (xn with ln).  On the card the save mode's
+    launches up to the attention (`attn_launches`), then K5's."""
     if x.device.type == "cpu":
         return fused_window_msa_bwd_recompute_plain(
             x, ln, wqkv, bqkv, wproj, bproj, bias, mask, gy, heads, scale,
             ln_eps)
-    _, (q, k, v, p, xn) = _attn_launch(x, ln, wqkv, bqkv, bias, mask, heads,
-                                       scale, ln_eps, save=True)
+    _check_save_launches(x, ln, wqkv, bqkv, None, None, heads)
+    _, (q, k, v, p, xn) = attn_launches(x, ln, wqkv, bqkv, bias, mask, heads,
+                                        scale, ln_eps, flags=flags)
     xin = x if xn is None else xn.view(x.shape)
     out = _bwd_launch(xin, gy, wqkv, wproj, (q, k, v, p), heads, scale)
     fused_window_msa_bwd_recompute.launches += 1
@@ -798,7 +940,8 @@ class FusedWindowMSA(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, bias,
-                mask, heads: int, scale: float, ln_eps: float = LN_EPS):
+                mask, heads: int, scale: float, ln_eps: float = LN_EPS,
+                flags=None):
         dt = x.dtype
         ln = None if ln_scale is None else (ln_scale.to(dt), ln_bias.to(dt))
         w = (wqkv.to(dt), bqkv.to(dt), wproj.to(dt), bproj.to(dt))
@@ -808,13 +951,14 @@ class FusedWindowMSA(torch.autograd.Function):
         ctx.dtypes = (wqkv.dtype, bqkv.dtype, wproj.dtype, bproj.dtype,
                       bias.dtype)
         ctx.resid = save_residuals_ok(b, nw, n, c, heads, x.element_size())
+        ctx.flags = flags
         if ctx.resid:
             y, (q, k, v, p, xn) = fused_window_msa_save(
-                x, ln, *w, bias, mask, heads, scale, ln_eps)
+                x, ln, *w, bias, mask, heads, scale, ln_eps, flags)
             ctx.save_for_backward(x, ln_scale, w[0], w[2], q, k, v, p, xn)
         else:
             if ln is None:
-                y = fused_window_msa(x, *w, bias, mask, heads, scale)
+                y = fused_window_msa(x, *w, bias, mask, heads, scale, flags)
             else:
                 y = fused_window_msa_ln(x, *ln, *w, bias, mask, heads, scale,
                                         ln_eps)
@@ -837,7 +981,7 @@ class FusedWindowMSA(torch.autograd.Function):
             ln = (lns, lnb) if ctx.has_ln else None
             grads = fused_window_msa_bwd_recompute(
                 x, ln, wqkv, bqkv, wproj, bproj, bias, mask, gy, heads, scale,
-                eps)
+                eps, ctx.flags)
         dx, dwqkv, dbqkv, dwproj, dbproj, dbias = grads
         dls = dlb = None
         if ctx.has_ln:
@@ -845,22 +989,25 @@ class FusedWindowMSA(torch.autograd.Function):
             dls, dlb = dls.to(ln_scale.dtype), dlb.to(ln_scale.dtype)
         wq_t, bq_t, wp_t, bp_t, bias_t = ctx.dtypes
         return (dx, dls, dlb, dwqkv.to(wq_t), dbqkv.to(bq_t), dwproj.to(wp_t),
-                dbproj.to(bp_t), dbias.to(bias_t), None, None, None, None)
+                dbproj.to(bp_t), dbias.to(bias_t), None, None, None, None,
+                None)
 
 
 def window_msa(x, ln, wqkv, bqkv, wproj, bproj, bias, mask, heads: int,
-               scale: float, ln_eps: float = LN_EPS) -> torch.Tensor:
+               scale: float, ln_eps: float = LN_EPS,
+               flags: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The model's entry: K1 (ln = (scale, bias)) or K2 on x's dtype.  With
     autograd recording a parameter, through `FusedWindowMSA`; else the
-    forward kernel alone (nothing is saved)."""
+    forward kernel alone (nothing is saved).  `flags`: the mask's window
+    flags (`window.shift_mask_flags_2d`), read by K2 and the save mode."""
     tensors = (x, wqkv, bqkv, wproj, bproj, bias) + tuple(ln or ())
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         ln_s, ln_b = ln if ln is not None else (None, None)
         return FusedWindowMSA.apply(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj,
-                                    bias, mask, heads, scale, ln_eps)
+                                    bias, mask, heads, scale, ln_eps, flags)
     dt = x.dtype
     w = (wqkv.to(dt), bqkv.to(dt), wproj.to(dt), bproj.to(dt))
     if ln is None:
-        return fused_window_msa(x, *w, bias, mask, heads, scale)
+        return fused_window_msa(x, *w, bias, mask, heads, scale, flags)
     return fused_window_msa_ln(x, ln[0].to(dt), ln[1].to(dt), *w, bias, mask,
                                heads, scale, ln_eps)

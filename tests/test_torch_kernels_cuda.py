@@ -13,6 +13,11 @@ neighbouring intermediate (the bf16 LN output, GELU output, q/k/v, P)
 moves the result by a few such steps: 2e-2 (≈ 5 steps) for LN and MLP,
 3e-2 for the MSA, whose P and attention output are rounded twice more.
 
+K2, the save mode and K6's forward run the launches of
+`fused_msa.save_launches` (the GEMM core around csrc/fused_msa_sm90.cu's
+attention); their attention launch is also held alone to its plain
+version, in both modes.
+
 The backward kernels (K5, K6, K7) are held to their plain versions on the
 same bf16 inputs: elementwise outputs (dx) within TOL_DX · (rms + |want|),
 the rms of the wanted tensor standing for its scale, and the weight, bias
@@ -183,14 +188,17 @@ def test_fused_window_msa_2d_kernel(dev, c, heads, hp, wp, shift):
 @pytest.mark.parametrize("c,heads,hp,wp,shift", K11_CASES)
 def test_fused_window_msa_2d_equals_partition_route(dev, c, heads, hp, wp,
                                                     shift):
-    """K11 shares K2's attention core and GEMM, token for token: its output
-    is bit-equal to partition -> K2 -> reverse on the same bf16 inputs."""
+    """K11 shares K1's attention kernel (in window order, LN off) and its
+    GEMM, token for token: its output is bit-equal to partition -> that
+    kernel -> the GEMM -> reverse on the same bf16 inputs."""
+    from lavt_rs_tpu_torch.ops import fused_msa as fmsa
+
     rng = np.random.default_rng(c + hp + 3 * wp + 1)
     x, w, bias, mask, scale = _map_args(rng, dev, 2, hp, wp, c, heads, shift)
     got = fused_window_msa_2d(x, *w, bias, mask, heads, scale, 12)
     nw = (hp // 12) * (wp // 12)
     xw = window_partition(x, 12).view(2, nw, 144, c).contiguous()
-    yw = fused_window_msa(xw, *w, bias, mask, heads, scale)
+    yw = fmsa._launch(xw, None, *w, bias, mask, heads, scale, fmsa.LN_EPS)
     want = window_reverse(yw.view(2 * nw, 144, c), 12, hp, wp)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
@@ -1020,6 +1028,82 @@ def test_k6_kernel_at_bs16(dev):
     want = fused_window_msa_bwd_recompute_plain(x, ln, *w, bias, mask, gy, 4,
                                                 scale)
     _close_grads(got, want)
+
+
+# the save mode's attention launch (K2 / the save mode / K6's forward) at
+# the four Swin-B stage shapes of a bs-8 step, the batch cut: (B, image
+# side padded to 12, C, heads)
+MSA_ATTN_SHAPES = [(2, 120, 128, 4), (2, 60, 256, 8), (4, 36, 512, 16),
+                   (4, 24, 1024, 32)]
+
+
+def _qkv_case(dev, b, hw, c, heads, shift, seed):
+    """The qkv projection's output (q scaled) on the GEMM core, with the
+    bias, mask and the mask's window flags of a (hw x hw) map."""
+    from lavt_rs_tpu_torch.ops import fused_msa as fmsa
+
+    rng = np.random.default_rng(seed)
+    x, w, bias, mask, scale = _msa_args(rng, dev, b, hw, c, heads, shift)
+    qkv = fmsa.gemm_bias(x.reshape(-1, c), w[0], w[1], c, scale)
+    return qkv.view(-1, 144, 3 * c), bias, mask, mask_flags(mask)
+
+
+@pytest.mark.parametrize("b,hw,c,heads", MSA_ATTN_SHAPES)
+@pytest.mark.parametrize("shift", [False, True])
+def test_msa_attn_launch_both_modes(dev, b, hw, c, heads, shift):
+    """The attention launch against its plain version (O within TOL_MSA, P
+    within TOL_P + TOL_MSA relative); O has the same bits with the saves on
+    and off, with the window flags and without, and in two calls; O is the
+    bf16 product of the stored P (f32 sums in another order: within two
+    bf16 steps)."""
+    from lavt_rs_tpu_torch.ops import fused_msa as fmsa
+
+    qkv, bias, mask, flags = _qkv_case(dev, b, hw, c, heads, shift, c + 53)
+    o, p = fmsa.msa_attn(qkv, bias, mask, heads, True, flags)
+    o_off, p_off = fmsa.msa_attn(qkv, bias, mask, heads, False, flags)
+    o_all, p_all = fmsa.msa_attn(qkv, bias, mask, heads, True)
+    o_p, p_p = fmsa.msa_attn_plain(qkv, bias, mask, heads)
+    _close(o, o_p, TOL_MSA)
+    torch.cuda.synchronize()
+    err = (p.float() - p_p.float()).abs()
+    assert bool((err <= TOL_P + TOL_MSA * p_p.float().abs()).all()), \
+        f"P: max abs err {err.max().item():.4g}"
+    assert p_off is None
+    assert torch.equal(o, o_off) and torch.equal(o, o_all)
+    assert torch.equal(p, p_all)
+    o2, p2 = fmsa.msa_attn(qkv, bias, mask, heads, True, flags)
+    assert torch.equal(o, o2) and torch.equal(p, p2)
+    m = qkv.shape[0]
+    vh = qkv[..., 2 * c:].float().reshape(m, 144, heads, 32).transpose(1, 2)
+    from_p = (p.float() @ vh).transpose(1, 2).reshape(m * 144, c)
+    _close(o, from_p.bfloat16(), 8e-3)
+
+
+@pytest.mark.parametrize("b,hw,c,heads", MSA_ATTN_SHAPES[2:])
+def test_k5_k6_on_the_save_launches_residuals(dev, b, hw, c, heads):
+    """K5 on the save mode's residuals (q, k, v the column views of its qkv
+    tensor) gives the same bits as on contiguous copies, and K5 and K6
+    agree with their plain versions (grads within TOL_GRAD relative
+    Frobenius)."""
+    rng = np.random.default_rng(c + 59)
+    x, w, bias, mask, scale = _msa_args(rng, dev, b, hw, c, heads, True)
+    flags = mask_flags(mask)
+    _, (q, k, v, p, _) = fused_window_msa_save(x, None, *w, bias, mask, heads,
+                                               scale, flags=flags)
+    assert q.stride(1) == 3 * c and not q.is_contiguous()
+    gy = _bf16(rng, x.shape, 1.0, dev)
+    got = fused_window_msa_bwd(x, gy, w[0], w[2], (q, k, v, p), heads, scale)
+    copies = tuple(t.contiguous() for t in (q, k, v))
+    again = fused_window_msa_bwd(x, gy, w[0], w[2], copies + (p,), heads,
+                                 scale)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+    _close_grads(got, fused_window_msa_bwd_plain(x, gy, w[0], w[2],
+                                                 (q, k, v, p), heads, scale))
+    k6 = fused_window_msa_bwd_recompute(x, None, *w, bias, mask, gy, heads,
+                                        scale, flags=flags)
+    _close_grads(k6, fused_window_msa_bwd_recompute_plain(
+        x, None, *w, bias, mask, gy, heads, scale))
 
 
 def _k9_case(dev, b, nw, heads, n, masked, seed):

@@ -58,7 +58,8 @@ from lavt_rs_tpu_torch.convert.from_jax import state_dict_from_jax
 from lavt_rs_tpu_torch.metrics import batch_iou
 from lavt_rs_tpu_torch.models.factory import build_model
 from lavt_rs_tpu_torch.models.swin2d import SwinBlock
-from lavt_rs_tpu_torch.ops.dropout import drop_path, drop_path_keep
+from lavt_rs_tpu_torch.ops.dropout import (drop_path, drop_path_kept,
+                                           drop_path_scale)
 from lavt_rs_tpu_torch.train import optim
 from lavt_rs_tpu_torch.train.step import create_train_state, make_train_step
 from test_torch_model import BERT, IMG, SWIN, TOKENS, random_variables
@@ -331,7 +332,7 @@ def test_drop_path_keeps_or_zeroes_whole_samples():
         dropped = bool((y[i] == 0).all())
         assert dropped or torch.allclose(y[i], x[i] / 0.7)
     assert 0 < sum(bool((y[i] == 0).all()) for i in range(64)) < 64
-    keep = drop_path_keep(64, 0.3, g, "cpu")
+    keep = drop_path_scale(drop_path_kept(64, 0.3, True, g, "cpu"), 0.3)
     assert set(keep.tolist()) <= {0.0, float(torch.tensor(1.0 / 0.7))}
     assert drop_path(x, 0.3, False, None) is x  # eval mode: no draw
 

@@ -24,7 +24,8 @@ from collections import defaultdict
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the port's hand-written kernels (csrc/), by the names the profiler shows
 HAND_WRITTEN = (
-    "window_msa_attn_kernel",      # K1, K2, the save mode, K11
+    "window_msa_attn_kernel",      # K1, K11
+    "msa_fwd_sm90_kernel",         # K2, the save mode, K6's forward
     "window_attn_sm90_kernel",     # K10 and its save mode, K2p's attention
     "attn_bwd_q_kernel",           # K9
     "attn_bwd_kv_kernel",          # K9
