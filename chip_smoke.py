@@ -15,13 +15,16 @@
      * training: K1/K2 in save mode, K5 (MSA backward from the saved
        residuals), K6 (MSA backward, recomputing), K7 (LN-MLP backward,
        with and without the DropPath keep), K8 (LN-MLP with DropPath).
-   K2, the save mode and K6's forward run the launches of
+   K1, K2, the save mode and K6's forward run the launches of
    `fused_msa.save_launches` (K4's LN rows for K1, the qkv projection and
    the out-projection on the GEMM core, csrc/fused_msa_sm90.cu's
-   attention between them); at the end of the run (9.) each of those
-   launches is timed on the device at every stage, and a stage-1 save
-   mode, K2 and K6 call run under torch.profiler (only the port's
-   kernels).  K1 and K2 are timed beside both library chains (the matmul
+   attention between them); K1's output must have the bits of the save
+   mode's y, and its device time per forward (launches queued) is printed
+   beside its CUDA-event time; at the end of the run (9.) each of those
+   launches is timed on the device at every stage (K1's at stages 1-2,
+   K2's at 3-4, the save mode's at all four), and a stage-1 save mode,
+   K1, K2 and K6 call run under torch.profiler (only the port's kernels).
+   K1 and K2 are timed beside both library chains (the matmul
    chain and linear / SDPA / linear; the faster is their yardstick); the
    save mode's yardstick is the matmul chain (SDPA returns no P).
    Then the kernel, the plain version and the library chain (a bf16
@@ -49,11 +52,17 @@
    sums) are timed on the device and a stage-1 call runs under
    torch.profiler (only the port's kernels).
    K11 (the window MSA over a padded, pre-rolled
-   feature map) is checked at stages 3 and 4, unshifted and shifted, on a
-   non-square map and at the stage-1/2 shapes, and timed beside its
-   bound, its plain version, an SDPA chain (partition, linear,
-   `scaled_dot_product_attention`, linear, reverse) and the route it
-   replaces (window_partition -> K2 -> window_reverse).
+   feature map: the qkv GEMM over the map's rows, csrc/fused_msa_sm90.cu's
+   attention in map order, the out-projection GEMM) is checked at stages
+   3 and 4, unshifted and shifted, on a non-square map and at the
+   stage-1/2 shapes, must give the bits of the K2 launches on the
+   partitioned map (window_partition -> K2 -> window_reverse, the route
+   it replaces), and is timed beside its bound, its plain version, an
+   SDPA chain (partition, linear, `scaled_dot_product_attention`, linear,
+   reverse) and that route; its device time per forward (launches
+   queued) is printed beside its CUDA-event time, and at the end of the
+   run (9.) its three launches are timed on the device at each path shape
+   and one call runs under torch.profiler (only the port's kernels).
 3. Inference main path: lavt_one Swin-B / window 12 / 480² / 12-layer
    BERT in bf16 from seeded random weights (`main_path_model`) answers
    three batches of 8 RefCOCO-style requests (uint8 images, 20 token ids
@@ -64,7 +73,9 @@
    batch's
    logits are checked against the same weights run through the plain path
    in f32.  Then the bf16 forward at batch 8 is timed, with the kernels
-   and with the plain versions.
+   and with the plain versions, and one forward runs under torch.profiler
+   (device busy, printed beside the figure measured on K1's and K11's
+   first design).
 3b. RefCOCO eval main path: a synthetic RefCOCO split (48 val refs of
    1-3 sentences, 640x480 JPEGs with polygon masks, a vocab.txt) written
    to a temporary directory and the same weights saved as a reference
@@ -72,7 +83,8 @@
    (--window12, 480², bf16, the kernels): its Final line, the launch
    counts per device batch (as the inference forward), sentences/s and
    ms per device batch; a warm rerun of `evaluate`, one batch under
-   `torch.profiler` (device busy, idle share), and the gate: the first
+   `torch.profiler` (device busy beside the first K1/K11 design's
+   figure, idle share), and the gate: the first
    batch's argmax against the f32 plain model (the pixel gate below),
    and both models' summaries and their differences.
 4. Video phase: K10 (attention on pre-projected heads) at the stage-2..4
@@ -230,7 +242,7 @@ REPLACES = {
     "P2": "tools/probe_headbatch.py:92",
 }
 SOURCES = {
-    "K1": "lavt_rs_tpu_torch/csrc/fused_msa.cu",
+    "K1": "lavt_rs_tpu_torch/csrc/fused_msa_sm90.cu",
     "K2": "lavt_rs_tpu_torch/csrc/fused_msa_sm90.cu",
     "K3": "lavt_rs_tpu_torch/csrc/fused_mlp.cu",
     "K4": "lavt_rs_tpu_torch/csrc/ln.cu",
@@ -241,7 +253,7 @@ SOURCES = {
     "K10": "lavt_rs_tpu_torch/csrc/window_attn_sm90.cu",
     "K2p": "lavt_rs_tpu_torch/csrc/window_msa_sm90.cu",
     "K9": "lavt_rs_tpu_torch/csrc/window_attn_bwd_sm90.cu",
-    "K11": "lavt_rs_tpu_torch/csrc/fused_msa.cu",
+    "K11": "lavt_rs_tpu_torch/csrc/fused_msa_sm90.cu",
     "P1": "lavt_rs_tpu_torch/csrc/probe_headbatch.cu",
     "P2": "lavt_rs_tpu_torch/csrc/probe_headbatch.cu",
 }
@@ -290,6 +302,12 @@ W7_STAGES = ((126, 128, 4, 2), (63, 256, 8, 2), (35, 512, 16, 18),
 W7_INFER_PER_FORWARD = {"K10": 24, "K3": 24, "K4": 4}
 W7_TRAIN_PER_STEP = {"K10": 24, "K9": 24, "K8": 23, "K3": 1, "K7": 24,
                      "K4": 4}
+# device busy under torch.profiler on the first K1/K11 design (one
+# H100 80GB HBM3 at 700 W, this script; PERF.md section 5), printed beside
+# this run's
+FIRST_DESIGN_BUSY = {
+    "forward": "28.0-29.3 ms on the first K1/K11 design, PERF.md",
+    "eval batch": "78.7-80.8 ms on the first K1/K11 design, PERF.md"}
 # the probe's defaults (tools/probe_headbatch.py): ch, heads, n, hd, grid
 PROBE = (3, 4, 144, 32, 96)
 
@@ -767,14 +785,15 @@ def k5_profiler_checks(what, nw, c, heads, sc, port_only, x, gy, wqkv, wproj,
         only_port_kernels(f"K5 {what}", [k5])
 
 
-def save_launch_work(b, nw, c, heads, ln, masked):
-    """(operations, bytes) of each launch of the save mode at (B, nW, 144,
-    C): each input read once and each output written once."""
+def save_launch_work(b, nw, c, heads, ln, masked, save=True):
+    """(operations, bytes) of each launch of the save mode (K1 / K2 /
+    K11's without save) at (B, nW, 144, C): each input read once and each
+    output written once."""
     n, rows, m = 144, b * nw * 144, b * nw
     act = rows * c * 2
     att = 4 * m * heads * n * n * 32
     att_bytes = (4 * act + heads * n * n * 4 + masked * n * n * 4
-                 + m * heads * n * n * 2)
+                 + (m * heads * n * n * 2 if save else 0))
     work = {"qkv": (6 * rows * c * c, 4 * act + (3 * c * c + 3 * c) * 2),
             "attention": (att, att_bytes),
             "out-projection": (2 * rows * c * c, 2 * act + (c * c + c) * 2)}
@@ -783,12 +802,26 @@ def save_launch_work(b, nw, c, heads, ln, masked):
     return work
 
 
+def launch_line(label, fn, work):
+    """Each kernel of fn's launches by device ms per call (torch.profiler)
+    beside each launch's bound, and the host's time to enqueue a call."""
+    bounds = "; ".join(f"{k} {bound_ms(v)[0]:.4f} {bound_ms(v)[1]}"
+                       for k, v in work.items())
+    by = device_ms_by_kernel(fn)
+    parts = "not measured" if by is None else "; ".join(
+        f"{short_kernel(k)} {v:.4f}" for k, v in
+        sorted(by.items(), key=lambda kv: -kv[1]))
+    log(f"{label}, device ms per call: {parts} (bounds: {bounds}); host "
+        f"{host_us(fn):.1f} us to enqueue a call")
+
+
 def save_profiler_checks(what, heads, sc, port_only, x, ln_s, ln_b, wqkv,
                          bqkv, wproj, bproj, bias, mask, flags):
-    """The save mode's launches (and, at the padded stages, K2's), each
-    kernel's device ms per call (torch.profiler) beside each launch's
-    bound; with port_only, a save-mode, a K2 and a K6 call under
-    torch.profiler: only the port's kernels."""
+    """The save mode's launches and, without saves, K1's (at the unpadded
+    stages) or K2's (at the padded ones), each kernel's device ms per call
+    (torch.profiler) beside each launch's bound; with port_only, a
+    save-mode, a K1, a K2 and a K6 call under torch.profiler: only the
+    port's kernels."""
     from lavt_rs_tpu_torch.ops import fused_msa
 
     lnp = None if ln_s is None else (ln_s, ln_b)
@@ -800,24 +833,44 @@ def save_profiler_checks(what, heads, sc, port_only, x, ln_s, ln_b, wqkv,
     def k2():
         return fused_msa.fused_window_msa(x, *w, flags=flags)
 
+    def k1():
+        return fused_msa.fused_window_msa_ln(x, *lnp, *w, flags=flags)
+
     b, nw, _, c = x.shape
-    work = save_launch_work(b, nw, c, heads, lnp is not None,
-                            int(flags.sum()))
-    bounds = "; ".join(f"{k} {bound_ms(v)[0]:.4f} {bound_ms(v)[1]}"
-                       for k, v in work.items())
-    for label, fn in (("save mode", save),) + (
-            (("K2 (no saves)", k2),) if lnp is None else ()):
-        by = device_ms_by_kernel(fn)
-        parts = "not measured" if by is None else "; ".join(
-            f"{short_kernel(k)} {v:.4f}" for k, v in
-            sorted(by.items(), key=lambda kv: -kv[1]))
-        log(f"{label} launches {what} x{tuple(x.shape)}, device ms per call: "
-            f"{parts} (bounds: {bounds}); host {host_us(fn):.1f} us to "
-            "enqueue a call")
+    masked = int(flags.sum())
+    for label, fn, saves in (("save mode", save, True),
+                             ("K2 (no saves)", k2, False) if lnp is None
+                             else ("K1 (no saves)", k1, False)):
+        launch_line(f"{label} launches {what} x{tuple(x.shape)}", fn,
+                    save_launch_work(b, nw, c, heads, lnp is not None, masked,
+                                     saves))
     if port_only:
-        only_port_kernels(f"save mode / K2 / K6 {what}", [
+        only_port_kernels(f"save mode / K1 / K2 / K6 {what}", [
             save, k2, lambda: fused_msa.fused_window_msa_bwd_recompute(
-                x, lnp, *w[:6], x, heads, sc, flags=flags)])
+                x, lnp, *w[:6], x, heads, sc, flags=flags)] + (
+                    [k1] if lnp is not None else []))
+
+
+def k11_profiler_checks(what, heads, sc, port_only, x, wqkv, bqkv, wproj,
+                        bproj, bias, mask, flags):
+    """K11's three launches (the qkv GEMM over the map's rows, the
+    attention in map order, the out-projection), each kernel's device ms
+    per call beside each launch's bound; with port_only, a K11 call under
+    torch.profiler: only the port's kernels."""
+    from lavt_rs_tpu_torch.ops import fused_msa_2d
+
+    def k11():
+        return fused_msa_2d.fused_window_msa_2d(x, wqkv, bqkv, wproj, bproj,
+                                                bias, mask, heads, sc, 12,
+                                                flags)
+
+    b, hp, wp, c = x.shape
+    nw = (hp // 12) * (wp // 12)
+    masked = 0 if mask is None else (nw if flags is None else int(flags.sum()))
+    launch_line(f"K11 launches {what}", k11,
+                save_launch_work(b, nw, c, heads, False, masked, False))
+    if port_only:
+        only_port_kernels(f"K11 {what}", [k11])
 
 
 def k9_profiler_checks(what, b, nw, heads, n, masked, sc, port_only, q, k, v,
@@ -857,6 +910,27 @@ def check_deterministic(what, fn):
     if not all(torch.equal(x, y) for x, y in zip(a, b)):
         raise RuntimeError(f"{what}: two calls gave different bits")
     log(f"{what}: two calls give the same bits")
+
+
+def same_bits(what, got, want, of):
+    """got has the bits of want (the same launches on the same inputs in
+    another order or mode)."""
+    import torch
+
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        diff = (got.float() - want.float()).abs().max().item()
+        raise RuntimeError(f"{what}: not bit-equal to {of} (max abs "
+                           f"difference {diff:.3g})")
+    log(f"{what}: bit-equal to {of}")
+
+
+def device_per_call(res, name, what, calls, fn):
+    """fn's device ms a call with its launches queued behind a device sleep
+    (`queued_ms`: no enqueue time), added per forward to res under name."""
+    ms = queued_ms(fn)
+    res.r[name]["device"] += calls * ms
+    log(f"{name} {what}: device {ms:.4f} ms a call (launches queued)")
 
 
 # -- the library chains (timing baselines only) -------------------------------
@@ -977,7 +1051,7 @@ class Results:
     def entry(self, name):
         return self.r.setdefault(name, dict(
             err=0.0, ms=0.0, plain=0.0, lib=0.0, bound=0.0, ops=0.0, mem=0.0,
-            replaced=0.0))
+            replaced=0.0, device=0.0))
 
     def add(self, name, calls, err, tk, tp, tb, work):
         r = self.entry(name)
@@ -1106,7 +1180,8 @@ def kernel_phases(dev):
             flags = shift_mask_flags_2d(hp, hp, 12, 6, dev) if shift else None
             tail = (*w, bias, mask, heads, sc)
             if name == "K1":
-                fk = lambda: fused_msa.fused_window_msa_ln(xw, *lnp, *tail)
+                fk = lambda: fused_msa.fused_window_msa_ln(xw, *lnp, *tail,
+                                                           flags=flags)
                 fp = lambda: fused_msa.fused_window_msa_ln_plain(xw, *lnp, *tail)
             else:
                 fk = lambda: fused_msa.fused_window_msa(xw, *tail, flags=flags)
@@ -1116,6 +1191,10 @@ def kernel_phases(dev):
             res.entry(name).setdefault("lib_by", []).append(lib_name)
             measure(res, name, what, depth // 2, fk, fp, lib,
                     msa_work(BATCH, nw, c, heads, "fwd", mask=shift), compare)
+            if name == "K1":
+                same_bits(f"K1 {what}", fk(), fused_msa.fused_window_msa_save(
+                    xw, lnp, *tail, flags=flags)[0], "the save mode's y")
+                device_per_call(res, "K1", what, depth // 2, fk)
         # training: save mode, K5 on the kernel's residuals, K6 (shift mask);
         # the save mode's yardstick is the matmul chain (SDPA returns no P),
         # the SDPA chain's time is logged beside it
@@ -1207,7 +1286,9 @@ def k11_kernel_phase(dev, res):
     from lavt_rs_tpu_torch.ops import fused_msa, fused_msa_2d
     from lavt_rs_tpu_torch.ops.window import (relative_bias_from_table,
                                               relative_position_index_2d,
-                                              shift_mask_2d, window_partition,
+                                              shift_mask_2d,
+                                              shift_mask_flags_2d,
+                                              window_partition,
                                               window_reverse)
 
     g = torch.Generator(device=dev).manual_seed(SEED + 20)
@@ -1216,6 +1297,7 @@ def k11_kernel_phase(dev, res):
         return (torch.randn(shape, generator=g, device=dev) * std).bfloat16()
 
     index = torch.from_numpy(relative_position_index_2d(12, 12)).to(dev)
+    port_only = True
     for b, hp, wp, c, heads, shift, calls in K11_CASES:
         nw = (hp // 12) * (wp // 12)
         x = rnd((b, hp, wp, c))
@@ -1224,29 +1306,41 @@ def k11_kernel_phase(dev, res):
         bias = relative_bias_from_table(
             torch.randn((23 * 23, heads), generator=g, device=dev), index)
         mask = shift_mask_2d(hp, wp, 12, 6, dev) if shift else None
+        flags = shift_mask_flags_2d(hp, wp, 12, 6, dev) if shift else None
         sc = (c // heads) ** -0.5
         args = (x, *w, bias, mask, heads, sc, 12)
         am = sdpa_mask(bias, mask, nw)
 
-        def replaced(x=x, w=w, bias=bias, mask=mask, heads=heads, sc=sc):
+        def k11(a=args, f=flags):
+            return fused_msa_2d.fused_window_msa_2d(*a, f)
+
+        def replaced(x=x, w=w, bias=bias, mask=mask, heads=heads, sc=sc,
+                     f=flags):
             xw = window_partition(x, 12).view(x.shape[0], -1, 144, x.shape[3])
-            y = fused_msa.fused_window_msa(xw, *w, bias, mask, heads, sc)
+            y = fused_msa.fused_window_msa(xw, *w, bias, mask, heads, sc,
+                                           flags=f)
             return window_reverse(y.view(-1, 144, x.shape[3]), 12,
                                   *x.shape[1:3])
 
         what = (f"x{tuple(x.shape)} heads {heads} mask {shift}"
                 + ("" if calls else " (off the path)"))
-        measure(res, "K11", what, calls,
-                lambda a=args: fused_msa_2d.fused_window_msa_2d(*a),
+        measure(res, "K11", what, calls, k11,
                 lambda a=args: fused_msa_2d.fused_window_msa_2d_plain(*a),
                 lambda x=x, w=w, am=am, heads=heads, sc=sc: torch_bf16_msa_2d(
                     x, *w, am, heads, sc),
                 msa_work(b, nw, c, heads, "fwd", mask=shift),
                 lambda name, got, want: compare(name, got, want, TOL["K2"]))
+        same_bits(f"K11 {what}", k11(), replaced(),
+                  "the K2 launches on the partitioned map")
+        device_per_call(res, "K11", what, calls, k11)
         tr = cuda_time_ms(replaced)
         res.r["K11"]["replaced"] += calls * tr
         log(f"K11 {what}: the route it replaces (partition, K2, reverse) "
             f"{tr:.4f} ms")
+        if calls:
+            defer(functools.partial(k11_profiler_checks, what, heads, sc,
+                                    port_only), x, *w, bias, mask, flags)
+            port_only = False
         del x, am, args
         torch.cuda.empty_cache()
 
@@ -1590,7 +1684,8 @@ def eval_phase(dev, card, weights):
                                     for a in first[2:])
         profile_clip(lambda: [t.cpu() for t in refcoco_eval.fwd_iou(
             model, image, ids, mask, target)], card,
-            f"one eval batch ({rb * s_pad} sentences)")
+            f"one eval batch ({rb * s_pad} sentences)", FIRST_DESIGN_BUSY[
+                "eval batch"])
 
         # the gate: f32 plain model, same weights, same items
         got = batch_logits(model, image, ids, mask)
@@ -2175,9 +2270,10 @@ def clips(dev, g, n):
     return out
 
 
-def profile_clip(fn, card, what="video clip"):
+def profile_clip(fn, card, what="video clip", before=None):
     """One call of fn (a clip, a step) under torch.profiler: device busy
-    time and the kernels that take it, by name."""
+    time (beside `before`, an earlier figure, when given) and the kernels
+    that take it, by name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2201,8 +2297,9 @@ def profile_clip(fn, card, what="video clip"):
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     log(f"{what} under torch.profiler: wall {wall:.3f} ms (host clock, "
-        f"profiler on), device busy {busy:.3f} ms, idle share "
-        f"{max(0.0, 1 - busy / wall):.3f}  [{card}]")
+        f"profiler on), device busy {busy:.3f} ms"
+        + ("" if before is None else f" ({before})")
+        + f", idle share {max(0.0, 1 - busy / wall):.3f}  [{card}]")
     for ms, count, key in rows[:20]:
         log(f"  {ms:9.3f} ms {100 * ms / busy:5.1f}% x{count:4d} {key[:110]}")
 
@@ -2548,9 +2645,10 @@ def video_training(dev, card, weights):
 
 # -- window 7, the routing cases, the new widths and the probe -------------------
 
-def profile_forward(dev, card, model, what):
+def profile_forward(dev, card, model, what, before=None):
     """One bs-8 forward of a lavt_one `model` under torch.profiler (device
-    busy, idle share, the kernels that take the time)."""
+    busy, idle share, the kernels that take the time); `before`: an
+    earlier figure printed beside the device busy."""
     import torch
 
     from lavt_rs_tpu_torch.ops.norm import maybe_normalize_image
@@ -2559,7 +2657,8 @@ def profile_forward(dev, card, model, what):
     image, ids, mask, _ = requests(dev, g, 1)[0]
     img = maybe_normalize_image(image)
     with torch.no_grad():
-        profile_clip(lambda: model(img, ids[:, 0], mask[:, 0]), card, what)
+        profile_clip(lambda: model(img, ids[:, 0], mask[:, 0]), card, what,
+                     before)
 
 
 def kernel_plan(cfg, img, n, train=False):
@@ -3194,6 +3293,8 @@ def main():
             f"{r['ms']:.3f} ms, bound {r['bound']:.3f} ms ({res.bound_by(k)}), "
             f"plain (f32 math) {r['plain']:.3f} ms, library chain "
             f"{r['lib']:.3f} ms{won}")
+    log(f"K1 per forward on the device (launches queued): "
+        f"{res.r['K1']['device']:.3f} ms")
     r = res.r["K2s"]
     log(f"K2 as the main path launches it (the save mode at stages 3-4) per "
         f"train step: kernel {r['ms']:.3f} ms, bound {r['bound']:.3f} ms "
@@ -3201,7 +3302,8 @@ def main():
         f"library (matmul) chain {r['lib']:.3f} ms")
     k11_kernel_phase(dev, res)
     r = res.r["K11"]
-    log(f"K11 per forward (stages 3-4): kernel {r['ms']:.3f} ms, bound "
+    log(f"K11 per forward (stages 3-4): kernel {r['ms']:.3f} ms (on the "
+        f"device, launches queued: {r['device']:.3f} ms), bound "
         f"{r['bound']:.3f} ms ({res.bound_by('K11')}), plain (f32 math) "
         f"{r['plain']:.3f} ms, library chain {r['lib']:.3f} ms, the route it "
         f"replaces (partition, K2, reverse) {r['replaced']:.3f} ms")
@@ -3214,7 +3316,8 @@ def main():
     log(f"model build ({cfg.dtype}, use_kernels={cfg.use_kernels}): "
         f"{time.perf_counter() - t0:.2f} s")
     infer_launches = inference(dev, card, model)
-    profile_forward(dev, card, model, "window-12 bs-8 forward")
+    profile_forward(dev, card, model, "window-12 bs-8 forward",
+                    FIRST_DESIGN_BUSY["forward"])
     weights = model.state_dict()
     del model
     torch.cuda.empty_cache()

@@ -17,11 +17,12 @@ torch modules: that is the counterpart of the XLA route, not a fallback.
 and `MultiModalSwinTransformer.kernel_plan` adds them up per forward or
 training step.
   * The window MSA ("fused", window 12): K1 (`fused_window_msa_ln`, the
-    pre-attention LN inside the kernel) where windowing needs no padding.
-    Where it does, the block runs an explicit LN first (the model pads
-    after LN, and LN of a zero pad row would give ln_bias), pads and rolls
-    the map, and the MSA reads its windows from the (B, Hp, Wp, C) map and
-    writes them back in place through K11 (`fused_msa_2d`): no partition or
+    pre-attention LN taken by the MSA's own launches) where windowing needs
+    no padding.  Where it does, the block runs an explicit LN first (the
+    model pads after LN, and LN of a zero pad row would give ln_bias), pads
+    and rolls the map, and the MSA reads its windows from the (B, Hp, Wp,
+    C) map and writes them back at the same positions through K11
+    (`fused_msa_2d`, its attention launch in map order): no partition or
     reverse copy.  At 480² that is K1 at stages 1-2 and K11 at stages 3
     (30 -> 36) and 4 (15 -> 24).  While autograd records the block
     (training), the padded stages keep the partition and K2 (through
@@ -137,21 +138,22 @@ class WindowAttention(nn.Module):
         return self.use_kernels and not (torch.is_grad_enabled() and (
             x.requires_grad or any(p.requires_grad for p in self.parameters())))
 
-    def forward_map(self, x, mask=None):
+    def forward_map(self, x, mask=None, flags=None):
         """K11: x (B, Hp, Wp, C) post-LN, padded and pre-rolled map ->
-        the projected attention at the same positions."""
+        the projected attention at the same positions; flags: the mask's
+        window flags (`window.shift_mask_flags_2d`) or None."""
         dt = x.dtype
         wqkv, bqkv, wproj, bproj, *rest = self._args(x, mask)
         return fused_msa_2d.fused_window_msa_2d(
             x, wqkv.to(dt), bqkv.to(dt), wproj.to(dt), bproj.to(dt), *rest,
-            self.window_size)
+            self.window_size, flags)
 
     def forward(self, x, mask=None, ln_params=None, flags=None):
         """x: (B, nW, N, C) windowed tokens (pre-LN when ln_params, the
         block's norm1 (weight, bias), is given: the fused route only);
         mask (nW, N, N) or None, with its window flags (the windows whose
-        mask K2, the save mode and K9 read; `window.shift_mask_flags_2d`)
-        or None."""
+        mask K1, K2, the save mode and K9 read;
+        `window.shift_mask_flags_2d`) or None."""
         b, nw, n, c = x.shape
         route = self.route(nw, n, x.element_size())
         if route == "fused":
@@ -282,7 +284,7 @@ class SwinBlock(nn.Module):
         mask = shift_mask_2d(hp, wp, ws, ss, x.device)
         flags = shift_mask_flags_2d(hp, wp, ws, ss, x.device)
         if padded and fused and self.attn.takes_map_route(x):
-            x = self.attn.forward_map(x, mask)
+            x = self.attn.forward_map(x, mask, flags)
         else:
             xw = window_partition(x, ws).view(b, nw, ws * ws, c)
             xw = self.attn(xw, mask, ln_params, flags)

@@ -25,7 +25,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("ln.cu", "fused_mlp.cu", "fused_msa.cu", "fused_msa_bwd.cu",
+SOURCES = ("ln.cu", "fused_mlp.cu", "fused_msa_bwd.cu",
            "fused_msa_bwd_sm90.cu", "fused_mlp_bwd.cu", "window_attn_sm90.cu",
            "window_attn_bwd_sm90.cu", "window_msa_sm90.cu",
            "fused_msa_sm90.cu", "probe_headbatch.cu")
@@ -45,12 +45,10 @@ SIGNATURES = {
     "lavt_gemm_bias_gelu": (P, P, P, P, I, I, I, P),
     "lavt_gemm_residual": (P,) * 6 + (I, I, I, I, P),
     "lavt_fused_ln_mlp": (P,) * 11 + (I, I, I, I, F, P),
-    "lavt_window_msa_attn": (P,) * 8 + (I, I, I, I, F, F, P),
-    "lavt_window_msa_2d_attn": (P,) * 6 + (I,) * 5 + (F, P),
     "lavt_msa_bwd_attn_sm90": (P,) * 9 + (I,) * 5 + (F, P),
     "lavt_msa_fwd_sm90": (P,) * 6 + (I,) * 5 + (P,),
+    "lavt_msa_fwd_map_sm90": (P,) * 5 + (I,) * 6 + (P,),
     "lavt_msa_dgrad": (P, P, P, I, I, I, P),
-    "lavt_gemm_bf16": (P,) * 4 + (I,) * 7 + (P,),
     "lavt_sum_partials": (P, P, I, L, P),
     "lavt_colsum_bf16": (P, P, I, I, I, P),
     "lavt_mlp_bwd_prep": (P,) * 8 + (I, I, I, F, P),

@@ -4,10 +4,9 @@ its training save mode, and its backward (K5, K6).
 Counterpart of `lavt_rs_tpu/ops/pallas/fused_msa.py`:
   * `fused_window_msa` (K2): x is post-LN windowed tokens;
   * `fused_window_msa_ln` (K1): x is pre-LN tokens and the block's
-    pre-attention LayerNorm (f32 stats, fast variance) runs inside the
-    kernel (in the save mode, first, as its own launch).  Valid only where
-    windowing needed no padding: the model pads after LN, and LN of a zero
-    pad row would give ln_bias;
+    pre-attention LayerNorm (f32 stats, fast variance) runs first, as its
+    own launch.  Valid only where windowing needed no padding: the model
+    pads after LN, and LN of a zero pad row would give ln_bias;
   * `fused_window_msa_save` (K1/K2 in save mode, `_fwd(..., save=True)`):
     the forward that also returns the training residuals q (post-scale),
     k, v (bf16, (B nW, N, C), lanes in head order; on the card the column
@@ -39,15 +38,14 @@ the exact max-subtracted one (the TPU inference kernel's exp(min(s, 80))
 equals it while every logit is below 80).
 
 Each wrapper takes the plain version for a CPU tensor and launches the
-CUDA kernels for a CUDA tensor: K2, the save mode and K6's forward as the
-launches of `save_launches` (K4's LN rows for K1, the qkv projection on
-the wgmma + TMA GEMM core of csrc/window_msa_sm90.cu, the attention of
-csrc/fused_msa_sm90.cu, the out-projection on the core); K1 without saves
-on csrc/fused_msa.cu's attention kernel and the WMMA GEMM of
-csrc/fused_msa_bwd.cu (which also holds the fixed-order sums); K5 on
-csrc/fused_msa_bwd_sm90.cu, its launches `bwd_launches`; K2p as
-csrc/window_msa_sm90.cu's projections around K10's attention kernel.  The
-plain versions compute in f32 with the kernels' rounding points.
+CUDA kernels for a CUDA tensor: K1, K2, the save mode and K6's forward as
+the launches of `save_launches` (K4's LN rows for K1, the qkv projection
+on the wgmma + TMA GEMM core of csrc/window_msa_sm90.cu, the attention of
+csrc/fused_msa_sm90.cu, the out-projection on the core); K5 on
+csrc/fused_msa_bwd_sm90.cu, its launches `bwd_launches` (the fixed-order
+sums on csrc/fused_msa_bwd.cu); K2p as csrc/window_msa_sm90.cu's
+projections around K10's attention kernel.  The plain versions compute in
+f32 with the kernels' rounding points.
 """
 
 from __future__ import annotations
@@ -280,9 +278,9 @@ def fused_window_msa_bwd_recompute_plain(x, ln, wqkv, bqkv, wproj, bproj,
 # -- CUDA launches -----------------------------------------------------------
 
 def fused_msa_supported(n: int, c: int, heads: int) -> bool:
-    """Geometries the CUDA kernel takes: window 12 (N = 144), head dim 32
-    (so C = 32 heads; x streams through the kernel in 64-column chunks with
-    a 32-column tail)."""
+    """Geometries the CUDA launches take: window 12 (N = 144), head dim 32
+    (so C = 32 heads, from 96 at Swin-T stage 1 to 1536 at Swin-L stage
+    4)."""
     return n == 144 and heads > 0 and c == 32 * heads
 
 
@@ -298,65 +296,6 @@ def _check_geometry(x, heads) -> None:
     if not fused_msa_supported(n, c, heads):
         raise ValueError(f"fused window MSA kernel: unsupported (N, C, heads) "
                          f"{(n, c, heads)}")
-
-
-def _attn_launch(x, ln, wqkv, bqkv, bias, mask, heads, scale, eps):
-    """csrc/fused_msa.cu's attention kernel in window order: K1's (LN
-    inside), or with ln None the core K11 runs on the map.  The bf16
-    attention output (B nW N, C)."""
-    b, nw, n, c = x.shape
-    _check_geometry(x, heads)
-    dev = x.device
-    bf16 = torch.bfloat16
-    checks = [("x", x, bf16, None), ("wqkv", wqkv, bf16, (3 * c, c)),
-              ("bqkv", bqkv, bf16, (3 * c,)),
-              ("bias", bias, torch.float32, (heads, n, n))]
-    if mask is not None:
-        checks.append(("mask", mask, torch.float32, (nw, n, n)))
-    if ln is not None:
-        checks += [("ln_scale", ln[0], bf16, (c,)),
-                   ("ln_bias", ln[1], bf16, (c,))]
-    _require_all(checks, dev)
-    o = torch.empty((b * nw, n, c), dtype=bf16, device=dev)
-    ln_ptrs = (None, None) if ln is None else (ln[0].data_ptr(),
-                                              ln[1].data_ptr())
-    err = cuda_lib.lib().lavt_window_msa_attn(
-        x.data_ptr(), *ln_ptrs, wqkv.data_ptr(), bqkv.data_ptr(),
-        bias.data_ptr(), None if mask is None else mask.data_ptr(),
-        o.data_ptr(), b * nw, nw, c, heads, float(scale), float(eps),
-        cuda_lib.stream_ptr(dev))
-    cuda_lib.check(err, "lavt_window_msa_attn")
-    return o
-
-
-def _proj_launch(o, wproj, bproj, shape) -> torch.Tensor:
-    c = wproj.shape[0]
-    _require_all([("wproj", wproj, torch.bfloat16, (c, c)),
-                  ("bproj", bproj, torch.bfloat16, (c,))], o.device)
-    return gemm(o, wproj, o.numel() // c, c, c, False, True,
-                bias=bproj).view(shape)
-
-
-def _launch(x, ln, wqkv, bqkv, wproj, bproj, bias, mask, heads, scale, eps):
-    o = _attn_launch(x, ln, wqkv, bqkv, bias, mask, heads, scale, eps)
-    return _proj_launch(o, wproj, bproj, x.shape)
-
-
-def gemm(a, b, m: int, n: int, k: int, a_kmajor: bool, b_nmajor: bool,
-         bias=None) -> torch.Tensor:
-    """(m, n) bf16 = A (m, k) B (k, n) (+ the (n,) bf16 bias) on the
-    hand-written WMMA GEMM of csrc/fused_msa_bwd.cu: K1's (without saves)
-    and K11's out-projection.  A is given as (k, m) when a_kmajor, B as
-    (n, k) when b_nmajor (a torch Linear weight); bf16 in, f32 sums, one
-    pass."""
-    dev = a.device
-    out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
-    err = cuda_lib.lib().lavt_gemm_bf16(
-        a.data_ptr(), b.data_ptr(), None if bias is None else bias.data_ptr(),
-        out.data_ptr(), m, n, k, m if a_kmajor else k, k if b_nmajor else n,
-        int(a_kmajor), int(b_nmajor), cuda_lib.stream_ptr(dev))
-    cuda_lib.check(err, "lavt_gemm_bf16")
-    return out
 
 
 def sum_partials(part: torch.Tensor) -> torch.Tensor:
@@ -642,7 +581,7 @@ def attn_launches(x, ln, wqkv, bqkv, bias, mask, heads: int, scale: float,
 def save_launches(x, ln, wqkv, bqkv, wproj, bproj, bias, mask, heads: int,
                   scale: float, ln_eps: float = LN_EPS, save: bool = True,
                   flags=None):
-    """K2 (save False) and the K1/K2 save mode, in order:
+    """K1 and K2 (save False) and the K1/K2 save mode, in order:
       (0) K1 only: xn = the pre-attention LN rows on K4's launch
           (`ln.layer_norm_rows_launch`, f32 stats, fast variance);
       (a) qkv = x Wqkvᵀ + bqkv, q scaled after its bias, bf16 (B nW N, 3C),
@@ -696,14 +635,19 @@ def fused_window_msa(x, wqkv, bqkv, wproj, bproj, bias,
 
 def fused_window_msa_ln(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, bias,
                         mask: Optional[torch.Tensor], heads: int, scale: float,
-                        ln_eps: float = LN_EPS) -> torch.Tensor:
-    """K1: (B, nW, N, C) PRE-LN windowed tokens -> projected attention."""
+                        ln_eps: float = LN_EPS,
+                        flags: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K1: (B, nW, N, C) PRE-LN windowed tokens -> projected attention; on
+    the card the launches of `save_launches` with LN and without the saves
+    (y has the save mode's bits)."""
     if x.device.type == "cpu":
         return fused_window_msa_ln_plain(x, ln_scale, ln_bias, wqkv, bqkv,
                                          wproj, bproj, bias, mask, heads,
                                          scale, ln_eps)
-    y = _launch(x, (ln_scale, ln_bias), wqkv, bqkv, wproj, bproj, bias, mask,
-                heads, scale, ln_eps)
+    ln = (ln_scale, ln_bias)
+    _check_save_launches(x, ln, wqkv, bqkv, wproj, bproj, heads)
+    y = save_launches(x, ln, wqkv, bqkv, wproj, bproj, bias, mask, heads,
+                      scale, ln_eps, save=False, flags=flags)
     fused_window_msa_ln.launches += 1
     return y
 
@@ -961,7 +905,7 @@ class FusedWindowMSA(torch.autograd.Function):
                 y = fused_window_msa(x, *w, bias, mask, heads, scale, flags)
             else:
                 y = fused_window_msa_ln(x, *ln, *w, bias, mask, heads, scale,
-                                        ln_eps)
+                                        ln_eps, flags)
             ctx.save_for_backward(x, ln_scale, *(ln or (None, None)), *w,
                                   bias, mask)
         return y
@@ -999,7 +943,8 @@ def window_msa(x, ln, wqkv, bqkv, wproj, bproj, bias, mask, heads: int,
     """The model's entry: K1 (ln = (scale, bias)) or K2 on x's dtype.  With
     autograd recording a parameter, through `FusedWindowMSA`; else the
     forward kernel alone (nothing is saved).  `flags`: the mask's window
-    flags (`window.shift_mask_flags_2d`), read by K2 and the save mode."""
+    flags (`window.shift_mask_flags_2d`), read by K1, K2 and the save
+    mode."""
     tensors = (x, wqkv, bqkv, wproj, bproj, bias) + tuple(ln or ())
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         ln_s, ln_b = ln if ln is not None else (None, None)
@@ -1010,4 +955,4 @@ def window_msa(x, ln, wqkv, bqkv, wproj, bproj, bias, mask, heads: int,
     if ln is None:
         return fused_window_msa(x, *w, bias, mask, heads, scale, flags)
     return fused_window_msa_ln(x, ln[0].to(dt), ln[1].to(dt), *w, bias, mask,
-                               heads, scale, ln_eps)
+                               heads, scale, ln_eps, flags)

@@ -8,30 +8,35 @@ pre-rolled (B, Hp, Wp, C) map, Hp and Wp multiples of the window.
   * `fused_window_msa_2d_plain` partitions, runs K2's plain version and
     reverses (`_ref_forward_2d`);
   * `fused_window_msa_2d` takes the plain version for a CPU tensor and
-    launches K11 for a CUDA tensor: the attention kernel of
-    csrc/fused_msa.cu in map order (each block reads its window's 12 runs
-    of 12 C tokens from the map and writes the head's columns of O back at
-    the same positions), then the WMMA GEMM out-projection on O viewed as
-    (B Hp Wp, C), whose rows are already the map.  No partition or reverse
-    copy is made.  While autograd records an input it goes through
+    launches K11 for a CUDA tensor: the three launches of `map_launches`
+    on the map, with no partition or reverse copy (the qkv projection on
+    the wgmma + TMA GEMM core over the map's rows, csrc/fused_msa_sm90.cu's
+    attention in map order, which loads each window's q, k, v as one TMA
+    box a head and writes the head's columns of O back at the window's
+    map positions, and the out-projection on the core over O's rows, which
+    are already the map).  While autograd records an input it goes through
     `FusedWindowMSA2D`, whose backward is autograd through the plain
     version, as the JAX function's VJP is `jax.vjp` of `_ref_forward_2d`
     (no path of the port trains through it).
 
 Weights are torch `nn.Linear` layout (wqkv (3C, C), wproj (C, C)); bias
 (heads, N, N) f32; mask (nW, N, N) f32 with nW = (Hp / ws)(Wp / ws), window
-(wy, wx) of each image taking mask[wy (Wp / ws) + wx], or None.
+(wy, wx) of each image taking mask[wy (Wp / ws) + wx], or None; flags the
+mask's (nW,) int32 window flags (`window.shift_mask_flags_2d`: the windows
+whose mask the card reads; None: every window), which change no value.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 
 from . import cuda_lib
-from .fused_msa import (_proj_launch, _require_all, fused_msa_supported,
-                        fused_window_msa_plain)
+from .fused_msa import (_require_all, fused_msa_supported,
+                        fused_window_msa_plain, gemm_bias, msa_attn_plain,
+                        msa_bwd_groups)
 from .window import window_partition, window_reverse
 
 
@@ -48,34 +53,90 @@ def fused_window_msa_2d_plain(x, wqkv, bqkv, wproj, bproj, bias, mask,
     return window_reverse(y.view(b * nw, ws * ws, c), ws, hp, wp)
 
 
-def _launch(x, wqkv, bqkv, wproj, bproj, bias, mask, heads, scale, ws):
+def msa_attn_map_plain(qkv, bias, mask, heads: int) -> torch.Tensor:
+    """The plain version of `msa_attn_map`: the qkv map partitioned into
+    windows, `msa_attn_plain` (its rounding points), O written back at the
+    windows' map positions."""
+    b, hp, wp, c3 = qkv.shape
+    n = bias.shape[-1]
+    ws = math.isqrt(n)
+    qw = window_partition(qkv, ws)
+    o, _ = msa_attn_plain(qw, bias, mask, heads)
+    return window_reverse(o.view(qw.shape[0], n, c3 // 3), ws, hp, wp)
+
+
+def msa_attn_map(qkv, bias, mask, heads: int,
+                 flags: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K11's attention launch (`lavt_msa_fwd_map_sm90`): qkv (B, Hp, Wp, 3C)
+    bf16 as `gemm_bias` writes it over the map's rows (q scaled), bias
+    (heads, 144, 144) f32, mask (nW, 144, 144) f32 or None with its window
+    flags -> O (B, Hp, Wp, C) bf16, each window's rows at its map
+    positions.  The plain version on a CPU tensor."""
+    if qkv.device.type == "cpu":
+        return msa_attn_map_plain(qkv, bias, mask, heads)
+    b, hp, wp, c3 = qkv.shape
+    c, n, dev = c3 // 3, 144, qkv.device
+    if hp % 12 or wp % 12 or not fused_msa_supported(n, c, heads):
+        raise ValueError(f"window MSA map kernel: unsupported (Hp, Wp, C, "
+                         f"heads) {(hp, wp, c, heads)}")
+    nw = (hp // 12) * (wp // 12)
+    checks = [("qkv", qkv, torch.bfloat16, None),
+              ("bias", bias, torch.float32, (heads, n, n))]
+    if mask is not None:
+        checks.append(("mask", mask, torch.float32, (nw, n, n)))
+        if flags is not None:
+            cuda_lib.require(flags, "flags", torch.int32, dev, (nw,))
+    _require_all(checks, dev)
+    o = torch.empty((b, hp, wp, c), dtype=torch.bfloat16, device=dev)
+    groups = msa_bwd_groups(b * nw, heads, cuda_lib.sm_count(dev.index or 0))
+    err = cuda_lib.lib().lavt_msa_fwd_map_sm90(
+        qkv.data_ptr(), bias.data_ptr(),
+        None if mask is None else mask.data_ptr(),
+        None if mask is None or flags is None else flags.data_ptr(),
+        o.data_ptr(), b, hp, wp, c, heads, groups, cuda_lib.stream_ptr(dev))
+    cuda_lib.check(err, "lavt_msa_fwd_map_sm90")
+    return o
+
+
+def map_launches(x, wqkv, bqkv, wproj, bproj, bias, mask, heads: int,
+                 scale: float, flags=None) -> torch.Tensor:
+    """K11's three launches, in order, on the (B, Hp, Wp, C) map:
+      (a) qkv = x Wqkvᵀ + bqkv over the map's B Hp Wp rows, q scaled after
+          its bias, bf16 (B, Hp, Wp, 3C), on the GEMM core (`gemm_bias`);
+      (b) the attention in map order (`msa_attn_map`): O (B, Hp, Wp, C);
+      (c) y = O Wprojᵀ + bproj over the same rows on the GEMM core.
+    On CPU tensors each launch takes its plain version, which compose to
+    `fused_window_msa_2d_plain`'s values (tests/test_torch_k11_launches.py);
+    on the card y has the bits of the K2 launches on the partitioned map."""
+    b, hp, wp, c = x.shape
+    rows = b * hp * wp
+    qkv = gemm_bias(x.reshape(rows, c), wqkv, bqkv, c, scale)
+    o = msa_attn_map(qkv.view(b, hp, wp, 3 * c), bias, mask, heads, flags)
+    return gemm_bias(o.view(rows, c), wproj, bproj).view(b, hp, wp, c)
+
+
+def _launch(x, wqkv, bqkv, wproj, bproj, bias, mask, heads, scale, ws,
+            flags):
     b, hp, wp, c = x.shape
     if hp % ws or wp % ws or not fused_msa_supported(ws * ws, c, heads):
         raise ValueError(f"fused window MSA 2D kernel: unsupported (Hp, Wp, "
                          f"C, heads, ws) {(hp, wp, c, heads, ws)}")
-    n = ws * ws
-    nw = (hp // ws) * (wp // ws)
     bf16 = torch.bfloat16
-    checks = [("x", x, bf16, None), ("wqkv", wqkv, bf16, (3 * c, c)),
-              ("bqkv", bqkv, bf16, (3 * c,)),
-              ("bias", bias, torch.float32, (heads, n, n))]
-    if mask is not None:
-        checks.append(("mask", mask, torch.float32, (nw, n, n)))
-    _require_all(checks, x.device)
-    o = torch.empty_like(x)
-    err = cuda_lib.lib().lavt_window_msa_2d_attn(
-        x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), bias.data_ptr(),
-        None if mask is None else mask.data_ptr(), o.data_ptr(), b, hp, wp, c,
-        heads, float(scale), cuda_lib.stream_ptr(x.device))
-    cuda_lib.check(err, "lavt_window_msa_2d_attn")
-    return _proj_launch(o, wproj, bproj, x.shape)
+    _require_all([("x", x, bf16, None), ("wqkv", wqkv, bf16, (3 * c, c)),
+                  ("bqkv", bqkv, bf16, (3 * c,)),
+                  ("wproj", wproj, bf16, (c, c)),
+                  ("bproj", bproj, bf16, (c,))], x.device)
+    return map_launches(x, wqkv, bqkv, wproj, bproj, bias, mask, heads, scale,
+                        flags)
 
 
-def _forward(x, wqkv, bqkv, wproj, bproj, bias, mask, heads, scale, ws):
+def _forward(x, wqkv, bqkv, wproj, bproj, bias, mask, heads, scale, ws,
+             flags):
     if x.device.type == "cpu":
         return fused_window_msa_2d_plain(x, wqkv, bqkv, wproj, bproj, bias,
                                          mask, heads, scale, ws)
-    y = _launch(x, wqkv, bqkv, wproj, bproj, bias, mask, heads, scale, ws)
+    y = _launch(x, wqkv, bqkv, wproj, bproj, bias, mask, heads, scale, ws,
+                flags)
     fused_window_msa_2d.launches += 1
     return y
 
@@ -85,11 +146,11 @@ class FusedWindowMSA2D(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, wqkv, bqkv, wproj, bproj, bias, mask, heads: int,
-                scale: float, ws: int):
+                scale: float, ws: int, flags=None):
         ctx.save_for_backward(x, wqkv, bqkv, wproj, bproj, bias, mask)
         ctx.static = (heads, scale, ws)
         return _forward(x, wqkv, bqkv, wproj, bproj, bias, mask, heads, scale,
-                        ws)
+                        ws, flags)
 
     @staticmethod
     def backward(ctx, gy):
@@ -102,20 +163,22 @@ class FusedWindowMSA2D(torch.autograd.Function):
             wrt = [t for t, want in zip(leaves, need) if want]
             grads = iter(torch.autograd.grad(y, wrt, gy))
         return tuple(next(grads) if want else None for want in need) + (
-            None, None, None)
+            None, None, None, None)
 
 
 def fused_window_msa_2d(x, wqkv, bqkv, wproj, bproj, bias,
                         mask: Optional[torch.Tensor], heads: int,
-                        scale: float, ws: int) -> torch.Tensor:
+                        scale: float, ws: int,
+                        flags: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K11: (B, Hp, Wp, C) padded, pre-rolled post-LN map -> the projected
     attention at the same map positions."""
     tensors = (x, wqkv, bqkv, wproj, bproj, bias, mask)
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad
                                        for t in tensors):
         return FusedWindowMSA2D.apply(x, wqkv, bqkv, wproj, bproj, bias, mask,
-                                      heads, scale, ws)
-    return _forward(x, wqkv, bqkv, wproj, bproj, bias, mask, heads, scale, ws)
+                                      heads, scale, ws, flags)
+    return _forward(x, wqkv, bqkv, wproj, bproj, bias, mask, heads, scale, ws,
+                    flags)
 
 
 fused_window_msa_2d.launches = 0

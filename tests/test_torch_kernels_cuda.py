@@ -13,10 +13,14 @@ neighbouring intermediate (the bf16 LN output, GELU output, q/k/v, P)
 moves the result by a few such steps: 2e-2 (≈ 5 steps) for LN and MLP,
 3e-2 for the MSA, whose P and attention output are rounded twice more.
 
-K2, the save mode and K6's forward run the launches of
+K1, K2, the save mode and K6's forward run the launches of
 `fused_msa.save_launches` (the GEMM core around csrc/fused_msa_sm90.cu's
 attention); their attention launch is also held alone to its plain
-version, in both modes.
+version, in both modes, and K1's output to the save mode's y, bit for
+bit.  K11 runs `fused_msa_2d.map_launches` (the same GEMMs over the map's
+rows around that attention in map order): its attention launch is held to
+its plain version and to the window-order launch on the partitioned map,
+and K11's output to the K2 launches on the partitioned map, bit for bit.
 
 The backward kernels (K5, K6, K7) are held to their plain versions on the
 same bf16 inputs: elementwise outputs (dx) within TOL_DX · (rms + |want|),
@@ -49,6 +53,7 @@ from lavt_rs_tpu_torch.ops.window import (partition_3d_groups,
                                           relative_position_index_2d,
                                           relative_position_index_3d,
                                           shift_mask_2d, shift_mask_3d,
+                                          shift_mask_flags_2d,
                                           window_partition, window_reverse)
 from lavt_rs_tpu_torch.ops.window_attn import (
     attention_core_bwd, attention_core_bwd_plain, mask_flags, window_attention,
@@ -188,20 +193,73 @@ def test_fused_window_msa_2d_kernel(dev, c, heads, hp, wp, shift):
 @pytest.mark.parametrize("c,heads,hp,wp,shift", K11_CASES)
 def test_fused_window_msa_2d_equals_partition_route(dev, c, heads, hp, wp,
                                                     shift):
-    """K11 shares K1's attention kernel (in window order, LN off) and its
-    GEMM, token for token: its output is bit-equal to partition -> that
-    kernel -> the GEMM -> reverse on the same bf16 inputs."""
-    from lavt_rs_tpu_torch.ops import fused_msa as fmsa
-
+    """K11 runs K2's launches in map order (the same GEMMs over the map's
+    rows, the same attention on each window), token for token: its output
+    is bit-equal to partition -> the K2 launches -> reverse on the same
+    bf16 inputs, with the mask's window flags as the blocks pass them."""
     rng = np.random.default_rng(c + hp + 3 * wp + 1)
     x, w, bias, mask, scale = _map_args(rng, dev, 2, hp, wp, c, heads, shift)
-    got = fused_window_msa_2d(x, *w, bias, mask, heads, scale, 12)
+    flags = shift_mask_flags_2d(hp, wp, 12, 6, dev) if shift else None
+    got = fused_window_msa_2d(x, *w, bias, mask, heads, scale, 12, flags)
     nw = (hp // 12) * (wp // 12)
     xw = window_partition(x, 12).view(2, nw, 144, c).contiguous()
-    yw = fmsa._launch(xw, None, *w, bias, mask, heads, scale, fmsa.LN_EPS)
+    yw = fused_window_msa(xw, *w, bias, mask, heads, scale, flags=flags)
     want = window_reverse(yw.view(2 * nw, 144, c), 12, hp, wp)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+# the map-order attention launch: C = 96 (Swin-T stage 1 at 448², a map of
+# 120 -> 10 x 10 windows, batch cut), 512 and 1024 (Swin-B stages 3-4 at
+# 480²) and the non-square maps of K11_CASES: (B, Hp, Wp, C, heads)
+MAP_ATTN_SHAPES = [(1, 120, 120, 96, 3), (2, 36, 36, 512, 16),
+                   (2, 24, 24, 1024, 32), (2, 36, 24, 256, 8),
+                   (2, 24, 36, 256, 8)]
+
+
+@pytest.mark.parametrize("b,hp,wp,c,heads", MAP_ATTN_SHAPES)
+@pytest.mark.parametrize("shift", [False, True])
+def test_msa_attn_map_launch(dev, b, hp, wp, c, heads, shift):
+    """The attention launch in map order against its plain version
+    (`msa_attn_map_plain`, within TOL_MSA), and bit-equal to the window-order
+    launch on the partitioned qkv map, reversed (with the window flags and
+    without: they change no bit)."""
+    from lavt_rs_tpu_torch.ops import fused_msa as fmsa
+    from lavt_rs_tpu_torch.ops import fused_msa_2d as fmsa2d
+
+    rng = np.random.default_rng(c + hp + 2 * wp + 61)
+    x, w, bias, mask, scale = _map_args(rng, dev, b, hp, wp, c, heads, shift)
+    flags = shift_mask_flags_2d(hp, wp, 12, 6, dev) if shift else None
+    qkv = fmsa.gemm_bias(x.reshape(-1, c), w[0], w[1], c, scale)
+    qkv = qkv.view(b, hp, wp, 3 * c)
+    o = fmsa2d.msa_attn_map(qkv, bias, mask, heads, flags)
+    assert o.shape == (b, hp, wp, c)
+    _close(o, fmsa2d.msa_attn_map_plain(qkv, bias, mask, heads), TOL_MSA)
+    qw = window_partition(qkv, 12).contiguous()
+    ow, _ = fmsa.msa_attn(qw, bias, mask, heads, False, flags)
+    want = window_reverse(ow.view(qw.shape[0], 144, c), 12, hp, wp)
+    torch.cuda.synchronize()
+    assert torch.equal(o, want)
+    assert torch.equal(o, fmsa2d.msa_attn_map(qkv, bias, mask, heads))
+
+
+@pytest.mark.parametrize("c,heads,hw,shift", [(128, 4, 48, False),
+                                              (128, 4, 48, True),
+                                              (256, 8, 24, True),
+                                              (96, 3, 24, True)])
+def test_fused_window_msa_ln_equals_save_mode_y(dev, c, heads, hw, shift):
+    """K1 is the save mode's launches without the saves: its output has the
+    bits of the save mode's y on the same inputs."""
+    rng = np.random.default_rng(c + heads + 67)
+    x, w, bias, mask, scale = _msa_args(rng, dev, 2, hw, c, heads, shift)
+    flags = mask_flags(mask) if shift else None
+    ln = (_bf16(rng, (c,), 0.2, dev) + 1.0, _bf16(rng, (c,), 0.2, dev))
+    got = fused_window_msa_ln(x, *ln, *w, bias, mask, heads, scale,
+                              flags=flags)
+    y, _ = fused_window_msa_save(x, ln, *w, bias, mask, heads, scale,
+                                 flags=flags)
+    torch.cuda.synchronize()
+    assert torch.equal(got, y)
 
 
 def test_fused_window_msa_2d_refuses_what_it_does_not_take(dev):

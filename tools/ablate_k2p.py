@@ -9,8 +9,9 @@ in `csrc/window_attn.cu` of a checkout from before its redesign (given by
 --source, with that checkout's `common.cuh`): the block projects its
 head's q, k, v from x on WMMA, then runs the attention by mma.sync with
 the f32 bias and mask read from L2 inside the key loop; the
-out-projection is a second launch on the WMMA GEMM `lavt_gemm_bf16`
-(which this tree still builds).  Its source is compiled by nvcc into one
+out-projection was a second launch on a WMMA GEMM, which this tree no
+longer builds: the out-projection here runs on this tree's GEMM core
+(`fused_msa.gemm_bias`).  The kernel's source is compiled by nvcc into one
 library per variant, each variant an edit of the source:
   full         the kernel as it was;
   no-bias      the attention reads no bias or mask (zeros in their place);
@@ -141,8 +142,7 @@ def main() -> int:
             raise RuntimeError(f"lavt_window_msa_np: CUDA error {err}")
 
     def proj():
-        return fused_msa.gemm(o, wproj, nw * n_p, c, c, False, True,
-                              bias=bproj)
+        return fused_msa.gemm_bias(o.view(nw * n_p, c), wproj, bproj)
 
     def events_ms(fn):
         for _ in range(3):

@@ -24,8 +24,7 @@ from collections import defaultdict
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the port's hand-written kernels (csrc/), by the names the profiler shows
 HAND_WRITTEN = (
-    "window_msa_attn_kernel",      # K1, K11
-    "msa_fwd_sm90_kernel",         # K2, the save mode, K6's forward
+    "msa_fwd_sm90_kernel",         # K1, K2, K11, the save mode, K6's forward
     "window_attn_sm90_kernel",     # K10 and its save mode, K2p's attention
     "attn_bwd_q_kernel",           # K9
     "attn_bwd_kv_kernel",          # K9
@@ -33,8 +32,7 @@ HAND_WRITTEN = (
     "mlp_ln_rows_kernel",          # K3 / K8: LN rows
     "mlp_bwd_prep_kernel",         # K7
     "ln_bwd_rows_kernel",          # K7
-    "gemm_bf16_kernel",            # the WMMA GEMM of the MSA routes
-    "gemm_kernel",                 # the wgmma + TMA GEMM core (K3, K8, K7, K2p, K5)
+    "gemm_kernel",                 # the wgmma + TMA GEMM core (K3, K8, K7, the MSAs' GEMMs)
     "layer_norm_wide_rows_kernel",  # K4 at C > 1024
     "layer_norm_rows_kernel",      # K4
     "sum_partials_kernel",
