@@ -14,7 +14,13 @@
        K4 row LN;
      * training: K1/K2 in save mode, K5 (MSA backward from the saved
        residuals), K6 (MSA backward, recomputing), K7 (LN-MLP backward,
-       with and without the DropPath keep), K8 (LN-MLP with DropPath).
+       with and without the DropPath keep), K8 (LN-MLP with DropPath),
+       K4b (the row LN's backward: dx within 2e-2 abs + rel, dscale and
+       dbias within 1e-3 relative Frobenius; two calls give the same
+       bits).
+   K4 at each stage is also timed on the device (launches queued) beside
+   K3's two-pass LN-rows launch and `F.layer_norm`; K4b's library call is
+   autograd through bf16 `F.layer_norm`.
    K1, K2, the save mode and K6's forward run the launches of
    `fused_msa.save_launches` (K4's LN rows for K1, the qkv projection and
    the out-projection on the GEMM core, csrc/fused_msa_sm90.cu's
@@ -146,9 +152,10 @@
    timed beside their bound and an SDPA chain; the bs-8 forward (counts
    K10 24 / K3 24 / K4 4 per forward, the pixel gate, ms and img/s, a
    profiler breakdown); the training gate and 10 steps at bs 8 (counts
-   K10 24 / K9 24 / K8 23 / K3 1 / K7 24 / K4 4 per step, falling loss).
-7. The routing cases: the kernels at the widths the routing added (K4 at
-   1536, K3/K8/K7 at 384, K1/K2/save/K5/K6/K11 at 96) against their plain
+   K10 24 / K9 24 / K8 23 / K3 1 / K7 24 / K4 4 / K4b 4 per step, falling
+   loss).
+7. The routing cases: the kernels at the widths the routing added (K4
+   and K4b at 1536, K3/K8/K7 at 384, K1/K2/save/K5/K6/K11 at 96) against their plain
    versions with bound / plain / library times; forwards of Swin-T
    window 7, Swin-T window 12 (480² and 448², K1 and K11 at C = 96),
    Swin-L window 12 and lavt_video --window12, each with launch counts
@@ -178,7 +185,12 @@
    only-port-kernels check (K3 / K8 / K7 at each width, K5, K9, and
    those of 8.).  No timed window follows their profiler sessions, and
    none runs late in the long main process, where torch.profiler drops
-   kernel records.
+   kernel records.  Last, the window-12 bs-8 training step under
+   torch.profiler with the LN backward's two call sites labelled
+   (`lavt_rs_tpu_torch/tools/profile_ln.py`): its device busy and the LN
+   backward's device ms and launches a step, beside the figures of the
+   plain chain that K4b replaced; each call site launches K4b and its
+   partial sum, no more.
 
 Exits non-zero on any failure, without CUDA, or without the package.
 The last two lines are the per-kernel JSON and
@@ -208,7 +220,8 @@ GATE_STD = 0.05
 # MSA also rounds q/k/v, P and the attention output before the
 # out-projection, so its bound is wider.  Elementwise outputs are held to
 # TOL abs + rel.
-TOL = {"K1": 3e-2, "K2": 3e-2, "K3": 2e-2, "K4": 2e-2, "K8": 2e-2}
+TOL = {"K1": 3e-2, "K2": 3e-2, "K3": 2e-2, "K4": 2e-2, "K4b": 2e-2,
+       "K8": 2e-2}
 # save mode: the probabilities P (values ~1/144) within TOL_P abs + 3e-2 rel
 TOL_P = 2e-3
 # backward kernels: dx within TOL_DX (rms(want) + |want|), the rms standing
@@ -217,19 +230,25 @@ TOL_P = 2e-3
 # TOL_GRAD
 TOL_DX = 3e-2
 TOL_GRAD = 1e-2
+# K4b (the LN backward): dx within TOL["K4b"] abs + rel, dscale and dbias
+# (sums over the rows of f32 products) within TOL_LN_GRAD relative
+# Frobenius
+TOL_LN_GRAD = 1e-3
 # training gate: kernel route (bf16) vs plain route (f32 math)
 LOSS_RTOL, MIN_COS = 1e-2, 0.98
 # main path vs the f32 plain path: argmax agreement on confident pixels
 MARGIN, MIN_AGREE = 0.05, 0.995
 # H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor cores, HBM3
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
-NAMES = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K10", "K2p", "K9",
-         "K11", "P1", "P2")
+NAMES = ("K1", "K2", "K3", "K4", "K4b", "K5", "K6", "K7", "K8", "K10", "K2p",
+         "K9", "K11", "P1", "P2")
+FORWARD_NAMES = ("K1", "K2", "K3", "K4")  # timed per forward, the rest per step
 REPLACES = {
     "K1": "lavt_rs_tpu/ops/pallas/fused_msa.py:1415",
     "K2": "lavt_rs_tpu/ops/pallas/fused_msa.py:1261",
     "K3": "lavt_rs_tpu/ops/pallas/fused_mlp.py:111",
     "K4": "lavt_rs_tpu/ops/pallas/ln.py:63",
+    "K4b": "lavt_rs_tpu/ops/pallas/ln.py:89",
     "K5": "lavt_rs_tpu/ops/pallas/fused_msa.py:672",
     "K6": "lavt_rs_tpu/ops/pallas/fused_msa.py:576",
     "K7": "lavt_rs_tpu/ops/pallas/fused_mlp.py:477",
@@ -246,6 +265,7 @@ SOURCES = {
     "K2": "lavt_rs_tpu_torch/csrc/fused_msa_sm90.cu",
     "K3": "lavt_rs_tpu_torch/csrc/fused_mlp.cu",
     "K4": "lavt_rs_tpu_torch/csrc/ln.cu",
+    "K4b": "lavt_rs_tpu_torch/csrc/ln.cu",
     "K5": "lavt_rs_tpu_torch/csrc/fused_msa_bwd_sm90.cu",
     "K6": "lavt_rs_tpu_torch/csrc/fused_msa_bwd_sm90.cu",
     "K7": "lavt_rs_tpu_torch/csrc/fused_mlp_bwd.cu",
@@ -277,8 +297,8 @@ EVAL_WORDS = ("the", "a", "man", "woman", "dog", "cat", "left", "right",
               "person", "car", "chair", "table", "white", "black", "middle",
               "front", "back", "guy", "girl", "with", "hat", "bike")
 # launches per training step (batch 8; at batch 16 stage 1 takes K6)
-TRAIN_PER_STEP = {"K1": 4, "K2": 20, "K3": 1, "K4": 4, "K5": 24, "K6": 0,
-                  "K7": 24, "K8": 23}
+TRAIN_PER_STEP = {"K1": 4, "K2": 20, "K3": 1, "K4": 4, "K4b": 4, "K5": 24,
+                  "K6": 0, "K7": 24, "K8": 23}
 BIG_PER_STEP = dict(TRAIN_PER_STEP, K5=22, K6=2)
 # ... with --use_checkpoint: every block's recompute runs its forward
 # kernels again (the save mode, counted as K1 / K2, and K8 or K3)
@@ -301,13 +321,22 @@ W7_STAGES = ((126, 128, 4, 2), (63, 256, 8, 2), (35, 512, 16, 18),
              (21, 1024, 32, 2))
 W7_INFER_PER_FORWARD = {"K10": 24, "K3": 24, "K4": 4}
 W7_TRAIN_PER_STEP = {"K10": 24, "K9": 24, "K8": 23, "K3": 1, "K7": 24,
-                     "K4": 4}
+                     "K4": 4, "K4b": 4}
 # device busy under torch.profiler on the first K1/K11 design (one
 # H100 80GB HBM3 at 700 W, this script; PERF.md section 5), printed beside
 # this run's
 FIRST_DESIGN_BUSY = {
     "forward": "28.0-29.3 ms on the first K1/K11 design, PERF.md",
     "eval batch": "78.7-80.8 ms on the first K1/K11 design, PERF.md"}
+# the window-12 bs-8 training step with the plain LN backward chain that
+# K4b replaced (one H100 80GB HBM3 at 700 W,
+# lavt_rs_tpu_torch/tools/profile_ln.py; PERF.md section 6), printed
+# beside this run's
+PLAIN_LN_BWD_STEP = ("device busy 74.076-74.126 ms, LN backward 4.834-4.836 "
+                     "ms and 200 launches a step with the plain chain, "
+                     "PERF.md")
+# K4b's launch and its partial sum, at most, per LN backward call
+LN_BWD_LAUNCHES_PER_CALL = 2
 # the probe's defaults (tools/probe_headbatch.py): ch, heads, n, hd, grid
 PROBE = (3, 4, 144, 32, 96)
 
@@ -335,6 +364,13 @@ def cuda_time_ms(fn, iters=10, warmup=2):
 
 def ln_work(rows, c):
     return 8 * rows * c, 2 * rows * c * 2 + 2 * c * 2
+
+
+def ln_bwd_work(rows, c):
+    """K4b: x and g read, dx written (bf16), the f32 scale read and dscale,
+    dbias written; ~16 operations an element (stats, xhat, the two row
+    means, dx, the column sums)."""
+    return 16 * rows * c, 3 * rows * c * 2 + 3 * c * 4
 
 
 def mlp_work(m, c, backward=False, keep=0):
@@ -439,6 +475,25 @@ def compare_grads(name, got, want, n_dx=1):
             raise RuntimeError(f"{name}: grad #{i} relative Frobenius error "
                                f"{rel:.4g} > {TOL_GRAD}")
     return max_err, worst
+
+
+def compare_ln_bwd(name, got, want):
+    """K4b: (dx, dscale, dbias); dx within TOL abs + rel, the column sums
+    by their relative Frobenius error (TOL_LN_GRAD); returns (dx's max abs
+    error, the worse Frobenius error)."""
+    import torch
+
+    err = compare(name, got[0], want[0], TOL["K4b"])
+    worst = 0.0
+    for part, g, w in zip(("dscale", "dbias"), got[1:], want[1:]):
+        if not bool(torch.isfinite(g).all()):
+            raise RuntimeError(f"{name}: non-finite {part}")
+        rel = ((g - w).norm() / w.norm().clamp(min=1e-30)).item()
+        worst = max(worst, rel)
+        if rel > TOL_LN_GRAD:
+            raise RuntimeError(f"{name}: {part} relative Frobenius error "
+                               f"{rel:.4g} > {TOL_LN_GRAD}")
+    return err, worst
 
 
 def compare_lse(name, got, want):
@@ -925,6 +980,26 @@ def same_bits(what, got, want, of):
     log(f"{what}: bit-equal to {of}")
 
 
+def ln_device_line(what, x, s, b):
+    """K4, K3's LN-rows launch (two-pass, `fused_mlp.mlp_ln_rows`) and
+    `F.layer_norm` on the same inputs, each on the device with its
+    launches queued behind a sleep (`queued_ms`), beside the byte bound;
+    returns K4's."""
+    from lavt_rs_tpu_torch.ops import fused_mlp, ln
+
+    rows, c = x.shape
+    fns = {"K4": lambda: ln.layer_norm_rows_launch(x, s, b),
+           "K3's LN rows": lambda: fused_mlp.mlp_ln_rows(x, s, b),
+           "F.layer_norm": lambda: torch_bf16_ln(x, s, b)}
+    if not fused_mlp.fused_tail_routed(c):
+        del fns["K3's LN rows"]
+    ms = {k: queued_ms(f) for k, f in fns.items()}
+    log(f"K4 {what}, device ms a launch (queued): "
+        + "; ".join(f"{k} {v:.4f}" for k, v in ms.items())
+        + f" (bound {bound_ms(ln_work(rows, c))[0]:.4f} bytes)")
+    return ms["K4"]
+
+
 def device_per_call(res, name, what, calls, fn):
     """fn's device ms a call with its launches queued behind a device sleep
     (`queued_ms`: no enqueue time), added per forward to res under name."""
@@ -1128,6 +1203,21 @@ def kernel_phases(dev):
                 lambda: ln.layer_norm_rows(x, s, b),
                 lambda: ln.layer_norm_rows_plain(x, s, b),
                 lambda: torch_bf16_ln(x, s, b), ln_work(rows, c), compare)
+        res.r["K4"]["device"] += ln_device_line(f"{st} ({rows}, {c})", x, s,
+                                                b)
+        # K4b: the stage norm's backward (and, uncounted, K1's LN's at
+        # stages 1-2, the same shapes) from the f32 master scale
+        gy, sf = rnd((rows, c)), s.float()
+        measure(res, "K4b", f"{st} ({rows}, {c})", 1,
+                lambda: ln.layer_norm_rows_bwd(x, sf, gy),
+                lambda: ln.layer_norm_rows_bwd_plain(x, sf, gy),
+                chain_grad(torch_bf16_ln, (x, s, b), gy),
+                ln_bwd_work(rows, c), compare_ln_bwd)
+        check_deterministic(f"K4b {st}", lambda: ln.layer_norm_rows_bwd_launch(
+            x, sf, gy))
+        device_per_call(res, "K4b", f"{st} ({rows}, {c})", 1,
+                        lambda: ln.layer_norm_rows_bwd_launch(x, sf, gy))
+        del gy
         # K3 / K8 / K7: the LN-MLP tail of every block (in training K3 in
         # block 0 only, where the drop-path rate is 0)
         args = (rnd((rows, c)), rnd((c,), 0.2, 1.0), rnd((c,), 0.2),
@@ -1426,6 +1516,7 @@ def counters():
     return {"K1": fused_msa.fused_window_msa_ln,
             "K2": fused_msa.fused_window_msa,
             "K3": fused_mlp.fused_ln_mlp, "K4": ln.layer_norm_rows,
+            "K4b": ln.layer_norm_rows_bwd,
             "K5": fused_msa.fused_window_msa_bwd,
             "K6": fused_msa.fused_window_msa_bwd_recompute,
             "K7": fused_mlp.fused_ln_mlp_bwd,
@@ -1799,6 +1890,32 @@ def training(dev, card, weights, cfg=None, per_step=None, what="train"):
         raise RuntimeError("non-finite loss at batch 16")
     check_counts("train bs 16", big_launches, BIG_PER_STEP, 1)
     return launches, big_launches
+
+
+def ln_bwd_step_check(card):
+    """The window-12 bs-8 training step under torch.profiler with the LN
+    backward's two call sites labelled (`tools/profile_ln.step_profile`:
+    the stage norms' `LayerNormRows.backward`, K1's LN in
+    `FusedWindowMSA.backward`): device busy and the LN backward's device ms
+    and launches a step, beside the plain chain's that K4b replaced; each
+    site launches K4b and its partial sum, no more."""
+    import torch
+
+    from lavt_rs_tpu_torch.tools import profile_ln
+
+    wall, busy, sites = profile_ln.step_profile(torch.device("cuda:0"))
+    parts = []
+    for label, (ms, n) in sites.items():
+        parts.append(f"{label} {fmt_ms(ms)} ms, {n:g} launches")
+        calls = TRAIN_PER_STEP["K4b" if "stage" in label else "K1"]
+        if ms is not None and n > LN_BWD_LAUNCHES_PER_CALL * calls:
+            raise RuntimeError(f"{label}: {n:g} launches a step, more than "
+                               f"K4b's {LN_BWD_LAUNCHES_PER_CALL} a call")
+    total = sum(ms for ms, _ in sites.values() if ms is not None)
+    log(f"window-12 bs-8 train step under torch.profiler: device busy "
+        f"{busy:.3f} ms a step (wall {wall:.3f}); LN backward "
+        f"{total:.4f} ms a step ({'; '.join(parts)}) [{PLAIN_LN_BWD_STEP}]  "
+        f"[{card}]")
 
 
 def checkpoint_training(dev, card, weights):
@@ -2770,7 +2887,7 @@ def widths_kernel_phase(dev, res):
     """The kernels at the widths this routing added, against their plain
     versions and timed beside bound, plain and library chain, at the shapes
     their paths give them (bs 8, 480²; per-forward or per-step calls):
-    K4 at 1536 (Swin-L stage 4, 1 call); K3, K8 and K7 at 384 (Swin-T
+    K4 and K4b at 1536 (Swin-L stage 4, 1 call); K3, K8 and K7 at 384 (Swin-T
     stage 3, 6 blocks); K1 at 96 (Swin-T window-12 stage 1, 2 blocks), K2,
     the save mode, K5 and K6 at 96 (stage 1's shape, off the window-12
     path), K11 at 96 (a 448² input's stage 1, 112 -> 120).  Results go
@@ -2798,6 +2915,12 @@ def widths_kernel_phase(dev, res):
             lambda: ln.layer_norm_rows(x, s, b),
             lambda: ln.layer_norm_rows_plain(x, s, b),
             lambda: torch_bf16_ln(x, s, b), ln_work(rows, c), check(TOL["K4"]))
+    gy, sf = rnd((rows, c)), s.float()
+    measure(res, "K4b@1536", f"Swin-L stage 4 ({rows}, {c})", 1,
+            lambda: ln.layer_norm_rows_bwd(x, sf, gy),
+            lambda: ln.layer_norm_rows_bwd_plain(x, sf, gy),
+            chain_grad(torch_bf16_ln, (x, s, b), gy), ln_bwd_work(rows, c),
+            compare_ln_bwd)
 
     rows, c, tail = BATCH * 30 * 30, 384, 30 * 30
     args = (rnd((rows, c)), rnd((c,), 0.2, 1.0), rnd((c,), 0.2),
@@ -3285,16 +3408,22 @@ def main():
 
     # -- kernel phases ----------------------------------------------------
     res = kernel_phases(dev)
-    for k in NAMES[:8] + ("save",):
+    for k in NAMES[:9] + ("save",):
         r = res.r[k]
         won = (f" (the faster per stage: {', '.join(r['lib_by'])})"
                if "lib_by" in r else "")
-        log(f"{k} per {'forward' if k < 'K5' else 'train step'}: kernel "
+        log(f"{k} per {'forward' if k in FORWARD_NAMES else 'train step'}: kernel "
             f"{r['ms']:.3f} ms, bound {r['bound']:.3f} ms ({res.bound_by(k)}), "
             f"plain (f32 math) {r['plain']:.3f} ms, library chain "
             f"{r['lib']:.3f} ms{won}")
     log(f"K1 per forward on the device (launches queued): "
         f"{res.r['K1']['device']:.3f} ms")
+    log(f"K4 per forward on the device (launches queued): "
+        f"{res.r['K4']['device']:.4f} ms, by events {res.r['K4']['ms']:.4f}, "
+        f"bound {res.r['K4']['bound']:.4f} ms (0.158 by events before its "
+        f"redesign, PERF.md); K4b per train step (the stage norms) on the "
+        f"device: {res.r['K4b']['device']:.4f} ms, by events "
+        f"{res.r['K4b']['ms']:.4f}, bound {res.r['K4b']['bound']:.4f} ms")
     r = res.r["K2s"]
     log(f"K2 as the main path launches it (the save mode at stages 3-4) per "
         f"train step: kernel {r['ms']:.3f} ms, bound {r['bound']:.3f} ms "
@@ -3356,6 +3485,7 @@ def main():
     torch.cuda.empty_cache()
     log(f"gate done at {time.perf_counter() - t_start:.1f} s")
     train_launches, big_launches = training(dev, card, weights)
+    defer(functools.partial(ln_bwd_step_check, card))
     checkpoint_training(dev, card, weights)
     del weights
     torch.cuda.empty_cache()
@@ -3437,7 +3567,8 @@ def main():
 
     launches = {k: infer_launches[k] for k in ("K1", "K3", "K4")}
     launches["K11"] = eval_launches["K11"]
-    launches.update({k: train_launches[k] for k in ("K2", "K5", "K7", "K8")})
+    launches.update({k: train_launches[k]
+                     for k in ("K2", "K4b", "K5", "K7", "K8")})
     launches["K6"] = big_launches["K6"]
     launches.update({k: video_launches[k] for k in ("K10", "K2p")})
     launches["K9"] = video_train_launches["K9"]

@@ -1,116 +1,537 @@
-// K4: one-pass row LayerNorm.
+// K4: one-pass row LayerNorm, and K4b, its backward in one pass.
 //
-// Replaces lavt_rs_tpu/ops/pallas/ln.py:layer_norm_rows (_ln_kernel), the
-// stage-output norms norm0..norm3 of the Swin backbone.
+// K4 replaces lavt_rs_tpu/ops/pallas/ln.py:layer_norm_rows (_ln_kernel),
+// the stage-output norms norm0..norm3 of the Swin backbone; its launch is
+// also K1's pre-attention LN (ops/fused_msa.save_launches).  K4b replaces
+// the XLA backward of that custom_vjp (ln.py:_ln_bwd), the stage norms'
+// and K1's LN backward in training.
 //
-// Math: f32 statistics with the fast variance E[x^2] - E[x]^2 and epsilon
-// inside rsqrt, then the affine (gamma, beta), out in bf16.
+// Math (both): f32 statistics with the fast variance E[x^2] - E[x]^2 and
+// epsilon inside rsqrt.  K4: (x - mu) rstd gamma + beta in f32, rounded
+// once to bf16.  K4b, from the output gradient g and the f32 master gamma:
+//   xhat = (x - mu) rstd, dxn = g gamma, m1 = mean(dxn), m2 = mean(dxn xhat),
+//   dx = rstd (dxn - m1 - xhat m2) in bf16,
+// and per block of rows the f32 column partials of sum g xhat (dgamma) and
+// sum g (dbeta), added in block order by lavt_sum_partials (no atomics).
 //
-// Bound on the H100: memory.  Per row it reads C bf16 values and writes C;
-// there are 8 flops per element and no tensor-core work.  Design: one warp
-// per row, every lane keeps its C/32 values in registers, so a row is read
-// from device memory once and written once.  Lanes read neighbouring
-// elements (coalesced 64-byte warp transactions).  C <= 1024.  Wider rows
-// (1024 < C <= 4096: Swin-L's stage 4 is 1536) take one block of 128
-// threads per row, each keeping up to 32 values, the sums reduced through
-// shared memory; still one read and one write of the row.
+// Bound on the H100: memory (K4 reads x and writes y, K4b reads x and g
+// and writes dx; ~8 and ~16 flops per element).  Design:
+//   * 16-byte vector loads and stores (8 bf16 a lane), neighbouring lanes
+//     on neighbouring words;
+//   * a row is held by a lane group of G lanes (G = 4 .. 32, a power of two
+//     that divides C / 8, each lane V <= 4 words), so one warp holds 32 / G
+//     rows and its reductions are log2(G) shuffles; at C <= 256 G <= 16,
+//     more than one row a warp.  Widths that tile no such way (C = 160,
+//     224, ...) take G = 32 with the words past C / 8 masked;
+//   * gamma and beta are loaded once per lane, into f32 registers;
+//   * a persistent grid: block b takes rows [b per, (b + 1) per), its warps
+//     step through them together, each lane group's next row loaded before
+//     this row's reductions.  At C <= 1024 K4b runs one block an SM of
+//     8-24 warps, so that its partials are at most one a SM;
+//   * 1024 < C <= 4096 (Swin-L's stage 4 is 1536): the whole block of 256
+//     threads on one row at a time, the same vector accesses, its sums
+//     reduced through shared memory in warp order.
+// The launch plan (`plan`) is mirrored by ops/ln.py:ln_rows_plan.
+
+#include <cstdint>
 
 #include "common.cuh"
 
 namespace lavt {
+namespace lnr {
 
-constexpr int kLnMaxPerLane = 32;  // C <= 1024
-constexpr int kLnRowsPerBlock = 8;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxVecs = 4;        // 16-byte words a lane holds: C <= 1024
+constexpr int kWideMaxVecs = 2;    // ... on the wide path: C <= 4096
 
-__global__ void layer_norm_rows_kernel(const bf16* __restrict__ x,
-                                       const bf16* __restrict__ gamma,
-                                       const bf16* __restrict__ beta,
-                                       bf16* __restrict__ out, int rows, int C,
-                                       float eps) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kLnRowsPerBlock + (threadIdx.x >> 5);
-  if (row >= rows) return;
-  const bf16* xr = x + static_cast<size_t>(row) * C;
-  float v[kLnMaxPerLane];
-  float s = 0.f, ss = 0.f;
-#pragma unroll
-  for (int t = 0; t < kLnMaxPerLane; ++t) {
-    const int c = lane + 32 * t;
-    v[t] = c < C ? to_f(xr[c]) : 0.f;
-    s += v[t];
-    ss += v[t] * v[t];
+// K4: blocks of 8 warps an SM keeps resident (the registers each lane
+// needs rise with V).  K4b: one block an SM, of as many warps: its
+// column partials, one (2, C) per block, are then few to add
+__host__ __device__ constexpr int fwd_blocks_per_sm(int v) { return v == 1 ? 5 : (v == 2 ? 3 : (v == 3 ? 2 : 1)); }
+__host__ __device__ constexpr int bwd_warps(int v) { return kWarps * (v == 1 ? 3 : (v == 2 ? 2 : 1)); }
+constexpr int kWideFwdBlocksPerSm = 3, kWideBwdBlocksPerSm = 2;
+
+struct Plan {
+  int lanes, vecs;  // G lanes a row, V words a lane; lanes 0: the wide path
+  bool tail;        // words past C / 8 masked
+  int per, blocks;  // rows a block, blocks
+};
+
+inline Plan plan(int rows, int C, int sms, bool bwd) {
+  Plan p{0, 0, false, 0, 0};
+  const int words = C / 8;
+  int step = 1, per_sm;
+  if (C > 32 * kMaxVecs * 8) {
+    per_sm = bwd ? kWideBwdBlocksPerSm : kWideFwdBlocksPerSm;
+  } else {
+    for (int g = C <= 256 ? 16 : 32; g >= 4 && p.lanes == 0; g /= 2)
+      if (words % g == 0 && words / g <= kMaxVecs) p.lanes = g, p.vecs = words / g;
+    if (p.lanes == 0) p.lanes = 32, p.vecs = (words + 31) / 32, p.tail = true;
+    step = (bwd ? bwd_warps(p.vecs) : kWarps) * (32 / p.lanes);
+    per_sm = bwd ? 1 : fwd_blocks_per_sm(p.vecs);
   }
-  s = warp_sum(s);
-  ss = warp_sum(ss);
-  const float mu = s / C;
-  const float var = ss / C - mu * mu;
-  const float rstd = rsqrtf(var + eps);
-  bf16* orow = out + static_cast<size_t>(row) * C;
+  const int iters = (rows + step - 1) / step;
+  const int want = iters < sms * per_sm ? iters : sms * per_sm;
+  p.per = (iters + want - 1) / want * step;
+  p.blocks = (rows + p.per - 1) / p.per;
+  return p;
+}
+
+__device__ __forceinline__ void unpack(const uint4& u, float* v) {
+  Pack8 p;
+  p.u = u;
 #pragma unroll
-  for (int t = 0; t < kLnMaxPerLane; ++t) {
-    const int c = lane + 32 * t;
-    if (c < C) orow[c] = to_bf((v[t] - mu) * rstd * to_f(gamma[c]) + to_f(beta[c]));
+  for (int e = 0; e < 4; ++e) {
+    const float2 f = __bfloat1622float2(p.h[e]);
+    v[2 * e] = f.x;
+    v[2 * e + 1] = f.y;
   }
 }
 
-constexpr int kLnWideThreads = 128;  // 1024 < C <= 4096
-
-__global__ void __launch_bounds__(kLnWideThreads)
-layer_norm_wide_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gamma,
-                            const bf16* __restrict__ beta, bf16* __restrict__ out,
-                            int C, float eps) {
-  __shared__ float part[2][kLnWideThreads / 32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const bf16* xr = x + static_cast<size_t>(blockIdx.x) * C;
-  float v[kLnMaxPerLane];
-  float s = 0.f, ss = 0.f;
+__device__ __forceinline__ uint4 pack(const float* v) {
+  Pack8 p;
 #pragma unroll
-  for (int t = 0; t < kLnMaxPerLane; ++t) {
-    const int c = threadIdx.x + kLnWideThreads * t;
-    v[t] = c < C ? to_f(xr[c]) : 0.f;
-    s += v[t];
-    ss += v[t] * v[t];
+  for (int e = 0; e < 4; ++e) p.h[e] = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
+  return p.u;
+}
+
+// sum over the G aligned lanes of a group (a fixed tree: every lane of the
+// group gets the same bits)
+template <int G>
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int o = G / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// the V words of one row that lane j of its group holds (zeros where the
+// row or the word lies outside)
+template <int G, int V, bool TAIL>
+__device__ __forceinline__ void load_row(const bf16* __restrict__ src, bool valid, int j,
+                                         int words, uint4 (&w)[V]) {
+#pragma unroll
+  for (int t = 0; t < V; ++t) {
+    const int c = j + G * t;
+    w[t] = (valid && (!TAIL || c < words)) ? __ldg(reinterpret_cast<const uint4*>(src) + c)
+                                           : make_uint4(0u, 0u, 0u, 0u);
   }
-  s = warp_sum(s);
-  ss = warp_sum(ss);
-  if (lane == 0) {
-    part[0][warp] = s;
-    part[1][warp] = ss;
+}
+
+template <int G, int V, bool TAIL>
+__global__ void __launch_bounds__(kThreads, fwd_blocks_per_sm(V))
+    rows_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gamma,
+                    const bf16* __restrict__ beta, bf16* __restrict__ out, int rows, int C,
+                    int per, float eps) {
+  constexpr int R = 32 / G, kStep = kWarps * R;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int j = lane % G, words = C / 8;
+  const int r0 = blockIdx.x * per, r1 = min(rows, r0 + per);
+  float gm[V][8], bt[V][8];
+#pragma unroll
+  for (int t = 0; t < V; ++t) {
+    const int c = j + G * t;
+    const bool in = !TAIL || c < words;
+    unpack(in ? __ldg(reinterpret_cast<const uint4*>(gamma) + c) : make_uint4(0u, 0u, 0u, 0u),
+           gm[t]);
+    unpack(in ? __ldg(reinterpret_cast<const uint4*>(beta) + c) : make_uint4(0u, 0u, 0u, 0u),
+           bt[t]);
   }
+  const float inv_c = 1.f / C;
+  int row = r0 + warp * R + lane / G;
+  uint4 cur[V], nxt[V];
+  load_row<G, V, TAIL>(x + static_cast<size_t>(row) * C, row < r1, j, words, cur);
+  // warp-uniform bound: every lane takes the shuffles of every iteration
+  for (int base = r0 + warp * R; base < r1; base += kStep, row += kStep) {
+    load_row<G, V, TAIL>(x + static_cast<size_t>(row + kStep) * C, row + kStep < r1, j, words,
+                         nxt);
+    float v[V][8], s = 0.f, ss = 0.f;
+#pragma unroll
+    for (int t = 0; t < V; ++t) {
+      unpack(cur[t], v[t]);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        s += v[t][e];
+        ss += v[t][e] * v[t][e];
+      }
+    }
+    s = group_sum<G>(s);
+    ss = group_sum<G>(ss);
+    const float mu = s * inv_c;
+    const float rstd = rsqrtf(ss * inv_c - mu * mu + eps);
+    if (row < r1) {
+      uint4* dst = reinterpret_cast<uint4*>(out + static_cast<size_t>(row) * C);
+#pragma unroll
+      for (int t = 0; t < V; ++t) {
+        const int c = j + G * t;
+        if (TAIL && c >= words) continue;
+        float y[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) y[e] = (v[t][e] - mu) * rstd * gm[t][e] + bt[t][e];
+        dst[c] = pack(y);
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < V; ++t) cur[t] = nxt[t];
+  }
+}
+
+template <int G, int V, bool TAIL>
+__global__ void __launch_bounds__(32 * bwd_warps(V), 1)
+    rows_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
+                    const float* __restrict__ gamma, bf16* __restrict__ dx,
+                    float* __restrict__ part, int rows, int C, int per, float eps) {
+  constexpr int R = 32 / G, kW = bwd_warps(V), kStep = kW * R;
+  __shared__ float red[2][32 * kMaxVecs * 8];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int j = lane % G, words = C / 8;
+  const int r0 = blockIdx.x * per, r1 = min(rows, r0 + per);
+  float gm[V][8], acc_gx[V][8], acc_g[V][8];
+#pragma unroll
+  for (int t = 0; t < V; ++t) {
+    const int c = j + G * t;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      gm[t][e] = (!TAIL || c < words) ? __ldg(gamma + 8 * c + e) : 0.f;
+      acc_gx[t][e] = acc_g[t][e] = 0.f;
+    }
+  }
+  const float inv_c = 1.f / C;
+  int row = r0 + warp * R + lane / G;
+  uint4 cx[V], cg[V], nx[V], ng[V];
+  load_row<G, V, TAIL>(x + static_cast<size_t>(row) * C, row < r1, j, words, cx);
+  load_row<G, V, TAIL>(g + static_cast<size_t>(row) * C, row < r1, j, words, cg);
+  for (int base = r0 + warp * R; base < r1; base += kStep, row += kStep) {
+    const size_t next = static_cast<size_t>(row + kStep) * C;
+    load_row<G, V, TAIL>(x + next, row + kStep < r1, j, words, nx);
+    load_row<G, V, TAIL>(g + next, row + kStep < r1, j, words, ng);
+    float xh[V][8], s = 0.f, ss = 0.f;
+#pragma unroll
+    for (int t = 0; t < V; ++t) {
+      unpack(cx[t], xh[t]);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        s += xh[t][e];
+        ss += xh[t][e] * xh[t][e];
+      }
+    }
+    s = group_sum<G>(s);
+    ss = group_sum<G>(ss);
+    const float mu = s * inv_c;
+    const float rstd = rsqrtf(ss * inv_c - mu * mu + eps);
+    float dxn[V][8], m1 = 0.f, m2 = 0.f;
+#pragma unroll
+    for (int t = 0; t < V; ++t) {
+      float gv[8];
+      unpack(cg[t], gv);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        xh[t][e] = (xh[t][e] - mu) * rstd;
+        dxn[t][e] = gv[e] * gm[t][e];
+        m1 += dxn[t][e];
+        m2 += dxn[t][e] * xh[t][e];
+        acc_gx[t][e] += gv[e] * xh[t][e];  // 0 on a masked row or word: g = 0
+        acc_g[t][e] += gv[e];
+      }
+    }
+    m1 = group_sum<G>(m1) * inv_c;
+    m2 = group_sum<G>(m2) * inv_c;
+    if (row < r1) {
+      uint4* dst = reinterpret_cast<uint4*>(dx + static_cast<size_t>(row) * C);
+#pragma unroll
+      for (int t = 0; t < V; ++t) {
+        const int c = j + G * t;
+        if (TAIL && c >= words) continue;
+        float d[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) d[e] = rstd * (dxn[t][e] - m1 - xh[t][e] * m2);
+        dst[c] = pack(d);
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < V; ++t) cx[t] = nx[t], cg[t] = ng[t];
+  }
+  // the column partials: the warp's R groups by a fixed shuffle tree, then
+  // the warps in order through shared memory
+#pragma unroll
+  for (int o = G; o < 32; o <<= 1)
+#pragma unroll
+    for (int t = 0; t < V; ++t)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        acc_gx[t][e] += __shfl_xor_sync(0xffffffffu, acc_gx[t][e], o);
+        acc_g[t][e] += __shfl_xor_sync(0xffffffffu, acc_g[t][e], o);
+      }
+  for (int w = 0; w < kW; ++w) {
+    if (warp == w && lane < G) {
+#pragma unroll
+      for (int t = 0; t < V; ++t) {
+        const int c = j + G * t;
+        if (TAIL && c >= words) continue;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          red[0][8 * c + e] = (w == 0 ? 0.f : red[0][8 * c + e]) + acc_gx[t][e];
+          red[1][8 * c + e] = (w == 0 ? 0.f : red[1][8 * c + e]) + acc_g[t][e];
+        }
+      }
+    }
+    __syncthreads();
+  }
+  float* dst = part + static_cast<size_t>(blockIdx.x) * 2 * C;
+  for (int i = threadIdx.x; i < 2 * C; i += 32 * kW) dst[i] = red[i / C][i % C];
+}
+
+// -- 1024 < C <= 4096: the block on one row at a time ------------------------
+
+// the block's sum of (a, b) in warp order; `buf` alternates between calls,
+// so one barrier a call keeps a slow warp's reads apart from the next writes
+__device__ __forceinline__ float2 block_sum2(float a, float b, float (*buf)[2][kWarps],
+                                             int& parity) {
+  a = warp_sum(a);
+  b = warp_sum(b);
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  if (lane == 0) buf[parity][0][warp] = a, buf[parity][1][warp] = b;
   __syncthreads();
-  s = ss = 0.f;
+  a = b = 0.f;
 #pragma unroll
-  for (int w = 0; w < kLnWideThreads / 32; ++w) {  // fixed order
-    s += part[0][w];
-    ss += part[1][w];
-  }
-  const float mu = s / C;
-  const float rstd = rsqrtf(ss / C - mu * mu + eps);
-  bf16* orow = out + static_cast<size_t>(blockIdx.x) * C;
+  for (int w = 0; w < kWarps; ++w) a += buf[parity][0][w], b += buf[parity][1][w];
+  parity ^= 1;
+  return make_float2(a, b);
+}
+
+__device__ __forceinline__ void load_wide(const bf16* __restrict__ src, bool valid, int words,
+                                          uint4 (&w)[kWideMaxVecs]) {
 #pragma unroll
-  for (int t = 0; t < kLnMaxPerLane; ++t) {
-    const int c = threadIdx.x + kLnWideThreads * t;
-    if (c < C) orow[c] = to_bf((v[t] - mu) * rstd * to_f(gamma[c]) + to_f(beta[c]));
+  for (int t = 0; t < kWideMaxVecs; ++t) {
+    const int c = threadIdx.x + kThreads * t;
+    w[t] = (valid && c < words) ? __ldg(reinterpret_cast<const uint4*>(src) + c)
+                                : make_uint4(0u, 0u, 0u, 0u);
   }
 }
 
+__global__ void __launch_bounds__(kThreads, kWideFwdBlocksPerSm)
+    wide_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gamma,
+                    const bf16* __restrict__ beta, bf16* __restrict__ out, int rows, int C,
+                    int per, float eps) {
+  __shared__ float buf[2][2][kWarps];
+  int parity = 0;
+  const int words = C / 8;
+  const int r0 = blockIdx.x * per, r1 = min(rows, r0 + per);
+  float gm[kWideMaxVecs][8], bt[kWideMaxVecs][8];
+  uint4 gw[kWideMaxVecs], bw[kWideMaxVecs];
+  load_wide(gamma, true, words, gw);
+  load_wide(beta, true, words, bw);
+#pragma unroll
+  for (int t = 0; t < kWideMaxVecs; ++t) unpack(gw[t], gm[t]), unpack(bw[t], bt[t]);
+  const float inv_c = 1.f / C;
+  uint4 cur[kWideMaxVecs], nxt[kWideMaxVecs];
+  load_wide(x + static_cast<size_t>(r0) * C, r0 < r1, words, cur);
+  for (int row = r0; row < r1; ++row) {
+    load_wide(x + static_cast<size_t>(row + 1) * C, row + 1 < r1, words, nxt);
+    float v[kWideMaxVecs][8], s = 0.f, ss = 0.f;
+#pragma unroll
+    for (int t = 0; t < kWideMaxVecs; ++t) {
+      unpack(cur[t], v[t]);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        s += v[t][e];
+        ss += v[t][e] * v[t][e];
+      }
+    }
+    const float2 sums = block_sum2(s, ss, buf, parity);
+    const float mu = sums.x * inv_c;
+    const float rstd = rsqrtf(sums.y * inv_c - mu * mu + eps);
+    uint4* dst = reinterpret_cast<uint4*>(out + static_cast<size_t>(row) * C);
+#pragma unroll
+    for (int t = 0; t < kWideMaxVecs; ++t) {
+      const int c = threadIdx.x + kThreads * t;
+      if (c >= words) continue;
+      float y[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) y[e] = (v[t][e] - mu) * rstd * gm[t][e] + bt[t][e];
+      dst[c] = pack(y);
+    }
+#pragma unroll
+    for (int t = 0; t < kWideMaxVecs; ++t) cur[t] = nxt[t];
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, kWideBwdBlocksPerSm)
+    wide_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
+                    const float* __restrict__ gamma, bf16* __restrict__ dx,
+                    float* __restrict__ part, int rows, int C, int per, float eps) {
+  __shared__ float buf[2][2][kWarps];
+  int parity = 0;
+  const int words = C / 8;
+  const int r0 = blockIdx.x * per, r1 = min(rows, r0 + per);
+  float gm[kWideMaxVecs][8], acc_gx[kWideMaxVecs][8], acc_g[kWideMaxVecs][8];
+#pragma unroll
+  for (int t = 0; t < kWideMaxVecs; ++t) {
+    const int c = threadIdx.x + kThreads * t;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      gm[t][e] = c < words ? __ldg(gamma + 8 * c + e) : 0.f;
+      acc_gx[t][e] = acc_g[t][e] = 0.f;
+    }
+  }
+  const float inv_c = 1.f / C;
+  uint4 cx[kWideMaxVecs], cg[kWideMaxVecs], nx[kWideMaxVecs], ng[kWideMaxVecs];
+  load_wide(x + static_cast<size_t>(r0) * C, r0 < r1, words, cx);
+  load_wide(g + static_cast<size_t>(r0) * C, r0 < r1, words, cg);
+  for (int row = r0; row < r1; ++row) {
+    const size_t next = static_cast<size_t>(row + 1) * C;
+    load_wide(x + next, row + 1 < r1, words, nx);
+    load_wide(g + next, row + 1 < r1, words, ng);
+    float xh[kWideMaxVecs][8], s = 0.f, ss = 0.f;
+#pragma unroll
+    for (int t = 0; t < kWideMaxVecs; ++t) {
+      unpack(cx[t], xh[t]);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        s += xh[t][e];
+        ss += xh[t][e] * xh[t][e];
+      }
+    }
+    const float2 sums = block_sum2(s, ss, buf, parity);
+    const float mu = sums.x * inv_c;
+    const float rstd = rsqrtf(sums.y * inv_c - mu * mu + eps);
+    float dxn[kWideMaxVecs][8], m1 = 0.f, m2 = 0.f;
+#pragma unroll
+    for (int t = 0; t < kWideMaxVecs; ++t) {
+      float gv[8];
+      unpack(cg[t], gv);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        xh[t][e] = (xh[t][e] - mu) * rstd;
+        dxn[t][e] = gv[e] * gm[t][e];
+        m1 += dxn[t][e];
+        m2 += dxn[t][e] * xh[t][e];
+        acc_gx[t][e] += gv[e] * xh[t][e];
+        acc_g[t][e] += gv[e];
+      }
+    }
+    const float2 ms = block_sum2(m1, m2, buf, parity);
+    m1 = ms.x * inv_c;
+    m2 = ms.y * inv_c;
+    uint4* dst = reinterpret_cast<uint4*>(dx + static_cast<size_t>(row) * C);
+#pragma unroll
+    for (int t = 0; t < kWideMaxVecs; ++t) {
+      const int c = threadIdx.x + kThreads * t;
+      if (c >= words) continue;
+      float d[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) d[e] = rstd * (dxn[t][e] - m1 - xh[t][e] * m2);
+      dst[c] = pack(d);
+    }
+#pragma unroll
+    for (int t = 0; t < kWideMaxVecs; ++t) cx[t] = nx[t], cg[t] = ng[t];
+  }
+  // every column is one thread's: its partials go out as they are
+  float* dst = part + static_cast<size_t>(blockIdx.x) * 2 * C;
+#pragma unroll
+  for (int t = 0; t < kWideMaxVecs; ++t) {
+    const int c = threadIdx.x + kThreads * t;
+    if (c >= words) continue;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      dst[8 * c + e] = acc_gx[t][e];
+      dst[C + 8 * c + e] = acc_g[t][e];
+    }
+  }
+}
+
+// the (G, V, tail) layouts `plan` gives for C % 32 == 0, C <= 1024
+#define LAVT_LN_LAYOUTS(X)                                                                   \
+  X(4, 1, false) X(4, 3, false) X(8, 1, false) X(8, 3, false) X(16, 1, false)              \
+  X(16, 2, false) X(16, 3, false) X(32, 2, false) X(32, 3, false) X(32, 4, false)          \
+  X(32, 1, true) X(32, 2, true) X(32, 3, true) X(32, 4, true)
+
+inline int sm_count() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 0;
+  return sms;
+}
+
+inline bool supported(int rows, int C) {
+  return rows > 0 && C >= 32 && C % 32 == 0 && C <= kThreads * kWideMaxVecs * 8;
+}
+
+inline bool aligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+}  // namespace lnr
 }  // namespace lavt
 
 extern "C" int lavt_layer_norm_rows(const void* x, const void* gamma, const void* beta,
-                                    void* out, int rows, int C, float eps,
-                                    void* stream) {
+                                    void* out, int rows, int C, float eps, void* stream) {
   using namespace lavt;
-  if (C > 32 * kLnMaxPerLane) {
-    if (C > kLnWideThreads * kLnMaxPerLane) return static_cast<int>(cudaErrorInvalidValue);
-    layer_norm_wide_rows_kernel<<<rows, kLnWideThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const bf16*>(x), static_cast<const bf16*>(gamma),
-        static_cast<const bf16*>(beta), static_cast<bf16*>(out), C, eps);
+  using namespace lavt::lnr;
+  const int sms = sm_count();
+  if (!supported(rows, C) || sms == 0 || !aligned(x) || !aligned(gamma) || !aligned(beta) ||
+      !aligned(out))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Plan p = plan(rows, C, sms, false);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* xb = static_cast<const bf16*>(x);
+  const auto* gb = static_cast<const bf16*>(gamma);
+  const auto* bb = static_cast<const bf16*>(beta);
+  auto* ob = static_cast<bf16*>(out);
+  if (p.lanes == 0) {
+    wide_fwd_kernel<<<p.blocks, kThreads, 0, s>>>(xb, gb, bb, ob, rows, C, p.per, eps);
     return static_cast<int>(cudaGetLastError());
   }
-  const int blocks = (rows + kLnRowsPerBlock - 1) / kLnRowsPerBlock;
-  layer_norm_rows_kernel<<<blocks, 32 * kLnRowsPerBlock, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(gamma),
-      static_cast<const bf16*>(beta), static_cast<bf16*>(out), rows, C, eps);
-  return static_cast<int>(cudaGetLastError());
+#define LAVT_CASE(G, V, T)                                                            \
+  if (p.lanes == G && p.vecs == V && p.tail == T) {                                  \
+    rows_fwd_kernel<G, V, T><<<p.blocks, kThreads, 0, s>>>(xb, gb, bb, ob, rows, C, \
+                                                           p.per, eps);             \
+    return static_cast<int>(cudaGetLastError());                                     \
+  }
+  LAVT_LN_LAYOUTS(LAVT_CASE)
+#undef LAVT_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The number of (2, C) f32 partials lavt_layer_norm_rows_bwd writes at
+// (rows, C) on the current device (0: a shape it does not take).
+extern "C" int lavt_layer_norm_rows_bwd_parts(int rows, int C) {
+  using namespace lavt::lnr;
+  const int sms = sm_count();
+  if (!supported(rows, C) || sms == 0) return 0;
+  return plan(rows, C, sms, true).blocks;
+}
+
+// K4b.  x, g (rows, C) bf16; gamma (C) f32; dx (rows, C) bf16; part
+// (parts, 2, C) f32, parts = lavt_layer_norm_rows_bwd_parts(rows, C)
+// (refused otherwise).
+extern "C" int lavt_layer_norm_rows_bwd(const void* x, const void* g, const void* gamma,
+                                        void* dx, void* part, int parts, int rows, int C,
+                                        float eps, void* stream) {
+  using namespace lavt;
+  using namespace lavt::lnr;
+  const int sms = sm_count();
+  if (!supported(rows, C) || sms == 0 || !aligned(x) || !aligned(g) || !aligned(gamma) ||
+      !aligned(dx) || !aligned(part))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Plan p = plan(rows, C, sms, true);
+  if (parts != p.blocks) return static_cast<int>(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* xb = static_cast<const bf16*>(x);
+  const auto* gb = static_cast<const bf16*>(g);
+  const auto* gm = static_cast<const float*>(gamma);
+  auto* db = static_cast<bf16*>(dx);
+  auto* pt = static_cast<float*>(part);
+  if (p.lanes == 0) {
+    wide_bwd_kernel<<<p.blocks, kThreads, 0, s>>>(xb, gb, gm, db, pt, rows, C, p.per, eps);
+    return static_cast<int>(cudaGetLastError());
+  }
+#define LAVT_CASE(G, V, T)                                                                \
+  if (p.lanes == G && p.vecs == V && p.tail == T) {                                      \
+    rows_bwd_kernel<G, V, T><<<p.blocks, 32 * bwd_warps(V), 0, s>>>(xb, gb, gm, db, pt, rows, C, \
+                                                           p.per, eps);                 \
+    return static_cast<int>(cudaGetLastError());                                         \
+  }
+  LAVT_LN_LAYOUTS(LAVT_CASE)
+#undef LAVT_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -50,7 +50,7 @@ in save mode with the K5 backward, or K6 past the residual cap;
 `window_attn.WindowAttention`: K10's save mode with the K9 backward;
 `FusedLnMlp`: K3 where the block's drop-path rate is 0, else K8 with a
 per-sample keep, both with the K7 backward), the routed stage norms
-through `LayerNormRows` (K4 with the plain backward).  DropPath on the attention
+through `LayerNormRows` (K4 with the K4b backward).  DropPath on the attention
 branch and the tail's keep are drawn from the generator passed to
 `forward`; the per-block rates are linspace(0, drop_path_rate, blocks),
 as in the JAX package.
@@ -491,6 +491,8 @@ class MultiModalSwinTransformer(nn.Module):
             norm = getattr(self, f"norm{i}", None)
             if norm is not None and norm.routed(batch * hw[0] * hw[1]):
                 counts["K4"] = counts.get("K4", 0) + 1
+                if train:
+                    counts["K4b"] = counts.get("K4b", 0) + 1
             elif norm is not None and norm.use_kernels:
                 unrouted.append(f"{where} norm (C {c}): layer_norm_rows_routed "
                                 "is False (C % 128; JAX: XLA): the plain f32 "

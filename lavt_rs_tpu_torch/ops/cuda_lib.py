@@ -41,6 +41,8 @@ F = ctypes.c_float
 # argtypes of each C entry point (pointers and the stream as c_void_p)
 SIGNATURES = {
     "lavt_layer_norm_rows": (P, P, P, P, I, I, F, P),
+    "lavt_layer_norm_rows_bwd_parts": (I, I),
+    "lavt_layer_norm_rows_bwd": (P,) * 5 + (I, I, I, F, P),
     "lavt_mlp_ln_rows": (P, P, P, P, I, I, F, P),
     "lavt_gemm_bias_gelu": (P, P, P, P, I, I, I, P),
     "lavt_gemm_residual": (P,) * 6 + (I, I, I, I, P),

@@ -56,7 +56,7 @@ from typing import Optional
 import torch
 
 from . import cuda_lib
-from .ln import layer_norm_rows_bwd_plain, layer_norm_rows_launch
+from .ln import layer_norm_rows_bwd_launch, layer_norm_rows_launch
 from .ln import layer_norm_rows_plain as layer_norm_f32
 
 LN_EPS = 1e-5
@@ -928,8 +928,11 @@ class FusedWindowMSA(torch.autograd.Function):
                 eps, ctx.flags)
         dx, dwqkv, dbqkv, dwproj, dbproj, dbias = grads
         dls = dlb = None
-        if ctx.has_ln:
-            dx, dls, dlb = layer_norm_rows_bwd_plain(x, ln_scale, dx, eps)
+        if ctx.has_ln:  # K4b's launch, counted as K5 (dx is K5's, bf16)
+            c = x.shape[-1]
+            dx, dls, dlb = layer_norm_rows_bwd_launch(
+                x.reshape(-1, c), ln_scale.float(), dx.reshape(-1, c), eps)
+            dx = dx.view(x.shape)
             dls, dlb = dls.to(ln_scale.dtype), dlb.to(ln_scale.dtype)
         wq_t, bq_t, wp_t, bp_t, bias_t = ctx.dtypes
         return (dx, dls, dlb, dwqkv.to(wq_t), dbqkv.to(bq_t), dwproj.to(wp_t),

@@ -22,6 +22,11 @@ rows around that attention in map order): its attention launch is held to
 its plain version and to the window-order launch on the partitioned map,
 and K11's output to the K2 launches on the partitioned map, bit for bit.
 
+K4 is held to its plain version at every row layout of its launch plan,
+and K4b (its backward) to the plain backward: dx at TOL_LN_MLP, dscale
+and dbias within 1e-3 relative Frobenius; two K4b calls give the same
+bits.
+
 The backward kernels (K5, K6, K7) are held to their plain versions on the
 same bf16 inputs: elementwise outputs (dx) within TOL_DX · (rms + |want|),
 the rms of the wanted tensor standing for its scale, and the weight, bias
@@ -46,6 +51,7 @@ from lavt_rs_tpu_torch.ops.fused_msa import (
     fused_window_msa_save, fused_window_msa_save_plain, pad_bias_sublane)
 from lavt_rs_tpu_torch.ops.fused_msa_2d import (fused_window_msa_2d,
                                                 fused_window_msa_2d_plain)
+from lavt_rs_tpu_torch.ops import cuda_lib, ln
 from lavt_rs_tpu_torch.ops.ln import layer_norm_rows, layer_norm_rows_plain
 from lavt_rs_tpu_torch.ops.window import (partition_3d_groups,
                                           relative_bias_from_table,
@@ -96,6 +102,84 @@ def test_layer_norm_rows_kernel(dev, rows, c):
     s = _bf16(rng, (c,), 0.2, dev) + 1.0
     b = _bf16(rng, (c,), 0.2, dev)
     _close(layer_norm_rows(x, s, b), layer_norm_rows_plain(x, s, b), TOL_LN_MLP)
+
+
+# K4 and K4b: every row layout of csrc/ln.cu's plan (lane groups of 4-32
+# lanes, the masked words of 1056's wide rows, the wide path), one row,
+# a ragged few, a stage-4 count and a stage-1 count
+LN_WIDTHS = (96, 128, 192, 256, 384, 512, 768, 1024, 1056, 1536, 4096)
+LN_ROWS = (1, 7, 1800, 115200)
+
+
+def _ln_args(rng, rows, c, dev):
+    x = _bf16(rng, (rows, c), 2.0, dev) + 0.5
+    return (x, _bf16(rng, (c,), 0.2, dev) + 1.0, _bf16(rng, (c,), 0.2, dev),
+            _bf16(rng, (rows, c), 1.0, dev))
+
+
+@pytest.mark.parametrize("c", LN_WIDTHS)
+@pytest.mark.parametrize("rows", LN_ROWS)
+def test_layer_norm_rows_kernel_at_every_width(dev, rows, c):
+    x, s, b, _ = _ln_args(np.random.default_rng(rows + c), rows, c, dev)
+    _close(layer_norm_rows(x, s, b), layer_norm_rows_plain(x, s, b), TOL_LN_MLP)
+
+
+@pytest.mark.parametrize("c", LN_WIDTHS)
+@pytest.mark.parametrize("rows", LN_ROWS)
+def test_layer_norm_rows_bwd_kernel(dev, rows, c):
+    """K4b against the plain backward: dx within 2e-2 abs + rel, dscale and
+    dbias (sums over the rows) within 1e-3 relative Frobenius."""
+    x, s, _, g = _ln_args(np.random.default_rng(rows + c + 1), rows, c, dev)
+    before = ln.layer_norm_rows_bwd.launches
+    got = ln.layer_norm_rows_bwd(x, s.float(), g)
+    assert ln.layer_norm_rows_bwd.launches == before + 1
+    want = ln.layer_norm_rows_bwd_plain(x, s.float(), g)
+    assert got[0].dtype == torch.bfloat16 and got[1].dtype == torch.float32
+    _close(got[0], want[0], TOL_LN_MLP)
+    for a, w in zip(got[1:], want[1:]):
+        _rel_frob(a, w, 1e-3)
+
+
+@pytest.mark.parametrize("rows,c", [(115200, 128), (28800, 256), (1800, 1024),
+                                    (33, 1056), (225, 1536)])
+def test_layer_norm_rows_bwd_is_deterministic(dev, rows, c):
+    x, s, _, g = _ln_args(np.random.default_rng(c + 5), rows, c, dev)
+    a = ln.layer_norm_rows_bwd_launch(x, s.float(), g)
+    b = ln.layer_norm_rows_bwd_launch(x, s.float(), g)
+    torch.cuda.synchronize()
+    assert all(torch.equal(p, q) for p, q in zip(a, b))
+
+
+def test_layer_norm_rows_bwd_plan_is_the_kernels(dev):
+    """The partial count the C side launches equals ops/ln.py's mirror of
+    its plan on this card, and the partials add up to the plain grads."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    lib = cuda_lib.lib()
+    for c in range(32, 4097, 32):
+        for rows in (1, 7, 1800, 115200):
+            assert lib.lavt_layer_norm_rows_bwd_parts(rows, c) == (
+                ln.ln_rows_plan(rows, c, sms, bwd=True)["blocks"]), (rows, c)
+    assert lib.lavt_layer_norm_rows_bwd_parts(8, 80) == 0
+    x, s, _, g = _ln_args(np.random.default_rng(9), 28800, 256, dev)
+    dx, part = ln.layer_norm_rows_bwd_partials(x, s.float(), g)
+    want = ln.layer_norm_rows_bwd_plain(x, s.float(), g)
+    _rel_frob(part.sum(0)[0], want[1], 1e-3)
+    _rel_frob(part.sum(0)[1], want[2], 1e-3)
+
+
+def test_layer_norm_rows_bwd_refuses_what_it_does_not_take(dev):
+    x, s, _, g = _ln_args(np.random.default_rng(3), 64, 128, dev)
+    before = ln.layer_norm_rows_bwd.launches
+    with pytest.raises(TypeError):  # f32 output gradient
+        ln.layer_norm_rows_bwd(x, s.float(), g.float())
+    with pytest.raises(TypeError):  # bf16 scale: the kernel takes the master
+        ln.layer_norm_rows_bwd(x, s, g)
+    with pytest.raises(ValueError):  # non-contiguous x
+        ln.layer_norm_rows_bwd(x.t(), s.float()[:64], g.t().contiguous())
+    with pytest.raises(ValueError):  # C = 80
+        ln.layer_norm_rows_bwd(x[:, :80].contiguous(), s.float()[:80],
+                               g[:, :80].contiguous())
+    assert ln.layer_norm_rows_bwd.launches == before
 
 
 @pytest.mark.parametrize("m,c", [(1000, 128), (900, 256), (450, 512),

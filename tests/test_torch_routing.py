@@ -103,8 +103,10 @@ def test_predicates_equal_jax(monkeypatch, size, window, img, itemsize):
         assert (n3 == 1152) == (window == 12 and side >= 12)
 
 
-W12_TRAIN = {"K1": 4, "K2": 20, "K3": 1, "K4": 4, "K5": 24, "K7": 24, "K8": 23}
-W7_TRAIN = {"K10": 24, "K9": 24, "K3": 1, "K4": 4, "K7": 24, "K8": 23}
+W12_TRAIN = {"K1": 4, "K2": 20, "K3": 1, "K4": 4, "K4b": 4, "K5": 24, "K7": 24,
+             "K8": 23}
+W7_TRAIN = {"K10": 24, "K9": 24, "K3": 1, "K4": 4, "K4b": 4, "K7": 24,
+            "K8": 23}
 # (config, batch or frames, train, launches per forward or step): the
 # counts chip_smoke.py checks on the card, written out by hand
 PLANS = [
@@ -115,7 +117,7 @@ PLANS = [
     (("lavt_one", "base", False), 8, False, {"K10": 24, "K3": 24, "K4": 4}),
     (("lavt_one", "base", False), 8, True, W7_TRAIN),
     (("lavt_one", "tiny", True), 2, True,
-     {"K1": 4, "K2": 8, "K5": 12, "K8": 6, "K7": 6, "K4": 2}),
+     {"K1": 4, "K2": 8, "K5": 12, "K8": 6, "K7": 6, "K4": 2, "K4b": 2}),
     (("lavt_one", "large", True), 1, False,
      {"K1": 4, "K11": 20, "K3": 2, "K4": 3}),
     (("lavt_video", "tiny", False), 8, False, {"K2p": 2, "K10": 10}),

@@ -107,9 +107,12 @@ def test_kernel_plan_counts_the_recompute():
         plans.append(m.backbone.kernel_plan((IMG, IMG), 2))
     # 64²: stage 1 (16 -> 24) and 2 (8 -> 12) pad, so every block takes K2;
     # K8 in the DropPath blocks with a routed tail (C = 384: stage 4), K3
-    # none (block 0 is at C = 48); K4 the stage-4 norm, outside the blocks
-    assert trains[0] == {"K2": 5, "K5": 5, "K8": 1, "K7": 1, "K4": 1}
-    assert trains[1] == {"K2": 10, "K5": 5, "K8": 2, "K7": 1, "K4": 1}
+    # none (block 0 is at C = 48); K4 and its backward K4b the stage-4 norm,
+    # outside the blocks
+    assert trains[0] == {"K2": 5, "K5": 5, "K8": 1, "K7": 1, "K4": 1,
+                         "K4b": 1}
+    assert trains[1] == {"K2": 10, "K5": 5, "K8": 2, "K7": 1, "K4": 1,
+                         "K4b": 1}
     assert plans[0] == plans[1]  # inference: the flag changes nothing
 
 

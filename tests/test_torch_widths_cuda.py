@@ -5,7 +5,8 @@ every test skips without a CUDA device.  Runs without JAX:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_widths_cuda.py
 
 * K3 / K8 / K7 at C = 384 (Swin-T/S stage 3, Swin-L stage 2);
-* K4 at C = 1536 (Swin-L stage 4) and 4096 (the routed maximum);
+* K4 and K4b at C = 1536 (Swin-L stage 4), 4096 (the routed maximum) and
+  1056 (masked words on the wide path);
 * K1 / K2 / K11, the save mode, K5 and K6 at C = 96 (Swin-T/S stage 1 at
   window 12: three heads, a 32-column tail in the attention kernel's x
   chunks and in the out-projection GEMM's tiles);
@@ -29,7 +30,7 @@ from lavt_rs_tpu_torch.ops import window_attn
 from lavt_rs_tpu_torch.tools import probe_headbatch as probe
 from test_torch_kernels_cuda import (TOL_LN_MLP, TOL_MSA, TOL_P, _bf16,
                                      _close, _close_grads, _keep, _map_args,
-                                     _mlp_args, _msa_args)
+                                     _mlp_args, _msa_args, _rel_frob)
 
 pytestmark = pytest.mark.cuda
 
@@ -49,6 +50,21 @@ def test_layer_norm_rows_wide_kernel(dev, rows, c):
     b = _bf16(rng, (c,), 0.2, dev)
     _close(ln.layer_norm_rows(x, s, b), ln.layer_norm_rows_plain(x, s, b),
            TOL_LN_MLP)
+
+
+@pytest.mark.parametrize("rows,c", [(225, 1536), (64, 4096), (33, 1056)])
+def test_layer_norm_rows_bwd_wide_kernel(dev, rows, c):
+    """K4b on the wide path (the block on one row): Swin-L stage 4's
+    training backward, the routed maximum, a width of masked words."""
+    rng = np.random.default_rng(c + 1)
+    x = _bf16(rng, (rows, c), 2.0, dev) + 0.5
+    s = (_bf16(rng, (c,), 0.2, dev) + 1.0).float()
+    g = _bf16(rng, (rows, c), 1.0, dev)
+    got = ln.layer_norm_rows_bwd(x, s, g)
+    want = ln.layer_norm_rows_bwd_plain(x, s, g)
+    _close(got[0], want[0], TOL_LN_MLP)
+    for a, w in zip(got[1:], want[1:]):
+        _rel_frob(a, w, 1e-3)
 
 
 def test_ln_mlp_kernels_at_384(dev):

@@ -167,7 +167,7 @@ def w7_steps():
 
 def test_window7_train_step_loss_matches_jax(w7_steps):
     assert w7_steps["pm"].backbone.kernel_plan((64, 64), 2, 4, True)[0] == {
-        "K10": 5, "K9": 5, "K3": 1, "K7": 1, "K4": 1}
+        "K10": 5, "K9": 5, "K3": 1, "K7": 1, "K4": 1, "K4b": 1}
     got = float(w7_steps["pmetrics"]["loss"])
     want = float(w7_steps["jmetrics"]["loss"])
     assert got == pytest.approx(want, rel=1e-4)
