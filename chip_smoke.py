@@ -143,6 +143,19 @@
        statistics its backward amplifies bf16 rounding in any bf16 route;
        those cosines, for the kernel route and for the plain modules under
        bf16 autocast, are printed and not checked.
+5b. Train CLI: `lavt_rs_tpu_torch.cli.train.main` in process on the
+   eval phase's synthetic split (its TRAIN_REFS train refs; the val refs
+   for the per-epoch eval) at the published configuration (--window12,
+   Swin-B, 480², bf16, -b 8, -j 4, --aug_random_hflip 0.5; weights drawn
+   by the CLI from its seed): epoch 0 into a temporary --output-dir, then
+   --resume on that directory for epoch 1.  The launch counts per step
+   must equal TRAIN_PER_STEP and per eval batch INFER_PER_FORWARD; two
+   checkpoint files tagged with their eval's mIoU / oIoU; the resumed
+   model, AdamW moments and schedule step equal the file's bitwise; the
+   test CLI on the directory reproduces the last in-train eval within
+   0.01 mIoU and oIoU.  Prints steps/s, img/s, the loader's data wait
+   against the iteration time, peak device memory and the median ms per
+   step beside `make_train_step`'s on one repeated batch (5.).
 
 6. Window 7 (`lavt_one_base(window12=False)`, the CLIs' default): the
    launch counts of the models' own kernel plan (`kernel_plan`, from the
@@ -292,6 +305,11 @@ K11_CASES = ((8, 36, 36, 512, 16, False, 9), (8, 36, 36, 512, 16, True, 9),
              (8, 60, 60, 256, 8, False, 0))
 # the eval phase's synthetic RefCOCO: val refs, images, sentences per ref
 EVAL_REFS, EVAL_IMAGES, EVAL_MAX_SENTENCES = 48, 16, 3
+# ... and its train refs, which the train CLI phase trains on (3 steps of
+# BATCH an epoch)
+TRAIN_REFS = 24
+# the train CLI's val mIoU / oIoU against the test CLI's on its checkpoint
+CLI_SUMMARY_TOL = 0.01
 EVAL_WORDS = ("the", "a", "man", "woman", "dog", "cat", "left", "right",
               "red", "blue", "shirt", "on", "in", "near", "big", "small",
               "person", "car", "chair", "table", "white", "black", "middle",
@@ -1616,8 +1634,9 @@ def write_refcoco(root, rng):
     """A synthetic RefCOCO split under `root`, laid out as REFER reads it:
     `refcoco/refs(unc).p`, `refcoco/instances.json`, COCO-sized 640x480
     JPEGs under `images/mscoco/images/train2014/`, and a `vocab.txt`
-    covering every word.  EVAL_REFS val refs of 1-EVAL_MAX_SENTENCES
-    sentences, each referring to one polygon annotation."""
+    covering every word.  EVAL_REFS val refs, then TRAIN_REFS train refs,
+    of 1-EVAL_MAX_SENTENCES sentences, each referring to one polygon
+    annotation."""
     import pickle
 
     import numpy as np
@@ -1639,7 +1658,7 @@ def write_refcoco(root, rng):
         Image.fromarray(img.clip(0, 255).astype(np.uint8)).save(
             os.path.join(img_dir, name), quality=90)
         images.append({"id": i, "file_name": name, "height": h, "width": w})
-    for j in range(EVAL_REFS):
+    for j in range(EVAL_REFS + TRAIN_REFS):
         cx, cy = rng.uniform(120, w - 120), rng.uniform(100, h - 100)
         ang = np.sort(rng.uniform(0, 2 * np.pi, 8))
         rad = rng.uniform(30, 110, 8)
@@ -1652,7 +1671,7 @@ def write_refcoco(root, rng):
                  for _ in range(1 + j % EVAL_MAX_SENTENCES)]
         refs.append({"ref_id": j, "ann_id": 1000 + j,
                      "image_id": j % EVAL_IMAGES, "category_id": 1,
-                     "split": "val",
+                     "split": "val" if j < EVAL_REFS else "train",
                      "sentences": [{"raw": s, "sent": s, "sent_id": 10 * j + k}
                                    for k, s in enumerate(sents)],
                      "sent_ids": [10 * j + k for k in range(len(sents))]})
@@ -1831,7 +1850,8 @@ def train_setup(dev, weights, cfg=None):
 def training(dev, card, weights, cfg=None, per_step=None, what="train"):
     """Steps at batch 8 (timed, counted as `per_step`, by default the
     window-12 counts; loss falls) and, for the window-12 model, one at
-    batch 16; returns the launches at batch 8 and at batch 16 (None)."""
+    batch 16; returns the launches at batch 8 and at batch 16 (None), and
+    the ms per step at batch 8."""
     import torch
 
     step = train_setup(dev, weights, cfg)
@@ -1873,7 +1893,7 @@ def training(dev, card, weights, cfg=None, per_step=None, what="train"):
     if not losses[-1] < losses[0]:
         raise RuntimeError(f"{what}: the training loss did not fall")
     if cfg is not None:
-        return launches, None
+        return launches, None, ms
 
     big = train_batch(dev, g, BATCH_BIG)
     torch.cuda.reset_peak_memory_stats()
@@ -1889,7 +1909,7 @@ def training(dev, card, weights, cfg=None, per_step=None, what="train"):
     if not math.isfinite(loss):
         raise RuntimeError("non-finite loss at batch 16")
     check_counts("train bs 16", big_launches, BIG_PER_STEP, 1)
-    return launches, big_launches
+    return launches, big_launches, ms
 
 
 def ln_bwd_step_check(card):
@@ -1960,6 +1980,167 @@ def checkpoint_training(dev, card, weights):
     if not on < off:
         raise RuntimeError("--use_checkpoint did not lower the training "
                            "step's peak memory")
+
+
+def train_cli_phase(dev, card, step_ms):
+    """The RefCOCO train CLI (`lavt_rs_tpu_torch.cli.train.main`) in process
+    on the synthetic split's TRAIN_REFS train refs at the published
+    configuration (--window12, Swin-B, 480², bf16, batch 8, -j 4, a paired
+    hflip), its weights drawn by the CLI from --seed: epoch 0, then
+    --resume from its checkpoint directory for epoch 1, each run evaluating
+    the val split (EVAL_REFS refs) and saving a checkpoint; then the test
+    CLI on that directory.  Checks the launches per step (TRAIN_PER_STEP)
+    and per eval batch (INFER_PER_FORWARD), the two files and their
+    metric tags, the resumed model, AdamW moments and schedule step
+    against the file (bitwise), and the test CLI's summary against the
+    last in-train eval's (within CLI_SUMMARY_TOL).  Prints steps/s and
+    img/s, the loader's data wait against the iteration time, peak device
+    memory, and ms per step beside `make_train_step`'s on one repeated
+    batch (`step_ms`, this script's training phase)."""
+    import contextlib
+    import gc
+    import io
+    import re
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from lavt_rs_tpu_torch.cli import test as cli_test
+    from lavt_rs_tpu_torch.cli import train as cli_train
+    from lavt_rs_tpu_torch.data.refcoco import ReferDataset
+    from lavt_rs_tpu_torch.data.refer import REFER
+    from lavt_rs_tpu_torch.eval import refcoco_eval
+    from lavt_rs_tpu_torch.text.tokenizer import WordPieceTokenizer
+    from lavt_rs_tpu_torch.train import checkpoint as ckpt
+
+    with tempfile.TemporaryDirectory() as root:
+        vocab = write_refcoco(root, np.random.default_rng(SEED + 30))
+        val = ReferDataset(REFER(root), WordPieceTokenizer.from_vocab_file(
+            vocab), split="val", img_size=480, max_tokens=TOKENS,
+            eval_mode=True)
+        s_pad = max(len(x) for x in val.input_ids)
+        eval_batches = -(-len(val) // -(-refcoco_eval.SENTENCES_PER_BATCH
+                                        // s_pad))
+        steps = TRAIN_REFS // BATCH
+        out = os.path.join(root, "checkpoints")
+        data = ["--window12", "--img_size", "480", "--refer_data_root", root,
+                "--dataset", "refcoco", "--splitBy", "unc", "--vocab", vocab,
+                "--device", str(dev)]
+        argv = data + ["-b", str(BATCH), "-j", "4", "--aug_random_hflip",
+                       "0.5", "--split", "train", "--val_split", "val",
+                       "--print-freq", "1", "--output-dir", out]
+        evaluate, restore = refcoco_eval.evaluate, ckpt.restore_checkpoint
+        counts, restored = {}, []
+
+        def counted_evaluate(*a, **kw):
+            torch.cuda.synchronize()
+            counts["train"] = read_counts()
+            zero_counts()
+            t0 = time.perf_counter()
+            summary = evaluate(*a, **kw)
+            torch.cuda.synchronize()
+            counts["eval"], counts["eval s"] = (read_counts(),
+                                                time.perf_counter() - t0)
+            return summary
+
+        def checked_restore(path, model, opt, sched, device):
+            result = restore(path, model, opt, sched, device)
+            saved = ckpt.load_checkpoint(path, device)
+            sd, st = model.state_dict(), opt.state_dict()["state"]
+            want = saved["optimizer"]["state"]
+            same = {
+                "model": sd.keys() == saved["model"].keys() and all(
+                    torch.equal(v, saved["model"][k]) for k, v in sd.items()),
+                "AdamW moments": st.keys() == want.keys() and all(
+                    torch.equal(t, want[i][n].to(t.device))
+                    for i, s in st.items() for n, t in s.items()),
+                "schedule step": sched.last_epoch
+                == saved["lr_scheduler"]["last_epoch"] == steps}
+            restored.append((os.path.basename(path), same))
+            return result
+
+        def run(extra, what):
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            counts.clear()
+            zero_counts()
+            err = io.StringIO()
+            refcoco_eval.evaluate = counted_evaluate
+            ckpt.restore_checkpoint = checked_restore
+            t0 = time.perf_counter()
+            try:
+                with contextlib.redirect_stderr(err):
+                    rec = cli_train.main(argv + extra)
+            finally:
+                refcoco_eval.evaluate, ckpt.restore_checkpoint = (evaluate,
+                                                                  restore)
+            seconds = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            for line in err.getvalue().splitlines():
+                log(f"train cli: {line}")
+            log(f"{what}: launches over {steps} steps {counts['train']}, over "
+                f"{eval_batches} eval batches {counts['eval']}")
+            check_counts(f"{what} steps", counts["train"], TRAIN_PER_STEP,
+                         steps)
+            check_counts(f"{what} eval", counts["eval"], INFER_PER_FORWARD,
+                         eval_batches)
+            lg = rec["logger"]
+            it, dt, loss = lg.iter_time, lg.data_time, lg.meters["loss"]
+            if it.count != steps or not all(map(math.isfinite, loss.deque)):
+                raise RuntimeError(f"{what}: {it.count} steps, losses "
+                                   f"{list(loss.deque)}")
+            log(f"{what}: {steps} steps of {BATCH}: iteration {it.avg:.4f} s "
+                f"mean ({[round(x, 4) for x in it.deque]}), "
+                f"{1 / it.avg:.3f} steps/s, {BATCH / it.avg:.2f} img/s; "
+                f"median {1e3 * it.median:.1f} ms/step against "
+                f"make_train_step's {step_ms:.1f} ms/step on one repeated "
+                f"batch; data wait {dt.avg:.4f} s mean "
+                f"({[round(x, 4) for x in dt.deque]}) = "
+                f"{dt.total / it.total:.3f} of the iteration time; eval "
+                f"{counts['eval s']:.2f} s; whole run {seconds:.1f} s; peak "
+                f"device memory {peak:.2f} GiB  [{card}]")
+            return rec
+
+        rec0 = run(["--epochs", "1"], "train CLI epoch 0")
+        rec1 = run(["--epochs", "2", "--resume", out],
+                   "train CLI epoch 1 (--resume on the directory)")
+        files = ckpt.list_checkpoints(out)
+        log("train CLI checkpoints: " + ", ".join(
+            f"{os.path.basename(p)} ({os.path.getsize(p) / 2**30:.2f} GiB)"
+            for _, p in files))
+        if [e for e, _ in files] != [0, 1] or rec1["start_epoch"] != 1:
+            raise RuntimeError(f"train CLI: checkpoints {files}, resumed at "
+                               f"epoch {rec1['start_epoch']}")
+        for (_, path), rec in zip(files, (rec0, rec1)):
+            tag = (f"_mIoU_{rec['summary']['mIoU']:.2f}"
+                   f"_oIoU_{rec['summary']['oIoU']:.2f}.pth")
+            if not re.fullmatch(r"epoch_000\d_lavt" + re.escape(tag),
+                                os.path.basename(path)):
+                raise RuntimeError(f"train CLI: {path} is not tagged {tag}")
+        log(f"train CLI resume: restored {restored}")
+        if len(restored) != 1 or not all(restored[0][1].values()):
+            raise RuntimeError(f"train CLI: the resumed state is not the "
+                               f"saved one: {restored}")
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        err = io.StringIO()
+        zero_counts()
+        with contextlib.redirect_stderr(err):
+            got = cli_test.main(data + ["--split", "val", "--resume", out])
+        for line in err.getvalue().splitlines():
+            log(f"test cli: {line}")
+        check_counts("test CLI on the train CLI's directory", read_counts(),
+                     INFER_PER_FORWARD, eval_batches)
+        want = rec1["summary"]
+        diff = {k: got[k] - want[k] for k in ("mIoU", "oIoU")}
+        log(f"test CLI on the directory: {got}; the train CLI's last eval: "
+            f"{want}; differences {diff} (tolerance {CLI_SUMMARY_TOL})")
+        if not all(abs(d) <= CLI_SUMMARY_TOL for d in diff.values()):
+            raise RuntimeError("the test CLI does not reproduce the train "
+                               "CLI's last eval")
 
 
 def gate_run(dev, cfg, weights, bn_batch_stats, batch, seed):
@@ -3484,12 +3665,17 @@ def main():
     training_gate(dev, weights)
     torch.cuda.empty_cache()
     log(f"gate done at {time.perf_counter() - t_start:.1f} s")
-    train_launches, big_launches = training(dev, card, weights)
+    train_launches, big_launches, step_ms = training(dev, card, weights)
     defer(functools.partial(ln_bwd_step_check, card))
     checkpoint_training(dev, card, weights)
     del weights
     torch.cuda.empty_cache()
     log(f"training done at {time.perf_counter() - t_start:.1f} s")
+
+    # -- the RefCOCO train CLI: two epochs (a save and a resume), its evals ------
+    train_cli_phase(dev, card, step_ms)
+    torch.cuda.empty_cache()
+    log(f"train CLI done at {time.perf_counter() - t_start:.1f} s")
 
     # -- window 7: lavt_one_base(window12=False), the CLI's default --------------
     from lavt_rs_tpu_torch.config import lavt_one_tiny, lavt_video_tiny
@@ -3535,8 +3721,8 @@ def main():
     torch.cuda.empty_cache()
     training_gate(dev, w7_weights, w7cfg, "window-7 training gate")
     torch.cuda.empty_cache()
-    w7_train, _ = training(dev, card, w7_weights, w7cfg, W7_TRAIN_PER_STEP,
-                           "window-7 train")
+    w7_train, _, _ = training(dev, card, w7_weights, w7cfg,
+                              W7_TRAIN_PER_STEP, "window-7 train")
     del w7_weights
     torch.cuda.empty_cache()
     log(f"window 7 done at {time.perf_counter() - t_start:.1f} s")

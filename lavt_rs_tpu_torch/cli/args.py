@@ -367,3 +367,22 @@ def model_config_from_args(args):
         # the fusion module (3D SepTPWAM vs plain 2D PWAM)
         hybrid_2d_3d=(getattr(args, "ytvos_2d_swin_3d_pwam", False)
                       or getattr(args, "ytvos_2d_swin_pwam", False)))
+
+
+def train_config_from_args(args, iters_per_epoch: int):
+    """args -> the port's TrainConfig (the JAX package's
+    `train_config_from_args`, with its loss aliases).  JAX's config also
+    carries the batch size, which no code of either package reads; the
+    port's has no such field (the loader and the CLI take -b)."""
+    from ..train.optim import TrainConfig
+
+    loss = {"ce": "cross_entropy", "dice_b": "dice_boundary"}.get(
+        args.loss, args.loss)
+    return TrainConfig(
+        lr=args.lr, weight_decay=args.weight_decay, epochs=args.epochs,
+        iters_per_epoch=iters_per_epoch,
+        lang_enc_params=args.lang_enc_params,
+        loss=loss, amsgrad=args.amsgrad, fix_lr=args.fix_lr,
+        focal_rate=args.loss_focal_rate,
+        dice_rate=args.loss_dice_rate,
+        boundary_rate=args.loss_boundary_rate)

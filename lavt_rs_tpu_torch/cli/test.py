@@ -74,17 +74,21 @@ def load_reference_checkpoint(model: nn.Module, path: str,
     """Load a reference-format .pth into `model`: unwrap `model` /
     `state_dict` / `module`, strip a `module.` (DDP) prefix, drop BERT's
     pooler (the port has none), and load; only `OPTIONAL_KEYS` may be
-    missing.  Local files only."""
-    if os.path.isdir(path):
-        raise NotImplementedError(
-            f"{path!r} is a directory: orbax checkpoints of the JAX package "
-            "are not read by the port (ROADMAP.md item 15)")
+    missing.  Local files only; a directory stands for its newest
+    checkpoint of the train CLI (`train.checkpoint.latest_checkpoint`)."""
+    from ..train.checkpoint import latest_checkpoint, load_checkpoint
+
     if "://" in path:
         raise ValueError(f"{path!r}: pass a local checkpoint path")
+    if os.path.isdir(path):
+        newest = latest_checkpoint(path)
+        if newest is None:
+            raise FileNotFoundError(f"no epoch_*.pth checkpoint under {path!r}")
+        print(f"loading {newest}", file=sys.stderr)
+        path = newest
     # reference checkpoints carry the run's argparse.Namespace beside the
     # tensors; nothing else is unpickled
-    with torch.serialization.safe_globals([argparse.Namespace]):
-        ckpt = torch.load(path, map_location=device, weights_only=True)
+    ckpt = load_checkpoint(path, device)
     for key in ("model", "state_dict", "module"):
         if isinstance(ckpt, dict) and isinstance(ckpt.get(key), dict):
             ckpt = ckpt[key]

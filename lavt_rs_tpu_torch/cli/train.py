@@ -1,0 +1,312 @@
+"""Training entry point (counterpart of `lavt_rs_tpu/cli/train.py`, the
+reference train.py) on one card.  The flag surface is the reference's
+parser (cli/args.py), so the README.md:167 RefCOCO recipe runs as it is:
+
+    python -m lavt_rs_tpu_torch.cli.train --dataset refcoco --model lavt_one \\
+        --swin_type base --window12 --lr 0.00005 --wd 1e-2 -b 8 \\
+        --epochs 40 --refer_data_root ./refer/data --vocab ./vocab.txt \\
+        --output-dir ./checkpoints
+
+Per epoch: the `PrefetchLoader` (-j threads decode, augment and pin; the
+copies to the card run ahead of the step), `train.step.make_train_step`
+(AdamW, poly LR, DropPath) with `MetricLogger.log_every`, then every
+--eval_every epochs `eval.refcoco_eval.evaluate` on --val_split, and a
+checkpoint `epoch_NNNN_<model_id>_mIoU_<x>_oIoU_<y>.pth` in the reference's
+dict format (train/checkpoint.py).  --resume takes a checkpoint file or a
+directory (its newest file) and continues at the saved epoch + 1.
+`--synthetic` trains on random batches without data on disk (lavt_video
+too); `--device cpu` runs the plain versions on the host.
+
+The step's dropout and DropPath draws come from a generator seeded by
+(--seed + 1, the global step), so a resumed run draws at step s what an
+unbroken run draws there.  The data order restarts from --seed on resume,
+as in the JAX package: continuation is not bit-exact.
+
+Not ported yet, each refused with its ROADMAP.md item: the pretrained-
+weight flags (item 26), the video datasets and --image_combined_3d_pretrain
+(item 24), the other model families (slice 5), more than one process
+(item 16).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from .args import (add_data_args, add_eval_args, add_model_args,
+                   add_train_args, model_config_from_args,
+                   train_config_from_args)
+
+PRETRAINED_FLAGS = ("pretrained_swin_weights", "pretrained2d_lavt_weights",
+                    "pretrained2d_lavt_weights_for_a_3d_model",
+                    "pretrained_video_lavt_weights_on_refcocos")
+VIDEO_DATASETS = ("a2d", "ytvos", "ref_pseudo_video", "joint")
+# the three RefCOCO-family sources of --ref_image_combined_pretrain, at the
+# reference's 22 tokens (data/dataset_refer_bert.py:39-42)
+COMBINED_SOURCES = (("refcoco", "unc"), ("refcoco+", "unc"),
+                    ("refcocog", "umd"))
+COMBINED_MAX_TOKENS = 22
+
+
+def get_parser():
+    p = argparse.ArgumentParser("lavt_rs_tpu_torch training")
+    add_model_args(p)
+    add_data_args(p)
+    add_train_args(p)
+    add_eval_args(p)
+    return p
+
+
+def synthetic_batches(args, steps, rng, video: bool = False,
+                      vocab_size: int = 30522):
+    """The JAX CLI's random batches (numpy): normalized float images (or
+    clips), in-vocabulary ids, full masks, random binary targets."""
+    hi = min(30000, vocab_size - 1)
+    for _ in range(steps):
+        batch = {
+            "ids": rng.integers(
+                1, hi, (args.batch_size, args.max_tokens)
+            ).astype(np.int32),
+            "mask": np.ones((args.batch_size, args.max_tokens), np.int32),
+            "target": rng.integers(
+                0, 2, (args.batch_size, args.img_size, args.img_size)
+            ).astype(np.int32),
+        }
+        if video:
+            batch["video"] = rng.standard_normal(
+                (args.batch_size, args.num_frames, args.img_size,
+                 args.img_size, 3)).astype(np.float32)
+            batch["valid_index"] = rng.integers(
+                0, args.num_frames, (args.batch_size,)).astype(np.int32)
+        else:
+            batch["image"] = rng.standard_normal(
+                (args.batch_size, args.img_size, args.img_size, 3)
+            ).astype(np.float32)
+        yield batch
+
+
+class _SizedIter:
+    """Wrap a generator with a known length so MetricLogger.log_every can
+    print [i/n] + ETA."""
+
+    def __init__(self, it, n):
+        self._it, self._n = iter(it), n
+
+    def __iter__(self):
+        return self._it
+
+    def __len__(self):
+        return self._n
+
+
+def _refuse_unported(args) -> None:
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        raise NotImplementedError("training on more than one process comes "
+                                  "with data parallelism: ROADMAP.md item 16")
+    if any(getattr(args, f) for f in PRETRAINED_FLAGS) or \
+            (args.ck_bert and os.path.isfile(args.ck_bert)):
+        raise NotImplementedError("the pretrained-weight flags are not "
+                                  "ported yet: ROADMAP.md item 26")
+    if not args.synthetic and (args.dataset in VIDEO_DATASETS
+                               or args.image_combined_3d_pretrain):
+        raise NotImplementedError(
+            f"--dataset {args.dataset} / --image_combined_3d_pretrain: the "
+            "video training data is not ported yet: ROADMAP.md item 24")
+    if args.model == "lavt_video" and not args.synthetic:
+        raise NotImplementedError("--model lavt_video trains only on "
+                                  "--synthetic batches until the video "
+                                  "datasets are ported: ROADMAP.md item 24")
+    if args.model not in ("lavt_one", "lavt_video"):
+        raise NotImplementedError(f"--model {args.model}: the port's train "
+                                  "CLI takes lavt_one (and lavt_video under "
+                                  "--synthetic); the other families are "
+                                  "ROADMAP.md slice 5")
+
+
+def step_generator(seed: int, step: int, device) -> torch.Generator:
+    """The generator of global step `step`'s dropout and DropPath draws,
+    seeded from (seed + 1, step): the JAX step's fold_in(key, step)."""
+    s = np.random.SeedSequence([seed + 1, step]).generate_state(1, np.uint64)
+    return torch.Generator(device=device).manual_seed(int(s[0]))
+
+
+def _augment_from_args(args):
+    """The --aug_* flags -> `build_paired_augment` (None when all off)."""
+    from ..data.transforms import build_paired_augment
+
+    affine = None
+    if args.aug_random_affine:
+        a = args.aug_random_affine
+        affine = {"degrees": (-a[0], a[0])}
+        if len(a) >= 3:
+            affine["translate"] = (a[1], a[2])
+        if len(a) >= 5:
+            affine["scale"] = (a[3], a[4])
+    return build_paired_augment(
+        resize_range=(tuple(args.aug_random_resize * 2)[:2]
+                      if args.aug_random_resize else None),
+        hflip=args.aug_random_hflip,
+        crop=args.aug_random_crop, affine=affine, seed=args.seed)
+
+
+def refcoco_datasets(args):
+    """The RefCOCO branch's (train, val) datasets: uint8 images (normalized
+    on the device), the paired augmentations on the train split."""
+    from ..data.pseudo_video import ConcatDataset
+    from ..data.refcoco import ReferDataset
+    from ..data.refer import REFER
+    from ..text.tokenizer import WordPieceTokenizer, resolve_vocab
+
+    refer = REFER(args.refer_data_root, args.dataset, args.splitBy)
+    tok = WordPieceTokenizer.from_vocab_file(
+        resolve_vocab(args.vocab, args.bert_tokenizer))
+    if args.ref_image_combined_pretrain:
+        train_ds = ConcatDataset([
+            ReferDataset(REFER(args.refer_data_root, name, sb), tok,
+                         split=args.split, img_size=args.img_size,
+                         max_tokens=COMBINED_MAX_TOKENS, host_normalize=False)
+            for name, sb in COMBINED_SOURCES])
+    else:
+        train_ds = ReferDataset(refer, tok, split=args.split,
+                                img_size=args.img_size,
+                                max_tokens=args.max_tokens,
+                                host_normalize=False,
+                                augment=_augment_from_args(args))
+    val_ds = ReferDataset(refer, tok, split=args.val_split,
+                          img_size=args.img_size, max_tokens=args.max_tokens,
+                          eval_mode=True, host_normalize=False)
+    return train_ds, val_ds
+
+
+def main(argv: Optional[Sequence[str]] = None) -> dict:
+    """Parse, build, (resume,) train and evaluate.  Returns the last
+    epoch's record: {"start_epoch", "epoch", "train_mIoU", "summary" (the
+    val eval's, or None), "logger" (its MetricLogger, with iter_time and
+    data_time), "checkpoint" (the path saved, or None)}."""
+    args = get_parser().parse_args(argv)
+    _refuse_unported(args)
+
+    from ..data.loader import PrefetchLoader, collate_refer, to_device
+    from ..models.factory import build_model
+    from ..train.checkpoint import (latest_checkpoint, restore_checkpoint,
+                                    save_checkpoint)
+    from ..train.step import (create_train_state, make_train_step,
+                              make_video_train_step)
+    from ..utils.logging import MetricLogger, SmoothedValue, print_master
+
+    device = torch.device(args.device)
+    cfg = model_config_from_args(args)
+    args.max_tokens = cfg.max_tokens
+    video = cfg.name == "lavt_video"
+
+    def put(batch):
+        return {k: to_device(v, device) for k, v in batch.items()}
+
+    val_ds = None
+    if args.synthetic:
+        iters_per_epoch = args.synthetic_steps
+        rng = np.random.default_rng(args.seed)
+
+        def epoch_batches(epoch):
+            return map(put, synthetic_batches(args, iters_per_epoch, rng,
+                                              video=video,
+                                              vocab_size=cfg.bert.vocab_size))
+    else:
+        train_ds, val_ds = refcoco_datasets(args)
+        loader = PrefetchLoader(train_ds, args.batch_size, collate_refer,
+                                shuffle=True, num_workers=args.workers,
+                                seed=args.seed, device_put=put)
+        iters_per_epoch = len(loader)
+
+        def epoch_batches(epoch):
+            loader.set_epoch(epoch)
+            return iter(loader)
+
+    tcfg = train_config_from_args(args, max(iters_per_epoch, 1))
+    model = build_model(cfg, device, train=True,
+                        generator=torch.Generator(device=device).manual_seed(
+                            args.seed))
+    opt, sched = create_train_state(model, tcfg)
+    start_epoch = 0
+    if args.resume:
+        path = (args.resume if os.path.isfile(args.resume)
+                else latest_checkpoint(args.resume))
+        if path is None:
+            raise FileNotFoundError(f"no checkpoints under {args.resume}")
+        _, resume_epoch = restore_checkpoint(path, model, opt, sched, device)
+        # continue AFTER the saved epoch (reference train.py:738
+        # `range(max(0, resume_epoch+1), epochs)`)
+        start_epoch = resume_epoch + 1
+        print(f"resumed from {path}; continuing at epoch {start_epoch}",
+              file=sys.stderr)
+    step_fn = (make_video_train_step if video else make_train_step)(
+        model, opt, sched, tcfg)
+
+    # one eval model (the compute dtype, eval mode) for every epoch, so its
+    # routes' cached tensors and the built kernels are reused; it takes the
+    # trainer's weights before each eval (load_state_dict casts them)
+    eval_model = None if args.synthetic else build_model(cfg, device)
+
+    record = {"start_epoch": start_epoch, "epoch": None, "train_mIoU": None,
+              "summary": None, "logger": None, "checkpoint": None}
+    for epoch in range(start_epoch, args.epochs):
+        t0 = time.time()
+        iou_sum, iou_n = 0.0, 0
+        # iter/data timing, ETA, peak device memory (the reference
+        # MetricLogger.log_every line, utils.py:113-150)
+        logger = MetricLogger(out=sys.stderr)
+        logger.add_meter("lr", SmoothedValue(1, fmt="{value:.2e}"))
+        batches = logger.log_every(
+            _SizedIter(epoch_batches(epoch), iters_per_epoch),
+            max(args.print_freq, 1), header=f"Epoch: [{epoch}]")
+        for batch in batches:
+            metrics = step_fn(batch, step_generator(args.seed,
+                                                    sched.last_epoch, device))
+            # reading the loss waits for the step: iter_time is real
+            iou = float(metrics["iou"])
+            logger.update(loss=float(metrics["loss"]), iou=iou,
+                          lr=metrics["lr"])
+            iou_sum += iou
+            iou_n += 1
+        logger.synchronize_between_processes()
+        train_miou = 100.0 * iou_sum / max(iou_n, 1)
+        print(f"epoch {epoch} done in {time.time() - t0:.1f}s "
+              f"(train mIoU {train_miou:.2f})  {logger}", file=sys.stderr)
+
+        # validation every --eval_every epochs, like the reference
+        # (train.py:743, 768); checkpoints are named with their metrics
+        # (train.py:761-762)
+        tag, summary = "", None
+        if val_ds is not None and (epoch + 1) % max(args.eval_every, 1) == 0:
+            from ..eval.refcoco_eval import evaluate
+
+            eval_model.load_state_dict(model.state_dict())
+            summary = evaluate(eval_model, val_ds)
+            tag = f"mIoU_{summary['mIoU']:.2f}_oIoU_{summary['oIoU']:.2f}"
+        elif video:
+            tag = f"tmIoU_{train_miou:.2f}"
+
+        ckpt = None
+        if args.output_dir:
+            # --model_id goes into the name like the reference's
+            # model_best_{model_id}.pth (train.py:761-807)
+            if args.model_id:
+                tag = f"{args.model_id}_{tag}" if tag else args.model_id
+            ckpt = save_checkpoint(args.output_dir, epoch, model, opt, sched,
+                                   extra={"args": args}, metrics_tag=tag,
+                                   keep=args.keep_checkpoints or None)
+            print_master(f"saved {ckpt}", file=sys.stderr)
+        record.update(epoch=epoch, train_mIoU=train_miou, summary=summary,
+                      logger=logger, checkpoint=ckpt)
+    print("training complete", file=sys.stderr)
+    return record
+
+
+if __name__ == "__main__":
+    main()

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from ..data.loader import to_device
 from ..metrics import PR_THRESHOLDS, SegMetrics
 from ..ops.norm import maybe_normalize_image
 from .pipeline import run_pipelined
@@ -131,17 +132,10 @@ def evaluate(model: nn.Module, ds, max_items: Optional[int] = None,
     rank, world = _world()
     items = list(range(n))[rank::world]
     rb = refs_per_batch or -(-SENTENCES_PER_BATCH // sp0)
-    pin = device.type == "cuda"
-
-    def to_device(a: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(a)
-        if pin:
-            t = t.pin_memory()
-        return t.to(device, non_blocking=True)
 
     def produce():
         for i, scounts, *arrays in ref_batches(ds, items, rb, sp0):
-            yield i, scounts, [to_device(a) for a in arrays]
+            yield i, scounts, [to_device(a, device) for a in arrays]
 
     def dispatch(batch):
         return fwd_iou(model, *batch[2])

@@ -382,9 +382,20 @@ def test_reference_checkpoint_loads(pair, tmp_path, prefix,  # noqa: F811
     with pytest.raises(RuntimeError, match="missing"):
         cli_test.load_reference_checkpoint(fresh, str(bad),
                                            torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="item 15"):
+    # a directory without an epoch_*.pth checkpoint of the train CLI
+    with pytest.raises(FileNotFoundError, match="no epoch_"):
         cli_test.load_reference_checkpoint(fresh, str(tmp_path),
                                            torch.device("cpu"))
+    # a directory stands for its newest checkpoint (the older one here
+    # does not fit the model)
+    run = tmp_path / "run"
+    run.mkdir()
+    torch.save({"model": dict(list(sd.items())[:-1])}, run / "epoch_0000.pth")
+    torch.save({"model": sd, "epoch": 1}, run / "epoch_0001_lavt.pth")
+    fresh = build_model(pm.cfg, "cpu")
+    cli_test.load_reference_checkpoint(fresh, str(run), torch.device("cpu"))
+    for k, v in pm.state_dict().items():
+        torch.testing.assert_close(fresh.state_dict()[k], v, rtol=0, atol=0)
 
 
 def test_cli_refuses_what_is_not_ported():

@@ -1,0 +1,284 @@
+"""The port's train CLI (`lavt_rs_tpu_torch.cli.train`) and its checkpoints,
+on the CPU, on the shrunk config of the JAX package's CLI tests
+(test_cli_paths.py / test_cli_train_data.py: embed 16, depths (1, 1, 1, 1),
+window 4, one BERT layer, 32²; f32, the plain versions of the kernels).
+
+  * checkpoints: save / list / prune / latest / restore round-trip
+    bitwise, names equal to the JAX package's checkpoint stems (with
+    `.pth`), and `cli.test` loads the port's file and directory;
+  * `--synthetic`, as the JAX package's `test_train_save_resume_step`:
+    epochs [0], then [0, 1] resumed from the directory, then [0, 1, 2]
+    resumed from a file; the model, the AdamW moments and the schedule's
+    step restored bitwise equal to the file's;
+  * the RefCOCO branch on JAX's `synthetic_refcoco` fixture (PrefetchLoader,
+    paired augmentation, per-epoch eval): the checkpoint is named
+    `..._mIoU_<x>_oIoU_<y>.pth`, and `cli.test` on the directory gives the
+    in-train eval's summary;
+  * every refusal names its ROADMAP.md item.
+"""
+
+import dataclasses
+import os
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from lavt_rs_tpu.train.checkpoint import save_checkpoint as jsave_checkpoint
+from lavt_rs_tpu_torch.cli import args as cli_args
+from lavt_rs_tpu_torch.cli import test as cli_test
+from lavt_rs_tpu_torch.cli import train as cli_train
+from lavt_rs_tpu_torch.config import SwinConfig
+from lavt_rs_tpu_torch.models.factory import build_model
+from lavt_rs_tpu_torch.train import checkpoint as ckpt_mod
+from lavt_rs_tpu_torch.train.optim import TrainConfig
+from lavt_rs_tpu_torch.train.step import create_train_state, make_train_step
+from test_data import VOCAB, synthetic_refcoco  # noqa: F401  (fixture)
+
+CPU = torch.device("cpu")
+SYNTH = ["--synthetic", "--synthetic_steps", "2", "-b", "2", "--img_size",
+         "32", "--print-freq", "1", "--no_bf16", "--device", "cpu"]
+
+
+@pytest.fixture
+def shrunk(monkeypatch):
+    """The CLIs build the JAX tests' shrunk config (cli.train binds
+    model_config_from_args at import, cli.test at call time)."""
+    real = cli_args.model_config_from_args
+
+    def config(args):
+        cfg = real(args)
+        return cfg.replace(
+            swin=SwinConfig(embed_dim=16, depths=(1, 1, 1, 1),
+                            num_heads=(1, 2, 4, 8), window_size=4,
+                            window_size_3d=(2, 4, 4), drop_path_rate=0.0),
+            bert=dataclasses.replace(cfg.bert, num_layers=1,
+                                     vocab_size=len(VOCAB) + 100),
+            img_size=32)
+
+    monkeypatch.setattr(cli_train, "model_config_from_args", config)
+    monkeypatch.setattr(cli_args, "model_config_from_args", config)
+    return config
+
+
+def _tiny_state(seed=0):
+    """A shrunk model with one AdamW step taken (moments non-zero)."""
+    args = cli_train.get_parser().parse_args(SYNTH)
+    from lavt_rs_tpu_torch.config import BertConfig, ModelConfig
+
+    cfg = ModelConfig(swin=SwinConfig(embed_dim=16, depths=(1, 1, 1, 1),
+                                      num_heads=(1, 2, 4, 8), window_size=4,
+                                      drop_path_rate=0.0),
+                      bert=BertConfig(num_layers=1, vocab_size=64),
+                      img_size=32, max_tokens=6, dtype="float32")
+    model = build_model(cfg, CPU, train=True,
+                        generator=torch.Generator().manual_seed(seed))
+    tcfg = TrainConfig(iters_per_epoch=3, epochs=2)
+    opt, sched = create_train_state(model, tcfg)
+    rng = np.random.default_rng(seed)
+    args.max_tokens, args.batch_size = 6, 2
+    batch = next(cli_train.synthetic_batches(args, 1, rng, vocab_size=64))
+    make_train_step(model, opt, sched, tcfg)(
+        {k: torch.from_numpy(v) for k, v in batch.items()},
+        torch.Generator().manual_seed(1))
+    return cfg, tcfg, model, opt, sched, args
+
+
+def _assert_same(a, b, where=""):
+    """Nested state dicts equal bitwise (tensors by dtype and value)."""
+    if isinstance(a, torch.Tensor):
+        assert isinstance(b, torch.Tensor) and a.dtype == b.dtype, where
+        assert torch.equal(a.cpu(), b.cpu()), where
+    elif isinstance(a, dict):
+        assert a.keys() == b.keys(), where
+        for k in a:
+            _assert_same(a[k], b[k], f"{where}/{k}")
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b), where
+        for i, (x, y) in enumerate(zip(a, b)):
+            _assert_same(x, y, f"{where}[{i}]")
+    else:
+        assert a == b, where
+
+
+def test_checkpoint_round_trip(tmp_path):
+    cfg, tcfg, model, opt, sched, args = _tiny_state()
+    d = str(tmp_path / "ck")
+    paths = [ckpt_mod.save_checkpoint(d, e, model, opt, sched,
+                                      extra={"args": args}, metrics_tag=tag)
+             for e, tag in ((0, ""), (1, "lavt_mIoU_1.25_oIoU_2.50"),
+                            (2, "lavt"))]
+    assert [os.path.basename(p) for p in paths] == [
+        "epoch_0000.pth", "epoch_0001_lavt_mIoU_1.25_oIoU_2.50.pth",
+        "epoch_0002_lavt.pth"]
+    (tmp_path / "ck" / "notes.txt").write_text("not a checkpoint")
+    assert ckpt_mod.list_checkpoints(d) == [(e, p) for e, p in
+                                            zip(range(3), paths)]
+    assert ckpt_mod.latest_checkpoint(d) == paths[-1]
+    assert ckpt_mod.latest_checkpoint(str(tmp_path / "none")) is None
+
+    raw = ckpt_mod.load_checkpoint(paths[1], CPU)
+    assert set(raw) == {"model", "optimizer", "lr_scheduler", "epoch", "args"}
+    assert raw["args"] == args and raw["epoch"] == 1
+
+    _, _, fresh, fopt, fsched, _ = _tiny_state(seed=1)
+    extra, epoch = ckpt_mod.restore_checkpoint(paths[1], fresh, fopt, fsched,
+                                               CPU)
+    assert epoch == 1 and extra == {"args": args}
+    _assert_same(fresh.state_dict(), model.state_dict(), "model")
+    _assert_same(fopt.state_dict(), opt.state_dict(), "optimizer")
+    _assert_same(fsched.state_dict(), sched.state_dict(), "lr_scheduler")
+    assert fsched.last_epoch == sched.last_epoch == 1
+
+    ckpt_mod.prune_checkpoints(d, 2)
+    assert [e for e, _ in ckpt_mod.list_checkpoints(d)] == [1, 2]
+    p3 = ckpt_mod.save_checkpoint(d, 3, model, opt, sched, keep=1)
+    assert ckpt_mod.list_checkpoints(d) == [(3, p3)]
+
+    # cli.test reads the port's file, and a directory as its newest file
+    for path in (p3, d):
+        ev = build_model(cfg, CPU)
+        cli_test.load_reference_checkpoint(ev, path, CPU)
+        for k, v in model.state_dict().items():
+            assert torch.equal(ev.state_dict()[k], v), k
+
+
+def test_checkpoint_names_match_jax_stems(tmp_path):
+    """The JAX package's orbax directory names, with `.pth`."""
+    for epoch, tag in ((0, ""), (7, "lavt_mIoU_31.42_oIoU_27.18"),
+                       (12, "tmIoU_5.00")):
+        jpath = jsave_checkpoint(str(tmp_path / "jax"), epoch,
+                                 {"w": np.zeros(2, np.float32)},
+                                 metrics_tag=tag)
+        assert ckpt_mod.checkpoint_name(epoch, tag) == \
+            os.path.basename(jpath) + ".pth"
+
+
+def _record_restores(monkeypatch):
+    """Wrap restore_checkpoint: after each restore, hold the model, the
+    optimizer and the schedule against the file, bitwise."""
+    real, seen = ckpt_mod.restore_checkpoint, []
+
+    def restore(path, model, opt, sched, device):
+        out = real(path, model, opt, sched, device)
+        saved = ckpt_mod.load_checkpoint(path, CPU)
+        _assert_same(model.state_dict(), saved["model"], "model")
+        _assert_same(opt.state_dict()["state"], saved["optimizer"]["state"],
+                     "AdamW moments")
+        assert sched.last_epoch == saved["lr_scheduler"]["last_epoch"] > 0
+        seen.append(os.path.basename(path))
+        return out
+
+    monkeypatch.setattr(ckpt_mod, "restore_checkpoint", restore)
+    return seen
+
+
+def test_synthetic_save_resume_step(tmp_path, shrunk, monkeypatch):
+    seen = _record_restores(monkeypatch)
+    out = str(tmp_path / "ckpts")
+    rec = cli_train.main(SYNTH + ["--epochs", "1", "--output-dir", out])
+    assert [e for e, _ in ckpt_mod.list_checkpoints(out)] == [0]
+    assert rec["start_epoch"] == 0 and rec["epoch"] == 0
+    assert rec["logger"].iter_time.count == 2
+
+    # resume from the directory; must train exactly epoch 1
+    rec = cli_train.main(SYNTH + ["--epochs", "2", "--output-dir", out,
+                                  "--resume", out])
+    assert [e for e, _ in ckpt_mod.list_checkpoints(out)] == [0, 1]
+    assert rec["start_epoch"] == 1 and rec["epoch"] == 1
+    # from an explicit file too
+    ep1 = ckpt_mod.list_checkpoints(out)[-1][1]
+    cli_train.main(SYNTH + ["--epochs", "3", "--output-dir", out,
+                            "--resume", ep1])
+    assert [e for e, _ in ckpt_mod.list_checkpoints(out)] == [0, 1, 2]
+    assert seen == ["epoch_0000_lavt.pth", "epoch_0001_lavt.pth"]
+    last = ckpt_mod.load_checkpoint(ckpt_mod.latest_checkpoint(out), CPU)
+    assert last["lr_scheduler"]["last_epoch"] == 6  # 3 epochs of 2 steps
+    with pytest.raises(FileNotFoundError):
+        cli_train.main(SYNTH + ["--resume", str(tmp_path / "empty")])
+
+
+def test_step_generator_folds_in_the_step():
+    draws = [cli_train.step_generator(3, s, CPU).initial_seed()
+             for s in (0, 1, 2)]
+    assert len(set(draws)) == 3
+    assert draws[1] == cli_train.step_generator(3, 1, CPU).initial_seed()
+    assert draws[1] != cli_train.step_generator(4, 1, CPU).initial_seed()
+
+
+def test_synthetic_video_epoch(tmp_path, shrunk):
+    out = str(tmp_path / "ck")
+    rec = cli_train.main(SYNTH + ["--model", "lavt_video", "--num_frames",
+                                  "2", "--epochs", "1", "--output-dir", out])
+    (_, path), = ckpt_mod.list_checkpoints(out)
+    assert re.search(r"epoch_0000_lavt_tmIoU_[\d.]+\.pth$", path), path
+    assert rec["summary"] is None and np.isfinite(rec["train_mIoU"])
+
+
+def test_refcoco_branch_evaluates_and_cli_test_agrees(
+        synthetic_refcoco, tmp_path, shrunk, capsys):  # noqa: F811
+    vocab = tmp_path / "vocab.txt"
+    vocab.write_text("\n".join(VOCAB) + "\n")
+    out = str(tmp_path / "ck")
+    data = ["--dataset", "refcoco", "--refer_data_root", synthetic_refcoco,
+            "--vocab", str(vocab), "--img_size", "32", "--no_bf16",
+            "--device", "cpu"]
+    rec = cli_train.main(data + [
+        "-b", "1", "--epochs", "1", "--val_split", "val", "-j", "2",
+        "--print-freq", "1", "--aug_random_hflip", "0.5",
+        "--aug_random_resize", "36", "48", "--output-dir", out])
+    err = capsys.readouterr().err
+    assert err.count("Final: mIoU=") == 1 and "Epoch: [0]  [1/2]" in err
+    (_, path), = ckpt_mod.list_checkpoints(out)
+    summary = rec["summary"]
+    assert os.path.basename(path) == (
+        f"epoch_0000_lavt_mIoU_{summary['mIoU']:.2f}"
+        f"_oIoU_{summary['oIoU']:.2f}.pth")
+    assert rec["checkpoint"] == path
+
+    got = cli_test.main(data + ["--resume", out])
+    assert got == summary
+
+
+def test_combined_pretrain_concatenates_three_sources(
+        synthetic_refcoco, tmp_path):  # noqa: F811
+    import shutil
+
+    root = tmp_path / "data"
+    shutil.copytree(synthetic_refcoco, root)
+    shutil.copytree(root / "refcoco", root / "refcoco+")
+    shutil.copytree(root / "refcoco", root / "refcocog")
+    os.rename(root / "refcocog" / "refs(unc).p", root / "refcocog" / "refs(umd).p")
+    vocab = tmp_path / "vocab.txt"
+    vocab.write_text("\n".join(VOCAB) + "\n")
+    args = cli_train.get_parser().parse_args([
+        "--refer_data_root", str(root), "--vocab", str(vocab),
+        "--ref_image_combined_pretrain", "--img_size", "32"])
+    args.max_tokens = cli_args.model_config_from_args(args).max_tokens
+    train_ds, val_ds = cli_train.refcoco_datasets(args)
+    assert len(train_ds) == 3 * 2 and len(val_ds) == 1
+    assert args.max_tokens == 22
+    assert all(p.max_tokens == 22 for p in train_ds.datasets)
+    assert train_ds[5].ids.shape == (22,)
+
+
+@pytest.mark.parametrize("extra,where", [
+    (["--pretrained_swin_weights", "swin.pth"], "item 26"),
+    (["--pretrained2d_lavt_weights", "lavt.pth"], "item 26"),
+    (["--dataset", "a2d"], "item 24"),
+    (["--dataset", "ytvos"], "item 24"),
+    (["--image_combined_3d_pretrain"], "item 24"),
+    (["--model", "lavt_video"], "item 24"),
+    (["--model", "lts"], "slice 5"),
+    (["--model", "lavt"], "slice 5"),
+])
+def test_cli_refuses_what_is_not_ported(extra, where):
+    with pytest.raises(NotImplementedError, match=where):
+        cli_train.main(["--device", "cpu"] + extra)
+
+
+def test_cli_refuses_more_than_one_process(monkeypatch):
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(NotImplementedError, match="item 16"):
+        cli_train.main(SYNTH)
