@@ -120,6 +120,33 @@
    with --use_checkpoint (every 3D block recomputed: K10's save mode 24 /
    K9 12 per step), whose peak device memory must be below the unflagged
    step's.
+4b. A2D evaluation at the reference's clip length: `lavt_rs_tpu_torch.
+   cli.test.main` in process with the A2D recipe's flags (VIDEO_RECIPE,
+   whose config is lavt_video_tiny), --dataset a2d --clip_length 16, the
+   video phase's weights as a reference .pth (--checkpoint), bf16 with the
+   kernels, on A2D_CLIPS in-memory 16-frame 480² clips (h5py does not
+   import on the card's machine, so the mp4 + h5 readers are held by the
+   CPU tests only).  Two temporal windows of 8 and a live temporal shift
+   of 4, which 8-frame clips never have.  The launches per clip must equal
+   `kernel_plan(cfg, 480, 16)`; prints the summary, ms per clip (the
+   CLI's cold run and a warm rerun of `evaluate_a2d`), clips/s, frames/s,
+   peak memory and one clip under torch.profiler (idle share); the
+   annotated frame passes the pixel gate against the f32 plain model.
+4c. YTVOS inference: `lavt_rs_tpu_torch.cli.test_ytvos.main` in process
+   on two whole JPEG videos written by the phase (20 frames of 720x1280
+   and 13 of 360x640, two expressions each: temporal padding), with the
+   same weights: unchunked and with --chunk_frames 8 --chunk_halo 8, each
+   through the kernels and through the plain f32 route (--no_pallas
+   --no_bf16).  Checks the PNGs' count and sizes, the launches against the
+   kernel plan at each forward's length (none on the plain route) and
+   every forward's logits against the same forward of the plain route by
+   the pixel gate; prints ms per video, frames/s, the host's seconds
+   (decode in the producer thread, the loop's wait on it, PNG writes),
+   the device's idle share over the unchunked loop (rerun under
+   torch.profiler) and the chunked masks' agreement with the unchunked
+   ones (not gated).  Each video CLI run starts with the shift masks
+   cached per geometry released (`ops.window.clear_device_caches`), and
+   the phase ends so: the later phases' peak memory holds none of its.
 5. Training main path: the same weights in an f32 `build_model(...,
    train=True)` take AdamW steps (`train.step.make_train_step`: DropPath
    0.3, BERT dropout 0.1, weighted CE, poly LR) on synthetic uint8
@@ -155,7 +182,13 @@
    test CLI on the directory reproduces the last in-train eval within
    0.01 mIoU and oIoU.  Prints steps/s, img/s, the loader's data wait
    against the iteration time, peak device memory and the median ms per
-   step beside `make_train_step`'s on one repeated batch (5.).
+   step beside `make_train_step`'s on one repeated batch (5.).  Epoch 0
+   starts from a Swin-B window-7 ImageNet checkpoint written by the phase
+   (seeded, 336 MiB f32, with the head, final norm and geometry buffers)
+   through --pretrained_swin_weights: the model the CLI builds must hold
+   the file's 325 tensors after the flag (the relative-position tables
+   equal to the port's bicubic 7 -> 12 of the file's, computed on the CPU)
+   and skip its other 39; prints the counts and the flag's seconds.
 
 6. Window 7 (`lavt_one_base(window12=False)`, the CLIs' default): the
    launch counts of the models' own kernel plan (`kernel_plan`, from the
@@ -325,6 +358,27 @@ TRAIN_CKPT_PER_STEP = dict(TRAIN_PER_STEP, K1=8, K2=40, K3=2, K8=46)
 VIDEO_STAGES = ((120, 96, 3, 2), (60, 192, 6, 2), (30, 384, 12, 6),
                 (15, 768, 24, 2))
 FRAMES, VIDEO_TOKENS, N_CLIPS = 8, 22, 3
+# the CLI flags of the A2D recipe (README.md:185, BASELINE.md): their
+# model config is config.lavt_video_tiny()
+VIDEO_RECIPE = ("--model", "lavt_video", "--swin_type", "tiny",
+                "--conv3d_kernel_size_t", "3-3-3", "--conv3d_kernel_size_s",
+                "1-1-1", "--w_t3x3_s1x1", "--mm_t3x3_s1x1")
+# A2D evaluation at the reference's --clip_length: 16 consecutive frames,
+# two temporal windows of 8 and a live temporal shift of 4.  h5py does not
+# import on the card's machine (cv2 does), so the clips are built in memory
+# and the disk readers (mp4 + h5) are held by the CPU tests alone
+A2D_CLIP, A2D_CLIPS = 16, 32
+# the video CLIs' --img_size: the recipe's 480
+CLI_IMG = 480
+# YTVOS inference of whole videos: (name, frames, original (h, w)), lengths
+# that are not multiples of the temporal window; two expressions each
+YTVOS_VIDEOS = (("vid20", 20, (720, 1280)), ("vid13", 13, (360, 640)))
+YTVOS_EXPRESSIONS = 2
+# the Swin-B window-7 ImageNet checkpoint of the weight-import check:
+# tensors the train CLI's window-12 model takes (patch embedding 4, 24
+# blocks of 13, 3 patch mergings of 3) and the ones it skips (the final
+# norm and the head 4, 24 relative_position_index and 11 attn_mask buffers)
+SWIN_B_LOADED, SWIN_B_SKIPPED = 325, 39
 # launches per clip: K2p in both stage-1 blocks, K10 in the ten others
 VIDEO_PER_CLIP = {"K10": 10, "K2p": 2}
 # launches per video training step: every 3D block takes K10 (save mode)
@@ -1982,6 +2036,45 @@ def checkpoint_training(dev, card, weights):
                            "step's peak memory")
 
 
+def write_imagenet_swin(path):
+    """A Swin-B window-7 ImageNet-1k checkpoint in the published format
+    (`{"model": ...}`, no prefix, the final `norm`, a 1000-class `head`,
+    each block's `relative_position_index` and the shifted blocks'
+    `attn_mask` at 224²), its tensors drawn from a seeded CPU generator
+    (weights and tables N(0, 0.02), LayerNorm scales 1 + N(0, 0.02));
+    the names and shapes are the port's window-7 Swin-B backbone's."""
+    import torch
+
+    from lavt_rs_tpu_torch.config import lavt_one_base
+    from lavt_rs_tpu_torch.models.factory import build_model
+    from lavt_rs_tpu_torch.ops.window import relative_position_index_2d
+
+    g = torch.Generator().manual_seed(SEED + 50)
+    cfg = lavt_one_base(window12=False)
+    sd = {}
+    for k, v in build_model(cfg, "meta").state_dict().items():
+        name = k.removeprefix("backbone.")
+        if (name == k or ".fusion." in name or ".res_gate." in name
+                or name.startswith("norm")):
+            continue
+        if name.endswith("relative_position_index"):
+            sd[name] = torch.from_numpy(relative_position_index_2d(7, 7))
+        else:
+            sd[name] = torch.randn(v.shape, generator=g) * 0.02
+            if name.endswith(("norm.weight", "norm1.weight", "norm2.weight")):
+                sd[name] += 1.0
+    c = cfg.swin.num_features[-1]
+    sd.update({"norm.weight": torch.ones(c), "norm.bias": torch.zeros(c),
+               "head.weight": torch.randn(1000, c, generator=g) * 0.02,
+               "head.bias": torch.zeros(1000)})
+    for i, res in enumerate((56, 28, 14)):  # stage 4 (7²) is not shifted
+        for j in range(1, cfg.swin.depths[i], 2):
+            sd[f"layers.{i}.blocks.{j}.attn_mask"] = torch.zeros(
+                (res // 7) ** 2, 49, 49)
+    torch.save({"model": sd}, path)
+    return sd
+
+
 def train_cli_phase(dev, card, step_ms):
     """The RefCOCO train CLI (`lavt_rs_tpu_torch.cli.train.main`) in process
     on the synthetic split's TRAIN_REFS train refs at the published
@@ -2008,6 +2101,7 @@ def train_cli_phase(dev, card, step_ms):
 
     from lavt_rs_tpu_torch.cli import test as cli_test
     from lavt_rs_tpu_torch.cli import train as cli_train
+    from lavt_rs_tpu_torch.convert import pretrained
     from lavt_rs_tpu_torch.data.refcoco import ReferDataset
     from lavt_rs_tpu_torch.data.refer import REFER
     from lavt_rs_tpu_torch.eval import refcoco_eval
@@ -2032,6 +2126,42 @@ def train_cli_phase(dev, card, step_ms):
                        "--print-freq", "1", "--output-dir", out]
         evaluate, restore = refcoco_eval.evaluate, ckpt.restore_checkpoint
         counts, restored = {}, []
+        swin = os.path.join(root, "swin_base_patch4_window7_224.pth")
+        t0 = time.perf_counter()
+        swin_sd = write_imagenet_swin(swin)
+        log(f"wrote {os.path.basename(swin)} ({len(swin_sd)} tensors, "
+            f"{os.path.getsize(swin) / 2**20:.1f} MiB) in "
+            f"{time.perf_counter() - t0:.2f} s")
+        apply_flags = pretrained.apply_pretrained_flags
+
+        def checked_apply(model, cfg, args):
+            records = apply_flags(model, cfg, args)
+            if not records:  # the resumed run takes no flag
+                return records
+            (rec,) = records
+            sd = model.state_dict()
+            wrong = []
+            for k in rec["loaded"]:
+                want = swin_sd[k.removeprefix("backbone.")]
+                if k.endswith(pretrained.TABLE):
+                    want = pretrained.interpolate_rel_pos_bias(want, (12, 12))
+                if not torch.equal(sd[k], want.to(sd[k].device)):
+                    wrong.append(k)
+            skipped = " ".join(rec["skipped"])
+            log(f"{rec['flag']}: loaded {len(rec['loaded'])} tensors, "
+                f"skipped {len(rec['skipped'])} (head, norm, "
+                f"relative_position_index, attn_mask among them), "
+                f"{rec['seconds']:.2f} s in the flag (read, bicubic 7 -> 12 "
+                f"on the CPU, copies to the card); tensors of the CLI's "
+                f"model unequal to the file's: {wrong}  [{card}]")
+            if (wrong or len(rec["loaded"]) != SWIN_B_LOADED
+                    or len(rec["skipped"]) != SWIN_B_SKIPPED
+                    or not all(x in skipped for x in (
+                        "head.weight", "norm.weight",
+                        "relative_position_index", "attn_mask"))):
+                raise RuntimeError("--pretrained_swin_weights did not load "
+                                   "the file as it should")
+            return records
 
         def counted_evaluate(*a, **kw):
             torch.cuda.synchronize()
@@ -2069,6 +2199,7 @@ def train_cli_phase(dev, card, step_ms):
             err = io.StringIO()
             refcoco_eval.evaluate = counted_evaluate
             ckpt.restore_checkpoint = checked_restore
+            pretrained.apply_pretrained_flags = checked_apply
             t0 = time.perf_counter()
             try:
                 with contextlib.redirect_stderr(err):
@@ -2076,6 +2207,7 @@ def train_cli_phase(dev, card, step_ms):
             finally:
                 refcoco_eval.evaluate, ckpt.restore_checkpoint = (evaluate,
                                                                   restore)
+                pretrained.apply_pretrained_flags = apply_flags
             seconds = time.perf_counter() - t0
             peak = torch.cuda.max_memory_allocated() / 2**30
             for line in err.getvalue().splitlines():
@@ -2103,7 +2235,8 @@ def train_cli_phase(dev, card, step_ms):
                 f"device memory {peak:.2f} GiB  [{card}]")
             return rec
 
-        rec0 = run(["--epochs", "1"], "train CLI epoch 0")
+        rec0 = run(["--epochs", "1", "--pretrained_swin_weights", swin],
+                   "train CLI epoch 0 (--pretrained_swin_weights)")
         rec1 = run(["--epochs", "2", "--resume", out],
                    "train CLI epoch 1 (--resume on the directory)")
         files = ckpt.list_checkpoints(out)
@@ -2582,6 +2715,14 @@ def profile_clip(fn, card, what="video clip", before=None):
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
+    log_profile(prof, wall, card, what, before)
+
+
+def log_profile(prof, wall, card, what, before=None):
+    """A profiler session's device busy time over its `wall` ms, the idle
+    share, and the kernels that take the busy time, by name."""
+    import torch
+
     rows = []
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total",
@@ -2678,6 +2819,386 @@ def video(dev, card, res):
     del model
     torch.cuda.empty_cache()
     return launches, weights
+
+
+# -- A2D evaluation and YTVOS inference through the CLIs -------------------------
+
+def video_checkpoint(root, weights):
+    """The video phase's weights as a reference-format .pth under root."""
+    import torch
+
+    path = os.path.join(root, "lavt_video_tiny_a2d.pth")
+    torch.save({"model": weights}, path)
+    return path
+
+
+def a2d_examples():
+    """A2D_CLIPS in-memory A2D items: A2D_CLIP-frame 480² uint8 clips, the
+    annotated frame at the consecutive window's centre, an elliptic
+    target, 22 token ids with a padded mask."""
+    import numpy as np
+
+    from lavt_rs_tpu_torch.data.a2d import VideoExample
+    from lavt_rs_tpu_torch.data.video_sampling import consecutive_window
+
+    rng = np.random.default_rng(SEED + 40)
+    yy, xx = np.mgrid[0:CLI_IMG, 0:CLI_IMG]
+    out = []
+    for i in range(A2D_CLIPS):
+        indices, valid_index = consecutive_window(20 + i, 60, A2D_CLIP)
+        cy, cx, ry, rx = CLI_IMG * rng.uniform((0.25, 0.25, 0.08, 0.08),
+                                               (0.75, 0.75, 0.3, 0.3))
+        target = (((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1)
+        mask = np.zeros(VIDEO_TOKENS, np.int64)
+        mask[:int(rng.integers(5, VIDEO_TOKENS + 1))] = 1
+        out.append(VideoExample(
+            video=rng.integers(0, 256, (len(indices), CLI_IMG, CLI_IMG, 3), np.uint8),
+            target=target.astype(np.int32), valid_index=valid_index, valid=1,
+            ids=rng.integers(1000, 20000, VIDEO_TOKENS), mask=mask,
+            image_id=f"a2d_{i}"))
+    return out
+
+
+def a2d_phase(dev, card, ckpt):
+    """`cli.test --dataset a2d` (lavt_video_tiny, bf16, the kernels) in
+    process on A2D_CLIPS in-memory A2D_CLIP-frame 480² clips, with the
+    video phase's weights as --checkpoint: launches per clip equal to
+    `kernel_plan(cfg, CLI_IMG, A2D_CLIP)`, ms per clip (the CLI's cold run and
+    a warm rerun of `evaluate_a2d`), clips/s, frames/s, peak memory, one
+    clip's idle share (`torch.profiler`), and the annotated frame against
+    the f32 plain model by the pixel gate."""
+    import torch
+
+    from lavt_rs_tpu_torch.cli import test as cli_test
+    from lavt_rs_tpu_torch.data.loader import to_device
+    from lavt_rs_tpu_torch.eval import video_eval
+    from lavt_rs_tpu_torch.models.factory import build_model
+
+    examples = a2d_examples()
+    dataset, evaluate = cli_test.a2d_dataset, video_eval.evaluate_a2d
+    runs = []
+
+    def counted(model, ds, **kw):
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        summary = evaluate(model, ds, **kw)
+        torch.cuda.synchronize()
+        runs.append((model, time.perf_counter() - t0, read_counts()))
+        return summary
+
+    gc_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    cli_test.a2d_dataset = lambda args, cfg: examples
+    video_eval.evaluate_a2d = counted
+    err = io.StringIO()
+    try:
+        with contextlib.redirect_stderr(err):
+            summary = cli_test.main(list(VIDEO_RECIPE) + [
+                "--dataset", "a2d", "--split", "val", "--clip_length",
+                str(A2D_CLIP), "--img_size", str(CLI_IMG), "--device", str(dev),
+                "--checkpoint", ckpt])
+    finally:
+        cli_test.a2d_dataset, video_eval.evaluate_a2d = dataset, evaluate
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for line in err.getvalue().splitlines():
+        log(f"test cli (a2d): {line}")
+    model, cold, launches = runs[0]
+    cfg = model.cfg
+    plan = kernel_plan(cfg, CLI_IMG, A2D_CLIP)[0]
+    log(f"A2D launches over {A2D_CLIPS} {A2D_CLIP}-frame clips: "
+        f"{nonzero_counts(launches)}; kernel_plan(cfg, {CLI_IMG}, {A2D_CLIP}) per "
+        f"clip: {plan}")
+    check_counts("A2D eval", launches, plan, A2D_CLIPS)
+    counted(model, examples)
+    warm, launches = runs[1][1:]
+    check_counts("A2D eval (warm)", launches, plan, A2D_CLIPS)
+    log(f"A2D via cli.test --model lavt_video --dataset a2d (lavt_video_tiny "
+        f"bf16, the kernels, {A2D_CLIPS} {A2D_CLIP}-frame {CLI_IMG}² clips): "
+        f"{summary}; cold {1e3 * cold / A2D_CLIPS:.1f} ms/clip, warm "
+        f"{1e3 * warm / A2D_CLIPS:.1f} ms/clip = {A2D_CLIPS / warm:.2f} "
+        f"clips/s = {A2D_CLIP * A2D_CLIPS / warm:.1f} frames/s (host clock, "
+        f"pipelined decode-free loop); peak device memory {peak:.2f} GiB  "
+        f"[{card}]")
+
+    ex = examples[0]
+    clip = [to_device(a, dev) for a in (ex.video, ex.ids, ex.mask)]
+    profile_clip(lambda: video_eval.clip_iou(
+        model, *clip, ex.valid_index, to_device(ex.target, dev)), card,
+        f"A2D {A2D_CLIP}-frame clip (clip_iou)")
+    temporal_geometry_ms(model, dev, card)
+    v = ex.valid_index
+    got = video_eval.clip_logits(model, *clip)[v:v + 1]
+    ref = build_model(cfg.replace(dtype="float32", use_kernels=False), dev)
+    ref.load_state_dict(model.state_dict())
+    want = video_eval.clip_logits(ref, *clip)[v:v + 1]
+    del ref, model
+    agree = gate_pixels(f"A2D {A2D_CLIP}-frame clip", got, want,
+                        (1, CLI_IMG, CLI_IMG, 2))
+    log(f"A2D {A2D_CLIP}-frame clip, annotated frame {v}: bf16 kernel route "
+        f"vs f32 plain route, max |dlogit| "
+        f"{(got - want).abs().max().item():.4g}, argmax agreement "
+        f"{agree:.5f} on the pixels of f32 margin > {MARGIN}")
+    gc_cuda()
+
+
+def temporal_geometry_ms(model, dev, card, forwards=3):
+    """K2p's and K10's device ms per clip of the lavt_video `model` at T =
+    8 (one temporal window, the shift clamped to 0), 13, 16 (two windows,
+    a live shift of 4; 13 padded) and 20 (three, padded): one
+    torch.profiler session over `forwards` forwards each, the kernels in
+    launch order.  A forward launches K10's kernel 12 times (K2p's
+    attention in the 2 stage-1 blocks first, then K10 in the 10 others)
+    and the GEMM core 4 times (K2p's projections).  A session that lost
+    kernel records prints "not measured"."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from lavt_rs_tpu_torch.eval.video_eval import clip_logits
+
+    rng = np.random.default_rng(SEED + 42)
+    ids = torch.from_numpy(rng.integers(1000, 20000, VIDEO_TOKENS)).to(dev)
+    mask = torch.ones(VIDEO_TOKENS, dtype=torch.int64, device=dev)
+    base = None
+    for t in (FRAMES, 13, A2D_CLIP, 20):
+        clip = torch.from_numpy(rng.integers(0, 256, (t, CLI_IMG, CLI_IMG, 3),
+                                             np.uint8)).to(dev)
+        clip_logits(model, clip, ids, mask)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(forwards):
+                clip_logits(model, clip, ids, mask)
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        attn = [e.time_range.elapsed_us() / 1e3 for e in events
+                if "window_attn_sm90_kernel" in e.name]
+        gemm = [e.time_range.elapsed_us() / 1e3 for e in events
+                if "sm90::gemm_kernel" in e.name]
+        windows = -(-t // 8)
+        if len(attn) != 12 * forwards or len(gemm) != 4 * forwards:
+            log(f"T = {t}: K2p / K10 per clip not measured (the profiler "
+                f"recorded {len(attn)} attention and {len(gemm)} GEMM "
+                f"launches over {forwards} forwards)")
+            continue
+        k2p = (sum(attn[i] for i in range(len(attn)) if i % 12 < 2)
+               + sum(gemm)) / forwards
+        k10 = sum(attn[i] for i in range(len(attn)) if i % 12 >= 2) / forwards
+        if t == FRAMES:
+            base = (k2p, k10)
+        ratio = ("" if base is None else
+                 f" ({k2p / base[0]:.2f}x T = 8, {k2p / base[0] / windows:.2f}x"
+                 f" per window; K10 {k10 / base[1]:.2f}x, "
+                 f"{k10 / base[1] / windows:.2f}x per window)")
+        log(f"T = {t} ({windows} temporal window{'s' * (windows > 1)} of 8): "
+            f"K2p {k2p:.3f} ms per clip, K10 {k10:.3f} ms{ratio}, device, "
+            f"torch.profiler over {forwards} forwards  [{card}]")
+
+
+def write_ytvos(root, rng):
+    """YTVOS_VIDEOS in the competition layout under root: JPEG frames at
+    their original sizes in valid/JPEGImages/<video>/, YTVOS_EXPRESSIONS
+    expressions each in meta_expressions/valid/meta_expressions.json, a
+    vocab.txt.  Returns the vocab's path."""
+    import numpy as np
+    from PIL import Image
+
+    meta = {"videos": {}}
+    for name, n, (h, w) in YTVOS_VIDEOS:
+        d = os.path.join(root, "valid", "JPEGImages", name)
+        os.makedirs(d)
+        yy, xx = np.mgrid[0:h, 0:w].astype(np.float32) / max(h, w)
+        frames = [f"{5 * t:05d}" for t in range(n)]
+        for t, fr in enumerate(frames):
+            smooth = np.stack([np.sin(9 * xx + 0.3 * t), np.cos(7 * yy - 0.2 * t),
+                               np.sin(5 * (xx + yy) + 0.1 * t)], -1)
+            img = 127.5 + 100 * smooth + rng.normal(0, 10, (h, w, 3))
+            Image.fromarray(img.clip(0, 255).astype(np.uint8)).save(
+                os.path.join(d, f"{fr}.jpg"), quality=90)
+        meta["videos"][name] = {"frames": frames, "expressions": {
+            str(e): {"exp": " ".join(rng.choice(EVAL_WORDS,
+                                                int(rng.integers(2, 9))))}
+            for e in range(YTVOS_EXPRESSIONS)}}
+    os.makedirs(os.path.join(root, "meta_expressions", "valid"))
+    with open(os.path.join(root, "meta_expressions", "valid",
+                           "meta_expressions.json"), "w") as fh:
+        json.dump(meta, fh)
+    vocab = os.path.join(root, "vocab.txt")
+    with open(vocab, "w") as fh:
+        fh.write("\n".join(("[PAD]", "[UNK]", "[CLS]", "[SEP]") + EVAL_WORDS)
+                 + "\n")
+    return vocab
+
+
+def read_masks(out):
+    """{(video, expression, frame): uint8 mask} of a test_ytvos output."""
+    import numpy as np
+    from PIL import Image
+
+    got = {}
+    for dirpath, _, files in os.walk(out):
+        for f in files:
+            with Image.open(os.path.join(dirpath, f)) as im:
+                got[(*os.path.relpath(dirpath, out).split(os.sep), f)] = \
+                    np.asarray(im)
+    return got
+
+
+def ytvos_phase(dev, card, ckpt):
+    """`cli.test_ytvos.main` in process on YTVOS_VIDEOS (whole videos of 20
+    and 13 frames, YTVOS_EXPRESSIONS expressions each, originals of 720x1280
+    and 360x640), with the video phase's weights as --checkpoint: unchunked
+    and with --chunk_frames 8 --chunk_halo 8, each through the kernels and
+    through the plain f32 route (--no_pallas --no_bf16).  Checks the PNGs'
+    count and sizes, each forward's launches against `kernel_plan` at its
+    length (none on the plain route), and every forward of the kernel
+    route against the same forward of the plain route by the pixel gate.
+    Prints ms per video, frames/s, the host's seconds (decode in the
+    producer thread, the loop's wait on it, PNG writes), the device's idle
+    share over the unchunked loop (a rerun under torch.profiler), and the
+    chunked run's agreement with the unchunked one (not gated)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from lavt_rs_tpu_torch.cli import args as cli_args
+    from lavt_rs_tpu_torch.cli import test_ytvos as cli_ytvos
+    from lavt_rs_tpu_torch.eval import pipeline
+
+    with tempfile.TemporaryDirectory() as root:
+        vocab = write_ytvos(root, np.random.default_rng(SEED + 41))
+        argv = list(VIDEO_RECIPE) + [
+            "--ytvos_data_root", root, "--vocab", vocab, "--img_size", str(CLI_IMG),
+            "--device", str(dev), "--checkpoint", ckpt]
+        cfg = cli_args.model_config_from_args(cli_ytvos.get_parser().parse_args(argv))
+        forward, loop = cli_ytvos.forward_clip, pipeline.run_pipelined
+        chunked = ["--chunk_frames", "8", "--chunk_halo", "8"]
+        plain = ["--no_pallas", "--no_bf16"]
+        sessions = []
+
+        def profiled(*a, **kw):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                waited = loop(*a, **kw)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            sessions.append((prof, wall, waited))
+            return waited
+
+        def run(extra, what, profiled_loop=False):
+            lengths, logits = [], []
+
+            def recorded(model, clip, ids, attn, video):
+                out = forward(model, clip, ids, attn, video)
+                lengths.append(clip.shape[0])
+                logits.append(out)
+                return out
+
+            out = os.path.join(root, what.replace(" ", "_"))
+            gc_cuda()
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+            cli_ytvos.forward_clip = recorded
+            if profiled_loop:
+                pipeline.run_pipelined = profiled
+            err = io.StringIO()
+            try:
+                with contextlib.redirect_stderr(err):
+                    stats = cli_ytvos.main(argv + ["--out", out] + extra)
+            finally:
+                cli_ytvos.forward_clip, pipeline.run_pipelined = forward, loop
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            for line in err.getvalue().splitlines():
+                log(f"test_ytvos cli ({what}): {line}")
+            launches = nonzero_counts(read_counts())
+            want = {}
+            if plain[0] not in extra:
+                for t in lengths:
+                    for k, n in kernel_plan(cfg, CLI_IMG, t)[0].items():
+                        want[k] = want.get(k, 0) + n
+            if launches != want:
+                raise RuntimeError(f"YTVOS {what}: launches {launches}, the "
+                                   f"kernel plan over forwards of {lengths} "
+                                   f"frames gives {want}")
+            masks = read_masks(out)
+            sizes = {name: hw for name, _, hw in YTVOS_VIDEOS}
+            n_want = sum(n for _, n, _ in YTVOS_VIDEOS) * YTVOS_EXPRESSIONS
+            if len(masks) != n_want or any(
+                    m.shape != sizes[k[0]] or m.dtype != np.uint8
+                    for k, m in masks.items()):
+                raise RuntimeError(f"YTVOS {what}: {len(masks)} PNGs (want "
+                                   f"{n_want}) or wrong sizes")
+            s, n_vid = stats["seconds"], stats["videos"]
+            masks_per_s = sum(n * YTVOS_EXPRESSIONS
+                              for _, n, _ in YTVOS_VIDEOS) / s
+            log(f"YTVOS via cli.test_ytvos ({what}): {n_vid} videos, "
+                f"{stats['frames']} frames, {stats['expressions']} "
+                f"expressions, forwards of {lengths} frames; "
+                f"{1e3 * s / n_vid:.1f} ms/video, {stats['frames'] / s:.2f} "
+                f"frames/s ({masks_per_s:.2f} frame masks/s); the loop "
+                f"{s:.3f} s: its wait on the producer {stats['wait_s']:.3f} "
+                f"s (decode and copy {stats['decode_s']:.3f} s in the "
+                f"producer thread), PNG writes {stats['write_s']:.3f} s; "
+                f"launches {launches}; {len(masks)} PNGs at the original "
+                f"sizes; peak {peak:.2f} GiB  [{card}]")
+            return masks, logits, lengths
+
+        full, got, lengths = run([], "unchunked")
+        cut, got_cut, lengths_cut = run(chunked, "chunked 8 + halo 8")
+        _, want, plain_lengths = run(plain, "plain f32")
+        _, want_cut, plain_lengths_cut = run(chunked + plain,
+                                             "plain f32 chunked 8 + halo 8")
+        if (lengths, lengths_cut) != (plain_lengths, plain_lengths_cut):
+            raise RuntimeError(f"YTVOS: the plain route's forwards "
+                               f"{plain_lengths} / {plain_lengths_cut} are "
+                               f"not the kernel route's {lengths} / "
+                               f"{lengths_cut}")
+        for what, g_all, w_all, ts in (("unchunked", got, want, lengths),
+                                       ("chunked", got_cut, want_cut,
+                                        lengths_cut)):
+            for i, (g, w, t) in enumerate(zip(g_all, w_all, ts)):
+                agree = gate_pixels(f"YTVOS {what} forward {i}", g, w, w.shape)
+                log(f"YTVOS {what} forward {i} ({t} frames): bf16 kernel "
+                    f"route vs f32 plain route, max |dlogit| "
+                    f"{(g - w).abs().max().item():.4g}, argmax agreement "
+                    f"{agree:.5f} on the pixels of f32 margin > {MARGIN}")
+        del got, want, got_cut, want_cut
+        same = np.mean([(cut[k] == m).mean() for k, m in full.items()])
+        log(f"YTVOS chunked (8 + halo 8) against unchunked masks: "
+            f"{same:.5f} of pixels equal (not gated)")
+        run([], "unchunked, the loop under torch.profiler",
+            profiled_loop=True)
+        prof, wall, waited = sessions[0]
+        log_profile(prof, wall, card,
+                    f"YTVOS unchunked loop ({len(YTVOS_VIDEOS)} videos; its "
+                    f"wait on the producer {1e3 * waited:.1f} ms)")
+    gc_cuda()
+
+
+def gc_cuda():
+    """Free the card's memory held by dead tensors, the allocator's cache
+    and the shift masks cached per geometry (`ops.window`)."""
+    import gc
+
+    import torch
+
+    from lavt_rs_tpu_torch.ops.window import clear_device_caches
+
+    clear_device_caches()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def nonzero_counts(counts):
+    return {k: v for k, v in counts.items() if v}
 
 
 # -- video training: K10's save mode and K9, then the train step -----------------
@@ -3647,6 +4168,16 @@ def main():
             f"library {r['lib']:.3f} ms")
     log(f"video done at {time.perf_counter() - t_start:.1f} s")
 
+    # -- the video evaluation CLIs: A2D at 16 frames, YTVOS whole videos --------
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as root:
+        ckpt = video_checkpoint(root, video_weights)
+        a2d_phase(dev, card, ckpt)
+        log(f"A2D eval done at {time.perf_counter() - t_start:.1f} s")
+        ytvos_phase(dev, card, ckpt)
+        log(f"YTVOS inference done at {time.perf_counter() - t_start:.1f} s")
+
     # -- video training main path (its kernel phases first) ------------------------
     video_train_kernel_phases(dev, res)
     for k in ("K10s", "K9"):
@@ -3681,20 +4212,17 @@ def main():
     from lavt_rs_tpu_torch.config import lavt_one_tiny, lavt_video_tiny
     from lavt_rs_tpu_torch.models.factory import build_model, make_config
 
-    def nonzero(d):
-        return {k: v for k, v in d.items() if v}
-
     w7cfg = lavt_one_base(window12=False)
     for what, got, want in (
             ("window 12 forward", kernel_plan(cfg, 480, BATCH)[0],
              INFER_PER_FORWARD),
             ("window 12 step", kernel_plan(cfg, 480, BATCH, True)[0],
-             nonzero(TRAIN_PER_STEP)),
+             nonzero_counts(TRAIN_PER_STEP)),
             ("window 12 bs-16 step",
              kernel_plan(cfg, 480, BATCH_BIG, True)[0], BIG_PER_STEP),
             ("window 12 step, --use_checkpoint",
              kernel_plan(cfg.replace(use_checkpoint=True), 480, BATCH,
-                         True)[0], nonzero(TRAIN_CKPT_PER_STEP)),
+                         True)[0], nonzero_counts(TRAIN_CKPT_PER_STEP)),
             ("window 7 forward", kernel_plan(w7cfg, 480, BATCH)[0],
              W7_INFER_PER_FORWARD),
             ("window 7 step", kernel_plan(w7cfg, 480, BATCH, True)[0],

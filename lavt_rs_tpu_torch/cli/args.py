@@ -10,8 +10,9 @@ lines, and maps the flags onto the port's typed config
 versions on the host); `--no_pallas` asks for the plain PyTorch versions
 of the kernels (`use_kernels=False`).  Flags that are parsed-but-unused in
 the reference (--map_score, --test_fake_method, --davis_data_root,
---sample_3) or runner-specific (--local_rank, --pin_mem) are accepted for
-drop-in compatibility and ignored; each says so in its help string.
+--sample_3) or runner-specific (--pin_mem) are accepted for drop-in
+compatibility and ignored; each says so in its help string.  --local_rank
+and --ngpus shard the YTVOS CLI's videos (`cli/test_ytvos.py`).
 """
 
 from __future__ import annotations
@@ -61,10 +62,11 @@ def add_model_args(p: argparse.ArgumentParser):
     p.add_argument("--seg_last", action="store_true")
     p.add_argument("--interpolate_before_seg", action="store_true")
     p.add_argument("--use_checkpoint", action="store_true",
-                   help="activation checkpointing of lavt_video's Swin blocks "
-                        "in training (each 3D block recomputed in the "
-                        "backward; the last stage skips its language gate, "
-                        "as in the reference); lavt_one's 2D blocks ignore it")
+                   help="activation checkpointing in training: both "
+                        "backbones (lavt_one's 2D Swin, lavt_video's 3D "
+                        "Swin) recompute each Swin block in the backward; "
+                        "lavt_video's last stage skips its language gate, "
+                        "as in the reference")
     # --- 3D-PWAM family (video) ---
     p.add_argument("--sep_t_pwam", action="store_true")
     p.add_argument("--sep_t_pwam_inner", action="store_true")
@@ -237,12 +239,15 @@ def add_eval_args(p: argparse.ArgumentParser):
                    help="torch device: the card by default; cpu runs the "
                         "plain versions on the host")
     p.add_argument("--local_rank", type=int, default=0,
-                   help="torch.distributed artifact; accepted, unused")
+                   help="this process's index among --ngpus YTVOS "
+                        "inference workers; unused elsewhere")
     p.add_argument("--ngpus", type=int, default=1,
                    help="process count for sharded YTVOS inference "
-                        "(the YTVOS CLI is not ported yet)")
+                        "(with --local_rank: this process takes videos "
+                        "[local_rank::ngpus] of its RANK's share)")
     p.add_argument("--visualize", action="store_true",
-                   help="save mask-overlay visualizations (YTVOS)")
+                   help="save mask-overlay visualizations (YTVOS; not "
+                        "ported yet: ROADMAP.md item 27)")
     p.add_argument("--a2d_masks", action="store_true",
                    help="dump predicted A2D masks as PNGs")
     p.add_argument("--save_feats", default="",

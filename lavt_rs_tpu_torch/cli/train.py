@@ -22,10 +22,16 @@ The step's dropout and DropPath draws come from a generator seeded by
 unbroken run draws there.  The data order restarts from --seed on resume,
 as in the JAX package: continuation is not bit-exact.
 
-Not ported yet, each refused with its ROADMAP.md item: the pretrained-
-weight flags (item 26), the video datasets and --image_combined_3d_pretrain
-(item 24), the other model families (slice 5), more than one process
-(item 16).
+The weight-import flags (--pretrained_swin_weights, --ck_bert as a local
+file, --pretrained2d_lavt_weights_for_a_3d_model,
+--pretrained_video_lavt_weights_on_refcocos; `convert/pretrained.py`) are
+applied to the built model before the optimizer is made (and before
+--resume, which overwrites them, as in the JAX package).
+
+Not ported yet, each refused with its ROADMAP.md item: the hybrid
+2D-Swin video model's --pretrained2d_lavt_weights (item 24b), the video
+datasets and --image_combined_3d_pretrain (item 24), the other model
+families (slice 5), more than one process (item 16).
 """
 
 from __future__ import annotations
@@ -43,9 +49,6 @@ from .args import (add_data_args, add_eval_args, add_model_args,
                    add_train_args, model_config_from_args,
                    train_config_from_args)
 
-PRETRAINED_FLAGS = ("pretrained_swin_weights", "pretrained2d_lavt_weights",
-                    "pretrained2d_lavt_weights_for_a_3d_model",
-                    "pretrained_video_lavt_weights_on_refcocos")
 VIDEO_DATASETS = ("a2d", "ytvos", "ref_pseudo_video", "joint")
 # the three RefCOCO-family sources of --ref_image_combined_pretrain, at the
 # reference's 22 tokens (data/dataset_refer_bert.py:39-42)
@@ -109,10 +112,11 @@ def _refuse_unported(args) -> None:
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
         raise NotImplementedError("training on more than one process comes "
                                   "with data parallelism: ROADMAP.md item 16")
-    if any(getattr(args, f) for f in PRETRAINED_FLAGS) or \
-            (args.ck_bert and os.path.isfile(args.ck_bert)):
-        raise NotImplementedError("the pretrained-weight flags are not "
-                                  "ported yet: ROADMAP.md item 26")
+    if args.pretrained2d_lavt_weights:
+        raise NotImplementedError(
+            "--pretrained2d_lavt_weights loads a 2D LAVT checkpoint into the "
+            "hybrid 2D-Swin video model, which is not ported yet: ROADMAP.md "
+            "item 24b")
     if not args.synthetic and (args.dataset in VIDEO_DATASETS
                                or args.image_combined_3d_pretrain):
         raise NotImplementedError(
@@ -192,6 +196,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     args = get_parser().parse_args(argv)
     _refuse_unported(args)
 
+    from ..convert import pretrained
     from ..data.loader import PrefetchLoader, collate_refer, to_device
     from ..models.factory import build_model
     from ..train.checkpoint import (latest_checkpoint, restore_checkpoint,
@@ -232,6 +237,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     model = build_model(cfg, device, train=True,
                         generator=torch.Generator(device=device).manual_seed(
                             args.seed))
+    pretrained.apply_pretrained_flags(model, cfg, args)
     opt, sched = create_train_state(model, tcfg)
     start_epoch = 0
     if args.resume:

@@ -41,6 +41,14 @@ def load_image_resized(path: str, size: int,
     return normalize(arr) if host_normalize else arr
 
 
+def resize_rgb(arr: np.ndarray, size: int) -> np.ndarray:
+    """An in-memory uint8 HWC RGB frame (the video datasets decode with
+    cv2) resized bilinear to (size, size) with PIL; the JAX package's native
+    resize agrees with it within 1 uint8 LSB."""
+    return np.asarray(Image.fromarray(arr).convert("RGB").resize(
+        (size, size), Image.BILINEAR))
+
+
 def resize_mask(mask: np.ndarray, size: int) -> np.ndarray:
     """(h, w) {0, 1} mask -> (size, size) int32, NEAREST, as the reference
     resizes the target."""

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import queue
 import threading
+import time
 from collections import deque
 from typing import Callable, Iterable
 
@@ -19,14 +20,16 @@ _DONE = object()
 
 
 def run_pipelined(produce: Callable[[], Iterable], dispatch: Callable,
-                  sink: Callable, depth: int = 2) -> None:
+                  sink: Callable, depth: int = 2) -> float:
     """produce() yields prepared items (the host-to-device copy belongs
     inside it, so that it overlaps the card's work); dispatch(item)
     enqueues the device work and returns without waiting for it;
     sink(item, result) waits for the result (`.cpu()`) and consumes it.
 
     An exception raised in the producer is raised again here.  On any
-    exit the producer is told to stop and is joined."""
+    exit the producer is told to stop and is joined.  Returns the seconds
+    the consumer waited on the producer (the card starved by the host's
+    decode and copy when nothing was in flight)."""
     depth = max(depth, 1)
     q: "queue.Queue" = queue.Queue(maxsize=depth)
     stop = threading.Event()
@@ -54,8 +57,11 @@ def run_pipelined(produce: Callable[[], Iterable], dispatch: Callable,
     producer.start()
     try:
         inflight: "deque" = deque()
+        waited = 0.0
         while True:
+            t0 = time.perf_counter()
             b = q.get()
+            waited += time.perf_counter() - t0
             if b is _DONE:
                 break
             if isinstance(b, BaseException):
@@ -65,6 +71,7 @@ def run_pipelined(produce: Callable[[], Iterable], dispatch: Callable,
                 sink(*inflight.popleft())
         while inflight:
             sink(*inflight.popleft())
+        return waited
     finally:
         stop.set()
         producer.join()

@@ -9,7 +9,8 @@ plain gathers.  The 3D grouped partition (pad + shift + partition + token
 pad as one gather, windows ordered unmasked-first) is kept: it lets a
 shifted video block run the padded MSA kernel (K2p) maskless on most
 windows and under a small mask on the rest; its index tensors are cached
-per (shape, device).
+per (shape, device), its masks per padded volume and device.
+`clear_device_caches` releases every cached device tensor.
 """
 
 from __future__ import annotations
@@ -236,6 +237,24 @@ def relative_bias_from_table_3d(table: torch.Tensor, index: torch.Tensor,
 
 
 @functools.lru_cache(maxsize=32)
+def _masked_last_3d(dp: int, hp: int, wp: int, ws: Tuple[int, int, int],
+                    ss: Tuple[int, int, int]):
+    """(perm, nu, ids_masked) of the padded (dp, hp, wp) volume: the window
+    order with the nu unmasked windows (no shift boundary inside) first,
+    and the region ids of the masked ones in that order."""
+    nw = (dp // ws[0]) * (hp // ws[1]) * (wp // ws[2])
+    if any(ss):
+        ids = shift_region_ids_3d(dp, hp, wp, ws, ss)
+        masked = np.array([len(np.unique(r)) > 1 for r in ids])
+    else:
+        ids = np.zeros((nw, ws[0] * ws[1] * ws[2]), np.int32)
+        masked = np.zeros((nw,), bool)
+    perm = np.concatenate([np.nonzero(~masked)[0], np.nonzero(masked)[0]])
+    nu = int((~masked).sum())
+    return perm, nu, np.ascontiguousarray(ids[perm[nu:]])
+
+
+@functools.lru_cache(maxsize=32)
 def grouped_partition_idx_3d(d: int, h: int, w: int, dp: int, hp: int,
                              wp: int, ws: Tuple[int, int, int],
                              ss: Tuple[int, int, int], n_p: int):
@@ -261,14 +280,7 @@ def grouped_partition_idx_3d(d: int, h: int, w: int, dp: int, hp: int,
     src = np.where(real, (sd * h + sh) * w + sw, d * h * w).astype(np.int64)
     src = src.reshape(nw, n)
     real = real.reshape(nw, n)
-    if any(ss):
-        ids = shift_region_ids_3d(dp, hp, wp, ws, ss)
-        masked = np.array([len(np.unique(r)) > 1 for r in ids])
-    else:
-        ids = np.zeros((nw, n), np.int32)
-        masked = np.zeros((nw,), bool)
-    perm = np.concatenate([np.nonzero(~masked)[0], np.nonzero(masked)[0]])
-    nu = int((~masked).sum())
+    perm, nu, ids_masked = _masked_last_3d(dp, hp, wp, ws, ss)
     src_p, real_p = src[perm], real[perm]
     pad_tokens = np.full((nw, n_p - n), d * h * w, np.int64)
     fwd = np.concatenate([src_p, pad_tokens], axis=1).reshape(-1)
@@ -276,23 +288,39 @@ def grouped_partition_idx_3d(d: int, h: int, w: int, dp: int, hp: int,
     wpos, tpos = np.nonzero(real_p)
     inv[src_p[real_p]] = wpos * n_p + tpos
     return (np.ascontiguousarray(fwd), np.ascontiguousarray(inv), nu,
-            np.ascontiguousarray(ids[perm[nu:]]))
+            ids_masked)
 
 
 @functools.lru_cache(maxsize=32)
-def _grouped_cached(d, h, w, dp, hp, wp, ws, ss, n_p, device):
-    """(fwd, inv) index tensors, nu and the (nW - nu, n_p, n_p) small mask
-    (or None) on `device`."""
-    fwd, inv, nu, ids = grouped_partition_idx_3d(d, h, w, dp, hp, wp, ws, ss,
-                                                 n_p)
+def _grouped_index_cached(d, h, w, dp, hp, wp, ws, ss, n_p, device):
+    """(fwd, inv) index tensors of the grouped partition on `device`."""
+    fwd, inv, _, _ = grouped_partition_idx_3d(d, h, w, dp, hp, wp, ws, ss,
+                                              n_p)
+    return torch.from_numpy(fwd).to(device), torch.from_numpy(inv).to(device)
+
+
+@functools.lru_cache(maxsize=32)
+def _grouped_mask_cached(dp, hp, wp, ws, ss, n_p, device):
+    """nu and the (nW - nu, n_p, n_p) small mask (or None) on `device`.
+    Keyed on the padded volume: clips of every length that pads to one dp
+    share the mask (up to 0.6 GB at stage 1 of a 480² clip)."""
+    _, nu, ids = _masked_last_3d(dp, hp, wp, ws, ss)
     mask = None
     if ids.shape[0]:
         mask = _ids_to_mask(ids, device)
         p = n_p - mask.shape[1]
         if p:
             mask = torch.nn.functional.pad(mask, (0, p, 0, p)).contiguous()
-    return (torch.from_numpy(fwd).to(device), torch.from_numpy(inv).to(device),
-            nu, mask)
+    return nu, mask
+
+
+def clear_device_caches() -> None:
+    """Release the shift masks and partition indices cached on devices:
+    each shape's are built once and held for the process's life."""
+    for cached in (_shift_mask_cached, _shift_flags_cached,
+                   _shift_mask_3d_cached, _shift_flags_3d_cached,
+                   _grouped_index_cached, _grouped_mask_cached):
+        cached.cache_clear()
 
 
 def partition_3d_groups(d: int, h: int, w: int, dp: int, hp: int, wp: int,
@@ -301,9 +329,8 @@ def partition_3d_groups(d: int, h: int, w: int, dp: int, hp: int, wp: int,
     windows first, then the masked ones under the (nW - nu, n_p, n_p)
     additive mask on `device` (required), zero on the padded rows and
     columns (the padded keys are killed by the bias)."""
-    _, _, nu, mask = _grouped_cached(d, h, w, dp, hp, wp, tuple(ws),
-                                     tuple(ss), n_p, torch.device(device))
-    return nu, mask
+    return _grouped_mask_cached(dp, hp, wp, tuple(ws), tuple(ss), n_p,
+                                torch.device(device))
 
 
 def partition_shifted_padded_3d(x: torch.Tensor, ws, ss, dp: int, hp: int,
@@ -311,8 +338,8 @@ def partition_shifted_padded_3d(x: torch.Tensor, ws, ss, dp: int, hp: int,
     """(B, D, H, W, C) -> (B, nW, n_p, C): pad + shift + partition + token
     pad as one gather, windows permuted unmasked-first."""
     b, d, h, w, c = x.shape
-    fwd, _, _, _ = _grouped_cached(d, h, w, dp, hp, wp, tuple(ws), tuple(ss),
-                                   n_p, x.device)
+    fwd, _ = _grouped_index_cached(d, h, w, dp, hp, wp, tuple(ws),
+                                   tuple(ss), n_p, x.device)
     nw = fwd.shape[0] // n_p
     xa = torch.cat([x.reshape(b, d * h * w, c), x.new_zeros((b, 1, c))], 1)
     return xa.index_select(1, fwd).view(b, nw, n_p, c)
@@ -324,6 +351,6 @@ def reverse_shifted_unpadded_3d(xw: torch.Tensor, ws, ss, dp: int, hp: int,
     """Inverse of partition_shifted_padded_3d: (B, nW, n_p, C) ->
     (B, D, H, W, C)."""
     b, nw, _, c = xw.shape
-    _, inv, _, _ = _grouped_cached(d, h, w, dp, hp, wp, tuple(ws), tuple(ss),
-                                   n_p, xw.device)
+    _, inv = _grouped_index_cached(d, h, w, dp, hp, wp, tuple(ws),
+                                   tuple(ss), n_p, xw.device)
     return xw.reshape(b, nw * n_p, c).index_select(1, inv).view(b, d, h, w, c)

@@ -93,6 +93,21 @@ def load_checkpoint(path: str, device) -> dict:
         return torch.load(path, map_location=device, weights_only=True)
 
 
+def load_model_tensors(path: str, device) -> dict:
+    """A local .pth file's model tensors on `device`: the `model`,
+    `state_dict` or `module` entry when there is one (reference
+    checkpoints, mmcv and mmaction files), else the top level (HF dumps);
+    entries that are not tensors (the run's args) are dropped."""
+    if "://" in path:
+        raise ValueError(f"{path!r}: pass a local checkpoint path")
+    ckpt = load_checkpoint(path, device)
+    for key in ("model", "state_dict", "module"):
+        if isinstance(ckpt, dict) and isinstance(ckpt.get(key), dict):
+            ckpt = ckpt[key]
+            break
+    return {k: v for k, v in ckpt.items() if isinstance(v, torch.Tensor)}
+
+
 def restore_checkpoint(path: str, model: nn.Module,
                        optimizer: torch.optim.Optimizer,
                        lr_scheduler: torch.optim.lr_scheduler.LambdaLR,

@@ -26,6 +26,7 @@ import socket
 import subprocess
 import sys
 import threading
+import time
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -399,7 +400,7 @@ def test_reference_checkpoint_loads(pair, tmp_path, prefix,  # noqa: F811
 
 
 def test_cli_refuses_what_is_not_ported():
-    for extra, where in ((["--dataset", "a2d"], "item 24"),
+    for extra, where in ((["--dataset", "ytvos"], "slice 3"),
                          (["--save_vis", "out"], "item 27"),
                          (["--save_feats", "out"], "item 27"),
                          (["--model", "lts"], "slice 5")):
@@ -466,3 +467,17 @@ def test_run_pipelined_keeps_order_and_stops_its_thread(depth):
     with pytest.raises(ValueError, match="sink"):
         run_pipelined(lambda: iter(range(10 ** 6)), lambda i: i, sink, depth)
     assert not _producers()
+
+
+def test_run_pipelined_returns_the_wait_on_its_producer():
+    """The consumer's seconds blocked on the queue: at least the slow
+    producer's 3 x 50 ms, which nothing else in the loop overlaps."""
+    def slow():
+        for i in range(3):
+            time.sleep(0.05)
+            yield i
+
+    waited = run_pipelined(slow, lambda i: i, lambda i, r: None)
+    assert 0.14 <= waited < 5
+    assert run_pipelined(lambda: iter(()), lambda i: i,
+                         lambda i, r: None) < 5

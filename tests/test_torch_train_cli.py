@@ -264,8 +264,9 @@ def test_combined_pretrain_concatenates_three_sources(
 
 
 @pytest.mark.parametrize("extra,where", [
-    (["--pretrained_swin_weights", "swin.pth"], "item 26"),
-    (["--pretrained2d_lavt_weights", "lavt.pth"], "item 26"),
+    (["--pretrained2d_lavt_weights", "lavt.pth"], "item 24b"),
+    (["--model", "lavt_video", "--synthetic", "--pretrained2d_lavt_weights",
+      "lavt.pth"], "item 24b"),
     (["--dataset", "a2d"], "item 24"),
     (["--dataset", "ytvos"], "item 24"),
     (["--image_combined_3d_pretrain"], "item 24"),

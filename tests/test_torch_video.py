@@ -135,6 +135,26 @@ def test_grouped_partition_3d(rng, d, h, w, ws, ss):
     np.testing.assert_array_equal(back.numpy(), x)
 
 
+def test_grouped_mask_is_cached_per_padded_volume():
+    """Clips of 13 and 16 frames pad to one depth and share one cached mask
+    (equal to the JAX package's for each length); clear_device_caches
+    releases it, and the next call builds an equal one."""
+    ws, ss, n_p = (8, 7, 7), (4, 3, 3), fused_msa.pad_tokens(392)
+    got = {d: window.partition_3d_groups(d, 14, 14, 16, 14, 14, ws, ss, n_p,
+                                         "cpu") for d in (13, 16)}
+    assert got[13][1] is got[16][1]
+    for d in (13, 16):
+        jnu, jmask = jwin.partition_3d_groups(d, 14, 14, 16, 14, 14, ws, ss,
+                                              n_p)
+        assert got[d][0] == jnu
+        np.testing.assert_array_equal(got[d][1].numpy(), np.asarray(jmask))
+    window.clear_device_caches()
+    nu, mask = window.partition_3d_groups(13, 14, 14, 16, 14, 14, ws, ss, n_p,
+                                          "cpu")
+    assert mask is not got[13][1] and nu == got[13][0]
+    np.testing.assert_array_equal(mask.numpy(), got[13][1].numpy())
+
+
 # -- K10 and K2p, plain versions -------------------------------------------------
 
 def _qkv_bias_mask(rng, b, nw, h, n, hd, masked):
