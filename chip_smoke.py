@@ -93,6 +93,33 @@
    figure, idle share), and the gate: the first
    batch's argmax against the f32 plain model (the pixel gate below),
    and both models' summaries and their differences.
+3c. f32 inference main path (`--no_bf16` with the kernels: the f32
+   variants K1 f32, K11 f32, K3 f32, K4 f32), with TF32 off for every
+   f32 product outside the kernels (the flags printed):
+     * each f32 variant on seeded f32 inputs at its path shapes (K1 f32 at
+       stages 1-2, K11 f32 at stages 3-4 and a non-square map, each
+       shifted and unshifted; K3 f32 and K4 f32 at C = 128, 256, 512,
+       1024) against its f32 plain version within 1e-4 abs + 1e-4 rel,
+       timed (CUDA events; on the device with its launches queued) beside
+       its bound (f32 bytes over 3.35 TB/s, operations over 165 TFLOP/s:
+       495 TFLOP/s TF32 over 3xTF32's three passes), its plain version
+       and its f32 library chain (TF32 off: the faster of the matmul and
+       linear / SDPA / linear chains; F.linear / F.gelu; F.layer_norm);
+     * lavt_one Swin-B window-12 f32 with the kernels, on the main path's
+       weights, answers three batches of 8 through `fwd_iou`: the f32
+       counters must equal the model's `kernel_plan` at itemsize 4 (K1 4,
+       K11 20, K3 24, K4 4 a forward) and every bf16 counter stay 0; the
+       gate against the plain f32 model on the same weights (max |dlogit|
+       <= 1e-2, the same argmax wherever the plain margin exceeds 1e-2);
+       ms a batch and img/s beside the plain model's, peak memory, one
+       forward under torch.profiler (device busy, idle share), and the
+       Swin blocks of every stage under it, which must launch no cuBLAS,
+       cuDNN or attention library kernel;
+     * `cli.test.main --window12 --no_bf16` on 3b's split and .pth with
+       the kernels (launches per device batch as the forward's) and with
+       --no_pallas: both summaries, mIoU and oIoU within 0.005, and
+       sentences/s of each.
+   The phase prints its seconds.
 4. Video phase: K10 (attention on pre-projected heads) at the stage-2..4
    shapes of an 8-frame 480² clip (N = 392) and at N = 196, K2p (the
    padded fused MSA) at the stage-1 shape, maskless and grouped, each
@@ -208,7 +235,9 @@
    equal to its model's kernel plan, each route that launches no kernel printed
    with its reason (every one a route where the JAX package runs XLA), and
    the pixel gate against the f32 plain model; f32 with the kernels
-   refused before any launch or allocation; one Swin-T window-12 training
+   refused, naming the variants still missing, before any launch or
+   allocation where a kernel of the plan has no f32 variant (window-7
+   inference, window-12 training); one Swin-T window-12 training
    step at bs 2 (the save mode and K5 at C = 96).
 8. P1 / P2 (the head-batching probe) against their plain version on an
    input whose softmax is far from uniform (x at std 0.4, 1e-3 abs +
@@ -305,6 +334,10 @@ REPLACES = {
     "K11": "lavt_rs_tpu/ops/pallas/experimental.py:71",
     "P1": "tools/probe_headbatch.py:88",
     "P2": "tools/probe_headbatch.py:92",
+    "K1.f32": "lavt_rs_tpu/ops/pallas/fused_msa.py:1415",
+    "K11.f32": "lavt_rs_tpu/ops/pallas/experimental.py:71",
+    "K3.f32": "lavt_rs_tpu/ops/pallas/fused_mlp.py:111",
+    "K4.f32": "lavt_rs_tpu/ops/pallas/ln.py:63",
 }
 SOURCES = {
     "K1": "lavt_rs_tpu_torch/csrc/fused_msa_sm90.cu",
@@ -322,6 +355,12 @@ SOURCES = {
     "K11": "lavt_rs_tpu_torch/csrc/fused_msa_sm90.cu",
     "P1": "lavt_rs_tpu_torch/csrc/probe_headbatch.cu",
     "P2": "lavt_rs_tpu_torch/csrc/probe_headbatch.cu",
+    # K1 f32 and K11 f32: the attention launch (their GEMMs: gemm_f32.cu,
+    # K1 f32's LN rows: ln.cu); K3 f32: its GEMMs (its LN rows: ln.cu)
+    "K1.f32": "lavt_rs_tpu_torch/csrc/fused_msa_f32.cu",
+    "K11.f32": "lavt_rs_tpu_torch/csrc/fused_msa_f32.cu",
+    "K3.f32": "lavt_rs_tpu_torch/csrc/gemm_f32.cu",
+    "K4.f32": "lavt_rs_tpu_torch/csrc/ln.cu",
 }
 # Swin-B at 480²: (tokens per side, C, heads, blocks) per stage
 STAGES = ((120, 128, 4, 2), (60, 256, 8, 2), (30, 512, 16, 18),
@@ -394,6 +433,20 @@ W7_STAGES = ((126, 128, 4, 2), (63, 256, 8, 2), (35, 512, 16, 18),
 W7_INFER_PER_FORWARD = {"K10": 24, "K3": 24, "K4": 4}
 W7_TRAIN_PER_STEP = {"K10": 24, "K9": 24, "K8": 23, "K3": 1, "K7": 24,
                      "K4": 4, "K4b": 4}
+# the f32 variants (phase 3c), their counters' names: K1 f32, K11 f32, K3
+# f32, K4 f32
+F32_NAMES = ("K1.f32", "K11.f32", "K3.f32", "K4.f32")
+# each against its f32 plain version: abs + rel (3xTF32 products and f32
+# sums in another order; one TF32 pass, ~5e-4 relative, fails it)
+F32_TOL = 1e-4
+# the f32 forward against the plain f32 model: max |dlogit|, and the margin
+# above which the argmax must be the same
+F32_GATE = 1e-2
+# cli.test --no_bf16 with the kernels against --no_pallas: mIoU, oIoU
+F32_CLI_TOL = 0.005
+# the f32 variants' operation bound: 495 TFLOP/s TF32 over 3xTF32's three
+# tensor-core passes
+PEAK_FLOPS_F32 = 495e12 / 3
 # device busy under torch.profiler on the first K1/K11 design (one
 # H100 80GB HBM3 at 700 W, this script; PERF.md section 5), printed beside
 # this run's
@@ -434,8 +487,9 @@ def cuda_time_ms(fn, iters=10, warmup=2):
 
 # -- work of one call: (operations, bytes) ----------------------------------
 
-def ln_work(rows, c):
-    return 8 * rows * c, 2 * rows * c * 2 + 2 * c * 2
+def ln_work(rows, c, item=2):
+    """K4 (item 2: bf16; 4: K4 f32): x read, y written, scale and bias."""
+    return 8 * rows * c, 2 * rows * c * item + 2 * c * item
 
 
 def ln_bwd_work(rows, c):
@@ -445,27 +499,29 @@ def ln_bwd_work(rows, c):
     return 16 * rows * c, 3 * rows * c * 2 + 3 * c * 4
 
 
-def mlp_work(m, c, backward=False, keep=0):
+def mlp_work(m, c, backward=False, keep=0, item=2):
     """K3/K8 forward: two GEMMs of 2 M C 4C; K7: five (hpre recomputed,
     dh, dW2, dW1, dyln).  Bytes: x (and gy) read, out (dx) written, the
-    bf16 weights read, the f32 weight grads written."""
-    w = 8 * c * c * 2 + 5 * c * 2
+    bf16 weights read (item 4: K3 f32's f32 tensors), the f32 weight grads
+    written."""
+    w = 8 * c * c * item + 5 * c * item
     if backward:
         return 40 * m * c * c, 3 * m * c * 2 + w + (8 * c * c + 7 * c) * 4
-    return 16 * m * c * c, 2 * m * c * 2 + w + keep * 4
+    return 16 * m * c * c, 2 * m * c * item + w + keep * 4
 
 
-def msa_work(b, nw, c, heads, mode, ln=False, mask=True):
+def msa_work(b, nw, c, heads, mode, ln=False, mask=True, item=2):
     """mode 'fwd' (K1/K2), 'save' (save mode), 'bwd' (K5) or 'recompute'
     (K6).  Operations: the qkv (6 rows C²) and out-projection (2 rows C²)
     GEMMs and two N x N x hd products per window and head forward; the
     backward's dattn (2), dx (6), dWqkv (6), dWproj (2 rows C²) GEMMs and
-    five N x N x hd products, plus, recomputing, the qkv GEMM and q kᵀ."""
+    five N x N x hd products, plus, recomputing, the qkv GEMM and q kᵀ.
+    Activations and weights of `item` bytes (4: K1 f32 and K11 f32)."""
     n, hd = 144, 32
     rows, m = b * nw * n, b * nw
     att = 2 * m * heads * n * n * hd
-    act = rows * c * 2
-    weights = 4 * c * c * 2 + 4 * c * 2
+    act = rows * c * item
+    weights = 4 * c * c * item + 4 * c * item
     tables = heads * n * n * 4 + (nw * n * n * 4 if mask else 0)
     p_bytes = m * heads * n * n * 2
     grads = (4 * c * c + 4 * c + heads * n * n) * 4
@@ -479,9 +535,9 @@ def msa_work(b, nw, c, heads, mode, ln=False, mask=True):
     return 22 * rows * c * c + 6 * att, 3 * act + weights + tables + grads
 
 
-def bound_ms(work):
+def bound_ms(work, peak=PEAK_FLOPS):
     flops, nbytes = work
-    t_ops, t_mem = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    t_ops, t_mem = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
 
 
@@ -1120,8 +1176,9 @@ def torch_bf16_msa(x, wqkv, bqkv, wproj, bproj, bias, mask, heads, scale,
 def torch_bf16_msa_sdpa(x, wqkv, bqkv, wproj, bproj, bias, mask, heads,
                         scale, ln=None):
     """K1 / K2's math as linear, one `scaled_dot_product_attention` over the
-    B nW windows as its 4-D batch with the bias and the mask as one bf16
-    additive mask (`sdpa_mask`), linear (timing baseline only)."""
+    B nW windows as its 4-D batch with the bias and the mask as one
+    additive mask of x's dtype (`sdpa_mask`), linear (timing baseline
+    only)."""
     import torch.nn.functional as F
 
     b, nw, n, c = x.shape
@@ -1129,9 +1186,8 @@ def torch_bf16_msa_sdpa(x, wqkv, bqkv, wproj, bproj, bias, mask, heads,
         x = F.layer_norm(x, (c,), *ln, 1e-5)
     qkv = F.linear(x, wqkv, bqkv).view(b * nw, n, 3, heads, c // heads)
     q, k, v = qkv.permute(2, 0, 3, 1, 4)
-    o = F.scaled_dot_product_attention(q, k, v,
-                                       attn_mask=sdpa_mask(bias, mask, nw, b),
-                                       scale=scale)
+    o = F.scaled_dot_product_attention(
+        q, k, v, attn_mask=sdpa_mask(bias, mask, nw, b, x.dtype), scale=scale)
     return F.linear(o.transpose(1, 2).reshape(b, nw, n, c), wproj, bproj)
 
 
@@ -1192,7 +1248,7 @@ class Results:
 
     def __init__(self):
         self.r = {}
-        for k in NAMES + ("save", "K2s", "K10s"):
+        for k in NAMES + ("save", "K2s", "K10s") + F32_NAMES:
             self.entry(k)
 
     def entry(self, name):
@@ -1200,12 +1256,12 @@ class Results:
             err=0.0, ms=0.0, plain=0.0, lib=0.0, bound=0.0, ops=0.0, mem=0.0,
             replaced=0.0, device=0.0))
 
-    def add(self, name, calls, err, tk, tp, tb, work):
+    def add(self, name, calls, err, tk, tp, tb, work, peak=PEAK_FLOPS):
         r = self.entry(name)
         r["err"] = max(r["err"], err)
-        b, _ = bound_ms(work)
+        b, _ = bound_ms(work, peak)
         for key, v in (("ms", tk), ("plain", tp), ("lib", tb), ("bound", b),
-                       ("ops", work[0] / PEAK_FLOPS * 1e3),
+                       ("ops", work[0] / peak * 1e3),
                        ("mem", work[1] / PEAK_BYTES * 1e3)):
             r[key] += calls * v
 
@@ -1215,12 +1271,13 @@ class Results:
 
 
 def measure(res, name, what, calls, fk, fp, fb, work, check, queued=False,
-            also=()):
+            also=(), peak=PEAK_FLOPS):
     """Check fk against fp, then time fk, fp and fb (CUDA events around a
     loop of calls; with `queued`, the calls queued behind a device sleep,
     so that a call shorter than the host's time to enqueue it is timed on
     the device: `queued_ms`) and add them to `res` under name and the
-    names in `also`."""
+    names in `also`; the bound takes `peak` operations a second (bf16's,
+    or PEAK_FLOPS_F32 for an f32 variant)."""
     want = fp()
     got = fk()
     out = check(name, got, want)
@@ -1236,8 +1293,8 @@ def measure(res, name, what, calls, fk, fp, fb, work, check, queued=False,
         tb = cuda_time_ms(fb)
         how = ""
     for key in (name,) + tuple(also):
-        res.add(key, calls, err, tk, tp, tb, work)
-    b, by = bound_ms(work)
+        res.add(key, calls, err, tk, tp, tb, work, peak)
+    b, by = bound_ms(work, peak)
     frob = "" if extra is None else f", worst grad rel Frobenius {extra:.3g}"
     log(f"{name} {what}: max abs err {err:.3g}{frob}; kernel {tk:.4f} "
         f"ms{how}, bound {b:.4f} ms ({by}), plain (f32 math) {tp:.4f} ms, "
@@ -1597,7 +1654,11 @@ def counters():
             "K2p": fused_msa.fused_window_msa_grouped,
             "K9": window_attn.attention_core_bwd,
             "K11": fused_msa_2d.fused_window_msa_2d,
-            "P1": probe.loop_attention, "P2": probe.batch_attention}
+            "P1": probe.loop_attention, "P2": probe.batch_attention,
+            "K1.f32": fused_msa.fused_window_msa_ln_f32,
+            "K11.f32": fused_msa_2d.fused_window_msa_2d_f32,
+            "K3.f32": fused_mlp.fused_ln_mlp_f32,
+            "K4.f32": ln.layer_norm_rows_f32}
 
 
 def zero_counts():
@@ -1756,17 +1817,28 @@ def batch_logits(model, image, ids, mask):
                      mask.reshape(r * s, -1)).view(r, s, h, w, -1)
 
 
-def eval_phase(dev, card, weights):
-    """The RefCOCO `test` entry point on a synthetic split: the CLI in
-    process from a .pth of `weights` (launch counts, the Final line,
-    sentences/s), a warm rerun of `evaluate`, one batch under the
-    profiler, and the gate against the f32 plain model.  Returns the
-    launch counts of the CLI's run."""
+def refcoco_split(root, weights):
+    """The eval phases' synthetic RefCOCO split under `root` and `weights`
+    as a reference .pth there: (the vocab's path, the .pth's path)."""
+    import numpy as np
+    import torch
+
+    vocab = write_refcoco(root, np.random.default_rng(SEED + 30))
+    ckpt = os.path.join(root, "lavt_one_base.pth")
+    torch.save({"model": weights}, ckpt)
+    return vocab, ckpt
+
+
+def eval_phase(dev, card, weights, root, vocab, ckpt):
+    """The RefCOCO `test` entry point on the synthetic split under `root`
+    (`refcoco_split`): the CLI in process from the .pth of `weights`
+    (launch counts, the Final line, sentences/s), a warm rerun of
+    `evaluate`, one batch under the profiler, and the gate against the
+    f32 plain model.  Returns the launch counts of the CLI's run, its
+    device batches and its sentences."""
     import contextlib
     import io
-    import tempfile
 
-    import numpy as np
     import torch
 
     from lavt_rs_tpu_torch.cli import test as cli_test
@@ -1777,111 +1849,446 @@ def eval_phase(dev, card, weights):
     from lavt_rs_tpu_torch.models.factory import build_model
     from lavt_rs_tpu_torch.text.tokenizer import WordPieceTokenizer
 
-    with tempfile.TemporaryDirectory() as root:
-        vocab = write_refcoco(root, np.random.default_rng(SEED + 30))
-        ckpt = os.path.join(root, "lavt_one_base.pth")
-        torch.save({"model": weights}, ckpt)
-        ds = ReferDataset(REFER(root), WordPieceTokenizer.from_vocab_file(vocab),
-                          split="val", img_size=480, max_tokens=TOKENS,
-                          eval_mode=True, host_normalize=False)
-        sentences = sum(len(x) for x in ds.input_ids)
-        s_pad = max(len(x) for x in ds.input_ids)
-        rb = -(-refcoco_eval.SENTENCES_PER_BATCH // s_pad)
-        batches = -(-len(ds) // rb)
-        log(f"eval: {len(ds)} refs, {sentences} sentences, S = {s_pad}, "
-            f"{rb} refs ({rb * s_pad} sentences) per device batch, "
-            f"{batches} batches")
+    ds = ReferDataset(REFER(root), WordPieceTokenizer.from_vocab_file(vocab),
+                      split="val", img_size=480, max_tokens=TOKENS,
+                      eval_mode=True, host_normalize=False)
+    sentences = sum(len(x) for x in ds.input_ids)
+    s_pad = max(len(x) for x in ds.input_ids)
+    rb = -(-refcoco_eval.SENTENCES_PER_BATCH // s_pad)
+    batches = -(-len(ds) // rb)
+    log(f"eval: {len(ds)} refs, {sentences} sentences, S = {s_pad}, "
+        f"{rb} refs ({rb * s_pad} sentences) per device batch, "
+        f"{batches} batches")
 
-        # the CLI, its evaluate timed on the wall clock (it ends in a sync)
-        evaluate, seconds = refcoco_eval.evaluate, []
+    # the CLI, its evaluate timed on the wall clock (it ends in a sync)
+    evaluate, seconds = refcoco_eval.evaluate, []
 
-        def timed(*a, **kw):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = evaluate(*a, **kw)
-            torch.cuda.synchronize()
-            seconds.append(time.perf_counter() - t0)
-            return out
-
-        argv = ["--window12", "--img_size", "480", "--refer_data_root", root,
-                "--dataset", "refcoco", "--splitBy", "unc", "--split", "val",
-                "--vocab", vocab, "--checkpoint", ckpt, "--device", str(dev)]
-        err = io.StringIO()
-        zero_counts()
-        refcoco_eval.evaluate = timed
-        try:
-            with contextlib.redirect_stderr(err):
-                summary = cli_test.main(argv)
-        finally:
-            refcoco_eval.evaluate = evaluate
-        launches = read_counts()
-        for line in err.getvalue().splitlines():
-            log(f"cli: {line}")
-        log(f"eval launches over {batches} batches: {launches}")
-        check_counts("eval", launches, INFER_PER_FORWARD, batches)
-        if sorted(summary) != sorted(["mIoU", "oIoU"] + [
-                f"P@{t}" for t in (0.5, 0.6, 0.7, 0.8, 0.9)]):
-            raise RuntimeError(f"eval: bad summary {summary}")
-        if not all(math.isfinite(v) and 0 <= v <= 100 for v in summary.values()):
-            raise RuntimeError(f"eval: summary out of range {summary}")
-        s_cli = seconds[0]
-        log(f"eval via the CLI (first run, cold): {s_cli:.3f} s, "
-            f"{sentences / s_cli:.2f} sentences/s, "
-            f"{1e3 * s_cli / batches:.3f} ms per device batch  [{card}]")
-
-        model = build_model(lavt_one_base(), dev)
-        model.load_state_dict(weights)
-        quiet = io.StringIO()
+    def timed(*a, **kw):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        warm = refcoco_eval.evaluate(model, ds, out_stream=quiet)
+        out = evaluate(*a, **kw)
         torch.cuda.synchronize()
-        s_warm = time.perf_counter() - t0
-        log(f"eval rerun (warm, evaluate): {s_warm:.3f} s, "
-            f"{sentences / s_warm:.2f} sentences/s, "
-            f"{1e3 * s_warm / batches:.3f} ms per device batch  [{card}]")
-        log(f"eval rerun's summary equals the CLI run's: {warm == summary}")
+        seconds.append(time.perf_counter() - t0)
+        return out
 
-        first = next(refcoco_eval.ref_batches(ds, range(len(ds)), rb, s_pad))
-        scounts = first[1]
-        image, ids, mask, target = (torch.from_numpy(a).to(dev)
-                                    for a in first[2:])
-        profile_clip(lambda: [t.cpu() for t in refcoco_eval.fwd_iou(
-            model, image, ids, mask, target)], card,
-            f"one eval batch ({rb * s_pad} sentences)", FIRST_DESIGN_BUSY[
-                "eval batch"])
+    argv = ["--window12", "--img_size", "480", "--refer_data_root", root,
+            "--dataset", "refcoco", "--splitBy", "unc", "--split", "val",
+            "--vocab", vocab, "--checkpoint", ckpt, "--device", str(dev)]
+    err = io.StringIO()
+    zero_counts()
+    refcoco_eval.evaluate = timed
+    try:
+        with contextlib.redirect_stderr(err):
+            summary = cli_test.main(argv)
+    finally:
+        refcoco_eval.evaluate = evaluate
+    launches = read_counts()
+    for line in err.getvalue().splitlines():
+        log(f"cli: {line}")
+    log(f"eval launches over {batches} batches: {launches}")
+    check_counts("eval", launches, INFER_PER_FORWARD, batches)
+    if sorted(summary) != sorted(["mIoU", "oIoU"] + [
+            f"P@{t}" for t in (0.5, 0.6, 0.7, 0.8, 0.9)]):
+        raise RuntimeError(f"eval: bad summary {summary}")
+    if not all(math.isfinite(v) and 0 <= v <= 100 for v in summary.values()):
+        raise RuntimeError(f"eval: summary out of range {summary}")
+    s_cli = seconds[0]
+    log(f"eval via the CLI (first run, cold): {s_cli:.3f} s, "
+        f"{sentences / s_cli:.2f} sentences/s, "
+        f"{1e3 * s_cli / batches:.3f} ms per device batch  [{card}]")
 
-        # the gate: f32 plain model, same weights, same items
-        got = batch_logits(model, image, ids, mask)
-        del model
+    model = build_model(lavt_one_base(), dev)
+    model.load_state_dict(weights)
+    quiet = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warm = refcoco_eval.evaluate(model, ds, out_stream=quiet)
+    torch.cuda.synchronize()
+    s_warm = time.perf_counter() - t0
+    log(f"eval rerun (warm, evaluate): {s_warm:.3f} s, "
+        f"{sentences / s_warm:.2f} sentences/s, "
+        f"{1e3 * s_warm / batches:.3f} ms per device batch  [{card}]")
+    log(f"eval rerun's summary equals the CLI run's: {warm == summary}")
+
+    first = next(refcoco_eval.ref_batches(ds, range(len(ds)), rb, s_pad))
+    scounts = first[1]
+    image, ids, mask, target = (torch.from_numpy(a).to(dev)
+                                for a in first[2:])
+    profile_clip(lambda: [t.cpu() for t in refcoco_eval.fwd_iou(
+        model, image, ids, mask, target)], card,
+        f"one eval batch ({rb * s_pad} sentences)", FIRST_DESIGN_BUSY[
+            "eval batch"])
+
+    # the gate: f32 plain model, same weights, same items
+    got = batch_logits(model, image, ids, mask)
+    del model
+    torch.cuda.empty_cache()
+    ref = build_model(lavt_one_base().replace(dtype="float32",
+                                              use_kernels=False), dev)
+    ref.load_state_dict(weights)
+    want = batch_logits(ref, image, ids, mask)
+    if not bool(torch.isfinite(got).all()):
+        raise RuntimeError("eval: non-finite logits (padded sentence rows "
+                           "included)")
+    real = torch.zeros(ids.shape[:2], dtype=torch.bool, device=dev)
+    for j, s in enumerate(scounts):
+        real[j, :s] = True
+    got, want = got[real], want[real]
+    sure = (want[..., 1] - want[..., 0]).abs() > MARGIN
+    agree = (got.argmax(-1) == want.argmax(-1))[sure].float().mean().item()
+    log(f"eval first batch, bf16 kernels vs f32 plain: max |dlogit| "
+        f"{(got.float() - want).abs().max().item():.4g}, argmax agreement "
+        f"{agree:.5f} on {sure.float().mean().item():.3f} of the real "
+        f"sentences' pixels (margin > {MARGIN})")
+    if not agree >= MIN_AGREE:
+        raise RuntimeError(f"eval argmax agreement {agree:.5f} < "
+                           f"{MIN_AGREE}")
+    plain = refcoco_eval.evaluate(ref, ds, out_stream=quiet)
+    del ref
+    torch.cuda.empty_cache()
+    log(f"eval summary, bf16 kernels: {summary}")
+    log(f"eval summary, f32 plain:    {plain}")
+    log("eval summary differences (kernels - plain): "
+        + ", ".join(f"{k} {summary[k] - plain[k]:+.4f}" for k in summary))
+    return launches, batches, sentences
+
+
+# -- f32 inference main path: the f32 variants of K1, K11, K3 and K4 -----------
+
+# substrings of the names of library kernels (cuBLAS, CUTLASS, cuDNN,
+# PyTorch's attention and softmax) that the f32 Swin blocks must not launch
+LIBRARY_KERNEL_TAGS = ("gemm", "gemv", "cublas", "cutlass", "xmma", "nvjet",
+                       "cudnn", "conv", "attention", "fmha", "flash",
+                       "softmax")
+
+
+def f32_kernel_phase(dev, res):
+    """Each f32 variant on seeded f32 inputs at its path shapes against its
+    f32 plain version within F32_TOL abs + rel (K3 f32 also on the branch
+    out - x), timed beside its bound (PEAK_FLOPS_F32), its plain version
+    and its f32 library chain, and on the device with its launches queued;
+    per forward into `res`."""
+    import torch
+
+    from lavt_rs_tpu_torch.ops import fused_mlp, fused_msa, fused_msa_2d, ln
+    from lavt_rs_tpu_torch.ops.window import (relative_bias_from_table,
+                                              relative_position_index_2d,
+                                              shift_mask_2d,
+                                              shift_mask_flags_2d)
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 40)
+
+    def rnd(shape, std=1.0):
+        return torch.randn(shape, generator=g, device=dev) * std
+
+    def check(name, got, want):
+        return compare(name, got, want, F32_TOL)
+
+    index = torch.from_numpy(relative_position_index_2d(12, 12)).to(dev)
+
+    def msa_weights(c, heads):
+        return ((rnd((3 * c, c), c ** -0.5), rnd((3 * c,), 0.2),
+                 rnd((c, c), c ** -0.5), rnd((c,), 0.2)),
+                relative_bias_from_table(
+                    torch.randn((23 * 23, heads), generator=g, device=dev),
+                    index))
+
+    sc = 32 ** -0.5
+    for side, c, heads, blocks in STAGES:
+        rows = BATCH * side * side
+        x = rnd((rows, c), 2.0) + 0.5
+        s_, b_ = rnd((c,), 0.2) + 1.0, rnd((c,), 0.2)
+        what = f"x({rows}, {c})"
+        measure(res, "K4.f32", what, 1,
+                lambda: ln.layer_norm_rows_f32(x, s_, b_),
+                lambda: ln.layer_norm_rows_plain(x, s_, b_),
+                lambda: torch_bf16_ln(x, s_, b_), ln_work(rows, c, 4), check,
+                peak=PEAK_FLOPS_F32)
+        device_per_call(res, "K4.f32", what, 1,
+                        lambda: ln.layer_norm_rows_f32(x, s_, b_))
+        mlp = (x, s_, b_, rnd((4 * c, c), c ** -0.5), rnd((4 * c,), 0.2),
+               rnd((c, 4 * c), (4 * c) ** -0.5), rnd((c,), 0.2))
+        measure(res, "K3.f32", what, blocks,
+                lambda: fused_mlp.fused_ln_mlp_f32(*mlp),
+                lambda: fused_mlp.fused_ln_mlp_plain(*mlp),
+                lambda: torch_bf16_mlp(*mlp), mlp_work(rows, c, item=4),
+                lambda name, got, want: max(
+                    check(name, got, want), check(name, got - x, want - x)),
+                peak=PEAK_FLOPS_F32)
+        device_per_call(res, "K3.f32", what, blocks,
+                        lambda: fused_mlp.fused_ln_mlp_f32(*mlp))
+        del x, mlp
+    for side, c, heads, blocks in STAGES[:2]:  # K1 f32: the unpadded stages
+        nw = (side // 12) ** 2
+        x = rnd((BATCH, nw, 144, c), 2.0) + 0.5
+        lnp = (rnd((c,), 0.2) + 1.0, rnd((c,), 0.2))
+        w, bias = msa_weights(c, heads)
+        for shift in (False, True):
+            mask = shift_mask_2d(side, side, 12, 6, dev) if shift else None
+            flags = (shift_mask_flags_2d(side, side, 12, 6, dev) if shift
+                     else None)
+            tail = (*w, bias, mask, heads, sc)
+            what = f"x{tuple(x.shape)} heads {heads} mask {shift}"
+            lib, _ = msa_fwd_yardstick(f"K1.f32 {what}", x, tail, lnp)
+
+            def k1(tail=tail, flags=flags):
+                return fused_msa.fused_window_msa_ln_f32(x, *lnp, *tail,
+                                                         flags=flags)
+
+            measure(res, "K1.f32", what, blocks // 2, k1,
+                    lambda: fused_msa.fused_window_msa_ln_plain(x, *lnp,
+                                                                *tail),
+                    lib, msa_work(BATCH, nw, c, heads, "fwd", ln=True,
+                                  mask=shift, item=4), check,
+                    peak=PEAK_FLOPS_F32)
+            device_per_call(res, "K1.f32", what, blocks // 2, k1)
+        del x
+    for b, hp, wp, c, heads, shift, calls in K11_CASES[:5]:
+        nw = (hp // 12) * (wp // 12)
+        x = rnd((b, hp, wp, c))
+        w, bias = msa_weights(c, heads)
+        mask = shift_mask_2d(hp, wp, 12, 6, dev) if shift else None
+        flags = shift_mask_flags_2d(hp, wp, 12, 6, dev) if shift else None
+        args = (x, *w, bias, mask, heads, sc, 12)
+        am = sdpa_mask(bias, mask, nw, dtype=torch.float32)
+        what = (f"x{tuple(x.shape)} heads {heads} mask {shift}"
+                + ("" if calls else " (off the path)"))
+
+        def k11(args=args, flags=flags):
+            return fused_msa_2d.fused_window_msa_2d_f32(*args, flags)
+
+        measure(res, "K11.f32", what, calls, k11,
+                lambda: fused_msa_2d.fused_window_msa_2d_plain(*args),
+                lambda: torch_bf16_msa_2d(x, *w, am, heads, sc),
+                msa_work(b, nw, c, heads, "fwd", mask=shift, item=4), check,
+                peak=PEAK_FLOPS_F32)
+        device_per_call(res, "K11.f32", what, calls, k11)
+        del x, am, args
         torch.cuda.empty_cache()
-        ref = build_model(lavt_one_base().replace(dtype="float32",
-                                                  use_kernels=False), dev)
-        ref.load_state_dict(weights)
-        want = batch_logits(ref, image, ids, mask)
-        if not bool(torch.isfinite(got).all()):
-            raise RuntimeError("eval: non-finite logits (padded sentence rows "
-                               "included)")
-        real = torch.zeros(ids.shape[:2], dtype=torch.bool, device=dev)
-        for j, s in enumerate(scounts):
-            real[j, :s] = True
-        got, want = got[real], want[real]
-        sure = (want[..., 1] - want[..., 0]).abs() > MARGIN
-        agree = (got.argmax(-1) == want.argmax(-1))[sure].float().mean().item()
-        log(f"eval first batch, bf16 kernels vs f32 plain: max |dlogit| "
-            f"{(got.float() - want).abs().max().item():.4g}, argmax agreement "
-            f"{agree:.5f} on {sure.float().mean().item():.3f} of the real "
-            f"sentences' pixels (margin > {MARGIN})")
-        if not agree >= MIN_AGREE:
-            raise RuntimeError(f"eval argmax agreement {agree:.5f} < "
-                               f"{MIN_AGREE}")
-        plain = refcoco_eval.evaluate(ref, ds, out_stream=quiet)
-        del ref
-        torch.cuda.empty_cache()
-        log(f"eval summary, bf16 kernels: {summary}")
-        log(f"eval summary, f32 plain:    {plain}")
-        log("eval summary differences (kernels - plain): "
-            + ", ".join(f"{k} {summary[k] - plain[k]:+.4f}" for k in summary))
+
+
+def swin_blocks_port_only(dev, model):
+    """The first two Swin blocks (unshifted, shifted) of every stage of an
+    f32 lavt_one `model` on bs-8 f32 tokens under torch.profiler: none may
+    launch a library GEMM, convolution or attention kernel
+    (LIBRARY_KERNEL_TAGS); prints the port's kernels and the others
+    (PyTorch's copies and elementwise kernels: pad, roll, add)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 41)
+    calls = []
+    for (side, c, _, _), layer in zip(STAGES, model.backbone.layers):
+        x = torch.randn((BATCH, side * side, c), generator=g, device=dev)
+        calls += [functools.partial(blk, x, (side, side))
+                  for blk in layer.blocks[:2]]
+    names = set()
+    with torch.no_grad():
+        for fn in calls:
+            fn()
+        torch.cuda.synchronize()
+        for _ in range(3):  # a profile can come back without device records
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for fn in calls:
+                    fn()
+                torch.cuda.synchronize()
+            names = {e.key for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and getattr(e, "self_device_time_total",
+                                 getattr(e, "self_cuda_time_total", 0)) > 0}
+            if names:
+                break
+    if not names:
+        raise RuntimeError("f32 Swin blocks: torch.profiler recorded no "
+                           "kernel")
+    library = sorted(n for n in names if "lavt::" not in n and any(
+        t in n.lower() for t in LIBRARY_KERNEL_TAGS))
+    if library:
+        raise RuntimeError(f"f32 Swin blocks launched library kernels: "
+                           f"{library}")
+    port = sorted({short_kernel(n) for n in names if "lavt::" in n})
+    other = sorted({short_kernel(n) for n in names if "lavt::" not in n})
+    log(f"f32 Swin blocks (2 a stage, bs {BATCH}) under torch.profiler: "
+        f"{len(names)} kernels, no library GEMM, convolution or attention; "
+        f"the port's: {', '.join(port)}; PyTorch's: {', '.join(other)}")
+
+
+def f32_inference(dev, card, weights):
+    """lavt_one Swin-B window-12 f32 with the kernels, on `weights`:
+    N_REQUESTS batches of 8 through `fwd_iou` (the f32 counters equal the
+    model's `kernel_plan` at itemsize 4, every bf16 counter 0), the gate
+    against the plain f32 model on the same weights (max |dlogit| <=
+    F32_GATE, the same argmax wherever the plain margin exceeds F32_GATE),
+    ms a batch and img/s beside the plain model's, peak memory, one
+    forward under torch.profiler and the Swin blocks under it
+    (`swin_blocks_port_only`).  Returns the launch counts."""
+    import torch
+
+    from lavt_rs_tpu_torch.config import lavt_one_base
+    from lavt_rs_tpu_torch.eval.refcoco_eval import fwd_iou
+    from lavt_rs_tpu_torch.models.factory import build_model
+    from lavt_rs_tpu_torch.ops.norm import maybe_normalize_image
+
+    cfg = lavt_one_base(dtype="float32")
+    plan = kernel_plan(cfg, 480, BATCH)[0]
+    if plan != INFER_PER_FORWARD:
+        raise RuntimeError(f"f32 forward: the kernel plan at itemsize 4 is "
+                           f"{plan}, not the bf16 plan {INFER_PER_FORWARD}")
+    per = {f"{k}.f32": n for k, n in plan.items()}
+    t0 = time.perf_counter()
+    model = build_model(cfg, dev)
+    model.load_state_dict(weights)
+    log(f"f32 model build + the main path's weights: "
+        f"{time.perf_counter() - t0:.2f} s")
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    batches = requests(dev, g, N_REQUESTS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    results = [fwd_iou(model, *b) for b in batches]
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    launches = read_counts()
+    log(f"f32 inference launches over {N_REQUESTS} batches of {BATCH}: "
+        f"{nonzero_counts(launches)} (the plan at itemsize 4: {plan} a "
+        f"forward)")
+    check_counts("f32 inference", launches, per, N_REQUESTS)
+    for inter, union in results:
+        if inter.shape != (BATCH, 1) or not bool(torch.isfinite(union).all()):
+            raise RuntimeError("f32 fwd_iou: bad inter/union")
+        if bool((inter > union).any()):
+            raise RuntimeError("f32 fwd_iou: intersection above union")
+
+    image, ids, mask, _ = batches[0]
+    img = maybe_normalize_image(image)
+
+    def forward(m):
+        with torch.no_grad():
+            return m(img, ids[:, 0], mask[:, 0])
+
+    logits = forward(model)
+    ref = build_model(cfg.replace(use_kernels=False), dev)
+    ref.load_state_dict(weights)
+    want = forward(ref)
+    if tuple(logits.shape) != (BATCH, 480, 480, 2) or not bool(
+            torch.isfinite(logits).all()):
+        raise RuntimeError(f"f32 logits: shape {tuple(logits.shape)} or "
+                           f"non-finite")
+    diff = (logits - want).abs().max().item()
+    sure = (want[..., 1] - want[..., 0]).abs() > F32_GATE
+    flips = int((logits.argmax(-1) != want.argmax(-1))[sure].sum().item())
+    log(f"f32 gate, kernels vs the plain f32 model: max |dlogit| {diff:.4g} "
+        f"(limit {F32_GATE}), logit scale {want.abs().max().item():.4g}; "
+        f"argmax differs on {flips} of the {int(sure.sum().item())} pixels "
+        f"whose plain margin exceeds {F32_GATE} "
+        f"({sure.float().mean().item():.4f} of all)")
+    if not diff <= F32_GATE or flips:
+        raise RuntimeError("f32 gate failed")
+    del logits, want
+    iters, plain_iters = 10, 3
+    ms = cuda_time_ms(lambda: forward(model), iters=iters, warmup=2)
+    plain_ms = cuda_time_ms(lambda: forward(ref), iters=plain_iters,
+                            warmup=1)
+    del ref
+    torch.cuda.empty_cache()
+    log(f"f32 forward bs {BATCH} with the kernels: {ms:.3f} ms a batch, "
+        f"{BATCH * 1000 / ms:.2f} img/s (mean of {iters}); the plain f32 "
+        f"model (TF32 off): {plain_ms:.3f} ms, "
+        f"{BATCH * 1000 / plain_ms:.2f} img/s (mean of {plain_iters}); peak "
+        f"{peak:.3f} GiB over the fwd_iou batches  [{card}]")
+    profile_clip(lambda: forward(model), card, "f32 window-12 bs-8 forward")
+    swin_blocks_port_only(dev, model)
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def f32_cli(dev, card, root, vocab, ckpt, batches, sentences):
+    """`cli.test.main --window12 --no_bf16` in process on the synthetic
+    split under `root` and its .pth, with the kernels (the f32 counters per
+    device batch as the f32 forward's, every bf16 counter 0) and with
+    --no_pallas (no launch): both summaries, which agree within
+    F32_CLI_TOL on mIoU and oIoU, and sentences/s of each (evaluate on the
+    wall clock, its first run)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from lavt_rs_tpu_torch.cli import test as cli_test
+    from lavt_rs_tpu_torch.eval import refcoco_eval
+
+    argv = ["--window12", "--no_bf16", "--img_size", "480",
+            "--refer_data_root", root, "--dataset", "refcoco", "--splitBy",
+            "unc", "--split", "val", "--vocab", vocab, "--checkpoint", ckpt,
+            "--device", str(dev)]
+    evaluate, seconds = refcoco_eval.evaluate, []
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = evaluate(*a, **kw)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        return out
+
+    per = {f"{k}.f32": n for k, n in INFER_PER_FORWARD.items()}
+    summaries = {}
+    refcoco_eval.evaluate = timed
+    try:
+        for label, extra, want in (("kernels", [], per),
+                                   ("--no_pallas", ["--no_pallas"], {})):
+            err = io.StringIO()
+            zero_counts()
+            with contextlib.redirect_stderr(err):
+                summaries[label] = cli_test.main(argv + extra)
+            launches = read_counts()
+            torch.cuda.empty_cache()
+            for line in err.getvalue().splitlines():
+                log(f"cli --no_bf16 ({label}): {line}")
+            check_counts(f"f32 eval ({label})", launches, want, batches)
+            log(f"f32 eval via the CLI ({label}): launches over {batches} "
+                f"batches {nonzero_counts(launches)}; {seconds[-1]:.3f} s, "
+                f"{sentences / seconds[-1]:.2f} sentences/s, "
+                f"{1e3 * seconds[-1] / batches:.3f} ms per device batch  "
+                f"[{card}]")
+    finally:
+        refcoco_eval.evaluate = evaluate
+    got, plain = summaries["kernels"], summaries["--no_pallas"]
+    log(f"f32 eval summary, kernels:     {got}")
+    log(f"f32 eval summary, --no_pallas: {plain}")
+    log("f32 eval summary differences (kernels - plain): "
+        + ", ".join(f"{k} {got[k] - plain[k]:+.5f}" for k in got))
+    for k in ("mIoU", "oIoU"):
+        if not abs(got[k] - plain[k]) <= F32_CLI_TOL:
+            raise RuntimeError(f"f32 eval: {k} {got[k]} against --no_pallas "
+                               f"{plain[k]} (limit {F32_CLI_TOL})")
+
+
+def f32_phase(dev, card, res, weights, root, vocab, ckpt, batches,
+              sentences):
+    """Phase 3c: the f32 variants' kernel checks (`f32_kernel_phase`), the
+    f32 forward (`f32_inference`) and the test CLI with --no_bf16
+    (`f32_cli`); returns the forward's launch counts."""
+    import torch
+
+    t0 = time.perf_counter()
+    log(f"f32 phase: torch.backends.cuda.matmul.allow_tf32 = "
+        f"{torch.backends.cuda.matmul.allow_tf32}, "
+        f"torch.backends.cudnn.allow_tf32 = "
+        f"{torch.backends.cudnn.allow_tf32} (the plain versions, the library "
+        f"chains and the plain f32 model multiply in full f32)")
+    f32_kernel_phase(dev, res)
+    for k in F32_NAMES:
+        r = res.r[k]
+        log(f"{k} per forward: kernel {r['ms']:.3f} ms (on the device, "
+            f"launches queued: {r['device']:.3f} ms), bound {r['bound']:.3f} "
+            f"ms ({res.bound_by(k)}), plain (f32) {r['plain']:.3f} ms, "
+            f"library chain (f32, TF32 off) {r['lib']:.3f} ms")
+    launches = f32_inference(dev, card, weights)
+    f32_cli(dev, card, root, vocab, ckpt, batches, sentences)
+    log(f"f32 phase: {time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -2433,15 +2840,16 @@ def padded_msa_work(b, nw, n, c, heads, masked):
     return flops, nbytes
 
 
-def sdpa_mask(bias, mask, nw, b=1):
-    """bias (h, N, N) + mask (nW, N, N) as one bf16 (b nW, h, N, N) additive
-    mask for `scaled_dot_product_attention` (timing baseline only)."""
+def sdpa_mask(bias, mask, nw, b=1, dtype=None):
+    """bias (h, N, N) + mask (nW, N, N) as one bf16 (or `dtype`) (b nW, h,
+    N, N) additive mask for `scaled_dot_product_attention` (timing baseline
+    only)."""
     import torch
 
     full = bias[None].expand(nw, *bias.shape)
     if mask is not None:
         full = full + mask[:, None]
-    full = full.to(torch.bfloat16)
+    full = full.to(dtype or torch.bfloat16)
     return full.repeat(b, 1, 1, 1) if b > 1 else full.contiguous()
 
 
@@ -3830,32 +4238,45 @@ def routing_video(dev, card):
 
 
 def f32_refusal(dev):
-    """f32 activations with the kernels on the card: build_model raises
-    before it allocates a weight or launches a kernel."""
+    """f32 activations with the kernels on the card where a kernel of the
+    plan has no f32 variant (window-7 inference: K10; window-12 training:
+    K2, K4b, K5, K7, K8): build_model raises, naming them, before it
+    allocates a weight or launches a kernel."""
     import torch
 
     from lavt_rs_tpu_torch.config import lavt_one_base
-    from lavt_rs_tpu_torch.models.factory import build_model
+    from lavt_rs_tpu_torch.models.factory import (build_model,
+                                                  kernels_without_variant)
 
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    allocated = torch.cuda.memory_allocated(dev)
-    zero_counts()
-    try:
-        build_model(lavt_one_base(dtype="float32"), dev)
-    except NotImplementedError as e:
-        message = str(e)
-    else:
-        raise RuntimeError("f32 with the kernels on the card was not refused")
-    if "f32 kernel variants" not in message:
-        raise RuntimeError(f"f32 refusal names no ROADMAP item: {message}")
-    launched = {k: v for k, v in read_counts().items() if v}
-    peak = torch.cuda.max_memory_allocated(dev)
-    if launched or peak != allocated:
-        raise RuntimeError(f"f32 refusal came after work: launches "
-                           f"{launched}, {peak - allocated} B allocated")
-    log(f"f32 + kernels on the card refused before any launch or "
-        f"allocation: {message}")
+    for what, cfg, train in (
+            ("window-7 inference", lavt_one_base(window12=False,
+                                                 dtype="float32"), False),
+            ("window-12 training", lavt_one_base(dtype="float32"), True)):
+        missing = kernels_without_variant(cfg, train)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        allocated = torch.cuda.memory_allocated(dev)
+        zero_counts()
+        try:
+            build_model(cfg, dev, train=train)
+        except NotImplementedError as e:
+            message = str(e)
+        else:
+            raise RuntimeError(f"f32 with the kernels on the card was not "
+                               f"refused: {what}")
+        if ("f32 kernel variants" not in message or not missing
+                or not all(k in message for k in missing)):
+            raise RuntimeError(f"f32 refusal ({what}) names no ROADMAP item "
+                               f"or not the missing variants {missing}: "
+                               f"{message}")
+        launched = {k: v for k, v in read_counts().items() if v}
+        peak = torch.cuda.max_memory_allocated(dev)
+        if launched or peak != allocated:
+            raise RuntimeError(f"f32 refusal ({what}) came after work: "
+                               f"launches {launched}, {peak - allocated} B "
+                               f"allocated")
+        log(f"f32 + kernels on the card, {what}: refused before any launch "
+            f"or allocation: {message}")
 
 
 def routing_training_step(dev, card):
@@ -4030,7 +4451,8 @@ def k10_p2_only_port_kernels(dev):
 
 
 # kernels whose ptxas -v line chip_smoke prints: K2p's (the GEMM core's
-# two EpiBias instances and K10's kernel) and P1/P2's
+# two EpiBias instances and K10's kernel), P1/P2's, K5's, K9's and the f32
+# variants
 PTXAS_KERNELS = {"EpiBiasILb1E": "K2p / K2 / save-mode qkv GEMM (GEMM core)",
                  "EpiBiasILb0E": "K2p / K2 / save-mode out-projection GEMM (GEMM core)",
                  "msa_fwd_sm90_kernelILb0E": "K2 attention",
@@ -4044,7 +4466,14 @@ PTXAS_KERNELS = {"EpiBiasILb1E": "K2p / K2 / save-mode qkv GEMM (GEMM core)",
                  "attn_bwd_q_kernelILb1E": "K9 launch 1 (N > 64)",
                  "attn_bwd_q_kernelILb0E": "K9 launch 1 (N <= 64)",
                  "attn_bwd_kv_kernelILb0E": "K9 launch 2 (N > 64)",
-                 "attn_bwd_kv_kernelILb1E": "K9 launch 2 (N <= 64)"}
+                 "attn_bwd_kv_kernelILb1E": "K9 launch 2 (N <= 64)",
+                 "gemm_f32_kernelILi0E": "K1 f32 / K11 f32 projections (3xTF32 GEMM)",
+                 "gemm_f32_kernelILi1E": "K3 f32 fc1 + GELU (3xTF32 GEMM)",
+                 "gemm_f32_kernelILi2E": "K3 f32 fc2 + residual (3xTF32 GEMM)",
+                 "msa_f32_kernelILb0E": "K1 f32 attention",
+                 "msa_f32_kernelILb1E": "K11 f32 attention (map order)",
+                 "rows_f32_kernelILi1ELb0E": "K4 f32 (C = 128)",
+                 "rows_f32_kernelILi8ELb1E": "K3 f32 LN rows (C = 1024)"}
 
 
 def ptxas_lines(text):
@@ -4155,9 +4584,20 @@ def main():
     log(f"inference done at {time.perf_counter() - t_start:.1f} s")
 
     # -- RefCOCO eval main path: the test CLI on a synthetic split -------------
-    eval_launches = eval_phase(dev, card, weights)
-    torch.cuda.empty_cache()
-    log(f"eval done at {time.perf_counter() - t_start:.1f} s")
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as root:
+        vocab, ckpt = refcoco_split(root, weights)
+        eval_launches, batches, sentences = eval_phase(dev, card, weights,
+                                                       root, vocab, ckpt)
+        torch.cuda.empty_cache()
+        log(f"eval done at {time.perf_counter() - t_start:.1f} s")
+
+        # -- f32 inference main path: --no_bf16 with the kernels ---------------
+        f32_launches = f32_phase(dev, card, res, weights, root, vocab, ckpt,
+                                 batches, sentences)
+        torch.cuda.empty_cache()
+        log(f"f32 phase done at {time.perf_counter() - t_start:.1f} s")
 
     # -- video main path (its kernel phases first) ---------------------------------
     video_launches, video_weights = video(dev, card, res)
@@ -4169,8 +4609,6 @@ def main():
     log(f"video done at {time.perf_counter() - t_start:.1f} s")
 
     # -- the video evaluation CLIs: A2D at 16 frames, YTVOS whole videos --------
-    import tempfile
-
     with tempfile.TemporaryDirectory() as root:
         ckpt = video_checkpoint(root, video_weights)
         a2d_phase(dev, card, ckpt)
@@ -4287,12 +4725,13 @@ def main():
     launches.update({k: video_launches[k] for k in ("K10", "K2p")})
     launches["K9"] = video_train_launches["K9"]
     launches.update({k: probe_launches[k] for k in ("P1", "P2")})
+    launches.update({k: f32_launches[k] for k in F32_NAMES})
     # the window-7 main path's K10 (per forward) and K9 (per training step)
     launches["K10/w7"], launches["K9/w7"] = w7_infer["K10"], w7_train["K9"]
     SOURCES.update({"K10/w7": SOURCES["K10"], "K9/w7": SOURCES["K9"]})
     REPLACES.update({"K10/w7": REPLACES["K10"], "K9/w7": REPLACES["K9"]})
     kernels = []
-    for k in NAMES + ("K10/w7", "K9/w7"):
+    for k in NAMES + ("K10/w7", "K9/w7") + F32_NAMES:
         # K2's launches on the main path are the save mode's at stages 3-4
         r = res.r["K2s" if k == "K2" else k]
         kernels.append({"name": k, "route": "cuda", "source": SOURCES[k],

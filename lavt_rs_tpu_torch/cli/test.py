@@ -9,11 +9,14 @@ with lavt_video; mIoU / oIoU / P@K.
 
 The published RefCOCO command passes --window12; without it the model is
 window 7 (N = 49), whose blocks run qkv -> K10 -> proj on the card, as the
-JAX package routes them.  `--no_bf16` (f32 activations) runs on the card
-only with `--no_pallas` (the plain versions) or on the host (`--device
-cpu`): the kernels compute in bf16, and f32 with the kernels is refused
-before the model is built.  `--synthetic` runs a tiny random model on a
-4-ref synthetic dataset (no data needed); `--device cpu` runs on the host.
+JAX package routes them.  `--no_bf16` (f32 activations, as the published
+RefCOCO checkpoints were trained) runs on the card with the kernels at
+`--window12`: K1, K11, K3 and K4 have f32 variants.  Window 7 (K10) and
+lavt_video (K2p, K10) have none yet: there f32 with the kernels is refused
+before the model is built, and `--no_pallas` (the plain versions) or
+`--device cpu` runs f32.  `--synthetic` runs a tiny random window-7 model
+on a 4-ref synthetic dataset (no data needed); `--device cpu` runs on the
+host.
 
 A2D (reference test.py:121-230):
 

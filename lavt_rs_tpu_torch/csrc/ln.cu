@@ -535,3 +535,98 @@ extern "C" int lavt_layer_norm_rows_bwd(const void* x, const void* g, const void
 #undef LAVT_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }
+
+// K4 f32 and the LN rows of K1 f32 and K3 f32: the same row LayerNorms on
+// f32 activations (`--no_bf16` with Pallas: the TPU kernels,
+// lavt_rs_tpu/ops/pallas/ln.py:_ln_kernel and the LNs inside
+// fused_msa.py:_kernel (:100-106) and fused_mlp.py:_fwd, compute in f32 and
+// their roundings to x.dtype are no-ops).  Each site keeps its variance:
+// the fast E[x^2] - E[x]^2 (K4, K1) or the two-pass mean of (x - mu)^2
+// (K3's fused_mlp.py:60-61).  Bound: bytes (x read, y written, 8 bytes an
+// element).  One warp a row, 16-byte words (4 floats), lane l holding the
+// words l + 32 t, t < V (words past C / 4 masked), gamma and beta read per
+// word; blocks of 8 rows.
+namespace lavt {
+namespace lnr32 {
+
+template <int V, bool kTwoPass>
+__global__ void __launch_bounds__(256)
+    rows_f32_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
+                    const float* __restrict__ beta, float* __restrict__ y, int rows, int C,
+                    float eps) {
+  const int row = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  const int words = C / 4;
+  const auto* src = reinterpret_cast<const float4*>(x + size_t(row) * C);
+  float4 v[V];
+  float s = 0.f, q = 0.f;
+#pragma unroll
+  for (int t = 0; t < V; ++t) {
+    const int wd = lane + 32 * t;
+    v[t] = wd < words ? src[wd] : make_float4(0.f, 0.f, 0.f, 0.f);
+    s += (v[t].x + v[t].y) + (v[t].z + v[t].w);
+    q += (v[t].x * v[t].x + v[t].y * v[t].y) + (v[t].z * v[t].z + v[t].w * v[t].w);
+  }
+  const float mu = warp_sum(s) / C;
+  float var;
+  if (kTwoPass) {
+    q = 0.f;
+#pragma unroll
+    for (int t = 0; t < V; ++t) {
+      if (lane + 32 * t >= words) continue;
+      const float a = v[t].x - mu, b = v[t].y - mu, c = v[t].z - mu, d = v[t].w - mu;
+      q += (a * a + b * b) + (c * c + d * d);
+    }
+    var = warp_sum(q) / C;
+  } else {
+    var = warp_sum(q) / C - mu * mu;
+  }
+  const float rstd = rsqrtf(var + eps);
+  auto* dst = reinterpret_cast<float4*>(y + size_t(row) * C);
+  const auto* g4 = reinterpret_cast<const float4*>(gamma);
+  const auto* b4 = reinterpret_cast<const float4*>(beta);
+#pragma unroll
+  for (int t = 0; t < V; ++t) {
+    const int wd = lane + 32 * t;
+    if (wd >= words) continue;
+    const float4 g = g4[wd], b = b4[wd];
+    dst[wd] = make_float4((v[t].x - mu) * rstd * g.x + b.x, (v[t].y - mu) * rstd * g.y + b.y,
+                          (v[t].z - mu) * rstd * g.z + b.z, (v[t].w - mu) * rstd * g.w + b.w);
+  }
+}
+
+template <bool kTwoPass>
+cudaError_t launch(const float* x, const float* g, const float* b, float* y, int rows, int C,
+                   float eps, cudaStream_t s) {
+  const int need = (C / 4 + 31) / 32, blocks = (rows + 7) / 8;
+#define LAVT_CASE(V)                                                                   \
+  if (need <= V) {                                                                     \
+    rows_f32_kernel<V, kTwoPass><<<blocks, 256, 0, s>>>(x, g, b, y, rows, C, eps);    \
+    return cudaGetLastError();                                                         \
+  }
+  LAVT_CASE(1) LAVT_CASE(2) LAVT_CASE(3) LAVT_CASE(4) LAVT_CASE(6) LAVT_CASE(8)
+  LAVT_CASE(12) LAVT_CASE(16) LAVT_CASE(24) LAVT_CASE(32)
+#undef LAVT_CASE
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace lnr32
+}  // namespace lavt
+
+// x, out (rows, C) f32, gamma, beta (C,) f32, all 16-byte aligned, C a
+// multiple of 32 up to 4096; two_pass 0: the fast variance (K4, K1's LN),
+// 1: the two-pass one (K3's LN rows).
+extern "C" int lavt_layer_norm_rows_f32(const void* x, const void* gamma, const void* beta,
+                                        void* out, int rows, int C, float eps, int two_pass,
+                                        void* stream) {
+  using namespace lavt::lnr;
+  if (!supported(rows, C) || !aligned(x) || !aligned(gamma) || !aligned(beta) || !aligned(out))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto* xf = static_cast<const float*>(x);
+  const auto* gf = static_cast<const float*>(gamma);
+  const auto* bf = static_cast<const float*>(beta);
+  auto* of = static_cast<float*>(out);
+  const auto s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(two_pass ? lavt::lnr32::launch<true>(xf, gf, bf, of, rows, C, eps, s)
+                                   : lavt::lnr32::launch<false>(xf, gf, bf, of, rows, C, eps, s));
+}

@@ -2,8 +2,11 @@
 
 `lavt_one` and `lavt_video` (inference and training) are ported; every
 other family raises NotImplementedError naming the ROADMAP.md slice that
-ports it.  f32 activations with the kernels on the card are refused before
-a weight is allocated: every hand-written kernel computes in bf16.
+ports it.  f32 activations with the kernels on the card run where every
+kernel of the model's plan has an f32 variant (K1, K11, K3, K4: window-12
+`lavt_one` inference); elsewhere (window 7's K10, `lavt_video`'s K2p and
+K10, every training kernel) `build_model` refuses them, naming the
+missing variants, before a weight is allocated.
 """
 
 from __future__ import annotations
@@ -66,6 +69,31 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             t.clamp_(-0.04, 0.04)
 
 
+# the kernels with an f32 variant (ops: fused_window_msa_ln_f32,
+# fused_window_msa_2d_f32, fused_ln_mlp_f32, layer_norm_rows_f32)
+F32_KERNELS = frozenset({"K1", "K11", "K3", "K4"})
+
+
+def kernels_without_variant(cfg: ModelConfig, train: bool = False) -> list:
+    """The kernels of cfg's plan (its backbone's `kernel_plan` at the compute
+    dtype's itemsize, one clip of `num_frames` for lavt_video, per training
+    step with `train`) that have no variant for cfg's compute dtype, sorted;
+    [] for bf16 or without the kernels.  The model is built on the meta
+    device: nothing is allocated."""
+    dt = cfg.compute_dtype
+    if not cfg.use_kernels or dt == torch.bfloat16:
+        return []
+    with torch.device("meta"):
+        backbone = _MODELS[cfg.name](cfg).backbone
+    img = (cfg.img_size, cfg.img_size)
+    if cfg.name == "lavt_video":
+        counts = backbone.kernel_plan(cfg.num_frames, img, dt.itemsize, train)[0]
+    else:
+        counts = backbone.kernel_plan(img, 1, dt.itemsize, train)[0]
+    have = F32_KERNELS if dt == torch.float32 else frozenset()
+    return sorted(k for k in counts if k not in have)
+
+
 def build_model(cfg: ModelConfig, device="cuda",
                 generator: Optional[torch.Generator] = None,
                 train: bool = False) -> nn.Module:
@@ -84,14 +112,17 @@ def build_model(cfg: ModelConfig, device="cuda",
         raise NotImplementedError(
             f"model {cfg.name!r} is not ported yet"
             + (f": ROADMAP.md {where}" if where else ""))
-    if (cfg.use_kernels and torch.device(device).type == "cuda"
-            and cfg.compute_dtype != torch.bfloat16):
+    missing = (kernels_without_variant(cfg, train)
+               if torch.device(device).type == "cuda" else [])
+    if missing:
         raise NotImplementedError(
-            f"{cfg.dtype} activations with the kernels on the card: the "
-            "hand-written kernels compute in bf16, and their f32 variants "
-            "are not written yet (ROADMAP.md, \"f32 kernel variants\").  "
-            "Use bf16, or the plain versions (use_kernels=False, "
-            "--no_pallas), or the CPU")
+            f"{cfg.dtype} activations with the kernels on the card: this "
+            f"{'training' if train else 'inference'} plan launches "
+            f"{', '.join(missing)}, with no {cfg.dtype} variant yet "
+            "(ROADMAP.md queue 2, "
+            "\"f32 kernel variants\"; f32 has K1, K11, K3 and K4: window-12 "
+            "lavt_one inference).  Use bf16, or the plain versions "
+            "(use_kernels=False, --no_pallas), or the CPU")
     with torch.device(device):
         model = _MODELS[cfg.name](cfg)
     if generator is not None:

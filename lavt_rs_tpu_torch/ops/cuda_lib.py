@@ -28,7 +28,8 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("ln.cu", "fused_mlp.cu", "fused_msa_bwd.cu",
            "fused_msa_bwd_sm90.cu", "fused_mlp_bwd.cu", "window_attn_sm90.cu",
            "window_attn_bwd_sm90.cu", "window_msa_sm90.cu",
-           "fused_msa_sm90.cu", "probe_headbatch.cu")
+           "fused_msa_sm90.cu", "probe_headbatch.cu", "gemm_f32.cu",
+           "fused_msa_f32.cu")
 HEADERS = ("common.cuh", "gemm_sm90.cuh", "attn_sm90.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-lineinfo")
@@ -41,6 +42,7 @@ F = ctypes.c_float
 # argtypes of each C entry point (pointers and the stream as c_void_p)
 SIGNATURES = {
     "lavt_layer_norm_rows": (P, P, P, P, I, I, F, P),
+    "lavt_layer_norm_rows_f32": (P, P, P, P, I, I, F, I, P),
     "lavt_layer_norm_rows_bwd_parts": (I, I),
     "lavt_layer_norm_rows_bwd": (P,) * 5 + (I, I, I, F, P),
     "lavt_mlp_ln_rows": (P, P, P, P, I, I, F, P),
@@ -66,6 +68,9 @@ SIGNATURES = {
     "lavt_k9_q_smem": (I,),
     "lavt_gemm_bias_bf16": (P,) * 4 + (I,) * 4 + (F, P),
     "lavt_probe_headbatch": (P, P) + (I,) * 6 + (P,),
+    "lavt_gemm_f32": (P,) * 5 + (I,) * 5 + (F, P),
+    "lavt_msa_fwd_f32": (P,) * 5 + (I,) * 4 + (P,),
+    "lavt_msa_fwd_map_f32": (P,) * 5 + (I,) * 5 + (P,),
 }
 
 _LIB = None

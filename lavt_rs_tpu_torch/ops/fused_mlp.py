@@ -15,6 +15,13 @@ and the GELU output are rounded to x's dtype before their GEMMs, as in the
 TPU kernel, and the backward rounds dmlp = gy keep and dhpre before
 theirs.  Weights are torch `nn.Linear` layout: w1 (4C, C), w2 (C, 4C).
 
+K3 f32 (`fused_ln_mlp_f32`) is K3 on f32 activations, as the TPU kernel
+computes it there (its roundings to x.dtype are no-ops): the same three
+launches, each taking its f32 kernel for an f32 tensor (the two-pass LN
+rows of csrc/ln.cu, fc1 + GELU and fc2 + residual on the 3xTF32 GEMM of
+csrc/gemm_f32.cu).  `fused_ln_mlp` takes it for a CUDA f32 tensor; K8 and
+K7 have no f32 variant yet and raise on one.
+
 Each wrapper takes the plain version for a CPU tensor and launches the
 CUDA kernels (csrc/fused_mlp.cu, csrc/fused_mlp_bwd.cu, on the GEMM core of
 csrc/gemm_sm90.cuh) for a CUDA tensor.  K3/K8 is three launches, each with
@@ -37,7 +44,9 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda_lib
-from .fused_msa import sum_partials
+from .fused_msa import (GEMM_F32_GELU, GEMM_F32_RESIDUAL, gemm_f32,
+                        sum_partials)
+from .ln import layer_norm_rows_f32_launch
 
 EPS = 1e-5
 KERNEL_WIDTHS = (128, 256, 384, 512, 1024)
@@ -132,7 +141,7 @@ def fused_tail_routed(c: int) -> bool:
     return (c <= 512 and c % 128 == 0) or c == 1024
 
 
-def _check(x, params, keep, rows) -> None:
+def _check(x, params, keep, rows, dtype=torch.bfloat16) -> None:
     m, c = x.shape
     hidden = params[2].shape[0]
     if not fused_ln_mlp_supported(m, c, hidden):
@@ -144,7 +153,7 @@ def _check(x, params, keep, rows) -> None:
              ("w2", w2, (c, hidden))]
     if len(params) > 5:
         named.append(("b2", params[5], (c,)))
-    _require_bf16(named, x.device)
+    _require_typed(named, x.device, dtype)
     _require_keep(keep, m, rows, x.device)
 
 
@@ -156,11 +165,12 @@ def _require_keep(keep, m: int, rows: int, device) -> None:
         cuda_lib.require(keep, "keep", torch.float32, device, (m // rows,))
 
 
-def _require_bf16(named, device) -> None:
-    """Contiguous bf16 tensors on `device` (of the given shapes), 16-byte
-    aligned: TMA reads the GEMM operands, the row kernels read pairs."""
+def _require_typed(named, device, dtype=torch.bfloat16) -> None:
+    """Contiguous tensors of `dtype` (bf16; f32 for K3 f32) on `device` (of
+    the given shapes), 16-byte aligned: TMA and cp.async read the GEMM
+    operands, the row kernels read pairs or 16-byte words."""
     for name, t, shape in named:
-        cuda_lib.require(t, name, torch.bfloat16, device, shape)
+        cuda_lib.require(t, name, dtype, device, shape)
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: data is not aligned for the kernel")
 
@@ -201,12 +211,15 @@ def gemm_residual_plain(h, w2, b2, x, keep=None, rows: int = 1):
 
 
 def mlp_ln_rows(x, g, be, eps: float = EPS):
-    """(a) on the card: x (M, C) bf16 -> xn (M, C) bf16."""
+    """(a) on the card: x (M, C) bf16 -> xn (M, C) bf16 (f32 -> f32 on K3
+    f32's two-pass LN rows)."""
     if x.device.type == "cpu":
         return mlp_ln_rows_plain(x, g, be, eps)
     m, c = x.shape
     _supported(m, c, GEMM_TILE)
-    _require_bf16([("x", x, None), ("g", g, (c,)), ("be", be, (c,))],
+    if x.dtype == torch.float32:
+        return layer_norm_rows_f32_launch(x, g, be, eps, two_pass=True)
+    _require_typed([("x", x, None), ("g", g, (c,)), ("be", be, (c,))],
                   x.device)
     xn = torch.empty_like(x)
     _launch("lavt_mlp_ln_rows", x, g, be, xn, m, c, float(eps))
@@ -214,12 +227,15 @@ def mlp_ln_rows(x, g, be, eps: float = EPS):
 
 
 def gemm_bias_gelu(xn, w1, b1):
-    """(b) on the card: xn (M, C), w1 (hidden, C) -> h (M, hidden) bf16."""
+    """(b) on the card: xn (M, C), w1 (hidden, C) -> h (M, hidden) bf16
+    (f32 -> f32 on the 3xTF32 GEMM)."""
     if xn.device.type == "cpu":
         return gemm_bias_gelu_plain(xn, w1, b1)
     (m, c), hidden = xn.shape, w1.shape[0]
     _supported(m, c, hidden)
-    _require_bf16([("xn", xn, None), ("w1", w1, (hidden, c)),
+    if xn.dtype == torch.float32:
+        return gemm_f32(xn, w1, b1, GEMM_F32_GELU)
+    _require_typed([("xn", xn, None), ("w1", w1, (hidden, c)),
                    ("b1", b1, (hidden,))], xn.device)
     h = torch.empty((m, hidden), dtype=xn.dtype, device=xn.device)
     _launch("lavt_gemm_bias_gelu", xn, w1, b1, h, m, c, hidden)
@@ -227,12 +243,19 @@ def gemm_bias_gelu(xn, w1, b1):
 
 
 def gemm_residual(h, w2, b2, x, keep=None, rows: int = 1):
-    """(c) on the card: h (M, hidden), w2 (C, hidden), x (M, C) -> out."""
+    """(c) on the card: h (M, hidden), w2 (C, hidden), x (M, C) -> out
+    (f32 -> f32 on the 3xTF32 GEMM, without keep: K8 has no f32 variant
+    yet)."""
     if h.device.type == "cpu":
         return gemm_residual_plain(h, w2, b2, x, keep, rows)
     (c, hidden), m = w2.shape, x.shape[0]
     _supported(m, c, hidden)
-    _require_bf16([("h", h, (m, hidden)), ("w2", w2, None), ("b2", b2, (c,)),
+    if h.dtype == torch.float32:
+        if keep is not None:
+            raise NotImplementedError("K8 (keep) has no f32 variant yet "
+                                      "(ROADMAP.md queue 2)")
+        return gemm_f32(h, w2, b2, GEMM_F32_RESIDUAL, res=x)
+    _require_typed([("h", h, (m, hidden)), ("w2", w2, None), ("b2", b2, (c,)),
                    ("x", x, (m, c))], x.device)
     _require_keep(keep, m, rows, x.device)
     out = torch.empty_like(x)
@@ -343,7 +366,7 @@ def mlp_bwd_prep(x, gy, g, be, keep=None, rows: int = 1, eps: float = EPS):
         return mlp_bwd_prep_plain(x, gy, g, be, keep, rows, eps)
     m, c = x.shape
     _supported(m, c, GEMM_TILE)
-    _require_bf16([("x", x, None), ("gy", gy, (m, c)), ("g", g, (c,)),
+    _require_typed([("x", x, None), ("gy", gy, (m, c)), ("g", g, (c,)),
                    ("be", be, (c,))], x.device)
     _require_keep(keep, m, rows, x.device)
     xn, dm = torch.empty_like(x), torch.empty_like(x)
@@ -359,7 +382,7 @@ def dual_gemm_gelu_bwd(xn, dmlp, w1, b1, w2):
         return dual_gemm_gelu_bwd_plain(xn, dmlp, w1, b1, w2)
     (m, c), hidden = xn.shape, w1.shape[0]
     _supported(m, c, hidden)
-    _require_bf16([("xn", xn, None), ("dmlp", dmlp, (m, c)),
+    _require_typed([("xn", xn, None), ("dmlp", dmlp, (m, c)),
                    ("w1", w1, (hidden, c)), ("b1", b1, (hidden,)),
                    ("w2", w2, (c, hidden))], xn.device)
     h, dhpre = (torch.empty((m, hidden), dtype=xn.dtype, device=xn.device)
@@ -384,7 +407,7 @@ def wgrad(a, b, split_rows: int):
             or m < 1):
         raise ValueError(f"wgrad: unsupported (M, Na, Nb, split rows) "
                          f"{(m, na, nb, split_rows)}")
-    _require_bf16([("a", a, None), ("b", b, (m, nb))], a.device)
+    _require_typed([("a", a, None), ("b", b, (m, nb))], a.device)
     splits = -(-m // split_rows)
     part = torch.empty((splits, na, nb), dtype=torch.float32, device=a.device)
     _launch("lavt_wgrad", a, b, part, m, na, nb, splits,
@@ -398,7 +421,7 @@ def dgrad(dhpre, w1):
         return dgrad_plain(dhpre, w1)
     (hidden, c), m = w1.shape, dhpre.shape[0]
     _supported(m, c, hidden)
-    _require_bf16([("dhpre", dhpre, (m, hidden)), ("w1", w1, None)],
+    _require_typed([("dhpre", dhpre, (m, hidden)), ("w1", w1, None)],
                   dhpre.device)
     dyln = torch.empty((m, c), dtype=torch.float32, device=dhpre.device)
     _launch("lavt_dgrad", dhpre, w1, dyln, m, c, hidden)
@@ -411,7 +434,7 @@ def ln_bwd_rows(dyln, x, gy, g, stats, keep=None, rows: int = 1):
         return ln_bwd_rows_plain(dyln, x, gy, g, stats, keep, rows)
     m, c = x.shape
     _supported(m, c, GEMM_TILE)
-    _require_bf16([("x", x, None), ("gy", gy, (m, c)), ("g", g, (c,))],
+    _require_typed([("x", x, None), ("gy", gy, (m, c)), ("g", g, (c,))],
                   x.device)
     cuda_lib.require(dyln, "dyln", torch.float32, x.device, (m, c))
     cuda_lib.require(stats, "stats", torch.float32, x.device, (m, 2))
@@ -438,11 +461,28 @@ def _fwd_launch(x, g, be, w1, b1, w2, b2, eps, keep, rows):
 
 
 def fused_ln_mlp(x, g, be, w1, b1, w2, b2, eps: float = EPS):
-    """K3: x (M, C) bf16 tokens -> x + fc2(gelu(fc1(LN(x)))) in bf16."""
+    """K3: x (M, C) bf16 tokens -> x + fc2(gelu(fc1(LN(x)))) in bf16; f32
+    tokens on the card take K3 f32 (`fused_ln_mlp_f32`)."""
     if x.device.type == "cpu":
         return fused_ln_mlp_plain(x, g, be, w1, b1, w2, b2, eps)
+    if x.dtype == torch.float32:
+        return fused_ln_mlp_f32(x, g, be, w1, b1, w2, b2, eps)
     out = _fwd_launch(x, g, be, w1, b1, w2, b2, eps, None, 0)
     fused_ln_mlp.launches += 1
+    return out
+
+
+def fused_ln_mlp_f32(x, g, be, w1, b1, w2, b2, eps: float = EPS):
+    """K3 f32: x (M, C) f32 tokens and f32 weights -> x + fc2(gelu(fc1(
+    LN(x)))) in f32; on the card the three launches (`mlp_ln_rows`,
+    `gemm_bias_gelu`, `gemm_residual`) on their f32 kernels, the plain
+    version on a CPU tensor."""
+    if x.device.type == "cpu":
+        return fused_ln_mlp_plain(x, g, be, w1, b1, w2, b2, eps)
+    _check(x, (g, be, w1, b1, w2, b2), None, 0, torch.float32)
+    xn = mlp_ln_rows(x, g, be, eps)
+    out = gemm_residual(gemm_bias_gelu(xn, w1, b1), w2, b2, x)
+    fused_ln_mlp_f32.launches += 1
     return out
 
 
@@ -513,6 +553,7 @@ def fused_ln_mlp_bwd(x, gy, g, be, w1, b1, w2, keep=None, rows: int = 0,
 
 
 fused_ln_mlp.launches = 0
+fused_ln_mlp_f32.launches = 0
 fused_ln_mlp_droppath.launches = 0
 fused_ln_mlp_bwd.launches = 0
 

@@ -46,6 +46,15 @@ csrc/fused_msa_bwd_sm90.cu, its launches `bwd_launches` (the fixed-order
 sums on csrc/fused_msa_bwd.cu); K2p as csrc/window_msa_sm90.cu's
 projections around K10's attention kernel.  The plain versions compute in
 f32 with the kernels' rounding points.
+
+K1 f32 (`fused_window_msa_ln_f32`) is K1 on f32 activations, as the TPU
+kernel computes it there (its roundings to x.dtype are no-ops): the same
+launches of `save_launches` without the saves, each taking its f32 kernel
+for an f32 tensor (K4 f32's LN rows, `gemm_bias` on the 3xTF32 GEMM of
+csrc/gemm_f32.cu, the attention of csrc/fused_msa_f32.cu with the TPU
+inference kernel's shift-free exp(min(s, 80)) softmax).
+`fused_window_msa_ln` takes it for a CUDA f32 tensor.  K2, the save mode,
+K5, K6 and K2p have no f32 variant yet: on a CUDA f32 tensor they raise.
 """
 
 from __future__ import annotations
@@ -291,6 +300,39 @@ def _require_all(checks, dev) -> None:
             raise ValueError(f"{name}: data must be 16-byte aligned")
 
 
+# the f32 GEMM's epilogues (csrc/gemm_f32.cu): + bias (q scaled), GELU,
+# + residual
+GEMM_F32_BIAS, GEMM_F32_GELU, GEMM_F32_RESIDUAL = 0, 1, 2
+GEMM_F32_DEPTH = 32  # K of one pipeline stage: K must be a multiple
+
+
+def gemm_f32(a, w, b, epi: int, res=None, scaled: int = 0,
+             scale: float = 1.0) -> torch.Tensor:
+    """The 3xTF32 GEMM of the f32 variants (`lavt_gemm_f32`): out (M, N)
+    f32 = epilogue(a wᵀ), a (M, K), w (N, K), b (N,) f32 on the card, K a
+    multiple of 32, N even; epi GEMM_F32_BIAS ((· + b) times `scale` on the
+    first `scaled` columns), GEMM_F32_GELU (exact GELU of · + b) or
+    GEMM_F32_RESIDUAL (res + · + b).  Its plain versions are its callers'
+    (`gemm_bias_plain`, `fused_mlp.gemm_bias_gelu_plain`,
+    `fused_mlp.gemm_residual_plain`)."""
+    (m, k), n = a.shape, w.shape[0]
+    if k % GEMM_F32_DEPTH or n % 2:
+        raise ValueError(f"f32 GEMM kernel: unsupported (M, N, K) "
+                         f"{(m, n, k)}")
+    f32, dev = torch.float32, a.device
+    checks = [("a", a, f32, None), ("w", w, f32, (n, k)), ("b", b, f32, (n,))]
+    if epi == GEMM_F32_RESIDUAL:
+        checks.append(("res", res, f32, (m, n)))
+    _require_all(checks, dev)
+    out = torch.empty((m, n), dtype=f32, device=dev)
+    err = cuda_lib.lib().lavt_gemm_f32(
+        a.data_ptr(), w.data_ptr(), b.data_ptr(),
+        None if res is None else res.data_ptr(), out.data_ptr(), m, n, k,
+        epi, scaled, float(scale), cuda_lib.stream_ptr(dev))
+    cuda_lib.check(err, "lavt_gemm_f32")
+    return out
+
+
 def _check_geometry(x, heads) -> None:
     n, c = x.shape[-2:]
     if not fused_msa_supported(n, c, heads):
@@ -525,9 +567,15 @@ def msa_attn(qkv, bias, mask, heads: int, save: bool,
     None with its window flags (`window.shift_mask_flags_2d`; None: every
     window reads its mask) -> (o (B nW 144, C) bf16, p (B nW, heads, 144,
     144) bf16 with save, else None).  The plain version on a CPU tensor
-    (which returns p either way)."""
+    (which returns p either way); an f32 qkv takes K1 f32's attention
+    (`msa_attn_f32`, no save mode)."""
     if qkv.device.type == "cpu":
         return msa_attn_plain(qkv, bias, mask, heads)
+    if qkv.dtype == torch.float32:
+        if save:
+            raise NotImplementedError(
+                "the save mode has no f32 variant yet (ROADMAP.md queue 2)")
+        return msa_attn_f32(qkv, bias, mask, heads, flags), None
     m, n, c3 = qkv.shape
     c = c3 // 3
     dev = qkv.device
@@ -556,6 +604,47 @@ def msa_attn(qkv, bias, mask, heads: int, save: bool,
         groups, cuda_lib.stream_ptr(dev))
     cuda_lib.check(err, "lavt_msa_fwd_sm90")
     return o, p
+
+
+def _attn_f32_checks(qkv, bias, mask, flags, heads: int, n: int, c: int,
+                     nw: int) -> None:
+    """The f32 attention launches' checks of their inputs."""
+    dev = qkv.device
+    if not fused_msa_supported(n, c, heads):
+        raise ValueError(f"f32 window MSA kernel: unsupported (N, C, heads) "
+                         f"{(n, c, heads)}")
+    f32 = torch.float32
+    checks = [("qkv", qkv, f32, None), ("bias", bias, f32, (heads, n, n))]
+    if mask is not None:
+        checks.append(("mask", mask, f32, (nw, n, n)))
+        if flags is not None:
+            cuda_lib.require(flags, "flags", torch.int32, dev, (nw,))
+    _require_all(checks, dev)
+
+
+def msa_attn_f32(qkv, bias, mask, heads: int,
+                 flags: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K1 f32's attention launch (`lavt_msa_fwd_f32`, csrc/fused_msa_f32.cu):
+    qkv (B nW, 144, 3C) f32 as `gemm_bias` writes it (q scaled), bias
+    (heads, 144, 144) f32, mask (nW, 144, 144) f32 or None with its window
+    flags -> o (B nW 144, C) f32, e = exp(min(s, 80)) normalised by its
+    row sum.  The plain version (`msa_attn_plain`'s o) on a CPU tensor."""
+    if qkv.device.type == "cpu":
+        return msa_attn_plain(qkv, bias, mask, heads)[0]
+    m, n, c3 = qkv.shape
+    c = c3 // 3
+    nw = 1 if mask is None else mask.shape[0]
+    if m % nw:
+        raise ValueError(f"mask: {nw} windows do not divide {m}")
+    _attn_f32_checks(qkv, bias, mask, flags, heads, n, c, nw)
+    o = torch.empty((m * n, c), dtype=torch.float32, device=qkv.device)
+    err = cuda_lib.lib().lavt_msa_fwd_f32(
+        qkv.data_ptr(), bias.data_ptr(),
+        None if mask is None else mask.data_ptr(),
+        None if mask is None or flags is None else flags.data_ptr(),
+        o.data_ptr(), m, nw, c, heads, cuda_lib.stream_ptr(qkv.device))
+    cuda_lib.check(err, "lavt_msa_fwd_f32")
+    return o
 
 
 def attn_launches(x, ln, wqkv, bqkv, bias, mask, heads: int, scale: float,
@@ -599,20 +688,20 @@ def save_launches(x, ln, wqkv, bqkv, wproj, bproj, bias, mask, heads: int,
     return (y, saved) if save else y
 
 
-def _check_save_launches(x, ln, wqkv, bqkv, wproj, bproj, heads) -> None:
+def _check_save_launches(x, ln, wqkv, bqkv, wproj, bproj, heads,
+                         dtype=torch.bfloat16) -> None:
     """The launches' checks of their inputs beside what `msa_attn` holds,
-    before any launch."""
+    before any launch: every tensor of `dtype` (bf16; f32 for K1 f32)."""
     _check_geometry(x, heads)
     b, nw, n, c = x.shape
-    bf16 = torch.bfloat16
-    checks = [("x", x, bf16, None), ("wqkv", wqkv, bf16, (3 * c, c)),
-              ("bqkv", bqkv, bf16, (3 * c,))]
+    checks = [("x", x, dtype, None), ("wqkv", wqkv, dtype, (3 * c, c)),
+              ("bqkv", bqkv, dtype, (3 * c,))]
     if wproj is not None:
-        checks += [("wproj", wproj, bf16, (c, c)),
-                   ("bproj", bproj, bf16, (c,))]
+        checks += [("wproj", wproj, dtype, (c, c)),
+                   ("bproj", bproj, dtype, (c,))]
     if ln is not None:
-        checks += [("ln_scale", ln[0], bf16, (c,)),
-                   ("ln_bias", ln[1], bf16, (c,))]
+        checks += [("ln_scale", ln[0], dtype, (c,)),
+                   ("ln_bias", ln[1], dtype, (c,))]
     _require_all(checks, x.device)
 
 
@@ -644,11 +733,37 @@ def fused_window_msa_ln(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, bias,
         return fused_window_msa_ln_plain(x, ln_scale, ln_bias, wqkv, bqkv,
                                          wproj, bproj, bias, mask, heads,
                                          scale, ln_eps)
+    if x.dtype == torch.float32:
+        return fused_window_msa_ln_f32(x, ln_scale, ln_bias, wqkv, bqkv,
+                                       wproj, bproj, bias, mask, heads, scale,
+                                       ln_eps, flags)
     ln = (ln_scale, ln_bias)
     _check_save_launches(x, ln, wqkv, bqkv, wproj, bproj, heads)
     y = save_launches(x, ln, wqkv, bqkv, wproj, bproj, bias, mask, heads,
                       scale, ln_eps, save=False, flags=flags)
     fused_window_msa_ln.launches += 1
+    return y
+
+
+def fused_window_msa_ln_f32(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
+                            bias, mask: Optional[torch.Tensor], heads: int,
+                            scale: float, ln_eps: float = LN_EPS,
+                            flags: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """K1 f32: K1 on f32 tokens and weights; on the card the launches of
+    `save_launches` without the saves, each on its f32 kernel (K4 f32's LN
+    rows, the 3xTF32 GEMM, `msa_attn_f32`, the 3xTF32 GEMM).  The plain
+    version on a CPU tensor."""
+    if x.device.type == "cpu":
+        return fused_window_msa_ln_plain(x, ln_scale, ln_bias, wqkv, bqkv,
+                                         wproj, bproj, bias, mask, heads,
+                                         scale, ln_eps)
+    ln = (ln_scale, ln_bias)
+    _check_save_launches(x, ln, wqkv, bqkv, wproj, bproj, heads,
+                         torch.float32)
+    y = save_launches(x, ln, wqkv, bqkv, wproj, bproj, bias, mask, heads,
+                      scale, ln_eps, save=False, flags=flags)
+    fused_window_msa_ln_f32.launches += 1
     return y
 
 
@@ -703,6 +818,7 @@ def fused_window_msa_bwd_recompute(x, ln, wqkv, bqkv, wproj, bproj, bias,
 
 fused_window_msa.launches = 0
 fused_window_msa_ln.launches = 0
+fused_window_msa_ln_f32.launches = 0
 fused_window_msa_bwd.launches = 0
 fused_window_msa_bwd_recompute.launches = 0
 
@@ -772,9 +888,13 @@ def gemm_bias(x2, w, b, scaled: int = 0, scale: float = 1.0) -> torch.Tensor:
     (csrc/window_msa_sm90.cu): K2p's qkv projection (scaled = C: q scaled
     after its bias, as the TPU kernel rounds it) and its out-projection
     (scaled = 0).  x2 (M, K), w (N, K) (a torch Linear weight), b (N,),
-    bf16; the plain version on a CPU tensor."""
+    bf16; the plain version on a CPU tensor.  f32 operands take the 3xTF32
+    GEMM (`gemm_f32`, K1 f32's and K11 f32's projections), rounded
+    nowhere."""
     if x2.device.type == "cpu":
         return gemm_bias_plain(x2, w, b, scaled, scale)
+    if x2.dtype == torch.float32:
+        return gemm_f32(x2, w, b, GEMM_F32_BIAS, scaled=scaled, scale=scale)
     (m, k), n = x2.shape, w.shape[0]
     bf16 = torch.bfloat16
     _require_all([("x", x2, bf16, None), ("w", w, bf16, (n, k)),

@@ -24,6 +24,12 @@ Weights are torch `nn.Linear` layout (wqkv (3C, C), wproj (C, C)); bias
 (wy, wx) of each image taking mask[wy (Wp / ws) + wx], or None; flags the
 mask's (nW,) int32 window flags (`window.shift_mask_flags_2d`: the windows
 whose mask the card reads; None: every window), which change no value.
+
+K11 f32 (`fused_window_msa_2d_f32`) is K11 on f32 activations, as the JAX
+kernel computes it there: the launches of `map_launches`, each on its f32
+kernel for an f32 tensor (the 3xTF32 GEMM of csrc/gemm_f32.cu, the map-order
+attention of csrc/fused_msa_f32.cu, `msa_attn_map_f32`); `fused_window_msa_2d`
+takes it for a CUDA f32 tensor.
 """
 
 from __future__ import annotations
@@ -34,7 +40,7 @@ from typing import Optional
 import torch
 
 from . import cuda_lib
-from .fused_msa import (_require_all, fused_msa_supported,
+from .fused_msa import (_attn_f32_checks, _require_all, fused_msa_supported,
                         fused_window_msa_plain, gemm_bias, msa_attn_plain,
                         msa_bwd_groups)
 from .window import window_partition, window_reverse
@@ -71,9 +77,12 @@ def msa_attn_map(qkv, bias, mask, heads: int,
     bf16 as `gemm_bias` writes it over the map's rows (q scaled), bias
     (heads, 144, 144) f32, mask (nW, 144, 144) f32 or None with its window
     flags -> O (B, Hp, Wp, C) bf16, each window's rows at its map
-    positions.  The plain version on a CPU tensor."""
+    positions.  The plain version on a CPU tensor; an f32 map takes K11
+    f32's attention (`msa_attn_map_f32`)."""
     if qkv.device.type == "cpu":
         return msa_attn_map_plain(qkv, bias, mask, heads)
+    if qkv.dtype == torch.float32:
+        return msa_attn_map_f32(qkv, bias, mask, heads, flags)
     b, hp, wp, c3 = qkv.shape
     c, n, dev = c3 // 3, 144, qkv.device
     if hp % 12 or wp % 12 or not fused_msa_supported(n, c, heads):
@@ -98,6 +107,32 @@ def msa_attn_map(qkv, bias, mask, heads: int,
     return o
 
 
+def msa_attn_map_f32(qkv, bias, mask, heads: int,
+                     flags: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K11 f32's attention launch (`lavt_msa_fwd_map_f32`): qkv (B, Hp,
+    Wp, 3C) f32 (q scaled), bias (heads, 144, 144) f32, mask (nW, 144, 144)
+    f32 or None with its window flags -> O (B, Hp, Wp, C) f32 at the
+    windows' map positions, e = exp(min(s, 80)) normalised by its row sum.
+    The plain version on a CPU tensor."""
+    if qkv.device.type == "cpu":
+        return msa_attn_map_plain(qkv, bias, mask, heads)
+    b, hp, wp, c3 = qkv.shape
+    c, n = c3 // 3, 144
+    if hp % 12 or wp % 12:
+        raise ValueError(f"f32 window MSA map kernel: unsupported (Hp, Wp) "
+                         f"{(hp, wp)}")
+    nw = (hp // 12) * (wp // 12)
+    _attn_f32_checks(qkv, bias, mask, flags, heads, n, c, nw)
+    o = torch.empty((b, hp, wp, c), dtype=torch.float32, device=qkv.device)
+    err = cuda_lib.lib().lavt_msa_fwd_map_f32(
+        qkv.data_ptr(), bias.data_ptr(),
+        None if mask is None else mask.data_ptr(),
+        None if mask is None or flags is None else flags.data_ptr(),
+        o.data_ptr(), b, hp, wp, c, heads, cuda_lib.stream_ptr(qkv.device))
+    cuda_lib.check(err, "lavt_msa_fwd_map_f32")
+    return o
+
+
 def map_launches(x, wqkv, bqkv, wproj, bproj, bias, mask, heads: int,
                  scale: float, flags=None) -> torch.Tensor:
     """K11's three launches, in order, on the (B, Hp, Wp, C) map:
@@ -116,16 +151,17 @@ def map_launches(x, wqkv, bqkv, wproj, bproj, bias, mask, heads: int,
 
 
 def _launch(x, wqkv, bqkv, wproj, bproj, bias, mask, heads, scale, ws,
-            flags):
+            flags, dtype=torch.bfloat16):
+    """The checks (every tensor of `dtype`: bf16, or f32 for K11 f32), then
+    `map_launches`."""
     b, hp, wp, c = x.shape
     if hp % ws or wp % ws or not fused_msa_supported(ws * ws, c, heads):
         raise ValueError(f"fused window MSA 2D kernel: unsupported (Hp, Wp, "
                          f"C, heads, ws) {(hp, wp, c, heads, ws)}")
-    bf16 = torch.bfloat16
-    _require_all([("x", x, bf16, None), ("wqkv", wqkv, bf16, (3 * c, c)),
-                  ("bqkv", bqkv, bf16, (3 * c,)),
-                  ("wproj", wproj, bf16, (c, c)),
-                  ("bproj", bproj, bf16, (c,))], x.device)
+    _require_all([("x", x, dtype, None), ("wqkv", wqkv, dtype, (3 * c, c)),
+                  ("bqkv", bqkv, dtype, (3 * c,)),
+                  ("wproj", wproj, dtype, (c, c)),
+                  ("bproj", bproj, dtype, (c,))], x.device)
     return map_launches(x, wqkv, bqkv, wproj, bproj, bias, mask, heads, scale,
                         flags)
 
@@ -135,9 +171,29 @@ def _forward(x, wqkv, bqkv, wproj, bproj, bias, mask, heads, scale, ws,
     if x.device.type == "cpu":
         return fused_window_msa_2d_plain(x, wqkv, bqkv, wproj, bproj, bias,
                                          mask, heads, scale, ws)
+    if x.dtype == torch.float32:
+        return fused_window_msa_2d_f32(x, wqkv, bqkv, wproj, bproj, bias,
+                                       mask, heads, scale, ws, flags)
     y = _launch(x, wqkv, bqkv, wproj, bproj, bias, mask, heads, scale, ws,
                 flags)
     fused_window_msa_2d.launches += 1
+    return y
+
+
+def fused_window_msa_2d_f32(x, wqkv, bqkv, wproj, bproj, bias,
+                            mask: Optional[torch.Tensor], heads: int,
+                            scale: float, ws: int,
+                            flags: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """K11 f32: K11's forward on an f32 map and f32 weights; on the card
+    the launches of `map_launches` on their f32 kernels, the plain version
+    on a CPU tensor."""
+    if x.device.type == "cpu":
+        return fused_window_msa_2d_plain(x, wqkv, bqkv, wproj, bproj, bias,
+                                         mask, heads, scale, ws)
+    y = _launch(x, wqkv, bqkv, wproj, bproj, bias, mask, heads, scale, ws,
+                flags, torch.float32)
+    fused_window_msa_2d_f32.launches += 1
     return y
 
 
@@ -182,3 +238,4 @@ def fused_window_msa_2d(x, wqkv, bqkv, wproj, bproj, bias,
 
 
 fused_window_msa_2d.launches = 0
+fused_window_msa_2d_f32.launches = 0

@@ -14,6 +14,13 @@ of dscale and dbias, which `fused_msa.sum_partials` adds in block order.
 `layer_norm_rows` on x's dtype (it casts the f32 master scale and bias),
 its backward K4b from the f32 master scale (the plain formula on the
 CPU).
+
+K4 f32 (`layer_norm_rows_f32`, csrc/ln.cu) is the same LayerNorm on f32
+rows, as the TPU kernel computes it on f32 activations; `layer_norm_rows`
+takes it for a CUDA f32 tensor (no f32 tensor is cast into the bf16
+kernel).  Its launch `layer_norm_rows_f32_launch` also makes K1 f32's LN
+rows and, with the two-pass variance, K3 f32's.  K4b has no f32 variant
+yet (training in f32 with the kernels is refused, `models/factory.py`).
 """
 
 from __future__ import annotations
@@ -118,9 +125,12 @@ def _check_rows(named, rows: int, c: int, dev) -> None:
 
 def layer_norm_rows(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                     eps: float = 1e-5) -> torch.Tensor:
-    """x: (rows, C) bf16 -> LayerNorm over C, in bf16."""
+    """x: (rows, C) bf16 -> LayerNorm over C, in bf16; f32 rows on the card
+    take K4 f32 (`layer_norm_rows_f32`)."""
     if x.device.type == "cpu":
         return layer_norm_rows_plain(x, scale, bias, eps)
+    if x.dtype == torch.float32:
+        return layer_norm_rows_f32(x, scale, bias, eps)
     out = layer_norm_rows_launch(x, scale, bias, eps)
     layer_norm_rows.launches += 1
     return out
@@ -130,9 +140,12 @@ def layer_norm_rows_launch(x: torch.Tensor, scale: torch.Tensor,
                            bias: torch.Tensor, eps: float = 1e-5
                            ) -> torch.Tensor:
     """K4's launch without its count (the plain version on a CPU tensor):
-    the pre-attention LN of K1's save mode, which counts as K1."""
+    the pre-attention LN of K1's save mode, which counts as K1; f32 rows
+    take K4 f32's launch (K1 f32's LN)."""
     if x.device.type == "cpu":
         return layer_norm_rows_plain(x, scale, bias, eps)
+    if x.dtype == torch.float32:
+        return layer_norm_rows_f32_launch(x, scale, bias, eps)
     if x.dim() != 2:
         raise ValueError(f"layer_norm_rows kernel: x must be (rows, C), got "
                          f"{tuple(x.shape)}")
@@ -149,6 +162,47 @@ def layer_norm_rows_launch(x: torch.Tensor, scale: torch.Tensor,
 
 
 layer_norm_rows.launches = 0
+
+
+def layer_norm_rows_f32(x: torch.Tensor, scale: torch.Tensor,
+                        bias: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """K4 f32: x (rows, C) f32 -> LayerNorm over C in f32, the fast
+    variance (csrc/ln.cu); the plain version on a CPU tensor."""
+    if x.device.type == "cpu":
+        return layer_norm_rows_plain(x, scale, bias, eps)
+    out = layer_norm_rows_f32_launch(x, scale, bias, eps)
+    layer_norm_rows_f32.launches += 1
+    return out
+
+
+def layer_norm_rows_f32_launch(x: torch.Tensor, scale: torch.Tensor,
+                               bias: torch.Tensor, eps: float = 1e-5,
+                               two_pass: bool = False) -> torch.Tensor:
+    """The f32 row launch without a count (`lavt_layer_norm_rows_f32`):
+    x (rows, C), scale, bias (C,) f32 -> f32; the fast variance (K4 f32,
+    K1 f32's LN) or, with two_pass, the mean of (x − μ)² (K3 f32's LN
+    rows).  The plain version of the variance asked for on a CPU tensor."""
+    if x.device.type == "cpu":
+        if two_pass:
+            from .fused_mlp import mlp_ln_rows_plain  # imports this module
+            return mlp_ln_rows_plain(x, scale, bias, eps)
+        return layer_norm_rows_plain(x, scale, bias, eps)
+    if x.dim() != 2:
+        raise ValueError(f"layer_norm_rows f32 kernel: x must be (rows, C), "
+                         f"got {tuple(x.shape)}")
+    rows, c = x.shape
+    f32 = torch.float32
+    _check_rows([("x", x, f32, None), ("scale", scale, f32, (c,)),
+                 ("bias", bias, f32, (c,))], rows, c, x.device)
+    out = torch.empty_like(x)
+    err = cuda_lib.lib().lavt_layer_norm_rows_f32(
+        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
+        rows, c, float(eps), int(two_pass), cuda_lib.stream_ptr(x.device))
+    cuda_lib.check(err, "lavt_layer_norm_rows_f32")
+    return out
+
+
+layer_norm_rows_f32.launches = 0
 
 
 def layer_norm_rows_bwd_partials_plain(x: torch.Tensor, scale: torch.Tensor,

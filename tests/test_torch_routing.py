@@ -154,13 +154,17 @@ def test_kernel_plan_at_full_width(monkeypatch, name, n, train, want):
 
 def test_f32_with_kernels_on_the_card_is_refused():
     """build_model refuses f32 activations with the kernels on a CUDA
-    device before it allocates a weight (so it raises here, without a
-    card); the plain versions and the CPU still take f32."""
-    cfg = C.lavt_one_base(dtype="float32")
+    device where the plan holds a kernel without an f32 variant (window
+    7's K10; every training kernel), before it allocates a weight (so it
+    raises here, without a card); the plain versions and the CPU still
+    take f32.  Window-12 inference has its f32 variants
+    (tests/test_torch_f32_kernels.py)."""
+    cfg = C.lavt_one_base(window12=False, dtype="float32")
     with pytest.raises(NotImplementedError, match="f32 kernel variants"):
         build_model(cfg, device="cuda")
     with pytest.raises(NotImplementedError, match="f32 kernel variants"):
-        build_model(cfg, device=torch.device("cuda", 0), train=True)
+        build_model(C.lavt_one_base(dtype="float32"),
+                    device=torch.device("cuda", 0), train=True)
     small = C.ModelConfig(
         swin=C.SwinConfig(embed_dim=32, depths=(1, 1, 1, 1),
                           num_heads=(1, 2, 4, 8), window_size=7),

@@ -13,7 +13,8 @@ every test skips without a CUDA device.  Runs without JAX:
 * P1 / P2 against their plain version and each other;
 * a small window-7 model on the card: every block on K10, none on K1 or
   K11;
-* f32 with the kernels refused before anything is built or launched.
+* f32 with the kernels refused, where a kernel of the plan has no f32
+  variant, before anything is built or launched.
 
 Inputs are bf16 and the tolerances those of test_torch_kernels_cuda.py
 (whose helpers this file uses).
@@ -177,6 +178,9 @@ def test_window7_model_on_the_card(dev):
 
 
 def test_f32_with_kernels_is_refused_before_any_launch(dev):
+    """Refused where the plan holds a kernel without an f32 variant: window
+    7 (K10) and window-12 training; window-12 inference has its f32
+    variants (tests/test_torch_f32_cuda.py runs it)."""
     before = (ln.layer_norm_rows.launches, fused_mlp.fused_ln_mlp.launches,
               window_attn.window_attention.launches)
     torch.cuda.synchronize(dev)
@@ -184,6 +188,8 @@ def test_f32_with_kernels_is_refused_before_any_launch(dev):
     base = torch.cuda.memory_allocated(dev)
     with pytest.raises(NotImplementedError, match="f32 kernel variants"):
         build_model(_small(7, dtype="float32"), dev)
+    with pytest.raises(NotImplementedError, match="f32 kernel variants"):
+        build_model(_small(12, dtype="float32"), dev, train=True)
     assert torch.cuda.max_memory_allocated(dev) == base  # nothing allocated
     assert (ln.layer_norm_rows.launches, fused_mlp.fused_ln_mlp.launches,
             window_attn.window_attention.launches) == before
