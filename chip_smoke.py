@@ -120,6 +120,25 @@
        --no_pallas: both summaries, mIoU and oIoU within 0.005, and
        sentences/s of each.
    The phase prints its seconds.
+3d. f32 window attention (`--no_bf16` with the kernels at window 7 and in
+   lavt_video: K10 f32 in both modes, K2p f32, K9 f32), TF32 off:
+     * each on seeded f32 inputs at its path shapes against its f32 plain
+       version within 1e-4 abs + 1e-4 rel, timed beside its bound, its
+       plain version and its f32 library call (SDPA over B nW windows for
+       K10, autograd through it for K9, linear / SDPA / linear for K2p):
+       K10 f32 at the four window-7 shapes of a bs-8 forward (the strided
+       route, and contiguous q, k, v checked) and at video stages 2-4 of an
+       8-frame clip, K2p f32 at stage 1 (n_p = 392: no padding in f32;
+       grouped by mask, unshifted and shifted), K10 f32's save mode and K9
+       f32 at all four video stages (two K9 f32 calls give the same bits);
+       their launch plans printed;
+     * window-7 lavt_one_base in f32 on seeded window-7 weights: three
+       bs-8 batches through `fwd_iou` (counts K10 f32 24 / K3 f32 24 / K4
+       f32 4 a forward, no bf16 launch), the f32 gate, ms and img/s beside
+       the plain f32 model, a profile;
+     * `cli.test.main --no_bf16` at window 7 (the CLI's default) on 3b's
+       split and those weights as a .pth, with the kernels and with
+       --no_pallas: mIoU and oIoU within 0.005.
 4. Video phase: K10 (attention on pre-projected heads) at the stage-2..4
    shapes of an 8-frame 480² clip (N = 392) and at N = 196, K2p (the
    padded fused MSA) at the stage-1 shape, maskless and grouped, each
@@ -174,6 +193,20 @@
    ones (not gated).  Each video CLI run starts with the shift masks
    cached per geometry released (`ops.window.clear_device_caches`), and
    the phase ends so: the later phases' peak memory holds none of its.
+4d. The f32 video paths (`--no_bf16` with the kernels): lavt_video_tiny
+   in f32 on the video phase's weights answers three 8-frame 480² clips
+   (counts K2p f32 2 / K10 f32 10 a clip, no bf16 launch; one clip held
+   to the plain f32 model by the pixel gate and the f32 gate; ms a clip
+   beside the plain model; a profile); `cli.test --dataset a2d --no_bf16`
+   on 8 of 4b's clips and `cli.test_ytvos --no_bf16` (unchunked) on 4c's
+   videos, each against its --no_pallas --no_bf16 run (A2D: mIoU and oIoU
+   within 0.005, the annotated frame by both gates; YTVOS: every forward
+   by both gates), with their launches against the plan.
+4e. The f32 video train step: its gate against the plain f32 step (the
+   loss within 1e-4 relative, every 3D block's gradient cosine >= 0.999;
+   counts K10 f32 12 / K9 f32 12), then 10 timed steps (the loss falls,
+   ms a step, peak memory), a profile, and a --use_checkpoint step (K10
+   f32 24 / K9 f32 12).
 5. Training main path: the same weights in an f32 `build_model(...,
    train=True)` take AdamW steps (`train.step.make_train_step`: DropPath
    0.3, BERT dropout 0.1, weighted CE, poly LR) on synthetic uint8
@@ -236,8 +269,8 @@
    with its reason (every one a route where the JAX package runs XLA), and
    the pixel gate against the f32 plain model; f32 with the kernels
    refused, naming the variants still missing, before any launch or
-   allocation where a kernel of the plan has no f32 variant (window-7
-   inference, window-12 training); one Swin-T window-12 training
+   allocation where a kernel of the plan has no f32 variant (lavt_one
+   training at windows 7 and 12); one Swin-T window-12 training
    step at bs 2 (the save mode and K5 at C = 96).
 8. P1 / P2 (the head-batching probe) against their plain version on an
    input whose softmax is far from uniform (x at std 0.4, 1e-3 abs +
@@ -338,6 +371,11 @@ REPLACES = {
     "K11.f32": "lavt_rs_tpu/ops/pallas/experimental.py:71",
     "K3.f32": "lavt_rs_tpu/ops/pallas/fused_mlp.py:111",
     "K4.f32": "lavt_rs_tpu/ops/pallas/ln.py:63",
+    "K10.f32/w7": "lavt_rs_tpu/ops/pallas/window_attn.py:120",
+    "K10.f32": "lavt_rs_tpu/ops/pallas/window_attn.py:120",
+    "K10s.f32": "lavt_rs_tpu/ops/pallas/window_attn.py:165",
+    "K2p.f32": "lavt_rs_tpu/ops/pallas/fused_msa.py:891",
+    "K9.f32": "lavt_rs_tpu/ops/pallas/window_attn.py:292",
 }
 SOURCES = {
     "K1": "lavt_rs_tpu_torch/csrc/fused_msa_sm90.cu",
@@ -361,6 +399,13 @@ SOURCES = {
     "K11.f32": "lavt_rs_tpu_torch/csrc/fused_msa_f32.cu",
     "K3.f32": "lavt_rs_tpu_torch/csrc/gemm_f32.cu",
     "K4.f32": "lavt_rs_tpu_torch/csrc/ln.cu",
+    # K10 f32 in both modes and K2p f32's attention launch (K2p f32's
+    # projections: gemm_f32.cu); K9 f32's two launches
+    "K10.f32/w7": "lavt_rs_tpu_torch/csrc/window_attn_f32.cu",
+    "K10.f32": "lavt_rs_tpu_torch/csrc/window_attn_f32.cu",
+    "K10s.f32": "lavt_rs_tpu_torch/csrc/window_attn_f32.cu",
+    "K2p.f32": "lavt_rs_tpu_torch/csrc/window_attn_f32.cu",
+    "K9.f32": "lavt_rs_tpu_torch/csrc/window_attn_bwd_f32.cu",
 }
 # Swin-B at 480²: (tokens per side, C, heads, blocks) per stage
 STAGES = ((120, 128, 4, 2), (60, 256, 8, 2), (30, 512, 16, 18),
@@ -433,9 +478,23 @@ W7_STAGES = ((126, 128, 4, 2), (63, 256, 8, 2), (35, 512, 16, 18),
 W7_INFER_PER_FORWARD = {"K10": 24, "K3": 24, "K4": 4}
 W7_TRAIN_PER_STEP = {"K10": 24, "K9": 24, "K8": 23, "K3": 1, "K7": 24,
                      "K4": 4, "K4b": 4}
-# the f32 variants (phase 3c), their counters' names: K1 f32, K11 f32, K3
-# f32, K4 f32
-F32_NAMES = ("K1.f32", "K11.f32", "K3.f32", "K4.f32")
+# the f32 variants (phases 3c-3d, 4d-4e): K1 f32, K11 f32, K3 f32, K4 f32
+# (their counters' names), then the rows of K10 f32 (per window-7 bs-8
+# forward, per clip), K10 f32's save mode (per video train step), K2p f32
+# (per clip) and K9 f32 (per video train step); the counters of those are
+# "K10.f32" (both modes), "K2p.f32" and "K9.f32"
+F32_NAMES = ("K1.f32", "K11.f32", "K3.f32", "K4.f32", "K10.f32/w7",
+             "K10.f32", "K10s.f32", "K2p.f32", "K9.f32")
+# launches of the f32 video paths: a clip, a train step (with
+# --use_checkpoint: K10 f32's save mode again in every block's recompute)
+F32_VIDEO_PER_CLIP = {"K2p.f32": 2, "K10.f32": 10}
+F32_VIDEO_TRAIN_PER_STEP = {"K10.f32": 12, "K9.f32": 12}
+F32_VIDEO_CKPT_PER_STEP = {"K10.f32": 24, "K9.f32": 12}
+# the f32 video train step against the plain f32 step: the loss (relative)
+# and each 3D block's gradient cosine
+F32_LOSS_RTOL, F32_MIN_COS = 1e-4, 0.999
+# the f32 A2D evaluation's in-memory clips (a quarter of the bf16 phase's)
+F32_A2D_CLIPS = 8
 # each against its f32 plain version: abs + rel (3xTF32 products and f32
 # sums in another order; one TF32 pass, ~5e-4 relative, fails it)
 F32_TOL = 1e-4
@@ -1658,7 +1717,10 @@ def counters():
             "K1.f32": fused_msa.fused_window_msa_ln_f32,
             "K11.f32": fused_msa_2d.fused_window_msa_2d_f32,
             "K3.f32": fused_mlp.fused_ln_mlp_f32,
-            "K4.f32": ln.layer_norm_rows_f32}
+            "K4.f32": ln.layer_norm_rows_f32,
+            "K10.f32": window_attn.window_attention_f32,
+            "K2p.f32": fused_msa.fused_window_msa_grouped_f32,
+            "K9.f32": window_attn.attention_core_bwd_f32}
 
 
 def zero_counts():
@@ -2067,12 +2129,15 @@ def f32_kernel_phase(dev, res):
         torch.cuda.empty_cache()
 
 
-def swin_blocks_port_only(dev, model):
+def swin_blocks_port_only(dev, model, plain_linears=False):
     """The first two Swin blocks (unshifted, shifted) of every stage of an
     f32 lavt_one `model` on bs-8 f32 tokens under torch.profiler: none may
     launch a library GEMM, convolution or attention kernel
-    (LIBRARY_KERNEL_TAGS); prints the port's kernels and the others
-    (PyTorch's copies and elementwise kernels: pad, roll, add)."""
+    (LIBRARY_KERNEL_TAGS; with `plain_linears`, at window 7, the library
+    GEMMs of the blocks' qkv and proj Linears, plain there as the JAX
+    package leaves them to XLA, are allowed and listed); prints the port's
+    kernels and the others (PyTorch's copies and elementwise kernels: pad,
+    roll, add)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2102,26 +2167,51 @@ def swin_blocks_port_only(dev, model):
     if not names:
         raise RuntimeError("f32 Swin blocks: torch.profiler recorded no "
                            "kernel")
+    gemm_tags = ("gemm", "gemv", "cublas", "cutlass", "xmma", "nvjet")
+    tags = tuple(t for t in LIBRARY_KERNEL_TAGS
+                 if not (plain_linears and t in gemm_tags))
     library = sorted(n for n in names if "lavt::" not in n and any(
-        t in n.lower() for t in LIBRARY_KERNEL_TAGS))
+        t in n.lower() for t in tags))
     if library:
         raise RuntimeError(f"f32 Swin blocks launched library kernels: "
                            f"{library}")
     port = sorted({short_kernel(n) for n in names if "lavt::" in n})
     other = sorted({short_kernel(n) for n in names if "lavt::" not in n})
     log(f"f32 Swin blocks (2 a stage, bs {BATCH}) under torch.profiler: "
-        f"{len(names)} kernels, no library GEMM, convolution or attention; "
-        f"the port's: {', '.join(port)}; PyTorch's: {', '.join(other)}")
+        f"{len(names)} kernels, no library "
+        f"{'convolution or attention (the qkv and proj Linears plain)' if plain_linears else 'GEMM, convolution or attention'}"
+        f"; the port's: {', '.join(port)}; PyTorch's: {', '.join(other)}")
 
 
-def f32_inference(dev, card, weights):
-    """lavt_one Swin-B window-12 f32 with the kernels, on `weights`:
-    N_REQUESTS batches of 8 through `fwd_iou` (the f32 counters equal the
-    model's `kernel_plan` at itemsize 4, every bf16 counter 0), the gate
-    against the plain f32 model on the same weights (max |dlogit| <=
-    F32_GATE, the same argmax wherever the plain margin exceeds F32_GATE),
-    ms a batch and img/s beside the plain model's, peak memory, one
-    forward under torch.profiler and the Swin blocks under it
+def f32_gate(label, got, want):
+    """The f32 gate: finite logits within F32_GATE of the plain f32
+    model's `want`, and the same argmax wherever the plain margin exceeds
+    F32_GATE; logs the figures."""
+    import torch
+
+    if not bool(torch.isfinite(got).all()):
+        raise RuntimeError(f"{label}: non-finite logits")
+    diff = (got - want).abs().max().item()
+    sure = (want[..., 1] - want[..., 0]).abs() > F32_GATE
+    flips = int((got.argmax(-1) != want.argmax(-1))[sure].sum().item())
+    log(f"{label}, kernels vs the plain f32 model: max |dlogit| {diff:.4g} "
+        f"(limit {F32_GATE}), logit scale {want.abs().max().item():.4g}; "
+        f"argmax differs on {flips} of the {int(sure.sum().item())} pixels "
+        f"whose plain margin exceeds {F32_GATE} "
+        f"({sure.float().mean().item():.4f} of all)")
+    if not diff <= F32_GATE or flips:
+        raise RuntimeError(f"{label}: f32 gate failed")
+
+
+def f32_inference(dev, card, weights, cfg=None, per_forward=None,
+                  what="window-12"):
+    """lavt_one Swin-B f32 with the kernels (window 12 unless `cfg` says
+    otherwise), on `weights`: N_REQUESTS batches of 8 through `fwd_iou`
+    (the f32 counters equal the model's `kernel_plan` at itemsize 4, which
+    must be the bf16 plan `per_forward`, every bf16 counter 0), the gate
+    against the plain f32 model on the same weights (`f32_gate`), ms a
+    batch and img/s beside the plain model's, peak memory, one forward
+    under torch.profiler and the Swin blocks under it
     (`swin_blocks_port_only`).  Returns the launch counts."""
     import torch
 
@@ -2130,11 +2220,12 @@ def f32_inference(dev, card, weights):
     from lavt_rs_tpu_torch.models.factory import build_model
     from lavt_rs_tpu_torch.ops.norm import maybe_normalize_image
 
-    cfg = lavt_one_base(dtype="float32")
+    cfg = lavt_one_base(dtype="float32") if cfg is None else cfg
+    per_forward = INFER_PER_FORWARD if per_forward is None else per_forward
     plan = kernel_plan(cfg, 480, BATCH)[0]
-    if plan != INFER_PER_FORWARD:
-        raise RuntimeError(f"f32 forward: the kernel plan at itemsize 4 is "
-                           f"{plan}, not the bf16 plan {INFER_PER_FORWARD}")
+    if plan != per_forward:
+        raise RuntimeError(f"f32 {what} forward: the kernel plan at itemsize "
+                           f"4 is {plan}, not the bf16 plan {per_forward}")
     per = {f"{k}.f32": n for k, n in plan.items()}
     t0 = time.perf_counter()
     model = build_model(cfg, dev)
@@ -2150,10 +2241,10 @@ def f32_inference(dev, card, weights):
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     launches = read_counts()
-    log(f"f32 inference launches over {N_REQUESTS} batches of {BATCH}: "
-        f"{nonzero_counts(launches)} (the plan at itemsize 4: {plan} a "
-        f"forward)")
-    check_counts("f32 inference", launches, per, N_REQUESTS)
+    log(f"f32 {what} inference launches over {N_REQUESTS} batches of "
+        f"{BATCH}: {nonzero_counts(launches)} (the plan at itemsize 4: "
+        f"{plan} a forward)")
+    check_counts(f"f32 {what} inference", launches, per, N_REQUESTS)
     for inter, union in results:
         if inter.shape != (BATCH, 1) or not bool(torch.isfinite(union).all()):
             raise RuntimeError("f32 fwd_iou: bad inter/union")
@@ -2171,20 +2262,9 @@ def f32_inference(dev, card, weights):
     ref = build_model(cfg.replace(use_kernels=False), dev)
     ref.load_state_dict(weights)
     want = forward(ref)
-    if tuple(logits.shape) != (BATCH, 480, 480, 2) or not bool(
-            torch.isfinite(logits).all()):
-        raise RuntimeError(f"f32 logits: shape {tuple(logits.shape)} or "
-                           f"non-finite")
-    diff = (logits - want).abs().max().item()
-    sure = (want[..., 1] - want[..., 0]).abs() > F32_GATE
-    flips = int((logits.argmax(-1) != want.argmax(-1))[sure].sum().item())
-    log(f"f32 gate, kernels vs the plain f32 model: max |dlogit| {diff:.4g} "
-        f"(limit {F32_GATE}), logit scale {want.abs().max().item():.4g}; "
-        f"argmax differs on {flips} of the {int(sure.sum().item())} pixels "
-        f"whose plain margin exceeds {F32_GATE} "
-        f"({sure.float().mean().item():.4f} of all)")
-    if not diff <= F32_GATE or flips:
-        raise RuntimeError("f32 gate failed")
+    if tuple(logits.shape) != (BATCH, 480, 480, 2):
+        raise RuntimeError(f"f32 logits: shape {tuple(logits.shape)}")
+    f32_gate(f"f32 {what} gate", logits, want)
     del logits, want
     iters, plain_iters = 10, 3
     ms = cuda_time_ms(lambda: forward(model), iters=iters, warmup=2)
@@ -2192,20 +2272,21 @@ def f32_inference(dev, card, weights):
                             warmup=1)
     del ref
     torch.cuda.empty_cache()
-    log(f"f32 forward bs {BATCH} with the kernels: {ms:.3f} ms a batch, "
+    log(f"f32 {what} forward bs {BATCH} with the kernels: {ms:.3f} ms a batch, "
         f"{BATCH * 1000 / ms:.2f} img/s (mean of {iters}); the plain f32 "
         f"model (TF32 off): {plain_ms:.3f} ms, "
         f"{BATCH * 1000 / plain_ms:.2f} img/s (mean of {plain_iters}); peak "
         f"{peak:.3f} GiB over the fwd_iou batches  [{card}]")
-    profile_clip(lambda: forward(model), card, "f32 window-12 bs-8 forward")
-    swin_blocks_port_only(dev, model)
+    profile_clip(lambda: forward(model), card, f"f32 {what} bs-8 forward")
+    swin_blocks_port_only(dev, model, plain_linears=cfg.swin.window_size != 12)
     del model
     torch.cuda.empty_cache()
     return launches
 
 
-def f32_cli(dev, card, root, vocab, ckpt, batches, sentences):
-    """`cli.test.main --window12 --no_bf16` in process on the synthetic
+def f32_cli(dev, card, root, vocab, ckpt, batches, sentences, window12=True):
+    """`cli.test.main --window12 --no_bf16` (without --window12: window 7,
+    the CLI's default, on a window-7 .pth) in process on the synthetic
     split under `root` and its .pth, with the kernels (the f32 counters per
     device batch as the f32 forward's, every bf16 counter 0) and with
     --no_pallas (no launch): both summaries, which agree within
@@ -2219,10 +2300,12 @@ def f32_cli(dev, card, root, vocab, ckpt, batches, sentences):
     from lavt_rs_tpu_torch.cli import test as cli_test
     from lavt_rs_tpu_torch.eval import refcoco_eval
 
-    argv = ["--window12", "--no_bf16", "--img_size", "480",
-            "--refer_data_root", root, "--dataset", "refcoco", "--splitBy",
-            "unc", "--split", "val", "--vocab", vocab, "--checkpoint", ckpt,
-            "--device", str(dev)]
+    argv = ["--window12"] if window12 else []
+    argv += ["--no_bf16", "--img_size", "480",
+             "--refer_data_root", root, "--dataset", "refcoco", "--splitBy",
+             "unc", "--split", "val", "--vocab", vocab, "--checkpoint", ckpt,
+             "--device", str(dev)]
+    window = "window 12" if window12 else "window 7"
     evaluate, seconds = refcoco_eval.evaluate, []
 
     def timed(*a, **kw):
@@ -2233,7 +2316,8 @@ def f32_cli(dev, card, root, vocab, ckpt, batches, sentences):
         seconds.append(time.perf_counter() - t0)
         return out
 
-    per = {f"{k}.f32": n for k, n in INFER_PER_FORWARD.items()}
+    per = {f"{k}.f32": n for k, n in (
+        INFER_PER_FORWARD if window12 else W7_INFER_PER_FORWARD).items()}
     summaries = {}
     refcoco_eval.evaluate = timed
     try:
@@ -2246,23 +2330,31 @@ def f32_cli(dev, card, root, vocab, ckpt, batches, sentences):
             launches = read_counts()
             torch.cuda.empty_cache()
             for line in err.getvalue().splitlines():
-                log(f"cli --no_bf16 ({label}): {line}")
-            check_counts(f"f32 eval ({label})", launches, want, batches)
-            log(f"f32 eval via the CLI ({label}): launches over {batches} "
+                log(f"cli --no_bf16 {window} ({label}): {line}")
+            check_counts(f"f32 eval {window} ({label})", launches, want,
+                         batches)
+            log(f"f32 eval {window} via the CLI ({label}): launches over "
+                f"{batches} "
                 f"batches {nonzero_counts(launches)}; {seconds[-1]:.3f} s, "
                 f"{sentences / seconds[-1]:.2f} sentences/s, "
                 f"{1e3 * seconds[-1] / batches:.3f} ms per device batch  "
                 f"[{card}]")
     finally:
         refcoco_eval.evaluate = evaluate
-    got, plain = summaries["kernels"], summaries["--no_pallas"]
-    log(f"f32 eval summary, kernels:     {got}")
-    log(f"f32 eval summary, --no_pallas: {plain}")
-    log("f32 eval summary differences (kernels - plain): "
+    check_summaries(f"f32 eval {window}", summaries["kernels"],
+                    summaries["--no_pallas"])
+
+
+def check_summaries(what, got, plain):
+    """Two eval summaries (the kernels', --no_pallas's) logged with their
+    differences; mIoU and oIoU within F32_CLI_TOL."""
+    log(f"{what} summary, kernels:     {got}")
+    log(f"{what} summary, --no_pallas: {plain}")
+    log(f"{what} summary differences (kernels - plain): "
         + ", ".join(f"{k} {got[k] - plain[k]:+.5f}" for k in got))
     for k in ("mIoU", "oIoU"):
         if not abs(got[k] - plain[k]) <= F32_CLI_TOL:
-            raise RuntimeError(f"f32 eval: {k} {got[k]} against --no_pallas "
+            raise RuntimeError(f"{what}: {k} {got[k]} against --no_pallas "
                                f"{plain[k]} (limit {F32_CLI_TOL})")
 
 
@@ -2270,7 +2362,10 @@ def f32_phase(dev, card, res, weights, root, vocab, ckpt, batches,
               sentences):
     """Phase 3c: the f32 variants' kernel checks (`f32_kernel_phase`), the
     f32 forward (`f32_inference`) and the test CLI with --no_bf16
-    (`f32_cli`); returns the forward's launch counts."""
+    (`f32_cli`); then phase 3d: K10 f32, its save mode, K9 f32 and K2p f32
+    (`f32_attn_kernel_phase`), window 7's f32 forward and `cli.test
+    --no_bf16` at window 7 on seeded window-7 weights saved beside `ckpt`.
+    Returns the window-12 and the window-7 forwards' launch counts."""
     import torch
 
     t0 = time.perf_counter()
@@ -2280,7 +2375,7 @@ def f32_phase(dev, card, res, weights, root, vocab, ckpt, batches,
         f"{torch.backends.cudnn.allow_tf32} (the plain versions, the library "
         f"chains and the plain f32 model multiply in full f32)")
     f32_kernel_phase(dev, res)
-    for k in F32_NAMES:
+    for k in F32_NAMES[:4]:
         r = res.r[k]
         log(f"{k} per forward: kernel {r['ms']:.3f} ms (on the device, "
             f"launches queued: {r['device']:.3f} ms), bound {r['bound']:.3f} "
@@ -2288,8 +2383,214 @@ def f32_phase(dev, card, res, weights, root, vocab, ckpt, batches,
             f"library chain (f32, TF32 off) {r['lib']:.3f} ms")
     launches = f32_inference(dev, card, weights)
     f32_cli(dev, card, root, vocab, ckpt, batches, sentences)
-    log(f"f32 phase: {time.perf_counter() - t0:.1f} s")
-    return launches
+    log(f"f32 phase (window 12): {time.perf_counter() - t0:.1f} s")
+
+    from lavt_rs_tpu_torch.config import lavt_one_base
+    from lavt_rs_tpu_torch.models.factory import build_model
+
+    t0 = time.perf_counter()
+    f32_attn_kernel_phase(dev, res)
+    for k, per in (("K10.f32/w7", "window-7 bs-8 forward"),
+                   ("K10.f32", "clip"), ("K2p.f32", "clip"),
+                   ("K10s.f32", "video train step"),
+                   ("K9.f32", "video train step")):
+        r = res.r[k]
+        log(f"{k} per {per}: kernel {r['ms']:.3f} ms, bound "
+            f"{r['bound']:.3f} ms ({res.bound_by(k)}), plain (f32) "
+            f"{r['plain']:.3f} ms, library (f32, TF32 off) {r['lib']:.3f} ms")
+    g = torch.Generator(device=dev).manual_seed(SEED + 51)
+    w7 = meaningful(build_model(lavt_one_base(window12=False), dev,
+                                generator=g), dev, g).state_dict()
+    w7_launches = f32_inference(
+        dev, card, w7, lavt_one_base(window12=False, dtype="float32"),
+        W7_INFER_PER_FORWARD, "window-7")
+    ckpt7 = os.path.join(root, "lavt_one_base_window7.pth")
+    torch.save({"model": w7}, ckpt7)
+    del w7
+    f32_cli(dev, card, root, vocab, ckpt7, batches, sentences,
+            window12=False)
+    log(f"f32 phase (window 7, K10 f32, K9 f32, K2p f32): "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launches, w7_launches
+
+
+def f32_attn_kernel_phase(dev, res):
+    """K10 f32, K10 f32's save mode, K9 f32 and K2p f32 on seeded f32
+    inputs at their path shapes against their f32 plain versions within
+    F32_TOL abs + rel, timed beside their bound (PEAK_FLOPS_F32), their
+    plain versions and their f32 library calls (TF32 off: one SDPA over
+    B nW windows for K10, autograd through it for K9; linear / SDPA /
+    linear for K2p):
+      * K10 f32 at the four window-7 shapes of a bs-8 forward, on the qkv
+        Linear's output as the forward runs it (and on contiguous copies):
+        per forward into "K10.f32/w7";
+      * K10 f32 at video stages 2-4 of an 8-frame 480² clip (N = 392, on
+        the qkv Linear's output) and K2p f32 at stage 1 (n_p = 392, no
+        padding in f32; grouped by mask, unshifted and shifted): per clip
+        into "K10.f32" and "K2p.f32";
+      * K10 f32's save mode (O and lse) and K9 f32 (dq, dk, dv, dbias; the
+        masks' window flags; two calls give the same bits) at all four
+        video stages: per training step into "K10s.f32" and "K9.f32".
+    K10 f32's and K9 f32's launch plans are printed at every shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from lavt_rs_tpu_torch.ops import fused_msa
+    from lavt_rs_tpu_torch.ops import window_attn as wa
+    from lavt_rs_tpu_torch.ops.window import (partition_3d_groups,
+                                              relative_bias_from_table,
+                                              relative_bias_from_table_3d,
+                                              relative_position_index_2d,
+                                              relative_position_index_3d,
+                                              shift_mask_2d, shift_mask_3d)
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 50)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    f32 = torch.float32
+
+    def rnd(shape, std=1.0):
+        return torch.randn(shape, generator=g, device=dev) * std
+
+    def check(name, got, want):
+        return compare(name, got, want, F32_TOL)
+
+    def check_all(name, got, want):
+        return max(check(name, a, b) for a, b in zip(got, want))
+
+    def plans(what, b, nw, heads, n):
+        p10 = wa.k10_f32_plan(b * nw, heads, n, sms)
+        p9 = wa.k9_f32_plan(b * nw, heads, n, sms)
+        log(f"K10 f32 / K9 f32 plans {what} ({b}, {nw}, {heads}, {n}) on "
+            f"{sms} SMs: K10 f32 {p10['blocks']} blocks of {p10['threads']} "
+            f"threads, {p10['per_block']} of its {p10['items']} items (64 "
+            f"query rows) a block, {p10['smem']} B; K9 f32 launch 1 "
+            f"{p9['q_blocks']} blocks ({p9['bp']} window strides, "
+            f"{p9['parts']} dbias partials), launch 2 {p9['kv_blocks']} "
+            f"blocks")
+
+    sc = 32 ** -0.5
+    index = torch.from_numpy(relative_position_index_2d(7, 7)).to(dev)
+    for si, (side, c, heads, depth) in enumerate(W7_STAGES):
+        nw = (side // 7) ** 2
+        plans(f"window 7 stage {si + 1}", BATCH, nw, heads, 49)
+        qkv = rnd((BATCH, nw, 49, 3 * heads * 32))
+        q, k, v = (t.contiguous() for t in wa.qkv_heads(qkv, heads))
+        bias = relative_bias_from_table(rnd((13 * 13, heads)), index)
+        for shift in (False, True):
+            mask = shift_mask_2d(side, side, 7, 3, dev) if shift else None
+            am = sdpa_mask(bias, mask, nw, BATCH, f32)
+            what = f"window 7 stage {si + 1} qkv{tuple(qkv.shape)} mask {shift}"
+            measure(res, "K10.f32/w7", what, depth // 2,
+                    lambda m=mask: wa.window_attention_qkv(qkv, bias, m,
+                                                           heads, sc),
+                    lambda m=mask: wa.window_attention_qkv_plain(
+                        qkv, bias, m, heads, sc),
+                    lambda am=am: sdpa_windows(q, k, v, am, sc),
+                    attn_work(BATCH, nw, heads, 49, masked_windows(mask), 4),
+                    check, peak=PEAK_FLOPS_F32)
+            del am
+            err = check("K10.f32/w7",
+                        wa.window_attention(q, k, v, bias, mask, sc),
+                        wa.window_attention_plain(q, k, v, bias, mask, sc))
+            res.r["K10.f32/w7"]["err"] = max(res.r["K10.f32/w7"]["err"], err)
+            log(f"K10.f32/w7 {what}, on contiguous q, k, v: max abs err "
+                f"{err:.3g}")
+        del qkv, q, k, v
+        torch.cuda.empty_cache()
+    index = torch.from_numpy(relative_position_index_3d(8, 7, 7)).to(dev)
+    for si, (side, c, heads, depth) in enumerate(VIDEO_STAGES):
+        hp = -(-side // 7) * 7
+        nw = (hp // 7) ** 2
+        n = 392
+        bias = relative_bias_from_table_3d(rnd((15 * 13 * 13, heads)), index,
+                                           n)
+        shift_mask = shift_mask_3d(FRAMES, hp, hp, (8, 7, 7), (0, 3, 3), dev)
+        plans(f"video stage {si + 1}", 1, nw, heads, n)
+        if si == 0:  # K2p f32: 392 tokens, no padding in f32
+            w = (rnd((3 * c, c), c ** -0.5), rnd((3 * c,), 0.2),
+                 rnd((c, c), c ** -0.5), rnd((c,), 0.2))
+            xw = rnd((1, nw, n, c))
+            for ss in ((0, 0, 0), (0, 3, 3)):
+                nu, mask = partition_3d_groups(FRAMES, side, side, FRAMES, hp,
+                                               hp, (8, 7, 7), ss, n, dev)
+                args = (xw, *w, bias, mask, nu, heads, sc)
+                full = None if mask is None else torch.cat(
+                    [mask.new_zeros((nu, n, n)), mask])
+                am = sdpa_mask(bias, full, nw, dtype=f32)
+
+                def chain(am=am):
+                    qkv = F.linear(xw, w[0], w[1]).view(nw, n, 3, heads, 32)
+                    q_, k_, v_ = qkv.permute(2, 0, 3, 1, 4)
+                    o = F.scaled_dot_product_attention(q_, k_, v_,
+                                                       attn_mask=am, scale=sc)
+                    return F.linear(o.transpose(1, 2).reshape(1, nw, n, c),
+                                    w[2], w[3])
+
+                measure(res, "K2p.f32",
+                        f"stage 1 x{tuple(xw.shape)} heads {heads} nu {nu}", 1,
+                        lambda a=args: fused_msa.fused_window_msa_grouped(*a),
+                        lambda a=args: fused_msa.fused_window_msa_grouped_plain(
+                            *a), chain,
+                        padded_msa_work(1, nw, n, c, heads,
+                                        masked_windows(mask), 4),
+                        check, peak=PEAK_FLOPS_F32)
+                del am, full
+            del xw
+        else:  # K10 f32 on the stage's qkv Linear output
+            qkv = rnd((1, nw, n, 3 * c))
+            q, k, v = (t.contiguous() for t in wa.qkv_heads(qkv, heads))
+            for mask in (None, shift_mask):
+                am = sdpa_mask(bias, mask, nw, dtype=f32)
+                measure(res, "K10.f32", f"video stage {si + 1} "
+                        f"qkv{tuple(qkv.shape)} mask {mask is not None}",
+                        depth // 2,
+                        lambda m=mask: wa.window_attention_qkv(qkv, bias, m,
+                                                               heads, sc),
+                        lambda m=mask: wa.window_attention_qkv_plain(
+                            qkv, bias, m, heads, sc),
+                        lambda am=am: sdpa_windows(q, k, v, am, sc),
+                        attn_work(1, nw, heads, n, masked_windows(mask), 4),
+                        check, peak=PEAK_FLOPS_F32)
+                del am
+            del qkv, q, k, v
+        # training: every stage on K10 f32's save mode and K9 f32
+        q, k, v, do = (rnd((1, nw, heads, n, 32)) for _ in range(4))
+        for mask in (None, shift_mask):
+            masked = masked_windows(mask)
+            am = sdpa_mask(bias, mask, nw, dtype=f32)
+            what = (f"video stage {si + 1} q{tuple(q.shape)} mask "
+                    f"{mask is not None}")
+            measure(res, "K10s.f32", what, depth // 2,
+                    lambda m=mask: wa.window_attention_save(q, k, v, bias, m,
+                                                            sc),
+                    lambda m=mask: wa.window_attention_save_plain(
+                        q, k, v, bias, m, sc),
+                    lambda am=am: F.scaled_dot_product_attention(
+                        q[0], k[0], v[0], attn_mask=am, scale=sc),
+                    attn_save_work(1, nw, heads, n, masked, 4), check_all,
+                    peak=PEAK_FLOPS_F32)
+            del am
+            o, lse = wa.window_attention_save(q, k, v, bias, mask, sc)
+
+            def sdpa_chain(q_, k_, v_, b_, mask=mask, nw=nw):
+                return F.scaled_dot_product_attention(
+                    q_[0], k_[0], v_[0],
+                    attn_mask=sdpa_mask(b_, mask, nw, dtype=f32), scale=sc)
+
+            def k9(mask=mask, o=o, lse=lse, flags=wa.mask_flags(mask)):
+                return wa.attention_core_bwd(q, k, v, bias, mask, do, sc, o,
+                                             lse, flags)
+
+            measure(res, "K9.f32", what, depth // 2, k9,
+                    lambda m=mask, o=o: wa.attention_core_bwd_plain(
+                        q, k, v, bias, m, do, sc, o),
+                    chain_grad(sdpa_chain, (q, k, v, bias), do[0]),
+                    attn_bwd_work(1, nw, heads, n, masked, 4), check_all,
+                    peak=PEAK_FLOPS_F32)
+            check_deterministic(f"K9 f32 {what}", k9)
+            del o, lse
+        del q, k, v, do, shift_mask
+        torch.cuda.empty_cache()
 
 
 def train_setup(dev, weights, cfg=None):
@@ -2800,42 +3101,42 @@ def masked_windows(mask):
     return 0 if mask is None else int((mask != 0).flatten(1).any(1).sum())
 
 
-def attn_work(b, nw, heads, n, masked=0):
+def attn_work(b, nw, heads, n, masked=0, item=2):
     """K10: q kᵀ and P v (4 N² hd flops per window and head); bytes: q, k,
-    v and O in bf16, the f32 bias and the f32 mask of the `masked` windows
-    whose mask is not all zero."""
+    v and O in bf16 (f32 for K10 f32: item 4), the f32 bias and the f32
+    mask of the `masked` windows whose mask is not all zero."""
     hd = 32
     m = b * nw * heads
     return (4 * m * n * n * hd,
-            4 * m * n * hd * 2 + heads * n * n * 4 + masked * n * n * 4)
+            4 * m * n * hd * item + heads * n * n * 4 + masked * n * n * 4)
 
 
-def attn_save_work(b, nw, heads, n, masked=0):
+def attn_save_work(b, nw, heads, n, masked=0, item=2):
     """K10's save mode: K10's work plus each row's f32 lse written."""
-    flops, nbytes = attn_work(b, nw, heads, n, masked)
+    flops, nbytes = attn_work(b, nw, heads, n, masked, item)
     return flops, nbytes + b * nw * heads * n * 4
 
 
-def attn_bwd_work(b, nw, heads, n, masked=0):
+def attn_bwd_work(b, nw, heads, n, masked=0, item=2):
     """K9: five N x N x hd products (10 N² hd flops) per window and head;
-    bytes: q, k, v, o, do read and dq, dk, dv written in bf16, the f32 lse
-    read, the f32 bias read and dbias written, and the f32 mask of the
-    `masked` windows whose mask is not all zero."""
+    bytes: q, k, v, o, do read and dq, dk, dv written in bf16 (f32 for K9
+    f32: item 4), the f32 lse read, the f32 bias read and dbias written,
+    and the f32 mask of the `masked` windows whose mask is not all zero."""
     hd = 32
     m = b * nw * heads
     return (10 * m * n * n * hd,
-            8 * m * n * hd * 2 + m * n * 4 + 2 * heads * n * n * 4
+            8 * m * n * hd * item + m * n * 4 + 2 * heads * n * n * 4
             + masked * n * n * 4)
 
 
-def padded_msa_work(b, nw, n, c, heads, masked):
+def padded_msa_work(b, nw, n, c, heads, masked, item=2):
     """K2p at the real token count n (the function needs none of the
     padding): the qkv and out-projection GEMMs (8 rows C²) and 4 n² hd per
-    window and head; bytes: x in, y out, the weights, the bias and the mask
-    of the `masked` windows."""
+    window and head; bytes: x in, y out, the weights (bf16, or f32 for K2p
+    f32: item 4), the bias and the mask of the `masked` windows."""
     rows = b * nw * n
     flops = 8 * rows * c * c + 4 * b * nw * heads * n * n * 32
-    nbytes = (2 * rows * c * 2 + 4 * c * c * 2 + 4 * c * 2
+    nbytes = ((2 * rows * c + 4 * c * c + 4 * c) * item
               + heads * n * n * 4 + masked * n * n * 4)
     return flops, nbytes
 
@@ -3267,33 +3568,37 @@ def a2d_examples():
     return out
 
 
-def a2d_phase(dev, card, ckpt):
-    """`cli.test --dataset a2d` (lavt_video_tiny, bf16, the kernels) in
-    process on A2D_CLIPS in-memory A2D_CLIP-frame 480² clips, with the
-    video phase's weights as --checkpoint: launches per clip equal to
-    `kernel_plan(cfg, CLI_IMG, A2D_CLIP)`, ms per clip (the CLI's cold run and
-    a warm rerun of `evaluate_a2d`), clips/s, frames/s, peak memory, one
-    clip's idle share (`torch.profiler`), and the annotated frame against
-    the f32 plain model by the pixel gate."""
+def timed_evaluate(evaluate, model, *a, **kw):
+    """evaluate(model, ...) on synchronized host clocks: (its return value,
+    (model, seconds, the launches it made))."""
+    import torch
+
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    out = evaluate(model, *a, **kw)
+    torch.cuda.synchronize()
+    return out, (model, time.perf_counter() - t0, read_counts())
+
+
+def a2d_cli(dev, ckpt, examples, extra=(), label="a2d"):
+    """`cli.test --dataset a2d` with the A2D recipe's flags (and `extra`)
+    in process on the in-memory `examples` at A2D_CLIP frames, CLI_IMG²,
+    --checkpoint ckpt: (its summary, (the CLI's model, its evaluate's
+    seconds, the launches), the peak device memory in GiB); the CLI's
+    stderr logged."""
     import torch
 
     from lavt_rs_tpu_torch.cli import test as cli_test
-    from lavt_rs_tpu_torch.data.loader import to_device
     from lavt_rs_tpu_torch.eval import video_eval
-    from lavt_rs_tpu_torch.models.factory import build_model
 
-    examples = a2d_examples()
     dataset, evaluate = cli_test.a2d_dataset, video_eval.evaluate_a2d
     runs = []
 
-    def counted(model, ds, **kw):
-        torch.cuda.synchronize()
-        zero_counts()
-        t0 = time.perf_counter()
-        summary = evaluate(model, ds, **kw)
-        torch.cuda.synchronize()
-        runs.append((model, time.perf_counter() - t0, read_counts()))
-        return summary
+    def counted(*a, **kw):
+        out, run = timed_evaluate(evaluate, *a, **kw)
+        runs.append(run)
+        return out
 
     gc_cuda()
     torch.cuda.reset_peak_memory_stats()
@@ -3305,21 +3610,37 @@ def a2d_phase(dev, card, ckpt):
             summary = cli_test.main(list(VIDEO_RECIPE) + [
                 "--dataset", "a2d", "--split", "val", "--clip_length",
                 str(A2D_CLIP), "--img_size", str(CLI_IMG), "--device", str(dev),
-                "--checkpoint", ckpt])
+                "--checkpoint", ckpt, *extra])
     finally:
         cli_test.a2d_dataset, video_eval.evaluate_a2d = dataset, evaluate
     peak = torch.cuda.max_memory_allocated() / 2**30
     for line in err.getvalue().splitlines():
-        log(f"test cli (a2d): {line}")
-    model, cold, launches = runs[0]
+        log(f"test cli ({label}): {line}")
+    return summary, runs[0], peak
+
+
+def a2d_phase(dev, card, ckpt):
+    """`cli.test --dataset a2d` (lavt_video_tiny, bf16, the kernels) in
+    process on A2D_CLIPS in-memory A2D_CLIP-frame 480² clips, with the
+    video phase's weights as --checkpoint: launches per clip equal to
+    `kernel_plan(cfg, CLI_IMG, A2D_CLIP)`, ms per clip (the CLI's cold run and
+    a warm rerun of `evaluate_a2d`), clips/s, frames/s, peak memory, one
+    clip's idle share (`torch.profiler`), and the annotated frame against
+    the f32 plain model by the pixel gate."""
+    from lavt_rs_tpu_torch.data.loader import to_device
+    from lavt_rs_tpu_torch.eval import video_eval
+    from lavt_rs_tpu_torch.models.factory import build_model
+
+    examples = a2d_examples()
+    summary, (model, cold, launches), peak = a2d_cli(dev, ckpt, examples)
     cfg = model.cfg
     plan = kernel_plan(cfg, CLI_IMG, A2D_CLIP)[0]
     log(f"A2D launches over {A2D_CLIPS} {A2D_CLIP}-frame clips: "
         f"{nonzero_counts(launches)}; kernel_plan(cfg, {CLI_IMG}, {A2D_CLIP}) per "
         f"clip: {plan}")
     check_counts("A2D eval", launches, plan, A2D_CLIPS)
-    counted(model, examples)
-    warm, launches = runs[1][1:]
+    _, (_, warm, launches) = timed_evaluate(video_eval.evaluate_a2d, model,
+                                            examples)
     check_counts("A2D eval (warm)", launches, plan, A2D_CLIPS)
     log(f"A2D via cli.test --model lavt_video --dataset a2d (lavt_video_tiny "
         f"bf16, the kernels, {A2D_CLIPS} {A2D_CLIP}-frame {CLI_IMG}² clips): "
@@ -3347,6 +3668,52 @@ def a2d_phase(dev, card, ckpt):
         f"vs f32 plain route, max |dlogit| "
         f"{(got - want).abs().max().item():.4g}, argmax agreement "
         f"{agree:.5f} on the pixels of f32 margin > {MARGIN}")
+    gc_cuda()
+
+
+def a2d_f32_phase(dev, card, ckpt):
+    """`cli.test --dataset a2d --no_bf16` (lavt_video_tiny in f32: K2p f32
+    at stage 1, K10 f32 in the other blocks) in process on F32_A2D_CLIPS of
+    the in-memory A2D_CLIP-frame clips with the video phase's weights, and
+    with --no_pallas (the plain f32 route): launches per clip equal to the
+    plan at itemsize 4 (none on the plain route), both summaries within
+    F32_CLI_TOL on mIoU and oIoU, ms per clip of each run, and the first
+    clip's annotated frame against the plain route's by the pixel gate and
+    the f32 gate."""
+    from lavt_rs_tpu_torch.data.loader import to_device
+    from lavt_rs_tpu_torch.eval import video_eval
+
+    examples = a2d_examples()[:F32_A2D_CLIPS]
+    n = len(examples)
+    runs = {}
+    for label, extra in (("kernels", ["--no_bf16"]),
+                         ("--no_pallas", ["--no_bf16", "--no_pallas"])):
+        summary, (model, seconds, launches), peak = a2d_cli(
+            dev, ckpt, examples, extra, f"a2d --no_bf16, {label}")
+        want = {}
+        if label == "kernels":
+            want = {f"{k}.f32": v for k, v in
+                    kernel_plan(model.cfg, CLI_IMG, A2D_CLIP)[0].items()}
+        check_counts(f"f32 A2D eval ({label})", launches, want, n)
+        log(f"f32 A2D via cli.test --dataset a2d --no_bf16 ({label}, {n} "
+            f"{A2D_CLIP}-frame {CLI_IMG}² clips): launches "
+            f"{nonzero_counts(launches)}; {1e3 * seconds / n:.1f} ms/clip, "
+            f"{A2D_CLIP * n / seconds:.1f} frames/s (host clock, the CLI's "
+            f"run); peak device memory {peak:.2f} GiB  [{card}]")
+        runs[label] = (summary, model)
+    check_summaries("f32 A2D eval", runs["kernels"][0],
+                    runs["--no_pallas"][0])
+    ex = examples[0]
+    clip = [to_device(a, dev) for a in (ex.video, ex.ids, ex.mask)]
+    v = ex.valid_index
+    got, want = (video_eval.clip_logits(runs[k][1], *clip)[v:v + 1]
+                 for k in ("kernels", "--no_pallas"))
+    del runs
+    agree = gate_pixels(f"f32 A2D {A2D_CLIP}-frame clip", got, want,
+                        (1, CLI_IMG, CLI_IMG, 2))
+    f32_gate(f"f32 A2D {A2D_CLIP}-frame clip, annotated frame {v} (argmax "
+             f"agreement {agree:.5f} where the margin exceeds {MARGIN})",
+             got, want)
     gc_cuda()
 
 
@@ -3455,7 +3822,7 @@ def read_masks(out):
     return got
 
 
-def ytvos_phase(dev, card, ckpt):
+def ytvos_phase(dev, card, ckpt, f32=False):
     """`cli.test_ytvos.main` in process on YTVOS_VIDEOS (whole videos of 20
     and 13 frames, YTVOS_EXPRESSIONS expressions each, originals of 720x1280
     and 360x640), with the video phase's weights as --checkpoint: unchunked
@@ -3467,7 +3834,10 @@ def ytvos_phase(dev, card, ckpt):
     Prints ms per video, frames/s, the host's seconds (decode in the
     producer thread, the loop's wait on it, PNG writes), the device's idle
     share over the unchunked loop (a rerun under torch.profiler), and the
-    chunked run's agreement with the unchunked one (not gated)."""
+    chunked run's agreement with the unchunked one (not gated).  With f32:
+    the unchunked run with --no_bf16 (K2p f32, K10 f32) and the plain f32
+    route only, every forward held to the plain route's by the pixel gate
+    and the f32 gate."""
     import tempfile
 
     import numpy as np
@@ -3528,10 +3898,11 @@ def ytvos_phase(dev, card, ckpt):
                 log(f"test_ytvos cli ({what}): {line}")
             launches = nonzero_counts(read_counts())
             want = {}
+            suffix = ".f32" if "--no_bf16" in extra else ""
             if plain[0] not in extra:
                 for t in lengths:
                     for k, n in kernel_plan(cfg, CLI_IMG, t)[0].items():
-                        want[k] = want.get(k, 0) + n
+                        want[k + suffix] = want.get(k + suffix, 0) + n
             if launches != want:
                 raise RuntimeError(f"YTVOS {what}: launches {launches}, the "
                                    f"kernel plan over forwards of {lengths} "
@@ -3559,6 +3930,21 @@ def ytvos_phase(dev, card, ckpt):
                 f"sizes; peak {peak:.2f} GiB  [{card}]")
             return masks, logits, lengths
 
+        if f32:
+            _, got, lengths = run(["--no_bf16"], "f32 unchunked")
+            _, want, plain_lengths = run(plain, "plain f32")
+            if lengths != plain_lengths:
+                raise RuntimeError(f"YTVOS f32: the plain route's forwards "
+                                   f"{plain_lengths} are not the kernel "
+                                   f"route's {lengths}")
+            for i, (g, w, t) in enumerate(zip(got, want, lengths)):
+                agree = gate_pixels(f"YTVOS f32 forward {i}", g, w, w.shape)
+                f32_gate(f"YTVOS f32 forward {i} ({t} frames; argmax "
+                         f"agreement {agree:.5f} where the margin exceeds "
+                         f"{MARGIN})", g, w)
+            del got, want
+            gc_cuda()
+            return
         full, got, lengths = run([], "unchunked")
         cut, got_cut, lengths_cut = run(chunked, "chunked 8 + halo 8")
         _, want, plain_lengths = run(plain, "plain f32")
@@ -3773,14 +4159,16 @@ def video_training_gate(dev, weights):
     return cos[worst]
 
 
-def video_training(dev, card, weights):
+def video_training(dev, card, weights, cfg=None, per_step=None,
+                   ckpt_per_step=None, what="video"):
     """lavt_video_tiny's training step (`make_video_train_step`: uint8 clip
     normalized on the card, forward with DropPath 0.1 and BERT dropout 0.1,
-    the loss on the annotated frame, backward, AdamW, poly LR): a warm-up
-    step, then TRAIN_STEPS timed steps on one clip with the generator
-    reseeded every step (launch counts, ms/step, clips/s, peak memory, the
-    loss must fall), then one step under torch.profiler.  Returns the
-    launch counts."""
+    the loss on the annotated frame, backward, AdamW, poly LR; `cfg`, bf16
+    by default): a warm-up step, then TRAIN_STEPS timed steps on one clip
+    with the generator reseeded every step (launch counts `per_step`,
+    ms/step, clips/s, peak memory, the loss must fall), then one step under
+    torch.profiler and one with --use_checkpoint (`ckpt_per_step`).
+    Returns the launch counts."""
     import torch
 
     from lavt_rs_tpu_torch.config import lavt_video_tiny
@@ -3789,7 +4177,11 @@ def video_training(dev, card, weights):
     from lavt_rs_tpu_torch.train.step import (create_train_state,
                                               make_video_train_step)
 
-    model = build_model(lavt_video_tiny(), dev, train=True)
+    cfg = lavt_video_tiny() if cfg is None else cfg
+    per_step = VIDEO_TRAIN_PER_STEP if per_step is None else per_step
+    ckpt_per_step = (VIDEO_CKPT_PER_STEP if ckpt_per_step is None
+                     else ckpt_per_step)
+    model = build_model(cfg, dev, train=True)
     model.load_state_dict(weights)
     tcfg = TrainConfig()
     step = make_video_train_step(model, *create_train_state(model, tcfg), tcfg)
@@ -3802,7 +4194,7 @@ def video_training(dev, card, weights):
     t0 = time.perf_counter()
     step(batch, gen())
     torch.cuda.synchronize()
-    log(f"video train step, first (warm-up): "
+    log(f"{what} train step, first (warm-up): "
         f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
@@ -3814,22 +4206,23 @@ def video_training(dev, card, weights):
     torch.cuda.synchronize()
     launches = read_counts()
     ms = start.elapsed_time(end) / TRAIN_STEPS
-    log(f"video train launches over {TRAIN_STEPS} steps: {launches}")
-    check_counts("video train", launches, VIDEO_TRAIN_PER_STEP, TRAIN_STEPS)
+    log(f"{what} train launches over {TRAIN_STEPS} steps: "
+        f"{nonzero_counts(launches)}")
+    check_counts(f"{what} train", launches, per_step, TRAIN_STEPS)
     losses = [o["loss"].item() for o in outs]
     if not all(math.isfinite(v) for v in losses):
-        raise RuntimeError(f"non-finite video training loss: {losses}")
-    log(f"video train step, one 8-frame 480² clip, bf16 (kernels, AdamW, "
+        raise RuntimeError(f"non-finite {what} training loss: {losses}")
+    log(f"{what} train step, one 8-frame 480² clip, {cfg.dtype} (kernels, AdamW, "
         f"DropPath 0.1, BERT dropout 0.1): {ms:.3f} ms/step, "
         f"{1000 / ms:.3f} clips/s (mean of {TRAIN_STEPS} steps); peak device "
         f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  [{card}]")
-    log(f"video loss over {TRAIN_STEPS} steps on one clip (dropout reseeded "
+    log(f"{what} loss over {TRAIN_STEPS} steps on one clip (dropout reseeded "
         f"each step): first {losses[0]:.6f}, last {losses[-1]:.6f}; all "
         f"{[round(v, 6) for v in losses]}; iou {outs[-1]['iou'].item():.4f}, "
         f"lr {outs[-1]['lr']:.6g}")
     if not losses[-1] < losses[0]:
-        raise RuntimeError("the video training loss did not fall")
-    profile_clip(lambda: step(batch, gen()), card, "video train step")
+        raise RuntimeError(f"the {what} training loss did not fall")
+    profile_clip(lambda: step(batch, gen()), card, f"{what} train step")
     peak = {}
 
     def one_step(stp):
@@ -3848,26 +4241,133 @@ def video_training(dev, card, weights):
     torch.cuda.empty_cache()
     # --use_checkpoint: every 3D block recomputed in the backward (K10's save
     # mode twice a step); the last stage skips its language gate
-    model = build_model(lavt_video_tiny().replace(use_checkpoint=True), dev,
-                        train=True)
+    model = build_model(cfg.replace(use_checkpoint=True), dev, train=True)
     missing, unexpected = model.load_state_dict(weights, strict=False)
     if missing or any(".res_gate." not in k for k in unexpected):
         raise RuntimeError(f"video checkpoint model: missing {missing}, "
                            f"unexpected {unexpected}")
     step = make_video_train_step(model, *create_train_state(model, tcfg), tcfg)
     peak["on"], ck_launches, out = one_step(step)
-    log(f"video train step with --use_checkpoint: launches {ck_launches}, "
-        f"loss {out['loss'].item():.6f}; peak device memory "
-        f"{peak['on'] / 2**30:.3f} GiB against {peak['off'] / 2**30:.3f} GiB "
-        f"without it  [{card}]")
-    check_counts("video train --use_checkpoint", ck_launches,
-                 VIDEO_CKPT_PER_STEP, 1)
+    log(f"{what} train step with --use_checkpoint: launches "
+        f"{nonzero_counts(ck_launches)}, loss {out['loss'].item():.6f}; peak "
+        f"device memory {peak['on'] / 2**30:.3f} GiB against "
+        f"{peak['off'] / 2**30:.3f} GiB without it  [{card}]")
+    check_counts(f"{what} train --use_checkpoint", ck_launches,
+                 ckpt_per_step, 1)
     if not peak["on"] < peak["off"]:
-        raise RuntimeError("--use_checkpoint did not lower the video training "
-                           "step's peak memory")
+        raise RuntimeError(f"--use_checkpoint did not lower the {what} "
+                           f"training step's peak memory")
     del model, step
     torch.cuda.empty_cache()
     return launches
+
+
+# -- the f32 video paths: --no_bf16 with the kernels ------------------------------
+
+def video_f32(dev, card, weights):
+    """lavt_video_tiny in f32 with the kernels (K2p f32 at stage 1, K10 f32
+    in the ten other blocks) on the video phase's weights: N_CLIPS 8-frame
+    480² clips through `clip_iou` (the f32 counters equal the plan at
+    itemsize 4, every bf16 counter 0), one clip against the plain f32
+    model by the pixel gate and the f32 gate, ms a clip beside the plain
+    model's, one clip under torch.profiler.  Returns the launch counts."""
+    import torch
+
+    from lavt_rs_tpu_torch.config import lavt_video_tiny
+    from lavt_rs_tpu_torch.eval.video_eval import clip_iou
+    from lavt_rs_tpu_torch.models.factory import build_model
+    from lavt_rs_tpu_torch.ops.norm import maybe_normalize_image
+
+    cfg = lavt_video_tiny(dtype="float32")
+    plan = kernel_plan(cfg, 480, FRAMES)[0]
+    per = {f"{k}.f32": n for k, n in plan.items()}
+    if per != F32_VIDEO_PER_CLIP:
+        raise RuntimeError(f"f32 clip: the kernel plan at itemsize 4 is "
+                           f"{plan}, not {F32_VIDEO_PER_CLIP}")
+    model = build_model(cfg, dev)
+    model.load_state_dict(weights)
+    g = torch.Generator(device=dev).manual_seed(SEED + 13)
+    reqs = clips(dev, g, N_CLIPS)
+    zero_counts()
+    results = [clip_iou(model, *r) for r in reqs]
+    torch.cuda.synchronize()
+    launches = read_counts()
+    log(f"f32 video launches over {N_CLIPS} clips: "
+        f"{nonzero_counts(launches)} (the plan at itemsize 4: {plan} a clip)")
+    check_counts("f32 video", launches, per, N_CLIPS)
+    for inter, union in results:
+        if not (bool(torch.isfinite(union))
+                and 0 <= inter.item() <= union.item()):
+            raise RuntimeError(f"f32 clip_iou: bad inter/union {inter}, "
+                               f"{union}")
+    video_u8, ids, mask, valid, _ = reqs[0]
+    clip = maybe_normalize_image(video_u8)[None]
+
+    def fwd(m):
+        return lambda: m(clip, ids[None], mask[None])
+
+    ref = build_model(cfg.replace(use_kernels=False), dev)
+    ref.load_state_dict(weights)
+    with torch.no_grad():
+        got, want = fwd(model)()[valid:valid + 1], fwd(ref)()[valid:valid + 1]
+        agree = gate_pixels("f32 clip", got, want, (1, 480, 480, 2))
+        f32_gate(f"f32 clip, annotated frame {valid} (argmax agreement "
+                 f"{agree:.5f} where the margin exceeds {MARGIN})", got, want)
+        del got, want
+        iters, plain_iters = 10, 3
+        ms = cuda_time_ms(fwd(model), iters=iters, warmup=2)
+        plain_ms = cuda_time_ms(fwd(ref), iters=plain_iters, warmup=1)
+        del ref
+        log(f"f32 video forward, one 8-frame 480² clip with the kernels: "
+            f"{ms:.3f} ms/clip, {FRAMES * 1000 / ms:.2f} frames/s (mean of "
+            f"{iters}); the plain f32 model (TF32 off): {plain_ms:.3f} "
+            f"ms/clip, {FRAMES * 1000 / plain_ms:.2f} frames/s (mean of "
+            f"{plain_iters})  [{card}]")
+        profile_clip(fwd(model), card, "f32 video clip")
+    del model
+    gc_cuda()
+    return launches
+
+
+def video_training_gate_f32(dev, weights):
+    """The f32 video train step's gate: one forward + backward of
+    lavt_video_tiny in f32 with the kernels (K10 f32's save mode and K9 f32
+    in every 3D block) and of the plain f32 route from the same weights,
+    clip and generator seed, DropPath, dropout and BatchNorm's batch
+    statistics on as in the step: the losses within F32_LOSS_RTOL, every
+    3D block's parameter gradients (relative-position tables included)
+    with cosine >= F32_MIN_COS."""
+    import torch
+
+    from lavt_rs_tpu_torch.config import lavt_video_tiny
+
+    batch = video_train_batch(
+        dev, torch.Generator(device=dev).manual_seed(SEED + 25))
+    seed = SEED + 26
+    cfg = lavt_video_tiny(dtype="float32")
+    ref_loss, ref = gate_run(dev, cfg.replace(use_kernels=False), weights,
+                             True, batch, seed)
+    zero_counts()
+    loss, got = gate_run(dev, cfg, weights, True, batch, seed)
+    launches = read_counts()
+    check_counts("f32 video gate", launches, F32_VIDEO_TRAIN_PER_STEP, 1)
+    rel = abs(loss - ref_loss) / abs(ref_loss)
+    cos = block_cosines(got, ref)
+    del got, ref
+    if len(cos) != 12:
+        raise RuntimeError(f"f32 video gate: {len(cos)} blocks, expected 12")
+    worst = min(cos, key=cos.get)
+    log(f"f32 video training gate (DropPath, dropout, BN batch statistics): "
+        f"loss kernels {loss:.8f}, plain f32 route {ref_loss:.8f}, rel diff "
+        f"{rel:.3g} (limit {F32_LOSS_RTOL}); 12 3D blocks, worst gradient "
+        f"cosine {cos[worst]:.7f} ({worst}, limit {F32_MIN_COS}); launches "
+        f"{nonzero_counts(launches)}")
+    if rel > F32_LOSS_RTOL:
+        raise RuntimeError(f"f32 video gate: loss rel diff {rel:.4g} > "
+                           f"{F32_LOSS_RTOL}")
+    if cos[worst] < F32_MIN_COS:
+        raise RuntimeError(f"f32 video gate: cosine {cos[worst]:.7f} < "
+                           f"{F32_MIN_COS}")
 
 
 # -- window 7, the routing cases, the new widths and the probe -------------------
@@ -4239,9 +4739,9 @@ def routing_video(dev, card):
 
 def f32_refusal(dev):
     """f32 activations with the kernels on the card where a kernel of the
-    plan has no f32 variant (window-7 inference: K10; window-12 training:
-    K2, K4b, K5, K7, K8): build_model raises, naming them, before it
-    allocates a weight or launches a kernel."""
+    plan has no f32 variant (lavt_one training: K4b, K7, K8 at window 7,
+    also K2 and K5 at window 12): build_model raises, naming them, before
+    it allocates a weight or launches a kernel."""
     import torch
 
     from lavt_rs_tpu_torch.config import lavt_one_base
@@ -4249,8 +4749,8 @@ def f32_refusal(dev):
                                                   kernels_without_variant)
 
     for what, cfg, train in (
-            ("window-7 inference", lavt_one_base(window12=False,
-                                                 dtype="float32"), False),
+            ("window-7 training", lavt_one_base(window12=False,
+                                                dtype="float32"), True),
             ("window-12 training", lavt_one_base(dtype="float32"), True)):
         missing = kernels_without_variant(cfg, train)
         torch.cuda.synchronize()
@@ -4594,8 +5094,8 @@ def main():
         log(f"eval done at {time.perf_counter() - t_start:.1f} s")
 
         # -- f32 inference main path: --no_bf16 with the kernels ---------------
-        f32_launches = f32_phase(dev, card, res, weights, root, vocab, ckpt,
-                                 batches, sentences)
+        f32_launches, f32_w7_launches = f32_phase(
+            dev, card, res, weights, root, vocab, ckpt, batches, sentences)
         torch.cuda.empty_cache()
         log(f"f32 phase done at {time.perf_counter() - t_start:.1f} s")
 
@@ -4616,6 +5116,13 @@ def main():
         ytvos_phase(dev, card, ckpt)
         log(f"YTVOS inference done at {time.perf_counter() - t_start:.1f} s")
 
+        # -- the f32 video paths: a clip, A2D and YTVOS with --no_bf16 ----------
+        f32_video_launches = video_f32(dev, card, video_weights)
+        a2d_f32_phase(dev, card, ckpt)
+        ytvos_phase(dev, card, ckpt, f32=True)
+        log(f"f32 video inference done at "
+            f"{time.perf_counter() - t_start:.1f} s")
+
     # -- video training main path (its kernel phases first) ------------------------
     video_train_kernel_phases(dev, res)
     for k in ("K10s", "K9"):
@@ -4627,8 +5134,18 @@ def main():
     video_training_gate(dev, video_weights)
     torch.cuda.empty_cache()
     video_train_launches = video_training(dev, card, video_weights)
-    del video_weights
     log(f"video training done at {time.perf_counter() - t_start:.1f} s")
+    # -- the f32 video train step ------------------------------------------------
+    from lavt_rs_tpu_torch.config import lavt_video_tiny
+
+    video_training_gate_f32(dev, video_weights)
+    gc_cuda()
+    f32_video_train_launches = video_training(
+        dev, card, video_weights, lavt_video_tiny(dtype="float32"),
+        F32_VIDEO_TRAIN_PER_STEP, F32_VIDEO_CKPT_PER_STEP, "f32 video")
+    del video_weights
+    gc_cuda()
+    log(f"f32 video training done at {time.perf_counter() - t_start:.1f} s")
 
     # -- training main path ----------------------------------------------------
     training_gate(dev, weights)
@@ -4647,7 +5164,7 @@ def main():
     log(f"train CLI done at {time.perf_counter() - t_start:.1f} s")
 
     # -- window 7: lavt_one_base(window12=False), the CLI's default --------------
-    from lavt_rs_tpu_torch.config import lavt_one_tiny, lavt_video_tiny
+    from lavt_rs_tpu_torch.config import lavt_one_tiny
     from lavt_rs_tpu_torch.models.factory import build_model, make_config
 
     w7cfg = lavt_one_base(window12=False)
@@ -4725,7 +5242,11 @@ def main():
     launches.update({k: video_launches[k] for k in ("K10", "K2p")})
     launches["K9"] = video_train_launches["K9"]
     launches.update({k: probe_launches[k] for k in ("P1", "P2")})
-    launches.update({k: f32_launches[k] for k in F32_NAMES})
+    launches.update({k: f32_launches[k] for k in F32_NAMES[:4]})
+    launches["K10.f32/w7"] = f32_w7_launches["K10.f32"]
+    launches.update({k: f32_video_launches[k] for k in ("K10.f32", "K2p.f32")})
+    launches["K10s.f32"] = f32_video_train_launches["K10.f32"]
+    launches["K9.f32"] = f32_video_train_launches["K9.f32"]
     # the window-7 main path's K10 (per forward) and K9 (per training step)
     launches["K10/w7"], launches["K9/w7"] = w7_infer["K10"], w7_train["K9"]
     SOURCES.update({"K10/w7": SOURCES["K10"], "K9/w7": SOURCES["K9"]})

@@ -114,9 +114,10 @@ def add_model_args(p: argparse.ArgumentParser):
                    help="bf16 compute (default)")
     p.add_argument("--no_bf16", dest="bf16", action="store_false",
                    help="f32 activations: on the card with the kernels "
-                        "at --window12 inference (K1, K11, K3, K4 have f32 "
-                        "variants); window 7, lavt_video and training in "
-                        "f32 need --no_pallas or --device cpu")
+                        "for inference (lavt_one at windows 12 and 7, "
+                        "lavt_video) and lavt_video training (K1, K11, K3, "
+                        "K4, K10, K2p, K9 have f32 variants); lavt_one "
+                        "training in f32 needs --no_pallas or --device cpu")
     p.add_argument("--use_amp", dest="bf16", action="store_true",
                    help="reference alias for bf16 compute")
     p.add_argument("--no_pallas", action="store_true",

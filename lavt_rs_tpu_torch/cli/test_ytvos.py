@@ -29,6 +29,11 @@ card while the current one's forwards run; the resize and the argmax run
 on the card, and only uint8 masks come back.  --max_videos caps the
 count; --pipeline_depth sets the videos in flight.  --visualize (mask
 overlays) is ROADMAP.md item 27 and raises.
+
+`--no_bf16` runs the video in f32 on the card with the kernels' f32
+variants (K2p f32 at stage 1, K10 f32 in the other blocks; lavt_one's
+frame batches on K1/K11 or K10 f32 with K3 f32 and K4 f32); only lavt_one
+training in f32 is refused with the kernels.
 """
 
 from __future__ import annotations

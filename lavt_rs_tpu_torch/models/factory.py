@@ -3,10 +3,11 @@
 `lavt_one` and `lavt_video` (inference and training) are ported; every
 other family raises NotImplementedError naming the ROADMAP.md slice that
 ports it.  f32 activations with the kernels on the card run where every
-kernel of the model's plan has an f32 variant (K1, K11, K3, K4: window-12
-`lavt_one` inference); elsewhere (window 7's K10, `lavt_video`'s K2p and
-K10, every training kernel) `build_model` refuses them, naming the
-missing variants, before a weight is allocated.
+kernel of the model's plan has an f32 variant (K1, K11, K3, K4, K10 in
+both modes, K2p, K9: `lavt_one` inference at windows 12 and 7,
+`lavt_video` inference and training); elsewhere (`lavt_one` training: K2,
+the save mode's K5 / K6, K4b, K7, K8) `build_model` refuses them, naming
+the missing variants, before a weight is allocated.
 """
 
 from __future__ import annotations
@@ -70,8 +71,10 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
 
 
 # the kernels with an f32 variant (ops: fused_window_msa_ln_f32,
-# fused_window_msa_2d_f32, fused_ln_mlp_f32, layer_norm_rows_f32)
-F32_KERNELS = frozenset({"K1", "K11", "K3", "K4"})
+# fused_window_msa_2d_f32, fused_ln_mlp_f32, layer_norm_rows_f32,
+# window_attention_f32 with its save mode, fused_window_msa_grouped_f32,
+# attention_core_bwd_f32)
+F32_KERNELS = frozenset({"K1", "K11", "K3", "K4", "K10", "K2p", "K9"})
 
 
 def kernels_without_variant(cfg: ModelConfig, train: bool = False) -> list:
@@ -120,9 +123,10 @@ def build_model(cfg: ModelConfig, device="cuda",
             f"{'training' if train else 'inference'} plan launches "
             f"{', '.join(missing)}, with no {cfg.dtype} variant yet "
             "(ROADMAP.md queue 2, "
-            "\"f32 kernel variants\"; f32 has K1, K11, K3 and K4: window-12 "
-            "lavt_one inference).  Use bf16, or the plain versions "
-            "(use_kernels=False, --no_pallas), or the CPU")
+            "\"f32 kernel variants\"; f32 has K1, K11, K3, K4, K10, K2p and "
+            "K9: lavt_one inference, lavt_video inference and training).  "
+            "Use bf16, or the plain versions (use_kernels=False, "
+            "--no_pallas), or the CPU")
     with torch.device(device):
         model = _MODELS[cfg.name](cfg)
     if generator is not None:

@@ -15,7 +15,8 @@ kernel on a CUDA tensor (its plain version on a CPU tensor):
   * the grouped padded route, in eval mode, where the JAX package's
     `fused3d_grouped_routed` holds (ported in `ops/fused_msa.py`: C = 96,
     the first stage of Video Swin-T/S, at window (8, 7, 7)): pad + shift +
-    partition + token pad (392 -> 400) as one gather with the unmasked
+    partition + token pad (392 -> 400 in bf16; none in f32, whose
+    sublane tile is 8) as one gather with the unmasked
     windows first (`ops/window.partition_shifted_padded_3d`), then K2p
     (`fused_window_msa_grouped`: qkv, attention and out-projection as
     three launches, each over the maskless prefix and the small-mask rest
@@ -252,7 +253,9 @@ class SwinBlock3D(nn.Module):
         y = self.norm1(x)
         dp, hp, wp = d + pad_d, h + pad_b, w + pad_r
         if self.route(n, nw, y.element_size(), self.training) == "grouped":
-            n_p = fused_msa.pad_tokens(n)
+            # the JAX block's token padding at the dtype's itemsize: 392 ->
+            # 400 in bf16, 392 in f32 (the route's predicate checked it)
+            n_p = fused_msa._sublane_pad(n, y.element_size())
             nu, mask = partition_3d_groups(d, h, w, dp, hp, wp, ws, ss, n_p,
                                            y.device)
             yw = partition_shifted_padded_3d(y, ws, ss, dp, hp, wp, n_p)

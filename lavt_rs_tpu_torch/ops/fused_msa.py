@@ -23,7 +23,8 @@ Counterpart of `lavt_rs_tpu/ops/pallas/fused_msa.py`:
     to K5, else to K6.  The LN variant's backward is K5/K6 on xn followed
     by the plain LN backward (`_vjp_ln_bwd`);
   * `fused_window_msa_grouped` (K2p: K2's `_fwd_call` at a token count
-    padded to 16, n_p = 400 for video windows of 392): x is (B, nW, n_p, C)
+    padded to the sublane tile of x's dtype, 16 in bf16 and 8 in f32:
+    n_p = 400 or 392 for video windows of 392): x is (B, nW, n_p, C)
     with the first `nu` windows of each image maskless and the rest under
     a small (nW - nu, n_p, n_p) mask, the bias padded by
     `pad_bias_sublane`; the grouped 3D route of `models/swin3d.py` and
@@ -53,8 +54,12 @@ launches of `save_launches` without the saves, each taking its f32 kernel
 for an f32 tensor (K4 f32's LN rows, `gemm_bias` on the 3xTF32 GEMM of
 csrc/gemm_f32.cu, the attention of csrc/fused_msa_f32.cu with the TPU
 inference kernel's shift-free exp(min(s, 80)) softmax).
-`fused_window_msa_ln` takes it for a CUDA f32 tensor.  K2, the save mode,
-K5, K6 and K2p have no f32 variant yet: on a CUDA f32 tensor they raise.
+`fused_window_msa_ln` takes it for a CUDA f32 tensor.  K2p f32
+(`fused_window_msa_grouped_f32`, taken by `fused_window_msa_grouped` for a
+CUDA f32 tensor) is `grouped_launches` on f32: the projections on the
+3xTF32 GEMM, the attention on K10 f32's kernel (csrc/window_attn_f32.cu).
+K2, the save mode, K5 and K6 have no f32 variant yet: on a CUDA f32
+tensor they raise.
 """
 
 from __future__ import annotations
@@ -828,12 +833,14 @@ fused_window_msa_bwd_recompute.launches = 0
 PAD_KEY_BIAS = -1e9  # kills a padded key: exp underflows to exactly 0 in f32
 
 
-TOKEN_TILE = 16  # K2p's row tile; its token count is padded to a multiple
+TOKEN_TILE = 16  # K2p's bf16 row tile; its token count is padded to a multiple
 
 
 def pad_tokens(n: int) -> int:
-    """Token count padded to K2p's 16-row tile (392 -> 400; the JAX
-    package's `_sublane_pad` for bf16)."""
+    """Token count padded to K2p's bf16 16-row tile (392 -> 400; the JAX
+    package's `_sublane_pad(n, 2)`).  The f32 route pads to 8
+    (`_sublane_pad(n, 4)`: 392 stays 392), as the JAX block does at its
+    dtype's itemsize."""
     return -(-n // TOKEN_TILE) * TOKEN_TILE
 
 
@@ -849,11 +856,13 @@ def pad_bias_sublane(bias: torch.Tensor, n_p: int) -> torch.Tensor:
     return out
 
 
-def padded_msa_supported(n_p: int, c: int, heads: int) -> bool:
-    """Geometries K2p's launches take: n_p a multiple of 16 up to 400 (K10's
-    kernel), head dim 32 (C = 32 heads)."""
-    return (heads > 0 and c == 32 * heads and n_p % TOKEN_TILE == 0
-            and TOKEN_TILE <= n_p <= 400)
+def padded_msa_supported(n_p: int, c: int, heads: int,
+                         itemsize: int = 2) -> bool:
+    """Geometries K2p's launches take: n_p a whole number of sublane tiles
+    of the dtype (`_sublane_ok`: 16 rows in bf16, 8 in f32) up to 400
+    (K10's kernel and K10 f32's), head dim 32 (C = 32 heads)."""
+    return (heads > 0 and c == 32 * heads and _sublane_ok(n_p, itemsize)
+            and 0 < n_p <= 400)
 
 
 def fused_window_msa_grouped_plain(x, wqkv, bqkv, wproj, bproj, bias, mask,
@@ -916,7 +925,9 @@ def grouped_launches(x, wqkv, bqkv, wproj, bproj, bias, mask, nu: int,
           scale 1 (q is scaled already), the mask grouping by nu, O as
           (B nW n_p, C) (`window_attn.attention_qkv_grouped`);
       (c) y = O Wprojᵀ + bproj on the GEMM core.
-    On CPU tensors each launch takes its plain version, which compose to
+    K2p f32 is the same three launches on f32: (a) and (c) on the 3xTF32
+    GEMM (`gemm_f32`), (b) on K10 f32's kernel.  On CPU tensors each
+    launch takes its plain version, which compose to
     `fused_window_msa_grouped_plain`'s values
     (tests/test_torch_k2p_launches.py)."""
     from . import window_attn  # imports this module
@@ -930,19 +941,22 @@ def grouped_launches(x, wqkv, bqkv, wproj, bproj, bias, mask, nu: int,
 
 
 def _grouped_launch(x, wqkv, bqkv, wproj, bproj, bias, mask, nu, heads,
-                    scale):
+                    scale, dtype=torch.bfloat16):
+    """K2p's checks before any launch (every tensor `dtype`: bf16, or f32
+    for K2p f32; the bias and mask f32), then `grouped_launches`."""
     b, nw, n_p, c = x.shape
-    if not padded_msa_supported(n_p, c, heads):
+    itemsize = 4 if dtype == torch.float32 else 2
+    if not padded_msa_supported(n_p, c, heads, itemsize):
         raise ValueError(f"padded window MSA kernel: unsupported (n_p, C, "
-                         f"heads) {(n_p, c, heads)}")
+                         f"heads) {(n_p, c, heads)} at {dtype}")
     if mask is None:
         nu = nw
     if not 0 <= nu <= nw:
         raise ValueError(f"padded window MSA kernel: nu {nu} outside [0, {nw}]")
-    bf16 = torch.bfloat16
-    checks = [("x", x, bf16, None), ("wqkv", wqkv, bf16, (3 * c, c)),
-              ("bqkv", bqkv, bf16, (3 * c,)),
-              ("wproj", wproj, bf16, (c, c)), ("bproj", bproj, bf16, (c,)),
+    dt = dtype
+    checks = [("x", x, dt, None), ("wqkv", wqkv, dt, (3 * c, c)),
+              ("bqkv", bqkv, dt, (3 * c,)),
+              ("wproj", wproj, dt, (c, c)), ("bproj", bproj, dt, (c,)),
               ("bias", bias, torch.float32, (heads, n_p, n_p))]
     if mask is not None:
         checks.append(("mask", mask, torch.float32, (nw - nu, n_p, n_p)))
@@ -959,17 +973,42 @@ def fused_window_msa_grouped(x, wqkv, bqkv, wproj, bproj, bias,
     windows [0, nu) of each image take no mask, window w >= nu takes
     mask[w - nu] of the (nW - nu, n_p, n_p) mask (None: no window is
     masked).  On the card the three launches of `grouped_launches`, each
-    covering both groups; one count per call."""
+    covering both groups; one count per call.  A CUDA f32 x takes K2p f32
+    (`fused_window_msa_grouped_f32`)."""
     if x.device.type == "cpu":
         return fused_window_msa_grouped_plain(x, wqkv, bqkv, wproj, bproj,
                                               bias, mask, nu, heads, scale)
+    if x.dtype == torch.float32:
+        return fused_window_msa_grouped_f32(x, wqkv, bqkv, wproj, bproj, bias,
+                                            mask, nu, heads, scale)
     y = _grouped_launch(x, wqkv, bqkv, wproj, bproj, bias, mask, nu, heads,
                         scale)
     fused_window_msa_grouped.launches += 1
     return y
 
 
+def fused_window_msa_grouped_f32(x, wqkv, bqkv, wproj, bproj, bias,
+                                 mask: Optional[torch.Tensor], nu: int,
+                                 heads: int, scale: float) -> torch.Tensor:
+    """K2p f32: K2p on f32 tokens and weights, n_p a multiple of 8 (392 at
+    the video windows: no padding); on the card the launches of
+    `grouped_launches` on f32 (the 3xTF32 GEMM, K10 f32's kernel, the 3xTF32
+    GEMM), one count per call.  The attention is K10 f32's max-subtracted
+    softmax, where the TPU inference kernel takes the shift-free
+    exp(min(s, 80)) (`_softmax_exp` of lavt_rs_tpu/ops/pallas/fused_msa.py):
+    the two agree while every logit is at most 80.  The plain version on a
+    CPU tensor."""
+    if x.device.type == "cpu":
+        return fused_window_msa_grouped_plain(x, wqkv, bqkv, wproj, bproj,
+                                              bias, mask, nu, heads, scale)
+    y = _grouped_launch(x, wqkv, bqkv, wproj, bproj, bias, mask, nu, heads,
+                        scale, torch.float32)
+    fused_window_msa_grouped_f32.launches += 1
+    return y
+
+
 fused_window_msa_grouped.launches = 0
+fused_window_msa_grouped_f32.launches = 0
 
 
 def fused_window_msa_padded(x, wqkv, bqkv, wproj, bproj, bias,
@@ -977,13 +1016,14 @@ def fused_window_msa_padded(x, wqkv, bqkv, wproj, bproj, bias,
                             scale: float) -> torch.Tensor:
     """K2 for a window size that is not a multiple of 16 (JAX
     `fused_window_msa_padded`): x (B, nW, N, C), bias (h, N, N), mask
-    (nW, N, N) or None.  Tokens are zero-padded to `pad_tokens(N)`, the
+    (nW, N, N) or None.  Tokens are zero-padded to the sublane tile of x's
+    dtype (`_sublane_pad`, as the JAX wrapper: 16 in bf16, 8 in f32), the
     padded keys are killed by the bias, the padded query rows are dropped;
     the call is K2p with no maskless prefix.  No path of the port calls it
     (the video route pads in its partition gather); it is kept for parity
     with the JAX package's API."""
     b, nw, n, c = x.shape
-    n_p = pad_tokens(n)
+    n_p = _sublane_pad(n, x.element_size())
     p = n_p - n
     x_p = torch.nn.functional.pad(x, (0, 0, 0, p)) if p else x
     mask_p = None

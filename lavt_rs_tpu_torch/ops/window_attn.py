@@ -32,6 +32,14 @@ C = 96 blocks take the grouped K2p route instead).
     and each row's log-sum-exp) forward and K9 backward on the card, the
     plain versions of both on the CPU (so the CPU tests run the plain
     backward, not autograd through the plain forward).
+  * the f32 variants: on a CUDA f32 tensor every entry point above takes
+    K10 f32 (csrc/window_attn_f32.cu: both modes, the strided and grouped
+    routes; its launch `k10_f32_plan`; counted by `window_attention_f32`)
+    or K9 f32 (csrc/window_attn_bwd_f32.cu, two launches and the sum,
+    `bwd_launches_f32`, its grids `k9_f32_plan`; counted by
+    `attention_core_bwd_f32`): FFMA kernels with the same max-subtracted
+    softmax, whose plain versions are the ones above (at f32 their
+    roundings to q's dtype are no-ops).
 
 Routing: `attn_fwd_supported` is the JAX package's predicate
 (`_attn_tiling`'s arithmetic, copied): the 2D Swin block takes K10 (and
@@ -67,6 +75,17 @@ MAX_N = 400
 # what each block reserves of it
 K10_TILE, K10_WARPGROUPS, K10_STAGES = 64, 2, 2
 SMEM_PER_SM, SMEM_PER_BLOCK_RESERVED = 233472, 1024
+# K10 f32 and K9 f32 (csrc/window_attn_f32.cu, csrc/window_attn_bwd_f32.cu,
+# csrc/attn_f32.cuh): blocks of 128 threads on tiles of 64 rows; their
+# shared memory: d-major 32 x 64 operand tiles (rows 68 floats apart),
+# 64 x 32 row-major ones (36 apart), 64 x 64 P / dS tiles (68 apart) and
+# two 64-float row vectors
+F32_TILE, F32_THREADS = 64, 128
+_T, _R, _S, _V = 32 * 68 * 4, 64 * 36 * 4, 64 * 68 * 4, 2 * 64 * 4
+K10_F32_SMEM = 2 * _T + _R + _S + _V
+K9_F32_SMEM = (4 * _T + _R + _S + _V, 4 * _T + 2 * _R + _S + _V)
+# K9 f32's launch 1 is built for two blocks an SM (__launch_bounds__)
+K9_F32_Q_PER_SM = 2
 
 
 def _scores(q, k, bias, mask, scale) -> torch.Tensor:
@@ -199,15 +218,15 @@ def _check_bias_mask(bias, mask, heads, nw, n, dev):
                              f"{want} on {dev}, 16-byte aligned")
 
 
-def _check(q, tensors, bias, mask):
+def _check(q, tensors, bias, mask, dtype=torch.bfloat16):
     """K9's arguments: raise unless the kernels take q's geometry, every
-    tensor of `tensors` is contiguous bf16 of q's shape on q's device and
-    16-byte aligned (the kernels move 16-byte words), and bias and mask
-    pass `_check_bias_mask`."""
+    tensor of `tensors` is contiguous `dtype` (bf16; f32 for K9 f32) of q's
+    shape on q's device and 16-byte aligned (the kernels move 16-byte
+    words), and bias and mask pass `_check_bias_mask`."""
     b, nw, heads, n, hd = q.shape
     _require_supported(n, hd)
     for name, t in tensors:
-        cuda_lib.require(t, name, torch.bfloat16, q.device, q.shape)
+        cuda_lib.require(t, name, dtype, q.device, q.shape)
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: data must be 16-byte aligned")
     _check_bias_mask(bias, mask, heads, nw, n, q.device)
@@ -272,11 +291,27 @@ def k10_plan(bw: int, heads: int, n: int, sms: int) -> dict:
     return plan
 
 
-def _check_k10(q, k, v, bias, mask):
-    """Raise unless K10 takes these: q, k, v bf16 views with one set of
-    strides, hd contiguous, every stride and base 16-byte aligned (the
-    tensor maps'); bias and mask f32 and contiguous.  Lean: window 7 calls
-    K10 24 times a forward, where the host sets the pace."""
+def k10_f32_plan(bw: int, heads: int, n: int, sms: int) -> dict:
+    """K10 f32's launch (csrc/window_attn_f32.cu) on `sms` SMs: items of 64
+    query rows of one (window, head), `tiles` a unit, ordered (window,
+    head, query tile), so that neighbouring blocks read one (window,
+    head)'s keys; a block of F32_THREADS threads takes `per_block`
+    consecutive items: 1 above N = 64, at N <= 64 (one item a unit) up to
+    4 units while the grid keeps 16 blocks an SM."""
+    tiles = -(-n // F32_TILE)
+    items = bw * heads * tiles
+    per_block = 1 if tiles > 1 else max(1, min(4, items // (16 * sms)))
+    return dict(tiles=tiles, items=items, per_block=per_block,
+                blocks=-(-items // per_block), threads=F32_THREADS,
+                smem=K10_F32_SMEM)
+
+
+def _check_k10(q, k, v, bias, mask, dtype=torch.bfloat16):
+    """Raise unless K10 (K10 f32 for dtype float32) takes these: q, k, v
+    `dtype` views with one set of strides, hd contiguous, every stride and
+    base 16-byte aligned (the tensor maps', K10 f32's 16-byte words); bias
+    and mask f32 and contiguous.  Lean: window 7 calls K10 24 times a
+    forward, where the host sets the pace."""
     shape, dev = q.shape, q.device
     b, nw, heads, n, hd = shape
     _require_supported(n, hd)
@@ -284,13 +319,14 @@ def _check_k10(q, k, v, bias, mask):
     if k.stride() != st or v.stride() != st:
         raise ValueError("q, k, v: the kernel takes one set of strides")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.bfloat16 or t.device != dev or t.shape != shape:
+        if t.dtype != dtype or t.device != dev or t.shape != shape:
             raise TypeError(f"{name}: {t.dtype} {tuple(t.shape)} on "
-                            f"{t.device}, expected bfloat16 {tuple(shape)} "
+                            f"{t.device}, expected {dtype} {tuple(shape)} "
                             f"on {dev}")
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: data must be 16-byte aligned")
-    if st[4] != 1 or (st[1] | st[2] | st[3]) % 8 or (
+    words = 16 // q.element_size()
+    if st[4] != 1 or (st[1] | st[2] | st[3]) % words or (
             b > 1 and st[0] != nw * st[1]):
         raise ValueError(f"q, k, v: strides {st} (hd contiguous, the others "
                          "16-byte aligned, batch and window merged)")
@@ -309,11 +345,24 @@ def _row_aligned(t):
 
 
 def _k10_call(ptrs, qst, ost, b, nw, heads, n, bias, mask, lse, scale,
-              device, nu=0):
+              device, nu=0, f32=False):
     """The launch, on checked arguments: ptrs (q, k, v, o), the element
     strides (window, head, row) of q, k, v and of O; windows nu.. of each
-    image take mask[w - nu] (no window a mask when mask is None)."""
-    plan = k10_plan(b * nw, heads, n, cuda_lib.sm_count(device.index or 0))
+    image take mask[w - nu] (no window a mask when mask is None).  f32:
+    K10 f32's launch (`lavt_window_attn_f32`, plan `k10_f32_plan`)."""
+    sms = cuda_lib.sm_count(device.index or 0)
+    if f32:
+        plan = k10_f32_plan(b * nw, heads, n, sms)
+        q, k, v, o = ptrs
+        err = cuda_lib.lib().lavt_window_attn_f32(
+            q, k, v, bias.data_ptr(),
+            None if mask is None else mask.data_ptr(), o,
+            None if lse is None else lse.data_ptr(), *qst, *ost, b * nw, nw,
+            nu if mask is not None else nw, heads, n, plan["per_block"],
+            float(scale), cuda_lib.stream_ptr(device))
+        cuda_lib.check(err, "lavt_window_attn_f32")
+        return
+    plan = k10_plan(b * nw, heads, n, sms)
     bias, ld = _row_aligned(bias)
     if mask is not None:
         mask, _ = _row_aligned(mask)
@@ -326,16 +375,18 @@ def _k10_call(ptrs, qst, ost, b, nw, heads, n, bias, mask, lse, scale,
     cuda_lib.check(err, "lavt_window_attn")
 
 
-def _launch(q, k, v, bias, mask, scale, save: bool):
-    """K10 on q, k, v views (_check_k10): (O contiguous, lse or None)."""
+def _launch(q, k, v, bias, mask, scale, save: bool,
+            dtype=torch.bfloat16):
+    """K10 (K10 f32 for dtype float32) on q, k, v views (_check_k10): (O
+    contiguous, lse or None)."""
     b, nw, heads, n, _ = q.shape
-    _check_k10(q, k, v, bias, mask)
+    _check_k10(q, k, v, bias, mask, dtype)
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, nw, heads, n), dtype=torch.float32,
                        device=q.device) if save else None)
     _k10_call((q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr()),
               q.stride()[1:4], o.stride()[1:4], b, nw, heads, n, bias, mask,
-              lse, scale, q.device)
+              lse, scale, q.device, f32=dtype == torch.float32)
     return o, lse
 
 
@@ -376,7 +427,7 @@ def attention_bwd_q_plain(q, k, v, bias, mask, do, scale, o, lse, plan):
     K10's rounding, for launch 2), D = rowsum(do o) and the dbias partials
     (parts, heads, N, N) f32 as `k9_plan` cuts them (part b: windows b,
     b + bp, ...; below N = 65 part 2 b + w: every other of them, from the
-    w-th)."""
+    w-th), or `k9_f32_plan` (part b at every N)."""
     b, nw, heads, n, _ = q.shape
     dt = q.dtype
     p = _bwd_probs(q, k, bias, mask, scale, lse)
@@ -385,7 +436,7 @@ def attention_bwd_q_plain(q, k, v, bias, mask, do, scale, o, lse, plan):
     dq = (ds.to(dt).float() @ k.float() * scale).to(dt)
     bp, ds_w = plan["bp"], ds.flatten(0, 1)  # (B nW, heads, N, N)
     win = torch.arange(b * nw)
-    part = (win % bp if n > K10_TILE
+    part = (win % bp if plan["parts"] == bp
             else 2 * (win % bp) + (win // bp) % 2)
     dbias_part = torch.stack([ds_w[part == i].sum(0)
                               for i in range(plan["parts"])])
@@ -488,12 +539,113 @@ def _bwd_launch(q, k, v, bias, mask, do, scale, o, lse, flags):
     return bwd_launches(q, k, v, bias, mask, do, scale, o, lse, flags=flags)
 
 
+# -- K9 f32's launches (csrc/window_attn_bwd_f32.cu) ---------------------------
+
+def k9_f32_plan(bw: int, heads: int, n: int, sms: int) -> dict:
+    """K9 f32's grids on `sms` SMs.  Launch 1: (bp, query tiles x heads)
+    blocks of F32_THREADS threads, block (b, (i, h)) the windows b, b + bp,
+    ... (at least 1, at most the windows), bp as many as fill the SMs once
+    at K9_F32_Q_PER_SM blocks an SM; one dbias partial a b (`parts`).
+    Launch 2: a block per (window, head, key tile)."""
+    tiles = -(-n // F32_TILE)
+    pairs = tiles * heads
+    bp = max(1, min(bw, K9_F32_Q_PER_SM * sms // pairs))
+    return dict(bp=bp, parts=bp, q_blocks=bp * pairs,
+                kv_blocks=bw * heads * tiles, threads=F32_THREADS,
+                q_smem=K9_F32_SMEM[0], kv_smem=K9_F32_SMEM[1])
+
+
+def attention_bwd_q_f32(q, k, v, bias, mask, do, scale, o, lse, plan,
+                        flags=None):
+    """K9 f32's launch 1 (`lavt_window_attn_bwd_q_f32`): (dq, D =
+    rowsum(do o), the dbias partials (parts, heads, N, N), part b from the
+    windows b, b + bp, ...) in f32; the plain version (launch 1's of K9,
+    `attention_bwd_q_plain`) on a CPU tensor."""
+    if q.device.type == "cpu":
+        dq, _, dsum, part = attention_bwd_q_plain(q, k, v, bias, mask, do,
+                                                  scale, o, lse, plan)
+        return dq, dsum, part
+    b, nw, heads, n, _ = q.shape
+    dq, dsum = torch.empty_like(q), torch.empty_like(lse)
+    part = torch.empty((plan["parts"], heads, n, n), dtype=torch.float32,
+                       device=q.device)
+    err = cuda_lib.lib().lavt_window_attn_bwd_q_f32(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), bias.data_ptr(), _ptr(mask),
+        _ptr(flags), dq.data_ptr(), dsum.data_ptr(), part.data_ptr(),
+        b * nw, nw, heads, n, plan["bp"], float(scale),
+        cuda_lib.stream_ptr(q.device))
+    cuda_lib.check(err, "lavt_window_attn_bwd_q_f32")
+    return dq, dsum, part
+
+
+def attention_bwd_kv_f32(q, k, v, bias, mask, do, scale, lse, dsum,
+                         flags=None):
+    """K9 f32's launch 2 (`lavt_window_attn_bwd_kv_f32`): (dk, dv) in f32
+    from launch 1's D; the plain version (launch 2's of K9 on q scale) on a
+    CPU tensor."""
+    if q.device.type == "cpu":
+        return attention_bwd_kv_plain(q * scale, k, v, bias, mask, do, lse,
+                                      dsum)
+    b, nw, heads, n, _ = q.shape
+    dk, dv = torch.empty_like(q), torch.empty_like(q)
+    err = cuda_lib.lib().lavt_window_attn_bwd_kv_f32(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), dsum.data_ptr(), bias.data_ptr(), _ptr(mask),
+        _ptr(flags), dk.data_ptr(), dv.data_ptr(), b * nw, nw, heads, n,
+        float(scale), cuda_lib.stream_ptr(q.device))
+    cuda_lib.check(err, "lavt_window_attn_bwd_kv_f32")
+    return dk, dv
+
+
+def bwd_launches_f32(q, k, v, bias, mask, do, scale, o, lse,
+                     plan: Optional[dict] = None, flags=None):
+    """K9 f32's launches, in order (csrc/window_attn_bwd_f32.cu): launch 1
+    (`attention_bwd_q_f32`: dq, D, the dbias partials), launch 2
+    (`attention_bwd_kv_f32`: dk, dv), `sum_partials` of dbias.  On CPU
+    tensors each takes its plain version, which compose to
+    `attention_core_bwd_plain`'s values (tests/test_torch_f32_attn.py).
+    Returns (dq, dk, dv, dbias)."""
+    b, nw, heads, n, _ = q.shape
+    if plan is None:
+        sms = (cuda_lib.sm_count(q.device.index or 0)
+               if q.device.type == "cuda" else 132)
+        plan = k9_f32_plan(b * nw, heads, n, sms)
+    dq, dsum, part = attention_bwd_q_f32(q, k, v, bias, mask, do, scale, o,
+                                         lse, plan, flags)
+    dk, dv = attention_bwd_kv_f32(q, k, v, bias, mask, do, scale, lse, dsum,
+                                  flags)
+    return dq, dk, dv, sum_partials(part)
+
+
+def _bwd_launch_f32(q, k, v, bias, mask, do, scale, o, lse, flags):
+    """K9 f32 on the card: the checks, then `bwd_launches_f32`."""
+    b, nw, heads, n, _ = q.shape
+    _check(q, (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)), bias,
+           mask, torch.float32)
+    cuda_lib.require(lse, "lse", torch.float32, q.device, (b, nw, heads, n))
+    if mask is None:
+        flags = None
+    elif flags is not None:
+        cuda_lib.require(flags, "flags", torch.int32, q.device, (nw,))
+    return bwd_launches_f32(q, k, v, bias, mask, do, scale, o, lse,
+                            flags=flags)
+
+
+# -- the entry points ----------------------------------------------------------
+
 def window_attention_save(q, k, v, bias, mask=None,
                           scale: Optional[float] = None):
-    """K10 in save mode: (O, lse); the plain version on a CPU tensor."""
+    """K10 in save mode: (O, lse); the plain version on a CPU tensor, K10
+    f32's save mode on a CUDA f32 tensor (counted by
+    `window_attention_f32`)."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     if q.device.type == "cpu":
         return window_attention_save_plain(q, k, v, bias, mask, scale)
+    if q.dtype == torch.float32:
+        out = _launch(q, k, v, bias, mask, scale, True, torch.float32)
+        window_attention_f32.launches += 1
+        return out
     out = _launch(q, k, v, bias, mask, scale, save=True)
     window_attention.launches += 1
     return out
@@ -511,11 +663,34 @@ def attention_core_bwd(q, k, v, bias, mask, do, scale: Optional[float] = None,
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     if q.device.type == "cpu":
         return attention_core_bwd_plain(q, k, v, bias, mask, do, scale, o)
+    if q.dtype == torch.float32:
+        return attention_core_bwd_f32(q, k, v, bias, mask, do, scale, o, lse,
+                                      flags)
     if o is None or lse is None:
         raise ValueError("attention_core_bwd on the card needs K10's saved "
                          "output and lse (window_attention_save)")
     out = _bwd_launch(q, k, v, bias, mask, do, scale, o, lse, flags)
     attention_core_bwd.launches += 1
+    return out
+
+
+def attention_core_bwd_f32(q, k, v, bias, mask, do,
+                           scale: Optional[float] = None,
+                           o: Optional[torch.Tensor] = None,
+                           lse: Optional[torch.Tensor] = None,
+                           flags: Optional[torch.Tensor] = None):
+    """K9 f32: `attention_core_bwd` on f32 tensors, every output f32; the
+    plain version on a CPU tensor, on a CUDA tensor the launches of
+    `bwd_launches_f32` from K10 f32's saved o and lse (it raises on any
+    other dtype)."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    if q.device.type == "cpu":
+        return attention_core_bwd_plain(q, k, v, bias, mask, do, scale, o)
+    if o is None or lse is None:
+        raise ValueError("attention_core_bwd on the card needs K10's saved "
+                         "output and lse (window_attention_save)")
+    out = _bwd_launch_f32(q, k, v, bias, mask, do, scale, o, lse, flags)
+    attention_core_bwd_f32.launches += 1
     return out
 
 
@@ -558,8 +733,23 @@ def window_attention(q, k, v, bias, mask: Optional[torch.Tensor] = None,
         return WindowAttention.apply(q, k, v, bias, mask, scale, flags)
     if q.device.type == "cpu":
         return window_attention_plain(q, k, v, bias, mask, scale)
+    if q.dtype == torch.float32:
+        return window_attention_f32(q, k, v, bias, mask, scale)
     out, _ = _launch(q, k, v, bias, mask, scale, save=False)
     window_attention.launches += 1
+    return out
+
+
+def window_attention_f32(q, k, v, bias, mask: Optional[torch.Tensor] = None,
+                         scale: Optional[float] = None) -> torch.Tensor:
+    """K10 f32: the forward alone on f32 q, k, v (csrc/window_attn_f32.cu;
+    it raises on any other dtype); the plain version on a CPU tensor.  Its
+    counter also counts K10 f32's save mode and strided route."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    if q.device.type == "cpu":
+        return window_attention_plain(q, k, v, bias, mask, scale)
+    out, _ = _launch(q, k, v, bias, mask, scale, False, torch.float32)
+    window_attention_f32.launches += 1
     return out
 
 
@@ -589,7 +779,8 @@ def attention_qkv_grouped(qkv, bias, mask, nu: int, heads: int,
     them and writes O as (B, nW, N, C), the layout the out-projection
     reads.  Uncounted: `window_attention_qkv` counts its K10 launches, K2p
     (`ops/fused_msa.py`, whose attention launch this is) its own calls.
-    The plain version on a CPU tensor."""
+    The plain version on a CPU tensor; K10 f32's kernel for f32 qkv (K2p
+    f32's attention launch), K10's for bf16."""
     b, nw, n, c3 = qkv.shape
     if not 0 <= nu <= nw:
         raise ValueError(f"window attention: nu {nu} outside [0, {nw}]")
@@ -603,17 +794,19 @@ def attention_qkv_grouped(qkv, bias, mask, nu: int, heads: int,
     if c3 != 3 * heads * HEAD_DIM or not window_attn_supported(n, HEAD_DIM):
         raise ValueError(f"window attention kernel: qkv {tuple(qkv.shape)} "
                          f"with {heads} heads (hd {HEAD_DIM}, N <= {MAX_N})")
-    if qkv.dtype != torch.bfloat16 or not qkv.is_contiguous() \
-            or qkv.data_ptr() % 16:
+    if qkv.dtype not in (torch.bfloat16, torch.float32) \
+            or not qkv.is_contiguous() or qkv.data_ptr() % 16:
         raise ValueError(f"qkv: {qkv.dtype}, contiguous "
                          f"{qkv.is_contiguous()}: expected contiguous "
-                         "bfloat16, 16-byte aligned")
+                         "bfloat16 or float32, 16-byte aligned")
     _check_bias_mask(bias, mask, heads, nw - nu, n, qkv.device)
     out = torch.empty((b, nw, n, c), dtype=qkv.dtype, device=qkv.device)
-    base = qkv.data_ptr()  # q, k, v at columns 0, C, 2C of each row
-    _k10_call((base, base + 2 * c, base + 4 * c, out.data_ptr()),
+    base, item = qkv.data_ptr(), qkv.element_size()
+    # q, k, v at columns 0, C, 2C of each row
+    _k10_call((base, base + item * c, base + 2 * item * c, out.data_ptr()),
               (n * c3, HEAD_DIM, c3), (n * c, HEAD_DIM, c), b, nw, heads, n,
-              bias, mask, None, scale, qkv.device, nu)
+              bias, mask, None, scale, qkv.device, nu,
+              f32=qkv.dtype == torch.float32)
     return out
 
 
@@ -627,7 +820,9 @@ def window_attention_qkv(qkv, bias, mask, heads: int,
     takes `window_attention` on q, k, v (K10's save mode and K9)."""
     out = attention_qkv_grouped(qkv, bias, mask, 0, heads, scale)
     if qkv.device.type != "cpu":
-        window_attention.launches += 1
+        counter = (window_attention_f32 if qkv.dtype == torch.float32
+                   else window_attention)
+        counter.launches += 1
     return out
 
 
@@ -637,4 +832,6 @@ def records(*tensors) -> bool:
 
 
 window_attention.launches = 0
+window_attention_f32.launches = 0
 attention_core_bwd.launches = 0
+attention_core_bwd_f32.launches = 0

@@ -1,5 +1,6 @@
-"""The f32 variants of K1, K11, K3 and K4 on the card.  Marked `cuda`;
-every test skips without a CUDA device.  Runs without JAX:
+"""The f32 variants of K1, K11, K3, K4, K10 (both modes), K2p and K9 on
+the card.  Marked `cuda`; every test skips without a CUDA device.  Runs
+without JAX:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_f32_cuda.py
 
@@ -10,7 +11,14 @@ every test skips without a CUDA device.  Runs without JAX:
   fails it), counted on its own counter and on no bf16 one;
 * a small f32 window-12 model on the card: its f32 launches equal its
   `kernel_plan` at itemsize 4, no bf16 kernel runs, and its logits agree
-  with the plain f32 model's within 1e-2 (chip_smoke.py's f32 gate).
+  with the plain f32 model's within 1e-2 (chip_smoke.py's f32 gate);
+* K10 f32 (contiguous, save mode, the strided qkv route, the grouped
+  attention with nu at 0, mid and nW), K2p f32 and K9 f32 at N = 49, 392
+  and 400, masked and not, within 1e-4 abs + rel of their plain versions;
+  K9 f32's dbias the same bits in two runs (no atomics);
+* a small f32 window-7 lavt_one and an f32 lavt_video (Video Swin-T, 8
+  frames of 64²) launch their plans, forward and (lavt_video) in a
+  training step, against the plain f32 model.
 """
 
 import numpy as np
@@ -19,7 +27,8 @@ import torch
 
 from lavt_rs_tpu_torch import config as C
 from lavt_rs_tpu_torch.models.factory import build_model
-from lavt_rs_tpu_torch.ops import fused_mlp, fused_msa, fused_msa_2d, ln
+from lavt_rs_tpu_torch.ops import (fused_mlp, fused_msa, fused_msa_2d, ln,
+                                   window_attn)
 from lavt_rs_tpu_torch.ops.window import shift_mask_2d, shift_mask_flags_2d
 
 pytestmark = pytest.mark.cuda
@@ -27,10 +36,15 @@ pytestmark = pytest.mark.cuda
 TOL = 1e-4
 F32 = {"K1": fused_msa.fused_window_msa_ln_f32,
        "K11": fused_msa_2d.fused_window_msa_2d_f32,
-       "K3": fused_mlp.fused_ln_mlp_f32, "K4": ln.layer_norm_rows_f32}
+       "K3": fused_mlp.fused_ln_mlp_f32, "K4": ln.layer_norm_rows_f32,
+       "K10": window_attn.window_attention_f32,
+       "K2p": fused_msa.fused_window_msa_grouped_f32,
+       "K9": window_attn.attention_core_bwd_f32}
 BF16 = {"K1": fused_msa.fused_window_msa_ln,
         "K11": fused_msa_2d.fused_window_msa_2d, "K3": fused_mlp.fused_ln_mlp,
-        "K4": ln.layer_norm_rows}
+        "K4": ln.layer_norm_rows, "K10": window_attn.window_attention,
+        "K2p": fused_msa.fused_window_msa_grouped,
+        "K9": window_attn.attention_core_bwd}
 
 
 @pytest.fixture
@@ -177,7 +191,8 @@ def test_small_f32_window12_model_launches_its_plan(dev):
     torch.cuda.synchronize()
     assert bool(torch.isfinite(union).all())
     f32, bf16 = _counts()
-    assert f32 == plan and not any(bf16.values())
+    assert {k: n for k, n in f32.items() if n} == plan
+    assert not any(bf16.values())
 
     from lavt_rs_tpu_torch.ops.norm import maybe_normalize_image
 
@@ -188,3 +203,208 @@ def test_small_f32_window12_model_launches_its_plan(dev):
         got = model(img, ids[:, 0], mask[:, 0])
         want = ref(img, ids[:, 0], mask[:, 0])
     assert (got - want).abs().max().item() <= 1e-2
+
+
+# -- K10 f32, K2p f32, K9 f32 ---------------------------------------------------
+
+def _attn(rng, dev, n, masked, b=2, nw=4, heads=3):
+    q, k, v, do = (_f32(rng, (b, nw, heads, n, 32), 1.0, dev)
+                   for _ in range(4))
+    bias = _f32(rng, (heads, n, n), 1.0, dev)
+    mask = None
+    if masked:  # window 1 masks nothing (its flag 0)
+        m = np.where(rng.random((nw, n, n)) > 0.7, -100.0, 0.0)
+        m[1] = 0.0
+        mask = torch.from_numpy(m.astype(np.float32)).to(dev)
+    return q, k, v, bias, mask, do
+
+
+@pytest.mark.parametrize("n", [49, 392, 400])
+@pytest.mark.parametrize("masked", [False, True])
+def test_window_attention_f32(dev, n, masked):
+    rng = np.random.default_rng(n + masked)
+    q, k, v, bias, mask, _ = _attn(rng, dev, n, masked)
+    sc = 32 ** -0.5
+    want = window_attn.window_attention_plain(q, k, v, bias, mask, sc)
+    _close(_once("K10", lambda: window_attn.window_attention(
+        q, k, v, bias, mask, sc)), want)
+    o, lse = _once("K10", lambda: window_attn.window_attention_save(
+        q, k, v, bias, mask, sc))
+    wo, wlse = window_attn.window_attention_save_plain(q, k, v, bias, mask, sc)
+    _close(o, wo)
+    _close(lse, wlse)
+    # the strided route on a qkv Linear's output
+    b, nw, heads, _, _ = q.shape
+    qkv = torch.cat([t.transpose(2, 3).reshape(b, nw, n, heads * 32)
+                     for t in (q, k, v)], -1).contiguous()
+    got = _once("K10", lambda: window_attn.window_attention_qkv(
+        qkv, bias, mask, heads, sc))
+    _close(got, want.transpose(2, 3).reshape(b, nw, n, heads * 32))
+    with pytest.raises(TypeError):  # no f32 tensor into the bf16 kernel
+        window_attn.window_attention_f32(q.bfloat16(), k.bfloat16(),
+                                         v.bfloat16(), bias, mask, sc)
+
+
+@pytest.mark.parametrize("n", [392, 400])
+def test_grouped_attention_f32(dev, n):
+    """K2p f32's attention launch: windows [0, nu) maskless, the rest under
+    the small mask, nu at 0, mid and nW (uncounted: K2p counts its
+    calls)."""
+    rng = np.random.default_rng(n)
+    b, nw, heads = 2, 5, 3
+    qkv = _f32(rng, (b, nw, n, 3 * heads * 32), 1.0, dev)
+    bias = _f32(rng, (heads, n, n), 1.0, dev)
+    for nu in (0, 2, nw):
+        small = torch.from_numpy(np.where(
+            rng.random((nw - nu, n, n)) > 0.7, -100.0, 0.0).astype(
+            np.float32)).to(dev) if nu < nw else None
+        full = None if small is None else torch.cat(
+            [small.new_zeros((nu, n, n)), small])
+        before = _counts()
+        got = window_attn.attention_qkv_grouped(qkv, bias, small, nu, heads,
+                                                0.3)
+        assert _counts() == before
+        _close(got, window_attn.window_attention_qkv_plain(qkv, bias, full,
+                                                           heads, 0.3))
+
+
+@pytest.mark.parametrize("n_p,nu", [(392, 0), (392, 3), (392, 6), (400, 3)])
+def test_fused_window_msa_grouped_f32(dev, n_p, nu):
+    rng = np.random.default_rng(n_p + nu)
+    c, heads, nw = 96, 3, 6
+    x = _f32(rng, (1, nw, n_p, c), 1.0, dev)
+    w = (_f32(rng, (3 * c, c), c ** -0.5, dev), _f32(rng, (3 * c,), 0.2, dev),
+         _f32(rng, (c, c), c ** -0.5, dev), _f32(rng, (c,), 0.2, dev))
+    bias = fused_msa.pad_bias_sublane(_f32(rng, (heads, 392, 392), 1.0, dev),
+                                      n_p)
+    mask = torch.from_numpy(np.where(
+        rng.random((nw - nu, n_p, n_p)) > 0.7, -100.0, 0.0).astype(
+        np.float32)).to(dev) if nu < nw else None
+    args = (x, *w, bias, mask, nu, heads, 32 ** -0.5)
+    got = _once("K2p", lambda: fused_msa.fused_window_msa_grouped(*args))
+    want = fused_msa.fused_window_msa_grouped_plain(*args)
+    _close(got[:, :, :392], want[:, :, :392])
+    if (n_p, nu) == (392, 0):  # the padded wrapper: no padding in f32
+        sc = 32 ** -0.5
+        got = _once("K2p", lambda: fused_msa.fused_window_msa_padded(
+            x, *w, bias, mask, heads, sc))
+        _close(got, fused_msa.fused_window_msa_plain(x, *w, bias, mask, heads,
+                                                     sc))
+
+
+@pytest.mark.parametrize("n", [49, 392, 400])
+@pytest.mark.parametrize("masked", [False, True])
+def test_attention_core_bwd_f32(dev, n, masked):
+    rng = np.random.default_rng(10 * n + masked)
+    q, k, v, bias, mask, do = _attn(rng, dev, n, masked)
+    sc = 32 ** -0.5
+    o, lse = window_attn.window_attention_save(q, k, v, bias, mask, sc)
+    flags = window_attn.mask_flags(mask)
+    got = _once("K9", lambda: window_attn.attention_core_bwd(
+        q, k, v, bias, mask, do, sc, o, lse, flags))
+    want = window_attn.attention_core_bwd_plain(q, k, v, bias, mask, do, sc,
+                                                o)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        _close(g, w)
+    again = window_attn.attention_core_bwd(q, k, v, bias, mask, do, sc, o,
+                                           lse, flags)
+    torch.cuda.synchronize()
+    for g, a in zip(got, again):  # no atomics: the same bits
+        assert torch.equal(g, a)
+    with pytest.raises(TypeError):  # bf16 gradient into the f32 kernel
+        window_attn.attention_core_bwd(q, k, v, bias, mask, do.bfloat16(), sc,
+                                       o, lse, flags)
+
+
+def _zero():
+    for f in list(F32.values()) + list(BF16.values()):
+        f.launches = 0
+
+
+def test_small_f32_window7_model_launches_its_plan(dev):
+    """Window 7 at 96²: every block's attention on K10 f32 (the strided
+    route), K3 f32 at C = 128 and 256, K4 f32."""
+    from lavt_rs_tpu_torch.ops.norm import maybe_normalize_image
+
+    cfg = C.ModelConfig(
+        swin=C.SwinConfig(embed_dim=32, depths=(2, 2, 2, 2),
+                          num_heads=(1, 2, 4, 8), window_size=7),
+        bert=C.BertConfig(num_layers=1), img_size=96, dtype="float32")
+    g = torch.Generator(device=dev).manual_seed(1)
+    model = build_model(cfg, dev, generator=g)
+    plan, _ = model.backbone.kernel_plan((96, 96), 2, itemsize=4)
+    assert plan["K10"] == 8
+    _zero()
+    image = torch.randint(0, 256, (2, 96, 96, 3), generator=g, device=dev,
+                          dtype=torch.uint8)
+    ids = torch.randint(1000, 20000, (2, 8), generator=g, device=dev)
+    mask = torch.ones(2, 8, dtype=torch.long, device=dev)
+    img = maybe_normalize_image(image)
+    with torch.no_grad():
+        got = model(img, ids, mask)
+    torch.cuda.synchronize()
+    f32, bf16 = _counts()
+    assert {k: n for k, n in f32.items() if n} == plan
+    assert not any(bf16.values())
+    ref = build_model(cfg.replace(use_kernels=False), dev)
+    ref.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        want = ref(img, ids, mask)
+    assert (got - want).abs().max().item() <= 1e-2
+
+
+def test_small_f32_video_model_launches_its_plan(dev):
+    """Video Swin-T on 8 frames of 64² in f32: K2p f32 at stage 1 (n_p =
+    392), K10 f32 in the ten other blocks a forward; a training step takes
+    K10 f32's save mode and K9 f32 in all 12 blocks, its loss within 1e-4
+    relative of the plain f32 step's."""
+    from lavt_rs_tpu_torch.train.optim import TrainConfig
+    from lavt_rs_tpu_torch.train.step import (create_train_state,
+                                              make_video_train_step)
+
+    img, frames = 64, 8
+    cfg = C.lavt_video_tiny().replace(bert=C.BertConfig(num_layers=1),
+                                      img_size=img, dtype="float32")
+    g = torch.Generator(device=dev).manual_seed(2)
+    model = build_model(cfg, dev, generator=g)
+    clip = torch.randn(1, frames, img, img, 3, generator=g, device=dev)
+    ids = torch.randint(1000, 20000, (1, 22), generator=g, device=dev)
+    mask = torch.ones(1, 22, dtype=torch.long, device=dev)
+    plan, _ = model.backbone.kernel_plan(frames, (img, img), 4)
+    assert plan == {"K2p": 2, "K10": 10}
+    _zero()
+    with torch.no_grad():
+        got = model(clip, ids, mask)
+    torch.cuda.synchronize()
+    f32, bf16 = _counts()
+    assert {k: n for k, n in f32.items() if n} == plan
+    assert not any(bf16.values())
+    ref = build_model(cfg.replace(use_kernels=False), dev)
+    ref.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        want = ref(clip, ids, mask)
+    assert (got - want).abs().max().item() <= 1e-2
+    weights = model.state_dict()
+    batch = {"video": torch.randint(0, 256, (1, frames, img, img, 3),
+                                    generator=g, device=dev,
+                                    dtype=torch.uint8),
+             "ids": ids, "mask": mask,
+             "target": torch.randint(0, 2, (1, img, img), generator=g,
+                                     device=dev),
+             "valid_index": torch.tensor([3], device=dev)}
+    losses = {}
+    for kernels in (True, False):
+        t = build_model(cfg.replace(use_kernels=kernels), dev, train=True)
+        t.load_state_dict(weights)
+        tcfg = TrainConfig()
+        step = make_video_train_step(t, *create_train_state(t, tcfg), tcfg)
+        _zero()
+        out = step(batch, torch.Generator(device=dev).manual_seed(3))
+        torch.cuda.synchronize()
+        losses[kernels] = out["loss"].item()
+        f32, bf16 = _counts()
+        launched = {k: n for k, n in f32.items() if n}
+        assert launched == ({"K10": 12, "K9": 12} if kernels else {})
+        assert not any(bf16.values())
+    assert abs(losses[True] - losses[False]) <= 1e-4 * abs(losses[False])

@@ -33,7 +33,9 @@ from lavt_rs_tpu.ops.pallas import ln as jln
 from lavt_rs_tpu.ops.pallas import window_attn as jattn
 from lavt_rs_tpu_torch import config as C
 from lavt_rs_tpu_torch.models import swin2d, swin3d
-from lavt_rs_tpu_torch.models.factory import build_model, make_config
+from lavt_rs_tpu_torch.models.factory import (build_model,
+                                              kernels_without_variant,
+                                              make_config)
 from lavt_rs_tpu_torch.ops import fused_mlp, fused_msa, ln, window_attn
 from lavt_rs_tpu_torch.ops.window import get_window_size_3d
 
@@ -154,14 +156,16 @@ def test_kernel_plan_at_full_width(monkeypatch, name, n, train, want):
 
 def test_f32_with_kernels_on_the_card_is_refused():
     """build_model refuses f32 activations with the kernels on a CUDA
-    device where the plan holds a kernel without an f32 variant (window
-    7's K10; every training kernel), before it allocates a weight (so it
-    raises here, without a card); the plain versions and the CPU still
-    take f32.  Window-12 inference has its f32 variants
+    device where the plan holds a kernel without an f32 variant (lavt_one
+    training: K4b, K7 and K8 at window 7, also K2 and K5 at window 12),
+    before it allocates a weight (so it raises here, without a card); the
+    plain versions and the CPU still take f32.  Inference at windows 12
+    and 7 and lavt_video have their f32 variants
     (tests/test_torch_f32_kernels.py)."""
     cfg = C.lavt_one_base(window12=False, dtype="float32")
-    with pytest.raises(NotImplementedError, match="f32 kernel variants"):
-        build_model(cfg, device="cuda")
+    assert kernels_without_variant(cfg) == []
+    with pytest.raises(NotImplementedError, match="K4b, K7, K8"):
+        build_model(cfg, device="cuda", train=True)
     with pytest.raises(NotImplementedError, match="f32 kernel variants"):
         build_model(C.lavt_one_base(dtype="float32"),
                     device=torch.device("cuda", 0), train=True)

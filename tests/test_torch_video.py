@@ -198,9 +198,9 @@ def _msa_weights(rng, c):
 
 @pytest.mark.parametrize("masked", [False, True])
 def test_fused_window_msa_padded_plain(rng, masked):
-    """K2p through `fused_window_msa_padded` (N = 49 padded to 64; the
-    JAX wrapper pads to 56 in f32) against the JAX wrapper on the Pallas
-    kernel in interpret mode."""
+    """K2p through `fused_window_msa_padded` (N = 49 padded to 56 in f32,
+    the sublane of its itemsize, as the JAX wrapper pads it) against the
+    JAX wrapper on the Pallas kernel in interpret mode."""
     b, nw, n, c, h = 1, 4, 49, 64, 2
     x = rng.standard_normal((b, nw, n, c)).astype(np.float32)
     bias = rng.standard_normal((h, n, n)).astype(np.float32)

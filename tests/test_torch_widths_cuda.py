@@ -178,21 +178,26 @@ def test_window7_model_on_the_card(dev):
 
 
 def test_f32_with_kernels_is_refused_before_any_launch(dev):
-    """Refused where the plan holds a kernel without an f32 variant: window
-    7 (K10) and window-12 training; window-12 inference has its f32
-    variants (tests/test_torch_f32_cuda.py runs it)."""
+    """Refused where the plan holds a kernel without an f32 variant:
+    lavt_one training at windows 7 (K4b, K7, K8) and 12; window-7 and
+    window-12 inference have their f32 variants
+    (tests/test_torch_f32_cuda.py runs them)."""
     before = (ln.layer_norm_rows.launches, fused_mlp.fused_ln_mlp.launches,
-              window_attn.window_attention.launches)
+              window_attn.window_attention.launches,
+              window_attn.window_attention_f32.launches)
     torch.cuda.synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     base = torch.cuda.memory_allocated(dev)
     with pytest.raises(NotImplementedError, match="f32 kernel variants"):
-        build_model(_small(7, dtype="float32"), dev)
+        build_model(_small(7, dtype="float32"), dev, train=True)
     with pytest.raises(NotImplementedError, match="f32 kernel variants"):
         build_model(_small(12, dtype="float32"), dev, train=True)
     assert torch.cuda.max_memory_allocated(dev) == base  # nothing allocated
     assert (ln.layer_norm_rows.launches, fused_mlp.fused_ln_mlp.launches,
-            window_attn.window_attention.launches) == before
-    # the plain versions take f32 on the card
+            window_attn.window_attention.launches,
+            window_attn.window_attention_f32.launches) == before
+    # window-7 f32 inference passes the refusal; the plain versions take
+    # f32 on the card
+    assert build_model(_small(7, dtype="float32"), dev) is not None
     assert build_model(_small(7, dtype="float32", use_kernels=False),
-                       dev) is not None
+                       dev, train=True) is not None
