@@ -260,6 +260,35 @@
    profiler breakdown); the training gate and 10 steps at bs 8 (counts
    K10 24 / K9 24 / K8 23 / K3 1 / K7 24 / K4 4 / K4b 4 per step, falling
    loss).
+6b. Window-7 training in f32 (`--no_bf16` with the kernels: K8 f32, K7
+   f32 and K4b f32 beside K10 f32's save mode, K9 f32, K3 f32, K4 f32),
+   TF32 off:
+     * K4b f32, K8 f32 (keep with a dropped sample) and K7 f32 (with and
+       without keep) at the four stage shapes of a bs-8 step, K10 f32's
+       save mode and K9 f32 at the four window-7 shapes (N = 49, the 2D
+       shift mask, 4-32 heads), each within 1e-4 abs + rel of its f32
+       plain version, the backward's sums over rows or windows (weight,
+       bias, scale and bias-table grads) within 1e-4 of (rms + |want|)
+       of their f64 values, where the f32 plain version's own sums miss
+       1e-4 abs + rel (both counted and printed), timed per call and per
+       step beside its bound, its plain version and its f32 library
+       chain, and on the device; two calls of K4b f32, K7 f32 and K9 f32
+       give the same bits;
+     * the gate: one forward + backward of lavt_one_base(window12=False)
+       in f32 with the kernels and of the plain f32 route from the same
+       weights, batch and seed (BN batch statistics): losses within 1e-4
+       relative, each of the 24 Swin blocks' gradient cosine >= 0.999,
+       launches equal to the plan (K10 f32 24 / K9 f32 24 / K8 f32 23 /
+       K3 f32 1 / K7 f32 24 / K4 f32 4 / K4b f32 4);
+     * 10 timed bs-8 f32 steps (counts, ms/step, img/s, peak memory,
+       falling loss) and one under torch.profiler (device busy, idle
+       share, time by kernel);
+     * `cli.train --no_bf16` at window 7 on the synthetic train refs (-j
+       1): epoch 0 into a checkpoint directory, --resume for epoch 1 with
+       its in-train eval on the f32 kernels (launches per step and per
+       eval batch checked), and epoch 0 with --no_pallas --no_bf16: the
+       first logged losses within 1e-4 relative; iteration and data
+       seconds, img/s, peak memory.
 7. The routing cases: the kernels at the widths the routing added (K4
    and K4b at 1536, K3/K8/K7 at 384, K1/K2/save/K5/K6/K11 at 96) against their plain
    versions with bound / plain / library times; forwards of Swin-T
@@ -268,9 +297,10 @@
    equal to its model's kernel plan, each route that launches no kernel printed
    with its reason (every one a route where the JAX package runs XLA), and
    the pixel gate against the f32 plain model; f32 with the kernels
-   refused, naming the variants still missing, before any launch or
-   allocation where a kernel of the plan has no f32 variant (lavt_one
-   training at windows 7 and 12); one Swin-T window-12 training
+   refused, naming the variants still missing (the K1/K2 save mode, K5,
+   K6), before any launch or allocation where a kernel of the plan has
+   no f32 variant (lavt_one training at window 12); one Swin-T window-12
+   training
    step at bs 2 (the save mode and K5 at C = 96).
 8. P1 / P2 (the head-batching probe) against their plain version on an
    input whose softmax is far from uniform (x at std 0.4, 1e-3 abs +
@@ -376,6 +406,11 @@ REPLACES = {
     "K10s.f32": "lavt_rs_tpu/ops/pallas/window_attn.py:165",
     "K2p.f32": "lavt_rs_tpu/ops/pallas/fused_msa.py:891",
     "K9.f32": "lavt_rs_tpu/ops/pallas/window_attn.py:292",
+    "K8.f32": "lavt_rs_tpu/ops/pallas/fused_mlp.py:533",
+    "K7.f32": "lavt_rs_tpu/ops/pallas/fused_mlp.py:477",
+    "K4b.f32": "lavt_rs_tpu/ops/pallas/ln.py:89",
+    "K10s.f32/w7": "lavt_rs_tpu/ops/pallas/window_attn.py:165",
+    "K9.f32/w7": "lavt_rs_tpu/ops/pallas/window_attn.py:292",
 }
 SOURCES = {
     "K1": "lavt_rs_tpu_torch/csrc/fused_msa_sm90.cu",
@@ -406,6 +441,13 @@ SOURCES = {
     "K10s.f32": "lavt_rs_tpu_torch/csrc/window_attn_f32.cu",
     "K2p.f32": "lavt_rs_tpu_torch/csrc/window_attn_f32.cu",
     "K9.f32": "lavt_rs_tpu_torch/csrc/window_attn_bwd_f32.cu",
+    # K8 f32: K3 f32's launches with keep in fc2's epilogue; K7 f32's
+    # launches; K4b f32's pass
+    "K8.f32": "lavt_rs_tpu_torch/csrc/gemm_f32.cu",
+    "K7.f32": "lavt_rs_tpu_torch/csrc/fused_mlp_bwd_f32.cu",
+    "K4b.f32": "lavt_rs_tpu_torch/csrc/ln.cu",
+    "K10s.f32/w7": "lavt_rs_tpu_torch/csrc/window_attn_f32.cu",
+    "K9.f32/w7": "lavt_rs_tpu_torch/csrc/window_attn_bwd_f32.cu",
 }
 # Swin-B at 480²: (tokens per side, C, heads, blocks) per stage
 STAGES = ((120, 128, 4, 2), (60, 256, 8, 2), (30, 512, 16, 18),
@@ -485,6 +527,19 @@ W7_TRAIN_PER_STEP = {"K10": 24, "K9": 24, "K8": 23, "K3": 1, "K7": 24,
 # "K10.f32" (both modes), "K2p.f32" and "K9.f32"
 F32_NAMES = ("K1.f32", "K11.f32", "K3.f32", "K4.f32", "K10.f32/w7",
              "K10.f32", "K10s.f32", "K2p.f32", "K9.f32")
+# ... and of the window-7 f32 training step (phase 6b): K8 f32, K7 f32, K4b
+# f32 (their counters' names), K10 f32's save mode and K9 f32 at N = 49
+# (counted on "K10.f32" and "K9.f32")
+F32_TRAIN_NAMES = ("K8.f32", "K7.f32", "K4b.f32", "K10s.f32/w7", "K9.f32/w7")
+# launches of a window-7 bs-8 f32 step (the bf16 step's, on the f32
+# variants) and of a window-7 f32 eval batch
+F32_W7_TRAIN_PER_STEP = {"K10.f32": 24, "K9.f32": 24, "K8.f32": 23,
+                         "K3.f32": 1, "K7.f32": 24, "K4.f32": 4,
+                         "K4b.f32": 4}
+F32_W7_INFER_PER_FORWARD = {"K10.f32": 24, "K3.f32": 24, "K4.f32": 4}
+# `cli.train --no_bf16` against --no_pallas --no_bf16: the first logged
+# loss, relative
+F32_CLI_LOSS_RTOL = 1e-4
 # launches of the f32 video paths: a clip, a train step (with
 # --use_checkpoint: K10 f32's save mode again in every block's recompute)
 F32_VIDEO_PER_CLIP = {"K2p.f32": 2, "K10.f32": 10}
@@ -551,21 +606,21 @@ def ln_work(rows, c, item=2):
     return 8 * rows * c, 2 * rows * c * item + 2 * c * item
 
 
-def ln_bwd_work(rows, c):
-    """K4b: x and g read, dx written (bf16), the f32 scale read and dscale,
-    dbias written; ~16 operations an element (stats, xhat, the two row
-    means, dx, the column sums)."""
-    return 16 * rows * c, 3 * rows * c * 2 + 3 * c * 4
+def ln_bwd_work(rows, c, item=2):
+    """K4b: x and g read, dx written (bf16; f32 for K4b f32: item 4), the
+    f32 scale read and dscale, dbias written; ~16 operations an element
+    (stats, xhat, the two row means, dx, the column sums)."""
+    return 16 * rows * c, 3 * rows * c * item + 3 * c * 4
 
 
 def mlp_work(m, c, backward=False, keep=0, item=2):
     """K3/K8 forward: two GEMMs of 2 M C 4C; K7: five (hpre recomputed,
     dh, dW2, dW1, dyln).  Bytes: x (and gy) read, out (dx) written, the
-    bf16 weights read (item 4: K3 f32's f32 tensors), the f32 weight grads
-    written."""
+    bf16 weights read (item 4: the f32 variants' f32 tensors), the f32
+    weight grads written."""
     w = 8 * c * c * item + 5 * c * item
     if backward:
-        return 40 * m * c * c, 3 * m * c * 2 + w + (8 * c * c + 7 * c) * 4
+        return 40 * m * c * c, 3 * m * c * item + w + (8 * c * c + 7 * c) * 4
     return 16 * m * c * c, 2 * m * c * item + w + keep * 4
 
 
@@ -721,6 +776,60 @@ def compare_out_and_branch(x, tol=None):
     """A check of K3/K8 on out and on the branch out - x."""
     return lambda name, got, want: max(compare(name, got, want, tol),
                                        compare_branch(name, got, want, x, tol))
+
+
+def f64_grads(fn, inputs, gy):
+    """The backward of fn (a PyTorch chain of the kernel's function) by
+    autograd in f64 from the same inputs and gradient: the sums' reference,
+    far past f32's rounding."""
+    import torch
+
+    leaves = [t.detach().double().requires_grad_() for t in inputs]
+    return torch.autograd.grad(fn(*leaves), leaves, gy.double())
+
+
+def sum_err(got, want64):
+    """(max |got - want64| / (rms(want64) + |want64|), the elements where
+    |got - want64| > F32_TOL (1 + |want64|)): the error of an f32 sum over
+    many rows on the scale of its terms' sum, and its misses of 1e-4 abs +
+    rel."""
+    w = want64.double()
+    e = (got.double() - w).abs()
+    return ((e / (w.square().mean().sqrt() + w.abs())).max().item(),
+            int((e > F32_TOL * (1 + w.abs())).sum()))
+
+
+def check_f32_backward(ref64, n_rows):
+    """A check of an f32 backward kernel's outputs: the first n_rows (dx;
+    K9's dq, dk, dv) elementwise within F32_TOL abs + rel of the f32 plain
+    version; each later one, a sum over up to 115,200 rows or 2,592
+    windows (a weight, bias, scale or bias-table grad), against `ref64`
+    (`f64_grads`) within F32_TOL (rms(want) + |want|).  The f32 plain
+    version's own sums miss 1e-4 abs + rel of the f64 values at such
+    sizes (a sum of M terms of O(1) carries f32 rounding of its natural
+    scale); its error is printed beside the kernel's.  Returns the max abs
+    error over every output (the sums' against f64)."""
+    def check(name, got, want):
+        err = max(compare(name, g, w, F32_TOL)
+                  for g, w in zip(got[:n_rows], want[:n_rows]))
+        pairs = list(zip(got[n_rows:], want[n_rows:], ref64[n_rows:]))
+        kern = [sum_err(g, r) for g, _, r in pairs]
+        plain = [sum_err(w, r) for _, w, r in pairs]
+        err = max([err] + [(g.double() - r).abs().max().item()
+                           for g, _, r in pairs])
+        log(f"{name}: its sums against f64, max |err| / (rms + |want|): "
+            f"kernel {max(k for k, _ in kern):.3g}, f32 plain version "
+            f"{max(p for p, _ in plain):.3g} (limit {F32_TOL}); elements "
+            f"past 1e-4 abs + rel of f64: kernel "
+            f"{sum(n for _, n in kern)}, f32 plain version "
+            f"{sum(n for _, n in plain)} of "
+            f"{sum(r.numel() for _, _, r in pairs)}")
+        kern = max(k for k, _ in kern)
+        if kern > F32_TOL:
+            raise RuntimeError(f"{name}: a sum disagrees with its f64 value "
+                               f"({kern:.4g} > {F32_TOL} of rms + |want|)")
+        return err
+    return check
 
 
 def only_port_kernels(what, fns):
@@ -1307,7 +1416,7 @@ class Results:
 
     def __init__(self):
         self.r = {}
-        for k in NAMES + ("save", "K2s", "K10s") + F32_NAMES:
+        for k in NAMES + ("save", "K2s", "K10s") + F32_NAMES + F32_TRAIN_NAMES:
             self.entry(k)
 
     def entry(self, name):
@@ -1720,7 +1829,10 @@ def counters():
             "K4.f32": ln.layer_norm_rows_f32,
             "K10.f32": window_attn.window_attention_f32,
             "K2p.f32": fused_msa.fused_window_msa_grouped_f32,
-            "K9.f32": window_attn.attention_core_bwd_f32}
+            "K9.f32": window_attn.attention_core_bwd_f32,
+            "K8.f32": fused_mlp.fused_ln_mlp_droppath_f32,
+            "K7.f32": fused_mlp.fused_ln_mlp_bwd_f32,
+            "K4b.f32": ln.layer_norm_rows_bwd_f32}
 
 
 def zero_counts():
@@ -2609,11 +2721,13 @@ def train_setup(dev, weights, cfg=None):
     return make_train_step(model, opt, sched, tcfg)
 
 
-def training(dev, card, weights, cfg=None, per_step=None, what="train"):
+def training(dev, card, weights, cfg=None, per_step=None, what="train",
+             profile=False):
     """Steps at batch 8 (timed, counted as `per_step`, by default the
-    window-12 counts; loss falls) and, for the window-12 model, one at
-    batch 16; returns the launches at batch 8 and at batch 16 (None), and
-    the ms per step at batch 8."""
+    window-12 counts; loss falls; with `profile`, one more under
+    torch.profiler) and, for the window-12 model, one at batch 16; returns
+    the launches at batch 8 and at batch 16 (None), and the ms per step at
+    batch 8."""
     import torch
 
     step = train_setup(dev, weights, cfg)
@@ -2644,7 +2758,8 @@ def training(dev, card, weights, cfg=None, per_step=None, what="train"):
     losses = [o["loss"].item() for o in outs]
     if not all(math.isfinite(v) for v in losses):
         raise RuntimeError(f"non-finite training loss: {losses}")
-    log(f"{what} bs {BATCH} bf16 (kernels, AdamW, DropPath 0.3, dropout 0.1): "
+    dtype = "bfloat16" if cfg is None else cfg.dtype
+    log(f"{what} bs {BATCH} {dtype} (kernels, AdamW, DropPath 0.3, dropout 0.1): "
         f"{ms:.3f} ms/step, {BATCH * 1000 / ms:.2f} img/s (mean of "
         f"{TRAIN_STEPS} steps); peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  [{card}]")
@@ -2654,6 +2769,8 @@ def training(dev, card, weights, cfg=None, per_step=None, what="train"):
         f"lr {outs[-1]['lr']:.6g}")
     if not losses[-1] < losses[0]:
         raise RuntimeError(f"{what}: the training loss did not fall")
+    if profile:
+        profile_clip(lambda: step(batch, gen()), card, f"{what} bs-{BATCH} step")
     if cfg is not None:
         return launches, None, ms
 
@@ -4329,45 +4446,325 @@ def video_f32(dev, card, weights):
     return launches
 
 
-def video_training_gate_f32(dev, weights):
-    """The f32 video train step's gate: one forward + backward of
-    lavt_video_tiny in f32 with the kernels (K10 f32's save mode and K9 f32
-    in every 3D block) and of the plain f32 route from the same weights,
-    clip and generator seed, DropPath, dropout and BatchNorm's batch
-    statistics on as in the step: the losses within F32_LOSS_RTOL, every
-    3D block's parameter gradients (relative-position tables included)
+def f32_training_gate(dev, weights, cfg, batch, per_step, blocks, what):
+    """An f32 train step's gate: one forward + backward of `cfg` (f32) with
+    the kernels and of the plain f32 route (`use_kernels=False`) from the
+    same weights, batch and generator seed, DropPath, dropout and
+    BatchNorm's batch statistics on as in the step: the f32 launches equal
+    `per_step`, the losses within F32_LOSS_RTOL, every one of the `blocks`
+    Swin blocks' parameter gradients (relative-position tables included)
     with cosine >= F32_MIN_COS."""
+    seed = SEED + 26
+    ref_loss, ref = gate_run(dev, cfg.replace(use_kernels=False), weights,
+                             True, batch, seed)
+    zero_counts()
+    loss, got = gate_run(dev, cfg, weights, True, batch, seed)
+    launches = read_counts()
+    check_counts(what, launches, per_step, 1)
+    rel = abs(loss - ref_loss) / abs(ref_loss)
+    cos = block_cosines(got, ref)
+    del got, ref
+    if len(cos) != blocks:
+        raise RuntimeError(f"{what}: {len(cos)} blocks, expected {blocks}")
+    worst = min(cos, key=cos.get)
+    log(f"{what} (DropPath, dropout, BN batch statistics): loss kernels "
+        f"{loss:.8f}, plain f32 route {ref_loss:.8f}, rel diff {rel:.3g} "
+        f"(limit {F32_LOSS_RTOL}); {blocks} Swin blocks, worst gradient "
+        f"cosine {cos[worst]:.7f} ({worst}, limit {F32_MIN_COS}), mean "
+        f"{sum(cos.values()) / len(cos):.7f}; launches "
+        f"{nonzero_counts(launches)}")
+    if rel > F32_LOSS_RTOL:
+        raise RuntimeError(f"{what}: loss rel diff {rel:.4g} > "
+                           f"{F32_LOSS_RTOL}")
+    if cos[worst] < F32_MIN_COS:
+        raise RuntimeError(f"{what}: cosine {cos[worst]:.7f} < "
+                           f"{F32_MIN_COS}")
+
+
+def video_training_gate_f32(dev, weights):
+    """The f32 video train step's gate (`f32_training_gate`): lavt_video_
+    tiny in f32, K10 f32's save mode and K9 f32 in its 12 3D blocks."""
     import torch
 
     from lavt_rs_tpu_torch.config import lavt_video_tiny
 
     batch = video_train_batch(
         dev, torch.Generator(device=dev).manual_seed(SEED + 25))
-    seed = SEED + 26
-    cfg = lavt_video_tiny(dtype="float32")
-    ref_loss, ref = gate_run(dev, cfg.replace(use_kernels=False), weights,
-                             True, batch, seed)
-    zero_counts()
-    loss, got = gate_run(dev, cfg, weights, True, batch, seed)
-    launches = read_counts()
-    check_counts("f32 video gate", launches, F32_VIDEO_TRAIN_PER_STEP, 1)
-    rel = abs(loss - ref_loss) / abs(ref_loss)
-    cos = block_cosines(got, ref)
-    del got, ref
-    if len(cos) != 12:
-        raise RuntimeError(f"f32 video gate: {len(cos)} blocks, expected 12")
-    worst = min(cos, key=cos.get)
-    log(f"f32 video training gate (DropPath, dropout, BN batch statistics): "
-        f"loss kernels {loss:.8f}, plain f32 route {ref_loss:.8f}, rel diff "
-        f"{rel:.3g} (limit {F32_LOSS_RTOL}); 12 3D blocks, worst gradient "
-        f"cosine {cos[worst]:.7f} ({worst}, limit {F32_MIN_COS}); launches "
-        f"{nonzero_counts(launches)}")
-    if rel > F32_LOSS_RTOL:
-        raise RuntimeError(f"f32 video gate: loss rel diff {rel:.4g} > "
-                           f"{F32_LOSS_RTOL}")
-    if cos[worst] < F32_MIN_COS:
-        raise RuntimeError(f"f32 video gate: cosine {cos[worst]:.7f} < "
-                           f"{F32_MIN_COS}")
+    f32_training_gate(dev, weights, lavt_video_tiny(dtype="float32"), batch,
+                      F32_VIDEO_TRAIN_PER_STEP, 12, "f32 video training gate")
+
+
+# -- window-7 training in f32: K8 f32, K7 f32, K4b f32 -----------------------------
+
+def f32_train_kernel_phase(dev, res):
+    """K4b f32, K8 f32 and K7 f32 (with keep, a dropped sample among the
+    eight, in the 23 DropPath blocks; without it in stage 1's first) at
+    the four Swin-B stage shapes of a bs-8 window-7 step (M = 8 side², C,
+    hidden 4C), and K10 f32's save mode and K9 f32 at the four window-7
+    shapes (8, nW, h, 49, 32), unshifted and under the shift mask; each
+    against its f32 plain version within F32_TOL abs + rel (K8 f32 also on
+    the branch out - x; K10's save mode's O and lse, and dx, dq, dk, dv
+    elementwise), the backward's sums over rows or windows (K7 f32's
+    weight and bias grads, K4b f32's dscale and dbias, K9 f32's dbias)
+    against f64 (`check_f32_backward`), timed (CUDA events) beside its bound
+    (PEAK_FLOPS_F32), its plain version and its f32 library chain (TF32
+    off: F.layer_norm / linear / GELU / linear for K8, autograd through it
+    for K7, through f32 F.layer_norm for K4b; SDPA over B nW windows and
+    autograd through it for K10's save mode and K9), and on the device
+    with its launches queued; two calls of K4b f32, K7 f32 and K9 f32 give
+    the same bits.  Per training step into `res`."""
+    import torch
+
+    from lavt_rs_tpu_torch.ops import fused_mlp as fm
+    from lavt_rs_tpu_torch.ops import ln
+    from lavt_rs_tpu_torch.ops import window_attn as wa
+    from lavt_rs_tpu_torch.ops.window import (relative_bias_from_table,
+                                              relative_position_index_2d,
+                                              shift_mask_2d)
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 60)
+    f32 = torch.float32
+
+    def rnd(shape, std=1.0):
+        return torch.randn(shape, generator=g, device=dev) * std
+
+    def check(name, got, want):
+        return compare(name, got, want, F32_TOL)
+
+    def check_all(name, got, want):
+        return max(check(name, a, b) for a, b in zip(got, want))
+
+    keep = torch.where(torch.arange(BATCH, device=dev) % 3 != 1, 1.0 / 0.7,
+                       0.0)
+    for si, (side, c, heads, depth) in enumerate(STAGES):
+        rows, tail = BATCH * side * side, side * side
+        what = f"stage {si + 1} ({rows}, {c})"
+        x = rnd((rows, c), 2.0) + 0.5
+        s_, b_ = rnd((c,), 0.2) + 1.0, rnd((c,), 0.2)
+        gy = rnd((rows, c))
+
+        def k4b():
+            return ln.layer_norm_rows_bwd_f32(x, s_, gy)
+
+        measure(res, "K4b.f32", what, 1, k4b,
+                lambda: ln.layer_norm_rows_bwd_plain(x, s_, gy),
+                chain_grad(torch_bf16_ln, (x, s_, b_), gy),
+                ln_bwd_work(rows, c, 4),
+                check_f32_backward(f64_grads(torch_bf16_ln, (x, s_, b_), gy),
+                                   1), peak=PEAK_FLOPS_F32)
+        check_deterministic(f"K4b f32 {what}", k4b)
+        device_per_call(res, "K4b.f32", what, 1, k4b)
+        mlp = (x, s_, b_, rnd((4 * c, c), c ** -0.5), rnd((4 * c,), 0.2),
+               rnd((c, 4 * c), (4 * c) ** -0.5), rnd((c,), 0.2))
+        keep_rows = keep.repeat_interleave(tail)[:, None]
+        dp_blocks = depth - (1 if si == 0 else 0)
+
+        def k8():
+            return fm.fused_ln_mlp_droppath_f32(*mlp, keep, tail)
+
+        measure(res, "K8.f32", f"{what} keep", dp_blocks, k8,
+                lambda: fm.fused_ln_mlp_droppath_plain(*mlp, keep, tail),
+                lambda: torch_bf16_mlp(*mlp, keep_rows),
+                mlp_work(rows, c, keep=BATCH, item=4),
+                lambda name, got, want: max(
+                    check(name, got, want), check(name, got - x, want - x)),
+                peak=PEAK_FLOPS_F32)
+        device_per_call(res, "K8.f32", f"{what} keep", dp_blocks, k8)
+        for kp, calls in [(keep, dp_blocks)] + ([(None, 1)] if si == 0
+                                                else []):
+            kr = None if kp is None else keep_rows
+            bwd = (x, gy, *mlp[1:6], kp, tail)
+
+            def k7(bwd=bwd):
+                return fm.fused_ln_mlp_bwd_f32(*bwd)
+
+            w7 = f"{what} keep {kp is not None}"
+            ref64 = f64_grads(lambda *t, kr=kr: torch_bf16_mlp(
+                *t, None if kr is None else kr.double()), mlp, gy)
+            measure(res, "K7.f32", w7, calls, k7,
+                    lambda bwd=bwd: fm.fused_ln_mlp_bwd_plain(*bwd),
+                    chain_grad(lambda *t, kr=kr: torch_bf16_mlp(*t, kr), mlp,
+                               gy),
+                    mlp_work(rows, c, backward=True, item=4),
+                    check_f32_backward(ref64, 1), peak=PEAK_FLOPS_F32)
+            del ref64
+            check_deterministic(f"K7 f32 {w7}", k7)
+            device_per_call(res, "K7.f32", w7, calls, k7)
+        del x, gy, mlp
+        torch.cuda.empty_cache()
+    sc = 32 ** -0.5
+    index = torch.from_numpy(relative_position_index_2d(7, 7)).to(dev)
+    for si, (side, c, heads, depth) in enumerate(W7_STAGES):
+        nw = (side // 7) ** 2
+        q, k, v, do = (rnd((BATCH, nw, heads, 49, 32)) for _ in range(4))
+        bias = relative_bias_from_table(rnd((13 * 13, heads)), index)
+        for shift in (False, True):
+            mask = shift_mask_2d(side, side, 7, 3, dev) if shift else None
+            masked = masked_windows(mask)
+            am = sdpa_mask(bias, mask, nw, BATCH, f32)
+            what = f"window 7 stage {si + 1} q{tuple(q.shape)} mask {shift}"
+            measure(res, "K10s.f32/w7", what, depth // 2,
+                    lambda m=mask: wa.window_attention_save(q, k, v, bias, m,
+                                                            sc),
+                    lambda m=mask: wa.window_attention_save_plain(
+                        q, k, v, bias, m, sc),
+                    lambda am=am: sdpa_windows(q, k, v, am, sc),
+                    attn_save_work(BATCH, nw, heads, 49, masked, 4),
+                    check_all, peak=PEAK_FLOPS_F32)
+            del am
+            o, lse = wa.window_attention_save(q, k, v, bias, mask, sc)
+
+            def sdpa_chain(q_, k_, v_, b_, mask=mask, nw=nw):
+                return sdpa_windows(q_, k_, v_,
+                                    sdpa_mask(b_, mask, nw, BATCH, f32),
+                                    sc).view(q_.shape)
+
+            def k9(m=mask, o=o, lse=lse, flags=wa.mask_flags(mask)):
+                return wa.attention_core_bwd(q, k, v, bias, m, do, sc, o, lse,
+                                             flags)
+
+            def attn(q_, k_, v_, b_, mask=mask):
+                s_ = q_ @ k_.transpose(-1, -2) * sc + b_
+                s_ = s_ if mask is None else s_ + mask[:, None]
+                return torch.softmax(s_, -1) @ v_
+
+            measure(res, "K9.f32/w7", what, depth // 2, k9,
+                    lambda m=mask, o=o: wa.attention_core_bwd_plain(
+                        q, k, v, bias, m, do, sc, o),
+                    chain_grad(sdpa_chain, (q, k, v, bias), do),
+                    attn_bwd_work(BATCH, nw, heads, 49, masked, 4),
+                    check_f32_backward(f64_grads(attn, (q, k, v, bias), do),
+                                       3), peak=PEAK_FLOPS_F32)
+            check_deterministic(f"K9 f32 {what}", k9)
+            del o, lse
+        del q, k, v, do
+        torch.cuda.empty_cache()
+    for key in F32_TRAIN_NAMES:
+        r = res.r[key]
+        device = (f" (on the device, launches queued: {r['device']:.3f} ms)"
+                  if r["device"] else "")
+        log(f"{key} per window-7 bs-{BATCH} f32 train step: kernel "
+            f"{r['ms']:.3f} ms{device}, bound {r['bound']:.3f} ms "
+            f"({res.bound_by(key)}), plain (f32) {r['plain']:.3f} ms, "
+            f"library (f32, TF32 off) {r['lib']:.3f} ms")
+
+
+def train_cli_f32_phase(dev, card):
+    """`cli.train --no_bf16` at window 7 (the CLI's default) on a synthetic
+    RefCOCO split (TRAIN_REFS train refs, EVAL_REFS val refs), Swin-B
+    480², bs 8, -j 1 (one loader thread: the same batches in every run),
+    weights drawn by the CLI from its seed: epoch 0 with the kernels into
+    a temporary --output-dir, then --resume on it for epoch 1, whose
+    in-train eval runs on the f32 kernels; and epoch 0 with --no_pallas
+    --no_bf16 from the same seed (those two save no checkpoint).  Checks the launches per step
+    (F32_W7_TRAIN_PER_STEP) and per eval batch (F32_W7_INFER_PER_FORWARD),
+    none on the plain run, and the first logged loss against the plain
+    run's (F32_CLI_LOSS_RTOL); prints iteration and data seconds, img/s,
+    the eval's seconds and peak device memory."""
+    import contextlib
+    import gc
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from lavt_rs_tpu_torch.cli import train as cli_train
+    from lavt_rs_tpu_torch.data.refcoco import ReferDataset
+    from lavt_rs_tpu_torch.data.refer import REFER
+    from lavt_rs_tpu_torch.eval import refcoco_eval
+    from lavt_rs_tpu_torch.text.tokenizer import WordPieceTokenizer
+
+    evaluate = refcoco_eval.evaluate
+    counts = {}
+
+    def counted_evaluate(*a, **kw):
+        torch.cuda.synchronize()
+        counts["train"] = read_counts()
+        zero_counts()
+        t0 = time.perf_counter()
+        summary = evaluate(*a, **kw)
+        torch.cuda.synchronize()
+        counts["eval"], counts["eval s"] = (read_counts(),
+                                            time.perf_counter() - t0)
+        return summary
+
+    with tempfile.TemporaryDirectory() as root:
+        vocab = write_refcoco(root, np.random.default_rng(SEED + 30))
+        val = ReferDataset(REFER(root), WordPieceTokenizer.from_vocab_file(
+            vocab), split="val", img_size=480, max_tokens=TOKENS,
+            eval_mode=True)
+        s_pad = max(len(x) for x in val.input_ids)
+        eval_batches = -(-len(val) // -(-refcoco_eval.SENTENCES_PER_BATCH
+                                        // s_pad))
+        steps = TRAIN_REFS // BATCH
+        out = os.path.join(root, "checkpoints")
+        argv = ["--img_size", "480", "--refer_data_root", root, "--dataset",
+                "refcoco", "--splitBy", "unc", "--vocab", vocab, "--device",
+                str(dev), "--no_bf16", "-b", str(BATCH), "-j", "1",
+                "--split", "train", "--val_split", "val", "--print-freq", "1",
+                "--eval_every", "2"]
+
+        def run(extra, what, per_step, per_eval):
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            counts.clear()
+            zero_counts()
+            err = io.StringIO()
+            refcoco_eval.evaluate = counted_evaluate
+            t0 = time.perf_counter()
+            try:
+                with contextlib.redirect_stderr(err):
+                    rec = cli_train.main(argv + extra)
+            finally:
+                refcoco_eval.evaluate = evaluate
+            seconds = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            for line in err.getvalue().splitlines():
+                log(f"train cli f32: {line}")
+            counts.setdefault("train", read_counts())
+            log(f"{what}: launches over {steps} steps "
+                f"{nonzero_counts(counts['train'])}"
+                + (f", over {eval_batches} eval batches "
+                   f"{nonzero_counts(counts['eval'])}" if "eval" in counts
+                   else ""))
+            check_counts(f"{what} steps", counts["train"], per_step, steps)
+            if per_eval is not None:
+                check_counts(f"{what} eval", counts["eval"], per_eval,
+                             eval_batches)
+            lg = rec["logger"]
+            it, dt, loss = lg.iter_time, lg.data_time, lg.meters["loss"]
+            if it.count != steps or not all(map(math.isfinite, loss.deque)):
+                raise RuntimeError(f"{what}: {it.count} steps, losses "
+                                   f"{list(loss.deque)}")
+            log(f"{what}: {steps} steps of {BATCH}: iteration {it.avg:.4f} s "
+                f"mean ({[round(x, 4) for x in it.deque]}), "
+                f"{BATCH / it.avg:.2f} img/s; data wait {dt.avg:.4f} s mean "
+                f"({[round(x, 4) for x in dt.deque]}); losses "
+                f"{[round(x, 8) for x in loss.deque]}"
+                + (f"; eval {counts['eval s']:.2f} s, summary "
+                   f"{rec['summary']}" if "eval s" in counts else "")
+                + f"; whole run {seconds:.1f} s; peak device memory "
+                f"{peak:.2f} GiB  [{card}]")
+            return rec
+
+        rec0 = run(["--epochs", "1", "--output-dir", out],
+                   "train CLI --no_bf16 epoch 0", F32_W7_TRAIN_PER_STEP, None)
+        run(["--epochs", "2", "--resume", out, "--output-dir", ""],
+            "train CLI --no_bf16 epoch 1 (--resume, its f32 eval)",
+            F32_W7_TRAIN_PER_STEP, F32_W7_INFER_PER_FORWARD)
+        plain = run(["--epochs", "1", "--no_pallas", "--output-dir", ""],
+                    "train CLI --no_pallas --no_bf16 epoch 0", {}, None)
+        got = rec0["logger"].meters["loss"].deque[0]
+        want = plain["logger"].meters["loss"].deque[0]
+        rel = abs(got - want) / abs(want)
+        log(f"train CLI --no_bf16: first logged loss {got:.8f} with the "
+            f"kernels, {want:.8f} with --no_pallas, rel diff {rel:.3g} "
+            f"(limit {F32_CLI_LOSS_RTOL})")
+        if rel > F32_CLI_LOSS_RTOL:
+            raise RuntimeError(f"train CLI --no_bf16: first loss rel diff "
+                               f"{rel:.4g} > {F32_CLI_LOSS_RTOL}")
 
 
 # -- window 7, the routing cases, the new widths and the probe -------------------
@@ -4739,20 +5136,25 @@ def routing_video(dev, card):
 
 def f32_refusal(dev):
     """f32 activations with the kernels on the card where a kernel of the
-    plan has no f32 variant (lavt_one training: K4b, K7, K8 at window 7,
-    also K2 and K5 at window 12): build_model raises, naming them, before
-    it allocates a weight or launches a kernel."""
+    plan has no f32 variant (lavt_one training at window 12: the K1/K2
+    save mode, K5 and K6, whichever of K5 and K6 its batch takes): build_
+    model raises, naming them, before it allocates a weight or launches a
+    kernel; window-7 training passes (phase 6b trains it)."""
     import torch
 
     from lavt_rs_tpu_torch.config import lavt_one_base
-    from lavt_rs_tpu_torch.models.factory import (build_model,
+    from lavt_rs_tpu_torch.models.factory import (SAVE_MODE, build_model,
                                                   kernels_without_variant)
 
+    if kernels_without_variant(lavt_one_base(window12=False,
+                                             dtype="float32"), True):
+        raise RuntimeError("window-7 f32 training is refused")
     for what, cfg, train in (
-            ("window-7 training", lavt_one_base(window12=False,
-                                                dtype="float32"), True),
-            ("window-12 training", lavt_one_base(dtype="float32"), True)):
+            ("window-12 training", lavt_one_base(dtype="float32"), True),):
         missing = kernels_without_variant(cfg, train)
+        if missing != sorted([SAVE_MODE, "K5", "K6"]):
+            raise RuntimeError(f"f32 refusal ({what}) names {missing}, not "
+                               f"the save mode, K5 and K6")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         allocated = torch.cuda.memory_allocated(dev)
@@ -5206,9 +5608,32 @@ def main():
     torch.cuda.empty_cache()
     w7_train, _, _ = training(dev, card, w7_weights, w7cfg,
                               W7_TRAIN_PER_STEP, "window-7 train")
-    del w7_weights
     torch.cuda.empty_cache()
     log(f"window 7 done at {time.perf_counter() - t_start:.1f} s")
+
+    # -- 6b. window-7 training in f32: K8 f32, K7 f32, K4b f32 -------------------
+    f32_train_kernel_phase(dev, res)
+    w7f32 = lavt_one_base(window12=False, dtype="float32")
+    plan = {f"{k}.f32": n
+            for k, n in kernel_plan(w7f32, 480, BATCH, True)[0].items()}
+    if plan != F32_W7_TRAIN_PER_STEP:
+        raise RuntimeError(f"window-7 f32 step: the kernel plan at itemsize "
+                           f"4 gives {plan}, not {F32_W7_TRAIN_PER_STEP}")
+    gc_cuda()
+    f32_training_gate(
+        dev, w7_weights, w7f32,
+        train_batch(dev, torch.Generator(device=dev).manual_seed(SEED + 27),
+                    BATCH),
+        F32_W7_TRAIN_PER_STEP, 24, "window-7 f32 training gate")
+    gc_cuda()
+    w7_f32_train, _, _ = training(dev, card, w7_weights, w7f32,
+                                  F32_W7_TRAIN_PER_STEP, "window-7 f32 train",
+                                  profile=True)
+    del w7_weights
+    gc_cuda()
+    train_cli_f32_phase(dev, card)
+    gc_cuda()
+    log(f"window-7 f32 training done at {time.perf_counter() - t_start:.1f} s")
 
     # -- the routing cases and the new widths -------------------------------------
     widths_kernel_phase(dev, res)
@@ -5249,10 +5674,13 @@ def main():
     launches["K9.f32"] = f32_video_train_launches["K9.f32"]
     # the window-7 main path's K10 (per forward) and K9 (per training step)
     launches["K10/w7"], launches["K9/w7"] = w7_infer["K10"], w7_train["K9"]
+    launches.update({k: w7_f32_train[k] for k in F32_TRAIN_NAMES[:3]})
+    launches["K10s.f32/w7"] = w7_f32_train["K10.f32"]
+    launches["K9.f32/w7"] = w7_f32_train["K9.f32"]
     SOURCES.update({"K10/w7": SOURCES["K10"], "K9/w7": SOURCES["K9"]})
     REPLACES.update({"K10/w7": REPLACES["K10"], "K9/w7": REPLACES["K9"]})
     kernels = []
-    for k in NAMES + ("K10/w7", "K9/w7") + F32_NAMES:
+    for k in NAMES + ("K10/w7", "K9/w7") + F32_NAMES + F32_TRAIN_NAMES:
         # K2's launches on the main path are the save mode's at stages 3-4
         r = res.r["K2s" if k == "K2" else k]
         kernels.append({"name": k, "route": "cuda", "source": SOURCES[k],

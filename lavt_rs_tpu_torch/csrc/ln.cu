@@ -613,6 +613,183 @@ cudaError_t launch(const float* x, const float* g, const float* b, float* y, int
 }  // namespace lnr32
 }  // namespace lavt
 
+// K4b f32: K4b's one pass on f32 rows (the XLA backward of the custom_vjp,
+// lavt_rs_tpu/ops/pallas/ln.py:_ln_bwd, on f32 activations): the fast
+// variance recomputed from x, dx written in f32, per block the (2, C)
+// column partials of sum g xhat (dscale) and sum g (dbias), added in block
+// order by lavt_sum_partials.  Bound: bytes (x and g read, dx written, 12
+// bytes an element).  C <= 1024: a warp a row (lane l holds the words l +
+// 32 t, masked past C / 4), blocks of 8 warps, the warps' partials added in
+// order through shared memory; C > 1024: the block on one row at a time
+// (thread i holds the words i + 256 t), its sums through `block_sum2`.  One
+// block an SM, a persistent grid of `per` rows a block (`plan_bwd`,
+// mirrored by ops/ln.py:ln_rows_f32_bwd_plan).  -Xptxas -v (CUDA 12.8, on
+// an H100), 0 bytes spilled: rows_bwd_f32_kernel 48-220 registers (V = 1
+// ... 8), wide_bwd_f32_kernel 118.
+namespace lavt {
+namespace lnr32 {
+
+constexpr int kWideWords = 4;  // float4 words a thread holds at C <= 4096
+
+struct BwdPlan {
+  int per, blocks;
+};
+
+inline BwdPlan plan_bwd(int rows, int C, int sms) {
+  const int step = C > 1024 ? 1 : 8;
+  const int iters = (rows + step - 1) / step;
+  const int want = iters < sms ? iters : sms;
+  const int per = (iters + want - 1) / want * step;
+  return BwdPlan{per, (rows + per - 1) / per};
+}
+
+__device__ __forceinline__ float4 zero4() { return make_float4(0.f, 0.f, 0.f, 0.f); }
+
+template <int V>
+__global__ void __launch_bounds__(256, 1)
+    rows_bwd_f32_kernel(const float* __restrict__ x, const float* __restrict__ g,
+                        const float* __restrict__ gamma, float* __restrict__ dx,
+                        float* __restrict__ part, int rows, int C, int per, float eps) {
+  __shared__ float4 red[2][256];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, words = C / 4;
+  const int r0 = blockIdx.x * per, r1 = min(rows, r0 + per);
+  const auto* g4 = reinterpret_cast<const float4*>(gamma);
+  float4 agx[V], ag[V];
+#pragma unroll
+  for (int t = 0; t < V; ++t) agx[t] = ag[t] = zero4();
+  for (int row = r0 + warp; row < r1; row += 8) {  // warp-uniform
+    const auto* x4 = reinterpret_cast<const float4*>(x + size_t(row) * C);
+    const auto* gr = reinterpret_cast<const float4*>(g + size_t(row) * C);
+    float4 xh[V], gv[V];
+    float s = 0.f, q = 0.f;
+#pragma unroll
+    for (int t = 0; t < V; ++t) {
+      const int w = lane + 32 * t;
+      xh[t] = w < words ? x4[w] : zero4();
+      gv[t] = w < words ? gr[w] : zero4();
+      s += (xh[t].x + xh[t].y) + (xh[t].z + xh[t].w);
+      q += (xh[t].x * xh[t].x + xh[t].y * xh[t].y) + (xh[t].z * xh[t].z + xh[t].w * xh[t].w);
+    }
+    const float mu = warp_sum(s) / C;
+    const float rstd = rsqrtf(warp_sum(q) / C - mu * mu + eps);
+    float4 dxn[V];
+    float m1 = 0.f, m2 = 0.f;
+#pragma unroll
+    for (int t = 0; t < V; ++t) {
+      const int w = lane + 32 * t;
+      const float4 gm = w < words ? g4[w] : zero4();
+      xh[t] = make_float4((xh[t].x - mu) * rstd, (xh[t].y - mu) * rstd, (xh[t].z - mu) * rstd,
+                          (xh[t].w - mu) * rstd);
+      dxn[t] = make_float4(gv[t].x * gm.x, gv[t].y * gm.y, gv[t].z * gm.z, gv[t].w * gm.w);
+      m1 += (dxn[t].x + dxn[t].y) + (dxn[t].z + dxn[t].w);
+      m2 += (dxn[t].x * xh[t].x + dxn[t].y * xh[t].y) + (dxn[t].z * xh[t].z + dxn[t].w * xh[t].w);
+      // masked words: g = 0
+      agx[t] = make_float4(agx[t].x + gv[t].x * xh[t].x, agx[t].y + gv[t].y * xh[t].y,
+                           agx[t].z + gv[t].z * xh[t].z, agx[t].w + gv[t].w * xh[t].w);
+      ag[t] = make_float4(ag[t].x + gv[t].x, ag[t].y + gv[t].y, ag[t].z + gv[t].z,
+                          ag[t].w + gv[t].w);
+    }
+    m1 = warp_sum(m1) / C;
+    m2 = warp_sum(m2) / C;
+    auto* d4 = reinterpret_cast<float4*>(dx + size_t(row) * C);
+#pragma unroll
+    for (int t = 0; t < V; ++t) {
+      const int w = lane + 32 * t;
+      if (w < words)
+        d4[w] = make_float4(rstd * (dxn[t].x - m1 - xh[t].x * m2),
+                            rstd * (dxn[t].y - m1 - xh[t].y * m2),
+                            rstd * (dxn[t].z - m1 - xh[t].z * m2),
+                            rstd * (dxn[t].w - m1 - xh[t].w * m2));
+    }
+  }
+  // the warps' partials in order
+  for (int wp = 0; wp < 8; ++wp) {
+    if (warp == wp) {
+#pragma unroll
+      for (int t = 0; t < V; ++t) {
+        const int w = lane + 32 * t;
+        if (w >= words) continue;
+        const float4 a = wp == 0 ? zero4() : red[0][w], b = wp == 0 ? zero4() : red[1][w];
+        red[0][w] = make_float4(a.x + agx[t].x, a.y + agx[t].y, a.z + agx[t].z, a.w + agx[t].w);
+        red[1][w] = make_float4(b.x + ag[t].x, b.y + ag[t].y, b.z + ag[t].z, b.w + ag[t].w);
+      }
+    }
+    __syncthreads();
+  }
+  auto* dst = reinterpret_cast<float4*>(part + size_t(blockIdx.x) * 2 * C);
+  for (int i = threadIdx.x; i < 2 * words; i += 256) dst[i] = red[i / words][i % words];
+}
+
+__global__ void __launch_bounds__(256, 1)
+    wide_bwd_f32_kernel(const float* __restrict__ x, const float* __restrict__ g,
+                        const float* __restrict__ gamma, float* __restrict__ dx,
+                        float* __restrict__ part, int rows, int C, int per, float eps) {
+  __shared__ float buf[2][2][lnr::kWarps];
+  int parity = 0;
+  const int words = C / 4;
+  const int r0 = blockIdx.x * per, r1 = min(rows, r0 + per);
+  const auto* g4 = reinterpret_cast<const float4*>(gamma);
+  float4 agx[kWideWords], ag[kWideWords];
+#pragma unroll
+  for (int t = 0; t < kWideWords; ++t) agx[t] = ag[t] = zero4();
+  for (int row = r0; row < r1; ++row) {
+    const auto* x4 = reinterpret_cast<const float4*>(x + size_t(row) * C);
+    const auto* gr = reinterpret_cast<const float4*>(g + size_t(row) * C);
+    float4 xh[kWideWords], gv[kWideWords];
+    float s = 0.f, q = 0.f;
+#pragma unroll
+    for (int t = 0; t < kWideWords; ++t) {
+      const int w = threadIdx.x + 256 * t;
+      xh[t] = w < words ? x4[w] : zero4();
+      gv[t] = w < words ? gr[w] : zero4();
+      s += (xh[t].x + xh[t].y) + (xh[t].z + xh[t].w);
+      q += (xh[t].x * xh[t].x + xh[t].y * xh[t].y) + (xh[t].z * xh[t].z + xh[t].w * xh[t].w);
+    }
+    const float2 sums = lnr::block_sum2(s, q, buf, parity);
+    const float mu = sums.x / C;
+    const float rstd = rsqrtf(sums.y / C - mu * mu + eps);
+    float4 dxn[kWideWords];
+    float m1 = 0.f, m2 = 0.f;
+#pragma unroll
+    for (int t = 0; t < kWideWords; ++t) {
+      const int w = threadIdx.x + 256 * t;
+      const float4 gm = w < words ? g4[w] : zero4();
+      xh[t] = make_float4((xh[t].x - mu) * rstd, (xh[t].y - mu) * rstd, (xh[t].z - mu) * rstd,
+                          (xh[t].w - mu) * rstd);
+      dxn[t] = make_float4(gv[t].x * gm.x, gv[t].y * gm.y, gv[t].z * gm.z, gv[t].w * gm.w);
+      m1 += (dxn[t].x + dxn[t].y) + (dxn[t].z + dxn[t].w);
+      m2 += (dxn[t].x * xh[t].x + dxn[t].y * xh[t].y) + (dxn[t].z * xh[t].z + dxn[t].w * xh[t].w);
+      agx[t] = make_float4(agx[t].x + gv[t].x * xh[t].x, agx[t].y + gv[t].y * xh[t].y,
+                           agx[t].z + gv[t].z * xh[t].z, agx[t].w + gv[t].w * xh[t].w);
+      ag[t] = make_float4(ag[t].x + gv[t].x, ag[t].y + gv[t].y, ag[t].z + gv[t].z,
+                          ag[t].w + gv[t].w);
+    }
+    const float2 ms = lnr::block_sum2(m1, m2, buf, parity);
+    m1 = ms.x / C;
+    m2 = ms.y / C;
+    auto* d4 = reinterpret_cast<float4*>(dx + size_t(row) * C);
+#pragma unroll
+    for (int t = 0; t < kWideWords; ++t) {
+      const int w = threadIdx.x + 256 * t;
+      if (w < words)
+        d4[w] = make_float4(rstd * (dxn[t].x - m1 - xh[t].x * m2),
+                            rstd * (dxn[t].y - m1 - xh[t].y * m2),
+                            rstd * (dxn[t].z - m1 - xh[t].z * m2),
+                            rstd * (dxn[t].w - m1 - xh[t].w * m2));
+    }
+  }
+  // every word is one thread's: its partials go out as they are
+  auto* dst = reinterpret_cast<float4*>(part + size_t(blockIdx.x) * 2 * C);
+#pragma unroll
+  for (int t = 0; t < kWideWords; ++t) {
+    const int w = threadIdx.x + 256 * t;
+    if (w < words) dst[w] = agx[t], dst[words + w] = ag[t];
+  }
+}
+
+}  // namespace lnr32
+}  // namespace lavt
+
 // x, out (rows, C) f32, gamma, beta (C,) f32, all 16-byte aligned, C a
 // multiple of 32 up to 4096; two_pass 0: the fast variance (K4, K1's LN),
 // 1: the two-pass one (K3's LN rows).
@@ -629,4 +806,48 @@ extern "C" int lavt_layer_norm_rows_f32(const void* x, const void* gamma, const 
   const auto s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(two_pass ? lavt::lnr32::launch<true>(xf, gf, bf, of, rows, C, eps, s)
                                    : lavt::lnr32::launch<false>(xf, gf, bf, of, rows, C, eps, s));
+}
+
+// The number of (2, C) f32 partials lavt_layer_norm_rows_bwd_f32 writes at
+// (rows, C) on the current device (0: a shape it does not take).
+extern "C" int lavt_layer_norm_rows_bwd_f32_parts(int rows, int C) {
+  const int sms = lavt::lnr::sm_count();
+  if (!lavt::lnr::supported(rows, C) || sms == 0) return 0;
+  return lavt::lnr32::plan_bwd(rows, C, sms).blocks;
+}
+
+// K4b f32.  x, g (rows, C) f32; gamma (C) f32; dx (rows, C) f32; part
+// (parts, 2, C) f32, parts = lavt_layer_norm_rows_bwd_f32_parts(rows, C)
+// (refused otherwise).
+extern "C" int lavt_layer_norm_rows_bwd_f32(const void* x, const void* g, const void* gamma,
+                                            void* dx, void* part, int parts, int rows, int C,
+                                            float eps, void* stream) {
+  using namespace lavt::lnr;
+  const int sms = sm_count();
+  if (!supported(rows, C) || sms == 0 || !aligned(x) || !aligned(g) || !aligned(gamma) ||
+      !aligned(dx) || !aligned(part))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const lavt::lnr32::BwdPlan p = lavt::lnr32::plan_bwd(rows, C, sms);
+  if (parts != p.blocks) return static_cast<int>(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* xf = static_cast<const float*>(x);
+  const auto* gf = static_cast<const float*>(g);
+  const auto* gm = static_cast<const float*>(gamma);
+  auto* df = static_cast<float*>(dx);
+  auto* pf = static_cast<float*>(part);
+  if (C > 1024) {
+    lavt::lnr32::wide_bwd_f32_kernel<<<p.blocks, 256, 0, s>>>(xf, gf, gm, df, pf, rows, C, p.per,
+                                                              eps);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int need = (C / 4 + 31) / 32;
+#define LAVT_CASE(V)                                                                         \
+  if (need <= V) {                                                                           \
+    lavt::lnr32::rows_bwd_f32_kernel<V><<<p.blocks, 256, 0, s>>>(xf, gf, gm, df, pf, rows, C, \
+                                                                 p.per, eps);                \
+    return static_cast<int>(cudaGetLastError());                                             \
+  }
+  LAVT_CASE(1) LAVT_CASE(2) LAVT_CASE(3) LAVT_CASE(4) LAVT_CASE(6) LAVT_CASE(8)
+#undef LAVT_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -4,10 +4,11 @@
 other family raises NotImplementedError naming the ROADMAP.md slice that
 ports it.  f32 activations with the kernels on the card run where every
 kernel of the model's plan has an f32 variant (K1, K11, K3, K4, K10 in
-both modes, K2p, K9: `lavt_one` inference at windows 12 and 7,
-`lavt_video` inference and training); elsewhere (`lavt_one` training: K2,
-the save mode's K5 / K6, K4b, K7, K8) `build_model` refuses them, naming
-the missing variants, before a weight is allocated.
+both modes, K2p, K9, K8, K7, K4b: `lavt_one` inference at windows 12 and
+7 and training at window 7, `lavt_video` inference and training);
+elsewhere (`lavt_one` training at window 12: the K1/K2 save mode, K5,
+K6) `build_model` refuses them, naming the missing variants, before a
+weight is allocated.
 """
 
 from __future__ import annotations
@@ -73,16 +74,23 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
 # the kernels with an f32 variant (ops: fused_window_msa_ln_f32,
 # fused_window_msa_2d_f32, fused_ln_mlp_f32, layer_norm_rows_f32,
 # window_attention_f32 with its save mode, fused_window_msa_grouped_f32,
-# attention_core_bwd_f32)
-F32_KERNELS = frozenset({"K1", "K11", "K3", "K4", "K10", "K2p", "K9"})
+# attention_core_bwd_f32, fused_ln_mlp_droppath_f32, fused_ln_mlp_bwd_f32,
+# layer_norm_rows_bwd_f32); a training plan's K1 / K2 is the save mode,
+# which has none yet
+F32_KERNELS = frozenset({"K1", "K11", "K3", "K4", "K10", "K2p", "K9", "K8",
+                         "K7", "K4b"})
+SAVE_MODE = "K1/K2 save mode"
 
 
 def kernels_without_variant(cfg: ModelConfig, train: bool = False) -> list:
     """The kernels of cfg's plan (its backbone's `kernel_plan` at the compute
     dtype's itemsize, one clip of `num_frames` for lavt_video, per training
     step with `train`) that have no variant for cfg's compute dtype, sorted;
-    [] for bf16 or without the kernels.  The model is built on the meta
-    device: nothing is allocated."""
+    [] for bf16 or without the kernels.  A training step's K1 / K2 (the
+    plan's keys) is named as the save mode (`SAVE_MODE`), and its MSA
+    backward as both K5 and K6, which the step chooses between by its
+    batch: the list holds for every batch size.  The model is built on
+    the meta device: nothing is allocated."""
     dt = cfg.compute_dtype
     if not cfg.use_kernels or dt == torch.bfloat16:
         return []
@@ -94,7 +102,12 @@ def kernels_without_variant(cfg: ModelConfig, train: bool = False) -> list:
     else:
         counts = backbone.kernel_plan(img, 1, dt.itemsize, train)[0]
     have = F32_KERNELS if dt == torch.float32 else frozenset()
-    return sorted(k for k in counts if k not in have)
+    names = set(counts)
+    if train and names & {"K5", "K6"}:
+        names |= {"K5", "K6"}
+    if train and names & {"K1", "K2"}:
+        names = (names - {"K1", "K2"}) | {SAVE_MODE}
+    return sorted(k for k in names if k not in have)
 
 
 def build_model(cfg: ModelConfig, device="cuda",
@@ -123,8 +136,9 @@ def build_model(cfg: ModelConfig, device="cuda",
             f"{'training' if train else 'inference'} plan launches "
             f"{', '.join(missing)}, with no {cfg.dtype} variant yet "
             "(ROADMAP.md queue 2, "
-            "\"f32 kernel variants\"; f32 has K1, K11, K3, K4, K10, K2p and "
-            "K9: lavt_one inference, lavt_video inference and training).  "
+            "\"f32 kernel variants\"; f32 has K1, K11, K3, K4, K10, K2p, K9, "
+            "K8, K7 and K4b: lavt_one inference and window-7 training, "
+            "lavt_video inference and training).  "
             "Use bf16, or the plain versions (use_kernels=False, "
             "--no_pallas), or the CPU")
     with torch.device(device):

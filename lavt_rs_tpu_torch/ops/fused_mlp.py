@@ -15,12 +15,17 @@ and the GELU output are rounded to x's dtype before their GEMMs, as in the
 TPU kernel, and the backward rounds dmlp = gy keep and dhpre before
 theirs.  Weights are torch `nn.Linear` layout: w1 (4C, C), w2 (C, 4C).
 
-K3 f32 (`fused_ln_mlp_f32`) is K3 on f32 activations, as the TPU kernel
-computes it there (its roundings to x.dtype are no-ops): the same three
-launches, each taking its f32 kernel for an f32 tensor (the two-pass LN
-rows of csrc/ln.cu, fc1 + GELU and fc2 + residual on the 3xTF32 GEMM of
-csrc/gemm_f32.cu).  `fused_ln_mlp` takes it for a CUDA f32 tensor; K8 and
-K7 have no f32 variant yet and raise on one.
+K3 f32 (`fused_ln_mlp_f32`), K8 f32 (`fused_ln_mlp_droppath_f32`) and K7
+f32 (`fused_ln_mlp_bwd_f32`) are K3, K8 and K7 on f32 activations, as the
+TPU kernels compute them there (their roundings to x.dtype are no-ops):
+the same launches, each taking its f32 kernel for an f32 tensor.  K3 f32
+and K8 f32: the two-pass LN rows of csrc/ln.cu, fc1 + GELU and fc2 + (keep)
++ residual on the 3xTF32 GEMM of csrc/gemm_f32.cu; K7 f32: csrc/
+fused_mlp_bwd_f32.cu (prep, the dual GEMM, the weight grads split over M
+by `bwd_plan(..., f32=True)`, dyln, the LN-backward rows) on the same
+3xTF32 tile product.  `fused_ln_mlp`, `fused_ln_mlp_droppath` and
+`fused_ln_mlp_bwd` take them for a CUDA f32 tensor, each with its own
+launch counter; no f32 tensor reaches a bf16 kernel.
 
 Each wrapper takes the plain version for a CPU tensor and launches the
 CUDA kernels (csrc/fused_mlp.cu, csrc/fused_mlp_bwd.cu, on the GEMM core of
@@ -44,8 +49,8 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda_lib
-from .fused_msa import (GEMM_F32_GELU, GEMM_F32_RESIDUAL, gemm_f32,
-                        sum_partials)
+from .fused_msa import (GEMM_F32_DEPTH, GEMM_F32_GELU, GEMM_F32_RESIDUAL,
+                        gemm_f32, sum_partials)
 from .ln import layer_norm_rows_f32_launch
 
 EPS = 1e-5
@@ -244,17 +249,15 @@ def gemm_bias_gelu(xn, w1, b1):
 
 def gemm_residual(h, w2, b2, x, keep=None, rows: int = 1):
     """(c) on the card: h (M, hidden), w2 (C, hidden), x (M, C) -> out
-    (f32 -> f32 on the 3xTF32 GEMM, without keep: K8 has no f32 variant
-    yet)."""
+    (f32 -> f32 on the 3xTF32 GEMM, keep in its epilogue)."""
     if h.device.type == "cpu":
         return gemm_residual_plain(h, w2, b2, x, keep, rows)
     (c, hidden), m = w2.shape, x.shape[0]
     _supported(m, c, hidden)
     if h.dtype == torch.float32:
-        if keep is not None:
-            raise NotImplementedError("K8 (keep) has no f32 variant yet "
-                                      "(ROADMAP.md queue 2)")
-        return gemm_f32(h, w2, b2, GEMM_F32_RESIDUAL, res=x)
+        _require_keep(keep, m, rows, x.device)
+        return gemm_f32(h, w2, b2, GEMM_F32_RESIDUAL, res=x, keep=keep,
+                        rows=rows)
     _require_typed([("h", h, (m, hidden)), ("w2", w2, None), ("b2", b2, (c,)),
                    ("x", x, (m, c))], x.device)
     _require_keep(keep, m, rows, x.device)
@@ -278,26 +281,42 @@ class BwdPlan(NamedTuple):
         return self.split_tiles * GEMM_DEPTH
 
 
-def wgrad_split_tiles(m: int, na: int, nb: int, gemms: int = 1) -> int:
-    """The k-tiles (GEMM_DEPTH rows of M) of each split over M of `gemms`
+class BwdPlanF32(BwdPlan):
+    """K7 f32's: its k-tiles are GEMM_F32_DEPTH rows of M."""
+    __slots__ = ()
+
+    @property
+    def split_rows(self) -> int:
+        return self.split_tiles * GEMM_F32_DEPTH
+
+
+def wgrad_split_tiles(m: int, na: int, nb: int, gemms: int = 1,
+                      depth: int = GEMM_DEPTH, per_sm: int = 2) -> int:
+    """The k-tiles (`depth` rows of M) of each split over M of `gemms`
     weight-grad GEMMs (`wgrad`) of (Na, Nb) outputs: as many splits as
-    leave each of the two consumers of every SM one output tile of one of
-    them (no split when the tiles alone fill them), no more than their f32
-    partials fit in `_DW_PARTIAL_BYTES`, no empty split.  K7's dW1/dW2 and
-    K5's dWqkv/dWproj (ops/fused_msa.py) split by this rule."""
-    k_tiles = -(-m // GEMM_DEPTH)
+    leave each of the `per_sm` resident tiles of every SM (the two
+    consumers of the bf16 GEMM core; the one block of the f32 GEMM) one
+    output tile of one of them (no split when the tiles alone fill them),
+    no more than their f32 partials fit in `_DW_PARTIAL_BYTES`, no empty
+    split.  K7's dW1/dW2 and K5's dWqkv/dWproj (ops/fused_msa.py) split by
+    this rule."""
+    k_tiles = -(-m // depth)
     tiles = -(-na // GEMM_TILE) * -(-nb // GEMM_TILE)
     cap = _DW_PARTIAL_BYTES // (4 * na * nb * gemms)
-    splits = max(1, min(2 * _SMS // tiles, cap, k_tiles))
+    splits = max(1, min(per_sm * _SMS // tiles, cap, k_tiles))
     return -(-k_tiles // splits)
 
 
-def bwd_plan(m: int, c: int, hidden: int) -> BwdPlan:
-    """dW1 and dW2 split over M by `wgrad_split_tiles`."""
-    k_tiles = -(-m // GEMM_DEPTH)
-    split_tiles = wgrad_split_tiles(m, hidden, c, gemms=2)
-    return BwdPlan(-(-m // DUAL_ROWS), -(-k_tiles // split_tiles), split_tiles,
-                   -(-m // LN_BWD_ROWS))
+def bwd_plan(m: int, c: int, hidden: int, f32: bool = False) -> BwdPlan:
+    """dW1 and dW2 split over M by `wgrad_split_tiles`: bf16 K7's on the
+    GEMM core (64-row k-tiles, two tiles an SM), or with f32 K7 f32's on
+    the 3xTF32 GEMM (32-row k-tiles, one block an SM)."""
+    depth, per_sm = (GEMM_F32_DEPTH, 1) if f32 else (GEMM_DEPTH, 2)
+    k_tiles = -(-m // depth)
+    split_tiles = wgrad_split_tiles(m, hidden, c, 2, depth, per_sm)
+    return (BwdPlanF32 if f32 else BwdPlan)(
+        -(-m // DUAL_ROWS), -(-k_tiles // split_tiles), split_tiles,
+        -(-m // LN_BWD_ROWS))
 
 
 def _row_block_sums(t, rows: int):
@@ -360,19 +379,36 @@ def ln_bwd_rows_plain(dyln, x, gy, g, stats, keep=None, rows: int = 1):
                             for t in (dyln * xhat, dyln, dmlp)], 1)
 
 
+def _f32(t) -> bool:
+    return t.dtype == torch.float32
+
+
+def _entry(name: str, t) -> str:
+    """The C entry point of a K7 launch for t's dtype: bf16's, or its f32
+    variant's (`<name>_f32`, csrc/fused_mlp_bwd_f32.cu); raises for any
+    other dtype."""
+    if t.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{name}: dtype {t.dtype}, expected bfloat16 or "
+                        f"float32")
+    return f"{name}_f32" if _f32(t) else name
+
+
 def mlp_bwd_prep(x, gy, g, be, keep=None, rows: int = 1, eps: float = EPS):
-    """(a) on the card."""
+    """(a) on the card (bf16, or f32 on K7 f32's kernel; there, without
+    keep, dmlp is gy itself)."""
     if x.device.type == "cpu":
         return mlp_bwd_prep_plain(x, gy, g, be, keep, rows, eps)
+    entry = _entry("lavt_mlp_bwd_prep", x)
     m, c = x.shape
     _supported(m, c, GEMM_TILE)
     _require_typed([("x", x, None), ("gy", gy, (m, c)), ("g", g, (c,)),
-                   ("be", be, (c,))], x.device)
+                   ("be", be, (c,))], x.device, x.dtype)
     _require_keep(keep, m, rows, x.device)
-    xn, dm = torch.empty_like(x), torch.empty_like(x)
+    xn = torch.empty_like(x)
+    dm = gy if _f32(x) and keep is None else torch.empty_like(x)
     stats = torch.empty((m, 2), dtype=torch.float32, device=x.device)
-    _launch("lavt_mlp_bwd_prep", x, gy, g, be, keep, xn, stats, dm, m, c,
-            max(rows, 1), float(eps))
+    _launch(entry, x, gy, g, be, keep, xn, stats, None if dm is gy else dm,
+            m, c, max(rows, 1), float(eps))
     return xn, stats, dm
 
 
@@ -380,38 +416,40 @@ def dual_gemm_gelu_bwd(xn, dmlp, w1, b1, w2):
     """(b) on the card."""
     if xn.device.type == "cpu":
         return dual_gemm_gelu_bwd_plain(xn, dmlp, w1, b1, w2)
+    entry = _entry("lavt_dual_gemm_gelu_bwd", xn)
     (m, c), hidden = xn.shape, w1.shape[0]
     _supported(m, c, hidden)
     _require_typed([("xn", xn, None), ("dmlp", dmlp, (m, c)),
                    ("w1", w1, (hidden, c)), ("b1", b1, (hidden,)),
-                   ("w2", w2, (c, hidden))], xn.device)
+                   ("w2", w2, (c, hidden))], xn.device, xn.dtype)
     h, dhpre = (torch.empty((m, hidden), dtype=xn.dtype, device=xn.device)
                 for _ in range(2))
     db1_part = torch.empty((-(-m // DUAL_ROWS), hidden), dtype=torch.float32,
                            device=xn.device)
-    _launch("lavt_dual_gemm_gelu_bwd", xn, dmlp, w1, b1, w2, h, dhpre,
-            db1_part, m, c, hidden)
+    _launch(entry, xn, dmlp, w1, b1, w2, h, dhpre, db1_part, m, c, hidden)
     return h, dhpre, db1_part
 
 
 def wgrad(a, b, split_rows: int):
     """(c) on the card: a (M, Na), b (M, Nb) bf16, Na and Nb multiples of
     8 (a last tile of fewer than 128 columns is not stored past Nb),
-    split_rows a multiple of 64.  Also K5's dWqkv = dqkvᵀ x and dWproj =
+    split_rows a multiple of 64; f32 (K7 f32's kernel): Na, Nb multiples
+    of 4, split_rows of 32.  Also K5's dWqkv = dqkvᵀ x and dWproj =
     gyᵀ o."""
     if a.device.type == "cpu":
         return wgrad_plain(a, b, split_rows)
+    entry = _entry("lavt_wgrad", a)
     m, na = a.shape
     nb = b.shape[1]
-    if (na % 8 or nb % 8 or split_rows % GEMM_DEPTH or split_rows < 1
+    width, depth = (4, GEMM_F32_DEPTH) if _f32(a) else (8, GEMM_DEPTH)
+    if (na % width or nb % width or split_rows % depth or split_rows < 1
             or m < 1):
         raise ValueError(f"wgrad: unsupported (M, Na, Nb, split rows) "
                          f"{(m, na, nb, split_rows)}")
-    _require_typed([("a", a, None), ("b", b, (m, nb))], a.device)
+    _require_typed([("a", a, None), ("b", b, (m, nb))], a.device, a.dtype)
     splits = -(-m // split_rows)
     part = torch.empty((splits, na, nb), dtype=torch.float32, device=a.device)
-    _launch("lavt_wgrad", a, b, part, m, na, nb, splits,
-            split_rows // GEMM_DEPTH)
+    _launch(entry, a, b, part, m, na, nb, splits, split_rows // depth)
     return part
 
 
@@ -419,12 +457,13 @@ def dgrad(dhpre, w1):
     """(d) on the card: dhpre (M, hidden), w1 (hidden, C) -> (M, C) f32."""
     if dhpre.device.type == "cpu":
         return dgrad_plain(dhpre, w1)
+    entry = _entry("lavt_dgrad", dhpre)
     (hidden, c), m = w1.shape, dhpre.shape[0]
     _supported(m, c, hidden)
     _require_typed([("dhpre", dhpre, (m, hidden)), ("w1", w1, None)],
-                  dhpre.device)
+                   dhpre.device, dhpre.dtype)
     dyln = torch.empty((m, c), dtype=torch.float32, device=dhpre.device)
-    _launch("lavt_dgrad", dhpre, w1, dyln, m, c, hidden)
+    _launch(entry, dhpre, w1, dyln, m, c, hidden)
     return dyln
 
 
@@ -432,18 +471,18 @@ def ln_bwd_rows(dyln, x, gy, g, stats, keep=None, rows: int = 1):
     """(e) on the card."""
     if x.device.type == "cpu":
         return ln_bwd_rows_plain(dyln, x, gy, g, stats, keep, rows)
+    entry = _entry("lavt_ln_bwd_rows", x)
     m, c = x.shape
     _supported(m, c, GEMM_TILE)
     _require_typed([("x", x, None), ("gy", gy, (m, c)), ("g", g, (c,))],
-                  x.device)
+                   x.device, x.dtype)
     cuda_lib.require(dyln, "dyln", torch.float32, x.device, (m, c))
     cuda_lib.require(stats, "stats", torch.float32, x.device, (m, 2))
     _require_keep(keep, m, rows, x.device)
     dx = torch.empty_like(x)
     part = torch.empty((-(-m // LN_BWD_ROWS), 3, c), dtype=torch.float32,
                        device=x.device)
-    _launch("lavt_ln_bwd_rows", dyln, x, gy, g, keep, max(rows, 1), stats, dx,
-            part, m, c)
+    _launch(entry, dyln, x, gy, g, keep, max(rows, 1), stats, dx, part, m, c)
     return dx, part
 
 
@@ -489,25 +528,45 @@ def fused_ln_mlp_f32(x, g, be, w1, b1, w2, b2, eps: float = EPS):
 def fused_ln_mlp_droppath(x, g, be, w1, b1, w2, b2, keep, rows: int,
                           eps: float = EPS):
     """K8: x (M, C) bf16 with M = B rows, keep (B,) f32 -> x + keep[sample]
-    fc2(gelu(fc1(LN(x)))) in bf16."""
+    fc2(gelu(fc1(LN(x)))) in bf16; f32 tokens on the card take K8 f32
+    (`fused_ln_mlp_droppath_f32`)."""
     if x.device.type == "cpu":
         return fused_ln_mlp_droppath_plain(x, g, be, w1, b1, w2, b2, keep,
                                            rows, eps)
+    if x.dtype == torch.float32:
+        return fused_ln_mlp_droppath_f32(x, g, be, w1, b1, w2, b2, keep, rows,
+                                         eps)
     out = _fwd_launch(x, g, be, w1, b1, w2, b2, eps, keep, rows)
     fused_ln_mlp_droppath.launches += 1
     return out
 
 
+def fused_ln_mlp_droppath_f32(x, g, be, w1, b1, w2, b2, keep, rows: int,
+                              eps: float = EPS):
+    """K8 f32: K3 f32's three launches with keep (B,) f32 in fc2's
+    residual epilogue, x + keep[row // rows] fc2(gelu(fc1(LN(x)))) in f32;
+    the plain version on a CPU tensor."""
+    if x.device.type == "cpu":
+        return fused_ln_mlp_droppath_plain(x, g, be, w1, b1, w2, b2, keep,
+                                           rows, eps)
+    _check(x, (g, be, w1, b1, w2, b2), keep, rows, torch.float32)
+    xn = mlp_ln_rows(x, g, be, eps)
+    out = gemm_residual(gemm_bias_gelu(xn, w1, b1), w2, b2, x, keep, rows)
+    fused_ln_mlp_droppath_f32.launches += 1
+    return out
+
+
 def bwd_buffers(m: int, c: int, hidden: int, device,
                 dtype=torch.bfloat16) -> dict:
-    """Every buffer one K7 call writes, in the order `lavt_mlp_bwd` takes
-    them: the (M, C) / (M, hidden) intermediates, cut from one bf16 and
-    one f32 workspace (every piece a multiple of 16 bytes, so each starts
-    aligned for TMA), dx, and the f32 partials that `bwd_plan` sizes:
-    db1 (row tiles, hidden), dW1 and dW2 (splits, 2, hidden C; their own
+    """Every buffer one K7 call writes, in the order `lavt_mlp_bwd` (K7
+    f32: `lavt_mlp_bwd_f32`) takes them: the (M, C) / (M, hidden)
+    intermediates, cut from one workspace of `dtype` and one f32
+    workspace (every piece a multiple of 16 bytes, so each starts aligned
+    for TMA), dx, and the f32 partials that `bwd_plan` sizes: db1 (row
+    tiles, hidden), dW1 and dW2 (splits, 2, hidden C; their own
     allocation: with one split the grads are views of it), dgamma, dbeta
     and db2 (LN blocks, 3, C)."""
-    plan = bwd_plan(m, c, hidden)
+    plan = bwd_plan(m, c, hidden, dtype == torch.float32)
     half = {"xn": (m, c), "dmlp": (m, c), "h": (m, hidden),
             "dhpre": (m, hidden)}
     full = {"dyln": (m, c), "db1_part": (plan.row_tiles, hidden),
@@ -525,16 +584,18 @@ def bwd_buffers(m: int, c: int, hidden: int, device,
                                 "db1_part", "dw_part", "ln_part", "stats")}
 
 
-def _bwd_launch(x, gy, g, be, w1, b1, w2, keep, rows, eps):
-    _check(x, (g, be, w1, b1, w2), keep, rows)
-    cuda_lib.require(gy, "gy", torch.bfloat16, x.device, x.shape)
+def _bwd_launch(x, gy, g, be, w1, b1, w2, keep, rows, eps, dtype):
+    """K7 (bf16) or K7 f32 on the card: every launch in one C call, then
+    the partials' sums."""
+    _check(x, (g, be, w1, b1, w2), keep, rows, dtype)
+    cuda_lib.require(gy, "gy", dtype, x.device, x.shape)
     m, c = x.shape
     hidden = w1.shape[0]
-    plan = bwd_plan(m, c, hidden)
-    buf = bwd_buffers(m, c, hidden, x.device, x.dtype)
-    _launch("lavt_mlp_bwd", x, gy, g, be, w1, b1, w2, keep, max(rows, 1),
-            *buf.values(), m, c, hidden, plan.splits, plan.split_tiles,
-            float(eps))
+    plan = bwd_plan(m, c, hidden, dtype == torch.float32)
+    buf = bwd_buffers(m, c, hidden, x.device, dtype)
+    _launch(_entry("lavt_mlp_bwd", x), x, gy, g, be, w1, b1, w2, keep,
+            max(rows, 1), *buf.values(), m, c, hidden, plan.splits,
+            plan.split_tiles, float(eps))
     dw = sum_partials(buf["dw_part"])
     ln = sum_partials(buf["ln_part"])
     return (buf["dx"], ln[0], ln[1], dw[0].view(hidden, c),
@@ -543,19 +604,38 @@ def _bwd_launch(x, gy, g, be, w1, b1, w2, keep, rows, eps):
 
 def fused_ln_mlp_bwd(x, gy, g, be, w1, b1, w2, keep=None, rows: int = 0,
                      eps: float = EPS):
-    """K7: the backward of K3 (keep None) or K8."""
+    """K7: the backward of K3 (keep None) or K8; f32 tokens on the card
+    take K7 f32 (`fused_ln_mlp_bwd_f32`)."""
     if x.device.type == "cpu":
         return fused_ln_mlp_bwd_plain(x, gy, g, be, w1, b1, w2, keep,
                                       max(rows, 1), eps)
-    out = _bwd_launch(x, gy, g, be, w1, b1, w2, keep, rows, eps)
+    if x.dtype == torch.float32:
+        return fused_ln_mlp_bwd_f32(x, gy, g, be, w1, b1, w2, keep, rows, eps)
+    out = _bwd_launch(x, gy, g, be, w1, b1, w2, keep, rows, eps,
+                      torch.bfloat16)
     fused_ln_mlp_bwd.launches += 1
+    return out
+
+
+def fused_ln_mlp_bwd_f32(x, gy, g, be, w1, b1, w2, keep=None, rows: int = 0,
+                         eps: float = EPS):
+    """K7 f32: the backward of K3 f32 or K8 f32 from f32 x, gy and weights
+    (csrc/fused_mlp_bwd_f32.cu); the plain version on a CPU tensor."""
+    if x.device.type == "cpu":
+        return fused_ln_mlp_bwd_plain(x, gy, g, be, w1, b1, w2, keep,
+                                      max(rows, 1), eps)
+    out = _bwd_launch(x, gy, g, be, w1, b1, w2, keep, rows, eps,
+                      torch.float32)
+    fused_ln_mlp_bwd_f32.launches += 1
     return out
 
 
 fused_ln_mlp.launches = 0
 fused_ln_mlp_f32.launches = 0
 fused_ln_mlp_droppath.launches = 0
+fused_ln_mlp_droppath_f32.launches = 0
 fused_ln_mlp_bwd.launches = 0
+fused_ln_mlp_bwd_f32.launches = 0
 
 
 class FusedLnMlp(torch.autograd.Function):

@@ -312,13 +312,14 @@ GEMM_F32_DEPTH = 32  # K of one pipeline stage: K must be a multiple
 
 
 def gemm_f32(a, w, b, epi: int, res=None, scaled: int = 0,
-             scale: float = 1.0) -> torch.Tensor:
+             scale: float = 1.0, keep=None, rows: int = 1) -> torch.Tensor:
     """The 3xTF32 GEMM of the f32 variants (`lavt_gemm_f32`): out (M, N)
     f32 = epilogue(a wᵀ), a (M, K), w (N, K), b (N,) f32 on the card, K a
     multiple of 32, N even; epi GEMM_F32_BIAS ((· + b) times `scale` on the
     first `scaled` columns), GEMM_F32_GELU (exact GELU of · + b) or
-    GEMM_F32_RESIDUAL (res + · + b).  Its plain versions are its callers'
-    (`gemm_bias_plain`, `fused_mlp.gemm_bias_gelu_plain`,
+    GEMM_F32_RESIDUAL (res + · + b; with keep, (M / rows,) f32, res +
+    keep[row // rows] (· + b): K8 f32).  Its plain versions are its
+    callers' (`gemm_bias_plain`, `fused_mlp.gemm_bias_gelu_plain`,
     `fused_mlp.gemm_residual_plain`)."""
     (m, k), n = a.shape, w.shape[0]
     if k % GEMM_F32_DEPTH or n % 2:
@@ -328,12 +329,18 @@ def gemm_f32(a, w, b, epi: int, res=None, scaled: int = 0,
     checks = [("a", a, f32, None), ("w", w, f32, (n, k)), ("b", b, f32, (n,))]
     if epi == GEMM_F32_RESIDUAL:
         checks.append(("res", res, f32, (m, n)))
+    if keep is not None:
+        if epi != GEMM_F32_RESIDUAL or rows < 1 or m % rows:
+            raise ValueError(f"f32 GEMM kernel: keep takes the residual "
+                             f"epilogue and samples of rows ({m}, {rows})")
+        checks.append(("keep", keep, f32, (m // rows,)))
     _require_all(checks, dev)
     out = torch.empty((m, n), dtype=f32, device=dev)
     err = cuda_lib.lib().lavt_gemm_f32(
         a.data_ptr(), w.data_ptr(), b.data_ptr(),
-        None if res is None else res.data_ptr(), out.data_ptr(), m, n, k,
-        epi, scaled, float(scale), cuda_lib.stream_ptr(dev))
+        None if res is None else res.data_ptr(),
+        None if keep is None else keep.data_ptr(), out.data_ptr(), m, n, k,
+        epi, scaled, float(scale), max(rows, 1), cuda_lib.stream_ptr(dev))
     cuda_lib.check(err, "lavt_gemm_f32")
     return out
 

@@ -19,8 +19,11 @@ K4 f32 (`layer_norm_rows_f32`, csrc/ln.cu) is the same LayerNorm on f32
 rows, as the TPU kernel computes it on f32 activations; `layer_norm_rows`
 takes it for a CUDA f32 tensor (no f32 tensor is cast into the bf16
 kernel).  Its launch `layer_norm_rows_f32_launch` also makes K1 f32's LN
-rows and, with the two-pass variance, K3 f32's.  K4b has no f32 variant
-yet (training in f32 with the kernels is refused, `models/factory.py`).
+rows and, with the two-pass variance, K3 f32's.  K4b f32
+(`layer_norm_rows_bwd_f32`, csrc/ln.cu) is K4b's one pass on f32 rows (dx
+in f32, per block the column partials, its block plan
+`ln_rows_f32_bwd_plan`); `layer_norm_rows_bwd` and `LayerNormRows` take
+it for a CUDA f32 tensor.
 """
 
 from __future__ import annotations
@@ -94,6 +97,17 @@ def ln_rows_plan(rows: int, c: int, sms: int, bwd: bool = False) -> dict:
     per = -(-iters // want) * step
     return {"lanes": lanes, "vecs": vecs, "tail": tail, "per": per,
             "blocks": -(-rows // per)}
+
+
+def ln_rows_f32_bwd_plan(rows: int, c: int, sms: int) -> dict:
+    """K4b f32's launch plan (csrc/ln.cu `lnr32::plan_bwd`): a warp a row
+    (C <= 1024; 8 rows a block at a time) or the block on one row (C >
+    1024), one block an SM, `per` rows a block, `blocks` blocks (one (2,
+    C) partial each)."""
+    step = 1 if c > 1024 else 8
+    iters = -(-rows // step)
+    per = -(-iters // min(iters, sms)) * step
+    return {"per": per, "blocks": -(-rows // per)}
 
 
 def layer_norm_rows_supported(rows: int, c: int) -> bool:
@@ -213,21 +227,67 @@ def layer_norm_rows_bwd_partials_plain(x: torch.Tensor, scale: torch.Tensor,
     partials (sum g xhat, sum g) over the rows of each block of the launch
     plan (`ln_rows_plan` on `sms` SMs; 132: an H100's)."""
     rows, c = x.shape
-    p = ln_rows_plan(rows, c, sms, bwd=True)
+    return _plan_partials(x, scale, g, eps,
+                          ln_rows_plan(rows, c, sms, bwd=True))
+
+
+def _plan_partials(x, scale, g, eps, plan):
+    """The plain backward by rows: dx and the f32 (blocks, 2, C) partials
+    (sum g xhat, sum g) over the rows of each block of a `plan`."""
+    rows, c = x.shape
     dx, gf, xn = _bwd_rows(x, scale, g, eps)
-    pad = p["blocks"] * p["per"] - rows
+    pad = plan["blocks"] * plan["per"] - rows
     both = torch.stack((gf * xn, gf), 1)  # (rows, 2, C)
     both = torch.cat((both, both.new_zeros(pad, 2, c)))
-    return dx, both.view(p["blocks"], p["per"], 2, c).sum(1)
+    return dx, both.view(plan["blocks"], plan["per"], 2, c).sum(1)
+
+
+def layer_norm_rows_bwd_partials_f32_plain(x: torch.Tensor,
+                                           scale: torch.Tensor,
+                                           g: torch.Tensor, eps: float = 1e-5,
+                                           sms: int = 132):
+    """The plain version of `layer_norm_rows_bwd_partials_f32`: dx and the
+    partials over the blocks of `ln_rows_f32_bwd_plan` on `sms` SMs."""
+    rows, c = x.shape
+    return _plan_partials(x, scale, g, eps, ln_rows_f32_bwd_plan(rows, c, sms))
+
+
+def layer_norm_rows_bwd_partials_f32(x: torch.Tensor, scale: torch.Tensor,
+                                     g: torch.Tensor, eps: float = 1e-5):
+    """K4b f32's launch: x, g (rows, C) f32 and the f32 scale -> (dx f32,
+    the f32 (blocks, 2, C) column partials, one per block of its plan).
+    The plain version on a CPU tensor."""
+    if x.device.type == "cpu":
+        return layer_norm_rows_bwd_partials_f32_plain(x, scale, g, eps)
+    if x.dim() != 2:
+        raise ValueError(f"layer_norm_rows_bwd f32 kernel: x must be (rows, "
+                         f"C), got {tuple(x.shape)}")
+    rows, c = x.shape
+    f32 = torch.float32
+    _check_rows([("x", x, f32, None), ("g", g, f32, (rows, c)),
+                 ("scale", scale, f32, (c,))], rows, c, x.device)
+    lib = cuda_lib.lib()
+    parts = lib.lavt_layer_norm_rows_bwd_f32_parts(rows, c)
+    dx = torch.empty_like(x)
+    part = torch.empty((parts, 2, c), dtype=f32, device=x.device)
+    err = lib.lavt_layer_norm_rows_bwd_f32(
+        x.data_ptr(), g.data_ptr(), scale.data_ptr(), dx.data_ptr(),
+        part.data_ptr(), parts, rows, c, float(eps),
+        cuda_lib.stream_ptr(x.device))
+    cuda_lib.check(err, "lavt_layer_norm_rows_bwd_f32")
+    return dx, part
 
 
 def layer_norm_rows_bwd_partials(x: torch.Tensor, scale: torch.Tensor,
                                  g: torch.Tensor, eps: float = 1e-5):
     """K4b's launch: x, g (rows, C) bf16 and the f32 scale -> (dx bf16,
     the f32 (blocks, 2, C) column partials of dscale and dbias, one per
-    block of the launch plan).  The plain version on a CPU tensor."""
+    block of the launch plan).  The plain version on a CPU tensor; f32
+    rows on the card take K4b f32's launch."""
     if x.device.type == "cpu":
         return layer_norm_rows_bwd_partials_plain(x, scale, g, eps)
+    if x.dtype == torch.float32:
+        return layer_norm_rows_bwd_partials_f32(x, scale, g, eps)
     if x.dim() != 2:
         raise ValueError(f"layer_norm_rows_bwd kernel: x must be (rows, C), "
                          f"got {tuple(x.shape)}")
@@ -249,10 +309,10 @@ def layer_norm_rows_bwd_partials(x: torch.Tensor, scale: torch.Tensor,
 
 def layer_norm_rows_bwd_launch(x: torch.Tensor, scale: torch.Tensor,
                                g: torch.Tensor, eps: float = 1e-5):
-    """K4b without its count: (dx, dscale f32, dbias f32), the partials
-    added in block order (`fused_msa.sum_partials`); the plain version on
-    a CPU tensor.  K1's LN backward in `FusedWindowMSA`, which counts as
-    K5."""
+    """K4b (K4b f32 for f32 rows) without its count: (dx, dscale f32,
+    dbias f32), the partials added in block order
+    (`fused_msa.sum_partials`); the plain version on a CPU tensor.  K1's
+    LN backward in `FusedWindowMSA`, which counts as K5."""
     if x.device.type == "cpu":
         return layer_norm_rows_bwd_plain(x, scale, g, eps)
     from .fused_msa import sum_partials  # imports this module
@@ -267,15 +327,33 @@ def layer_norm_rows_bwd(x: torch.Tensor, scale: torch.Tensor,
     """K4b: the backward of `layer_norm_rows` from the output gradient g,
     x and g (rows, C) bf16 and the f32 master scale -> (dx bf16, dscale
     f32, dbias f32).  The plain version on a CPU tensor; on the card the
-    kernel, or it raises."""
+    kernel, or it raises; f32 rows take K4b f32 (`layer_norm_rows_bwd_f32`)."""
     if x.device.type == "cpu":
         return layer_norm_rows_bwd_plain(x, scale, g, eps)
+    if x.dtype == torch.float32:
+        return layer_norm_rows_bwd_f32(x, scale, g, eps)
     out = layer_norm_rows_bwd_launch(x, scale, g, eps)
     layer_norm_rows_bwd.launches += 1
     return out
 
 
+def layer_norm_rows_bwd_f32(x: torch.Tensor, scale: torch.Tensor,
+                            g: torch.Tensor, eps: float = 1e-5):
+    """K4b f32: the same backward from f32 x and g (rows, C) -> (dx f32,
+    dscale f32, dbias f32), on K4b f32's launch and `sum_partials`; the
+    plain version on a CPU tensor."""
+    if x.device.type == "cpu":
+        return layer_norm_rows_bwd_plain(x, scale, g, eps)
+    from .fused_msa import sum_partials  # imports this module
+
+    dx, part = layer_norm_rows_bwd_partials_f32(x, scale, g, eps)
+    sums = sum_partials(part)
+    layer_norm_rows_bwd_f32.launches += 1
+    return dx, sums[0], sums[1]
+
+
 layer_norm_rows_bwd.launches = 0
+layer_norm_rows_bwd_f32.launches = 0
 
 
 class LayerNormRows(torch.autograd.Function):

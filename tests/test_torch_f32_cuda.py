@@ -1,5 +1,5 @@
-"""The f32 variants of K1, K11, K3, K4, K10 (both modes), K2p and K9 on
-the card.  Marked `cuda`; every test skips without a CUDA device.  Runs
+"""The f32 variants of K1, K11, K3, K4, K10 (both modes), K2p, K9, K8, K7
+and K4b on the card.  Marked `cuda`; every test skips without a CUDA device.  Runs
 without JAX:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_f32_cuda.py
@@ -17,8 +17,12 @@ without JAX:
   and 400, masked and not, within 1e-4 abs + rel of their plain versions;
   K9 f32's dbias the same bits in two runs (no atomics);
 * a small f32 window-7 lavt_one and an f32 lavt_video (Video Swin-T, 8
-  frames of 64²) launch their plans, forward and (lavt_video) in a
-  training step, against the plain f32 model.
+  frames of 64²) launch their plans, forward and in a training step,
+  against the plain f32 model;
+* K8 f32, K7 f32 (with keep and without) and K4b f32 at C = 128, 256,
+  512 and 1024 (K4b f32 also at 96 and 1536) on M a multiple of no tile,
+  keep with a zero, within 1e-4 abs + rel of their plain versions, the
+  same bits in two calls.
 """
 
 import numpy as np
@@ -39,12 +43,16 @@ F32 = {"K1": fused_msa.fused_window_msa_ln_f32,
        "K3": fused_mlp.fused_ln_mlp_f32, "K4": ln.layer_norm_rows_f32,
        "K10": window_attn.window_attention_f32,
        "K2p": fused_msa.fused_window_msa_grouped_f32,
-       "K9": window_attn.attention_core_bwd_f32}
+       "K9": window_attn.attention_core_bwd_f32,
+       "K8": fused_mlp.fused_ln_mlp_droppath_f32,
+       "K7": fused_mlp.fused_ln_mlp_bwd_f32, "K4b": ln.layer_norm_rows_bwd_f32}
 BF16 = {"K1": fused_msa.fused_window_msa_ln,
         "K11": fused_msa_2d.fused_window_msa_2d, "K3": fused_mlp.fused_ln_mlp,
         "K4": ln.layer_norm_rows, "K10": window_attn.window_attention,
         "K2p": fused_msa.fused_window_msa_grouped,
-        "K9": window_attn.attention_core_bwd}
+        "K9": window_attn.attention_core_bwd,
+        "K8": fused_mlp.fused_ln_mlp_droppath, "K7": fused_mlp.fused_ln_mlp_bwd,
+        "K4b": ln.layer_norm_rows_bwd}
 
 
 @pytest.fixture
@@ -108,11 +116,17 @@ def test_ln_mlp_f32(dev, m, c):
     want = fused_mlp.fused_ln_mlp_plain(*args)
     _close(got, want)
     _close(got - x, want - x)  # the branch, which x could hide
-    keep = torch.ones(4, device=dev)  # K8 has no f32 variant yet
+    # K8 f32 (keep in the residual epilogue): no f32 tensor into a bf16
+    # kernel, a bf16 one into none of the f32 kernels
+    keep = torch.tensor([1.0 / 0.7, 0.0, 1.0 / 0.7, 1.0 / 0.7], device=dev)
+    got = _once("K8", lambda: fused_mlp.fused_ln_mlp_droppath(*args, keep,
+                                                              m // 4))
+    want = fused_mlp.fused_ln_mlp_droppath_plain(*args, keep, m // 4)
+    _close(got, want)
+    _close(got - x, want - x)
     with pytest.raises(TypeError):
-        fused_mlp.fused_ln_mlp_droppath(*args, keep, m // 4)
-    with pytest.raises(NotImplementedError, match="no f32 variant"):
-        fused_mlp.gemm_residual(x.repeat(1, 4), *args[5:], x, keep, m // 4)
+        fused_mlp.fused_ln_mlp_droppath_f32(x.bfloat16(), *args[1:], keep,
+                                            m // 4)
 
 
 def _msa(rng, dev, c, heads):
@@ -406,5 +420,110 @@ def test_small_f32_video_model_launches_its_plan(dev):
         f32, bf16 = _counts()
         launched = {k: n for k, n in f32.items() if n}
         assert launched == ({"K10": 12, "K9": 12} if kernels else {})
+        assert not any(bf16.values())
+    assert abs(losses[True] - losses[False]) <= 1e-4 * abs(losses[False])
+
+
+# -- K8 f32, K7 f32, K4b f32 ------------------------------------------------------
+
+def _mlp_args(rng, dev, m, c):
+    return (_f32(rng, (m, c), 2.0, dev) + 0.5, _f32(rng, (c,), 0.2, dev) + 1.0,
+            _f32(rng, (c,), 0.2, dev), _f32(rng, (4 * c, c), c ** -0.5, dev),
+            _f32(rng, (4 * c,), 0.2, dev),
+            _f32(rng, (c, 4 * c), (4 * c) ** -0.5, dev),
+            _f32(rng, (c,), 0.2, dev))
+
+
+@pytest.mark.parametrize("m,c,rows", [(901, 128, 53), (459, 256, 51),
+                                      (225, 512, 25), (105, 1024, 35)])
+def test_k8_k7_f32(dev, m, c, rows):
+    """K8 f32 and K7 f32 with keep (a dropped sample among them) and K7
+    f32 without, on M rows that fill no tile; K7 f32's grads are the same
+    bits in two calls (its partials are summed in a fixed order)."""
+    rng = np.random.default_rng(m + c)
+    args = _mlp_args(rng, dev, m, c)
+    x = args[0]
+    keep = torch.where(torch.arange(m // rows, device=dev) % 3 == 1, 0.0,
+                       1.0 / 0.7)
+    got = _once("K8", lambda: fused_mlp.fused_ln_mlp_droppath(*args, keep,
+                                                              rows))
+    want = fused_mlp.fused_ln_mlp_droppath_plain(*args, keep, rows)
+    _close(got, want)
+    _close(got - x, want - x)
+    gy = _f32(rng, (m, c), 1.0, dev)
+    for kp in (keep, None):
+        bwd = (x, gy, *args[1:6], kp, rows)
+        got = _once("K7", lambda: fused_mlp.fused_ln_mlp_bwd(*bwd))
+        want = fused_mlp.fused_ln_mlp_bwd_plain(*bwd)
+        for g, w in zip(got, want):
+            assert g.shape == w.shape
+            _close(g, w)
+        again = fused_mlp.fused_ln_mlp_bwd_f32(*bwd)
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, a) for g, a in zip(got, again))
+    with pytest.raises(TypeError):  # a bf16 gradient into the f32 kernel
+        fused_mlp.fused_ln_mlp_bwd(x, gy.bfloat16(), *args[1:6], keep, rows)
+
+
+@pytest.mark.parametrize("rows,c", [(225, 128), (1001, 256), (333, 512),
+                                    (64, 1024), (33, 96), (50, 1536)])
+def test_layer_norm_rows_bwd_f32(dev, rows, c):
+    rng = np.random.default_rng(rows + c)
+    x = _f32(rng, (rows, c), 2.0, dev) + 0.5
+    s = _f32(rng, (c,), 0.2, dev) + 1.0
+    g = _f32(rng, (rows, c), 1.0, dev)
+    from lavt_rs_tpu_torch.ops import cuda_lib
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert cuda_lib.lib().lavt_layer_norm_rows_bwd_f32_parts(rows, c) == (
+        ln.ln_rows_f32_bwd_plan(rows, c, sms)["blocks"])
+    got = _once("K4b", lambda: ln.layer_norm_rows_bwd(x, s, g))
+    want = ln.layer_norm_rows_bwd_plain(x, s, g)
+    for a, w in zip(got, want):
+        _close(a, w)
+    again = ln.layer_norm_rows_bwd_f32(x, s, g)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_small_f32_window7_model_trains_on_its_plan(dev):
+    """A window-7 lavt_one at 96² in f32 with DropPath on: one training
+    step launches its plan on the f32 kernels (K10 f32's save mode and K9
+    f32 in every block, K3 f32 / K8 f32 and K7 f32 at C = 128 and 256, K4
+    f32 and K4b f32) and no bf16 kernel, its loss within 1e-4 relative of
+    the plain f32 step's from the same weights and generator."""
+    from lavt_rs_tpu_torch.train.optim import TrainConfig
+    from lavt_rs_tpu_torch.train.step import (create_train_state,
+                                              make_train_step)
+
+    cfg = C.ModelConfig(
+        swin=C.SwinConfig(embed_dim=32, depths=(2, 2, 2, 2),
+                          num_heads=(1, 2, 4, 8), window_size=7,
+                          drop_path_rate=0.3),
+        bert=C.BertConfig(num_layers=1), img_size=96, dtype="float32")
+    g = torch.Generator(device=dev).manual_seed(4)
+    weights = build_model(cfg, dev, generator=g).state_dict()
+    batch = {"image": torch.randint(0, 256, (2, 96, 96, 3), generator=g,
+                                    device=dev, dtype=torch.uint8),
+             "ids": torch.randint(1000, 20000, (2, 8), generator=g,
+                                  device=dev),
+             "mask": torch.ones(2, 8, dtype=torch.long, device=dev),
+             "target": torch.randint(0, 2, (2, 96, 96), generator=g,
+                                     device=dev)}
+    losses = {}
+    for kernels in (True, False):
+        t = build_model(cfg.replace(use_kernels=kernels), dev, train=True)
+        t.load_state_dict(weights)
+        plan, _ = t.backbone.kernel_plan((96, 96), 2, 4, True)
+        assert {"K8", "K7", "K4b", "K9"} <= set(plan) or not kernels
+        tcfg = TrainConfig()
+        step = make_train_step(t, *create_train_state(t, tcfg), tcfg)
+        _zero()
+        out = step(batch, torch.Generator(device=dev).manual_seed(5))
+        torch.cuda.synchronize()
+        losses[kernels] = out["loss"].item()
+        f32, bf16 = _counts()
+        assert {k: n for k, n in f32.items() if n} == (plan if kernels
+                                                       else {})
         assert not any(bf16.values())
     assert abs(losses[True] - losses[False]) <= 1e-4 * abs(losses[False])

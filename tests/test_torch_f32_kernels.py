@@ -1,15 +1,17 @@
 """The f32 variants of K1, K11, K3 and K4 on the CPU: their routes, the
 narrowed f32 refusal and `--no_bf16`, and their entry points against the
 Pallas kernels they replace at f32 (K10, K2p and K9 f32:
-tests/test_torch_f32_attn.py).
+tests/test_torch_f32_attn.py; K8, K7 and K4b f32:
+tests/test_torch_f32_train.py).
 
 * `kernel_plan` of `lavt_one_base` at itemsize 4 (480², bs 8): inference
   is K1 4, K11 20, K3 24, K4 4, the bf16 plan; the training plan takes K6
   at stage 1, where f32 residuals exceed the TPU's save cap.
 * `build_model` refuses f32 with the kernels on the card only where the
-  plan holds a kernel without an f32 variant (lavt_one training), naming
-  the missing variants, before any allocation; window-7 and lavt_video
-  inference and the lavt_video training step pass it.
+  plan holds a kernel without an f32 variant (lavt_one training at
+  window 12: the save mode, K5, K6), naming the missing variants, before
+  any allocation; window-7 and lavt_video inference, the window-7
+  lavt_one training step and the lavt_video training step pass it.
 * `--no_bf16` parses to float32, and its help says what runs on the card.
 * `fused_window_msa_ln_f32`, `fused_window_msa_2d_f32`, `fused_ln_mlp_f32`
   and `layer_norm_rows_f32` take their plain versions on CPU tensors
@@ -85,14 +87,16 @@ def test_f32_training_plan_takes_k6_at_stage_1(base_backbone):
 
 
 @pytest.mark.parametrize("cfg,train,missing", [
-    (C.lavt_one_base(window12=False, dtype="float32"), True,
-     ["K4b", "K7", "K8"]),
-    (C.lavt_one_base(dtype="float32"), True, ["K2", "K4b", "K5", "K7", "K8"]),
-], ids=["window7_train", "train"])
+    (C.lavt_one_base(dtype="float32"), True,
+     ["K1/K2 save mode", "K5", "K6"]),
+], ids=["train"])
 def test_f32_refused_where_a_variant_is_missing(cfg, train, missing):
-    """lavt_one training, whose backward kernels have no f32 variant, is
-    refused before any allocation (here, with no card, a later step would
-    raise something else), naming every missing variant."""
+    """Window-12 lavt_one training, whose save mode and MSA backward have
+    no f32 variant, is refused before any allocation (here, with no card,
+    a later step would raise something else), naming every missing
+    variant at any batch size: the save mode apart from K1's inference
+    variant, and K6 beside K5 (a bs-8 f32 step takes K6 at stage 1; the
+    plan at bs 1 holds K5 alone)."""
     assert kernels_without_variant(cfg, train) == missing
     with pytest.raises(NotImplementedError,
                        match="f32 kernel variants") as err:
@@ -104,12 +108,14 @@ def test_f32_refused_where_a_variant_is_missing(cfg, train, missing):
     (C.lavt_one_base(window12=False, dtype="float32"), False),
     (C.lavt_video_tiny().replace(dtype="float32"), False),
     (C.lavt_video_tiny().replace(dtype="float32"), True),
-], ids=["window7", "lavt_video", "lavt_video_train"])
+    (C.lavt_one_base(window12=False, dtype="float32"), True),
+], ids=["window7", "lavt_video", "lavt_video_train", "window7_train"])
 def test_f32_passes_the_refusal_with_k10_k2p_k9(cfg, train):
     """Window-7 inference (K10, K3, K4), lavt_video inference (K2p, K10)
-    and its training step (K10's save mode, K9) have every f32 variant:
-    `build_model` does not refuse them (without a card it fails later, at
-    the first allocation, with another error)."""
+    and its training step (K10's save mode, K9), and the window-7
+    lavt_one training step (K10's save mode, K9, K3, K8, K7, K4, K4b)
+    have every f32 variant: `build_model` does not refuse them (without a
+    card it fails later, at the first allocation, with another error)."""
     assert kernels_without_variant(cfg, train) == []
     if torch.cuda.is_available():
         pytest.skip("a card would build the model")
@@ -141,10 +147,11 @@ def test_no_bf16_parses_to_float32_and_says_what_runs():
     assert kernels_without_variant(cfg) == []
     assert model_config_from_args(parser.parse_args([])).dtype == "bfloat16"
     text = " ".join(parser.format_help().split())
-    assert ("for inference (lavt_one at windows 12 and 7, lavt_video) and "
-            "lavt_video training (K1, K11, K3, K4, K10, K2p, K9 have f32 "
-            "variants)") in text
-    assert "lavt_one training in f32 needs --no_pallas or --device cpu" in text
+    assert ("for inference (lavt_one at windows 12 and 7, lavt_video), "
+            "lavt_one training at window 7 and lavt_video training (K1, K11, "
+            "K3, K4, K10, K2p, K9, K8, K7, K4b have f32 variants)") in text
+    assert ("lavt_one training in f32 at --window12 needs --no_pallas or "
+            "--device cpu") in text
     window7 = model_config_from_args(parser.parse_args(["--no_bf16"]))
     assert window7.swin.window_size == 7 and kernels_without_variant(
         window7) == []

@@ -157,15 +157,17 @@ def test_kernel_plan_at_full_width(monkeypatch, name, n, train, want):
 def test_f32_with_kernels_on_the_card_is_refused():
     """build_model refuses f32 activations with the kernels on a CUDA
     device where the plan holds a kernel without an f32 variant (lavt_one
-    training: K4b, K7 and K8 at window 7, also K2 and K5 at window 12),
-    before it allocates a weight (so it raises here, without a card); the
-    plain versions and the CPU still take f32.  Inference at windows 12
-    and 7 and lavt_video have their f32 variants
+    training at window 12: the save mode, K5 and K6), before it allocates
+    a weight (so it raises here, without a card); the plain versions and
+    the CPU still take f32.  Inference at windows 12 and 7, window-7
+    training and lavt_video have their f32 variants
     (tests/test_torch_f32_kernels.py)."""
     cfg = C.lavt_one_base(window12=False, dtype="float32")
     assert kernels_without_variant(cfg) == []
-    with pytest.raises(NotImplementedError, match="K4b, K7, K8"):
-        build_model(cfg, device="cuda", train=True)
+    assert kernels_without_variant(cfg, True) == []
+    with pytest.raises(NotImplementedError, match="K1/K2 save mode, K5, K6"):
+        build_model(C.lavt_one_base(dtype="float32"), device="cuda",
+                    train=True)
     with pytest.raises(NotImplementedError, match="f32 kernel variants"):
         build_model(C.lavt_one_base(dtype="float32"),
                     device=torch.device("cuda", 0), train=True)
