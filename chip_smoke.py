@@ -289,6 +289,35 @@
        eval batch checked), and epoch 0 with --no_pallas --no_bf16: the
        first logged losses within 1e-4 relative; iteration and data
        seconds, img/s, peak memory.
+6c. Window-12 training in f32 (`--window12 --no_bf16` with the kernels:
+   the K1/K2 save mode f32, K5 f32, K6 f32 and K2 f32 beside K1 f32, K3,
+   K8, K7, K4 and K4b f32), TF32 off:
+     * the save mode f32 at stage 2 (with LN) and stages 3-4, K5 f32 at
+       stages 2-4 on its residuals and K6 f32 at stage 1 (bs 8), K6 f32 at
+       every stage and K2 f32 (the taped, exact form; the clamp form
+       checked too) at stages 3-4 (bs 20), shifted and unshifted, each
+       within 1e-4 abs + rel of its f32 plain version, K5 f32's and K6
+       f32's sums over rows or windows within 1e-4 (rms + |want|) of
+       their f64 values; timed per call and per step beside the bound,
+       the plain version and the f32 library chain, and on the device;
+       two K5 f32 calls give the same bits;
+     * F7 on stage 1's geometry with logits past 80 (a bias table of std
+       60): K1 f32 at inference against the clamp plain version, the
+       taped K1 f32 and K6 f32's recomputed P against the exact one;
+     * the gate of a bs-8 step against the plain f32 step (loss within
+       1e-4 relative, each of the 24 Swin blocks' gradient cosine >=
+       0.999, launches equal to the plan: K1 f32 2 / save mode f32 22 /
+       K5 f32 22 / K6 f32 2 / K3 f32 1 / K8 f32 23 / K7 f32 24 / K4 f32 4
+       / K4b f32 4, no bf16 launch), 10 timed steps (ms/step, img/s, peak
+       memory, falling loss) and one under torch.profiler (device busy,
+       idle share);
+     * one bs-20 step with --use_checkpoint (every block recomputes: K1
+       f32 / K2 f32 taped and K6 f32, no K5; peak memory) and its gate
+       against the plain f32 route with --use_checkpoint;
+     * `cli.train --window12 --no_bf16` (-j 1, one 3-step epoch and its
+       f32 eval, launches per step and per eval batch checked) against
+       `--no_pallas --no_bf16`: the first logged loss within 1e-4
+       relative.
 7. The routing cases: the kernels at the widths the routing added (K4
    and K4b at 1536, K3/K8/K7 at 384, K1/K2/save/K5/K6/K11 at 96) against their plain
    versions with bound / plain / library times; forwards of Swin-T
@@ -296,11 +325,10 @@
    Swin-L window 12 and lavt_video --window12, each with launch counts
    equal to its model's kernel plan, each route that launches no kernel printed
    with its reason (every one a route where the JAX package runs XLA), and
-   the pixel gate against the f32 plain model; f32 with the kernels
-   refused, naming the variants still missing (the K1/K2 save mode, K5,
-   K6), before any launch or allocation where a kernel of the plan has
-   no f32 variant (lavt_one training at window 12); one Swin-T window-12
-   training
+   the pixel gate against the f32 plain model; f32 with the kernels:
+   nothing left to refuse (window-12 training builds), and the guard,
+   with K5's f32 variant taken away for the check, refuses before any
+   launch or allocation, naming K5; one Swin-T window-12 training
    step at bs 2 (the save mode and K5 at C = 96).
 8. P1 / P2 (the head-batching probe) against their plain version on an
    input whose softmax is far from uniform (x at std 0.4, 1e-3 abs +
@@ -411,6 +439,11 @@ REPLACES = {
     "K4b.f32": "lavt_rs_tpu/ops/pallas/ln.py:89",
     "K10s.f32/w7": "lavt_rs_tpu/ops/pallas/window_attn.py:165",
     "K9.f32/w7": "lavt_rs_tpu/ops/pallas/window_attn.py:292",
+    "save.f32": "lavt_rs_tpu/ops/pallas/fused_msa.py:1083",
+    "K5.f32": "lavt_rs_tpu/ops/pallas/fused_msa.py:672",
+    "K6.f32": "lavt_rs_tpu/ops/pallas/fused_msa.py:576",
+    "K6.f32/bs20": "lavt_rs_tpu/ops/pallas/fused_msa.py:576",
+    "K2.f32": "lavt_rs_tpu/ops/pallas/fused_msa.py:1261",
 }
 SOURCES = {
     "K1": "lavt_rs_tpu_torch/csrc/fused_msa_sm90.cu",
@@ -448,6 +481,14 @@ SOURCES = {
     "K4b.f32": "lavt_rs_tpu_torch/csrc/ln.cu",
     "K10s.f32/w7": "lavt_rs_tpu_torch/csrc/window_attn_f32.cu",
     "K9.f32/w7": "lavt_rs_tpu_torch/csrc/window_attn_bwd_f32.cu",
+    # the save mode f32 and K2 f32: the attention launch (their GEMMs:
+    # gemm_f32.cu); K5 f32 and K6 f32: the attention backward (their
+    # products: fused_mlp_bwd_f32.cu; K6 f32's forward: fused_msa_f32.cu)
+    "save.f32": "lavt_rs_tpu_torch/csrc/fused_msa_f32.cu",
+    "K5.f32": "lavt_rs_tpu_torch/csrc/fused_msa_bwd_f32.cu",
+    "K6.f32": "lavt_rs_tpu_torch/csrc/fused_msa_bwd_f32.cu",
+    "K6.f32/bs20": "lavt_rs_tpu_torch/csrc/fused_msa_bwd_f32.cu",
+    "K2.f32": "lavt_rs_tpu_torch/csrc/fused_msa_f32.cu",
 }
 # Swin-B at 480²: (tokens per side, C, heads, blocks) per stage
 STAGES = ((120, 128, 4, 2), (60, 256, 8, 2), (30, 512, 16, 18),
@@ -531,6 +572,31 @@ F32_NAMES = ("K1.f32", "K11.f32", "K3.f32", "K4.f32", "K10.f32/w7",
 # f32 (their counters' names), K10 f32's save mode and K9 f32 at N = 49
 # (counted on "K10.f32" and "K9.f32")
 F32_TRAIN_NAMES = ("K8.f32", "K7.f32", "K4b.f32", "K10s.f32/w7", "K9.f32/w7")
+# ... and of the window-12 f32 training steps (phase 6c): the K1/K2 save
+# mode f32, K5 f32, K6 f32 (per bs-8 step, at stage 1), K6 f32 per bs-20
+# step (every block) and K2 f32 (per bs-20 step, stages 3-4); their
+# counters are "save.f32", "K5.f32", "K6.f32" (both batch sizes) and
+# "K2.f32"
+F32_W12_TRAIN_NAMES = ("save.f32", "K5.f32", "K6.f32", "K6.f32/bs20",
+                       "K2.f32")
+# the batch of the window-12 f32 step whose every block recomputes
+# (`save_residuals_ok` is False at every stage from bs 19 on)
+BATCH_F32_BIG = 20
+# launches of a window-12 bs-8 f32 step: stage 1 recomputes (K1 f32 taped,
+# exact, then K6 f32), stages 2-4 save (the save mode f32, K5 f32)
+F32_W12_TRAIN_PER_STEP = {"K1.f32": 2, "save.f32": 22, "K5.f32": 22,
+                          "K6.f32": 2, "K3.f32": 1, "K8.f32": 23,
+                          "K7.f32": 24, "K4.f32": 4, "K4b.f32": 4}
+# ... of a bs-20 step with --use_checkpoint (every block's forward kernels
+# run again in its recompute): K1 f32 / K2 f32 taped and K6 f32 everywhere
+F32_W12_BIG_PER_STEP = {"K1.f32": 8, "K2.f32": 40, "K6.f32": 24,
+                        "K3.f32": 2, "K8.f32": 46, "K7.f32": 24,
+                        "K4.f32": 4, "K4b.f32": 4}
+# launches of a window-12 f32 eval batch (the f32 inference forward)
+F32_W12_INFER_PER_FORWARD = {"K1.f32": 4, "K11.f32": 20, "K3.f32": 24,
+                             "K4.f32": 4}
+# F7: the std of the bias table that drives window-12 logits past 80
+F7_BIAS_STD = 60.0
 # launches of a window-7 bs-8 f32 step (the bf16 step's, on the f32
 # variants) and of a window-7 f32 eval batch
 F32_W7_TRAIN_PER_STEP = {"K10.f32": 24, "K9.f32": 24, "K8.f32": 23,
@@ -630,14 +696,14 @@ def msa_work(b, nw, c, heads, mode, ln=False, mask=True, item=2):
     GEMMs and two N x N x hd products per window and head forward; the
     backward's dattn (2), dx (6), dWqkv (6), dWproj (2 rows C²) GEMMs and
     five N x N x hd products, plus, recomputing, the qkv GEMM and q kᵀ.
-    Activations and weights of `item` bytes (4: K1 f32 and K11 f32)."""
+    Activations, weights and P of `item` bytes (4: the f32 variants)."""
     n, hd = 144, 32
     rows, m = b * nw * n, b * nw
     att = 2 * m * heads * n * n * hd
     act = rows * c * item
     weights = 4 * c * c * item + 4 * c * item
     tables = heads * n * n * 4 + (nw * n * n * 4 if mask else 0)
-    p_bytes = m * heads * n * n * 2
+    p_bytes = m * heads * n * n * item
     grads = (4 * c * c + 4 * c + heads * n * n) * 4
     if mode == "fwd":
         return 8 * rows * c * c + 2 * att, 2 * act + weights + tables
@@ -1416,7 +1482,8 @@ class Results:
 
     def __init__(self):
         self.r = {}
-        for k in NAMES + ("save", "K2s", "K10s") + F32_NAMES + F32_TRAIN_NAMES:
+        for k in (NAMES + ("save", "K2s", "K10s") + F32_NAMES + F32_TRAIN_NAMES
+                  + F32_W12_TRAIN_NAMES):
             self.entry(k)
 
     def entry(self, name):
@@ -1832,7 +1899,11 @@ def counters():
             "K9.f32": window_attn.attention_core_bwd_f32,
             "K8.f32": fused_mlp.fused_ln_mlp_droppath_f32,
             "K7.f32": fused_mlp.fused_ln_mlp_bwd_f32,
-            "K4b.f32": ln.layer_norm_rows_bwd_f32}
+            "K4b.f32": ln.layer_norm_rows_bwd_f32,
+            "K2.f32": fused_msa.fused_window_msa_f32,
+            "save.f32": fused_msa.fused_window_msa_save_f32,
+            "K5.f32": fused_msa.fused_window_msa_bwd_f32,
+            "K6.f32": fused_msa.fused_window_msa_bwd_recompute_f32}
 
 
 def zero_counts():
@@ -4649,7 +4720,7 @@ def f32_train_kernel_phase(dev, res):
             f"library (f32, TF32 off) {r['lib']:.3f} ms")
 
 
-def train_cli_f32_phase(dev, card):
+def train_cli_f32_phase(dev, card, window12=False):
     """`cli.train --no_bf16` at window 7 (the CLI's default) on a synthetic
     RefCOCO split (TRAIN_REFS train refs, EVAL_REFS val refs), Swin-B
     480², bs 8, -j 1 (one loader thread: the same batches in every run),
@@ -4660,7 +4731,10 @@ def train_cli_f32_phase(dev, card):
     (F32_W7_TRAIN_PER_STEP) and per eval batch (F32_W7_INFER_PER_FORWARD),
     none on the plain run, and the first logged loss against the plain
     run's (F32_CLI_LOSS_RTOL); prints iteration and data seconds, img/s,
-    the eval's seconds and peak device memory."""
+    the eval's seconds and peak device memory.  With `window12`
+    (`--window12 --no_bf16`): epoch 0 with the kernels and its f32 eval
+    (F32_W12_TRAIN_PER_STEP a step, F32_W12_INFER_PER_FORWARD an eval
+    batch), then epoch 0 with --no_pallas --no_bf16, no checkpoint."""
     import contextlib
     import gc
     import io
@@ -4749,22 +4823,336 @@ def train_cli_f32_phase(dev, card):
                 f"{peak:.2f} GiB  [{card}]")
             return rec
 
-        rec0 = run(["--epochs", "1", "--output-dir", out],
-                   "train CLI --no_bf16 epoch 0", F32_W7_TRAIN_PER_STEP, None)
-        run(["--epochs", "2", "--resume", out, "--output-dir", ""],
-            "train CLI --no_bf16 epoch 1 (--resume, its f32 eval)",
-            F32_W7_TRAIN_PER_STEP, F32_W7_INFER_PER_FORWARD)
+        tag = " --window12" if window12 else ""
+        if window12:
+            argv.append("--window12")
+            rec0 = run(["--epochs", "1", "--eval_every", "1", "--output-dir",
+                        ""], "train CLI --window12 --no_bf16 epoch 0 (its "
+                       "f32 eval)", F32_W12_TRAIN_PER_STEP,
+                       F32_W12_INFER_PER_FORWARD)
+        else:
+            rec0 = run(["--epochs", "1", "--output-dir", out],
+                       "train CLI --no_bf16 epoch 0", F32_W7_TRAIN_PER_STEP,
+                       None)
+            run(["--epochs", "2", "--resume", out, "--output-dir", ""],
+                "train CLI --no_bf16 epoch 1 (--resume, its f32 eval)",
+                F32_W7_TRAIN_PER_STEP, F32_W7_INFER_PER_FORWARD)
         plain = run(["--epochs", "1", "--no_pallas", "--output-dir", ""],
-                    "train CLI --no_pallas --no_bf16 epoch 0", {}, None)
+                    f"train CLI{tag} --no_pallas --no_bf16 epoch 0", {}, None)
         got = rec0["logger"].meters["loss"].deque[0]
         want = plain["logger"].meters["loss"].deque[0]
         rel = abs(got - want) / abs(want)
-        log(f"train CLI --no_bf16: first logged loss {got:.8f} with the "
+        log(f"train CLI{tag} --no_bf16: first logged loss {got:.8f} with the "
             f"kernels, {want:.8f} with --no_pallas, rel diff {rel:.3g} "
             f"(limit {F32_CLI_LOSS_RTOL})")
         if rel > F32_CLI_LOSS_RTOL:
-            raise RuntimeError(f"train CLI --no_bf16: first loss rel diff "
-                               f"{rel:.4g} > {F32_CLI_LOSS_RTOL}")
+            raise RuntimeError(f"train CLI{tag} --no_bf16: first loss rel "
+                               f"diff {rel:.4g} > {F32_CLI_LOSS_RTOL}")
+
+
+# -- window-12 training in f32: the save mode f32, K5 f32, K6 f32, K2 f32 ---------
+
+def msa_chain(x, wqkv, bqkv, wproj, bproj, bias, mask, heads, scale):
+    """The window MSA as a PyTorch chain in x's dtype (the f64 reference
+    of K5 f32's and K6 f32's sums; no library yardstick)."""
+    b, nw, n, c = x.shape
+    qkv = (x @ wqkv.t() + bqkv).view(b, nw, n, 3, heads, c // heads)
+    q, k, v = qkv.permute(3, 0, 1, 4, 2, 5)
+    s = (q * scale) @ k.transpose(-1, -2) + bias
+    if mask is not None:
+        s = s + mask[:, None]
+    o = (s.softmax(-1) @ v).permute(0, 1, 3, 2, 4).reshape(b, nw, n, c)
+    return o @ wproj.t() + bproj
+
+
+def f32_step_counts(cfg, batch):
+    """The f32 counters of one training step of `cfg` at 480² and `batch`,
+    from its blocks' own kernels (`SwinBlock.kernels`, at itemsize 4): a
+    block's K1 / K2 counts on the save mode f32 where its backward is K5,
+    else on K1 f32 / K2 f32 (the taped forward); every other kernel on its
+    f32 variant's counter; the stage norms' K4 / K4b from the model's
+    `kernel_plan`, whose counts these add up to."""
+    from lavt_rs_tpu_torch.models.factory import build_model
+
+    backbone = build_model(cfg, "meta", train=True).backbone
+    plan, _ = backbone.kernel_plan((480, 480), batch, 4, True)
+    counts = {f"{k}.f32": plan[k] for k in ("K4", "K4b") if k in plan}
+    hw = (120, 120)
+    total = {}
+    for layer in backbone.layers:
+        for blk in layer.blocks:
+            ks = blk.kernels(hw, batch, 4, True)
+            for k in ks:
+                total[k] = total.get(k, 0) + 1
+                key = ("save" if k in ("K1", "K2") and "K5" in ks else k)
+                counts[f"{key}.f32"] = counts.get(f"{key}.f32", 0) + 1
+        hw = ((hw[0] + 1) // 2, (hw[1] + 1) // 2)
+    total.update({k: plan[k] for k in ("K4", "K4b") if k in plan})
+    if total != plan:
+        raise RuntimeError(f"the blocks' kernels {total} do not add up to "
+                           f"the plan {plan}")
+    return counts
+
+
+def f32_msa_train_kernel_phase(dev, res):
+    """The window-12 f32 training path's MSA kernels at its shapes (Swin-B
+    480²), shifted and unshifted, each against its f32 plain version
+    within F32_TOL abs + rel (the save mode f32: y, q, k, v, P and xn; K5
+    f32 and K6 f32: dx, and their sums over rows or windows, dWqkv, dbqkv,
+    dWproj, dbproj, dbias, within F32_TOL (rms + |want|) of their f64
+    values, `check_f32_backward`), timed (CUDA events) beside its bound
+    (PEAK_FLOPS_F32), its plain version and its f32 library chain (TF32
+    off: the matmul chain for the save mode, whose P SDPA does not return;
+    the faster of the matmul and linear / SDPA / linear chains, or of
+    autograd through them, for K2 f32, K5 f32 and K6 f32), and on the
+    device with its launches queued:
+      * bs 8 (the 10-step run): K6 f32 at stage 1 (with LN), the save mode
+        f32 at stage 2 (with LN) and 3-4 (without), K5 f32 at stages 2-4
+        on the save mode's residuals (two calls give the same bits);
+      * bs 20 (every block recomputes): K6 f32 at every stage and K2 f32
+        (the taped form, exact; the clamp form checked) at stages 3-4;
+      * F7 at stage 1's geometry with logits past 80 (a bias table of std
+        F7_BIAS_STD): K1 f32 at inference takes the clamp form, the taped
+        K1 f32 and K6 f32's recomputed P the exact one, K6 f32 there
+        against its plain version.
+    Per training step into `res`."""
+    import torch
+
+    from lavt_rs_tpu_torch.ops import fused_msa as fm
+    from lavt_rs_tpu_torch.ops.ln import layer_norm_rows_plain
+    from lavt_rs_tpu_torch.ops.window import (relative_bias_from_table,
+                                              relative_position_index_2d,
+                                              shift_mask_2d,
+                                              shift_mask_flags_2d)
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 70)
+    sc = 32 ** -0.5
+    index = torch.from_numpy(relative_position_index_2d(12, 12)).to(dev)
+
+    def rnd(shape, std=1.0):
+        return torch.randn(shape, generator=g, device=dev) * std
+
+    def check(name, got, want):
+        return compare(name, got, want, F32_TOL)
+
+    def check_saved(name, got, want):
+        err = check(name, got[0], want[0])
+        for part, a, b in zip(("q", "k", "v", "p", "xn"), got[1], want[1]):
+            if (a is None) != (b is None):
+                raise RuntimeError(f"{name}: {part} missing")
+            if a is not None:
+                err = max(err, check(f"{name} {part}", a, b))
+        return err
+
+    def ref64(xin, w, bias, mask, heads, gy):
+        return f64_grads(lambda *t: msa_chain(
+            *t, None if mask is None else mask.double(), heads, sc),
+            (xin, *w, bias), gy)
+
+    def inputs(b, side, c, heads, ln, bias_std=1.0):
+        hp = -(-side // 12) * 12
+        nw = (hp // 12) ** 2
+        x = rnd((b, nw, 144, c), 2.0 if ln else 1.0) + (0.5 if ln else 0.0)
+        w = (rnd((3 * c, c), c ** -0.5), rnd((3 * c,), 0.2),
+             rnd((c, c), c ** -0.5), rnd((c,), 0.2))
+        bias = relative_bias_from_table(rnd((23 * 23, heads), bias_std),
+                                        index)
+        lnp = (rnd((c,), 0.2) + 1.0, rnd((c,), 0.2)) if ln else None
+        return hp, nw, x, w, bias, lnp
+
+    def masks(hp, shift):
+        return ((shift_mask_2d(hp, hp, 12, 6, dev),
+                 shift_mask_flags_2d(hp, hp, 12, 6, dev)) if shift
+                else (None, None))
+
+    def k6_case(name, what, calls, x, lnp, w, bias, mask, flags, heads, gy):
+        b, nw, _, c = x.shape
+        tail = (*w, bias, mask)
+
+        def k6():
+            return fm.fused_window_msa_bwd_recompute(x, lnp, *tail, gy, heads,
+                                                     sc, flags=flags)
+
+        lib, _ = msa_bwd_yardstick(f"{name} {what}",
+                                   (x, *w, bias) + tuple(lnp or ()), gy, mask,
+                                   heads, sc, forward=True)
+        xin = x if lnp is None else layer_norm_rows_plain(x, *lnp)
+        measure(res, name, what, calls, k6,
+                lambda: fm.fused_window_msa_bwd_recompute_plain(
+                    x, lnp, *tail, gy, heads, sc), lib,
+                msa_work(b, nw, c, heads, "recompute", ln=lnp is not None,
+                         mask=mask is not None, item=4),
+                check_f32_backward(ref64(xin, w, bias, mask, heads, gy), 1),
+                peak=PEAK_FLOPS_F32)
+        device_per_call(res, name, what, calls, k6)
+        del lib
+
+    # -- bs 8: the save mode f32, K5 f32 (stages 2-4), K6 f32 (stage 1)
+    for si, (side, c, heads, depth) in enumerate(STAGES):
+        ln = si < 2
+        hp, nw, x, w, bias, lnp = inputs(BATCH, side, c, heads, ln)
+        gy = rnd(x.shape)
+        for shift in (False, True):
+            mask, flags = masks(hp, shift)
+            tail = (*w, bias, mask, heads, sc)
+            what = f"stage {si + 1} x{tuple(x.shape)} heads {heads} mask {shift}"
+            if si == 0:
+                k6_case("K6.f32", what, depth // 2, x, lnp, w, bias, mask,
+                        flags, heads, gy)
+                continue
+            msa_fwd_yardstick(f"save.f32 {what}", x, tail, lnp)
+
+            def save(tail=tail, flags=flags):
+                return fm.fused_window_msa_save(x, lnp, *tail, flags=flags)
+
+            measure(res, "save.f32", what, depth // 2, save,
+                    lambda tail=tail: fm.fused_window_msa_save_plain(
+                        x, lnp, *tail),
+                    lambda tail=tail: torch_bf16_msa(x, *tail, ln=lnp),
+                    msa_work(BATCH, nw, c, heads, "save", ln=ln, mask=shift,
+                             item=4), check_saved, peak=PEAK_FLOPS_F32)
+            device_per_call(res, "save.f32", what, depth // 2, save)
+            _, saved = save()
+            xin = x if lnp is None else saved[4].view(x.shape)
+            resid = saved[:4]
+
+            def k5(xin=xin, resid=resid):
+                return fm.fused_window_msa_bwd(xin, gy, w[0], w[2], resid,
+                                               heads, sc)
+
+            lib, _ = msa_bwd_yardstick(f"K5.f32 {what}",
+                                       (x, *w, bias) + tuple(lnp or ()), gy,
+                                       mask, heads, sc)
+            measure(res, "K5.f32", what, depth // 2, k5,
+                    lambda xin=xin, resid=resid:
+                        fm.fused_window_msa_bwd_plain(xin, gy, w[0], w[2],
+                                                      resid, heads, sc),
+                    lib, msa_work(BATCH, nw, c, heads, "bwd", item=4),
+                    check_f32_backward(ref64(xin, w, bias, mask, heads, gy),
+                                       1), peak=PEAK_FLOPS_F32)
+            check_deterministic(f"K5 f32 {what}", k5)
+            device_per_call(res, "K5.f32", what, depth // 2, k5)
+            del saved, resid, xin, lib
+        del x, gy
+        torch.cuda.empty_cache()
+
+    # -- F7: stage 1's geometry, logits past 80
+    hp, nw, x, w, bias, lnp = inputs(BATCH, 120, 128, 4, True, F7_BIAS_STD)
+    mask, flags = masks(hp, True)
+    tail = (*w, bias, mask, 4, sc)
+    clamp = fm.fused_window_msa_ln_plain(x, *lnp, *tail, exact=False)
+    exact = fm.fused_window_msa_ln_plain(x, *lnp, *tail)
+    gap = (clamp - exact).abs().max().item()
+    if not gap > 1e-2:
+        raise RuntimeError(f"F7: the logits do not pass 80 (clamp and exact "
+                           f"forms differ by {gap:.3g})")
+    e_inf = check("K1.f32 F7 inference (clamp)", fm.fused_window_msa_ln(
+        x, *lnp, *tail, flags=flags), clamp)
+    e_tap = check("K1.f32 F7 taped (exact)", fm.fused_window_msa_ln(
+        x, *lnp, *tail, flags=flags, exact=True), exact)
+    _, saved = fm.attn_launches(x, lnp, w[0], w[1], bias, mask, 4, sc,
+                                flags=flags)
+    _, want = fm.fused_window_msa_save_plain(x, lnp, *tail)
+    e_p = check("K6.f32 F7 recomputed P", saved[3], want[3])
+    del saved, want
+    gy = rnd(x.shape)
+    got = fm.fused_window_msa_bwd_recompute(x, lnp, *tail[:6], gy, 4, sc,
+                                            flags=flags)
+    plain = fm.fused_window_msa_bwd_recompute_plain(x, lnp, *tail[:6], gy, 4,
+                                                    sc)
+    e_dx = check("K6.f32 F7 dx", got[0], plain[0])
+    log(f"F7 (logits past 80, bias std {F7_BIAS_STD}, x{tuple(x.shape)}): "
+        f"clamp and exact forms differ by {gap:.4g}; K1 f32 at inference "
+        f"against the clamp plain version {e_inf:.3g}, taped against the "
+        f"exact one {e_tap:.3g}; K6 f32's recomputed P against the exact "
+        f"P {e_p:.3g}, its dx {e_dx:.3g} (limit {F32_TOL} abs + rel)")
+    del x, gy, got, plain, clamp, exact
+    torch.cuda.empty_cache()
+
+    # -- bs 20: K6 f32 at every stage, K2 f32 (taped, exact) at stages 3-4
+    for si, (side, c, heads, depth) in enumerate(STAGES):
+        ln = si < 2
+        hp, nw, x, w, bias, lnp = inputs(BATCH_F32_BIG, side, c, heads, ln)
+        gy = rnd(x.shape)
+        for shift in (False, True):
+            mask, flags = masks(hp, shift)
+            tail = (*w, bias, mask, heads, sc)
+            what = f"stage {si + 1} x{tuple(x.shape)} heads {heads} mask {shift}"
+            k6_case("K6.f32/bs20", what, depth // 2, x, lnp, w, bias, mask,
+                    flags, heads, gy)
+            if ln:
+                continue
+
+            def k2(tail=tail, flags=flags):
+                return fm.fused_window_msa(x, *tail, flags=flags, exact=True)
+
+            lib, _ = msa_fwd_yardstick(f"K2.f32 {what}", x, tail, None)
+            measure(res, "K2.f32", what, depth // 2, k2,
+                    lambda tail=tail: fm.fused_window_msa_plain(x, *tail),
+                    lib, msa_work(BATCH_F32_BIG, nw, c, heads, "fwd",
+                                  mask=shift, item=4), check,
+                    peak=PEAK_FLOPS_F32)
+            device_per_call(res, "K2.f32", what, depth // 2, k2)
+            e = check("K2.f32 clamp form", fm.fused_window_msa(
+                x, *tail, flags=flags), fm.fused_window_msa_plain(
+                    x, *tail, exact=False))
+            log(f"K2.f32 {what}: the clamp form (JAX fused_window_msa) "
+                f"against its plain version, max abs err {e:.3g}")
+            del lib
+        del x, gy
+        torch.cuda.empty_cache()
+    for key in F32_W12_TRAIN_NAMES:
+        r = res.r[key]
+        per = f"bs-{BATCH_F32_BIG}" if key in ("K6.f32/bs20", "K2.f32") \
+            else f"bs-{BATCH}"
+        log(f"{key} per window-12 {per} f32 train step: kernel "
+            f"{r['ms']:.3f} ms (on the device, launches queued: "
+            f"{r['device']:.3f} ms), bound {r['bound']:.3f} ms "
+            f"({res.bound_by(key)}), plain (f32) {r['plain']:.3f} ms, "
+            f"library (f32, TF32 off) {r['lib']:.3f} ms")
+
+
+def f32_big_step(dev, card, weights):
+    """One window-12 f32 AdamW step at bs BATCH_F32_BIG with
+    --use_checkpoint (`train.step.make_train_step`), where every block
+    recomputes: its launches equal F32_W12_BIG_PER_STEP (K1 f32 / K2 f32
+    taped, K6 f32 in every block, no K5), its loss finite; host ms and
+    peak device memory printed; then its gate against the plain f32 route
+    with --use_checkpoint (`f32_training_gate`).  Returns the launches."""
+    import gc
+
+    import torch
+
+    from lavt_rs_tpu_torch.config import lavt_one_base
+
+    cfg = lavt_one_base(dtype="float32").replace(use_checkpoint=True)
+    g = torch.Generator(device=dev).manual_seed(SEED + 29)
+    batch = train_batch(dev, g, BATCH_F32_BIG)
+    step = train_setup(dev, weights, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    out = step(batch, torch.Generator(device=dev).manual_seed(SEED + 3))
+    loss = out["loss"].item()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"window-12 f32 train step bs {BATCH_F32_BIG} --use_checkpoint: loss "
+        f"{loss:.6f}, {ms:.1f} ms (one step, host clock, the first at this "
+        f"batch), peak device memory {peak:.2f} GiB; launches "
+        f"{nonzero_counts(launches)}  [{card}]")
+    if not math.isfinite(loss):
+        raise RuntimeError("window-12 f32 bs-20 step: non-finite loss")
+    check_counts("window-12 f32 bs-20 step", launches, F32_W12_BIG_PER_STEP,
+                 1)
+    del step, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    f32_training_gate(dev, weights, cfg, batch, F32_W12_BIG_PER_STEP, 24,
+                      f"window-12 f32 bs-{BATCH_F32_BIG} gate "
+                      "(--use_checkpoint)")
+    return launches
 
 
 # -- window 7, the routing cases, the new widths and the probe -------------------
@@ -5135,50 +5523,60 @@ def routing_video(dev, card):
 
 
 def f32_refusal(dev):
-    """f32 activations with the kernels on the card where a kernel of the
-    plan has no f32 variant (lavt_one training at window 12: the K1/K2
-    save mode, K5 and K6, whichever of K5 and K6 its batch takes): build_
-    model raises, naming them, before it allocates a weight or launches a
-    kernel; window-7 training passes (phase 6b trains it)."""
+    """Nothing is left to refuse: every plan has its f32 variants
+    (`kernels_without_variant` is [] for window-12 and window-7 training),
+    and window-12 f32 training builds on the card (phase 6c trains it).
+    The refusal stays as the guard for a kernel added without its f32
+    variant: with K5's taken out of `factory.F32_KERNELS` for the check,
+    `build_model` refuses window-12 training, naming K5, before it
+    allocates a weight or launches a kernel."""
+    import gc
+
     import torch
 
     from lavt_rs_tpu_torch.config import lavt_one_base
-    from lavt_rs_tpu_torch.models.factory import (SAVE_MODE, build_model,
-                                                  kernels_without_variant)
+    from lavt_rs_tpu_torch.models import factory
 
-    if kernels_without_variant(lavt_one_base(window12=False,
-                                             dtype="float32"), True):
-        raise RuntimeError("window-7 f32 training is refused")
-    for what, cfg, train in (
-            ("window-12 training", lavt_one_base(dtype="float32"), True),):
-        missing = kernels_without_variant(cfg, train)
-        if missing != sorted([SAVE_MODE, "K5", "K6"]):
-            raise RuntimeError(f"f32 refusal ({what}) names {missing}, not "
-                               f"the save mode, K5 and K6")
+    w12 = lavt_one_base(dtype="float32")
+    for what, cfg in (("window-12 training", w12),
+                      ("window-7 training", lavt_one_base(
+                          window12=False, dtype="float32"))):
+        missing = factory.kernels_without_variant(cfg, True)
+        if missing:
+            raise RuntimeError(f"f32 {what} lacks the variants {missing}")
+    model = factory.build_model(w12, dev, train=True)
+    log(f"f32 + kernels on the card, window-12 training: nothing to refuse, "
+        f"the model builds ({sum(p.numel() for p in model.parameters())} "
+        f"parameters)")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    have = factory.F32_KERNELS
+    factory.F32_KERNELS = have - {"K5"}
+    try:
+        missing = factory.kernels_without_variant(w12, True)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         allocated = torch.cuda.memory_allocated(dev)
         zero_counts()
         try:
-            build_model(cfg, dev, train=train)
+            factory.build_model(w12, dev, train=True)
         except NotImplementedError as e:
             message = str(e)
         else:
-            raise RuntimeError(f"f32 with the kernels on the card was not "
-                               f"refused: {what}")
-        if ("f32 kernel variants" not in message or not missing
-                or not all(k in message for k in missing)):
-            raise RuntimeError(f"f32 refusal ({what}) names no ROADMAP item "
-                               f"or not the missing variants {missing}: "
-                               f"{message}")
-        launched = {k: v for k, v in read_counts().items() if v}
-        peak = torch.cuda.max_memory_allocated(dev)
-        if launched or peak != allocated:
-            raise RuntimeError(f"f32 refusal ({what}) came after work: "
-                               f"launches {launched}, {peak - allocated} B "
-                               f"allocated")
-        log(f"f32 + kernels on the card, {what}: refused before any launch "
-            f"or allocation: {message}")
+            raise RuntimeError("the f32 guard did not refuse a plan whose K5 "
+                               "had no f32 variant")
+    finally:
+        factory.F32_KERNELS = have
+    if missing != ["K5"] or "launches K5," not in message:
+        raise RuntimeError(f"the f32 guard names {missing}: {message}")
+    launched = {k: v for k, v in read_counts().items() if v}
+    peak = torch.cuda.max_memory_allocated(dev)
+    if launched or peak != allocated:
+        raise RuntimeError(f"the f32 guard came after work: launches "
+                           f"{launched}, {peak - allocated} B allocated")
+    log(f"the f32 guard (K5's variant taken away for the check): refused "
+        f"before any launch or allocation: {message}")
 
 
 def routing_training_step(dev, card):
@@ -5556,6 +5954,8 @@ def main():
     train_launches, big_launches, step_ms = training(dev, card, weights)
     defer(functools.partial(ln_bwd_step_check, card))
     checkpoint_training(dev, card, weights)
+    # kept on the host for the window-12 f32 training phase (6c)
+    w12_weights = {k: v.cpu() for k, v in weights.items()}
     del weights
     torch.cuda.empty_cache()
     log(f"training done at {time.perf_counter() - t_start:.1f} s")
@@ -5635,6 +6035,37 @@ def main():
     gc_cuda()
     log(f"window-7 f32 training done at {time.perf_counter() - t_start:.1f} s")
 
+    # -- 6c. window-12 training in f32: the save mode f32, K5 f32, K6 f32, K2 f32
+    f32_msa_train_kernel_phase(dev, res)
+    gc_cuda()
+    w12f32 = lavt_one_base(dtype="float32")
+    for what, got, want in (
+            ("window-12 bs-8 f32 step", f32_step_counts(w12f32, BATCH),
+             F32_W12_TRAIN_PER_STEP),
+            (f"window-12 bs-{BATCH_F32_BIG} f32 step, --use_checkpoint",
+             f32_step_counts(w12f32.replace(use_checkpoint=True),
+                             BATCH_F32_BIG), F32_W12_BIG_PER_STEP)):
+        if got != want:
+            raise RuntimeError(f"{what}: the kernel plan at itemsize 4 gives "
+                               f"{got}, not {want}")
+    f32_training_gate(
+        dev, w12_weights, w12f32,
+        train_batch(dev, torch.Generator(device=dev).manual_seed(SEED + 28),
+                    BATCH),
+        F32_W12_TRAIN_PER_STEP, 24, "window-12 f32 training gate")
+    gc_cuda()
+    w12_f32_train, _, _ = training(dev, card, w12_weights, w12f32,
+                                   F32_W12_TRAIN_PER_STEP,
+                                   "window-12 f32 train", profile=True)
+    gc_cuda()
+    w12_f32_big = f32_big_step(dev, card, w12_weights)
+    del w12_weights
+    gc_cuda()
+    train_cli_f32_phase(dev, card, window12=True)
+    gc_cuda()
+    log(f"window-12 f32 training done at "
+        f"{time.perf_counter() - t_start:.1f} s")
+
     # -- the routing cases and the new widths -------------------------------------
     widths_kernel_phase(dev, res)
     routing_forward(dev, card, "Swin-T window 7", lavt_one_tiny(), 480, 2)
@@ -5677,10 +6108,14 @@ def main():
     launches.update({k: w7_f32_train[k] for k in F32_TRAIN_NAMES[:3]})
     launches["K10s.f32/w7"] = w7_f32_train["K10.f32"]
     launches["K9.f32/w7"] = w7_f32_train["K9.f32"]
+    launches.update({k: w12_f32_train[k] for k in F32_W12_TRAIN_NAMES[:3]})
+    launches["K6.f32/bs20"] = w12_f32_big["K6.f32"]
+    launches["K2.f32"] = w12_f32_big["K2.f32"]
     SOURCES.update({"K10/w7": SOURCES["K10"], "K9/w7": SOURCES["K9"]})
     REPLACES.update({"K10/w7": REPLACES["K10"], "K9/w7": REPLACES["K9"]})
     kernels = []
-    for k in NAMES + ("K10/w7", "K9/w7") + F32_NAMES + F32_TRAIN_NAMES:
+    for k in (NAMES + ("K10/w7", "K9/w7") + F32_NAMES + F32_TRAIN_NAMES
+              + F32_W12_TRAIN_NAMES):
         # K2's launches on the main path are the save mode's at stages 3-4
         r = res.r["K2s" if k == "K2" else k]
         kernels.append({"name": k, "route": "cuda", "source": SOURCES[k],

@@ -114,12 +114,10 @@ def add_model_args(p: argparse.ArgumentParser):
                    help="bf16 compute (default)")
     p.add_argument("--no_bf16", dest="bf16", action="store_false",
                    help="f32 activations: on the card with the kernels "
-                        "for inference (lavt_one at windows 12 and 7, "
-                        "lavt_video), lavt_one training at window 7 and "
-                        "lavt_video training (K1, K11, K3, K4, K10, K2p, "
-                        "K9, K8, K7, K4b have f32 variants); lavt_one "
-                        "training in f32 at --window12 needs --no_pallas "
-                        "or --device cpu")
+                        "for inference and training (lavt_one at windows "
+                        "12 and 7, lavt_video; every kernel has an f32 "
+                        "variant: K1, K2, the K1/K2 save mode, K5, K6, "
+                        "K11, K3, K4, K10, K2p, K9, K8, K7, K4b)")
     p.add_argument("--use_amp", dest="bf16", action="store_true",
                    help="reference alias for bf16 compute")
     p.add_argument("--no_pallas", action="store_true",

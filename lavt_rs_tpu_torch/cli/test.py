@@ -13,9 +13,9 @@ JAX package routes them.  `--no_bf16` (f32 activations, as the published
 RefCOCO and A2D checkpoints were trained) runs on the card with the
 kernels' f32 variants: K1, K11, K3 and K4 at `--window12`, K10 f32 (and
 K3 f32, K4 f32) at window 7, K2p f32 and K10 f32 in lavt_video (`--dataset
-a2d`).  Only lavt_one training in f32 is still refused with the kernels
-(`cli.train`; its backward kernels have no f32 variant), where
-`--no_pallas` (the plain versions) or `--device cpu` runs f32.
+a2d`).  Training in f32 (`cli.train --no_bf16`, at either window) runs on
+the f32 variants too; `--no_pallas` (the plain versions) and `--device
+cpu` also run f32.
 `--synthetic` runs a tiny random window-7 model
 on a 4-ref synthetic dataset (no data needed); `--device cpu` runs on the
 host.

@@ -32,8 +32,8 @@ overlays) is ROADMAP.md item 27 and raises.
 
 `--no_bf16` runs the video in f32 on the card with the kernels' f32
 variants (K2p f32 at stage 1, K10 f32 in the other blocks; lavt_one's
-frame batches on K1/K11 or K10 f32 with K3 f32 and K4 f32); only lavt_one
-training in f32 is refused with the kernels.
+frame batches on K1/K11 or K10 f32 with K3 f32 and K4 f32); training in
+f32 (`cli.train --no_bf16`) runs on the f32 variants too.
 """
 
 from __future__ import annotations

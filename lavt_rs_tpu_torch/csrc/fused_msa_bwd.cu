@@ -5,7 +5,11 @@
 //     bias-table grads, K7's, K9's dbias): no float atomics, so two runs of
 //     one step give the same bits.
 //   lavt_colsum_bf16: f32 column sums of a bf16 matrix by row splits
-//     (K5's dbproj), partials for lavt_sum_partials.
+//     (K5's dbproj), partials for lavt_sum_partials;
+//   lavt_colsum_f32: the same of an f32 matrix of any width (K5 f32's
+//     dbproj and dbqkv).
+
+#include <cstdint>
 
 #include "common.cuh"
 
@@ -63,6 +67,36 @@ __global__ void __launch_bounds__(256)
   }
 }
 
+// part[z cols + c] = sum of x[r, c] over rows r of split z, x f32; a block
+// of 256 threads per (split z, 128 columns): 32 lanes of 4 columns (a warp
+// reads 512 contiguous bytes of a row) by 8 row lanes, lane l every 8th row
+// from l, the 8 lanes' sums then added in order.  cols % 4 == 0.
+__global__ void __launch_bounds__(256)
+    colsum_f32_kernel(const float* __restrict__ x, float* __restrict__ part, int rows, int cols,
+                      int rows_per_split) {
+  __shared__ float4 red[8][32];
+  const int chunk = threadIdx.x % 32, lane = threadIdx.x / 32;
+  const int c0 = blockIdx.y * 128 + 4 * chunk;
+  const int r0 = blockIdx.x * rows_per_split, r1 = min(rows, r0 + rows_per_split);
+  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (c0 < cols) {
+    for (int r = r0 + lane; r < r1; r += 8) {
+      const float4 v = *reinterpret_cast<const float4*>(x + static_cast<size_t>(r) * cols + c0);
+      s.x += v.x, s.y += v.y, s.z += v.z, s.w += v.w;
+    }
+  }
+  red[lane][chunk] = s;
+  __syncthreads();
+  if (lane == 0 && c0 < cols) {
+    float4 t = red[0][chunk];
+    for (int l = 1; l < 8; ++l) {
+      const float4 v = red[l][chunk];
+      t.x += v.x, t.y += v.y, t.z += v.z, t.w += v.w;
+    }
+    *reinterpret_cast<float4*>(part + static_cast<size_t>(blockIdx.x) * cols + c0) = t;
+  }
+}
+
 }  // namespace lavt
 
 extern "C" int lavt_sum_partials(const void* part, void* out, int parts, long long n,
@@ -84,5 +118,18 @@ extern "C" int lavt_colsum_bf16(const void* x, void* part, int rows, int cols, i
   const int per = (rows + splits - 1) / splits;
   colsum_bf16_kernel<<<splits, 256, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(x), static_cast<float*>(part), rows, cols, per);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int lavt_colsum_f32(const void* x, void* part, int rows, int cols, int splits,
+                               void* stream) {
+  using namespace lavt;
+  if (cols < 4 || cols % 4 != 0 || rows < 1 || splits < 1 || splits > rows ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(part) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int per = (rows + splits - 1) / splits;
+  colsum_f32_kernel<<<dim3(splits, (cols + 127) / 128), 256, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<float*>(part), rows, cols, per);
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,12 +3,11 @@
 `lavt_one` and `lavt_video` (inference and training) are ported; every
 other family raises NotImplementedError naming the ROADMAP.md slice that
 ports it.  f32 activations with the kernels on the card run where every
-kernel of the model's plan has an f32 variant (K1, K11, K3, K4, K10 in
-both modes, K2p, K9, K8, K7, K4b: `lavt_one` inference at windows 12 and
-7 and training at window 7, `lavt_video` inference and training);
-elsewhere (`lavt_one` training at window 12: the K1/K2 save mode, K5,
-K6) `build_model` refuses them, naming the missing variants, before a
-weight is allocated.
+kernel of the model's plan has an f32 variant; every kernel of the port
+has one (`F32_KERNELS`), so `lavt_one` and `lavt_video` run in f32 at
+either window, in inference and in training.  `build_model` keeps the
+check as the guard for a kernel added without its f32 variant: it then
+refuses, naming the missing variants, before a weight is allocated.
 """
 
 from __future__ import annotations
@@ -71,15 +70,15 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             t.clamp_(-0.04, 0.04)
 
 
-# the kernels with an f32 variant (ops: fused_window_msa_ln_f32,
-# fused_window_msa_2d_f32, fused_ln_mlp_f32, layer_norm_rows_f32,
-# window_attention_f32 with its save mode, fused_window_msa_grouped_f32,
-# attention_core_bwd_f32, fused_ln_mlp_droppath_f32, fused_ln_mlp_bwd_f32,
-# layer_norm_rows_bwd_f32); a training plan's K1 / K2 is the save mode,
-# which has none yet
-F32_KERNELS = frozenset({"K1", "K11", "K3", "K4", "K10", "K2p", "K9", "K8",
-                         "K7", "K4b"})
 SAVE_MODE = "K1/K2 save mode"
+# the kernels with an f32 variant (ops: fused_window_msa_ln_f32,
+# fused_window_msa_f32, fused_window_msa_save_f32, fused_window_msa_bwd_f32,
+# fused_window_msa_bwd_recompute_f32, fused_window_msa_2d_f32,
+# fused_ln_mlp_f32, layer_norm_rows_f32, window_attention_f32 with its save
+# mode, fused_window_msa_grouped_f32, attention_core_bwd_f32,
+# fused_ln_mlp_droppath_f32, fused_ln_mlp_bwd_f32, layer_norm_rows_bwd_f32)
+F32_KERNELS = frozenset({"K1", "K2", SAVE_MODE, "K5", "K6", "K11", "K3",
+                         "K4", "K10", "K2p", "K9", "K8", "K7", "K4b"})
 
 
 def kernels_without_variant(cfg: ModelConfig, train: bool = False) -> list:
@@ -87,9 +86,9 @@ def kernels_without_variant(cfg: ModelConfig, train: bool = False) -> list:
     dtype's itemsize, one clip of `num_frames` for lavt_video, per training
     step with `train`) that have no variant for cfg's compute dtype, sorted;
     [] for bf16 or without the kernels.  A training step's K1 / K2 (the
-    plan's keys) is named as the save mode (`SAVE_MODE`), and its MSA
-    backward as both K5 and K6, which the step chooses between by its
-    batch: the list holds for every batch size.  The model is built on
+    plan's keys) stands for K1, K2 and the save mode (`SAVE_MODE`), and
+    its MSA backward for both K5 and K6, which the step chooses between by
+    its batch: the list holds for every batch size.  The model is built on
     the meta device: nothing is allocated."""
     dt = cfg.compute_dtype
     if not cfg.use_kernels or dt == torch.bfloat16:
@@ -106,7 +105,7 @@ def kernels_without_variant(cfg: ModelConfig, train: bool = False) -> list:
     if train and names & {"K5", "K6"}:
         names |= {"K5", "K6"}
     if train and names & {"K1", "K2"}:
-        names = (names - {"K1", "K2"}) | {SAVE_MODE}
+        names |= {"K1", "K2", SAVE_MODE}
     return sorted(k for k in names if k not in have)
 
 
@@ -135,10 +134,8 @@ def build_model(cfg: ModelConfig, device="cuda",
             f"{cfg.dtype} activations with the kernels on the card: this "
             f"{'training' if train else 'inference'} plan launches "
             f"{', '.join(missing)}, with no {cfg.dtype} variant yet "
-            "(ROADMAP.md queue 2, "
-            "\"f32 kernel variants\"; f32 has K1, K11, K3, K4, K10, K2p, K9, "
-            "K8, K7 and K4b: lavt_one inference and window-7 training, "
-            "lavt_video inference and training).  "
+            "(ROADMAP.md, \"f32 kernel variants\"; f32 has "
+            f"{', '.join(sorted(F32_KERNELS))}).  "
             "Use bf16, or the plain versions (use_kernels=False, "
             "--no_pallas), or the CPU")
     with torch.device(device):

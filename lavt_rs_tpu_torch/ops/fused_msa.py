@@ -34,9 +34,9 @@ x is (B, nW, N, C) windowed tokens; weights are torch `nn.Linear` layout:
 wqkv (3C, C), bqkv (3C,), wproj (C, C), bproj (C,); bias (h, N, N) f32
 relative-position bias; mask (nW, N, N) f32 shift mask or None.  q is
 scaled after its bias; q, k, v, the probabilities and the attention
-output are rounded to x's dtype, as in the TPU kernel.  The softmax is
-the exact max-subtracted one (the TPU inference kernel's exp(min(s, 80))
-equals it while every logit is below 80).
+output are rounded to x's dtype, as in the TPU kernel.  The bf16 kernels'
+softmax is the exact max-subtracted one (the TPU inference kernel's
+exp(min(s, 80)) equals it while every logit is below 80).
 
 Each wrapper takes the plain version for a CPU tensor and launches the
 CUDA kernels for a CUDA tensor: K1, K2, the save mode and K6's forward as
@@ -48,18 +48,31 @@ sums on csrc/fused_msa_bwd.cu); K2p as csrc/window_msa_sm90.cu's
 projections around K10's attention kernel.  The plain versions compute in
 f32 with the kernels' rounding points.
 
-K1 f32 (`fused_window_msa_ln_f32`) is K1 on f32 activations, as the TPU
-kernel computes it there (its roundings to x.dtype are no-ops): the same
-launches of `save_launches` without the saves, each taking its f32 kernel
-for an f32 tensor (K4 f32's LN rows, `gemm_bias` on the 3xTF32 GEMM of
-csrc/gemm_f32.cu, the attention of csrc/fused_msa_f32.cu with the TPU
-inference kernel's shift-free exp(min(s, 80)) softmax).
-`fused_window_msa_ln` takes it for a CUDA f32 tensor.  K2p f32
-(`fused_window_msa_grouped_f32`, taken by `fused_window_msa_grouped` for a
-CUDA f32 tensor) is `grouped_launches` on f32: the projections on the
-3xTF32 GEMM, the attention on K10 f32's kernel (csrc/window_attn_f32.cu).
-K2, the save mode, K5 and K6 have no f32 variant yet: on a CUDA f32
-tensor they raise.
+The f32 variants are the same launches on f32 activations, as the TPU
+kernels compute them there (their roundings to x.dtype are no-ops), each
+entry point with its own launch counter and taken by the bf16 one for a
+CUDA f32 tensor (no f32 tensor reaches a bf16 kernel):
+  * K1 f32 (`fused_window_msa_ln_f32`), K2 f32 (`fused_window_msa_f32`) and
+    the K1/K2 save mode f32 (`fused_window_msa_save_f32`): `save_launches`
+    on K4 f32's LN rows, `gemm_bias` on the 3xTF32 GEMM of
+    csrc/gemm_f32.cu and the attention of csrc/fused_msa_f32.cu, which
+    writes the f32 P in save mode.  Its softmax is the TPU inference
+    kernel's shift-free exp(min(s, 80)) where K1 f32 and K2 f32 are called
+    for inference, and the exact max-subtracted one in the save mode and
+    in the taped forward of a block that saves nothing (`FusedWindowMSA`,
+    as JAX's `_vjp_fwd` / `_vjp_ln_fwd`): the forward and its K6
+    recompute then take the same P.  The plain versions take the form of
+    their kernel (`softmax_form`);
+  * K5 f32 (`fused_window_msa_bwd_f32`): `bwd_launches` on f32, the
+    attention backward of csrc/fused_msa_bwd_f32.cu between the 3xTF32
+    dattn and dx products, K7 f32's split weight grads and
+    `lavt_colsum_f32`;
+  * K6 f32 (`fused_window_msa_bwd_recompute_f32`): the save mode f32's
+    launches up to the attention, then K5 f32's;
+  * K2p f32 (`fused_window_msa_grouped_f32`): `grouped_launches` on f32,
+    the projections on the 3xTF32 GEMM, the attention on K10 f32's kernel
+    (csrc/window_attn_f32.cu).
+With them `lavt_one` trains at window 12 in f32 (`--window12 --no_bf16`).
 """
 
 from __future__ import annotations
@@ -190,11 +203,33 @@ def fused3d_grouped_routed(nw: int, n: int, c: int, heads: int,
 
 # -- plain versions (f32 math, the kernels' rounding points) ---------------
 
+def softmax_plain(s: torch.Tensor, exact: bool = True) -> torch.Tensor:
+    """The softmax over the last dim of f32 scores: the exact
+    max-subtracted one, or (exact False) the TPU inference kernel's
+    shift-free exp(min(s, 80)) over its row sum (`_softmax_exp` of
+    lavt_rs_tpu/ops/pallas/fused_msa.py), which equals it while every
+    score is at most 80."""
+    if exact:
+        return torch.softmax(s, dim=-1)
+    e = torch.exp(s.clamp(max=80.0))
+    return e / e.sum(-1, keepdim=True)
+
+
+def softmax_form(t: torch.Tensor, exact: bool) -> bool:
+    """The softmax form of an entry point's kernel for t's dtype: the bf16
+    kernels take the exact softmax always, the f32 ones the form asked
+    (exact in the taped training forward, as JAX's `_vjp_fwd` /
+    `_vjp_ln_fwd`; exp(min(s, 80)) at inference).  A CPU tensor's plain
+    version takes the same form."""
+    return exact or t.dtype != torch.float32
+
+
 def fused_window_msa_save_plain(x, ln, wqkv, bqkv, wproj, bproj, bias, mask,
                                 heads: int, scale: float,
-                                ln_eps: float = LN_EPS):
+                                ln_eps: float = LN_EPS, exact: bool = True):
     """The plain save-mode forward: (y, (q, k, v, p, xn)); xn is None
-    without ln.  q/k/v are (B nW, N, C), p (B nW, heads, N, N)."""
+    without ln.  q/k/v are (B nW, N, C), p (B nW, heads, N, N); the softmax
+    exact or, with exact False, the clamp form (`softmax_plain`)."""
     b, nw, n, c = x.shape
     hd = c // heads
     dt = x.dtype
@@ -213,7 +248,7 @@ def fused_window_msa_save_plain(x, ln, wqkv, bqkv, wproj, bproj, bias, mask,
     if mask is not None:
         s = (s.view(b, nw, heads, n, n)
              + mask.float()[None, :, None]).view(b * nw, heads, n, n)
-    p = torch.softmax(s, dim=-1).to(dt)
+    p = softmax_plain(s, exact).to(dt)
     o = (p.float() @ heads_of(v)).to(dt).transpose(1, 2).reshape(b, nw, n, c)
     y = (o.float() @ wproj.float().t() + bproj.float()).to(dt)
     if xn is not None:
@@ -222,19 +257,24 @@ def fused_window_msa_save_plain(x, ln, wqkv, bqkv, wproj, bproj, bias, mask,
 
 
 def fused_window_msa_plain(x, wqkv, bqkv, wproj, bproj, bias, mask,
-                           heads: int, scale: float) -> torch.Tensor:
-    """The plain PyTorch version of K2 (f32 math)."""
+                           heads: int, scale: float,
+                           exact: bool = True) -> torch.Tensor:
+    """The plain PyTorch version of K2 (f32 math; exact False: the clamp
+    softmax of K2 f32 at inference)."""
     return fused_window_msa_save_plain(x, None, wqkv, bqkv, wproj, bproj,
-                                       bias, mask, heads, scale)[0]
+                                       bias, mask, heads, scale,
+                                       exact=exact)[0]
 
 
 def fused_window_msa_ln_plain(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
                               bias, mask, heads: int, scale: float,
-                              ln_eps: float = LN_EPS) -> torch.Tensor:
-    """The plain PyTorch version of K1."""
+                              ln_eps: float = LN_EPS,
+                              exact: bool = True) -> torch.Tensor:
+    """The plain PyTorch version of K1 (exact False: the clamp softmax of
+    K1 f32 at inference)."""
     return fused_window_msa_save_plain(x, (ln_scale, ln_bias), wqkv, bqkv,
                                        wproj, bproj, bias, mask, heads, scale,
-                                       ln_eps)[0]
+                                       ln_eps, exact)[0]
 
 
 def fused_window_msa_bwd_plain(x, gy, wqkv, wproj, saved, heads: int,
@@ -367,21 +407,34 @@ def sum_partials(part: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def colsum(x2: torch.Tensor) -> torch.Tensor:
-    """f32 column sums of a bf16 (rows, cols) tensor, on the kernel of
-    csrc/fused_msa_bwd.cu (a block per row split, one per SM, 32 rows or
-    more each; then their partials in order); their f32 sum on a CPU
-    tensor."""
+def colsum_partials(x2: torch.Tensor) -> torch.Tensor:
+    """The f32 column sums of a (rows, cols) tensor by row splits, (splits,
+    cols): bf16 on `lavt_colsum_bf16` (a block per split), f32 on
+    `lavt_colsum_f32` (a block per split and 128 columns), both of
+    csrc/fused_msa_bwd.cu, one split per SM and 32 rows or more each.  A
+    CPU tensor gives its f32 sum as one split."""
     if x2.device.type == "cpu":
-        return x2.float().sum(0)
+        return x2.float().sum(0, keepdim=True)
     rows, cols = x2.shape
+    dt = x2.dtype
+    if dt not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"colsum: dtype {dt}, expected bfloat16 or float32")
+    _require_all([("x", x2, dt, None)], x2.device)
     splits = max(1, min(_SMS, rows // 32))
     part = torch.empty((splits, cols), dtype=torch.float32, device=x2.device)
-    err = cuda_lib.lib().lavt_colsum_bf16(
-        x2.data_ptr(), part.data_ptr(), rows, cols, splits,
-        cuda_lib.stream_ptr(x2.device))
-    cuda_lib.check(err, "lavt_colsum_bf16")
-    return sum_partials(part)
+    name = "lavt_colsum_f32" if dt == torch.float32 else "lavt_colsum_bf16"
+    err = getattr(cuda_lib.lib(), name)(x2.data_ptr(), part.data_ptr(), rows,
+                                        cols, splits,
+                                        cuda_lib.stream_ptr(x2.device))
+    cuda_lib.check(err, name)
+    return part
+
+
+def colsum(x2: torch.Tensor) -> torch.Tensor:
+    """f32 column sums of a bf16 or f32 (rows, cols) tensor: its
+    `colsum_partials` added in order (`sum_partials`); their f32 sum on a
+    CPU tensor."""
+    return sum_partials(colsum_partials(x2))
 
 
 # -- K5's launches (csrc/fused_msa_bwd_sm90.cu) and their plain versions -----
@@ -397,11 +450,25 @@ def msa_dgrad_plain(a, w) -> torch.Tensor:
 def msa_dgrad(a, w) -> torch.Tensor:
     """(M, N) bf16 = a (M, K) w, w (K, N) a torch Linear weight read as W
     (not Wᵀ): K5's dattn = gy Wproj and dx = dqkv Wqkv, on the wgmma + TMA
-    GEMM core (`lavt_msa_dgrad`; w read MN-major).  The plain version on a
-    CPU tensor."""
+    GEMM core (`lavt_msa_dgrad`; w read MN-major).  f32 operands (K5 f32)
+    take the 3xTF32 tile loop with w MN-major (`lavt_dgrad_f32`, K7 f32's
+    dyln product; K a multiple of 32, N of 4).  The plain version on a CPU
+    tensor."""
     if a.device.type == "cpu":
         return msa_dgrad_plain(a, w)
     (m, k), n = a.shape, w.shape[1]
+    if a.dtype == torch.float32:
+        if k % GEMM_F32_DEPTH or n % 4:
+            raise ValueError(f"f32 dgrad kernel: unsupported (M, N, K) "
+                             f"{(m, n, k)}")
+        f32 = torch.float32
+        _require_all([("a", a, f32, None), ("w", w, f32, (k, n))], a.device)
+        out = torch.empty((m, n), dtype=f32, device=a.device)
+        err = cuda_lib.lib().lavt_dgrad_f32(a.data_ptr(), w.data_ptr(),
+                                            out.data_ptr(), m, n, k,
+                                            cuda_lib.stream_ptr(a.device))
+        cuda_lib.check(err, "lavt_dgrad_f32")
+        return out
     bf16 = torch.bfloat16
     _require_all([("a", a, bf16, None), ("w", w, bf16, (k, n))], a.device)
     out = torch.empty((m, n), dtype=bf16, device=a.device)
@@ -449,23 +516,31 @@ def msa_bwd_attn_plain(dattn, q, k, v, p, heads: int, scale: float,
     return merge(of.to(dt)), dqkv.to(dt), dbias_part, dbqkv_part
 
 
-def _require_rows(named, dev, shape) -> int:
-    """q, k, v: (m, N, C) bf16 tensors on dev whose rows lie one stride
-    apart, contiguous or the column views of one (m N, 3C) qkv tensor (the
-    save mode's residuals); returns that row stride."""
+def _require_rows(named, dev, shape, dtype=torch.bfloat16) -> int:
+    """q, k, v: (m, N, C) tensors of `dtype` (bf16; f32 for K5 f32) on dev
+    whose rows lie one stride apart, contiguous or the column views of one
+    (m N, 3C) qkv tensor (the save mode's residuals); returns that row
+    stride."""
     m, n, c = shape
     ld = named[0][1].stride(1)
     for name, t in named:
-        if t.device != dev or t.dtype != torch.bfloat16:
+        if t.device != dev or t.dtype != dtype:
             raise ValueError(f"{name}: {t.dtype} on {t.device}, expected "
-                             f"bfloat16 on {dev}")
+                             f"{dtype} on {dev}")
         if tuple(t.shape) != (m, n, c) or t.stride() != (n * ld, ld, 1):
             raise ValueError(f"{name}: shape {tuple(t.shape)} strides "
                              f"{t.stride()}, expected {(m, n, c)} with rows "
                              f"{ld} elements apart")
-        if t.data_ptr() % 16 or ld % 8:  # TMA: 16-byte rows and base
+        if t.data_ptr() % 16 or (ld * t.element_size()) % 16:
             raise ValueError(f"{name}: rows must start on 16 bytes")
     return ld
+
+
+def msa_bwd_f32_groups(windows: int, heads: int, sms: int = _SMS) -> int:
+    """K5 f32's dbias partials: the blocks of its launch 1, (groups, query
+    tiles x heads), fill the SMs once at two blocks an SM, no more groups
+    than windows (csrc/fused_msa_bwd_f32.cu)."""
+    return max(1, min(windows, 2 * sms // (3 * heads)))
 
 
 def msa_bwd_attn(dattn, q, k, v, p, heads: int, scale: float, groups: int):
@@ -473,9 +548,12 @@ def msa_bwd_attn(dattn, q, k, v, p, heads: int, scale: float, groups: int):
     and the save mode's q, k, v (B nW, N, C; contiguous, or column views
     of its (B nW N, 3C) qkv tensor), p (B nW, heads, N, N) -> o (B nW N, C)
     and dqkv (B nW N, 3C) bf16, the f32 partials of dbias (groups, heads,
-    N, N) and of dbqkv (groups, 3C).  The plain version on a CPU tensor."""
+    N, N) and of dbqkv (groups, 3C).  The plain version on a CPU tensor;
+    f32 tensors take K5 f32's (`msa_bwd_attn_f32`)."""
     if q.device.type == "cpu":
         return msa_bwd_attn_plain(dattn, q, k, v, p, heads, scale, groups)
+    if q.dtype == torch.float32:
+        return msa_bwd_attn_f32(dattn, q, k, v, p, heads, scale, groups)
     m, n, c = q.shape
     dev = q.device
     bf16 = torch.bfloat16
@@ -496,6 +574,43 @@ def msa_bwd_attn(dattn, q, k, v, p, heads: int, scale: float, groups: int):
     return o, dqkv, dbias_part, dbqkv_part
 
 
+def msa_bwd_attn_f32(dattn, q, k, v, p, heads: int, scale: float,
+                     groups: int):
+    """K5 f32's attention (`lavt_msa_bwd_attn_f32`, csrc/fused_msa_bwd_f32.cu:
+    o and D, then dq with the dbias partials, then dk and dv), all f32:
+    dattn (B nW N, C), the save mode f32's q, k, v (column views of its
+    (B nW N, 3C) qkv tensor, or contiguous) and p (B nW, heads, N, N) -> o
+    (B nW N, C), dqkv (B nW N, 3C), the dbias partials (groups, heads, N,
+    N), block g's from the windows g, g + groups, ..., and the dbqkv
+    partials: dqkv's column sums by row splits (`colsum_partials`).  The
+    plain version (`msa_bwd_attn_plain`) on a CPU tensor."""
+    if q.device.type == "cpu":
+        return msa_bwd_attn_plain(dattn, q, k, v, p, heads, scale, groups)
+    m, n, c = q.shape
+    dev = q.device
+    f32 = torch.float32
+    if not fused_msa_supported(n, c, heads):
+        raise ValueError(f"f32 window MSA backward kernel: unsupported (N, C, "
+                         f"heads) {(n, c, heads)}")
+    if not 1 <= groups <= m:
+        raise ValueError(f"f32 window MSA backward kernel: {groups} groups "
+                         f"of {m} windows")
+    _require_all([("dattn", dattn, f32, (m * n, c)),
+                  ("p", p, f32, (m, heads, n, n))], dev)
+    ld = _require_rows([("q", q), ("k", k), ("v", v)], dev, (m, n, c), f32)
+    o = torch.empty((m * n, c), dtype=f32, device=dev)
+    dqkv = torch.empty((m * n, 3 * c), dtype=f32, device=dev)
+    dsum = torch.empty((m, heads, n), dtype=f32, device=dev)
+    dbias_part = torch.empty((groups, heads, n, n), dtype=f32, device=dev)
+    err = cuda_lib.lib().lavt_msa_bwd_attn_f32(
+        dattn.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        p.data_ptr(), o.data_ptr(), dqkv.data_ptr(), dsum.data_ptr(),
+        dbias_part.data_ptr(), m, c, ld, heads, groups, float(scale),
+        cuda_lib.stream_ptr(dev))
+    cuda_lib.check(err, "lavt_msa_bwd_attn_f32")
+    return o, dqkv, dbias_part, colsum_partials(dqkv)
+
+
 def bwd_launches(x, gy, wqkv, wproj, saved, heads: int, scale: float,
                  groups: Optional[int] = None):
     """K5's launches, in order (csrc/fused_msa_bwd_sm90.cu):
@@ -506,10 +621,16 @@ def bwd_launches(x, gy, wqkv, wproj, saved, heads: int, scale: float,
       (d), (e) dWqkv = dqkvᵀ x, dWproj = gyᵀ o as split partials (K7's
           `fused_mlp.wgrad`, split by `fused_mlp.wgrad_split_tiles`);
       (f) dbproj = the column sums of gy (`colsum`);
-      and `sum_partials` over every split, in order.  On CPU tensors each
-    launch takes its plain version, which compose to
-    `fused_window_msa_bwd_plain`'s values (tests/test_torch_k5_launches.py).
-    Returns (dx, dwqkv, dbqkv, dwproj, dbproj, dbias) as K5 does."""
+      and `sum_partials` over every split, in order.
+    K5 f32 is the same launches on f32 tensors, each on its f32 kernel: (a)
+    and (c) on the 3xTF32 tile loop (`lavt_dgrad_f32`), (b) K5 f32's
+    attention (`msa_bwd_attn_f32`, groups by `msa_bwd_f32_groups`; dbqkv
+    from dqkv's column sums), (d)-(e) K7 f32's weight grads split by its
+    rule (32-row k-tiles, one block an SM), (f) `lavt_colsum_f32`.  On CPU
+    tensors each launch takes its plain version, which compose to
+    `fused_window_msa_bwd_plain`'s values (tests/test_torch_k5_launches.py,
+    tests/test_torch_f32_msa_train.py).  Returns (dx, dwqkv, dbqkv,
+    dwproj, dbproj, dbias) as K5 does."""
     from .fused_mlp import (  # imports this module
         GEMM_DEPTH, wgrad, wgrad_split_tiles)
 
@@ -517,42 +638,51 @@ def bwd_launches(x, gy, wqkv, wproj, saved, heads: int, scale: float,
     q, k, v, p = saved
     m = b * nw
     rows = m * n
+    f32 = x.dtype == torch.float32
     if groups is None:
         sms = (cuda_lib.sm_count(x.device.index or 0)
                if x.device.type == "cuda" else _SMS)
-        groups = msa_bwd_groups(m, heads, sms)
+        groups = (msa_bwd_f32_groups if f32 else msa_bwd_groups)(m, heads,
+                                                                 sms)
+    depth, per_sm = (GEMM_F32_DEPTH, 1) if f32 else (GEMM_DEPTH, 2)
     x2, g2 = x.reshape(rows, c), gy.reshape(rows, c)
     dattn = msa_dgrad(g2, wproj)
     o, dqkv, dbias_part, dbqkv_part = msa_bwd_attn(dattn, q, k, v, p, heads,
                                                    scale, groups)
     dx = msa_dgrad(dqkv, wqkv)
-    dwqkv = wgrad(dqkv, x2, wgrad_split_tiles(rows, 3 * c, c) * GEMM_DEPTH)
-    dwproj = wgrad(g2, o, wgrad_split_tiles(rows, c, c) * GEMM_DEPTH)
+    dwqkv = wgrad(dqkv, x2, wgrad_split_tiles(rows, 3 * c, c, 1, depth,
+                                              per_sm) * depth)
+    dwproj = wgrad(g2, o, wgrad_split_tiles(rows, c, c, 1, depth, per_sm)
+                   * depth)
     return (dx.view(b, nw, n, c), sum_partials(dwqkv), sum_partials(dbqkv_part),
             sum_partials(dwproj), colsum(g2), sum_partials(dbias_part))
 
 
-def _bwd_launch(x, gy, wqkv, wproj, saved, heads, scale):
-    """K5 on the card: the checks, then `bwd_launches`."""
+def _bwd_launch(x, gy, wqkv, wproj, saved, heads, scale,
+                dtype=torch.bfloat16):
+    """K5 (bf16) or K5 f32 (every tensor f32) on the card: the checks, then
+    `bwd_launches`."""
     b, nw, n, c = x.shape
     _check_geometry(x, heads)
     q, k, v, p = saved
     m = b * nw
-    bf16 = torch.bfloat16
-    _require_all([("x", x, bf16, None), ("gy", gy, bf16, (b, nw, n, c)),
-                  ("wqkv", wqkv, bf16, (3 * c, c)),
-                  ("wproj", wproj, bf16, (c, c)),
-                  ("p", p, bf16, (m, heads, n, n))], x.device)
-    _require_rows([("q", q), ("k", k), ("v", v)], x.device, (m, n, c))
+    dt = dtype
+    _require_all([("x", x, dt, None), ("gy", gy, dt, (b, nw, n, c)),
+                  ("wqkv", wqkv, dt, (3 * c, c)),
+                  ("wproj", wproj, dt, (c, c)),
+                  ("p", p, dt, (m, heads, n, n))], x.device)
+    _require_rows([("q", q), ("k", k), ("v", v)], x.device, (m, n, c), dt)
     return bwd_launches(x, gy, wqkv, wproj, saved, heads, scale)
 
 
 # -- K2 and the save mode (csrc/fused_msa_sm90.cu) and their plain versions --
 
-def msa_attn_plain(qkv, bias, mask, heads: int):
+def msa_attn_plain(qkv, bias, mask, heads: int, exact: bool = True):
     """The plain version of `msa_attn`: f32 math with the kernel's rounding
     points (P rounded to bf16 after its f32 normalisation, O made from that
-    P).  Returns (o (B nW N, C), p (B nW, heads, N, N))."""
+    P), the softmax exact or (exact False, K1 f32 / K2 f32 / K11 f32 at
+    inference) the clamp form.  Returns (o (B nW N, C), p (B nW, heads, N,
+    N))."""
     m, n, c3 = qkv.shape
     c = c3 // 3
     dt = qkv.dtype
@@ -566,28 +696,27 @@ def msa_attn_plain(qkv, bias, mask, heads: int):
         nw = mask.shape[0]
         s = (s.view(m // nw, nw, heads, n, n)
              + mask.float()[None, :, None]).view(m, heads, n, n)
-    p = torch.softmax(s, dim=-1).to(dt)
+    p = softmax_plain(s, exact).to(dt)
     o = (p.float() @ v).to(dt).transpose(1, 2).reshape(m * n, c)
     return o, p
 
 
 def msa_attn(qkv, bias, mask, heads: int, save: bool,
-             flags: Optional[torch.Tensor] = None):
+             flags: Optional[torch.Tensor] = None, exact: bool = True):
     """The attention launch of K2, the save mode and K6's forward
     (`lavt_msa_fwd_sm90`): qkv (B nW, 144, 3C) bf16 as `gemm_bias` writes
     it (q scaled), bias (heads, 144, 144) f32, mask (nW, 144, 144) f32 or
     None with its window flags (`window.shift_mask_flags_2d`; None: every
     window reads its mask) -> (o (B nW 144, C) bf16, p (B nW, heads, 144,
-    144) bf16 with save, else None).  The plain version on a CPU tensor
-    (which returns p either way); an f32 qkv takes K1 f32's attention
-    (`msa_attn_f32`, no save mode)."""
+    144) bf16 with save, else None); the exact softmax.  The plain version
+    on a CPU tensor (which returns p either way, in `softmax_form`); an f32
+    qkv takes the f32 attention (`msa_attn_f32`: the softmax exact or, with
+    exact False, the clamp form)."""
     if qkv.device.type == "cpu":
-        return msa_attn_plain(qkv, bias, mask, heads)
+        return msa_attn_plain(qkv, bias, mask, heads,
+                              softmax_form(qkv, exact))
     if qkv.dtype == torch.float32:
-        if save:
-            raise NotImplementedError(
-                "the save mode has no f32 variant yet (ROADMAP.md queue 2)")
-        return msa_attn_f32(qkv, bias, mask, heads, flags), None
+        return msa_attn_f32(qkv, bias, mask, heads, flags, save, exact)
     m, n, c3 = qkv.shape
     c = c3 // 3
     dev = qkv.device
@@ -635,14 +764,22 @@ def _attn_f32_checks(qkv, bias, mask, flags, heads: int, n: int, c: int,
 
 
 def msa_attn_f32(qkv, bias, mask, heads: int,
-                 flags: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """K1 f32's attention launch (`lavt_msa_fwd_f32`, csrc/fused_msa_f32.cu):
-    qkv (B nW, 144, 3C) f32 as `gemm_bias` writes it (q scaled), bias
-    (heads, 144, 144) f32, mask (nW, 144, 144) f32 or None with its window
-    flags -> o (B nW 144, C) f32, e = exp(min(s, 80)) normalised by its
-    row sum.  The plain version (`msa_attn_plain`'s o) on a CPU tensor."""
+                 flags: Optional[torch.Tensor] = None, save: bool = False,
+                 exact: bool = False):
+    """The f32 attention launch of K1 f32, K2 f32, the save mode f32 and K6
+    f32's forward (`lavt_msa_fwd_f32`, csrc/fused_msa_f32.cu): qkv (B nW,
+    144, 3C) f32 as `gemm_bias` writes it (q scaled), bias (heads, 144,
+    144) f32, mask (nW, 144, 144) f32 or None with its window flags -> (o
+    (B nW 144, C) f32, p (B nW, heads, 144, 144) f32 with save, else
+    None); e = exp(s - max) with exact (the taped forward), else exp(min(s,
+    80)), normalised by its row sum; with save (exact only: the taped
+    forward's) O is made from the stored P.  The plain version
+    (`msa_attn_plain`) on a CPU tensor."""
+    if save and not exact:
+        raise ValueError("the f32 save mode takes the exact softmax")
     if qkv.device.type == "cpu":
-        return msa_attn_plain(qkv, bias, mask, heads)[0]
+        o, p = msa_attn_plain(qkv, bias, mask, heads, exact)
+        return o, (p if save else None)
     m, n, c3 = qkv.shape
     c = c3 // 3
     nw = 1 if mask is None else mask.shape[0]
@@ -650,17 +787,21 @@ def msa_attn_f32(qkv, bias, mask, heads: int,
         raise ValueError(f"mask: {nw} windows do not divide {m}")
     _attn_f32_checks(qkv, bias, mask, flags, heads, n, c, nw)
     o = torch.empty((m * n, c), dtype=torch.float32, device=qkv.device)
+    p = (torch.empty((m, heads, n, n), dtype=torch.float32, device=qkv.device)
+         if save else None)
     err = cuda_lib.lib().lavt_msa_fwd_f32(
         qkv.data_ptr(), bias.data_ptr(),
         None if mask is None else mask.data_ptr(),
         None if mask is None or flags is None else flags.data_ptr(),
-        o.data_ptr(), m, nw, c, heads, cuda_lib.stream_ptr(qkv.device))
+        o.data_ptr(), None if p is None else p.data_ptr(), m, nw, c, heads,
+        int(exact), cuda_lib.stream_ptr(qkv.device))
     cuda_lib.check(err, "lavt_msa_fwd_f32")
-    return o
+    return o, p
 
 
 def attn_launches(x, ln, wqkv, bqkv, bias, mask, heads: int, scale: float,
-                  ln_eps: float = LN_EPS, save: bool = True, flags=None):
+                  ln_eps: float = LN_EPS, save: bool = True, flags=None,
+                  exact: bool = True):
     """The launches of `save_launches` before the out-projection: (o
     (B nW N, C), (q, k, v, p, xn) with save, else None).  q, k, v are the
     column views of the one qkv tensor (B nW, N, 3C) (no copy); xn is
@@ -672,7 +813,7 @@ def attn_launches(x, ln, wqkv, bqkv, bias, mask, heads: int, scale: float,
     if ln is not None:
         x2 = xn = layer_norm_rows_launch(x2, ln[0], ln[1], ln_eps)
     qkv = gemm_bias(x2, wqkv, bqkv, c, scale).view(b * nw, n, 3 * c)
-    o, p = msa_attn(qkv, bias, mask, heads, save, flags)
+    o, p = msa_attn(qkv, bias, mask, heads, save, flags, exact)
     if not save:
         return o, None
     q, k, v = (qkv[..., i * c:(i + 1) * c] for i in range(3))
@@ -681,7 +822,7 @@ def attn_launches(x, ln, wqkv, bqkv, bias, mask, heads: int, scale: float,
 
 def save_launches(x, ln, wqkv, bqkv, wproj, bproj, bias, mask, heads: int,
                   scale: float, ln_eps: float = LN_EPS, save: bool = True,
-                  flags=None):
+                  flags=None, exact: bool = True):
     """K1 and K2 (save False) and the K1/K2 save mode, in order:
       (0) K1 only: xn = the pre-attention LN rows on K4's launch
           (`ln.layer_norm_rows_launch`, f32 stats, fast variance);
@@ -690,12 +831,16 @@ def save_launches(x, ln, wqkv, bqkv, wproj, bproj, bias, mask, heads: int,
       (b) the attention (`msa_attn`) on qkv: O (B nW N, C) and, with save,
           the bf16 P it was made from;
       (c) y = O Wprojᵀ + bproj on the GEMM core.
+    On f32 tensors (K1 f32, K2 f32, the save mode f32, K6 f32's forward)
+    each launch takes its f32 kernel: K4 f32's LN rows, the 3xTF32 GEMM,
+    `msa_attn_f32` (exact: the max-subtracted softmax, else exp(min(s,
+    80)); the bf16 attention is exact either way), the 3xTF32 GEMM.
     Returns y (B, nW, N, C), with save (y, (q, k, v, p, xn)), q, k, v the
     column views of qkv.  On CPU tensors each launch takes its plain
     version, which compose to `fused_window_msa_save_plain`'s values
     (tests/test_torch_msa_save_launches.py)."""
     o, saved = attn_launches(x, ln, wqkv, bqkv, bias, mask, heads, scale,
-                             ln_eps, save, flags)
+                             ln_eps, save, flags, exact)
     y = gemm_bias(o, wproj, bproj).view(x.shape)
     return (y, saved) if save else y
 
@@ -721,12 +866,19 @@ def _check_save_launches(x, ln, wqkv, bqkv, wproj, bproj, heads,
 
 def fused_window_msa(x, wqkv, bqkv, wproj, bproj, bias,
                      mask: Optional[torch.Tensor], heads: int, scale: float,
-                     flags: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     flags: Optional[torch.Tensor] = None,
+                     exact: bool = False) -> torch.Tensor:
     """K2: (B, nW, N, C) post-LN windowed tokens -> projected attention;
-    on the card the launches of `save_launches` without the saves."""
+    on the card the launches of `save_launches` without the saves.  A CUDA
+    f32 x takes K2 f32 (`fused_window_msa_f32`); `exact` chooses its
+    softmax (JAX `fused_window_msa`: exp(min(s, 80)); the taped forward,
+    `FusedWindowMSA`: exact), the bf16 kernel's is exact."""
     if x.device.type == "cpu":
         return fused_window_msa_plain(x, wqkv, bqkv, wproj, bproj, bias, mask,
-                                      heads, scale)
+                                      heads, scale, softmax_form(x, exact))
+    if x.dtype == torch.float32:
+        return fused_window_msa_f32(x, wqkv, bqkv, wproj, bproj, bias, mask,
+                                    heads, scale, flags, exact)
     _check_save_launches(x, None, wqkv, bqkv, wproj, bproj, heads)
     y = save_launches(x, None, wqkv, bqkv, wproj, bproj, bias, mask, heads,
                       scale, save=False, flags=flags)
@@ -734,21 +886,44 @@ def fused_window_msa(x, wqkv, bqkv, wproj, bproj, bias,
     return y
 
 
+def fused_window_msa_f32(x, wqkv, bqkv, wproj, bproj, bias,
+                         mask: Optional[torch.Tensor], heads: int,
+                         scale: float, flags: Optional[torch.Tensor] = None,
+                         exact: bool = False) -> torch.Tensor:
+    """K2 f32: K2 on f32 tokens and weights; on the card the launches of
+    `save_launches` without the saves, each on its f32 kernel (the 3xTF32
+    GEMM, `msa_attn_f32`, the 3xTF32 GEMM), the softmax exp(min(s, 80))
+    (JAX `fused_window_msa`) or, with exact, the max-subtracted one (the
+    taped forward of a block that saves nothing).  The plain version on a
+    CPU tensor."""
+    if x.device.type == "cpu":
+        return fused_window_msa_plain(x, wqkv, bqkv, wproj, bproj, bias, mask,
+                                      heads, scale, exact)
+    _check_save_launches(x, None, wqkv, bqkv, wproj, bproj, heads,
+                         torch.float32)
+    y = save_launches(x, None, wqkv, bqkv, wproj, bproj, bias, mask, heads,
+                      scale, save=False, flags=flags, exact=exact)
+    fused_window_msa_f32.launches += 1
+    return y
+
+
 def fused_window_msa_ln(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, bias,
                         mask: Optional[torch.Tensor], heads: int, scale: float,
                         ln_eps: float = LN_EPS,
-                        flags: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        flags: Optional[torch.Tensor] = None,
+                        exact: bool = False) -> torch.Tensor:
     """K1: (B, nW, N, C) PRE-LN windowed tokens -> projected attention; on
     the card the launches of `save_launches` with LN and without the saves
-    (y has the save mode's bits)."""
+    (y has the save mode's bits).  A CUDA f32 x takes K1 f32
+    (`fused_window_msa_ln_f32`), `exact` as `fused_window_msa`'s."""
     if x.device.type == "cpu":
         return fused_window_msa_ln_plain(x, ln_scale, ln_bias, wqkv, bqkv,
                                          wproj, bproj, bias, mask, heads,
-                                         scale, ln_eps)
+                                         scale, ln_eps, softmax_form(x, exact))
     if x.dtype == torch.float32:
         return fused_window_msa_ln_f32(x, ln_scale, ln_bias, wqkv, bqkv,
                                        wproj, bproj, bias, mask, heads, scale,
-                                       ln_eps, flags)
+                                       ln_eps, flags, exact)
     ln = (ln_scale, ln_bias)
     _check_save_launches(x, ln, wqkv, bqkv, wproj, bproj, heads)
     y = save_launches(x, ln, wqkv, bqkv, wproj, bproj, bias, mask, heads,
@@ -760,21 +935,23 @@ def fused_window_msa_ln(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, bias,
 def fused_window_msa_ln_f32(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
                             bias, mask: Optional[torch.Tensor], heads: int,
                             scale: float, ln_eps: float = LN_EPS,
-                            flags: Optional[torch.Tensor] = None
-                            ) -> torch.Tensor:
+                            flags: Optional[torch.Tensor] = None,
+                            exact: bool = False) -> torch.Tensor:
     """K1 f32: K1 on f32 tokens and weights; on the card the launches of
     `save_launches` without the saves, each on its f32 kernel (K4 f32's LN
-    rows, the 3xTF32 GEMM, `msa_attn_f32`, the 3xTF32 GEMM).  The plain
-    version on a CPU tensor."""
+    rows, the 3xTF32 GEMM, `msa_attn_f32`, the 3xTF32 GEMM), the softmax
+    exp(min(s, 80)) at inference (JAX `fused_window_msa_ln`) or, with
+    exact, the max-subtracted one (the taped forward, JAX `_vjp_ln_fwd`).
+    The plain version on a CPU tensor."""
     if x.device.type == "cpu":
         return fused_window_msa_ln_plain(x, ln_scale, ln_bias, wqkv, bqkv,
                                          wproj, bproj, bias, mask, heads,
-                                         scale, ln_eps)
+                                         scale, ln_eps, exact)
     ln = (ln_scale, ln_bias)
     _check_save_launches(x, ln, wqkv, bqkv, wproj, bproj, heads,
                          torch.float32)
     y = save_launches(x, ln, wqkv, bqkv, wproj, bproj, bias, mask, heads,
-                      scale, ln_eps, save=False, flags=flags)
+                      scale, ln_eps, save=False, flags=flags, exact=exact)
     fused_window_msa_ln_f32.launches += 1
     return y
 
@@ -784,10 +961,15 @@ def fused_window_msa_save(x, ln, wqkv, bqkv, wproj, bproj, bias, mask,
                           flags: Optional[torch.Tensor] = None):
     """K1 (ln given) / K2 in save mode: (y, (q, k, v, p, xn)); on the card
     the launches of `save_launches`, q, k, v the column views of their
-    qkv tensor."""
+    qkv tensor.  A CUDA f32 x takes the save mode f32
+    (`fused_window_msa_save_f32`)."""
     if x.device.type == "cpu":
         return fused_window_msa_save_plain(x, ln, wqkv, bqkv, wproj, bproj,
                                            bias, mask, heads, scale, ln_eps)
+    if x.dtype == torch.float32:
+        return fused_window_msa_save_f32(x, ln, wqkv, bqkv, wproj, bproj,
+                                         bias, mask, heads, scale, ln_eps,
+                                         flags)
     _check_save_launches(x, ln, wqkv, bqkv, wproj, bproj, heads)
     out = save_launches(x, ln, wqkv, bqkv, wproj, bproj, bias, mask, heads,
                         scale, ln_eps, flags=flags)
@@ -796,15 +978,53 @@ def fused_window_msa_save(x, ln, wqkv, bqkv, wproj, bproj, bias, mask,
     return out
 
 
+def fused_window_msa_save_f32(x, ln, wqkv, bqkv, wproj, bproj, bias, mask,
+                              heads: int, scale: float,
+                              ln_eps: float = LN_EPS,
+                              flags: Optional[torch.Tensor] = None):
+    """The K1/K2 save mode f32 (JAX `_fwd(..., exact=True, save=True)` on
+    f32): (y, (q, k, v, p, xn)), all f32, the exact softmax; on the card
+    the launches of `save_launches` on their f32 kernels, q, k, v the
+    column views of the f32 qkv tensor, p written by `msa_attn_f32`.  One
+    count per call, with or without ln.  The plain version on a CPU
+    tensor."""
+    if x.device.type == "cpu":
+        return fused_window_msa_save_plain(x, ln, wqkv, bqkv, wproj, bproj,
+                                           bias, mask, heads, scale, ln_eps)
+    _check_save_launches(x, ln, wqkv, bqkv, wproj, bproj, heads,
+                         torch.float32)
+    out = save_launches(x, ln, wqkv, bqkv, wproj, bproj, bias, mask, heads,
+                        scale, ln_eps, flags=flags)
+    fused_window_msa_save_f32.launches += 1
+    return out
+
+
 def fused_window_msa_bwd(x, gy, wqkv, wproj, saved, heads: int,
                          scale: float):
     """K5: gradients from the save-mode residuals (q, k, v, p); x is the
-    MSA's input (xn for the LN variant)."""
+    MSA's input (xn for the LN variant).  CUDA f32 tensors take K5 f32
+    (`fused_window_msa_bwd_f32`)."""
     if x.device.type == "cpu":
         return fused_window_msa_bwd_plain(x, gy, wqkv, wproj, saved, heads,
                                           scale)
+    if x.dtype == torch.float32:
+        return fused_window_msa_bwd_f32(x, gy, wqkv, wproj, saved, heads,
+                                        scale)
     out = _bwd_launch(x, gy, wqkv, wproj, saved, heads, scale)
     fused_window_msa_bwd.launches += 1
+    return out
+
+
+def fused_window_msa_bwd_f32(x, gy, wqkv, wproj, saved, heads: int,
+                             scale: float):
+    """K5 f32: K5 from the save mode f32's residuals, every tensor f32
+    (JAX `_fused_bwd_group_resid` on f32); on the card `bwd_launches` on
+    their f32 kernels.  The plain version on a CPU tensor."""
+    if x.device.type == "cpu":
+        return fused_window_msa_bwd_plain(x, gy, wqkv, wproj, saved, heads,
+                                          scale)
+    out = _bwd_launch(x, gy, wqkv, wproj, saved, heads, scale, torch.float32)
+    fused_window_msa_bwd_f32.launches += 1
     return out
 
 
@@ -814,25 +1034,61 @@ def fused_window_msa_bwd_recompute(x, ln, wqkv, bqkv, wproj, bproj, bias,
                                    flags: Optional[torch.Tensor] = None):
     """K6: the same gradients as K5 with nothing saved; they are with
     respect to the MSA's input (xn with ln).  On the card the save mode's
-    launches up to the attention (`attn_launches`), then K5's."""
+    launches up to the attention (`attn_launches`), then K5's.  CUDA f32
+    tensors take K6 f32 (`fused_window_msa_bwd_recompute_f32`)."""
     if x.device.type == "cpu":
         return fused_window_msa_bwd_recompute_plain(
             x, ln, wqkv, bqkv, wproj, bproj, bias, mask, gy, heads, scale,
             ln_eps)
-    _check_save_launches(x, ln, wqkv, bqkv, None, None, heads)
-    _, (q, k, v, p, xn) = attn_launches(x, ln, wqkv, bqkv, bias, mask, heads,
-                                        scale, ln_eps, flags=flags)
-    xin = x if xn is None else xn.view(x.shape)
-    out = _bwd_launch(xin, gy, wqkv, wproj, (q, k, v, p), heads, scale)
+    if x.dtype == torch.float32:
+        return fused_window_msa_bwd_recompute_f32(
+            x, ln, wqkv, bqkv, wproj, bproj, bias, mask, gy, heads, scale,
+            ln_eps, flags)
+    out = _recompute_launch(x, ln, wqkv, bqkv, wproj, bias, mask, gy, heads,
+                            scale, ln_eps, flags, torch.bfloat16)
     fused_window_msa_bwd_recompute.launches += 1
     return out
 
 
+def fused_window_msa_bwd_recompute_f32(x, ln, wqkv, bqkv, wproj, bproj, bias,
+                                       mask, gy, heads: int, scale: float,
+                                       ln_eps: float = LN_EPS,
+                                       flags: Optional[torch.Tensor] = None):
+    """K6 f32 (JAX `_fused_bwd_group` on f32): the save mode f32's
+    launches up to the attention, with the exact softmax (`attn_launches`,
+    P into per-call scratch), then K5 f32's; every tensor f32.  The plain
+    version on a CPU tensor."""
+    if x.device.type == "cpu":
+        return fused_window_msa_bwd_recompute_plain(
+            x, ln, wqkv, bqkv, wproj, bproj, bias, mask, gy, heads, scale,
+            ln_eps)
+    out = _recompute_launch(x, ln, wqkv, bqkv, wproj, bias, mask, gy, heads,
+                            scale, ln_eps, flags, torch.float32)
+    fused_window_msa_bwd_recompute_f32.launches += 1
+    return out
+
+
+def _recompute_launch(x, ln, wqkv, bqkv, wproj, bias, mask, gy, heads, scale,
+                      ln_eps, flags, dtype):
+    """K6 / K6 f32 on the card: the save mode's checks and launches up to
+    the attention, then `_bwd_launch` (its checks, K5's launches)."""
+    _check_save_launches(x, ln, wqkv, bqkv, None, None, heads, dtype)
+    _, (q, k, v, p, xn) = attn_launches(x, ln, wqkv, bqkv, bias, mask, heads,
+                                        scale, ln_eps, flags=flags)
+    xin = x if xn is None else xn.view(x.shape)
+    return _bwd_launch(xin, gy, wqkv, wproj, (q, k, v, p), heads, scale,
+                       dtype)
+
+
 fused_window_msa.launches = 0
+fused_window_msa_f32.launches = 0
 fused_window_msa_ln.launches = 0
 fused_window_msa_ln_f32.launches = 0
+fused_window_msa_save_f32.launches = 0
 fused_window_msa_bwd.launches = 0
+fused_window_msa_bwd_f32.launches = 0
 fused_window_msa_bwd_recompute.launches = 0
+fused_window_msa_bwd_recompute_f32.launches = 0
 
 
 # -- K2p: windows padded to 16 tokens, grouped by mask --------------------------
@@ -1046,8 +1302,12 @@ def fused_window_msa_padded(x, wqkv, bqkv, wproj, bproj, bias,
 
 class FusedWindowMSA(torch.autograd.Function):
     """K1 (ln_scale given) / K2 with the K5/K6 backward.  Takes the f32
-    master weights, runs the kernels on x's dtype (bf16 on the card) and
-    returns the weight grads in the weights' dtype; the mask gets none."""
+    master weights, runs the kernels on x's dtype (bf16 on the card, or
+    f32: the save mode f32 with K5 f32, or K1 f32 / K2 f32 with K6 f32)
+    and returns the weight grads in the weights' dtype; the mask gets
+    none.  The taped forward takes the exact softmax, as JAX's `_vjp_fwd`
+    / `_vjp_ln_fwd` do, so that K6's recomputed P is the one the output
+    came from."""
 
     @staticmethod
     def forward(ctx, x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, bias,
@@ -1069,10 +1329,11 @@ class FusedWindowMSA(torch.autograd.Function):
             ctx.save_for_backward(x, ln_scale, w[0], w[2], q, k, v, p, xn)
         else:
             if ln is None:
-                y = fused_window_msa(x, *w, bias, mask, heads, scale, flags)
+                y = fused_window_msa(x, *w, bias, mask, heads, scale, flags,
+                                     exact=True)
             else:
                 y = fused_window_msa_ln(x, *ln, *w, bias, mask, heads, scale,
-                                        ln_eps, flags)
+                                        ln_eps, flags, exact=True)
             ctx.save_for_backward(x, ln_scale, *(ln or (None, None)), *w,
                                   bias, mask)
         return y
@@ -1095,7 +1356,7 @@ class FusedWindowMSA(torch.autograd.Function):
                 eps, ctx.flags)
         dx, dwqkv, dbqkv, dwproj, dbproj, dbias = grads
         dls = dlb = None
-        if ctx.has_ln:  # K4b's launch, counted as K5 (dx is K5's, bf16)
+        if ctx.has_ln:  # K4b's launch (f32: K4b f32's), counted as K5 / K6
             c = x.shape[-1]
             dx, dls, dlb = layer_norm_rows_bwd_launch(
                 x.reshape(-1, c), ln_scale.float(), dx.reshape(-1, c), eps)

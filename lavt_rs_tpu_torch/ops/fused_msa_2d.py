@@ -29,7 +29,10 @@ K11 f32 (`fused_window_msa_2d_f32`) is K11 on f32 activations, as the JAX
 kernel computes it there: the launches of `map_launches`, each on its f32
 kernel for an f32 tensor (the 3xTF32 GEMM of csrc/gemm_f32.cu, the map-order
 attention of csrc/fused_msa_f32.cu, `msa_attn_map_f32`); `fused_window_msa_2d`
-takes it for a CUDA f32 tensor.
+takes it for a CUDA f32 tensor.  Its softmax is the TPU inference kernel's
+exp(min(s, 80)), and its plain version takes that form for an f32 map
+(`fused_msa.softmax_form`); under `FusedWindowMSA2D` the forward takes the
+exact softmax of its backward.
 """
 
 from __future__ import annotations
@@ -42,47 +45,52 @@ import torch
 from . import cuda_lib
 from .fused_msa import (_attn_f32_checks, _require_all, fused_msa_supported,
                         fused_window_msa_plain, gemm_bias, msa_attn_plain,
-                        msa_bwd_groups)
+                        msa_bwd_groups, softmax_form)
 from .window import window_partition, window_reverse
 
 
 def fused_window_msa_2d_plain(x, wqkv, bqkv, wproj, bproj, bias, mask,
-                              heads: int, scale: float, ws: int
-                              ) -> torch.Tensor:
+                              heads: int, scale: float, ws: int,
+                              exact: bool = True) -> torch.Tensor:
     """The plain version of K11: partition -> K2's plain version ->
-    reverse (f32 math, the kernel's rounding points)."""
+    reverse (f32 math, the kernel's rounding points; exact False: the
+    clamp softmax of K11 f32)."""
     b, hp, wp, c = x.shape
     nw = (hp // ws) * (wp // ws)
     xw = window_partition(x, ws).view(b, nw, ws * ws, c)
     y = fused_window_msa_plain(xw, wqkv, bqkv, wproj, bproj, bias, mask,
-                               heads, scale)
+                               heads, scale, exact)
     return window_reverse(y.view(b * nw, ws * ws, c), ws, hp, wp)
 
 
-def msa_attn_map_plain(qkv, bias, mask, heads: int) -> torch.Tensor:
+def msa_attn_map_plain(qkv, bias, mask, heads: int,
+                       exact: bool = True) -> torch.Tensor:
     """The plain version of `msa_attn_map`: the qkv map partitioned into
-    windows, `msa_attn_plain` (its rounding points), O written back at the
-    windows' map positions."""
+    windows, `msa_attn_plain` (its rounding points and softmax form), O
+    written back at the windows' map positions."""
     b, hp, wp, c3 = qkv.shape
     n = bias.shape[-1]
     ws = math.isqrt(n)
     qw = window_partition(qkv, ws)
-    o, _ = msa_attn_plain(qw, bias, mask, heads)
+    o, _ = msa_attn_plain(qw, bias, mask, heads, exact)
     return window_reverse(o.view(qw.shape[0], n, c3 // 3), ws, hp, wp)
 
 
 def msa_attn_map(qkv, bias, mask, heads: int,
-                 flags: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 flags: Optional[torch.Tensor] = None,
+                 exact: bool = False) -> torch.Tensor:
     """K11's attention launch (`lavt_msa_fwd_map_sm90`): qkv (B, Hp, Wp, 3C)
     bf16 as `gemm_bias` writes it over the map's rows (q scaled), bias
     (heads, 144, 144) f32, mask (nW, 144, 144) f32 or None with its window
     flags -> O (B, Hp, Wp, C) bf16, each window's rows at its map
-    positions.  The plain version on a CPU tensor; an f32 map takes K11
-    f32's attention (`msa_attn_map_f32`)."""
+    positions; the exact softmax.  The plain version on a CPU tensor (in
+    `softmax_form`); an f32 map takes K11 f32's attention
+    (`msa_attn_map_f32`, exp(min(s, 80)) unless exact)."""
     if qkv.device.type == "cpu":
-        return msa_attn_map_plain(qkv, bias, mask, heads)
+        return msa_attn_map_plain(qkv, bias, mask, heads,
+                                  softmax_form(qkv, exact))
     if qkv.dtype == torch.float32:
-        return msa_attn_map_f32(qkv, bias, mask, heads, flags)
+        return msa_attn_map_f32(qkv, bias, mask, heads, flags, exact)
     b, hp, wp, c3 = qkv.shape
     c, n, dev = c3 // 3, 144, qkv.device
     if hp % 12 or wp % 12 or not fused_msa_supported(n, c, heads):
@@ -108,14 +116,15 @@ def msa_attn_map(qkv, bias, mask, heads: int,
 
 
 def msa_attn_map_f32(qkv, bias, mask, heads: int,
-                     flags: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     flags: Optional[torch.Tensor] = None,
+                     exact: bool = False) -> torch.Tensor:
     """K11 f32's attention launch (`lavt_msa_fwd_map_f32`): qkv (B, Hp,
     Wp, 3C) f32 (q scaled), bias (heads, 144, 144) f32, mask (nW, 144, 144)
     f32 or None with its window flags -> O (B, Hp, Wp, C) f32 at the
-    windows' map positions, e = exp(min(s, 80)) normalised by its row sum.
-    The plain version on a CPU tensor."""
+    windows' map positions, e = exp(min(s, 80)) (exact: exp(s - max))
+    normalised by its row sum.  The plain version on a CPU tensor."""
     if qkv.device.type == "cpu":
-        return msa_attn_map_plain(qkv, bias, mask, heads)
+        return msa_attn_map_plain(qkv, bias, mask, heads, exact)
     b, hp, wp, c3 = qkv.shape
     c, n = c3 // 3, 144
     if hp % 12 or wp % 12:
@@ -128,13 +137,15 @@ def msa_attn_map_f32(qkv, bias, mask, heads: int,
         qkv.data_ptr(), bias.data_ptr(),
         None if mask is None else mask.data_ptr(),
         None if mask is None or flags is None else flags.data_ptr(),
-        o.data_ptr(), b, hp, wp, c, heads, cuda_lib.stream_ptr(qkv.device))
+        o.data_ptr(), b, hp, wp, c, heads, int(exact),
+        cuda_lib.stream_ptr(qkv.device))
     cuda_lib.check(err, "lavt_msa_fwd_map_f32")
     return o
 
 
 def map_launches(x, wqkv, bqkv, wproj, bproj, bias, mask, heads: int,
-                 scale: float, flags=None) -> torch.Tensor:
+                 scale: float, flags=None, exact: bool = False
+                 ) -> torch.Tensor:
     """K11's three launches, in order, on the (B, Hp, Wp, C) map:
       (a) qkv = x Wqkvᵀ + bqkv over the map's B Hp Wp rows, q scaled after
           its bias, bf16 (B, Hp, Wp, 3C), on the GEMM core (`gemm_bias`);
@@ -142,16 +153,18 @@ def map_launches(x, wqkv, bqkv, wproj, bproj, bias, mask, heads: int,
       (c) y = O Wprojᵀ + bproj over the same rows on the GEMM core.
     On CPU tensors each launch takes its plain version, which compose to
     `fused_window_msa_2d_plain`'s values (tests/test_torch_k11_launches.py);
-    on the card y has the bits of the K2 launches on the partitioned map."""
+    on the card y has the bits of the K2 launches on the partitioned map.
+    `exact`: the f32 attention's softmax form (the bf16 one is exact)."""
     b, hp, wp, c = x.shape
     rows = b * hp * wp
     qkv = gemm_bias(x.reshape(rows, c), wqkv, bqkv, c, scale)
-    o = msa_attn_map(qkv.view(b, hp, wp, 3 * c), bias, mask, heads, flags)
+    o = msa_attn_map(qkv.view(b, hp, wp, 3 * c), bias, mask, heads, flags,
+                     exact)
     return gemm_bias(o.view(rows, c), wproj, bproj).view(b, hp, wp, c)
 
 
 def _launch(x, wqkv, bqkv, wproj, bproj, bias, mask, heads, scale, ws,
-            flags, dtype=torch.bfloat16):
+            flags, dtype=torch.bfloat16, exact=False):
     """The checks (every tensor of `dtype`: bf16, or f32 for K11 f32), then
     `map_launches`."""
     b, hp, wp, c = x.shape
@@ -163,17 +176,20 @@ def _launch(x, wqkv, bqkv, wproj, bproj, bias, mask, heads, scale, ws,
                   ("wproj", wproj, dtype, (c, c)),
                   ("bproj", bproj, dtype, (c,))], x.device)
     return map_launches(x, wqkv, bqkv, wproj, bproj, bias, mask, heads, scale,
-                        flags)
+                        flags, exact)
 
 
 def _forward(x, wqkv, bqkv, wproj, bproj, bias, mask, heads, scale, ws,
-             flags):
+             flags, exact=False):
+    """K11 (f32: K11 f32), its softmax form by `softmax_form`: the clamp
+    form of K11 f32 at inference, exact under `FusedWindowMSA2D`'s tape."""
     if x.device.type == "cpu":
         return fused_window_msa_2d_plain(x, wqkv, bqkv, wproj, bproj, bias,
-                                         mask, heads, scale, ws)
+                                         mask, heads, scale, ws,
+                                         softmax_form(x, exact))
     if x.dtype == torch.float32:
         return fused_window_msa_2d_f32(x, wqkv, bqkv, wproj, bproj, bias,
-                                       mask, heads, scale, ws, flags)
+                                       mask, heads, scale, ws, flags, exact)
     y = _launch(x, wqkv, bqkv, wproj, bproj, bias, mask, heads, scale, ws,
                 flags)
     fused_window_msa_2d.launches += 1
@@ -183,22 +199,24 @@ def _forward(x, wqkv, bqkv, wproj, bproj, bias, mask, heads, scale, ws,
 def fused_window_msa_2d_f32(x, wqkv, bqkv, wproj, bproj, bias,
                             mask: Optional[torch.Tensor], heads: int,
                             scale: float, ws: int,
-                            flags: Optional[torch.Tensor] = None
-                            ) -> torch.Tensor:
-    """K11 f32: K11's forward on an f32 map and f32 weights; on the card
-    the launches of `map_launches` on their f32 kernels, the plain version
-    on a CPU tensor."""
+                            flags: Optional[torch.Tensor] = None,
+                            exact: bool = False) -> torch.Tensor:
+    """K11 f32: K11's forward on an f32 map and f32 weights, the softmax
+    exp(min(s, 80)) of the TPU inference kernel (exact: the max-subtracted
+    one); on the card the launches of `map_launches` on their f32 kernels,
+    the plain version on a CPU tensor."""
     if x.device.type == "cpu":
         return fused_window_msa_2d_plain(x, wqkv, bqkv, wproj, bproj, bias,
-                                         mask, heads, scale, ws)
+                                         mask, heads, scale, ws, exact)
     y = _launch(x, wqkv, bqkv, wproj, bproj, bias, mask, heads, scale, ws,
-                flags, torch.float32)
+                flags, torch.float32, exact)
     fused_window_msa_2d_f32.launches += 1
     return y
 
 
 class FusedWindowMSA2D(torch.autograd.Function):
-    """K11 forward; the backward is autograd through the plain version."""
+    """K11 forward (the exact softmax, as the backward's); the backward is
+    autograd through the plain version."""
 
     @staticmethod
     def forward(ctx, x, wqkv, bqkv, wproj, bproj, bias, mask, heads: int,
@@ -206,7 +224,7 @@ class FusedWindowMSA2D(torch.autograd.Function):
         ctx.save_for_backward(x, wqkv, bqkv, wproj, bproj, bias, mask)
         ctx.static = (heads, scale, ws)
         return _forward(x, wqkv, bqkv, wproj, bproj, bias, mask, heads, scale,
-                        ws, flags)
+                        ws, flags, exact=True)
 
     @staticmethod
     def backward(ctx, gy):

@@ -1,5 +1,5 @@
-"""The f32 variants of K1, K11, K3, K4, K10 (both modes), K2p, K9, K8, K7
-and K4b on the card.  Marked `cuda`; every test skips without a CUDA device.  Runs
+"""The f32 variants of K1, K2, the K1/K2 save mode, K5, K6, K11, K3, K4,
+K10 (both modes), K2p, K9, K8, K7 and K4b on the card.  Marked `cuda`; every test skips without a CUDA device.  Runs
 without JAX:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_f32_cuda.py
@@ -22,7 +22,14 @@ without JAX:
 * K8 f32, K7 f32 (with keep and without) and K4b f32 at C = 128, 256,
   512 and 1024 (K4b f32 also at 96 and 1536) on M a multiple of no tile,
   keep with a zero, within 1e-4 abs + rel of their plain versions, the
-  same bits in two calls.
+  same bits in two calls;
+* the save mode f32 (with and without LN), K5 f32 (the same bits in two
+  calls), K6 f32 and K2 f32 (both softmax forms) at N = 144 against their
+  plain versions; F7: with logits past 80, K1 f32 at inference takes the
+  clamp form and the taped forward and K6 f32's recomputed P the exact
+  one; a small f32 window-12 lavt_one trains on its plan, saving its
+  residuals (save mode f32, K5 f32) or recomputing them (K1 f32 / K2 f32
+  taped, K6 f32), against the plain f32 step.
 """
 
 import numpy as np
@@ -39,6 +46,10 @@ pytestmark = pytest.mark.cuda
 
 TOL = 1e-4
 F32 = {"K1": fused_msa.fused_window_msa_ln_f32,
+       "K2": fused_msa.fused_window_msa_f32,
+       "save": fused_msa.fused_window_msa_save_f32,
+       "K5": fused_msa.fused_window_msa_bwd_f32,
+       "K6": fused_msa.fused_window_msa_bwd_recompute_f32,
        "K11": fused_msa_2d.fused_window_msa_2d_f32,
        "K3": fused_mlp.fused_ln_mlp_f32, "K4": ln.layer_norm_rows_f32,
        "K10": window_attn.window_attention_f32,
@@ -47,6 +58,9 @@ F32 = {"K1": fused_msa.fused_window_msa_ln_f32,
        "K8": fused_mlp.fused_ln_mlp_droppath_f32,
        "K7": fused_mlp.fused_ln_mlp_bwd_f32, "K4b": ln.layer_norm_rows_bwd_f32}
 BF16 = {"K1": fused_msa.fused_window_msa_ln,
+        "K2": fused_msa.fused_window_msa,
+        "K5": fused_msa.fused_window_msa_bwd,
+        "K6": fused_msa.fused_window_msa_bwd_recompute,
         "K11": fused_msa_2d.fused_window_msa_2d, "K3": fused_mlp.fused_ln_mlp,
         "K4": ln.layer_norm_rows, "K10": window_attn.window_attention,
         "K2p": fused_msa.fused_window_msa_grouped,
@@ -169,15 +183,21 @@ def test_fused_window_msa_2d_f32(dev, b, hp, wp, c, heads, shift):
 
 
 def test_f32_save_mode_and_k2_raise_on_the_card(dev):
-    """No f32 variant yet: an f32 tensor raises, and is never cast into a
-    bf16 kernel."""
+    """The save mode and K2 take their f32 variants for an f32 tensor (no
+    f32 tensor is cast into a bf16 kernel), and the f32 entry points raise
+    for a bf16 one (none is cast into an f32 kernel)."""
     rng = np.random.default_rng(5)
     x = _f32(rng, (1, 4, 144, 128), 1.0, dev)
     w = _msa(rng, dev, 128, 4)
+    _once("K2", lambda: fused_msa.fused_window_msa(x, *w, None, 4,
+                                                   32 ** -0.5))
+    _once("save", lambda: fused_msa.fused_window_msa_save(x, None, *w, None,
+                                                          4, 32 ** -0.5))
     with pytest.raises(TypeError):
-        fused_msa.fused_window_msa(x, *w, None, 4, 32 ** -0.5)
+        fused_msa.fused_window_msa_f32(x.bfloat16(), *w, None, 4, 32 ** -0.5)
     with pytest.raises(TypeError):
-        fused_msa.fused_window_msa_save(x, None, *w, None, 4, 32 ** -0.5)
+        fused_msa.fused_window_msa_save_f32(x.bfloat16(), None, *w, None, 4,
+                                            32 ** -0.5)
 
 
 def test_small_f32_window12_model_launches_its_plan(dev):
@@ -525,5 +545,207 @@ def test_small_f32_window7_model_trains_on_its_plan(dev):
         f32, bf16 = _counts()
         assert {k: n for k, n in f32.items() if n} == (plan if kernels
                                                        else {})
+        assert not any(bf16.values())
+    assert abs(losses[True] - losses[False]) <= 1e-4 * abs(losses[False])
+
+
+# -- the save mode f32, K5 f32, K6 f32, K2 f32 (window-12 f32 training) --------
+
+def _window12(rng, dev, c, heads, shift, bias_std=1.0, b=2):
+    """x (b, 4, 144, C), LN parameters, the MSA weights with a bias table
+    of std bias_std, the shift mask of a 24 x 24 map and its flags."""
+    x = _f32(rng, (b, 4, 144, c), 2.0, dev) + 0.5
+    lnp = (_f32(rng, (c,), 0.2, dev) + 1.0, _f32(rng, (c,), 0.2, dev))
+    w = _msa(rng, dev, c, heads)
+    w = w[:4] + (w[4] * bias_std,)
+    mask = shift_mask_2d(24, 24, 12, 6, dev) if shift else None
+    flags = shift_mask_flags_2d(24, 24, 12, 6, dev) if shift else None
+    return x, lnp, w, mask, flags
+
+
+@pytest.mark.parametrize("with_ln,shift", [(True, True), (False, True),
+                                           (False, False)])
+@pytest.mark.parametrize("c,heads", [(128, 4), (512, 16)])
+def test_save_mode_f32(dev, with_ln, shift, c, heads):
+    rng = np.random.default_rng(c + 2 * with_ln + shift)
+    x, lnp, w, mask, flags = _window12(rng, dev, c, heads, shift)
+    lnp = lnp if with_ln else None
+    sc = 32 ** -0.5
+    y, got = _once("save", lambda: fused_msa.fused_window_msa_save(
+        x, lnp, *w, mask, heads, sc, flags=flags))
+    want = fused_msa.fused_window_msa_save_plain(x, lnp, *w, mask, heads, sc)
+    _close(y, want[0])
+    for g, wt in zip(got, want[1]):
+        assert (g is None) == (wt is None)
+        if g is not None:
+            _close(g, wt)
+    assert got[0].stride() == (144 * 3 * c, 3 * c, 1)  # views of qkv
+
+
+def _msa_chain(x, wqkv, bqkv, wproj, bproj, bias, mask, heads, scale):
+    """The window MSA as a PyTorch chain in x's dtype (the f64 reference
+    of the backward's sums)."""
+    b, nw, n, c = x.shape
+    qkv = (x @ wqkv.t() + bqkv).view(b, nw, n, 3, heads, c // heads)
+    q, k, v = qkv.permute(3, 0, 1, 4, 2, 5)
+    s = (q * scale) @ k.transpose(-1, -2) + bias
+    if mask is not None:
+        s = s + mask[:, None]
+    o = (s.softmax(-1) @ v).permute(0, 1, 3, 2, 4).reshape(b, nw, n, c)
+    return o @ wproj.t() + bproj
+
+
+def _check_msa_grads(got, plain, x, w, mask, gy, heads, scale):
+    """K5 / K6 f32's (dx, dwqkv, dbqkv, dwproj, dbproj, dbias): dx within
+    1e-4 abs + rel of the plain version's, each sum over rows or windows
+    within 1e-4 (rms + |want|) of its f64 value (autograd through
+    `_msa_chain` in f64 from x, the MSA's input): an f32 sum of ~1000
+    terms carries f32 rounding on the scale of its terms, in the plain
+    version as in the kernel (chip_smoke.py's `check_f32_backward`)."""
+    _close(got[0], plain[0])
+    leaves = [t.double().requires_grad_() for t in (x, *w)]
+    y = _msa_chain(*leaves, None if mask is None else mask.double(), heads,
+                   scale)
+    ref = torch.autograd.grad(y, leaves, gy.double())
+    for g, r in zip(got[1:], ref[1:]):
+        assert g.shape == r.shape and bool(torch.isfinite(g).all())
+        e = (g.double() - r).abs() / (r.square().mean().sqrt() + r.abs())
+        assert e.max().item() <= TOL, e.max().item()
+
+
+@pytest.mark.parametrize("shift", [False, True])
+@pytest.mark.parametrize("c,heads", [(128, 4), (256, 8), (96, 3)])
+def test_k5_f32(dev, shift, c, heads):
+    rng = np.random.default_rng(3 * c + shift)
+    x, _, w, mask, flags = _window12(rng, dev, c, heads, shift)
+    sc = 32 ** -0.5
+    _, (q, k, v, p, _) = fused_msa.fused_window_msa_save_f32(
+        x, None, *w, mask, heads, sc, flags=flags)
+    gy = _f32(rng, x.shape, 1.0, dev)
+
+    def k5():
+        return fused_msa.fused_window_msa_bwd(x, gy, w[0], w[2], (q, k, v, p),
+                                              heads, sc)
+
+    got = _once("K5", k5)
+    want = fused_msa.fused_window_msa_bwd_plain(x, gy, w[0], w[2],
+                                                (q, k, v, p), heads, sc)
+    _check_msa_grads(got, want, x, w, mask, gy, heads, sc)
+    again = k5()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("with_ln", [True, False])
+def test_k6_f32(dev, with_ln):
+    rng = np.random.default_rng(17 + with_ln)
+    x, lnp, w, mask, flags = _window12(rng, dev, 128, 4, True)
+    lnp = lnp if with_ln else None
+    gy = _f32(rng, x.shape, 1.0, dev)
+    sc = 32 ** -0.5
+    got = _once("K6", lambda: fused_msa.fused_window_msa_bwd_recompute(
+        x, lnp, *w, mask, gy, 4, sc, flags=flags))
+    want = fused_msa.fused_window_msa_bwd_recompute_plain(x, lnp, *w, mask,
+                                                          gy, 4, sc)
+    xin = x if lnp is None else ln.layer_norm_rows_plain(x, *lnp)
+    _check_msa_grads(got, want, xin, w, mask, gy, 4, sc)
+
+
+@pytest.mark.parametrize("exact", [False, True])
+@pytest.mark.parametrize("c,heads,shift", [(512, 16, True), (1024, 32, False)])
+def test_k2_f32(dev, exact, c, heads, shift):
+    rng = np.random.default_rng(c + exact)
+    x, _, w, mask, flags = _window12(rng, dev, c, heads, shift, b=1)
+    sc = 32 ** -0.5
+    got = _once("K2", lambda: fused_msa.fused_window_msa(
+        x, *w, mask, heads, sc, flags, exact=exact))
+    _close(got, fused_msa.fused_window_msa_plain(x, *w, mask, heads, sc,
+                                                 exact))
+
+
+def test_f7_softmax_forms_past_80_on_the_card(dev):
+    """F7 with logits past 80 (a bias table of std 60): K1 f32 at inference
+    takes exp(min(s, 80)) (its plain version's form, not the exact one);
+    the taped forward (`window_msa` under autograd, K1 f32 exact when the
+    block saves nothing) and the save mode f32's P, which K6 f32
+    recomputes, take the exact softmax."""
+    rng = np.random.default_rng(80)
+    x, lnp, w, mask, flags = _window12(rng, dev, 128, 4, True, 60.0)
+    sc = 32 ** -0.5
+    clamp = fused_msa.fused_window_msa_ln_plain(x, *lnp, *w, mask, 4, sc,
+                                                exact=False)
+    exact = fused_msa.fused_window_msa_ln_plain(x, *lnp, *w, mask, 4, sc)
+    assert (clamp - exact).abs().max().item() > 1e-2
+    got = _once("K1", lambda: fused_msa.fused_window_msa_ln(
+        x, *lnp, *w, mask, 4, sc, flags=flags))
+    _close(got, clamp)
+    taped = _once("K1", lambda: fused_msa.fused_window_msa_ln(
+        x, *lnp, *w, mask, 4, sc, flags=flags, exact=True))
+    _close(taped, exact)
+    _, saved = fused_msa.attn_launches(x, lnp, w[0], w[1], w[4], mask, 4, sc,
+                                       flags=flags)
+    _, want = fused_msa.fused_window_msa_save_plain(x, lnp, *w, mask, 4, sc)
+    _close(saved[3], want[3])  # K6 f32's P: the exact softmax
+
+
+def _f32_train_counts(backbone, img, batch):
+    """The f32 counters of one training step, from each block's kernels: a
+    block's K1 / K2 counts on the save mode f32 where its backward is K5,
+    else on K1 f32 / K2 f32 (taped, exact); K4 and K4b from the plan."""
+    plan = backbone.kernel_plan(img, batch, 4, True)[0]
+    counts = {k: n for k, n in plan.items() if k in ("K4", "K4b")}
+    hw = tuple(-(-s // 4) for s in img)
+    for layer in backbone.layers:
+        for blk in layer.blocks:
+            ks = blk.kernels(hw, batch, 4, True)
+            for k in ks:
+                key = "save" if k in ("K1", "K2") and "K5" in ks else k
+                counts[key] = counts.get(key, 0) + 1
+        hw = ((hw[0] + 1) // 2, (hw[1] + 1) // 2)
+    return counts
+
+
+@pytest.mark.parametrize("resid", [True, False])
+def test_small_f32_window12_model_trains_on_its_plan(dev, monkeypatch, resid):
+    """A window-12 lavt_one at 192² in f32 with DropPath on (K1 at stages
+    1-3, K2 at stage 4): one training step launches its plan on the f32
+    kernels and no bf16 kernel, saving its residuals (the save mode f32 and
+    K5 f32) or, past a zero residual cap, recomputing them (K1 f32 / K2 f32
+    taped, K6 f32); its loss within 1e-4 relative of the plain f32 step's
+    from the same weights and generator."""
+    from lavt_rs_tpu_torch.train.optim import TrainConfig
+    from lavt_rs_tpu_torch.train.step import (create_train_state,
+                                              make_train_step)
+
+    if not resid:
+        monkeypatch.setattr(fused_msa, "RESID_CAP_BYTES", 0)
+    cfg = C.ModelConfig(
+        swin=C.SwinConfig(embed_dim=32, depths=(2, 2, 2, 2),
+                          num_heads=(1, 2, 4, 8), window_size=12,
+                          drop_path_rate=0.3),
+        bert=C.BertConfig(num_layers=1), img_size=192, dtype="float32")
+    g = torch.Generator(device=dev).manual_seed(6)
+    weights = build_model(cfg, dev, generator=g).state_dict()
+    batch = {"image": torch.randint(0, 256, (2, 192, 192, 3), generator=g,
+                                    device=dev, dtype=torch.uint8),
+             "ids": torch.randint(1000, 20000, (2, 8), generator=g,
+                                  device=dev),
+             "mask": torch.ones(2, 8, dtype=torch.long, device=dev),
+             "target": torch.randint(0, 2, (2, 192, 192), generator=g,
+                                     device=dev)}
+    losses = {}
+    for kernels in (True, False):
+        t = build_model(cfg.replace(use_kernels=kernels), dev, train=True)
+        t.load_state_dict(weights)
+        want = _f32_train_counts(t.backbone, (192, 192), 2) if kernels else {}
+        if kernels:
+            assert ("K5" in want) == resid and ("K6" in want) != resid
+        tcfg = TrainConfig()
+        step = make_train_step(t, *create_train_state(t, tcfg), tcfg)
+        _zero()
+        out = step(batch, torch.Generator(device=dev).manual_seed(7))
+        torch.cuda.synchronize()
+        losses[kernels] = out["loss"].item()
+        f32, bf16 = _counts()
+        assert {k: n for k, n in f32.items() if n} == want
         assert not any(bf16.values())
     assert abs(losses[True] - losses[False]) <= 1e-4 * abs(losses[False])

@@ -8,10 +8,10 @@ tests/test_torch_f32_train.py).
   is K1 4, K11 20, K3 24, K4 4, the bf16 plan; the training plan takes K6
   at stage 1, where f32 residuals exceed the TPU's save cap.
 * `build_model` refuses f32 with the kernels on the card only where the
-  plan holds a kernel without an f32 variant (lavt_one training at
-  window 12: the save mode, K5, K6), naming the missing variants, before
-  any allocation; window-7 and lavt_video inference, the window-7
-  lavt_one training step and the lavt_video training step pass it.
+  plan holds a kernel without an f32 variant, naming the missing
+  variants, before any allocation: every plan passes it now (window-12
+  lavt_one training too, tests/test_torch_f32_msa_train.py), and a test
+  that takes K5's variant away sees the guard name it.
 * `--no_bf16` parses to float32, and its help says what runs on the card.
 * `fused_window_msa_ln_f32`, `fused_window_msa_2d_f32`, `fused_ln_mlp_f32`
   and `layer_norm_rows_f32` take their plain versions on CPU tensors
@@ -86,22 +86,32 @@ def test_f32_training_plan_takes_k6_at_stage_1(base_backbone):
     assert counts["K6"] == 2 and counts["K5"] == 22
 
 
-@pytest.mark.parametrize("cfg,train,missing", [
-    (C.lavt_one_base(dtype="float32"), True,
-     ["K1/K2 save mode", "K5", "K6"]),
-], ids=["train"])
-def test_f32_refused_where_a_variant_is_missing(cfg, train, missing):
-    """Window-12 lavt_one training, whose save mode and MSA backward have
-    no f32 variant, is refused before any allocation (here, with no card,
-    a later step would raise something else), naming every missing
-    variant at any batch size: the save mode apart from K1's inference
-    variant, and K6 beside K5 (a bs-8 f32 step takes K6 at stage 1; the
-    plan at bs 1 holds K5 alone)."""
-    assert kernels_without_variant(cfg, train) == missing
-    with pytest.raises(NotImplementedError,
-                       match="f32 kernel variants") as err:
-        build_model(cfg, device="cuda", train=train)
-    assert all(k in str(err.value) for k in missing)
+@pytest.mark.parametrize("drop,missing", [(None, []), ("K5", ["K5"])],
+                         ids=["train", "guard"])
+def test_f32_refused_where_a_variant_is_missing(monkeypatch, drop, missing):
+    """Window-12 lavt_one training, the last plan whose save mode and MSA
+    backward lacked f32 variants, has them now (the save mode f32, K5 f32,
+    K6 f32, K2 f32) and passes the refusal at any batch size (train; here,
+    with no card, a later step raises something else).  The check stays
+    the guard for a kernel added without its f32 variant: with K5's taken
+    away (guard) the plan names K5, K6's partner at another batch size,
+    and `build_model` refuses before any allocation."""
+    from lavt_rs_tpu_torch.models import factory
+
+    cfg = C.lavt_one_base(dtype="float32")
+    if drop is not None:
+        monkeypatch.setattr(factory, "F32_KERNELS",
+                            factory.F32_KERNELS - {drop})
+    assert kernels_without_variant(cfg, True) == missing
+    if missing:
+        with pytest.raises(NotImplementedError,
+                           match="f32 kernel variants") as err:
+            build_model(cfg, device="cuda", train=True)
+        assert all(k in str(err.value) for k in missing)
+    elif not torch.cuda.is_available():
+        with pytest.raises(Exception) as err:
+            build_model(cfg, device="cuda", train=True)
+        assert not isinstance(err.value, NotImplementedError), err.value
 
 
 @pytest.mark.parametrize("cfg,train", [
@@ -146,12 +156,12 @@ def test_no_bf16_parses_to_float32_and_says_what_runs():
     assert cfg.dtype == "float32" and cfg.swin.window_size == 12
     assert kernels_without_variant(cfg) == []
     assert model_config_from_args(parser.parse_args([])).dtype == "bfloat16"
+    assert kernels_without_variant(cfg, True) == []  # window-12 training
     text = " ".join(parser.format_help().split())
-    assert ("for inference (lavt_one at windows 12 and 7, lavt_video), "
-            "lavt_one training at window 7 and lavt_video training (K1, K11, "
-            "K3, K4, K10, K2p, K9, K8, K7, K4b have f32 variants)") in text
-    assert ("lavt_one training in f32 at --window12 needs --no_pallas or "
-            "--device cpu") in text
+    assert ("for inference and training (lavt_one at windows 12 and 7, "
+            "lavt_video; every kernel has an f32 variant: K1, K2, the K1/K2 "
+            "save mode, K5, K6, K11, K3, K4, K10, K2p, K9, K8, K7, K4b)"
+            ) in text
     window7 = model_config_from_args(parser.parse_args(["--no_bf16"]))
     assert window7.swin.window_size == 7 and kernels_without_variant(
         window7) == []

@@ -103,14 +103,24 @@ def test_full_model_logit_parity(pair):
 
 def test_plain_route_equals_kernel_route_on_cpu(pair):
     """use_kernels=False calls the plain versions directly; on CPU tensors
-    the kernel wrappers take the same plain versions."""
+    the kernel wrappers take the same plain versions, in their kernels'
+    softmax form (`fused_msa.softmax_form`: the f32 inference kernels'
+    exp(min(s, 80)), which the plain route, JAX's XLA route, does not
+    take): with the exact form they give the plain route's bits."""
+    from unittest import mock
+
+    from lavt_rs_tpu_torch.ops import fused_msa, fused_msa_2d
+
     jcfg, _, variables, pm = pair
     cfg = dataclasses.replace(pm.cfg, use_kernels=False)
     plain = build_model(cfg, device="cpu")
     plain.load_state_dict(pm.state_dict())
     img, ids, mask = (torch.from_numpy(a) for a in
                       _inputs(np.random.default_rng(2), b=1))
-    with torch.no_grad():
+    exact = mock.patch.object(fused_msa, "softmax_form", lambda t, e: True)
+    exact_2d = mock.patch.object(fused_msa_2d, "softmax_form",
+                                 lambda t, e: True)
+    with torch.no_grad(), exact, exact_2d:
         torch.testing.assert_close(plain(img, ids, mask), pm(img, ids, mask),
                                    rtol=0, atol=0)
 

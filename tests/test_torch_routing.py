@@ -154,23 +154,33 @@ def test_kernel_plan_at_full_width(monkeypatch, name, n, train, want):
         assert len(unrouted) == 4
 
 
-def test_f32_with_kernels_on_the_card_is_refused():
+@pytest.mark.parametrize("drop", [None, "K5"], ids=["window12_train",
+                                                    "guard"])
+def test_f32_with_kernels_on_the_card_is_refused(monkeypatch, drop):
     """build_model refuses f32 activations with the kernels on a CUDA
-    device where the plan holds a kernel without an f32 variant (lavt_one
-    training at window 12: the save mode, K5 and K6), before it allocates
-    a weight (so it raises here, without a card); the plain versions and
-    the CPU still take f32.  Inference at windows 12 and 7, window-7
-    training and lavt_video have their f32 variants
-    (tests/test_torch_f32_kernels.py)."""
-    cfg = C.lavt_one_base(window12=False, dtype="float32")
-    assert kernels_without_variant(cfg) == []
-    assert kernels_without_variant(cfg, True) == []
-    with pytest.raises(NotImplementedError, match="K1/K2 save mode, K5, K6"):
-        build_model(C.lavt_one_base(dtype="float32"), device="cuda",
-                    train=True)
-    with pytest.raises(NotImplementedError, match="f32 kernel variants"):
-        build_model(C.lavt_one_base(dtype="float32"),
-                    device=torch.device("cuda", 0), train=True)
+    device only where the plan holds a kernel without an f32 variant,
+    before it allocates a weight.  Every kernel of the port has one now
+    (window12_train: lavt_one training at window 12, the last plan that
+    lacked them, passes), so the refusal stays as the guard for a kernel
+    added without its variant: with K5's taken away (guard) it names K5
+    and raises here, without a card.  The plain versions and the CPU take
+    f32 either way."""
+    from lavt_rs_tpu_torch.models import factory
+
+    cfg = C.lavt_one_base(dtype="float32")
+    assert kernels_without_variant(
+        C.lavt_one_base(window12=False, dtype="float32"), True) == []
+    if drop is None:
+        assert kernels_without_variant(cfg) == []
+        assert kernels_without_variant(cfg, True) == []
+    else:
+        monkeypatch.setattr(factory, "F32_KERNELS",
+                            factory.F32_KERNELS - {drop})
+        assert kernels_without_variant(cfg, True) == [drop]
+        with pytest.raises(NotImplementedError, match=f"launches {drop}, "):
+            build_model(cfg, device="cuda", train=True)
+        with pytest.raises(NotImplementedError, match="f32 kernel variants"):
+            build_model(cfg, device=torch.device("cuda", 0), train=True)
     small = C.ModelConfig(
         swin=C.SwinConfig(embed_dim=32, depths=(1, 1, 1, 1),
                           num_heads=(1, 2, 4, 8), window_size=7),

@@ -14,7 +14,8 @@ every test skips without a CUDA device.  Runs without JAX:
 * a small window-7 model on the card: every block on K10, none on K1 or
   K11;
 * f32 with the kernels refused, where a kernel of the plan has no f32
-  variant, before anything is built or launched.
+  variant (a test takes K5's away: every plan has its variants, window-12
+  training too), before anything is built or launched.
 
 Inputs are bf16 and the tolerances those of test_torch_kernels_cuda.py
 (whose helpers this file uses).
@@ -177,23 +178,36 @@ def test_window7_model_on_the_card(dev):
     assert fused_msa.fused_window_msa_ln.launches == 0
 
 
-def test_f32_with_kernels_is_refused_before_any_launch(dev):
-    """Refused where the plan holds a kernel without an f32 variant:
-    lavt_one training at window 12 (the save mode, K5, K6); window-7 and
-    window-12 inference and window-7 training have their f32 variants
-    (tests/test_torch_f32_cuda.py runs them)."""
-    before = (ln.layer_norm_rows.launches, fused_mlp.fused_ln_mlp.launches,
-              window_attn.window_attention.launches,
-              window_attn.window_attention_f32.launches)
-    torch.cuda.synchronize(dev)
-    torch.cuda.reset_peak_memory_stats(dev)
-    base = torch.cuda.memory_allocated(dev)
-    with pytest.raises(NotImplementedError, match="f32 kernel variants"):
-        build_model(_small(12, dtype="float32"), dev, train=True)
-    assert torch.cuda.max_memory_allocated(dev) == base  # nothing allocated
-    assert (ln.layer_norm_rows.launches, fused_mlp.fused_ln_mlp.launches,
-            window_attn.window_attention.launches,
-            window_attn.window_attention_f32.launches) == before
+@pytest.mark.parametrize("drop", [None, "K5"], ids=["window12_train",
+                                                    "guard"])
+def test_f32_with_kernels_is_refused_before_any_launch(dev, monkeypatch,
+                                                       drop):
+    """Refused where the plan holds a kernel without an f32 variant, before
+    any launch or allocation.  Every plan has its f32 variants now
+    (window12_train: window-12 training builds, as window-7 inference and
+    training do); the refusal stays as the guard: with K5's variant taken
+    away (guard) window-12 training is refused, naming it."""
+    from lavt_rs_tpu_torch.models import factory
+
+    if drop is None:
+        assert build_model(_small(12, dtype="float32"), dev,
+                           train=True) is not None
+    else:
+        monkeypatch.setattr(factory, "F32_KERNELS",
+                            factory.F32_KERNELS - {drop})
+        before = (ln.layer_norm_rows.launches,
+                  fused_mlp.fused_ln_mlp.launches,
+                  window_attn.window_attention.launches,
+                  window_attn.window_attention_f32.launches)
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        with pytest.raises(NotImplementedError, match=f"launches {drop}, "):
+            build_model(_small(12, dtype="float32"), dev, train=True)
+        assert torch.cuda.max_memory_allocated(dev) == base  # no allocation
+        assert (ln.layer_norm_rows.launches, fused_mlp.fused_ln_mlp.launches,
+                window_attn.window_attention.launches,
+                window_attn.window_attention_f32.launches) == before
     # window-7 f32 inference and training pass the refusal; the plain
     # versions take f32 on the card
     assert build_model(_small(7, dtype="float32"), dev) is not None
