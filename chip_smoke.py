@@ -130,8 +130,10 @@
        route, and contiguous q, k, v checked) and at video stages 2-4 of an
        8-frame clip, K2p f32 at stage 1 (n_p = 392: no padding in f32;
        grouped by mask, unshifted and shifted), K10 f32's save mode and K9
-       f32 at all four video stages (two K9 f32 calls give the same bits);
-       their launch plans printed;
+       f32 at all four video stages (two K9 f32 calls give the same bits;
+       K9 f32's device ms by kernel under torch.profiler at each; its time
+       per video step beside its FFMA design's, FFMA_DESIGN_MS); their
+       launch plans printed;
      * window-7 lavt_one_base in f32 on seeded window-7 weights: three
        bs-8 batches through `fwd_iou` (counts K10 f32 24 / K3 f32 24 / K4
        f32 4 a forward, no bf16 launch), the f32 gate, ms and img/s beside
@@ -273,7 +275,8 @@
        1e-4 abs + rel (both counted and printed), timed per call and per
        step beside its bound, its plain version and its f32 library
        chain, and on the device; two calls of K4b f32, K7 f32 and K9 f32
-       give the same bits;
+       give the same bits; K9 f32's device ms by kernel (torch.profiler)
+       at each shape and its time per step beside its FFMA design's;
      * the gate: one forward + backward of lavt_one_base(window12=False)
        in f32 with the kernels and of the plain f32 route from the same
        weights, batch and seed (BN batch statistics): losses within 1e-4
@@ -300,7 +303,9 @@
        f32's sums over rows or windows within 1e-4 (rms + |want|) of
        their f64 values; timed per call and per step beside the bound,
        the plain version and the f32 library chain, and on the device;
-       two K5 f32 calls give the same bits;
+       two K5 f32 calls give the same bits; K5 f32's and K6 f32's device
+       ms by kernel (torch.profiler) at each shape, and their times per
+       step beside their FFMA designs' (FFMA_DESIGN_MS);
      * F7 on stage 1's geometry with logits past 80 (a bias table of std
        60): K1 f32 at inference against the clamp plain version, the
        taped K1 f32 and K6 f32's recomputed P against the exact one;
@@ -633,6 +638,15 @@ PEAK_FLOPS_F32 = 495e12 / 3
 FIRST_DESIGN_BUSY = {
     "forward": "28.0-29.3 ms on the first K1/K11 design, PERF.md",
     "eval batch": "78.7-80.8 ms on the first K1/K11 design, PERF.md"}
+# the f32 attention backwards' times per training step on their FFMA
+# designs, before the 3xTF32 tensor-core ones (one H100 80GB HBM3 at 700
+# W, this script; PERF.md section 6), printed beside this run's
+FFMA_DESIGN_MS = {
+    "K9.f32": "30.132 ms a video step",
+    "K9.f32/w7": "11.485-11.487 ms a window-7 bs-8 step",
+    "K5.f32": "42.676-42.856 ms a window-12 bs-8 step",
+    "K6.f32": "7.711-7.717 ms a window-12 bs-8 step",
+    "K6.f32/bs20": "154.334-154.601 ms a window-12 bs-20 step"}
 # the window-12 bs-8 training step with the plain LN backward chain that
 # K4b replaced (one H100 80GB HBM3 at 700 W,
 # lavt_rs_tpu_torch/tools/profile_ln.py; PERF.md section 6), printed
@@ -1360,6 +1374,32 @@ def ln_device_line(what, x, s, b):
         + "; ".join(f"{k} {v:.4f}" for k, v in ms.items())
         + f" (bound {bound_ms(ln_work(rows, c))[0]:.4f} bytes)")
     return ms["K4"]
+
+
+def ffma_design(key):
+    """`key`'s time on its FFMA design, for a summary line (or "")."""
+    return (f"; on the FFMA design {FFMA_DESIGN_MS[key]} (PERF.md)"
+            if key in FFMA_DESIGN_MS else "")
+
+
+def log_device_by_kernel(what, fn, iters=10):
+    """fn's device ms by kernel over one torch.profiler session of `iters`
+    calls after a warm-up: each kernel's ms a launch and the launches a
+    call the session recorded (a session can drop some: a fraction below
+    the call's count shows it, and ms a launch stay right), and the call's
+    total (ms a launch times the launches a call, rounded, at least 1)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    session = _device_session(fn, iters)
+    rows = sorted(((short_kernel(k), us / 1e3 / n, n / iters)
+                   for k, (us, n) in session.items() if n),
+                  key=lambda r: -r[1] * r[2])
+    parts = ", ".join(f"{name} {ms:.4f} x {per:g}" for name, ms, per in rows)
+    total = sum(ms * max(1, round(per)) for _, ms, per in rows)
+    log(f"{what}: device ms a launch by kernel x the launches a call "
+        f"recorded (torch.profiler): {parts}; total {total:.4f} a call")
 
 
 def device_per_call(res, name, what, calls, fn):
@@ -2580,7 +2620,8 @@ def f32_phase(dev, card, res, weights, root, vocab, ckpt, batches,
         r = res.r[k]
         log(f"{k} per {per}: kernel {r['ms']:.3f} ms, bound "
             f"{r['bound']:.3f} ms ({res.bound_by(k)}), plain (f32) "
-            f"{r['plain']:.3f} ms, library (f32, TF32 off) {r['lib']:.3f} ms")
+            f"{r['plain']:.3f} ms, library (f32, TF32 off) {r['lib']:.3f} "
+            f"ms{ffma_design(k)}")
     g = torch.Generator(device=dev).manual_seed(SEED + 51)
     w7 = meaningful(build_model(lavt_one_base(window12=False), dev,
                                 generator=g), dev, g).state_dict()
@@ -2771,6 +2812,7 @@ def f32_attn_kernel_phase(dev, res):
                     attn_bwd_work(1, nw, heads, n, masked, 4), check_all,
                     peak=PEAK_FLOPS_F32)
             check_deterministic(f"K9 f32 {what}", k9)
+            log_device_by_kernel(f"K9.f32 {what}", k9)
             del o, lse
         del q, k, v, do, shift_mask
         torch.cuda.empty_cache()
@@ -4707,6 +4749,7 @@ def f32_train_kernel_phase(dev, res):
                     check_f32_backward(f64_grads(attn, (q, k, v, bias), do),
                                        3), peak=PEAK_FLOPS_F32)
             check_deterministic(f"K9 f32 {what}", k9)
+            log_device_by_kernel(f"K9.f32/w7 {what}", k9)
             del o, lse
         del q, k, v, do
         torch.cuda.empty_cache()
@@ -4717,7 +4760,7 @@ def f32_train_kernel_phase(dev, res):
         log(f"{key} per window-7 bs-{BATCH} f32 train step: kernel "
             f"{r['ms']:.3f} ms{device}, bound {r['bound']:.3f} ms "
             f"({res.bound_by(key)}), plain (f32) {r['plain']:.3f} ms, "
-            f"library (f32, TF32 off) {r['lib']:.3f} ms")
+            f"library (f32, TF32 off) {r['lib']:.3f} ms{ffma_design(key)}")
 
 
 def train_cli_f32_phase(dev, card, window12=False):
@@ -4985,6 +5028,7 @@ def f32_msa_train_kernel_phase(dev, res):
                 check_f32_backward(ref64(xin, w, bias, mask, heads, gy), 1),
                 peak=PEAK_FLOPS_F32)
         device_per_call(res, name, what, calls, k6)
+        log_device_by_kernel(f"{name} {what}", k6)
         del lib
 
     # -- bs 8: the save mode f32, K5 f32 (stages 2-4), K6 f32 (stage 1)
@@ -5032,6 +5076,7 @@ def f32_msa_train_kernel_phase(dev, res):
                                        1), peak=PEAK_FLOPS_F32)
             check_deterministic(f"K5 f32 {what}", k5)
             device_per_call(res, "K5.f32", what, depth // 2, k5)
+            log_device_by_kernel(f"K5.f32 {what}", k5)
             del saved, resid, xin, lib
         del x, gy
         torch.cuda.empty_cache()
@@ -5109,7 +5154,7 @@ def f32_msa_train_kernel_phase(dev, res):
             f"{r['ms']:.3f} ms (on the device, launches queued: "
             f"{r['device']:.3f} ms), bound {r['bound']:.3f} ms "
             f"({res.bound_by(key)}), plain (f32) {r['plain']:.3f} ms, "
-            f"library (f32, TF32 off) {r['lib']:.3f} ms")
+            f"library (f32, TF32 off) {r['lib']:.3f} ms{ffma_design(key)}")
 
 
 def f32_big_step(dev, card, weights):

@@ -1,15 +1,14 @@
-// Shared pieces of the f32 window-attention kernels (K10 f32,
-// csrc/window_attn_f32.cu; K9 f32, csrc/window_attn_bwd_f32.cu): FFMA tile
-// products on 64 x 64 (and 64 x 32) shared-memory tiles by 128 threads,
-// register-blocked so that every shared-memory word a thread loads feeds
-// four or eight FMAs.
+// The pieces of K10 f32 (csrc/window_attn_f32.cu): FFMA tile products on
+// 64 x 64 (and 64 x 32) shared-memory tiles by 128 threads, register-blocked
+// so that every shared-memory word a thread loads feeds four or eight FMAs.
+// (The f32 attention backwards run on the tensor cores instead:
+// csrc/attn_tf32.cuh.)
 //
 // Layouts (f32, head dim 32):
 //   * a "d-major" tile holds 64 rows of a (rows, 32) operand transposed,
-//     t[d * kLd + row]: the operands of S = A B^T (q k^T, do v^T, k q^T,
-//     v do^T);
-//   * a "row-major" tile holds 64 rows, t[row * kLdR + d] (v, k, q, do) or
-//     t[row * kLd + col] (a 64 x 64 P or dS): the operands of O += P V.
+//     t[d * kLd + row]: the operands of S = q k^T;
+//   * a "row-major" tile holds 64 rows, t[row * kLdR + d] (v) or
+//     t[row * kLd + col] (a 64 x 64 P): the operands of O += P V.
 // Threads: S tiles (64 x 64) by (ty, tx) = (t / 16, t % 16): rows ty 4 +
 // 32 a + i (a < 2, i < 4), columns tx 4 + j (j < 4); a row's 16 threads are
 // the 16 lanes of a half-warp.  O tiles (64 x 32) by (rg, dg) = (t / 8, t %

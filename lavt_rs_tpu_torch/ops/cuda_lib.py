@@ -32,7 +32,7 @@ SOURCES = ("ln.cu", "fused_mlp.cu", "fused_msa_bwd.cu",
            "fused_msa_f32.cu", "window_attn_f32.cu", "window_attn_bwd_f32.cu",
            "fused_mlp_bwd_f32.cu", "fused_msa_bwd_f32.cu")
 HEADERS = ("common.cuh", "gemm_sm90.cuh", "attn_sm90.cuh", "attn_f32.cuh",
-           "gemm_f32.cuh")
+           "gemm_f32.cuh", "attn_tf32.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -81,7 +81,7 @@ SIGNATURES = {
     "lavt_mlp_bwd_f32": (P,) * 8 + (I,) + (P,) * 10 + (I,) * 5 + (F, P),
     "lavt_msa_fwd_f32": (P,) * 6 + (I,) * 5 + (P,),
     "lavt_msa_fwd_map_f32": (P,) * 5 + (I,) * 6 + (P,),
-    "lavt_msa_bwd_attn_f32": (P,) * 9 + (I,) * 5 + (F, P),
+    "lavt_msa_bwd_attn_f32": (P,) * 8 + (I,) * 5 + (F, P),
     "lavt_colsum_f32": (P, P, I, I, I, P),
     "lavt_window_attn_f32": (P,) * 7 + (L,) * 6 + (I,) * 6 + (F, P),
     "lavt_window_attn_bwd_q_f32": (P,) * 12 + (I,) * 5 + (F, P),

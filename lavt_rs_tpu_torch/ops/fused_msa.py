@@ -64,9 +64,9 @@ CUDA f32 tensor (no f32 tensor reaches a bf16 kernel):
     recompute then take the same P.  The plain versions take the form of
     their kernel (`softmax_form`);
   * K5 f32 (`fused_window_msa_bwd_f32`): `bwd_launches` on f32, the
-    attention backward of csrc/fused_msa_bwd_f32.cu between the 3xTF32
-    dattn and dx products, K7 f32's split weight grads and
-    `lavt_colsum_f32`;
+    attention backward of csrc/fused_msa_bwd_f32.cu (one launch, 3xTF32 on
+    the tensor cores) between the 3xTF32 dattn and dx products, K7 f32's
+    split weight grads and `lavt_colsum_f32`;
   * K6 f32 (`fused_window_msa_bwd_recompute_f32`): the save mode f32's
     launches up to the attention, then K5 f32's;
   * K2p f32 (`fused_window_msa_grouped_f32`): `grouped_launches` on f32,
@@ -536,11 +536,18 @@ def _require_rows(named, dev, shape, dtype=torch.bfloat16) -> int:
     return ld
 
 
+# K5 f32's attention launch (csrc/fused_msa_bwd_f32.cu): a block of 9 warps
+# per (group, head), one an SM; its shared memory, three fragment tiles of
+# 144 rows (8 bytes an element), raw q, k and do (144 rows, 36 floats
+# apart), raw v in a ring of two, and D
+K5_F32_SMEM = 3 * 144 * 32 * 8 + (5 * 144 * 36 + 144) * 4
+
+
 def msa_bwd_f32_groups(windows: int, heads: int, sms: int = _SMS) -> int:
-    """K5 f32's dbias partials: the blocks of its launch 1, (groups, query
-    tiles x heads), fill the SMs once at two blocks an SM, no more groups
+    """K5 f32's dbias partials: the blocks of its attention launch,
+    (groups, heads), fill the SMs once at one block an SM, no more groups
     than windows (csrc/fused_msa_bwd_f32.cu)."""
-    return max(1, min(windows, 2 * sms // (3 * heads)))
+    return max(1, min(windows, sms // heads))
 
 
 def msa_bwd_attn(dattn, q, k, v, p, heads: int, scale: float, groups: int):
@@ -577,9 +584,9 @@ def msa_bwd_attn(dattn, q, k, v, p, heads: int, scale: float, groups: int):
 def msa_bwd_attn_f32(dattn, q, k, v, p, heads: int, scale: float,
                      groups: int):
     """K5 f32's attention (`lavt_msa_bwd_attn_f32`, csrc/fused_msa_bwd_f32.cu:
-    o and D, then dq with the dbias partials, then dk and dv), all f32:
-    dattn (B nW N, C), the save mode f32's q, k, v (column views of its
-    (B nW N, 3C) qkv tensor, or contiguous) and p (B nW, heads, N, N) -> o
+    one launch, a block per (group, head) taking its windows whole), all
+    f32: dattn (B nW N, C), the save mode f32's q, k, v (column views of
+    its (B nW N, 3C) qkv tensor, or contiguous) and p (B nW, heads, N, N) -> o
     (B nW N, C), dqkv (B nW N, 3C), the dbias partials (groups, heads, N,
     N), block g's from the windows g, g + groups, ..., and the dbqkv
     partials: dqkv's column sums by row splits (`colsum_partials`).  The
@@ -600,13 +607,11 @@ def msa_bwd_attn_f32(dattn, q, k, v, p, heads: int, scale: float,
     ld = _require_rows([("q", q), ("k", k), ("v", v)], dev, (m, n, c), f32)
     o = torch.empty((m * n, c), dtype=f32, device=dev)
     dqkv = torch.empty((m * n, 3 * c), dtype=f32, device=dev)
-    dsum = torch.empty((m, heads, n), dtype=f32, device=dev)
     dbias_part = torch.empty((groups, heads, n, n), dtype=f32, device=dev)
     err = cuda_lib.lib().lavt_msa_bwd_attn_f32(
         dattn.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        p.data_ptr(), o.data_ptr(), dqkv.data_ptr(), dsum.data_ptr(),
-        dbias_part.data_ptr(), m, c, ld, heads, groups, float(scale),
-        cuda_lib.stream_ptr(dev))
+        p.data_ptr(), o.data_ptr(), dqkv.data_ptr(), dbias_part.data_ptr(),
+        m, c, ld, heads, groups, float(scale), cuda_lib.stream_ptr(dev))
     cuda_lib.check(err, "lavt_msa_bwd_attn_f32")
     return o, dqkv, dbias_part, colsum_partials(dqkv)
 

@@ -37,9 +37,10 @@ C = 96 blocks take the grouped K2p route instead).
     routes; its launch `k10_f32_plan`; counted by `window_attention_f32`)
     or K9 f32 (csrc/window_attn_bwd_f32.cu, two launches and the sum,
     `bwd_launches_f32`, its grids `k9_f32_plan`; counted by
-    `attention_core_bwd_f32`): FFMA kernels with the same max-subtracted
-    softmax, whose plain versions are the ones above (at f32 their
-    roundings to q's dtype are no-ops).
+    `attention_core_bwd_f32`): K10 f32 on FFMA, K9 f32 in 3xTF32 on the
+    tensor cores, both with the same max-subtracted softmax, whose plain
+    versions are the ones above (at f32 their roundings to q's dtype are
+    no-ops).
 
 Routing: `attn_fwd_supported` is the JAX package's predicate
 (`_attn_tiling`'s arithmetic, copied): the 2D Swin block takes K10 (and
@@ -75,17 +76,24 @@ MAX_N = 400
 # what each block reserves of it
 K10_TILE, K10_WARPGROUPS, K10_STAGES = 64, 2, 2
 SMEM_PER_SM, SMEM_PER_BLOCK_RESERVED = 233472, 1024
-# K10 f32 and K9 f32 (csrc/window_attn_f32.cu, csrc/window_attn_bwd_f32.cu,
-# csrc/attn_f32.cuh): blocks of 128 threads on tiles of 64 rows; their
-# shared memory: d-major 32 x 64 operand tiles (rows 68 floats apart),
-# 64 x 32 row-major ones (36 apart), 64 x 64 P / dS tiles (68 apart) and
-# two 64-float row vectors
+# K10 f32 (csrc/window_attn_f32.cu, csrc/attn_f32.cuh): blocks of 128
+# threads on tiles of 64 rows; its shared memory: two d-major 32 x 64
+# operand tiles (rows 68 floats apart), a 64 x 32 row-major one (36 apart),
+# a 64 x 64 P tile (68 apart) and two 64-float row vectors
 F32_TILE, F32_THREADS = 64, 128
-_T, _R, _S, _V = 32 * 68 * 4, 64 * 36 * 4, 64 * 68 * 4, 2 * 64 * 4
-K10_F32_SMEM = 2 * _T + _R + _S + _V
-K9_F32_SMEM = (4 * _T + _R + _S + _V, 4 * _T + 2 * _R + _S + _V)
-# K9 f32's launch 1 is built for two blocks an SM (__launch_bounds__)
-K9_F32_Q_PER_SM = 2
+K10_F32_SMEM = (2 * 32 * 68 + 64 * 36 + 64 * 68 + 2 * 64) * 4
+# K9 f32 (csrc/window_attn_bwd_f32.cu, csrc/attn_tf32.cuh): blocks of 5
+# warps on 80 rows (queries in launch 1, keys in launch 2), the other side
+# in tiles of 56; raw [row][d] tiles with rows 36 floats apart and fragment
+# tiles of 56 rows (8 bytes an element: hi and lo).  Launch 1: fragment
+# tiles k NT, k NN, v NT, raw k and v (56 rows), a ring of two stages of q
+# and do (80 rows) and lse; launch 2: fragment tiles q NT, q NN, do NT, do
+# NN, raw q and do (56 rows), raw k and v (80), a ring of two stages of lse
+# and D (56).  Both are built for two blocks an SM (__launch_bounds__).
+K9_F32_ROWS, K9_F32_COLS, K9_F32_THREADS, K9_F32_PER_SM = 80, 56, 160, 2
+_FRAG56, _RAW56, _RAW80 = 56 * 32 * 8, 56 * 36 * 4, 80 * 36 * 4
+K9_F32_SMEM = (3 * _FRAG56 + 2 * _RAW56 + 2 * (2 * _RAW80 + 80 * 4),
+               4 * _FRAG56 + 2 * _RAW56 + 2 * _RAW80 + 4 * 56 * 4)
 
 
 def _scores(q, k, bias, mask, scale) -> torch.Tensor:
@@ -543,15 +551,16 @@ def _bwd_launch(q, k, v, bias, mask, do, scale, o, lse, flags):
 
 def k9_f32_plan(bw: int, heads: int, n: int, sms: int) -> dict:
     """K9 f32's grids on `sms` SMs.  Launch 1: (bp, query tiles x heads)
-    blocks of F32_THREADS threads, block (b, (i, h)) the windows b, b + bp,
-    ... (at least 1, at most the windows), bp as many as fill the SMs once
-    at K9_F32_Q_PER_SM blocks an SM; one dbias partial a b (`parts`).
-    Launch 2: a block per (window, head, key tile)."""
-    tiles = -(-n // F32_TILE)
+    blocks of K9_F32_THREADS threads (tiles of K9_F32_ROWS queries), block
+    (b, (i, h)) the windows b, b + bp, ... (at least 1, at most the
+    windows), bp as many as fill the SMs once at K9_F32_PER_SM blocks an
+    SM; one dbias partial a b (`parts`).  Launch 2: a block per (window,
+    head, tile of K9_F32_ROWS keys)."""
+    tiles = -(-n // K9_F32_ROWS)
     pairs = tiles * heads
-    bp = max(1, min(bw, K9_F32_Q_PER_SM * sms // pairs))
+    bp = max(1, min(bw, K9_F32_PER_SM * sms // pairs))
     return dict(bp=bp, parts=bp, q_blocks=bp * pairs,
-                kv_blocks=bw * heads * tiles, threads=F32_THREADS,
+                kv_blocks=bw * heads * tiles, threads=K9_F32_THREADS,
                 q_smem=K9_F32_SMEM[0], kv_smem=K9_F32_SMEM[1])
 
 

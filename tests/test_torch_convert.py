@@ -28,6 +28,7 @@ from lavt_rs_tpu_torch import config as C
 from lavt_rs_tpu_torch.convert.from_jax import state_dict_from_jax
 from lavt_rs_tpu_torch.models.factory import build_model
 from test_torch_model import random_variables
+from torch_threads import torch_threads  # noqa: F401 (autouse fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SWIN = dict(embed_dim=32, depths=(1, 2, 1, 1), num_heads=(1, 2, 4, 8),

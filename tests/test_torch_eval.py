@@ -54,6 +54,7 @@ from lavt_rs_tpu_torch.metrics import PR_THRESHOLDS, SegMetrics
 from lavt_rs_tpu_torch.models.factory import build_model
 from lavt_rs_tpu_torch.text.tokenizer import WordPieceTokenizer, resolve_vocab
 from test_torch_model import IMG, TOKENS, pair  # noqa: F401  (module fixture)
+from torch_threads import torch_threads  # noqa: F401 (autouse fixture)
 
 REPO = Path(__file__).resolve().parents[1]
 VOCAB = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "the", "dog", "cat", "left",

@@ -5,7 +5,9 @@ models they open to f32 on the card, and their entry points' CPU paths.
 * `k10_f32_plan` and `k9_f32_plan` at the path shapes: window 7 at bs 8
   (N = 49), an 8-frame 480² clip (N = 392), a 4-frame clip (N = 196);
   every item once, the launch-1 grid within one wave at two blocks an
-  SM, the static shared memory the sources declare.
+  SM, the shared memory the sources declare (K9 f32's within a block's
+  227 KB and two blocks an SM), launch 1's dbias partials one a window
+  stride.
 * K9 f32's launches (`bwd_launches_f32`: dq, D and the dbias partials of
   launch 1, one partial a window stride at every N; dk, dv of launch 2;
   the sum) compose to K9's plain version `attention_core_bwd_plain` at
@@ -41,6 +43,7 @@ from lavt_rs_tpu_torch.models.factory import build_model
 from lavt_rs_tpu_torch.ops import fused_msa, window_attn
 from test_torch_model import random_variables
 from test_torch_video import _block_state_dict
+from torch_threads import torch_threads  # noqa: F401 (autouse fixture)
 
 SCALE = 32 ** -0.5
 NAMES = ("dq", "dk", "dv", "dbias")
@@ -110,18 +113,36 @@ def test_k10_f32_plan_at_window_7():
 @pytest.mark.parametrize("bw,heads,n", PATH_SHAPES)
 def test_k9_f32_plan_fills_the_sms_once(bw, heads, n):
     plan = window_attn.k9_f32_plan(bw, heads, n, SMS)
-    tiles = -(-n // 64)
+    tiles = -(-n // 80)
     assert plan["parts"] == plan["bp"] and 1 <= plan["bp"] <= bw
     assert plan["q_blocks"] == plan["bp"] * tiles * heads
     assert plan["q_blocks"] <= 2 * SMS or plan["bp"] == 1
     assert plan["kv_blocks"] == bw * heads * tiles
-    assert (plan["q_smem"], plan["kv_smem"]) == (61952, 71168)
+    assert plan["threads"] == 160
+    assert (plan["q_smem"], plan["kv_smem"]) == (105856, 97408)
 
 
 def test_k9_f32_plan_at_the_video_stages():
     got = [window_attn.k9_f32_plan(bw, h, n, SMS)["bp"]
            for bw, h, n in PATH_SHAPES[4:8]]
-    assert got == [12, 6, 3, 1]
+    assert got == [17, 8, 4, 2]
+
+
+@pytest.mark.parametrize("bw,heads,n", PATH_SHAPES)
+def test_k9_f32_grids_fit_an_sm_and_partials_follow_launch_1(bw, heads, n):
+    """Each launch's shared memory fits a block (227 KB) and two blocks an
+    SM with the 1 KB each reserves, as both are built for; launch 2 has a
+    block per key tile of every (window, head); launch 1's dbias partials
+    are its window strides, each window in exactly one."""
+    plan = window_attn.k9_f32_plan(bw, heads, n, SMS)
+    for smem in (plan["q_smem"], plan["kv_smem"]):
+        assert smem <= 232448
+        assert (window_attn.K9_F32_PER_SM
+                * (smem + window_attn.SMEM_PER_BLOCK_RESERVED)
+                <= window_attn.SMEM_PER_SM)
+    assert plan["kv_blocks"] == bw * heads * -(-n // window_attn.K9_F32_ROWS)
+    strides = [w % plan["bp"] for w in range(bw)]
+    assert sorted(set(strides)) == list(range(plan["parts"]))
 
 
 @pytest.mark.parametrize("n", [49, 196, 392])

@@ -42,6 +42,7 @@ from lavt_rs_tpu_torch.cli.args import model_config_from_args
 from lavt_rs_tpu_torch.models.factory import (build_model,
                                               kernels_without_variant)
 from lavt_rs_tpu_torch.ops import fused_mlp, fused_msa, fused_msa_2d, ln
+from torch_threads import torch_threads  # noqa: F401 (autouse fixture)
 
 TOL_MSA = 1e-4
 TOL = 1e-5

@@ -18,7 +18,10 @@ window-12 f32 training path), and the softmax forms of the f32 MSA.
   or recomputing them as K6 does) equals JAX's taped forward (`_fwd(...,
   exact=True)`) and its VJP;
 * no launch is counted on the CPU; the window-12 f32 training plan at bs
-  20 recomputes every block (K6 24, no K5).
+  20 recomputes every block (K6 24, no K5);
+* K5 f32's attention launch: its grid (a block per (group, head), one an
+  SM) and shared memory within an SM at the path's shapes, and its plain
+  version's dbias partials one per group.
 
 Tolerances: 2e-4 of each output's largest magnitude plus 2e-4 relative
 against Pallas, as tests/test_torch_k5_launches.py holds K5's launches
@@ -38,6 +41,7 @@ from lavt_rs_tpu.ops.window import shift_mask_2d as jshift_mask_2d
 from lavt_rs_tpu_torch import config as C
 from lavt_rs_tpu_torch.models.factory import build_model
 from lavt_rs_tpu_torch.ops import fused_mlp, fused_msa
+from torch_threads import torch_threads  # noqa: F401 (autouse fixture)
 
 N, HW, B = 144, 24, 1
 TOL = 2e-4
@@ -138,8 +142,8 @@ def test_k5_f32_matches_the_pallas_residual_backward(shift):
         x, None, *w, bias, mask, 2, a["scale"])
     gy = _t(a["gy"])
     m = x.shape[0] * x.shape[1]
-    groups = fused_msa.msa_bwd_f32_groups(m, 2, 6)  # a 6-SM plan: 2 groups
-    assert groups == 2
+    groups = fused_msa.msa_bwd_f32_groups(m, 2, 6)  # a 6-SM plan: 3 groups
+    assert groups == 3
     before = _launches()
     got = fused_msa.fused_window_msa_bwd_f32(x, gy, w[0], w[2], (q, k, v, p),
                                              2, a["scale"])
@@ -269,3 +273,37 @@ def test_window12_f32_training_plan_recomputes_at_bs_20():
     bs8 = backbone.kernel_plan((480, 480), 8, itemsize=4, train=True)[0]
     assert (bs8["K5"], bs8["K6"]) == (22, 2)
     assert fused_mlp.fused_tail_routed(128)
+
+
+# (windows, heads) of the window-12 f32 training path's K5 f32 / K6 f32
+# calls: stages 1-4 at bs 8 and at bs 20
+K5_GRID_SHAPES = [(800, 4), (200, 8), (72, 16), (32, 32), (2000, 4), (500, 8),
+                  (180, 16), (80, 32)]
+
+
+@pytest.mark.parametrize("windows,heads", K5_GRID_SHAPES)
+def test_k5_f32_attention_grid_fits_an_sm(windows, heads):
+    """K5 f32's attention launch: a block of 9 warps per (group, head)
+    within a block's 227 KB and one block an SM (the 1 KB it reserves
+    beside), the grid within the SMs once, no more groups than windows."""
+    smem = fused_msa.K5_F32_SMEM
+    assert smem <= 232448 and smem + 1024 <= 233472
+    groups = fused_msa.msa_bwd_f32_groups(windows, heads, 132)
+    assert 1 <= groups <= windows and groups * heads <= 132
+
+
+def test_k5_f32_dbias_partials_follow_the_groups():
+    """The plain version of K5 f32's attention launch gives one dbias
+    partial per group (group g: the windows g, g + groups, ...); they sum
+    to the one-group partial."""
+    rng = np.random.default_rng(5)
+    m, h = 5, 1
+    q, k, v, dattn = (_t(rng.standard_normal((m, N, 32)).astype(np.float32))
+                      for _ in range(4))
+    p = torch.softmax(_t(rng.standard_normal((m, h, N, N))
+                         .astype(np.float32)), -1)
+    do = dattn.reshape(m * N, 32)
+    part3 = fused_msa.msa_bwd_attn_plain(do, q, k, v, p, h, 0.2, 3)[2]
+    part1 = fused_msa.msa_bwd_attn_plain(do, q, k, v, p, h, 0.2, 1)[2]
+    assert part3.shape == (3, h, N, N)
+    torch.testing.assert_close(part3.sum(0), part1[0], rtol=1e-5, atol=1e-6)

@@ -30,6 +30,7 @@ from lavt_rs_tpu.ops.pallas import fused_mlp as jmlp
 from lavt_rs_tpu.ops.pallas import ln as jln
 from lavt_rs_tpu_torch.ops import fused_mlp as fm
 from lavt_rs_tpu_torch.ops import fused_msa, ln
+from torch_threads import torch_threads  # noqa: F401 (autouse fixture)
 
 COUNTERS = (fm.fused_ln_mlp_droppath_f32, fm.fused_ln_mlp_bwd_f32,
             ln.layer_norm_rows_bwd_f32, fm.fused_ln_mlp_droppath,

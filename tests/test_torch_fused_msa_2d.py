@@ -29,6 +29,7 @@ from lavt_rs_tpu.models import swin2d as jswin
 from lavt_rs_tpu.ops.pallas import experimental as jexp
 from lavt_rs_tpu_torch.ops import fused_msa_2d
 from test_torch_model import SWIN, pair  # noqa: F401  (module fixture)
+from torch_threads import torch_threads  # noqa: F401 (autouse fixture)
 
 TOL = 1e-4
 

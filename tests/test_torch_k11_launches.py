@@ -45,6 +45,7 @@ from lavt_rs_tpu_torch.models.swin2d import SwinBlock
 from lavt_rs_tpu_torch.ops import fused_msa, fused_msa_2d
 from lavt_rs_tpu_torch.ops.window import (shift_mask_2d, shift_mask_flags_2d,
                                           window_partition, window_reverse)
+from torch_threads import torch_threads  # noqa: F401 (autouse fixture)
 
 N, WS, B = 144, 12, 2
 MAPS = [(24, 24), (36, 24)]

@@ -36,6 +36,7 @@ from jax.experimental.pallas import tpu as pltpu
 from lavt_rs_tpu.ops.pallas import fused_msa as jfused
 from lavt_rs_tpu_torch.ops import fused_msa, window_attn
 from lavt_rs_tpu_torch.ops.window import partition_3d_groups
+from torch_threads import torch_threads  # noqa: F401 (autouse fixture)
 
 HEADS = 2
 

@@ -24,6 +24,7 @@ from lavt_rs_tpu.ops.pallas import ln as jln
 from lavt_rs_tpu.ops.window import shift_mask_2d as jshift_mask_2d
 from lavt_rs_tpu_torch.models.factory import build_model, make_config
 from lavt_rs_tpu_torch.ops import fused_msa, ln
+from torch_threads import torch_threads  # noqa: F401 (autouse fixture)
 
 TOL = 1e-4
 LN_CU = Path(ln.__file__).resolve().parent.parent / "csrc" / "ln.cu"

@@ -36,6 +36,7 @@ from jax.experimental.pallas import tpu as pltpu
 from lavt_rs_tpu.ops.pallas import fused_msa as jmsa
 from lavt_rs_tpu.ops.window import shift_mask_2d as jshift_mask_2d
 from lavt_rs_tpu_torch.ops import fused_mlp, fused_msa
+from torch_threads import torch_threads  # noqa: F401 (autouse fixture)
 
 C, HEADS, HW, B = 64, 2, 24, 2
 NAMES = ("dx", "dwqkv", "dbqkv", "dwproj", "dbproj", "dbias")

@@ -38,6 +38,7 @@ from lavt_rs_tpu_torch.ops import window_attn
 from lavt_rs_tpu_torch.ops.window import (shift_mask_2d, shift_mask_3d,
                                           shift_mask_flags_2d,
                                           shift_mask_flags_3d)
+from torch_threads import torch_threads  # noqa: F401 (autouse fixture)
 
 SCALE = 32 ** -0.5
 NAMES = ("dq", "dk", "dv", "dbias")

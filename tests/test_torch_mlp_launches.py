@@ -26,6 +26,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from lavt_rs_tpu.ops.pallas import fused_mlp as jmlp
 from lavt_rs_tpu_torch.ops import fused_mlp as fm
+from torch_threads import torch_threads  # noqa: F401 (autouse fixture)
 
 TOL = 1e-6
 SHAPES = [(m, c) for m in (1, 37, 250) for c in (128, 384)]

@@ -31,6 +31,7 @@ from lavt_rs_tpu_torch import config as C
 from lavt_rs_tpu_torch.convert.from_jax import state_dict_from_jax
 from lavt_rs_tpu_torch.eval.refcoco_eval import fwd_iou
 from lavt_rs_tpu_torch.models.factory import build_model
+from torch_threads import torch_threads  # noqa: F401 (autouse fixture)
 
 TOL = 1e-4
 SWIN = dict(embed_dim=48, depths=(1, 1, 2, 1), num_heads=(3, 6, 12, 24),

@@ -39,6 +39,7 @@ from jax.experimental.pallas import tpu as pltpu
 from lavt_rs_tpu.ops.pallas import fused_msa as jmsa
 from lavt_rs_tpu_torch.ops import fused_msa
 from lavt_rs_tpu_torch.ops.window import shift_mask_2d, shift_mask_flags_2d
+from torch_threads import torch_threads  # noqa: F401 (autouse fixture)
 
 N = 144
 NAMES = ("q", "k", "v", "p", "xn")

@@ -16,6 +16,7 @@ from lavt_rs_tpu.ops import norm as jnorm
 from lavt_rs_tpu.ops import resize as jresize
 from lavt_rs_tpu.ops import window as jwin
 from lavt_rs_tpu_torch.ops import norm, resize, window, window_attn
+from torch_threads import torch_threads  # noqa: F401 (autouse fixture)
 
 TOL = 1e-5
 

@@ -34,6 +34,7 @@ from lavt_rs_tpu_torch.convert import pretrained
 from lavt_rs_tpu_torch.convert.from_jax import state_dict_from_jax
 from lavt_rs_tpu_torch.models.factory import build_model
 from test_torch_model import random_variables
+from torch_threads import torch_threads  # noqa: F401 (autouse fixture)
 
 SWIN_2D = dict(embed_dim=48, depths=(1, 1, 2, 1), num_heads=(3, 6, 12, 24))
 SWIN_3D = dict(embed_dim=32, depths=(2, 2, 2, 2), num_heads=(1, 2, 4, 8))

@@ -29,6 +29,7 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from lavt_rs_tpu_torch.tools import probe_headbatch as probe
+from torch_threads import torch_threads  # noqa: F401 (autouse fixture)
 
 CH, HEADS, N, HD, GRID = 3, 4, 144, 32, 2
 

@@ -38,6 +38,7 @@ from lavt_rs_tpu_torch.models.factory import (build_model,
                                               make_config)
 from lavt_rs_tpu_torch.ops import fused_mlp, fused_msa, ln, window_attn
 from lavt_rs_tpu_torch.ops.window import get_window_size_3d
+from torch_threads import torch_threads  # noqa: F401 (autouse fixture)
 
 HD = 32
 FRAMES = 8

@@ -40,6 +40,7 @@ from lavt_rs_tpu_torch.train.step import create_train_state, make_train_step
 from test_torch_model import BERT, SWIN, TOKENS, random_variables
 from test_torch_train import (NO_DROP_BERT, NO_DROP_SWIN, _close,
                               _grads_as_state)
+from torch_threads import torch_threads  # noqa: F401 (autouse fixture)
 
 IMG = 64
 

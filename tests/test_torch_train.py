@@ -63,6 +63,7 @@ from lavt_rs_tpu_torch.ops.dropout import (drop_path, drop_path_kept,
 from lavt_rs_tpu_torch.train import optim
 from lavt_rs_tpu_torch.train.step import create_train_state, make_train_step
 from test_torch_model import BERT, IMG, SWIN, TOKENS, random_variables
+from torch_threads import torch_threads  # noqa: F401 (autouse fixture)
 
 TOL = 1e-4
 NO_DROP_SWIN = dict(SWIN, drop_path_rate=0.0)

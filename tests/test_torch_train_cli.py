@@ -35,6 +35,7 @@ from lavt_rs_tpu_torch.train import checkpoint as ckpt_mod
 from lavt_rs_tpu_torch.train.optim import TrainConfig
 from lavt_rs_tpu_torch.train.step import create_train_state, make_train_step
 from test_data import VOCAB, synthetic_refcoco  # noqa: F401  (fixture)
+from torch_threads import torch_threads  # noqa: F401 (autouse fixture)
 
 CPU = torch.device("cpu")
 SYNTH = ["--synthetic", "--synthetic_steps", "2", "-b", "2", "--img_size",

@@ -42,6 +42,7 @@ from lavt_rs_tpu_torch.data.refer import REFER
 from lavt_rs_tpu_torch.text.tokenizer import WordPieceTokenizer
 from lavt_rs_tpu_torch.utils import logging as tlogging
 from test_data import VOCAB, synthetic_refcoco  # noqa: F401  (fixture)
+from torch_threads import torch_threads  # noqa: F401 (autouse fixture)
 
 
 def _pair(seed=0, w=53, h=41):

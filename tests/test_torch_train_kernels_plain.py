@@ -27,6 +27,7 @@ from lavt_rs_tpu.ops.pallas import fused_msa as jmsa
 from lavt_rs_tpu.ops.pallas import ln as jln
 from lavt_rs_tpu.ops.window import shift_mask_2d as jshift_mask_2d
 from lavt_rs_tpu_torch.ops import fused_mlp, fused_msa, ln
+from torch_threads import torch_threads  # noqa: F401 (autouse fixture)
 
 TOL = 1e-4
 

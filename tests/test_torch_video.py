@@ -39,6 +39,7 @@ from lavt_rs_tpu_torch.models import swin3d, tpwam
 from lavt_rs_tpu_torch.models.factory import build_model
 from lavt_rs_tpu_torch.ops import fused_msa, window, window_attn
 from test_torch_model import random_variables
+from torch_threads import torch_threads  # noqa: F401 (autouse fixture)
 
 TOL = 2e-4
 SWIN = dict(embed_dim=32, depths=(2, 2, 2, 2), num_heads=(1, 2, 4, 8),

@@ -42,6 +42,7 @@ from test_torch_model import random_variables
 from test_torch_train import _close, _grads_as_state
 from test_torch_video import BERT, IMG, T, TOKENS
 from test_torch_video_train import NO_DROP_BERT, _video_batch
+from torch_threads import torch_threads  # noqa: F401 (autouse fixture)
 
 SWIN = dict(embed_dim=48, depths=(1, 1, 2, 1), num_heads=(3, 6, 12, 24),
             window_size=7)

@@ -48,6 +48,7 @@ from lavt_rs_tpu_torch.metrics_video import JFMetrics, f_measure, j_measure
 from lavt_rs_tpu_torch.models.factory import build_model
 from lavt_rs_tpu_torch.text.tokenizer import WordPieceTokenizer
 from test_torch_model import random_variables
+from torch_threads import torch_threads  # noqa: F401 (autouse fixture)
 
 VOCAB = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "the", "dog", "running",
          "a", "cat"]

@@ -50,6 +50,7 @@ from test_torch_model import random_variables
 from test_torch_train import _close, _grads_as_state
 from test_torch_video import (BERT, IMG, SWIN, T, TOKENS, _grouped_at,
                               _qkv_bias_mask, _t)
+from torch_threads import torch_threads  # noqa: F401 (autouse fixture)
 
 TOL = 2e-4
 SCALE = 32 ** -0.5

@@ -40,6 +40,7 @@ from lavt_rs_tpu_torch.train import optim
 from lavt_rs_tpu_torch.train.step import create_train_state, make_train_step
 from test_torch_model import random_variables
 from test_torch_train import _grads_as_state
+from torch_threads import torch_threads  # noqa: F401 (autouse fixture)
 
 BERT = dict(vocab_size=120, num_layers=1, intermediate_size=256,
             max_position_embeddings=64, hidden_dropout=0.0, attn_dropout=0.0)

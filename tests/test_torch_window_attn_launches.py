@@ -32,6 +32,7 @@ from lavt_rs_tpu_torch.models.swin2d import WindowAttention
 from lavt_rs_tpu_torch.models.swin3d import WindowAttention3D
 from lavt_rs_tpu_torch.ops import window_attn as wa
 from lavt_rs_tpu_torch.ops.window import shift_mask_2d, shift_mask_3d
+from torch_threads import torch_threads  # noqa: F401 (autouse fixture)
 
 SMS = 132
 NS = (1, 17, 49, 63, 196, 392)

@@ -26,6 +26,7 @@ from PIL import Image
 from lavt_rs_tpu_torch.cli import test_ytvos as cli
 from lavt_rs_tpu_torch.config import SwinConfig
 from lavt_rs_tpu_torch.models.factory import build_model
+from torch_threads import torch_threads  # noqa: F401 (autouse fixture)
 
 VOCAB = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "the", "dog", "a", "cat"]
 SWIN = dict(embed_dim=16, depths=(1, 1, 1, 1), num_heads=(1, 2, 4, 8),
