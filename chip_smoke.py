@@ -5,7 +5,9 @@
 
 1. Prints the card's name and power limit, then builds the hand-written
    CUDA kernels from `lavt_rs_tpu_torch/csrc` with nvcc (sm_90a) and
-   prints ptxas's registers and spills of K2p's and P1/P2's kernels.
+   prints ptxas's registers and spills of K2p's, P1/P2's, K5's, K9's and
+   the f32 variants' kernels (the 3xTF32 wgmma core's instances, the f32
+   MSA attention's).
 2. Kernel phases: each kernel on seeded bf16 inputs at the shapes the
    main paths give it (lavt_one Swin-B 480², batch 8; K6 also at stage 1
    with batch 16), against its plain PyTorch version (f32 math from the
@@ -276,7 +278,14 @@
        step beside its bound, its plain version and its f32 library
        chain, and on the device; two calls of K4b f32, K7 f32 and K9 f32
        give the same bits; K9 f32's device ms by kernel (torch.profiler)
-       at each shape and its time per step beside its FFMA design's;
+       at each shape and its time per step beside its FFMA design's; K8
+       f32's and K7 f32's launches (the 3xTF32 wgmma core's fc1 + GELU,
+       fc2 + residual, dual GEMM, weight grads and dyln, the W2
+       transpose, the LN rows) by device ms at each stage beside each
+       launch's bound, their times per step beside the mma.sync tile
+       loop's (MMA_SYNC_CORE_MS), and one K3 f32, one K8 f32 and one K7
+       f32 call at stage 1 under torch.profiler (only the port's kernels,
+       deferred to 9.);
      * the gate: one forward + backward of lavt_one_base(window12=False)
        in f32 with the kernels and of the plain f32 route from the same
        weights, batch and seed (BN batch statistics): losses within 1e-4
@@ -305,7 +314,13 @@
        the plain version and the f32 library chain, and on the device;
        two K5 f32 calls give the same bits; K5 f32's and K6 f32's device
        ms by kernel (torch.profiler) at each shape, and their times per
-       step beside their FFMA designs' (FFMA_DESIGN_MS);
+       step beside their FFMA designs' (FFMA_DESIGN_MS) and the mma.sync
+       GEMM's (MMA_SYNC_CORE_MS); the save mode f32's and K2 f32's
+       launches (LN rows, the GEMMs on the 3xTF32 wgmma core, the
+       attention on 3xTF32 mma.sync) by device ms beside each launch's
+       bound; one save mode f32, one K5 f32 and one K2 f32 call (stage 2,
+       shifted) under torch.profiler (only the port's kernels, deferred
+       to 9.);
      * F7 on stage 1's geometry with logits past 80 (a bias table of std
        60): K1 f32 at inference against the clamp plain version, the
        taped K1 f32 and K6 f32's recomputed P against the exact one;
@@ -353,8 +368,8 @@
 9. The torch.profiler checks held back from the timed phases (`defer`),
    in a fresh Python process on the inputs of their phases: K5's and
    K9's (also window 7's) launch-by-launch device times, and every
-   only-port-kernels check (K3 / K8 / K7 at each width, K5, K9, and
-   those of 8.).  No timed window follows their profiler sessions, and
+   only-port-kernels check (K3 / K8 / K7 at each width, K5, K9, K3 /
+   K8 / K7 f32, the save mode / K5 / K2 f32, and those of 8.).  No timed window follows their profiler sessions, and
    none runs late in the long main process, where torch.profiler drops
    kernel records.  Last, the window-12 bs-8 training step under
    torch.profiler with the LN backward's two call sites labelled
@@ -647,6 +662,20 @@ FFMA_DESIGN_MS = {
     "K5.f32": "42.676-42.856 ms a window-12 bs-8 step",
     "K6.f32": "7.711-7.717 ms a window-12 bs-8 step",
     "K6.f32/bs20": "154.334-154.601 ms a window-12 bs-20 step"}
+# the f32 variants' times on the mma.sync GEMM tile loop and the FFMA MSA
+# attention, before the 3xTF32 wgmma + TMA core (one H100 80GB HBM3 at
+# 700 W, this script; PERF.md section 6), printed beside this run's
+MMA_SYNC_CORE_MS = {
+    "K1.f32": "2.871-2.913 ms a forward",
+    "K11.f32": "13.915-13.926 ms a forward",
+    "K3.f32": "17.111-17.162 ms a forward",
+    "K8.f32": "16.331-17.799 ms a window-7 bs-8 step",
+    "K7.f32": "44.137-44.220 ms a window-7 bs-8 step",
+    "save.f32": "18.811-18.905 ms a window-12 bs-8 step",
+    "K5.f32": "33.288-33.576 ms a window-12 bs-8 step",
+    "K6.f32": "5.778-5.810 ms a window-12 bs-8 step",
+    "K6.f32/bs20": "128.030-128.550 ms a window-12 bs-20 step",
+    "K2.f32": "34.616-35.057 ms a window-12 bs-20 step"}
 # the window-12 bs-8 training step with the plain LN backward chain that
 # K4b replaced (one H100 80GB HBM3 at 700 W,
 # lavt_rs_tpu_torch/tools/profile_ln.py; PERF.md section 6), printed
@@ -949,12 +978,13 @@ def only_port_kernels(what, fns):
     return names
 
 
-def mlp_launch_work(m, c, splits):
+def mlp_launch_work(m, c, splits, item=2):
     """(operations, bytes) of each launch of K3/K8 and K7 at (M, C), hidden
-    4C: each input read once and each output written once (the f32
-    partials of the weight grads: `splits` of each)."""
+    4C, on `item`-byte activations and weights: each input read once and
+    each output written once (the f32 partials of the weight grads:
+    `splits` of each)."""
     hd = 4 * c
-    act, hid, w = m * c * 2, m * hd * 2, hd * c * 2
+    act, hid, w = m * c * item, m * hd * item, hd * c * item
     rt, lb = -(-m // 64), -(-m // 64)
     return {
         "LN rows": (8 * m * c, 2 * act + 4 * c),
@@ -1216,21 +1246,31 @@ def k5_profiler_checks(what, nw, c, heads, sc, port_only, x, gy, wqkv, wproj,
         only_port_kernels(f"K5 {what}", [k5])
 
 
-def save_launch_work(b, nw, c, heads, ln, masked, save=True):
+def save_launch_work(b, nw, c, heads, ln, masked, save=True, item=2):
     """(operations, bytes) of each launch of the save mode (K1 / K2 /
-    K11's without save) at (B, nW, 144, C): each input read once and each
-    output written once."""
+    K11's without save) at (B, nW, 144, C) on `item`-byte activations,
+    weights and P: each input read once and each output written once."""
     n, rows, m = 144, b * nw * 144, b * nw
-    act = rows * c * 2
+    act = rows * c * item
     att = 4 * m * heads * n * n * 32
     att_bytes = (4 * act + heads * n * n * 4 + masked * n * n * 4
-                 + (m * heads * n * n * 2 if save else 0))
-    work = {"qkv": (6 * rows * c * c, 4 * act + (3 * c * c + 3 * c) * 2),
+                 + (m * heads * n * n * item if save else 0))
+    work = {"qkv": (6 * rows * c * c, 4 * act + (3 * c * c + 3 * c) * item),
             "attention": (att, att_bytes),
-            "out-projection": (2 * rows * c * c, 2 * act + (c * c + c) * 2)}
+            "out-projection": (2 * rows * c * c,
+                               2 * act + (c * c + c) * item)}
     if ln:
-        work["LN rows"] = ln_work(rows, c)
+        work["LN rows"] = ln_work(rows, c, item)
     return work
+
+
+def f32_launch_line(label, fn, work):
+    """fn's launches by device ms a launch (`log_device_by_kernel`) after
+    each launch's bound at the f32 peak (PEAK_FLOPS_F32)."""
+    log(f"{label}: bounds " + "; ".join(
+        f"{k} {bound_ms(v, PEAK_FLOPS_F32)[0]:.4f} "
+        f"{bound_ms(v, PEAK_FLOPS_F32)[1]}" for k, v in work.items()))
+    log_device_by_kernel(label, fn)
 
 
 def launch_line(label, fn, work):
@@ -1282,6 +1322,23 @@ def save_profiler_checks(what, heads, sc, port_only, x, ln_s, ln_b, wqkv,
                     [k1] if lnp is not None else []))
 
 
+def f32_msa_port_check(what, heads, sc, x, ln_s, ln_b, wqkv, bqkv, wproj,
+                       bproj, bias, mask, flags, gy):
+    """One save mode f32, one K5 f32 (on its residuals) and one K2 f32
+    call under torch.profiler: only the port's kernels."""
+    from lavt_rs_tpu_torch.ops import fused_msa
+
+    lnp = None if ln_s is None else (ln_s, ln_b)
+    w = (wqkv, bqkv, wproj, bproj, bias, mask, heads, sc)
+    _, saved = fused_msa.fused_window_msa_save(x, lnp, *w, flags=flags)
+    xin = x if lnp is None else saved[4].view(x.shape)
+    only_port_kernels(what, [
+        lambda: fused_msa.fused_window_msa_save(x, lnp, *w, flags=flags),
+        lambda: fused_msa.fused_window_msa_bwd(xin, gy, wqkv, wproj,
+                                               saved[:4], heads, sc),
+        lambda: fused_msa.fused_window_msa(x, *w, flags=flags, exact=True)])
+
+
 def k11_profiler_checks(what, heads, sc, port_only, x, wqkv, bqkv, wproj,
                         bproj, bias, mask, flags):
     """K11's three launches (the qkv GEMM over the map's rows, the
@@ -1325,6 +1382,11 @@ def short_kernel(name):
     """A kernel's name without its namespace, parameters and template
     arguments' noise (the GEMM core's epilogue kept)."""
     base = name.split("(")[0].replace("void ", "")
+    if "gemm_tf32_kernel<" in base:  # epilogue, A and B layouts, dual
+        args = base.split("gemm_tf32_kernel<", 1)[1].rsplit(">", 1)[0]
+        epi, ta, tb, _ = (a.strip() for a in args.rsplit(",", 3))
+        lay = "".join("M" if f == "true" else "K" for f in (ta, tb))
+        return f"tf32<{epi.split('::')[-1]},{lay}>"
     if "gemm_kernel<" in base:
         epi = base.split("gemm_kernel<")[1].split(",")[0].split("::")[-1]
         return f"gemm<{epi}>"
@@ -1377,9 +1439,13 @@ def ln_device_line(what, x, s, b):
 
 
 def ffma_design(key):
-    """`key`'s time on its FFMA design, for a summary line (or "")."""
-    return (f"; on the FFMA design {FFMA_DESIGN_MS[key]} (PERF.md)"
-            if key in FFMA_DESIGN_MS else "")
+    """`key`'s times on its earlier designs, for a summary line (or "")."""
+    out = (f"; on the FFMA design {FFMA_DESIGN_MS[key]} (PERF.md)"
+           if key in FFMA_DESIGN_MS else "")
+    if key in MMA_SYNC_CORE_MS:
+        out += (f"; on the mma.sync GEMM and FFMA MSA attention "
+                f"{MMA_SYNC_CORE_MS[key]} (PERF.md)")
+    return out
 
 
 def log_device_by_kernel(what, fn, iters=10):
@@ -4625,7 +4691,11 @@ def f32_train_kernel_phase(dev, res):
     for K7, through f32 F.layer_norm for K4b; SDPA over B nW windows and
     autograd through it for K10's save mode and K9), and on the device
     with its launches queued; two calls of K4b f32, K7 f32 and K9 f32 give
-    the same bits.  Per training step into `res`."""
+    the same bits; K8 f32's and K7 f32's launches by device ms
+    (torch.profiler) beside each launch's bound at every stage, and (in
+    `run_deferred`'s process) one K3 f32, one K8 f32 and one K7 f32 call
+    at stage 1 with only the port's kernels.  Per training step into
+    `res`."""
     import torch
 
     from lavt_rs_tpu_torch.ops import fused_mlp as fm
@@ -4683,6 +4753,11 @@ def f32_train_kernel_phase(dev, res):
                     check(name, got, want), check(name, got - x, want - x)),
                 peak=PEAK_FLOPS_F32)
         device_per_call(res, "K8.f32", f"{what} keep", dp_blocks, k8)
+        plan = fm.bwd_plan(rows, c, 4 * c, True)
+        work = mlp_launch_work(rows, c, plan.splits, 4)
+        f32_launch_line(f"K8.f32 launches {what} keep", k8,
+                        {k: work[k] for k in ("LN rows", "fc1+GELU",
+                                              "fc2+residual")})
         for kp, calls in [(keep, dp_blocks)] + ([(None, 1)] if si == 0
                                                 else []):
             kr = None if kp is None else keep_rows
@@ -4703,6 +4778,15 @@ def f32_train_kernel_phase(dev, res):
             del ref64
             check_deterministic(f"K7 f32 {w7}", k7)
             device_per_call(res, "K7.f32", w7, calls, k7)
+            if kp is not None:  # the dual GEMM, weight grads, dyln on the core
+                f32_launch_line(f"K7.f32 launches {w7}", k7,
+                                {k: work[k] for k in ("prep", "dual GEMM",
+                                                      "wgrad", "dyln",
+                                                      "LN bwd")})
+                if si == 0:
+                    defer(functools.partial(
+                        mlp_port_check, f"K3 f32 / K8 f32 / K7 f32 {w7}", tail),
+                        *mlp, gy, keep)
         del x, gy, mlp
         torch.cuda.empty_cache()
     sc = 32 ** -0.5
@@ -4958,7 +5042,11 @@ def f32_msa_train_kernel_phase(dev, res):
         F7_BIAS_STD): K1 f32 at inference takes the clamp form, the taped
         K1 f32 and K6 f32's recomputed P the exact one, K6 f32 there
         against its plain version.
-    Per training step into `res`."""
+    The save mode f32's and K2 f32's launches by device ms (torch.profiler)
+    beside each launch's bound at every shape; (in `run_deferred`'s
+    process) one save mode f32, one K5 f32 and one K2 f32 call (stage 2,
+    shifted) with only the port's kernels.  Per training step into
+    `res`."""
     import torch
 
     from lavt_rs_tpu_torch.ops import fused_msa as fm
@@ -5056,6 +5144,9 @@ def f32_msa_train_kernel_phase(dev, res):
                     msa_work(BATCH, nw, c, heads, "save", ln=ln, mask=shift,
                              item=4), check_saved, peak=PEAK_FLOPS_F32)
             device_per_call(res, "save.f32", what, depth // 2, save)
+            f32_launch_line(f"save.f32 launches {what}", save,
+                            save_launch_work(BATCH, nw, c, heads, ln,
+                                             masked_windows(mask), item=4))
             _, saved = save()
             xin = x if lnp is None else saved[4].view(x.shape)
             resid = saved[:4]
@@ -5077,6 +5168,11 @@ def f32_msa_train_kernel_phase(dev, res):
             check_deterministic(f"K5 f32 {what}", k5)
             device_per_call(res, "K5.f32", what, depth // 2, k5)
             log_device_by_kernel(f"K5.f32 {what}", k5)
+            if si == 1 and shift:
+                defer(functools.partial(
+                    f32_msa_port_check,
+                    f"save f32 / K5 f32 / K2 f32 {what}", heads, sc),
+                    x, *lnp, *w, bias, mask, flags, gy)
             del saved, resid, xin, lib
         del x, gy
         torch.cuda.empty_cache()
@@ -5138,6 +5234,10 @@ def f32_msa_train_kernel_phase(dev, res):
                                   mask=shift, item=4), check,
                     peak=PEAK_FLOPS_F32)
             device_per_call(res, "K2.f32", what, depth // 2, k2)
+            f32_launch_line(f"K2.f32 launches {what}", k2,
+                            save_launch_work(BATCH_F32_BIG, nw, c, heads,
+                                             False, masked_windows(mask),
+                                             save=False, item=4))
             e = check("K2.f32 clamp form", fm.fused_window_msa(
                 x, *tail, flags=flags), fm.fused_window_msa_plain(
                     x, *tail, exact=False))
@@ -5797,7 +5897,7 @@ def k10_p2_only_port_kernels(dev):
 
 # kernels whose ptxas -v line chip_smoke prints: K2p's (the GEMM core's
 # two EpiBias instances and K10's kernel), P1/P2's, K5's, K9's and the f32
-# variants
+# variants (the 3xTF32 wgmma core's instances, the f32 MSA attention's)
 PTXAS_KERNELS = {"EpiBiasILb1E": "K2p / K2 / save-mode qkv GEMM (GEMM core)",
                  "EpiBiasILb0E": "K2p / K2 / save-mode out-projection GEMM (GEMM core)",
                  "msa_fwd_sm90_kernelILb0E": "K2 attention",
@@ -5812,10 +5912,17 @@ PTXAS_KERNELS = {"EpiBiasILb1E": "K2p / K2 / save-mode qkv GEMM (GEMM core)",
                  "attn_bwd_q_kernelILb0E": "K9 launch 1 (N <= 64)",
                  "attn_bwd_kv_kernelILb0E": "K9 launch 2 (N > 64)",
                  "attn_bwd_kv_kernelILb1E": "K9 launch 2 (N <= 64)",
-                 "gemm_f32_kernelILi0E": "K1 f32 / K11 f32 projections (3xTF32 GEMM)",
-                 "gemm_f32_kernelILi1E": "K3 f32 fc1 + GELU (3xTF32 GEMM)",
-                 "gemm_f32_kernelILi2E": "K3 f32 fc2 + residual (3xTF32 GEMM)",
-                 "msa_f32_kernelILb0E": "K1 f32 attention",
+                 "EpiGemmILi0E": "f32 projections (3xTF32 wgmma core)",
+                 "EpiGemmILi1E": "K3 / K8 f32 fc1 + GELU (3xTF32 wgmma core)",
+                 "EpiGemmILi2E": "K3 / K8 f32 fc2 + residual (3xTF32 wgmma core)",
+                 "7EpiDual": "K7 f32 dual GEMM (3xTF32 wgmma core)",
+                 "8EpiStoreELb0ELb1E": "K7 f32 dyln, K5 f32 dattn / dx (3xTF32 wgmma "
+                                      "core, B transposed by the stagers)",
+                 "8EpiStoreELb1ELb1E": "K7 / K5 f32 weight grads (3xTF32 wgmma core)",
+                 "transpose_kernel": "K7 f32 W2 transpose",
+                 "msa_f32_kernelILb0ELb0ELb0E": "K1 / K2 f32 attention (clamp)",
+                 "msa_f32_kernelILb0ELb1ELb0E": "K1 / K2 f32 attention (taped, exact)",
+                 "msa_f32_kernelILb0ELb1ELb1E": "save-mode f32 attention",
                  "msa_f32_kernelILb1E": "K11 f32 attention (map order)",
                  "rows_f32_kernelILi1ELb0E": "K4 f32 (C = 128)",
                  "rows_f32_kernelILi8ELb1E": "K3 f32 LN rows (C = 1024)"}

@@ -1,5 +1,6 @@
-// Shared pieces of the f32 attention backwards on the tensor cores (K9 f32,
-// csrc/window_attn_bwd_f32.cu; K5 f32's attention, csrc/fused_msa_bwd_f32.cu):
+// Shared pieces of the f32 attention kernels on the tensor cores (K9 f32,
+// csrc/window_attn_bwd_f32.cu; K5 f32's attention, csrc/fused_msa_bwd_f32.cu;
+// the f32 MSA forward of K1, K2, K11 and the save mode, csrc/fused_msa_f32.cu):
 // 3xTF32 products of head-dim-32 operands on mma.sync.m16n8k8 (the
 // fragment layouts of csrc/gemm_f32.cuh, `f32mma`).
 //
@@ -27,8 +28,8 @@
 // tensor cores with f32 accumulation.  hi = tf32(x) and lo = tf32(x - hi)
 // are taken by truncation (`split_rz`: hi = x with its 13 low bits
 // cleared, lo = x - hi exactly, whose low bits the tensor core ignores):
-// two integer / float instructions, where csrc/gemm_f32.cuh's rounding
-// conversions (cvt.rna) take several, at about twice the error of a term.
+// two integer / float instructions, where rounding conversions (cvt.rna)
+// take several, at about twice the error of a term.
 // Measured on an H100 (tools/ablate_k9_f32.py): rounding where fragments
 // are used cost 7-8 % of K9 f32's launches, and rounding in the fragment
 // tiles 4-5 %; truncation moved K9 f32 by 0.03-0.25 of its 1e-4 gate.

@@ -20,33 +20,33 @@
 // buffer allocated by the wrapper, f32 throughout:
 //   (a) prep_kernel: one warp a row, xn, (mu, rstd) and, with keep, dmlp =
 //       gy keep (without keep dmlp is gy itself);
-//   (b) dual_kernel: 64 x 128 tiles of hpre = xn W1^T and then dh = dmlp W2
-//       (W2 read N-contiguous, MN-major) on the 3xTF32 mainloop
-//       (csrc/gemm_f32.cuh); the epilogue writes h and dhpre and the tile's
-//       column sums of dhpre (db1 partials, two warps' 32 rows in order);
-//   (c) store_kernel<MN-major A>: dW2 = dmlp^T h and dW1 = dhpre^T xn, both
-//       operands MN-major (the depth is M), split over M into f32 partials
+//   (b) the dual GEMM: W2 transposed into a K-major copy (`transpose_kernel`;
+//       tf32 wgmma reads its shared-memory operands K-major only), then on
+//       the 3xTF32 wgmma + TMA core (csrc/gemm_tf32_sm90.cuh) hpre = xn
+//       W1^T into a stash in shared memory and dh = dmlp W2 on the same
+//       128 x 128 tile; the epilogue writes h and dhpre and each consumer's
+//       64-row column sums of dhpre (db1 partials, its four warps' 16 rows
+//       in order);
+//   (c) dW2 = dmlp^T h and dW1 = dhpre^T xn on the core, both operands
+//       MN-major (the depth is M: A's fragments read in place, B
+//       transposed by the stagers), split over M into f32 partials
 //       (`fused_mlp.bwd_plan(..., f32=True)`), summed by lavt_sum_partials
 //       in a fixed order (no atomics);
-//   (d) store_kernel<K-major A>: dyln = dhpre W1 (W1 MN-major);
+//   (d) dyln = dhpre W1 on the core (W1 read (K, N): B transposed by the
+//       stagers);
 //   (e) ln_bwd_kernel: dx, and per 64-row block the column partials of
 //       dyln xhat, dyln and gy keep (dgamma, dbeta, db2), the warps' sums
 //       added in order.
 // h and dhpre (M, 4C) make one round trip through memory, as in the bf16
-// K7.  A simple design, right first: the products run on mma.sync at 3
-// tensor-core passes a term, not yet wgmma.  -Xptxas -v (CUDA 12.8, on an
-// H100), 0 bytes spilled: dual_kernel 220 registers, store_kernel 230
-// (K-major A) and 195 (MN-major A), prep_kernel 27-66 and ln_bwd_kernel
-// 62-216 (C = 128 ... 1024).
+// K7.  (The design before: mma.sync tiles with the split at every
+// fragment load, PERF.md.)
 
-#include "gemm_f32.cuh"
+#include "gemm_tf32_sm90.cuh"
 
 namespace lavt {
 namespace k7f32 {
 
-using namespace f32mma;
-
-constexpr int kRows = 64;  // rows of a dual tile and of an LN-backward block
+constexpr int kRows = 64;  // rows of an LN-backward block and of a db1 partial
 
 __device__ __forceinline__ float4 f4(float a) { return make_float4(a, a, a, a); }
 
@@ -99,99 +99,105 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-// (b) h = gelu(hpre), dhpre = dh gelu'(hpre), hpre = xn W1^T + b1 and dh =
-// dmlp W2 on one 64 x 128 tile; db1_part[row tile, col] = the tile's column
-// sums of dhpre
-__global__ void __launch_bounds__(kThreads, 1)
-    dual_kernel(const Operand xn, const Operand w1, const Operand dmlp, const Operand w2,
-                const float* __restrict__ b1, float* __restrict__ h, float* __restrict__ dhpre,
-                float* __restrict__ db1_part, int M, int C, int hidden) {
-  extern __shared__ __align__(16) float smem[];
-  __shared__ float red[2][kBN];
-  const int m0 = blockIdx.y * kRows, n0 = blockIdx.x * kBN;
-  float hp[2][4][4], dh[2][4][4];
-  zero(hp);
-  zero(dh);
-  mainloop<kRows, true, true>(hp, xn, w1, C, 0, C / kBK, m0, n0, smem);
-  mainloop<kRows, true, false>(dh, dmlp, w2, C, 0, C / kBK, m0, n0, smem);
-  float cs[4][2];
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt) cs[nt][0] = cs[nt][1] = 0.f;
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int row = m0 + frag_row<kRows>(mt, hh);
-      if (row >= M) continue;
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int col = n0 + frag_col(nt);
-        const float2 b = *reinterpret_cast<const float2*>(b1 + col);
-        const float v0 = hp[mt][nt][2 * hh] + b.x, v1 = hp[mt][nt][2 * hh + 1] + b.y;
-        float p0, p1;
-        const float c0 = gelu_cdf_pdf(v0, &p0), c1 = gelu_cdf_pdf(v1, &p1);
-        const float d0 = dh[mt][nt][2 * hh] * (c0 + v0 * p0);
-        const float d1 = dh[mt][nt][2 * hh + 1] * (c1 + v1 * p1);
-        const size_t at = size_t(row) * hidden + col;
-        *reinterpret_cast<float2*>(h + at) = make_float2(v0 * c0, v1 * c1);
-        *reinterpret_cast<float2*>(dhpre + at) = make_float2(d0, d1);
-        cs[nt][0] += d0;
-        cs[nt][1] += d1;
-      }
-    }
-  // the warp's 32 rows (lanes of one lane % 4 share columns), then the two
-  // warps of a column block in order
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      cs[nt][j] += __shfl_xor_sync(0xffffffffu, cs[nt][j], 4);
-      cs[nt][j] += __shfl_xor_sync(0xffffffffu, cs[nt][j], 8);
-      cs[nt][j] += __shfl_xor_sync(0xffffffffu, cs[nt][j], 16);
-    }
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (lane < 4) {
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      red[warp / 4][frag_col(nt)] = cs[nt][0];
-      red[warp / 4][frag_col(nt) + 1] = cs[nt][1];
-    }
+// (b) W2 (rows, cols) -> its transpose (cols, rows), 32 x 32 tiles
+__global__ void __launch_bounds__(256)
+    transpose_kernel(const float* __restrict__ in, float* __restrict__ out, int rows, int cols) {
+  __shared__ float t[32][33];
+  const int c0 = blockIdx.x * 32, r0 = blockIdx.y * 32;
+  for (int i = threadIdx.y; i < 32; i += 8) {
+    const int r = r0 + i, c = c0 + threadIdx.x;
+    if (r < rows && c < cols) t[i][threadIdx.x] = in[size_t(r) * cols + c];
   }
   __syncthreads();
-  if (threadIdx.x < kBN)
-    db1_part[size_t(blockIdx.y) * hidden + n0 + threadIdx.x] =
-        red[0][threadIdx.x] + red[1][threadIdx.x];
+  for (int i = threadIdx.y; i < 32; i += 8) {
+    const int c = c0 + i, r = r0 + threadIdx.x;
+    if (c < cols && r < rows) out[size_t(c) * rows + r] = t[threadIdx.x][i];
+  }
 }
 
-// (c), (d) out + z split_stride = A B^T over split z's k-tiles [z kps,
-// (z + 1) kps), f32 (Mo, No), rows < Mo and columns < No only
-template <bool AK>
-__global__ void __launch_bounds__(kThreads, 1)
-    store_kernel(const Operand A, const Operand B, int K, int kps, float* __restrict__ out,
-                 long long split_stride, int Mo, int No) {
-  extern __shared__ __align__(16) float smem[];
-  const int m0 = blockIdx.y * 128, n0 = blockIdx.x * kBN;
-  const int k_tiles = (K + kBK - 1) / kBK, kt0 = blockIdx.z * kps;
-  const int kt1 = kt0 + kps < k_tiles ? kt0 + kps : k_tiles;
-  float acc[4][4][4];
-  zero(acc);
-  mainloop<128, AK, false>(acc, A, B, K, kt0, kt1, m0, n0, smem);
-  out += blockIdx.z * split_stride;
+// (b) h = gelu(hpre), dhpre = dh gelu'(hpre), hpre = xn W1^T + b1 (the
+// stash) and dh = dmlp W2 (acc) on a consumer's 64 x 128 block;
+// db1_part[row block, col] = its column sums of dhpre
+struct DualArgs {
+  const float* b1;
+  float* h;
+  float* dhpre;
+  float* db1_part;
+  int M, hidden;
+};
+
+struct EpiDual {
+  using Args = DualArgs;
+  static __device__ __forceinline__ void store(const Args& a, const float (&acc)[64],
+                                               const float* stash, int row0, int col0,
+                                               float* red) {
+    const int t128 = threadIdx.x % 128, lane = t128 % 32;
+    float cs[16][2];
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
+    for (int j = 0; j < 16; ++j) cs[j][0] = cs[j][1] = 0.f;
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
-      const int row = m0 + frag_row<128>(mt, hh);
-      if (row >= Mo) continue;
+      const int row = row0 + tf32::frag_row(hh);
+      if (row >= a.M) continue;
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int col = n0 + frag_col(nt);  // even; No is even
-        if (col < No)
-          *reinterpret_cast<float2*>(out + size_t(row) * No + col) =
-              make_float2(acc[mt][nt][2 * hh], acc[mt][nt][2 * hh + 1]);
+      for (int j = 0; j < 16; ++j) {
+        const int col = col0 + tf32::frag_col(j), i0 = 4 * j + 2 * hh;
+        const float2 b = *reinterpret_cast<const float2*>(a.b1 + col);
+        const float v0 = stash[i0 * 128 + t128] + b.x, v1 = stash[(i0 + 1) * 128 + t128] + b.y;
+        float p0, p1;
+        const float c0 = gelu_cdf_pdf(v0, &p0), c1 = gelu_cdf_pdf(v1, &p1);
+        const float d0 = acc[i0] * (c0 + v0 * p0), d1 = acc[i0 + 1] * (c1 + v1 * p1);
+        const size_t at = size_t(row) * a.hidden + col;
+        *reinterpret_cast<float2*>(a.h + at) = make_float2(v0 * c0, v1 * c1);
+        *reinterpret_cast<float2*>(a.dhpre + at) = make_float2(d0, d1);
+        cs[j][0] += d0;
+        cs[j][1] += d1;
       }
     }
-}
+    // the warp's 16 rows (lanes of one lane % 4 share columns), then the
+    // consumer's four warps in order
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        cs[j][e] += __shfl_xor_sync(0xffffffffu, cs[j][e], 4);
+        cs[j][e] += __shfl_xor_sync(0xffffffffu, cs[j][e], 8);
+        cs[j][e] += __shfl_xor_sync(0xffffffffu, cs[j][e], 16);
+      }
+    const int warp = t128 / 32, bar = 1 + threadIdx.x / 128;
+    if (lane < 4) {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        red[warp * 128 + tf32::frag_col(j)] = cs[j][0];
+        red[warp * 128 + tf32::frag_col(j) + 1] = cs[j][1];
+      }
+    }
+    tf32::named_sync(bar);
+    if (row0 < a.M)
+      a.db1_part[size_t(row0 / kRows) * a.hidden + col0 + t128] =
+          ((red[t128] + red[128 + t128]) + red[256 + t128]) + red[384 + t128];
+    tf32::named_sync(bar);  // `red` is free for the next tile
+  }
+};
+
+// (c), (d) out + z split_stride = A B^T over split z's k-tiles, f32
+// (M, N), rows < M and columns < N only
+struct StoreArgs {
+  float* out;
+  long long split_stride;
+  int M, N;
+};
+
+struct EpiStore {
+  using Args = StoreArgs;
+  static __device__ __forceinline__ void store(const Args& a, const float (&acc)[64], const float*,
+                                               int row0, int col0, float*) {
+    float* out = a.out + blockIdx.z * a.split_stride;
+    tf32::for_pairs(acc, row0, col0, a.M, a.N, [&](int row, int col, float v0, float v1) {
+      *reinterpret_cast<float2*>(out + size_t(row) * a.N + col) = make_float2(v0, v1);
+    });
+  }
+};
 
 // (e) dx and the column partials of a 64-row block (8 rows a warp, the
 // warps' sums added in order): part[block] = (sum dyln xhat, sum dyln,
@@ -277,7 +283,7 @@ __global__ void __launch_bounds__(256, 1)
 
 #define LAVT_K7F32_WIDTHS(X) X(128) X(256) X(384) X(512) X(1024)
 
-inline bool ok(const void* p) { return p == nullptr || aligned(p); }
+inline bool ok(const void* p) { return p == nullptr || tf32::aligned16(p); }
 
 cudaError_t prep(const void* x, const void* gy, const void* g, const void* be, const void* keep,
                  void* xn, void* stats, void* dmlp, int M, int C, int rows_per_sample, float eps,
@@ -303,35 +309,26 @@ cudaError_t prep(const void* x, const void* gy, const void* g, const void* be, c
 }
 
 cudaError_t dual(const void* xn, const void* dmlp, const void* w1, const void* b1, const void* w2,
-                 void* h, void* dhpre, void* db1_part, int M, int C, int hidden,
+                 void* w2t, void* h, void* dhpre, void* db1_part, int M, int C, int hidden,
                  cudaStream_t s) {
-  if (M < 1 || C < kBK || C % kBK != 0 || hidden < kBN || hidden % kBN != 0 || !ok(xn) ||
-      !ok(dmlp) || !ok(w1) || !ok(w2) || !ok(h) || !ok(dhpre))
+  if (M < 1 || C < tf32::kBK || C % tf32::kBK != 0 || hidden < tf32::kTile ||
+      hidden % tf32::kTile != 0 || !ok(xn) || !ok(dmlp) || !ok(w1) || !ok(w2) || !ok(w2t) ||
+      !ok(h) || !ok(dhpre) || w2t == nullptr)
     return cudaErrorInvalidValue;
-  constexpr size_t kSmem = ring_bytes<kRows, true, true>() > ring_bytes<kRows, true, false>()
-                               ? ring_bytes<kRows, true, true>()
-                               : ring_bytes<kRows, true, false>();
-  cudaError_t err = allow_smem(dual_kernel, kSmem);
+  transpose_kernel<<<dim3((hidden + 31) / 32, (C + 31) / 32), dim3(32, 8), 0, s>>>(
+      static_cast<const float*>(w2), static_cast<float*>(w2t), C, hidden);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const auto f = [](const void* p) { return static_cast<const float*>(p); };
-  const dim3 grid(hidden / kBN, (M + kRows - 1) / kRows);
-  dual_kernel<<<grid, kThreads, kSmem, s>>>(
-      Operand{f(xn), C, M}, Operand{f(w1), C, hidden}, Operand{f(dmlp), C, M},
-      Operand{f(w2), hidden, hidden}, f(b1), static_cast<float*>(h),
-      static_cast<float*>(dhpre), static_cast<float*>(db1_part), M, C, hidden);
-  return cudaGetLastError();
-}
-
-template <bool AK>
-cudaError_t store(const Operand& a, const Operand& b, int K, int kps, void* out,
-                  long long split_stride, int splits, cudaStream_t s) {
-  constexpr size_t kSmem = ring_bytes<128, AK, false>();
-  cudaError_t err = allow_smem(store_kernel<AK>, kSmem);
+  tf32::Params<DualArgs> p{};
+  err = tf32::map_operand(&p.a0, xn, M, C, false);
+  if (err == cudaSuccess) err = tf32::map_operand(&p.b0, w1, hidden, C, false);
+  if (err == cudaSuccess) err = tf32::map_operand(&p.a1, dmlp, M, C, false);
+  if (err == cudaSuccess) err = tf32::map_operand(&p.b1, w2t, hidden, C, false);
   if (err != cudaSuccess) return err;
-  const dim3 grid((b.rows + kBN - 1) / kBN, (a.rows + 127) / 128, splits);
-  store_kernel<AK><<<grid, kThreads, kSmem, s>>>(a, b, K, kps, static_cast<float*>(out),
-                                                 split_stride, a.rows, b.rows);
-  return cudaGetLastError();
+  p.k_tiles = p.k_tiles_per_split = C / tf32::kBK;
+  p.epi = DualArgs{static_cast<const float*>(b1), static_cast<float*>(h),
+                   static_cast<float*>(dhpre), static_cast<float*>(db1_part), M, hidden};
+  return tf32::launch<EpiDual, false, false, true>(p, M, hidden, 1, s);
 }
 
 // part + z stride = a[rows of split z]^T b[rows of split z]: a (M, na), b
@@ -339,25 +336,34 @@ cudaError_t store(const Operand& a, const Operand& b, int K, int kps, void* out,
 // [z kps, (z + 1) kps), every split at least one
 cudaError_t wgrad(const void* a, const void* b, void* part, int M, int na, int nb, int splits,
                   int kps, long long split_stride, cudaStream_t s) {
-  const long long k_tiles = (M + kBK - 1) / kBK;
-  if (M < 1 || na < 4 || na % 4 != 0 || nb < 2 || nb % 4 != 0 || splits < 1 || kps < 1 ||
+  const long long k_tiles = (M + tf32::kBK - 1) / tf32::kBK;
+  if (M < 1 || na < 4 || na % 4 != 0 || nb < 4 || nb % 4 != 0 || splits < 1 || kps < 1 ||
       static_cast<long long>(splits - 1) * kps >= k_tiles ||
       static_cast<long long>(splits) * kps < k_tiles || !ok(a) || !ok(b) || !ok(part))
     return cudaErrorInvalidValue;
-  return store<false>(Operand{static_cast<const float*>(a), na, na},
-                      Operand{static_cast<const float*>(b), nb, nb}, M, kps, part, split_stride,
-                      splits, s);
+  tf32::Params<StoreArgs> p{};
+  cudaError_t err = tf32::map_operand(&p.a0, a, na, M, true);
+  if (err == cudaSuccess) err = tf32::map_operand(&p.b0, b, nb, M, true);
+  if (err != cudaSuccess) return err;
+  p.k_tiles = static_cast<int>(k_tiles);
+  p.k_tiles_per_split = kps;
+  p.epi = StoreArgs{static_cast<float*>(part), split_stride, na, nb};
+  return tf32::launch<EpiStore, true, true, false>(p, na, nb, splits, s);
 }
 
 // dyln (M, C) = dhpre (M, hidden) W1 (hidden, C)
 cudaError_t dgrad(const void* dhpre, const void* w1, void* dyln, int M, int C, int hidden,
                   cudaStream_t s) {
-  if (M < 1 || C < 4 || C % 4 != 0 || hidden < kBK || hidden % kBK != 0 || !ok(dhpre) ||
-      !ok(w1) || !ok(dyln))
+  if (M < 1 || C < 4 || C % 4 != 0 || hidden < tf32::kBK || hidden % tf32::kBK != 0 ||
+      !ok(dhpre) || !ok(w1) || !ok(dyln))
     return cudaErrorInvalidValue;
-  return store<true>(Operand{static_cast<const float*>(dhpre), hidden, M},
-                     Operand{static_cast<const float*>(w1), C, C}, hidden, hidden / kBK, dyln,
-                     0, 1, s);
+  tf32::Params<StoreArgs> p{};
+  cudaError_t err = tf32::map_operand(&p.a0, dhpre, M, hidden, false);
+  if (err == cudaSuccess) err = tf32::map_operand(&p.b0, w1, C, hidden, true);
+  if (err != cudaSuccess) return err;
+  p.k_tiles = p.k_tiles_per_split = hidden / tf32::kBK;
+  p.epi = StoreArgs{static_cast<float*>(dyln), 0, M, C};
+  return tf32::launch<EpiStore, false, true, false>(p, M, C, 1, s);
 }
 
 cudaError_t ln_bwd(const void* dyln, const void* x, const void* gy, const void* g,
@@ -396,12 +402,13 @@ extern "C" int lavt_mlp_bwd_prep_f32(const void* x, const void* gy, const void* 
                                             static_cast<cudaStream_t>(stream)));
 }
 
+// w2t: (hidden, C) f32 scratch for W2's K-major copy
 extern "C" int lavt_dual_gemm_gelu_bwd_f32(const void* xn, const void* dmlp, const void* w1,
                                            const void* b1, const void* w2, void* h,
-                                           void* dhpre, void* db1_part, int M, int C,
+                                           void* dhpre, void* db1_part, void* w2t, int M, int C,
                                            int hidden, void* stream) {
-  return static_cast<int>(lavt::k7f32::dual(xn, dmlp, w1, b1, w2, h, dhpre, db1_part, M, C,
-                                            hidden, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(lavt::k7f32::dual(xn, dmlp, w1, b1, w2, w2t, h, dhpre, db1_part, M,
+                                            C, hidden, static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" int lavt_wgrad_f32(const void* a, const void* b, void* part, int M, int na, int nb,
@@ -429,8 +436,8 @@ extern "C" int lavt_mlp_bwd_f32(const void* x, const void* gy, const void* g, co
                                 const void* w1, const void* b1, const void* w2, const void* keep,
                                 int rows_per_sample, void* xn, void* dmlp, void* h, void* dhpre,
                                 void* dx, void* dyln, void* db1_part, void* dw_part,
-                                void* ln_part, void* stats, int M, int C, int hidden, int splits,
-                                int k_tiles_per_split, float eps, void* stream) {
+                                void* ln_part, void* stats, void* w2t, int M, int C, int hidden,
+                                int splits, int k_tiles_per_split, float eps, void* stream) {
   using namespace lavt::k7f32;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   // dw_part: (splits, 2, hidden C), dW1 then dW2 (C, hidden) in each split
@@ -438,7 +445,8 @@ extern "C" int lavt_mlp_bwd_f32(const void* x, const void* gy, const void* g, co
   float* dw1 = static_cast<float*>(dw_part);
   const void* dm = keep != nullptr ? dmlp : gy;
   cudaError_t err = prep(x, gy, g, be, keep, xn, stats, dmlp, M, C, rows_per_sample, eps, s);
-  if (err == cudaSuccess) err = dual(xn, dm, w1, b1, w2, h, dhpre, db1_part, M, C, hidden, s);
+  if (err == cudaSuccess)
+    err = dual(xn, dm, w1, b1, w2, w2t, h, dhpre, db1_part, M, C, hidden, s);
   if (err == cudaSuccess)
     err = wgrad(dm, h, dw1 + wsize, M, C, hidden, splits, k_tiles_per_split, 2 * wsize, s);
   if (err == cudaSuccess)

@@ -32,35 +32,38 @@
 // Bound on the H100, per call: 4 N^2 hd flops per window and head against
 // the f32 qkv and O, the bias and the masked windows' mask (and in save
 // mode P).  At Swin-B stage 3 (bs 8: 72 windows, C = 512, 16 heads) 3.06
-// GFLOP (0.019 ms at 165 TFLOP/s, or 0.046 ms at 67 TFLOP/s on the FP32
-// cores this launch uses) against 85 MB of qkv and O + 1.3 MB of bias:
-// bytes, 0.026 ms; in save mode + 95.6 MB of P, 0.054 ms.
+// GFLOP (0.019 ms at 165 TFLOP/s: 495 TF32 over 3xTF32's three passes)
+// against 85 MB of qkv and O + 1.3 MB of bias: bytes, 0.026 ms; in save
+// mode + 95.6 MB of P, 0.054 ms.
 //
-// Design (a simple kernel, right first): one block of 288 threads per
-// (window, head).  The head's k and v (144 x 32 each) are copied into
-// shared memory (rows 36 floats apart); thread 2 i + u holds query row i's
-// q in registers and runs over keys 8 s + 4 u .. 8 s + 4 u + 3, s < 18
-// (the two halves' k rows then fall 16 banks apart, and a half's 16 lanes
-// read one address), with a float4 of bias and of mask per four keys,
-// accumulating sum e and sum e v in registers (the clamp form in one pass;
-// the exact form takes a first pass for the row max); the two halves add
-// theirs by one shuffle and each writes 16 of the row's 32 outputs.  The
-// save mode runs the keys once more for P = e / sum e (float4 stores, the
-// lane pair covering 32 contiguous bytes of its row) and sums O = P v
-// there.  The scores are recomputed in each pass (the q k dot products
-// cost 1 + exact + save passes).  FFMA, not the tensor cores: 41 KB of
-// shared memory, two blocks an SM by registers (-Xptxas -v, CUDA 12.8, on
-// an H100: 96 registers in every variant, 0-16 bytes spilled; the exact
-// save variant none).
+// Design: one block of 9 warps per (window, head), every product in 3xTF32
+// on mma.sync.m16n8k8 (csrc/attn_tf32.cuh).  The block builds the head's
+// k as an NT fragment tile and v as an NN one straight from the qkv
+// tensor (split once, one 16-byte shared-memory load a B fragment; 73.7 KB
+// of dynamic shared memory).  Warp w owns query rows 16 w .. 16 w + 15:
+// its q fragments are read from device memory and split where they are
+// used; S = q k^T is computed once into the C fragments of the row's 18
+// key tiles (72 registers a thread), bias and mask are added there, the
+// exact form's row max is taken over them (four lanes a row), e and its
+// row sums follow in registers; O = e V (or, in save mode, P = e / sum e,
+// stored in f32 from the C fragments, and O = P V from those P values) with
+// each C fragment serving as the A fragment of the next product
+// (`frag_c2a`).  (The design before: FFMA, one thread pair per query row,
+// the scores recomputed in each of 1 + exact + save passes, PERF.md.)
 
 #include <cstdint>
 
-#include "common.cuh"
+#include "attn_tf32.cuh"
 
 namespace lavt {
 namespace msa32 {
 
-constexpr int kN = 144, kHD = 32, kWS = 12, kPad = 36, kThreads = 2 * kN;
+using namespace tf32attn;
+
+constexpr int kN = 144, kWS = 12, kNT = kN / 8;          // 18 key tiles of 8
+constexpr int kWarps = kN / 16, kThreads = 32 * kWarps;  // 9 warps of 16 query rows
+constexpr int kFragT = frag_tile_bytes(kN) / 16;         // 16-byte words of a fragment tile
+constexpr size_t kSmem = 2 * size_t(kFragT) * 16;        // k NT and v NN
 
 struct Params {
   const float* qkv;
@@ -81,128 +84,157 @@ __device__ __forceinline__ size_t token_row(const Params& p, int w, int i) {
   return (size_t(b) * p.hp + (wi / nwx) * kWS + i / kWS) * p.wp + (wi % nwx) * kWS + i % kWS;
 }
 
-__device__ __forceinline__ float dot32(const float (&q)[kHD], const float* k) {
-  float d[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-  for (int c = 0; c < kHD / 4; ++c) {
-    const float4 kv = *reinterpret_cast<const float4*>(k + 4 * c);
-    d[0] = fmaf(q[4 * c], kv.x, d[0]);
-    d[1] = fmaf(q[4 * c + 1], kv.y, d[1]);
-    d[2] = fmaf(q[4 * c + 2], kv.z, d[2]);
-    d[3] = fmaf(q[4 * c + 3], kv.w, d[3]);
-  }
-  return (d[0] + d[1]) + (d[2] + d[3]);
-}
+__device__ __forceinline__ void zero4(float (&d)[4]) { d[0] = d[1] = d[2] = d[3] = 0.f; }
 
 template <bool kMap, bool kExact, bool kSave>
 __global__ void __launch_bounds__(kThreads, 2) msa_f32_kernel(const Params p) {
-  __shared__ __align__(16) float ks[kN * kPad];
-  __shared__ __align__(16) float vs[kN * kPad];
+  extern __shared__ __align__(16) uint4 smem4[];
+  uint4* kf = smem4;        // k as an NT fragment tile (S = q k^T)
+  uint4* vf = kf + kFragT;  // v as an NN fragment tile (O = P v)
   const int w = blockIdx.x, h = blockIdx.y;
   const size_t ld = 3 * size_t(p.c);
-  for (int idx = threadIdx.x; idx < kN * kHD / 4; idx += kThreads) {
-    const int r = idx / (kHD / 4), c = idx % (kHD / 4);
-    const float* src = p.qkv + token_row<kMap>(p, w, r) * ld + h * kHD + 4 * c;
-    *reinterpret_cast<float4*>(ks + r * kPad + 4 * c) =
-        *reinterpret_cast<const float4*>(src + p.c);
-    *reinterpret_cast<float4*>(vs + r * kPad + 4 * c) =
-        *reinterpret_cast<const float4*>(src + 2 * p.c);
+  const float* kh = p.qkv + p.c + h * kHD;
+  const float* vh = p.qkv + 2 * p.c + h * kHD;
+  // block (r, c)'s word of lane (g, tt): NT k[8r + g][8c + tt, + 4], NN
+  // v[8r + 2tt, + 1][8c + g]
+  for (int i = threadIdx.x; i < kFragT; i += kThreads) {
+    const int lane = i % kFragBlock, blk = i / kFragBlock, r = blk / 4, c = blk % 4;
+    const int g = lane / 4, tt = lane % 4;
+    uint32_t h0, h1, l0, l1;
+    const float* kr = kh + token_row<kMap>(p, w, 8 * r + g) * ld + 8 * c + tt;
+    split_rz(__ldg(kr), h0, l0);
+    split_rz(__ldg(kr + 4), h1, l1);
+    kf[i] = make_uint4(h0, h1, l0, l1);
+    const float* v0 = vh + token_row<kMap>(p, w, 8 * r + 2 * tt) * ld + 8 * c + g;
+    const float* v1 = vh + token_row<kMap>(p, w, 8 * r + 2 * tt + 1) * ld + 8 * c + g;
+    split_rz(__ldg(v0), h0, l0);
+    split_rz(__ldg(v1), h1, l1);
+    vf[i] = make_uint4(h0, h1, l0, l1);
   }
-  const int i = threadIdx.x / 2, u = threadIdx.x % 2;
-  const size_t row = token_row<kMap>(p, w, i);
-  float q[kHD];
-#pragma unroll
-  for (int c = 0; c < kHD / 4; ++c) {
-    const float4 t = *reinterpret_cast<const float4*>(p.qkv + row * ld + h * kHD + 4 * c);
-    q[4 * c] = t.x, q[4 * c + 1] = t.y, q[4 * c + 2] = t.z, q[4 * c + 3] = t.w;
-  }
-  __syncthreads();
 
+  const int warp = threadIdx.x / 32, g = lane_g(), t = lane_t();
+  const int ra = 16 * warp + g, rb = ra + 8;  // the thread's query rows
+  const size_t rowa = token_row<kMap>(p, w, ra), rowb = token_row<kMap>(p, w, rb);
+  const float* qa = p.qkv + rowa * ld + h * kHD + t;
+  const float* qb = p.qkv + rowb * ld + h * kHD + t;
+  __syncthreads();  // the fragment tiles are built
+
+  // S = q k^T: per 8-deep step, the q fragment split, then the key tiles
+  // in chunks of 3, pass by pass over the chunk
+  float s[kNT][4];
+#pragma unroll
+  for (int j = 0; j < kNT; ++j) zero4(s[j]);
+#pragma unroll
+  for (int kk = 0; kk < kHD / 8; ++kk) {
+    Frag4 a;
+    split_rz(__ldg(qa + 8 * kk), a.hi[0], a.lo[0]);
+    split_rz(__ldg(qb + 8 * kk), a.hi[1], a.lo[1]);
+    split_rz(__ldg(qa + 8 * kk + 4), a.hi[2], a.lo[2]);
+    split_rz(__ldg(qb + 8 * kk + 4), a.hi[3], a.lo[3]);
+#pragma unroll
+    for (int ch = 0; ch < kNT / 3; ++ch) {
+      Frag2 b[3];
+#pragma unroll
+      for (int jj = 0; jj < 3; ++jj) b[jj] = frag_b(kf, 3 * ch + jj, kk);
+#pragma unroll
+      for (int jj = 0; jj < 3; ++jj) mma_tf32(s[3 * ch + jj], a.lo, b[jj].hi);
+#pragma unroll
+      for (int jj = 0; jj < 3; ++jj) mma_tf32(s[3 * ch + jj], a.hi, b[jj].lo);
+#pragma unroll
+      for (int jj = 0; jj < 3; ++jj) mma_tf32(s[3 * ch + jj], a.hi, b[jj].hi);
+    }
+  }
+
+  // + bias + mask at the C fragments' places (rows ra, rb; keys 8 j + 2 t, + 1)
   const int mw = w % p.nw;
   const bool masked = p.mask != nullptr && (p.flags == nullptr || p.flags[mw] != 0);
-  const float* brow = p.bias + (size_t(h) * kN + i) * kN;
-  const float* mrow = masked ? p.mask + (size_t(mw) * kN + i) * kN : nullptr;
-  // the four scores of keys j0 .. j0 + 3
-  auto scores = [&](int j0, float (&sc)[4]) {
-    const float4 b4 = __ldg(reinterpret_cast<const float4*>(brow + j0));
-    const float4 m4 = masked ? __ldg(reinterpret_cast<const float4*>(mrow + j0))
-                             : make_float4(0.f, 0.f, 0.f, 0.f);
-    const float bb[4] = {b4.x, b4.y, b4.z, b4.w}, mm[4] = {m4.x, m4.y, m4.z, m4.w};
+  const float* ba = p.bias + (size_t(h) * kN + ra) * kN + 2 * t;
+  const float* bb = ba + 8 * kN;
 #pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      sc[jj] = dot32(q, ks + (j0 + jj) * kPad) + bb[jj];
-      if (masked) sc[jj] += mm[jj];
+  for (int j = 0; j < kNT; ++j) {
+    const float2 x = __ldg(reinterpret_cast<const float2*>(ba + 8 * j));
+    const float2 y = __ldg(reinterpret_cast<const float2*>(bb + 8 * j));
+    s[j][0] += x.x, s[j][1] += x.y, s[j][2] += y.x, s[j][3] += y.y;
+  }
+  if (masked) {
+    const float* ma = p.mask + (size_t(mw) * kN + ra) * kN + 2 * t;
+    const float* mb = ma + 8 * kN;
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+      const float2 x = __ldg(reinterpret_cast<const float2*>(ma + 8 * j));
+      const float2 y = __ldg(reinterpret_cast<const float2*>(mb + 8 * j));
+      s[j][0] += x.x, s[j][1] += x.y, s[j][2] += y.x, s[j][3] += y.y;
     }
-  };
-  // exact: the row max (the two halves' by one shuffle), then exp(s - max);
-  // else the shift-free exp(min(s, 80))
-  float mx = 0.f;
+  }
+  // exact: the row max over the row's 18 tiles (its four lanes by two
+  // shuffles), e = exp(s - max); else the shift-free e = exp(min(s, 80))
+  float mxa = 0.f, mxb = 0.f;
   if constexpr (kExact) {
-    mx = __int_as_float(static_cast<int>(0xff800000u));  // -inf
-    for (int s = 0; s < kN / 8; ++s) {
-      float sc[4];
-      scores(8 * s + 4 * u, sc);
-      mx = fmaxf(mx, fmaxf(fmaxf(sc[0], sc[1]), fmaxf(sc[2], sc[3])));
+    mxa = mxb = __int_as_float(static_cast<int>(0xff800000u));  // -inf
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+      mxa = fmaxf(mxa, fmaxf(s[j][0], s[j][1]));
+      mxb = fmaxf(mxb, fmaxf(s[j][2], s[j][3]));
     }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-  }
-  auto numer = [&](float sc) { return kExact ? expf(sc - mx) : expf(fminf(sc, 80.f)); };
-  auto add_v = [&](float (&o)[kHD], float e, int j) {
-    const float* vr = vs + j * kPad;
 #pragma unroll
-    for (int c = 0; c < kHD / 4; ++c) {
-      const float4 vv = *reinterpret_cast<const float4*>(vr + 4 * c);
-      o[4 * c] = fmaf(e, vv.x, o[4 * c]);
-      o[4 * c + 1] = fmaf(e, vv.y, o[4 * c + 1]);
-      o[4 * c + 2] = fmaf(e, vv.z, o[4 * c + 2]);
-      o[4 * c + 3] = fmaf(e, vv.w, o[4 * c + 3]);
-    }
-  };
-  float o[kHD], l = 0.f;
-#pragma unroll
-  for (int d = 0; d < kHD; ++d) o[d] = 0.f;
-  for (int s = 0; s < kN / 8; ++s) {
-    const int j0 = 8 * s + 4 * u;
-    float sc[4];
-    scores(j0, sc);
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      const float e = numer(sc[jj]);
-      l += e;
-      if constexpr (!kSave) add_v(o, e, j0 + jj);
+    for (int o = 1; o < 4; o <<= 1) {
+      mxa = fmaxf(mxa, __shfl_xor_sync(0xffffffffu, mxa, o));
+      mxb = fmaxf(mxb, __shfl_xor_sync(0xffffffffu, mxb, o));
     }
   }
-  l += __shfl_xor_sync(0xffffffffu, l, 1);
-  const float inv = 1.f / l;
+  float la = 0.f, lb = 0.f;
+#pragma unroll
+  for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      s[j][e] = kExact ? expf(s[j][e] - mxa) : expf(fminf(s[j][e], 80.f));
+      s[j][2 + e] = kExact ? expf(s[j][2 + e] - mxb) : expf(fminf(s[j][2 + e], 80.f));
+    }
+    la += s[j][0] + s[j][1];
+    lb += s[j][2] + s[j][3];
+  }
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1) {
+    la += __shfl_xor_sync(0xffffffffu, la, o);
+    lb += __shfl_xor_sync(0xffffffffu, lb, o);
+  }
+  const float inva = 1.f / la, invb = 1.f / lb;
   if constexpr (kSave) {
-    // P = e / l in f32, stored by rows (each lane pair writes 32 contiguous
-    // bytes of its row per step), and O = P v from those values
-    float* prow = p.p + ((size_t(w) * p.heads + h) * kN + i) * kN;
-    for (int s = 0; s < kN / 8; ++s) {
-      const int j0 = 8 * s + 4 * u;
-      float sc[4];
-      scores(j0, sc);
+    // P = e / l in f32 at the C fragments' places, and O made from it
+    float* pa = p.p + ((size_t(w) * p.heads + h) * kN + ra) * kN + 2 * t;
+    float* pb = pa + 8 * kN;
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        sc[jj] = numer(sc[jj]) * inv;
-        add_v(o, sc[jj], j0 + jj);
-      }
-      *reinterpret_cast<float4*>(prow + j0) = make_float4(sc[0], sc[1], sc[2], sc[3]);
+    for (int j = 0; j < kNT; ++j) {
+      s[j][0] *= inva, s[j][1] *= inva, s[j][2] *= invb, s[j][3] *= invb;
+      *reinterpret_cast<float2*>(pa + 8 * j) = make_float2(s[j][0], s[j][1]);
+      *reinterpret_cast<float2*>(pb + 8 * j) = make_float2(s[j][2], s[j][3]);
     }
   }
+  // O = e V (P V in save mode): the key tiles are the depth
+  float o[4][4];
 #pragma unroll
-  for (int d = 0; d < kHD; ++d) o[d] += __shfl_xor_sync(0xffffffffu, o[d], 1);
-  const float f = kSave ? 1.f : inv;
-  float4* dst = reinterpret_cast<float4*>(p.o + row * p.c + h * kHD + 16 * u);
-  if (u == 0) {
+  for (int c = 0; c < 4; ++c) zero4(o[c]);
 #pragma unroll
-    for (int c = 0; c < 4; ++c)
-      dst[c] = make_float4(o[4 * c] * f, o[4 * c + 1] * f, o[4 * c + 2] * f, o[4 * c + 3] * f);
-  } else {
+  for (int j = 0; j < kNT; ++j) {
+    const Frag4 a = frag_c2a(s[j]);
 #pragma unroll
-    for (int c = 0; c < 4; ++c)
-      dst[c] = make_float4(o[16 + 4 * c] * f, o[17 + 4 * c] * f, o[18 + 4 * c] * f,
-                           o[19 + 4 * c] * f);
+    for (int c = 0; c < 4; c += 2) {
+      const Frag2 b0 = frag_b(vf, j, c), b1 = frag_b(vf, j, c + 1);
+      mma_tf32(o[c], a.lo, b0.hi);
+      mma_tf32(o[c + 1], a.lo, b1.hi);
+      mma_tf32(o[c], a.hi, b0.lo);
+      mma_tf32(o[c + 1], a.hi, b1.lo);
+      mma_tf32(o[c], a.hi, b0.hi);
+      mma_tf32(o[c + 1], a.hi, b1.hi);
+    }
+  }
+  const float fa = kSave ? 1.f : inva, fb = kSave ? 1.f : invb;
+  float* oa = p.o + rowa * p.c + h * kHD + 2 * t;
+  float* ob = p.o + rowb * p.c + h * kHD + 2 * t;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    *reinterpret_cast<float2*>(oa + 8 * c) = make_float2(o[c][0] * fa, o[c][1] * fa);
+    *reinterpret_cast<float2*>(ob + 8 * c) = make_float2(o[c][2] * fb, o[c][3] * fb);
   }
 }
 
@@ -215,7 +247,10 @@ cudaError_t launch(const Params& p, int windows, cudaStream_t s) {
   if (!aligned(p.qkv) || !aligned(p.bias) || !aligned(p.mask) || !aligned(p.o) ||
       !aligned(p.p))
     return cudaErrorInvalidValue;
-  msa_f32_kernel<kMap, kExact, kSave><<<dim3(windows, p.heads), kThreads, 0, s>>>(p);
+  auto kernel = msa_f32_kernel<kMap, kExact, kSave>;
+  const cudaError_t err = allow_smem(kernel, kSmem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(windows, p.heads), kThreads, kSmem, s>>>(p);
   return cudaGetLastError();
 }
 

@@ -1,5 +1,5 @@
-// The f32 GEMM of the f32 variants of K1, K11, K3, K8 and K2p: f32
-// accuracy on the tensor cores by 3xTF32.
+// The f32 GEMM of the f32 variants of K1, K11, K3, K8, K2p, K2 and the
+// K1/K2 save mode: f32 accuracy on the tensor cores by 3xTF32.
 //
 //   out[m, n] = epilogue(sum_k A[m, k] W[n, k])
 //
@@ -16,7 +16,7 @@
 //              Stegun 7.1.26 (common.cuh, as the TPU kernel evaluates it);
 //   kResidual  res[m, n] + acc + b[n], or res[m, n] + keep (acc + b[n]).
 //
-// Accuracy: 3xTF32 with each 32-deep stage summed apart (csrc/gemm_f32.cuh).
+// Accuracy: 3xTF32 with each 32-deep stage summed apart (csrc/gemm_tf32_sm90.cuh).
 //
 // K8 f32 (`keep` given) is kResidual with the per-sample DropPath scale,
 // res[m, n] + keep[m / rows_per_sample] (acc + b[n]): fused_mlp.py:_fwd's
@@ -28,33 +28,27 @@
 // GFLOP, 0.092 ms, against 59 MB in and 236 MB out, 0.088 ms at 3.35 TB/s,
 // and fc2 (236 MB in, x 59 MB, out 59 MB) is bytes, 0.106 ms.
 //
-// Design (a simple kernel, right first): `f32mma::mainloop` on 128 x 128
-// output tiles, both operands K-major; the epilogue writes float2 pairs
-// from the accumulators.  Not yet wgmma + TMA: tf32 wgmma takes K-major
-// operands only, which every inference GEMM has, but its hi / lo split
-// would have to be staged in shared memory (ROADMAP.md, queue 2).  Shared
-// memory: 3 x 36 KB = 108 KB; the two accumulator sets take one block an
-// SM (-Xptxas -v, CUDA 12.8, on an H100: 182 registers, 0 bytes spilled).
+// Design: the 3xTF32 wgmma + TMA core of csrc/gemm_tf32_sm90.cuh, both
+// operands K-major (B's lo staged beside its raw tile), 128 x 128 output
+// tiles of two consumer warpgroups, persistent blocks; the epilogue writes
+// float2 pairs from the accumulators.  (The design before: mma.sync tiles
+// with the split at every fragment load, PERF.md.)
 
 #include <cstdint>
 
-#include "gemm_f32.cuh"
+#include "gemm_tf32_sm90.cuh"
 
 namespace lavt {
 namespace g32 {
 
-using namespace f32mma;
-
 enum Epi : int { kBias = 0, kGelu = 1, kResidual = 2 };
 
 struct Args {
-  const float* a;
-  const float* w;
   const float* b;
   const float* res;   // kResidual: (M, N)
   const float* keep;  // kResidual, K8 f32: (M / rows_per_sample,) or null
   float* out;
-  int M, N, K;
+  int M, N;
   int scaled;
   float scale;
   int rows_per_sample;
@@ -75,38 +69,26 @@ __device__ __forceinline__ float epilogue(const Args& a, float acc, int row, int
 }
 
 template <int kEpi>
-__global__ void __launch_bounds__(kThreads, 1) gemm_f32_kernel(const Args a) {
-  extern __shared__ __align__(16) float smem[];
-  const int m0 = blockIdx.y * 128, n0 = blockIdx.x * kBN;
-  float acc[4][4][4];
-  zero(acc);
-  mainloop<128, true, true>(acc, Operand{a.a, a.K, a.M}, Operand{a.w, a.K, a.N}, a.K, 0,
-                            a.K / kBK, m0, n0, smem);
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = m0 + frag_row<128>(mt, h);
-      if (row >= a.M) continue;
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int col = n0 + frag_col(nt);
-        if (col >= a.N) continue;
-        const float2 v = make_float2(epilogue<kEpi>(a, acc[mt][nt][2 * h], row, col),
-                                     epilogue<kEpi>(a, acc[mt][nt][2 * h + 1], row, col + 1));
-        *reinterpret_cast<float2*>(a.out + size_t(row) * a.N + col) = v;
-      }
-    }
-}
+struct EpiGemm {
+  using Args = g32::Args;
+  static __device__ __forceinline__ void store(const Args& a, const float (&acc)[64], float*,
+                                               int row0, int col0, float*) {
+    tf32::for_pairs(acc, row0, col0, a.M, a.N, [&](int row, int col, float v0, float v1) {
+      *reinterpret_cast<float2*>(a.out + size_t(row) * a.N + col) =
+          make_float2(epilogue<kEpi>(a, v0, row, col), epilogue<kEpi>(a, v1, row, col + 1));
+    });
+  }
+};
 
 template <int kEpi>
-cudaError_t launch(const Args& a, cudaStream_t s) {
-  constexpr size_t kSmem = ring_bytes<128, true, true>();
-  cudaError_t err = allow_smem(gemm_f32_kernel<kEpi>, kSmem);
+cudaError_t launch(const void* a, const void* w, const Args& args, int K, cudaStream_t s) {
+  tf32::Params<Args> p{};
+  cudaError_t err = tf32::map_operand(&p.a0, a, args.M, K, false);
+  if (err == cudaSuccess) err = tf32::map_operand(&p.b0, w, args.N, K, false);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.N + kBN - 1) / kBN, (a.M + 127) / 128);
-  gemm_f32_kernel<kEpi><<<grid, kThreads, kSmem, s>>>(a);
-  return cudaGetLastError();
+  p.k_tiles = p.k_tiles_per_split = K / tf32::kBK;
+  p.epi = args;
+  return tf32::launch<EpiGemm<kEpi>, false, false, false>(p, args.M, args.N, 1, s);
 }
 
 }  // namespace g32
@@ -120,19 +102,32 @@ extern "C" int lavt_gemm_f32(const void* a, const void* w, const void* b, const 
                              const void* keep, void* out, int M, int N, int K, int epi,
                              int scaled, float scale, int rows_per_sample, void* stream) {
   using namespace lavt::g32;
-  if (M < 1 || N < 2 || N % 2 != 0 || K < kBK || K % kBK != 0 || !aligned(a) || !aligned(w) ||
-      !aligned(out) || (epi == kResidual && res == nullptr) ||
+  using lavt::tf32::aligned16;
+  if (M < 1 || N < 2 || N % 2 != 0 || K < lavt::tf32::kBK || K % lavt::tf32::kBK != 0 ||
+      !aligned16(a) || !aligned16(w) || !aligned16(out) || (epi == kResidual && res == nullptr) ||
       (keep != nullptr && (epi != kResidual || rows_per_sample < 1)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args args{static_cast<const float*>(a),   static_cast<const float*>(w),
-                  static_cast<const float*>(b),   static_cast<const float*>(res),
+  const Args args{static_cast<const float*>(b),    static_cast<const float*>(res),
                   static_cast<const float*>(keep), static_cast<float*>(out),
-                  M, N, K, scaled, scale, rows_per_sample};
+                  M, N, scaled, scale, rows_per_sample};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (epi) {
-    case kBias: return static_cast<int>(launch<kBias>(args, s));
-    case kGelu: return static_cast<int>(launch<kGelu>(args, s));
-    case kResidual: return static_cast<int>(launch<kResidual>(args, s));
+    case kBias: return static_cast<int>(launch<kBias>(a, w, args, K, s));
+    case kGelu: return static_cast<int>(launch<kGelu>(a, w, args, K, s));
+    case kResidual: return static_cast<int>(launch<kResidual>(a, w, args, K, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The dynamic shared memory of the core's kernels (ops/tf32_core.ring):
+// kind 0 both operands K-major, 1 the dual GEMM, 2 B transposed by the
+// stagers (dyln, K5 f32's dattn and dx, the weight grads); -1 otherwise.
+extern "C" int lavt_tf32_core_smem(int kind) {
+  using namespace lavt::tf32;
+  switch (kind) {
+    case 0: return static_cast<int>(Ring<false, false>::kSmem);
+    case 1: return static_cast<int>(Ring<false, true>::kSmem);
+    case 2: return static_cast<int>(Ring<true, false>::kSmem);
+    default: return -1;
   }
 }

@@ -32,7 +32,7 @@ SOURCES = ("ln.cu", "fused_mlp.cu", "fused_msa_bwd.cu",
            "fused_msa_f32.cu", "window_attn_f32.cu", "window_attn_bwd_f32.cu",
            "fused_mlp_bwd_f32.cu", "fused_msa_bwd_f32.cu")
 HEADERS = ("common.cuh", "gemm_sm90.cuh", "attn_sm90.cuh", "attn_f32.cuh",
-           "gemm_f32.cuh", "attn_tf32.cuh")
+           "gemm_f32.cuh", "attn_tf32.cuh", "gemm_tf32_sm90.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -71,14 +71,15 @@ SIGNATURES = {
     "lavt_gemm_bias_bf16": (P,) * 4 + (I,) * 4 + (F, P),
     "lavt_probe_headbatch": (P, P) + (I,) * 6 + (P,),
     "lavt_gemm_f32": (P,) * 6 + (I,) * 5 + (F, I, P),
+    "lavt_tf32_core_smem": (I,),
     "lavt_layer_norm_rows_bwd_f32_parts": (I, I),
     "lavt_layer_norm_rows_bwd_f32": (P,) * 5 + (I, I, I, F, P),
     "lavt_mlp_bwd_prep_f32": (P,) * 8 + (I, I, I, F, P),
-    "lavt_dual_gemm_gelu_bwd_f32": (P,) * 8 + (I, I, I, P),
+    "lavt_dual_gemm_gelu_bwd_f32": (P,) * 9 + (I, I, I, P),
     "lavt_wgrad_f32": (P, P, P) + (I,) * 5 + (P,),
     "lavt_dgrad_f32": (P, P, P, I, I, I, P),
     "lavt_ln_bwd_rows_f32": (P,) * 5 + (I,) + (P,) * 3 + (I, I, P),
-    "lavt_mlp_bwd_f32": (P,) * 8 + (I,) + (P,) * 10 + (I,) * 5 + (F, P),
+    "lavt_mlp_bwd_f32": (P,) * 8 + (I,) + (P,) * 11 + (I,) * 5 + (F, P),
     "lavt_msa_fwd_f32": (P,) * 6 + (I,) * 5 + (P,),
     "lavt_msa_fwd_map_f32": (P,) * 5 + (I,) * 6 + (P,),
     "lavt_msa_bwd_attn_f32": (P,) * 8 + (I,) * 5 + (F, P),

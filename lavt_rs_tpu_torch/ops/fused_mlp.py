@@ -21,9 +21,10 @@ TPU kernels compute them there (their roundings to x.dtype are no-ops):
 the same launches, each taking its f32 kernel for an f32 tensor.  K3 f32
 and K8 f32: the two-pass LN rows of csrc/ln.cu, fc1 + GELU and fc2 + (keep)
 + residual on the 3xTF32 GEMM of csrc/gemm_f32.cu; K7 f32: csrc/
-fused_mlp_bwd_f32.cu (prep, the dual GEMM, the weight grads split over M
-by `bwd_plan(..., f32=True)`, dyln, the LN-backward rows) on the same
-3xTF32 tile product.  `fused_ln_mlp`, `fused_ln_mlp_droppath` and
+fused_mlp_bwd_f32.cu (prep, the dual GEMM after W2's K-major copy, the
+weight grads split over M by `bwd_plan(..., f32=True)`, dyln, the
+LN-backward rows), its GEMMs on the same 3xTF32 wgmma + TMA core
+(csrc/gemm_tf32_sm90.cuh; plans in `tf32_core`).  `fused_ln_mlp`, `fused_ln_mlp_droppath` and
 `fused_ln_mlp_bwd` take them for a CUDA f32 tensor, each with its own
 launch counter; no f32 tensor reaches a bf16 kernel.
 
@@ -426,7 +427,11 @@ def dual_gemm_gelu_bwd(xn, dmlp, w1, b1, w2):
                 for _ in range(2))
     db1_part = torch.empty((-(-m // DUAL_ROWS), hidden), dtype=torch.float32,
                            device=xn.device)
-    _launch(entry, xn, dmlp, w1, b1, w2, h, dhpre, db1_part, m, c, hidden)
+    # K7 f32: scratch for W2's K-major copy (tf32 wgmma reads B K-major)
+    w2t = (torch.empty((hidden, c), dtype=xn.dtype, device=xn.device),) \
+        if _f32(xn) else ()
+    _launch(entry, xn, dmlp, w1, b1, w2, h, dhpre, db1_part, *w2t, m, c,
+            hidden)
     return h, dhpre, db1_part
 
 
@@ -565,12 +570,18 @@ def bwd_buffers(m: int, c: int, hidden: int, device,
     for TMA), dx, and the f32 partials that `bwd_plan` sizes: db1 (row
     tiles, hidden), dW1 and dW2 (splits, 2, hidden C; their own
     allocation: with one split the grads are views of it), dgamma, dbeta
-    and db2 (LN blocks, 3, C)."""
-    plan = bwd_plan(m, c, hidden, dtype == torch.float32)
+    and db2 (LN blocks, 3, C); K7 f32 also W2's K-major copy w2t
+    (hidden, C) f32, which its dual GEMM reads (before stats, whose 8 M
+    bytes may end off a 16-byte boundary)."""
+    f32 = dtype == torch.float32
+    plan = bwd_plan(m, c, hidden, f32)
     half = {"xn": (m, c), "dmlp": (m, c), "h": (m, hidden),
             "dhpre": (m, hidden)}
     full = {"dyln": (m, c), "db1_part": (plan.row_tiles, hidden),
-            "ln_part": (plan.ln_blocks, 3, c), "stats": (m, 2)}
+            "ln_part": (plan.ln_blocks, 3, c)}
+    if f32:
+        full["w2t"] = (hidden, c)
+    full["stats"] = (m, 2)
     buf = {}
     for shapes, dt in ((half, dtype), (full, torch.float32)):
         sizes = [math.prod(sh) for sh in shapes.values()]
@@ -581,7 +592,8 @@ def bwd_buffers(m: int, c: int, hidden: int, device,
     buf["dw_part"] = torch.empty((plan.splits, 2, hidden * c),
                                  dtype=torch.float32, device=device)
     return {k: buf[k] for k in ("xn", "dmlp", "h", "dhpre", "dx", "dyln",
-                                "db1_part", "dw_part", "ln_part", "stats")}
+                                "db1_part", "dw_part", "ln_part", "stats")
+            + (("w2t",) if f32 else ())}
 
 
 def _bwd_launch(x, gy, g, be, w1, b1, w2, keep, rows, eps, dtype):

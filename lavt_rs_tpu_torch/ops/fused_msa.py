@@ -82,7 +82,7 @@ from typing import Optional
 
 import torch
 
-from . import cuda_lib
+from . import cuda_lib, tf32_core
 from .ln import layer_norm_rows_bwd_launch, layer_norm_rows_launch
 from .ln import layer_norm_rows_plain as layer_norm_f32
 
@@ -348,12 +348,13 @@ def _require_all(checks, dev) -> None:
 # the f32 GEMM's epilogues (csrc/gemm_f32.cu): + bias (q scaled), GELU,
 # + residual
 GEMM_F32_BIAS, GEMM_F32_GELU, GEMM_F32_RESIDUAL = 0, 1, 2
-GEMM_F32_DEPTH = 32  # K of one pipeline stage: K must be a multiple
+GEMM_F32_DEPTH = tf32_core.DEPTH  # K of a core stage: K must be a multiple
 
 
 def gemm_f32(a, w, b, epi: int, res=None, scaled: int = 0,
              scale: float = 1.0, keep=None, rows: int = 1) -> torch.Tensor:
-    """The 3xTF32 GEMM of the f32 variants (`lavt_gemm_f32`): out (M, N)
+    """The 3xTF32 GEMM of the f32 variants (`lavt_gemm_f32`, on the wgmma +
+    TMA core of csrc/gemm_tf32_sm90.cuh, `tf32_core` kind "gemm"): out (M, N)
     f32 = epilogue(a wᵀ), a (M, K), w (N, K), b (N,) f32 on the card, K a
     multiple of 32, N even; epi GEMM_F32_BIAS ((· + b) times `scale` on the
     first `scaled` columns), GEMM_F32_GELU (exact GELU of · + b) or
@@ -451,9 +452,9 @@ def msa_dgrad(a, w) -> torch.Tensor:
     """(M, N) bf16 = a (M, K) w, w (K, N) a torch Linear weight read as W
     (not Wᵀ): K5's dattn = gy Wproj and dx = dqkv Wqkv, on the wgmma + TMA
     GEMM core (`lavt_msa_dgrad`; w read MN-major).  f32 operands (K5 f32)
-    take the 3xTF32 tile loop with w MN-major (`lavt_dgrad_f32`, K7 f32's
-    dyln product; K a multiple of 32, N of 4).  The plain version on a CPU
-    tensor."""
+    take the 3xTF32 core with w read as (K, N), transposed by its stagers
+    (`lavt_dgrad_f32`, K7 f32's dyln product, `tf32_core` kind "dgrad"; K
+    a multiple of 32, N of 4).  The plain version on a CPU tensor."""
     if a.device.type == "cpu":
         return msa_dgrad_plain(a, w)
     (m, k), n = a.shape, w.shape[1]
@@ -628,10 +629,11 @@ def bwd_launches(x, gy, wqkv, wproj, saved, heads: int, scale: float,
       (f) dbproj = the column sums of gy (`colsum`);
       and `sum_partials` over every split, in order.
     K5 f32 is the same launches on f32 tensors, each on its f32 kernel: (a)
-    and (c) on the 3xTF32 tile loop (`lavt_dgrad_f32`), (b) K5 f32's
+    and (c) on the 3xTF32 core (`lavt_dgrad_f32`), (b) K5 f32's
     attention (`msa_bwd_attn_f32`, groups by `msa_bwd_f32_groups`; dbqkv
-    from dqkv's column sums), (d)-(e) K7 f32's weight grads split by its
-    rule (32-row k-tiles, one block an SM), (f) `lavt_colsum_f32`.  On CPU
+    from dqkv's column sums), (d)-(e) K7 f32's weight grads on the core
+    split by its rule (32-row k-tiles, one block an SM), (f)
+    `lavt_colsum_f32`.  On CPU
     tensors each launch takes its plain version, which compose to
     `fused_window_msa_bwd_plain`'s values (tests/test_torch_k5_launches.py,
     tests/test_torch_f32_msa_train.py).  Returns (dx, dwqkv, dbqkv,

@@ -18,7 +18,11 @@ without a CUDA device.  Runs without JAX:
 * F8: with a bias table of std 60 (logits past 80), K2p f32 and the bf16
   K1 and K11 agree with their exact plain versions (1e-4 abs + rel in f32,
   bf16 within the bf16 MSA tests' 3e-2), which differ from the clamp form
-  the JAX inference kernels take by more than 1e-2.
+  the JAX inference kernels take by more than 1e-2;
+* the f32 MSA attention of K1, K2, K11 and the save mode f32 (3xTF32 on
+  mma.sync) in every switch, window and map order, past a logit of 80,
+  within 1e-4 abs + rel of its plain version in its softmax form; the
+  same bits twice.
 
 f32 tolerance: 3xTF32 products and f32 sums in another order than the
 plain versions' (tests/test_torch_f32_cuda.py); TF32 off in the plain
@@ -31,7 +35,8 @@ import torch
 
 from lavt_rs_tpu_torch.ops import (cuda_lib, fused_msa, fused_msa_2d,
                                    window_attn)
-from lavt_rs_tpu_torch.ops.window import shift_mask_2d, shift_mask_flags_2d
+from lavt_rs_tpu_torch.ops.window import (shift_mask_2d, shift_mask_flags_2d,
+                                          window_reverse)
 
 pytestmark = pytest.mark.cuda
 
@@ -179,3 +184,45 @@ def test_f8_bf16_k1_and_k11_are_exact_past_80(dev):
     exact = fused_msa_2d.fused_window_msa_2d_plain(xm, *w, bias, mask36,
                                                    heads, SCALE, 12)
     _close(got, exact, TOL_BF16)
+
+
+@pytest.mark.parametrize("exact,save", [(False, False), (True, False),
+                                        (True, True)])
+@pytest.mark.parametrize("c,heads,shift", [(128, 4, True), (512, 16, False),
+                                           (96, 3, True)])
+def test_f32_msa_attention_every_switch_past_80(dev, exact, save, c, heads,
+                                                shift):
+    """The f32 MSA attention (3xTF32 on the tensor cores) in every switch:
+    window order (K1 / K2 f32, the save mode f32 with its P) and map order
+    (K11 f32), the clamp form and the exact one, masked (window flags
+    naming some windows) or not, with a bias table of std 60 (logits past
+    80, F7 / F8): within 1e-4 abs + rel of its plain version in that form,
+    which differs from the other form by more than 1e-2; the same bits
+    twice."""
+    rng = np.random.default_rng(c + heads + 2 * exact + save)
+    b, side = 2, 24
+    nw = (side // 12) ** 2
+    qkv = _f32(rng, (b * nw, 144, 3 * c), 1.0, dev)
+    qkv[..., :c] *= SCALE
+    bias = _f32(rng, (heads, 144, 144), 60.0, dev)
+    mask = shift_mask_2d(side, side, 12, 6, dev) if shift else None
+    flags = shift_mask_flags_2d(side, side, 12, 6, dev) if shift else None
+    fn = lambda: fused_msa.msa_attn_f32(qkv, bias, mask, heads, flags, save,
+                                        exact)
+    o, p = fn()
+    o2, p2 = fn()
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and (p is None or torch.equal(p, p2))
+    want_o, want_p = fused_msa.msa_attn_plain(qkv, bias, mask, heads, exact)
+    other, _ = fused_msa.msa_attn_plain(qkv, bias, mask, heads, not exact)
+    assert (want_o - other).abs().max().item() > 1e-2
+    _close(o, want_o)
+    assert (p is None) == (not save)
+    if save:
+        _close(p, want_p)
+    # map order: the windows of a (b, 24, 24) map, the map's rows
+    qmap = window_reverse(qkv.view(b * nw, 144, 3 * c), 12,
+                                       side, side).contiguous()
+    got = fused_msa_2d.msa_attn_map_f32(qmap, bias, mask, heads, flags, exact)
+    want = fused_msa_2d.msa_attn_map_plain(qmap, bias, mask, heads, exact)
+    _close(got, want)

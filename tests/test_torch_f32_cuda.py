@@ -29,7 +29,13 @@ without JAX:
   clamp form and the taped forward and K6 f32's recomputed P the exact
   one; a small f32 window-12 lavt_one trains on its plan, saving its
   residuals (save mode f32, K5 f32) or recomputing them (K1 f32 / K2 f32
-  taped, K6 f32), against the plain f32 step.
+  taped, K6 f32), against the plain f32 step;
+* the 3xTF32 wgmma + TMA core (csrc/gemm_tf32_sm90.cuh): its shared
+  memory against `tf32_core.ring`; `gemm_f32`'s epilogues at Swin-B,
+  Swin-T and video stage shapes (ragged M, ragged N), the dual GEMM, the
+  weight grads and the dgrads (every operand layout) and K5 f32's
+  products within 1e-4 abs + rel of their plain versions, their sums
+  within 1e-4 (rms + |want|) of f64, the same bits twice.
 """
 
 import numpy as np
@@ -749,3 +755,138 @@ def test_small_f32_window12_model_trains_on_its_plan(dev, monkeypatch, resid):
         assert {k: n for k, n in f32.items() if n} == want
         assert not any(bf16.values())
     assert abs(losses[True] - losses[False]) <= 1e-4 * abs(losses[False])
+
+
+# -- the 3xTF32 wgmma + TMA core (csrc/gemm_tf32_sm90.cuh) -----------------------
+
+def _sums_close(got, want64):
+    """A sum within TOL (rms + |want|) of its f64 value."""
+    torch.cuda.synchronize()
+    rms = want64.pow(2).mean().sqrt()
+    err = (got.double() - want64).abs()
+    assert bool((err <= TOL * (rms + want64.abs())).all()), \
+        (err / (rms + want64.abs())).max().item()
+
+
+def _twice(fn):
+    """fn()'s outputs, checked to be the same bits in a second call."""
+    got, again = fn(), fn()
+    torch.cuda.synchronize()
+    got_t = got if isinstance(got, tuple) else (got,)
+    again_t = again if isinstance(again, tuple) else (again,)
+    assert all(torch.equal(a, b) for a, b in zip(got_t, again_t))
+    return got
+
+
+def test_tf32_core_smem_is_the_plan(dev):
+    from lavt_rs_tpu_torch.ops import cuda_lib, tf32_core
+
+    lib = cuda_lib.lib()
+    for kind, idx in tf32_core.SMEM_KIND.items():
+        assert lib.lavt_tf32_core_smem(idx) == tf32_core.ring(kind)["smem"]
+    assert lib.lavt_tf32_core_smem(3) == -1
+
+
+# (M, N, K) of `gemm_f32` (both operands K-major): Swin-B stage 1 fc1 /
+# fc2 and stage 4's (M cut, ragged), Swin-T / Video Swin-T C = 96 (qkv N =
+# 288, a ragged last column tile; the out-projection N = 96 < 128), K2p
+# f32's qkv and stage-3 widths; M of one row, of 33
+CORE_GEMMS = [(2085, 512, 128), (2085, 128, 512), (1805, 4096, 1024),
+              (1805, 1024, 4096), (1571, 288, 96), (1571, 96, 96),
+              (700, 384, 96), (700, 96, 384), (457, 1536, 512), (1, 256, 128),
+              (33, 768, 768)]
+
+
+@pytest.mark.parametrize("m,n,k", CORE_GEMMS)
+def test_tf32_core_gemm_every_epilogue(dev, m, n, k):
+    """`gemm_f32`'s three epilogues (bias with q's scale on the first
+    columns, GELU, residual with and without keep) within 1e-4 abs + rel
+    of their f32 plain versions and their sums within 1e-4 (rms + |want|)
+    of f64; the same bits twice."""
+    rng = np.random.default_rng(m + n + k)
+    a = _f32(rng, (m, k), 1.0, dev)
+    w = _f32(rng, (n, k), k ** -0.5, dev)
+    b = _f32(rng, (n,), 0.2, dev)
+    acc = a @ w.t() + b
+    acc64 = a.double() @ w.double().t() + b.double()
+    got = _twice(lambda: fused_msa.gemm_f32(a, w, b, fused_msa.GEMM_F32_BIAS,
+                                            scaled=n // 3, scale=0.17))
+    col = torch.arange(n, device=dev) < n // 3
+    _close(got, torch.where(col, acc * 0.17, acc))
+    _sums_close(got, torch.where(col, acc64 * 0.17, acc64))
+    gemm = fused_msa.gemm_f32
+    _close(_twice(lambda: gemm(a, w, b, fused_msa.GEMM_F32_GELU)),
+           fused_mlp.gemm_bias_gelu_plain(a, w, b))
+    res = _f32(rng, (m, n), 1.0, dev)
+    _close(_twice(lambda: gemm(a, w, b, fused_msa.GEMM_F32_RESIDUAL, res=res)),
+           fused_mlp.gemm_residual_plain(a, w, b, res))
+    rows = m // 2 if m % 2 == 0 else m
+    keep = torch.where(torch.arange(m // rows, device=dev) % 2 == 1, 0.0,
+                       1.0 / 0.7)
+    got = _twice(lambda: gemm(a, w, b, fused_msa.GEMM_F32_RESIDUAL, res=res,
+                              keep=keep, rows=rows))
+    want = fused_mlp.gemm_residual_plain(a, w, b, res, keep, rows)
+    _close(got, want)
+    _close(got - res, want - res)
+
+
+# (M, C) of K7 f32's and K5 f32's products on the core: Swin-B stages 1, 2
+# and 4 (M cut, ragged) and the width 384; K5 f32's also at the Swin-T /
+# Video Swin-T width 96 (`test_tf32_core_k5_products_at_96`)
+CORE_BWD = [(2085, 128), (333, 1024), (1571, 384), (203, 256)]
+
+
+@pytest.mark.parametrize("m,c", CORE_BWD)
+def test_tf32_core_dual_wgrad_dgrad(dev, m, c):
+    """The dual GEMM (W2 through its K-major copy), the weight grads (A's
+    MN-major fragments read in place, B transposed by the stagers; split
+    over M by K7 f32's plan) and dyln / K5 f32's dattn and dx (B read as
+    (K, N), transposed by the stagers): within 1e-4 abs + rel of their f32
+    plain versions, the products' sums within 1e-4 (rms + |want|) of f64,
+    the same bits twice."""
+    rng = np.random.default_rng(m + c)
+    hidden = 4 * c
+    xn = _f32(rng, (m, c), 1.0, dev)
+    dmlp = _f32(rng, (m, c), 1.0, dev)
+    w1 = _f32(rng, (hidden, c), c ** -0.5, dev)
+    b1 = _f32(rng, (hidden,), 0.2, dev)
+    w2 = _f32(rng, (c, hidden), hidden ** -0.5, dev)
+    got = _twice(lambda: fused_mlp.dual_gemm_gelu_bwd(xn, dmlp, w1, b1, w2))
+    want = fused_mlp.dual_gemm_gelu_bwd_plain(xn, dmlp, w1, b1, w2)
+    for g, w_ in zip(got, want):
+        assert g.shape == w_.shape
+        _close(g, w_)
+    h, dhpre, _ = got
+    plan = fused_mlp.bwd_plan(m, c, hidden, f32=True)
+    for a, b_ in ((dmlp, h), (dhpre, xn)):
+        part = _twice(lambda a=a, b_=b_: fused_mlp.wgrad(a, b_,
+                                                        plan.split_rows))
+        assert part.shape[0] == plan.splits
+        _close(part, fused_mlp.wgrad_plain(a, b_, plan.split_rows))
+        _sums_close(fused_msa.sum_partials(part), a.double().t() @ b_.double())
+    dyln = _twice(lambda: fused_mlp.dgrad(dhpre, w1))
+    _close(dyln, fused_mlp.dgrad_plain(dhpre, w1))
+    _sums_close(dyln, dhpre.double() @ w1.double())
+
+
+def _k5_products(rng, dev, m, c):
+    """K5 f32's products on the core at (M, C): dattn = gy Wproj, dx = dqkv
+    Wqkv (B read as (K, N)) and the weight grads dWqkv, dWproj (split over
+    M by K7 f32's rule)."""
+    for kk in (c, 3 * c):
+        a = _f32(rng, (m, kk), 1.0, dev)
+        wt = _f32(rng, (kk, c), kk ** -0.5, dev)
+        got = _twice(lambda a=a, wt=wt: fused_msa.msa_dgrad(a, wt))
+        _close(got, fused_msa.msa_dgrad_plain(a, wt))
+        _sums_close(got, a.double() @ wt.double())
+        x = _f32(rng, (m, c), 1.0, dev)
+        sr = fused_mlp.wgrad_split_tiles(m, kk, c, 1, fused_mlp.GEMM_F32_DEPTH,
+                                         1) * fused_mlp.GEMM_F32_DEPTH
+        part = _twice(lambda a=a, x=x: fused_mlp.wgrad(a, x, sr))
+        _close(part, fused_mlp.wgrad_plain(a, x, sr))
+        _sums_close(fused_msa.sum_partials(part), a.double().t() @ x.double())
+
+
+@pytest.mark.parametrize("m,c", [(1571, 96), (333, 1024)])
+def test_tf32_core_k5_products(dev, m, c):
+    _k5_products(np.random.default_rng(m + c + 5), dev, m, c)

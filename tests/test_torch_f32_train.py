@@ -14,7 +14,8 @@ tests/test_torch_f32_cuda.py).
   `bwd_plan(..., f32=True)`, dyln, LN-backward rows), composed through
   their plain versions, equal `fused_ln_mlp_bwd_plain` at f32 to f32
   summation order (1e-6 of the largest magnitude): keep and none, C =
-  128 and 1024, M a multiple of no tile.
+  128 and 1024, M a multiple of no tile; its buffers include W2's K-major
+  copy for the dual GEMM.
 * K7 f32's weight-grad split and K4b f32's block plan cover every row
   once; K4b f32's block partials add up to the plain grads.
 """
@@ -132,6 +133,9 @@ def _bwd_composed_f32(x, gy, g, be, w1, b1, w2, keep=None, rows=1):
         assert part.shape == buf[name].shape, name
         assert buf[name].dtype == torch.float32, name
     assert buf["dw_part"].shape == (plan.splits, 2, c * w1.shape[0])
+    # W2's K-major copy, which the dual GEMM on the 3xTF32 core reads
+    assert buf["w2t"].shape == (w1.shape[0], c)
+    assert buf["w2t"].dtype == torch.float32
     dg, dbe, db2 = fused_msa.sum_partials(ln_part)
     return (dx, dg, dbe, fused_msa.sum_partials(dw1_part),
             fused_msa.sum_partials(db1_part), fused_msa.sum_partials(dw2_part),

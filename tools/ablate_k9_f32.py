@@ -6,7 +6,7 @@ on one NVIDIA GPU, each built apart from a text edit of the sources.
 
 The variants: the sources as they are (every operand split by
 truncation, csrc/attn_tf32.cuh); the fragment tiles split by rounding
-(cvt.rna, the split csrc/gemm_f32.cuh takes); every split by rounding;
+(cvt.rna, `f32mma::split` of csrc/gemm_f32.cuh); every split by rounding;
 both launches built for one block an SM
 (ptxas then takes registers past the 168 it keeps to at two, without
 spilling; the blocks an SM then follow the registers); no tensor-core

@@ -1,0 +1,139 @@
+#!/usr/bin/env python3
+"""Times the f32 variants that run on the 3xTF32 GEMM core and the f32 MSA
+attention (K7 f32, K3 f32, K8 f32, the K1/K2 save mode f32, K2 f32, K5
+f32) at the lavt_one Swin-B 480² stage shapes on one NVIDIA GPU, by CUDA
+events, and prints one JSON object.
+
+    python3 tools/time_f32_core.py [--root DIR] [--iters 10]
+
+--root: the repository tree whose `lavt_rs_tpu_torch` to import (default:
+this one), so that one command can time two trees on one card, in turns:
+
+    python3 tools/time_f32_core.py --root <parent tree>
+    python3 tools/time_f32_core.py
+    python3 tools/time_f32_core.py
+    python3 tools/time_f32_core.py --root <parent tree>
+
+The JSON: {"card": ..., "ms": {kernel: {stage: ms per call}}, "step":
+{kernel: ms}}, "step" summing each stage's call over the blocks that make
+it in a step (depths 2, 2, 18, 2; the MSA kernels at their window-12
+stages: the save mode and K5 at stages 2-4 of a bs-8 step, K2 at stages
+3-4 of a bs-20 one, half the blocks shifted).  Seeded inputs; TF32 off.
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+STAGES = ((120, 128, 4, 2), (60, 256, 8, 2), (30, 512, 16, 18),
+          (15, 1024, 32, 2))  # (side, C, heads, depth) at 480², patch 4
+
+
+def cuda_ms(fn, iters):
+    import torch
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    ap.add_argument("--iters", type=int, default=10)
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("time_f32_core: CUDA is not available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.abspath(args.root))
+    from lavt_rs_tpu_torch.ops import fused_mlp as fm
+    from lavt_rs_tpu_torch.ops import fused_msa
+    from lavt_rs_tpu_torch.ops.window import (shift_mask_2d,
+                                              shift_mask_flags_2d)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda:0")
+    g = torch.Generator(device=dev).manual_seed(22)
+
+    def rnd(shape, std=1.0):
+        return torch.randn(shape, generator=g, device=dev) * std
+
+    ms = {k: {} for k in ("K7.f32", "K3.f32", "K8.f32", "save.f32", "K5.f32",
+                          "K2.f32")}
+    step = dict.fromkeys(ms, 0.0)
+    sc = 32 ** -0.5
+    for si, (side, c, heads, depth) in enumerate(STAGES):
+        rows, tail = 8 * side * side, side * side
+        x = rnd((rows, c), 2.0) + 0.5
+        mlp = (x, rnd((c,), 0.2) + 1.0, rnd((c,), 0.2), rnd((4 * c, c), c ** -0.5),
+               rnd((4 * c,), 0.2), rnd((c, 4 * c), (4 * c) ** -0.5),
+               rnd((c,), 0.2))
+        keep = torch.where(torch.arange(8, device=dev) % 3 != 1, 1.0 / 0.7,
+                           0.0)
+        gy = rnd((rows, c))
+        stage = f"stage {si + 1}"
+        for key, fn in (
+                ("K3.f32", lambda: fm.fused_ln_mlp_f32(*mlp)),
+                ("K8.f32", lambda: fm.fused_ln_mlp_droppath_f32(*mlp, keep,
+                                                                tail)),
+                ("K7.f32", lambda: fm.fused_ln_mlp_bwd_f32(
+                    x, gy, *mlp[1:6], keep, tail))):
+            ms[key][stage] = cuda_ms(fn, args.iters)
+            step[key] += depth * ms[key][stage]
+        del x, gy, mlp
+        if si == 0:
+            torch.cuda.empty_cache()
+            continue
+        hp = -(-side // 12) * 12
+        nw = (hp // 12) ** 2
+        w = (rnd((3 * c, c), c ** -0.5), rnd((3 * c,), 0.2),
+             rnd((c, c), c ** -0.5), rnd((c,), 0.2), rnd((heads, 144, 144)))
+        mask = shift_mask_2d(hp, hp, 12, 6, dev)
+        flags = shift_mask_flags_2d(hp, hp, 12, 6, dev)
+        lnp = (rnd((c,), 0.2) + 1.0, rnd((c,), 0.2)) if si < 2 else None
+        for b, keys in ((8, ("save.f32", "K5.f32")), (20, ("K2.f32",))):
+            if b == 20 and si < 2:
+                continue
+            xw = rnd((b, nw, 144, c))
+            tl = (*w, mask, heads, sc)
+            if b == 8:
+                y, saved = fused_msa.fused_window_msa_save_f32(
+                    xw, lnp, *tl, flags=flags)
+                xin = xw if lnp is None else saved[4].view(xw.shape)
+                gw = rnd(xw.shape)
+                fns = {"save.f32": lambda: fused_msa.fused_window_msa_save_f32(
+                           xw, lnp, *tl, flags=flags),
+                       "K5.f32": lambda: fused_msa.fused_window_msa_bwd_f32(
+                           xin, gw, w[0], w[2], saved[:4], heads, sc)}
+            else:
+                fns = {"K2.f32": lambda: fused_msa.fused_window_msa_f32(
+                    xw, *tl, flags=flags, exact=True)}
+            for key in keys:
+                ms[key][stage] = cuda_ms(fns[key], args.iters)
+                step[key] += depth * ms[key][stage]
+            del xw, fns
+            torch.cuda.empty_cache()
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader", "-i", "0"],
+                          capture_output=True, text=True).stdout.strip()
+    print(json.dumps({"root": os.path.abspath(args.root), "card": card,
+                      "ms": ms, "step": step}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
