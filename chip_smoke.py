@@ -129,13 +129,15 @@
        plain version and its f32 library call (SDPA over B nW windows for
        K10, autograd through it for K9, linear / SDPA / linear for K2p):
        K10 f32 at the four window-7 shapes of a bs-8 forward (the strided
-       route, and contiguous q, k, v checked) and at video stages 2-4 of an
-       8-frame clip, K2p f32 at stage 1 (n_p = 392: no padding in f32;
+       route; contiguous q, k, v and, under the shift mask, the windows
+       grouped by mask checked) and at video stages 2-4 of an 8-frame
+       clip, K2p f32 at stage 1 (n_p = 392: no padding in f32;
        grouped by mask, unshifted and shifted), K10 f32's save mode and K9
        f32 at all four video stages (two K9 f32 calls give the same bits;
-       K9 f32's device ms by kernel under torch.profiler at each; its time
-       per video step beside its FFMA design's, FFMA_DESIGN_MS); their
-       launch plans printed;
+       K9 f32's device ms by kernel under torch.profiler at each; K10
+       f32's, K2p f32's and K9 f32's times beside their FFMA designs',
+       FFMA_DESIGN_MS); their launch plans printed, K10 f32's shared
+       memory held to the kernel's own;
      * window-7 lavt_one_base in f32 on seeded window-7 weights: three
        bs-8 batches through `fwd_iou` (counts K10 f32 24 / K3 f32 24 / K4
        f32 4 a forward, no bf16 launch), the f32 gate, ms and img/s beside
@@ -279,9 +281,10 @@
        chain, and on the device; two calls of K4b f32, K7 f32 and K9 f32
        give the same bits; K9 f32's device ms by kernel (torch.profiler)
        at each shape and its time per step beside its FFMA design's; K8
-       f32's and K7 f32's launches (the 3xTF32 wgmma core's fc1 + GELU,
-       fc2 + residual, dual GEMM, weight grads and dyln, the W2
-       transpose, the LN rows) by device ms at each stage beside each
+       f32's launches (the prep: LN rows and W's lo parts; fc1 + GELU and
+       fc2 + residual with W's lo by TMA) and K7 f32's (the 3xTF32 wgmma core's dual GEMM, weight
+       grads and dyln, the W2 transpose, the LN rows) by device ms at each
+       stage beside each
        launch's bound, their times per step beside the mma.sync tile
        loop's (MMA_SYNC_CORE_MS), and one K3 f32, one K8 f32 and one K7
        f32 call at stage 1 under torch.profiler (only the port's kernels,
@@ -482,7 +485,7 @@ SOURCES = {
     "P1": "lavt_rs_tpu_torch/csrc/probe_headbatch.cu",
     "P2": "lavt_rs_tpu_torch/csrc/probe_headbatch.cu",
     # K1 f32 and K11 f32: the attention launch (their GEMMs: gemm_f32.cu,
-    # K1 f32's LN rows: ln.cu); K3 f32: its GEMMs (its LN rows: ln.cu)
+    # K1 f32's LN rows: ln.cu); K3 f32: its three launches
     "K1.f32": "lavt_rs_tpu_torch/csrc/fused_msa_f32.cu",
     "K11.f32": "lavt_rs_tpu_torch/csrc/fused_msa_f32.cu",
     "K3.f32": "lavt_rs_tpu_torch/csrc/gemm_f32.cu",
@@ -657,6 +660,11 @@ FIRST_DESIGN_BUSY = {
 # designs, before the 3xTF32 tensor-core ones (one H100 80GB HBM3 at 700
 # W, this script; PERF.md section 6), printed beside this run's
 FFMA_DESIGN_MS = {
+    "K10.f32/w7": "3.178 ms a window-7 bs-8 forward",
+    "K10.f32": "4.209 ms a clip",
+    "K10s.f32": "6.764 ms a video step",
+    "K10s.f32/w7": "3.456-3.497 ms a window-7 bs-8 step",
+    "K2p.f32": "2.882-2.917 ms a clip (its attention launch)",
     "K9.f32": "30.132 ms a video step",
     "K9.f32/w7": "11.485-11.487 ms a window-7 bs-8 step",
     "K5.f32": "42.676-42.856 ms a window-12 bs-8 step",
@@ -668,8 +676,10 @@ FFMA_DESIGN_MS = {
 MMA_SYNC_CORE_MS = {
     "K1.f32": "2.871-2.913 ms a forward",
     "K11.f32": "13.915-13.926 ms a forward",
-    "K3.f32": "17.111-17.162 ms a forward",
-    "K8.f32": "16.331-17.799 ms a window-7 bs-8 step",
+    "K3.f32": "17.111-17.162 ms a forward; on the shared 3xTF32 wgmma core's "
+              "three launches 9.756-9.780",
+    "K8.f32": "16.331-17.799 ms a window-7 bs-8 step; on the shared 3xTF32 "
+              "wgmma core's three launches 9.463-9.550",
     "K7.f32": "44.137-44.220 ms a window-7 bs-8 step",
     "save.f32": "18.811-18.905 ms a window-12 bs-8 step",
     "K5.f32": "33.288-33.576 ms a window-12 bs-8 step",
@@ -1378,15 +1388,28 @@ def k9_profiler_checks(what, b, nw, heads, n, masked, sc, port_only, q, k, v,
         only_port_kernels(f"K9 {what}", [k9])
 
 
+def mlp_f32_launch_work(m, c):
+    """(operations, bytes) of K3 / K8 f32's launches at (M, C), hidden 4C,
+    in f32: the prep (x, gamma, beta read, LN(x) written; W1 and W2 read,
+    their lo parts written), fc1 + GELU (LN(x), W1 and its lo read, h
+    written), fc2 + residual (h, W2 and its lo, x read, out written)."""
+    hd = 4 * c
+    act, hid, w = 4 * m * c, 4 * m * hd, 4 * hd * c
+    return {"prep": (8 * m * c, 2 * act + 8 * c + 4 * w),
+            "fc1+GELU": (2 * m * c * hd, act + 2 * w + 4 * hd + hid),
+            "fc2+residual": (2 * m * hd * c, hid + 2 * w + 2 * act + 4 * c)}
+
+
 def short_kernel(name):
     """A kernel's name without its namespace, parameters and template
     arguments' noise (the GEMM core's epilogue kept)."""
     base = name.split("(")[0].replace("void ", "")
-    if "gemm_tf32_kernel<" in base:  # epilogue, A and B layouts, dual
+    if "gemm_tf32_kernel<" in base:  # epilogue, A and B layouts, mode
         args = base.split("gemm_tf32_kernel<", 1)[1].rsplit(">", 1)[0]
-        epi, ta, tb, _ = (a.strip() for a in args.rsplit(",", 3))
+        epi, ta, tb, _, mode = (a.strip() for a in args.rsplit(",", 4))
         lay = "".join("M" if f == "true" else "K" for f in (ta, tb))
-        return f"tf32<{epi.split('::')[-1]},{lay}>"
+        mode = {"0": "", "1": ",lo", "2": ",ln", "3": ",lo+ln"}.get(mode, mode)
+        return f"tf32<{epi.split('::')[-1]},{lay}{mode}>"
     if "gemm_kernel<" in base:
         epi = base.split("gemm_kernel<")[1].split(",")[0].split("::")[-1]
         return f"gemm<{epi}>"
@@ -2748,12 +2771,22 @@ def f32_attn_kernel_phase(dev, res):
         return max(check(name, a, b) for a, b in zip(got, want))
 
     def plans(what, b, nw, heads, n):
+        from lavt_rs_tpu_torch.ops import cuda_lib
+
         p10 = wa.k10_f32_plan(b * nw, heads, n, sms)
         p9 = wa.k9_f32_plan(b * nw, heads, n, sms)
+        smem = cuda_lib.lib().lavt_k10_f32_smem(n)
+        if smem != p10["smem"]:
+            raise RuntimeError(f"K10 f32 at N = {n}: the kernel's shared "
+                               f"memory {smem} B, its plan's {p10['smem']}")
         log(f"K10 f32 / K9 f32 plans {what} ({b}, {nw}, {heads}, {n}) on "
             f"{sms} SMs: K10 f32 {p10['blocks']} blocks of {p10['threads']} "
-            f"threads, {p10['per_block']} of its {p10['items']} items (64 "
-            f"query rows) a block, {p10['smem']} B; K9 f32 launch 1 "
+            f"threads, {p10['per_block']} of its {p10['items']} items "
+            f"({p10['rows']} query rows, {p10['chunks']} key chunks of 56) "
+            f"a block"
+            + (f", its head's bias staged {p10['bias_loads']} times at most"
+               if "bias_loads" in p10 else "")
+            + f", {p10['smem']} B (the kernel's own); K9 f32 launch 1 "
             f"{p9['q_blocks']} blocks ({p9['bp']} window strides, "
             f"{p9['parts']} dbias partials), launch 2 {p9['kv_blocks']} "
             f"blocks")
@@ -2785,6 +2818,19 @@ def f32_attn_kernel_phase(dev, res):
             res.r["K10.f32/w7"]["err"] = max(res.r["K10.f32/w7"]["err"], err)
             log(f"K10.f32/w7 {what}, on contiguous q, k, v: max abs err "
                 f"{err:.3g}")
+            if shift:  # grouped by mask as K2p f32 launches it: the first
+                # half of each image's windows maskless, the rest masked
+                nu = nw // 2
+                small = mask[nu:].clone()  # its own, 16-byte-aligned copy
+                err = check("K10.f32/w7", wa.attention_qkv_grouped(
+                    qkv, bias, small, nu, heads, sc),
+                    wa.window_attention_qkv_plain(
+                        qkv, bias, torch.cat([small.new_zeros((nu, 49, 49)),
+                                              small]), heads, sc))
+                res.r["K10.f32/w7"]["err"] = max(res.r["K10.f32/w7"]["err"],
+                                                 err)
+                log(f"K10.f32/w7 {what}, grouped (nu {nu}): max abs err "
+                    f"{err:.3g}")
         del qkv, q, k, v
         torch.cuda.empty_cache()
     index = torch.from_numpy(relative_position_index_3d(8, 7, 7)).to(dev)
@@ -4756,8 +4802,7 @@ def f32_train_kernel_phase(dev, res):
         plan = fm.bwd_plan(rows, c, 4 * c, True)
         work = mlp_launch_work(rows, c, plan.splits, 4)
         f32_launch_line(f"K8.f32 launches {what} keep", k8,
-                        {k: work[k] for k in ("LN rows", "fc1+GELU",
-                                              "fc2+residual")})
+                        mlp_f32_launch_work(rows, c))
         for kp, calls in [(keep, dp_blocks)] + ([(None, 1)] if si == 0
                                                 else []):
             kr = None if kp is None else keep_rows
@@ -5913,8 +5958,11 @@ PTXAS_KERNELS = {"EpiBiasILb1E": "K2p / K2 / save-mode qkv GEMM (GEMM core)",
                  "attn_bwd_kv_kernelILb0E": "K9 launch 2 (N > 64)",
                  "attn_bwd_kv_kernelILb1E": "K9 launch 2 (N <= 64)",
                  "EpiGemmILi0E": "f32 projections (3xTF32 wgmma core)",
-                 "EpiGemmILi1E": "K3 / K8 f32 fc1 + GELU (3xTF32 wgmma core)",
-                 "EpiGemmILi2E": "K3 / K8 f32 fc2 + residual (3xTF32 wgmma core)",
+                 "EpiGemmILi1EEELb0ELb0ELb0ELi1E": "K3 / K8 f32 fc1 + GELU (3xTF32 "
+                                                   "wgmma core, W1 lo by TMA)",
+                 "EpiGemmILi2EEELb0ELb0ELb0ELi1E": "K3 / K8 f32 fc2 + residual (3xTF32 "
+                                                   "wgmma core, W2 lo by TMA)",
+                 "mlp_prep_kernelILi1E": "K3 / K8 f32 prep (C = 128)",
                  "7EpiDual": "K7 f32 dual GEMM (3xTF32 wgmma core)",
                  "8EpiStoreELb0ELb1E": "K7 f32 dyln, K5 f32 dattn / dx (3xTF32 wgmma "
                                       "core, B transposed by the stagers)",
@@ -5924,8 +5972,12 @@ PTXAS_KERNELS = {"EpiBiasILb1E": "K2p / K2 / save-mode qkv GEMM (GEMM core)",
                  "msa_f32_kernelILb0ELb1ELb0E": "K1 / K2 f32 attention (taped, exact)",
                  "msa_f32_kernelILb0ELb1ELb1E": "save-mode f32 attention",
                  "msa_f32_kernelILb1E": "K11 f32 attention (map order)",
-                 "rows_f32_kernelILi1ELb0E": "K4 f32 (C = 128)",
-                 "rows_f32_kernelILi8ELb1E": "K3 f32 LN rows (C = 1024)"}
+                 "rows_f32_kernelILi1EE": "K4 f32 (C = 128)",
+                 "window_attn_f32_kernelILb1ELb0E": "K10 f32 (N <= 56)",
+                 "window_attn_f32_kernelILb1ELb1E": "K10 save f32 (N <= 56)",
+                 "window_attn_f32_kernelILb0ELb0E": "K10 f32 / K2p f32 attention "
+                                                    "(N > 56)",
+                 "window_attn_f32_kernelILb0ELb1E": "K10 save f32 (N > 56)"}
 
 
 def ptxas_lines(text):

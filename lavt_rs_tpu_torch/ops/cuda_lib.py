@@ -31,8 +31,8 @@ SOURCES = ("ln.cu", "fused_mlp.cu", "fused_msa_bwd.cu",
            "fused_msa_sm90.cu", "probe_headbatch.cu", "gemm_f32.cu",
            "fused_msa_f32.cu", "window_attn_f32.cu", "window_attn_bwd_f32.cu",
            "fused_mlp_bwd_f32.cu", "fused_msa_bwd_f32.cu")
-HEADERS = ("common.cuh", "gemm_sm90.cuh", "attn_sm90.cuh", "attn_f32.cuh",
-           "gemm_f32.cuh", "attn_tf32.cuh", "gemm_tf32_sm90.cuh")
+HEADERS = ("common.cuh", "gemm_sm90.cuh", "attn_sm90.cuh", "gemm_f32.cuh",
+           "attn_tf32.cuh", "gemm_tf32_sm90.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -44,7 +44,7 @@ F = ctypes.c_float
 # argtypes of each C entry point (pointers and the stream as c_void_p)
 SIGNATURES = {
     "lavt_layer_norm_rows": (P, P, P, P, I, I, F, P),
-    "lavt_layer_norm_rows_f32": (P, P, P, P, I, I, F, I, P),
+    "lavt_layer_norm_rows_f32": (P, P, P, P, I, I, F, P),
     "lavt_layer_norm_rows_bwd_parts": (I, I),
     "lavt_layer_norm_rows_bwd": (P,) * 5 + (I, I, I, F, P),
     "lavt_mlp_ln_rows": (P, P, P, P, I, I, F, P),
@@ -70,8 +70,9 @@ SIGNATURES = {
     "lavt_k9_q_smem": (I,),
     "lavt_gemm_bias_bf16": (P,) * 4 + (I,) * 4 + (F, P),
     "lavt_probe_headbatch": (P, P) + (I,) * 6 + (P,),
-    "lavt_gemm_f32": (P,) * 6 + (I,) * 5 + (F, I, P),
+    "lavt_gemm_f32": (P,) * 7 + (I,) * 5 + (F, I, P),
     "lavt_tf32_core_smem": (I,),
+    "lavt_mlp_f32_prep": (P,) * 8 + (I, I, I, F, P),
     "lavt_layer_norm_rows_bwd_f32_parts": (I, I),
     "lavt_layer_norm_rows_bwd_f32": (P,) * 5 + (I, I, I, F, P),
     "lavt_mlp_bwd_prep_f32": (P,) * 8 + (I, I, I, F, P),
@@ -85,6 +86,7 @@ SIGNATURES = {
     "lavt_msa_bwd_attn_f32": (P,) * 8 + (I,) * 5 + (F, P),
     "lavt_colsum_f32": (P, P, I, I, I, P),
     "lavt_window_attn_f32": (P,) * 7 + (L,) * 6 + (I,) * 6 + (F, P),
+    "lavt_k10_f32_smem": (I,),
     "lavt_window_attn_bwd_q_f32": (P,) * 12 + (I,) * 5 + (F, P),
     "lavt_window_attn_bwd_kv_f32": (P,) * 11 + (I,) * 4 + (F, P),
 }

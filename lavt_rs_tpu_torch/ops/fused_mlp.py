@@ -18,9 +18,12 @@ theirs.  Weights are torch `nn.Linear` layout: w1 (4C, C), w2 (C, 4C).
 K3 f32 (`fused_ln_mlp_f32`), K8 f32 (`fused_ln_mlp_droppath_f32`) and K7
 f32 (`fused_ln_mlp_bwd_f32`) are K3, K8 and K7 on f32 activations, as the
 TPU kernels compute them there (their roundings to x.dtype are no-ops):
-the same launches, each taking its f32 kernel for an f32 tensor.  K3 f32
-and K8 f32: the two-pass LN rows of csrc/ln.cu, fc1 + GELU and fc2 + (keep)
-+ residual on the 3xTF32 GEMM of csrc/gemm_f32.cu; K7 f32: csrc/
+K3 f32 and K8 f32 are three launches of csrc/gemm_f32.cu, each with a
+wrapper and a plain version here: `mlp_f32_prep` (the two-pass LN rows,
+and W1's and W2's lo parts, `tf32_split`), `gemm_gelu_f32` (fc1 + GELU,
+W1's lo by TMA), `gemm_residual_f32` (fc2 + (keep) + residual, W2's lo by
+TMA), on the 3xTF32 wgmma + TMA core in the mode only they take; K7 f32:
+csrc/
 fused_mlp_bwd_f32.cu (prep, the dual GEMM after W2's K-major copy, the
 weight grads split over M by `bwd_plan(..., f32=True)`, dyln, the
 LN-backward rows), its GEMMs on the same 3xTF32 wgmma + TMA core
@@ -52,7 +55,6 @@ import torch.nn.functional as F
 from . import cuda_lib
 from .fused_msa import (GEMM_F32_DEPTH, GEMM_F32_GELU, GEMM_F32_RESIDUAL,
                         gemm_f32, sum_partials)
-from .ln import layer_norm_rows_f32_launch
 
 EPS = 1e-5
 KERNEL_WIDTHS = (128, 256, 384, 512, 1024)
@@ -217,14 +219,11 @@ def gemm_residual_plain(h, w2, b2, x, keep=None, rows: int = 1):
 
 
 def mlp_ln_rows(x, g, be, eps: float = EPS):
-    """(a) on the card: x (M, C) bf16 -> xn (M, C) bf16 (f32 -> f32 on K3
-    f32's two-pass LN rows)."""
+    """(a) on the card: x (M, C) bf16 -> xn (M, C) bf16."""
     if x.device.type == "cpu":
         return mlp_ln_rows_plain(x, g, be, eps)
     m, c = x.shape
     _supported(m, c, GEMM_TILE)
-    if x.dtype == torch.float32:
-        return layer_norm_rows_f32_launch(x, g, be, eps, two_pass=True)
     _require_typed([("x", x, None), ("g", g, (c,)), ("be", be, (c,))],
                   x.device)
     xn = torch.empty_like(x)
@@ -233,14 +232,11 @@ def mlp_ln_rows(x, g, be, eps: float = EPS):
 
 
 def gemm_bias_gelu(xn, w1, b1):
-    """(b) on the card: xn (M, C), w1 (hidden, C) -> h (M, hidden) bf16
-    (f32 -> f32 on the 3xTF32 GEMM)."""
+    """(b) on the card: xn (M, C), w1 (hidden, C) -> h (M, hidden) bf16."""
     if xn.device.type == "cpu":
         return gemm_bias_gelu_plain(xn, w1, b1)
     (m, c), hidden = xn.shape, w1.shape[0]
     _supported(m, c, hidden)
-    if xn.dtype == torch.float32:
-        return gemm_f32(xn, w1, b1, GEMM_F32_GELU)
     _require_typed([("xn", xn, None), ("w1", w1, (hidden, c)),
                    ("b1", b1, (hidden,))], xn.device)
     h = torch.empty((m, hidden), dtype=xn.dtype, device=xn.device)
@@ -250,15 +246,11 @@ def gemm_bias_gelu(xn, w1, b1):
 
 def gemm_residual(h, w2, b2, x, keep=None, rows: int = 1):
     """(c) on the card: h (M, hidden), w2 (C, hidden), x (M, C) -> out
-    (f32 -> f32 on the 3xTF32 GEMM, keep in its epilogue)."""
+    bf16."""
     if h.device.type == "cpu":
         return gemm_residual_plain(h, w2, b2, x, keep, rows)
     (c, hidden), m = w2.shape, x.shape[0]
     _supported(m, c, hidden)
-    if h.dtype == torch.float32:
-        _require_keep(keep, m, rows, x.device)
-        return gemm_f32(h, w2, b2, GEMM_F32_RESIDUAL, res=x, keep=keep,
-                        rows=rows)
     _require_typed([("h", h, (m, hidden)), ("w2", w2, None), ("b2", b2, (c,)),
                    ("x", x, (m, c))], x.device)
     _require_keep(keep, m, rows, x.device)
@@ -266,6 +258,64 @@ def gemm_residual(h, w2, b2, x, keep=None, rows: int = 1):
     _launch("lavt_gemm_residual", h, w2, b2, x, keep, out, m, c, hidden,
             max(rows, 1))
     return out
+
+
+# -- K3 / K8 f32: the three launches (csrc/gemm_f32.cu) ----------------------
+
+def tf32_split(w):
+    """(hi, lo) of f32 w as the 3xTF32 kernels split it: hi = w with its 13
+    low mantissa bits cleared (what the tensor core reads of an f32
+    operand), lo = w - hi (exact: hi + lo == w bit for bit)."""
+    hi = (w.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+    return hi, w - hi
+
+
+def mlp_f32_prep_plain(x, g, be, w1, w2, eps: float = EPS):
+    """(1): (xn, w1lo, w2lo): the two-pass LN rows of x (`mlp_ln_rows_plain`)
+    and the lo parts of w1 and w2 (`tf32_split`)."""
+    return (mlp_ln_rows_plain(x, g, be, eps), tf32_split(w1)[1],
+            tf32_split(w2)[1])
+
+
+def mlp_f32_prep(x, g, be, w1, w2, eps: float = EPS):
+    """(1) on the card (`lavt_mlp_f32_prep`, one launch): x (M, C), w1
+    (hidden, C), w2 (C, hidden) f32 -> (xn (M, C), w1lo, w2lo)."""
+    if x.device.type == "cpu":
+        return mlp_f32_prep_plain(x, g, be, w1, w2, eps)
+    m, c = x.shape
+    xn, w1lo, w2lo = (torch.empty_like(t) for t in (x, w1, w2))
+    _launch("lavt_mlp_f32_prep", x, g, be, w1, w2, xn, w1lo, w2lo, m, c,
+            w1.shape[0], float(eps))
+    return xn, w1lo, w2lo
+
+
+def gemm_gelu_f32(xn, w1, w1lo, b1):
+    """(2) on the card (`fused_msa.gemm_f32`, W1's lo by TMA): h = gelu(xn
+    W1ᵀ + b1) (M, hidden) f32."""
+    if xn.device.type == "cpu":
+        return gemm_bias_gelu_plain(xn, w1, b1)
+    (m, c), hidden = xn.shape, w1.shape[0]
+    _supported(m, c, hidden)
+    return gemm_f32(xn, w1, b1, GEMM_F32_GELU, wlo=w1lo)
+
+
+def gemm_residual_f32(h, w2, w2lo, b2, x, keep=None, rows: int = 1):
+    """(3) on the card (`fused_msa.gemm_f32`, W2's lo by TMA): x + keep[row
+    // rows] (h W2ᵀ + b2) f32."""
+    if h.device.type == "cpu":
+        return gemm_residual_plain(h, w2, b2, x, keep, rows)
+    (c, hidden), m = w2.shape, x.shape[0]
+    _supported(m, c, hidden)
+    _require_keep(keep, m, rows, x.device)
+    return gemm_f32(h, w2, b2, GEMM_F32_RESIDUAL, res=x, keep=keep, rows=rows,
+                    wlo=w2lo)
+
+
+def _fwd_launches_f32(x, g, be, w1, b1, w2, b2, eps, keep=None, rows=0):
+    """K3 f32's (K8 f32's with keep) three launches on checked arguments."""
+    xn, w1lo, w2lo = mlp_f32_prep(x, g, be, w1, w2, eps)
+    return gemm_residual_f32(gemm_gelu_f32(xn, w1, w1lo, b1), w2, w2lo, b2,
+                             x, keep, rows)
 
 
 # -- K7: the launches and their plain versions ---------------------------------
@@ -518,14 +568,13 @@ def fused_ln_mlp(x, g, be, w1, b1, w2, b2, eps: float = EPS):
 
 def fused_ln_mlp_f32(x, g, be, w1, b1, w2, b2, eps: float = EPS):
     """K3 f32: x (M, C) f32 tokens and f32 weights -> x + fc2(gelu(fc1(
-    LN(x)))) in f32; on the card the three launches (`mlp_ln_rows`,
-    `gemm_bias_gelu`, `gemm_residual`) on their f32 kernels, the plain
+    LN(x)))) in f32; on the card its three launches (`mlp_f32_prep`,
+    `gemm_gelu_f32`, `gemm_residual_f32`, csrc/gemm_f32.cu), the plain
     version on a CPU tensor."""
     if x.device.type == "cpu":
         return fused_ln_mlp_plain(x, g, be, w1, b1, w2, b2, eps)
     _check(x, (g, be, w1, b1, w2, b2), None, 0, torch.float32)
-    xn = mlp_ln_rows(x, g, be, eps)
-    out = gemm_residual(gemm_bias_gelu(xn, w1, b1), w2, b2, x)
+    out = _fwd_launches_f32(x, g, be, w1, b1, w2, b2, eps)
     fused_ln_mlp_f32.launches += 1
     return out
 
@@ -549,14 +598,13 @@ def fused_ln_mlp_droppath(x, g, be, w1, b1, w2, b2, keep, rows: int,
 def fused_ln_mlp_droppath_f32(x, g, be, w1, b1, w2, b2, keep, rows: int,
                               eps: float = EPS):
     """K8 f32: K3 f32's three launches with keep (B,) f32 in fc2's
-    residual epilogue, x + keep[row // rows] fc2(gelu(fc1(LN(x)))) in f32;
+    residual epilogue (`gemm_residual_f32`), x + keep[row // rows] fc2(gelu(fc1(LN(x)))) in f32;
     the plain version on a CPU tensor."""
     if x.device.type == "cpu":
         return fused_ln_mlp_droppath_plain(x, g, be, w1, b1, w2, b2, keep,
                                            rows, eps)
     _check(x, (g, be, w1, b1, w2, b2), keep, rows, torch.float32)
-    xn = mlp_ln_rows(x, g, be, eps)
-    out = gemm_residual(gemm_bias_gelu(xn, w1, b1), w2, b2, x, keep, rows)
+    out = _fwd_launches_f32(x, g, be, w1, b1, w2, b2, eps, keep, rows)
     fused_ln_mlp_droppath_f32.launches += 1
     return out
 

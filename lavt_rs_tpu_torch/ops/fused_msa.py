@@ -352,22 +352,30 @@ GEMM_F32_DEPTH = tf32_core.DEPTH  # K of a core stage: K must be a multiple
 
 
 def gemm_f32(a, w, b, epi: int, res=None, scaled: int = 0,
-             scale: float = 1.0, keep=None, rows: int = 1) -> torch.Tensor:
+             scale: float = 1.0, keep=None, rows: int = 1,
+             wlo=None) -> torch.Tensor:
     """The 3xTF32 GEMM of the f32 variants (`lavt_gemm_f32`, on the wgmma +
     TMA core of csrc/gemm_tf32_sm90.cuh, `tf32_core` kind "gemm"): out (M, N)
     f32 = epilogue(a wᵀ), a (M, K), w (N, K), b (N,) f32 on the card, K a
     multiple of 32, N even; epi GEMM_F32_BIAS ((· + b) times `scale` on the
     first `scaled` columns), GEMM_F32_GELU (exact GELU of · + b) or
     GEMM_F32_RESIDUAL (res + · + b; with keep, (M / rows,) f32, res +
-    keep[row // rows] (· + b): K8 f32).  Its plain versions are its
-    callers' (`gemm_bias_plain`, `fused_mlp.gemm_bias_gelu_plain`,
-    `fused_mlp.gemm_residual_plain`)."""
+    keep[row // rows] (· + b): K8 f32); the last two (K3 / K8 f32's) take
+    wlo, w's lo parts (`fused_mlp.mlp_f32_prep`), brought by TMA beside w
+    (the core's kLoByTma instances) instead of split by its stagers.  Its
+    plain versions are its callers' (`gemm_bias_plain`,
+    `fused_mlp.gemm_bias_gelu_plain`, `fused_mlp.gemm_residual_plain`)."""
     (m, k), n = a.shape, w.shape[0]
     if k % GEMM_F32_DEPTH or n % 2:
         raise ValueError(f"f32 GEMM kernel: unsupported (M, N, K) "
                          f"{(m, n, k)}")
     f32, dev = torch.float32, a.device
     checks = [("a", a, f32, None), ("w", w, f32, (n, k)), ("b", b, f32, (n,))]
+    if (epi == GEMM_F32_BIAS) != (wlo is None):
+        raise ValueError("f32 GEMM kernel: the GELU and residual epilogues "
+                         "take w's lo parts, the bias epilogue none")
+    if wlo is not None:
+        checks.append(("wlo", wlo, f32, (n, k)))
     if epi == GEMM_F32_RESIDUAL:
         checks.append(("res", res, f32, (m, n)))
     if keep is not None:
@@ -378,7 +386,8 @@ def gemm_f32(a, w, b, epi: int, res=None, scaled: int = 0,
     _require_all(checks, dev)
     out = torch.empty((m, n), dtype=f32, device=dev)
     err = cuda_lib.lib().lavt_gemm_f32(
-        a.data_ptr(), w.data_ptr(), b.data_ptr(),
+        a.data_ptr(), w.data_ptr(), None if wlo is None else wlo.data_ptr(),
+        b.data_ptr(),
         None if res is None else res.data_ptr(),
         None if keep is None else keep.data_ptr(), out.data_ptr(), m, n, k,
         epi, scaled, float(scale), max(rows, 1), cuda_lib.stream_ptr(dev))

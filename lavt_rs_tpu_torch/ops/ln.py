@@ -19,7 +19,7 @@ K4 f32 (`layer_norm_rows_f32`, csrc/ln.cu) is the same LayerNorm on f32
 rows, as the TPU kernel computes it on f32 activations; `layer_norm_rows`
 takes it for a CUDA f32 tensor (no f32 tensor is cast into the bf16
 kernel).  Its launch `layer_norm_rows_f32_launch` also makes K1 f32's LN
-rows and, with the two-pass variance, K3 f32's.  K4b f32
+rows.  K4b f32
 (`layer_norm_rows_bwd_f32`, csrc/ln.cu) is K4b's one pass on f32 rows (dx
 in f32, per block the column partials, its block plan
 `ln_rows_f32_bwd_plan`); `layer_norm_rows_bwd` and `LayerNormRows` take
@@ -190,16 +190,12 @@ def layer_norm_rows_f32(x: torch.Tensor, scale: torch.Tensor,
 
 
 def layer_norm_rows_f32_launch(x: torch.Tensor, scale: torch.Tensor,
-                               bias: torch.Tensor, eps: float = 1e-5,
-                               two_pass: bool = False) -> torch.Tensor:
+                               bias: torch.Tensor,
+                               eps: float = 1e-5) -> torch.Tensor:
     """The f32 row launch without a count (`lavt_layer_norm_rows_f32`):
-    x (rows, C), scale, bias (C,) f32 -> f32; the fast variance (K4 f32,
-    K1 f32's LN) or, with two_pass, the mean of (x − μ)² (K3 f32's LN
-    rows).  The plain version of the variance asked for on a CPU tensor."""
+    x (rows, C), scale, bias (C,) f32 -> f32, the fast variance (K4 f32,
+    K1 f32's LN).  The plain version on a CPU tensor."""
     if x.device.type == "cpu":
-        if two_pass:
-            from .fused_mlp import mlp_ln_rows_plain  # imports this module
-            return mlp_ln_rows_plain(x, scale, bias, eps)
         return layer_norm_rows_plain(x, scale, bias, eps)
     if x.dim() != 2:
         raise ValueError(f"layer_norm_rows f32 kernel: x must be (rows, C), "
@@ -211,7 +207,7 @@ def layer_norm_rows_f32_launch(x: torch.Tensor, scale: torch.Tensor,
     out = torch.empty_like(x)
     err = cuda_lib.lib().lavt_layer_norm_rows_f32(
         x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
-        rows, c, float(eps), int(two_pass), cuda_lib.stream_ptr(x.device))
+        rows, c, float(eps), cuda_lib.stream_ptr(x.device))
     cuda_lib.check(err, "lavt_layer_norm_rows_f32")
     return out
 

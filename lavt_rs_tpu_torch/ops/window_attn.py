@@ -37,8 +37,8 @@ C = 96 blocks take the grouped K2p route instead).
     routes; its launch `k10_f32_plan`; counted by `window_attention_f32`)
     or K9 f32 (csrc/window_attn_bwd_f32.cu, two launches and the sum,
     `bwd_launches_f32`, its grids `k9_f32_plan`; counted by
-    `attention_core_bwd_f32`): K10 f32 on FFMA, K9 f32 in 3xTF32 on the
-    tensor cores, both with the same max-subtracted softmax, whose plain
+    `attention_core_bwd_f32`): both in 3xTF32 on the tensor cores
+    (mma.sync), with the same max-subtracted softmax, whose plain
     versions are the ones above (at f32 their roundings to q's dtype are
     no-ops).
 
@@ -76,12 +76,19 @@ MAX_N = 400
 # what each block reserves of it
 K10_TILE, K10_WARPGROUPS, K10_STAGES = 64, 2, 2
 SMEM_PER_SM, SMEM_PER_BLOCK_RESERVED = 233472, 1024
-# K10 f32 (csrc/window_attn_f32.cu, csrc/attn_f32.cuh): blocks of 128
-# threads on tiles of 64 rows; its shared memory: two d-major 32 x 64
-# operand tiles (rows 68 floats apart), a 64 x 32 row-major one (36 apart),
-# a 64 x 64 P tile (68 apart) and two 64-float row vectors
-F32_TILE, F32_THREADS = 64, 128
-K10_F32_SMEM = (2 * 32 * 68 + 64 * 36 + 64 * 68 + 2 * 64) * 4
+# K10 f32 (csrc/window_attn_f32.cu, 3xTF32 on mma.sync): keys in chunks of
+# 56; at N <= 56 items of 64 query rows (4 warps, one chunk, the head's
+# bias staged, three blocks an SM), above of 80 (5 warps, two blocks an
+# SM: their registers hold a chunk's bias and mask).  Its shared
+# memory at N <= 56 and above: raw q (the item's rows), k and v (56 rows)
+# tiles with rows 36 floats apart, k NT and v NN fragment tiles of 56 rows
+# (8 bytes an element), and at N <= 56 the bias in C-fragment order (4
+# warps x 7 key tiles x 32 lanes x 16 bytes)
+K10_F32_CHUNK = 56
+K10_F32_WARPS, K10_F32_PER_SM = (4, 5), (3, 2)
+K10_F32_SMEM = tuple(16 * w * 36 * 4 + 2 * 56 * 36 * 4 + 2 * 56 * 32 * 8
+                     + (w * 7 * 32 * 16 if w == 4 else 0)
+                     for w in K10_F32_WARPS)
 # K9 f32 (csrc/window_attn_bwd_f32.cu, csrc/attn_tf32.cuh): blocks of 5
 # warps on 80 rows (queries in launch 1, keys in launch 2), the other side
 # in tiles of 56; raw [row][d] tiles with rows 36 floats apart and fragment
@@ -299,19 +306,35 @@ def k10_plan(bw: int, heads: int, n: int, sms: int) -> dict:
     return plan
 
 
+@functools.lru_cache(maxsize=256)
 def k10_f32_plan(bw: int, heads: int, n: int, sms: int) -> dict:
-    """K10 f32's launch (csrc/window_attn_f32.cu) on `sms` SMs: items of 64
-    query rows of one (window, head), `tiles` a unit, ordered (window,
-    head, query tile), so that neighbouring blocks read one (window,
-    head)'s keys; a block of F32_THREADS threads takes `per_block`
-    consecutive items: 1 above N = 64, at N <= 64 (one item a unit) up to
-    4 units while the grid keeps 16 blocks an SM."""
-    tiles = -(-n // F32_TILE)
-    items = bw * heads * tiles
-    per_block = 1 if tiles > 1 else max(1, min(4, items // (16 * sms)))
-    return dict(tiles=tiles, items=items, per_block=per_block,
-                blocks=-(-items // per_block), threads=F32_THREADS,
-                smem=K10_F32_SMEM)
+    """K10 f32's launch (csrc/window_attn_f32.cu) on `sms` SMs.  An item is
+    `rows` query rows of one (window, head) unit (64 at N <= 56, else 80),
+    ordered (head, query tile, window): item = (h qtiles + t) bw + w, so
+    that a block's items share their bias rows.  A block of 32 `warps`
+    threads walks `per_block` consecutive items, the keys of each in
+    `chunks` of 56; the blocks fill the SMs once at `per_sm` an SM
+    (K10_F32_PER_SM).  At N <= 56 (one chunk, one item a unit) a block
+    stages its head's bias when its run reaches a new head: `bias_loads`
+    per block at most."""
+    small = n <= K10_F32_CHUNK
+    warps, per_sm = (K10_F32_WARPS[0 if small else 1],
+                     K10_F32_PER_SM[0 if small else 1])
+    rows = 16 * warps
+    qtiles = -(-n // rows)
+    items = bw * heads * qtiles
+    per_block = -(-items // (per_sm * sms))
+    blocks = -(-items // per_block)
+    plan = dict(bw=bw, heads=heads, small=small, warps=warps,
+                threads=32 * warps, rows=rows,
+                qtiles=qtiles, chunks=-(-n // K10_F32_CHUNK), items=items,
+                per_block=per_block, blocks=blocks, per_sm=per_sm,
+                smem=K10_F32_SMEM[0 if small else 1])
+    if small:
+        plan["bias_loads"] = max(
+            (min(items, i0 + per_block) - 1) // bw - i0 // bw + 1
+            for i0 in range(0, items, per_block))
+    return plan
 
 
 def _check_k10(q, k, v, bias, mask, dtype=torch.bfloat16):

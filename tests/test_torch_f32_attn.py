@@ -4,10 +4,11 @@ models they open to f32 on the card, and their entry points' CPU paths.
 
 * `k10_f32_plan` and `k9_f32_plan` at the path shapes: window 7 at bs 8
   (N = 49), an 8-frame 480² clip (N = 392), a 4-frame clip (N = 196);
-  every item once, the launch-1 grid within one wave at two blocks an
-  SM, the shared memory the sources declare (K9 f32's within a block's
-  227 KB and two blocks an SM), launch 1's dbias partials one a window
-  stride.
+  every item once (K10 f32's in (head, window, query tile) order, a
+  window-7 block's run within two heads), the grids within one wave,
+  the shared memory the sources declare (K10 f32's three blocks an SM,
+  K9 f32's within a block's 227 KB and two blocks an SM), launch 1's
+  dbias partials one a window stride.
 * K9 f32's launches (`bwd_launches_f32`: dq, D and the dbias partials of
   launch 1, one partial a window stride at every N; dk, dv of launch 2;
   the sum) compose to K9's plain version `attention_core_bwd_plain` at
@@ -85,29 +86,71 @@ def _inputs(rng, n, masked, b=2, nw=3, heads=2):
     return q, k, v, bias, mask, do
 
 
+def _k10_f32_items(plan, block):
+    """The (head, window, query tile) of each item that block `block` of
+    `k10_f32_plan`'s launch takes, in order, as the kernel derives them
+    (item = (head qtiles + tile) bw + window)."""
+    bw, out = plan["bw"], []
+    for item in range(block * plan["per_block"],
+                      min((block + 1) * plan["per_block"], plan["items"])):
+        hq, win = divmod(item, bw)
+        out.append((hq // plan["qtiles"], win, hq % plan["qtiles"]))
+    return out
+
+
 @pytest.mark.parametrize("bw,heads,n", PATH_SHAPES)
 def test_k10_f32_plan_covers_every_item_once(bw, heads, n):
+    """Every (head, window, query tile) once over the blocks' runs, the
+    blocks within one wave (three an SM at N <= 56, two above), and as
+    many blocks' shared memory within an SM's."""
     plan = window_attn.k10_f32_plan(bw, heads, n, SMS)
-    tiles = -(-n // 64)
-    assert plan["tiles"] == tiles and plan["items"] == bw * heads * tiles
-    assert plan["threads"] == 128 and plan["smem"] == 44544
-    # the blocks' runs of per_block items cover the items, the last one
-    # partly at most
+    small = n <= 56
+    rows = 64 if small else 80
+    assert (plan["rows"], plan["threads"]) == (rows, 2 * rows)
+    assert plan["qtiles"] == -(-n // rows) and plan["chunks"] == -(-n // 56)
+    assert plan["items"] == bw * heads * plan["qtiles"]
+    assert plan["per_sm"] == (3 if small else 2)
+    assert plan["blocks"] <= plan["per_sm"] * SMS
     assert (plan["blocks"] - 1) * plan["per_block"] < plan["items"] \
         <= plan["blocks"] * plan["per_block"]
-    if n > 64:
-        assert plan["per_block"] == 1
-    else:  # several units a block while the grid keeps 16 blocks an SM
-        assert plan["blocks"] >= min(plan["items"], 16 * SMS)
+    seen = [it for b in range(plan["blocks"])
+            for it in _k10_f32_items(plan, b)]
+    assert len(seen) == len(set(seen)) == plan["items"]
+    assert set(seen) == {(h, w, t) for h in range(heads) for w in range(bw)
+                         for t in range(plan["qtiles"])}
+    per_block = window_attn.SMEM_PER_SM // (
+        plan["smem"] + window_attn.SMEM_PER_BLOCK_RESERVED)
+    assert per_block >= plan["per_sm"] >= 2
+    assert plan["smem"] == (68352 if small else 56320)
 
 
 def test_k10_f32_plan_at_window_7():
-    """Stage 1 and 2 of the bs-8 window-7 forward take 4 and 2 (window,
-    head) units a block; stages 3-4 one."""
-    got = [window_attn.k10_f32_plan(bw, h, n, SMS)["per_block"]
-           for bw, h, n in PATH_SHAPES[:4]]
-    assert got == [4, 2, 1, 1]
-    assert window_attn.k10_f32_plan(2592, 4, 49, SMS)["blocks"] == 2592
+    """At the four window-7 shapes of a bs-8 forward each block takes a run
+    of windows of one head, crossing into the next head at most once (its
+    bias staged at most twice), and the runs fill the SMs once."""
+    got = [window_attn.k10_f32_plan(bw, h, n, SMS) for bw, h, n in
+           PATH_SHAPES[:4]]
+    assert [p["per_block"] for p in got] == [27, 14, 9, 6]
+    assert [p["blocks"] for p in got] == [384, 371, 356, 384]
+    assert all(p["small"] and p["chunks"] == 1 and p["bias_loads"] <= 2
+               for p in got)
+
+
+@pytest.mark.parametrize("bw,heads,n", [PATH_SHAPES[0], PATH_SHAPES[5],
+                                        PATH_SHAPES[8]])
+def test_k10_f32_plan_orders_items_head_tile_window(bw, heads, n):
+    """A block's items follow (head, query tile, window): the windows of
+    one head's query tile back to back, so a block's items share their
+    bias rows (one head's bias at N <= 56), crossing into the next (head,
+    tile) at most once."""
+    plan = window_attn.k10_f32_plan(bw, heads, n, SMS)
+    order = [(h * plan["qtiles"] + t) * bw + w
+             for b in range(plan["blocks"])
+             for h, w, t in _k10_f32_items(plan, b)]
+    assert order == list(range(plan["items"]))
+    for b in range(plan["blocks"]):
+        items = _k10_f32_items(plan, b)
+        assert len({(h, t) for h, _, t in items}) <= 2
 
 
 @pytest.mark.parametrize("bw,heads,n", PATH_SHAPES)

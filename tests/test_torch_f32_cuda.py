@@ -13,12 +13,17 @@ without JAX:
   `kernel_plan` at itemsize 4, no bf16 kernel runs, and its logits agree
   with the plain f32 model's within 1e-2 (chip_smoke.py's f32 gate);
 * K10 f32 (contiguous, save mode, the strided qkv route, the grouped
-  attention with nu at 0, mid and nW), K2p f32 and K9 f32 at N = 49, 392
-  and 400, masked and not, within 1e-4 abs + rel of their plain versions;
-  K9 f32's dbias the same bits in two runs (no atomics);
+  attention with nu at 0, mid and nW) at N = 16, 49, 57, 196, 392 and
+  400, K2p f32 and K9 f32 at N = 49, 392 and 400, masked and not, within
+  1e-4 abs + rel of their plain versions; K10 f32's save mode and K9
+  f32's dbias the same bits in two runs (no atomics); K10 f32's shared
+  memory against its plan at every N;
 * a small f32 window-7 lavt_one and an f32 lavt_video (Video Swin-T, 8
   frames of 64²) launch their plans, forward and in a training step,
   against the plain f32 model;
+* K3 f32's launches (the prep's LN rows and the weights' lo parts; fc1 +
+  GELU and fc2 + residual with W's lo by TMA) against their plain
+  versions at C = 128-1024;
 * K8 f32, K7 f32 (with keep and without) and K4b f32 at C = 128, 256,
   512 and 1024 (K4b f32 also at 96 and 1536) on M a multiple of no tile,
   keep with a zero, within 1e-4 abs + rel of their plain versions, the
@@ -118,9 +123,11 @@ def test_layer_norm_rows_f32(dev, rows, c):
     b = _f32(rng, (c,), 0.2, dev)
     got = _once("K4", lambda: ln.layer_norm_rows(x, s, b))
     _close(got, ln.layer_norm_rows_plain(x, s, b))
-    # K3 f32's LN rows: the same launch with the two-pass variance
-    _close(ln.layer_norm_rows_f32_launch(x, s, b, two_pass=True),
-           fused_mlp.mlp_ln_rows_plain(x, s, b))
+    # K3 f32's LN rows: its prep launch's two-pass variance (no weights)
+    xn = torch.empty_like(x)
+    fused_mlp._launch("lavt_mlp_f32_prep", x, s, b, None, None, xn, None,
+                      None, rows, c, 4 * c, 1e-5)
+    _close(xn, fused_mlp.mlp_ln_rows_plain(x, s, b))
 
 
 @pytest.mark.parametrize("m,c", [(900, 128), (100, 1024)])
@@ -259,7 +266,7 @@ def _attn(rng, dev, n, masked, b=2, nw=4, heads=3):
     return q, k, v, bias, mask, do
 
 
-@pytest.mark.parametrize("n", [49, 392, 400])
+@pytest.mark.parametrize("n", [16, 49, 57, 196, 392, 400])
 @pytest.mark.parametrize("masked", [False, True])
 def test_window_attention_f32(dev, n, masked):
     rng = np.random.default_rng(n + masked)
@@ -273,6 +280,10 @@ def test_window_attention_f32(dev, n, masked):
     wo, wlse = window_attn.window_attention_save_plain(q, k, v, bias, mask, sc)
     _close(o, wo)
     _close(lse, wlse)
+    # no atomics: the same bits in a second call
+    o2, lse2 = window_attn.window_attention_save(q, k, v, bias, mask, sc)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
     # the strided route on a qkv Linear's output
     b, nw, heads, _, _ = q.shape
     qkv = torch.cat([t.transpose(2, 3).reshape(b, nw, n, heads * 32)
@@ -283,6 +294,14 @@ def test_window_attention_f32(dev, n, masked):
     with pytest.raises(TypeError):  # no f32 tensor into the bf16 kernel
         window_attn.window_attention_f32(q.bfloat16(), k.bfloat16(),
                                          v.bfloat16(), bias, mask, sc)
+
+
+def test_k10_f32_smem_is_the_plan(dev):
+    from lavt_rs_tpu_torch.ops import cuda_lib
+
+    for n in (1, 16, 49, 56, 57, 144, 196, 392, 400):
+        assert cuda_lib.lib().lavt_k10_f32_smem(n) == \
+            window_attn.k10_f32_plan(8, 2, n, 132)["smem"]
 
 
 @pytest.mark.parametrize("n", [392, 400])
@@ -489,6 +508,36 @@ def test_k8_k7_f32(dev, m, c, rows):
         assert all(torch.equal(g, a) for g, a in zip(got, again))
     with pytest.raises(TypeError):  # a bf16 gradient into the f32 kernel
         fused_mlp.fused_ln_mlp_bwd(x, gy.bfloat16(), *args[1:6], keep, rows)
+
+
+@pytest.mark.parametrize("m,c", [(901, 128), (459, 256), (225, 512),
+                                 (105, 1024)])
+def test_k3_f32_launches(dev, m, c):
+    """K3 f32's three launches against their plain versions: the prep's LN
+    rows within 1e-4 and the weights' lo parts bit for bit; fc1 + GELU and
+    fc2 + residual with W's lo by TMA within 1e-4 abs + rel, and refused
+    without it; K3 f32 and K8 f32 the same bits in two calls."""
+    rng = np.random.default_rng(3 * m + c)
+    x, g, be, w1, b1, w2, b2 = _mlp_args(rng, dev, m, c)
+    xn, w1lo, w2lo = fused_mlp.mlp_f32_prep(x, g, be, w1, w2)
+    wxn, w1lo_, w2lo_ = fused_mlp.mlp_f32_prep_plain(x, g, be, w1, w2)
+    _close(xn, wxn)
+    assert torch.equal(w1lo, w1lo_) and torch.equal(w2lo, w2lo_)
+    want_h = fused_mlp.gemm_bias_gelu_plain(xn, w1, b1)
+    _close(fused_mlp.gemm_gelu_f32(xn, w1, w1lo, b1), want_h)
+    want = fused_mlp.gemm_residual_plain(want_h, w2, b2, x)
+    _close(fused_mlp.gemm_residual_f32(want_h, w2, w2lo, b2, x), want)
+    for epi, lo in ((fused_msa.GEMM_F32_BIAS, w1lo),  # W's lo: GELU, residual
+                    (fused_msa.GEMM_F32_GELU, None)):
+        with pytest.raises(ValueError):
+            fused_msa.gemm_f32(xn, w1, b1, epi, wlo=lo)
+    for fn in (lambda: fused_mlp.fused_ln_mlp_f32(x, g, be, w1, b1, w2, b2),
+               lambda: fused_mlp.fused_ln_mlp_droppath_f32(
+                   x, g, be, w1, b1, w2, b2,
+                   torch.tensor([1.0 / 0.7], device=dev), m)):
+        got, again = fn(), fn()
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
 
 
 @pytest.mark.parametrize("rows,c", [(225, 128), (1001, 256), (333, 512),
@@ -815,16 +864,18 @@ def test_tf32_core_gemm_every_epilogue(dev, m, n, k):
     _close(got, torch.where(col, acc * 0.17, acc))
     _sums_close(got, torch.where(col, acc64 * 0.17, acc64))
     gemm = fused_msa.gemm_f32
-    _close(_twice(lambda: gemm(a, w, b, fused_msa.GEMM_F32_GELU)),
+    lo = fused_mlp.tf32_split(w)[1]  # K3 / K8 f32's: w's lo parts by TMA
+    _close(_twice(lambda: gemm(a, w, b, fused_msa.GEMM_F32_GELU, wlo=lo)),
            fused_mlp.gemm_bias_gelu_plain(a, w, b))
     res = _f32(rng, (m, n), 1.0, dev)
-    _close(_twice(lambda: gemm(a, w, b, fused_msa.GEMM_F32_RESIDUAL, res=res)),
+    _close(_twice(lambda: gemm(a, w, b, fused_msa.GEMM_F32_RESIDUAL, res=res,
+                               wlo=lo)),
            fused_mlp.gemm_residual_plain(a, w, b, res))
     rows = m // 2 if m % 2 == 0 else m
     keep = torch.where(torch.arange(m // rows, device=dev) % 2 == 1, 0.0,
                        1.0 / 0.7)
     got = _twice(lambda: gemm(a, w, b, fused_msa.GEMM_F32_RESIDUAL, res=res,
-                              keep=keep, rows=rows))
+                              keep=keep, rows=rows, wlo=lo))
     want = fused_mlp.gemm_residual_plain(a, w, b, res, keep, rows)
     _close(got, want)
     _close(got - res, want - res)

@@ -252,15 +252,20 @@ def test_k3_f32_matches_fused_ln_mlp(m, c):
     got = fused_mlp.fused_ln_mlp_f32(*args)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL,
                                atol=TOL)
-    # its three launches' plain versions compose to it (the LN rows by the
-    # f32 launch's two-pass variance)
-    xn = ln.layer_norm_rows_f32_launch(args[0], args[1], args[2],
-                                       two_pass=True)
+    # its three launches' plain versions compose to it: the prep's LN rows
+    # and weights' lo parts (hi + lo the weights bit for bit), fc1 + GELU,
+    # fc2 + residual
+    xn, w1lo, w2lo = fused_mlp.mlp_f32_prep(args[0], args[1], args[2],
+                                            args[3], args[5])
     torch.testing.assert_close(xn, fused_mlp.mlp_ln_rows(*args[:3]), rtol=0,
                                atol=0)
-    h = fused_mlp.gemm_bias_gelu(xn, args[3], args[4])
+    for w, lo in ((args[3], w1lo), (args[5], w2lo)):
+        hi, lo_ = fused_mlp.tf32_split(w)
+        assert torch.equal(lo, lo_) and torch.equal(hi + lo, w)
+        assert not (hi.view(torch.int32) & 0x1FFF).any()
+    h = fused_mlp.gemm_gelu_f32(xn, args[3], w1lo, args[4])
     torch.testing.assert_close(
-        fused_mlp.gemm_residual(h, args[5], args[6], args[0]), got,
+        fused_mlp.gemm_residual_f32(h, args[5], w2lo, args[6], args[0]), got,
         rtol=1e-6, atol=1e-6)
     assert _launches() == before
 

@@ -10,6 +10,11 @@ tests/test_torch_f32_cuda.py).
   no launch; K8 f32 and K7 f32 agree with the Pallas kernel (interpret
   mode) and its VJP at f32 within test_torch_train_kernels_plain.py's
   tolerances (1e-5 forward, 1e-4 grads).
+* K3 f32's and K8 f32's launches (prep: the LN rows and the weights' lo
+  parts; fc1 + GELU; fc2 + keep + residual) composed through their plain
+  versions
+  equal `fused_ln_mlp_plain` / `fused_ln_mlp_droppath_plain` (1e-6 of the
+  largest magnitude), and the weights split hi + lo bit for bit.
 * K7 f32's launches (prep, dual GEMM, weight grads split by
   `bwd_plan(..., f32=True)`, dyln, LN-backward rows), composed through
   their plain versions, equal `fused_ln_mlp_bwd_plain` at f32 to f32
@@ -156,6 +161,34 @@ def test_k7_f32_launches_compose_to_the_plain_backward(m, c, rows, drop):
     for name, g_, w_ in zip(("dx", "dg", "dbe", "dw1", "db1", "dw2", "db2"),
                             _bwd_composed_f32(*args), want):
         _close(g_, w_, 1e-6, name)
+
+
+@pytest.mark.parametrize("m,c,rows,drop", [
+    (37, 128, 1, False), (2085, 128, 139, True), (45, 1024, 1, False),
+    (45, 1024, 15, True)])
+def test_k3_k8_f32_launches_compose_to_the_plain_forward(m, c, rows, drop):
+    """K3 f32's and K8 f32's launches (prep: the LN rows and the weights'
+    lo parts; fc1 + GELU; fc2 + keep + residual), composed through their
+    plain versions, equal
+    `fused_ln_mlp_plain` / `fused_ln_mlp_droppath_plain` at f32 to f32
+    summation order, and each weight's hi + lo is the weight bit for
+    bit."""
+    a = _mlp(m, c, 7 * m + c)
+    x, g, be, w1, b1, w2, b2 = _params(a)
+    keep = _keep(m, rows) if drop else None
+    xn, w1lo, w2lo = fm.mlp_f32_prep(x, g, be, w1, w2)
+    assert torch.equal(xn, fm.mlp_ln_rows_plain(x, g, be))
+    for w, lo in ((w1, w1lo), (w2, w2lo)):
+        hi, _ = fm.tf32_split(w)
+        assert torch.equal(hi + lo, w)
+        assert float(lo.abs().max()) <= 2.0 ** -10 * float(w.abs().max())
+    h = fm.gemm_gelu_f32(xn, w1, w1lo, b1)
+    got = fm.gemm_residual_f32(h, w2, w2lo, b2, x, keep, rows)
+    want = (fm.fused_ln_mlp_plain(x, g, be, w1, b1, w2, b2) if keep is None
+            else fm.fused_ln_mlp_droppath_plain(x, g, be, w1, b1, w2, b2,
+                                                keep, rows))
+    _close(got, want, 1e-6, "out")
+    _close(got - x, want - x, 1e-6, "branch")
 
 
 # (M, C) of the window-7 bs-8 step (480², padded to windows of 7 only in

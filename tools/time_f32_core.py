@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Times the f32 variants that run on the 3xTF32 GEMM core and the f32 MSA
-attention (K7 f32, K3 f32, K8 f32, the K1/K2 save mode f32, K2 f32, K5
-f32) at the lavt_one Swin-B 480² stage shapes on one NVIDIA GPU, by CUDA
-events, and prints one JSON object.
+"""Times the f32 variants that run on the 3xTF32 GEMM core and the f32
+attentions (K7 f32, K3 f32, K8 f32, the K1/K2 save mode f32, K2 f32, K5
+f32) at the lavt_one Swin-B 480² stage shapes, and K10 f32 in both modes
+at the window-7 bs-8 shapes (N = 49) and the video stages 2-4 of an
+8-frame 480² clip (N = 392), on one NVIDIA GPU, by CUDA events, and prints
+one JSON object.
 
     python3 tools/time_f32_core.py [--root DIR] [--iters 10]
 
@@ -18,7 +20,13 @@ The JSON: {"card": ..., "ms": {kernel: {stage: ms per call}}, "step":
 {kernel: ms}}, "step" summing each stage's call over the blocks that make
 it in a step (depths 2, 2, 18, 2; the MSA kernels at their window-12
 stages: the save mode and K5 at stages 2-4 of a bs-8 step, K2 at stages
-3-4 of a bs-20 one, half the blocks shifted).  Seeded inputs; TF32 off.
+3-4 of a bs-20 one, half the blocks shifted; K10 f32 ("K10.f32/w7" on the
+qkv Linear's output, per window-7 bs-8 forward; "K10s.f32/w7" its save
+mode, per step; "K10.f32" and "K10s.f32" per 8-frame clip and video step,
+Video Swin-T depths 2, 6, 2 at stages 2-4), each stage's call the mean of
+its unshifted and shifted windows, timed on the device with its launches
+queued behind a device sleep: the host's time to enqueue a window-7 call
+exceeds the call's).  Seeded inputs; TF32 off.
 """
 
 import argparse
@@ -29,6 +37,13 @@ import sys
 
 STAGES = ((120, 128, 4, 2), (60, 256, 8, 2), (30, 512, 16, 18),
           (15, 1024, 32, 2))  # (side, C, heads, depth) at 480², patch 4
+# K10 f32: (B nW, nW, heads, N, blocks, key): window 7 at bs 8 (sides 120,
+# 60, 30, 15 padded to 126, 63, 35, 21), Video Swin-T stages 2-4 of an
+# 8-frame clip (sides 60, 30, 15 padded to 63, 35, 21)
+K10_SHAPES = ((8 * 324, 324, 4, 49, 2, "w7"), (8 * 81, 81, 8, 49, 2, "w7"),
+              (8 * 25, 25, 16, 49, 18, "w7"), (8 * 9, 9, 32, 49, 2, "w7"),
+              (81, 81, 6, 392, 2, "video"), (25, 25, 12, 392, 6, "video"),
+              (9, 9, 24, 392, 2, "video"))
 
 
 def cuda_ms(fn, iters):
@@ -39,6 +54,24 @@ def cuda_ms(fn, iters):
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def queued_ms(fn, iters):
+    """Device ms of one call of fn, its launches queued behind a ~10 ms
+    device sleep so that the host's time to enqueue them is not timed."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -73,7 +106,8 @@ def main():
         return torch.randn(shape, generator=g, device=dev) * std
 
     ms = {k: {} for k in ("K7.f32", "K3.f32", "K8.f32", "save.f32", "K5.f32",
-                          "K2.f32")}
+                          "K2.f32", "K10.f32/w7", "K10s.f32/w7", "K10.f32",
+                          "K10s.f32")}
     step = dict.fromkeys(ms, 0.0)
     sc = 32 ** -0.5
     for si, (side, c, heads, depth) in enumerate(STAGES):
@@ -127,6 +161,26 @@ def main():
                 step[key] += depth * ms[key][stage]
             del xw, fns
             torch.cuda.empty_cache()
+    from lavt_rs_tpu_torch.ops import window_attn as wa
+
+    for bw, nw, heads, n, blocks, key in K10_SHAPES:
+        sfx = "/w7" if key == "w7" else ""
+        qkv = rnd((bw // nw, nw, n, 3 * heads * 32))
+        q, k, v = (t.contiguous() for t in wa.qkv_heads(qkv, heads))
+        bias = rnd((heads, n, n))
+        mask = torch.where(rnd((nw, n, n)) > 1.0, -100.0, 0.0)
+        stage = f"N {n} ({bw}, {heads})"
+        for name, fn in (
+                ("K10.f32" + sfx, lambda m: wa.window_attention_qkv(
+                    qkv, bias, m, heads, sc)),
+                ("K10s.f32" + sfx, lambda m: wa.window_attention_save(
+                    q, k, v, bias, m, sc))):
+            t = (queued_ms(lambda: fn(None), args.iters)
+                 + queued_ms(lambda: fn(mask), args.iters)) / 2
+            ms[name][stage] = t
+            step[name] += blocks * t
+        del qkv, q, k, v, mask
+        torch.cuda.empty_cache()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader", "-i", "0"],
                           capture_output=True, text=True).stdout.strip()
