@@ -1408,7 +1408,7 @@ def short_kernel(name):
         args = base.split("gemm_tf32_kernel<", 1)[1].rsplit(">", 1)[0]
         epi, ta, tb, _, mode = (a.strip() for a in args.rsplit(",", 4))
         lay = "".join("M" if f == "true" else "K" for f in (ta, tb))
-        mode = {"0": "", "1": ",lo", "2": ",ln", "3": ",lo+ln"}.get(mode, mode)
+        mode = ",lo" if mode == "true" else ""  # W's lo by TMA
         return f"tf32<{epi.split('::')[-1]},{lay}{mode}>"
     if "gemm_kernel<" in base:
         epi = base.split("gemm_kernel<")[1].split(",")[0].split("::")[-1]

@@ -27,12 +27,11 @@
 // tail) are three launches: `prep` (the two-pass LN rows, each row by one
 // warp in registers as csrc/ln.cu's f32 LN rows compute them, and the lo
 // parts of W1 and W2, w - trunc(w), once a call), then fc1 + GELU and fc2
-// + residual with W's lo given: the core's kLoByTma instances, which only
-// they take, bring W's lo by TMA beside its hi (the raw tile), so no
-// stager warp splits W again for each output tile and the core's shared
-// memory, which bounds it, carries one 16 KB pass a stage fewer (the
-// stagers' split, the design before, is tools/ablate_k3_f32.py's
-// "neither").  h keeps
+// + residual with W's lo given: the core's kLoByTma instances bring W's
+// lo by TMA beside its hi (the raw tile), so no stager warp splits W
+// again for each output tile and the core's shared memory, which bounds
+// it, carries one 16 KB pass a stage fewer (the stagers' split, which the
+// other callers still take, is tools/ablate_k3_f32.py's "neither").  h keeps
 // one round trip, the bf16 K3's choice (csrc/fused_mlp.cu: a row block
 // small enough to keep 4C on chip re-reads both weights).  Folding the
 // LayerNorm into fc1's A operand lost (tools/ablate_k3_f32.py, PERF.md):
@@ -97,18 +96,18 @@ struct EpiGemm {
   }
 };
 
-// kMode: 0, or tf32::kLoByTma with W's lo at `wlo`
-template <int kEpi, int kMode = 0>
+// kLoByTma: W's lo at `wlo`, brought by TMA (else split by the stagers)
+template <int kEpi, bool kLoByTma>
 cudaError_t launch(const void* a, const void* w, const void* wlo, const Args& args, int K,
                    cudaStream_t s) {
   tf32::Params<Args> p{};
   cudaError_t err = tf32::map_operand(&p.a0, a, args.M, K, false);
   if (err == cudaSuccess) err = tf32::map_operand(&p.b0, w, args.N, K, false);
-  if (err == cudaSuccess && kMode != 0) err = tf32::map_operand(&p.b0_lo, wlo, args.N, K, false);
+  if (err == cudaSuccess && kLoByTma) err = tf32::map_operand(&p.b0_lo, wlo, args.N, K, false);
   if (err != cudaSuccess) return err;
   p.k_tiles = p.k_tiles_per_split = K / tf32::kBK;
   p.epi = args;
-  return tf32::launch<EpiGemm<kEpi>, false, false, false, kMode>(p, args.M, args.N, 1, s);
+  return tf32::launch<EpiGemm<kEpi>, false, false, false, kLoByTma>(p, args.M, args.N, 1, s);
 }
 
 // K3 / K8 f32's prep: blocks [0, row_blocks) take 8 rows each, a warp a row
@@ -200,30 +199,36 @@ cudaError_t mlp_prep(const float* x, const float* gamma, const float* beta, floa
 
 // out (M, N) = epilogue(A W^T): a (M, K), w (N, K), b (N,), f32 and
 // 16-byte aligned, K a multiple of 32, N even; epi 0 kBias (the first
-// `scaled` columns times `scale`; wlo null), 1 kGelu, 2 kResidual (res
-// (M, N); with keep, (M / rows_per_sample,), the residual branch scaled
-// per sample): K3 / K8 f32's, with W's lo parts at wlo
-// (lavt_mlp_f32_prep), which TMA brings beside W.
+// `scaled` columns times `scale`), 1 kGelu, 2 kResidual (res (M, N); with
+// keep, (M / rows_per_sample,), the residual branch scaled per sample).
+// wlo: W's lo parts (w - trunc(w), lavt_mlp_f32_prep), which TMA brings
+// beside W, or null: the core's stagers split W for each output tile.
 extern "C" int lavt_gemm_f32(const void* a, const void* w, const void* wlo, const void* b,
                              const void* res, const void* keep, void* out, int M, int N, int K,
                              int epi, int scaled, float scale, int rows_per_sample,
                              void* stream) {
   using namespace lavt::g32;
   using lavt::tf32::aligned16;
-  using lavt::tf32::kLoByTma;
   if (M < 1 || N < 2 || N % 2 != 0 || K < lavt::tf32::kBK || K % lavt::tf32::kBK != 0 ||
       !aligned16(a) || !aligned16(w) || !aligned16(out) || (epi == kResidual && res == nullptr) ||
       (keep != nullptr && (epi != kResidual || rows_per_sample < 1)) ||
-      (epi == kBias) != (wlo == nullptr) || (wlo != nullptr && !aligned16(wlo)))
+      (wlo != nullptr && !aligned16(wlo)))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args args{static_cast<const float*>(b),    static_cast<const float*>(res),
                   static_cast<const float*>(keep), static_cast<float*>(out),
                   M, N, scaled, scale, rows_per_sample};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool lo = wlo != nullptr;
   switch (epi) {
-    case kBias: return static_cast<int>(launch<kBias>(a, w, wlo, args, K, s));
-    case kGelu: return static_cast<int>(launch<kGelu, kLoByTma>(a, w, wlo, args, K, s));
-    case kResidual: return static_cast<int>(launch<kResidual, kLoByTma>(a, w, wlo, args, K, s));
+    case kBias:
+      return static_cast<int>(lo ? launch<kBias, true>(a, w, wlo, args, K, s)
+                                 : launch<kBias, false>(a, w, wlo, args, K, s));
+    case kGelu:
+      return static_cast<int>(lo ? launch<kGelu, true>(a, w, wlo, args, K, s)
+                                 : launch<kGelu, false>(a, w, wlo, args, K, s));
+    case kResidual:
+      return static_cast<int>(lo ? launch<kResidual, true>(a, w, wlo, args, K, s)
+                                 : launch<kResidual, false>(a, w, wlo, args, K, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -66,11 +66,10 @@
 // cuTensorMapEncodeTiled (sm90::encode_tiled, which makes the device's
 // primary context current once per host thread).
 //
-// One mode, kLoByTma, off for every user but K3 / K8 f32
-// (csrc/gemm_f32.cu), whose kernels alone are built with it: a
-// K-major B's lo comes split already (a copy written once a call),
-// brought by a third TMA load a stage; the stagers idle and the consumers
-// wait on the full barrier only.
+// kLoByTma (a one-product GEMM with K-major operands, csrc/gemm_f32.cu
+// when its caller passes W's lo): a K-major B's lo comes split already (a
+// copy written once a call), brought by a third TMA load a stage; the
+// stagers idle and the consumers wait on the full barrier only.
 #pragma once
 
 #include <cuda.h>
@@ -156,9 +155,6 @@ struct Params {
   int m_tiles, n_tiles;  // set by launch
   EpiArgs epi;
 };
-
-// the mode (a bit of the kernel's kMode)
-constexpr int kLoByTma = 1;
 
 // -- device ---------------------------------------------------------------
 
@@ -288,12 +284,11 @@ __device__ __forceinline__ void load_a(const unsigned char* a, int row0, uint32_
 // consumer's copy of the first (thread t's value i at stash[i 128 + t]).
 // `red` is 4 x 128 floats of the consumer's own shared memory (named
 // barrier 1 + consumer synchronises its 128 threads).
-template <class Epi, bool kTA, bool kTB, bool kDual, int kMode = 0>
+template <class Epi, bool kTA, bool kTB, bool kDual, bool kLoByTma = false>
 __global__ void __launch_bounds__(kThreads, 1)
     gemm_tf32_kernel(const __grid_constant__ Params<typename Epi::Args> p) {
   using R = Ring<kTB, kDual>;
-  constexpr bool kLoTma = (kMode & kLoByTma) != 0;
-  static_assert(!kLoTma || !(kTA || kTB || kDual), "kLoByTma: K-major, one product");
+  static_assert(!kLoByTma || !(kTA || kTB || kDual), "kLoByTma: K-major, one product");
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -331,7 +326,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           for (int t = 0; t < tiles; ++t, ++idx) {
             const int k0 = (kt0 + t) * kBK, s = idx % R::kStages;
             mbar_wait(&empty[s], ((idx / R::kStages) & 1) ^ 1);
-            mbar_expect_tx(&full[s], (kLoTma ? 3 : 2) * kOpBytes);
+            mbar_expect_tx(&full[s], (kLoByTma ? 3 : 2) * kOpBytes);
             const uint32_t a = smem_u32(smem + s * R::kStageBytes), b = a + kOpBytes;
             if (kTA) {
               for (int i = 0; i < 4; ++i) tma_load(ma, a + i * kBoxBytes, &full[s], m0 + 32 * i, k0);
@@ -343,11 +338,11 @@ __global__ void __launch_bounds__(kThreads, 1)
             } else {
               tma_load(mb, b, &full[s], k0, n0);
             }
-            if (kLoTma) tma_load(&p.b0_lo, a + R::kBLo, &full[s], k0, n0);
+            if (kLoByTma) tma_load(&p.b0_lo, a + R::kBLo, &full[s], k0, n0);
           }
         }
       }
-    } else if (sid >= 0 && !kLoTma) {
+    } else if (sid >= 0 && !kLoByTma) {
       int idx = 0;
       for (int tile = blockIdx.x; tile < n_out; tile += gridDim.x)
         for (int seg = 0; seg < kSegs; ++seg)
@@ -375,7 +370,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int t = 0; t < tiles; ++t, ++idx) {
           const int s = idx % R::kStages, parity = (idx / R::kStages) & 1;
           mbar_wait(&full[s], parity);
-          if (!kLoTma) mbar_wait(&ready[s], parity);
+          if (!kLoByTma) mbar_wait(&ready[s], parity);
           const unsigned char* st = smem + s * R::kStageBytes;
           uint32_t ah[4][4], al[4][4];
           load_a<kTA>(st, 64 * wg, ah, al);
@@ -409,10 +404,10 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // Launch on `stream` over the ceil(m / 128) x ceil(n / 128) output tiles,
 // times `splits` over K: at most one block per SM in all.
-template <class Epi, bool kTA, bool kTB, bool kDual, int kMode = 0>
+template <class Epi, bool kTA, bool kTB, bool kDual, bool kLoByTma = false>
 cudaError_t launch(Params<typename Epi::Args> p, int m, int n, int splits, cudaStream_t stream) {
   using R = Ring<kTB, kDual>;
-  auto kernel = gemm_tf32_kernel<Epi, kTA, kTB, kDual, kMode>;
+  auto kernel = gemm_tf32_kernel<Epi, kTA, kTB, kDual, kLoByTma>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(R::kSmem));
   if (err != cudaSuccess) return err;

@@ -360,9 +360,10 @@ def gemm_f32(a, w, b, epi: int, res=None, scaled: int = 0,
     multiple of 32, N even; epi GEMM_F32_BIAS ((· + b) times `scale` on the
     first `scaled` columns), GEMM_F32_GELU (exact GELU of · + b) or
     GEMM_F32_RESIDUAL (res + · + b; with keep, (M / rows,) f32, res +
-    keep[row // rows] (· + b): K8 f32); the last two (K3 / K8 f32's) take
-    wlo, w's lo parts (`fused_mlp.mlp_f32_prep`), brought by TMA beside w
-    (the core's kLoByTma instances) instead of split by its stagers.  Its
+    keep[row // rows] (· + b): K8 f32).  wlo, w's lo parts
+    (`fused_mlp.mlp_f32_prep`, K3 / K8 f32's), is brought by TMA beside w
+    (the core's kLoByTma instances); without it the core's stagers split w
+    for each output tile.  Its
     plain versions are its callers' (`gemm_bias_plain`,
     `fused_mlp.gemm_bias_gelu_plain`, `fused_mlp.gemm_residual_plain`)."""
     (m, k), n = a.shape, w.shape[0]
@@ -371,9 +372,6 @@ def gemm_f32(a, w, b, epi: int, res=None, scaled: int = 0,
                          f"{(m, n, k)}")
     f32, dev = torch.float32, a.device
     checks = [("a", a, f32, None), ("w", w, f32, (n, k)), ("b", b, f32, (n,))]
-    if (epi == GEMM_F32_BIAS) != (wlo is None):
-        raise ValueError("f32 GEMM kernel: the GELU and residual epilogues "
-                         "take w's lo parts, the bias epilogue none")
     if wlo is not None:
         checks.append(("wlo", wlo, f32, (n, k)))
     if epi == GEMM_F32_RESIDUAL:

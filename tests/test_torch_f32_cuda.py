@@ -515,8 +515,9 @@ def test_k8_k7_f32(dev, m, c, rows):
 def test_k3_f32_launches(dev, m, c):
     """K3 f32's three launches against their plain versions: the prep's LN
     rows within 1e-4 and the weights' lo parts bit for bit; fc1 + GELU and
-    fc2 + residual with W's lo by TMA within 1e-4 abs + rel, and refused
-    without it; K3 f32 and K8 f32 the same bits in two calls."""
+    fc2 + residual with W's lo by TMA within 1e-4 abs + rel, and the same
+    bits as with W split by the core's stagers (bias and GELU epilogues);
+    K3 f32 and K8 f32 the same bits in two calls."""
     rng = np.random.default_rng(3 * m + c)
     x, g, be, w1, b1, w2, b2 = _mlp_args(rng, dev, m, c)
     xn, w1lo, w2lo = fused_mlp.mlp_f32_prep(x, g, be, w1, w2)
@@ -527,10 +528,9 @@ def test_k3_f32_launches(dev, m, c):
     _close(fused_mlp.gemm_gelu_f32(xn, w1, w1lo, b1), want_h)
     want = fused_mlp.gemm_residual_plain(want_h, w2, b2, x)
     _close(fused_mlp.gemm_residual_f32(want_h, w2, w2lo, b2, x), want)
-    for epi, lo in ((fused_msa.GEMM_F32_BIAS, w1lo),  # W's lo: GELU, residual
-                    (fused_msa.GEMM_F32_GELU, None)):
-        with pytest.raises(ValueError):
-            fused_msa.gemm_f32(xn, w1, b1, epi, wlo=lo)
+    for epi in (fused_msa.GEMM_F32_BIAS, fused_msa.GEMM_F32_GELU):
+        assert torch.equal(fused_msa.gemm_f32(xn, w1, b1, epi, wlo=w1lo),
+                           fused_msa.gemm_f32(xn, w1, b1, epi))
     for fn in (lambda: fused_mlp.fused_ln_mlp_f32(x, g, be, w1, b1, w2, b2),
                lambda: fused_mlp.fused_ln_mlp_droppath_f32(
                    x, g, be, w1, b1, w2, b2,
@@ -849,36 +849,37 @@ CORE_GEMMS = [(2085, 512, 128), (2085, 128, 512), (1805, 4096, 1024),
 @pytest.mark.parametrize("m,n,k", CORE_GEMMS)
 def test_tf32_core_gemm_every_epilogue(dev, m, n, k):
     """`gemm_f32`'s three epilogues (bias with q's scale on the first
-    columns, GELU, residual with and without keep) within 1e-4 abs + rel
-    of their f32 plain versions and their sums within 1e-4 (rms + |want|)
-    of f64; the same bits twice."""
+    columns, GELU, residual with and without keep), each with w split by
+    the core's stagers and with w's lo by TMA, within 1e-4 abs + rel of
+    their f32 plain versions and the bias's sums within 1e-4 (rms +
+    |want|) of f64; the same bits twice."""
     rng = np.random.default_rng(m + n + k)
     a = _f32(rng, (m, k), 1.0, dev)
     w = _f32(rng, (n, k), k ** -0.5, dev)
     b = _f32(rng, (n,), 0.2, dev)
     acc = a @ w.t() + b
     acc64 = a.double() @ w.double().t() + b.double()
-    got = _twice(lambda: fused_msa.gemm_f32(a, w, b, fused_msa.GEMM_F32_BIAS,
-                                            scaled=n // 3, scale=0.17))
     col = torch.arange(n, device=dev) < n // 3
-    _close(got, torch.where(col, acc * 0.17, acc))
-    _sums_close(got, torch.where(col, acc64 * 0.17, acc64))
-    gemm = fused_msa.gemm_f32
-    lo = fused_mlp.tf32_split(w)[1]  # K3 / K8 f32's: w's lo parts by TMA
-    _close(_twice(lambda: gemm(a, w, b, fused_msa.GEMM_F32_GELU, wlo=lo)),
-           fused_mlp.gemm_bias_gelu_plain(a, w, b))
     res = _f32(rng, (m, n), 1.0, dev)
-    _close(_twice(lambda: gemm(a, w, b, fused_msa.GEMM_F32_RESIDUAL, res=res,
-                               wlo=lo)),
-           fused_mlp.gemm_residual_plain(a, w, b, res))
     rows = m // 2 if m % 2 == 0 else m
     keep = torch.where(torch.arange(m // rows, device=dev) % 2 == 1, 0.0,
                        1.0 / 0.7)
-    got = _twice(lambda: gemm(a, w, b, fused_msa.GEMM_F32_RESIDUAL, res=res,
-                              keep=keep, rows=rows, wlo=lo))
-    want = fused_mlp.gemm_residual_plain(a, w, b, res, keep, rows)
-    _close(got, want)
-    _close(got - res, want - res)
+    gemm = fused_msa.gemm_f32
+    for lo in (None, fused_mlp.tf32_split(w)[1]):  # stagers' split, by TMA
+        got = _twice(lambda: gemm(a, w, b, fused_msa.GEMM_F32_BIAS,
+                                  scaled=n // 3, scale=0.17, wlo=lo))
+        _close(got, torch.where(col, acc * 0.17, acc))
+        _sums_close(got, torch.where(col, acc64 * 0.17, acc64))
+        _close(_twice(lambda: gemm(a, w, b, fused_msa.GEMM_F32_GELU, wlo=lo)),
+               fused_mlp.gemm_bias_gelu_plain(a, w, b))
+        _close(_twice(lambda: gemm(a, w, b, fused_msa.GEMM_F32_RESIDUAL,
+                                   res=res, wlo=lo)),
+               fused_mlp.gemm_residual_plain(a, w, b, res))
+        got = _twice(lambda: gemm(a, w, b, fused_msa.GEMM_F32_RESIDUAL,
+                                  res=res, keep=keep, rows=rows, wlo=lo))
+        want = fused_mlp.gemm_residual_plain(a, w, b, res, keep, rows)
+        _close(got, want)
+        _close(got - res, want - res)
 
 
 # (M, C) of K7 f32's and K5 f32's products on the core: Swin-B stages 1, 2

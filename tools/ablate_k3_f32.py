@@ -18,15 +18,22 @@ The variants:
     memory;
   * "fold in the split": lo by TMA, and the consumers apply the LayerNorm
     to their A values as they load and split them (each thread's two
-    rows' (mean, rstd) once a tile, gamma and beta read per stage).
-Each variant but "lo by TMA" is built apart with `nvcc -Xptxas -v` from
-text edits of csrc/gemm_f32.cu (and, for the folds,
-csrc/gemm_tf32_sm90.cuh) under build/ablate_k3_f32/ (fc1's registers and
-spill stores printed).  Each variant
-is checked against `fused_ln_mlp_plain` within 1e-4 abs + rel, then
-timed in the order A B C D D C B A; "ms" holds each variant's two means
-per stage, "forward" their sums over a bs-8 forward's blocks (depths 2, 2,
-18, 2).  Exits 1 if a variant fails its check.
+    rows' (mean, rstd) once a tile, gamma and beta read per stage);
+  * "ping-pong": lo by TMA, and the consumers alternate output tiles of
+    64 x 128 (each its own A stage of 64 rows, B hi and lo: five 40 KB
+    stages), their mainloops in turns (two named barriers), so that one's
+    GELU / residual epilogue runs under the other's wgmmas;
+  * "ping-pong, unordered": the same without the turns, each consumer
+    with a ring of two stages and a TMA lane of its own.
+"neither" and "lo by TMA" are the package's own launches (fc1 and fc2
+without and with W's lo); the folds and the ping-pong kernel are built
+apart with `nvcc -Xptxas -v` from text edits of csrc/gemm_f32.cu and
+csrc/gemm_tf32_sm90.cuh under build/ablate_k3_f32/ (fc1's registers and
+spill stores printed).  Each variant is checked against
+`fused_ln_mlp_plain` within 1e-4 abs + rel, then timed in the order A B
+... B A; "ms" holds each variant's two means per stage, "forward" their
+sums over a bs-8 forward's blocks (depths 2, 2, 18, 2).  Exits 1 if a
+variant fails its check.
 """
 
 import argparse
@@ -41,7 +48,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(ROOT, "lavt_rs_tpu_torch", "csrc")
 OUT = os.path.join(ROOT, "build", "ablate_k3_f32")
 STAGES = ((120, 128, 2), (60, 256, 2), (30, 512, 18), (15, 1024, 2))
-VARIANTS = ("neither", "lo by TMA", "fold by the stagers", "fold in the split")
+VARIANTS = ("neither", "lo by TMA", "fold by the stagers", "fold in the split",
+            "ping-pong", "ping-pong, unordered")
 CORE, SOURCE = "gemm_tf32_sm90.cuh", "gemm_f32.cu"
 # the folds' pieces, inserted before the core's kernel
 FOLD_FUNCS = """
@@ -111,43 +119,185 @@ extern "C" int lavt_gemm_mlp_f32_fold(const void* x, const void* w, const void* 
   p.k_tiles = p.k_tiles_per_split = K / t::kBK;
   p.epi = Args{static_cast<const float*>(b), nullptr, nullptr, static_cast<float*>(out),
                M, N, 0, 1.f, 1};
-  return static_cast<int>(t::launch<EpiGemm<kGelu>, false, false, false, t::kLoByTma | t::kFoldLn>(
+  return static_cast<int>(t::launch<EpiGemm<kGelu>, false, false, false, true, true>(
       p, M, N, 1, static_cast<cudaStream_t>(stream)));
 }
 """
 
+# the ping-pong kernel and its launch (x or h, W, W's lo, b, res, keep ->
+# out), appended to csrc/gemm_f32.cu
+PP_ENTRY = """
+namespace lavt {
+namespace tf32 {
 
-# the stagers' split: fc1 and fc2 without kLoByTma, W's lo not asked for
-NEITHER = (
-    (SOURCE, "      (epi == kBias) != (wlo == nullptr) || (wlo != nullptr && !aligned16(wlo)))",
-     "      false)"),
-    (SOURCE, "launch<kGelu, kLoByTma>(", "launch<kGelu>("),
-    (SOURCE, "launch<kResidual, kLoByTma>(", "launch<kResidual>("),
-)
+constexpr int kPpRows = 64, kPpStages = 5;
+constexpr int kPpA = kPpRows * kBK * 4;             // A's 64 x 32 stage, 8 KB
+constexpr int kPpStageBytes = kPpA + 2 * kOpBytes;  // A, B hi, B lo: 40 KB
+constexpr size_t kPpSmem = size_t(kPpStages) * kPpStageBytes + 2 * kPpStages * 8 + 1024;
+
+__device__ __forceinline__ void pair_sync(int id) {
+  asm volatile("bar.sync %0, 256;\\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void pair_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\\n" ::"r"(id) : "memory");
+}
+
+// Consumer c takes the block's output tiles c, c + 2, ... (64 x 128
+// each).  kOrdered: one ring of five stages, filled tile after tile by one
+// TMA lane; tile i's mainloop starts after tile i - 1's (barrier 3 + c,
+// arrived on by the other consumer), so the consumers' mainloops alternate
+// and each epilogue runs under the other's (a consumer never waits on a
+// stage whose slot's earlier use has not landed: the parity wait would
+// pass it).  Unordered: a ring of two stages a consumer, each filled by a
+// TMA lane of its own, the mainloops free.
+template <class Epi, bool kOrdered>
+__global__ void __launch_bounds__(kThreads, 1)
+    gemm_tf32_pp_kernel(const __grid_constant__ Params<typename Epi::Args> p) {
+  constexpr int kRing = kOrdered ? kPpStages : 2;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full_all = reinterpret_cast<uint64_t*>(smem + kPpStages * kPpStageBytes);
+  uint64_t* empty_all = full_all + kPpStages;
+  const int wg = threadIdx.x / 128;
+  const int n_out = p.m_tiles * p.n_tiles, tiles = p.k_tiles;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kPpStages; ++s) {
+      mbar_init(&full_all[s], 1);
+      mbar_init(&empty_all[s], 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\\n" ::: "memory");
+  }
+  __syncthreads();
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == 256 || (!kOrdered && threadIdx.x == 288)) {
+      const int c = kOrdered ? 0 : (threadIdx.x - 256) / 32;  // its consumer's ring
+      uint64_t* full = full_all + c * kRing;
+      uint64_t* empty = empty_all + c * kRing;
+      unsigned char* ring = smem + c * kRing * kPpStageBytes;
+      int idx = 0;
+      for (int tile = blockIdx.x + c * gridDim.x; tile < n_out;
+           tile += (kOrdered ? 1 : 2) * gridDim.x) {
+        const int m0 = tile / p.n_tiles * kPpRows, n0 = tile % p.n_tiles * kTile;
+        for (int t = 0; t < tiles; ++t, ++idx) {
+          const int k0 = t * kBK, s = idx % kRing;
+          mbar_wait(&empty[s], ((idx / kRing) & 1) ^ 1);
+          mbar_expect_tx(&full[s], kPpStageBytes);
+          const uint32_t a = smem_u32(ring + s * kPpStageBytes);
+          tma_load(&p.a0, a, &full[s], k0, m0);
+          tma_load(&p.b0, a + kPpA, &full[s], k0, n0);
+          tma_load(&p.b0_lo, a + kPpA + kOpBytes, &full[s], k0, n0);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\\n" ::"n"(kConsumerRegs));
+    float acc[64], part[64];
+    const int c = kOrdered ? 0 : wg;
+    uint64_t* full = full_all + c * kRing;
+    uint64_t* empty = empty_all + c * kRing;
+    unsigned char* ring = smem + c * kRing * kPpStageBytes;
+    int idx = kOrdered ? wg * tiles : 0;
+    for (int tile = blockIdx.x + wg * gridDim.x, i = wg; tile < n_out;
+         tile += 2 * gridDim.x, i += 2, idx += kOrdered ? tiles : 0) {
+      const int m0 = tile / p.n_tiles * kPpRows, n0 = tile % p.n_tiles * kTile;
+      if (kOrdered && i > 0) pair_sync(3 + wg);
+#pragma unroll
+      for (int j = 0; j < 64; ++j) acc[j] = 0.f;
+      for (int t = 0; t < tiles; ++t, ++idx) {
+        const int s = idx % kRing, parity = (idx / kRing) & 1;
+        mbar_wait(&full[s], parity);
+        const unsigned char* st = ring + s * kPpStageBytes;
+        uint32_t ah[4][4], al[4][4];
+        load_a<false>(st, 0, ah, al);
+        const uint32_t bhi = smem_u32(st + kPpA), blo = bhi + kOpBytes;
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          wgmma_tf32(part, al[kk], kmajor_desc(bhi, kk), kk != 0);
+          wgmma_tf32(part, ah[kk], kmajor_desc(blo, kk), 1);
+        }
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) wgmma_tf32(part, ah[kk], kmajor_desc(bhi, kk), 1);
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<0>();
+        fence_regs(part);
+        fence_regs(ah);
+        fence_regs(al);
+        mbar_arrive(&empty[s]);
+#pragma unroll
+        for (int j = 0; j < 64; ++j) acc[j] += part[j];
+      }
+      if (kOrdered && tile + gridDim.x < n_out) pair_arrive(3 + (1 - wg));
+      Epi::store(p.epi, acc, nullptr, m0, n0, nullptr);
+    }
+  }
+}
+
+}  // namespace tf32
+}  // namespace lavt
+
+extern "C" int lavt_gemm_f32_pp(const void* a, const void* w, const void* wlo, const void* b,
+                                const void* res, const void* keep, void* out, int M, int N,
+                                int K, int epi, int ordered, void* stream) {
+  using namespace lavt::g32;
+  namespace t = lavt::tf32;
+  t::Params<Args> p{};
+  cudaError_t err = t::make_map(&p.a0, a, K, M, t::kPpRows);
+  if (err == cudaSuccess) err = t::map_operand(&p.b0, w, N, K, false);
+  if (err == cudaSuccess) err = t::map_operand(&p.b0_lo, wlo, N, K, false);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  p.k_tiles = p.k_tiles_per_split = K / t::kBK;
+  p.m_tiles = (M + t::kPpRows - 1) / t::kPpRows;
+  p.n_tiles = (N + t::kTile - 1) / t::kTile;
+  p.epi = Args{static_cast<const float*>(b), static_cast<const float*>(res),
+               static_cast<const float*>(keep), static_cast<float*>(out), M, N, 0, 1.f, 1};
+  const int blocks = std::max(1, std::min(p.m_tiles * p.n_tiles, lavt::sm90::sm_count()));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define LAVT_PP(E, O)                                                                   \\
+  if (epi == E && ordered == O) {                                                      \\
+    auto kernel = t::gemm_tf32_pp_kernel<EpiGemm<E>, O>;                              \\
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,   \\
+                               static_cast<int>(t::kPpSmem));                         \\
+    if (err != cudaSuccess) return static_cast<int>(err);                             \\
+    kernel<<<blocks, t::kThreads, t::kPpSmem, s>>>(p);                                \\
+    return static_cast<int>(cudaGetLastError());                                      \\
+  }
+  LAVT_PP(kGelu, 1) LAVT_PP(kGelu, 0) LAVT_PP(kResidual, 1) LAVT_PP(kResidual, 0)
+#undef LAVT_PP
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+"""
 
 
 def fold_edits(split):
     """(file, old, new) edits that add the fold to the shipped sources:
     by the stagers, or (split) in the consumers' split."""
     return (
-        (CORE, "constexpr int kLoByTma = 1;", "constexpr int kLoByTma = 1, kFoldLn = 2;"),
+        (CORE, "bool kLoByTma = false>\n__global__",
+         "bool kLoByTma = false, bool kFoldLn = false>\n__global__"),
+        (CORE, "bool kLoByTma = false>\ncudaError_t launch(",
+         "bool kLoByTma = false, bool kFoldLn = false>\ncudaError_t launch("),
+        (CORE, "gemm_tf32_kernel<Epi, kTA, kTB, kDual, kLoByTma>;",
+         "gemm_tf32_kernel<Epi, kTA, kTB, kDual, kLoByTma, kFoldLn>;"),
         (CORE, "  CUtensorMap b0_lo;          // kLoByTma: B's lo, K-major like b0\n",
          "  CUtensorMap b0_lo;\n  const float2* ln_stats;\n  const float* ln_gamma;\n"
          "  const float* ln_beta;\n"),
         (CORE, "\n// Grid (blocks, 1, splits).", FOLD_FUNCS + "\n// Grid (blocks, 1, splits)."),
-        (CORE, "  constexpr bool kLoTma = (kMode & kLoByTma) != 0;\n",
-         "  constexpr bool kLoTma = (kMode & kLoByTma) != 0;\n"
-         "  constexpr bool kFold = (kMode & kFoldLn) != 0;\n"
+        (CORE, "one product\");\n",
+         "one product\");\n"
+         "  constexpr bool kFold = kFoldLn;\n"
          f"  constexpr bool kSplit = {'true' if split else 'false'};\n"
-         "  constexpr bool kStaged = !kLoTma || (kFold && !kSplit);\n"),
-        (CORE, "    } else if (sid >= 0 && !kLoTma) {", "    } else if (sid >= 0 && kStaged) {"),
+         "  constexpr bool kStaged = !kLoByTma || (kFold && !kSplit);\n"),
+        (CORE, "    } else if (sid >= 0 && !kLoByTma) {", "    } else if (sid >= 0 && kStaged) {"),
         (CORE, "            stage_b<kTB>(st + kOpBytes, st + R::kBLo, st + R::kBHi, sid);",
          "            if constexpr (kFold)\n"
          "              fold_ln(st, tile / p.n_tiles * kTile, (kt0 + t) * kBK, p.epi.M,\n"
          "                      p.ln_stats, p.ln_gamma, p.ln_beta, sid);\n"
          "            else\n"
          "              stage_b<kTB>(st + kOpBytes, st + R::kBLo, st + R::kBHi, sid);"),
-        (CORE, "          if (!kLoTma) mbar_wait(&ready[s], parity);",
+        (CORE, "          if (!kLoByTma) mbar_wait(&ready[s], parity);",
          "          if (kStaged) mbar_wait(&ready[s], parity);"),
         (CORE, """      for (int seg = 0; seg < kSegs; ++seg) {
 #pragma unroll
@@ -209,13 +359,19 @@ def build(name, edits, append=""):
             entry = line
         elif "EpiGemmILi1E" in entry and (
                 "registers" in line or "spill" in line):
-            print(f"ptxas ({name}):", line.strip())
+            # the kernel (core or ping-pong) and its template flags
+            kind = "pp" if "pp_kernel" in entry else "core"
+            flags = entry.split("EpiGemmILi1EEE", 1)[-1].split("EEv")[0]
+            print(f"ptxas ({name}, {kind} {flags}):", line.strip())
     lib = ctypes.CDLL(so)
     for n in ("lavt_mlp_f32_prep", "lavt_gemm_f32"):
         getattr(lib, n).argtypes = cuda_lib.SIGNATURES[n]
-    if append:
+    if "lavt_gemm_mlp_f32_fold" in append:
         lib.lavt_gemm_mlp_f32_fold.argtypes = (ctypes.c_void_p,) * 8 + (
             ctypes.c_int,) * 3 + (ctypes.c_void_p,)
+    if "lavt_gemm_f32_pp" in append:
+        lib.lavt_gemm_f32_pp.argtypes = (ctypes.c_void_p,) * 7 + (
+            ctypes.c_int,) * 5 + (ctypes.c_void_p,)
     return lib
 
 
@@ -237,7 +393,7 @@ def cuda_ms(fn, iters):
 
 def variant(name, x, g, be, w1, b1, w2, b2, libs):
     """fn() running K3 f32 as variant `name`: the package's launches, or
-    for a fold its library's (`libs`)."""
+    for a fold or the ping-pong kernel its library's (`libs`)."""
     import torch
 
     from lavt_rs_tpu_torch.ops import cuda_lib
@@ -248,7 +404,7 @@ def variant(name, x, g, be, w1, b1, w2, b2, libs):
     hidden = w1.shape[0]
     if name == "lo by TMA":
         return lambda: fm.fused_ln_mlp_f32(x, g, be, w1, b1, w2, b2)
-    lib = libs[name]
+    lib = libs.get(name, cuda_lib.lib())
 
     def call(fn, *a):
         conv = [t.data_ptr() if isinstance(t, torch.Tensor) else t for t in a]
@@ -260,15 +416,24 @@ def variant(name, x, g, be, w1, b1, w2, b2, libs):
             xn = torch.empty_like(x)
             call("lavt_mlp_f32_prep", x, g, be, None, None, xn, None, None, m,
                  c, hidden, fm.EPS)
-            h = torch.empty((m, hidden), device=x.device)
-            call("lavt_gemm_f32", xn, w1, None, b1, None, None, h, m, hidden,
-                 c, ms.GEMM_F32_GELU, 0, 1.0, 1)
-            out = torch.empty_like(x)
-            call("lavt_gemm_f32", h, w2, None, b2, x, None, out, m, c, hidden,
-                 ms.GEMM_F32_RESIDUAL, 0, 1.0, 1)
-            return out
+            h = ms.gemm_f32(xn, w1, b1, ms.GEMM_F32_GELU)
+            return ms.gemm_f32(h, w2, b2, ms.GEMM_F32_RESIDUAL, res=x)
 
         return neither
+    if name.startswith("ping-pong"):
+        ordered = int(name == "ping-pong")
+
+        def ping_pong():
+            xn, w1lo, w2lo = fm.mlp_f32_prep(x, g, be, w1, w2)
+            h = torch.empty((m, hidden), device=x.device)
+            call("lavt_gemm_f32_pp", xn, w1, w1lo, b1, None, None, h, m,
+                 hidden, c, ms.GEMM_F32_GELU, ordered)
+            out = torch.empty_like(x)
+            call("lavt_gemm_f32_pp", h, w2, w2lo, b2, x, None, out, m, c,
+                 hidden, ms.GEMM_F32_RESIDUAL, ordered)
+            return out
+
+        return ping_pong
 
     def fold():
         stats = torch.empty((m, c), device=x.device)  # (mean, rstd) a row
@@ -306,11 +471,12 @@ def main():
     def rnd(shape, std=1.0):
         return torch.randn(shape, generator=gen, device=dev) * std
 
-    libs = {"neither": build("neither", NEITHER),
-            "fold by the stagers": build("fold by the stagers",
+    pp = build("ping-pong", (), PP_ENTRY)
+    libs = {"fold by the stagers": build("fold by the stagers",
                                          fold_edits(False), FOLD_ENTRY),
             "fold in the split": build("fold in the split", fold_edits(True),
-                                       FOLD_ENTRY)}
+                                       FOLD_ENTRY),
+            "ping-pong": pp, "ping-pong, unordered": pp}
     ms = {v: {} for v in VARIANTS}
     forward = dict.fromkeys(VARIANTS, 0.0)
     ok = True
@@ -323,6 +489,8 @@ def main():
         fns = {v: variant(v, *mlp, libs) for v in VARIANTS}
         stage = f"x({rows}, {c})"
         for v, fn in fns.items():
+            print(f"ablate_k3_f32: checking {v} at {stage}", file=sys.stderr,
+                  flush=True)
             err = ((fn() - want).abs() - 1e-4 * want.abs()).max().item()
             if err > 1e-4:
                 print(f"ablate_k3_f32: {v} {stage} misses 1e-4 abs + rel "
