@@ -107,6 +107,13 @@
        495 TFLOP/s TF32 over 3xTF32's three passes), its plain version
        and its f32 library chain (TF32 off: the faster of the matmul and
        linear / SDPA / linear chains; F.linear / F.gelu; F.layer_norm);
+       K1 f32 and K11 f32 with the weights' lo parts as the model keeps
+       them, and launch by launch (the LN rows, qkv, the attention, the
+       out-projection, the lo split) by device ms beside each bound;
+     * the work around K11 f32 in a window-12 bs-8 f32 forward (the plain
+       pre-attention LN, the pad, the two rolls, the crop) at the padded
+       blocks' shapes by device ms under torch.profiler, recorded beside
+       K11 f32's;
      * lavt_one Swin-B window-12 f32 with the kernels, on the main path's
        weights, answers three batches of 8 through `fwd_iou`: the f32
        counters must equal the model's `kernel_plan` at itemsize 4 (K1 4,
@@ -1388,6 +1395,115 @@ def k9_profiler_checks(what, b, nw, heads, n, masked, sc, port_only, q, k, v,
         only_port_kernels(f"K9 {what}", [k9])
 
 
+def msa_f32_launch_lines(label, x, lnp, w, bias, mask, flags, heads, sc, lo):
+    """K1 f32's (lnp given: x (B, nW, 144, C)) or K11 f32's (x the (B, Hp,
+    Wp, C) map) launches one by one, each by device ms a call (CUDA events
+    around its launches queued behind a device sleep, `queued_ms`) beside
+    its bound at the f32 peak: the LN rows (K1 f32), qkv with wqkv's lo,
+    the attention, the out-projection with wproj's lo, and the lo split of
+    both weights that the model runs once a weight version
+    (`WindowAttention.weight_lo`)."""
+    from lavt_rs_tpu_torch.ops import fused_msa, fused_msa_2d, ln
+
+    c = x.shape[-1]
+    rows = x.numel() // c
+    b, nw = x.shape[0], rows // x.shape[0] // 144
+    x2 = x.reshape(rows, c)
+    xn = ln.layer_norm_rows_launch(x2, *lnp) if lnp is not None else x2
+    qkv = fused_msa.gemm_bias(xn, w[0], w[1], c, sc, wlo=lo[0])
+    if lnp is not None:
+        def attn():
+            return fused_msa.msa_attn_f32(qkv.view(-1, 144, 3 * c), bias, mask,
+                                          heads, flags)[0]
+    else:
+        def attn():
+            return fused_msa_2d.msa_attn_map_f32(qkv.view(*x.shape[:3], 3 * c),
+                                                 bias, mask, heads, flags)
+    o = attn().reshape(rows, c)
+    work = save_launch_work(b, nw, c, heads, lnp is not None,
+                            masked_windows(mask), save=False, item=4)
+    work["lo split"] = (0, 2 * 4 * 4 * c * c)
+    parts = {}
+    if lnp is not None:
+        parts["LN rows"] = lambda: ln.layer_norm_rows_launch(x2, *lnp)
+    parts["qkv"] = lambda: fused_msa.gemm_bias(xn, w[0], w[1], c, sc,
+                                               wlo=lo[0])
+    parts["attention"] = attn
+    parts["out-projection"] = lambda: fused_msa.gemm_bias(o, w[2], w[3],
+                                                          wlo=lo[1])
+    parts["lo split"] = lambda: (fused_msa.tf32_lo(w[0]),
+                                 fused_msa.tf32_lo(w[2]))
+    log(f"{label}: device ms a call by launch (launches queued), bound at "
+        f"the f32 peak: " + "; ".join(
+            f"{k} {queued_ms(fn):.4f} (bound "
+            f"{bound_ms(work[k], PEAK_FLOPS_F32)[0]:.4f} "
+            f"{bound_ms(work[k], PEAK_FLOPS_F32)[1]})"
+            for k, fn in parts.items()))
+
+
+def around_k11_f32(dev, card, k11_ms):
+    """The work around K11 f32 in a window-12 bs-8 f32 forward, recorded
+    for a later change to judge: at each padded block's shapes (stage 3's
+    18 blocks on 30², stage 4's 2 on 15², half of them shifted by 6) the
+    plain pre-attention LN (`fused_msa.layer_norm_f32`), the pad to a
+    multiple of 12, the roll before and after K11 and the crop back (its
+    copy in the reshape), as `SwinBlock.forward` runs them
+    (models/swin2d.py), by device ms a forward under torch.profiler
+    (`record_function` labels), beside K11 f32's `k11_ms` a forward."""
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from lavt_rs_tpu_torch.ops import fused_msa
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 45)
+    blocks = []
+    for side, c, _, depth in STAGES[2:]:
+        pad = (12 - side % 12) % 12
+        x = torch.randn((BATCH, side * side, c), generator=g, device=dev)
+        lnp = (torch.randn((c,), generator=g, device=dev) * 0.2 + 1.0,
+               torch.randn((c,), generator=g, device=dev) * 0.2)
+        y = torch.randn((BATCH, side + pad, side + pad, c), generator=g,
+                        device=dev)
+        blocks += [(x, lnp, y, side, pad, shift)
+                   for shift in (0, 6) for _ in range(depth // 2)]
+
+    def forward():
+        for x, lnp, y, side, pad, ss in blocks:
+            b, _, c = x.shape
+            with record_function("around K11: pre-attention LN"):
+                t = fused_msa.layer_norm_f32(x, *lnp).view(b, side, side, c)
+            with record_function("around K11: pad"):
+                t = F.pad(t, (0, 0, 0, pad, 0, pad))
+            if ss:
+                with record_function("around K11: roll before"):
+                    t = torch.roll(t, shifts=(-ss, -ss), dims=(1, 2))
+                with record_function("around K11: roll after"):
+                    t = torch.roll(y, shifts=(ss, ss), dims=(1, 2))
+            else:
+                t = y
+            with record_function("around K11: crop"):
+                t = t[:, :side, :side, :].reshape(b, side * side, c)
+
+    forward()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        forward()
+        torch.cuda.synchronize()
+    parts = {}
+    for e in prof.key_averages():
+        if e.key.startswith("around K11: "):
+            us = getattr(e, "device_time_total",
+                         getattr(e, "cuda_time_total", 0))
+            parts[e.key[len("around K11: "):]] = us / 1e3
+    total = sum(parts.values())
+    log("f32 window-12 bs-8 forward around K11 f32 (20 padded blocks, "
+        "torch.profiler, device ms a forward): " + "; ".join(
+            f"{k} {v:.4f}" for k, v in parts.items())
+        + f"; total {total:.4f} beside K11 f32's {k11_ms:.4f}  [{card}]")
+
+
 def mlp_f32_launch_work(m, c):
     """(operations, bytes) of K3 / K8 f32's launches at (M, C), hidden 4C,
     in f32: the prep (x, gamma, beta read, LN(x) written; W1 and W2 read,
@@ -1404,12 +1520,11 @@ def short_kernel(name):
     """A kernel's name without its namespace, parameters and template
     arguments' noise (the GEMM core's epilogue kept)."""
     base = name.split("(")[0].replace("void ", "")
-    if "gemm_tf32_kernel<" in base:  # epilogue, A and B layouts, mode
+    if "gemm_tf32_kernel<" in base:  # epilogue, A and B layouts
         args = base.split("gemm_tf32_kernel<", 1)[1].rsplit(">", 1)[0]
-        epi, ta, tb, _, mode = (a.strip() for a in args.rsplit(",", 4))
+        epi, ta, tb, _ = (a.strip() for a in args.rsplit(",", 3))
         lay = "".join("M" if f == "true" else "K" for f in (ta, tb))
-        mode = ",lo" if mode == "true" else ""  # W's lo by TMA
-        return f"tf32<{epi.split('::')[-1]},{lay}{mode}>"
+        return f"tf32<{epi.split('::')[-1]},{lay}>"
     if "gemm_kernel<" in base:
         epi = base.split("gemm_kernel<")[1].split(",")[0].split("::")[-1]
         return f"gemm<{epi}>"
@@ -2397,6 +2512,8 @@ def f32_kernel_phase(dev, res):
         x = rnd((BATCH, nw, 144, c), 2.0) + 0.5
         lnp = (rnd((c,), 0.2) + 1.0, rnd((c,), 0.2))
         w, bias = msa_weights(c, heads)
+        # the weights' lo parts, as the model keeps them
+        lo = (fused_msa.tf32_lo(w[0]), fused_msa.tf32_lo(w[2]))
         for shift in (False, True):
             mask = shift_mask_2d(side, side, 12, 6, dev) if shift else None
             flags = (shift_mask_flags_2d(side, side, 12, 6, dev) if shift
@@ -2407,7 +2524,7 @@ def f32_kernel_phase(dev, res):
 
             def k1(tail=tail, flags=flags):
                 return fused_msa.fused_window_msa_ln_f32(x, *lnp, *tail,
-                                                         flags=flags)
+                                                         flags=flags, wlo=lo)
 
             measure(res, "K1.f32", what, blocks // 2, k1,
                     lambda: fused_msa.fused_window_msa_ln_plain(x, *lnp,
@@ -2416,11 +2533,14 @@ def f32_kernel_phase(dev, res):
                                   mask=shift, item=4), check,
                     peak=PEAK_FLOPS_F32)
             device_per_call(res, "K1.f32", what, blocks // 2, k1)
+            msa_f32_launch_lines(f"K1.f32 launches {what}", x, lnp, w, bias,
+                                 mask, flags, heads, sc, lo)
         del x
     for b, hp, wp, c, heads, shift, calls in K11_CASES[:5]:
         nw = (hp // 12) * (wp // 12)
         x = rnd((b, hp, wp, c))
         w, bias = msa_weights(c, heads)
+        lo = (fused_msa.tf32_lo(w[0]), fused_msa.tf32_lo(w[2]))
         mask = shift_mask_2d(hp, wp, 12, 6, dev) if shift else None
         flags = shift_mask_flags_2d(hp, wp, 12, 6, dev) if shift else None
         args = (x, *w, bias, mask, heads, sc, 12)
@@ -2428,8 +2548,8 @@ def f32_kernel_phase(dev, res):
         what = (f"x{tuple(x.shape)} heads {heads} mask {shift}"
                 + ("" if calls else " (off the path)"))
 
-        def k11(args=args, flags=flags):
-            return fused_msa_2d.fused_window_msa_2d_f32(*args, flags)
+        def k11(args=args, flags=flags, lo=lo):
+            return fused_msa_2d.fused_window_msa_2d_f32(*args, flags, wlo=lo)
 
         measure(res, "K11.f32", what, calls, k11,
                 lambda: fused_msa_2d.fused_window_msa_2d_plain(*args),
@@ -2437,6 +2557,8 @@ def f32_kernel_phase(dev, res):
                 msa_work(b, nw, c, heads, "fwd", mask=shift, item=4), check,
                 peak=PEAK_FLOPS_F32)
         device_per_call(res, "K11.f32", what, calls, k11)
+        msa_f32_launch_lines(f"K11.f32 launches {what}", x, None, w, bias,
+                             mask, flags, heads, sc, lo)
         del x, am, args
         torch.cuda.empty_cache()
 
@@ -2693,6 +2815,7 @@ def f32_phase(dev, card, res, weights, root, vocab, ckpt, batches,
             f"launches queued: {r['device']:.3f} ms), bound {r['bound']:.3f} "
             f"ms ({res.bound_by(k)}), plain (f32) {r['plain']:.3f} ms, "
             f"library chain (f32, TF32 off) {r['lib']:.3f} ms")
+    around_k11_f32(dev, card, res.r["K11.f32"]["device"])
     launches = f32_inference(dev, card, weights)
     f32_cli(dev, card, root, vocab, ckpt, batches, sentences)
     log(f"f32 phase (window 12): {time.perf_counter() - t0:.1f} s")
@@ -5145,9 +5268,11 @@ def f32_msa_train_kernel_phase(dev, res):
         b, nw, _, c = x.shape
         tail = (*w, bias, mask)
 
+        lo = (fm.tf32_lo(w[0]), fm.tf32_lo(w[2]))  # as the model keeps them
+
         def k6():
             return fm.fused_window_msa_bwd_recompute(x, lnp, *tail, gy, heads,
-                                                     sc, flags=flags)
+                                                     sc, flags=flags, wlo=lo)
 
         lib, _ = msa_bwd_yardstick(f"{name} {what}",
                                    (x, *w, bias) + tuple(lnp or ()), gy, mask,
@@ -5178,9 +5303,11 @@ def f32_msa_train_kernel_phase(dev, res):
                         flags, heads, gy)
                 continue
             msa_fwd_yardstick(f"save.f32 {what}", x, tail, lnp)
+            lo = (fm.tf32_lo(w[0]), fm.tf32_lo(w[2]))  # as the model keeps them
 
-            def save(tail=tail, flags=flags):
-                return fm.fused_window_msa_save(x, lnp, *tail, flags=flags)
+            def save(tail=tail, flags=flags, lo=lo):
+                return fm.fused_window_msa_save(x, lnp, *tail, flags=flags,
+                                                wlo=lo)
 
             measure(res, "save.f32", what, depth // 2, save,
                     lambda tail=tail: fm.fused_window_msa_save_plain(
@@ -5269,8 +5396,11 @@ def f32_msa_train_kernel_phase(dev, res):
             if ln:
                 continue
 
-            def k2(tail=tail, flags=flags):
-                return fm.fused_window_msa(x, *tail, flags=flags, exact=True)
+            lo = (fm.tf32_lo(w[0]), fm.tf32_lo(w[2]))  # as the model keeps them
+
+            def k2(tail=tail, flags=flags, lo=lo):
+                return fm.fused_window_msa(x, *tail, flags=flags, exact=True,
+                                           wlo=lo)
 
             lib, _ = msa_fwd_yardstick(f"K2.f32 {what}", x, tail, None)
             measure(res, "K2.f32", what, depth // 2, k2,
@@ -5957,17 +6087,17 @@ PTXAS_KERNELS = {"EpiBiasILb1E": "K2p / K2 / save-mode qkv GEMM (GEMM core)",
                  "attn_bwd_q_kernelILb0E": "K9 launch 1 (N <= 64)",
                  "attn_bwd_kv_kernelILb0E": "K9 launch 2 (N > 64)",
                  "attn_bwd_kv_kernelILb1E": "K9 launch 2 (N <= 64)",
-                 "EpiGemmILi0E": "f32 projections (3xTF32 wgmma core)",
-                 "EpiGemmILi1EEELb0ELb0ELb0ELi1E": "K3 / K8 f32 fc1 + GELU (3xTF32 "
-                                                   "wgmma core, W1 lo by TMA)",
-                 "EpiGemmILi2EEELb0ELb0ELb0ELi1E": "K3 / K8 f32 fc2 + residual (3xTF32 "
-                                                   "wgmma core, W2 lo by TMA)",
-                 "mlp_prep_kernelILi1E": "K3 / K8 f32 prep (C = 128)",
+                 "EpiGemmILi0E": "f32 projections (3xTF32 wgmma core, W lo by TMA)",
+                 "EpiGemmILi1E": "K3 / K8 f32 fc1 + GELU (3xTF32 wgmma core, W1 lo "
+                                 "by TMA)",
+                 "EpiGemmILi2E": "K3 / K8 f32 fc2 + residual (3xTF32 wgmma core, "
+                                 "W2 lo by TMA)",
+                 "mlp_prep_kernelILi1E": "K3 / K8 f32 prep (C = 128) and the lo split",
                  "7EpiDual": "K7 f32 dual GEMM (3xTF32 wgmma core)",
                  "8EpiStoreELb0ELb1E": "K7 f32 dyln, K5 f32 dattn / dx (3xTF32 wgmma "
                                       "core, B transposed by the stagers)",
                  "8EpiStoreELb1ELb1E": "K7 / K5 f32 weight grads (3xTF32 wgmma core)",
-                 "transpose_kernel": "K7 f32 W2 transpose",
+                 "transpose_kernel": "K7 f32 W2 transpose and lo parts",
                  "msa_f32_kernelILb0ELb0ELb0E": "K1 / K2 f32 attention (clamp)",
                  "msa_f32_kernelILb0ELb1ELb0E": "K1 / K2 f32 attention (taped, exact)",
                  "msa_f32_kernelILb0ELb1ELb1E": "save-mode f32 attention",

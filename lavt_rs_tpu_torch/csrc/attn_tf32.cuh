@@ -1,8 +1,9 @@
 // Shared pieces of the f32 attention kernels on the tensor cores (K9 f32,
 // csrc/window_attn_bwd_f32.cu; K5 f32's attention, csrc/fused_msa_bwd_f32.cu;
-// the f32 MSA forward of K1, K2, K11 and the save mode, csrc/fused_msa_f32.cu):
-// 3xTF32 products of head-dim-32 operands on mma.sync.m16n8k8 (the
-// fragment layouts of csrc/gemm_f32.cuh, `f32mma`).
+// K10 f32, csrc/window_attn_f32.cu; and the split and `frag_c2a` of the
+// f32 MSA forward of K1, K2, K11 and the save mode, csrc/fused_msa_f32.cu,
+// whose products run on wgmma): 3xTF32 products of head-dim-32 operands
+// on mma.sync.m16n8k8 (the fragment layouts of csrc/gemm_f32.cuh, `f32mma`).
 //
 // A warp owns 16 rows of every product it takes part in (one m-tile), so
 // each B fragment feeds one accumulator; what a B fragment costs decides

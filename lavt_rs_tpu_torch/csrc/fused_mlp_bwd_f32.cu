@@ -21,12 +21,13 @@
 //   (a) prep_kernel: one warp a row, xn, (mu, rstd) and, with keep, dmlp =
 //       gy keep (without keep dmlp is gy itself);
 //   (b) the dual GEMM: W2 transposed into a K-major copy (`transpose_kernel`;
-//       tf32 wgmma reads its shared-memory operands K-major only), then on
-//       the 3xTF32 wgmma + TMA core (csrc/gemm_tf32_sm90.cuh) hpre = xn
-//       W1^T into a stash in shared memory and dh = dmlp W2 on the same
-//       128 x 128 tile; the epilogue writes h and dhpre and each consumer's
-//       64-row column sums of dhpre (db1 partials, its four warps' 16 rows
-//       in order);
+//       tf32 wgmma reads its shared-memory operands K-major only), which
+//       writes the copy's lo parts and W1's beside it (lo = w - trunc(w)),
+//       then on the 3xTF32 wgmma + TMA core (csrc/gemm_tf32_sm90.cuh) hpre
+//       = xn W1^T into a stash in shared memory and dh = dmlp W2 on the
+//       same 128 x 128 tile, each B's lo brought by TMA beside it; the
+//       epilogue writes h and dhpre and each consumer's 64-row column sums
+//       of dhpre (db1 partials, its four warps' 16 rows in order);
 //   (c) dW2 = dmlp^T h and dW1 = dhpre^T xn on the core, both operands
 //       MN-major (the depth is M: A's fragments read in place, B
 //       transposed by the stagers), split over M into f32 partials
@@ -99,9 +100,13 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-// (b) W2 (rows, cols) -> its transpose (cols, rows), 32 x 32 tiles
+// (b) W2 (rows, cols) -> its transpose (cols, rows) and the transpose's lo
+// parts, 32 x 32 tiles; W1 (cols, rows), the transpose's shape, -> its lo
+// parts at the same places
 __global__ void __launch_bounds__(256)
-    transpose_kernel(const float* __restrict__ in, float* __restrict__ out, int rows, int cols) {
+    transpose_kernel(const float* __restrict__ in, float* __restrict__ out,
+                     float* __restrict__ out_lo, const float* __restrict__ w1,
+                     float* __restrict__ w1_lo, int rows, int cols) {
   __shared__ float t[32][33];
   const int c0 = blockIdx.x * 32, r0 = blockIdx.y * 32;
   for (int i = threadIdx.y; i < 32; i += 8) {
@@ -111,7 +116,13 @@ __global__ void __launch_bounds__(256)
   __syncthreads();
   for (int i = threadIdx.y; i < 32; i += 8) {
     const int c = c0 + i, r = r0 + threadIdx.x;
-    if (c < cols && r < rows) out[size_t(c) * rows + r] = t[threadIdx.x][i];
+    if (c < cols && r < rows) {
+      const size_t at = size_t(c) * rows + r;
+      const float v = t[threadIdx.x][i];
+      out[at] = v;
+      out_lo[at] = tf32::lo_of(v);
+      w1_lo[at] = tf32::lo_of(w1[at]);
+    }
   }
 }
 
@@ -315,15 +326,22 @@ cudaError_t dual(const void* xn, const void* dmlp, const void* w1, const void* b
       hidden % tf32::kTile != 0 || !ok(xn) || !ok(dmlp) || !ok(w1) || !ok(w2) || !ok(w2t) ||
       !ok(h) || !ok(dhpre) || w2t == nullptr)
     return cudaErrorInvalidValue;
+  // w2t: W2's K-major copy, its lo parts and W1's, each (hidden, C)
+  float* const copy = static_cast<float*>(w2t);
+  float* const copy_lo = copy + size_t(hidden) * C;
+  float* const w1_lo = copy_lo + size_t(hidden) * C;
   transpose_kernel<<<dim3((hidden + 31) / 32, (C + 31) / 32), dim3(32, 8), 0, s>>>(
-      static_cast<const float*>(w2), static_cast<float*>(w2t), C, hidden);
+      static_cast<const float*>(w2), copy, copy_lo, static_cast<const float*>(w1), w1_lo, C,
+      hidden);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   tf32::Params<DualArgs> p{};
   err = tf32::map_operand(&p.a0, xn, M, C, false);
   if (err == cudaSuccess) err = tf32::map_operand(&p.b0, w1, hidden, C, false);
+  if (err == cudaSuccess) err = tf32::map_operand(&p.b0_lo, w1_lo, hidden, C, false);
   if (err == cudaSuccess) err = tf32::map_operand(&p.a1, dmlp, M, C, false);
-  if (err == cudaSuccess) err = tf32::map_operand(&p.b1, w2t, hidden, C, false);
+  if (err == cudaSuccess) err = tf32::map_operand(&p.b1, copy, hidden, C, false);
+  if (err == cudaSuccess) err = tf32::map_operand(&p.b1_lo, copy_lo, hidden, C, false);
   if (err != cudaSuccess) return err;
   p.k_tiles = p.k_tiles_per_split = C / tf32::kBK;
   p.epi = DualArgs{static_cast<const float*>(b1), static_cast<float*>(h),
@@ -402,7 +420,7 @@ extern "C" int lavt_mlp_bwd_prep_f32(const void* x, const void* gy, const void* 
                                             static_cast<cudaStream_t>(stream)));
 }
 
-// w2t: (hidden, C) f32 scratch for W2's K-major copy
+// w2t: (3, hidden, C) f32 scratch: W2's K-major copy, its lo parts and W1's
 extern "C" int lavt_dual_gemm_gelu_bwd_f32(const void* xn, const void* dmlp, const void* w1,
                                            const void* b1, const void* w2, void* h,
                                            void* dhpre, void* db1_part, void* w2t, int M, int C,

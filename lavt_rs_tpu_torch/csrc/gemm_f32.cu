@@ -1,6 +1,6 @@
 // The f32 GEMM of the f32 variants of K1, K11, K3, K8, K2p, K2 and the
-// K1/K2 save mode: f32 accuracy on the tensor cores by 3xTF32; and K3 /
-// K8 f32's prep launch.
+// K1/K2 save mode: f32 accuracy on the tensor cores by 3xTF32; K3 / K8
+// f32's prep launch; and the split of a weight's lo parts.
 //
 //   out[m, n] = epilogue(sum_k A[m, k] W[n, k])
 //
@@ -23,20 +23,25 @@
 // res[m, n] + keep[m / rows_per_sample] (acc + b[n]): fused_mlp.py:_fwd's
 // residual with keep_rows (fused_ln_mlp_droppath, :533).
 //
+// W's lo parts, lo = w - trunc(w) (trunc clearing the 13 low bits), are
+// an input: TMA brings them beside W's hi (the raw tile), so no warp
+// splits W again for each output tile and the core's shared memory, which
+// bounds it, carries no 16 KB split pass a stage (the design before, the
+// stagers' split, is tools/ablate_k3_f32.py's "neither" in a checkout
+// that has it).  `split` (lavt_tf32_lo) writes them: the model's f32 MSA
+// keeps its projections' lo once a weight version (models/swin2d.py,
+// WindowAttention.weight_lo), and ops/fused_msa.gemm_f32 splits W itself
+// for a caller that passes none.
+//
 // K3 / K8 f32 (fused_mlp.py:_fwd, the LN -> fc1 + GELU -> fc2 + residual
 // tail) are three launches: `prep` (the two-pass LN rows, each row by one
 // warp in registers as csrc/ln.cu's f32 LN rows compute them, and the lo
-// parts of W1 and W2, w - trunc(w), once a call), then fc1 + GELU and fc2
-// + residual with W's lo given: the core's kLoByTma instances bring W's
-// lo by TMA beside its hi (the raw tile), so no stager warp splits W
-// again for each output tile and the core's shared memory, which bounds
-// it, carries one 16 KB pass a stage fewer (the stagers' split, which the
-// other callers still take, is tools/ablate_k3_f32.py's "neither").  h keeps
-// one round trip, the bf16 K3's choice (csrc/fused_mlp.cu: a row block
-// small enough to keep 4C on chip re-reads both weights).  Folding the
-// LayerNorm into fc1's A operand lost (tools/ablate_k3_f32.py, PERF.md):
-// in place by the stagers it adds a shared-memory pass a stage, in the
-// consumers' split it lengthens their path to the tensor cores.
+// parts of W1 and W2, once a call), then fc1 + GELU and fc2 + residual.
+// h keeps one round trip, the bf16 K3's choice (csrc/fused_mlp.cu: a row
+// block small enough to keep 4C on chip re-reads both weights).  Folding
+// the LayerNorm into fc1's A operand lost (tools/ablate_k3_f32.py,
+// PERF.md): in place by the stagers it adds a shared-memory pass a stage,
+// in the consumers' split it lengthens their path to the tensor cores.
 //
 // Bound on the H100: operations, at 165 TFLOP/s (495 TFLOP/s TF32 over the
 // three passes), from C = 256 on; at C = 128 the two are close: fc1 at
@@ -45,7 +50,7 @@
 // and fc2 (236 MB in, x 59 MB, out 59 MB) is bytes, 0.106 ms.
 //
 // Design: the 3xTF32 wgmma + TMA core of csrc/gemm_tf32_sm90.cuh, both
-// operands K-major (B's lo staged beside its raw tile, or brought by TMA),
+// operands K-major (W's hi the raw tile, its lo brought by TMA beside it),
 // 128 x 128 output tiles of two consumer warpgroups, persistent blocks;
 // the epilogue writes float2 pairs from the accumulators.  (The design
 // before: mma.sync tiles with the split at every fragment load, PERF.md.)
@@ -96,31 +101,32 @@ struct EpiGemm {
   }
 };
 
-// kLoByTma: W's lo at `wlo`, brought by TMA (else split by the stagers)
-template <int kEpi, bool kLoByTma>
+// W's lo at `wlo`, brought by TMA beside W
+template <int kEpi>
 cudaError_t launch(const void* a, const void* w, const void* wlo, const Args& args, int K,
                    cudaStream_t s) {
   tf32::Params<Args> p{};
   cudaError_t err = tf32::map_operand(&p.a0, a, args.M, K, false);
   if (err == cudaSuccess) err = tf32::map_operand(&p.b0, w, args.N, K, false);
-  if (err == cudaSuccess && kLoByTma) err = tf32::map_operand(&p.b0_lo, wlo, args.N, K, false);
+  if (err == cudaSuccess) err = tf32::map_operand(&p.b0_lo, wlo, args.N, K, false);
   if (err != cudaSuccess) return err;
   p.k_tiles = p.k_tiles_per_split = K / tf32::kBK;
   p.epi = args;
-  return tf32::launch<EpiGemm<kEpi>, false, false, false, kLoByTma>(p, args.M, args.N, 1, s);
+  return tf32::launch<EpiGemm<kEpi>, false, false, false>(p, args.M, args.N, 1, s);
 }
 
 // K3 / K8 f32's prep: blocks [0, row_blocks) take 8 rows each, a warp a row
 // (16-byte words, lane l the words l + 32 t, t < V; the two-pass LayerNorm
 // of csrc/ln.cu's f32 LN rows, the same expressions); the others split
-// the weights' words w1 then w2 (`words` each) by a grid-stride loop.
+// the weights' words, w1's `words1` then w2's `words2`, by a grid-stride
+// loop (lavt_tf32_lo: no rows, one weight).
 template <int V>
 __global__ void __launch_bounds__(256)
     mlp_prep_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
                     const float* __restrict__ beta, float* __restrict__ xn, int M, int C,
                     float eps, int row_blocks, const float4* __restrict__ w1,
                     float4* __restrict__ w1lo, const float4* __restrict__ w2,
-                    float4* __restrict__ w2lo, long long words) {
+                    float4* __restrict__ w2lo, long long words1, long long words2) {
   if (static_cast<int>(blockIdx.x) < row_blocks) {
     const int row = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x % 32;
     if (row >= M) return;
@@ -157,14 +163,15 @@ __global__ void __launch_bounds__(256)
     return;
   }
   const long long stride = static_cast<long long>(gridDim.x - row_blocks) * 256;
-  for (long long i = (blockIdx.x - row_blocks) * 256ll + threadIdx.x; i < 2 * words; i += stride) {
-    const float4 v = i < words ? w1[i] : w2[i - words];
+  for (long long i = (blockIdx.x - row_blocks) * 256ll + threadIdx.x; i < words1 + words2;
+       i += stride) {
+    const float4 v = i < words1 ? w1[i] : w2[i - words1];
     const float4 lo = make_float4(tf32::lo_of(v.x), tf32::lo_of(v.y), tf32::lo_of(v.z),
                                   tf32::lo_of(v.w));
-    if (i < words)
+    if (i < words1)
       w1lo[i] = lo;
     else
-      w2lo[i - words] = lo;
+      w2lo[i - words1] = lo;
   }
 }
 
@@ -172,10 +179,10 @@ constexpr int kWeightBlocks = 264;  // two an SM
 
 cudaError_t mlp_prep(const float* x, const float* gamma, const float* beta, float* xn, int M,
                      int C, float eps, const float* w1, float* w1lo, const float* w2,
-                     float* w2lo, long long words, cudaStream_t s) {
+                     float* w2lo, long long words1, long long words2, cudaStream_t s) {
   const int need = (C / 4 + 31) / 32, row_blocks = x != nullptr ? (M + 7) / 8 : 0;
-  const int wblocks =
-      static_cast<int>(std::min<long long>(kWeightBlocks, (2 * words + 255) / 256));
+  const int wblocks = static_cast<int>(
+      std::min<long long>(kWeightBlocks, (words1 + words2 + 255) / 256));
   if (row_blocks + wblocks == 0) return cudaSuccess;
   const auto* a1 = reinterpret_cast<const float4*>(w1);
   const auto* a2 = reinterpret_cast<const float4*>(w2);
@@ -185,7 +192,7 @@ cudaError_t mlp_prep(const float* x, const float* gamma, const float* beta, floa
   if (need <= V) {                                                                          \
     mlp_prep_kernel<V><<<row_blocks + wblocks, 256, 0, s>>>(x, gamma, beta, xn, M, C, eps,  \
                                                             row_blocks, a1, l1, a2, l2,    \
-                                                            words);                        \
+                                                            words1, words2);               \
     return cudaGetLastError();                                                              \
   }
   LAVT_CASE(1) LAVT_CASE(2) LAVT_CASE(3) LAVT_CASE(4) LAVT_CASE(6) LAVT_CASE(8)
@@ -201,8 +208,8 @@ cudaError_t mlp_prep(const float* x, const float* gamma, const float* beta, floa
 // 16-byte aligned, K a multiple of 32, N even; epi 0 kBias (the first
 // `scaled` columns times `scale`), 1 kGelu, 2 kResidual (res (M, N); with
 // keep, (M / rows_per_sample,), the residual branch scaled per sample).
-// wlo: W's lo parts (w - trunc(w), lavt_mlp_f32_prep), which TMA brings
-// beside W, or null: the core's stagers split W for each output tile.
+// wlo (N, K): W's lo parts (w - trunc(w): lavt_tf32_lo, lavt_mlp_f32_prep),
+// which TMA brings beside W.
 extern "C" int lavt_gemm_f32(const void* a, const void* w, const void* wlo, const void* b,
                              const void* res, const void* keep, void* out, int M, int N, int K,
                              int epi, int scaled, float scale, int rows_per_sample,
@@ -211,24 +218,17 @@ extern "C" int lavt_gemm_f32(const void* a, const void* w, const void* wlo, cons
   using lavt::tf32::aligned16;
   if (M < 1 || N < 2 || N % 2 != 0 || K < lavt::tf32::kBK || K % lavt::tf32::kBK != 0 ||
       !aligned16(a) || !aligned16(w) || !aligned16(out) || (epi == kResidual && res == nullptr) ||
-      (keep != nullptr && (epi != kResidual || rows_per_sample < 1)) ||
-      (wlo != nullptr && !aligned16(wlo)))
+      (keep != nullptr && (epi != kResidual || rows_per_sample < 1)) || wlo == nullptr ||
+      !aligned16(wlo))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args args{static_cast<const float*>(b),    static_cast<const float*>(res),
                   static_cast<const float*>(keep), static_cast<float*>(out),
                   M, N, scaled, scale, rows_per_sample};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool lo = wlo != nullptr;
   switch (epi) {
-    case kBias:
-      return static_cast<int>(lo ? launch<kBias, true>(a, w, wlo, args, K, s)
-                                 : launch<kBias, false>(a, w, wlo, args, K, s));
-    case kGelu:
-      return static_cast<int>(lo ? launch<kGelu, true>(a, w, wlo, args, K, s)
-                                 : launch<kGelu, false>(a, w, wlo, args, K, s));
-    case kResidual:
-      return static_cast<int>(lo ? launch<kResidual, true>(a, w, wlo, args, K, s)
-                                 : launch<kResidual, false>(a, w, wlo, args, K, s));
+    case kBias: return static_cast<int>(launch<kBias>(a, w, wlo, args, K, s));
+    case kGelu: return static_cast<int>(launch<kGelu>(a, w, wlo, args, K, s));
+    case kResidual: return static_cast<int>(launch<kResidual>(a, w, wlo, args, K, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -248,19 +248,33 @@ extern "C" int lavt_mlp_f32_prep(const void* x, const void* gamma, const void* b
   if (M < 1 || C < 4 || C % 4 != 0 || C > 4096 || hidden < 1 || !ok(x) || !ok(gamma) ||
       !ok(beta) || !ok(w1) || !ok(w2) || !ok(xn) || !ok(w1lo) || !ok(w2lo))
     return static_cast<int>(cudaErrorInvalidValue);
+  const long long words = w1 != nullptr ? static_cast<long long>(hidden) * C / 4 : 0;
   return static_cast<int>(mlp_prep(static_cast<const float*>(x),
                                    static_cast<const float*>(gamma),
                                    static_cast<const float*>(beta), static_cast<float*>(xn), M,
                                    C, eps, static_cast<const float*>(w1),
                                    static_cast<float*>(w1lo), static_cast<const float*>(w2),
-                                   static_cast<float*>(w2lo),
-                                   w1 != nullptr ? static_cast<long long>(hidden) * C / 4 : 0,
+                                   static_cast<float*>(w2lo), words, words,
+                                   static_cast<cudaStream_t>(stream)));
+}
+
+// lo (n,) = w - trunc(w) of f32 w (n,), trunc clearing the 13 low bits: a
+// weight's lo parts for lavt_gemm_f32.  n a multiple of 4, both pointers
+// 16-byte aligned.
+extern "C" int lavt_tf32_lo(const void* w, void* lo, long long n, void* stream) {
+  using namespace lavt::g32;
+  if (n < 4 || n % 4 != 0 || !lavt::tf32::aligned16(w) || !lavt::tf32::aligned16(lo))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(mlp_prep(nullptr, nullptr, nullptr, nullptr, 1, 4, 0.f,
+                                   static_cast<const float*>(w), static_cast<float*>(lo),
+                                   nullptr, nullptr, n / 4, 0,
                                    static_cast<cudaStream_t>(stream)));
 }
 
 // The dynamic shared memory of the core's kernels (ops/tf32_core.ring):
-// kind 0 both operands K-major, 1 the dual GEMM, 2 B transposed by the
-// stagers (dyln, K5 f32's dattn and dx, the weight grads); -1 otherwise.
+// kind 0 both operands K-major (B's lo by TMA), 1 the dual GEMM, 2 B
+// transposed by the stagers (dyln, K5 f32's dattn and dx, the weight
+// grads); -1 otherwise.
 extern "C" int lavt_tf32_core_smem(int kind) {
   using namespace lavt::tf32;
   switch (kind) {

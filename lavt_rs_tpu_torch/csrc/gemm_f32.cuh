@@ -1,5 +1,6 @@
 // The mma.sync pieces of the f32 attention kernels (csrc/attn_tf32.cuh:
-// K9 f32's and K5 f32's backwards, the f32 MSA forward): the m16n8k8 tf32
+// K9 f32's and K5 f32's backwards, K10 f32; the f32 MSA forward takes its
+// cp.async copies): the m16n8k8 tf32
 // tensor-core product and its fragment layouts, and the cp.async copies
 // that stage their tiles.  The f32 GEMMs run on the wgmma + TMA core of
 // csrc/gemm_tf32_sm90.cuh.

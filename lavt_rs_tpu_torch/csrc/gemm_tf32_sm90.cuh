@@ -27,13 +27,20 @@
 //     in a weight grad) and splits it there, 4 k-steps x (hi, lo) = 32
 //     registers, alive until the stage's wgmmas are done;
 //   * B comes from shared memory, as two tiles of the same 128-byte swizzle:
-//     hi and lo.  K-major B: hi is the raw stage, the stagers write lo.
-//     MN-major B (a weight grad's activation, a weight read as (K, N)):
-//     the stagers transpose the raw boxes into a hi and a lo tile as they
-//     split them, the one pass that touches every element anyway.
-//   The stagers' writes are generic-proxy writes: each stager fences them
-//   (fence.proxy.async.shared::cta) before it arrives on the stage's ready
-//   barrier, which the consumers wait on before their wgmmas.
+//     hi and lo.  K-major B (every weight read as (N, K): the projections,
+//     fc1 and fc2, the dual GEMM's W1 and W2's K-major copy): hi is the
+//     raw stage and lo comes split already, lo = w - trunc(w) written once
+//     a weight version (the model's f32 route keeps it beside the weight)
+//     or once a call, brought by a third TMA load beside hi.  MN-major B
+//     (a weight grad's activation, a weight read as (K, N)): the stagers
+//     transpose the raw boxes into a hi and a lo tile as they split them,
+//     the one pass that touches every element anyway.  Their writes are
+//     generic-proxy writes: each stager fences them
+//     (fence.proxy.async.shared::cta) before it arrives on the stage's
+//     ready barrier, which the consumers wait on before their wgmmas.
+//   (The design before split a K-major B's lo by the stagers too, for every
+//   32-deep stage of every output tile: a 16 KB shared-memory read and
+//   write a stage in a core that its shared memory bounds, PERF.md.)
 //
 // Roles (384 threads, one block an SM, persistent over the output tiles
 // b, b + blocks, ... row-major over (ceil(M / 128), ceil(N / 128))):
@@ -42,16 +49,16 @@
 //     of the stage's partial), both on one B stage;
 //   * warpgroup 2 produces (setmaxnreg moves registers to the consumers):
 //     lane 0 of its first warp issues the TMA loads, its other three warps
-//     (96 threads) are the stagers.
+//     (96 threads) are the stagers (an MN-major B's; idle otherwise).
 // Each stage has three barriers: full (the TMA bytes), ready (the 96
-// stagers) and empty (the consumers' 256 threads, once the wgmmas that
-// read the stage are done).  The consumer of a stage waits on full too,
-// which makes the TMA-written A tile visible to its loads.
+// stagers; MN-major B only) and empty (the consumers' 256 threads, once
+// the wgmmas that read the stage are done).  The consumer of a stage waits
+// on full too, which makes the TMA-written A tile visible to its loads.
 //
 // Shared memory per stage, each operand tile 128 rows x 32 floats (16 KB,
 // atoms of 8 rows x 128 bytes, SBO 1024; an 8-deep wgmma step moves the
-// descriptor's start by 32 bytes): A raw, B raw, B lo and, with an
-// MN-major B, B hi.  An MN-major raw tile is four TMA boxes of 32 MN x 32 K
+// descriptor's start by 32 bytes): A raw, B raw (K-major: B hi), B lo and,
+// with an MN-major B, B hi.  An MN-major raw tile is four TMA boxes of 32 MN x 32 K
 // (4 KB each, element (mn, k) of box mn / 32 at k 128 + 16 ((mn % 32 / 4)
 // ^ (k % 8)) + 4 (mn % 4) bytes).  Four stages of 48 KB (K-major B) or
 // three of 64 KB (MN-major B); the dual GEMM keeps three 48 KB stages and a
@@ -65,11 +72,6 @@
 // Tensor maps are built on the host per call through the driver's
 // cuTensorMapEncodeTiled (sm90::encode_tiled, which makes the device's
 // primary context current once per host thread).
-//
-// kLoByTma (a one-product GEMM with K-major operands, csrc/gemm_f32.cu
-// when its caller passes W's lo): a K-major B's lo comes split already (a
-// copy written once a call), brought by a third TMA load a stage; the
-// stagers idle and the consumers wait on the full barrier only.
 #pragma once
 
 #include <cuda.h>
@@ -145,12 +147,13 @@ inline cudaError_t map_operand(CUtensorMap* map, const void* ptr, int mn, int k,
 }
 
 // What a launch passes: the A and B maps of one or two segments (the dual
-// GEMM runs two products over the same output tile), the depth in k-tiles,
-// the k-tiles of a split, and the epilogue's arguments.
+// GEMM runs two products over the same output tile) and, for a K-major B,
+// the maps of B's lo, the depth in k-tiles, the k-tiles of a split, and
+// the epilogue's arguments.
 template <class EpiArgs>
 struct Params {
   CUtensorMap a0, b0, a1, b1;
-  CUtensorMap b0_lo;          // kLoByTma: B's lo, K-major like b0
+  CUtensorMap b0_lo, b1_lo;  // K-major B: its lo, stored like b0 / b1
   int k_tiles, k_tiles_per_split;
   int m_tiles, n_tiles;  // set by launch
   EpiArgs epi;
@@ -228,32 +231,21 @@ __device__ __forceinline__ int frag_row(int h) {
 }
 __device__ __forceinline__ int frag_col(int j) { return 8 * j + 2 * (threadIdx.x % 4); }
 
-// The stagers' pass over one stage (96 threads, `sid` < 96): K-major B,
-// lo = x - trunc(x) beside the raw tile (the same offsets); MN-major B,
-// the raw boxes transposed into K-major hi = trunc(x) and lo tiles.  Each
-// warp's 16-byte reads and 4-byte writes fall on distinct banks.
-template <bool kTB>
+// The stagers' pass over one stage of an MN-major B (96 threads, `sid` <
+// 96): the raw boxes transposed into K-major hi = trunc(x) and lo tiles.
+// Each warp's 16-byte reads and 4-byte writes fall on distinct banks.
 __device__ __forceinline__ void stage_b(unsigned char* b_raw, unsigned char* b_lo,
                                         unsigned char* b_hi, int sid) {
-  if constexpr (!kTB) {
-    const float4* src = reinterpret_cast<const float4*>(b_raw);
-    float4* dst = reinterpret_cast<float4*>(b_lo);
-    for (int u = sid; u < kOpBytes / 16; u += kStagers) {
-      const float4 v = src[u];
-      dst[u] = make_float4(lo_of(v.x), lo_of(v.y), lo_of(v.z), lo_of(v.w));
-    }
-  } else {
-    for (int u = sid; u < kOpBytes / 16; u += kStagers) {
-      const int k = u & 31, nq = u >> 5;  // rows 4 nq .. 4 nq + 3 at depth k
-      const float4 v = *reinterpret_cast<const float4*>(b_raw + mnmajor_off(4 * nq, k));
-      const float x[4] = {v.x, v.y, v.z, v.w};
+  for (int u = sid; u < kOpBytes / 16; u += kStagers) {
+    const int k = u & 31, nq = u >> 5;  // rows 4 nq .. 4 nq + 3 at depth k
+    const float4 v = *reinterpret_cast<const float4*>(b_raw + mnmajor_off(4 * nq, k));
+    const float x[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int off = kmajor_off(4 * nq + i, k);
-        const uint32_t hi = trunc_bits(x[i]);
-        *reinterpret_cast<uint32_t*>(b_hi + off) = hi;
-        *reinterpret_cast<float*>(b_lo + off) = x[i] - __uint_as_float(hi);
-      }
+    for (int i = 0; i < 4; ++i) {
+      const int off = kmajor_off(4 * nq + i, k);
+      const uint32_t hi = trunc_bits(x[i]);
+      *reinterpret_cast<uint32_t*>(b_hi + off) = hi;
+      *reinterpret_cast<float*>(b_lo + off) = x[i] - __uint_as_float(hi);
     }
   }
 }
@@ -284,11 +276,10 @@ __device__ __forceinline__ void load_a(const unsigned char* a, int row0, uint32_
 // consumer's copy of the first (thread t's value i at stash[i 128 + t]).
 // `red` is 4 x 128 floats of the consumer's own shared memory (named
 // barrier 1 + consumer synchronises its 128 threads).
-template <class Epi, bool kTA, bool kTB, bool kDual, bool kLoByTma = false>
+template <class Epi, bool kTA, bool kTB, bool kDual>
 __global__ void __launch_bounds__(kThreads, 1)
     gemm_tf32_kernel(const __grid_constant__ Params<typename Epi::Args> p) {
   using R = Ring<kTB, kDual>;
-  static_assert(!kLoByTma || !(kTA || kTB || kDual), "kLoByTma: K-major, one product");
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -323,10 +314,11 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int seg = 0; seg < kSegs; ++seg) {
           const CUtensorMap* ma = seg == 0 ? &p.a0 : &p.a1;
           const CUtensorMap* mb = seg == 0 ? &p.b0 : &p.b1;
+          const CUtensorMap* mlo = seg == 0 ? &p.b0_lo : &p.b1_lo;
           for (int t = 0; t < tiles; ++t, ++idx) {
             const int k0 = (kt0 + t) * kBK, s = idx % R::kStages;
             mbar_wait(&empty[s], ((idx / R::kStages) & 1) ^ 1);
-            mbar_expect_tx(&full[s], (kLoByTma ? 3 : 2) * kOpBytes);
+            mbar_expect_tx(&full[s], (kTB ? 2 : 3) * kOpBytes);
             const uint32_t a = smem_u32(smem + s * R::kStageBytes), b = a + kOpBytes;
             if (kTA) {
               for (int i = 0; i < 4; ++i) tma_load(ma, a + i * kBoxBytes, &full[s], m0 + 32 * i, k0);
@@ -335,14 +327,14 @@ __global__ void __launch_bounds__(kThreads, 1)
             }
             if (kTB) {
               for (int i = 0; i < 4; ++i) tma_load(mb, b + i * kBoxBytes, &full[s], n0 + 32 * i, k0);
-            } else {
+            } else {  // B's hi is the raw tile, its lo comes beside it
               tma_load(mb, b, &full[s], k0, n0);
+              tma_load(mlo, a + R::kBLo, &full[s], k0, n0);
             }
-            if (kLoByTma) tma_load(&p.b0_lo, a + R::kBLo, &full[s], k0, n0);
           }
         }
       }
-    } else if (sid >= 0 && !kLoByTma) {
+    } else if (sid >= 0 && kTB) {
       int idx = 0;
       for (int tile = blockIdx.x; tile < n_out; tile += gridDim.x)
         for (int seg = 0; seg < kSegs; ++seg)
@@ -350,7 +342,7 @@ __global__ void __launch_bounds__(kThreads, 1)
             const int s = idx % R::kStages;
             mbar_wait(&full[s], (idx / R::kStages) & 1);
             unsigned char* st = smem + s * R::kStageBytes;
-            stage_b<kTB>(st + kOpBytes, st + R::kBLo, st + R::kBHi, sid);
+            stage_b(st + kOpBytes, st + R::kBLo, st + R::kBHi, sid);
             asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
             mbar_arrive(&ready[s]);
           }
@@ -370,7 +362,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int t = 0; t < tiles; ++t, ++idx) {
           const int s = idx % R::kStages, parity = (idx / R::kStages) & 1;
           mbar_wait(&full[s], parity);
-          if (!kLoByTma) mbar_wait(&ready[s], parity);
+          if (kTB) mbar_wait(&ready[s], parity);
           const unsigned char* st = smem + s * R::kStageBytes;
           uint32_t ah[4][4], al[4][4];
           load_a<kTA>(st, 64 * wg, ah, al);
@@ -404,10 +396,10 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // Launch on `stream` over the ceil(m / 128) x ceil(n / 128) output tiles,
 // times `splits` over K: at most one block per SM in all.
-template <class Epi, bool kTA, bool kTB, bool kDual, bool kLoByTma = false>
+template <class Epi, bool kTA, bool kTB, bool kDual>
 cudaError_t launch(Params<typename Epi::Args> p, int m, int n, int splits, cudaStream_t stream) {
   using R = Ring<kTB, kDual>;
-  auto kernel = gemm_tf32_kernel<Epi, kTA, kTB, kDual, kLoByTma>;
+  auto kernel = gemm_tf32_kernel<Epi, kTA, kTB, kDual>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(R::kSmem));
   if (err != cudaSuccess) return err;

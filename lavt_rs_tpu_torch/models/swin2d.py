@@ -96,6 +96,8 @@ class WindowAttention(nn.Module):
         self.proj = nn.Linear(dim, dim)
         self._bias_key = None
         self._bias = None
+        self._lo_key = None
+        self._lo = None
 
     def relative_bias(self) -> torch.Tensor:
         """(h, N, N) f32 bias.  Gathered with grad while autograd records
@@ -112,6 +114,31 @@ class WindowAttention(nn.Module):
                     t, self.relative_position_index)
             self._bias_key = key
         return self._bias
+
+    def weight_lo(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(qkv weight's, proj weight's) lo parts, w - trunc(w) with trunc
+        clearing the 13 low bits, which the f32 kernels' GEMMs bring beside
+        w (`fused_msa.tf32_lo`).  Made once and kept until a weight changes
+        (a new version, device or storage: in training, once a step, after
+        the optimizer's in-place update), as `relative_bias` keeps the
+        bias."""
+        wq, wp = self.qkv.weight, self.proj.weight
+        key = (wq._version, wp._version, wq.device, wq.data_ptr(),
+               wp.data_ptr())
+        if self._lo_key != key:
+            with torch.no_grad():
+                self._lo = (fused_msa.tf32_lo(wq.detach()),
+                            fused_msa.tf32_lo(wp.detach()))
+            self._lo_key = key
+        return self._lo
+
+    def _lo_for(self, x):
+        """`weight_lo` where x takes the f32 kernels (an f32 CUDA tensor
+        with the kernels and f32 weights), else None."""
+        if (self.use_kernels and x.is_cuda and x.dtype == torch.float32
+                and self.qkv.weight.dtype == torch.float32):
+            return self.weight_lo()
+        return None
 
     def _args(self, x, mask):
         bqkv = self.qkv.bias
@@ -146,7 +173,7 @@ class WindowAttention(nn.Module):
         wqkv, bqkv, wproj, bproj, *rest = self._args(x, mask)
         return fused_msa_2d.fused_window_msa_2d(
             x, wqkv.to(dt), bqkv.to(dt), wproj.to(dt), bproj.to(dt), *rest,
-            self.window_size, flags)
+            self.window_size, flags, wlo=self._lo_for(x))
 
     def forward(self, x, mask=None, ln_params=None, flags=None):
         """x: (B, nW, N, C) windowed tokens (pre-LN when ln_params, the
@@ -159,8 +186,8 @@ class WindowAttention(nn.Module):
         if route == "fused":
             args = self._args(x, mask)
             if self.use_kernels:
-                return fused_msa.window_msa(x, ln_params, *args,
-                                            flags=flags)
+                return fused_msa.window_msa(x, ln_params, *args, flags=flags,
+                                            wlo=self._lo_for(x))
             if ln_params is not None:
                 return fused_msa.fused_window_msa_ln_plain(x, *ln_params,
                                                            *args)

@@ -72,6 +72,7 @@ SIGNATURES = {
     "lavt_probe_headbatch": (P, P) + (I,) * 6 + (P,),
     "lavt_gemm_f32": (P,) * 7 + (I,) * 5 + (F, I, P),
     "lavt_tf32_core_smem": (I,),
+    "lavt_tf32_lo": (P, P, L, P),
     "lavt_mlp_f32_prep": (P,) * 8 + (I, I, I, F, P),
     "lavt_layer_norm_rows_bwd_f32_parts": (I, I),
     "lavt_layer_norm_rows_bwd_f32": (P,) * 5 + (I, I, I, F, P),

@@ -24,7 +24,8 @@ and W1's and W2's lo parts, `tf32_split`), `gemm_gelu_f32` (fc1 + GELU,
 W1's lo by TMA), `gemm_residual_f32` (fc2 + (keep) + residual, W2's lo by
 TMA), on the 3xTF32 wgmma + TMA core in the mode only they take; K7 f32:
 csrc/
-fused_mlp_bwd_f32.cu (prep, the dual GEMM after W2's K-major copy, the
+fused_mlp_bwd_f32.cu (prep, the dual GEMM after W2's K-major copy and
+the lo parts of the copy and of W1, the
 weight grads split over M by `bwd_plan(..., f32=True)`, dyln, the
 LN-backward rows), its GEMMs on the same 3xTF32 wgmma + TMA core
 (csrc/gemm_tf32_sm90.cuh; plans in `tf32_core`).  `fused_ln_mlp`, `fused_ln_mlp_droppath` and
@@ -54,7 +55,7 @@ import torch.nn.functional as F
 
 from . import cuda_lib
 from .fused_msa import (GEMM_F32_DEPTH, GEMM_F32_GELU, GEMM_F32_RESIDUAL,
-                        gemm_f32, sum_partials)
+                        gemm_f32, sum_partials, tf32_split)
 
 EPS = 1e-5
 KERNEL_WIDTHS = (128, 256, 384, 512, 1024)
@@ -261,14 +262,6 @@ def gemm_residual(h, w2, b2, x, keep=None, rows: int = 1):
 
 
 # -- K3 / K8 f32: the three launches (csrc/gemm_f32.cu) ----------------------
-
-def tf32_split(w):
-    """(hi, lo) of f32 w as the 3xTF32 kernels split it: hi = w with its 13
-    low mantissa bits cleared (what the tensor core reads of an f32
-    operand), lo = w - hi (exact: hi + lo == w bit for bit)."""
-    hi = (w.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
-    return hi, w - hi
-
 
 def mlp_f32_prep_plain(x, g, be, w1, w2, eps: float = EPS):
     """(1): (xn, w1lo, w2lo): the two-pass LN rows of x (`mlp_ln_rows_plain`)
@@ -477,8 +470,9 @@ def dual_gemm_gelu_bwd(xn, dmlp, w1, b1, w2):
                 for _ in range(2))
     db1_part = torch.empty((-(-m // DUAL_ROWS), hidden), dtype=torch.float32,
                            device=xn.device)
-    # K7 f32: scratch for W2's K-major copy (tf32 wgmma reads B K-major)
-    w2t = (torch.empty((hidden, c), dtype=xn.dtype, device=xn.device),) \
+    # K7 f32: scratch for W2's K-major copy (tf32 wgmma reads B K-major),
+    # its lo parts and W1's
+    w2t = (torch.empty((3, hidden, c), dtype=xn.dtype, device=xn.device),) \
         if _f32(xn) else ()
     _launch(entry, xn, dmlp, w1, b1, w2, h, dhpre, db1_part, *w2t, m, c,
             hidden)
@@ -618,9 +612,9 @@ def bwd_buffers(m: int, c: int, hidden: int, device,
     for TMA), dx, and the f32 partials that `bwd_plan` sizes: db1 (row
     tiles, hidden), dW1 and dW2 (splits, 2, hidden C; their own
     allocation: with one split the grads are views of it), dgamma, dbeta
-    and db2 (LN blocks, 3, C); K7 f32 also W2's K-major copy w2t
-    (hidden, C) f32, which its dual GEMM reads (before stats, whose 8 M
-    bytes may end off a 16-byte boundary)."""
+    and db2 (LN blocks, 3, C); K7 f32 also w2t (3, hidden, C) f32, W2's
+    K-major copy, its lo parts and W1's, which its dual GEMM reads (before
+    stats, whose 8 M bytes may end off a 16-byte boundary)."""
     f32 = dtype == torch.float32
     plan = bwd_plan(m, c, hidden, f32)
     half = {"xn": (m, c), "dmlp": (m, c), "h": (m, hidden),
@@ -628,7 +622,7 @@ def bwd_buffers(m: int, c: int, hidden: int, device,
     full = {"dyln": (m, c), "db1_part": (plan.row_tiles, hidden),
             "ln_part": (plan.ln_blocks, 3, c)}
     if f32:
-        full["w2t"] = (hidden, c)
+        full["w2t"] = (3, hidden, c)
     full["stats"] = (m, 2)
     buf = {}
     for shapes, dt in ((half, dtype), (full, torch.float32)):

@@ -351,6 +351,31 @@ GEMM_F32_BIAS, GEMM_F32_GELU, GEMM_F32_RESIDUAL = 0, 1, 2
 GEMM_F32_DEPTH = tf32_core.DEPTH  # K of a core stage: K must be a multiple
 
 
+def tf32_split(w):
+    """(hi, lo) of f32 w as the 3xTF32 kernels split it: hi = w with its 13
+    low mantissa bits cleared (what the tensor core reads of an f32
+    operand), lo = w - hi (exact: hi + lo == w bit for bit)."""
+    hi = (w.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+    return hi, w - hi
+
+
+def tf32_lo(w) -> torch.Tensor:
+    """The lo parts of f32 w (`tf32_split`'s lo), which `gemm_f32` brings
+    by TMA beside w: on the card one launch (`lavt_tf32_lo`), its plain
+    version on a CPU tensor."""
+    if w.device.type == "cpu":
+        return tf32_split(w)[1]
+    if w.numel() % 4:
+        raise ValueError(f"tf32 lo split: {w.numel()} values, not a multiple "
+                         f"of 4")
+    _require_all([("w", w, torch.float32, None)], w.device)
+    lo = torch.empty_like(w)
+    err = cuda_lib.lib().lavt_tf32_lo(w.data_ptr(), lo.data_ptr(), w.numel(),
+                                      cuda_lib.stream_ptr(w.device))
+    cuda_lib.check(err, "lavt_tf32_lo")
+    return lo
+
+
 def gemm_f32(a, w, b, epi: int, res=None, scaled: int = 0,
              scale: float = 1.0, keep=None, rows: int = 1,
              wlo=None) -> torch.Tensor:
@@ -360,10 +385,11 @@ def gemm_f32(a, w, b, epi: int, res=None, scaled: int = 0,
     multiple of 32, N even; epi GEMM_F32_BIAS ((· + b) times `scale` on the
     first `scaled` columns), GEMM_F32_GELU (exact GELU of · + b) or
     GEMM_F32_RESIDUAL (res + · + b; with keep, (M / rows,) f32, res +
-    keep[row // rows] (· + b): K8 f32).  wlo, w's lo parts
-    (`fused_mlp.mlp_f32_prep`, K3 / K8 f32's), is brought by TMA beside w
-    (the core's kLoByTma instances); without it the core's stagers split w
-    for each output tile.  Its
+    keep[row // rows] (· + b): K8 f32).  wlo, w's lo parts (`tf32_lo`;
+    K3 / K8 f32's from `fused_mlp.mlp_f32_prep`, the MSA projections' kept
+    by the model once a weight version, `WindowAttention.weight_lo`), is
+    brought by TMA beside w; for a caller that passes none it is split
+    first, by a launch of its own (`tf32_lo`).  Its
     plain versions are its callers' (`gemm_bias_plain`,
     `fused_mlp.gemm_bias_gelu_plain`, `fused_mlp.gemm_residual_plain`)."""
     (m, k), n = a.shape, w.shape[0]
@@ -372,8 +398,6 @@ def gemm_f32(a, w, b, epi: int, res=None, scaled: int = 0,
                          f"{(m, n, k)}")
     f32, dev = torch.float32, a.device
     checks = [("a", a, f32, None), ("w", w, f32, (n, k)), ("b", b, f32, (n,))]
-    if wlo is not None:
-        checks.append(("wlo", wlo, f32, (n, k)))
     if epi == GEMM_F32_RESIDUAL:
         checks.append(("res", res, f32, (m, n)))
     if keep is not None:
@@ -382,10 +406,12 @@ def gemm_f32(a, w, b, epi: int, res=None, scaled: int = 0,
                              f"epilogue and samples of rows ({m}, {rows})")
         checks.append(("keep", keep, f32, (m // rows,)))
     _require_all(checks, dev)
+    if wlo is None:
+        wlo = tf32_lo(w)
+    _require_all([("wlo", wlo, f32, (n, k))], dev)
     out = torch.empty((m, n), dtype=f32, device=dev)
     err = cuda_lib.lib().lavt_gemm_f32(
-        a.data_ptr(), w.data_ptr(), None if wlo is None else wlo.data_ptr(),
-        b.data_ptr(),
+        a.data_ptr(), w.data_ptr(), wlo.data_ptr(), b.data_ptr(),
         None if res is None else res.data_ptr(),
         None if keep is None else keep.data_ptr(), out.data_ptr(), m, n, k,
         epi, scaled, float(scale), max(rows, 1), cuda_lib.stream_ptr(dev))
@@ -815,18 +841,20 @@ def msa_attn_f32(qkv, bias, mask, heads: int,
 
 def attn_launches(x, ln, wqkv, bqkv, bias, mask, heads: int, scale: float,
                   ln_eps: float = LN_EPS, save: bool = True, flags=None,
-                  exact: bool = True):
+                  exact: bool = True, wlo=None):
     """The launches of `save_launches` before the out-projection: (o
     (B nW N, C), (q, k, v, p, xn) with save, else None).  q, k, v are the
     column views of the one qkv tensor (B nW, N, 3C) (no copy); xn is
-    None without ln."""
+    None without ln.  wlo: (wqkv's, wproj's) lo parts for the f32 GEMMs, or
+    None."""
     b, nw, n, c = x.shape
     rows = b * nw * n
     x2 = x.reshape(rows, c)
     xn = None
     if ln is not None:
         x2 = xn = layer_norm_rows_launch(x2, ln[0], ln[1], ln_eps)
-    qkv = gemm_bias(x2, wqkv, bqkv, c, scale).view(b * nw, n, 3 * c)
+    qkv = gemm_bias(x2, wqkv, bqkv, c, scale,
+                    wlo=None if wlo is None else wlo[0]).view(b * nw, n, 3 * c)
     o, p = msa_attn(qkv, bias, mask, heads, save, flags, exact)
     if not save:
         return o, None
@@ -836,7 +864,7 @@ def attn_launches(x, ln, wqkv, bqkv, bias, mask, heads: int, scale: float,
 
 def save_launches(x, ln, wqkv, bqkv, wproj, bproj, bias, mask, heads: int,
                   scale: float, ln_eps: float = LN_EPS, save: bool = True,
-                  flags=None, exact: bool = True):
+                  flags=None, exact: bool = True, wlo=None):
     """K1 and K2 (save False) and the K1/K2 save mode, in order:
       (0) K1 only: xn = the pre-attention LN rows on K4's launch
           (`ln.layer_norm_rows_launch`, f32 stats, fast variance);
@@ -848,14 +876,16 @@ def save_launches(x, ln, wqkv, bqkv, wproj, bproj, bias, mask, heads: int,
     On f32 tensors (K1 f32, K2 f32, the save mode f32, K6 f32's forward)
     each launch takes its f32 kernel: K4 f32's LN rows, the 3xTF32 GEMM,
     `msa_attn_f32` (exact: the max-subtracted softmax, else exp(min(s,
-    80)); the bf16 attention is exact either way), the 3xTF32 GEMM.
-    Returns y (B, nW, N, C), with save (y, (q, k, v, p, xn)), q, k, v the
+    80)); the bf16 attention is exact either way), the 3xTF32 GEMM, each
+    GEMM with its weight's lo parts from `wlo` (wqkv's, wproj's) where
+    given.  Returns y (B, nW, N, C), with save (y, (q, k, v, p, xn)), q, k, v the
     column views of qkv.  On CPU tensors each launch takes its plain
     version, which compose to `fused_window_msa_save_plain`'s values
     (tests/test_torch_msa_save_launches.py)."""
     o, saved = attn_launches(x, ln, wqkv, bqkv, bias, mask, heads, scale,
-                             ln_eps, save, flags, exact)
-    y = gemm_bias(o, wproj, bproj).view(x.shape)
+                             ln_eps, save, flags, exact, wlo)
+    y = gemm_bias(o, wproj, bproj,
+                  wlo=None if wlo is None else wlo[1]).view(x.shape)
     return (y, saved) if save else y
 
 
@@ -881,18 +911,19 @@ def _check_save_launches(x, ln, wqkv, bqkv, wproj, bproj, heads,
 def fused_window_msa(x, wqkv, bqkv, wproj, bproj, bias,
                      mask: Optional[torch.Tensor], heads: int, scale: float,
                      flags: Optional[torch.Tensor] = None,
-                     exact: bool = False) -> torch.Tensor:
+                     exact: bool = False, wlo=None) -> torch.Tensor:
     """K2: (B, nW, N, C) post-LN windowed tokens -> projected attention;
     on the card the launches of `save_launches` without the saves.  A CUDA
     f32 x takes K2 f32 (`fused_window_msa_f32`); `exact` chooses its
     softmax (JAX `fused_window_msa`: exp(min(s, 80)); the taped forward,
-    `FusedWindowMSA`: exact), the bf16 kernel's is exact."""
+    `FusedWindowMSA`: exact), the bf16 kernel's is exact; `wlo` its
+    weights' lo parts."""
     if x.device.type == "cpu":
         return fused_window_msa_plain(x, wqkv, bqkv, wproj, bproj, bias, mask,
                                       heads, scale, softmax_form(x, exact))
     if x.dtype == torch.float32:
         return fused_window_msa_f32(x, wqkv, bqkv, wproj, bproj, bias, mask,
-                                    heads, scale, flags, exact)
+                                    heads, scale, flags, exact, wlo)
     _check_save_launches(x, None, wqkv, bqkv, wproj, bproj, heads)
     y = save_launches(x, None, wqkv, bqkv, wproj, bproj, bias, mask, heads,
                       scale, save=False, flags=flags)
@@ -903,20 +934,21 @@ def fused_window_msa(x, wqkv, bqkv, wproj, bproj, bias,
 def fused_window_msa_f32(x, wqkv, bqkv, wproj, bproj, bias,
                          mask: Optional[torch.Tensor], heads: int,
                          scale: float, flags: Optional[torch.Tensor] = None,
-                         exact: bool = False) -> torch.Tensor:
+                         exact: bool = False, wlo=None) -> torch.Tensor:
     """K2 f32: K2 on f32 tokens and weights; on the card the launches of
     `save_launches` without the saves, each on its f32 kernel (the 3xTF32
     GEMM, `msa_attn_f32`, the 3xTF32 GEMM), the softmax exp(min(s, 80))
     (JAX `fused_window_msa`) or, with exact, the max-subtracted one (the
-    taped forward of a block that saves nothing).  The plain version on a
-    CPU tensor."""
+    taped forward of a block that saves nothing); wlo: (wqkv's, wproj's)
+    lo parts (`tf32_lo`), or None: each GEMM splits its weight first.  The
+    plain version on a CPU tensor."""
     if x.device.type == "cpu":
         return fused_window_msa_plain(x, wqkv, bqkv, wproj, bproj, bias, mask,
                                       heads, scale, exact)
     _check_save_launches(x, None, wqkv, bqkv, wproj, bproj, heads,
                          torch.float32)
     y = save_launches(x, None, wqkv, bqkv, wproj, bproj, bias, mask, heads,
-                      scale, save=False, flags=flags, exact=exact)
+                      scale, save=False, flags=flags, exact=exact, wlo=wlo)
     fused_window_msa_f32.launches += 1
     return y
 
@@ -925,11 +957,11 @@ def fused_window_msa_ln(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, bias,
                         mask: Optional[torch.Tensor], heads: int, scale: float,
                         ln_eps: float = LN_EPS,
                         flags: Optional[torch.Tensor] = None,
-                        exact: bool = False) -> torch.Tensor:
+                        exact: bool = False, wlo=None) -> torch.Tensor:
     """K1: (B, nW, N, C) PRE-LN windowed tokens -> projected attention; on
     the card the launches of `save_launches` with LN and without the saves
     (y has the save mode's bits).  A CUDA f32 x takes K1 f32
-    (`fused_window_msa_ln_f32`), `exact` as `fused_window_msa`'s."""
+    (`fused_window_msa_ln_f32`), `exact` and `wlo` as `fused_window_msa`'s."""
     if x.device.type == "cpu":
         return fused_window_msa_ln_plain(x, ln_scale, ln_bias, wqkv, bqkv,
                                          wproj, bproj, bias, mask, heads,
@@ -937,7 +969,7 @@ def fused_window_msa_ln(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, bias,
     if x.dtype == torch.float32:
         return fused_window_msa_ln_f32(x, ln_scale, ln_bias, wqkv, bqkv,
                                        wproj, bproj, bias, mask, heads, scale,
-                                       ln_eps, flags, exact)
+                                       ln_eps, flags, exact, wlo)
     ln = (ln_scale, ln_bias)
     _check_save_launches(x, ln, wqkv, bqkv, wproj, bproj, heads)
     y = save_launches(x, ln, wqkv, bqkv, wproj, bproj, bias, mask, heads,
@@ -950,13 +982,13 @@ def fused_window_msa_ln_f32(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
                             bias, mask: Optional[torch.Tensor], heads: int,
                             scale: float, ln_eps: float = LN_EPS,
                             flags: Optional[torch.Tensor] = None,
-                            exact: bool = False) -> torch.Tensor:
+                            exact: bool = False, wlo=None) -> torch.Tensor:
     """K1 f32: K1 on f32 tokens and weights; on the card the launches of
     `save_launches` without the saves, each on its f32 kernel (K4 f32's LN
     rows, the 3xTF32 GEMM, `msa_attn_f32`, the 3xTF32 GEMM), the softmax
     exp(min(s, 80)) at inference (JAX `fused_window_msa_ln`) or, with
-    exact, the max-subtracted one (the taped forward, JAX `_vjp_ln_fwd`).
-    The plain version on a CPU tensor."""
+    exact, the max-subtracted one (the taped forward, JAX `_vjp_ln_fwd`);
+    wlo as `fused_window_msa_f32`'s.  The plain version on a CPU tensor."""
     if x.device.type == "cpu":
         return fused_window_msa_ln_plain(x, ln_scale, ln_bias, wqkv, bqkv,
                                          wproj, bproj, bias, mask, heads,
@@ -965,14 +997,15 @@ def fused_window_msa_ln_f32(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
     _check_save_launches(x, ln, wqkv, bqkv, wproj, bproj, heads,
                          torch.float32)
     y = save_launches(x, ln, wqkv, bqkv, wproj, bproj, bias, mask, heads,
-                      scale, ln_eps, save=False, flags=flags, exact=exact)
+                      scale, ln_eps, save=False, flags=flags, exact=exact,
+                      wlo=wlo)
     fused_window_msa_ln_f32.launches += 1
     return y
 
 
 def fused_window_msa_save(x, ln, wqkv, bqkv, wproj, bproj, bias, mask,
                           heads: int, scale: float, ln_eps: float = LN_EPS,
-                          flags: Optional[torch.Tensor] = None):
+                          flags: Optional[torch.Tensor] = None, wlo=None):
     """K1 (ln given) / K2 in save mode: (y, (q, k, v, p, xn)); on the card
     the launches of `save_launches`, q, k, v the column views of their
     qkv tensor.  A CUDA f32 x takes the save mode f32
@@ -983,7 +1016,7 @@ def fused_window_msa_save(x, ln, wqkv, bqkv, wproj, bproj, bias, mask,
     if x.dtype == torch.float32:
         return fused_window_msa_save_f32(x, ln, wqkv, bqkv, wproj, bproj,
                                          bias, mask, heads, scale, ln_eps,
-                                         flags)
+                                         flags, wlo)
     _check_save_launches(x, ln, wqkv, bqkv, wproj, bproj, heads)
     out = save_launches(x, ln, wqkv, bqkv, wproj, bproj, bias, mask, heads,
                         scale, ln_eps, flags=flags)
@@ -995,20 +1028,20 @@ def fused_window_msa_save(x, ln, wqkv, bqkv, wproj, bproj, bias, mask,
 def fused_window_msa_save_f32(x, ln, wqkv, bqkv, wproj, bproj, bias, mask,
                               heads: int, scale: float,
                               ln_eps: float = LN_EPS,
-                              flags: Optional[torch.Tensor] = None):
+                              flags: Optional[torch.Tensor] = None, wlo=None):
     """The K1/K2 save mode f32 (JAX `_fwd(..., exact=True, save=True)` on
     f32): (y, (q, k, v, p, xn)), all f32, the exact softmax; on the card
     the launches of `save_launches` on their f32 kernels, q, k, v the
-    column views of the f32 qkv tensor, p written by `msa_attn_f32`.  One
-    count per call, with or without ln.  The plain version on a CPU
-    tensor."""
+    column views of the f32 qkv tensor, p written by `msa_attn_f32`; wlo
+    as `fused_window_msa_f32`'s.  One count per call, with or without ln.
+    The plain version on a CPU tensor."""
     if x.device.type == "cpu":
         return fused_window_msa_save_plain(x, ln, wqkv, bqkv, wproj, bproj,
                                            bias, mask, heads, scale, ln_eps)
     _check_save_launches(x, ln, wqkv, bqkv, wproj, bproj, heads,
                          torch.float32)
     out = save_launches(x, ln, wqkv, bqkv, wproj, bproj, bias, mask, heads,
-                        scale, ln_eps, flags=flags)
+                        scale, ln_eps, flags=flags, wlo=wlo)
     fused_window_msa_save_f32.launches += 1
     return out
 
@@ -1045,7 +1078,8 @@ def fused_window_msa_bwd_f32(x, gy, wqkv, wproj, saved, heads: int,
 def fused_window_msa_bwd_recompute(x, ln, wqkv, bqkv, wproj, bproj, bias,
                                    mask, gy, heads: int, scale: float,
                                    ln_eps: float = LN_EPS,
-                                   flags: Optional[torch.Tensor] = None):
+                                   flags: Optional[torch.Tensor] = None,
+                                   wlo=None):
     """K6: the same gradients as K5 with nothing saved; they are with
     respect to the MSA's input (xn with ln).  On the card the save mode's
     launches up to the attention (`attn_launches`), then K5's.  CUDA f32
@@ -1057,7 +1091,7 @@ def fused_window_msa_bwd_recompute(x, ln, wqkv, bqkv, wproj, bproj, bias,
     if x.dtype == torch.float32:
         return fused_window_msa_bwd_recompute_f32(
             x, ln, wqkv, bqkv, wproj, bproj, bias, mask, gy, heads, scale,
-            ln_eps, flags)
+            ln_eps, flags, wlo)
     out = _recompute_launch(x, ln, wqkv, bqkv, wproj, bias, mask, gy, heads,
                             scale, ln_eps, flags, torch.bfloat16)
     fused_window_msa_bwd_recompute.launches += 1
@@ -1067,28 +1101,29 @@ def fused_window_msa_bwd_recompute(x, ln, wqkv, bqkv, wproj, bproj, bias,
 def fused_window_msa_bwd_recompute_f32(x, ln, wqkv, bqkv, wproj, bproj, bias,
                                        mask, gy, heads: int, scale: float,
                                        ln_eps: float = LN_EPS,
-                                       flags: Optional[torch.Tensor] = None):
+                                       flags: Optional[torch.Tensor] = None,
+                                       wlo=None):
     """K6 f32 (JAX `_fused_bwd_group` on f32): the save mode f32's
     launches up to the attention, with the exact softmax (`attn_launches`,
-    P into per-call scratch), then K5 f32's; every tensor f32.  The plain
-    version on a CPU tensor."""
+    P into per-call scratch; wqkv's lo parts from `wlo` where given), then
+    K5 f32's; every tensor f32.  The plain version on a CPU tensor."""
     if x.device.type == "cpu":
         return fused_window_msa_bwd_recompute_plain(
             x, ln, wqkv, bqkv, wproj, bproj, bias, mask, gy, heads, scale,
             ln_eps)
     out = _recompute_launch(x, ln, wqkv, bqkv, wproj, bias, mask, gy, heads,
-                            scale, ln_eps, flags, torch.float32)
+                            scale, ln_eps, flags, torch.float32, wlo)
     fused_window_msa_bwd_recompute_f32.launches += 1
     return out
 
 
 def _recompute_launch(x, ln, wqkv, bqkv, wproj, bias, mask, gy, heads, scale,
-                      ln_eps, flags, dtype):
+                      ln_eps, flags, dtype, wlo=None):
     """K6 / K6 f32 on the card: the save mode's checks and launches up to
     the attention, then `_bwd_launch` (its checks, K5's launches)."""
     _check_save_launches(x, ln, wqkv, bqkv, None, None, heads, dtype)
     _, (q, k, v, p, xn) = attn_launches(x, ln, wqkv, bqkv, bias, mask, heads,
-                                        scale, ln_eps, flags=flags)
+                                        scale, ln_eps, flags=flags, wlo=wlo)
     xin = x if xn is None else xn.view(x.shape)
     return _bwd_launch(xin, gy, wqkv, wproj, (q, k, v, p), heads, scale,
                        dtype)
@@ -1168,19 +1203,22 @@ def gemm_bias_plain(x2, w, b, scaled: int = 0,
     return y.to(x2.dtype)
 
 
-def gemm_bias(x2, w, b, scaled: int = 0, scale: float = 1.0) -> torch.Tensor:
+def gemm_bias(x2, w, b, scaled: int = 0, scale: float = 1.0,
+              wlo=None) -> torch.Tensor:
     """(M, N) = (x2 wᵀ + b) s rounded to bf16, s = scale on the first
     `scaled` columns (else 1), on the wgmma + TMA GEMM core
     (csrc/window_msa_sm90.cu): K2p's qkv projection (scaled = C: q scaled
     after its bias, as the TPU kernel rounds it) and its out-projection
     (scaled = 0).  x2 (M, K), w (N, K) (a torch Linear weight), b (N,),
     bf16; the plain version on a CPU tensor.  f32 operands take the 3xTF32
-    GEMM (`gemm_f32`, K1 f32's and K11 f32's projections), rounded
+    GEMM (`gemm_f32`, K1 f32's and K11 f32's projections, w's lo parts
+    `wlo` or, given none, split by a launch of their own), rounded
     nowhere."""
     if x2.device.type == "cpu":
         return gemm_bias_plain(x2, w, b, scaled, scale)
     if x2.dtype == torch.float32:
-        return gemm_f32(x2, w, b, GEMM_F32_BIAS, scaled=scaled, scale=scale)
+        return gemm_f32(x2, w, b, GEMM_F32_BIAS, scaled=scaled, scale=scale,
+                        wlo=wlo)
     (m, k), n = x2.shape, w.shape[0]
     bf16 = torch.bfloat16
     _require_all([("x", x2, bf16, None), ("w", w, bf16, (n, k)),
@@ -1321,12 +1359,12 @@ class FusedWindowMSA(torch.autograd.Function):
     and returns the weight grads in the weights' dtype; the mask gets
     none.  The taped forward takes the exact softmax, as JAX's `_vjp_fwd`
     / `_vjp_ln_fwd` do, so that K6's recomputed P is the one the output
-    came from."""
+    came from.  `wlo`: the f32 weights' lo parts (`window_msa`'s)."""
 
     @staticmethod
     def forward(ctx, x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, bias,
                 mask, heads: int, scale: float, ln_eps: float = LN_EPS,
-                flags=None):
+                flags=None, wlo=None):
         dt = x.dtype
         ln = None if ln_scale is None else (ln_scale.to(dt), ln_bias.to(dt))
         w = (wqkv.to(dt), bqkv.to(dt), wproj.to(dt), bproj.to(dt))
@@ -1336,18 +1374,18 @@ class FusedWindowMSA(torch.autograd.Function):
         ctx.dtypes = (wqkv.dtype, bqkv.dtype, wproj.dtype, bproj.dtype,
                       bias.dtype)
         ctx.resid = save_residuals_ok(b, nw, n, c, heads, x.element_size())
-        ctx.flags = flags
+        ctx.flags, ctx.wlo = flags, wlo
         if ctx.resid:
             y, (q, k, v, p, xn) = fused_window_msa_save(
-                x, ln, *w, bias, mask, heads, scale, ln_eps, flags)
+                x, ln, *w, bias, mask, heads, scale, ln_eps, flags, wlo)
             ctx.save_for_backward(x, ln_scale, w[0], w[2], q, k, v, p, xn)
         else:
             if ln is None:
                 y = fused_window_msa(x, *w, bias, mask, heads, scale, flags,
-                                     exact=True)
+                                     exact=True, wlo=wlo)
             else:
                 y = fused_window_msa_ln(x, *ln, *w, bias, mask, heads, scale,
-                                        ln_eps, flags, exact=True)
+                                        ln_eps, flags, exact=True, wlo=wlo)
             ctx.save_for_backward(x, ln_scale, *(ln or (None, None)), *w,
                                   bias, mask)
         return y
@@ -1367,7 +1405,7 @@ class FusedWindowMSA(torch.autograd.Function):
             ln = (lns, lnb) if ctx.has_ln else None
             grads = fused_window_msa_bwd_recompute(
                 x, ln, wqkv, bqkv, wproj, bproj, bias, mask, gy, heads, scale,
-                eps, ctx.flags)
+                eps, ctx.flags, ctx.wlo)
         dx, dwqkv, dbqkv, dwproj, dbproj, dbias = grads
         dls = dlb = None
         if ctx.has_ln:  # K4b's launch (f32: K4b f32's), counted as K5 / K6
@@ -1379,25 +1417,28 @@ class FusedWindowMSA(torch.autograd.Function):
         wq_t, bq_t, wp_t, bp_t, bias_t = ctx.dtypes
         return (dx, dls, dlb, dwqkv.to(wq_t), dbqkv.to(bq_t), dwproj.to(wp_t),
                 dbproj.to(bp_t), dbias.to(bias_t), None, None, None, None,
-                None)
+                None, None)
 
 
 def window_msa(x, ln, wqkv, bqkv, wproj, bproj, bias, mask, heads: int,
                scale: float, ln_eps: float = LN_EPS,
-               flags: Optional[torch.Tensor] = None) -> torch.Tensor:
+               flags: Optional[torch.Tensor] = None, wlo=None) -> torch.Tensor:
     """The model's entry: K1 (ln = (scale, bias)) or K2 on x's dtype.  With
     autograd recording a parameter, through `FusedWindowMSA`; else the
     forward kernel alone (nothing is saved).  `flags`: the mask's window
     flags (`window.shift_mask_flags_2d`), read by K1, K2 and the save
-    mode."""
+    mode; `wlo`: (wqkv's, wproj's) lo parts for the f32 kernels' GEMMs
+    (`WindowAttention.weight_lo`), or None."""
     tensors = (x, wqkv, bqkv, wproj, bproj, bias) + tuple(ln or ())
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         ln_s, ln_b = ln if ln is not None else (None, None)
         return FusedWindowMSA.apply(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj,
-                                    bias, mask, heads, scale, ln_eps, flags)
+                                    bias, mask, heads, scale, ln_eps, flags,
+                                    wlo)
     dt = x.dtype
     w = (wqkv.to(dt), bqkv.to(dt), wproj.to(dt), bproj.to(dt))
     if ln is None:
-        return fused_window_msa(x, *w, bias, mask, heads, scale, flags)
+        return fused_window_msa(x, *w, bias, mask, heads, scale, flags,
+                                wlo=wlo)
     return fused_window_msa_ln(x, ln[0].to(dt), ln[1].to(dt), *w, bias, mask,
-                               heads, scale, ln_eps, flags)
+                               heads, scale, ln_eps, flags, wlo=wlo)

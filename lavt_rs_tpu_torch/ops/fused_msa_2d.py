@@ -144,7 +144,7 @@ def msa_attn_map_f32(qkv, bias, mask, heads: int,
 
 
 def map_launches(x, wqkv, bqkv, wproj, bproj, bias, mask, heads: int,
-                 scale: float, flags=None, exact: bool = False
+                 scale: float, flags=None, exact: bool = False, wlo=None
                  ) -> torch.Tensor:
     """K11's three launches, in order, on the (B, Hp, Wp, C) map:
       (a) qkv = x Wqkvᵀ + bqkv over the map's B Hp Wp rows, q scaled after
@@ -154,17 +154,20 @@ def map_launches(x, wqkv, bqkv, wproj, bproj, bias, mask, heads: int,
     On CPU tensors each launch takes its plain version, which compose to
     `fused_window_msa_2d_plain`'s values (tests/test_torch_k11_launches.py);
     on the card y has the bits of the K2 launches on the partitioned map.
-    `exact`: the f32 attention's softmax form (the bf16 one is exact)."""
+    `exact`: the f32 attention's softmax form (the bf16 one is exact);
+    `wlo`: (wqkv's, wproj's) lo parts for the f32 GEMMs, or None."""
     b, hp, wp, c = x.shape
     rows = b * hp * wp
-    qkv = gemm_bias(x.reshape(rows, c), wqkv, bqkv, c, scale)
+    lo = wlo or (None, None)
+    qkv = gemm_bias(x.reshape(rows, c), wqkv, bqkv, c, scale, wlo=lo[0])
     o = msa_attn_map(qkv.view(b, hp, wp, 3 * c), bias, mask, heads, flags,
                      exact)
-    return gemm_bias(o.view(rows, c), wproj, bproj).view(b, hp, wp, c)
+    return gemm_bias(o.view(rows, c), wproj, bproj,
+                     wlo=lo[1]).view(b, hp, wp, c)
 
 
 def _launch(x, wqkv, bqkv, wproj, bproj, bias, mask, heads, scale, ws,
-            flags, dtype=torch.bfloat16, exact=False):
+            flags, dtype=torch.bfloat16, exact=False, wlo=None):
     """The checks (every tensor of `dtype`: bf16, or f32 for K11 f32), then
     `map_launches`."""
     b, hp, wp, c = x.shape
@@ -176,11 +179,11 @@ def _launch(x, wqkv, bqkv, wproj, bproj, bias, mask, heads, scale, ws,
                   ("wproj", wproj, dtype, (c, c)),
                   ("bproj", bproj, dtype, (c,))], x.device)
     return map_launches(x, wqkv, bqkv, wproj, bproj, bias, mask, heads, scale,
-                        flags, exact)
+                        flags, exact, wlo)
 
 
 def _forward(x, wqkv, bqkv, wproj, bproj, bias, mask, heads, scale, ws,
-             flags, exact=False):
+             flags, exact=False, wlo=None):
     """K11 (f32: K11 f32), its softmax form by `softmax_form`: the clamp
     form of K11 f32 at inference, exact under `FusedWindowMSA2D`'s tape."""
     if x.device.type == "cpu":
@@ -189,7 +192,8 @@ def _forward(x, wqkv, bqkv, wproj, bproj, bias, mask, heads, scale, ws,
                                          softmax_form(x, exact))
     if x.dtype == torch.float32:
         return fused_window_msa_2d_f32(x, wqkv, bqkv, wproj, bproj, bias,
-                                       mask, heads, scale, ws, flags, exact)
+                                       mask, heads, scale, ws, flags, exact,
+                                       wlo)
     y = _launch(x, wqkv, bqkv, wproj, bproj, bias, mask, heads, scale, ws,
                 flags)
     fused_window_msa_2d.launches += 1
@@ -200,16 +204,18 @@ def fused_window_msa_2d_f32(x, wqkv, bqkv, wproj, bproj, bias,
                             mask: Optional[torch.Tensor], heads: int,
                             scale: float, ws: int,
                             flags: Optional[torch.Tensor] = None,
-                            exact: bool = False) -> torch.Tensor:
+                            exact: bool = False, wlo=None) -> torch.Tensor:
     """K11 f32: K11's forward on an f32 map and f32 weights, the softmax
     exp(min(s, 80)) of the TPU inference kernel (exact: the max-subtracted
-    one); on the card the launches of `map_launches` on their f32 kernels,
-    the plain version on a CPU tensor."""
+    one); on the card the launches of `map_launches` on their f32 kernels
+    (`wlo`: (wqkv's, wproj's) lo parts, as `WindowAttention.weight_lo`
+    keeps them, or None: each GEMM splits its weight first), the plain
+    version on a CPU tensor."""
     if x.device.type == "cpu":
         return fused_window_msa_2d_plain(x, wqkv, bqkv, wproj, bproj, bias,
                                          mask, heads, scale, ws, exact)
     y = _launch(x, wqkv, bqkv, wproj, bproj, bias, mask, heads, scale, ws,
-                flags, torch.float32, exact)
+                flags, torch.float32, exact, wlo)
     fused_window_msa_2d_f32.launches += 1
     return y
 
@@ -220,11 +226,11 @@ class FusedWindowMSA2D(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, wqkv, bqkv, wproj, bproj, bias, mask, heads: int,
-                scale: float, ws: int, flags=None):
+                scale: float, ws: int, flags=None, wlo=None):
         ctx.save_for_backward(x, wqkv, bqkv, wproj, bproj, bias, mask)
         ctx.static = (heads, scale, ws)
         return _forward(x, wqkv, bqkv, wproj, bproj, bias, mask, heads, scale,
-                        ws, flags, exact=True)
+                        ws, flags, exact=True, wlo=wlo)
 
     @staticmethod
     def backward(ctx, gy):
@@ -237,22 +243,24 @@ class FusedWindowMSA2D(torch.autograd.Function):
             wrt = [t for t, want in zip(leaves, need) if want]
             grads = iter(torch.autograd.grad(y, wrt, gy))
         return tuple(next(grads) if want else None for want in need) + (
-            None, None, None, None)
+            None, None, None, None, None)
 
 
 def fused_window_msa_2d(x, wqkv, bqkv, wproj, bproj, bias,
                         mask: Optional[torch.Tensor], heads: int,
                         scale: float, ws: int,
-                        flags: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        flags: Optional[torch.Tensor] = None,
+                        wlo=None) -> torch.Tensor:
     """K11: (B, Hp, Wp, C) padded, pre-rolled post-LN map -> the projected
-    attention at the same map positions."""
+    attention at the same map positions; `wlo`: the f32 weights' lo parts
+    (`WindowAttention.weight_lo`) or None."""
     tensors = (x, wqkv, bqkv, wproj, bproj, bias, mask)
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad
                                        for t in tensors):
         return FusedWindowMSA2D.apply(x, wqkv, bqkv, wproj, bproj, bias, mask,
-                                      heads, scale, ws, flags)
+                                      heads, scale, ws, flags, wlo)
     return _forward(x, wqkv, bqkv, wproj, bproj, bias, mask, heads, scale, ws,
-                    flags)
+                    flags, wlo=wlo)
 
 
 fused_window_msa_2d.launches = 0

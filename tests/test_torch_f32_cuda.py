@@ -35,12 +35,22 @@ without JAX:
   one; a small f32 window-12 lavt_one trains on its plan, saving its
   residuals (save mode f32, K5 f32) or recomputing them (K1 f32 / K2 f32
   taped, K6 f32), against the plain f32 step;
+* the f32 window-MSA attention (csrc/fused_msa_f32.cu: persistent
+  blocks over runs of (head, window) items) in window and map order, in
+  its clamp, exact and save modes, unmasked and masked with and without
+  window flags, on a 36 x 24 map, at the stage-4 shape, with runs that
+  cross heads mid-way and with fewer items than SMs: within 1e-4 abs +
+  rel of its plain version, the same bits twice;
 * the 3xTF32 wgmma + TMA core (csrc/gemm_tf32_sm90.cuh): its shared
   memory against `tf32_core.ring`; `gemm_f32`'s epilogues at Swin-B,
   Swin-T and video stage shapes (ragged M, ragged N), the dual GEMM, the
   weight grads and the dgrads (every operand layout) and K5 f32's
   products within 1e-4 abs + rel of their plain versions, their sums
-  within 1e-4 (rms + |want|) of f64, the same bits twice.
+  within 1e-4 (rms + |want|) of f64, the same bits twice; `gemm_f32` with
+  W's lo from its caller and split by its own launch (the same bits) at K
+  = 128-1024; the lo split against `tf32_split`; K7 f32's dual GEMM with
+  the lo parts of W1 and of W2's K-major copy written beside the copy and
+  brought by TMA.
 """
 
 import numpy as np
@@ -849,8 +859,8 @@ CORE_GEMMS = [(2085, 512, 128), (2085, 128, 512), (1805, 4096, 1024),
 @pytest.mark.parametrize("m,n,k", CORE_GEMMS)
 def test_tf32_core_gemm_every_epilogue(dev, m, n, k):
     """`gemm_f32`'s three epilogues (bias with q's scale on the first
-    columns, GELU, residual with and without keep), each with w split by
-    the core's stagers and with w's lo by TMA, within 1e-4 abs + rel of
+    columns, GELU, residual with and without keep), each with w's lo split
+    by gemm_f32's own launch and given by the caller, within 1e-4 abs + rel of
     their f32 plain versions and the bias's sums within 1e-4 (rms +
     |want|) of f64; the same bits twice."""
     rng = np.random.default_rng(m + n + k)
@@ -865,7 +875,7 @@ def test_tf32_core_gemm_every_epilogue(dev, m, n, k):
     keep = torch.where(torch.arange(m // rows, device=dev) % 2 == 1, 0.0,
                        1.0 / 0.7)
     gemm = fused_msa.gemm_f32
-    for lo in (None, fused_mlp.tf32_split(w)[1]):  # stagers' split, by TMA
+    for lo in (None, fused_mlp.tf32_split(w)[1]):  # split by gemm_f32, given
         got = _twice(lambda: gemm(a, w, b, fused_msa.GEMM_F32_BIAS,
                                   scaled=n // 3, scale=0.17, wlo=lo))
         _close(got, torch.where(col, acc * 0.17, acc))
@@ -890,7 +900,8 @@ CORE_BWD = [(2085, 128), (333, 1024), (1571, 384), (203, 256)]
 
 @pytest.mark.parametrize("m,c", CORE_BWD)
 def test_tf32_core_dual_wgrad_dgrad(dev, m, c):
-    """The dual GEMM (W2 through its K-major copy), the weight grads (A's
+    """The dual GEMM (W2 through its K-major copy, W1's and the copy's lo
+    by TMA), the weight grads (A's
     MN-major fragments read in place, B transposed by the stagers; split
     over M by K7 f32's plan) and dyln / K5 f32's dattn and dx (B read as
     (K, N), transposed by the stagers): within 1e-4 abs + rel of their f32
@@ -942,3 +953,111 @@ def _k5_products(rng, dev, m, c):
 @pytest.mark.parametrize("m,c", [(1571, 96), (333, 1024)])
 def test_tf32_core_k5_products(dev, m, c):
     _k5_products(np.random.default_rng(m + c + 5), dev, m, c)
+
+
+# The f32 MSA attention: (order, B (map) or B nW (window order), the map's
+# sides, C, heads): a 36 x 24 map; the stage-4 shape; 20 windows x 8 heads
+# (160 items on 132 SMs: runs of one or two windows that cross heads
+# mid-way); 16 items, fewer than the SMs
+ATTN_CASES = [("map", 2, (36, 24), 256, 8), ("map", 2, (24, 24), 1024, 32),
+              ("window", 20, (24, 24), 256, 8), ("map", 1, (24, 24), 128, 4)]
+ATTN_PARAMS = [(*case, mode, masking) for case in ATTN_CASES
+               for mode in ("clamp", "exact", "save")
+               for masking in ("none", "flags", "no flags")
+               if not (case[0] == "map" and mode == "save")]
+
+
+@pytest.mark.parametrize("order,b,hw,c,heads,mode,masking", ATTN_PARAMS)
+def test_msa_attention_f32(dev, order, b, hw, c, heads, mode, masking):
+    """The f32 attention launch in window order (K1 f32, K2 f32, the save
+    mode f32) and map order (K11 f32), each mode and masking against its
+    plain version within 1e-4 abs + rel (the save mode's P too), the same
+    bits twice."""
+    rng = np.random.default_rng(b + c + heads + len(mode) + len(masking))
+    hp, wp = hw
+    shape = ((b, hp, wp, 3 * c) if order == "map"
+             else (b, 144, 3 * c))
+    qkv = _f32(rng, shape, 1.0, dev)
+    bias = _f32(rng, (heads, 144, 144), 1.0, dev)
+    mask = flags = None
+    if masking != "none":
+        mask = shift_mask_2d(hp, wp, 12, 6, dev)
+        if masking == "flags":
+            flags = shift_mask_flags_2d(hp, wp, 12, 6, dev)
+    exact = mode != "clamp"
+    if order == "map":
+        got = _twice(lambda: fused_msa_2d.msa_attn_map_f32(
+            qkv, bias, mask, heads, flags, exact))
+        _close(got, fused_msa_2d.msa_attn_map_plain(qkv, bias, mask, heads,
+                                                    exact))
+        return
+    save = mode == "save"
+    want_o, want_p = fused_msa.msa_attn_plain(qkv, bias, mask, heads, exact)
+    if save:
+        o, p = _twice(lambda: fused_msa.msa_attn_f32(qkv, bias, mask, heads,
+                                                     flags, True, exact))
+        _close(p, want_p)
+    else:
+        o = _twice(lambda: fused_msa.msa_attn_f32(qkv, bias, mask, heads,
+                                                  flags, False, exact)[0])
+        assert fused_msa.msa_attn_f32(qkv, bias, mask, heads, flags)[1] is None
+    _close(o, want_o)
+
+
+@pytest.mark.parametrize("k", [128, 256, 512, 1024])
+def test_gemm_f32_lo_given_or_split(dev, k):
+    """`gemm_f32` at the Swin-B widths (qkv: N = 3K; the out-projection: N
+    = K), each epilogue, with W's lo from its caller and split by its own
+    launch: the same bits, within 1e-4 abs + rel of the plain versions;
+    the split (`tf32_lo`) is `tf32_split`'s lo bit for bit."""
+    rng = np.random.default_rng(k)
+    m = 1000
+    a = _f32(rng, (m, k), 1.0, dev)
+    res = _f32(rng, (m, k), 1.0, dev)
+    for n in (3 * k, k):
+        w = _f32(rng, (n, k), k ** -0.5, dev)
+        b = _f32(rng, (n,), 0.2, dev)
+        lo = fused_msa.tf32_lo(w)
+        assert torch.equal(lo, fused_mlp.tf32_split(w)[1])
+        for epi, kw, want in (
+                (fused_msa.GEMM_F32_BIAS, {"scaled": n // 3, "scale": 0.17},
+                 fused_msa.gemm_bias_plain(a, w, b, n // 3, 0.17)),
+                (fused_msa.GEMM_F32_GELU, {},
+                 fused_mlp.gemm_bias_gelu_plain(a, w, b))) + ((
+                (fused_msa.GEMM_F32_RESIDUAL, {"res": res},
+                 fused_mlp.gemm_residual_plain(a, w, b, res)),) if n == k
+                else ()):
+            given = _twice(lambda: fused_msa.gemm_f32(a, w, b, epi, wlo=lo,
+                                                      **kw))
+            split = fused_msa.gemm_f32(a, w, b, epi, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(given, split)
+            _close(given, want)
+
+
+@pytest.mark.parametrize("m,c", [(2085, 128), (333, 1024)])
+def test_k7_f32_dual_gemm_lo_by_tma(dev, m, c):
+    """K7 f32's dual GEMM: its first launch writes W2's K-major copy, the
+    copy's lo parts and W1's (`tf32_split`'s, bit for bit) into its
+    scratch, which TMA brings beside W1 and the copy; h, dhpre and the db1
+    partials within 1e-4 abs + rel of the plain version."""
+    rng = np.random.default_rng(m + c + 7)
+    hidden = 4 * c
+    xn = _f32(rng, (m, c), 1.0, dev)
+    dmlp = _f32(rng, (m, c), 1.0, dev)
+    w1 = _f32(rng, (hidden, c), c ** -0.5, dev)
+    b1 = _f32(rng, (hidden,), 0.2, dev)
+    w2 = _f32(rng, (c, hidden), hidden ** -0.5, dev)
+    h, dhpre = (torch.empty((m, hidden), device=dev) for _ in range(2))
+    db1 = torch.empty((-(-m // fused_mlp.DUAL_ROWS), hidden), device=dev)
+    w2t = torch.full((3, hidden, c), float("nan"), device=dev)
+    fused_mlp._launch("lavt_dual_gemm_gelu_bwd_f32", xn, dmlp, w1, b1, w2, h,
+                      dhpre, db1, w2t, m, c, hidden)
+    torch.cuda.synchronize()
+    copy = w2.t().contiguous()
+    assert torch.equal(w2t[0], copy)
+    assert torch.equal(w2t[1], fused_mlp.tf32_split(copy)[1])
+    assert torch.equal(w2t[2], fused_mlp.tf32_split(w1)[1])
+    for got, want in zip((h, dhpre, db1), fused_mlp.dual_gemm_gelu_bwd_plain(
+            xn, dmlp, w1, b1, w2)):
+        _close(got, want)

@@ -138,8 +138,9 @@ def _bwd_composed_f32(x, gy, g, be, w1, b1, w2, keep=None, rows=1):
         assert part.shape == buf[name].shape, name
         assert buf[name].dtype == torch.float32, name
     assert buf["dw_part"].shape == (plan.splits, 2, c * w1.shape[0])
-    # W2's K-major copy, which the dual GEMM on the 3xTF32 core reads
-    assert buf["w2t"].shape == (w1.shape[0], c)
+    # W2's K-major copy, its lo parts and W1's, which the dual GEMM on the
+    # 3xTF32 core reads (each B's lo by TMA)
+    assert buf["w2t"].shape == (3, w1.shape[0], c)
     assert buf["w2t"].dtype == torch.float32
     dg, dbe, db2 = fused_msa.sum_partials(ln_part)
     return (dx, dg, dbe, fused_msa.sum_partials(dw1_part),

@@ -9,17 +9,23 @@ kernels themselves run on the card in tests/test_torch_f32_cuda.py.
   hi a term, f32 sums, each 32-deep stage into a partial added to the
   running sum.  At fc2's K = 4096 on seeded inputs it meets 1e-4 abs +
   rel of the f64 product, where one TF32 pass (hi hi) does not.
+* The lo split (`fused_msa.tf32_lo`'s plain version) is w - trunc(w) bit
+  for bit, and `WindowAttention` keeps its weights' lo parts until a
+  weight changes in place (an optimizer's step) and then makes them anew.
 * The plans: tiles, k-tiles, blocks (at most one an SM over the splits),
   each kind's shared memory within an H100 block's 227 KB, which operands
-  take the transposing pass, and K7 f32's weight-grad split, db1 row
-  tiles and buffers against them.
+  take the transposing pass, where each kind's B gets its lo parts (by
+  TMA for a K-major B, from the stagers for an MN-major one), and K7
+  f32's weight-grad split, db1 row tiles and buffers against them.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from lavt_rs_tpu_torch.models.swin2d import WindowAttention
 from lavt_rs_tpu_torch.ops import fused_mlp as fm
+from lavt_rs_tpu_torch.ops import fused_msa
 from lavt_rs_tpu_torch.ops import tf32_core as core
 from torch_threads import torch_threads  # noqa: F401 (autouse fixture)
 
@@ -91,6 +97,11 @@ def test_which_operands_take_the_transposing_pass():
     assert core.plan("dual", 64, 512, 128)["launches"] == 2
     assert all(core.plan(k, 64, 512, 128)["launches"] == 1
                for k in ("gemm", "dgrad", "wgrad"))
+    # a K-major B's lo comes by TMA; the stagers serve only an MN-major B
+    assert {k: core.b_lo(k) for k in core.KINDS} == {
+        "gemm": "TMA", "dual": "TMA", "dgrad": "stagers", "wgrad": "stagers"}
+    assert all(core.plan(k, 64, 512, 128)["b_lo"] == core.b_lo(k)
+               for k in core.KINDS)
     with pytest.raises(ValueError):
         core.plan("nt", 64, 64, 64)
 
@@ -124,7 +135,8 @@ def test_k7_f32_plan_on_the_core(m, c):
     """K7 f32's weight grads split over M into the core's k-tiles, each
     split's blocks together at most one an SM; its db1 partials are the
     consumers' 64-row halves of the core's 128-row tiles; its buffers hold
-    W2's K-major copy at a 16-byte boundary."""
+    W2's K-major copy, the copy's lo parts and W1's, at a 16-byte
+    boundary."""
     hidden = 4 * c
     bp = fm.bwd_plan(m, c, hidden, f32=True)
     assert fm.GEMM_F32_DEPTH == core.DEPTH
@@ -138,7 +150,46 @@ def test_k7_f32_plan_on_the_core(m, c):
     assert bp.row_tiles == -(-m // fm.DUAL_ROWS)
     assert bp.row_tiles <= 2 * core.plan("dual", m, hidden, c)["m_tiles"]
     buf = fm.bwd_buffers(m, c, hidden, "meta", torch.float32)
-    assert buf["w2t"].shape == (hidden, c)
+    assert buf["w2t"].shape == (3, hidden, c)
     assert buf["w2t"].storage_offset() * 4 % 16 == 0
     assert list(buf)[-1] == "w2t"
     assert "w2t" not in fm.bwd_buffers(m, c, hidden, "meta")
+
+
+def test_the_lo_split_is_w_minus_trunc_w():
+    rng = np.random.default_rng(24)
+    w = (rng.standard_normal((96, 32))
+         * 10.0 ** rng.integers(-6, 6, (96, 32))).astype(np.float32)
+    want = w - _trunc(w)
+    lo = fused_msa.tf32_lo(torch.from_numpy(w)).numpy()
+    assert lo.dtype == np.float32
+    assert (lo.view(np.uint32) == want.view(np.uint32)).all()
+    hi, lo2 = fused_msa.tf32_split(torch.from_numpy(w))
+    assert (hi.numpy().view(np.uint32) == _trunc(w).view(np.uint32)).all()
+    assert (lo2.numpy().view(np.uint32) == want.view(np.uint32)).all()
+    assert fm.tf32_split is fused_msa.tf32_split
+
+
+def test_window_attention_remakes_its_lo_after_an_update():
+    torch.manual_seed(24)
+    attn = WindowAttention(64, 12, 2)
+    ws = (attn.qkv.weight, attn.proj.weight)
+
+    def want():
+        return [fused_msa.tf32_split(w.detach())[1] for w in ws]
+
+    lo = attn.weight_lo()
+    assert attn.weight_lo() is lo  # kept while the weights stay
+    assert all(torch.equal(a, b) for a, b in zip(lo, want()))
+    with torch.no_grad():
+        attn.qkv.weight.mul_(1.5)  # in place: a new version
+    lo2 = attn.weight_lo()
+    assert lo2 is not lo and not torch.equal(lo2[0], lo[0])
+    assert all(torch.equal(a, b) for a, b in zip(lo2, want()))
+    opt = torch.optim.AdamW(attn.parameters(), lr=1e-2)
+    for w in ws:
+        w.grad = torch.ones_like(w)
+    opt.step()  # the optimizer's in-place update: made anew once
+    lo3 = attn.weight_lo()
+    assert lo3 is not lo2 and attn.weight_lo() is lo3
+    assert all(torch.equal(a, b) for a, b in zip(lo3, want()))

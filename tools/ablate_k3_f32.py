@@ -3,7 +3,12 @@
 Swin-B 480² bs-8 stage shapes on one NVIDIA GPU, by CUDA events, and
 prints one JSON object.
 
-    python3 tools/ablate_k3_f32.py [--iters 10]
+    python3 tools/ablate_k3_f32.py --root DIR [--iters 10]
+
+DIR: a checkout whose core still has the stagers' split of a K-major B
+and the `kLoByTma` instances, which the variants edit (the tree before
+they were replaced by W's lo always by TMA: `git archive df2b5b4`
+unpacked under build/); its package and sources are the ones timed.
 
 The variants:
   * "neither": the prep's LN rows alone, then fc1 + GELU and fc2 + residual
@@ -452,9 +457,13 @@ def variant(name, x, g, be, w1, b1, w2, b2, libs):
 
 
 def main():
+    global ROOT, CSRC
     ap = argparse.ArgumentParser()
+    ap.add_argument("--root", required=True)
     ap.add_argument("--iters", type=int, default=10)
     args = ap.parse_args()
+    ROOT = os.path.abspath(args.root)
+    CSRC = os.path.join(ROOT, "lavt_rs_tpu_torch", "csrc")
 
     import torch
 

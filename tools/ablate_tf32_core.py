@@ -3,7 +3,12 @@
 gemm_tf32_sm90.cuh) on one NVIDIA GPU, each built apart from a text edit of
 the sources, through K7 f32's three products on it.
 
-    python3 tools/ablate_tf32_core.py
+    python3 tools/ablate_tf32_core.py --root DIR
+
+DIR: a checkout whose core still has the stagers' split of a K-major B,
+which the variants edit (the tree before W's lo always came by TMA: `git
+archive df2b5b4` unpacked under build/); its package and sources are the
+ones timed.
 
 The variants: the sources as they are; one tensor-core pass a term (hi
 hi only: two thirds of the wgmmas removed); no stagers' pass (B's lo and
@@ -103,6 +108,13 @@ def cuda_ms(fn, iters=10):
 
 
 def main():
+    global ROOT, CSRC
+    import argparse
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", required=True)
+    ROOT = os.path.abspath(ap.parse_args().root)
+    CSRC = os.path.join(ROOT, "lavt_rs_tpu_torch", "csrc")
     import torch
 
     if not torch.cuda.is_available():

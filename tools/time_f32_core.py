@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Times the f32 variants that run on the 3xTF32 GEMM core and the f32
 attentions (K7 f32, K3 f32, K8 f32, the K1/K2 save mode f32, K2 f32, K5
-f32) at the lavt_one Swin-B 480² stage shapes, and K10 f32 in both modes
-at the window-7 bs-8 shapes (N = 49) and the video stages 2-4 of an
-8-frame 480² clip (N = 392), on one NVIDIA GPU, by CUDA events, and prints
-one JSON object.
+f32, K1 f32, K11 f32) at the lavt_one Swin-B 480² stage shapes, and K10
+f32 in both modes at the window-7 bs-8 shapes (N = 49) and the video
+stages 2-4 of an 8-frame 480² clip (N = 392), on one NVIDIA GPU, by CUDA
+events, and prints one JSON object.
 
     python3 tools/time_f32_core.py [--root DIR] [--iters 10]
 
@@ -17,8 +17,9 @@ this one), so that one command can time two trees on one card, in turns:
     python3 tools/time_f32_core.py --root <parent tree>
 
 The JSON: {"card": ..., "ms": {kernel: {stage: ms per call}}, "step":
-{kernel: ms}}, "step" summing each stage's call over the blocks that make
-it in a step (depths 2, 2, 18, 2; the MSA kernels at their window-12
+{kernel: ms}, "launches": {kernel: {stage: {launch: ms}}}}, "step"
+summing each stage's call over the blocks that make it in a step
+(depths 2, 2, 18, 2; the MSA kernels at their window-12
 stages: the save mode and K5 at stages 2-4 of a bs-8 step, K2 at stages
 3-4 of a bs-20 one, half the blocks shifted; K10 f32 ("K10.f32/w7" on the
 qkv Linear's output, per window-7 bs-8 forward; "K10s.f32/w7" its save
@@ -26,7 +27,18 @@ mode, per step; "K10.f32" and "K10s.f32" per 8-frame clip and video step,
 Video Swin-T depths 2, 6, 2 at stages 2-4), each stage's call the mean of
 its unshifted and shifted windows, timed on the device with its launches
 queued behind a device sleep: the host's time to enqueue a window-7 call
-exceeds the call's).  Seeded inputs; TF32 off.
+exceeds the call's).  K1 f32 at stages 1-2 and K11 f32 at stages 3-4 (the
+window-12 bs-8 inference forward: "step" per forward, the blocks at each
+stage, half shifted) are timed on the device, launches queued, per call
+with the weights' lo parts as the model passes them, unshifted and
+shifted ("stage s" and "stage s shifted"), and launch by launch
+("launches": the LN rows, the lo split of both weights where the tree has
+one, qkv, the attention, the out-projection); K6 f32 per bs-8 step (its
+stage-1 calls) and K2p f32 per 8-frame clip (video stage 1, maskless and
+grouped); K11 f32's out-projection
+also at the M of two full waves of 132 output tiles and of three beside
+the path's ("stage s out-projection waves": what its last, partial wave
+costs).  Seeded inputs; TF32 off.
 """
 
 import argparse
@@ -80,6 +92,93 @@ def queued_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def lo_kw(fused_msa, w):
+    """{"wlo": (wqkv's, wproj's) lo parts} as the model passes them to the
+    f32 MSA entry points, where the tree has them; else {}."""
+    import inspect
+
+    if "wlo" not in inspect.signature(fused_msa.gemm_bias).parameters:
+        return {}
+    return {"wlo": (fused_msa.tf32_lo(w[0]), fused_msa.tf32_lo(w[2]))}
+
+
+def msa_f32(ms, step, launches, rnd, dev, iters):
+    """K1 f32 (stages 1-2, window order, after the LN rows) and K11 f32
+    (stages 3-4, map order) per call and launch by launch, on the device
+    with their launches queued (`queued_ms`)."""
+    import torch
+
+    from lavt_rs_tpu_torch.ops import fused_msa, fused_msa_2d, ln
+    from lavt_rs_tpu_torch.ops.window import (shift_mask_2d,
+                                              shift_mask_flags_2d)
+
+    sc = 32 ** -0.5
+    for si, (side, c, heads, depth) in enumerate(STAGES):
+        key = "K1.f32" if si < 2 else "K11.f32"
+        hp = -(-side // 12) * 12
+        nw = (hp // 12) ** 2
+        w = (rnd((3 * c, c), c ** -0.5), rnd((3 * c,), 0.2),
+             rnd((c, c), c ** -0.5), rnd((c,), 0.2), rnd((heads, 144, 144)))
+        lnp = (rnd((c,), 0.2) + 1.0, rnd((c,), 0.2))
+        kw = lo_kw(fused_msa, w)  # the lo parts as the model keeps them
+        lo, has_lo = kw.get("wlo"), bool(kw)
+        x = (rnd((8, nw, 144, c), 2.0) + 0.5 if key == "K1.f32"
+             else rnd((8, hp, hp, c)))
+        rows = x.numel() // c
+        for shift in (False, True):
+            mask = shift_mask_2d(hp, hp, 12, 6, dev) if shift else None
+            flags = shift_mask_flags_2d(hp, hp, 12, 6, dev) if shift else None
+            stage = f"stage {si + 1}" + (" shifted" if shift else "")
+            if key == "K1.f32":
+                def call():
+                    return fused_msa.fused_window_msa_ln_f32(
+                        x, *lnp, *w, mask, heads, sc, flags=flags, **kw)
+            else:
+                def call():
+                    return fused_msa_2d.fused_window_msa_2d_f32(
+                        x, *w, mask, heads, sc, 12, flags, **kw)
+            ms[key][stage] = queued_ms(call, iters)
+            step[key] += depth // 2 * ms[key][stage]
+            x2 = x.reshape(rows, c)
+            xn = ln.layer_norm_rows_launch(x2, *lnp) if key == "K1.f32" else x2
+            glo = [{"wlo": t} if has_lo else {} for t in (lo or (None, None))]
+            qkv = fused_msa.gemm_bias(xn, w[0], w[1], c, sc, **glo[0])
+            if key == "K1.f32":
+                def attn():
+                    return fused_msa.msa_attn_f32(
+                        qkv.view(-1, 144, 3 * c), w[4], mask, heads, flags)[0]
+            else:
+                def attn():
+                    return fused_msa_2d.msa_attn_map_f32(
+                        qkv.view(8, hp, hp, 3 * c), w[4], mask, heads, flags)
+            o = attn().reshape(rows, c)
+            parts = {}
+            if key == "K1.f32":
+                parts["LN rows"] = lambda: ln.layer_norm_rows_launch(x2, *lnp)
+            if has_lo:
+                parts["lo split"] = lambda: (fused_msa.tf32_lo(w[0]),
+                                             fused_msa.tf32_lo(w[2]))
+            parts["qkv"] = lambda: fused_msa.gemm_bias(xn, w[0], w[1], c, sc,
+                                                       **glo[0])
+            parts["attention"] = attn
+            parts["out-projection"] = lambda: fused_msa.gemm_bias(
+                o, w[2], w[3], **glo[1])
+            launches.setdefault(key, {})[stage] = {
+                name: queued_ms(fn, iters) for name, fn in parts.items()}
+            del qkv, o
+        if key == "K11.f32":  # the out-projection's last wave of tiles
+            waves = {}
+            n_tiles = c // 128  # 128 x 128 output tiles, 132 SMs
+            for m_tiles in (264 // n_tiles, -(-rows // 128), 396 // n_tiles):
+                a = rnd((m_tiles * 128, c))
+                waves[f"M {m_tiles * 128} ({m_tiles * n_tiles} tiles)"] = \
+                    queued_ms(lambda: fused_msa.gemm_bias(a, w[2], w[3],
+                                                          **glo[1]), iters)
+            launches[key][f"stage {si + 1} out-projection waves"] = waves
+        del x
+        torch.cuda.empty_cache()
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
@@ -107,7 +206,7 @@ def main():
 
     ms = {k: {} for k in ("K7.f32", "K3.f32", "K8.f32", "save.f32", "K5.f32",
                           "K2.f32", "K10.f32/w7", "K10s.f32/w7", "K10.f32",
-                          "K10s.f32")}
+                          "K10s.f32", "K1.f32", "K11.f32", "K6.f32", "K2p.f32")}
     step = dict.fromkeys(ms, 0.0)
     sc = 32 ** -0.5
     for si, (side, c, heads, depth) in enumerate(STAGES):
@@ -129,7 +228,23 @@ def main():
             ms[key][stage] = cuda_ms(fn, args.iters)
             step[key] += depth * ms[key][stage]
         del x, gy, mlp
-        if si == 0:
+        if si == 0:  # K6 f32: stage 1 of a bs-8 step recomputes its MSA
+            nw = (side // 12) ** 2
+            w = (rnd((3 * c, c), c ** -0.5), rnd((3 * c,), 0.2),
+                 rnd((c, c), c ** -0.5), rnd((c,), 0.2), rnd((heads, 144, 144)))
+            lnp = (rnd((c,), 0.2) + 1.0, rnd((c,), 0.2))
+            xw, gw = rnd((8, nw, 144, c), 2.0) + 0.5, rnd((8, nw, 144, c))
+            kw = lo_kw(fused_msa, w)
+            for shift in (False, True):
+                mask = shift_mask_2d(side, side, 12, 6, dev) if shift else None
+                flags = (shift_mask_flags_2d(side, side, 12, 6, dev) if shift
+                         else None)
+                t = cuda_ms(lambda: fused_msa.fused_window_msa_bwd_recompute_f32(
+                    xw, lnp, *w, mask, gw, heads, sc, flags=flags, **kw),
+                    args.iters)
+                ms["K6.f32"][stage + (" shifted" if shift else "")] = t
+                step["K6.f32"] += depth // 2 * t
+            del xw, gw
             torch.cuda.empty_cache()
             continue
         hp = -(-side // 12) * 12
@@ -144,23 +259,41 @@ def main():
                 continue
             xw = rnd((b, nw, 144, c))
             tl = (*w, mask, heads, sc)
+            kw = lo_kw(fused_msa, w)
             if b == 8:
                 y, saved = fused_msa.fused_window_msa_save_f32(
-                    xw, lnp, *tl, flags=flags)
+                    xw, lnp, *tl, flags=flags, **kw)
                 xin = xw if lnp is None else saved[4].view(xw.shape)
                 gw = rnd(xw.shape)
                 fns = {"save.f32": lambda: fused_msa.fused_window_msa_save_f32(
-                           xw, lnp, *tl, flags=flags),
+                           xw, lnp, *tl, flags=flags, **kw),
                        "K5.f32": lambda: fused_msa.fused_window_msa_bwd_f32(
                            xin, gw, w[0], w[2], saved[:4], heads, sc)}
             else:
                 fns = {"K2.f32": lambda: fused_msa.fused_window_msa_f32(
-                    xw, *tl, flags=flags, exact=True)}
+                    xw, *tl, flags=flags, exact=True, **kw)}
             for key in keys:
                 ms[key][stage] = cuda_ms(fns[key], args.iters)
                 step[key] += depth * ms[key][stage]
             del xw, fns
             torch.cuda.empty_cache()
+    launches = {}
+    msa_f32(ms, step, launches, rnd, dev, args.iters)
+    # K2p f32: video stage 1 of an 8-frame 480² clip (324 windows of 392
+    # tokens, C = 96, 3 heads), two calls a clip: maskless, and grouped
+    # (the first half of the windows maskless, a mask on the rest)
+    nw, n, c, heads = 324, 392, 96, 3
+    w = (rnd((3 * c, c), c ** -0.5), rnd((3 * c,), 0.2), rnd((c, c), c ** -0.5),
+         rnd((c,), 0.2))
+    xw, bias = rnd((1, nw, n, c)), rnd((heads, n, n))
+    small = torch.where(rnd((nw - nw // 2, n, n)) > 1.0, -100.0, 0.0)
+    for name, mask, nu in (("maskless", None, nw), ("grouped", small, nw // 2)):
+        t = cuda_ms(lambda: fused_msa.fused_window_msa_grouped_f32(
+            xw, *w, bias, mask, nu, heads, sc), args.iters)
+        ms["K2p.f32"][f"stage 1 {name}"] = t
+        step["K2p.f32"] += t
+    del xw, bias, small
+    torch.cuda.empty_cache()
     from lavt_rs_tpu_torch.ops import window_attn as wa
 
     for bw, nw, heads, n, blocks, key in K10_SHAPES:
@@ -185,7 +318,7 @@ def main():
                            "--format=csv,noheader", "-i", "0"],
                           capture_output=True, text=True).stdout.strip()
     print(json.dumps({"root": os.path.abspath(args.root), "card": card,
-                      "ms": ms, "step": step}))
+                      "ms": ms, "step": step, "launches": launches}))
     return 0
 
 
