@@ -139,7 +139,12 @@
        route; contiguous q, k, v and, under the shift mask, the windows
        grouped by mask checked) and at video stages 2-4 of an 8-frame
        clip, K2p f32 at stage 1 (n_p = 392: no padding in f32;
-       grouped by mask, unshifted and shifted), K10 f32's save mode and K9
+       grouped by mask, unshifted and shifted; the weights' lo parts kept
+       as the model keeps them; two calls give the same bits; its
+       attention launch's plan printed and its shared memory held to the
+       kernel's own; each launch by device ms beside its bound: qkv, the
+       attention on wgmma, the out-projection, the lo split the model runs
+       once a weight version), K10 f32's save mode and K9
        f32 at all four video stages (two K9 f32 calls give the same bits;
        K9 f32's device ms by kernel under torch.profiler at each; K10
        f32's, K2p f32's and K9 f32's times beside their FFMA designs',
@@ -285,7 +290,8 @@
        of their f64 values, where the f32 plain version's own sums miss
        1e-4 abs + rel (both counted and printed), timed per call and per
        step beside its bound, its plain version and its f32 library
-       chain, and on the device; two calls of K4b f32, K7 f32 and K9 f32
+       chain, and on the device (K4b f32, at most one kernel a call under
+       torch.profiler, at each stage); two calls of K4b f32, K7 f32 and K9 f32
        give the same bits; K9 f32's device ms by kernel (torch.profiler)
        at each shape and its time per step beside its FFMA design's; K8
        f32's launches (the prep: LN rows and W's lo parts; fc1 + GELU and
@@ -497,15 +503,15 @@ SOURCES = {
     "K11.f32": "lavt_rs_tpu_torch/csrc/fused_msa_f32.cu",
     "K3.f32": "lavt_rs_tpu_torch/csrc/gemm_f32.cu",
     "K4.f32": "lavt_rs_tpu_torch/csrc/ln.cu",
-    # K10 f32 in both modes and K2p f32's attention launch (K2p f32's
-    # projections: gemm_f32.cu); K9 f32's two launches
+    # K10 f32 in both modes; K2p f32's attention launch (its projections:
+    # gemm_f32.cu); K9 f32's two launches
     "K10.f32/w7": "lavt_rs_tpu_torch/csrc/window_attn_f32.cu",
     "K10.f32": "lavt_rs_tpu_torch/csrc/window_attn_f32.cu",
     "K10s.f32": "lavt_rs_tpu_torch/csrc/window_attn_f32.cu",
-    "K2p.f32": "lavt_rs_tpu_torch/csrc/window_attn_f32.cu",
+    "K2p.f32": "lavt_rs_tpu_torch/csrc/grouped_msa_f32.cu",
     "K9.f32": "lavt_rs_tpu_torch/csrc/window_attn_bwd_f32.cu",
     # K8 f32: K3 f32's launches with keep in fc2's epilogue; K7 f32's
-    # launches; K4b f32's pass
+    # launches; K4b f32's one launch (dx and the column sums)
     "K8.f32": "lavt_rs_tpu_torch/csrc/gemm_f32.cu",
     "K7.f32": "lavt_rs_tpu_torch/csrc/fused_mlp_bwd_f32.cu",
     "K4b.f32": "lavt_rs_tpu_torch/csrc/ln.cu",
@@ -1032,6 +1038,27 @@ def _device_session(fn, n):
             if e.device_type == torch.autograd.DeviceType.CUDA}
 
 
+def k4b_f32_kernel_check(what, x, scale, gy, calls=5, tries=3):
+    """K4b f32 launches one kernel a call (its partial sums in the same
+    launch), by torch.profiler over `calls` calls, the most launches of
+    `tries` sessions (a session can drop records): fails on more launches
+    than calls or more than one kernel name."""
+    from lavt_rs_tpu_torch.ops import ln
+
+    def fn():
+        return ln.layer_norm_rows_bwd_f32(x, scale, gy)
+
+    fn()
+    session = max((_device_session(fn, calls) for _ in range(tries)),
+                  key=lambda ses: sum(count for _, count in ses.values()))
+    launches = sum(count for _, count in session.values())
+    if launches > calls or len(session) > 1:
+        raise RuntimeError(f"{what}: {launches} kernel launches over {calls} "
+                           f"calls ({sorted(session)}), not one a call")
+    log(f"{what}: {launches} kernel launches over {calls} calls under "
+        f"torch.profiler ({', '.join(short_kernel(k) for k in session)})")
+
+
 def device_ms_by_kernel(fn, iters=10, tries=3):
     """Device ms per call of fn by kernel name: the time of the kernels it
     launches, from torch.profiler over `iters` calls after a warm-up,
@@ -1439,6 +1466,64 @@ def msa_f32_launch_lines(label, x, lnp, w, bias, mask, flags, heads, sc, lo):
             f"{bound_ms(work[k], PEAK_FLOPS_F32)[0]:.4f} "
             f"{bound_ms(work[k], PEAK_FLOPS_F32)[1]})"
             for k, fn in parts.items()))
+
+
+def k2p_f32_plan_line(nw, heads, n, sms):
+    """K2p f32's attention plan at (nW, heads, n) on `sms` SMs, its shared
+    memory held to the kernel's own."""
+    from lavt_rs_tpu_torch.ops import cuda_lib, fused_msa
+
+    p = fused_msa.k2p_f32_plan(nw, heads, n, sms)
+    smem = cuda_lib.lib().lavt_k2p_attn_f32_smem()
+    if smem != p["smem"]:
+        raise RuntimeError(f"K2p f32 attention: the kernel's shared memory "
+                           f"{smem} B, its plan's {p['smem']}")
+    log(f"K2p f32 attention plan ({nw}, {heads}, {n}) on {sms} SMs: "
+        f"{p['blocks']} persistent blocks over {p['items']} (window, head, "
+        f"sweep) items, {p['per_block']} a block at most; {p['tiles']} query "
+        f"tiles of 64 in {p['sweeps']} sweeps ({p['tiles_per_warpgroup']} a "
+        f"consumer warpgroup a sweep), {p['chunks']} key chunks of 56 a "
+        f"sweep through {p['stages']} ring slots; {p['smem']} B (the "
+        f"kernel's own)")
+
+
+def k2p_f32_launch_lines(label, args, lo):
+    """K2p f32's launches one by one (`fused_msa.grouped_launches` on f32),
+    each by device ms a call (its launches queued behind a device sleep,
+    `queued_ms`) beside its bound at the f32 peak: qkv with wqkv's lo, the
+    attention (`grouped_attn_f32`), the out-projection with wproj's lo,
+    and the lo split of both weights that the model runs once a weight
+    version (`WeightLo.weight_lo`)."""
+    from lavt_rs_tpu_torch.ops import fused_msa
+
+    x, wqkv, bqkv, wproj, bproj, bias, mask, nu, heads, sc = args
+    b, nw, n, c = x.shape
+    rows = b * nw * n
+    x2 = x.reshape(rows, c)
+    qkv = fused_msa.gemm_bias(x2, wqkv, bqkv, c, sc, wlo=lo[0])
+    qv = qkv.view(b, nw, n, 3 * c)
+    o = fused_msa.grouped_attn_f32(qv, bias, mask, nu, heads).view(rows, c)
+    masked = 0 if mask is None else mask.shape[0] * b
+    work = {"qkv": (6 * rows * c * c, 4 * (4 * rows * c + 6 * c * c + 3 * c)),
+            "attention": attn_work(b, nw, heads, n, masked, 4),
+            "out-projection": (2 * rows * c * c,
+                               4 * (2 * rows * c + 2 * c * c + c)),
+            "lo split": (0, 2 * 4 * 4 * c * c)}
+    parts = {"qkv": lambda: fused_msa.gemm_bias(x2, wqkv, bqkv, c, sc,
+                                                wlo=lo[0]),
+             "attention": lambda: fused_msa.grouped_attn_f32(
+                 qv, bias, mask, nu, heads),
+             "out-projection": lambda: fused_msa.gemm_bias(o, wproj, bproj,
+                                                           wlo=lo[1]),
+             "lo split": lambda: (fused_msa.tf32_lo(wqkv),
+                                  fused_msa.tf32_lo(wproj))}
+    log(f"{label}: device ms a call by launch (launches queued), bound at "
+        f"the f32 peak: " + "; ".join(
+            f"{k} {queued_ms(fn):.4f} (bound "
+            f"{bound_ms(work[k], PEAK_FLOPS_F32)[0]:.4f} "
+            f"{bound_ms(work[k], PEAK_FLOPS_F32)[1]})"
+            for k, fn in parts.items()))
+    del qkv, o
 
 
 def around_k11_f32(dev, card, k11_ms):
@@ -2968,6 +3053,8 @@ def f32_attn_kernel_phase(dev, res):
         if si == 0:  # K2p f32: 392 tokens, no padding in f32
             w = (rnd((3 * c, c), c ** -0.5), rnd((3 * c,), 0.2),
                  rnd((c, c), c ** -0.5), rnd((c,), 0.2))
+            lo = (fused_msa.tf32_lo(w[0]), fused_msa.tf32_lo(w[2]))
+            k2p_f32_plan_line(nw, heads, n, sms)
             xw = rnd((1, nw, n, c))
             for ss in ((0, 0, 0), (0, 3, 3)):
                 nu, mask = partition_3d_groups(FRAMES, side, side, FRAMES, hp,
@@ -2985,14 +3072,18 @@ def f32_attn_kernel_phase(dev, res):
                     return F.linear(o.transpose(1, 2).reshape(1, nw, n, c),
                                     w[2], w[3])
 
-                measure(res, "K2p.f32",
-                        f"stage 1 x{tuple(xw.shape)} heads {heads} nu {nu}", 1,
-                        lambda a=args: fused_msa.fused_window_msa_grouped(*a),
+                what = f"stage 1 x{tuple(xw.shape)} heads {heads} nu {nu}"
+                measure(res, "K2p.f32", what, 1,
+                        lambda a=args: fused_msa.fused_window_msa_grouped(
+                            *a, wlo=lo),
                         lambda a=args: fused_msa.fused_window_msa_grouped_plain(
                             *a), chain,
                         padded_msa_work(1, nw, n, c, heads,
                                         masked_windows(mask), 4),
                         check, peak=PEAK_FLOPS_F32)
+                check_deterministic(f"K2p f32 {what}", lambda a=args: (
+                    fused_msa.fused_window_msa_grouped(*a, wlo=lo),))
+                k2p_f32_launch_lines(f"K2p f32 launches {what}", args, lo)
                 del am, full
             del xw
         else:  # K10 f32 on the stage's qkv Linear output
@@ -4906,6 +4997,8 @@ def f32_train_kernel_phase(dev, res):
                                    1), peak=PEAK_FLOPS_F32)
         check_deterministic(f"K4b f32 {what}", k4b)
         device_per_call(res, "K4b.f32", what, 1, k4b)
+        defer(functools.partial(k4b_f32_kernel_check, f"K4b f32 {what}"), x,
+              s_, gy)
         mlp = (x, s_, b_, rnd((4 * c, c), c ** -0.5), rnd((4 * c,), 0.2),
                rnd((c, 4 * c), (4 * c) ** -0.5), rnd((c,), 0.2))
         keep_rows = keep.repeat_interleave(tail)[:, None]
@@ -6072,7 +6165,8 @@ def k10_p2_only_port_kernels(dev):
 
 # kernels whose ptxas -v line chip_smoke prints: K2p's (the GEMM core's
 # two EpiBias instances and K10's kernel), P1/P2's, K5's, K9's and the f32
-# variants (the 3xTF32 wgmma core's instances, the f32 MSA attention's)
+# variants (the 3xTF32 wgmma core's instances, the f32 MSA attention's,
+# K2p f32's attention, K4b f32's at the stage widths)
 PTXAS_KERNELS = {"EpiBiasILb1E": "K2p / K2 / save-mode qkv GEMM (GEMM core)",
                  "EpiBiasILb0E": "K2p / K2 / save-mode out-projection GEMM (GEMM core)",
                  "msa_fwd_sm90_kernelILb0E": "K2 attention",
@@ -6105,9 +6199,13 @@ PTXAS_KERNELS = {"EpiBiasILb1E": "K2p / K2 / save-mode qkv GEMM (GEMM core)",
                  "rows_f32_kernelILi1EE": "K4 f32 (C = 128)",
                  "window_attn_f32_kernelILb1ELb0E": "K10 f32 (N <= 56)",
                  "window_attn_f32_kernelILb1ELb1E": "K10 save f32 (N <= 56)",
-                 "window_attn_f32_kernelILb0ELb0E": "K10 f32 / K2p f32 attention "
-                                                    "(N > 56)",
-                 "window_attn_f32_kernelILb0ELb1E": "K10 save f32 (N > 56)"}
+                 "window_attn_f32_kernelILb0ELb0E": "K10 f32 (N > 56)",
+                 "window_attn_f32_kernelILb0ELb1E": "K10 save f32 (N > 56)",
+                 "k2p_attn_f32_kernel": "K2p f32 attention (wgmma, 3xTF32)",
+                 "rows_bwd_f32_kernelILi8ELi4ELi16EE": "K4b f32 (C = 128)",
+                 "rows_bwd_f32_kernelILi16ELi4ELi16EE": "K4b f32 (C = 256)",
+                 "rows_bwd_f32_kernelILi32ELi4ELi16EE": "K4b f32 (C = 512)",
+                 "rows_bwd_f32_kernelILi32ELi8ELi8EE": "K4b f32 (C = 1024)"}
 
 
 def ptxas_lines(text):

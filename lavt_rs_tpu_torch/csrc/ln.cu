@@ -599,116 +599,242 @@ inline cudaError_t launch(const float* x, const float* g, const float* b, float*
 }  // namespace lavt
 
 // K4b f32: K4b's one pass on f32 rows (the XLA backward of the custom_vjp,
-// lavt_rs_tpu/ops/pallas/ln.py:_ln_bwd, on f32 activations): the fast
-// variance recomputed from x, dx written in f32, per block the (2, C)
-// column partials of sum g xhat (dscale) and sum g (dbias), added in block
-// order by lavt_sum_partials.  Bound: bytes (x and g read, dx written, 12
-// bytes an element).  C <= 1024: a warp a row (lane l holds the words l +
-// 32 t, masked past C / 4), blocks of 8 warps, the warps' partials added in
-// order through shared memory; C > 1024: the block on one row at a time
-// (thread i holds the words i + 256 t), its sums through `block_sum2`.  One
-// block an SM, a persistent grid of `per` rows a block (`plan_bwd`,
-// mirrored by ops/ln.py:ln_rows_f32_bwd_plan).  -Xptxas -v (CUDA 12.8, on
-// an H100), 0 bytes spilled: rows_bwd_f32_kernel 48-220 registers (V = 1
-// ... 8), wide_bwd_f32_kernel 118.
+// lavt_rs_tpu/ops/pallas/ln.py:_ln_bwd, on f32 activations), one launch:
+// the fast variance recomputed from x, dx written in f32, and the (2, C)
+// column sums of g xhat (dscale) and g (dbias), added inside the launch.
+//
+// Bound: bytes (x and g read, dx written, 12 bytes an element: 177 MB at
+// the lavt_one Swin-B stage-1 norm, 115,200 x 128, 0.053 ms at 3.35 TB/s).
+// To stream at that rate an SM needs some 25-40 KB of x and g in flight.
+// Design: a row is held by a lane group of G lanes (8, 16 or 32: at C <= 256
+// several rows a warp), each lane V <= 8 16-byte words (words past C / 4
+// masked); blocks of 16 warps (8 at V > 4), one an SM, persistent over
+// `per` rows; every lane group loads its next row's x and g into registers
+// before it reduces the current one, so 64 KB (x and g of 64 rows at C =
+// 128) and as much again are in flight per SM at every width.  Each block
+// adds its rows' g xhat and g per column in registers, its warps' sums in
+// warp order through shared memory, and writes its (2, C) partial; the
+// partials are added in the same launch, in block order: blocks come in
+// `group`s of about sqrt(blocks), the last block of a group to finish (a
+// ticket taken by atomicAdd after __threadfence) adds the group's
+// partials in order, and the last group to finish adds the group sums in
+// order.  So the sums take the same order, and the same bits, every run,
+// and K4b f32 needs no second launch.  The tickets are counters in device
+// memory, reset by the blocks that take the last ticket: launches of this
+// kernel on one device must not overlap (they run on one stream).
+// C > 1024: the block on one row at a time (thread i holds the words i +
+// 256 t), its sums through `block_sum2`, the same partials and sums.  The
+// plan (`plan_bwd`) is mirrored by ops/ln.py:ln_rows_f32_bwd_plan.
+// (The design before: a warp a row, 8 warps an SM, ~8 KB in flight, and
+// the partials added by a second launch: 0.208 ms a bs-8 step's four stage
+// norms, 47 % of their bound; PERF.md.)
 namespace lavt {
 namespace lnr32 {
 
-constexpr int kWideWords = 4;  // float4 words a thread holds at C <= 4096
+constexpr int kWideWords = 4;   // float4 words a thread holds at C <= 4096
+constexpr int kMaxGroups = 64;  // groups of blocks (blocks <= 4096)
+
+__device__ unsigned int g_tickets[kMaxGroups + 1];  // per group, and the groups'
 
 struct BwdPlan {
-  int per, blocks;
+  int lanes, vecs, warps;  // G lanes a row, V words a lane, warps a block; lanes 0: C > 1024
+  int per, blocks;         // rows a block, blocks
+  int group, groups;       // blocks a group (the last may hold fewer), groups
 };
 
 inline BwdPlan plan_bwd(int rows, int C, int sms) {
-  const int step = C > 1024 ? 1 : 8;
+  BwdPlan p{0, 0, 8, 0, 0, 0, 0};
+  int step = 1;
+  if (C <= 1024) {
+    const int words = C / 4;
+    for (int g = 8; g <= 32 && p.lanes == 0; g *= 2)
+      if (words % g == 0 && words / g <= 4) p.lanes = g, p.vecs = words / g;
+    if (p.lanes == 0) p.lanes = 32, p.vecs = (words + 31) / 32;
+    p.warps = p.vecs <= 4 ? 16 : 8;
+    step = p.warps * (32 / p.lanes);
+  }
   const int iters = (rows + step - 1) / step;
   const int want = iters < sms ? iters : sms;
-  const int per = (iters + want - 1) / want * step;
-  return BwdPlan{per, (rows + per - 1) / per};
+  p.per = (iters + want - 1) / want * step;
+  p.blocks = (rows + p.per - 1) / p.per;
+  int gs = 1;
+  while (gs * gs < p.blocks) ++gs;
+  p.group = gs;
+  p.groups = (p.blocks + gs - 1) / gs;
+  return p;
 }
 
 __device__ __forceinline__ float4 zero4() { return make_float4(0.f, 0.f, 0.f, 0.f); }
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
 
-template <int V>
-__global__ void __launch_bounds__(256, 1)
+// src[0] + src[ld] + ... + src[(rows - 1) ld], added in that order, its
+// loads issued eight at a time (from L2: other blocks wrote them)
+__device__ __forceinline__ float4 sum_rows(const float4* src, int rows, int ld) {
+  float4 a = zero4();
+  int r = 0;
+  for (; r + 8 <= rows; r += 8) {
+    float4 v[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = __ldcg(src + size_t(r + e) * ld);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) a = add4(a, v[e]);
+  }
+  for (; r < rows; ++r) a = add4(a, __ldcg(src + size_t(r) * ld));
+  return a;
+}
+
+// The block's partial (2 words float4: sum g xhat, then sum g) is in `ws`
+// at row blockIdx.x; adds the partials in block order into sums (2, C),
+// by the last block of each group, then the last group (see the top
+// note).  ws: (blocks + groups, 2, C) f32.
+__device__ void finish_sums(float4* ws, float4* sums, int words, int group, int groups) {
+  __shared__ int last;
+  const int blocks = gridDim.x, q = blockIdx.x / group;
+  const int b0 = q * group, b1 = min(blocks, b0 + group);
+  const int n4 = 2 * words;
+  __threadfence();  // this block's partial, before its ticket
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(&g_tickets[q], 1u) == unsigned(b1 - b0 - 1);
+  __syncthreads();
+  if (!last) return;
+  __threadfence();  // the group's partials, after the ticket
+  for (int i = threadIdx.x; i < n4; i += blockDim.x)
+    ws[size_t(blocks + q) * n4 + i] = sum_rows(ws + size_t(b0) * n4 + i, b1 - b0, n4);
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    g_tickets[q] = 0u;  // for the next launch
+    last = atomicAdd(&g_tickets[kMaxGroups], 1u) == unsigned(groups - 1);
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int i = threadIdx.x; i < n4; i += blockDim.x)
+    sums[i] = sum_rows(ws + size_t(blocks) * n4 + i, groups, n4);
+  if (threadIdx.x == 0) g_tickets[kMaxGroups] = 0u;
+}
+
+// the V words of a row that lane j of its group holds (zeros where the row
+// or the word lies outside)
+template <int G, int V>
+__device__ __forceinline__ void load_row(const float* __restrict__ src, bool valid, int j,
+                                         int words, float4 (&w)[V]) {
+#pragma unroll
+  for (int t = 0; t < V; ++t) {
+    const int c = j + G * t;
+    w[t] = valid && c < words ? __ldg(reinterpret_cast<const float4*>(src) + c) : zero4();
+  }
+}
+
+template <int G, int V, int W>
+__global__ void __launch_bounds__(32 * W, 1)
     rows_bwd_f32_kernel(const float* __restrict__ x, const float* __restrict__ g,
                         const float* __restrict__ gamma, float* __restrict__ dx,
-                        float* __restrict__ part, int rows, int C, int per, float eps) {
+                        float* __restrict__ ws, float* __restrict__ sums, int rows, int C,
+                        int per, int group, int groups, float eps) {
+  constexpr int R = 32 / G, kStep = W * R;
   __shared__ float4 red[2][256];
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, words = C / 4;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int j = lane % G, words = C / 4;
   const int r0 = blockIdx.x * per, r1 = min(rows, r0 + per);
   const auto* g4 = reinterpret_cast<const float4*>(gamma);
+  const float inv_c = 1.f / C;
   float4 agx[V], ag[V];
 #pragma unroll
   for (int t = 0; t < V; ++t) agx[t] = ag[t] = zero4();
-  for (int row = r0 + warp; row < r1; row += 8) {  // warp-uniform
-    const auto* x4 = reinterpret_cast<const float4*>(x + size_t(row) * C);
-    const auto* gr = reinterpret_cast<const float4*>(g + size_t(row) * C);
-    float4 xh[V], gv[V];
+  int row = r0 + warp * R + lane / G;
+  float4 cx[V], cg[V], nx[V], ng[V];
+  load_row<G, V>(x + size_t(row) * C, row < r1, j, words, cx);
+  load_row<G, V>(g + size_t(row) * C, row < r1, j, words, cg);
+  // warp-uniform bound: every lane takes the shuffles of every iteration
+  for (int base = r0 + warp * R; base < r1; base += kStep, row += kStep) {
+    const size_t next = size_t(row + kStep) * C;
+    load_row<G, V>(x + next, row + kStep < r1, j, words, nx);
+    load_row<G, V>(g + next, row + kStep < r1, j, words, ng);
     float s = 0.f, q = 0.f;
 #pragma unroll
     for (int t = 0; t < V; ++t) {
-      const int w = lane + 32 * t;
-      xh[t] = w < words ? x4[w] : zero4();
-      gv[t] = w < words ? gr[w] : zero4();
-      s += (xh[t].x + xh[t].y) + (xh[t].z + xh[t].w);
-      q += (xh[t].x * xh[t].x + xh[t].y * xh[t].y) + (xh[t].z * xh[t].z + xh[t].w * xh[t].w);
+      s += (cx[t].x + cx[t].y) + (cx[t].z + cx[t].w);
+      q += (cx[t].x * cx[t].x + cx[t].y * cx[t].y) + (cx[t].z * cx[t].z + cx[t].w * cx[t].w);
     }
-    const float mu = warp_sum(s) / C;
-    const float rstd = rsqrtf(warp_sum(q) / C - mu * mu + eps);
+    s = lnr::group_sum<G>(s);
+    q = lnr::group_sum<G>(q);
+    const float mu = s * inv_c;
+    const float rstd = rsqrtf(q * inv_c - mu * mu + eps);
     float4 dxn[V];
     float m1 = 0.f, m2 = 0.f;
 #pragma unroll
     for (int t = 0; t < V; ++t) {
-      const int w = lane + 32 * t;
-      const float4 gm = w < words ? g4[w] : zero4();
-      xh[t] = make_float4((xh[t].x - mu) * rstd, (xh[t].y - mu) * rstd, (xh[t].z - mu) * rstd,
-                          (xh[t].w - mu) * rstd);
-      dxn[t] = make_float4(gv[t].x * gm.x, gv[t].y * gm.y, gv[t].z * gm.z, gv[t].w * gm.w);
+      const int c = j + G * t;
+      const float4 gm = c < words ? __ldg(g4 + c) : zero4();
+      const float4 xh = make_float4((cx[t].x - mu) * rstd, (cx[t].y - mu) * rstd,
+                                    (cx[t].z - mu) * rstd, (cx[t].w - mu) * rstd);
+      cx[t] = xh;
+      dxn[t] = make_float4(cg[t].x * gm.x, cg[t].y * gm.y, cg[t].z * gm.z, cg[t].w * gm.w);
       m1 += (dxn[t].x + dxn[t].y) + (dxn[t].z + dxn[t].w);
-      m2 += (dxn[t].x * xh[t].x + dxn[t].y * xh[t].y) + (dxn[t].z * xh[t].z + dxn[t].w * xh[t].w);
-      // masked words: g = 0
-      agx[t] = make_float4(agx[t].x + gv[t].x * xh[t].x, agx[t].y + gv[t].y * xh[t].y,
-                           agx[t].z + gv[t].z * xh[t].z, agx[t].w + gv[t].w * xh[t].w);
-      ag[t] = make_float4(ag[t].x + gv[t].x, ag[t].y + gv[t].y, ag[t].z + gv[t].z,
-                          ag[t].w + gv[t].w);
+      m2 += (dxn[t].x * xh.x + dxn[t].y * xh.y) + (dxn[t].z * xh.z + dxn[t].w * xh.w);
+      // a masked row or word: g = 0
+      agx[t] = make_float4(agx[t].x + cg[t].x * xh.x, agx[t].y + cg[t].y * xh.y,
+                           agx[t].z + cg[t].z * xh.z, agx[t].w + cg[t].w * xh.w);
+      ag[t] = add4(ag[t], cg[t]);
     }
-    m1 = warp_sum(m1) / C;
-    m2 = warp_sum(m2) / C;
-    auto* d4 = reinterpret_cast<float4*>(dx + size_t(row) * C);
-#pragma unroll
-    for (int t = 0; t < V; ++t) {
-      const int w = lane + 32 * t;
-      if (w < words)
-        d4[w] = make_float4(rstd * (dxn[t].x - m1 - xh[t].x * m2),
-                            rstd * (dxn[t].y - m1 - xh[t].y * m2),
-                            rstd * (dxn[t].z - m1 - xh[t].z * m2),
-                            rstd * (dxn[t].w - m1 - xh[t].w * m2));
-    }
-  }
-  // the warps' partials in order
-  for (int wp = 0; wp < 8; ++wp) {
-    if (warp == wp) {
+    m1 = lnr::group_sum<G>(m1) * inv_c;
+    m2 = lnr::group_sum<G>(m2) * inv_c;
+    if (row < r1) {
+      auto* d4 = reinterpret_cast<float4*>(dx + size_t(row) * C);
 #pragma unroll
       for (int t = 0; t < V; ++t) {
-        const int w = lane + 32 * t;
-        if (w >= words) continue;
-        const float4 a = wp == 0 ? zero4() : red[0][w], b = wp == 0 ? zero4() : red[1][w];
-        red[0][w] = make_float4(a.x + agx[t].x, a.y + agx[t].y, a.z + agx[t].z, a.w + agx[t].w);
-        red[1][w] = make_float4(b.x + ag[t].x, b.y + ag[t].y, b.z + ag[t].z, b.w + ag[t].w);
+        const int c = j + G * t;
+        if (c < words)
+          d4[c] = make_float4(rstd * (dxn[t].x - m1 - cx[t].x * m2),
+                              rstd * (dxn[t].y - m1 - cx[t].y * m2),
+                              rstd * (dxn[t].z - m1 - cx[t].z * m2),
+                              rstd * (dxn[t].w - m1 - cx[t].w * m2));
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < V; ++t) cx[t] = nx[t], cg[t] = ng[t];
+  }
+  // the block's partial: the warp's R groups by a fixed shuffle tree, then
+  // the warps in order through shared memory
+#pragma unroll
+  for (int o = G; o < 32; o <<= 1)
+#pragma unroll
+    for (int t = 0; t < V; ++t) {
+      agx[t] = make_float4(agx[t].x + __shfl_xor_sync(0xffffffffu, agx[t].x, o),
+                           agx[t].y + __shfl_xor_sync(0xffffffffu, agx[t].y, o),
+                           agx[t].z + __shfl_xor_sync(0xffffffffu, agx[t].z, o),
+                           agx[t].w + __shfl_xor_sync(0xffffffffu, agx[t].w, o));
+      ag[t] = make_float4(ag[t].x + __shfl_xor_sync(0xffffffffu, ag[t].x, o),
+                          ag[t].y + __shfl_xor_sync(0xffffffffu, ag[t].y, o),
+                          ag[t].z + __shfl_xor_sync(0xffffffffu, ag[t].z, o),
+                          ag[t].w + __shfl_xor_sync(0xffffffffu, ag[t].w, o));
+    }
+  for (int wp = 0; wp < W; ++wp) {
+    if (warp == wp && lane < G) {
+#pragma unroll
+      for (int t = 0; t < V; ++t) {
+        const int c = j + G * t;
+        if (c >= words) continue;
+        red[0][c] = wp == 0 ? agx[t] : add4(red[0][c], agx[t]);
+        red[1][c] = wp == 0 ? ag[t] : add4(red[1][c], ag[t]);
       }
     }
     __syncthreads();
   }
-  auto* dst = reinterpret_cast<float4*>(part + size_t(blockIdx.x) * 2 * C);
-  for (int i = threadIdx.x; i < 2 * words; i += 256) dst[i] = red[i / words][i % words];
+  float4* mine = reinterpret_cast<float4*>(ws) + size_t(blockIdx.x) * 2 * words;
+  for (int i = threadIdx.x; i < 2 * words; i += 32 * W) mine[i] = red[i / words][i % words];
+  finish_sums(reinterpret_cast<float4*>(ws), reinterpret_cast<float4*>(sums), words, group,
+              groups);
 }
 
 __global__ void __launch_bounds__(256, 1)
     wide_bwd_f32_kernel(const float* __restrict__ x, const float* __restrict__ g,
                         const float* __restrict__ gamma, float* __restrict__ dx,
-                        float* __restrict__ part, int rows, int C, int per, float eps) {
+                        float* __restrict__ ws, float* __restrict__ sums, int rows, int C,
+                        int per, int group, int groups, float eps) {
   __shared__ float buf[2][2][lnr::kWarps];
   int parity = 0;
   const int words = C / 4;
@@ -730,9 +856,9 @@ __global__ void __launch_bounds__(256, 1)
       s += (xh[t].x + xh[t].y) + (xh[t].z + xh[t].w);
       q += (xh[t].x * xh[t].x + xh[t].y * xh[t].y) + (xh[t].z * xh[t].z + xh[t].w * xh[t].w);
     }
-    const float2 sums = lnr::block_sum2(s, q, buf, parity);
-    const float mu = sums.x / C;
-    const float rstd = rsqrtf(sums.y / C - mu * mu + eps);
+    const float2 sums2 = lnr::block_sum2(s, q, buf, parity);
+    const float mu = sums2.x / C;
+    const float rstd = rsqrtf(sums2.y / C - mu * mu + eps);
     float4 dxn[kWideWords];
     float m1 = 0.f, m2 = 0.f;
 #pragma unroll
@@ -746,8 +872,7 @@ __global__ void __launch_bounds__(256, 1)
       m2 += (dxn[t].x * xh[t].x + dxn[t].y * xh[t].y) + (dxn[t].z * xh[t].z + dxn[t].w * xh[t].w);
       agx[t] = make_float4(agx[t].x + gv[t].x * xh[t].x, agx[t].y + gv[t].y * xh[t].y,
                            agx[t].z + gv[t].z * xh[t].z, agx[t].w + gv[t].w * xh[t].w);
-      ag[t] = make_float4(ag[t].x + gv[t].x, ag[t].y + gv[t].y, ag[t].z + gv[t].z,
-                          ag[t].w + gv[t].w);
+      ag[t] = add4(ag[t], gv[t]);
     }
     const float2 ms = lnr::block_sum2(m1, m2, buf, parity);
     m1 = ms.x / C;
@@ -764,12 +889,14 @@ __global__ void __launch_bounds__(256, 1)
     }
   }
   // every word is one thread's: its partials go out as they are
-  auto* dst = reinterpret_cast<float4*>(part + size_t(blockIdx.x) * 2 * C);
+  float4* mine = reinterpret_cast<float4*>(ws) + size_t(blockIdx.x) * 2 * words;
 #pragma unroll
   for (int t = 0; t < kWideWords; ++t) {
     const int w = threadIdx.x + 256 * t;
-    if (w < words) dst[w] = agx[t], dst[words + w] = ag[t];
+    if (w < words) mine[w] = agx[t], mine[words + w] = ag[t];
   }
+  finish_sums(reinterpret_cast<float4*>(ws), reinterpret_cast<float4*>(sums), words, group,
+              groups);
 }
 
 }  // namespace lnr32
@@ -790,46 +917,53 @@ extern "C" int lavt_layer_norm_rows_f32(const void* x, const void* gamma, const 
   return static_cast<int>(lavt::lnr32::launch(xf, gf, bf, of, rows, C, eps, s));
 }
 
-// The number of (2, C) f32 partials lavt_layer_norm_rows_bwd_f32 writes at
-// (rows, C) on the current device (0: a shape it does not take).
-extern "C" int lavt_layer_norm_rows_bwd_f32_parts(int rows, int C) {
+// The rows of f32 workspace lavt_layer_norm_rows_bwd_f32 takes at (rows,
+// C) on the current device: (blocks + groups, 2, C) (0: a shape it does not
+// take).
+extern "C" int lavt_layer_norm_rows_bwd_f32_ws(int rows, int C) {
   const int sms = lavt::lnr::sm_count();
   if (!lavt::lnr::supported(rows, C) || sms == 0) return 0;
-  return lavt::lnr32::plan_bwd(rows, C, sms).blocks;
+  const lavt::lnr32::BwdPlan p = lavt::lnr32::plan_bwd(rows, C, sms);
+  return p.blocks + p.groups;
 }
 
-// K4b f32.  x, g (rows, C) f32; gamma (C) f32; dx (rows, C) f32; part
-// (parts, 2, C) f32, parts = lavt_layer_norm_rows_bwd_f32_parts(rows, C)
-// (refused otherwise).
+// K4b f32, one launch.  x, g (rows, C) f32; gamma (C) f32; writes dx (rows,
+// C) f32 and sums (2, C) f32 (dscale, then dbias); ws (ws_rows, 2, C) f32
+// scratch, ws_rows = lavt_layer_norm_rows_bwd_f32_ws(rows, C) (refused
+// otherwise).
 extern "C" int lavt_layer_norm_rows_bwd_f32(const void* x, const void* g, const void* gamma,
-                                            void* dx, void* part, int parts, int rows, int C,
-                                            float eps, void* stream) {
+                                            void* dx, void* ws, void* sums, int ws_rows,
+                                            int rows, int C, float eps, void* stream) {
   using namespace lavt::lnr;
   const int sms = sm_count();
   if (!supported(rows, C) || sms == 0 || !aligned(x) || !aligned(g) || !aligned(gamma) ||
-      !aligned(dx) || !aligned(part))
+      !aligned(dx) || !aligned(ws) || !aligned(sums))
     return static_cast<int>(cudaErrorInvalidValue);
   const lavt::lnr32::BwdPlan p = lavt::lnr32::plan_bwd(rows, C, sms);
-  if (parts != p.blocks) return static_cast<int>(cudaErrorInvalidValue);
+  if (ws_rows != p.blocks + p.groups || p.groups > lavt::lnr32::kMaxGroups)
+    return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* xf = static_cast<const float*>(x);
   const auto* gf = static_cast<const float*>(g);
   const auto* gm = static_cast<const float*>(gamma);
   auto* df = static_cast<float*>(dx);
-  auto* pf = static_cast<float*>(part);
-  if (C > 1024) {
-    lavt::lnr32::wide_bwd_f32_kernel<<<p.blocks, 256, 0, s>>>(xf, gf, gm, df, pf, rows, C, p.per,
-                                                              eps);
+  auto* wf = static_cast<float*>(ws);
+  auto* sf = static_cast<float*>(sums);
+  if (p.lanes == 0) {
+    lavt::lnr32::wide_bwd_f32_kernel<<<p.blocks, 256, 0, s>>>(xf, gf, gm, df, wf, sf, rows, C,
+                                                              p.per, p.group, p.groups, eps);
     return static_cast<int>(cudaGetLastError());
   }
-  const int need = (C / 4 + 31) / 32;
-#define LAVT_CASE(V)                                                                         \
-  if (need <= V) {                                                                           \
-    lavt::lnr32::rows_bwd_f32_kernel<V><<<p.blocks, 256, 0, s>>>(xf, gf, gm, df, pf, rows, C, \
-                                                                 p.per, eps);                \
-    return static_cast<int>(cudaGetLastError());                                             \
+#define LAVT_CASE(G, V, W)                                                                     \
+  if (p.lanes == G && p.vecs == V) {                                                           \
+    lavt::lnr32::rows_bwd_f32_kernel<G, V, W><<<p.blocks, 32 * W, 0, s>>>(                     \
+        xf, gf, gm, df, wf, sf, rows, C, p.per, p.group, p.groups, eps);                       \
+    return static_cast<int>(cudaGetLastError());                                               \
   }
-  LAVT_CASE(1) LAVT_CASE(2) LAVT_CASE(3) LAVT_CASE(4) LAVT_CASE(6) LAVT_CASE(8)
+  LAVT_CASE(8, 1, 16) LAVT_CASE(8, 2, 16) LAVT_CASE(8, 3, 16) LAVT_CASE(8, 4, 16)
+  LAVT_CASE(16, 3, 16) LAVT_CASE(16, 4, 16) LAVT_CASE(32, 2, 16) LAVT_CASE(32, 3, 16)
+  LAVT_CASE(32, 4, 16) LAVT_CASE(32, 5, 8) LAVT_CASE(32, 6, 8) LAVT_CASE(32, 7, 8)
+  LAVT_CASE(32, 8, 8)
 #undef LAVT_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }

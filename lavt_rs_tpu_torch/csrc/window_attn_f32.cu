@@ -11,7 +11,8 @@
 // The save mode also writes lse = m + log(l) in f32, (B nW, heads, N), the
 // layout K9 f32 (csrc/window_attn_bwd_f32.cu) reads.  Masks: window wi =
 // win mod nW takes no mask when wi < nu, else mask[wi - nu] (nu = 0 with a
-// full mask, nW without one): the grouping of K2p f32's attention launch.
+// full mask, nW without one): the grouping of
+// window_attn.attention_qkv_grouped.
 // q, k, v are read and O is written at given (window, head, row) element
 // strides, so one kernel serves the qkv Linear's output (the inference
 // route and K2p), and contiguous (B, nW, heads, N, 32) tensors (autograd).

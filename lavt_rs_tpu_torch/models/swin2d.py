@@ -75,7 +75,7 @@ from ..ops.window import (relative_bias_from_table, relative_position_index_2d,
 from .pwam import PWAM, LanguageGate, apply_gate
 
 
-class WindowAttention(nn.Module):
+class WindowAttention(fused_msa.WeightLo, nn.Module):
     """W-MSA with a learned relative-position bias, on the route of
     `route`: one fused-MSA call (K1 when the block's pre-attention LN is
     passed in), or qkv -> K10 -> proj, or qkv -> the torch chain -> proj."""
@@ -114,31 +114,6 @@ class WindowAttention(nn.Module):
                     t, self.relative_position_index)
             self._bias_key = key
         return self._bias
-
-    def weight_lo(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(qkv weight's, proj weight's) lo parts, w - trunc(w) with trunc
-        clearing the 13 low bits, which the f32 kernels' GEMMs bring beside
-        w (`fused_msa.tf32_lo`).  Made once and kept until a weight changes
-        (a new version, device or storage: in training, once a step, after
-        the optimizer's in-place update), as `relative_bias` keeps the
-        bias."""
-        wq, wp = self.qkv.weight, self.proj.weight
-        key = (wq._version, wp._version, wq.device, wq.data_ptr(),
-               wp.data_ptr())
-        if self._lo_key != key:
-            with torch.no_grad():
-                self._lo = (fused_msa.tf32_lo(wq.detach()),
-                            fused_msa.tf32_lo(wp.detach()))
-            self._lo_key = key
-        return self._lo
-
-    def _lo_for(self, x):
-        """`weight_lo` where x takes the f32 kernels (an f32 CUDA tensor
-        with the kernels and f32 weights), else None."""
-        if (self.use_kernels and x.is_cuda and x.dtype == torch.float32
-                and self.qkv.weight.dtype == torch.float32):
-            return self.weight_lo()
-        return None
 
     def _args(self, x, mask):
         bqkv = self.qkv.bias

@@ -83,8 +83,10 @@ from .pwam import LanguageGate, apply_gate
 from .tpwam import build_tpwam
 
 
-class WindowAttention3D(nn.Module):
-    """3D W-MSA with a relative-position bias over (wd, wh, ww) windows."""
+class WindowAttention3D(fused_msa.WeightLo, nn.Module):
+    """3D W-MSA with a relative-position bias over (wd, wh, ww) windows;
+    the f32 kernels' lo parts of its weights kept as the 2D module keeps
+    them (`fused_msa.WeightLo`)."""
 
     def __init__(self, dim: int, window_size: Tuple[int, int, int],
                  num_heads: int, qkv_bias: bool = True,
@@ -102,6 +104,8 @@ class WindowAttention3D(nn.Module):
         self.proj = nn.Linear(dim, dim)
         self._bias_key = None
         self._bias = None
+        self._lo_key = None
+        self._lo = None
 
     def relative_bias(self, n: int, n_p: Optional[int] = None) -> torch.Tensor:
         """(h, N, N) f32 bias of an N-token window (padded to n_p by
@@ -151,7 +155,8 @@ class WindowAttention3D(nn.Module):
                 bqkv = torch.zeros(3 * c, dtype=x.dtype, device=x.device)
             return fused_msa.fused_window_msa_grouped(
                 x, self.qkv.weight, bqkv, self.proj.weight, self.proj.bias,
-                self.relative_bias(n_real, n), mask, nu, h, self.scale)
+                self.relative_bias(n_real, n), mask, nu, h, self.scale,
+                wlo=self._lo_for(x))
         qkv = self.qkv(x)
         bias = self.relative_bias(n)
         route = self.route(nw, n)

@@ -30,7 +30,7 @@ SOURCES = ("ln.cu", "fused_mlp.cu", "fused_msa_bwd.cu",
            "window_attn_bwd_sm90.cu", "window_msa_sm90.cu",
            "fused_msa_sm90.cu", "probe_headbatch.cu", "gemm_f32.cu",
            "fused_msa_f32.cu", "window_attn_f32.cu", "window_attn_bwd_f32.cu",
-           "fused_mlp_bwd_f32.cu", "fused_msa_bwd_f32.cu")
+           "fused_mlp_bwd_f32.cu", "fused_msa_bwd_f32.cu", "grouped_msa_f32.cu")
 HEADERS = ("common.cuh", "gemm_sm90.cuh", "attn_sm90.cuh", "gemm_f32.cuh",
            "attn_tf32.cuh", "gemm_tf32_sm90.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -74,8 +74,8 @@ SIGNATURES = {
     "lavt_tf32_core_smem": (I,),
     "lavt_tf32_lo": (P, P, L, P),
     "lavt_mlp_f32_prep": (P,) * 8 + (I, I, I, F, P),
-    "lavt_layer_norm_rows_bwd_f32_parts": (I, I),
-    "lavt_layer_norm_rows_bwd_f32": (P,) * 5 + (I, I, I, F, P),
+    "lavt_layer_norm_rows_bwd_f32_ws": (I, I),
+    "lavt_layer_norm_rows_bwd_f32": (P,) * 6 + (I, I, I, F, P),
     "lavt_mlp_bwd_prep_f32": (P,) * 8 + (I, I, I, F, P),
     "lavt_dual_gemm_gelu_bwd_f32": (P,) * 9 + (I, I, I, P),
     "lavt_wgrad_f32": (P, P, P) + (I,) * 5 + (P,),
@@ -88,6 +88,8 @@ SIGNATURES = {
     "lavt_colsum_f32": (P, P, I, I, I, P),
     "lavt_window_attn_f32": (P,) * 7 + (L,) * 6 + (I,) * 6 + (F, P),
     "lavt_k10_f32_smem": (I,),
+    "lavt_k2p_attn_f32": (P,) * 4 + (I,) * 7 + (P,),
+    "lavt_k2p_attn_f32_smem": (),
     "lavt_window_attn_bwd_q_f32": (P,) * 12 + (I,) * 5 + (F, P),
     "lavt_window_attn_bwd_kv_f32": (P,) * 11 + (I,) * 4 + (F, P),
 }

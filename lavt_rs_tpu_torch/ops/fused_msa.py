@@ -70,8 +70,9 @@ CUDA f32 tensor (no f32 tensor reaches a bf16 kernel):
   * K6 f32 (`fused_window_msa_bwd_recompute_f32`): the save mode f32's
     launches up to the attention, then K5 f32's;
   * K2p f32 (`fused_window_msa_grouped_f32`): `grouped_launches` on f32,
-    the projections on the 3xTF32 GEMM, the attention on K10 f32's kernel
-    (csrc/window_attn_f32.cu).
+    the projections on the 3xTF32 GEMM (W's lo parts kept by the model,
+    `WeightLo`), the attention a launch of its own on wgmma in 3xTF32
+    (`grouped_attn_f32`, csrc/grouped_msa_f32.cu).
 With them `lavt_one` trains at window 12 in f32 (`--window12 --no_bf16`).
 """
 
@@ -374,6 +375,36 @@ def tf32_lo(w) -> torch.Tensor:
                                       cuda_lib.stream_ptr(w.device))
     cuda_lib.check(err, "lavt_tf32_lo")
     return lo
+
+
+class WeightLo:
+    """The lo parts of an attention module's two projection weights, kept
+    once a weight version: for `nn.Module`s with `qkv` and `proj` Linears,
+    `use_kernels`, and `_lo_key` / `_lo` set to None (the 2D and 3D
+    `WindowAttention`s)."""
+
+    def weight_lo(self):
+        """(qkv weight's, proj weight's) lo parts, w - trunc(w) with trunc
+        clearing the 13 low bits, which the f32 kernels' GEMMs bring beside
+        w (`tf32_lo`).  Made once and kept until a weight changes (a new
+        version, device or storage: in training, once a step, after the
+        optimizer's in-place update), as `relative_bias` keeps the bias."""
+        wq, wp = self.qkv.weight, self.proj.weight
+        key = (wq._version, wp._version, wq.device, wq.data_ptr(),
+               wp.data_ptr())
+        if self._lo_key != key:
+            with torch.no_grad():
+                self._lo = (tf32_lo(wq.detach()), tf32_lo(wp.detach()))
+            self._lo_key = key
+        return self._lo
+
+    def _lo_for(self, x):
+        """`weight_lo` where x takes the f32 kernels (an f32 CUDA tensor
+        with the kernels and f32 weights), else None."""
+        if (self.use_kernels and x.is_cuda and x.dtype == torch.float32
+                and self.qkv.weight.dtype == torch.float32):
+            return self.weight_lo()
+        return None
 
 
 def gemm_f32(a, w, b, epi: int, res=None, scaled: int = 0,
@@ -1231,8 +1262,80 @@ def gemm_bias(x2, w, b, scaled: int = 0, scale: float = 1.0,
     return y
 
 
+# K2p f32's attention launch (csrc/grouped_msa_f32.cu): 64-row query tiles
+# in sweeps of four (each of the two consumer warpgroups owns two), keys in
+# chunks of 56 through a ring of three slots, up to 448 tokens; its shared
+# memory: two q buffers (a sweep's 256 rows of 128 bytes each), and per
+# slot k, k's lo and v (56 rows of 128 bytes each), v^T's hi and lo (two 4
+# KB blocks of 32 keys each), the ring's and the q buffers' barriers, 1 KB
+# of alignment slack
+K2P_F32_TILE, K2P_F32_SWEEP, K2P_F32_CHUNK = 64, 4, 56
+K2P_F32_STAGES, K2P_F32_MAX_N = 3, 448
+K2P_F32_SMEM = (2 * K2P_F32_SWEEP * K2P_F32_TILE * 128
+                + K2P_F32_STAGES * (3 * K2P_F32_CHUNK * 128 + 2 * 2 * 4096)
+                + (2 * K2P_F32_STAGES + 4) * 8 + 1024)
+
+
+@functools.lru_cache(maxsize=64)
+def k2p_f32_plan(bw: int, heads: int, n: int, sms: int) -> dict:
+    """K2p f32's attention launch (`lavt_k2p_attn_f32`) on `sms` SMs: an
+    item is one sweep (four 64-row query tiles) of one (window, head),
+    `sweeps` a unit; the items in (window, head, sweep) order, item = (w
+    heads + h) sweeps + s; one persistent block an SM, block b over the items
+    [items b / blocks, items (b + 1) / blocks) (`per_block` at most); the
+    unit's query rows in `tiles` tiles, `tiles_per_warpgroup` of a sweep
+    for each of the two consumer warpgroups, its keys in `chunks` of 56
+    streamed once a sweep; `smem` bytes."""
+    tiles = -(-n // K2P_F32_TILE)
+    sweeps = -(-tiles // K2P_F32_SWEEP)
+    items = bw * heads * sweeps
+    blocks = min(items, sms)
+    return dict(items=items, blocks=blocks, per_block=-(-items // blocks),
+                tiles=tiles, sweeps=sweeps, tiles_per_warpgroup=2,
+                chunks=-(-n // K2P_F32_CHUNK), stages=K2P_F32_STAGES,
+                smem=K2P_F32_SMEM)
+
+
+def grouped_attn_f32(qkv, bias, mask, nu: int, heads: int) -> torch.Tensor:
+    """K2p f32's attention launch (`lavt_k2p_attn_f32`,
+    csrc/grouped_msa_f32.cu): qkv (B, nW, n, 3C) f32 as the qkv projection
+    writes it (q scaled), bias (heads, n, n) f32; window w of an image
+    takes no mask for w < nu, else mask[w - nu] of the (nW - nu, n, n) f32
+    mask (None: no window is masked) -> O (B, nW, n, C) f32, the exact
+    softmax.  n a multiple of 8 up to 448.  Uncounted (K2p f32 counts its
+    calls).  The plain version (`window_attn.attention_qkv_grouped` at
+    scale 1) on a CPU tensor."""
+    from . import window_attn  # imports this module
+
+    b, nw, n, c3 = qkv.shape
+    if mask is None or nu == nw:
+        mask, nu = None, nw
+    if qkv.device.type == "cpu":
+        return window_attn.attention_qkv_grouped(qkv, bias, mask, nu, heads,
+                                                 1.0)
+    c = c3 // 3
+    if (c != 32 * heads or n % 8 or not 8 <= n <= K2P_F32_MAX_N
+            or not 0 <= nu <= nw):
+        raise ValueError(f"K2p f32 attention kernel: qkv {tuple(qkv.shape)}"
+                         f", {heads} heads, nu {nu}")
+    f32 = torch.float32
+    checks = [("qkv", qkv, f32, None), ("bias", bias, f32, (heads, n, n))]
+    if mask is not None:
+        checks.append(("mask", mask, f32, (nw - nu, n, n)))
+    _require_all(checks, qkv.device)
+    plan = k2p_f32_plan(b * nw, heads, n,
+                        cuda_lib.sm_count(qkv.device.index or 0))
+    out = torch.empty((b, nw, n, c), dtype=f32, device=qkv.device)
+    err = cuda_lib.lib().lavt_k2p_attn_f32(
+        qkv.data_ptr(), bias.data_ptr(),
+        None if mask is None else mask.data_ptr(), out.data_ptr(), b * nw,
+        nw, nu, heads, n, c, plan["blocks"], cuda_lib.stream_ptr(qkv.device))
+    cuda_lib.check(err, "lavt_k2p_attn_f32")
+    return out
+
+
 def grouped_launches(x, wqkv, bqkv, wproj, bproj, bias, mask, nu: int,
-                     heads: int, scale: float) -> torch.Tensor:
+                     heads: int, scale: float, wlo=None) -> torch.Tensor:
     """K2p's three launches, in order (csrc/window_msa_sm90.cu):
       (a) qkv = x Wqkvᵀ + bqkv, q scaled after its bias, bf16 (B nW n_p,
           3C), on the GEMM core (`gemm_bias`);
@@ -1241,22 +1344,28 @@ def grouped_launches(x, wqkv, bqkv, wproj, bproj, bias, mask, nu: int,
           (B nW n_p, C) (`window_attn.attention_qkv_grouped`);
       (c) y = O Wprojᵀ + bproj on the GEMM core.
     K2p f32 is the same three launches on f32: (a) and (c) on the 3xTF32
-    GEMM (`gemm_f32`), (b) on K10 f32's kernel.  On CPU tensors each
-    launch takes its plain version, which compose to
-    `fused_window_msa_grouped_plain`'s values
+    GEMM (`gemm_f32`, with wlo, (Wqkv's, Wproj's) lo parts, or split by
+    launches of their own), (b) on its own attention launch
+    (`grouped_attn_f32`).  On CPU tensors each launch takes its plain
+    version, which compose to `fused_window_msa_grouped_plain`'s values
     (tests/test_torch_k2p_launches.py)."""
     from . import window_attn  # imports this module
 
     b, nw, n_p, c = x.shape
     rows = b * nw * n_p
-    qkv = gemm_bias(x.reshape(rows, c), wqkv, bqkv, c, scale)
-    o = window_attn.attention_qkv_grouped(qkv.view(b, nw, n_p, 3 * c), bias,
-                                          mask, nu, heads, 1.0)
-    return gemm_bias(o.view(rows, c), wproj, bproj).view(b, nw, n_p, c)
+    lo = (None, None) if wlo is None else wlo
+    qkv = gemm_bias(x.reshape(rows, c), wqkv, bqkv, c, scale,
+                    wlo=lo[0]).view(b, nw, n_p, 3 * c)
+    if x.dtype == torch.float32:
+        o = grouped_attn_f32(qkv, bias, mask, nu, heads)
+    else:
+        o = window_attn.attention_qkv_grouped(qkv, bias, mask, nu, heads, 1.0)
+    return gemm_bias(o.view(rows, c), wproj, bproj,
+                     wlo=lo[1]).view(b, nw, n_p, c)
 
 
 def _grouped_launch(x, wqkv, bqkv, wproj, bproj, bias, mask, nu, heads,
-                    scale, dtype=torch.bfloat16):
+                    scale, dtype=torch.bfloat16, wlo=None):
     """K2p's checks before any launch (every tensor `dtype`: bf16, or f32
     for K2p f32; the bias and mask f32), then `grouped_launches`."""
     b, nw, n_p, c = x.shape
@@ -1277,25 +1386,27 @@ def _grouped_launch(x, wqkv, bqkv, wproj, bproj, bias, mask, nu, heads,
         checks.append(("mask", mask, torch.float32, (nw - nu, n_p, n_p)))
     _require_all(checks, x.device)
     return grouped_launches(x, wqkv, bqkv, wproj, bproj, bias, mask, nu,
-                            heads, scale)
+                            heads, scale, wlo)
 
 
 def fused_window_msa_grouped(x, wqkv, bqkv, wproj, bproj, bias,
                              mask: Optional[torch.Tensor], nu: int,
-                             heads: int, scale: float) -> torch.Tensor:
+                             heads: int, scale: float,
+                             wlo=None) -> torch.Tensor:
     """K2p: (B, nW, n_p, C) padded post-LN windowed tokens ->
     projected attention.  bias: (h, n_p, n_p) from `pad_bias_sublane`;
     windows [0, nu) of each image take no mask, window w >= nu takes
     mask[w - nu] of the (nW - nu, n_p, n_p) mask (None: no window is
     masked).  On the card the three launches of `grouped_launches`, each
     covering both groups; one count per call.  A CUDA f32 x takes K2p f32
-    (`fused_window_msa_grouped_f32`)."""
+    (`fused_window_msa_grouped_f32`, with wlo, the weights' lo parts as
+    `WeightLo.weight_lo` keeps them, or None)."""
     if x.device.type == "cpu":
         return fused_window_msa_grouped_plain(x, wqkv, bqkv, wproj, bproj,
                                               bias, mask, nu, heads, scale)
     if x.dtype == torch.float32:
         return fused_window_msa_grouped_f32(x, wqkv, bqkv, wproj, bproj, bias,
-                                            mask, nu, heads, scale)
+                                            mask, nu, heads, scale, wlo)
     y = _grouped_launch(x, wqkv, bqkv, wproj, bproj, bias, mask, nu, heads,
                         scale)
     fused_window_msa_grouped.launches += 1
@@ -1304,20 +1415,22 @@ def fused_window_msa_grouped(x, wqkv, bqkv, wproj, bproj, bias,
 
 def fused_window_msa_grouped_f32(x, wqkv, bqkv, wproj, bproj, bias,
                                  mask: Optional[torch.Tensor], nu: int,
-                                 heads: int, scale: float) -> torch.Tensor:
+                                 heads: int, scale: float,
+                                 wlo=None) -> torch.Tensor:
     """K2p f32: K2p on f32 tokens and weights, n_p a multiple of 8 (392 at
     the video windows: no padding); on the card the launches of
-    `grouped_launches` on f32 (the 3xTF32 GEMM, K10 f32's kernel, the 3xTF32
-    GEMM), one count per call.  The attention is K10 f32's max-subtracted
-    softmax, where the TPU inference kernel takes the shift-free
-    exp(min(s, 80)) (`_softmax_exp` of lavt_rs_tpu/ops/pallas/fused_msa.py):
-    the two agree while every logit is at most 80.  The plain version on a
-    CPU tensor."""
+    `grouped_launches` on f32 (the 3xTF32 GEMM, with wlo, (Wqkv's, Wproj's)
+    lo parts, or split by a launch each; the attention launch
+    `grouped_attn_f32`; the 3xTF32 GEMM), one count per call.  The
+    attention is the exact max-subtracted softmax, where the TPU inference
+    kernel takes the shift-free exp(min(s, 80)) (`_softmax_exp` of
+    lavt_rs_tpu/ops/pallas/fused_msa.py): the two agree while every logit
+    is at most 80.  The plain version on a CPU tensor."""
     if x.device.type == "cpu":
         return fused_window_msa_grouped_plain(x, wqkv, bqkv, wproj, bproj,
                                               bias, mask, nu, heads, scale)
     y = _grouped_launch(x, wqkv, bqkv, wproj, bproj, bias, mask, nu, heads,
-                        scale, torch.float32)
+                        scale, torch.float32, wlo)
     fused_window_msa_grouped_f32.launches += 1
     return y
 

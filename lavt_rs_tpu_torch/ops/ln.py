@@ -20,13 +20,16 @@ rows, as the TPU kernel computes it on f32 activations; `layer_norm_rows`
 takes it for a CUDA f32 tensor (no f32 tensor is cast into the bf16
 kernel).  Its launch `layer_norm_rows_f32_launch` also makes K1 f32's LN
 rows.  K4b f32
-(`layer_norm_rows_bwd_f32`, csrc/ln.cu) is K4b's one pass on f32 rows (dx
-in f32, per block the column partials, its block plan
-`ln_rows_f32_bwd_plan`); `layer_norm_rows_bwd` and `LayerNormRows` take
-it for a CUDA f32 tensor.
+(`layer_norm_rows_bwd_f32`, csrc/ln.cu) is K4b's pass on f32 rows in one
+launch: dx in f32, and the column sums added inside the launch from its
+blocks' partials, in block order (its plan `ln_rows_f32_bwd_plan`);
+`layer_norm_rows_bwd` and `LayerNormRows` take it for a CUDA f32 tensor,
+`layer_norm_rows_bwd_launch` for K1 f32's LN backward.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -100,14 +103,34 @@ def ln_rows_plan(rows: int, c: int, sms: int, bwd: bool = False) -> dict:
 
 
 def ln_rows_f32_bwd_plan(rows: int, c: int, sms: int) -> dict:
-    """K4b f32's launch plan (csrc/ln.cu `lnr32::plan_bwd`): a warp a row
-    (C <= 1024; 8 rows a block at a time) or the block on one row (C >
-    1024), one block an SM, `per` rows a block, `blocks` blocks (one (2,
-    C) partial each)."""
-    step = 1 if c > 1024 else 8
+    """K4b f32's launch plan (csrc/ln.cu `lnr32::plan_bwd`): at C <= 1024 a
+    row held by `lanes` lanes (8, 16 or 32) of `vecs` 16-byte words each
+    (words past C / 4 masked), blocks of `warps` warps (16, or 8 at vecs >
+    4), each lane group loading its next row while it reduces one; above,
+    the block of 8 warps on one row (lanes 0).  One block an SM, `per` rows
+    a block, `blocks` blocks, each writing one (2, C) partial; the partials
+    are added in the launch by groups of `group` blocks (the smallest
+    group with group ** 2 >= blocks), then the `groups` group sums, each
+    in order."""
+    lanes = vecs = 0
+    warps, step = 8, 1
+    if c <= 1024:
+        words = c // 4
+        g = 8
+        while g <= 32 and not lanes:
+            if words % g == 0 and words // g <= 4:
+                lanes, vecs = g, words // g
+            g *= 2
+        if not lanes:
+            lanes, vecs = 32, -(-words // 32)
+        warps = 16 if vecs <= 4 else 8
+        step = warps * (32 // lanes)
     iters = -(-rows // step)
     per = -(-iters // min(iters, sms)) * step
-    return {"per": per, "blocks": -(-rows // per)}
+    blocks = -(-rows // per)
+    group = math.isqrt(blocks - 1) + 1
+    return {"lanes": lanes, "vecs": vecs, "warps": warps, "per": per,
+            "blocks": blocks, "group": group, "groups": -(-blocks // group)}
 
 
 def layer_norm_rows_supported(rows: int, c: int) -> bool:
@@ -242,19 +265,39 @@ def layer_norm_rows_bwd_partials_f32_plain(x: torch.Tensor,
                                            scale: torch.Tensor,
                                            g: torch.Tensor, eps: float = 1e-5,
                                            sms: int = 132):
-    """The plain version of `layer_norm_rows_bwd_partials_f32`: dx and the
-    partials over the blocks of `ln_rows_f32_bwd_plan` on `sms` SMs."""
+    """dx and the f32 (blocks, 2, C) column partials of K4b f32's blocks
+    (`ln_rows_f32_bwd_plan` on `sms` SMs), which `sum_groups_plain` adds
+    as the launch does."""
     rows, c = x.shape
     return _plan_partials(x, scale, g, eps, ln_rows_f32_bwd_plan(rows, c, sms))
 
 
-def layer_norm_rows_bwd_partials_f32(x: torch.Tensor, scale: torch.Tensor,
-                                     g: torch.Tensor, eps: float = 1e-5):
-    """K4b f32's launch: x, g (rows, C) f32 and the f32 scale -> (dx f32,
-    the f32 (blocks, 2, C) column partials, one per block of its plan).
-    The plain version on a CPU tensor."""
+def sum_groups_plain(part: torch.Tensor, plan: dict) -> torch.Tensor:
+    """K4b f32's sum of its blocks' partials (blocks, 2, C) -> (2, C): each
+    group of `plan["group"]` blocks added in block order, then the group
+    sums in group order."""
+    k = plan["group"]
+    sums = [sum_in_order(part[i:i + k]) for i in range(0, part.shape[0], k)]
+    return sum_in_order(torch.stack(sums))
+
+
+def sum_in_order(t: torch.Tensor) -> torch.Tensor:
+    """t[0] + t[1] + ... in f32, left to right."""
+    out = t[0].clone()
+    for row in t[1:]:
+        out += row
+    return out
+
+
+def layer_norm_rows_bwd_f32_launch(x: torch.Tensor, scale: torch.Tensor,
+                                   g: torch.Tensor, eps: float = 1e-5):
+    """K4b f32's one launch without its count: x, g (rows, C) f32 and the
+    f32 scale -> (dx f32, dscale f32, dbias f32), the column sums added in
+    the launch (`lavt_layer_norm_rows_bwd_f32`); the plain version on a CPU
+    tensor.  Also K1 f32's LN backward in `FusedWindowMSA` (which counts as
+    K5 f32)."""
     if x.device.type == "cpu":
-        return layer_norm_rows_bwd_partials_f32_plain(x, scale, g, eps)
+        return layer_norm_rows_bwd_plain(x, scale, g, eps)
     if x.dim() != 2:
         raise ValueError(f"layer_norm_rows_bwd f32 kernel: x must be (rows, "
                          f"C), got {tuple(x.shape)}")
@@ -263,27 +306,25 @@ def layer_norm_rows_bwd_partials_f32(x: torch.Tensor, scale: torch.Tensor,
     _check_rows([("x", x, f32, None), ("g", g, f32, (rows, c)),
                  ("scale", scale, f32, (c,))], rows, c, x.device)
     lib = cuda_lib.lib()
-    parts = lib.lavt_layer_norm_rows_bwd_f32_parts(rows, c)
+    ws_rows = lib.lavt_layer_norm_rows_bwd_f32_ws(rows, c)
     dx = torch.empty_like(x)
-    part = torch.empty((parts, 2, c), dtype=f32, device=x.device)
+    ws = torch.empty((ws_rows, 2, c), dtype=f32, device=x.device)
+    sums = torch.empty((2, c), dtype=f32, device=x.device)
     err = lib.lavt_layer_norm_rows_bwd_f32(
         x.data_ptr(), g.data_ptr(), scale.data_ptr(), dx.data_ptr(),
-        part.data_ptr(), parts, rows, c, float(eps),
+        ws.data_ptr(), sums.data_ptr(), ws_rows, rows, c, float(eps),
         cuda_lib.stream_ptr(x.device))
     cuda_lib.check(err, "lavt_layer_norm_rows_bwd_f32")
-    return dx, part
+    return dx, sums[0], sums[1]
 
 
 def layer_norm_rows_bwd_partials(x: torch.Tensor, scale: torch.Tensor,
                                  g: torch.Tensor, eps: float = 1e-5):
     """K4b's launch: x, g (rows, C) bf16 and the f32 scale -> (dx bf16,
     the f32 (blocks, 2, C) column partials of dscale and dbias, one per
-    block of the launch plan).  The plain version on a CPU tensor; f32
-    rows on the card take K4b f32's launch."""
+    block of the launch plan).  The plain version on a CPU tensor."""
     if x.device.type == "cpu":
         return layer_norm_rows_bwd_partials_plain(x, scale, g, eps)
-    if x.dtype == torch.float32:
-        return layer_norm_rows_bwd_partials_f32(x, scale, g, eps)
     if x.dim() != 2:
         raise ValueError(f"layer_norm_rows_bwd kernel: x must be (rows, C), "
                          f"got {tuple(x.shape)}")
@@ -305,12 +346,14 @@ def layer_norm_rows_bwd_partials(x: torch.Tensor, scale: torch.Tensor,
 
 def layer_norm_rows_bwd_launch(x: torch.Tensor, scale: torch.Tensor,
                                g: torch.Tensor, eps: float = 1e-5):
-    """K4b (K4b f32 for f32 rows) without its count: (dx, dscale f32,
-    dbias f32), the partials added in block order
+    """K4b (K4b f32's one launch for f32 rows) without its count: (dx,
+    dscale f32, dbias f32), K4b's partials added in block order
     (`fused_msa.sum_partials`); the plain version on a CPU tensor.  K1's
     LN backward in `FusedWindowMSA`, which counts as K5."""
     if x.device.type == "cpu":
         return layer_norm_rows_bwd_plain(x, scale, g, eps)
+    if x.dtype == torch.float32:
+        return layer_norm_rows_bwd_f32_launch(x, scale, g, eps)
     from .fused_msa import sum_partials  # imports this module
 
     dx, part = layer_norm_rows_bwd_partials(x, scale, g, eps)
@@ -336,16 +379,13 @@ def layer_norm_rows_bwd(x: torch.Tensor, scale: torch.Tensor,
 def layer_norm_rows_bwd_f32(x: torch.Tensor, scale: torch.Tensor,
                             g: torch.Tensor, eps: float = 1e-5):
     """K4b f32: the same backward from f32 x and g (rows, C) -> (dx f32,
-    dscale f32, dbias f32), on K4b f32's launch and `sum_partials`; the
-    plain version on a CPU tensor."""
+    dscale f32, dbias f32), on K4b f32's one launch; the plain version on a
+    CPU tensor."""
     if x.device.type == "cpu":
         return layer_norm_rows_bwd_plain(x, scale, g, eps)
-    from .fused_msa import sum_partials  # imports this module
-
-    dx, part = layer_norm_rows_bwd_partials_f32(x, scale, g, eps)
-    sums = sum_partials(part)
+    out = layer_norm_rows_bwd_f32_launch(x, scale, g, eps)
     layer_norm_rows_bwd_f32.launches += 1
-    return dx, sums[0], sums[1]
+    return out
 
 
 layer_norm_rows_bwd.launches = 0

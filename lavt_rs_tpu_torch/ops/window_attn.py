@@ -810,9 +810,10 @@ def attention_qkv_grouped(qkv, bias, mask, nu: int, heads: int,
     masked).  The kernel reads q, k, v by strides where the Linear wrote
     them and writes O as (B, nW, N, C), the layout the out-projection
     reads.  Uncounted: `window_attention_qkv` counts its K10 launches, K2p
-    (`ops/fused_msa.py`, whose attention launch this is) its own calls.
-    The plain version on a CPU tensor; K10 f32's kernel for f32 qkv (K2p
-    f32's attention launch), K10's for bf16."""
+    (`ops/fused_msa.py`, whose bf16 attention launch this is) its own
+    calls.  The plain version on a CPU tensor (also K2p f32's attention
+    launch's, `fused_msa.grouped_attn_f32`); K10 f32's kernel for f32
+    qkv, K10's for bf16."""
     b, nw, n, c3 = qkv.shape
     if not 0 <= nu <= nw:
         raise ValueError(f"window attention: nu {nu} outside [0, {nw}]")

@@ -305,9 +305,9 @@ def grouped_at_32(monkeypatch):
                                        c, heads, itemsize))
     shapes, grouped = [], fused_msa.fused_window_msa_grouped
 
-    def recorded(x, *a):
+    def recorded(x, *a, **kw):
         shapes.append(tuple(x.shape))
-        return grouped(x, *a)
+        return grouped(x, *a, **kw)
 
     monkeypatch.setattr(fused_msa, "fused_window_msa_grouped", recorded)
     return shapes

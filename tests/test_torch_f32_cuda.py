@@ -560,8 +560,9 @@ def test_layer_norm_rows_bwd_f32(dev, rows, c):
     from lavt_rs_tpu_torch.ops import cuda_lib
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    assert cuda_lib.lib().lavt_layer_norm_rows_bwd_f32_parts(rows, c) == (
-        ln.ln_rows_f32_bwd_plan(rows, c, sms)["blocks"])
+    plan = ln.ln_rows_f32_bwd_plan(rows, c, sms)
+    assert cuda_lib.lib().lavt_layer_norm_rows_bwd_f32_ws(rows, c) == (
+        plan["blocks"] + plan["groups"])
     got = _once("K4b", lambda: ln.layer_norm_rows_bwd(x, s, g))
     want = ln.layer_norm_rows_bwd_plain(x, s, g)
     for a, w in zip(got, want):

@@ -235,13 +235,21 @@ def test_k7_f32_plan_at_stage_one_and_four():
     (1, 128, 132), (7, 96, 132), (115200, 128, 132), (1800, 1024, 132),
     (3000, 256, 4), (333, 1056, 2), (50, 1536, 132), (1155, 160, 3)])
 def test_k4b_f32_plan_and_partials(rows, c, sms):
-    """The plan's blocks take every row once (a warp's 8-row steps whole
-    at C <= 1024); the partials over its blocks add up to the plain
-    dscale and dbias, and dx is the plain one."""
+    """The plan's blocks take every row once (a block's steps whole: its
+    warps' lane groups at C <= 1024, one row above), at most one an SM, in
+    groups of at most `group` that cover them; the partials over its
+    blocks, added as the launch adds them (`sum_groups_plain`), make the
+    plain dscale and dbias, and dx is the plain one."""
     p = ln.ln_rows_f32_bwd_plan(rows, c, sms)
-    step = 1 if c > 1024 else 8
+    step = 1 if c > 1024 else p["warps"] * (32 // p["lanes"])
+    if c <= 1024:
+        assert p["lanes"] * p["vecs"] >= c // 4 and p["vecs"] <= 8
+        assert p["warps"] == (16 if p["vecs"] <= 4 else 8)
     assert p["per"] % step == 0 and p["blocks"] <= sms
     assert (p["blocks"] - 1) * p["per"] < rows <= p["blocks"] * p["per"]
+    assert p["group"] ** 2 >= p["blocks"] > (p["group"] - 1) ** 2
+    assert (p["groups"] - 1) * p["group"] < p["blocks"] <= (
+        p["groups"] * p["group"])
     rng = np.random.default_rng(rows + c)
     x = torch.from_numpy((rng.standard_normal((rows, c)) * 2 + 1)
                          .astype(np.float32))
@@ -251,12 +259,12 @@ def test_k4b_f32_plan_and_partials(rows, c, sms):
     assert part.shape == (p["blocks"], 2, c) and part.dtype == torch.float32
     want = ln.layer_norm_rows_bwd_plain(x, s, g)
     assert torch.equal(dx, want[0])
-    sums = fused_msa.sum_partials(part)
+    sums = ln.sum_groups_plain(part, p)
     _close(sums[0], want[1], 1e-5, "dscale")
     _close(sums[1], want[2], 1e-5, "dbias")
-    # the wrapper on a CPU tensor: the H100's plan
-    assert ln.layer_norm_rows_bwd_partials_f32(x, s, g)[1].shape[0] == (
-        ln.ln_rows_f32_bwd_plan(rows, c, 132)["blocks"])
+    # the one launch's wrapper on a CPU tensor: the plain backward
+    got = ln.layer_norm_rows_bwd_f32_launch(x, s, g)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 def test_k4b_f32_entry_points_match_the_pallas_vjp():

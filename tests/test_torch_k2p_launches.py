@@ -20,7 +20,13 @@ views, strides and mask grouping around the kernels run here:
   (zeros on the first nu windows);
 * the composition equals the JAX package's `fused_window_msa_padded` on
   its Pallas kernel in interpret mode, through the port's padded wrapper's
-  arithmetic (x, bias and mask padded, nu = 0).
+  arithmetic (x, bias and mask padded, nu = 0);
+* K2p f32's attention launch (`grouped_attn_f32`): its plan
+  (`k2p_f32_plan`: items, persistent blocks and their runs, 64-row query
+  tiles over two warpgroups, 56-key chunks, shared memory within an
+  H100 block's 227 KB) at the video shapes, and its plain version, the
+  grouped attention at scale 1; the launches with the weights' lo parts
+  passed compose as without.
 
 Tolerances: f32 on both sides of the same math, the products batched
 otherwise, so 1e-5 abs + rel; against Pallas 2e-4 abs + rel, as
@@ -173,3 +179,61 @@ def test_launches_match_the_pallas_kernel(masked):
         0 if masked else nw, HEADS, scale)[:, :, :n]
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4,
                                atol=2e-4)
+
+
+# (B nW, heads, n, blocks, per_block, tiles, sweeps, chunks) on an H100's
+# 132 SMs: video stage 1 of an 8-frame 480² clip, K10 f32's video stages
+# 2-4, fewer items than SMs, a 4-frame clip's 98 tokens padded to 104, one
+# tile
+PLANS = [(324, 3, 392, 132, 15, 7, 2, 7), (81, 6, 392, 132, 8, 7, 2, 7),
+         (25, 12, 392, 132, 5, 7, 2, 7), (9, 24, 392, 132, 4, 7, 2, 7),
+         (5, 3, 392, 30, 1, 7, 2, 7), (48, 3, 104, 132, 2, 2, 1, 2),
+         (6, 2, 56, 12, 1, 1, 1, 1)]
+
+
+@pytest.mark.parametrize("bw,heads,n,blocks,per_block,tiles,sweeps,chunks",
+                         PLANS)
+def test_k2p_f32_plan(bw, heads, n, blocks, per_block, tiles, sweeps, chunks):
+    p = fused_msa.k2p_f32_plan(bw, heads, n, 132)
+    assert (p["items"], p["blocks"], p["per_block"], p["tiles"], p["sweeps"],
+            p["chunks"]) == (bw * heads * sweeps, blocks, per_block, tiles,
+                             sweeps, chunks)
+    assert tiles * fused_msa.K2P_F32_TILE >= n > (tiles - 1) * 64
+    assert sweeps * fused_msa.K2P_F32_SWEEP >= tiles
+    assert p["tiles_per_warpgroup"] * 2 == fused_msa.K2P_F32_SWEEP
+    assert chunks * fused_msa.K2P_F32_CHUNK >= n
+    assert p["smem"] == fused_msa.K2P_F32_SMEM == 180304 <= 227 * 1024
+    # the blocks' runs of items cover each item once
+    runs = [(p["items"] * b // blocks, p["items"] * (b + 1) // blocks)
+            for b in range(blocks)]
+    assert runs[0][0] == 0 and runs[-1][1] == p["items"]
+    assert all(r[1] == s[0] for r, s in zip(runs, runs[1:]))
+    assert max(r[1] - r[0] for r in runs) == per_block
+
+
+@pytest.mark.parametrize("nu", [0, 3, 6])
+def test_k2p_f32_attention_plain_is_the_grouped_attention(nu):
+    rng = np.random.default_rng(40 + nu)
+    b, nw, n = 2, 6, 104
+    qkv = _t(rng.standard_normal((b, nw, n, 3 * HEADS * 32))
+             .astype(np.float32))
+    bias = _t(rng.standard_normal((HEADS, n, n)).astype(np.float32))
+    mask = _mask(rng, nw - nu, n, n) if nu < nw else None
+    got = fused_msa.grouped_attn_f32(qkv, bias, mask, nu, HEADS)
+    want = window_attn.attention_qkv_grouped(qkv, bias, mask, nu, HEADS, 1.0)
+    assert got.shape == (b, nw, n, HEADS * 32)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_launches_with_kept_lo_compose_as_without():
+    rng = np.random.default_rng(41)
+    x, bias = _inputs(rng, 4, 392, 392)
+    w = _weights(rng, 64)
+    args = (x, *w, bias, _mask(rng, 2, 392, 392), 2, HEADS, 32 ** -0.5)
+    lo = (fused_msa.tf32_lo(w[0]), fused_msa.tf32_lo(w[2]))
+    torch.testing.assert_close(fused_msa.grouped_launches(*args, wlo=lo),
+                               fused_msa.grouped_launches(*args),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(
+        fused_msa.fused_window_msa_grouped(*args, wlo=lo),
+        fused_msa.fused_window_msa_grouped_plain(*args), rtol=0, atol=0)

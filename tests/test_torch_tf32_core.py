@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from lavt_rs_tpu_torch.models.swin2d import WindowAttention
+from lavt_rs_tpu_torch.models.swin3d import WindowAttention3D
 from lavt_rs_tpu_torch.ops import fused_mlp as fm
 from lavt_rs_tpu_torch.ops import fused_msa
 from lavt_rs_tpu_torch.ops import tf32_core as core
@@ -172,7 +173,19 @@ def test_the_lo_split_is_w_minus_trunc_w():
 
 def test_window_attention_remakes_its_lo_after_an_update():
     torch.manual_seed(24)
-    attn = WindowAttention(64, 12, 2)
+    _remakes_its_lo_after_an_update(WindowAttention(64, 12, 2))
+
+
+def test_window_attention_3d_remakes_its_lo_after_an_update():
+    """The 3D module keeps its lo parts as the 2D one does (one helper,
+    `fused_msa.WeightLo`): K2p f32's projections take them."""
+    torch.manual_seed(25)
+    attn = WindowAttention3D(64, (2, 7, 7), 2)
+    assert attn._lo_for(torch.zeros(1, 64)) is None  # a CPU tensor: no kernel
+    _remakes_its_lo_after_an_update(attn)
+
+
+def _remakes_its_lo_after_an_update(attn):
     ws = (attn.qkv.weight, attn.proj.weight)
 
     def want():
