@@ -225,6 +225,28 @@
    counts K10 f32 12 / K9 f32 12), then 10 timed steps (the loss falls,
    ms a step, peak memory), a profile, and a --use_checkpoint step (K10
    f32 24 / K9 f32 12).
+4f. Video train CLI: `lavt_rs_tpu_torch.cli.train.main` in process at
+   the A2D recipe (VIDEO_RECIPE, 480², 8 frames, bf16, the weights drawn
+   by the CLI from --seed) on data the phase writes: --dataset
+   ref_pseudo_video at -b 4 -j 4 on a synthetic RefCOCO split (24 train
+   refs as augmented, shuffled pseudo-clips) for two epochs, each
+   evaluated by `evaluate_a2d` on the 48 val refs as static pseudo-clips;
+   one epoch over the same refs as a COCO-format refexp json; --dataset
+   ytvos at -b 1 on two JPEG videos with palette-PNG Annotations (16
+   frames, 720x1280 and 360x640, two objects each); one epoch of
+   --dataset joint (the split under the three RefCOCO-family names, then
+   the YTVOS set); then the f32 gate: one ref_pseudo_video epoch with
+   --no_bf16 -j 1 (the f32 launches, its f32 eval) against --no_pallas
+   --no_bf16 (no launch), the first logged loss within 1e-4 relative.
+   Checks the launches per step and per eval clip against the models'
+   `kernel_plan` (K10 save 12 / K9 12 a step, K2p 2 / K10 10 a clip; the
+   f32 variants), the checkpoints' names and tags (`tmIoU_<train>` with
+   the eval's `_mIoU_<x>_oIoU_<y>`), the best-only skip of an epoch whose
+   train mIoU does not improve, keep 8 for YTVOS, finite losses; prints
+   steps/s, clips/s, the loader's data wait against the iteration time,
+   eval seconds and clips/s, peak memory and the phase's seconds.  A2D
+   training is not run here: its reader needs h5py, which the card's
+   machine lacks (the CPU tests hold it).
 5. Training main path: the same weights in an f32 `build_model(...,
    train=True)` take AdamW steps (`train.step.make_train_step`: DropPath
    0.3, BERT dropout 0.1, weighted CE, poly LR) on synthetic uint8
@@ -573,6 +595,13 @@ VIDEO_RECIPE = ("--model", "lavt_video", "--swin_type", "tiny",
 A2D_CLIP, A2D_CLIPS = 16, 32
 # the video CLIs' --img_size: the recipe's 480
 CLI_IMG = 480
+# the video train CLI phase: the A2D recipe's batch (README.md:185) for the
+# pseudo-clip and joint runs, YTVOS at batch 1; the YTVOS train videos
+# ((name, frames, original (h, w)), one expression per object id)
+VIDEO_CLI_BATCH, YTVOS_CLI_BATCH = 4, 1
+YTVOS_TRAIN_VIDEOS = (("train_a", 16, (720, 1280)),
+                      ("train_b", 16, (360, 640)))
+YTVOS_TRAIN_OBJECTS = 2
 # YTVOS inference of whole videos: (name, frames, original (h, w)), lengths
 # that are not multiples of the temporal window; two expressions each
 YTVOS_VIDEOS = (("vid20", 20, (720, 1280)), ("vid13", 13, (360, 640)))
@@ -4933,6 +4962,333 @@ def video_training_gate_f32(dev, weights):
                       F32_VIDEO_TRAIN_PER_STEP, 12, "f32 video training gate")
 
 
+# -- the video train CLI: the pseudo-clip, refexp, YTVOS and joint branches -------
+
+def write_ytvos_train(root, rng):
+    """A Ref-YouTube-VOS train split under root, laid out as `YTVOSDataset`
+    reads it: YTVOS_TRAIN_VIDEOS as JPEG frames at their original sizes in
+    JPEGImages/<video>/, palette PNGs in Annotations/<video>/ holding
+    YTVOS_TRAIN_OBJECTS ellipses (object ids 1, 2, ...) that move over the
+    frames, one expression per object in meta_expressions.json (with its
+    obj_id).  Returns the json's path."""
+    import numpy as np
+    from PIL import Image
+
+    palette = [v for i in range(256) for v in (i, i, i)]
+    meta = {"videos": {}}
+    for name, n, (h, w) in YTVOS_TRAIN_VIDEOS:
+        jdir = os.path.join(root, "JPEGImages", name)
+        adir = os.path.join(root, "Annotations", name)
+        os.makedirs(jdir)
+        os.makedirs(adir)
+        yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+        frames = [f"{5 * t:05d}" for t in range(n)]
+        for t, fr in enumerate(frames):
+            u, v = xx / max(h, w), yy / max(h, w)
+            smooth = np.stack([np.sin(9 * u + 0.3 * t), np.cos(7 * v - 0.2 * t),
+                               np.sin(5 * (u + v) + 0.1 * t)], -1)
+            img = 127.5 + 100 * smooth + rng.normal(0, 10, (h, w, 3))
+            Image.fromarray(img.clip(0, 255).astype(np.uint8)).save(
+                os.path.join(jdir, f"{fr}.jpg"), quality=90)
+            m = np.zeros((h, w), np.uint8)
+            for obj in range(1, YTVOS_TRAIN_OBJECTS + 1):
+                cx = w * (0.25 + 0.5 * (obj - 1) + 0.005 * t)
+                inside = ((yy - 0.5 * h) / (0.2 * h)) ** 2 \
+                    + ((xx - cx) / (0.15 * w)) ** 2 <= 1
+                m[inside] = obj
+            png = Image.frombytes("P", (w, h), m.tobytes())
+            png.putpalette(palette)
+            png.save(os.path.join(adir, f"{fr}.png"))
+        meta["videos"][name] = {"frames": frames, "expressions": {
+            str(obj - 1): {"exp": " ".join(rng.choice(
+                EVAL_WORDS, int(rng.integers(2, 9)))), "obj_id": str(obj)}
+            for obj in range(1, YTVOS_TRAIN_OBJECTS + 1)}}
+    ann = os.path.join(root, "meta_expressions.json")
+    with open(ann, "w") as fh:
+        json.dump(meta, fh)
+    return ann
+
+
+def write_refexp(root):
+    """refcoco's train refs under `root` (`write_refcoco`) as the COCO-format
+    refexp json `refcoco/instances_refcoco_train.json`: one image entry per
+    sentence, the sentence its caption, the ref's annotation its one
+    instance.  Returns the entries' count."""
+    from lavt_rs_tpu_torch.data.refer import REFER
+
+    refer = REFER(root)
+    images, anns = [], []
+    for ref_id in refer.getRefIds(split="train"):
+        ref = refer.Refs[ref_id]
+        for sent in ref["sentences"]:
+            n = len(images) + 1
+            images.append(dict(refer.Imgs[ref["image_id"]], id=n,
+                               caption=sent["raw"]))
+            anns.append(dict(refer.Anns[ref["ann_id"]], id=n, image_id=n))
+    with open(os.path.join(root, "refcoco", "instances_refcoco_train.json"),
+              "w") as fh:
+        json.dump({"images": images, "annotations": anns}, fh)
+    return len(images)
+
+
+def video_train_cli_phase(dev, card):
+    """`cli.train.main --model lavt_video` in process at the A2D recipe
+    (VIDEO_RECIPE, 480², FRAMES frames, bf16), its weights drawn by the CLI
+    from --seed, on data written by the phase (`write_refcoco`'s split:
+    TRAIN_REFS train refs, EVAL_REFS val refs):
+      * --dataset ref_pseudo_video at -b VIDEO_CLI_BATCH -j 4 for two
+        epochs, each evaluated by `evaluate_a2d` on the val refs as static
+        pseudo-clips, best-only checkpoints;
+      * one epoch over the same train refs as a COCO-format refexp json
+        (`write_refexp`: `build_refexp_dataset` takes it);
+      * --dataset ytvos at -b YTVOS_CLI_BATCH on `write_ytvos_train`'s
+        videos (trains blind, keeps the last 8);
+      * one epoch of --dataset joint (the split under the three
+        RefCOCO-family names, then the YTVOS set);
+      * the f32 gate: one ref_pseudo_video epoch with --no_bf16 -j 1 and
+        its f32 eval, against --no_pallas --no_bf16 from the same seed
+        (the first logged loss within F32_CLI_LOSS_RTOL).
+    Checks the launches per step and per eval clip against the models'
+    `kernel_plan` (bf16 and at itemsize 4; none on the plain run), the
+    checkpoints' names, tags, best-only skips and keep counts (JAX
+    cli/train.py:362-441) and finite losses; prints steps/s, clips/s, the
+    loader's data wait against the iteration time, eval seconds and peak
+    device memory.  Returns the phase's seconds."""
+    import contextlib
+    import io
+    import re
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from lavt_rs_tpu_torch.cli import train as cli_train
+    from lavt_rs_tpu_torch.config import lavt_video_tiny
+    from lavt_rs_tpu_torch.eval import video_eval
+    from lavt_rs_tpu_torch.train import checkpoint as ckpt
+
+    t_phase = time.perf_counter()
+    plans = {}
+    for dtype, suffix, step_want, clip_want in (
+            ("bfloat16", "", VIDEO_TRAIN_PER_STEP, VIDEO_PER_CLIP),
+            ("float32", ".f32", F32_VIDEO_TRAIN_PER_STEP,
+             F32_VIDEO_PER_CLIP)):
+        cfg = lavt_video_tiny(dtype=dtype)
+        plans[dtype] = [{f"{k}{suffix}": n for k, n in
+                         kernel_plan(cfg, CLI_IMG, FRAMES, train)[0].items()}
+                        for train in (True, False)]
+        if plans[dtype] != [step_want, clip_want]:
+            raise RuntimeError(f"video train CLI: the {dtype} plan gives "
+                               f"{plans[dtype]}, not {step_want} a step and "
+                               f"{clip_want} a clip")
+    evaluate, save = video_eval.evaluate_a2d, ckpt.save_checkpoint
+    counts = {}
+
+    def counted_evaluate(*a, **kw):
+        torch.cuda.synchronize()
+        counts["train"].append(read_counts())
+        zero_counts()
+        t0 = time.perf_counter()
+        summary = evaluate(*a, **kw)
+        torch.cuda.synchronize()
+        counts["eval"].append(read_counts())
+        counts["eval s"].append(time.perf_counter() - t0)
+        counts["summary"].append(summary)
+        zero_counts()
+        return summary
+
+    def recorded_save(*a, **kw):
+        counts["keep"].append(kw.get("keep"))
+        return save(*a, **kw)
+
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(SEED + 50)
+        vocab = write_refcoco(root, np.random.default_rng(SEED + 30))
+        yroot = os.path.join(root, "ytvos")
+        yann = write_ytvos_train(yroot, rng)
+        # one item per (video, expression, every FRAMES-th frame)
+        ytvos_items = YTVOS_TRAIN_OBJECTS * sum(
+            -(-n // FRAMES) for _, n, _ in YTVOS_TRAIN_VIDEOS)
+        log(f"video train CLI data written in {time.perf_counter() - t0:.2f} "
+            f"s: {TRAIN_REFS} train / {EVAL_REFS} val refs, YTVOS "
+            f"{[v[:3] for v in YTVOS_TRAIN_VIDEOS]} ({ytvos_items} items)")
+        base = list(VIDEO_RECIPE) + [
+            "--img_size", str(CLI_IMG), "--num_frames", str(FRAMES),
+            "--refer_data_root", root, "--vocab", vocab, "--device",
+            str(dev), "--split", "train", "--val_split", "val",
+            "--print-freq", "1", "--seed", str(SEED)]
+        ytvos = ["--ytvos_data_root", yroot, "--ytvos_ann", yann]
+
+        def run(extra, what, steps, batch, per_step, per_clip, epochs=1):
+            gc_cuda()
+            torch.cuda.reset_peak_memory_stats()
+            counts.clear()
+            counts.update(train=[], eval=[], summary=[], keep=[],
+                          **{"eval s": []})
+            zero_counts()
+            err = io.StringIO()
+            video_eval.evaluate_a2d = counted_evaluate
+            ckpt.save_checkpoint = recorded_save
+            t0 = time.perf_counter()
+            try:
+                with contextlib.redirect_stderr(err):
+                    rec = cli_train.main(base + extra)
+            finally:
+                video_eval.evaluate_a2d, ckpt.save_checkpoint = evaluate, save
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            text = err.getvalue()
+            for line in text.splitlines():
+                log(f"video train cli: {line}")
+            if not counts["eval"]:  # no eval: the run's launches
+                counts["train"].append(read_counts())
+            log(f"{what}: launches over {steps} steps an epoch "
+                f"{[nonzero_counts(c) for c in counts['train']]}"
+                + (f", over {EVAL_REFS} eval clips "
+                   f"{[nonzero_counts(c) for c in counts['eval']]}"
+                   if counts["eval"] else ""))
+            for c in counts["train"]:  # an epoch's (the run is one epoch)
+                check_counts(f"{what} steps", c, per_step, steps)
+            for c in counts["eval"]:
+                check_counts(f"{what} eval", c, per_clip, EVAL_REFS)
+            if per_clip is not None and len(counts["eval"]) != epochs:
+                raise RuntimeError(f"{what}: {len(counts['eval'])} evals in "
+                                   f"{epochs} epochs")
+            lg = rec["logger"]
+            it, dt, loss = lg.iter_time, lg.data_time, lg.meters["loss"]
+            if it.count != steps or not all(map(math.isfinite, loss.deque)):
+                raise RuntimeError(f"{what}: {it.count} steps, losses "
+                                   f"{list(loss.deque)}")
+            avg = it.total / it.count
+            log(f"{what}: {steps} steps of {batch} clips in its last epoch: "
+                f"iteration {avg:.4f} s mean ({[round(x, 4) for x in it.deque]}"
+                f"), {1 / avg:.3f} steps/s, {batch / avg:.3f} clips/s; data "
+                f"wait {dt.total / dt.count:.4f} s mean "
+                f"({[round(x, 4) for x in dt.deque]}) = "
+                f"{dt.total / it.total:.3f} of the iteration time; losses "
+                f"{[round(x, 6) for x in loss.deque]}; eval "
+                f"{[round(x, 2) for x in counts['eval s']]} s "
+                f"({[round(EVAL_REFS / x, 2) for x in counts['eval s']]} "
+                f"clips/s); whole run {seconds:.1f} s; peak device memory "
+                f"{peak:.2f} GiB  [{card}]")
+            return rec, text, dict(counts)
+
+        def epoch_mious(text):
+            return [float(m) for _, m in re.findall(
+                r"epoch (\d+) done in [\d.]+s \(train mIoU ([\d.]+)\)", text)]
+
+        def tag_of(miou, summary):
+            return (f"tmIoU_{miou:.2f}" + ("" if summary is None else
+                    f"_mIoU_{summary['mIoU']:.2f}_oIoU_{summary['oIoU']:.2f}"))
+
+        def saved(out, want, what):
+            names = [os.path.basename(p) for _, p in
+                     ckpt.list_checkpoints(out)]
+            log(f"{what}: checkpoints {names}")
+            if names != want:
+                raise RuntimeError(f"{what}: checkpoints {names}, expected "
+                                   f"{want}")
+            shutil.rmtree(out)
+
+        b = str(VIDEO_CLI_BATCH)
+        rpv_steps = TRAIN_REFS // VIDEO_CLI_BATCH
+        # 1. ref_pseudo_video: two epochs, each evaluated, best-only saving
+        out = os.path.join(root, "rpv")
+        rec, text, c = run(["--dataset", "ref_pseudo_video", "-b", b, "-j",
+                            "4", "--epochs", "2", "--output-dir", out],
+                           "video train CLI ref_pseudo_video", rpv_steps,
+                           VIDEO_CLI_BATCH, VIDEO_TRAIN_PER_STEP,
+                           VIDEO_PER_CLIP, epochs=2)
+        m = epoch_mious(text)
+        want = [f"epoch_0000_lavt_{tag_of(m[0], c['summary'][0])}.pth"]
+        skip = (f"epoch 1: train mIoU {m[1]:.2f} did not improve on "
+                f"{m[0]:.2f}; not saving")
+        if skip not in text:
+            want.append(f"epoch_0001_lavt_{tag_of(m[1], c['summary'][1])}"
+                        ".pth")
+        log(f"video train CLI ref_pseudo_video: train mIoU {m}, evals "
+            f"{[(s['mIoU'], s['oIoU']) for s in c['summary']]}; epoch 1 "
+            f"{'skipped (best-only)' if skip in text else 'saved'}")
+        if len(m) != 2 or (m[1] > m[0] if skip in text else m[1] < m[0]) \
+                or c["keep"] != [None] * len(want):
+            raise RuntimeError(f"video train CLI ref_pseudo_video: train "
+                               f"mIoU {m}, saves {c['keep']}")
+        saved(out, want, "video train CLI ref_pseudo_video")
+
+        # 2. the same refs as a COCO-format refexp json (then removed: the
+        #    joint run reads refcoco by REFER)
+        entries = write_refexp(root)
+        out = os.path.join(root, "refexp")
+        rec, text, c = run(["--dataset", "ref_pseudo_video", "-b", b, "-j",
+                            "4", "--epochs", "1", "--output-dir", out],
+                           "video train CLI refexp json",
+                           entries // VIDEO_CLI_BATCH, VIDEO_CLI_BATCH,
+                           VIDEO_TRAIN_PER_STEP, VIDEO_PER_CLIP)
+        os.remove(os.path.join(root, "refcoco",
+                               "instances_refcoco_train.json"))
+        saved(out, [f"epoch_0000_lavt_"
+                    f"{tag_of(rec['train_mIoU'], c['summary'][0])}.pth"],
+              f"video train CLI refexp json ({entries} entries)")
+
+        # 3. ytvos: trains blind, keeps the last 8
+        out = os.path.join(root, "ytvos_ck")
+        rec, text, c = run(["--dataset", "ytvos", "-b", str(YTVOS_CLI_BATCH),
+                            "-j", "4", "--epochs", "1", "--output-dir", out]
+                           + ytvos, "video train CLI ytvos",
+                           ytvos_items // YTVOS_CLI_BATCH, YTVOS_CLI_BATCH,
+                           VIDEO_TRAIN_PER_STEP, None)
+        if c["keep"] != [8] or c["eval"]:
+            raise RuntimeError(f"video train CLI ytvos: keep {c['keep']}, "
+                               f"{len(c['eval'])} evals")
+        saved(out, [f"epoch_0000_lavt_{tag_of(rec['train_mIoU'], None)}.pth"],
+              "video train CLI ytvos (keep 8)")
+
+        # 4. joint: the split under the three RefCOCO-family names + YTVOS
+        shutil.copytree(os.path.join(root, "refcoco"),
+                        os.path.join(root, "refcoco+"))
+        shutil.copytree(os.path.join(root, "refcoco"),
+                        os.path.join(root, "refcocog"))
+        os.rename(os.path.join(root, "refcocog", "refs(unc).p"),
+                  os.path.join(root, "refcocog", "refs(umd).p"))
+        out = os.path.join(root, "joint")
+        rec, text, c = run(["--dataset", "joint", "-b", b, "-j", "4",
+                            "--epochs", "1", "--output-dir", out] + ytvos,
+                           "video train CLI joint",
+                           (3 * TRAIN_REFS + ytvos_items) // VIDEO_CLI_BATCH,
+                           VIDEO_CLI_BATCH, VIDEO_TRAIN_PER_STEP, None)
+        if c["keep"] != [None] or c["eval"]:
+            raise RuntimeError(f"video train CLI joint: keep {c['keep']}, "
+                               f"{len(c['eval'])} evals")
+        saved(out, [f"epoch_0000_lavt_{tag_of(rec['train_mIoU'], None)}.pth"],
+              "video train CLI joint")
+
+        # 5. the f32 gate: --no_bf16 with the kernels against --no_pallas
+        f32 = ["--dataset", "ref_pseudo_video", "-b", b, "-j", "1",
+               "--no_bf16", "--epochs", "1", "--output-dir", ""]
+        rec, _, _ = run(f32, "video train CLI ref_pseudo_video --no_bf16",
+                        rpv_steps, VIDEO_CLI_BATCH, F32_VIDEO_TRAIN_PER_STEP,
+                        F32_VIDEO_PER_CLIP)
+        plain, _, _ = run(f32 + ["--no_pallas", "--eval_every", "2"],
+                          "video train CLI ref_pseudo_video --no_pallas "
+                          "--no_bf16", rpv_steps, VIDEO_CLI_BATCH, {}, None)
+        got = rec["logger"].meters["loss"].deque[0]
+        want = plain["logger"].meters["loss"].deque[0]
+        rel = abs(got - want) / abs(want)
+        log(f"video train CLI --no_bf16: first logged loss {got:.8f} with the "
+            f"kernels, {want:.8f} with --no_pallas, rel diff {rel:.3g} "
+            f"(limit {F32_CLI_LOSS_RTOL})")
+        if rel > F32_CLI_LOSS_RTOL:
+            raise RuntimeError(f"video train CLI --no_bf16: first loss rel "
+                               f"diff {rel:.4g} > {F32_CLI_LOSS_RTOL}")
+    gc_cuda()
+    seconds = time.perf_counter() - t_phase
+    log(f"video train CLI phase: {seconds:.1f} s  [{card}]")
+    return seconds
+
+
 # -- window-7 training in f32: K8 f32, K7 f32, K4b f32 -----------------------------
 
 def f32_train_kernel_phase(dev, res):
@@ -6378,6 +6734,10 @@ def main():
     del video_weights
     gc_cuda()
     log(f"f32 video training done at {time.perf_counter() - t_start:.1f} s")
+
+    # -- the video train CLI: ref_pseudo_video, refexp, ytvos, joint, f32 ---------
+    video_train_cli_phase(dev, card)
+    log(f"video train CLI done at {time.perf_counter() - t_start:.1f} s")
 
     # -- training main path ----------------------------------------------------
     training_gate(dev, weights)

@@ -17,10 +17,26 @@ directory (its newest file) and continues at the saved epoch + 1.
 `--synthetic` trains on random batches without data on disk (lavt_video
 too); `--device cpu` runs the plain versions on the host.
 
+`--model lavt_video` trains on the video datasets (`video_datasets`; the
+A2D recipe of README.md:185, with --model lavt_video --swin_type tiny):
+
+    python -m lavt_rs_tpu_torch.cli.train --model lavt_video \\
+        --dataset a2d|ytvos|ref_pseudo_video|joint --swin_type tiny ...
+
+A2D and the RefCOCO pseudo-clips (`ref_pseudo_video`,
+--image_combined_3d_pretrain) are evaluated every --eval_every epochs by
+`eval.video_eval.evaluate_a2d` (tag `tmIoU_<train>_mIoU_<x>_oIoU_<y>`) and
+saved only when the train mIoU improves; YTVOS and `joint` train blind
+(tag `tmIoU_<train>`) and save every epoch, scratch YTVOS keeping the
+last 8.  Those rules are the JAX CLI's (cli/train.py:362-441), and
+--image_combined_3d_pretrain under lavt_one saves best-only too.
+
 The step's dropout and DropPath draws come from a generator seeded by
 (--seed + 1, the global step), so a resumed run draws at step s what an
 unbroken run draws there.  The data order restarts from --seed on resume,
-as in the JAX package: continuation is not bit-exact.
+as in the JAX package: continuation is not bit-exact.  With -j > 1 the
+datasets' own draws (a sentence, a frame sample, an augmentation) are
+taken in the loader threads' order, as in the JAX package.
 
 The weight-import flags (--pretrained_swin_weights, --ck_bert as a local
 file, --pretrained2d_lavt_weights_for_a_3d_model,
@@ -29,9 +45,8 @@ applied to the built model before the optimizer is made (and before
 --resume, which overwrites them, as in the JAX package).
 
 Not ported yet, each refused with its ROADMAP.md item: the hybrid
-2D-Swin video model's --pretrained2d_lavt_weights (item 24b), the video
-datasets and --image_combined_3d_pretrain (item 24), the other model
-families (slice 5), more than one process (item 16).
+2D-Swin video model's --pretrained2d_lavt_weights (item 24b), the other
+model families (slice 5), more than one process (item 16).
 """
 
 from __future__ import annotations
@@ -49,9 +64,9 @@ from .args import (add_data_args, add_eval_args, add_model_args,
                    add_train_args, model_config_from_args,
                    train_config_from_args)
 
-VIDEO_DATASETS = ("a2d", "ytvos", "ref_pseudo_video", "joint")
-# the three RefCOCO-family sources of --ref_image_combined_pretrain, at the
-# reference's 22 tokens (data/dataset_refer_bert.py:39-42)
+# the three RefCOCO-family sources of --ref_image_combined_pretrain (at the
+# reference's 22 tokens, data/dataset_refer_bert.py:39-42) and of the
+# combined video branches (joint, --image_combined_3d_pretrain)
 COMBINED_SOURCES = (("refcoco", "unc"), ("refcoco+", "unc"),
                     ("refcocog", "umd"))
 COMBINED_MAX_TOKENS = 22
@@ -117,20 +132,10 @@ def _refuse_unported(args) -> None:
             "--pretrained2d_lavt_weights loads a 2D LAVT checkpoint into the "
             "hybrid 2D-Swin video model, which is not ported yet: ROADMAP.md "
             "item 24b")
-    if not args.synthetic and (args.dataset in VIDEO_DATASETS
-                               or args.image_combined_3d_pretrain):
-        raise NotImplementedError(
-            f"--dataset {args.dataset} / --image_combined_3d_pretrain: the "
-            "video training data is not ported yet: ROADMAP.md item 24")
-    if args.model == "lavt_video" and not args.synthetic:
-        raise NotImplementedError("--model lavt_video trains only on "
-                                  "--synthetic batches until the video "
-                                  "datasets are ported: ROADMAP.md item 24")
     if args.model not in ("lavt_one", "lavt_video"):
         raise NotImplementedError(f"--model {args.model}: the port's train "
-                                  "CLI takes lavt_one (and lavt_video under "
-                                  "--synthetic); the other families are "
-                                  "ROADMAP.md slice 5")
+                                  "CLI takes lavt_one and lavt_video; the "
+                                  "other families are ROADMAP.md slice 5")
 
 
 def step_generator(seed: int, step: int, device) -> torch.Generator:
@@ -188,6 +193,82 @@ def refcoco_datasets(args):
     return train_ds, val_ds
 
 
+def video_datasets(args):
+    """The video branches' (train, val) datasets, built as the JAX CLI
+    builds them (cli/train.py:116-210): uint8 clips (normalized on the
+    device); val is None where the branch trains blind (ytvos, joint).
+
+      * a2d: A2D-Sentences' train subset; val on --val_split (with
+        --not_consecutive);
+      * ytvos: Ref-YouTube-VOS on --ytvos_data_root / --ytvos_ann;
+      * ref_pseudo_video, joint, --image_combined_3d_pretrain: each
+        RefCOCO-family source (the three when combined, else refcoco on
+        --splitBy) as pseudo-clips, from its COCO-format refexp json where
+        `{root}/{name}/instances_{name}_{split}.json` exists, else from
+        REFER with `ImageToSeqAugmenter(seed=--seed)`; joint appends
+        YTVOS; val is refcoco's --val_split as static pseudo-clips (splitBy
+        unc when combined)."""
+    from ..data.pseudo_video import (ConcatDataset, ImageToSeqAugmenter,
+                                     ReferPseudoVideos)
+    from ..data.refer import REFER
+    from ..text.tokenizer import WordPieceTokenizer, resolve_vocab
+
+    tok = WordPieceTokenizer.from_vocab_file(
+        resolve_vocab(args.vocab, args.bert_tokenizer))
+    clip = dict(num_frames=args.num_frames, img_size=args.img_size,
+                max_tokens=args.max_tokens, host_normalize=False)
+
+    def ytvos():
+        from ..data.ytvos import YTVOSDataset
+
+        return YTVOSDataset(args.ytvos_data_root, args.ytvos_ann, tok, **clip)
+
+    combined = args.dataset == "joint" or args.image_combined_3d_pretrain
+    val_ds = None  # YTVOS trains blind: its split is scored on a server
+    if args.dataset == "a2d":
+        from ..data.a2d import A2DSentencesDataset
+
+        train_ds = A2DSentencesDataset(
+            args.a2d_data_root, args.a2d_ann, tok, subset="train",
+            clip_length=args.clip_length, **clip)
+        val_ds = A2DSentencesDataset(
+            args.a2d_data_root, args.a2d_ann, tok, subset=args.val_split,
+            clip_length=args.clip_length,
+            not_consecutive=args.not_consecutive, **clip)
+    elif args.dataset == "ytvos":
+        train_ds = ytvos()
+    elif args.dataset in ("ref_pseudo_video", "joint") or \
+            args.image_combined_3d_pretrain:
+        from ..data.refexp2seq import build_refexp_dataset
+
+        parts = []
+        for name, sb in (COMBINED_SOURCES if combined
+                         else (("refcoco", args.splitBy),)):
+            refexp_ann = os.path.join(args.refer_data_root, name,
+                                      f"instances_{name}_{args.split}.json")
+            if os.path.exists(refexp_ann):
+                parts.append(build_refexp_dataset(
+                    name, args.split, args.refer_data_root, tok,
+                    seed=args.seed, **clip))
+            else:
+                parts.append(ReferPseudoVideos(
+                    REFER(args.refer_data_root, name, sb), tok,
+                    split=args.split,
+                    augmenter=ImageToSeqAugmenter(seed=args.seed), **clip))
+        if args.dataset == "joint":
+            parts.append(ytvos())
+        train_ds = parts[0] if len(parts) == 1 else ConcatDataset(parts)
+    else:
+        raise ValueError(f"unknown video dataset {args.dataset}")
+    if args.dataset == "ref_pseudo_video" or (
+            args.image_combined_3d_pretrain and args.dataset != "a2d"):
+        val_ds = ReferPseudoVideos(
+            REFER(args.refer_data_root, "refcoco",
+                  "unc" if combined else args.splitBy),
+            tok, split=args.val_split, **clip)
+    return train_ds, val_ds
+
+
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     """Parse, build, (resume,) train and evaluate.  Returns the last
     epoch's record: {"start_epoch", "epoch", "train_mIoU", "summary" (the
@@ -197,7 +278,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     _refuse_unported(args)
 
     from ..convert import pretrained
-    from ..data.loader import PrefetchLoader, collate_refer, to_device
+    from ..data.loader import (PrefetchLoader, collate_refer,
+                               collate_video, to_device)
     from ..models.factory import build_model
     from ..train.checkpoint import (latest_checkpoint, restore_checkpoint,
                                     save_checkpoint)
@@ -223,8 +305,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                                               video=video,
                                               vocab_size=cfg.bert.vocab_size))
     else:
-        train_ds, val_ds = refcoco_datasets(args)
-        loader = PrefetchLoader(train_ds, args.batch_size, collate_refer,
+        train_ds, val_ds = (video_datasets if video
+                            else refcoco_datasets)(args)
+        loader = PrefetchLoader(train_ds, args.batch_size,
+                                collate_video if video else collate_refer,
                                 shuffle=True, num_workers=args.workers,
                                 seed=args.seed, device_put=put)
         iters_per_epoch = len(loader)
@@ -259,6 +343,17 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     # trainer's weights before each eval (load_state_dict casts them)
     eval_model = None if args.synthetic else build_model(cfg, device)
 
+    # A2D and the pseudo-clip pretraining save only when the train mIoU
+    # improves (reference train.py:775-811); RefCOCO, YTVOS and joint save
+    # every epoch, scratch YTVOS keeping the last 8
+    best_metric = -1.0
+    best_only = (args.dataset in ("a2d", "ref_pseudo_video")
+                 or args.image_combined_3d_pretrain) and not args.synthetic
+    keep = args.keep_checkpoints
+    if not keep and args.dataset == "ytvos" and \
+            not args.pretrained_video_lavt_weights_on_refcocos:
+        keep = 8
+
     record = {"start_epoch": start_epoch, "epoch": None, "train_mIoU": None,
               "summary": None, "logger": None, "checkpoint": None}
     for epoch in range(start_epoch, args.epochs):
@@ -290,23 +385,34 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         # (train.py:761-762)
         tag, summary = "", None
         if val_ds is not None and (epoch + 1) % max(args.eval_every, 1) == 0:
-            from ..eval.refcoco_eval import evaluate
-
             eval_model.load_state_dict(model.state_dict())
-            summary = evaluate(eval_model, val_ds)
-            tag = f"mIoU_{summary['mIoU']:.2f}_oIoU_{summary['oIoU']:.2f}"
+            if video:
+                from ..eval.video_eval import evaluate_a2d
+
+                summary = evaluate_a2d(eval_model, val_ds)
+                tag = f"tmIoU_{train_miou:.2f}_"
+            else:
+                from ..eval.refcoco_eval import evaluate
+
+                summary = evaluate(eval_model, val_ds)
+            tag += f"mIoU_{summary['mIoU']:.2f}_oIoU_{summary['oIoU']:.2f}"
         elif video:
             tag = f"tmIoU_{train_miou:.2f}"
 
         ckpt = None
-        if args.output_dir:
+        if args.output_dir and best_only and train_miou <= best_metric:
+            print(f"epoch {epoch}: train mIoU {train_miou:.2f} did not "
+                  f"improve on {best_metric:.2f}; not saving",
+                  file=sys.stderr)
+        elif args.output_dir:
+            best_metric = max(best_metric, train_miou)
             # --model_id goes into the name like the reference's
             # model_best_{model_id}.pth (train.py:761-807)
             if args.model_id:
                 tag = f"{args.model_id}_{tag}" if tag else args.model_id
             ckpt = save_checkpoint(args.output_dir, epoch, model, opt, sched,
                                    extra={"args": args}, metrics_tag=tag,
-                                   keep=args.keep_checkpoints or None)
+                                   keep=keep or None)
             print_master(f"saved {ckpt}", file=sys.stderr)
         record.update(epoch=epoch, train_mIoU=train_miou, summary=summary,
                       logger=logger, checkpoint=ckpt)

@@ -14,7 +14,8 @@ window 4, one BERT layer, 32²; f32, the plain versions of the kernels).
     paired augmentation, per-epoch eval): the checkpoint is named
     `..._mIoU_<x>_oIoU_<y>.pth`, and `cli.test` on the directory gives the
     in-train eval's summary;
-  * every refusal names its ROADMAP.md item.
+  * every refusal names its ROADMAP.md item, and each video branch
+    reaches its own data reader.
 """
 
 import dataclasses
@@ -268,16 +269,35 @@ def test_combined_pretrain_concatenates_three_sources(
     (["--pretrained2d_lavt_weights", "lavt.pth"], "item 24b"),
     (["--model", "lavt_video", "--synthetic", "--pretrained2d_lavt_weights",
       "lavt.pth"], "item 24b"),
-    (["--dataset", "a2d"], "item 24"),
-    (["--dataset", "ytvos"], "item 24"),
-    (["--image_combined_3d_pretrain"], "item 24"),
-    (["--model", "lavt_video"], "item 24"),
     (["--model", "lts"], "slice 5"),
     (["--model", "lavt"], "slice 5"),
 ])
 def test_cli_refuses_what_is_not_ported(extra, where):
     with pytest.raises(NotImplementedError, match=where):
         cli_train.main(["--device", "cpu"] + extra)
+
+
+@pytest.mark.parametrize("extra,raises,match", [
+    (["--dataset", "a2d"], FileNotFoundError, "a2d.json"),
+    (["--dataset", "ytvos"], FileNotFoundError, "meta.json"),
+    (["--image_combined_3d_pretrain"], FileNotFoundError,
+     re.escape("refcoco/refs(unc).p")),
+    ([], ValueError, "unknown video dataset refcoco"),
+])
+def test_cli_takes_the_video_branches(tmp_path, extra, raises, match):
+    """The video branches (once refused as ROADMAP.md item 24) now run:
+    without data on disk each stops at its own reader, and a video model
+    on a RefCOCO dataset raises the JAX CLI's ValueError.  They train on
+    data in tests/test_torch_video_train_cli.py."""
+    vocab = tmp_path / "vocab.txt"
+    vocab.write_text("\n".join(VOCAB) + "\n")
+    with pytest.raises(raises, match=match):
+        cli_train.main(["--device", "cpu", "--model", "lavt_video",
+                        "--vocab", str(vocab), "--refer_data_root",
+                        str(tmp_path), "--a2d_data_root", str(tmp_path),
+                        "--a2d_ann", str(tmp_path / "a2d.json"),
+                        "--ytvos_data_root", str(tmp_path), "--ytvos_ann",
+                        str(tmp_path / "meta.json")] + extra)
 
 
 def test_cli_refuses_more_than_one_process(monkeypatch):
