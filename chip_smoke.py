@@ -388,6 +388,35 @@
    with K5's f32 variant taken away for the check, refuses before any
    launch or allocation, naming K5; one Swin-T window-12 training
    step at bs 2 (the save mode and K5 at C = 96).
+7b. Data parallelism: DDP_WORLD processes sharing cuda:0 in a gloo group
+   (`torch.multiprocessing.spawn`, a file:// rendezvous; NCCL takes one
+   process a card), each building lavt_one Swin-B window 12 480² from the
+   same seed (DropPath and dropout 0, weights made `meaningful`), the
+   decoder's BatchNorms cross-
+   process (`parallel.ddp.SyncBatchNorm2d`), the model in DDP:
+     * the first step in bf16 and in f32 with the kernels at DDP_BATCH a
+       rank against one process's step on the joint batch: the loss (bf16
+       1e-2, f32 1e-4 relative); in f32 each Swin block's all-reduced
+       gradient cosine (0.999) and the decoder BNs' running statistics
+       (1e-4 of their largest magnitude), in bf16 both printed (DDP_GATES
+       says why); each rank's launches equal the plan at DDP_BATCH; the
+       ms of DDP_TIMED_STEPS more steps at world 1 and world 2 (on one
+       card through gloo: the collectives' host cost, not a speed-up);
+     * `cli.train.main` in the group for two epochs on the synthetic
+       split: each epoch's shards disjoint and equal, checkpoints from
+       rank 0 only without `module.` keys, a one-process --resume.
+   A child's failure or a hang past DDP_LIMIT_S fails the phase.
+7c. The hybrid 2D-Swin video model, lavt_video_tiny with
+   --ytvos_2d_swin_3d_pwam and with --ytvos_2d_swin_pwam (seeded weights
+   made meaningful): the plan against HYBRID_PER_CLIP (K10 12 / K3 6 a
+   clip) and HYBRID_TRAIN_PER_STEP (K10 save 12 / K9 12 / K8 6 / K7 6);
+   one 8-frame 480² clip in bf16 and f32 with the kernels against the plain
+   f32 route (the pixel gate and the f32 gate on every frame; launches;
+   ms per clip; a profile); the bf16 step's gate (language gates 0, BN
+   running statistics) and the f32 step's (`f32_training_gate`), ms per
+   step and a profile; --pretrained2d_lavt_weights from a Swin-T window-7
+   lavt_one file the phase writes (loaded / skipped counts, seconds); and
+   `cli.test_ytvos --ytvos_2d_swin_3d_pwam` on the YTVOS phase's videos.
 8. P1 / P2 (the head-batching probe) against their plain version on an
    input whose softmax is far from uniform (x at std 0.4, 1e-3 abs +
    2e-2 rel; a kernel writing each window's mean or a copy of x is shown
@@ -692,6 +721,30 @@ F32_CLI_TOL = 0.005
 # the f32 variants' operation bound: 495 TFLOP/s TF32 over 3xTF32's three
 # tensor-core passes
 PEAK_FLOPS_F32 = 495e12 / 3
+# the data-parallel phase: DDP_WORLD processes sharing the card under gloo,
+# DDP_BATCH images each, against one process on the joint batch; the steps
+# timed after the compared first one; the join's limit (s); the gates of
+# the world-2 step against the world-1 step: (loss relative, each Swin
+# block's gradient cosine, the decoder BatchNorms' running statistics
+# relative to their largest magnitude).  In bf16 the cosines and the
+# statistics are printed, not checked: a batch of 4 rounds otherwise than
+# one of 8 (GEMM tiles), and BatchNorm's batch statistics amplify that in
+# any bf16 route, as the training gate records (one process, plain bf16,
+# BN on running statistics: worst block cosine 0.988 between a bs-8 step
+# and its two bs-4 halves; with BN's batch statistics the DDP step's
+# 0.908; f32: 0.9999988; one H100 80GB HBM3 at 700 W); f32 checks
+# the cross-process BatchNorm on the card
+DDP_WORLD, DDP_BATCH, DDP_TIMED_STEPS, DDP_LIMIT_S = 2, 4, 3, 600
+DDP_GATES = {"bfloat16": (LOSS_RTOL, None, None),
+             "float32": (F32_LOSS_RTOL, F32_MIN_COS, 1e-4)}
+# the hybrid 2D-Swin video model's flags, and its launches on an 8-frame
+# 480² clip: the 2D window-7 blocks take K10 (N = 49) in all 12, K3 at C =
+# 384 (6 blocks); in training K10's save mode and K9 in all 12, K8 (every
+# stage-3 rate is > 0) and K7 at C = 384; the stage norms and the tails at
+# C = 96, 192, 768 stay plain, as in the JAX package
+HYBRID_FLAGS = ("--ytvos_2d_swin_3d_pwam", "--ytvos_2d_swin_pwam")
+HYBRID_PER_CLIP = {"K10": 12, "K3": 6}
+HYBRID_TRAIN_PER_STEP = {"K10": 12, "K9": 12, "K8": 6, "K7": 6}
 # device busy under torch.profiler on the first K1/K11 design (one
 # H100 80GB HBM3 at 700 W, this script; PERF.md section 5), printed beside
 # this run's
@@ -6523,6 +6576,595 @@ def k10_p2_only_port_kernels(dev):
 # two EpiBias instances and K10's kernel), P1/P2's, K5's, K9's and the f32
 # variants (the 3xTF32 wgmma core's instances, the f32 MSA attention's,
 # K2p f32's attention, K4b f32's at the stage widths)
+# -- data parallelism: DDP on two processes sharing the card ----------------------
+
+def ddp_config(dtype):
+    """lavt_one_base (Swin-B window 12, 480²) in `dtype` for the
+    data-parallel check, with DropPath and BERT's dropouts 0: the world-1
+    and world-2 steps then draw nothing and compute the same function.
+    Its weights are made `meaningful`: without that, PWAM's InstanceNorm
+    divides by a near-zero spread and the logits of one image move by
+    ~1 in bf16 (3e-3 in f32, plain route) between a batch of 8 and one of
+    4 on one card, where GEMMs tile the rows differently."""
+    import dataclasses
+
+    from lavt_rs_tpu_torch.config import lavt_one_base
+
+    cfg = lavt_one_base(dtype=dtype)
+    return cfg.replace(
+        swin=dataclasses.replace(cfg.swin, drop_path_rate=0.0),
+        bert=dataclasses.replace(cfg.bert, hidden_dropout=0.0,
+                                 attn_dropout=0.0))
+
+
+def ddp_step_counts(cfg, batch):
+    """One training step's launches of `cfg` at `batch` images, as the
+    counters read them: the plan's (bf16) or its f32 counters'."""
+    if cfg.dtype == "float32":
+        return f32_step_counts(cfg, batch)
+    return nonzero_counts(kernel_plan(cfg, 480, batch, True)[0])
+
+
+def ddp_step(dev, cfg, batch, rank=None):
+    """The first training step of `cfg` from its seeded init on `batch` (in
+    DDP with the cross-process BatchNorm when `rank` is given, on that
+    rank's DDP_BATCH of the joint batch), then DDP_TIMED_STEPS more, each
+    timed by the host clock around a synchronized step.  Returns (the
+    first step's loss (the global batch's under DDP), its launches, its
+    Swin blocks' gradients on the host (after DDP's all_reduce), the
+    decoder BatchNorms' running statistics after it, the timed steps' ms)."""
+    import torch
+
+    from lavt_rs_tpu_torch.models.factory import build_model
+    from lavt_rs_tpu_torch.parallel.ddp import convert_sync_bn, wrap_ddp
+    from lavt_rs_tpu_torch.train.optim import TrainConfig
+    from lavt_rs_tpu_torch.train.step import (create_train_state,
+                                              make_train_step)
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 50)
+    model = meaningful(build_model(cfg, dev, train=True, generator=g), dev, g)
+    trained = model
+    if rank is not None:
+        convert_sync_bn(model)
+        part = slice(rank * DDP_BATCH, (rank + 1) * DDP_BATCH)
+        batch = {k: v[part] for k, v in batch.items()}
+        trained = wrap_ddp(model, dev)
+    tcfg = TrainConfig()
+    opt, sched = create_train_state(model, tcfg)
+    step = make_train_step(trained, opt, sched, tcfg)
+
+    def gen():
+        return torch.Generator(device=dev).manual_seed(SEED + 51)
+
+    zero_counts()
+    loss = step(batch, gen())["loss"].item()
+    torch.cuda.synchronize()
+    launches = nonzero_counts(read_counts())
+    grads = {n: p.grad.float().cpu() for n, p in model.named_parameters()
+             if p.grad is not None and ".blocks." in n}
+    bn = {n: b.float().cpu() for n, b in model.classifier.named_buffers()
+          if "running_" in n}
+    ms = []
+    for _ in range(DDP_TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(batch, gen())
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    del step, opt, sched, trained, model
+    gc_cuda()
+    return loss, launches, grads, bn, ms
+
+
+def ddp_cli_argv(tmp, dev):
+    """The RefCOCO train CLI at the published configuration (--window12,
+    Swin-B, 480², bf16) on the synthetic split under tmp/data, -b
+    DDP_BATCH a process, the val split evaluated every second epoch."""
+    root = os.path.join(tmp, "data")
+    return ["--window12", "--img_size", "480", "--refer_data_root", root,
+            "--dataset", "refcoco", "--splitBy", "unc", "--vocab",
+            os.path.join(root, "vocab.txt"), "--device", str(dev), "-b",
+            str(DDP_BATCH), "-j", "2", "--split", "train", "--val_split",
+            "val", "--eval_every", "2", "--print-freq", "1"]
+
+
+def ddp_cli_rank(dev, tmp):
+    """`cli.train.main` in this process's group: two epochs into
+    tmp/ckpt.  Returns the train items this rank read, in order (its
+    dataset wrapped to record them), the record's checkpoint and the
+    run's seconds."""
+    from lavt_rs_tpu_torch.cli import train as cli_train
+
+    seen = []
+    datasets = cli_train.refcoco_datasets
+
+    class Recorded:
+        def __init__(self, ds):
+            self.ds = ds
+
+        def __len__(self):
+            return len(self.ds)
+
+        def __getitem__(self, i):
+            seen.append(int(i))
+            return self.ds[i]
+
+    def recorded(args):
+        train_ds, val_ds = datasets(args)
+        return Recorded(train_ds), val_ds
+
+    cli_train.refcoco_datasets = recorded
+    t0 = time.perf_counter()
+    rec = cli_train.main(ddp_cli_argv(tmp, dev) + [
+        "--epochs", "2", "--output-dir", os.path.join(tmp, "ckpt")])
+    return {"seen": seen, "checkpoint": rec["checkpoint"],
+            "seconds": time.perf_counter() - t0,
+            "step_s": rec["logger"].iter_time.global_avg}
+
+
+def ddp_rank(rank, tmp):
+    """Process `rank` of DDP_WORLD sharing cuda:0 in a gloo group (a
+    file:// rendezvous under `tmp`; NCCL takes one process a card): the
+    bf16 and f32 first steps on its share of tmp/batch.pt (rank 0 writes
+    the blocks' gradients to tmp), then the train CLI in the group; its
+    results to tmp/rank<rank>.pt."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda:0")
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/rendezvous",
+                            rank=rank, world_size=DDP_WORLD,
+                            timeout=datetime.timedelta(minutes=10))
+    try:
+        batch = {k: v.to(dev) for k, v in torch.load(
+            os.path.join(tmp, "batch.pt")).items()}
+        out = {}
+        for dtype in ("bfloat16", "float32"):
+            loss, launches, grads, bn, ms = ddp_step(dev, ddp_config(dtype),
+                                                     batch, rank)
+            if rank == 0:
+                torch.save(grads, os.path.join(tmp, f"grads_{dtype}.pt"))
+            del grads
+            out[dtype] = {"loss": loss, "launches": launches, "bn": bn,
+                          "ms": ms}
+        out["cli"] = ddp_cli_rank(dev, tmp)
+        torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def data_parallel_phase(dev, card):
+    """Data parallelism on the one card: DDP_WORLD processes sharing
+    cuda:0 under gloo (`ddp_rank`), against one process.
+      * lavt_one Swin-B window 12 480² (`ddp_config`: DropPath and dropout
+        0) in bf16 and in f32 with the kernels: the first step at
+        DDP_BATCH a rank against the world-1 step on the joint batch from
+        the same seeded init: the loss (DDP_GATES: bf16 1e-2, f32 1e-4
+        relative); in f32 each Swin block's all-reduced gradient cosine
+        (0.999) and the decoder BatchNorms' running statistics (1e-4 of
+        their largest magnitude), in bf16 both printed (DDP_GATES says
+        why); each rank's launches equal the plan
+        at DDP_BATCH, the world-1 step's at the joint batch; the timed
+        steps' ms at world 1 and world 2 (two processes on one card and
+        gloo's all_reduce through the host: the cost of the collectives,
+        not a speed-up);
+      * `cli.train.main` at world 2 for two epochs on the synthetic split:
+        each epoch's shards disjoint and TRAIN_REFS / DDP_WORLD long, the
+        checkpoints written by rank 0 alone, with no `module.` key, and a
+        one-process --resume of the directory trains an epoch.
+    Any child's failure fails the phase."""
+    import argparse
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    from lavt_rs_tpu_torch.cli import train as cli_train
+    from lavt_rs_tpu_torch.train import checkpoint as ckpt
+
+    t_phase = time.perf_counter()
+    joint = DDP_WORLD * DDP_BATCH
+    with tempfile.TemporaryDirectory() as tmp:
+        batch = train_batch(dev, torch.Generator(device=dev).manual_seed(
+            SEED + 52), joint)
+        torch.save({k: v.cpu() for k, v in batch.items()},
+                   os.path.join(tmp, "batch.pt"))
+        write_refcoco(os.path.join(tmp, "data"),
+                      np.random.default_rng(SEED + 30))
+        world1 = {}
+        for dtype in ("bfloat16", "float32"):
+            cfg = ddp_config(dtype)
+            loss, launches, grads, bn, ms = ddp_step(dev, cfg, batch)
+            want = ddp_step_counts(cfg, joint)
+            if launches != want:
+                raise RuntimeError(f"data parallel, world 1 {dtype}: "
+                                   f"launches {launches}, plan {want}")
+            world1[dtype] = (loss, grads, bn, ms)
+        del batch
+        gc_cuda()
+        t0 = time.perf_counter()
+        ctx = mp.spawn(ddp_rank, args=(tmp,), nprocs=DDP_WORLD, join=False)
+        deadline = time.monotonic() + DDP_LIMIT_S
+        while not ctx.join(timeout=10):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                raise RuntimeError(f"data parallel: the {DDP_WORLD} "
+                                   f"processes did not end in {DDP_LIMIT_S} s")
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"))
+                 for r in range(DDP_WORLD)]
+        log(f"data parallel: {DDP_WORLD} processes on cuda:0 under gloo "
+            f"ended in {time.perf_counter() - t0:.1f} s")
+        for dtype in ("bfloat16", "float32"):
+            loss1, grads1, bn1, ms1 = world1[dtype]
+            rtol, min_cos, bn_tol = DDP_GATES[dtype]
+            got = [r[dtype] for r in ranks]
+            want = ddp_step_counts(ddp_config(dtype), DDP_BATCH)
+            for r, g in enumerate(got):
+                if g["launches"] != want:
+                    raise RuntimeError(f"data parallel {dtype} rank {r}: "
+                                       f"launches {g['launches']}, plan "
+                                       f"{want}")
+            if len({g["loss"] for g in got}) != 1:
+                raise RuntimeError(f"data parallel {dtype}: the ranks' "
+                                   f"losses differ: {[g['loss'] for g in got]}")
+            rel = abs(got[0]["loss"] - loss1) / abs(loss1)
+            # in f64: an f32 dot of a block's ~3.5M host values errs ~1e-4
+            cos = block_cosines(
+                {k: v.double() for k, v in torch.load(os.path.join(
+                    tmp, f"grads_{dtype}.pt")).items()},
+                {k: v.double() for k, v in grads1.items()})
+            worst = min(cos, key=cos.get)
+            bn_err = max((got[r]["bn"][k] - v).abs().max().item()
+                         / v.abs().max().item()
+                         for r in range(DDP_WORLD) for k, v in bn1.items())
+            ms2 = [m for g in got for m in g["ms"]]
+            log(f"data parallel {dtype}, Swin-B w12 480²: world 2 x bs "
+                f"{DDP_BATCH} vs world 1 bs {joint} on the joint batch: loss "
+                f"{got[0]['loss']:.8f} vs {loss1:.8f}, rel diff {rel:.3g} "
+                f"(limit {rtol}); {len(cos)} Swin blocks, worst all-reduced "
+                f"gradient cosine {cos[worst]:.7f} ({worst}, limit "
+                f"{min_cos or 'none: printed'}), mean "
+                f"{sum(cos.values()) / len(cos):.7f}; decoder BN running "
+                f"statistics max rel diff {bn_err:.3g} (limit "
+                f"{bn_tol or 'none: printed'}); launches a rank "
+                f"{got[0]['launches']} (the plan at bs {DDP_BATCH})")
+            log(f"data parallel {dtype} step ms (host clock, synchronized, "
+                f"{DDP_TIMED_STEPS} steps after the first): world 1 bs "
+                f"{joint} {[round(m, 1) for m in ms1]}; world 2 bs "
+                f"{DDP_BATCH} a rank, two processes sharing the card, gloo's "
+                f"all_reduce through the host {[round(m, 1) for m in ms2]}  "
+                f"[{card}]")
+            if len(cos) != 24 or rel > rtol or min_cos is not None and (
+                    cos[worst] < min_cos or bn_err > bn_tol):
+                raise RuntimeError(f"data parallel {dtype}: the world-2 step "
+                                   "fails its gate against the world-1 step")
+        cli = [r["cli"] for r in ranks]
+        per_epoch = TRAIN_REFS // DDP_WORLD // DDP_BATCH * DDP_BATCH
+        for c in cli:
+            if len(c["seen"]) != 2 * per_epoch:
+                raise RuntimeError(f"data parallel CLI: a rank read "
+                                   f"{len(c['seen'])} train items, want "
+                                   f"{2 * per_epoch}")
+        for e in (0, 1):
+            shards = [set(c["seen"][e * per_epoch:(e + 1) * per_epoch])
+                      for c in cli]
+            if any(len(s) != per_epoch for s in shards) or \
+                    set.intersection(*shards):
+                raise RuntimeError(f"data parallel CLI epoch {e}: shards "
+                                   f"{shards} not disjoint sets of "
+                                   f"{per_epoch}")
+        out = os.path.join(tmp, "ckpt")
+        files = [p for _, p in ckpt.list_checkpoints(out)]
+        if len(files) != 2 or cli[0]["checkpoint"] != files[-1] or any(
+                c["checkpoint"] is not None for c in cli[1:]):
+            raise RuntimeError(f"data parallel CLI: checkpoints {files}, "
+                               f"the ranks' records "
+                               f"{[c['checkpoint'] for c in cli]}")
+        with torch.serialization.safe_globals([argparse.Namespace]):
+            keys = torch.load(files[-1], map_location="cpu", mmap=True,
+                              weights_only=True)["model"].keys()
+        if any(k.startswith("module.") for k in keys):
+            raise RuntimeError("data parallel CLI: `module.` keys saved")
+        t0 = time.perf_counter()
+        rec = cli_train.main(ddp_cli_argv(tmp, dev) + [
+            "--epochs", "3", "--resume", out, "--output-dir", ""])
+        loss = rec["logger"].loss.global_avg
+        if rec["start_epoch"] != 2 or not math.isfinite(loss):
+            raise RuntimeError(f"data parallel CLI: the world-1 resume "
+                               f"started at {rec['start_epoch']}, loss {loss}")
+        log(f"data parallel CLI (Swin-B w12 480² bf16, -b {DDP_BATCH} a "
+            f"process): world 2, two epochs of {TRAIN_REFS // joint} steps "
+            f"in {[round(c['seconds'], 1) for c in cli]} s, "
+            f"{[round(c['step_s'], 3) for c in cli]} s a step (two "
+            f"processes sharing the card); shards of {per_epoch} items "
+            f"disjoint each epoch; checkpoints {[os.path.basename(p) for p in files]} "
+            f"from rank 0 only, no `module.` keys; the world-1 --resume "
+            f"epoch 2: {TRAIN_REFS // DDP_BATCH} steps in "
+            f"{time.perf_counter() - t0:.1f} s, loss {loss:.5f}  [{card}]")
+    gc_cuda()
+    log(f"data parallel phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+# -- the hybrid 2D-Swin video model: --ytvos_2d_swin_3d_pwam / _pwam ------------
+
+def hybrid_config(flag, no_bf16=False):
+    """The A2D recipe's lavt_video_tiny with a hybrid flag, as the CLIs
+    build it (`model_config_from_args`)."""
+    from lavt_rs_tpu_torch.cli import args as cli_args
+    from lavt_rs_tpu_torch.cli import train as cli_train
+
+    argv = list(VIDEO_RECIPE) + [flag, "--img_size", str(CLI_IMG)]
+    return cli_args.model_config_from_args(cli_train.get_parser().parse_args(
+        argv + (["--no_bf16"] if no_bf16 else [])))
+
+
+def hybrid_forwards(dev, card, flag, model, reqs):
+    """One clip through the bf16 and f32 kernel routes of the hybrid model
+    and through the plain f32 route (launches per clip HYBRID_PER_CLIP,
+    the pixel gate and the f32 gate on all 8 frames), then ms per clip
+    (bf16, f32 and plain f32) and a profile of the bf16 clip."""
+    import torch
+
+    from lavt_rs_tpu_torch.models.factory import build_model
+    from lavt_rs_tpu_torch.ops.norm import maybe_normalize_image
+
+    cfg = model.cfg
+    video_u8, ids, mask, _, _ = reqs
+    clip = maybe_normalize_image(video_u8)[None]
+    models = {"bf16": model}
+    for name, over in (("f32", dict(dtype="float32")),
+                       ("plain f32", dict(dtype="float32",
+                                          use_kernels=False))):
+        models[name] = build_model(cfg.replace(**over), dev)
+        models[name].load_state_dict(model.state_dict())
+    logits, ms = {}, {}
+    for name, m in models.items():
+        zero_counts()
+        with torch.no_grad():
+            logits[name] = m(clip, ids[None], mask[None])
+        torch.cuda.synchronize()
+        launches = nonzero_counts(read_counts())
+        want = ({} if name == "plain f32" else
+                {k + (".f32" if name == "f32" else ""): n
+                 for k, n in HYBRID_PER_CLIP.items()})
+        if launches != want:
+            raise RuntimeError(f"hybrid {flag} {name}: launches {launches}, "
+                               f"want {want}")
+        with torch.no_grad():
+            ms[name] = cuda_time_ms(lambda: m(clip, ids[None], mask[None]),
+                                    iters=5, warmup=1)
+    want = logits["plain f32"]
+    agree = gate_pixels(f"hybrid {flag} bf16", logits["bf16"], want,
+                        (FRAMES, 480, 480, 2))
+    f32_gate(f"hybrid {flag} f32 clip", logits["f32"], want)
+    log(f"hybrid {flag} clip (8 frames 480², launches {HYBRID_PER_CLIP}): "
+        f"bf16 kernels vs f32 plain route max |dlogit| "
+        f"{(logits['bf16'] - want).abs().max().item():.4g}, argmax agreement "
+        f"{agree:.5f} on all frames (margin > {MARGIN}); ms per clip: bf16 "
+        f"{ms['bf16']:.3f}, f32 {ms['f32']:.3f}, plain f32 "
+        f"{ms['plain f32']:.3f} (mean of 5)  [{card}]")
+    with torch.no_grad():
+        profile_clip(lambda: model(clip, ids[None], mask[None]), card,
+                     f"hybrid {flag} bf16 clip")
+    del models, logits
+    gc_cuda()
+
+
+def hybrid_steps(dev, card, flag, weights):
+    """The train step of the hybrid model: the bf16 gate against the plain
+    f32 step (language gates 0, BN running statistics, DropPath and
+    dropout on: loss LOSS_RTOL, each of the 12 2D blocks' cosine MIN_COS;
+    launches HYBRID_TRAIN_PER_STEP), the f32 gate (`f32_training_gate`),
+    and the bf16 step's ms over DDP_TIMED_STEPS steps after a warm-up,
+    one under torch.profiler."""
+    import torch
+
+    from lavt_rs_tpu_torch.models.factory import build_model
+    from lavt_rs_tpu_torch.train.optim import TrainConfig
+    from lavt_rs_tpu_torch.train.step import (create_train_state,
+                                              make_video_train_step)
+
+    cfg = hybrid_config(flag)
+    batch = video_train_batch(
+        dev, torch.Generator(device=dev).manual_seed(SEED + 61))
+    seed = SEED + 62
+    zero_gates = {k: torch.zeros_like(v) if ".res_gate." in k else v
+                  for k, v in weights.items()}
+    ref_loss, ref = gate_run(dev, cfg.replace(use_kernels=False,
+                                              dtype="float32"),
+                             zero_gates, False, batch, seed)
+    zero_counts()
+    loss, got = gate_run(dev, cfg, zero_gates, False, batch, seed)
+    launches = nonzero_counts(read_counts())
+    rel = abs(loss - ref_loss) / abs(ref_loss)
+    cos = block_cosines(got, ref)
+    worst = min(cos, key=cos.get)
+    del got, ref
+    log(f"hybrid {flag} training gate (language gates 0, BN running "
+        f"statistics, DropPath + dropout on): loss bf16 kernels {loss:.6f}, "
+        f"plain f32 {ref_loss:.6f}, rel diff {rel:.3g} (limit {LOSS_RTOL}); "
+        f"{len(cos)} 2D blocks, worst gradient cosine {cos[worst]:.5f} "
+        f"({worst}, limit {MIN_COS}); launches {launches}")
+    if launches != HYBRID_TRAIN_PER_STEP or len(cos) != 12 or \
+            rel > LOSS_RTOL or cos[worst] < MIN_COS:
+        raise RuntimeError(f"hybrid {flag}: the bf16 training gate failed")
+    f32_training_gate(dev, weights, hybrid_config(flag, no_bf16=True), batch,
+                      {f"{k}.f32": n for k, n in HYBRID_TRAIN_PER_STEP.items()},
+                      12, f"hybrid {flag} f32 training gate")
+    gc_cuda()
+    model = build_model(cfg, dev, train=True)
+    model.load_state_dict(weights)
+    tcfg = TrainConfig()
+    step = make_video_train_step(model, *create_train_state(model, tcfg), tcfg)
+
+    def gen():
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    step(batch, gen())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_time_ms(lambda: step(batch, gen()), iters=DDP_TIMED_STEPS,
+                      warmup=0)
+    log(f"hybrid {flag} bf16 train step, one 8-frame 480² clip: {ms:.3f} "
+        f"ms/step (mean of {DDP_TIMED_STEPS}), peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  [{card}]")
+    profile_clip(lambda: step(batch, gen()), card,
+                 f"hybrid {flag} bf16 train step")
+    del step, model
+    gc_cuda()
+
+
+def hybrid_pretrained(dev, flag, path, src):
+    """--pretrained2d_lavt_weights: the Swin-T window-7 lavt_one file at
+    `path` (state dict `src`) into the hybrid model: every tensor but the
+    12 relative-position indexes (skipped: the model builds its own) and,
+    under the 3D SepTPWAM, the 2D fusion (dropped); the patch embedding
+    with a temporal axis of 1, the tables as they are."""
+    import argparse
+
+    import torch
+
+    from lavt_rs_tpu_torch.convert import pretrained
+    from lavt_rs_tpu_torch.models.factory import build_model
+
+    cfg = hybrid_config(flag)
+    model = build_model(cfg, dev, train=True)
+    args = argparse.Namespace(**{f: "" for f in (
+        "pretrained_swin_weights", "ck_bert",
+        "pretrained2d_lavt_weights_for_a_3d_model",
+        "pretrained_video_lavt_weights_on_refcocos")})
+    args.pretrained2d_lavt_weights = path
+    (rec,) = pretrained.apply_pretrained_flags(model, cfg, args)
+    keep_fusion = flag == "--ytvos_2d_swin_pwam"
+    want = [k for k in src if not k.endswith("relative_position_index")
+            and (keep_fusion or ".fusion." not in k)]
+    sd = model.state_dict()
+    pe, table = ("backbone.patch_embed.proj.weight",
+                 "backbone.layers.2.blocks.3.attn.relative_position_bias_table")
+    same = (torch.equal(sd[pe][:, :, 0].cpu(), src[pe])
+            and torch.equal(sd[table].cpu(), src[table]))
+    log(f"hybrid {flag} --pretrained2d_lavt_weights (Swin-T window-7 "
+        f"lavt_one .pth): loaded {len(rec['loaded'])} tensors, skipped "
+        f"{len(rec['skipped'])}, in {rec['seconds']:.2f} s; patch embedding "
+        f"{tuple(sd[pe].shape)}, tables of {sd[table].shape[0]} rows")
+    if sorted(rec["loaded"]) != sorted(want) or len(rec["skipped"]) != 12 \
+            or not same:
+        raise RuntimeError(f"hybrid {flag}: --pretrained2d_lavt_weights "
+                           f"loaded {len(rec['loaded'])} tensors, want "
+                           f"{len(want)}, or changed them")
+    del model
+    gc_cuda()
+
+
+def hybrid_ytvos(dev, card, ckpt):
+    """`cli.test_ytvos.main` with --ytvos_2d_swin_3d_pwam on YTVOS_VIDEOS
+    (the YTVOS phase's synthetic whole videos) and the hybrid's weights:
+    every forward's launches HYBRID_PER_CLIP, a PNG of the original size
+    per frame and expression, ms per video."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from lavt_rs_tpu_torch.cli import test_ytvos as cli_ytvos
+
+    with tempfile.TemporaryDirectory() as root:
+        vocab = write_ytvos(root, np.random.default_rng(SEED + 41))
+        out = os.path.join(root, "out")
+        argv = list(VIDEO_RECIPE) + [
+            "--ytvos_2d_swin_3d_pwam", "--ytvos_data_root", root, "--vocab",
+            vocab, "--img_size", str(CLI_IMG), "--device", str(dev),
+            "--checkpoint", ckpt, "--out", out]
+        forward, lengths = cli_ytvos.forward_clip, []
+
+        def recorded(model, clip, *a):
+            lengths.append(clip.shape[0])
+            return forward(model, clip, *a)
+
+        zero_counts()
+        cli_ytvos.forward_clip = recorded
+        err = io.StringIO()
+        try:
+            with contextlib.redirect_stderr(err):
+                stats = cli_ytvos.main(argv)
+        finally:
+            cli_ytvos.forward_clip = forward
+        torch.cuda.synchronize()
+        launches = nonzero_counts(read_counts())
+        want = {k: n * len(lengths) for k, n in HYBRID_PER_CLIP.items()}
+        masks = read_masks(out)
+        sizes = {name: hw for name, _, hw in YTVOS_VIDEOS}
+        n_want = sum(n for _, n, _ in YTVOS_VIDEOS) * YTVOS_EXPRESSIONS
+        log(f"hybrid YTVOS via cli.test_ytvos --ytvos_2d_swin_3d_pwam: "
+            f"{stats['videos']} videos, forwards of {lengths} frames, "
+            f"{1e3 * stats['seconds'] / stats['videos']:.1f} ms/video, "
+            f"launches {launches}, {len(masks)} PNGs  [{card}]")
+        if launches != want or len(masks) != n_want or any(
+                m.shape != sizes[k[0]] for k, m in masks.items()):
+            raise RuntimeError(f"hybrid YTVOS: launches {launches} (want "
+                               f"{want}) or {len(masks)} PNGs (want "
+                               f"{n_want}) of the wrong sizes:\n"
+                               + err.getvalue()[-2000:])
+
+
+def hybrid_phase(dev, card):
+    """The hybrid 2D-Swin video model (lavt_video_tiny with
+    --ytvos_2d_swin_3d_pwam, then --ytvos_2d_swin_pwam; seeded weights made
+    meaningful): its plan against HYBRID_PER_CLIP / HYBRID_TRAIN_PER_STEP,
+    one 8-frame 480² clip (`hybrid_forwards`), the train step
+    (`hybrid_steps`), --pretrained2d_lavt_weights from a Swin-T window-7
+    lavt_one file the phase writes (`hybrid_pretrained`), and one YTVOS
+    run of the first (`hybrid_ytvos`)."""
+    import tempfile
+
+    import torch
+
+    from lavt_rs_tpu_torch.config import lavt_one_tiny
+    from lavt_rs_tpu_torch.models.factory import build_model
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        g = torch.Generator(device=dev).manual_seed(SEED + 63)
+        src = {k: v.cpu() for k, v in build_model(
+            lavt_one_tiny(dtype="float32"), dev,
+            generator=g).state_dict().items()}
+        path = os.path.join(root, "lavt_one_swin_tiny_window7.pth")
+        torch.save({"model": src}, path)
+        ckpt = None
+        for flag in HYBRID_FLAGS:
+            cfg = hybrid_config(flag)
+            for train, want in ((False, HYBRID_PER_CLIP),
+                                (True, HYBRID_TRAIN_PER_STEP)):
+                got = kernel_plan(cfg, 480, FRAMES, train)[0]
+                if got != want:
+                    raise RuntimeError(f"hybrid {flag}: the kernel plan "
+                                       f"gives {got}, the checked counts "
+                                       f"are {want}")
+            g = torch.Generator(device=dev).manual_seed(SEED + 60)
+            model = meaningful(build_model(cfg, dev, generator=g), dev, g)
+            hybrid_forwards(dev, card, flag, model, clips(dev, g, 1)[0])
+            weights = model.state_dict()
+            del model
+            if ckpt is None:
+                ckpt = video_checkpoint(root, weights)
+            hybrid_steps(dev, card, flag, weights)
+            hybrid_pretrained(dev, flag, path, src)
+            del weights
+            gc_cuda()
+        hybrid_ytvos(dev, card, ckpt)
+    gc_cuda()
+    log(f"hybrid phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 PTXAS_KERNELS = {"EpiBiasILb1E": "K2p / K2 / save-mode qkv GEMM (GEMM core)",
                  "EpiBiasILb0E": "K2p / K2 / save-mode out-projection GEMM (GEMM core)",
                  "msa_fwd_sm90_kernelILb0E": "K2 attention",
@@ -6871,6 +7513,12 @@ def main():
     f32_refusal(dev)
     routing_training_step(dev, card)
     log(f"routing done at {time.perf_counter() - t_start:.1f} s")
+
+    # -- data parallelism (DDP on two processes) and the hybrid video model ----
+    data_parallel_phase(dev, card)
+    log(f"data parallel done at {time.perf_counter() - t_start:.1f} s")
+    hybrid_phase(dev, card)
+    log(f"hybrid done at {time.perf_counter() - t_start:.1f} s")
 
     # -- P1 / P2: the head-batching probe --------------------------------------
     probe_launches = probe_phase(dev, card, res)

@@ -1,6 +1,7 @@
 """Training entry point (counterpart of `lavt_rs_tpu/cli/train.py`, the
-reference train.py) on one card.  The flag surface is the reference's
-parser (cli/args.py), so the README.md:167 RefCOCO recipe runs as it is:
+reference train.py) on one card, or on several under torchrun.  The flag
+surface is the reference's parser (cli/args.py), so the README.md:167
+RefCOCO recipe runs as it is:
 
     python -m lavt_rs_tpu_torch.cli.train --dataset refcoco --model lavt_one \\
         --swin_type base --window12 --lr 0.00005 --wd 1e-2 -b 8 \\
@@ -39,14 +40,32 @@ datasets' own draws (a sentence, a frame sample, an augmentation) are
 taken in the loader threads' order, as in the JAX package.
 
 The weight-import flags (--pretrained_swin_weights, --ck_bert as a local
-file, --pretrained2d_lavt_weights_for_a_3d_model,
+file, --pretrained2d_lavt_weights into the hybrid 2D-Swin video model of
+--ytvos_2d_swin_3d_pwam / --ytvos_2d_swin_pwam,
+--pretrained2d_lavt_weights_for_a_3d_model,
 --pretrained_video_lavt_weights_on_refcocos; `convert/pretrained.py`) are
 applied to the built model before the optimizer is made (and before
 --resume, which overwrites them, as in the JAX package).
 
-Not ported yet, each refused with its ROADMAP.md item: the hybrid
-2D-Swin video model's --pretrained2d_lavt_weights (item 24b), the other
-model families (slice 5), more than one process (item 16).
+Data parallelism (`parallel/ddp.py`), one process per card:
+
+    torchrun --nproc_per_node N -m lavt_rs_tpu_torch.cli.train ... -b 8
+
+-b is per process, as in the reference's DistributedSampler (the JAX
+CLI's -b is the global batch): each process takes every N-th item of the
+epoch's permutation, len // N of them, so all take the same number of
+steps.  The model is wrapped in DDP (`wrap_ddp`: find_unused_parameters
+on, as the last stage's language gate feeds no output), the decoder's BatchNorms take the global batch's
+statistics (`SyncBatchNorm2d`), and the step's loss and IoU are the
+global batch's.  Process r > 0 draws its dropout and DropPath from
+(--seed + 1, step, r).  Only rank 0 writes checkpoints, of the model
+without its DDP wrapper, so a one-process run resumes from them; every
+process loads --resume.  The group is NCCL on the card; --device cpu
+runs gloo.  A caller that has initialized a process group itself (e.g.
+several processes sharing one card under gloo, each at --device cuda:0)
+is trained in that group.
+
+The other model families (ROADMAP.md slice 5) are refused.
 """
 
 from __future__ import annotations
@@ -124,24 +143,21 @@ class _SizedIter:
 
 
 def _refuse_unported(args) -> None:
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError("training on more than one process comes "
-                                  "with data parallelism: ROADMAP.md item 16")
-    if args.pretrained2d_lavt_weights:
-        raise NotImplementedError(
-            "--pretrained2d_lavt_weights loads a 2D LAVT checkpoint into the "
-            "hybrid 2D-Swin video model, which is not ported yet: ROADMAP.md "
-            "item 24b")
     if args.model not in ("lavt_one", "lavt_video"):
         raise NotImplementedError(f"--model {args.model}: the port's train "
                                   "CLI takes lavt_one and lavt_video; the "
                                   "other families are ROADMAP.md slice 5")
 
 
-def step_generator(seed: int, step: int, device) -> torch.Generator:
+def step_generator(seed: int, step: int, device,
+                   rank: int = 0) -> torch.Generator:
     """The generator of global step `step`'s dropout and DropPath draws,
-    seeded from (seed + 1, step): the JAX step's fold_in(key, step)."""
-    s = np.random.SeedSequence([seed + 1, step]).generate_state(1, np.uint64)
+    seeded from (seed + 1, step): the JAX step's fold_in(key, step).
+    Process `rank` > 0 of a data-parallel run draws for its own batch,
+    seeded from (seed + 1, step, rank); rank 0 keeps the one-process
+    stream."""
+    entropy = [seed + 1, step] + ([rank] if rank else [])
+    s = np.random.SeedSequence(entropy).generate_state(1, np.uint64)
     return torch.Generator(device=device).manual_seed(int(s[0]))
 
 
@@ -273,21 +289,37 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     """Parse, build, (resume,) train and evaluate.  Returns the last
     epoch's record: {"start_epoch", "epoch", "train_mIoU", "summary" (the
     val eval's, or None), "logger" (its MetricLogger, with iter_time and
-    data_time), "checkpoint" (the path saved, or None)}."""
+    data_time), "checkpoint" (the path saved, or None off rank 0)}.  Under
+    torchrun (WORLD_SIZE > 1) or in a process group already initialized,
+    each process trains on its shard of the data in DDP; a group this
+    call created is destroyed when it returns."""
+    import torch.distributed as dist
+
+    from ..parallel.ddp import init_distributed
+
     args = get_parser().parse_args(argv)
     _refuse_unported(args)
+    owned = not (dist.is_available() and dist.is_initialized())
+    rank, world, device = init_distributed(args.device)
+    try:
+        return _train(args, rank, world, device)
+    finally:
+        if owned and world > 1:
+            dist.destroy_process_group()
 
+
+def _train(args, rank: int, world: int, device: torch.device) -> dict:
     from ..convert import pretrained
     from ..data.loader import (PrefetchLoader, collate_refer,
                                collate_video, to_device)
     from ..models.factory import build_model
+    from ..parallel.ddp import convert_sync_bn, wrap_ddp
     from ..train.checkpoint import (latest_checkpoint, restore_checkpoint,
                                     save_checkpoint)
     from ..train.step import (create_train_state, make_train_step,
                               make_video_train_step)
     from ..utils.logging import MetricLogger, SmoothedValue, print_master
 
-    device = torch.device(args.device)
     cfg = model_config_from_args(args)
     args.max_tokens = cfg.max_tokens
     video = cfg.name == "lavt_video"
@@ -298,7 +330,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     val_ds = None
     if args.synthetic:
         iters_per_epoch = args.synthetic_steps
-        rng = np.random.default_rng(args.seed)
+        rng = np.random.default_rng(args.seed if rank == 0
+                                    else [args.seed, rank])
 
         def epoch_batches(epoch):
             return map(put, synthetic_batches(args, iters_per_epoch, rng,
@@ -310,7 +343,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         loader = PrefetchLoader(train_ds, args.batch_size,
                                 collate_video if video else collate_refer,
                                 shuffle=True, num_workers=args.workers,
-                                seed=args.seed, device_put=put)
+                                seed=args.seed, shard_index=rank,
+                                num_shards=world, device_put=put)
         iters_per_epoch = len(loader)
 
         def epoch_batches(epoch):
@@ -322,6 +356,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                         generator=torch.Generator(device=device).manual_seed(
                             args.seed))
     pretrained.apply_pretrained_flags(model, cfg, args)
+    if world > 1:  # the decoder's BatchNorm over the global batch
+        convert_sync_bn(model)
     opt, sched = create_train_state(model, tcfg)
     start_epoch = 0
     if args.resume:
@@ -333,10 +369,13 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         # continue AFTER the saved epoch (reference train.py:738
         # `range(max(0, resume_epoch+1), epochs)`)
         start_epoch = resume_epoch + 1
-        print(f"resumed from {path}; continuing at epoch {start_epoch}",
-              file=sys.stderr)
+        print_master(f"resumed from {path}; continuing at epoch "
+                     f"{start_epoch}", file=sys.stderr)
+    # every process loads, converts and restores `model` before DDP wraps
+    # it; checkpoints and the eval model take `model`, without `module.`
     step_fn = (make_video_train_step if video else make_train_step)(
-        model, opt, sched, tcfg)
+        wrap_ddp(model, device) if world > 1 else model,
+        opt, sched, tcfg)
 
     # one eval model (the compute dtype, eval mode) for every epoch, so its
     # routes' cached tensors and the built kernels are reused; it takes the
@@ -367,8 +406,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             _SizedIter(epoch_batches(epoch), iters_per_epoch),
             max(args.print_freq, 1), header=f"Epoch: [{epoch}]")
         for batch in batches:
-            metrics = step_fn(batch, step_generator(args.seed,
-                                                    sched.last_epoch, device))
+            metrics = step_fn(batch, step_generator(
+                args.seed, sched.last_epoch, device, rank))
             # reading the loss waits for the step: iter_time is real
             iou = float(metrics["iou"])
             logger.update(loss=float(metrics["loss"]), iou=iou,
@@ -376,9 +415,11 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             iou_sum += iou
             iou_n += 1
         logger.synchronize_between_processes()
+        # the step's IoU is the global batch's: every process decides alike
         train_miou = 100.0 * iou_sum / max(iou_n, 1)
-        print(f"epoch {epoch} done in {time.time() - t0:.1f}s "
-              f"(train mIoU {train_miou:.2f})  {logger}", file=sys.stderr)
+        print_master(f"epoch {epoch} done in {time.time() - t0:.1f}s "
+                     f"(train mIoU {train_miou:.2f})  {logger}",
+                     file=sys.stderr)
 
         # validation every --eval_every epochs, like the reference
         # (train.py:743, 768); checkpoints are named with their metrics
@@ -401,9 +442,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
 
         ckpt = None
         if args.output_dir and best_only and train_miou <= best_metric:
-            print(f"epoch {epoch}: train mIoU {train_miou:.2f} did not "
-                  f"improve on {best_metric:.2f}; not saving",
-                  file=sys.stderr)
+            print_master(f"epoch {epoch}: train mIoU {train_miou:.2f} did "
+                         f"not improve on {best_metric:.2f}; not saving",
+                         file=sys.stderr)
         elif args.output_dir:
             best_metric = max(best_metric, train_miou)
             # --model_id goes into the name like the reference's
@@ -416,7 +457,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             print_master(f"saved {ckpt}", file=sys.stderr)
         record.update(epoch=epoch, train_mIoU=train_miou, summary=summary,
                       logger=logger, checkpoint=ckpt)
-    print("training complete", file=sys.stderr)
+    print_master("training complete", file=sys.stderr)
     return record
 
 

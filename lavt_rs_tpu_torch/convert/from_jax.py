@@ -1,10 +1,11 @@
 """JAX variables -> the port's state_dict (the weight carry-over).
 
 Inverts `lavt_rs_tpu/convert/torch2jax.py:convert_lavt_one` and
-`convert_lavt_video` (`convert_mm_swin3d`): it takes the JAX package's
-`{'params': ..., 'batch_stats': ...}` for a lavt_one or lavt_video model,
-given as nested dicts of numpy arrays, and returns the port's state_dict,
-whose names are the reference PyTorch ones:
+`convert_lavt_video` (`convert_mm_swin3d`; for the hybrid 2D-Swin video
+model the 2D blocks' mapping under the video model's names): it takes the
+JAX package's `{'params': ..., 'batch_stats': ...}` for a lavt_one or
+lavt_video model, given as nested dicts of numpy arrays, and returns the
+port's state_dict, whose names are the reference PyTorch ones:
 
   * Dense kernel (in, out)       -> Linear weight (out, in)
   * Dense kernel of a 1x1 Conv1d -> weight (out, in, 1)
@@ -130,8 +131,11 @@ def state_dict_from_jax(variables: Mapping, cfg: ModelConfig
     sd["backbone.patch_embed.proj.bias"] = _t(bb["patch_embed"]["proj"]["bias"])
     if "norm" in bb["patch_embed"]:
         norm("backbone.patch_embed.norm", bb["patch_embed"]["norm"])
+    # the hybrid video backbone's blocks are 2D (JAX `Hybrid2D3DLayer`:
+    # the 2D block names and tables under the video model's prefix)
     index = torch.from_numpy(
-        relative_position_index_3d(*swin.window_size_3d) if video
+        relative_position_index_3d(*swin.window_size_3d)
+        if video and not cfg.hybrid_2d_3d
         else relative_position_index_2d(swin.window_size, swin.window_size))
     for i in range(swin.num_layers):
         lt, lp = bb[f"layers_{i}"], f"backbone.layers.{i}"

@@ -19,8 +19,12 @@ The reference's weight-import flags, applied to a freshly built model:
     weights dropped;
   * --pretrained_video_lavt_weights_on_refcocos: a full lavt_video
     checkpoint from the combined-RefCOCO pretraining stage;
-  * --pretrained2d_lavt_weights (2D LAVT into the hybrid 2D-Swin video
-    model) raises: the hybrid model is ROADMAP.md item 24b.
+  * --pretrained2d_lavt_weights: a 2D LAVT checkpoint into the hybrid
+    2D-Swin video model (reference lib/_utils.py:133-183, JAX
+    `convert_lavt_2d_to_hybrid`): the patch embedding takes a temporal
+    axis of 1, the 2D blocks load as they are (tables resized only when
+    the window differs), the fusion weights only into the 2D PWAM of
+    --ytvos_2d_swin_pwam (with a 3D SepTPWAM they are dropped).
 
 The port's state_dict uses the reference's names, so a checkpoint maps
 onto it by renaming keys and reshaping a few tensors; no tree conversion.
@@ -45,7 +49,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..config import ModelConfig
+from ..config import ModelConfig, TPWAMKind
 from ..train.checkpoint import load_model_tensors
 
 StateDict = Dict[str, torch.Tensor]
@@ -153,6 +157,20 @@ def full_partial(sd: StateDict, cfg: ModelConfig,
     return out
 
 
+def hybrid_partial(sd: StateDict, cfg: ModelConfig) -> StateDict:
+    """A full 2D lavt_one checkpoint -> the hybrid 2D-Swin video model's
+    names (JAX `convert_lavt_2d_to_hybrid`): mapped as a lavt_one of the
+    hybrid's widths and window, its patch embedding given a temporal
+    axis of 1, its fusion weights kept only for the 2D PWAM."""
+    out = full_partial(sd, cfg.replace(name="lavt_one"))
+    pe = "backbone.patch_embed.proj.weight"
+    if pe in out:
+        out[pe] = out[pe][:, :, None]
+    if cfg.tpwam.kind != TPWAMKind.PWAM2D:
+        out = {k: v for k, v in out.items() if ".fusion." not in k}
+    return out
+
+
 def bert_partial(sd: StateDict) -> StateDict:
     """HF BertModel weights -> the text encoder's names; a uniform `bert.`
     prefix is stripped (JAX `_bert_partial`), the pooler dropped."""
@@ -205,11 +223,6 @@ def apply_pretrained_flags(model: nn.Module, cfg: ModelConfig,
     """Apply the weight-import flags set in `args` to `model` in place, in
     the JAX package's order.  Returns one record per flag applied:
     {"flag", "loaded", "skipped" (name lists), "seconds"}."""
-    if getattr(args, "pretrained2d_lavt_weights", ""):
-        raise NotImplementedError(
-            "--pretrained2d_lavt_weights loads a 2D LAVT checkpoint into the "
-            "hybrid 2D-Swin video model, which is not ported yet: ROADMAP.md "
-            "item 24b")
     records = []
 
     def apply(flag, path, partial_of):
@@ -232,6 +245,13 @@ def apply_pretrained_flags(model: nn.Module, cfg: ModelConfig,
     ck_bert = getattr(args, "ck_bert", "")
     if ck_bert and os.path.isfile(ck_bert):
         apply("--ck_bert", ck_bert, lambda sd: ("", bert_partial(sd)))
+    path = getattr(args, "pretrained2d_lavt_weights", "")
+    if path:
+        if cfg.name != "lavt_video" or not cfg.hybrid_2d_3d:
+            raise ValueError("--pretrained2d_lavt_weights is for the hybrid "
+                             "2D-Swin video models (--ytvos_2d_swin_*)")
+        apply("--pretrained2d_lavt_weights", path,
+              lambda sd: ("", hybrid_partial(sd, cfg)))
     path = getattr(args, "pretrained2d_lavt_weights_for_a_3d_model", "")
     if path:
         _needs_video(cfg, "--pretrained2d_lavt_weights_for_a_3d_model")

@@ -11,7 +11,10 @@ thread.
 
 Batches come in the JAX package's order: a permutation drawn from
 `seed + epoch`, every `num_shards`-th index from `shard_index`, the last
-partial batch dropped with `drop_last`.  With `num_workers > 1` the
+partial batch dropped with `drop_last`.  Every shard takes len // shards
+items (the permutation's last len % shards are left to a later epoch's
+draw), so the processes of a data-parallel run take the same number of
+steps.  With `num_workers > 1` the
 items of a batch are fetched concurrently, so a dataset's own random
 draws (a sentence, an augmentation) are taken in the threads' order.
 """
@@ -68,8 +71,8 @@ class PrefetchLoader:
         order = np.arange(len(self.ds))
         if self.shuffle:
             np.random.default_rng(self.seed + self.epoch).shuffle(order)
-        order = order[self.shard_index::self.num_shards]
-        n = len(order)
+        n = len(order) // self.num_shards
+        order = order[self.shard_index::self.num_shards][:n]
         end = n - n % self.batch_size if self.drop_last else n
         batches = [order[s:s + self.batch_size]
                    for s in range(0, end, self.batch_size)]

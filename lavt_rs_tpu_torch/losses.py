@@ -88,6 +88,19 @@ LOSSES = {
 }
 
 
+def loss_weight(name: str, target: torch.Tensor) -> torch.Tensor:
+    """What loss `name` divides its sum by on a batch of `target`s: the
+    class weights of its pixels for cross_entropy (F.cross_entropy's
+    weighted mean); for the others, whose terms are per-sample or
+    per-pixel means of equal-sized samples, the batch size.  The loss of
+    several batches together is their losses' mean weighted by it."""
+    if name == "cross_entropy":
+        w = torch.tensor(_CE_WEIGHTS, dtype=torch.float32,
+                         device=target.device)
+        return w[target.long()].sum()
+    return torch.tensor(float(target.shape[0]), device=target.device)
+
+
 def get_loss(name: str, focal_rate: float = 3.0, dice_rate: float = 1.0,
              boundary_rate: float = 0.05):
     """Loss by name, with the reference's rate knobs."""

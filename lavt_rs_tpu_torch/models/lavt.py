@@ -62,20 +62,18 @@ class LAVTOne(nn.Module):
 
 
 class LAVTVideo(nn.Module):
-    """lavt_video: Video Swin 3D backbone + per-frame SimpleDecoding."""
+    """lavt_video: Video Swin 3D backbone (or, with `hybrid_2d_3d`, the
+    hybrid of per-frame 2D Swin blocks and the clip's fusion) + per-frame
+    SimpleDecoding."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         _check_decoder(cfg)
-        if cfg.hybrid_2d_3d:
-            raise NotImplementedError(
-                "the hybrid 2D Swin + 3D PWAM backbone is not ported yet "
-                "(ROADMAP.md slice 4)")
         self.cfg = cfg
         self.text_encoder = BertEncoder(cfg.bert)
         self.backbone = MultiModalSwinTransformer3D(
             cfg.swin, cfg.fusion, cfg.tpwam, cfg.out_indices,
-            cfg.use_checkpoint, cfg.use_kernels)
+            cfg.use_checkpoint, cfg.use_kernels, cfg.hybrid_2d_3d)
         self.classifier = SimpleDecoding(8 * cfg.swin.embed_dim,
                                          cfg.num_classes)
 

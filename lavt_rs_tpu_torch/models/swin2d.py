@@ -432,6 +432,28 @@ class MMBasicLayer(nn.Module):
         return x_out, x, hw
 
 
+def blocks_plan(blocks, hw: Tuple[int, int], batch: int, itemsize: int,
+                train: bool, counts: Dict[str, int], unrouted: List[str],
+                where: str) -> None:
+    """Add the launches of one stage's `blocks` on `batch` h x w maps
+    (`SwinBlock.kernels`) to `counts`, and to `unrouted` each of their
+    routes that launches none, with the reason (the JAX package runs XLA
+    there)."""
+    for blk in blocks:
+        for k in blk.kernels(hw, batch, itemsize, train):
+            counts[k] = counts.get(k, 0) + 1
+    n, c = blk.window_size ** 2, blk.attn.dim
+    if blk.use_kernels and blk.attn.route(blk._windows(hw)[2], n,
+                                          itemsize) == "chain":
+        unrouted.append(f"{where} MSA (C {c}, N {n}): fused_msa_routed "
+                        "and attn_fwd_supported are False (JAX: XLA): "
+                        "the torch chain")
+    if blk.use_kernels and not fused_mlp.fused_tail_routed(c):
+        unrouted.append(f"{where} LN-MLP tails (C {c}): the fused_tail "
+                        "test is False (C % 128 or C > 512; JAX: XLA): "
+                        "the torch chain")
+
+
 class MultiModalSwinTransformer(nn.Module):
     """forward(image NHWC, l (B, N_l, D_l), l_mask (B, N_l)) -> tuple of
     per-stage NHWC features, one per out_indices."""
@@ -476,20 +498,10 @@ class MultiModalSwinTransformer(nn.Module):
         ps = self.patch_embed.patch_size
         hw = tuple(-(-s // ps) for s in img)
         for i, layer in enumerate(self.layers):
-            for blk in layer.blocks:
-                for k in blk.kernels(hw, batch, itemsize, train):
-                    counts[k] = counts.get(k, 0) + 1
-            n, c = blk.window_size ** 2, blk.attn.dim
             where = f"stage {i + 1}"
-            if blk.use_kernels and blk.attn.route(
-                    blk._windows(hw)[2], n, itemsize) == "chain":
-                unrouted.append(f"{where} MSA (C {c}, N {n}): fused_msa_routed "
-                                "and attn_fwd_supported are False (JAX: XLA): "
-                                "the torch chain")
-            if blk.use_kernels and not fused_mlp.fused_tail_routed(c):
-                unrouted.append(f"{where} LN-MLP tails (C {c}): the fused_tail "
-                                "test is False (C % 128 or C > 512; JAX: XLA): "
-                                "the torch chain")
+            blocks_plan(layer.blocks, hw, batch, itemsize, train, counts,
+                        unrouted, where)
+            c = layer.blocks[-1].attn.dim
             norm = getattr(self, f"norm{i}", None)
             if norm is not None and norm.routed(batch * hw[0] * hw[1]):
                 counts["K4"] = counts.get("K4", 0) + 1

@@ -32,6 +32,12 @@ kernel on a CUDA tensor (its plain version on a CPU tensor):
     as the JAX package runs XLA there (both its predicates are False).
 `SwinBlock3D.route` names a block's route and `kernels` the kernels it
 launches; `MultiModalSwinTransformer3D.kernel_plan` adds them up.
+
+The hybrid backbone (`hybrid_2d`, --ytvos_2d_swin_3d_pwam and
+--ytvos_2d_swin_pwam) builds `Hybrid2D3DLayer`s instead: the 2D Swin
+blocks of `swin2d` at `cfg.window_size`, per frame, on their own routes
+(at window 7, N = 49: K10, in training its save mode and K9; K3, or K8
+and K7, at C % 128 == 0), then the fusion over the clip.
 With `use_kernels=False` every block takes the second or third route with
 K10's plain version.  The LayerNorms, the MLP, PatchMerging and the stage
 norms are plain PyTorch, as in the JAX package (no fused tail in 3D).
@@ -69,7 +75,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..config import FusionConfig, FusionKind, GateKind, StageOutput, SwinConfig, TPWAMConfig
+from ..config import (FusionConfig, FusionKind, GateKind, StageOutput,
+                      SwinConfig, TPWAMConfig, TPWAMKind)
 from ..ops import attention, fused_msa, window_attn
 from ..ops.dropout import drop_path_apply, drop_path_kept
 from ..ops.window import (get_window_size_3d, partition_3d_groups,
@@ -79,7 +86,8 @@ from ..ops.window import (get_window_size_3d, partition_3d_groups,
                           reverse_shifted_unpadded_3d, shift_mask_3d,
                           shift_mask_flags_3d,
                           window_partition_3d, window_reverse_3d)
-from .pwam import LanguageGate, apply_gate
+from .pwam import PWAM, LanguageGate, apply_gate
+from .swin2d import SwinBlock, blocks_plan
 from .tpwam import build_tpwam
 
 
@@ -396,13 +404,79 @@ class MMBasicLayer3D(nn.Module):
         return x_out, x
 
 
+class Hybrid2D3DLayer(nn.Module):
+    """One stage of the hybrid 2D-Swin video backbone (--ytvos_2d_swin_3d_pwam,
+    --ytvos_2d_swin_pwam; JAX `Hybrid2D3DLayer`, reference
+    lib/backbone.py:708-992): 2D Swin blocks (`swin2d.SwinBlock`, its
+    routes and kernels) on the (B*D, H*W, C) frames -> fusion over the clip
+    (SepTPWAM on (B, D, H, W, C), or under `TPWAMKind.PWAM2D` the 2D PWAM
+    on (B, D*H*W, C)) -> LG residual -> merge.  The stage output is the
+    fusion output.  With `use_checkpoint` each block is checkpointed in
+    training, its DropPath draws made first (as `swin2d.MMBasicLayer`)."""
+
+    def __init__(self, dim: int, depth: int, num_heads: int, window_size: int,
+                 mlp_ratio: float, qkv_bias: bool, qk_scale: Optional[float],
+                 has_downsample: bool, fusion: FusionConfig, fusion_heads: int,
+                 tpwam: TPWAMConfig, use_kernels: bool = True,
+                 drop_path_rates: Optional[Tuple[float, ...]] = None,
+                 use_checkpoint: bool = False):
+        super().__init__()
+        if fusion.kind != FusionKind.PWAM:
+            raise NotImplementedError(
+                f"fusion {fusion.kind.value!r}: only PWAM is ported; the "
+                "baselines are in the long-tail slice (ROADMAP.md slice 5)")
+        self.fusion_cfg = fusion
+        rates = drop_path_rates or (0.0,) * depth
+        self.blocks = nn.ModuleList(
+            SwinBlock(dim, num_heads, window_size,
+                      0 if i % 2 == 0 else window_size // 2, mlp_ratio,
+                      qkv_bias, qk_scale, use_kernels, rates[i],
+                      use_checkpoint)
+            for i in range(depth))
+        self.use_checkpoint = use_checkpoint
+        self.pwam_2d = tpwam.kind == TPWAMKind.PWAM2D
+        self.fusion = (PWAM(dim, fusion.lang_dim, fusion_heads,
+                            att_norm=fusion.att_norm, dropout=fusion.dropout)
+                       if self.pwam_2d else
+                       build_tpwam(tpwam, dim, fusion_heads, fusion.lang_dim,
+                                   fusion.dropout))
+        self.res_gate = (LanguageGate(dim, fusion.lg_act)
+                         if fusion.gate == GateKind.DEFAULT else None)
+        self.downsample = PatchMerging3D(dim) if has_downsample else None
+
+    def forward(self, x, l, l_mask,
+                generator: Optional[torch.Generator] = None):
+        """x (B, D, H, W, C) -> (x_out (B, D, H, W, C), x_next)."""
+        b, d, h, w, c = x.shape
+        flat = x.reshape(b * d, h * w, c)
+        remat = (self.use_checkpoint and self.training
+                 and torch.is_grad_enabled())
+        for blk in self.blocks:
+            if remat:  # the draws first: the recompute applies the same
+                flat = checkpoint(blk, flat, (h, w), None,
+                                  blk.draw_kept(b * d, generator, x.device),
+                                  use_reentrant=False)
+            else:
+                flat = blk(flat, (h, w), generator)
+        tokens = flat.reshape(b, d * h * w, c)
+        mm = self.fusion(tokens if self.pwam_2d else tokens.reshape(b, d, h, w, c),
+                         l, l_mask, generator)  # (B, DHW, C)
+        gate_out = self.res_gate(mm) if self.res_gate is not None else None
+        tokens = apply_gate(tokens, mm, gate_out, self.fusion_cfg.gate)
+        x = tokens.reshape(b, d, h, w, c)
+        if self.downsample is not None:
+            x = self.downsample(x)
+        return mm.reshape(b, d, h, w, c), x
+
+
 class MultiModalSwinTransformer3D(nn.Module):
     """forward(video (B, T, H, W, 3), l (B, N_l, D_l), l_mask (B, N_l)) ->
     tuple of per-frame (B*T, Hi, Wi, Ci) features, one per out_indices."""
 
     def __init__(self, cfg: SwinConfig, fusion: FusionConfig,
                  tpwam: TPWAMConfig, out_indices: Tuple[int, ...] = (0, 1, 2, 3),
-                 use_checkpoint: bool = False, use_kernels: bool = True):
+                 use_checkpoint: bool = False, use_kernels: bool = True,
+                 hybrid_2d: bool = False):
         super().__init__()
         if cfg.ape:
             raise NotImplementedError(
@@ -418,16 +492,20 @@ class MultiModalSwinTransformer3D(nn.Module):
         last = cfg.num_layers - 1
         dpr = np.linspace(0, cfg.drop_path_rate, sum(cfg.depths)).tolist()
         starts = np.cumsum((0,) + tuple(cfg.depths)).tolist()
-        self.layers = nn.ModuleList(
-            MMBasicLayer3D(cfg.num_features[i], cfg.depths[i],
-                           cfg.num_heads[i], cfg.window_size_3d,
-                           cfg.mlp_ratio, cfg.qkv_bias, cfg.qk_scale,
-                           i < last, fusion, fusion.num_heads[i], tpwam,
-                           skip_gate=use_checkpoint and i == last,
-                           use_kernels=use_kernels,
-                           drop_path_rates=tuple(dpr[starts[i]:starts[i + 1]]),
-                           use_checkpoint=use_checkpoint)
-            for i in range(cfg.num_layers))
+
+        def layer(i):
+            common = (cfg.num_features[i], cfg.depths[i], cfg.num_heads[i])
+            rest = (cfg.mlp_ratio, cfg.qkv_bias, cfg.qk_scale, i < last,
+                    fusion, fusion.num_heads[i], tpwam)
+            kw = dict(use_kernels=use_kernels,
+                      drop_path_rates=tuple(dpr[starts[i]:starts[i + 1]]),
+                      use_checkpoint=use_checkpoint)
+            if hybrid_2d:  # the 2D window, as the JAX package (:506-511)
+                return Hybrid2D3DLayer(*common, cfg.window_size, *rest, **kw)
+            return MMBasicLayer3D(*common, cfg.window_size_3d, *rest,
+                                  skip_gate=use_checkpoint and i == last, **kw)
+
+        self.layers = nn.ModuleList(layer(i) for i in range(cfg.num_layers))
         for i in self.out_indices:
             self.add_module(f"norm{i}", nn.LayerNorm(cfg.num_features[i],
                                                      eps=1e-5))
@@ -437,13 +515,19 @@ class MultiModalSwinTransformer3D(nn.Module):
                     ) -> Tuple[Dict[str, int], List[str]]:
         """Launches per forward of one clip of `frames` img = (H, W) frames
         on the card (train: per training step), from each block's
-        `kernels`; and, with the kernels, the blocks that launch none,
-        each with the reason (the JAX package runs XLA there)."""
+        `kernels` (the hybrid's 2D blocks at a batch of the clip's frames);
+        and, with the kernels, the routes that launch none, each with the
+        reason (the JAX package runs XLA there)."""
         counts: Dict[str, int] = {}
         unrouted = []
         pt, ph, pw = self.patch_embed.patch_size
         d, h, w = -(-frames // pt), -(-img[0] // ph), -(-img[1] // pw)
         for i, layer in enumerate(self.layers):
+            if isinstance(layer, Hybrid2D3DLayer):
+                blocks_plan(layer.blocks, (h, w), d, itemsize, train, counts,
+                            unrouted, f"stage {i + 1}")
+                h, w = (h + 1) // 2, (w + 1) // 2
+                continue
             for j, blk in enumerate(layer.blocks):
                 got = blk.kernels((d, h, w), itemsize, train)
                 for k in got:

@@ -5,10 +5,9 @@ Behavioral contract: reference utils.py:16-150
   * SmoothedValue: windowed deque median/avg + global avg;
   * MetricLogger.log_every: iter/data timing, ETA, peak device memory
     (`torch.cuda.max_memory_allocated`, as the reference prints it);
-  * is_main_process / print gating (reference utils.py:161-202).
-
-Cross-process synchronization waits for data parallelism (ROADMAP.md item
-16): on one process it is a no-op, and with more it raises.
+  * is_main_process / print gating (reference utils.py:161-202);
+  * synchronize_between_processes: each meter's (count, total) summed
+    over the processes (reference utils.py:34-45), a no-op on one.
 """
 
 from __future__ import annotations
@@ -57,11 +56,20 @@ class SmoothedValue:
 
     def synchronize_between_processes(self):
         """All-reduce (count, total) across processes (reference
-        utils.py:34-45); nothing to do on one process."""
-        if _world() > 1:
-            raise NotImplementedError(
-                "metric synchronization across processes comes with data "
-                "parallelism: ROADMAP.md item 16")
+        utils.py:34-45); nothing to do on one process.  The deque is not
+        synchronized, as in the reference.  The tensor lies on the card
+        under NCCL and on the host under gloo."""
+        if _world() == 1:
+            return
+        import torch.distributed as dist
+
+        dev = (torch.device("cuda", torch.cuda.current_device())
+               if dist.get_backend() == "nccl" else torch.device("cpu"))
+        t = torch.tensor([self.count, self.total], dtype=torch.float64,
+                         device=dev)
+        dist.barrier()
+        dist.all_reduce(t)
+        self.count, self.total = int(t[0].item()), float(t[1].item())
 
     @property
     def median(self) -> float:

@@ -10,7 +10,8 @@ the test, in both.  The port's state_dict, mapped by the JAX package's
 bitwise, leaf for leaf: the same tensors loaded, the same reshaping (the
 bicubic 7 -> 12 tables, the 2D -> 3D inflation, the Kinetics patch-embed
 sum), the rest at its init.  Also: the refusals, the train CLI with a
-flag, and F5's help string.
+flag, and F5's help string.  The hybrid video model's flag,
+--pretrained2d_lavt_weights, is tests/test_torch_hybrid.py's.
 """
 
 import argparse
@@ -272,7 +273,8 @@ def test_video_flags(start, tmp_path):
 
 def test_refusals(start, tmp_path):
     """A Swin of other widths matches nothing and raises ValueError in both
-    packages; the hybrid model's flag raises, naming its ROADMAP.md item."""
+    packages; so does --pretrained2d_lavt_weights into a model that is not
+    the hybrid video model (tests/test_torch_hybrid.py loads it into one)."""
     video, jcfg, jvars = start
     other = dataclasses.replace(port_config(video).swin, embed_dim=64,
                                 num_heads=(2, 4, 8, 16))
@@ -285,9 +287,11 @@ def test_refusals(start, tmp_path):
         pretrained.apply_pretrained_flags(pm, pm.cfg, args)
     with pytest.raises(ValueError, match="no tensors matched"):
         japply_flags(jvars, jcfg, args)
-    with pytest.raises(NotImplementedError, match="item 24b"):
-        pretrained.apply_pretrained_flags(
-            pm, pm.cfg, flags(pretrained2d_lavt_weights=path))
+    hybrid_flag = flags(pretrained2d_lavt_weights=path)
+    with pytest.raises(ValueError, match="hybrid 2D-Swin video models"):
+        pretrained.apply_pretrained_flags(pm, pm.cfg, hybrid_flag)
+    with pytest.raises(ValueError, match="hybrid 2D-Swin video models"):
+        japply_flags(jvars, jcfg, hybrid_flag)
     # an HF model id (not a local file) is not a --ck_bert file
     assert pretrained.apply_pretrained_flags(
         pm, pm.cfg, flags(ck_bert="bert-base-uncased")) == []

@@ -266,9 +266,6 @@ def test_combined_pretrain_concatenates_three_sources(
 
 
 @pytest.mark.parametrize("extra,where", [
-    (["--pretrained2d_lavt_weights", "lavt.pth"], "item 24b"),
-    (["--model", "lavt_video", "--synthetic", "--pretrained2d_lavt_weights",
-      "lavt.pth"], "item 24b"),
     (["--model", "lts"], "slice 5"),
     (["--model", "lavt"], "slice 5"),
 ])
@@ -300,7 +297,43 @@ def test_cli_takes_the_video_branches(tmp_path, extra, raises, match):
                         str(tmp_path / "meta.json")] + extra)
 
 
-def test_cli_refuses_more_than_one_process(monkeypatch):
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="item 16"):
-        cli_train.main(SYNTH)
+@pytest.mark.parametrize("flag", ["--ytvos_2d_swin_3d_pwam",
+                                  "--ytvos_2d_swin_pwam"])
+def test_cli_trains_the_hybrid_with_a_2d_checkpoint(tmp_path, shrunk,
+                                                     capsys, flag):
+    """The hybrid 2D-Swin video model and --pretrained2d_lavt_weights (once
+    refused as ROADMAP.md item 24b): a lavt_one .pth of the shrunk widths
+    loads into it (the fusion too under --ytvos_2d_swin_pwam) and an
+    epoch trains."""
+    cfg = shrunk(cli_train.get_parser().parse_args(SYNTH))
+    src = build_model(cfg.replace(dtype="float32"), CPU,
+                      generator=torch.Generator().manual_seed(3))
+    path = tmp_path / "lavt_one.pth"
+    torch.save({"model": src.state_dict()}, path)
+    rec = cli_train.main(SYNTH + ["--model", "lavt_video", "--num_frames",
+                                  "2", "--epochs", "1", "--output-dir", "",
+                                  flag, "--pretrained2d_lavt_weights",
+                                  str(path)])
+    assert rec["epoch"] == 0 and np.isfinite(rec["train_mIoU"])
+    assert np.isfinite(rec["logger"].loss.global_avg)
+    err = capsys.readouterr().err
+    loaded = int(re.search(r"\[--pretrained2d_lavt_weights\] loaded (\d+)",
+                           err).group(1))
+    keep_fusion = flag == "--ytvos_2d_swin_pwam"
+    assert loaded == sum(not k.endswith("relative_position_index")
+                         and (keep_fusion or ".fusion." not in k)
+                         for k in src.state_dict())
+
+
+def test_cli_trains_under_torchrun(tmp_path):
+    """WORLD_SIZE=2 (once refused as ROADMAP.md item 16) trains: two
+    processes with torchrun's environment (RANK, LOCAL_RANK, WORLD_SIZE,
+    MASTER_ADDR / MASTER_PORT on localhost) each run `cli.train.main`,
+    which makes the gloo group, trains an epoch in DDP and destroys the
+    group; rank 0 alone writes the checkpoint."""
+    from test_torch_ddp import torchrun_world2
+
+    recs = torchrun_world2(str(tmp_path))
+    (_, path), = ckpt_mod.list_checkpoints(str(tmp_path / "ckpt"))
+    assert recs[0]["checkpoint"] == path and recs[1]["checkpoint"] is None
+    assert not any(r["initialized"] for r in recs)
