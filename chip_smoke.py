@@ -417,6 +417,21 @@
    step and a profile; --pretrained2d_lavt_weights from a Swin-T window-7
    lavt_one file the phase writes (loaded / skipped counts, seconds); and
    `cli.test_ytvos --ytvos_2d_swin_3d_pwam` on the YTVOS phase's videos.
+7d. The other families ("families"): lavt (the two-model LAVT), lts, vlt
+   and lavt_vlt at Swin-B 480² window 12 (`make_config(name, "base")`,
+   seeded weights made meaningful, the class-logit gap centred on one
+   batch and, for the VLT heads, scaled up to a std of 0.25): the plan against FAMILY_PER_FORWARD (K1 4 / K11 20 / K3 24 and
+   K4 4 for lavt, 3 for the stage-2-4 backbones); three bs-8 batches
+   through `fwd_iou` in bf16 (launches), the pixel gate against the plain
+   f32 model, the f32 model with the kernels (its launches, the f32 gate),
+   ms a forward of each and a profile; a bs-4 train step in bf16 (launches
+   as its plan, falling loss, ms, peak) and the f32 step's gate
+   (`f32_training_gate`); vlt at window 7 one bs-8 forward (K10 24 / K3 24
+   / K4 3, the pixel gate); `cli.test --model lavt` from a reference
+   two-dict checkpoint {'model', 'bert_model'} (bf16 launches per device
+   batch; --no_bf16 against --no_pallas within F32_CLI_TOL), and
+   `cli.train --model lavt --synthetic` for an epoch, whose checkpoint
+   holds the two dicts and loads in `cli.test --resume`.
 8. P1 / P2 (the head-batching probe) against their plain version on an
    input whose softmax is far from uniform (x at std 0.4, 1e-3 abs +
    2e-2 rel; a kernel writing each window's mean or a copy of x is shown
@@ -742,6 +757,26 @@ DDP_GATES = {"bfloat16": (LOSS_RTOL, None, None),
 # 384 (6 blocks); in training K10's save mode and K9 in all 12, K8 (every
 # stage-3 rate is > 0) and K7 at C = 384; the stage norms and the tails at
 # C = 96, 192, 768 stay plain, as in the JAX package
+# the other families at Swin-B 480² window 12 (bs 8): lavt's multimodal
+# Swin normalizes all four stages (K4 4), the stage-2-4 backbones of lts,
+# vlt and lavt_vlt three; every block on lavt_one's routes
+FAMILIES = ("lavt", "lts", "vlt", "lavt_vlt")
+FAMILY_PER_FORWARD = {name: {"K1": 4, "K11": 20, "K3": 24,
+                             "K4": 4 if name == "lavt" else 3}
+                      for name in FAMILIES}
+FAMILY_W7_PER_FORWARD = {"K10": 24, "K3": 24, "K4": 3}  # vlt, window 7
+FAMILY_STEP_BATCH, FAMILY_STEPS = 4, 5
+# each family's class-logit bias (the last conv's), set by `balance_head`
+# so that the two classes split a batch's pixels: a random head otherwise
+# prefers one class everywhere and the pixel gates check a constant; a
+# head whose logit gap spreads less than FAMILY_GAP_STD is scaled up to it
+# first (lavt's and lts's random heads spread about that far: 67-78 % of
+# their pixels past the 0.05 margin; the VLT heads' 0.2-1.3 %)
+FAMILY_GAP_STD = 0.25
+FAMILY_HEAD_BIAS = {"lavt": "model.classifier.conv1_1.bias",
+                    "lts": "classifier.conv1_1.bias",
+                    "vlt": "classifier.decoding.classifier.bias",
+                    "lavt_vlt": "classifier.decoding.classifier.bias"}
 HYBRID_FLAGS = ("--ytvos_2d_swin_3d_pwam", "--ytvos_2d_swin_pwam")
 HYBRID_PER_CLIP = {"K10": 12, "K3": 6}
 HYBRID_TRAIN_PER_STEP = {"K10": 12, "K9": 12, "K8": 6, "K7": 6}
@@ -3637,7 +3672,7 @@ def gate_run(dev, cfg, weights, bn_batch_stats, batch, seed):
     m.load_state_dict(weights)
     if not bn_batch_stats:
         for mod in m.modules():
-            if isinstance(mod, torch.nn.BatchNorm2d):
+            if isinstance(mod, torch.nn.modules.batchnorm._BatchNorm):
                 mod.eval()
     dt = cfg.compute_dtype
     pixels = batch["video"] if "video" in batch else batch["image"]
@@ -3665,7 +3700,7 @@ def block_cosines(a, b):
 
     blocks = {}
     for name, g in a.items():
-        parts = name.split(".")
+        parts = name.removeprefix("model.").split(".")  # lavt: model.backbone
         if parts[0] == "backbone" and parts[3:4] == ["blocks"]:
             pair = blocks.setdefault(".".join(parts[1:5]), ([], []))
             pair[0].append(g.flatten())
@@ -7116,6 +7151,278 @@ def hybrid_ytvos(dev, card, ckpt):
                                + err.getvalue()[-2000:])
 
 
+def balance_head(model, x, ids, mask, name):
+    """Shift the family's class-1 logit bias (`FAMILY_HEAD_BIAS`) so that
+    the median logit gap (class 1 - class 0) of one forward on (x, ids,
+    mask) is 0; where the gap spreads less than FAMILY_GAP_STD (the VLT
+    heads: ~0.01), first scale the last conv up to that spread.  Returns
+    the two tensors as they were."""
+    import torch
+
+    bias = model.get_parameter(FAMILY_HEAD_BIAS[name])
+    weight = model.get_parameter(FAMILY_HEAD_BIAS[name][:-4] + "weight")
+    before = {FAMILY_HEAD_BIAS[name]: bias.detach().clone(),
+              FAMILY_HEAD_BIAS[name][:-4] + "weight": weight.detach().clone()}
+    with torch.no_grad():
+        logits = model(x, ids, mask)
+        gap = (logits[..., 1] - logits[..., 0]).float()
+        k = max(1.0, FAMILY_GAP_STD / gap.std().item())
+        weight.mul_(k)
+        bias.mul_(k)
+        bias[1] -= (gap.median() * k).to(bias.dtype)
+    return before
+
+
+def family_forwards(dev, card, name, cfg, per_forward):
+    """One family's inference main path at 480², bs 8: seeded weights made
+    meaningful (`meaningful`, `balance_head`), N_REQUESTS batches through
+    `fwd_iou` in bf16 (launches as `per_forward`, its kernel plan), the
+    pixel gate against the plain f32 model, then the f32 model with the
+    kernels (the f32 counters as the bf16 plan's) and the f32 gate; ms a
+    batch of each, the bf16 forward's device busy and idle share, peak
+    memory.  Returns the bf16 weights (on the card), with the head
+    balanced and as drawn."""
+    import torch
+
+    from lavt_rs_tpu_torch.eval.refcoco_eval import fwd_iou
+    from lavt_rs_tpu_torch.models.factory import build_model
+    from lavt_rs_tpu_torch.ops.norm import maybe_normalize_image
+
+    window = cfg.swin.window_size
+    what = f"{name} window {window}"
+    plan = kernel_plan(cfg, 480, BATCH)[0]
+    if plan != per_forward:
+        raise RuntimeError(f"{what}: the kernel plan gives {plan}, the "
+                           f"checked counts are {per_forward}")
+    g = torch.Generator(device=dev).manual_seed(SEED + 70)
+    model = meaningful(build_model(cfg, dev, generator=g), dev, g)
+    batches = requests(dev, g, N_REQUESTS)
+    image, ids, mask, _ = batches[0]
+    x, ids0, mask0 = maybe_normalize_image(image), ids[:, 0], mask[:, 0]
+    head = balance_head(model, x, ids0, mask0, name)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    results = [fwd_iou(model, *b) for b in batches]
+    torch.cuda.synchronize()
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    check_counts(f"{what} bf16 inference", launches, per_forward, N_REQUESTS)
+    for inter, union in results:
+        if inter.shape != (BATCH, 1) or bool((inter > union).any()):
+            raise RuntimeError(f"{what}: bad inter/union")
+
+    def forward(m):
+        with torch.no_grad():
+            return m(x, ids0, mask0)
+
+    got = forward(model)
+    ms = cuda_time_ms(lambda: forward(model), iters=10, warmup=2)
+    profile_clip(lambda: forward(model), card, f"{what} bs-8 bf16 forward")
+    weights = model.state_dict()
+    del model
+    ref = build_model(cfg.replace(dtype="float32", use_kernels=False), dev)
+    ref.load_state_dict(weights)
+    want = forward(ref)
+    plain_ms = cuda_time_ms(lambda: forward(ref), iters=3, warmup=1)
+    del ref
+    agree = gate_pixels(f"{what} bf16", got, want, (BATCH, 480, 480, 2))
+    sure = (want[..., 1] - want[..., 0]).abs() > MARGIN
+    log(f"{what} bf16 launches over {N_REQUESTS} batches of {BATCH}: "
+        f"{nonzero_counts(launches)}; against the f32 plain model: max "
+        f"|dlogit| {(got - want).abs().max().item():.4g}, argmax agreement "
+        f"{agree:.5f} on {sure.float().mean().item():.3f} of pixels (margin "
+        f"> {MARGIN}); {ms:.3f} ms a bs-8 forward, "
+        f"{BATCH * 1000 / ms:.2f} img/s; the plain f32 model {plain_ms:.3f} "
+        f"ms; peak {peak:.3f} GiB over the fwd_iou batches  [{card}]")
+    del got
+    gc_cuda()
+    drawn = dict(weights, **head)
+    if window != 12:
+        return weights, drawn
+    f32 = build_model(cfg.replace(dtype="float32"), dev)
+    f32.load_state_dict(weights)
+    zero_counts()
+    got = forward(f32)
+    torch.cuda.synchronize()
+    f32_launches = read_counts()
+    check_counts(f"{what} f32 inference", f32_launches,
+                 {f"{k}.f32": n for k, n in per_forward.items()}, 1)
+    f32_ms = cuda_time_ms(lambda: forward(f32), iters=5, warmup=1)
+    del f32
+    f32_gate(f"{what} f32 gate", got, want)
+    log(f"{what} f32 with the kernels: launches a forward "
+        f"{nonzero_counts(f32_launches)}; {f32_ms:.3f} ms a bs-8 forward  "
+        f"[{card}]")
+    del got, want
+    gc_cuda()
+    return weights, drawn
+
+
+def family_steps(dev, card, name, cfg, weights):
+    """A family's train step at bs FAMILY_STEP_BATCH from `weights`: the
+    bf16 step (a first step, then FAMILY_STEPS timed steps: launches as its
+    kernel plan, the loss finite and below the first's in one of the last
+    three, peak memory) and the f32 step's gate
+    (`f32_training_gate`: the f32 launches, loss and block gradients
+    against the plain f32 route)."""
+    import torch
+
+    what = f"{name} window {cfg.swin.window_size}"
+    per_step = kernel_plan(cfg, 480, FAMILY_STEP_BATCH, True)[0]
+    step = train_setup(dev, weights, cfg)
+    batch = train_batch(dev, torch.Generator(device=dev).manual_seed(
+        SEED + 71), FAMILY_STEP_BATCH)
+
+    def gen():
+        return torch.Generator(device=dev).manual_seed(SEED + 72)
+
+    first = step(batch, gen())["loss"].item()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    losses = [step(batch, gen())["loss"] for _ in range(FAMILY_STEPS)]
+    end.record()
+    torch.cuda.synchronize()
+    launches = read_counts()
+    ms = start.elapsed_time(end) / FAMILY_STEPS
+    losses = [first] + [v.item() for v in losses]
+    check_counts(f"{what} bf16 step", launches, per_step, FAMILY_STEPS)
+    # the first AdamW steps move every weight by ~lr: the loss descends
+    # over the steps, not at each (test_zoo_train_step_descends's check)
+    if not all(math.isfinite(v) for v in losses) or \
+            not min(losses[-3:]) < losses[0]:
+        raise RuntimeError(f"{what}: training losses {losses}")
+    log(f"{what} bf16 step bs {FAMILY_STEP_BATCH}: launches a step "
+        f"{per_step}; {ms:.3f} ms a step, "
+        f"{FAMILY_STEP_BATCH * 1000 / ms:.2f} img/s (mean of "
+        f"{FAMILY_STEPS}), peak {torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} "
+        f"GiB; losses {[round(v, 6) for v in losses]}  [{card}]")
+    del step
+    gc_cuda()
+    f32 = cfg.replace(dtype="float32")
+    f32_training_gate(dev, weights, f32, batch,
+                      f32_step_counts(f32, FAMILY_STEP_BATCH),
+                      sum(cfg.swin.depths), f"{what} f32 training gate")
+    gc_cuda()
+
+
+def family_clis(dev, card, root, lavt_weights):
+    """The CLIs with --model lavt on a synthetic split under `root`: the
+    test CLI from a reference-format two-dict checkpoint {'model',
+    'bert_model'} in bf16 (launches per device batch as the bf16 plan's)
+    and with --no_bf16 against --no_pallas (`f32_cli`'s tolerance); the
+    train CLI for a synthetic epoch (its checkpoint holds the two dicts),
+    which the test CLI then loads."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from lavt_rs_tpu_torch.cli import test as cli_test
+    from lavt_rs_tpu_torch.cli import train as cli_train
+    from lavt_rs_tpu_torch.train.checkpoint import (latest_checkpoint,
+                                                    load_checkpoint)
+
+    vocab = write_refcoco(root, np.random.default_rng(SEED + 73))
+    ckpt = os.path.join(root, "lavt.pth")
+    sd = {k: v.float().cpu() for k, v in lavt_weights.items()}
+    torch.save({p: {k[len(p) + 1:]: v for k, v in sd.items()
+                    if k.startswith(p + ".")} for p in ("model", "bert_model")},
+               ckpt)
+    argv = ["--model", "lavt", "--window12", "--img_size", "480",
+            "--refer_data_root", root, "--dataset", "refcoco", "--splitBy",
+            "unc", "--split", "val", "--vocab", vocab, "--device", str(dev)]
+    per = FAMILY_PER_FORWARD["lavt"]
+    summaries = {}
+    for label, extra, counters in (
+            ("bf16", [], per),
+            ("--no_bf16", ["--no_bf16"],
+             {f"{k}.f32": n for k, n in per.items()}),
+            ("--no_bf16 --no_pallas", ["--no_bf16", "--no_pallas"], {})):
+        err = io.StringIO()
+        zero_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(err):
+            summaries[label] = cli_test.main(argv + extra
+                                             + ["--checkpoint", ckpt])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = nonzero_counts(read_counts())
+        batches = launches.get("K4.f32", launches.get("K4", 0)) // per["K4"]
+        if counters and (batches < 1 or launches != {
+                k: n * batches for k, n in counters.items()}):
+            raise RuntimeError(f"cli.test --model lavt {label}: launches "
+                               f"{launches}, not {counters} a batch")
+        if not counters and launches:
+            raise RuntimeError(f"cli.test --model lavt {label}: launched "
+                               f"{launches}")
+        log(f"cli.test --model lavt {label} (two-dict checkpoint): "
+            f"{err.getvalue().strip().splitlines()[-1]}; launches "
+            f"{launches} over {batches} device batches; {seconds:.2f} s "
+            f"with the model's build  [{card}]")
+        gc_cuda()
+    check_summaries("cli.test --model lavt --no_bf16",
+                    summaries["--no_bf16"], summaries["--no_bf16 --no_pallas"])
+    out = os.path.join(root, "lavt_ck")
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        rec = cli_train.main(["--model", "lavt", "--window12", "--synthetic",
+                              "--synthetic_steps", "2", "-b",
+                              str(FAMILY_STEP_BATCH), "--epochs", "1",
+                              "--output-dir", out, "--device", str(dev)])
+    seconds = time.perf_counter() - t0
+    saved = load_checkpoint(latest_checkpoint(out), "cpu")
+    if set(saved) != {"model", "bert_model", "optimizer", "lr_scheduler",
+                      "epoch", "args"}:
+        raise RuntimeError(f"cli.train --model lavt saved {sorted(saved)}")
+    log(f"cli.train --model lavt --synthetic: an epoch of 2 steps at bs "
+        f"{FAMILY_STEP_BATCH} in {seconds:.2f} s (build, steps, the two-dict "
+        f"checkpoint), {rec['logger'].iter_time.median:.3f} s a step "
+        f"(median); saved {sorted(saved)}  [{card}]")
+    del saved
+    with contextlib.redirect_stderr(io.StringIO()):
+        summary = cli_test.main(argv + ["--resume", out, "--max_items", "8"])
+    log(f"cli.test --model lavt --resume <the train CLI's directory>: "
+        f"{summary}")
+    gc_cuda()
+
+
+def families_phase(dev, card):
+    """The other families at Swin-B 480² (`make_config(name, 'base')`,
+    window 12): lavt (LAVTTwo), lts, vlt and lavt_vlt each answer bs-8
+    batches in bf16 and f32 (`family_forwards`) and take a bs-4 train step
+    in bf16 and f32 (`family_steps`); vlt at window 7 one bs-8 forward;
+    then the CLIs with --model lavt (`family_clis`)."""
+    import tempfile
+
+    from lavt_rs_tpu_torch.models.factory import make_config
+
+    t_phase = time.perf_counter()
+    lavt_weights = None
+    for name in FAMILIES:
+        cfg = make_config(name, "base", window12=True)
+        weights, drawn = family_forwards(dev, card, name, cfg,
+                                         FAMILY_PER_FORWARD[name])
+        family_steps(dev, card, name, cfg, drawn)
+        if name == "lavt":
+            lavt_weights = {k: v.cpu() for k, v in weights.items()}
+        del weights, drawn
+        gc_cuda()
+    family_forwards(dev, card, "vlt", make_config("vlt", "base",
+                                                  window12=False),
+                    FAMILY_W7_PER_FORWARD)
+    gc_cuda()
+    with tempfile.TemporaryDirectory() as root:
+        family_clis(dev, card, root, lavt_weights)
+    log(f"families phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 def hybrid_phase(dev, card):
     """The hybrid 2D-Swin video model (lavt_video_tiny with
     --ytvos_2d_swin_3d_pwam, then --ytvos_2d_swin_pwam; seeded weights made
@@ -7519,6 +7826,8 @@ def main():
     log(f"data parallel done at {time.perf_counter() - t_start:.1f} s")
     hybrid_phase(dev, card)
     log(f"hybrid done at {time.perf_counter() - t_start:.1f} s")
+    families_phase(dev, card)
+    log(f"families done at {time.perf_counter() - t_start:.1f} s")
 
     # -- P1 / P2: the head-batching probe --------------------------------------
     probe_launches = probe_phase(dev, card, res)

@@ -1,7 +1,9 @@
 """Evaluation entry point (counterpart of `lavt_rs_tpu/cli/test.py`, the
 reference test.py): RefCOCO (every sentence of every ref of a split) with
-lavt_one, or A2D-Sentences (`--dataset a2d`, every clip's annotated frame)
-with lavt_video; mIoU / oIoU / P@K.
+the image families (--model lavt_one, lavt, lts, vlt, lavt_vlt), or
+A2D-Sentences (`--dataset a2d`, every clip's annotated frame) with
+lavt_video; mIoU / oIoU / P@K.  A reference `lavt` checkpoint holds two
+dicts, {'model', 'bert_model'} (the segmentation net and its BERT).
 
     python -m lavt_rs_tpu_torch.cli.test --window12 --img_size 480 \\
         --refer_data_root ./refer/data/ --dataset refcoco --splitBy unc \\
@@ -49,9 +51,14 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-# the only key a reference checkpoint may lack: recent transformers keep
+# the only keys a reference checkpoint may lack: recent transformers keep
 # BERT's position_ids out of the state dict (the port's model has it)
-OPTIONAL_KEYS = frozenset({"text_encoder.embeddings.position_ids"})
+OPTIONAL_KEYS = frozenset({"text_encoder.embeddings.position_ids",
+                           "bert_model.embeddings.position_ids"})
+# BERT's pooler, which reference checkpoints hold and the port has not
+POOLERS = ("text_encoder.pooler.", "bert_model.pooler.")
+# the RefCOCO-family models and the datasets they evaluate
+IMAGE_MODELS = ("lavt_one", "lavt", "lts", "vlt", "lavt_vlt")
 SYNTHETIC_REFS = 4
 
 
@@ -76,6 +83,8 @@ def get_parser() -> argparse.ArgumentParser:
 
 
 def _refuse_unported(args) -> None:
+    from .args import refuse_fusion_options
+
     if args.dataset not in ("refcoco", "refcoco+", "refcocog", "a2d"):
         raise NotImplementedError(f"--dataset {args.dataset}: this CLI "
                                   "evaluates the RefCOCO family and A2D "
@@ -84,21 +93,20 @@ def _refuse_unported(args) -> None:
     if args.save_vis or args.save_feats:
         raise NotImplementedError("--save_vis / --save_feats are not ported "
                                   "yet: ROADMAP.md item 27")
-    if args.model not in ("lavt_one", "lavt_video"):
-        raise NotImplementedError(f"--model {args.model}: the port's test CLI "
-                                  "takes lavt_one and lavt_video; the other "
-                                  "families are ROADMAP.md slice 5")
+    refuse_fusion_options(args)
     if (args.dataset == "a2d") != (args.model == "lavt_video"):
         raise ValueError("--dataset a2d goes with --model lavt_video, the "
-                         "RefCOCO family with --model lavt_one")
+                         "RefCOCO family with --model "
+                         + "/".join(IMAGE_MODELS))
 
 
 def load_reference_checkpoint(model: nn.Module, path: str,
                               device: torch.device) -> None:
     """Load a reference-format .pth into `model`: unwrap `model` /
-    `state_dict` / `module`, strip a `module.` (DDP) prefix, drop BERT's
-    pooler (the port has none), and load; only `OPTIONAL_KEYS` may be
-    missing.  Local files only; a directory stands for its newest
+    `state_dict` / `module` (for lavt the two dicts `model` and
+    `bert_model`, which it must hold), strip a `module.` (DDP) prefix, drop
+    BERT's pooler (the port has none), and load; only `OPTIONAL_KEYS` may
+    be missing.  Local files only; a directory stands for its newest
     checkpoint of the train CLI (`train.checkpoint.latest_checkpoint`)."""
     from ..train.checkpoint import latest_checkpoint, load_model_tensors
 
@@ -110,10 +118,10 @@ def load_reference_checkpoint(model: nn.Module, path: str,
         path = newest
     # reference checkpoints carry the run's argparse.Namespace beside the
     # tensors; nothing else is unpickled
+    dicts = getattr(model, "CHECKPOINT_DICTS", None)
     sd = {k.removeprefix("module."): v
-          for k, v in load_model_tensors(path, device).items()}
-    sd = {k: v for k, v in sd.items()
-          if not k.startswith("text_encoder.pooler.")}
+          for k, v in load_model_tensors(path, device, dicts).items()}
+    sd = {k: v for k, v in sd.items() if not k.startswith(POOLERS)}
     missing, unexpected = model.load_state_dict(sd, strict=False)
     missing = set(missing) - OPTIONAL_KEYS
     if missing or unexpected:

@@ -149,7 +149,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     if args.model not in ("lavt_one", "lavt_video"):
         raise NotImplementedError(f"--model {args.model}: the port runs "
                                   "lavt_one and lavt_video; the other "
-                                  "families are ROADMAP.md slice 5")
+                                  "families are ROADMAP.md item 3 (slice "
+                                  "5)")
 
     from PIL import Image
 

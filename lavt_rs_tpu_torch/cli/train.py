@@ -65,7 +65,11 @@ runs gloo.  A caller that has initialized a process group itself (e.g.
 several processes sharing one card under gloo, each at --device cuda:0)
 is trained in that group.
 
-The other model families (ROADMAP.md slice 5) are refused.
+The image families (--model lavt_one, lavt, lts, vlt, lavt_vlt) train on
+the RefCOCO branch; lavt's checkpoints hold its segmentation net and its
+BERT as the reference's two dicts {'model', 'bert_model'}, which
+`cli.test --model lavt` loads.  The fusion baselines (--bcam, --gacd,
+--efn) and --fuse simple are refused (ROADMAP.md item 3).
 """
 
 from __future__ import annotations
@@ -81,7 +85,7 @@ import torch
 
 from .args import (add_data_args, add_eval_args, add_model_args,
                    add_train_args, model_config_from_args,
-                   train_config_from_args)
+                   refuse_fusion_options, train_config_from_args)
 
 # the three RefCOCO-family sources of --ref_image_combined_pretrain (at the
 # reference's 22 tokens, data/dataset_refer_bert.py:39-42) and of the
@@ -140,13 +144,6 @@ class _SizedIter:
 
     def __len__(self):
         return self._n
-
-
-def _refuse_unported(args) -> None:
-    if args.model not in ("lavt_one", "lavt_video"):
-        raise NotImplementedError(f"--model {args.model}: the port's train "
-                                  "CLI takes lavt_one and lavt_video; the "
-                                  "other families are ROADMAP.md slice 5")
 
 
 def step_generator(seed: int, step: int, device,
@@ -298,7 +295,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     from ..parallel.ddp import init_distributed
 
     args = get_parser().parse_args(argv)
-    _refuse_unported(args)
+    refuse_fusion_options(args)
     owned = not (dist.is_available() and dist.is_initialized())
     rank, world, device = init_distributed(args.device)
     try:

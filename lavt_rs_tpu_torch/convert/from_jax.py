@@ -1,14 +1,17 @@
 """JAX variables -> the port's state_dict (the weight carry-over).
 
-Inverts `lavt_rs_tpu/convert/torch2jax.py:convert_lavt_one` and
-`convert_lavt_video` (`convert_mm_swin3d`; for the hybrid 2D-Swin video
-model the 2D blocks' mapping under the video model's names): it takes the
-JAX package's `{'params': ..., 'batch_stats': ...}` for a lavt_one or
-lavt_video model, given as nested dicts of numpy arrays, and returns the
-port's state_dict, whose names are the reference PyTorch ones:
+Inverts `lavt_rs_tpu/convert/torch2jax.py`'s converters of every family:
+`convert_lavt_one`, `convert_lavt_two` (lavt), `convert_lts`,
+`convert_vlt` (vlt, lavt_vlt) and `convert_lavt_video`
+(`convert_mm_swin3d`; for the hybrid 2D-Swin video model the 2D blocks'
+mapping under the video model's names): it takes the JAX package's
+`{'params': ..., 'batch_stats': ...}`, given as nested dicts of numpy
+arrays, and returns the port's state_dict, whose names are the reference
+PyTorch ones:
 
   * Dense kernel (in, out)       -> Linear weight (out, in)
   * Dense kernel of a 1x1 Conv1d -> weight (out, in, 1)
+  * MHA {q,k,v}_proj             -> in_proj_weight / in_proj_bias
   * Conv kernel (kh, kw, in, out) -> Conv2d weight (out, in, kh, kw)
   * Conv kernel (kd, kh, kw, in, out) -> Conv3d weight (out, in, kd, kh, kw)
   * LayerNorm / BatchNorm scale  -> weight
@@ -91,46 +94,67 @@ def tpwam_state_dict_from_jax(fu: Mapping) -> Dict[str, torch.Tensor]:
     return sd
 
 
-def state_dict_from_jax(variables: Mapping, cfg: ModelConfig
-                        ) -> Dict[str, torch.Tensor]:
-    """JAX lavt_one / lavt_video variables -> port state_dict (f32 CPU
-    tensors)."""
-    params, stats = variables["params"], variables.get("batch_stats", {})
+def _dense(sd, dst: str, src: Mapping, conv1d: bool = False) -> None:
+    _put(sd, dst, src, _conv1x1 if conv1d else _linear)
+
+
+def _norm(sd, dst: str, src: Mapping) -> None:
+    sd[f"{dst}.weight"] = _t(src["scale"])
+    sd[f"{dst}.bias"] = _t(src["bias"])
+
+
+def _batch_norm(sd, dst: str, src: Mapping, stats: Mapping) -> None:
+    _norm(sd, dst, src)
+    sd[f"{dst}.running_mean"] = _t(stats["mean"])
+    sd[f"{dst}.running_var"] = _t(stats["var"])
+    sd[f"{dst}.num_batches_tracked"] = torch.tensor(0)
+
+
+def _conv_bn(sd, dst_conv: str, dst_bn: str, src: Mapping,
+             stats: Mapping) -> None:
+    """A JAX ConvBN {conv, bn} -> Conv2d + BatchNorm2d."""
+    sd[f"{dst_conv}.weight"] = _conv2d(src["conv"]["kernel"])
+    _batch_norm(sd, dst_bn, src["bn"], stats["bn"])
+
+
+def bert_state_dict_from_jax(te: Mapping, cfg: ModelConfig, prefix: str
+                             ) -> Dict[str, torch.Tensor]:
+    """JAX BertEncoder params -> the port's BERT under `prefix`."""
     sd: Dict[str, torch.Tensor] = OrderedDict()
-
-    def dense(dst: str, src: Mapping, conv1d: bool = False):
-        _put(sd, dst, src, _conv1x1 if conv1d else _linear)
-
-    def norm(dst: str, src: Mapping):
-        sd[f"{dst}.weight"] = _t(src["scale"])
-        sd[f"{dst}.bias"] = _t(src["bias"])
-
-    # BERT
-    te = params["text_encoder"]
     for name in ("word_embeddings", "position_embeddings",
                  "token_type_embeddings"):
-        sd[f"text_encoder.embeddings.{name}.weight"] = _t(te[name]["embedding"])
-    norm("text_encoder.embeddings.LayerNorm", te["embeddings_layernorm"])
-    sd["text_encoder.embeddings.position_ids"] = torch.arange(
+        sd[f"{prefix}embeddings.{name}.weight"] = _t(te[name]["embedding"])
+    _norm(sd, f"{prefix}embeddings.LayerNorm", te["embeddings_layernorm"])
+    sd[f"{prefix}embeddings.position_ids"] = torch.arange(
         cfg.bert.max_position_embeddings).unsqueeze(0)
     for i in range(cfg.bert.num_layers):
-        src, dst = te[f"layer_{i}"], f"text_encoder.encoder.layer.{i}"
+        src, dst = te[f"layer_{i}"], f"{prefix}encoder.layer.{i}"
         for name in ("query", "key", "value"):
-            dense(f"{dst}.attention.self.{name}", src["attention"][name])
-        dense(f"{dst}.attention.output.dense", src["attention_output"])
-        norm(f"{dst}.attention.output.LayerNorm", src["attention_layernorm"])
-        dense(f"{dst}.intermediate.dense", src["intermediate"])
-        dense(f"{dst}.output.dense", src["output"])
-        norm(f"{dst}.output.LayerNorm", src["output_layernorm"])
+            _dense(sd, f"{dst}.attention.self.{name}", src["attention"][name])
+        _dense(sd, f"{dst}.attention.output.dense", src["attention_output"])
+        _norm(sd, f"{dst}.attention.output.LayerNorm",
+              src["attention_layernorm"])
+        _dense(sd, f"{dst}.intermediate.dense", src["intermediate"])
+        _dense(sd, f"{dst}.output.dense", src["output"])
+        _norm(sd, f"{dst}.output.LayerNorm", src["output_layernorm"])
+    return sd
 
-    # multimodal Swin (2D, or 3D for video)
-    bb, swin = params["backbone"], cfg.swin
+
+def backbone_state_dict_from_jax(bb: Mapping, cfg: ModelConfig, prefix: str
+                                 ) -> Dict[str, torch.Tensor]:
+    """A JAX Swin backbone (multimodal 2D or 3D, the hybrid, or the plain
+    2D `SwinTransformer`) -> the port's under `prefix`; the stage norms
+    `norm{i}` the JAX tree has (no `norm0` for a plain Swin of stages
+    2-4)."""
+    sd: Dict[str, torch.Tensor] = OrderedDict()
+    swin = cfg.swin
     video = cfg.name == "lavt_video"
-    sd["backbone.patch_embed.proj.weight"] = (_conv3d if video else _conv2d)(
+    sd[f"{prefix}patch_embed.proj.weight"] = (_conv3d if video else _conv2d)(
         bb["patch_embed"]["proj"]["kernel"])
-    sd["backbone.patch_embed.proj.bias"] = _t(bb["patch_embed"]["proj"]["bias"])
+    sd[f"{prefix}patch_embed.proj.bias"] = _t(
+        bb["patch_embed"]["proj"]["bias"])
     if "norm" in bb["patch_embed"]:
-        norm("backbone.patch_embed.norm", bb["patch_embed"]["norm"])
+        _norm(sd, f"{prefix}patch_embed.norm", bb["patch_embed"]["norm"])
     # the hybrid video backbone's blocks are 2D (JAX `Hybrid2D3DLayer`:
     # the 2D block names and tables under the video model's prefix)
     index = torch.from_numpy(
@@ -138,46 +162,180 @@ def state_dict_from_jax(variables: Mapping, cfg: ModelConfig
         if video and not cfg.hybrid_2d_3d
         else relative_position_index_2d(swin.window_size, swin.window_size))
     for i in range(swin.num_layers):
-        lt, lp = bb[f"layers_{i}"], f"backbone.layers.{i}"
+        lt, lp = bb[f"layers_{i}"], f"{prefix}layers.{i}"
         for j in range(swin.depths[i]):
             bt, bp = lt[f"blocks_{j}"], f"{lp}.blocks.{j}"
-            norm(f"{bp}.norm1", bt["norm1"])
+            _norm(sd, f"{bp}.norm1", bt["norm1"])
             sd[f"{bp}.attn.relative_position_bias_table"] = _t(
                 bt["attn"]["relative_position_bias_table"])
             sd[f"{bp}.attn.relative_position_index"] = index.clone()
-            dense(f"{bp}.attn.qkv", bt["attn"]["qkv"])
-            dense(f"{bp}.attn.proj", bt["attn"]["proj"])
-            norm(f"{bp}.norm2", bt["norm2"])
-            dense(f"{bp}.mlp.fc1", bt["mlp"]["fc1"])
-            dense(f"{bp}.mlp.fc2", bt["mlp"]["fc2"])
-        fu, fp = lt["fusion"], f"{lp}.fusion"
-        if "image_lang_att" in fu:  # the 2D PWAM
-            dense(f"{fp}.vis_project.0", fu["vis_project"], conv1d=True)
+            _dense(sd, f"{bp}.attn.qkv", bt["attn"]["qkv"])
+            _dense(sd, f"{bp}.attn.proj", bt["attn"]["proj"])
+            _norm(sd, f"{bp}.norm2", bt["norm2"])
+            _dense(sd, f"{bp}.mlp.fc1", bt["mlp"]["fc1"])
+            _dense(sd, f"{bp}.mlp.fc2", bt["mlp"]["fc2"])
+        fu, fp = lt.get("fusion"), f"{lp}.fusion"
+        if fu is not None and "image_lang_att" in fu:  # the 2D PWAM
+            _dense(sd, f"{fp}.vis_project.0", fu["vis_project"], conv1d=True)
             for name in ("f_query", "f_key", "f_value", "W"):
-                dense(f"{fp}.image_lang_att.{name}.0",
-                      fu["image_lang_att"][name], conv1d=True)
-            dense(f"{fp}.project_mm.0", fu["project_mm"], conv1d=True)
-        else:
+                _dense(sd, f"{fp}.image_lang_att.{name}.0",
+                       fu["image_lang_att"][name], conv1d=True)
+            _dense(sd, f"{fp}.project_mm.0", fu["project_mm"], conv1d=True)
+        elif fu is not None:
             for k, v in tpwam_state_dict_from_jax(fu).items():
                 sd[f"{fp}.{k}"] = v
         if "res_gate" in lt:
-            dense(f"{lp}.res_gate.0", lt["res_gate"]["fc1"])
-            dense(f"{lp}.res_gate.2", lt["res_gate"]["fc2"])
+            _dense(sd, f"{lp}.res_gate.0", lt["res_gate"]["fc1"])
+            _dense(sd, f"{lp}.res_gate.2", lt["res_gate"]["fc2"])
         if "downsample" in lt:
-            norm(f"{lp}.downsample.norm", lt["downsample"]["norm"])
-            dense(f"{lp}.downsample.reduction", lt["downsample"]["reduction"])
-    for i in cfg.out_indices:
-        norm(f"backbone.norm{i}", bb[f"norm{i}"])
+            _norm(sd, f"{lp}.downsample.norm", lt["downsample"]["norm"])
+            _dense(sd, f"{lp}.downsample.reduction",
+                   lt["downsample"]["reduction"])
+    for i in range(swin.num_layers):
+        if f"norm{i}" in bb:
+            _norm(sd, f"{prefix}norm{i}", bb[f"norm{i}"])
+    return sd
 
-    # SimpleDecoding
-    cl, cs = params["classifier"], stats["classifier"]
+
+def simple_decoding_state_dict_from_jax(cl: Mapping, cs: Mapping,
+                                        prefix: str
+                                        ) -> Dict[str, torch.Tensor]:
+    sd: Dict[str, torch.Tensor] = OrderedDict()
     for (c1, b1, c2, b2), (ja, jb) in zip(JOINS, _DECODER_JAX):
         for conv, bn, src in ((c1, b1, ja), (c2, b2, jb)):
-            sd[f"classifier.{conv}.weight"] = _conv2d(cl[src]["conv"]["kernel"])
-            norm(f"classifier.{bn}", cl[src]["bn"])
-            sd[f"classifier.{bn}.running_mean"] = _t(cs[src]["bn"]["mean"])
-            sd[f"classifier.{bn}.running_var"] = _t(cs[src]["bn"]["var"])
-            sd[f"classifier.{bn}.num_batches_tracked"] = torch.tensor(0)
-    sd["classifier.conv1_1.weight"] = _conv2d(cl["head"]["kernel"])
-    sd["classifier.conv1_1.bias"] = _t(cl["head"]["bias"])
+            _conv_bn(sd, f"{prefix}{conv}", f"{prefix}{bn}", cl[src], cs[src])
+    sd[f"{prefix}conv1_1.weight"] = _conv2d(cl["head"]["kernel"])
+    sd[f"{prefix}conv1_1.bias"] = _t(cl["head"]["bias"])
+    return sd
+
+
+def lts_state_dict_from_jax(cl: Mapping, cs: Mapping, prefix: str
+                            ) -> Dict[str, torch.Tensor]:
+    """JAX LTSDecoding -> the reference's names (inverse of
+    `torch2jax.convert_lts_decoder`)."""
+    sd: Dict[str, torch.Tensor] = OrderedDict()
+    _dense(sd, f"{prefix}lang_gen.project.0", cl["lang_gen_fc1"])
+    _dense(sd, f"{prefix}lang_gen.project.2", cl["lang_gen_fc2"])
+    _dense(sd, f"{prefix}lang_proj.0", cl["lang_proj"])
+    for name in ("vis_proj", "conv4", "conv3_v", "conv3", "conv2_v"):
+        sd[f"{prefix}{name}.0.weight"] = _conv2d(cl[name]["kernel"])
+    _dense(sd, f"{prefix}lang_filter", cl["lang_filter"])
+    a, sa, ap = cl["aspp"], cs["aspp"], f"{prefix}aspp."
+    sd[f"{ap}convs.0.0.weight"] = _conv2d(a["conv1x1"]["kernel"])
+    _batch_norm(sd, f"{ap}convs.0.1", a["bn1x1"], sa["bn1x1"])
+    for i in range(3):
+        _conv_bn(sd, f"{ap}convs.{i + 1}.0", f"{ap}convs.{i + 1}.1",
+                 a[f"atrous_{i}"], sa[f"atrous_{i}"])
+    _conv_bn(sd, f"{ap}convs.4.1", f"{ap}convs.4.2", a["pool"], sa["pool"])
+    sd[f"{ap}project.0.weight"] = _conv2d(a["project"]["kernel"])
+    _batch_norm(sd, f"{ap}project.1", a["project_bn"], sa["project_bn"])
+    sd[f"{prefix}conv1_1.weight"] = _conv2d(cl["head"]["kernel"])
+    sd[f"{prefix}conv1_1.bias"] = _t(cl["head"]["bias"])
+    return sd
+
+
+# (reference Sequential, its conv indices) <- JAX ConvBN names
+_VLT_CONV_BN = (("vis_reduce_chann_1", 0, "vis_reduce_1a"),
+                ("vis_reduce_chann_1", 3, "vis_reduce_1b"),
+                ("vis_reduce_chann_2", 0, "vis_reduce_2"),
+                ("fuse_1_2", 0, "fuse_1_2"),
+                ("vis_reduce_chann_3", 0, "vis_reduce_3"),
+                ("fuse_2_3", 0, "fuse_2_3"),
+                ("hallucinate_result_of_23", 0, "hallucinate_a"),
+                ("hallucinate_result_of_23", 3, "hallucinate_b"),
+                ("project_again", 0, "project_again"),
+                ("fuse_again", 0, "fuse_again"),
+                ("last_project", 0, "last_project"),
+                ("spatial_refine", 0, "spatial_refine"))
+_VLT_DECODING = (("conv1_4", "bn1_4", "c4a"), ("conv2_4", "bn2_4", "c4b"),
+                 ("conv1_3", "bn1_3", "c3"), ("conv1_2", "bn1_2", "c2"),
+                 ("conv1_1", "bn1_1", "c1"))
+
+
+def _mha(sd, dst: str, src: Mapping) -> None:
+    """JAX MHA {q,k,v,out}_proj -> `in_proj_weight` / `in_proj_bias` /
+    `out_proj` (nn.MultiheadAttention's names)."""
+    names = ("q_proj", "k_proj", "v_proj")
+    sd[f"{dst}.in_proj_weight"] = torch.cat(
+        [_linear(src[n]["kernel"]) for n in names])
+    sd[f"{dst}.in_proj_bias"] = torch.cat([_t(src[n]["bias"]) for n in names])
+    _dense(sd, f"{dst}.out_proj", src["out_proj"])
+
+
+def vlt_state_dict_from_jax(cl: Mapping, cs: Mapping, prefix: str
+                            ) -> Dict[str, torch.Tensor]:
+    """JAX VLTFuseAndClassify -> the reference's names (inverse of
+    `torch2jax.convert_vlt_decoder`)."""
+    sd: Dict[str, torch.Tensor] = OrderedDict()
+    p = prefix
+    for seq, i, src in _VLT_CONV_BN:
+        _conv_bn(sd, f"{p}{seq}.{i}", f"{p}{seq}.{i + 1}", cl[src], cs[src])
+    _dense(sd, f"{p}lang_proj.0", cl["lang_proj"])
+    _batch_norm(sd, f"{p}lang_proj.1", cl["lang_proj_bn"], cs["lang_proj_bn"])
+    _batch_norm(sd, f"{p}joint_threshold.0", cl["joint_threshold_bn"],
+                cs["joint_threshold_bn"])
+    qg, sq, qp = cl["query_generation"], cs["query_generation"], \
+        f"{p}query_generation."
+    for i in range(3):
+        _conv_bn(sd, f"{qp}project_1.{3 * i}", f"{qp}project_1.{3 * i + 1}",
+                 qg[f"project_1_{i}"], sq[f"project_1_{i}"])
+    sd[f"{qp}project_2.weight"] = _conv2d(qg["project_2"]["kernel"])
+    _dense(sd, f"{qp}project_query.0", qg["project_query"], conv1d=True)
+    _dense(sd, f"{qp}project_lang.0", qg["project_lang"], conv1d=True)
+    _mha(sd, f"{qp}query_gen", qg["query_gen"])
+    tf = f"{p}transformer_fusion."
+    nlayers = sum(1 for k in cl if k.startswith("enc_"))
+    for i in range(nlayers):
+        for kind, jax_name, attns, norms in (
+                ("encoder", f"enc_{i}", (("self_attn", "self_attn"),),
+                 ("norm1", "norm2")),
+                ("decoder", f"dec_{i}", (("self_attn", "self_attn"),
+                                         ("multihead_attn", "cross_attn")),
+                 ("norm1", "norm2", "norm3"))):
+            src, dst = cl[jax_name], f"{tf}transformer_{kind}.layers.{i}"
+            for torch_name, jname in attns:
+                _mha(sd, f"{dst}.{torch_name}", src[jname])
+            for lin in ("linear1", "linear2"):
+                _dense(sd, f"{dst}.{lin}", src[lin])
+            for n in norms:
+                _norm(sd, f"{dst}.{n}", src[n])
+    qb, qbp = cl["query_balancing"], f"{p}query_balancing."
+    for name in ("not_decoded_query_proj", "decoded_query_proj"):
+        _dense(sd, f"{qbp}{name}.0", qb[name], conv1d=True)
+    _dense(sd, f"{qbp}gate_proj.0", qb["gate_fc1"], conv1d=True)
+    _dense(sd, f"{qbp}gate_proj.2", qb["gate_fc2"], conv1d=True)
+    _dense(sd, f"{p}q_to_spatial.0", cl["q_to_spatial"], conv1d=True)
+    dc, ds = cl["decoding"], cs["decoding"]
+    for conv, bn, src in _VLT_DECODING:
+        _conv_bn(sd, f"{p}decoding.{conv}", f"{p}decoding.{bn}", dc[src],
+                 ds[src])
+    _put(sd, f"{p}decoding.classifier", dc["classifier"], _conv2d)
+    return sd
+
+
+_HEADS = {"lts": lts_state_dict_from_jax, "vlt": vlt_state_dict_from_jax,
+          "lavt_vlt": vlt_state_dict_from_jax}
+
+
+def state_dict_from_jax(variables: Mapping, cfg: ModelConfig
+                        ) -> Dict[str, torch.Tensor]:
+    """JAX variables of any family -> port state_dict (f32 CPU tensors).
+    `lavt`'s tree {'model': {backbone, classifier}, 'bert_model'} (JAX
+    `LAVTTwo`) maps to the port's `model.` and `bert_model.` names."""
+    params, stats = variables["params"], variables.get("batch_stats", {})
+    if cfg.name == "lavt":
+        sd = bert_state_dict_from_jax(params["bert_model"], cfg,
+                                      "bert_model.")
+        sd.update(backbone_state_dict_from_jax(
+            params["model"]["backbone"], cfg, "model.backbone."))
+        sd.update(simple_decoding_state_dict_from_jax(
+            params["model"]["classifier"], stats["model"]["classifier"],
+            "model.classifier."))
+        return sd
+    sd = bert_state_dict_from_jax(params["text_encoder"], cfg,
+                                  "text_encoder.")
+    sd.update(backbone_state_dict_from_jax(params["backbone"], cfg,
+                                           "backbone."))
+    head = _HEADS.get(cfg.name, simple_decoding_state_dict_from_jax)
+    sd.update(head(params["classifier"], stats["classifier"], "classifier."))
     return sd

@@ -7,11 +7,14 @@ The reference's weight-import flags, applied to a freshly built model:
     tables resized bicubic when the window differs, e.g. 7 -> 12 under
     --window12) or Kinetics Video-Swin (lavt_video; patch embedding summed
     over its temporal kernel, reference lib/video_swin_transformer.py:
-    811-852).  A full lavt_one / lavt_video checkpoint passed here loads
-    whole;
-  * --ck_bert: HF BERT weights for the text encoder (a local file only;
-    a uniform `bert.` prefix is stripped, the pooler dropped: the port's
-    BERT has none);
+    811-852).  A full lavt_one / lavt_video / lts / vlt checkpoint
+    passed here loads whole.  lavt takes them into its segmentation net
+    (`model.backbone.`, `model.classifier.`).  The plain Swin of lts and
+    vlt has no fusion weights and no `norm0`: an ImageNet file's tensors
+    match its blocks, and nothing else is invented;
+  * --ck_bert: HF BERT weights for the text encoder (lavt's
+    `bert_model`; a local file only; a uniform `bert.` prefix is
+    stripped, the pooler dropped: the port's BERT has none);
   * --pretrained2d_lavt_weights_for_a_3d_model: a 2D LAVT checkpoint
     inflated into the 3D backbone (reference lib/_utils.py:185-238):
     patch embedding unsqueezed in time, relative-position tables resized
@@ -171,13 +174,26 @@ def hybrid_partial(sd: StateDict, cfg: ModelConfig) -> StateDict:
     return out
 
 
-def bert_partial(sd: StateDict) -> StateDict:
-    """HF BertModel weights -> the text encoder's names; a uniform `bert.`
-    prefix is stripped (JAX `_bert_partial`), the pooler dropped."""
+def bert_partial(sd: StateDict, cfg: ModelConfig) -> StateDict:
+    """HF BertModel weights -> the text encoder's names (lavt's
+    `bert_model.`, every other family's `text_encoder.`); a uniform
+    `bert.` prefix is stripped (JAX `_bert_partial`), the pooler
+    dropped."""
     if sd and all(k.startswith("bert.") for k in sd):
         sd = {k[len("bert."):]: v for k, v in sd.items()}
-    return {"text_encoder." + k: v for k, v in sd.items()
+    prefix = "bert_model." if cfg.name == "lavt" else "text_encoder."
+    return {prefix + k: v for k, v in sd.items()
             if not k.startswith("pooler.")}
+
+
+def into_model(partial: StateDict, cfg: ModelConfig) -> StateDict:
+    """lavt keeps its backbone and decoder under its segmentation net
+    `model.` (JAX `merge(..., into_model_root=True)`): a full lavt_one
+    checkpoint's text encoder lands there too and is skipped, as in the
+    JAX package."""
+    if cfg.name != "lavt":
+        return partial
+    return {"model." + k: v for k, v in partial.items()}
 
 
 def merge(model: nn.Module, partial: StateDict,
@@ -236,15 +252,17 @@ def apply_pretrained_flags(model: nn.Module, cfg: ModelConfig,
     def swin_or_full(sd):
         sd = {k.removeprefix("module."): v for k, v in sd.items()}
         if any(k.startswith("text_encoder.") for k in sd):
-            return " (full checkpoint)", full_partial(sd, cfg)
-        return " (backbone only)", _swin_partial(strip_prefixes(sd), cfg, "")
+            return " (full checkpoint)", into_model(full_partial(sd, cfg),
+                                                    cfg)
+        return " (backbone only)", into_model(
+            _swin_partial(strip_prefixes(sd), cfg, ""), cfg)
 
     if getattr(args, "pretrained_swin_weights", ""):
         apply("--pretrained_swin_weights", args.pretrained_swin_weights,
               swin_or_full)
     ck_bert = getattr(args, "ck_bert", "")
     if ck_bert and os.path.isfile(ck_bert):
-        apply("--ck_bert", ck_bert, lambda sd: ("", bert_partial(sd)))
+        apply("--ck_bert", ck_bert, lambda sd: ("", bert_partial(sd, cfg)))
     path = getattr(args, "pretrained2d_lavt_weights", "")
     if path:
         if cfg.name != "lavt_video" or not cfg.hybrid_2d_3d:

@@ -1,8 +1,9 @@
 """Model factory (counterpart of `lavt_rs_tpu/models/factory.py`).
 
-`lavt_one` and `lavt_video` (inference and training) are ported; every
-other family raises NotImplementedError naming the ROADMAP.md slice that
-ports it.  f32 activations with the kernels on the card run where every
+The six families of the reference's factory (lib/segmentation.py:10)
+are ported, in inference and training: `lavt_one`, `lavt` (LAVTTwo),
+`lavt_video`, `lts`, `vlt` and `lavt_vlt`.  f32 activations with the
+kernels on the card run where every
 kernel of the model's plan has an f32 variant; every kernel of the port
 has one (`F32_KERNELS`), so `lavt_one` and `lavt_video` run in f32 at
 either window, in inference and in training.  `build_model` keeps the
@@ -19,27 +20,26 @@ import torch
 import torch.nn as nn
 
 from ..config import ModelConfig, SwinConfig
-from .lavt import LAVTOne, LAVTVideo
+from .lavt import LAVTOne, LAVTTwo, LAVTVideo, LTS, VLT
 from .pwam import LanguageGate
 from .swin2d import WindowAttention
 from .swin3d import WindowAttention3D
 from .tpwam import SelfGate3D
+from .vlt import MultiheadAttention
 
-_MODELS = {"lavt_one": LAVTOne, "lavt_video": LAVTVideo}
-_LATER = {
-    "lavt": "slice 5 (long tail)",
-    "lts": "slice 5 (long tail)",
-    "vlt": "slice 5 (long tail)",
-    "lavt_vlt": "slice 5 (long tail)",
-}
+_MODELS = {"lavt_one": LAVTOne, "lavt": LAVTTwo, "lavt_video": LAVTVideo,
+           "lts": LTS, "vlt": VLT,
+           "lavt_vlt": lambda cfg: VLT(cfg, fused_backbone=True)}
 
 
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Seeded random init in the JAX package's scheme: LeCun-normal linear
-    and conv weights (std fan_in^-1/2) with zero biases, N(0, 0.02)
-    embeddings, 0.02 truncated-normal bias tables, unit norms, and zero
-    language gates and 3D self-gates (the fusion branch starts off)."""
+    and conv weights (std fan_in^-1/2; the VLT head's attention in-projection
+    as its three Dense layers) with zero biases, N(0, 0.02) embeddings,
+    0.02 truncated-normal bias tables, unit norms (BatchNorm statistics 0
+    and 1), and zero language gates and 3D self-gates (the fusion branch
+    starts off)."""
 
     def normal_(t: torch.Tensor, std: float):
         t.copy_(torch.randn(t.shape, generator=generator,
@@ -56,12 +56,15 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             normal_(m.weight, 1.0 / math.sqrt(m.weight[0].numel()))
             if m.bias is not None:
                 m.bias.zero_()
+        elif isinstance(m, MultiheadAttention):
+            normal_(m.in_proj_weight, 1.0 / math.sqrt(m.dim))
+            m.in_proj_bias.zero_()
         elif isinstance(m, nn.Embedding):
             normal_(m.weight, 0.02)
-        elif isinstance(m, (nn.LayerNorm, nn.BatchNorm2d)):
+        elif isinstance(m, (nn.LayerNorm, nn.modules.batchnorm._BatchNorm)):
             m.weight.fill_(1.0)
             m.bias.zero_()
-            if isinstance(m, nn.BatchNorm2d):
+            if isinstance(m, nn.modules.batchnorm._BatchNorm):
                 m.running_mean.zero_()
                 m.running_var.fill_(1.0)
         if isinstance(m, (WindowAttention, WindowAttention3D)):
@@ -123,10 +126,8 @@ def build_model(cfg: ModelConfig, device="cuda",
     (`train.step`), while the kernel Functions cast the weights
     themselves."""
     if cfg.name not in _MODELS:
-        where = _LATER.get(cfg.name)
-        raise NotImplementedError(
-            f"model {cfg.name!r} is not ported yet"
-            + (f": ROADMAP.md {where}" if where else ""))
+        raise NotImplementedError(f"model {cfg.name!r}: no such family "
+                                  f"(the port builds {', '.join(_MODELS)})")
     missing = (kernels_without_variant(cfg, train)
                if torch.device(device).type == "cuda" else [])
     if missing:
@@ -146,7 +147,7 @@ def build_model(cfg: ModelConfig, device="cuda",
         return model.train()
     model.to(cfg.compute_dtype)
     for m in model.modules():
-        if isinstance(m, nn.BatchNorm2d):
+        if isinstance(m, nn.modules.batchnorm._BatchNorm):
             m.float()
     return model.eval()
 

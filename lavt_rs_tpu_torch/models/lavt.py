@@ -1,5 +1,16 @@
-"""LAVTOne and LAVTVideo: BERT + multimodal Swin + SimpleDecoding in one
-module (counterpart of `lavt_rs_tpu/models/lavt.py`).
+"""The model families (counterpart of `lavt_rs_tpu/models/lavt.py`):
+
+  * LAVTOne: BERT + multimodal Swin + SimpleDecoding in one module;
+  * LAVT: the multimodal Swin + SimpleDecoding on language features
+    computed outside it (reference lib/_utils.py:10-27);
+  * LAVTTwo (`lavt`): LAVT beside its BERT, as the submodules `model` and
+    `bert_model`, so its state_dict splits into the reference's two
+    checkpoint dicts {'model', 'bert_model'};
+  * LTS (`lts`): BERT + the plain Swin (stages 2-4) + LTSDecoding;
+  * VLT (`vlt`, and `lavt_vlt` with the multimodal Swin): BERT + Swin
+    (stages 2-4) + VLTFuseAndClassify;
+  * LAVTVideo: BERT + Video Swin (or the hybrid) + per-frame
+    SimpleDecoding.
 
 I/O as in the JAX package: image NHWC float (already normalized) or video
 (B, T, H, W, 3), text (B, N_l) token ids, l_mask (B, N_l) in {0, 1};
@@ -20,15 +31,20 @@ from ..config import ModelConfig
 from ..ops.resize import resize_nchw
 from .bert import BertEncoder
 from .decoder import SimpleDecoding
-from .swin2d import MultiModalSwinTransformer
+from .lts import LTSDecoding
+from .swin2d import MultiModalSwinTransformer, SwinTransformer
 from .swin3d import MultiModalSwinTransformer3D
+from .vlt import VLTFuseAndClassify
+
+# the stages whose outputs the lts and vlt heads read
+STAGES_2_4 = (1, 2, 3)
 
 
 def _check_decoder(cfg: ModelConfig) -> None:
     if cfg.lazy_pred or cfg.interpolate_before_seg or cfg.seg_last:
         raise NotImplementedError(
             "lazy_pred / interpolate_before_seg / seg_last decoders are "
-            "in the long-tail slice (ROADMAP.md slice 5)")
+            "in the long-tail slice (ROADMAP.md item 3, slice 5)")
 
 
 def upsample_logits_nchw(logits: torch.Tensor, in_hw) -> torch.Tensor:
@@ -58,6 +74,120 @@ class LAVTOne(nn.Module):
         x_c1, x_c2, x_c3, x_c4 = self.backbone(image.to(dt), l_feats, l_mask,
                                                generator)
         logits = self.classifier(x_c4, x_c3, x_c2, x_c1)
+        return upsample_logits_nchw(logits, in_hw)
+
+
+class LAVT(nn.Module):
+    """lavt's segmentation net: forward(image, l_feats (B, N_l, 768),
+    l_mask) with the language features computed outside it."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        _check_decoder(cfg)
+        self.cfg = cfg
+        self.backbone = MultiModalSwinTransformer(
+            cfg.swin, cfg.fusion, cfg.out_indices, cfg.use_kernels,
+            cfg.use_checkpoint)
+        self.classifier = SimpleDecoding(8 * cfg.swin.embed_dim,
+                                         cfg.num_classes)
+
+    def forward(self, image: torch.Tensor, l_feats: torch.Tensor,
+                l_mask: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        dt = self.cfg.compute_dtype
+        in_hw = image.shape[1:3]
+        x_c1, x_c2, x_c3, x_c4 = self.backbone(image.to(dt), l_feats.to(dt),
+                                               l_mask, generator)
+        logits = self.classifier(x_c4, x_c3, x_c2, x_c1)
+        return upsample_logits_nchw(logits, in_hw)
+
+
+class LAVTTwo(nn.Module):
+    """lavt: the reference trains it as two models, the segmentation net
+    and a BertModel, checkpointed as {'model': ..., 'bert_model': ...}
+    (reference train.py:596-605).  Here they are the submodules `model`
+    and `bert_model` of one module with lavt_one's forward(image, ids,
+    mask), so the train step and the evaluation take it unchanged.
+    Checkpoints hold the two submodules as the reference's two dicts
+    (`train.checkpoint.model_dicts`)."""
+
+    CHECKPOINT_DICTS = ("model", "bert_model")
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.bert_model = BertEncoder(cfg.bert)
+        self.model = LAVT(cfg)
+
+    @property
+    def backbone(self) -> MultiModalSwinTransformer:
+        return self.model.backbone
+
+    def forward(self, image: torch.Tensor, text_ids: torch.Tensor,
+                l_mask: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        l_feats = self.bert_model(text_ids, l_mask, generator=generator)
+        return self.model(image, l_feats, l_mask, generator)
+
+
+class LTS(nn.Module):
+    """lts: BERT, the plain Swin (stages 2-4), LTSDecoding (reference
+    lib/_utils.py:248-273)."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.text_encoder = BertEncoder(cfg.bert)
+        self.backbone = SwinTransformer(cfg.swin, STAGES_2_4, cfg.use_kernels,
+                                        cfg.use_checkpoint)
+        self.classifier = LTSDecoding(8 * cfg.swin.embed_dim,
+                                      cfg.num_classes, cfg.bert.hidden_size)
+
+    def forward(self, image: torch.Tensor, text_ids: torch.Tensor,
+                l_mask: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        dt = self.cfg.compute_dtype
+        in_hw = image.shape[1:3]
+        l_feats = self.text_encoder(text_ids, l_mask, generator=generator)
+        x_c2, x_c3, x_c4 = self.backbone(image.to(dt), generator)
+        logits = self.classifier(x_c4, x_c3, x_c2, l_feats, l_mask)
+        return upsample_logits_nchw(logits, in_hw)
+
+
+class VLT(nn.Module):
+    """vlt: BERT, the plain Swin (stages 2-4), VLTFuseAndClassify
+    (reference lib/_utils.py:278-305); lavt_vlt (`fused_backbone`): the
+    multimodal Swin in its place."""
+
+    def __init__(self, cfg: ModelConfig, fused_backbone: bool = False):
+        super().__init__()
+        self.cfg = cfg
+        self.text_encoder = BertEncoder(cfg.bert)
+        if fused_backbone:
+            self.backbone = MultiModalSwinTransformer(
+                cfg.swin, cfg.fusion, STAGES_2_4, cfg.use_kernels,
+                cfg.use_checkpoint)
+        else:
+            self.backbone = SwinTransformer(cfg.swin, STAGES_2_4,
+                                            cfg.use_kernels,
+                                            cfg.use_checkpoint)
+        self.fused = fused_backbone
+        self.classifier = VLTFuseAndClassify(
+            8 * cfg.swin.embed_dim, cfg.img_size,
+            num_classes=cfg.num_classes, lang_dim=cfg.bert.hidden_size)
+
+    def forward(self, image: torch.Tensor, text_ids: torch.Tensor,
+                l_mask: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        dt = self.cfg.compute_dtype
+        in_hw = image.shape[1:3]
+        l_feats = self.text_encoder(text_ids, l_mask, generator=generator)
+        if self.fused:
+            feats = self.backbone(image.to(dt), l_feats, l_mask, generator)
+        else:
+            feats = self.backbone(image.to(dt), generator)
+        x_c2, x_c3, x_c4 = feats
+        logits = self.classifier(x_c4, x_c3, x_c2, l_feats, l_mask)
         return upsample_logits_nchw(logits, in_hw)
 
 

@@ -36,7 +36,8 @@ def _att_norm(kind: AttnNorm) -> nn.Module:
         return InstanceNormTokens()
     raise NotImplementedError(
         f"att_norm {kind.value!r}: only the published IN is ported (the "
-        "BN/LN variants are in the long-tail slice, ROADMAP.md slice 5)")
+        "BN/LN variants are in the long-tail slice, ROADMAP.md item 3, "
+        "slice 5)")
 
 
 class SpatialImageLanguageAttention(nn.Module):
@@ -89,7 +90,7 @@ class PWAM(nn.Module):
         if not attention:
             raise NotImplementedError(
                 "LangProject (--fuse simple) is in the long-tail slice "
-                "(ROADMAP.md slice 5)")
+                "(ROADMAP.md item 3, slice 5)")
         self.vis_project = nn.Sequential(TokenConv1d(dim, dim), nn.GELU())
         self.image_lang_att = SpatialImageLanguageAttention(
             dim, lang_dim, dim, dim, num_heads, att_norm)

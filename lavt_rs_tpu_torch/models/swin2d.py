@@ -377,6 +377,65 @@ class StageNorm(nn.LayerNorm):
         return y.view(x.shape)
 
 
+def run_blocks(layer: nn.Module, x, hw: Tuple[int, int],
+               generator: Optional[torch.Generator] = None):
+    """x through `layer.blocks`; with the layer's `use_checkpoint` in
+    training each block runs under `torch.utils.checkpoint` (the
+    reference's per-block checkpoint, JAX `nn.remat`), its DropPath draws
+    made first so that the recompute applies the same."""
+    remat = (layer.use_checkpoint and layer.training
+             and torch.is_grad_enabled())
+    for blk in layer.blocks:
+        if remat:
+            x = checkpoint(blk, x, hw, None,
+                           blk.draw_kept(x.shape[0], generator, x.device),
+                           use_reentrant=False)
+        else:
+            x = blk(x, hw, generator)
+    return x
+
+
+def make_blocks(dim: int, depth: int, num_heads: int, window_size: int,
+                mlp_ratio: float, qkv_bias: bool, qk_scale: Optional[float],
+                use_kernels: bool,
+                drop_path_rates: Optional[Tuple[float, ...]],
+                use_checkpoint: bool) -> nn.ModuleList:
+    """One stage's Swin blocks, every second one shifted by half a
+    window."""
+    rates = drop_path_rates or (0.0,) * depth
+    return nn.ModuleList(
+        SwinBlock(dim, num_heads, window_size,
+                  0 if i % 2 == 0 else window_size // 2, mlp_ratio, qkv_bias,
+                  qk_scale, use_kernels, rates[i], use_checkpoint)
+        for i in range(depth))
+
+
+class BasicLayer(nn.Module):
+    """One plain (language-free) Swin stage of the lts / vlt backbone:
+    blocks -> merge (JAX `swin2d.BasicLayer`, reference lib/backbone.py:
+    1409-1554).  With `use_checkpoint` each block is checkpointed in
+    training, as in `MMBasicLayer`."""
+
+    def __init__(self, dim: int, depth: int, num_heads: int, window_size: int,
+                 mlp_ratio: float, qkv_bias: bool, qk_scale: Optional[float],
+                 has_downsample: bool, use_kernels: bool = True,
+                 drop_path_rates: Optional[Tuple[float, ...]] = None,
+                 use_checkpoint: bool = False):
+        super().__init__()
+        self.blocks = make_blocks(dim, depth, num_heads, window_size,
+                                  mlp_ratio, qkv_bias, qk_scale, use_kernels,
+                                  drop_path_rates, use_checkpoint)
+        self.use_checkpoint = use_checkpoint
+        self.downsample = PatchMerging(dim) if has_downsample else None
+
+    def forward(self, x, hw, generator: Optional[torch.Generator] = None):
+        h, w = hw
+        x = run_blocks(self, x, hw, generator)
+        if self.downsample is not None:
+            return x, self.downsample(x, hw), ((h + 1) // 2, (w + 1) // 2)
+        return x, x, hw
+
+
 class MMBasicLayer(nn.Module):
     """One multimodal stage: Swin blocks -> PWAM -> LG residual -> merge.
     With `use_checkpoint` each block is checkpointed in training; the
@@ -392,15 +451,12 @@ class MMBasicLayer(nn.Module):
         if fusion.kind != FusionKind.PWAM:
             raise NotImplementedError(
                 f"fusion {fusion.kind.value!r}: only PWAM is ported; the "
-                "baselines are in the long-tail slice (ROADMAP.md slice 5)")
+                "baselines are in the long-tail slice (ROADMAP.md item 3, "
+                "slice 5)")
         self.fusion_cfg = fusion
-        rates = drop_path_rates or (0.0,) * depth
-        self.blocks = nn.ModuleList(
-            SwinBlock(dim, num_heads, window_size,
-                      0 if i % 2 == 0 else window_size // 2, mlp_ratio,
-                      qkv_bias, qk_scale, use_kernels, rates[i],
-                      use_checkpoint)
-            for i in range(depth))
+        self.blocks = make_blocks(dim, depth, num_heads, window_size,
+                                  mlp_ratio, qkv_bias, qk_scale, use_kernels,
+                                  drop_path_rates, use_checkpoint)
         self.use_checkpoint = use_checkpoint
         self.fusion = PWAM(dim, fusion.lang_dim, fusion_heads,
                            att_norm=fusion.att_norm, dropout=fusion.dropout)
@@ -411,15 +467,7 @@ class MMBasicLayer(nn.Module):
     def forward(self, x, hw, l, l_mask,
                 generator: Optional[torch.Generator] = None):
         h, w = hw
-        remat = (self.use_checkpoint and self.training
-                 and torch.is_grad_enabled())
-        for blk in self.blocks:
-            if remat:  # the draws first: the recompute applies the same
-                x = checkpoint(blk, x, hw, None,
-                               blk.draw_kept(x.shape[0], generator, x.device),
-                               use_reentrant=False)
-            else:
-                x = blk(x, hw, generator)
+        x = run_blocks(self, x, hw, generator)
         x_pre_fusion = x
         mm = self.fusion(x, l, l_mask, generator)
         gate_out = self.res_gate(mm) if self.res_gate is not None else None
@@ -454,37 +502,36 @@ def blocks_plan(blocks, hw: Tuple[int, int], batch: int, itemsize: int,
                         "the torch chain")
 
 
-class MultiModalSwinTransformer(nn.Module):
-    """forward(image NHWC, l (B, N_l, D_l), l_mask (B, N_l)) -> tuple of
-    per-stage NHWC features, one per out_indices."""
+class _SwinStages(nn.Module):
+    """What the two 2D backbones share: the patch embedding, the stage
+    norms `norm{i}` of out_indices only (no `norm0` where stage 1 is not
+    an output), the kernel plan and the pass over the stages."""
 
-    def __init__(self, cfg: SwinConfig, fusion: FusionConfig,
-                 out_indices: Tuple[int, ...] = (0, 1, 2, 3),
-                 use_kernels: bool = True, use_checkpoint: bool = False):
+    def __init__(self, cfg: SwinConfig, out_indices: Tuple[int, ...]):
         super().__init__()
         if cfg.ape:
             raise NotImplementedError(
                 "absolute position embedding is in the long-tail slice "
-                "(ROADMAP.md slice 5)")
+                "(ROADMAP.md item 3, slice 5)")
         if cfg.drop_rate or cfg.attn_drop_rate:
             raise NotImplementedError(
                 "Swin drop_rate / attn_drop_rate (0 in every published "
-                "config) are not ported")
+                "config) are not ported (ROADMAP.md item 3, slice 5)")
         self.cfg, self.out_indices = cfg, tuple(out_indices)
         self.patch_embed = PatchEmbed(cfg.embed_dim, cfg.patch_size,
                                       cfg.patch_norm)
-        dpr = np.linspace(0, cfg.drop_path_rate, sum(cfg.depths)).tolist()
-        starts = np.cumsum((0,) + tuple(cfg.depths)).tolist()
-        self.layers = nn.ModuleList(
-            MMBasicLayer(cfg.num_features[i], cfg.depths[i], cfg.num_heads[i],
-                         cfg.window_size, cfg.mlp_ratio, cfg.qkv_bias,
-                         cfg.qk_scale, i < cfg.num_layers - 1, fusion,
-                         fusion.num_heads[i], use_kernels,
-                         tuple(dpr[starts[i]:starts[i + 1]]), use_checkpoint)
-            for i in range(cfg.num_layers))
+
+    def _add_norms(self, use_kernels: bool) -> None:
+        """After the layers, as the reference orders its state dict."""
         for i in self.out_indices:
-            self.add_module(f"norm{i}", StageNorm(cfg.num_features[i],
+            self.add_module(f"norm{i}", StageNorm(self.cfg.num_features[i],
                                                   use_kernels))
+
+    def _drop_path_rates(self, i: int) -> Tuple[float, ...]:
+        cfg = self.cfg
+        dpr = np.linspace(0, cfg.drop_path_rate, sum(cfg.depths)).tolist()
+        start = sum(cfg.depths[:i])
+        return tuple(dpr[start:start + cfg.depths[i]])
 
     def kernel_plan(self, img: Tuple[int, int], batch: int,
                     itemsize: int = 2, train: bool = False
@@ -508,17 +555,17 @@ class MultiModalSwinTransformer(nn.Module):
                 if train:
                     counts["K4b"] = counts.get("K4b", 0) + 1
             elif norm is not None and norm.use_kernels:
-                unrouted.append(f"{where} norm (C {c}): layer_norm_rows_routed "
-                                "is False (C % 128; JAX: XLA): the plain f32 "
-                                "row LN")
+                unrouted.append(f"{where} norm (C {c}): "
+                                "layer_norm_rows_routed is False (C % 128; "
+                                "JAX: XLA): the plain f32 row LN")
             hw = ((hw[0] + 1) // 2, (hw[1] + 1) // 2)
         return counts, unrouted
 
-    def forward(self, x, l, l_mask,
-                generator: Optional[torch.Generator] = None):
+    def _stages(self, x, run_layer) -> Tuple[torch.Tensor, ...]:
         """The residual stream runs in x's dtype (the compute dtype): under
         autocast the plain modules' outputs are cast back to it before
-        every stage and stage norm."""
+        every stage and stage norm.  run_layer(layer, x, hw) -> (x_out,
+        x, next_hw)."""
         dt = x.dtype
         x = self.patch_embed(x)
         b, wh, ww, c = x.shape
@@ -526,9 +573,54 @@ class MultiModalSwinTransformer(nn.Module):
         outs = []
         hw = (wh, ww)
         for i, layer in enumerate(self.layers):
-            x_out, x, next_hw = layer(x.to(dt), hw, l, l_mask, generator)
+            x_out, x, next_hw = run_layer(layer, x.to(dt), hw)
             if i in self.out_indices:
                 x_out = getattr(self, f"norm{i}")(x_out.to(dt))
                 outs.append(x_out.view(b, hw[0], hw[1], -1))
             hw = next_hw
         return tuple(outs)
+
+
+class SwinTransformer(_SwinStages):
+    """The plain 4-stage Swin backbone of lts and vlt (JAX
+    `swin2d.SwinTransformer`, reference lib/backbone.py:1557-1693):
+    forward(image NHWC) -> tuple of per-stage NHWC features, one per
+    out_indices ((1, 2, 3) in both families)."""
+
+    def __init__(self, cfg: SwinConfig,
+                 out_indices: Tuple[int, ...] = (0, 1, 2, 3),
+                 use_kernels: bool = True, use_checkpoint: bool = False):
+        super().__init__(cfg, out_indices)
+        self.layers = nn.ModuleList(
+            BasicLayer(cfg.num_features[i], cfg.depths[i], cfg.num_heads[i],
+                       cfg.window_size, cfg.mlp_ratio, cfg.qkv_bias,
+                       cfg.qk_scale, i < cfg.num_layers - 1, use_kernels,
+                       self._drop_path_rates(i), use_checkpoint)
+            for i in range(cfg.num_layers))
+        self._add_norms(use_kernels)
+
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        return self._stages(x, lambda layer, x, hw: layer(x, hw, generator))
+
+
+class MultiModalSwinTransformer(_SwinStages):
+    """forward(image NHWC, l (B, N_l, D_l), l_mask (B, N_l)) -> tuple of
+    per-stage NHWC features, one per out_indices."""
+
+    def __init__(self, cfg: SwinConfig, fusion: FusionConfig,
+                 out_indices: Tuple[int, ...] = (0, 1, 2, 3),
+                 use_kernels: bool = True, use_checkpoint: bool = False):
+        super().__init__(cfg, out_indices)
+        self.layers = nn.ModuleList(
+            MMBasicLayer(cfg.num_features[i], cfg.depths[i], cfg.num_heads[i],
+                         cfg.window_size, cfg.mlp_ratio, cfg.qkv_bias,
+                         cfg.qk_scale, i < cfg.num_layers - 1, fusion,
+                         fusion.num_heads[i], use_kernels,
+                         self._drop_path_rates(i), use_checkpoint)
+            for i in range(cfg.num_layers))
+        self._add_norms(use_kernels)
+
+    def forward(self, x, l, l_mask,
+                generator: Optional[torch.Generator] = None):
+        return self._stages(
+            x, lambda layer, x, hw: layer(x, hw, l, l_mask, generator))

@@ -354,7 +354,8 @@ class MMBasicLayer3D(nn.Module):
         if fusion.kind != FusionKind.PWAM:
             raise NotImplementedError(
                 f"fusion {fusion.kind.value!r}: only PWAM is ported; the "
-                "baselines are in the long-tail slice (ROADMAP.md slice 5)")
+                "baselines are in the long-tail slice (ROADMAP.md item 3, "
+                "slice 5)")
         self.fusion_cfg = fusion
         shift = tuple(s // 2 for s in window_size)
         rates = drop_path_rates or (0.0,) * depth
@@ -424,7 +425,8 @@ class Hybrid2D3DLayer(nn.Module):
         if fusion.kind != FusionKind.PWAM:
             raise NotImplementedError(
                 f"fusion {fusion.kind.value!r}: only PWAM is ported; the "
-                "baselines are in the long-tail slice (ROADMAP.md slice 5)")
+                "baselines are in the long-tail slice (ROADMAP.md item 3, "
+                "slice 5)")
         self.fusion_cfg = fusion
         rates = drop_path_rates or (0.0,) * depth
         self.blocks = nn.ModuleList(
@@ -481,7 +483,7 @@ class MultiModalSwinTransformer3D(nn.Module):
         if cfg.ape:
             raise NotImplementedError(
                 "absolute position embedding is in the long-tail slice "
-                "(ROADMAP.md slice 5)")
+                "(ROADMAP.md item 3, slice 5)")
         if cfg.drop_rate or cfg.attn_drop_rate:
             raise NotImplementedError(
                 "Swin drop_rate / attn_drop_rate (0 in every published "

@@ -219,4 +219,4 @@ def build_tpwam(cfg: TPWAMConfig, dim: int, num_heads: int,
     raise NotImplementedError(
         f"3D PWAM kind {cfg.kind.value!r}: only SepTPWAM and the 2D PWAM are "
         "ported; the other variants are in the long-tail slice (ROADMAP.md "
-        "slice 5)")
+        "item 3, slice 5)")

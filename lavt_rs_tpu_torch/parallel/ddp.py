@@ -11,10 +11,10 @@ and the BatchNorm statistics come out global.  Here:
     gloo for the CPU;
   * `wrap_ddp` / `unwrap`: the model in DDP, with
     `find_unused_parameters` on (see `wrap_ddp`);
-  * `SyncBatchNorm2d` / `convert_sync_bn`: BatchNorm over the global
-    batch, by `all_reduce` alone (gloo has no all_gather of CUDA tensors,
-    which `nn.SyncBatchNorm` takes, and `nn.SyncBatchNorm` does not run on
-    CPU tensors).
+  * `SyncBatchNorm2d`, `SyncBatchNorm1d` / `convert_sync_bn`: BatchNorm
+    over the global batch, by `all_reduce` alone (gloo has no all_gather
+    of CUDA tensors, which `nn.SyncBatchNorm` takes, and `nn.SyncBatchNorm`
+    does not run on CPU tensors).
 Each process's batch is its own: -b is per process, as in the reference
 (DistributedSampler); the JAX package's -b is the global batch.
 """
@@ -81,14 +81,23 @@ def unwrap(model: nn.Module) -> nn.Module:
         else model
 
 
+def _channel_dims(x):
+    """The dims BatchNorm reduces over (all but C = dim 1) and C's
+    broadcast shape: (N, C) or (N, C, H, W)."""
+    c = x.shape[1]
+    return ((0,) + tuple(range(2, x.dim())),
+            (1, c) + (1,) * (x.dim() - 2))
+
+
 class _SyncBatchNormFn(torch.autograd.Function):
-    """Training-mode BatchNorm over every process's batch (N, C, H, W):
-    forward and backward each take one all_reduce of per-channel sums."""
+    """Training-mode BatchNorm over every process's batch ((N, C) or (N, C,
+    H, W)): forward and backward each take one all_reduce of per-channel
+    sums."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, eps):
         x32 = x.float()
-        dims = (0, 2, 3)
+        dims, shape = _channel_dims(x)
         count = torch.full((1,), x32.numel() // x32.shape[1],
                            dtype=torch.float32, device=x.device)
         stats = torch.cat([x32.sum(dims), (x32 * x32).sum(dims), count])
@@ -100,7 +109,6 @@ class _SyncBatchNormFn(torch.autograd.Function):
         invstd = torch.rsqrt(var + eps)
         ctx.save_for_backward(x, weight, mean, invstd, n)
         ctx.mark_non_differentiable(mean, var, n)
-        shape = (1, c, 1, 1)
         y = ((x32 - mean.view(shape)) * (invstd * weight).view(shape)
              + bias.view(shape))
         return y.to(x.dtype), mean, var, n
@@ -108,7 +116,8 @@ class _SyncBatchNormFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy, _dmean, _dvar, _dn):
         x, weight, mean, invstd, n = ctx.saved_tensors
-        c, shape, dims = x.shape[1], (1, x.shape[1], 1, 1), (0, 2, 3)
+        c = x.shape[1]
+        dims, shape = _channel_dims(x)
         dy = dy.float()
         xhat = (x.float() - mean.view(shape)) * invstd.view(shape)
         local = torch.cat([dy.sum(dims), (dy * xhat).sum(dims)])
@@ -121,13 +130,13 @@ class _SyncBatchNormFn(torch.autograd.Function):
         return dx.to(x.dtype), local[c:], local[:c], None
 
 
-class SyncBatchNorm2d(nn.BatchNorm2d):
-    """nn.BatchNorm2d whose training-mode statistics are those of every
+class _SyncBatchNorm:
+    """A BatchNorm whose training-mode statistics are those of every
     process's batch together (the JAX package's under a data-sharded jit),
     by all_reduce only, so it runs under gloo on CPU and CUDA tensors alike.
     The running variance takes torch's unbiased factor n / (n - 1), n the
-    global count.  In eval mode it is nn.BatchNorm2d; its state-dict names
-    are nn.BatchNorm2d's."""
+    global count.  In eval mode it is the torch BatchNorm it derives from,
+    whose state-dict names it keeps."""
 
     def forward(self, x):
         if not self.training:
@@ -143,17 +152,29 @@ class SyncBatchNorm2d(nn.BatchNorm2d):
         return y
 
 
+class SyncBatchNorm2d(_SyncBatchNorm, nn.BatchNorm2d):
+    """nn.BatchNorm2d over every process's batch (the decoders)."""
+
+
+class SyncBatchNorm1d(_SyncBatchNorm, nn.BatchNorm1d):
+    """nn.BatchNorm1d over every process's batch (VLT's sentence
+    projection)."""
+
+
+_SYNC = {nn.BatchNorm2d: SyncBatchNorm2d, nn.BatchNorm1d: SyncBatchNorm1d}
+
+
 def convert_sync_bn(model: nn.Module) -> nn.Module:
-    """Replace every nn.BatchNorm2d of `model` by a SyncBatchNorm2d holding
-    the same parameters and buffers (so an optimizer made before or after
-    sees the same tensors); returns the model."""
+    """Replace every nn.BatchNorm2d / nn.BatchNorm1d of `model` by its
+    SyncBatchNorm holding the same parameters and buffers (so an optimizer
+    made before or after sees the same tensors); returns the model."""
     for name, child in list(model.named_children()):
-        if type(child) is nn.BatchNorm2d:
+        if type(child) in _SYNC:
             if not (child.affine and child.track_running_stats):
-                raise ValueError(f"{name}: SyncBatchNorm2d needs an affine "
-                                 "BatchNorm2d that tracks its statistics")
-            sync = SyncBatchNorm2d(child.num_features, child.eps,
-                                   child.momentum, device="meta")
+                raise ValueError(f"{name}: a SyncBatchNorm needs an affine "
+                                 "BatchNorm that tracks its statistics")
+            sync = _SYNC[type(child)](child.num_features, child.eps,
+                                      child.momentum, device="meta")
             for key in ("weight", "bias", "running_mean", "running_var",
                         "num_batches_tracked"):
                 setattr(sync, key, getattr(child, key))

@@ -4,7 +4,10 @@
 Behavioral contract (reference train.py:738-829, utils.py:200-212):
   * one file per epoch, in the reference's `torch.save` dict format:
     {"model", "optimizer", "lr_scheduler", "epoch", "args"}, `args` the
-    run's `argparse.Namespace`;
+    run's `argparse.Namespace`; lavt's (a model whose `CHECKPOINT_DICTS`
+    are ("model", "bert_model")) holds its segmentation net and its BERT
+    as the reference's two dicts, {"model", "bert_model", ...}
+    (train.py:596-605);
   * named `epoch_{N:04d}[_{tag}].pth`: the JAX package's directory names
     with `.pth` (RefCOCO tags them with the val metrics, train.py:761-762);
   * `keep`: only the newest N stay (remove_extra_checkpoints_on_master,
@@ -30,7 +33,26 @@ import torch.nn as nn
 from ..utils.logging import is_main_process
 
 _NAME_RE = re.compile(r"epoch_(\d+)(_.*)?\.pth$")
-_STATE_KEYS = ("model", "optimizer", "lr_scheduler", "epoch")
+_STATE_KEYS = ("model", "bert_model", "optimizer", "lr_scheduler", "epoch")
+
+
+def model_dicts(model: nn.Module) -> dict:
+    """The model's tensors as the reference's checkpoint entries: {"model":
+    state_dict}, or one entry per submodule named in the model's
+    `CHECKPOINT_DICTS`."""
+    parts = getattr(model, "CHECKPOINT_DICTS", None)
+    if parts is None:
+        return {"model": model.state_dict()}
+    return {p: getattr(model, p).state_dict() for p in parts}
+
+
+def load_model_dicts(model: nn.Module, ckpt: dict) -> None:
+    """Load `model_dicts`' entries of `ckpt` into the model (strict)."""
+    parts = getattr(model, "CHECKPOINT_DICTS", None)
+    if parts is None:
+        model.load_state_dict(ckpt["model"])
+    for p in parts or ():
+        getattr(model, p).load_state_dict(ckpt[p])
 
 
 def checkpoint_name(epoch: int, metrics_tag: str = "") -> str:
@@ -52,7 +74,7 @@ def save_checkpoint(ckpt_dir: str, epoch: int, model: nn.Module,
     path = os.path.abspath(os.path.join(ckpt_dir,
                                         checkpoint_name(epoch, metrics_tag)))
     payload = dict(extra or {})
-    payload.update(model=model.state_dict(), optimizer=optimizer.state_dict(),
+    payload.update(model_dicts(model), optimizer=optimizer.state_dict(),
                    lr_scheduler=lr_scheduler.state_dict(), epoch=epoch)
     tmp = path + ".tmp"
     torch.save(payload, tmp)
@@ -93,14 +115,26 @@ def load_checkpoint(path: str, device) -> dict:
         return torch.load(path, map_location=device, weights_only=True)
 
 
-def load_model_tensors(path: str, device) -> dict:
+def load_model_tensors(path: str, device, dicts=None) -> dict:
     """A local .pth file's model tensors on `device`: the `model`,
     `state_dict` or `module` entry when there is one (reference
     checkpoints, mmcv and mmaction files), else the top level (HF dumps);
-    entries that are not tensors (the run's args) are dropped."""
+    entries that are not tensors (the run's args) are dropped.  With
+    `dicts` (a model's `CHECKPOINT_DICTS`, lavt's ("model", "bert_model"))
+    the file must hold each of those entries: their tensors are returned
+    under "<entry>.", a DDP `module.` prefix stripped."""
     if "://" in path:
         raise ValueError(f"{path!r}: pass a local checkpoint path")
     ckpt = load_checkpoint(path, device)
+    if dicts is not None:
+        missing = [p for p in dicts if not isinstance(ckpt.get(p), dict)]
+        if missing:
+            raise ValueError(
+                f"{path!r} has no {' or '.join(map(repr, missing))} dict: "
+                f"this model loads a checkpoint of the dicts {dicts} (a "
+                "reference lavt file; a lavt_one file holds 'model' alone)")
+        return {f"{p}.{k.removeprefix('module.')}": v for p in dicts
+                for k, v in ckpt[p].items() if isinstance(v, torch.Tensor)}
     for key in ("model", "state_dict", "module"):
         if isinstance(ckpt, dict) and isinstance(ckpt.get(key), dict):
             ckpt = ckpt[key]
@@ -126,7 +160,7 @@ def restore_checkpoint(path: str, model: nn.Module,
     schedule (the JAX package's optax schedule is a function of the
     step)."""
     ckpt = load_checkpoint(path, device)
-    model.load_state_dict(ckpt["model"])
+    load_model_dicts(model, ckpt)
     optimizer.load_state_dict(ckpt["optimizer"])
     lr_scheduler.load_state_dict(ckpt["lr_scheduler"])
     step = lr_scheduler.last_epoch

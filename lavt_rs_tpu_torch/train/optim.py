@@ -13,7 +13,8 @@
   * Poly LR per iteration: lr (1 − it / total_iters)^0.9 (a `LambdaLR`
     stepped once per step), or constant with fix_lr.
 Labels are read from the port's state-dict names, which are the reference
-PyTorch ones (`backbone.layers.N...`, `text_encoder.encoder.layer.N...`).
+PyTorch ones (`backbone.layers.N...`, `text_encoder.encoder.layer.N...`;
+for lavt `model.backbone...` and `bert_model.encoder.layer.N...`).
 """
 
 from __future__ import annotations
@@ -49,12 +50,18 @@ class TrainConfig:
 
 _NO_DECAY_RE = re.compile(
     r"norm|absolute_pos_embed|relative_position_bias_table")
-_BERT_LAYER_RE = re.compile(r"^text_encoder\.encoder\.layer\.(\d+)\.")
+# 'text_encoder' = the BERT inside the model; 'bert_model' = lavt's BERT
+# beside its segmentation net `model` (reference train.py:634-686 applies
+# the same rules to both)
+_BERT = ("text_encoder.", "bert_model.")
+_BERT_LAYER_RE = re.compile(
+    r"^(?:text_encoder|bert_model)\.encoder\.layer\.(\d+)\.")
+_BACKBONE = ("backbone.", "model.backbone.")
 
 
 def label_param(name: str, cfg: TrainConfig) -> str:
     """'decay' / 'no_decay' / 'frozen' for a state-dict parameter name."""
-    if name.startswith("text_encoder."):
+    if name.startswith(_BERT):
         enc = cfg.lang_enc_params
         m = _BERT_LAYER_RE.match(name)
         if m is not None:
@@ -63,7 +70,7 @@ def label_param(name: str, cfg: TrainConfig) -> str:
                 return "frozen"
             return "decay"
         return "decay" if enc.startswith("embeddings+") else "frozen"
-    if name.startswith("backbone.") and _NO_DECAY_RE.search(name):
+    if name.startswith(_BACKBONE) and _NO_DECAY_RE.search(name):
         return "no_decay"
     return "decay"
 

@@ -404,7 +404,7 @@ def test_cli_refuses_what_is_not_ported():
     for extra, where in ((["--dataset", "ytvos"], "slice 3"),
                          (["--save_vis", "out"], "item 27"),
                          (["--save_feats", "out"], "item 27"),
-                         (["--model", "lts"], "slice 5")):
+                         (["--bcam"], "slice 5")):
         with pytest.raises(NotImplementedError, match=where):
             cli_test.main(["--synthetic", "--device", "cpu"] + extra)
 

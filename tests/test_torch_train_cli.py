@@ -266,8 +266,8 @@ def test_combined_pretrain_concatenates_three_sources(
 
 
 @pytest.mark.parametrize("extra,where", [
-    (["--model", "lts"], "slice 5"),
-    (["--model", "lavt"], "slice 5"),
+    (["--bcam"], "slice 5"),
+    (["--fuse", "simple"], "slice 5"),
 ])
 def test_cli_refuses_what_is_not_ported(extra, where):
     with pytest.raises(NotImplementedError, match=where):
