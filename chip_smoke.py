@@ -432,6 +432,25 @@
    batch; --no_bf16 against --no_pallas within F32_CLI_TOL), and
    `cli.train --model lavt --synthetic` for an epoch, whose checkpoint
    holds the two dicts and loads in `cli.test --resume`.
+7e. The fusion and decoder variants ("variants"), at Swin-B 480² window
+   12 from the CLIs' flags (`model_config_from_args`; VARIANT_GROUPS:
+   --bcam; --gacd with ape; --efn with --interpolate_before_seg
+   --seg_last; --fuse simple with --lazy_pred; --att_norm_layer_type BN,
+   LN, none; Swin's drop_rate 0.1 in the BN group's step, attn_drop_rate
+   0.1 in the LN group): each group's plan against the hand counts (K1 4 /
+   K11 20 / K3 24 / K4 4 a forward, K4 3 under lazy_pred; a bs-4 step
+   VARIANT_STEP, without K3 / K8 / K7 at drop_rate 0.1), three bs-8
+   batches through `fwd_iou` in bf16 and a forward in f32 with the
+   kernels against the plain f32 model (the pixel gate, the f32 gate, ms,
+   a profile, the peak memory: BCAM's relevance maps above all), a bs-4
+   bf16 step (falling loss, ms, peak) and the f32 step's gate;
+   `cli.test --window12 --no_bf16 --efn --interpolate_before_seg
+   --seg_last` against --no_pallas (mIoU and oIoU within F32_CLI_TOL);
+   then lavt_video_tiny with each other 3D PWAM kind (--sep_t_pwam_inner,
+   --t_pwam, --t_pwam_comp, --ts_pwam, --seq_t_pwam, --sep_seq_t_pwam,
+   --sep_seq_t_pwam_inner): one 8-frame 480² clip in bf16 and f32 (K2p 2
+   / K10 10 a clip, the pixel and f32 gates, ms), and a bf16 train step of
+   --sep_seq_t_pwam and --ts_pwam (K10 12 / K9 12 a step, ms, peak).
 8. P1 / P2 (the head-batching probe) against their plain version on an
    input whose softmax is far from uniform (x at std 0.4, 1e-3 abs +
    2e-2 rel; a kernel writing each window's mean or a copy of x is shown
@@ -777,6 +796,45 @@ FAMILY_HEAD_BIAS = {"lavt": "model.classifier.conv1_1.bias",
                     "lts": "classifier.conv1_1.bias",
                     "vlt": "classifier.decoding.classifier.bias",
                     "lavt_vlt": "classifier.decoding.classifier.bias"}
+# the fusion and decoder variants at Swin-B 480² window 12 (the "variants"
+# phase): (label, CLI flags, Swin fields of the model, Swin fields of its
+# train step), the compatible flags combined so that every variant runs
+# once: BCAM alone (its relevance maps are the largest tensors), GACD with
+# ape, EFN with interpolate_before_seg and seg_last, --fuse simple with
+# lazy_pred, and each att_norm kind (BN with drop_rate 0.1 in the step,
+# LN with attn_drop_rate 0.1, which the JAX package stores and never
+# applies)
+VARIANT_GROUPS = (
+    ("bcam", ("--bcam",), {}, {}),
+    ("gacd+ape", ("--gacd",), {"ape": True}, {}),
+    ("efn+ibs+seg_last", ("--efn", "--interpolate_before_seg", "--seg_last"),
+     {}, {}),
+    ("simple+lazy_pred", ("--fuse", "simple", "--lazy_pred"), {}, {}),
+    ("BN att_norm", ("--att_norm_layer_type", "BN"), {}, {"drop_rate": 0.1}),
+    ("LN att_norm", ("--att_norm_layer_type", "LN"),
+     {"attn_drop_rate": 0.1}, {}),
+    ("none att_norm", ("--att_norm_layer_type", "none"), {}, {}),
+)
+# their head is lavt_one's (`balance_head`)
+FAMILY_HEAD_BIAS.update({group[0]: "classifier.conv1_1.bias"
+                         for group in VARIANT_GROUPS})
+# the group whose weights go through `cli.test --no_bf16` against
+# --no_pallas, on the first VARIANT_CLI_REFS refs of the synthetic split
+VARIANT_CLI_GROUP, VARIANT_CLI_REFS = "efn+ibs+seg_last", 16
+# launches of a window-12 bs-4 train step (the save mode at every block,
+# K5 behind it; K3 in the first block of stage 1, whose DropPath rate is
+# 0, K8 in the others); with drop_rate > 0 the tails take the chain (no
+# K3 / K8 / K7); under lazy_pred three stage norms
+VARIANT_STEP = {"K1": 4, "K2": 20, "K5": 24, "K3": 1, "K8": 23, "K7": 24,
+                "K4": 4, "K4b": 4}
+# the other 3D PWAM kinds on lavt_video_tiny (the A2D recipe's flags): each
+# one 8-frame 480² clip in bf16 and f32 (VIDEO_PER_CLIP: the kinds sit
+# after the same Video Swin-T blocks); a bf16 train step of those in
+# VARIANT_VIDEO_STEPS (VIDEO_TRAIN_PER_STEP)
+VARIANT_VIDEO_FLAGS = ("--sep_t_pwam_inner", "--t_pwam", "--t_pwam_comp",
+                       "--ts_pwam", "--seq_t_pwam", "--sep_seq_t_pwam",
+                       "--sep_seq_t_pwam_inner")
+VARIANT_VIDEO_STEPS = ("--sep_seq_t_pwam", "--ts_pwam")
 HYBRID_FLAGS = ("--ytvos_2d_swin_3d_pwam", "--ytvos_2d_swin_pwam")
 HYBRID_PER_CLIP = {"K10": 12, "K3": 6}
 HYBRID_TRAIN_PER_STEP = {"K10": 12, "K9": 12, "K8": 6, "K7": 6}
@@ -6942,9 +7000,17 @@ def hybrid_config(flag, no_bf16=False):
 
 def hybrid_forwards(dev, card, flag, model, reqs):
     """One clip through the bf16 and f32 kernel routes of the hybrid model
-    and through the plain f32 route (launches per clip HYBRID_PER_CLIP,
-    the pixel gate and the f32 gate on all 8 frames), then ms per clip
-    (bf16, f32 and plain f32) and a profile of the bf16 clip."""
+    and through the plain f32 route (`clip_forwards`: launches per clip
+    HYBRID_PER_CLIP)."""
+    clip_forwards(dev, card, f"hybrid {flag}", model, reqs, HYBRID_PER_CLIP)
+
+
+def clip_forwards(dev, card, what, model, reqs, per_clip, iters=5):
+    """One clip through the bf16 and f32 kernel routes of a video model
+    and through the plain f32 route (launches per clip `per_clip`, the
+    pixel gate and the f32 gate on all 8 frames, each route's peak
+    memory over its first call), then ms per clip (each route the mean
+    of `iters` calls after one warm-up) and a profile of the bf16 clip."""
     import torch
 
     from lavt_rs_tpu_torch.models.factory import build_model
@@ -6959,35 +7025,39 @@ def hybrid_forwards(dev, card, flag, model, reqs):
                                           use_kernels=False))):
         models[name] = build_model(cfg.replace(**over), dev)
         models[name].load_state_dict(model.state_dict())
-    logits, ms = {}, {}
+    logits, ms, peak = {}, {}, {}
     for name, m in models.items():
         zero_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
         with torch.no_grad():
             logits[name] = m(clip, ids[None], mask[None])
         torch.cuda.synchronize()
+        peak[name] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
         launches = nonzero_counts(read_counts())
         want = ({} if name == "plain f32" else
                 {k + (".f32" if name == "f32" else ""): n
-                 for k, n in HYBRID_PER_CLIP.items()})
+                 for k, n in per_clip.items()})
         if launches != want:
-            raise RuntimeError(f"hybrid {flag} {name}: launches {launches}, "
+            raise RuntimeError(f"{what} {name}: launches {launches}, "
                                f"want {want}")
         with torch.no_grad():
             ms[name] = cuda_time_ms(lambda: m(clip, ids[None], mask[None]),
-                                    iters=5, warmup=1)
+                                    iters=iters, warmup=1)
     want = logits["plain f32"]
-    agree = gate_pixels(f"hybrid {flag} bf16", logits["bf16"], want,
+    agree = gate_pixels(f"{what} bf16", logits["bf16"], want,
                         (FRAMES, 480, 480, 2))
-    f32_gate(f"hybrid {flag} f32 clip", logits["f32"], want)
-    log(f"hybrid {flag} clip (8 frames 480², launches {HYBRID_PER_CLIP}): "
+    f32_gate(f"{what} f32 clip", logits["f32"], want)
+    log(f"{what} clip (8 frames 480², launches {per_clip}): "
         f"bf16 kernels vs f32 plain route max |dlogit| "
         f"{(logits['bf16'] - want).abs().max().item():.4g}, argmax agreement "
         f"{agree:.5f} on all frames (margin > {MARGIN}); ms per clip: bf16 "
         f"{ms['bf16']:.3f}, f32 {ms['f32']:.3f}, plain f32 "
-        f"{ms['plain f32']:.3f} (mean of 5)  [{card}]")
+        f"{ms['plain f32']:.3f} (mean of {iters}); peak GiB (the three "
+        f"models' weights included): bf16 {peak['bf16']:.3f}, f32 "
+        f"{peak['f32']:.3f}, plain f32 {peak['plain f32']:.3f}  [{card}]")
     with torch.no_grad():
         profile_clip(lambda: model(clip, ids[None], mask[None]), card,
-                     f"hybrid {flag} bf16 clip")
+                     f"{what} bf16 clip")
     del models, logits
     gc_cuda()
 
@@ -7472,6 +7542,198 @@ def hybrid_phase(dev, card):
     log(f"hybrid phase: {time.perf_counter() - t_phase:.1f} s")
 
 
+def variant_config(flags, swin=None):
+    """lavt_one Swin-B 480² window 12 (`make_config("lavt_one", "base")`)
+    with a variant's CLI flags, as the CLIs build it
+    (`model_config_from_args`), and `swin`'s fields."""
+    import dataclasses
+
+    from lavt_rs_tpu_torch.cli import args as cli_args
+    from lavt_rs_tpu_torch.cli import train as cli_train
+
+    cfg = cli_args.model_config_from_args(cli_train.get_parser().parse_args(
+        ["--window12", "--img_size", "480", *flags]))
+    return cfg.replace(swin=dataclasses.replace(cfg.swin, **(swin or {})))
+
+
+def variant_step_counts(cfg):
+    """The hand counts of a bs-FAMILY_STEP_BATCH window-12 step of `cfg`
+    (VARIANT_STEP, less the tails' kernels at drop_rate > 0, three stage
+    norms under lazy_pred)."""
+    want = dict(VARIANT_STEP)
+    if cfg.swin.drop_rate > 0:
+        for k in ("K3", "K8", "K7"):
+            del want[k]
+    if cfg.lazy_pred:
+        want["K4"] = want["K4b"] = 3
+    return want
+
+
+def variant_cli(dev, card, root, flags, weights):
+    """`cli.test --window12 --no_bf16` with a variant's flags on a
+    synthetic split under `root` and the variant's weights as a reference
+    .pth, with the kernels (the f32 counters per device batch as the f32
+    forward's) and with --no_pallas (no launch): mIoU and oIoU within
+    F32_CLI_TOL (`check_summaries`)."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from lavt_rs_tpu_torch.cli import test as cli_test
+
+    vocab = write_refcoco(root, np.random.default_rng(SEED + 80))
+    ckpt = os.path.join(root, "variant.pth")
+    torch.save({"model": {k: v.float().cpu() for k, v in weights.items()}},
+               ckpt)
+    argv = ["--window12", "--img_size", "480", "--no_bf16",
+            "--refer_data_root", root, "--dataset", "refcoco", "--splitBy",
+            "unc", "--split", "val", "--vocab", vocab, "--checkpoint", ckpt,
+            "--max_items", str(VARIANT_CLI_REFS), "--device", str(dev), *flags]
+    per = {f"{k}.f32": n for k, n in kernel_plan(
+        variant_config(flags), 480, BATCH)[0].items()}
+    summaries = {}
+    for label, extra, counters in (("kernels", [], per),
+                                   ("--no_pallas", ["--no_pallas"], {})):
+        err = io.StringIO()
+        zero_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(err):
+            summaries[label] = cli_test.main(argv + extra)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = nonzero_counts(read_counts())
+        batches = launches.get("K4.f32", 0) // per["K4.f32"] if per else 0
+        if launches != {k: n * batches for k, n in counters.items()} or (
+                counters and batches < 1):
+            raise RuntimeError(f"cli.test {' '.join(flags)} --no_bf16 "
+                               f"({label}): launches {launches}, not "
+                               f"{counters} a batch")
+        log(f"cli.test {' '.join(flags)} --no_bf16 ({label}): "
+            f"{err.getvalue().strip().splitlines()[-1]}; launches "
+            f"{launches}; {seconds:.2f} s with the model's build  [{card}]")
+        gc_cuda()
+    check_summaries(f"cli.test {' '.join(flags)} --no_bf16",
+                    summaries["kernels"], summaries["--no_pallas"])
+
+
+def variant_video_step(dev, card, flag, weights):
+    """A bf16 train step of lavt_video_tiny with a 3D PWAM kind: a warm-up
+    step, then DDP_TIMED_STEPS timed steps on one clip (launches a step
+    VIDEO_TRAIN_PER_STEP, finite losses, ms a step, peak memory)."""
+    import torch
+
+    from lavt_rs_tpu_torch.models.factory import build_model
+    from lavt_rs_tpu_torch.train.optim import TrainConfig
+    from lavt_rs_tpu_torch.train.step import (create_train_state,
+                                              make_video_train_step)
+
+    model = build_model(variant_video_config(flag), dev, train=True)
+    model.load_state_dict(weights)
+    tcfg = TrainConfig()
+    step = make_video_train_step(model, *create_train_state(model, tcfg), tcfg)
+    batch = video_train_batch(
+        dev, torch.Generator(device=dev).manual_seed(SEED + 81))
+
+    def gen():
+        return torch.Generator(device=dev).manual_seed(SEED + 82)
+
+    first = step(batch, gen())["loss"].item()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    losses = []
+    ms = cuda_time_ms(lambda: losses.append(step(batch, gen())["loss"]),
+                      iters=DDP_TIMED_STEPS, warmup=0)
+    launches = nonzero_counts(read_counts())
+    losses = [first] + [v.item() for v in losses]
+    check_counts(f"video {flag} bf16 step", read_counts(),
+                 VIDEO_TRAIN_PER_STEP, DDP_TIMED_STEPS)
+    if not all(math.isfinite(v) for v in losses):
+        raise RuntimeError(f"video {flag}: training losses {losses}")
+    log(f"video {flag} bf16 train step, one 8-frame 480² clip: {ms:.3f} "
+        f"ms/step (mean of {DDP_TIMED_STEPS}), launches over them "
+        f"{launches}, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        f"GiB; losses {[round(v, 6) for v in losses]}  [{card}]")
+    del step, model
+    gc_cuda()
+
+
+def variant_video_config(flag):
+    """lavt_video_tiny with the A2D recipe's flags and a 3D PWAM flag, as
+    the CLIs build it."""
+    from lavt_rs_tpu_torch.cli import args as cli_args
+    from lavt_rs_tpu_torch.cli import train as cli_train
+
+    return cli_args.model_config_from_args(cli_train.get_parser().parse_args(
+        list(VIDEO_RECIPE) + [flag, "--img_size", str(CLI_IMG)]))
+
+
+def variants_phase(dev, card):
+    """The fusion and decoder variants (VARIANT_GROUPS) at Swin-B 480²
+    window 12: each group's plan against the hand counts (K1 4 / K11 20 /
+    K3 24 / K4 4 a forward, K4 3 under lazy_pred; VARIANT_STEP a step),
+    three bs-8 batches through `fwd_iou` in bf16 and a forward in f32 with
+    the kernels, each against the plain f32 model (`family_forwards`: the
+    pixel gate, the f32 gate, ms, a profile, peak memory), a bs-4 bf16
+    step and the f32 step's gate (`family_steps`); `cli.test --no_bf16`
+    against --no_pallas on VARIANT_CLI_GROUP's weights; then the other 3D
+    PWAM kinds on lavt_video_tiny (one 8-frame 480² clip each in bf16 and
+    f32, `clip_forwards`; a bf16 train step of VARIANT_VIDEO_STEPS)."""
+    import tempfile
+
+    import torch
+
+    from lavt_rs_tpu_torch.models.factory import build_model
+
+    t_phase = time.perf_counter()
+    cli_weights = None
+    for label, flags, swin, step_swin in VARIANT_GROUPS:
+        cfg = variant_config(flags, swin)
+        per_forward = {"K1": 4, "K11": 20, "K3": 24,
+                       "K4": 3 if cfg.lazy_pred else 4}
+        step_cfg = variant_config(flags, dict(swin, **step_swin))
+        step_plan = kernel_plan(step_cfg, 480, FAMILY_STEP_BATCH, True)[0]
+        if step_plan != variant_step_counts(step_cfg):
+            raise RuntimeError(f"{label}: the step's plan gives {step_plan}, "
+                               f"the hand counts are "
+                               f"{variant_step_counts(step_cfg)}")
+        t0 = time.perf_counter()
+        weights, drawn = family_forwards(dev, card, label, cfg, per_forward)
+        family_steps(dev, card, label, step_cfg, drawn)
+        if label == VARIANT_CLI_GROUP:
+            cli_weights = {k: v.cpu() for k, v in weights.items()}
+        del weights, drawn
+        gc_cuda()
+        log(f"variant {label}: {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as root:
+        flags = next(g[1] for g in VARIANT_GROUPS
+                     if g[0] == VARIANT_CLI_GROUP)
+        variant_cli(dev, card, root, flags, cli_weights)
+    del cli_weights
+    gc_cuda()
+    for flag in VARIANT_VIDEO_FLAGS:
+        t0 = time.perf_counter()
+        cfg = variant_video_config(flag)
+        plan = kernel_plan(cfg, 480, FRAMES)[0]
+        if plan != VIDEO_PER_CLIP or kernel_plan(
+                cfg, 480, FRAMES, True)[0] != VIDEO_TRAIN_PER_STEP:
+            raise RuntimeError(f"video {flag}: the plan gives {plan}")
+        g = torch.Generator(device=dev).manual_seed(SEED + 83)
+        model = meaningful(build_model(cfg, dev, generator=g), dev, g)
+        clip_forwards(dev, card, f"video {flag}", model, clips(dev, g, 1)[0],
+                      VIDEO_PER_CLIP, iters=3)
+        weights = model.state_dict()
+        del model
+        if flag in VARIANT_VIDEO_STEPS:
+            variant_video_step(dev, card, flag, weights)
+        del weights
+        gc_cuda()
+        log(f"video {flag}: {time.perf_counter() - t0:.1f} s")
+    log(f"variants phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 PTXAS_KERNELS = {"EpiBiasILb1E": "K2p / K2 / save-mode qkv GEMM (GEMM core)",
                  "EpiBiasILb0E": "K2p / K2 / save-mode out-projection GEMM (GEMM core)",
                  "msa_fwd_sm90_kernelILb0E": "K2 attention",
@@ -7828,6 +8090,8 @@ def main():
     log(f"hybrid done at {time.perf_counter() - t_start:.1f} s")
     families_phase(dev, card)
     log(f"families done at {time.perf_counter() - t_start:.1f} s")
+    variants_phase(dev, card)
+    log(f"variants done at {time.perf_counter() - t_start:.1f} s")
 
     # -- P1 / P2: the head-batching probe --------------------------------------
     probe_launches = probe_phase(dev, card, res)

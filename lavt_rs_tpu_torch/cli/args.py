@@ -263,18 +263,6 @@ def add_eval_args(p: argparse.ArgumentParser):
                    help="parsed-but-unused in the reference; accepted")
 
 
-def refuse_fusion_options(args) -> None:
-    """The fusion baselines and LangProject (ROADMAP.md item 3) are not
-    ported: the CLIs refuse them before any data or model is built."""
-    chosen = [f"--{f}" for f in ("bcam", "gacd", "efn") if getattr(args, f)]
-    if args.fuse == "simple":
-        chosen.append("--fuse simple")
-    if chosen:
-        raise NotImplementedError(
-            f"{', '.join(chosen)}: the fusion baselines (BCAM, GACD, EFN) "
-            "and LangProject are not ported yet: ROADMAP.md item 3 (slice 5)")
-
-
 def model_config_from_args(args):
     """args -> the port's ModelConfig, replicating the reference factory's
     selection rules (lib/segmentation.py:14-212) as the JAX package's

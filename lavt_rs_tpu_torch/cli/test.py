@@ -83,8 +83,6 @@ def get_parser() -> argparse.ArgumentParser:
 
 
 def _refuse_unported(args) -> None:
-    from .args import refuse_fusion_options
-
     if args.dataset not in ("refcoco", "refcoco+", "refcocog", "a2d"):
         raise NotImplementedError(f"--dataset {args.dataset}: this CLI "
                                   "evaluates the RefCOCO family and A2D "
@@ -93,7 +91,6 @@ def _refuse_unported(args) -> None:
     if args.save_vis or args.save_feats:
         raise NotImplementedError("--save_vis / --save_feats are not ported "
                                   "yet: ROADMAP.md item 27")
-    refuse_fusion_options(args)
     if (args.dataset == "a2d") != (args.model == "lavt_video"):
         raise ValueError("--dataset a2d goes with --model lavt_video, the "
                          "RefCOCO family with --model "

@@ -68,8 +68,13 @@ is trained in that group.
 The image families (--model lavt_one, lavt, lts, vlt, lavt_vlt) train on
 the RefCOCO branch; lavt's checkpoints hold its segmentation net and its
 BERT as the reference's two dicts {'model', 'bert_model'}, which
-`cli.test --model lavt` loads.  The fusion baselines (--bcam, --gacd,
---efn) and --fuse simple are refused (ROADMAP.md item 3).
+`cli.test --model lavt` loads.  Every fusion and decoder variant trains
+(--bcam, --gacd, --efn, --fuse simple, --att_norm_layer_type, --lazy_pred,
+--interpolate_before_seg, --seg_last, the 3D PWAM kinds of lavt_video).
+What stays refused is the test CLI's, not this one's: --save_vis /
+--save_feats and --dataset ytvos in `cli.test`, `cli.test_ytvos
+--visualize` and `cli.test_ytvos` with the image families (ROADMAP.md
+item 3).
 """
 
 from __future__ import annotations
@@ -85,7 +90,7 @@ import torch
 
 from .args import (add_data_args, add_eval_args, add_model_args,
                    add_train_args, model_config_from_args,
-                   refuse_fusion_options, train_config_from_args)
+                   train_config_from_args)
 
 # the three RefCOCO-family sources of --ref_image_combined_pretrain (at the
 # reference's 22 tokens, data/dataset_refer_bert.py:39-42) and of the
@@ -295,7 +300,6 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     from ..parallel.ddp import init_distributed
 
     args = get_parser().parse_args(argv)
-    refuse_fusion_options(args)
     owned = not (dist.is_available() and dist.is_initialized())
     rank, world, device = init_distributed(args.device)
     try:

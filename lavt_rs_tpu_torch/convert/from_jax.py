@@ -21,6 +21,14 @@ PyTorch ones:
 It reads numpy only, so it runs without JAX installed.  The geometry
 buffers (`relative_position_index`, `position_ids`) and BatchNorm's
 `num_batches_tracked` are filled in, so the result loads strictly.
+
+Every fusion and decoder variant maps: the 2D PWAM with its att_norm
+(`f_query_norm` / `W_norm`, a BatchNorm's statistics from
+`batch_stats`) or its LangProject form; BCAM, GACD and EFN; every 3D
+PWAM kind (TSPWAM's two TPWAMs nested under `temporal.` / `spatial.`);
+the absolute position embedding ((1, S, S, C) -> (1, S*S, C)); the
+decoder without its third join (lazy_pred) and with `pre_seg` /
+`seg_last_conv`.
 """
 
 from __future__ import annotations
@@ -60,10 +68,12 @@ def _conv3d(kernel) -> torch.Tensor:
     return _t(np.asarray(kernel).transpose(4, 3, 0, 1, 2))
 
 
-# SepTPWAM's Conv3d branches (ConvGELU3D / ConvIN3D, each `<name>.conv`)
+# the 3D kinds' Conv3d branches (ConvGELU3D / ConvIN3D, each `<name>.conv`)
 _TPWAM_CONVS = ("temporal_vis_project", "spatial_vis_project", "vis_fuse",
                 "f_query_t", "f_query_s", "f_fuse", "W_t", "W_s",
-                "project_mm_t", "project_mm_s")
+                "project_mm_t", "project_mm_s", "temporal_vis_project_q",
+                "spatial_vis_project_q", "f_query_t_q", "f_query_s_q",
+                "vis_project", "f_query")
 
 
 def _put(sd: Dict[str, torch.Tensor], dst: str, src: Mapping, weight) -> None:
@@ -73,9 +83,21 @@ def _put(sd: Dict[str, torch.Tensor], dst: str, src: Mapping, weight) -> None:
 
 
 def tpwam_state_dict_from_jax(fu: Mapping) -> Dict[str, torch.Tensor]:
-    """JAX SepTPWAM params -> the port module's state_dict (names relative
-    to the module)."""
+    """JAX params of a 3D PWAM kind -> the port module's state_dict (names
+    relative to the module); TSPWAM's branches nested as `temporal.` and
+    `spatial.`, its reduce `out_reduce.0`."""
     sd: Dict[str, torch.Tensor] = OrderedDict()
+    if "temporal" in fu and "spatial" in fu:  # TSPWAM
+        for branch in ("temporal", "spatial"):
+            for k, v in tpwam_state_dict_from_jax(fu[branch]).items():
+                sd[f"{branch}.{k}"] = v
+        if "out_reduce" in fu:
+            red = fu["out_reduce"]
+            if "conv" in red:
+                _put(sd, "out_reduce.0", red["conv"], _conv3d)
+            else:
+                _put(sd, "out_reduce.0", red, _conv1x1)
+        return sd
     for name in _TPWAM_CONVS:
         if name in fu:
             _put(sd, f"{name}.0", fu[name]["conv"], _conv3d)
@@ -110,6 +132,67 @@ def _batch_norm(sd, dst: str, src: Mapping, stats: Mapping) -> None:
     sd[f"{dst}.num_batches_tracked"] = torch.tensor(0)
 
 
+def pwam_2d_state_dict_from_jax(fu: Mapping, stats: Mapping
+                                ) -> Dict[str, torch.Tensor]:
+    """JAX 2D PWAM params (and its att_norm BatchNorms' `stats`) -> the
+    port module's state_dict: the attention with its norms `f_query.1` /
+    `W.1` (JAX `f_query_norm` / `W_norm`), or LangProject
+    (`image_lang_att.project.0` / `.2`, JAX `fc1` / `fc2`)."""
+    sd: Dict[str, torch.Tensor] = OrderedDict()
+    _dense(sd, "vis_project.0", fu["vis_project"], conv1d=True)
+    att, st = fu["image_lang_att"], stats.get("image_lang_att", {})
+    if "fc1" in att:
+        _dense(sd, "image_lang_att.project.0", att["fc1"])
+        _dense(sd, "image_lang_att.project.2", att["fc2"])
+    else:
+        for name in ("f_query", "f_key", "f_value", "W"):
+            _dense(sd, f"image_lang_att.{name}.0", att[name], conv1d=True)
+            norm = f"{name}_norm"
+            if norm in st:
+                _batch_norm(sd, f"image_lang_att.{name}.1", att[norm],
+                            st[norm])
+            elif norm in att:
+                _norm(sd, f"image_lang_att.{name}.1", att[norm])
+    _dense(sd, "project_mm.0", fu["project_mm"], conv1d=True)
+    return sd
+
+
+def baseline_state_dict_from_jax(fu: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX BCAM / GACD / EFN params -> the port module's state_dict (the
+    reference's names: tests/torch_oracles.py's BCAM / GACD / EFN)."""
+    sd: Dict[str, torch.Tensor] = OrderedDict()
+    if "lang_reduce" in fu:  # BCAM
+        for name in ("lang_reduce", "out_1", "vis_2_2", "a_proj"):
+            _dense(sd, name, fu[name])
+        for name in ("vis_1", "vis_2", "vis_3", "vis_4", "out3_proj"):
+            _dense(sd, f"{name}.0", fu[name])
+    elif "mm_gen" in fu:  # GACD
+        _dense(sd, "lang_gen.project.0", fu["lang_gen_fc1"])
+        _dense(sd, "lang_gen.project.2", fu["lang_gen_fc2"])
+        _dense(sd, "mm_gen.0", fu["mm_gen"])
+        for name in ("query", "key_c", "key_d", "value"):
+            _dense(sd, name, fu[name])
+    else:  # EFN: the Conv1d kernel (3, in, out) -> (out, in, 3)
+        _dense(sd, "project.0", fu["project"], conv1d=True)
+        _dense(sd, "lang_project.0", fu["lang_project"], conv1d=True)
+        att = fu["image_lang_att"]
+        for name in ("f_query", "f_key"):
+            _dense(sd, f"image_lang_att.{name}.0", att[name], conv1d=True)
+        _put(sd, "image_lang_att.W.0", att["W"],
+             lambda k: _t(np.asarray(k).transpose(2, 1, 0)))
+    return sd
+
+
+def fusion_state_dict_from_jax(fu: Mapping, stats: Mapping
+                               ) -> Dict[str, torch.Tensor]:
+    """Any stage fusion's JAX params -> the port module's state_dict."""
+    if "vis_project" in fu and "kernel" in fu["vis_project"]:
+        return pwam_2d_state_dict_from_jax(fu, stats)
+    if any(k in fu for k in ("lang_reduce", "mm_gen", "lang_project")):
+        return baseline_state_dict_from_jax(fu)
+    return tpwam_state_dict_from_jax(fu)
+
+
 def _conv_bn(sd, dst_conv: str, dst_bn: str, src: Mapping,
              stats: Mapping) -> None:
     """A JAX ConvBN {conv, bn} -> Conv2d + BatchNorm2d."""
@@ -140,15 +223,21 @@ def bert_state_dict_from_jax(te: Mapping, cfg: ModelConfig, prefix: str
     return sd
 
 
-def backbone_state_dict_from_jax(bb: Mapping, cfg: ModelConfig, prefix: str
+def backbone_state_dict_from_jax(bb: Mapping, cfg: ModelConfig, prefix: str,
+                                 stats: Mapping = None
                                  ) -> Dict[str, torch.Tensor]:
     """A JAX Swin backbone (multimodal 2D or 3D, the hybrid, or the plain
-    2D `SwinTransformer`) -> the port's under `prefix`; the stage norms
-    `norm{i}` the JAX tree has (no `norm0` for a plain Swin of stages
-    2-4)."""
+    2D `SwinTransformer`) and its batch statistics (the BN att_norm's) ->
+    the port's under `prefix`; the stage norms `norm{i}` the JAX tree has
+    (no `norm0` for a plain Swin of stages 2-4)."""
     sd: Dict[str, torch.Tensor] = OrderedDict()
+    stats = stats or {}
     swin = cfg.swin
     video = cfg.name == "lavt_video"
+    if "absolute_pos_embed" in bb:
+        ape = np.asarray(bb["absolute_pos_embed"])
+        sd[f"{prefix}absolute_pos_embed"] = _t(
+            ape.reshape(1, -1, ape.shape[-1]))
     sd[f"{prefix}patch_embed.proj.weight"] = (_conv3d if video else _conv2d)(
         bb["patch_embed"]["proj"]["kernel"])
     sd[f"{prefix}patch_embed.proj.bias"] = _t(
@@ -175,14 +264,9 @@ def backbone_state_dict_from_jax(bb: Mapping, cfg: ModelConfig, prefix: str
             _dense(sd, f"{bp}.mlp.fc1", bt["mlp"]["fc1"])
             _dense(sd, f"{bp}.mlp.fc2", bt["mlp"]["fc2"])
         fu, fp = lt.get("fusion"), f"{lp}.fusion"
-        if fu is not None and "image_lang_att" in fu:  # the 2D PWAM
-            _dense(sd, f"{fp}.vis_project.0", fu["vis_project"], conv1d=True)
-            for name in ("f_query", "f_key", "f_value", "W"):
-                _dense(sd, f"{fp}.image_lang_att.{name}.0",
-                       fu["image_lang_att"][name], conv1d=True)
-            _dense(sd, f"{fp}.project_mm.0", fu["project_mm"], conv1d=True)
-        elif fu is not None:
-            for k, v in tpwam_state_dict_from_jax(fu).items():
+        if fu is not None:
+            fstats = stats.get(f"layers_{i}", {}).get("fusion", {})
+            for k, v in fusion_state_dict_from_jax(fu, fstats).items():
                 sd[f"{fp}.{k}"] = v
         if "res_gate" in lt:
             _dense(sd, f"{lp}.res_gate.0", lt["res_gate"]["fc1"])
@@ -200,10 +284,18 @@ def backbone_state_dict_from_jax(bb: Mapping, cfg: ModelConfig, prefix: str
 def simple_decoding_state_dict_from_jax(cl: Mapping, cs: Mapping,
                                         prefix: str
                                         ) -> Dict[str, torch.Tensor]:
+    """JAX SimpleDecoding -> the reference's names; no third join under
+    lazy_pred, `pre_seg` / `seg_last_conv` (JAX's names) where built."""
     sd: Dict[str, torch.Tensor] = OrderedDict()
     for (c1, b1, c2, b2), (ja, jb) in zip(JOINS, _DECODER_JAX):
         for conv, bn, src in ((c1, b1, ja), (c2, b2, jb)):
-            _conv_bn(sd, f"{prefix}{conv}", f"{prefix}{bn}", cl[src], cs[src])
+            if src in cl:
+                _conv_bn(sd, f"{prefix}{conv}", f"{prefix}{bn}", cl[src],
+                         cs[src])
+    for name in ("pre_seg", "seg_last_conv"):
+        if name in cl:
+            _conv_bn(sd, f"{prefix}{name}.conv", f"{prefix}{name}.bn",
+                     cl[name], cs[name])
     sd[f"{prefix}conv1_1.weight"] = _conv2d(cl["head"]["kernel"])
     sd[f"{prefix}conv1_1.bias"] = _t(cl["head"]["bias"])
     return sd
@@ -327,7 +419,8 @@ def state_dict_from_jax(variables: Mapping, cfg: ModelConfig
         sd = bert_state_dict_from_jax(params["bert_model"], cfg,
                                       "bert_model.")
         sd.update(backbone_state_dict_from_jax(
-            params["model"]["backbone"], cfg, "model.backbone."))
+            params["model"]["backbone"], cfg, "model.backbone.",
+            stats.get("model", {}).get("backbone")))
         sd.update(simple_decoding_state_dict_from_jax(
             params["model"]["classifier"], stats["model"]["classifier"],
             "model.classifier."))
@@ -335,7 +428,8 @@ def state_dict_from_jax(variables: Mapping, cfg: ModelConfig
     sd = bert_state_dict_from_jax(params["text_encoder"], cfg,
                                   "text_encoder.")
     sd.update(backbone_state_dict_from_jax(params["backbone"], cfg,
-                                           "backbone."))
+                                           "backbone.",
+                                           stats.get("backbone")))
     head = _HEADS.get(cfg.name, simple_decoding_state_dict_from_jax)
     sd.update(head(params["classifier"], stats["classifier"], "classifier."))
     return sd

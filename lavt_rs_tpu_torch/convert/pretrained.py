@@ -36,8 +36,15 @@ Each flag's tensors are merged non-strictly, as the JAX package's
 whose name and shape match is copied, everything else keeps its init,
 and a per-flag summary of loaded and skipped counts is printed.  The
 geometry buffers (`relative_position_index`, ImageNet Swin's `attn_mask`)
-are skipped: the model builds its own.  A flag that matches nothing
-raises ValueError.  The reshaping runs on the CPU in f32; the results
+are skipped: the model builds its own.  Of a checkpoint's stage fusions
+and decoder, a flag carries what the JAX converters carry
+(`torch2jax.convert_mm_swin2d`, `convert_mm_swin3d`,
+`convert_simple_decoding`) and skips the rest (`jax_converter_reads`):
+the 2D PWAM's projections (attention or LangProject) but not its
+LayerNorm / BatchNorm att_norm, nor BCAM / GACD / EFN; the 3D kinds'
+Conv3d branches of the JAX list and their token-wise keys, values, W
+and project_mm; not `pre_seg` / `seg_last_conv`, which have no
+reference name.  A flag that matches nothing raises ValueError.  The reshaping runs on the CPU in f32; the results
 are copied into the model on its device.
 """
 
@@ -58,6 +65,42 @@ from ..train.checkpoint import load_model_tensors
 StateDict = Dict[str, torch.Tensor]
 GEOMETRY_BUFFERS = ("relative_position_index", "attn_mask")
 TABLE = "attn.relative_position_bias_table"
+# the 2D stage-fusion modules torch2jax.convert_mm_swin2d carries (when the
+# stage has `fusion.vis_project.0`)
+_FUSION_2D = frozenset(
+    ["vis_project.0", "project_mm.0", "image_lang_att.project.0",
+     "image_lang_att.project.2"]
+    + [f"image_lang_att.{n}.0" for n in ("f_query", "f_key", "f_value", "W")])
+# ... and the 3D ones convert_mm_swin3d carries: Conv3d (5-dim) weights of
+# these modules, and the token-wise (not 5-dim) ones of _FUSION_3D_TOKEN
+_FUSION_3D_CONV = frozenset(
+    ("temporal_vis_project", "spatial_vis_project", "temporal_vis_project_q",
+     "spatial_vis_project_q", "vis_project", "f_query", "f_query_t",
+     "f_query_s", "f_query_t_q", "f_query_s_q", "W_t", "W_s",
+     "project_mm_t", "project_mm_s", "W", "project_mm"))
+_FUSION_3D_TOKEN = frozenset(("f_key", "f_value", "W", "project_mm"))
+# decoder modules with no reference name (named after the JAX modules)
+_JAX_ONLY_DECODER = ("classifier.pre_seg.", "classifier.seg_last_conv.")
+
+
+def jax_converter_reads(name: str, sd: StateDict, prefix: str,
+                        video: bool) -> bool:
+    """Whether the JAX converters carry the checkpoint tensor `prefix` +
+    `name` (a stage-fusion tensor `layers.N.fusion....`, or any other)."""
+    if ".fusion." not in name:
+        return True
+    layer, _, rest = name.partition(".fusion.")
+    module = rest.rpartition(".")[0]
+    base = f"{prefix}{layer}.fusion."
+    if not video:
+        return (f"{base}vis_project.0.weight" in sd
+                and module in _FUSION_2D)
+    top, _, index = module.rpartition(".")
+    w = sd.get(f"{base}{module}.weight")
+    if index != "0" or w is None:
+        return False
+    return (top in _FUSION_3D_CONV and w.dim() == 5) or (
+        top in _FUSION_3D_TOKEN and w.dim() != 5)
 
 
 def strip_prefixes(sd: StateDict) -> StateDict:
@@ -143,6 +186,8 @@ def _swin_partial(sd: StateDict, cfg: ModelConfig, prefix: str,
                 v = inflate_rel_pos_table_2d_to_3d(v, swin.window_size_3d)
         elif from_2d and ".fusion." in name:
             continue  # the 2D PWAM has no 3D counterpart
+        if not jax_converter_reads(name, sd, prefix, video):
+            continue
         out["backbone." + name] = v
     return out
 
@@ -155,7 +200,8 @@ def full_partial(sd: StateDict, cfg: ModelConfig,
     sd = strip_prefixes(sd)
     out = {k: v for k, v in sd.items()
            if k.startswith(("text_encoder.", "classifier."))
-           and not k.startswith("text_encoder.pooler.")}
+           and not k.startswith(("text_encoder.pooler.",)
+                                + _JAX_ONLY_DECODER)}
     out.update(_swin_partial(sd, cfg, "backbone.", from_2d))
     return out
 

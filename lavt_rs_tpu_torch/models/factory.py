@@ -35,11 +35,13 @@ _MODELS = {"lavt_one": LAVTOne, "lavt": LAVTTwo, "lavt_video": LAVTVideo,
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Seeded random init in the JAX package's scheme: LeCun-normal linear
-    and conv weights (std fan_in^-1/2; the VLT head's attention in-projection
-    as its three Dense layers) with zero biases, N(0, 0.02) embeddings,
-    0.02 truncated-normal bias tables, unit norms (BatchNorm statistics 0
-    and 1), and zero language gates and 3D self-gates (the fusion branch
-    starts off)."""
+    and conv weights (std fan_in^-1/2, the Conv1d / Conv3d kernels of the
+    fusion variants too; the VLT head's attention in-projection as its
+    three Dense layers) with zero biases, N(0, 0.02) embeddings, 0.02
+    truncated-normal bias tables and absolute position embedding, unit
+    norms (LayerNorm and BatchNorm1d / 2d, BatchNorm statistics 0 and 1),
+    and zero language gates and 3D self-gates (the fusion branch starts
+    off)."""
 
     def normal_(t: torch.Tensor, std: float):
         t.copy_(torch.randn(t.shape, generator=generator,
@@ -67,8 +69,12 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             if isinstance(m, nn.modules.batchnorm._BatchNorm):
                 m.running_mean.zero_()
                 m.running_var.fill_(1.0)
+        tables = []
         if isinstance(m, (WindowAttention, WindowAttention3D)):
-            t = m.relative_position_bias_table
+            tables.append(m.relative_position_bias_table)
+        if getattr(m, "absolute_pos_embed", None) is not None:
+            tables.append(m.absolute_pos_embed)
+        for t in tables:
             normal_(t, 0.02)
             t.clamp_(-0.04, 0.04)
 

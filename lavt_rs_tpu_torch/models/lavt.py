@@ -18,6 +18,15 @@ logits NHWC (B, H, W, num_classes), or frame-major (B*T, H, W,
 num_classes) for video, in f32, upsampled to the input size with
 corner-aligned bilinear.  In training the generator draws every dropout
 and DropPath mask, in forward order (BERT first).
+
+The decoder options (`lazy_pred`, `interpolate_before_seg`, `seg_last`)
+are lavt_one's and lavt_video's, as in the JAX package: under lazy_pred
+the backbone's outputs are stages 2-4 (`ModelConfig.out_indices`) and the
+decoder joins two; LAVTVideo with seg_last returns the decoder's NHWC
+logits in the compute dtype, without the final upsample (JAX
+`lavt.py:244-248`).  The lavt family's LAVT reads four stages: JAX builds
+its backbone with lazy_pred's three and fails to unpack them, and the
+port refuses the flag there; it ignores the other two, as JAX does.
 """
 
 from __future__ import annotations
@@ -40,11 +49,20 @@ from .vlt import VLTFuseAndClassify
 STAGES_2_4 = (1, 2, 3)
 
 
-def _check_decoder(cfg: ModelConfig) -> None:
-    if cfg.lazy_pred or cfg.interpolate_before_seg or cfg.seg_last:
-        raise NotImplementedError(
-            "lazy_pred / interpolate_before_seg / seg_last decoders are "
-            "in the long-tail slice (ROADMAP.md item 3, slice 5)")
+def simple_decoding(cfg: ModelConfig) -> SimpleDecoding:
+    """lavt_one's and lavt_video's decoder with the config's options."""
+    return SimpleDecoding(8 * cfg.swin.embed_dim, cfg.num_classes,
+                          lazy_pred=cfg.lazy_pred,
+                          interpolate_before_seg=cfg.interpolate_before_seg,
+                          seg_last=cfg.seg_last)
+
+
+def decode(classifier: SimpleDecoding, feats, lazy_pred: bool):
+    """The decoder on the backbone's stage outputs (stages 2-4 under
+    lazy_pred), deepest first."""
+    x_c1, (x_c2, x_c3, x_c4) = ((None, feats) if lazy_pred
+                                else (feats[0], feats[1:]))
+    return classifier(x_c4, x_c3, x_c2, x_c1)
 
 
 def upsample_logits_nchw(logits: torch.Tensor, in_hw) -> torch.Tensor:
@@ -56,14 +74,12 @@ def upsample_logits_nchw(logits: torch.Tensor, in_hw) -> torch.Tensor:
 class LAVTOne(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        _check_decoder(cfg)
         self.cfg = cfg
         self.text_encoder = BertEncoder(cfg.bert)
         self.backbone = MultiModalSwinTransformer(
             cfg.swin, cfg.fusion, cfg.out_indices, cfg.use_kernels,
-            cfg.use_checkpoint)
-        self.classifier = SimpleDecoding(8 * cfg.swin.embed_dim,
-                                         cfg.num_classes)
+            cfg.use_checkpoint, cfg.img_size)
+        self.classifier = simple_decoding(cfg)
 
     def forward(self, image: torch.Tensor, text_ids: torch.Tensor,
                 l_mask: torch.Tensor,
@@ -71,9 +87,8 @@ class LAVTOne(nn.Module):
         dt = self.cfg.compute_dtype
         in_hw = image.shape[1:3]
         l_feats = self.text_encoder(text_ids, l_mask, generator=generator)
-        x_c1, x_c2, x_c3, x_c4 = self.backbone(image.to(dt), l_feats, l_mask,
-                                               generator)
-        logits = self.classifier(x_c4, x_c3, x_c2, x_c1)
+        feats = self.backbone(image.to(dt), l_feats, l_mask, generator)
+        logits = decode(self.classifier, feats, self.cfg.lazy_pred)
         return upsample_logits_nchw(logits, in_hw)
 
 
@@ -83,11 +98,15 @@ class LAVT(nn.Module):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        _check_decoder(cfg)
+        if cfg.lazy_pred:
+            raise ValueError(
+                "lavt with --lazy_pred: LAVT decodes four stages, and "
+                "lazy_pred's backbone gives three (the JAX package's LAVT "
+                "fails to unpack them too)")
         self.cfg = cfg
         self.backbone = MultiModalSwinTransformer(
             cfg.swin, cfg.fusion, cfg.out_indices, cfg.use_kernels,
-            cfg.use_checkpoint)
+            cfg.use_checkpoint, cfg.img_size)
         self.classifier = SimpleDecoding(8 * cfg.swin.embed_dim,
                                          cfg.num_classes)
 
@@ -166,7 +185,7 @@ class VLT(nn.Module):
         if fused_backbone:
             self.backbone = MultiModalSwinTransformer(
                 cfg.swin, cfg.fusion, STAGES_2_4, cfg.use_kernels,
-                cfg.use_checkpoint)
+                cfg.use_checkpoint, cfg.img_size)
         else:
             self.backbone = SwinTransformer(cfg.swin, STAGES_2_4,
                                             cfg.use_kernels,
@@ -198,24 +217,25 @@ class LAVTVideo(nn.Module):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        _check_decoder(cfg)
         self.cfg = cfg
         self.text_encoder = BertEncoder(cfg.bert)
         self.backbone = MultiModalSwinTransformer3D(
             cfg.swin, cfg.fusion, cfg.tpwam, cfg.out_indices,
             cfg.use_checkpoint, cfg.use_kernels, cfg.hybrid_2d_3d)
-        self.classifier = SimpleDecoding(8 * cfg.swin.embed_dim,
-                                         cfg.num_classes)
+        self.classifier = simple_decoding(cfg)
 
     def forward(self, video: torch.Tensor, text_ids: torch.Tensor,
                 l_mask: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """video (B, T, H, W, 3) normalized -> (B*T, H, W, K) f32 logits;
-        the generator draws the dropout and DropPath masks in training."""
+        """video (B, T, H, W, 3) normalized -> (B*T, H, W, K) f32 logits
+        (with seg_last the decoder's (B*T, h, w, K) in the compute dtype,
+        not upsampled); the generator draws the dropout and DropPath masks
+        in training."""
         dt = self.cfg.compute_dtype
         in_hw = video.shape[2:4]
         l_feats = self.text_encoder(text_ids, l_mask, generator=generator)
-        x_c1, x_c2, x_c3, x_c4 = self.backbone(video.to(dt), l_feats, l_mask,
-                                               generator)
-        logits = self.classifier(x_c4, x_c3, x_c2, x_c1)
+        feats = self.backbone(video.to(dt), l_feats, l_mask, generator)
+        logits = decode(self.classifier, feats, self.cfg.lazy_pred)
+        if self.cfg.seg_last:
+            return logits.permute(0, 2, 3, 1)
         return upsample_logits_nchw(logits, in_hw)

@@ -19,6 +19,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.resize import resize_f32, resize_nchw
+from .pwam import LangGen, masked_mean
 
 
 def _leaky(x):
@@ -63,22 +64,9 @@ class ASPP(nn.Module):
         return self.project(torch.cat([c(x) for c in self.convs], dim=1))
 
 
-class LangGen(nn.Module):
-    """The sentence vector's 2-layer projection (`lang_gen.project`)."""
-
-    def __init__(self, lang_dim: int, c4_dims: int):
-        super().__init__()
-        self.project = nn.Sequential(nn.Linear(lang_dim, c4_dims), nn.ReLU(),
-                                     nn.Linear(c4_dims, c4_dims))
-
-    def forward(self, x):
-        return self.project(x)
-
-
 def sentence_vector(l: torch.Tensor, l_mask: torch.Tensor) -> torch.Tensor:
     """The mean of the unmasked words, in f32, returned in l's dtype."""
-    m = l_mask.float()[:, :, None]
-    return ((l.float() * m).sum(1) / m.sum(1)).to(l.dtype)
+    return masked_mean(l, l_mask).to(l.dtype)
 
 
 class LTSDecoding(nn.Module):

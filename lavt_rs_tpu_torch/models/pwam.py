@@ -7,6 +7,16 @@ and their names (`vis_project.0`, `image_lang_att.f_query.0`, ...), so
 reference checkpoints load as they are; they are applied to channels-last
 tokens as a linear map.  Padding words are masked with the reference's
 `sim + (1e4 * mask - 1e4)`.
+
+The attention's norms after `f_query` and `W` (--att_norm_layer_type) are
+the reference's second Sequential entries, `f_query.1` and `W.1`: the
+published InstanceNorm (no parameters), a LayerNorm (eps 1e-5), a
+BatchNorm1d over (B, L) per channel (batch statistics in training,
+running ones in eval; a plain `nn.BatchNorm1d`, so `parallel.ddp.
+convert_sync_bn` makes it cross-process), or none (the Sequential holds
+only its conv).  `--fuse simple` swaps the attention for `LangProject`
+(`image_lang_att.project.0` / `.2`), whose (B, 1, C) sentence projection
+multiplies every pixel.
 """
 
 from __future__ import annotations
@@ -31,13 +41,39 @@ class TokenConv1d(nn.Conv1d):
         return F.linear(x, self.weight[:, :, 0], self.bias)
 
 
-def _att_norm(kind: AttnNorm) -> nn.Module:
+def masked_mean(l: torch.Tensor, l_mask: torch.Tensor) -> torch.Tensor:
+    """(B, N_l, D) -> (B, D): the mean of the unmasked words in f32 (the
+    kept words' sum over the mask's sum, JAX `_masked_meanpool`)."""
+    m = l_mask.float()[:, :, None]
+    return (l.float() * m).sum(1) / m.sum(1)
+
+
+def _att_norm(kind: AttnNorm, c: int) -> list:
+    """The norm after a projection of the attention, as the Sequential's
+    second entry (none for AttnNorm.NONE)."""
     if kind == AttnNorm.IN:
-        return InstanceNormTokens()
-    raise NotImplementedError(
-        f"att_norm {kind.value!r}: only the published IN is ported (the "
-        "BN/LN variants are in the long-tail slice, ROADMAP.md item 3, "
-        "slice 5)")
+        return [InstanceNormTokens()]
+    if kind == AttnNorm.LN:
+        return [nn.LayerNorm(c, eps=1e-5)]
+    if kind == AttnNorm.BN:
+        return [nn.BatchNorm1d(c, eps=1e-5)]
+    return []
+
+
+class NormedProjection(nn.Sequential):
+    """A token projection (`name.0`) and its att_norm (`name.1`, if any) on
+    (B, L, C) tokens.  The BatchNorm1d takes (B, C, L), in f32: the JAX
+    module's statistics and normalization are f32 whatever the compute
+    dtype, its output in the input's."""
+
+    def forward(self, x):
+        y = self[0](x)
+        if len(self) == 1:
+            return y
+        norm = self[1]
+        if isinstance(norm, nn.BatchNorm1d):
+            return norm(y.transpose(1, 2).float()).transpose(1, 2).to(y.dtype)
+        return norm(y)
 
 
 class SpatialImageLanguageAttention(nn.Module):
@@ -49,12 +85,12 @@ class SpatialImageLanguageAttention(nn.Module):
         super().__init__()
         self.key_channels, self.value_channels = key_channels, value_channels
         self.num_heads = num_heads
-        self.f_query = nn.Sequential(TokenConv1d(v_in, key_channels),
-                                     _att_norm(att_norm))
+        self.f_query = NormedProjection(TokenConv1d(v_in, key_channels),
+                                        *_att_norm(att_norm, key_channels))
         self.f_key = nn.Sequential(TokenConv1d(l_in, key_channels))
         self.f_value = nn.Sequential(TokenConv1d(l_in, value_channels))
-        self.W = nn.Sequential(TokenConv1d(value_channels, value_channels),
-                               _att_norm(att_norm))
+        self.W = NormedProjection(TokenConv1d(value_channels, value_channels),
+                                  *_att_norm(att_norm, value_channels))
 
     def forward(self, x, l, l_mask):
         """x: (B, L, C_v); l: (B, N_l, D_l); l_mask: (B, N_l) in {0, 1}."""
@@ -77,23 +113,44 @@ class SpatialImageLanguageAttention(nn.Module):
         return self.W(out)
 
 
+class LangGen(nn.Module):
+    """A sentence vector's 2-layer projection Linear -> ReLU -> Linear
+    (`project.0`, `project.2`): the `lang_gen` of LTS and GACD."""
+
+    def __init__(self, l_in: int, c_out: int):
+        super().__init__()
+        self.project = nn.Sequential(nn.Linear(l_in, c_out), nn.ReLU(),
+                                     nn.Linear(c_out, c_out))
+
+    def forward(self, s):
+        return self.project(s)
+
+
+class LangProject(LangGen):
+    """The `--fuse simple` ablation (JAX `pwam.LangProject`, reference
+    lib/backbone.py:1375-1402): the masked mean of the words in f32, cast
+    to the compute dtype, through `LangGen`, as (B, 1, C)."""
+
+    def forward(self, x, l, l_mask):
+        return super().forward(masked_mean(l, l_mask).to(x.dtype))[:, None, :]
+
+
 class PWAM(nn.Module):
     """mm = project_mm(vis_project(x) * image_lang_att(x, l, l_mask)), with
     `dropout` (--fusion_drop, 0 by default) after both projections in
-    training."""
+    training; `attention=False` (--fuse simple) takes `LangProject`'s
+    sentence projection for the attention."""
 
     def __init__(self, dim: int, lang_dim: int = 768, num_heads: int = 1,
                  attention: bool = True, att_norm: AttnNorm = AttnNorm.IN,
                  dropout: float = 0.0):
         super().__init__()
         self.dropout = dropout
-        if not attention:
-            raise NotImplementedError(
-                "LangProject (--fuse simple) is in the long-tail slice "
-                "(ROADMAP.md item 3, slice 5)")
         self.vis_project = nn.Sequential(TokenConv1d(dim, dim), nn.GELU())
-        self.image_lang_att = SpatialImageLanguageAttention(
-            dim, lang_dim, dim, dim, num_heads, att_norm)
+        self.image_lang_att = (
+            SpatialImageLanguageAttention(dim, lang_dim, dim, dim, num_heads,
+                                          att_norm)
+            if attention else LangProject(lang_dim, dim))
         self.project_mm = nn.Sequential(TokenConv1d(dim, dim), nn.GELU())
 
     def forward(self, x, l, l_mask, generator=None):

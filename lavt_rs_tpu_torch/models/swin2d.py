@@ -43,6 +43,12 @@ training step.
     `torch.utils.checkpoint` (the reference's per-block checkpoint, JAX
     `nn.remat`): its forward kernels run again in the backward's
     recompute.
+  * With Swin's `drop_rate` > 0 in training the LN -> MLP tail leaves the
+    fused kernels for the torch chain with its two dropouts (the JAX
+    block's `fused_tail` test, `lavt_rs_tpu/models/swin2d.py:361-362`);
+    the MSA keeps its route, its output dropped after it (JAX
+    `proj_drop`).  `attn_drop_rate` is stored and applied nowhere, as in
+    the JAX package.
 
 Training (the module in train mode, parameters in f32): the routed MSA and
 LN-MLP tail run through their autograd Functions (`FusedWindowMSA`: K1/K2
@@ -53,7 +59,17 @@ per-sample keep, both with the K7 backward), the routed stage norms
 through `LayerNormRows` (K4 with the K4b backward).  DropPath on the attention
 branch and the tail's keep are drawn from the generator passed to
 `forward`; the per-block rates are linspace(0, drop_path_rate, blocks),
-as in the JAX package.
+as in the JAX package.  A block's dropout masks (`drop_rate`) come from a
+generator of its own, seeded from that generator (`ops.dropout.
+dropout_seed`).
+
+The multimodal backbone's stage fusion (`MMBasicLayer.fusion`) is the
+config's kind: PWAM (or with --fuse simple its LangProject form, and the
+`att_norm` kinds), BCAM, GACD or EFN (`models/fusion_baselines.py`);
+`ape` adds the absolute position embedding (`absolute_pos_embed`, the
+224 pretraining grid's 56 x 56 rows, (1, 3136, C) as an ImageNet Swin
+file holds it) bicubic-resized to the patch grid.  The plain Swin of lts
+and vlt has neither, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -68,10 +84,13 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config import FusionConfig, FusionKind, GateKind, StageOutput, SwinConfig
 from ..ops import attention, fused_mlp, fused_msa, fused_msa_2d, ln, window_attn
-from ..ops.dropout import drop_path_apply, drop_path_kept, drop_path_scale
+from ..ops.dropout import (drop_path_apply, drop_path_kept, drop_path_scale,
+                           dropout, dropout_seed, seeded)
+from ..ops.resize import resize_f32
 from ..ops.window import (relative_bias_from_table, relative_position_index_2d,
                           shift_mask_2d, shift_mask_flags_2d,
                           window_partition, window_reverse)
+from .fusion_baselines import BCAM, EFN, GACD
 from .pwam import PWAM, LanguageGate, apply_gate
 
 
@@ -188,17 +207,20 @@ class WindowAttention(fused_msa.WeightLo, nn.Module):
 
 
 class Mlp(nn.Module):
-    """`mlp.fc1` -> exact GELU -> `mlp.fc2` (the reference's names).  Where
-    the tail is routed to K3 the block passes these weights to the fused
-    LN-MLP instead of calling the module."""
+    """`mlp.fc1` -> exact GELU -> `mlp.fc2` (the reference's names), each
+    followed by dropout at `rate` in training.  Where the tail is routed
+    to K3 the block passes these weights to the fused LN-MLP instead of
+    calling the module."""
 
-    def __init__(self, dim: int, hidden: int):
+    def __init__(self, dim: int, hidden: int, rate: float = 0.0):
         super().__init__()
         self.fc1 = nn.Linear(dim, hidden)
         self.fc2 = nn.Linear(hidden, dim)
+        self.rate = rate
 
-    def forward(self, x):
-        return self.fc2(F.gelu(self.fc1(x)))
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        x = dropout(F.gelu(self.fc1(x)), self.rate, self.training, generator)
+        return dropout(self.fc2(x), self.rate, self.training, generator)
 
 
 class SwinBlock(nn.Module):
@@ -206,23 +228,31 @@ class SwinBlock(nn.Module):
                  shift_size: int = 0, mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, qk_scale: Optional[float] = None,
                  use_kernels: bool = True, drop_path_rate: float = 0.0,
-                 use_checkpoint: bool = False):
+                 use_checkpoint: bool = False, drop_rate: float = 0.0):
         super().__init__()
         self.window_size, self.shift_size = window_size, shift_size
         self.use_kernels = use_kernels
         self.drop_path_rate = drop_path_rate
+        self.drop_rate = drop_rate
         self.use_checkpoint = use_checkpoint  # its layer checkpoints it
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         self.attn = WindowAttention(dim, window_size, num_heads, qkv_bias,
                                     qk_scale, use_kernels)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), drop_rate)
 
     def _windows(self, hw: Tuple[int, int]) -> Tuple[int, int, int]:
         """(bottom pad, right pad, windows) of an h x w map."""
         ws = self.window_size
         pad_b, pad_r = ((ws - s % ws) % ws for s in hw)
         return pad_b, pad_r, ((hw[0] + pad_b) // ws) * ((hw[1] + pad_r) // ws)
+
+    def tail_fused(self, train: bool) -> bool:
+        """Whether the LN -> MLP tail takes the fused kernels (K3, or K8
+        and K7 in training): the JAX block's test, C % 128 == 0 up to the
+        port's widths and, in training, no dropout (`drop_rate` 0)."""
+        return fused_mlp.fused_tail_routed(self.attn.dim) and not (
+            train and self.drop_rate > 0)
 
     def kernels(self, hw: Tuple[int, int], batch: int, itemsize: int = 2,
                 train: bool = False) -> List[str]:
@@ -245,28 +275,32 @@ class SwinBlock(nn.Module):
         elif route == "core":
             fwd.append("K10")
             bwd += ["K9"] if train else []
-        if fused_mlp.fused_tail_routed(c):
+        if self.tail_fused(train):
             fwd.append("K8" if train and self.drop_path_rate > 0 else "K3")
             bwd += ["K7"] if train else []
         return fwd * (2 if train and self.use_checkpoint else 1) + bwd
 
     def draw_kept(self, b: int, generator: Optional[torch.Generator],
-                  device) -> Tuple[Optional[torch.Tensor], ...]:
-        """The block's two DropPath draws, attention branch first, then the
-        tail's (K8's keep where the tail is fused); None for each where
-        nothing is drawn."""
+                  device) -> Tuple:
+        """The block's draws: its two DropPath draws, attention branch
+        first, then the tail's (K8's keep where the tail is fused), and
+        the seed of its dropout generator (`dropout_seed`); None for each
+        where nothing is drawn."""
         return tuple(drop_path_kept(b, self.drop_path_rate, self.training,
-                                    generator, device) for _ in range(2))
+                                    generator, device) for _ in range(2)) + (
+            dropout_seed(self.drop_rate, self.training, generator, device),)
 
     def forward(self, x, hw: Tuple[int, int],
                 generator: Optional[torch.Generator] = None,
                 kept: Optional[Tuple[Optional[torch.Tensor], ...]] = None):
-        """x: (B, H*W, C); the generator draws DropPath in training, unless
-        the draws are given (`kept`, from `draw_kept`)."""
+        """x: (B, H*W, C); the generator draws DropPath and the dropout
+        seed in training, unless the draws are given (`kept`, from
+        `draw_kept`)."""
         h, w = hw
         b, l, c = x.shape
         if kept is None:
             kept = self.draw_kept(b, generator, x.device)
+        drops = seeded(kept[2], x.device)
         ws, ss = self.window_size, self.shift_size
         shortcut = x
         pad_b, pad_r, nw = self._windows(hw)
@@ -296,9 +330,11 @@ class SwinBlock(nn.Module):
         if padded:
             x = x[:, :h, :w, :]
         rate = self.drop_path_rate
-        x = shortcut + drop_path_apply(x.reshape(b, l, c), kept[0], rate)
-        if not fused_mlp.fused_tail_routed(c):
-            return x + drop_path_apply(self.mlp(self.norm2(x)), kept[1], rate)
+        x = dropout(x.reshape(b, l, c), self.drop_rate, self.training, drops)
+        x = shortcut + drop_path_apply(x, kept[0], rate)
+        if not self.tail_fused(self.training):
+            return x + drop_path_apply(self.mlp(self.norm2(x), drops),
+                                       kept[1], rate)
 
         params = (self.norm2.weight, self.norm2.bias, self.mlp.fc1.weight,
                   self.mlp.fc1.bias, self.mlp.fc2.weight, self.mlp.fc2.bias)
@@ -399,14 +435,14 @@ def make_blocks(dim: int, depth: int, num_heads: int, window_size: int,
                 mlp_ratio: float, qkv_bias: bool, qk_scale: Optional[float],
                 use_kernels: bool,
                 drop_path_rates: Optional[Tuple[float, ...]],
-                use_checkpoint: bool) -> nn.ModuleList:
+                use_checkpoint: bool, drop_rate: float = 0.0) -> nn.ModuleList:
     """One stage's Swin blocks, every second one shifted by half a
     window."""
     rates = drop_path_rates or (0.0,) * depth
     return nn.ModuleList(
         SwinBlock(dim, num_heads, window_size,
                   0 if i % 2 == 0 else window_size // 2, mlp_ratio, qkv_bias,
-                  qk_scale, use_kernels, rates[i], use_checkpoint)
+                  qk_scale, use_kernels, rates[i], use_checkpoint, drop_rate)
         for i in range(depth))
 
 
@@ -420,11 +456,11 @@ class BasicLayer(nn.Module):
                  mlp_ratio: float, qkv_bias: bool, qk_scale: Optional[float],
                  has_downsample: bool, use_kernels: bool = True,
                  drop_path_rates: Optional[Tuple[float, ...]] = None,
-                 use_checkpoint: bool = False):
+                 use_checkpoint: bool = False, drop_rate: float = 0.0):
         super().__init__()
         self.blocks = make_blocks(dim, depth, num_heads, window_size,
                                   mlp_ratio, qkv_bias, qk_scale, use_kernels,
-                                  drop_path_rates, use_checkpoint)
+                                  drop_path_rates, use_checkpoint, drop_rate)
         self.use_checkpoint = use_checkpoint
         self.downsample = PatchMerging(dim) if has_downsample else None
 
@@ -436,30 +472,49 @@ class BasicLayer(nn.Module):
         return x, x, hw
 
 
+def make_fusion(fusion: FusionConfig, dim: int, heads: int,
+                hw: Optional[int] = None) -> nn.Module:
+    """A 2D stage's fusion module of the config's kind (JAX
+    `MMBasicLayer`, `lavt_rs_tpu/models/swin2d.py:498-522`): PWAM, its
+    LangProject form (--fuse simple), BCAM (bound to the stage's map of
+    `hw` tokens), GACD or EFN."""
+    kind = fusion.kind
+    if kind in (FusionKind.PWAM, FusionKind.SIMPLE):
+        return PWAM(dim, fusion.lang_dim, heads,
+                    attention=kind == FusionKind.PWAM,
+                    att_norm=fusion.att_norm, dropout=fusion.dropout)
+    if kind == FusionKind.BCAM:
+        if hw is None:
+            raise ValueError("BCAM needs its stage's H*W (the learned "
+                             "a_proj): build the backbone with img_size")
+        return BCAM(dim, hw, fusion.lang_dim)
+    if kind == FusionKind.GACD:
+        return GACD(dim, fusion.lang_dim)
+    if kind == FusionKind.EFN:
+        return EFN(dim, fusion.lang_dim)
+    raise ValueError(f"unknown fusion kind {kind}")
+
+
 class MMBasicLayer(nn.Module):
-    """One multimodal stage: Swin blocks -> PWAM -> LG residual -> merge.
-    With `use_checkpoint` each block is checkpointed in training; the
-    language gate is applied either way (as in the JAX layer)."""
+    """One multimodal stage: Swin blocks -> fusion (`make_fusion`) -> LG
+    residual -> merge.  With `use_checkpoint` each block is checkpointed
+    in training; the language gate is applied either way (as in the JAX
+    layer).  `hw`: the stage's tokens, which BCAM's projection needs."""
 
     def __init__(self, dim: int, depth: int, num_heads: int, window_size: int,
                  mlp_ratio: float, qkv_bias: bool, qk_scale: Optional[float],
                  has_downsample: bool, fusion: FusionConfig, fusion_heads: int,
                  use_kernels: bool = True,
                  drop_path_rates: Optional[Tuple[float, ...]] = None,
-                 use_checkpoint: bool = False):
+                 use_checkpoint: bool = False, drop_rate: float = 0.0,
+                 hw: Optional[int] = None):
         super().__init__()
-        if fusion.kind != FusionKind.PWAM:
-            raise NotImplementedError(
-                f"fusion {fusion.kind.value!r}: only PWAM is ported; the "
-                "baselines are in the long-tail slice (ROADMAP.md item 3, "
-                "slice 5)")
         self.fusion_cfg = fusion
         self.blocks = make_blocks(dim, depth, num_heads, window_size,
                                   mlp_ratio, qkv_bias, qk_scale, use_kernels,
-                                  drop_path_rates, use_checkpoint)
+                                  drop_path_rates, use_checkpoint, drop_rate)
         self.use_checkpoint = use_checkpoint
-        self.fusion = PWAM(dim, fusion.lang_dim, fusion_heads,
-                           att_norm=fusion.att_norm, dropout=fusion.dropout)
+        self.fusion = make_fusion(fusion, dim, fusion_heads, hw)
         self.res_gate = (LanguageGate(dim, fusion.lg_act)
                          if fusion.gate == GateKind.DEFAULT else None)
         self.downsample = PatchMerging(dim) if has_downsample else None
@@ -502,24 +557,53 @@ def blocks_plan(blocks, hw: Tuple[int, int], batch: int, itemsize: int,
                         "the torch chain")
 
 
-class _SwinStages(nn.Module):
-    """What the two 2D backbones share: the patch embedding, the stage
-    norms `norm{i}` of out_indices only (no `norm0` where stage 1 is not
-    an output), the kernel plan and the pass over the stages."""
+# the absolute position embedding's grid: the 224² pretraining images
+APE_PRETRAIN_SIZE = 224
 
-    def __init__(self, cfg: SwinConfig, out_indices: Tuple[int, ...]):
+
+class _SwinStages(nn.Module):
+    """What the two 2D backbones share: the patch embedding (with `ape`,
+    the absolute position embedding, and the dropout at `drop_rate`
+    after it), the stage norms `norm{i}` of out_indices only (no `norm0`
+    where stage 1 is not an output), the kernel plan and the pass over
+    the stages."""
+
+    def __init__(self, cfg: SwinConfig, out_indices: Tuple[int, ...],
+                 ape: bool = False):
         super().__init__()
-        if cfg.ape:
-            raise NotImplementedError(
-                "absolute position embedding is in the long-tail slice "
-                "(ROADMAP.md item 3, slice 5)")
-        if cfg.drop_rate or cfg.attn_drop_rate:
-            raise NotImplementedError(
-                "Swin drop_rate / attn_drop_rate (0 in every published "
-                "config) are not ported (ROADMAP.md item 3, slice 5)")
         self.cfg, self.out_indices = cfg, tuple(out_indices)
         self.patch_embed = PatchEmbed(cfg.embed_dim, cfg.patch_size,
                                       cfg.patch_norm)
+        side = APE_PRETRAIN_SIZE // cfg.patch_size
+        self.absolute_pos_embed = (
+            nn.Parameter(torch.zeros(1, side * side, cfg.embed_dim))
+            if ape else None)
+
+    def stage_tokens(self, img_size: int) -> List[int]:
+        """Each stage's H*W for img_size² images: the patch grid (padded
+        up, as `PatchEmbed`), then (h + 1) // 2 per merge (`PatchMerging`)."""
+        h = -(-img_size // self.cfg.patch_size)
+        out = []
+        for _ in range(self.cfg.num_layers):
+            out.append(h * h)
+            h = (h + 1) // 2
+        return out
+
+    def _embed(self, x, generator):
+        """Patch embedding (+ the bicubic-resized `absolute_pos_embed`,
+        interpolated in f32 and added in the compute dtype) -> (B, L, C)
+        tokens, dropped at `drop_rate` in training."""
+        x = self.patch_embed(x)
+        b, wh, ww, c = x.shape
+        if self.absolute_pos_embed is not None:
+            side = int(round(self.absolute_pos_embed.shape[1] ** 0.5))
+            ape = self.absolute_pos_embed.float().view(1, side, side, c)
+            ape = resize_f32(ape.permute(0, 3, 1, 2), (wh, ww),
+                             align_corners=False, mode="bicubic")
+            x = x + ape.permute(0, 2, 3, 1).to(x.dtype)
+        x = x.reshape(b, wh * ww, c)
+        return dropout(x, self.cfg.drop_rate, self.training,
+                       generator), (wh, ww)
 
     def _add_norms(self, use_kernels: bool) -> None:
         """After the layers, as the reference orders its state dict."""
@@ -561,17 +645,16 @@ class _SwinStages(nn.Module):
             hw = ((hw[0] + 1) // 2, (hw[1] + 1) // 2)
         return counts, unrouted
 
-    def _stages(self, x, run_layer) -> Tuple[torch.Tensor, ...]:
+    def _stages(self, x, run_layer, generator=None
+                ) -> Tuple[torch.Tensor, ...]:
         """The residual stream runs in x's dtype (the compute dtype): under
         autocast the plain modules' outputs are cast back to it before
         every stage and stage norm.  run_layer(layer, x, hw) -> (x_out,
         x, next_hw)."""
         dt = x.dtype
-        x = self.patch_embed(x)
-        b, wh, ww, c = x.shape
-        x = x.reshape(b, wh * ww, c)
+        b = x.shape[0]
+        x, hw = self._embed(x, generator)
         outs = []
-        hw = (wh, ww)
         for i, layer in enumerate(self.layers):
             x_out, x, next_hw = run_layer(layer, x.to(dt), hw)
             if i in self.out_indices:
@@ -595,32 +678,41 @@ class SwinTransformer(_SwinStages):
             BasicLayer(cfg.num_features[i], cfg.depths[i], cfg.num_heads[i],
                        cfg.window_size, cfg.mlp_ratio, cfg.qkv_bias,
                        cfg.qk_scale, i < cfg.num_layers - 1, use_kernels,
-                       self._drop_path_rates(i), use_checkpoint)
+                       self._drop_path_rates(i), use_checkpoint,
+                       cfg.drop_rate)
             for i in range(cfg.num_layers))
         self._add_norms(use_kernels)
 
     def forward(self, x, generator: Optional[torch.Generator] = None):
-        return self._stages(x, lambda layer, x, hw: layer(x, hw, generator))
+        return self._stages(x, lambda layer, x, hw: layer(x, hw, generator),
+                            generator)
 
 
 class MultiModalSwinTransformer(_SwinStages):
     """forward(image NHWC, l (B, N_l, D_l), l_mask (B, N_l)) -> tuple of
-    per-stage NHWC features, one per out_indices."""
+    per-stage NHWC features, one per out_indices.  `img_size`: the square
+    input the model is built for, which BCAM's per-stage projections
+    need (`stage_tokens`)."""
 
     def __init__(self, cfg: SwinConfig, fusion: FusionConfig,
                  out_indices: Tuple[int, ...] = (0, 1, 2, 3),
-                 use_kernels: bool = True, use_checkpoint: bool = False):
-        super().__init__(cfg, out_indices)
+                 use_kernels: bool = True, use_checkpoint: bool = False,
+                 img_size: Optional[int] = None):
+        super().__init__(cfg, out_indices, cfg.ape)
+        hws = (self.stage_tokens(img_size) if img_size
+               else [None] * cfg.num_layers)
         self.layers = nn.ModuleList(
             MMBasicLayer(cfg.num_features[i], cfg.depths[i], cfg.num_heads[i],
                          cfg.window_size, cfg.mlp_ratio, cfg.qkv_bias,
                          cfg.qk_scale, i < cfg.num_layers - 1, fusion,
                          fusion.num_heads[i], use_kernels,
-                         self._drop_path_rates(i), use_checkpoint)
+                         self._drop_path_rates(i), use_checkpoint,
+                         cfg.drop_rate, hws[i])
             for i in range(cfg.num_layers))
         self._add_norms(use_kernels)
 
     def forward(self, x, l, l_mask,
                 generator: Optional[torch.Generator] = None):
         return self._stages(
-            x, lambda layer, x, hw: layer(x, hw, l, l_mask, generator))
+            x, lambda layer, x, hw: layer(x, hw, l, l_mask, generator),
+            generator)

@@ -62,6 +62,14 @@ restores the default generators, not the explicit `torch.Generator` the
 port draws from); the recompute runs K10's save mode again, so a
 checkpointed block launches it twice a step.  The last stage also skips
 its language gate under the flag, as the reference does.
+
+The stage fusion is `tpwam.build_tpwam`'s 3D kind, whatever the fusion
+kind (the JAX layers read `fusion.kind` only for the 2D PWAM of
+TPWAMKind.PWAM2D, where --fuse simple takes LangProject).  Swin's
+`drop_rate` drops the patch embedding's output and the MLP's two
+outputs in training (no projection dropout in the 3D attention, as in
+the JAX block; the hybrid's 2D blocks take `swin2d`'s); `ape` is not
+read: the JAX 3D backbone has no absolute position embedding.
 """
 
 from __future__ import annotations
@@ -75,10 +83,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..config import (FusionConfig, FusionKind, GateKind, StageOutput,
-                      SwinConfig, TPWAMConfig, TPWAMKind)
+from ..config import (FusionConfig, GateKind, StageOutput, SwinConfig,
+                      TPWAMConfig)
 from ..ops import attention, fused_msa, window_attn
-from ..ops.dropout import drop_path_apply, drop_path_kept
+from ..ops.dropout import (drop_path_apply, drop_path_kept, dropout,
+                           dropout_seed, seeded)
 from ..ops.window import (get_window_size_3d, partition_3d_groups,
                           partition_shifted_padded_3d,
                           relative_bias_from_table_3d,
@@ -86,8 +95,8 @@ from ..ops.window import (get_window_size_3d, partition_3d_groups,
                           reverse_shifted_unpadded_3d, shift_mask_3d,
                           shift_mask_flags_3d,
                           window_partition_3d, window_reverse_3d)
-from .pwam import PWAM, LanguageGate, apply_gate
-from .swin2d import SwinBlock, blocks_plan
+from .pwam import LanguageGate, apply_gate
+from .swin2d import Mlp, SwinBlock, blocks_plan
 from .tpwam import build_tpwam
 
 
@@ -183,36 +192,26 @@ class WindowAttention3D(fused_msa.WeightLo, nn.Module):
         return self.proj(out.transpose(2, 3).reshape(b, nw, n, c))
 
 
-class Mlp(nn.Module):
-    """fc1 -> exact GELU -> fc2 (`mlp.fc1`, `mlp.fc2`)."""
-
-    def __init__(self, dim: int, hidden: int):
-        super().__init__()
-        self.fc1 = nn.Linear(dim, hidden)
-        self.fc2 = nn.Linear(hidden, dim)
-
-    def forward(self, x):
-        return self.fc2(F.gelu(self.fc1(x)))
-
-
 class SwinBlock3D(nn.Module):
     def __init__(self, dim: int, num_heads: int,
                  window_size: Tuple[int, int, int] = (2, 7, 7),
                  shift_size: Tuple[int, int, int] = (0, 0, 0),
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
                  qk_scale: Optional[float] = None, use_kernels: bool = True,
-                 drop_path_rate: float = 0.0, use_checkpoint: bool = False):
+                 drop_path_rate: float = 0.0, use_checkpoint: bool = False,
+                 drop_rate: float = 0.0):
         super().__init__()
         self.dim, self.num_heads = dim, num_heads
         self.window_size, self.shift_size = tuple(window_size), tuple(shift_size)
         self.use_kernels = use_kernels
         self.drop_path_rate = drop_path_rate
+        self.drop_rate = drop_rate
         self.use_checkpoint = use_checkpoint  # its layer checkpoints it
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         self.attn = WindowAttention3D(dim, self.window_size, num_heads,
                                       qkv_bias, qk_scale, use_kernels)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), drop_rate)
 
     def _windows(self, dhw: Tuple[int, int, int]):
         """(window, shift, pads, windows, tokens per window) of a
@@ -248,11 +247,13 @@ class SwinBlock3D(nn.Module):
                 "chain": []}[route]
 
     def draw_kept(self, b: int, generator: Optional[torch.Generator],
-                  device) -> Tuple[Optional[torch.Tensor], ...]:
-        """The block's two DropPath draws, attention branch first (None for
-        each where nothing is drawn)."""
+                  device) -> Tuple:
+        """The block's two DropPath draws, attention branch first, and the
+        seed of its dropout generator (None for each where nothing is
+        drawn)."""
         return tuple(drop_path_kept(b, self.drop_path_rate, self.training,
-                                    generator, device) for _ in range(2))
+                                    generator, device) for _ in range(2)) + (
+            dropout_seed(self.drop_rate, self.training, generator, device),)
 
     def forward(self, x, generator: Optional[torch.Generator] = None,
                 kept: Optional[Tuple[Optional[torch.Tensor], ...]] = None):
@@ -292,7 +293,8 @@ class SwinBlock3D(nn.Module):
                 y = y[:, :d, :h, :w]
         rate = self.drop_path_rate
         x = shortcut + drop_path_apply(y, kept[0], rate)
-        return x + drop_path_apply(self.mlp(self.norm2(x)), kept[1], rate)
+        return x + drop_path_apply(
+            self.mlp(self.norm2(x), seeded(kept[2], x.device)), kept[1], rate)
 
 
 class PatchEmbed3D(nn.Module):
@@ -349,13 +351,8 @@ class MMBasicLayer3D(nn.Module):
                  tpwam: TPWAMConfig, skip_gate: bool = False,
                  use_kernels: bool = True,
                  drop_path_rates: Optional[Tuple[float, ...]] = None,
-                 use_checkpoint: bool = False):
+                 use_checkpoint: bool = False, drop_rate: float = 0.0):
         super().__init__()
-        if fusion.kind != FusionKind.PWAM:
-            raise NotImplementedError(
-                f"fusion {fusion.kind.value!r}: only PWAM is ported; the "
-                "baselines are in the long-tail slice (ROADMAP.md item 3, "
-                "slice 5)")
         self.fusion_cfg = fusion
         shift = tuple(s // 2 for s in window_size)
         rates = drop_path_rates or (0.0,) * depth
@@ -363,11 +360,12 @@ class MMBasicLayer3D(nn.Module):
             SwinBlock3D(dim, num_heads, window_size,
                         (0, 0, 0) if i % 2 == 0 else shift, mlp_ratio,
                         qkv_bias, qk_scale, use_kernels,
-                        drop_path_rate=rates[i], use_checkpoint=use_checkpoint)
+                        drop_path_rate=rates[i], use_checkpoint=use_checkpoint,
+                        drop_rate=drop_rate)
             for i in range(depth))
         self.use_checkpoint = use_checkpoint
         self.fusion = build_tpwam(tpwam, dim, fusion_heads, fusion.lang_dim,
-                                  fusion.dropout)
+                                  fusion.dropout, fusion)
         self.res_gate = (LanguageGate(dim, fusion.lg_act)
                          if fusion.gate == GateKind.DEFAULT and not skip_gate
                          else None)
@@ -410,8 +408,8 @@ class Hybrid2D3DLayer(nn.Module):
     --ytvos_2d_swin_pwam; JAX `Hybrid2D3DLayer`, reference
     lib/backbone.py:708-992): 2D Swin blocks (`swin2d.SwinBlock`, its
     routes and kernels) on the (B*D, H*W, C) frames -> fusion over the clip
-    (SepTPWAM on (B, D, H, W, C), or under `TPWAMKind.PWAM2D` the 2D PWAM
-    on (B, D*H*W, C)) -> LG residual -> merge.  The stage output is the
+    (`build_tpwam`'s kind on (B, D, H, W, C); under TPWAMKind.PWAM2D the
+    2D PWAM on its flattened tokens) -> LG residual -> merge.  The stage output is the
     fusion output.  With `use_checkpoint` each block is checkpointed in
     training, its DropPath draws made first (as `swin2d.MMBasicLayer`)."""
 
@@ -420,28 +418,19 @@ class Hybrid2D3DLayer(nn.Module):
                  has_downsample: bool, fusion: FusionConfig, fusion_heads: int,
                  tpwam: TPWAMConfig, use_kernels: bool = True,
                  drop_path_rates: Optional[Tuple[float, ...]] = None,
-                 use_checkpoint: bool = False):
+                 use_checkpoint: bool = False, drop_rate: float = 0.0):
         super().__init__()
-        if fusion.kind != FusionKind.PWAM:
-            raise NotImplementedError(
-                f"fusion {fusion.kind.value!r}: only PWAM is ported; the "
-                "baselines are in the long-tail slice (ROADMAP.md item 3, "
-                "slice 5)")
         self.fusion_cfg = fusion
         rates = drop_path_rates or (0.0,) * depth
         self.blocks = nn.ModuleList(
             SwinBlock(dim, num_heads, window_size,
                       0 if i % 2 == 0 else window_size // 2, mlp_ratio,
                       qkv_bias, qk_scale, use_kernels, rates[i],
-                      use_checkpoint)
+                      use_checkpoint, drop_rate)
             for i in range(depth))
         self.use_checkpoint = use_checkpoint
-        self.pwam_2d = tpwam.kind == TPWAMKind.PWAM2D
-        self.fusion = (PWAM(dim, fusion.lang_dim, fusion_heads,
-                            att_norm=fusion.att_norm, dropout=fusion.dropout)
-                       if self.pwam_2d else
-                       build_tpwam(tpwam, dim, fusion_heads, fusion.lang_dim,
-                                   fusion.dropout))
+        self.fusion = build_tpwam(tpwam, dim, fusion_heads, fusion.lang_dim,
+                                  fusion.dropout, fusion)
         self.res_gate = (LanguageGate(dim, fusion.lg_act)
                          if fusion.gate == GateKind.DEFAULT else None)
         self.downsample = PatchMerging3D(dim) if has_downsample else None
@@ -461,8 +450,8 @@ class Hybrid2D3DLayer(nn.Module):
             else:
                 flat = blk(flat, (h, w), generator)
         tokens = flat.reshape(b, d * h * w, c)
-        mm = self.fusion(tokens if self.pwam_2d else tokens.reshape(b, d, h, w, c),
-                         l, l_mask, generator)  # (B, DHW, C)
+        mm = self.fusion(flat.reshape(b, d, h, w, c), l, l_mask,
+                         generator)  # (B, DHW, C)
         gate_out = self.res_gate(mm) if self.res_gate is not None else None
         tokens = apply_gate(tokens, mm, gate_out, self.fusion_cfg.gate)
         x = tokens.reshape(b, d, h, w, c)
@@ -480,14 +469,6 @@ class MultiModalSwinTransformer3D(nn.Module):
                  use_checkpoint: bool = False, use_kernels: bool = True,
                  hybrid_2d: bool = False):
         super().__init__()
-        if cfg.ape:
-            raise NotImplementedError(
-                "absolute position embedding is in the long-tail slice "
-                "(ROADMAP.md item 3, slice 5)")
-        if cfg.drop_rate or cfg.attn_drop_rate:
-            raise NotImplementedError(
-                "Swin drop_rate / attn_drop_rate (0 in every published "
-                "config) are not ported")
         self.cfg, self.out_indices = cfg, tuple(out_indices)
         self.patch_embed = PatchEmbed3D(cfg.embed_dim, cfg.patch_size_3d,
                                         cfg.patch_norm)
@@ -501,7 +482,7 @@ class MultiModalSwinTransformer3D(nn.Module):
                     fusion, fusion.num_heads[i], tpwam)
             kw = dict(use_kernels=use_kernels,
                       drop_path_rates=tuple(dpr[starts[i]:starts[i + 1]]),
-                      use_checkpoint=use_checkpoint)
+                      use_checkpoint=use_checkpoint, drop_rate=cfg.drop_rate)
             if hybrid_2d:  # the 2D window, as the JAX package (:506-511)
                 return Hybrid2D3DLayer(*common, cfg.window_size, *rest, **kw)
             return MMBasicLayer3D(*common, cfg.window_size_3d, *rest,
@@ -550,7 +531,8 @@ class MultiModalSwinTransformer3D(nn.Module):
         dtype): under autocast the plain modules' outputs are cast back to
         it before every stage and stage norm, as in the 2D backbone."""
         dt = video.dtype
-        x = self.patch_embed(video)
+        x = dropout(self.patch_embed(video), self.cfg.drop_rate,
+                    self.training, generator)
         outs = []
         for i, layer in enumerate(self.layers):
             x_out, x = layer(x.to(dt), l, l_mask, generator)

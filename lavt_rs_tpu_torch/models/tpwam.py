@@ -1,6 +1,12 @@
-"""The 3D PWAM of the video backbone (counterpart of
-`lavt_rs_tpu/models/tpwam.py`): SepTPWAM, the published A2D default, and
-the 2D PWAM on a clip's flattened tokens.
+"""The 3D PWAM family of the video backbone (counterpart of
+`lavt_rs_tpu/models/tpwam.py`, reference lib/video_swin_transformer.py:
+1061-2089): SepTPWAM, the published A2D default; SepTPWAMInner
+(--sep_t_pwam_inner); SepSeqTPWAM (--sep_seq_t_pwam, and with
+`inner_only` --sep_seq_t_pwam_inner); TPWAM (--t_pwam; --t_pwam_comp
+with W and project_mm as Conv3d too); TSPWAM (--ts_pwam: a temporal and
+a spatial TPWAM summed or concatenated and reduced); SeqTPWAM
+(--seq_t_pwam, with --res its P3D-C residual); and the 2D PWAM on a
+clip's flattened tokens.
 
 Visual features come in as (B, D, H, W, C) and the result is
 (B, D*H*W, C).  The convolutions are `nn.Conv3d` on (B, C, D, H, W) with
@@ -17,11 +23,14 @@ drawn from the generator passed to `forward` in the JAX module's order.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..config import BranchFuse, TPWAMConfig, TPWAMKind
+from ..config import (BranchFuse, FusionConfig, FusionKind, TPWAMConfig,
+                      TPWAMKind)
 from ..ops.dropout import dropout
 from ..ops.norm import InstanceNormTokens, instance_norm_nd
 from .pwam import PWAM, TokenConv1d
@@ -103,15 +112,47 @@ def _volume(t, dhw):
     return t.transpose(1, 2).reshape(b, c, *dhw)
 
 
-class SepTPWAM(nn.Module):
+def _token_w(dim: int) -> nn.Sequential:
+    """`W`: a kernel-1 Conv1d and InstanceNorm over the tokens."""
+    return nn.Sequential(TokenConv1d(dim, dim), InstanceNormTokens())
+
+
+def _token_mm(c_in: int, dim: int) -> nn.Sequential:
+    """A token-wise kernel-1 Conv1d + GELU (`project_mm`, `out_reduce`)."""
+    return nn.Sequential(TokenConv1d(c_in, dim), nn.GELU())
+
+
+class _LangAttention(nn.Module):
+    """The language keys and values (`f_key.0`, `f_value.0`, padding words
+    zeroed), the cross attention and the token-wise `project_mm` that the
+    3D kinds share."""
+
+    def _lang_init(self, dim: int, lang_dim: int, num_heads: int,
+                   dropout: float) -> None:
+        self.dim, self.num_heads, self.dropout = dim, num_heads, dropout
+        self.f_key = nn.Sequential(TokenConv1d(lang_dim, dim))
+        self.f_value = nn.Sequential(TokenConv1d(lang_dim, dim))
+
+    def attend(self, query, l, l_mask):
+        """query (B, L, C) -> the attended language (B, L, C)."""
+        m = l_mask.to(query.dtype)[:, :, None]
+        return cross_attention(query, self.f_key(l) * m, self.f_value(l) * m,
+                               l_mask, self.num_heads, self.dim)
+
+    def project(self, mm, generator):
+        """The token-wise `project_mm` (Conv1d + GELU) and its dropout."""
+        return dropout(self.project_mm(mm), self.dropout, self.training,
+                       generator)
+
+
+class SepTPWAM(_LangAttention):
     """Decoupled temporal / spatial PWAM (reference
     video_swin_transformer.py:1300-1584)."""
 
     def __init__(self, dim: int, lang_dim: int = 768, num_heads: int = 1,
                  cfg: TPWAMConfig = TPWAMConfig(), dropout: float = 0.0):
         super().__init__()
-        self.dim, self.num_heads, self.cfg = dim, num_heads, cfg
-        self.dropout = dropout
+        self.cfg = cfg
         kt, ks = cfg.kernel_t, cfg.kernel_s
         fuse_k = cfg.fuse_kernel or kt
         self.temporal_vis_project = ConvGELU3D(dim, dim, kt, dropout)
@@ -127,15 +168,14 @@ class SepTPWAM(nn.Module):
         elif cfg.branch_fuse == BranchFuse.SUM_CONV:
             self.vis_fuse = ConvGELU3D(dim, dim, fuse_k, dropout)
             self.f_fuse = ConvIN3D(dim, dim, fuse_k)
-        self.f_key = nn.Sequential(TokenConv1d(lang_dim, dim))
-        self.f_value = nn.Sequential(TokenConv1d(lang_dim, dim))
+        self._lang_init(dim, lang_dim, num_heads, dropout)
         if cfg.w_single_conv:
             self.W = ConvIN3D(dim, dim, self._single(cfg.w_single_conv))
         elif cfg.w_t3x3_s1x1:
             self.W_t = ConvIN3D(dim, dim, kt)
             self.W_s = ConvIN3D(dim, dim, (1, 1, 1))
         else:
-            self.W = nn.Sequential(TokenConv1d(dim, dim), InstanceNormTokens())
+            self.W = _token_w(dim)
         if cfg.mm_single_conv:
             self.project_mm = ConvGELU3D(dim, dim,
                                          self._single(cfg.mm_single_conv),
@@ -144,7 +184,7 @@ class SepTPWAM(nn.Module):
             self.project_mm_t = ConvGELU3D(dim, dim, kt, dropout)
             self.project_mm_s = ConvGELU3D(dim, dim, (1, 1, 1), dropout)
         else:
-            self.project_mm = nn.Sequential(TokenConv1d(dim, dim), nn.GELU())
+            self.project_mm = _token_mm(dim, dim)
 
     def _single(self, kind: str):
         return self.cfg.kernel_t if kind == "3x3" else (1, 3, 3)
@@ -173,12 +213,7 @@ class SepTPWAM(nn.Module):
         if cfg.self_gate:
             q_t, q_s = self.t_gate_q(q_t), self.s_gate_q(q_s)
         query = _tokens(self._fuse(q_t, q_s, "f_fuse"))
-
-        m = l_mask.to(x.dtype)[:, :, None]
-        key = self.f_key(l) * m
-        value = self.f_value(l) * m
-        lang = cross_attention(query, key, value, l_mask, self.num_heads,
-                               self.dim)
+        lang = self.attend(query, l, l_mask)
         if cfg.w_single_conv:
             lang = _tokens(self.W(_volume(lang, dhw)))
         elif cfg.w_t3x3_s1x1:
@@ -193,8 +228,186 @@ class SepTPWAM(nn.Module):
             mm3d = _volume(mm, dhw)
             return _tokens(self.project_mm_t(mm3d, generator)
                            + self.project_mm_s(mm3d, generator))
-        return dropout(self.project_mm(mm), self.dropout, self.training,
+        return self.project(mm, generator)
+
+
+class SepTPWAMInner(_LangAttention):
+    """Inner-query-only decoupling (reference
+    video_swin_transformer.py:1587-1694): the outer projection one 1x1x1
+    Conv3d (`spatial_vis_project`), the query's temporal (kernel_t) and
+    spatial (kernel_s) ConvIN branches summed; W and project_mm
+    token-wise."""
+
+    def __init__(self, dim: int, lang_dim: int = 768, num_heads: int = 1,
+                 kernel_t=(3, 1, 1), kernel_s=(1, 1, 1),
+                 dropout: float = 0.0):
+        super().__init__()
+        self._lang_init(dim, lang_dim, num_heads, dropout)
+        self.spatial_vis_project = ConvGELU3D(dim, dim, (1, 1, 1), dropout)
+        self.f_query_t = ConvIN3D(dim, dim, kernel_t)
+        self.f_query_s = ConvIN3D(dim, dim, kernel_s)
+        self.W = _token_w(dim)
+        self.project_mm = _token_mm(dim, dim)
+
+    def forward(self, x, l, l_mask, generator=None):
+        xc = x.permute(0, 4, 1, 2, 3).contiguous()
+        vis = _tokens(self.spatial_vis_project(xc, generator))
+        query = _tokens(self.f_query_t(xc) + self.f_query_s(xc))
+        lang = self.W(self.attend(query, l, l_mask))
+        return self.project(vis * lang, generator)
+
+
+class SepSeqTPWAM(_LangAttention):
+    """Decoupled-sequential + parallel-spatial PWAM (reference
+    video_swin_transformer.py:1822-2089): a spatial conv of its own kernel
+    (kernel_sq) then the temporal one (kernel_t), with the P3D-C residual
+    inside that branch under `residual`, plus a parallel spatial branch
+    (kernel_s), for the outer projection and the query; `inner_only`
+    (SepSeqTPWAMInner) makes the outer projection one 1x1x1 conv."""
+
+    def __init__(self, dim: int, lang_dim: int = 768, num_heads: int = 1,
+                 kernel_t=(3, 1, 1), kernel_s=(1, 1, 1), kernel_sq=(1, 1, 1),
+                 residual: bool = False, inner_only: bool = False,
+                 dropout: float = 0.0):
+        super().__init__()
+        self._lang_init(dim, lang_dim, num_heads, dropout)
+        self.residual, self.inner_only = residual, inner_only
+        if inner_only:
+            self.spatial_vis_project = ConvGELU3D(dim, dim, (1, 1, 1),
+                                                  dropout)
+        else:
+            self.spatial_vis_project_q = ConvGELU3D(dim, dim, kernel_sq,
+                                                    dropout)
+            self.temporal_vis_project_q = ConvGELU3D(dim, dim, kernel_t,
+                                                     dropout)
+            self.spatial_vis_project = ConvGELU3D(dim, dim, kernel_s,
+                                                  dropout)
+        self.f_query_s_q = ConvIN3D(dim, dim, kernel_sq)
+        self.f_query_t_q = ConvIN3D(dim, dim, kernel_t)
+        self.f_query_s = ConvIN3D(dim, dim, kernel_s)
+        self.W = _token_w(dim)
+        self.project_mm = _token_mm(dim, dim)
+
+    def forward(self, x, l, l_mask, generator=None):
+        xc = x.permute(0, 4, 1, 2, 3).contiguous()
+        if self.inner_only:
+            vis = self.spatial_vis_project(xc, generator)
+        else:
+            s_q = self.spatial_vis_project_q(xc, generator)
+            t_q = self.temporal_vis_project_q(s_q, generator)
+            if self.residual:
+                t_q = s_q + t_q
+            vis = t_q + self.spatial_vis_project(xc, generator)
+        q_s_q = self.f_query_s_q(xc)
+        q_t = self.f_query_t_q(q_s_q)
+        if self.residual:
+            q_t = q_s_q + q_t
+        query = _tokens(q_t + self.f_query_s(xc))
+        lang = self.W(self.attend(query, l, l_mask))
+        return self.project(_tokens(vis) * lang, generator)
+
+
+class TPWAM(_LangAttention):
+    """Single-branch 3D-conv PWAM (reference video_swin_transformer.py:
+    1186-1236): the outer projection (`vis_project`) and the query
+    (`f_query`) one Conv3d each; with `all_conv3d` (TPWAMComp) W and
+    project_mm Conv3d of the same kernel, else token-wise; `mm_conv` (the
+    kernel of TSPWAM's --mm_3x3 temporal branch) makes project_mm alone a
+    Conv3d."""
+
+    def __init__(self, dim: int, lang_dim: int = 768, num_heads: int = 1,
+                 kernel=(3, 1, 1), all_conv3d: bool = False, mm_conv=None,
+                 dropout: float = 0.0):
+        super().__init__()
+        self._lang_init(dim, lang_dim, num_heads, dropout)
+        self.w_conv = kernel if all_conv3d else None
+        self.mm_conv = mm_conv or (kernel if all_conv3d else None)
+        self.vis_project = ConvGELU3D(dim, dim, kernel, dropout)
+        self.f_query = ConvIN3D(dim, dim, kernel)
+        self.W = (ConvIN3D(dim, dim, self.w_conv) if self.w_conv
+                  else _token_w(dim))
+        self.project_mm = (ConvGELU3D(dim, dim, self.mm_conv, dropout)
+                           if self.mm_conv else _token_mm(dim, dim))
+
+    def forward(self, x, l, l_mask, generator=None):
+        dhw = x.shape[1:4]
+        xc = x.permute(0, 4, 1, 2, 3).contiguous()
+        vis = _tokens(self.vis_project(xc, generator))
+        lang = self.attend(_tokens(self.f_query(xc)), l, l_mask)
+        lang = (_tokens(self.W(_volume(lang, dhw))) if self.w_conv
+                else self.W(lang))
+        mm = vis * lang
+        if self.mm_conv:
+            return _tokens(self.project_mm(_volume(mm, dhw), generator))
+        return self.project(mm, generator)
+
+
+class TSPWAM(nn.Module):
+    """Two parallel PWAMs (reference video_swin_transformer.py:1061-1183):
+    `temporal` (a TPWAM of kernel_t; with --mm_3x3 its project_mm a
+    Conv3d of kernel_t) and `spatial` (1x1x1), summed (BranchFuse.SUM,
+    --tspwam_sum), else concatenated (spatial first) and reduced by
+    `out_reduce`: a token-wise Conv1d + GELU, or with --cat_reduce_3 a
+    (1, 3, 3) Conv3d + GELU."""
+
+    def __init__(self, dim: int, lang_dim: int = 768, num_heads: int = 1,
+                 cfg: TPWAMConfig = TPWAMConfig(), dropout: float = 0.0):
+        super().__init__()
+        self.cfg, self.dropout = cfg, dropout
+        self.temporal = TPWAM(dim, lang_dim, num_heads, cfg.kernel_t,
+                              mm_conv=(cfg.kernel_t
+                                       if cfg.mm_single_conv == "3x3"
+                                       else None), dropout=dropout)
+        self.spatial = TPWAM(dim, lang_dim, num_heads, (1, 1, 1),
+                             dropout=dropout)
+        if cfg.branch_fuse != BranchFuse.SUM:
+            self.out_reduce = (ConvGELU3D(2 * dim, dim, cfg.fuse_kernel,
+                                          dropout)
+                               if cfg.fuse_kernel is not None
+                               else _token_mm(2 * dim, dim))
+
+    def forward(self, x, l, l_mask, generator=None):
+        t = self.temporal(x, l, l_mask, generator)
+        s = self.spatial(x, l, l_mask, generator)
+        if self.cfg.branch_fuse == BranchFuse.SUM:
+            return t + s
+        out = torch.cat([s, t], dim=-1)
+        if self.cfg.fuse_kernel is not None:
+            return _tokens(self.out_reduce(_volume(out, x.shape[1:4]),
+                                           generator))
+        return dropout(self.out_reduce(out), self.dropout, self.training,
                        generator)
+
+
+class SeqTPWAM(_LangAttention):
+    """P3D-A style sequential spatial -> temporal PWAM (reference
+    video_swin_transformer.py:1697-1819), with the P3D-C residual under
+    `residual`: the outer projection and the query each a spatial conv
+    (kernel_s) followed by a temporal one (kernel_t)."""
+
+    def __init__(self, dim: int, lang_dim: int = 768, num_heads: int = 1,
+                 kernel_t=(3, 1, 1), kernel_s=(1, 3, 3),
+                 residual: bool = False, dropout: float = 0.0):
+        super().__init__()
+        self._lang_init(dim, lang_dim, num_heads, dropout)
+        self.residual = residual
+        self.spatial_vis_project = ConvGELU3D(dim, dim, kernel_s, dropout)
+        self.temporal_vis_project = ConvGELU3D(dim, dim, kernel_t, dropout)
+        self.f_query_s = ConvIN3D(dim, dim, kernel_s)
+        self.f_query_t = ConvIN3D(dim, dim, kernel_t)
+        self.W = _token_w(dim)
+        self.project_mm = _token_mm(dim, dim)
+
+    def forward(self, x, l, l_mask, generator=None):
+        xc = x.permute(0, 4, 1, 2, 3).contiguous()
+        s_vis = self.spatial_vis_project(xc, generator)
+        t_vis = self.temporal_vis_project(s_vis, generator)
+        vis = t_vis + s_vis if self.residual else t_vis
+        q_s = self.f_query_s(xc)
+        q_t = self.f_query_t(q_s)
+        query = _tokens(q_t + q_s if self.residual else q_t)
+        lang = self.W(self.attend(query, l, l_mask))
+        return self.project(_tokens(vis) * lang, generator)
 
 
 class ClipPWAM(PWAM):
@@ -208,15 +421,33 @@ class ClipPWAM(PWAM):
 
 
 def build_tpwam(cfg: TPWAMConfig, dim: int, num_heads: int,
-                lang_dim: int = 768, dropout: float = 0.0) -> nn.Module:
-    """The 3D fusion module of one video stage: SepTPWAM or the clip-wide
-    2D PWAM, with `dropout` (`fusion.dropout`) in training; the other
-    variants are in the long-tail slice."""
-    if cfg.kind == TPWAMKind.SEP:
+                lang_dim: int = 768, dropout: float = 0.0,
+                fusion: Optional[FusionConfig] = None) -> nn.Module:
+    """The 3D fusion module of one video stage (JAX `build_tpwam`, the
+    reference's eight flags), with `dropout` (`fusion.dropout`) in
+    training; the clip-wide 2D PWAM takes `fusion`'s attention form
+    (LangProject under --fuse simple) and att_norm."""
+    k = cfg.kind
+    if k == TPWAMKind.SEP:
         return SepTPWAM(dim, lang_dim, num_heads, cfg, dropout)
-    if cfg.kind == TPWAMKind.PWAM2D:
-        return ClipPWAM(dim, lang_dim, num_heads, dropout=dropout)
-    raise NotImplementedError(
-        f"3D PWAM kind {cfg.kind.value!r}: only SepTPWAM and the 2D PWAM are "
-        "ported; the other variants are in the long-tail slice (ROADMAP.md "
-        "item 3, slice 5)")
+    if k == TPWAMKind.SEP_INNER:
+        return SepTPWAMInner(dim, lang_dim, num_heads, cfg.kernel_t,
+                             cfg.kernel_s, dropout)
+    if k in (TPWAMKind.T, TPWAMKind.T_COMP):
+        return TPWAM(dim, lang_dim, num_heads, cfg.kernel_t,
+                     all_conv3d=k == TPWAMKind.T_COMP, dropout=dropout)
+    if k == TPWAMKind.TS:
+        return TSPWAM(dim, lang_dim, num_heads, cfg, dropout)
+    if k == TPWAMKind.SEQ:
+        return SeqTPWAM(dim, lang_dim, num_heads, cfg.kernel_t, cfg.kernel_s,
+                        cfg.seq_residual, dropout)
+    if k in (TPWAMKind.SEP_SEQ, TPWAMKind.SEP_SEQ_INNER):
+        return SepSeqTPWAM(dim, lang_dim, num_heads, cfg.kernel_t,
+                           cfg.kernel_s, cfg.kernel_sq, cfg.seq_residual,
+                           k == TPWAMKind.SEP_SEQ_INNER, dropout)
+    if k == TPWAMKind.PWAM2D:
+        fusion = fusion or FusionConfig()
+        return ClipPWAM(dim, lang_dim, num_heads,
+                        attention=fusion.kind != FusionKind.SIMPLE,
+                        att_norm=fusion.att_norm, dropout=dropout)
+    raise ValueError(f"unknown 3D PWAM kind: {k}")

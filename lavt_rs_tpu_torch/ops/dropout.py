@@ -69,3 +69,24 @@ def drop_path(x: torch.Tensor, rate: float, training: bool,
     return drop_path_apply(
         x, drop_path_kept(x.shape[0], rate, training, generator, x.device),
         rate)
+
+
+def dropout_seed(rate: float, training: bool,
+                 generator: Optional[torch.Generator],
+                 device) -> Optional[int]:
+    """A seed for a block's own dropout generator (`seeded`), drawn from
+    `generator`; None where nothing is drawn (eval mode or rate 0).  A
+    Swin block draws its dropout masks (Swin `drop_rate`) from a generator
+    of its own, made from this seed when the block runs, so that a
+    checkpointed block's recompute draws the masks of its forward."""
+    if not training or rate == 0.0:
+        return None
+    return int(torch.randint(0, 2 ** 62, (1,), generator=_need(generator),
+                             device=device).item())
+
+
+def seeded(seed: Optional[int], device) -> Optional[torch.Generator]:
+    """The generator of a `dropout_seed` on `device` (None for None)."""
+    if seed is None:
+        return None
+    return torch.Generator(device=device).manual_seed(seed)

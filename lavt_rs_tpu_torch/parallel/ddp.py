@@ -14,7 +14,10 @@ and the BatchNorm statistics come out global.  Here:
   * `SyncBatchNorm2d`, `SyncBatchNorm1d` / `convert_sync_bn`: BatchNorm
     over the global batch, by `all_reduce` alone (gloo has no all_gather
     of CUDA tensors, which `nn.SyncBatchNorm` takes, and `nn.SyncBatchNorm`
-    does not run on CPU tensors).
+    does not run on CPU tensors): the decoders' BatchNorm2d, VLT's
+    sentence BatchNorm1d and PWAM's BatchNorm1d att_norm
+    (--att_norm_layer_type bn, over (B, C, L) tokens), as the JAX
+    package's batch statistics are over its sharded batch.
 Each process's batch is its own: -b is per process, as in the reference
 (DistributedSampler); the JAX package's -b is the global batch.
 """
@@ -83,16 +86,16 @@ def unwrap(model: nn.Module) -> nn.Module:
 
 def _channel_dims(x):
     """The dims BatchNorm reduces over (all but C = dim 1) and C's
-    broadcast shape: (N, C) or (N, C, H, W)."""
+    broadcast shape: (N, C), (N, C, L) or (N, C, H, W)."""
     c = x.shape[1]
     return ((0,) + tuple(range(2, x.dim())),
             (1, c) + (1,) * (x.dim() - 2))
 
 
 class _SyncBatchNormFn(torch.autograd.Function):
-    """Training-mode BatchNorm over every process's batch ((N, C) or (N, C,
-    H, W)): forward and backward each take one all_reduce of per-channel
-    sums."""
+    """Training-mode BatchNorm over every process's batch ((N, C), (N, C,
+    L) or (N, C, H, W)): forward and backward each take one all_reduce of
+    per-channel sums."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, eps):
@@ -158,7 +161,7 @@ class SyncBatchNorm2d(_SyncBatchNorm, nn.BatchNorm2d):
 
 class SyncBatchNorm1d(_SyncBatchNorm, nn.BatchNorm1d):
     """nn.BatchNorm1d over every process's batch (VLT's sentence
-    projection)."""
+    projection, PWAM's BN att_norm)."""
 
 
 _SYNC = {nn.BatchNorm2d: SyncBatchNorm2d, nn.BatchNorm1d: SyncBatchNorm1d}

@@ -15,6 +15,10 @@
 Labels are read from the port's state-dict names, which are the reference
 PyTorch ones (`backbone.layers.N...`, `text_encoder.encoder.layer.N...`;
 for lavt `model.backbone...` and `bert_model.encoder.layer.N...`).
+The PWAM attention's LayerNorm / BatchNorm att_norm (`image_lang_att.
+f_query.1`, `image_lang_att.W.1`) takes no decay, as the JAX package
+labels its `f_query_norm` / `W_norm`; the reference's name rule decays
+them (their names hold no 'norm').
 """
 
 from __future__ import annotations
@@ -49,7 +53,8 @@ class TrainConfig:
 
 
 _NO_DECAY_RE = re.compile(
-    r"norm|absolute_pos_embed|relative_position_bias_table")
+    r"norm|absolute_pos_embed|relative_position_bias_table"
+    r"|image_lang_att\.(?:f_query|W)\.1\.")
 # 'text_encoder' = the BERT inside the model; 'bert_model' = lavt's BERT
 # beside its segmentation net `model` (reference train.py:634-686 applies
 # the same rules to both)

@@ -401,10 +401,11 @@ def test_reference_checkpoint_loads(pair, tmp_path, prefix,  # noqa: F811
 
 
 def test_cli_refuses_what_is_not_ported():
+    """The test CLI's refusals; the fusion baselines, once refused here,
+    run (tests/test_torch_variants_cli.py)."""
     for extra, where in ((["--dataset", "ytvos"], "slice 3"),
                          (["--save_vis", "out"], "item 27"),
-                         (["--save_feats", "out"], "item 27"),
-                         (["--bcam"], "slice 5")):
+                         (["--save_feats", "out"], "item 27")):
         with pytest.raises(NotImplementedError, match=where):
             cli_test.main(["--synthetic", "--device", "cpu"] + extra)
 

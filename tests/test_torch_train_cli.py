@@ -265,13 +265,36 @@ def test_combined_pretrain_concatenates_three_sources(
     assert train_ds[5].ids.shape == (22,)
 
 
+class _Built(Exception):
+    """Raised by a patched model_config_from_args: the config is built."""
+
+
 @pytest.mark.parametrize("extra,where", [
-    (["--bcam"], "slice 5"),
-    (["--fuse", "simple"], "slice 5"),
+    (["--bcam"], "bcam"),
+    (["--fuse", "simple"], "simple"),
 ])
-def test_cli_refuses_what_is_not_ported(extra, where):
-    with pytest.raises(NotImplementedError, match=where):
+def test_cli_refuses_what_is_not_ported(extra, where, monkeypatch):
+    """The fusion flags the CLI once refused (ROADMAP.md item 3) now build:
+    `cli.train` makes the config whose fusion fields are the JAX
+    package's `model_config_from_args`'s (they train in
+    tests/test_torch_variants_cli.py)."""
+    from lavt_rs_tpu.cli import args as jcli_args
+    from lavt_rs_tpu.cli import train as jcli_train
+    from test_torch_eval import _plain
+
+    built = []
+
+    def capture(args):
+        built.append(cli_args.model_config_from_args(args))
+        raise _Built
+
+    monkeypatch.setattr(cli_train, "model_config_from_args", capture)
+    with pytest.raises(_Built):
         cli_train.main(["--device", "cpu"] + extra)
+    want = jcli_args.model_config_from_args(
+        jcli_train.get_parser().parse_args(extra)).fusion
+    assert built[0].fusion.kind.value == where
+    assert _plain(built[0].fusion) == _plain(want)
 
 
 @pytest.mark.parametrize("extra,raises,match", [

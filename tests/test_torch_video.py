@@ -302,14 +302,24 @@ def test_sep_tpwam(rng):
 
 
 def test_build_tpwam_kinds():
+    """Each 3D PWAM kind builds its class (JAX `build_tpwam`)."""
+    classes = {C.TPWAMKind.SEP: tpwam.SepTPWAM,
+               C.TPWAMKind.PWAM2D: tpwam.ClipPWAM,
+               C.TPWAMKind.SEP_INNER: tpwam.SepTPWAMInner,
+               C.TPWAMKind.T: tpwam.TPWAM, C.TPWAMKind.T_COMP: tpwam.TPWAM,
+               C.TPWAMKind.TS: tpwam.TSPWAM, C.TPWAMKind.SEQ: tpwam.SeqTPWAM,
+               C.TPWAMKind.SEP_SEQ: tpwam.SepSeqTPWAM,
+               C.TPWAMKind.SEP_SEQ_INNER: tpwam.SepSeqTPWAM}
+    assert set(classes) == set(C.TPWAMKind)
     cfg = C.TPWAMConfig()
-    assert isinstance(tpwam.build_tpwam(cfg, 8, 1, 16), tpwam.SepTPWAM)
-    pw = tpwam.build_tpwam(dataclasses.replace(cfg, kind=C.TPWAMKind.PWAM2D),
-                           8, 1, 16)
-    assert isinstance(pw, tpwam.ClipPWAM)
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        tpwam.build_tpwam(dataclasses.replace(cfg, kind=C.TPWAMKind.TS), 8, 1,
-                          16)
+    for kind, cls in classes.items():
+        m = tpwam.build_tpwam(dataclasses.replace(cfg, kind=kind), 8, 1, 16)
+        assert type(m) is cls, kind
+    comp = tpwam.build_tpwam(dataclasses.replace(cfg, kind=C.TPWAMKind.T_COMP),
+                             8, 1, 16)
+    assert comp.w_conv == comp.mm_conv == cfg.kernel_t
+    assert tpwam.build_tpwam(dataclasses.replace(
+        cfg, kind=C.TPWAMKind.SEP_SEQ_INNER), 8, 1, 16).inner_only
 
 
 # -- the whole small model -----------------------------------------------------
